@@ -1,0 +1,128 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel source under ``backends/csrc/`` exports a plain C interface
+and is compiled on first use with ``nvcc`` straight into a shared
+library, loaded with ctypes. PyTorch's own extension builder is not used:
+it needs ninja and compiles PyTorch's headers, which takes minutes where
+a plain-C source takes seconds.
+
+- The library lands in the kernel directory ([build] kernel_dir, by
+  default ``build/torch_kernels`` beside the package), named by a hash of
+  the source and the flags, so an edited source or flag rebuilds.
+- A file lock serialises processes that build the same library at once;
+  the finished file is renamed into place, so a reader never sees half.
+- A missing ``nvcc`` or a failed build raises `BackendError`. Nothing
+  falls back to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+from nnstreamer_tpu_torch.core.config import get_config
+from nnstreamer_tpu_torch.core.errors import BackendError
+from nnstreamer_tpu_torch.core.log import get_logger
+
+log = get_logger("cuda_build")
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+#: sm_90a: Hopper with its architecture-specific instructions
+NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def kernel_dir() -> Path:
+    d = get_config().get("build", "kernel_dir")
+    if d:
+        return Path(d).expanduser()
+    return Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, /usr/local/cuda/bin, then PATH."""
+    for home in (os.environ.get("CUDA_HOME"), DEFAULT_CUDA_HOME):
+        if home and os.access(os.path.join(home, "bin", "nvcc"), os.X_OK):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise BackendError(
+            "cannot build the CUDA kernels: nvcc not found (looked in "
+            "$CUDA_HOME/bin, /usr/local/cuda/bin and PATH). Install the CUDA "
+            "toolkit on this machine; the port does not fall back to its "
+            "plain torch kernels on a CUDA device")
+    return found
+
+
+def library_path(source: str, flags: List[str] = NVCC_FLAGS) -> Path:
+    src = (CSRC / source).read_bytes()
+    key = hashlib.sha256(src + "\0".join(flags).encode()).hexdigest()[:16]
+    return kernel_dir() / f"{Path(source).stem}-{key}.so"
+
+
+def build(source: str, flags: List[str] = NVCC_FLAGS) -> Path:
+    """Compile `csrc/<source>` unless the hashed library exists → path.
+    The compiler's resource report (-Xptxas -v) is kept beside it, same
+    name with the suffix ``.log``."""
+    out = library_path(source, flags)
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if out.exists():  # another process built it while we waited
+                return out
+            tmp = out.with_suffix(f".tmp{os.getpid()}")
+            cmd = [nvcc, *flags, "-o", str(tmp), str(CSRC / source)]
+            log.info("building %s: %s", source, " ".join(cmd))
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise BackendError(
+                    f"nvcc failed ({proc.returncode}) building {source}:\n"
+                    f"{proc.stderr[-4000:]}")
+            out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            os.replace(tmp, out)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return out
+
+
+def load(source: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
+    """Build (if needed) and load the library of `csrc/<source>`, once
+    per process. `signatures` maps each exported function to its
+    (argtypes, restype); pointers must be c_void_p, or ctypes cuts them
+    to 32 bits."""
+    with _lock:
+        lib = _loaded.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(source)))
+            sigs = {"nns_error_string": ([ctypes.c_int], ctypes.c_char_p),
+                    **signatures}
+            for name, (argtypes, restype) in sigs.items():
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, restype
+            _loaded[source] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error (cudaGetLastError after
+    the launch: a refused launch never runs, and no later synchronize
+    would report it)."""
+    if err != 0:
+        raise BackendError(
+            f"{what}: CUDA error {err} "
+            f"({lib.nns_error_string(err).decode()})")

@@ -1,0 +1,161 @@
+"""Torch backend — the model-execution engine (counterpart of the JAX
+package's backends/xla.py), registered as ``torch`` and as ``xla`` so
+reference pipeline strings run verbatim.
+
+A model is a callable ``fn(params, *inputs) -> outputs`` plus its params
+(an ``nn.Module``, a dict of tensors, or None). Sources of models:
+
+- the in-repo model zoo (``model=zoo://mobilenet_v2``) — models/zoo.py
+- a `ModelBundle` or a callable passed programmatically to the element
+
+The backend runs eagerly on its device (`pick_device`). Fused pre/post
+chains run on the device around the model, after staging, so a uint8
+frame crosses to the device as uint8. `invoke` returns without waiting
+for the device; the sink or host decoder that reads the result is the
+sync point.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from nnstreamer_tpu_torch.backends.base import (
+    ArrayTuple, ElementwiseFn, FilterBackend, pick_device, register_backend)
+from nnstreamer_tpu_torch.core.errors import BackendError
+from nnstreamer_tpu_torch.core.log import get_logger
+from nnstreamer_tpu_torch.tensor.dtypes import DType
+from nnstreamer_tpu_torch.tensor.info import TensorInfo, TensorsSpec
+
+log = get_logger("backend.torch")
+
+
+@dataclass
+class ModelBundle:
+    """A loadable model: function + params + optional fixed specs."""
+
+    fn: Callable[..., Any]            # fn(params, *inputs) -> output(s)
+    params: Any = None                # nn.Module | dict of tensors | None
+    in_spec: Optional[TensorsSpec] = None
+    out_spec: Optional[TensorsSpec] = None
+    name: str = ""
+
+
+def to_tuple(x) -> Tuple:
+    if isinstance(x, tuple):
+        return x
+    if isinstance(x, list):
+        return tuple(x)
+    return (x,)
+
+
+def params_to(params, device: torch.device):
+    """Move a model's params to `device`: an nn.Module in place (and into
+    eval mode), a (nested) dict of tensors by copy."""
+    if isinstance(params, torch.nn.Module):
+        return params.to(device).eval()
+    if isinstance(params, torch.Tensor):
+        return params.to(device)
+    if isinstance(params, dict):
+        return {k: params_to(v, device) for k, v in params.items()}
+    return params
+
+
+def stage(arrs, device: torch.device) -> Tuple[ArrayTuple, int]:
+    """Move inputs to `device`, skipping tensors already there. Host
+    numpy crosses in its own dtype (a uint8 frame stays 1 byte/element).
+    → (staged tensors, number of transfers made)."""
+    staged = []
+    transfers = 0
+    for a in arrs:
+        if isinstance(a, torch.Tensor) and a.device == device:
+            staged.append(a)
+            continue
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(a))
+        staged.append(t.to(device, non_blocking=True))
+        transfers += 1
+    return tuple(staged), transfers
+
+
+@register_backend("torch", "xla")
+class TorchBackend(FilterBackend):
+    def __init__(self):
+        self._bundle: Optional[ModelBundle] = None
+        self._params = None
+        self._pre: Optional[ElementwiseFn] = None
+        self._post: Optional[ElementwiseFn] = None
+        self.device: Optional[torch.device] = None
+        # inputs that were already on the device skip the copy
+        self.staging_transfers = 0
+        self.staging_elided = 0
+
+    def open(self, props: Dict[str, Any]) -> None:
+        model = props.get("model")
+        if model is None:
+            raise BackendError(
+                "framework=torch requires model=<zoo://name | ModelBundle | "
+                "callable>")
+        self.device = pick_device(props.get("accelerator") or "")
+        self._bundle = self._resolve(model)
+        self._params = params_to(self._bundle.params, self.device)
+        log.info("opened model %s on %s", self._bundle.name or model,
+                 self.device)
+
+    def _resolve(self, model) -> ModelBundle:
+        if isinstance(model, ModelBundle):
+            return model
+        if isinstance(model, str) and model.startswith("zoo://"):
+            from nnstreamer_tpu_torch.models.zoo import build_model
+
+            return build_model(model[len("zoo://"):])
+        if callable(model):
+            return ModelBundle(fn=lambda params, *xs: model(*xs),
+                               in_spec=getattr(model, "in_spec", None),
+                               out_spec=getattr(model, "out_spec", None),
+                               name=getattr(model, "__name__", "callable"))
+        raise BackendError(
+            f"unrecognized model reference {model!r} for framework=torch; "
+            f"expected zoo://<name>, a ModelBundle, or a callable")
+
+    def close(self) -> None:
+        self._params = None
+
+    def get_model_info(self):
+        return self._bundle.in_spec, self._bundle.out_spec
+
+    def set_input_info(self, in_spec: TensorsSpec) -> TensorsSpec:
+        """Infer the model's output spec by running the bare model once on
+        zeros of `in_spec` on the target device (fused chains do not take
+        part: `in_spec` is already what the model sees)."""
+        zeros = [torch.zeros(t.shape, dtype=t.dtype.torch_dtype,
+                             device=self.device) for t in in_spec.tensors]
+        try:
+            with torch.inference_mode():
+                out = to_tuple(self._bundle.fn(self._params, *zeros))
+        except Exception as e:
+            raise BackendError(
+                f"model {self._bundle.name!r} does not accept input "
+                f"{in_spec}: {e}") from e
+        return TensorsSpec(tensors=tuple(
+            TensorInfo(tuple(o.shape), DType.of(o)) for o in out))
+
+    def fuse(self, pre: Optional[ElementwiseFn],
+             post: Optional[ElementwiseFn]) -> bool:
+        self._pre, self._post = pre, post
+        return True
+
+    def invoke(self, tensors: ArrayTuple) -> ArrayTuple:
+        xs, transfers = stage(tensors, self.device)
+        self.staging_transfers += transfers
+        self.staging_elided += len(xs) - transfers
+        with torch.inference_mode():
+            if self._pre is not None:
+                xs = self._pre(xs)
+            out = to_tuple(self._bundle.fn(self._params, *xs))
+            if self._post is not None:
+                out = to_tuple(self._post(out))
+        return out

@@ -1,0 +1,104 @@
+"""Layered configuration (reference: gst/nnstreamer/nnstreamer_conf.c).
+
+Priority, highest first:
+
+1. Environment: ``NNSTREAMER_TPU_TORCH_<GROUP>_<KEY>`` (e.g.
+   ``NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR=cpu``).
+2. Ini file: path from ``NNSTREAMER_TPU_TORCH_CONF``, else
+   ``~/.config/nnstreamer_tpu_torch.ini``.
+3. Built-in defaults.
+
+The port's prefix differs from the JAX package's, so one process can
+configure both packages independently.
+"""
+
+from __future__ import annotations
+
+import configparser
+import os
+import threading
+from pathlib import Path
+from typing import Dict, Optional
+
+from nnstreamer_tpu_torch.core.errors import ConfigError
+
+ENV_PREFIX = "NNSTREAMER_TPU_TORCH_"
+CONF_ENV = "NNSTREAMER_TPU_TORCH_CONF"
+
+_DEFAULTS: Dict[str, Dict[str, str]] = {
+    "filter": {
+        "default_backend": "torch",
+        # where a filter runs when its accelerator= property is empty.
+        # The card is the default; the CPU runs only when asked for
+        # (accelerator=cpu on the filter, or this key set to "cpu").
+        "accelerator": "cuda",
+    },
+    "runtime": {
+        "queue_capacity": "4",       # per-link buffer queue depth
+        # bounded async-dispatch window: unresolved device results a
+        # DEVICE_RESIDENT element may have in flight before its worker
+        # syncs the oldest; 0 = sync after every dispatch
+        "max_inflight": "8",
+    },
+    "build": {
+        # directory the hand-written kernels are compiled into; empty =
+        # build/torch_kernels beside the package
+        "kernel_dir": "",
+    },
+}
+
+
+class Config:
+    def __init__(self, path: Optional[str] = None):
+        self._ini: Dict[str, Dict[str, str]] = {}
+        candidates = [path] if path else [
+            os.environ.get(CONF_ENV),
+            os.path.expanduser("~/.config/nnstreamer_tpu_torch.ini"),
+        ]
+        for cand in candidates:
+            if cand and Path(cand).is_file():
+                self._load_ini(cand)
+                break
+
+    def _load_ini(self, path: str) -> None:
+        parser = configparser.ConfigParser()
+        try:
+            parser.read(path)
+        except configparser.Error as e:
+            raise ConfigError(f"failed to parse config file {path}: {e}") from e
+        for section in parser.sections():
+            self._ini.setdefault(section.lower(), {}).update(
+                {k.lower(): v for k, v in parser.items(section)})
+
+    def get(self, group: str, key: str,
+            default: Optional[str] = None) -> Optional[str]:
+        """env > ini > built-in > `default`."""
+        group, key = group.lower(), key.lower()
+        env = os.environ.get(f"{ENV_PREFIX}{group.upper()}_{key.upper()}")
+        if env is not None:
+            return env
+        if key in self._ini.get(group, {}):
+            return self._ini[group][key]
+        return _DEFAULTS.get(group, {}).get(key, default)
+
+    def get_int(self, group: str, key: str, default: int = 0) -> int:
+        v = self.get(group, key)
+        if v is None:
+            return default
+        try:
+            return int(v)
+        except ValueError:
+            raise ConfigError(
+                f"config [{group}] {key}={v!r} is not an integer") from None
+
+
+_global: Optional[Config] = None
+_global_lock = threading.Lock()
+
+
+def get_config() -> Config:
+    global _global
+    with _global_lock:
+        if _global is None:
+            _global = Config()
+        return _global

@@ -1,0 +1,22 @@
+"""Pipeline elements. Importing this package registers every built-in
+element with the port's ELEMENT registry."""
+
+from nnstreamer_tpu_torch.elements.converter import TensorConverter
+from nnstreamer_tpu_torch.elements.decoder import TensorDecoder, register_decoder
+from nnstreamer_tpu_torch.elements.filter import TensorFilter
+from nnstreamer_tpu_torch.elements.sinks import FakeSink, TensorSink
+from nnstreamer_tpu_torch.elements.sources import AppSrc, VideoTestSrc
+from nnstreamer_tpu_torch.elements.transform import TensorTransform, TransformProgram
+
+__all__ = [
+    "AppSrc",
+    "FakeSink",
+    "TensorConverter",
+    "TensorDecoder",
+    "TensorFilter",
+    "TensorSink",
+    "TensorTransform",
+    "TransformProgram",
+    "VideoTestSrc",
+    "register_decoder",
+]

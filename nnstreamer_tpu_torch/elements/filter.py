@@ -1,0 +1,136 @@
+"""tensor_filter — the model-execution element, per-frame path.
+
+Reference parity: gst/nnstreamer/tensor_filter/tensor_filter.c +
+tensor_filter_common.c: backend open at negotiation, model-info-driven
+negotiation (set-input-info for adaptive models), invoke error
+propagation. Input/output overrides, combinations, batching and the
+other JAX-package properties wait for later slices.
+
+- `framework=` picks the backend (torch, alias xla; pallas for the
+  hand-written kernels); empty means [filter] default_backend (torch).
+- **Fusion**: `set_fusion()` receives the programs of adjacent
+  tensor_transform elements removed by graph/optimize.py; an accepting
+  backend runs them on the device. A refusing backend gets them applied
+  here, so results never depend on fusion.
+- Invoke does not wait for the device: outputs flow downstream as tensors
+  whose work may still be queued.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Sequence
+
+from nnstreamer_tpu_torch.backends import pallas_backend, torch_backend  # noqa: F401 (register)
+from nnstreamer_tpu_torch.backends.base import FilterBackend, get_backend
+from nnstreamer_tpu_torch.core.config import get_config
+from nnstreamer_tpu_torch.core.errors import BackendError, PipelineError
+from nnstreamer_tpu_torch.core.registry import register_element
+from nnstreamer_tpu_torch.graph.optimize import chain_fn, transfer_spec
+from nnstreamer_tpu_torch.graph.pipeline import Element, Emission, PropDef, StreamSpec
+from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+
+@register_element("tensor_filter")
+class TensorFilter(Element):
+    ELEMENT_NAME = "tensor_filter"
+    DEVICE_RESIDENT = True
+    PROPS = {
+        "framework": PropDef(str, "", "backend name (torch|xla|pallas)"),
+        "model": PropDef(lambda s: s, None, "model reference (backend-specific)"),
+        "accelerator": PropDef(str, "", "device: cuda, cuda:<i> or cpu "
+                                        "(empty: [filter] accelerator)"),
+    }
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self.backend: Optional[FilterBackend] = None
+        self._pre: Optional[Callable] = None   # fused pre chain
+        self._post: Optional[Callable] = None
+        self._pre_programs: list = []
+        self._post_programs: list = []
+        self._fused_in_backend = False
+        self._fused_decoder = None             # device-decode subplugin
+
+    # -- fusion (called by graph/optimize.py) ------------------------------
+    def set_fusion(self, pre_programs, post_programs) -> None:
+        """Absorb removed transform elements' compiled programs."""
+        self._pre_programs = pre_programs or []
+        self._post_programs = post_programs or []
+        self._pre = chain_fn(self._pre_programs)
+        self._post = chain_fn(self._post_programs)
+
+    def set_decoder_fusion(self, sub) -> None:
+        """Absorb a downstream `tensor_decoder device=true` subplugin: its
+        device_decode runs right after the model (+ post transforms), so
+        only the compact result leaves the device."""
+        self._fused_decoder = sub
+        base_post = self._post
+
+        def post(tensors):
+            if base_post is not None:
+                tensors = base_post(tensors)
+            return tuple(sub.device_decode(tuple(tensors)))
+
+        self._post = post
+
+    # -- negotiation / backend open ---------------------------------------
+    def _framework_name(self) -> str:
+        return (self.props["framework"]
+                or get_config().get("filter", "default_backend") or "torch")
+
+    def negotiate(self, in_specs: Sequence[StreamSpec]) -> List[StreamSpec]:
+        spec = self.expect_tensors(in_specs[0])
+        fw = self._framework_name()
+        try:
+            self.backend = get_backend(fw)
+        except PipelineError as e:
+            self.fail_negotiation(str(e))
+        try:
+            self.backend.open(dict(self.props))
+        except BackendError as e:
+            self.fail_negotiation(f"backend {fw!r} failed to open model: {e}")
+        if self._pre is not None or self._post is not None:
+            self._fused_in_backend = self.backend.fuse(self._pre, self._post)
+
+        model_in, model_out = self.backend.get_model_info()
+        # what the model itself sees after any fused pre-chain
+        model_sees = transfer_spec(self._pre_programs, spec)
+        if model_in is not None and not model_in.is_compatible(model_sees):
+            self.fail_negotiation(
+                f"model expects input {model_in} but receives {model_sees}"
+                + (f" (= {spec} after fused pre-transforms)"
+                   if self._pre_programs else "")
+                + ". Fix the upstream pipeline (converter/transform dims)")
+        if model_out is None:
+            try:
+                model_out = self.backend.set_input_info(model_sees)
+            except BackendError as e:
+                self.fail_negotiation(str(e))
+        model_out = transfer_spec(self._post_programs, model_out)
+        if self._fused_decoder is not None:
+            try:
+                model_out = self._fused_decoder.device_negotiate(model_out)
+            except (ValueError, PipelineError) as e:
+                self.fail_negotiation(
+                    f"fused device decoder rejected model output "
+                    f"{model_out}: {e}")
+        return [model_out.with_rate(spec.rate)]
+
+    def stop(self) -> None:
+        if self.backend is not None:
+            self.backend.close()
+
+    # -- hot loop ----------------------------------------------------------
+    def process(self, pad: int, buf: TensorBuffer) -> List[Emission]:
+        inputs = buf.tensors
+        if self._pre is not None and not self._fused_in_backend:
+            inputs = self._pre(inputs)
+        try:
+            outputs = self.backend.invoke(inputs)
+        except Exception as e:
+            raise BackendError(
+                f"tensor_filter {self.name}: invoke failed on frame "
+                f"pts={buf.pts}: {e}") from e
+        if self._post is not None and not self._fused_in_backend:
+            outputs = self._post(outputs)
+        return [(0, buf.with_tensors(outputs))]

@@ -1,0 +1,294 @@
+"""Pipeline graph model and build-time negotiation.
+
+Elements, pads, links, and a single-pass static negotiation that assigns
+every link a `TensorsSpec`/`MediaSpec` before any data flows (the
+caps-negotiation analog, run once).
+
+Element model (push-based):
+
+- `SourceElement.generate()` yields buffers (driven by the scheduler).
+- `Element.process(pad, buf)` → list of (src_pad, buffer) to emit.
+- `Element.negotiate(in_specs)` → out_specs, raising NegotiationError
+  with actionable messages.
+
+Properties are constructor kwargs; string values arrive from the DSL and
+are coerced by each element's `PROPS` declaration.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
+
+from nnstreamer_tpu_torch.core.errors import NegotiationError, PipelineError
+from nnstreamer_tpu_torch.core.log import get_logger
+from nnstreamer_tpu_torch.graph.media import MediaSpec
+from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+from nnstreamer_tpu_torch.tensor.info import TensorsSpec
+
+log = get_logger("graph")
+
+StreamSpec = Union[TensorsSpec, MediaSpec]
+Emission = Tuple[int, TensorBuffer]  # (src pad index, buffer)
+
+
+@dataclass
+class PropDef:
+    """One declared element property: parser, default, doc."""
+
+    parse: Callable[[str], Any]
+    default: Any = None
+    doc: str = ""
+
+
+def prop_bool(s) -> bool:
+    if isinstance(s, bool):
+        return s
+    return str(s).strip().lower() in ("1", "true", "yes", "on")
+
+
+class Element:
+    """Base pipeline element.
+
+    Subclasses declare ELEMENT_NAME (DSL name), sink/src pad counts, a
+    PROPS table, and implement negotiate()/process().
+    """
+
+    ELEMENT_NAME: str = ""
+    NUM_SINK_PADS: int = 1
+    NUM_SRC_PADS: int = 1
+    PROPS: Dict[str, PropDef] = {}
+    #: outputs may leave as tensors whose device work is still queued:
+    #: the scheduler does not wait for them before passing them on, and
+    #: bounds how many are in flight ([runtime] max_inflight)
+    DEVICE_RESIDENT: bool = False
+
+    def __init__(self, name: Optional[str] = None, **props):
+        self.name = name or f"{self.ELEMENT_NAME}{id(self) & 0xFFFF:x}"
+        self.props: Dict[str, Any] = {k: d.default for k, d in self.PROPS.items()}
+        self.set_props(**props)
+        self.in_specs: List[Optional[StreamSpec]] = []
+        self.out_specs: List[Optional[StreamSpec]] = []
+
+    def set_props(self, **props) -> None:
+        for key, value in props.items():
+            k = key.replace("-", "_")
+            pd = self.PROPS.get(k)
+            if pd is None:
+                valid = sorted(p.replace("_", "-") for p in self.PROPS)
+                raise PipelineError(
+                    f"element {self.ELEMENT_NAME!r} ({self.name}) has no "
+                    f"property {key!r}; valid properties: {valid}")
+            try:
+                self.props[k] = pd.parse(value) if isinstance(value, str) else value
+            except (ValueError, TypeError) as e:
+                raise PipelineError(
+                    f"bad value {value!r} for property {key!r} of element "
+                    f"{self.name}: {e}") from e
+
+    def negotiate(self, in_specs: Sequence[StreamSpec]) -> List[StreamSpec]:
+        """Compute output specs from input specs. Runs once, build time."""
+        raise NotImplementedError
+
+    def fail_negotiation(self, msg: str) -> None:
+        raise NegotiationError(f"element {self.name} ({self.ELEMENT_NAME}): {msg}")
+
+    def expect_tensors(self, spec: StreamSpec, pad: int = 0) -> TensorsSpec:
+        if not isinstance(spec, TensorsSpec):
+            self.fail_negotiation(
+                f"sink pad {pad} requires a tensor stream but got "
+                f"{type(spec).__name__} ({spec}); insert a tensor_converter "
+                f"upstream to turn media into tensors")
+        return spec
+
+    def stop(self) -> None:
+        """Called at teardown."""
+
+    def process(self, pad: int, buf: TensorBuffer) -> List[Emission]:
+        raise NotImplementedError
+
+    def flush(self) -> List[Emission]:
+        """Drain internal state at EOS."""
+        return []
+
+    def __repr__(self):
+        return f"<{type(self).__name__} {self.name}>"
+
+
+class SourceElement(Element):
+    NUM_SINK_PADS = 0
+
+    def negotiate(self, in_specs: Sequence[StreamSpec]) -> List[StreamSpec]:
+        return [self.output_spec()]
+
+    def output_spec(self) -> StreamSpec:
+        raise NotImplementedError
+
+    def generate(self) -> Iterator[TensorBuffer]:
+        raise NotImplementedError
+
+    def interrupt(self) -> None:
+        """Unblock generate() for teardown (sources that block on
+        external input override this)."""
+
+    def process(self, pad: int, buf: TensorBuffer) -> List[Emission]:
+        raise PipelineError(f"source {self.name} cannot receive buffers")
+
+
+class SinkElement(Element):
+    NUM_SRC_PADS = 0
+
+    def negotiate(self, in_specs: Sequence[StreamSpec]) -> List[StreamSpec]:
+        return []
+
+    def process(self, pad: int, buf: TensorBuffer) -> List[Emission]:
+        self.render(buf)
+        return []
+
+    def render(self, buf: TensorBuffer) -> None:
+        raise NotImplementedError
+
+
+@dataclass(frozen=True)
+class Link:
+    src: Element
+    src_pad: int
+    dst: Element
+    dst_pad: int
+
+    def __str__(self):
+        return (f"{self.src.name}:src{self.src_pad} → "
+                f"{self.dst.name}:sink{self.dst_pad}")
+
+
+class Pipeline:
+    """A DAG of elements + links, negotiated then run by the scheduler."""
+
+    def __init__(self, name: str = "pipeline"):
+        self.name = name
+        self.elements: Dict[str, Element] = {}
+        self.links: List[Link] = []
+        self._negotiated = False
+
+    def add(self, element: Element) -> Element:
+        if element.name in self.elements:
+            raise PipelineError(
+                f"duplicate element name {element.name!r} in pipeline")
+        self.elements[element.name] = element
+        return element
+
+    def link(self, src: Element, dst: Element,
+             src_pad: Optional[int] = None,
+             dst_pad: Optional[int] = None) -> Link:
+        for e in (src, dst):
+            if self.elements.get(e.name) is not e:
+                raise PipelineError(
+                    f"element {e.name!r} is not in pipeline {self.name!r}; "
+                    f"add() it before linking")
+        if src_pad is None:
+            src_pad = self._next_free_pad(src, src_side=True)
+        if dst_pad is None:
+            dst_pad = self._next_free_pad(dst, src_side=False)
+        if src_pad >= src.NUM_SRC_PADS:
+            raise PipelineError(
+                f"{src.name} has {src.NUM_SRC_PADS} src pad(s); cannot link "
+                f"pad {src_pad}")
+        if dst_pad >= dst.NUM_SINK_PADS:
+            raise PipelineError(
+                f"{dst.name} has {dst.NUM_SINK_PADS} sink pad(s); cannot "
+                f"link pad {dst_pad}")
+        for l in self.links:
+            if l.src is src and l.src_pad == src_pad:
+                raise PipelineError(f"src pad already linked: {l}")
+            if l.dst is dst and l.dst_pad == dst_pad:
+                raise PipelineError(f"sink pad already linked: {l}")
+        link = Link(src, src_pad, dst, dst_pad)
+        self.links.append(link)
+        self._negotiated = False
+        return link
+
+    def _next_free_pad(self, e: Element, src_side: bool) -> int:
+        used = {(l.src_pad if src_side else l.dst_pad) for l in self.links
+                if (l.src if src_side else l.dst) is e}
+        pad = 0
+        while pad in used:
+            pad += 1
+        return pad
+
+    def sources(self) -> List[SourceElement]:
+        return [e for e in self.elements.values()
+                if isinstance(e, SourceElement)]
+
+    def links_from(self, e: Element) -> List[Link]:
+        return sorted((l for l in self.links if l.src is e),
+                      key=lambda l: l.src_pad)
+
+    def links_to(self, e: Element) -> List[Link]:
+        return sorted((l for l in self.links if l.dst is e),
+                      key=lambda l: l.dst_pad)
+
+    def get(self, name: str) -> Element:
+        try:
+            return self.elements[name]
+        except KeyError:
+            raise PipelineError(
+                f"no element named {name!r} in pipeline; elements: "
+                f"{sorted(self.elements)}") from None
+
+    def negotiate(self) -> None:
+        """Single-pass static negotiation in topological order."""
+        self._validate_topology()
+        link_spec: Dict[Tuple[str, int], StreamSpec] = {}
+        for e in self._topo_order():
+            in_specs: List[StreamSpec] = [None] * e.NUM_SINK_PADS  # type: ignore
+            for l in self.links_to(e):
+                in_specs[l.dst_pad] = link_spec[(l.src.name, l.src_pad)]
+            out_specs = e.negotiate(in_specs)
+            if len(out_specs) != e.NUM_SRC_PADS:
+                raise NegotiationError(
+                    f"element {e.name} produced {len(out_specs)} output "
+                    f"spec(s) but has {e.NUM_SRC_PADS} src pad(s)")
+            e.in_specs = list(in_specs)
+            e.out_specs = list(out_specs)
+            for l in self.links_from(e):
+                link_spec[(l.src.name, l.src_pad)] = out_specs[l.src_pad]
+            log.debug("negotiated %s: in=%s out=%s", e.name, e.in_specs,
+                      e.out_specs)
+        self._link_specs = link_spec
+        self._negotiated = True
+
+    def _validate_topology(self) -> None:
+        if not self.elements:
+            raise PipelineError("empty pipeline")
+        if not self.sources():
+            raise PipelineError(
+                "pipeline has no source element; every pipeline needs at "
+                "least one (appsrc, videotestsrc, …)")
+        for e in self.elements.values():
+            n_in, n_out = len(self.links_to(e)), len(self.links_from(e))
+            if n_in != e.NUM_SINK_PADS:
+                raise PipelineError(
+                    f"element {e.name} needs {e.NUM_SINK_PADS} sink "
+                    f"link(s), has {n_in}")
+            if n_out != e.NUM_SRC_PADS:
+                raise PipelineError(
+                    f"element {e.name} needs {e.NUM_SRC_PADS} src link(s), "
+                    f"has {n_out} — every src pad must be linked "
+                    f"(terminate unused branches with fakesink)")
+
+    def _topo_order(self) -> List[Element]:
+        indeg = {name: len(self.links_to(e)) for name, e in self.elements.items()}
+        ready = [e for n, e in self.elements.items() if indeg[n] == 0]
+        order: List[Element] = []
+        while ready:
+            e = ready.pop()
+            order.append(e)
+            for l in self.links_from(e):
+                indeg[l.dst.name] -= 1
+                if indeg[l.dst.name] == 0:
+                    ready.append(l.dst)
+        if len(order) != len(self.elements):
+            cyclic = sorted(n for n, d in indeg.items() if d > 0)
+            raise PipelineError(
+                f"pipeline graph has a cycle involving {cyclic}")
+        return order

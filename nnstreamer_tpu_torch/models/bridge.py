@@ -1,0 +1,56 @@
+"""Weights carried across from the JAX package.
+
+`jax.random` init cannot be reproduced in torch, so parity runs load the
+JAX package's own parameters. The input is its MobileNetV2 param tree
+with numpy leaves (``{"stem": {"conv": {"w"}, "bn": {scale, bias, mean,
+var}}, "blocks": [{"expand"?, "depthwise", "project"}], "head": …,
+"classifier": {"w", "b"}}``); the output is the state dict of the port's
+`MobileNetV2`:
+
+- conv weights HWIO → OIHW (depthwise (3, 3, 1, C) → (C, 1, 3, 3));
+- dense (cin, cout) → (cout, cin);
+- the four BN vectors as they are.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def conv_bn_state(p: Dict[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    """One conv+BN unit: {"conv": {"w": HWIO}, "bn": {...}} → ConvBN keys."""
+    bn = p["bn"]
+    return {
+        f"{prefix}weight": _t(p["conv"]["w"]).permute(3, 2, 0, 1).contiguous(),
+        f"{prefix}scale": _t(bn["scale"]),
+        f"{prefix}bias": _t(bn["bias"]),
+        f"{prefix}mean": _t(bn["mean"]),
+        f"{prefix}var": _t(bn["var"]),
+    }
+
+
+def mobilenet_v2_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX MobileNetV2 param tree (numpy leaves) → port state dict."""
+    sd = conv_bn_state(params["stem"], "stem.")
+    for i, blk in enumerate(params["blocks"]):
+        for part in ("expand", "depthwise", "project"):
+            if part in blk:
+                sd.update(conv_bn_state(blk[part], f"blocks.{i}.{part}."))
+    sd.update(conv_bn_state(params["head"], "head."))
+    sd["classifier.weight"] = _t(params["classifier"]["w"]).t().contiguous()
+    sd["classifier.bias"] = _t(params["classifier"]["b"])
+    return sd
+
+
+def load_mobilenet_v2(model: torch.nn.Module, params: Dict[str, Any]) -> torch.nn.Module:
+    """Load the JAX param tree into the port's MobileNetV2 (strict: every
+    key must match both ways)."""
+    model.load_state_dict(mobilenet_v2_state_dict(params), strict=True)
+    return model

@@ -1,0 +1,116 @@
+"""NN layers for the model zoo, in PyTorch.
+
+Functions on NCHW tensors with OIHW weights, and the `ConvBN` module built
+from them. Each keeps the JAX package's arithmetic (models/layers.py):
+
+- conv2d pads like TF "SAME": the total pad is
+  max((ceil(n/s) - 1)*s + k - n, 0), split floor-before / rest-after, so
+  a stride-2 conv at an even size pads 0 before and 1 after. torch's
+  padding="same" refuses stride > 1, so uneven pads go through F.pad.
+- batch_norm (inference) is ``(x - mean) * (rsqrt(var + eps) * scale) +
+  bias`` with eps 1e-3; the factor is computed in f32 and every operand is
+  cast to the activation's dtype, as the JAX layer does.
+- relu6 is a clip to [0, 6].
+- Params stay f32; the forward casts weights and input to the compute
+  dtype at each op.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_EPS = 1e-3
+
+
+def same_pads(n: int, k: int, stride: int) -> Tuple[int, int]:
+    """TF SAME padding of one spatial dim → (before, after)."""
+    out = -(-n // stride)
+    total = max((out - 1) * stride + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+           groups: int = 1, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """NCHW conv with OIHW weights and TF SAME padding."""
+    if dtype is not None:
+        x, w = x.to(dtype), w.to(dtype)
+    (pt, pb) = same_pads(x.shape[2], w.shape[2], stride)
+    (pl, pr) = same_pads(x.shape[3], w.shape[3], stride)
+    if pt == pb and pl == pr:
+        return F.conv2d(x, w, stride=stride, padding=(pt, pl), groups=groups)
+    x = F.pad(x, (pl, pr, pt, pb))
+    return F.conv2d(x, w, stride=stride, groups=groups)
+
+
+def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               mean: torch.Tensor, var: torch.Tensor,
+               eps: float = BN_EPS) -> torch.Tensor:
+    """Inference BN over the channel dim (1) of an NCHW tensor."""
+    inv = torch.rsqrt(var + eps) * scale
+    shape = (1, -1, 1, 1)
+    dt = x.dtype
+    return ((x - mean.to(dt).view(shape)) * inv.to(dt).view(shape)
+            + bias.to(dt).view(shape))
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(x, 0.0, 6.0)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """NCHW → NC mean over spatial dims."""
+    return x.mean(dim=(2, 3))
+
+
+def kaiming_init_(w: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """sqrt(2/fan_in) * truncated normal on [-2, 2] (the JAX zoo's init)."""
+    std = math.sqrt(2.0 / max(1, fan_in))
+    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)
+
+
+class ConvBN(nn.Module):
+    """Conv (SAME) + inference BN (+ relu6) — the MobileNet building unit.
+    ``groups == cin == cout`` is depthwise (weights (C, 1, kh, kw))."""
+
+    def __init__(self, cin: int, cout: int, k: int, *, stride: int = 1,
+                 groups: int = 1, act: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.stride, self.groups, self.act = stride, groups, act
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, k, k))
+        kaiming_init_(self.weight.data, k * k * (cin // groups), generator)
+        self.scale = nn.Parameter(torch.ones(cout))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.register_buffer("mean", torch.zeros(cout))
+        self.register_buffer("var", torch.ones(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = conv2d(x, self.weight, stride=self.stride, groups=self.groups,
+                   dtype=x.dtype)
+        y = batch_norm(y, self.scale, self.bias, self.mean, self.var)
+        return relu6(y) if self.act else y
+
+
+class Dense(nn.Module):
+    """``x @ w.T + b`` in the input's dtype; weight (cout, cin) as
+    nn.Linear keeps it. The bias is added after the product is rounded,
+    as the JAX layer's ``x @ w + b``."""
+
+    def __init__(self, cin: int, cout: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        limit = math.sqrt(6.0 / (cin + cout))  # xavier uniform
+        self.weight = nn.Parameter(torch.empty(cout, cin))
+        nn.init.uniform_(self.weight.data, -limit, limit, generator=generator)
+        self.bias = nn.Parameter(torch.zeros(cout))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        return F.linear(x, self.weight.to(dt)) + self.bias.to(dt)

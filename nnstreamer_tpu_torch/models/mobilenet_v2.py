@@ -1,0 +1,109 @@
+"""MobileNetV2 — the flagship classification model (zoo://mobilenet_v2).
+
+Sandler et al. 2018 inverted residuals, width-multiplier aware, f32
+params with bf16 compute by default, 1001 classes (background +
+ImageNet) — the JAX package's models/mobilenet_v2.py in PyTorch. The
+public layout stays the JAX one: input NHWC, logits (N, classes) f32.
+Inside, the module runs NCHW.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from nnstreamer_tpu_torch.models import layers as L
+from nnstreamer_tpu_torch.models.zoo import register_model
+
+# (expansion t, out channels c, repeats n, first stride s) — the paper's
+# table 2 / standard 1.0 config
+INVERTED_RESIDUAL_CFG = (
+    (1, 16, 1, 1),
+    (6, 24, 2, 2),
+    (6, 32, 3, 2),
+    (6, 64, 4, 2),
+    (6, 96, 3, 1),
+    (6, 160, 3, 2),
+    (6, 320, 1, 1),
+)
+
+
+def make_divisible(v: float, divisor: int = 8) -> int:
+    """Round channel counts the MobileNet way (multiples of 8)."""
+    new_v = max(divisor, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
+class InvertedResidual(nn.Module):
+    def __init__(self, cin: int, cout: int, t: int, stride: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        hidden = cin * t
+        self.residual = stride == 1 and cin == cout
+        self.expand = (L.ConvBN(cin, hidden, 1, generator=generator)
+                       if t != 1 else None)
+        self.depthwise = L.ConvBN(hidden, hidden, 3, stride=stride,
+                                  groups=hidden, generator=generator)
+        self.project = L.ConvBN(hidden, cout, 1, act=False,
+                                generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.expand(x) if self.expand is not None else x
+        h = self.project(self.depthwise(h))
+        return h + x if self.residual else h
+
+
+class MobileNetV2(nn.Module):
+    """``forward(x)``: x NHWC float, normalized to roughly [-1, 1] →
+    logits (N, num_classes) in f32, computed in `dtype`."""
+
+    def __init__(self, width: float = 1.0, num_classes: int = 1001,
+                 dtype: torch.dtype = torch.bfloat16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        stem_out = make_divisible(32 * width)
+        self.stem = L.ConvBN(3, stem_out, 3, stride=2, generator=generator)
+        blocks = []
+        cin = stem_out
+        for t, c, n, s in INVERTED_RESIDUAL_CFG:
+            cout = make_divisible(c * width)
+            for i in range(n):
+                blocks.append(InvertedResidual(cin, cout, t, s if i == 0 else 1,
+                                               generator=generator))
+                cin = cout
+        self.blocks = nn.ModuleList(blocks)
+        head_out = make_divisible(1280 * max(1.0, width))
+        self.head = L.ConvBN(cin, head_out, 1, generator=generator)
+        self.classifier = L.Dense(head_out, num_classes, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x.to(self.dtype).permute(0, 3, 1, 2)   # NHWC → NCHW
+        h = self.stem(h)
+        for block in self.blocks:
+            h = block(h)
+        h = L.global_avg_pool(self.head(h))
+        return self.classifier(h).to(torch.float32)
+
+
+@register_model("mobilenet_v2")
+def build(width: float = 1.0, num_classes: int = 1001, input_size: int = 224,
+          batch: int = 1, dtype: str = "bfloat16", seed: int = 0):
+    """Zoo builder: random weights from a seeded torch.Generator."""
+    from nnstreamer_tpu_torch.backends.torch_backend import ModelBundle
+    from nnstreamer_tpu_torch.tensor.dtypes import DType
+    from nnstreamer_tpu_torch.tensor.info import TensorInfo, TensorsSpec
+
+    gen = torch.Generator().manual_seed(seed)
+    model = MobileNetV2(width, num_classes, DType.from_name(dtype).torch_dtype,
+                        generator=gen).eval()
+    return ModelBundle(
+        fn=lambda m, x: m(x), params=model,
+        in_spec=TensorsSpec.of(
+            TensorInfo((batch, input_size, input_size, 3), DType.FLOAT32)),
+        out_spec=TensorsSpec.of(TensorInfo((batch, num_classes), DType.FLOAT32)),
+        name=f"mobilenet_v2_{width}")

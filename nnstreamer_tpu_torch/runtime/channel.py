@@ -1,0 +1,78 @@
+"""Condition-variable MPSC channel — the link between element threads.
+
+``put`` wakes the consumer the instant a buffer lands, ``get`` wakes a
+blocked producer the instant a slot frees, and ``close()`` wakes every
+waiter on both sides, so teardown cannot lose a wakeup.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import deque
+from typing import Any, Optional, Tuple
+
+
+class _Sentinel:
+    __slots__ = ("_name",)
+
+    def __init__(self, name: str):
+        self._name = name
+
+    def __repr__(self):
+        return self._name
+
+
+#: ``get()`` result when the channel was closed (teardown) and empty
+CLOSED = _Sentinel("CLOSED")
+
+
+class Channel:
+    """Bounded multi-producer / single-consumer channel.
+
+    - ``put(item)`` blocks while full; returns the post-append depth, or
+      ``None`` when the channel closed first (item not delivered).
+    - ``get()`` blocks until an item is available → ``(item, depth)``;
+      ``(CLOSED, 0)`` once the channel is closed and drained.
+    """
+
+    __slots__ = ("_buf", "_cap", "_closed", "_lock", "_not_empty",
+                 "_not_full")
+
+    def __init__(self, capacity: int):
+        if capacity < 1:
+            raise ValueError(f"channel capacity must be >= 1, got {capacity}")
+        self._buf: deque = deque()
+        self._cap = capacity
+        self._closed = False
+        self._lock = threading.Lock()
+        self._not_empty = threading.Condition(self._lock)
+        self._not_full = threading.Condition(self._lock)
+
+    def put(self, item: Any) -> Optional[int]:
+        with self._not_full:
+            while len(self._buf) >= self._cap and not self._closed:
+                self._not_full.wait()
+            if self._closed:
+                return None
+            self._buf.append(item)
+            self._not_empty.notify()
+            return len(self._buf)
+
+    def get(self) -> Tuple[Any, int]:
+        with self._not_empty:
+            while not self._buf:
+                if self._closed:
+                    return CLOSED, 0
+                self._not_empty.wait()
+            item = self._buf.popleft()
+            self._not_full.notify()
+            return item, len(self._buf)
+
+    def close(self) -> None:
+        """Refuse further puts and wake every waiter."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            self._not_empty.notify_all()
+            self._not_full.notify_all()

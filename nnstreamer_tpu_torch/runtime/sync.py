@@ -1,0 +1,67 @@
+"""Host-sync choke point.
+
+Every place the runtime must force device work to completion (a sink or
+host decoder reading results back, `fakesink sync-device=true`, the
+scheduler's in-flight window) goes through :func:`device_sync`, and
+every read-back through :func:`to_host`. One call site means one way to
+wait — a CUDA stream synchronize per device the tensors live on — and one
+count of the *forced* syncs, the host-path tax the async dispatch exists
+to avoid.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+import torch
+
+from nnstreamer_tpu_torch.tensor.dtypes import DType
+
+_lock = threading.Lock()
+_forced = 0
+
+
+def forced_sync_count() -> int:
+    """Process-wide number of forced host syncs since import."""
+    return _forced
+
+
+def device_sync(tensors, forced: bool = True):
+    """Block until the device work behind every CUDA tensor in
+    ``tensors`` (a tuple, a list or one tensor) has finished.
+
+    Free, and not counted, when nothing in it is a CUDA tensor.
+    ``forced=True`` marks a semantic sync (sink, sync latency mode) and
+    is counted; ``forced=False`` marks the in-flight window's
+    backpressure. Returns ``tensors`` unchanged."""
+    global _forced
+    leaves = tensors if isinstance(tensors, (tuple, list)) else (tensors,)
+    devices = {t.device for t in leaves
+               if isinstance(t, torch.Tensor) and t.is_cuda}
+    if not devices:
+        return tensors
+    for dev in devices:
+        # the scheduler's threads all launch on each device's current
+        # (default) stream, so finishing it finishes these tensors
+        torch.cuda.current_stream(dev).synchronize()
+    if forced:
+        with _lock:
+            _forced += 1
+    return tensors
+
+
+def to_host(tensors) -> tuple:
+    """Tensors (a tuple or list) → host numpy arrays, after a counted
+    device_sync. Non-tensors pass through unchanged."""
+    device_sync(tensors)
+    return tuple(_to_numpy(t) if isinstance(t, torch.Tensor) else t
+                 for t in tensors)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        # numpy has no bfloat16; ml_dtypes provides it when installed
+        return t.view(torch.int16).numpy().view(DType.BFLOAT16.np_dtype)
+    return t.numpy()

@@ -1,0 +1,117 @@
+"""The port stands alone: it imports neither jax nor the JAX package, and
+it never runs on the CPU unless asked to.
+
+The import check runs in a subprocess: this test process has jax loaded
+already (tests/conftest.py imports it first).
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from nnstreamer_tpu_torch.backends.base import pick_device
+from nnstreamer_tpu_torch.core.errors import BackendError, NegotiationError
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "nnstreamer_tpu_torch"
+TINY = ("videotestsrc num-buffers=2 width=32 height=32 ! tensor_converter ! "
+        "{norm} ! tensor_filter model=zoo://mobilenet_v2?width=0.35&"
+        "input_size=32 ! tensor_decoder mode=image_labeling ! tensor_sink "
+        "name=out")
+NORM_A = ("tensor_transform mode=arithmetic "
+          "option=typecast:float32,add:-127.5,div:127.5")
+NORM_B = "tensor_filter framework=pallas model=normalize_u8"
+
+
+def _forbidden(name: str) -> bool:
+    # exact names: nnstreamer_tpu_torch shares the nnstreamer_tpu prefix
+    return name in ("jax", "nnstreamer_tpu") or name.startswith(
+        ("jax.", "nnstreamer_tpu."))
+
+
+def _env(**extra):
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("NNSTREAMER_TPU_TORCH_")}
+    env["PYTHONPATH"] = str(ROOT)
+    env.update(extra)
+    return env
+
+
+def test_port_runs_without_jax_or_the_jax_package():
+    code = f"""
+import sys, torch
+torch.set_num_threads(2)
+import nnstreamer_tpu_torch as nt
+for norm in ({NORM_A!r}, {NORM_B!r}):
+    pipe = nt.parse_launch({TINY!r}.format(norm=norm))
+    nt.PipelineRunner(pipe).run(120)
+    assert len(pipe.get("out").results) == 2
+bad = [m for m in sys.modules if m in ("jax", "nnstreamer_tpu")
+       or m.startswith(("jax.", "nnstreamer_tpu."))]
+assert not bad, bad
+print("ISOLATED")
+"""
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+        env=_env(NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR="cpu"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "ISOLATED" in proc.stdout
+
+
+def test_cli_runs_a_pipeline_string():
+    proc = subprocess.run(
+        [sys.executable, "-m", "nnstreamer_tpu_torch",
+         TINY.format(norm=NORM_B), "--timeout", "120"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env=_env(NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR="cpu",
+                 OMP_NUM_THREADS="2"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
+                         [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_imports_jax_or_the_jax_package(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_no_cuda_and_no_cpu_request_raises(monkeypatch):
+    monkeypatch.delenv("NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR",
+                       raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(BackendError, match="accelerator=cpu"):
+        pick_device("")
+    with pytest.raises(BackendError, match="no CUDA device"):
+        pick_device("cuda:0")
+    import nnstreamer_tpu_torch as nt
+
+    pipe = nt.parse_launch(TINY.format(norm=NORM_B))
+    with pytest.raises(NegotiationError, match="accelerator=cpu"):
+        nt.PipelineRunner(pipe).start()
+
+
+def test_cpu_runs_only_when_asked(monkeypatch):
+    monkeypatch.delenv("NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR",
+                       raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert pick_device("cpu") == torch.device("cpu")
+    monkeypatch.setenv("NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR", "cpu")
+    assert pick_device("") == torch.device("cpu")
+    with pytest.raises(BackendError, match="not a device"):
+        pick_device("tpu")
