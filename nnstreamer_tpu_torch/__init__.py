@@ -8,9 +8,14 @@ imports torch and numpy, never jax, and nothing of `nnstreamer_tpu`.
   core/      — config, subplugin registry, logging, errors
   graph/     — pipeline graph, gst-launch-style DSL, negotiation, fusion
   runtime/   — push-model scheduler, channels, the host-sync choke point
-  elements/  — sources, converter, transform, filter, decoder, sinks
-  backends/  — the torch model engine and the hand-written CUDA kernels
-  models/    — MobileNetV2 in PyTorch, the zoo, the JAX weights bridge
+  elements/  — sources, converter, transform, filter, decoder, sinks,
+               tensor_llm
+  backends/  — the torch model engine, the paged-LLM executor and the
+               hand-written CUDA kernels
+  models/    — MobileNetV2 and the transformer in PyTorch, the zoo, the
+               JAX weights bridge
+  llm/       — paged KV cache, paged reference math, serving engine
+  serving/   — the versioned model store
   decoders/  — image_labeling
 
 Entry points run on the CUDA device unless the caller asks for the CPU
@@ -35,6 +40,7 @@ __all__ = [
     "run_pipeline",
     "PipelineRunner",
     "StreamError",
+    "TensorLLM",
     "__version__",
 ]
 
@@ -45,6 +51,7 @@ _LAZY = {
     "PipelineRunner": ("nnstreamer_tpu_torch.runtime.scheduler",
                        "PipelineRunner"),
     "StreamError": ("nnstreamer_tpu_torch.core.errors", "StreamError"),
+    "TensorLLM": ("nnstreamer_tpu_torch.elements.llm", "TensorLLM"),
 }
 
 

@@ -1,0 +1,434 @@
+"""Paged-LLM executor: bucketed prefill/decode over the paged KV pool
+(counterpart of the JAX package's backends/llm_exec.py, one device).
+
+The LLM engine's device half. It owns the paged KV pools and the params
+on its device (`pick_device("")`: cuda unless the CPU is asked for),
+and runs three bucketed families:
+
+- prefill: the prompt padded to pow2 (>= 8);
+- decode: the live-row count padded to pow2, padding rows writing the
+  scratch block;
+- chunk: one prompt chunk padded to its bucket, attending everything the
+  sequence has written so far.
+
+PyTorch runs eagerly, so nothing compiles: "compile" keeps the JAX
+accounting's meaning as the first run of a (kind, bucket, kernel) — for
+``pallas``, the first run also builds the CUDA kernels — and
+``compile_count``/``cache_hits``/``cache_misses`` count it the same way.
+
+``paged_kernel`` (property, else ``$NNS_PAGED_KERNEL``, else ``xla``):
+``pallas`` runs the attention through the hand-written CUDA kernels
+(backends/paged_attn.py) and routes whole-prompt prefills through the
+chunk family; ``xla`` runs the torch reference (llm/paged_model.py), the
+token-for-token twin of `transformer.generate`. A kernel that fails to
+build or launch raises; nothing falls back (``kernel_fallback`` stays in
+`stats()` and is always 0).
+
+A ``store://`` model rides the model-store epoch: `prewarm_version` checks
+an incoming version's cache geometry and places its params on the
+device, `maybe_adopt` swaps them in at a step boundary. Sharded serving
+(``shards``, ``ring_prefill_min``) waits for the multi-GPU slice, the
+compiled decode window (``decode_multi``) for the compiled loop, and the
+persistent bucket manifest (``warm_start``) for serving/compile_cache.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from nnstreamer_tpu_torch.backends.base import pick_device
+from nnstreamer_tpu_torch.core.errors import BackendError
+from nnstreamer_tpu_torch.core.log import get_logger
+from nnstreamer_tpu_torch.llm.paged_cache import SCRATCH_BLOCK, PagedKVCache
+from nnstreamer_tpu_torch.runtime.sync import to_host
+
+log = get_logger("backends.llm")
+
+MULTI_GPU = ("the multi-GPU slice (sharded serving over several cards) is "
+             "not ported yet")
+
+
+def _next_pow2(n: int, floor: int = 1) -> int:
+    v = max(n, floor)
+    return 1 << (v - 1).bit_length()
+
+
+def _derive_dims(params: dict, n_heads: int) -> dict:
+    """Model dims from the transformer params themselves (a store version
+    may differ from the element's properties). Refuses W8A8-quantized
+    params: their int8 path is the W8A8 slice's."""
+    try:
+        d_model = int(params["embed"].shape[1])
+        vocab = int(params["head"].shape[1])
+        n_layers = len(params["blocks"])
+        hd = d_model // n_heads
+        n_kv = (int(params["blocks"][0]["wqkv"].shape[1]) - d_model) \
+            // 2 // hd
+        quantized = any(k.endswith("_scale") for k in params["blocks"][0])
+    except (KeyError, IndexError, AttributeError, TypeError) as e:
+        raise BackendError(
+            f"tensor_llm needs transformer-family params (embed/blocks/"
+            f"ln_f/head, models/transformer.py); could not read dims: "
+            f"{e}") from e
+    if hd * n_heads != d_model:
+        raise BackendError(
+            f"n_heads={n_heads} does not divide d_model={d_model}")
+    if quantized:
+        raise BackendError(
+            "tensor_llm params are W8A8-quantized (they carry *_scale); "
+            "W8A8 serving is not ported yet — it comes with the W8A8 "
+            "slice (models/quant.py and the quantize_rows kernel)")
+    return {"d_model": d_model, "vocab": vocab, "n_layers": n_layers,
+            "head_dim": hd, "n_kv": n_kv}
+
+
+def _fns(kind: str, kernel: str):
+    """The function serving (kind, kernel)."""
+    if kind == "prefill":
+        from nnstreamer_tpu_torch.llm.paged_model import paged_prefill
+        return paged_prefill
+    if kernel == "pallas":
+        from nnstreamer_tpu_torch.backends import paged_attn
+        return (paged_attn.paged_flash_prefill_chunk if kind == "chunk"
+                else paged_attn.paged_flash_decode_step)
+    from nnstreamer_tpu_torch.llm import paged_model
+    return (paged_model.paged_prefill_chunk if kind == "chunk"
+            else paged_model.paged_decode_step)
+
+
+class PagedLLMExecutor:
+    """Device executor for the continuous-batching engine.
+
+    `model` is a ``store://name[@version]`` ref (tracked or pinned; zoo
+    builtins seed as @0), a ``zoo://name`` ref (served through the
+    store) or a transformer params dict of torch tensors. One instance
+    per engine; every method runs on the engine's one scheduler thread.
+    """
+
+    def __init__(self, model="store://transformer", *, n_heads: int = 4,
+                 dtype: Optional[torch.dtype] = None, block_size: int = 16,
+                 num_blocks: int = 64, max_len: int = 128,
+                 paged_kernel: Optional[str] = None, shards: int = 0,
+                 ring_prefill_min: int = 0, name: str = "llm"):
+        if int(shards) > 0 or int(ring_prefill_min) > 0:
+            raise BackendError(
+                f"llm {name}: shards={shards} ring_prefill_min="
+                f"{ring_prefill_min} — {MULTI_GPU}; serve on one card "
+                f"(shards=0, ring_prefill_min=0)")
+        kern = (paged_kernel or os.environ.get("NNS_PAGED_KERNEL")
+                or "xla").strip().lower()
+        if kern not in ("pallas", "xla"):
+            raise BackendError(
+                f"paged_kernel must be 'pallas' or 'xla', got {kern!r}")
+        self.name = name
+        self.paged_kernel = kern
+        self.kernel_invokes: Dict[str, int] = {"pallas": 0, "xla": 0}
+        self.n_heads = int(n_heads)
+        self.dtype = dtype or torch.float32
+        self.max_len = int(max_len)
+        self.device = pick_device("")
+        self._entry = None
+        self._pinned: Optional[int] = None
+        self._version: Optional[int] = None
+        self._staged: Dict[int, Any] = {}    # version → placed params
+        self.adopted_epoch = -1
+        self.swap_count = 0
+        if isinstance(model, str):
+            from nnstreamer_tpu_torch.serving.store import (
+                get_store, parse_store_ref)
+
+            if model.startswith("zoo://"):
+                model = "store://" + model[len("zoo://"):]
+            ref = parse_store_ref(model)
+            self._entry = get_store().entry(ref.name)
+            if ref.version is not None:
+                self._pinned = self._entry.resolve_version(ref.version)
+                self._version = self._pinned
+            else:
+                self._version, self.adopted_epoch = self._entry.state
+            raw = self._entry.bundle(self._version).params
+            self._entry.attach(self)
+        elif isinstance(model, dict):
+            raw = model
+        else:
+            raise BackendError(
+                f"tensor_llm model must be a store:// or zoo:// ref or a "
+                f"params dict, got {type(model).__name__}")
+        self.__dict__.update(_derive_dims(raw, self.n_heads))
+        self.params = self._place(raw)
+        bs = int(block_size)
+        self.max_blocks = max(1, -(-self.max_len // bs))
+        self.cache = PagedKVCache(
+            num_blocks=int(num_blocks), block_size=bs,
+            n_layers=self.n_layers, n_kv=self.n_kv,
+            head_dim=self.head_dim, device=self.device)
+        #: (kind, bucket, kernel) families run at least once
+        self._seen: set = set()
+        self.compile_count = 0
+        self.cache_hits = 0
+        self.cache_misses = 0
+        self.prefills = 0
+        self.chunk_prefills = 0
+        self.decode_steps = 0
+
+    # -- params ------------------------------------------------------------
+    def _place(self, params):
+        """Params on the executor's device, floats in the activation
+        dtype. Every use casts to that dtype anyway (``w.to(dtype)``), so
+        casting once here changes no result and makes each use a no-op."""
+        if isinstance(params, dict):
+            return {k: self._place(v) for k, v in params.items()}
+        if isinstance(params, (list, tuple)):
+            return [self._place(v) for v in params]
+        t = torch.as_tensor(params)
+        if t.is_floating_point():
+            return t.to(self.device, self.dtype)
+        return t.to(self.device)
+
+    def _geometry_check(self, dims: dict, what: str) -> None:
+        if (dims["n_layers"], dims["n_kv"], dims["head_dim"]) != \
+                (self.n_layers, self.n_kv, self.head_dim):
+            raise BackendError(
+                f"{what} changes the cache geometry (layers/kv-heads/"
+                f"head-dim); tensor_llm cannot hot-swap it over live paged "
+                f"state — restart the element to serve it")
+
+    # -- store integration -------------------------------------------------
+    @property
+    def tracks_store_epoch(self) -> bool:
+        return self._entry is not None and self._pinned is None
+
+    def maybe_adopt(self) -> None:
+        """Adopt a flipped store epoch at a step boundary: a params swap.
+        In-flight sequences keep their old-version KV (retiring them
+        would turn every swap into a latency spike)."""
+        if not self.tracks_store_epoch:
+            return
+        cur, epoch = self._entry.state        # one read = consistent
+        if epoch == self.adopted_epoch:
+            return
+        old = self._version
+        placed = self._staged.pop(cur, None)
+        if placed is None:                    # not pre-warmed through us
+            raw = self._entry.bundle(cur).params
+            self._geometry_check(_derive_dims(raw, self.n_heads),
+                                 f"store swap {self._entry.name}@{old} → "
+                                 f"@{cur}")
+            placed = self._place(raw)
+        self.params = placed
+        self._staged.clear()
+        self._version, self.adopted_epoch = cur, epoch
+        self.swap_count += 1
+        log.info("llm %s adopted %s@%d epoch=%d", self.name,
+                 self._entry.name, cur, epoch)
+
+    def prewarm_version(self, version: int, bundle) -> int:
+        """Swap-controller hook (serving/store.py update()): check the
+        incoming version's cache geometry and place its params on the
+        device before the epoch flips. Nothing compiles → 0."""
+        params = getattr(bundle, "params", bundle)
+        self._geometry_check(_derive_dims(params, self.n_heads),
+                             f"incoming {self._entry.name}@{version}")
+        self._staged[version] = self._place(params)
+        return 0
+
+    def _get_fn(self, kind: str, bucket: int):
+        """→ (function, first run of this bucket?)."""
+        kernel = self._kind_kernel(kind)
+        key = (kind, bucket, kernel)
+        if key in self._seen:
+            self.cache_hits += 1
+            return _fns(kind, kernel), False
+        self.cache_misses += 1
+        self._seen.add(key)
+        if self._entry is not None and self._version is not None:
+            self._entry.note_bucket(self._version, (kind, bucket))
+        return _fns(kind, kernel), True
+
+    def _kind_kernel(self, kind: str) -> str:
+        """The whole-prompt prefill is always the torch `apply_seq_kv`
+        path; chunk and decode follow the selected kernel."""
+        return "xla" if kind == "prefill" else self.paged_kernel
+
+    def _prefill_kind(self) -> str:
+        """With the CUDA kernels, whole-prompt prefills run as one chunk
+        covering the prompt (kernel-selectable); the torch reference
+        keeps `apply_seq_kv`, the `generate` parity anchor."""
+        return "chunk" if self.paged_kernel == "pallas" else "prefill"
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    # -- prefill -----------------------------------------------------------
+    def prefill(self, prompt: np.ndarray, block_table: List[int],
+                *, sync: bool = True):
+        """One whole prompt; its KV lands in the blocks of `block_table`.
+        Returns last-token logits: host (vocab,) f32 when `sync`, else
+        the device tensor, so the engine resolves a whole step's
+        admissions with one sync."""
+        plen = int(prompt.shape[0])
+        if self._prefill_kind() == "chunk":
+            return self.prefill_chunk(prompt, 0, block_table,
+                                      bucket=_next_pow2(plen, 8), sync=sync)
+        s_b = _next_pow2(plen, 8)
+        bs = self.cache.block_size
+        ids = np.zeros((1, s_b), np.int32)
+        ids[0, :plen] = prompt
+        blk_idx = np.full((s_b,), SCRATCH_BLOCK, np.int32)
+        blk_idx[:plen] = np.asarray(block_table, np.int32)[
+            np.arange(plen) // bs]
+        blk_off = (np.arange(s_b) % bs).astype(np.int32)
+        fn, fresh = self._get_fn("prefill", s_b)
+        logits, self.cache.k, self.cache.v = fn(
+            self.params, self._tensor(ids), self._tensor(blk_idx),
+            self._tensor(blk_off), self.cache.k, self.cache.v, plen - 1,
+            n_heads=self.n_heads, dtype=self.dtype)
+        self.compile_count += int(fresh)
+        self.prefills += 1
+        self.kernel_invokes["xla"] += 1
+        return to_host((logits,))[0] if sync else logits
+
+    def prefill_chunk(self, chunk: np.ndarray, pos0: int,
+                      block_table: List[int], *, bucket: int = 0,
+                      sync: bool = True):
+        """One prompt chunk starting at absolute position `pos0`, written
+        into `block_table`'s blocks and attending the whole prefix
+        written so far. `bucket` pins the pad width so every chunk of a
+        prompt runs one bucket; 0 = pow2 of this chunk. Returns the
+        chunk's last-token logits (host when `sync`, device otherwise)."""
+        clen = int(chunk.shape[0])
+        c_b = max(int(bucket) or 0, _next_pow2(clen, 8))
+        bs = self.cache.block_size
+        ids = np.zeros((1, c_b), np.int32)
+        ids[0, :clen] = chunk
+        blk_idx = np.full((c_b,), SCRATCH_BLOCK, np.int32)
+        blk_idx[:clen] = np.asarray(block_table, np.int32)[
+            (int(pos0) + np.arange(clen)) // bs]
+        blk_off = ((int(pos0) + np.arange(c_b)) % bs).astype(np.int32)
+        tab = np.full((self.max_blocks,), SCRATCH_BLOCK, np.int32)
+        tab[:len(block_table)] = block_table
+        fn, fresh = self._get_fn("chunk", c_b)
+        logits, self.cache.k, self.cache.v = fn(
+            self.params, self._tensor(ids), int(pos0),
+            self._tensor(blk_idx), self._tensor(blk_off), self._tensor(tab),
+            self.cache.k, self.cache.v, clen - 1, n_heads=self.n_heads,
+            dtype=self.dtype)
+        self.compile_count += int(fresh)
+        self.chunk_prefills += 1
+        self.kernel_invokes[self._kind_kernel("chunk")] += 1
+        return to_host((logits,))[0] if sync else logits
+
+    # -- decode ------------------------------------------------------------
+    def decode(self, cur: List[int], tables: List[List[int]],
+               pos: List[int], *, sync: bool = True):
+        """One decode step for `len(cur)` live rows (bucketed to pow2;
+        padding rows write the scratch block). With `sync` returns host
+        logits (n, vocab) f32 for the live rows; else the padded device
+        tensor (b_b, vocab)."""
+        n = len(cur)
+        b_b = _next_pow2(n, 1)
+        cur_a = np.zeros((b_b,), np.int32)
+        cur_a[:n] = cur
+        tab_a = np.full((b_b, self.max_blocks), SCRATCH_BLOCK, np.int32)
+        for i, t in enumerate(tables):
+            tab_a[i, :len(t)] = t
+        pos_a = np.zeros((b_b,), np.int32)
+        pos_a[:n] = pos
+        fn, fresh = self._get_fn("decode", b_b)
+        logits, self.cache.k, self.cache.v = fn(
+            self.params, self._tensor(cur_a), self._tensor(tab_a),
+            self._tensor(pos_a), self.cache.k, self.cache.v,
+            n_heads=self.n_heads, dtype=self.dtype)
+        self.compile_count += int(fresh)
+        self.decode_steps += 1
+        self.kernel_invokes[self._kind_kernel("decode")] += 1
+        return to_host((logits,))[0][:n] if sync else logits
+
+    # -- warm paths --------------------------------------------------------
+    def _warm_compile(self, kind: str, bucket: int) -> bool:
+        """Run one bucket ahead of traffic on dummy inputs whose every
+        write targets the scratch block (which absorbs garbage by
+        design), so the first served request finds it warm — for the
+        CUDA kernels, already built. Returns whether it was the bucket's
+        first run."""
+        if (kind, bucket, self._kind_kernel(kind)) in self._seen:
+            return False
+        fn, _ = self._get_fn(kind, bucket)
+        zeros = self._tensor(np.zeros((bucket,), np.int32))
+        blk = self._tensor(np.full((bucket,), SCRATCH_BLOCK, np.int32))
+        off = self._tensor(
+            (np.arange(bucket) % self.cache.block_size).astype(np.int32))
+        if kind == "prefill":
+            logits, self.cache.k, self.cache.v = fn(
+                self.params, zeros[None], blk, off, self.cache.k,
+                self.cache.v, 0, n_heads=self.n_heads, dtype=self.dtype)
+        elif kind == "chunk":
+            tab = self._tensor(np.full((self.max_blocks,), SCRATCH_BLOCK,
+                                       np.int32))
+            logits, self.cache.k, self.cache.v = fn(
+                self.params, zeros[None], 0, blk, off, tab, self.cache.k,
+                self.cache.v, 0, n_heads=self.n_heads, dtype=self.dtype)
+        else:
+            tab = self._tensor(np.full((bucket, self.max_blocks),
+                                       SCRATCH_BLOCK, np.int32))
+            logits, self.cache.k, self.cache.v = fn(
+                self.params, zeros, tab, zeros, self.cache.k,
+                self.cache.v, n_heads=self.n_heads, dtype=self.dtype)
+        to_host((logits,))
+        self.compile_count += 1
+        return True
+
+    def prewarm_buckets(self, *, max_batch: int, max_prompt: int,
+                        chunk: int = 0) -> int:
+        """Run every bucket a serving run can hit once, ahead of traffic:
+        decode pow2 buckets up to `max_batch`, prefill (or, with the CUDA
+        kernels, chunk) pow2 buckets up to `max_prompt`, and the chunk
+        bucket of chunked prefill."""
+        compiled = 0
+        b, top_b = 1, _next_pow2(max(1, max_batch), 1)
+        while b <= top_b:
+            compiled += int(self._warm_compile("decode", b))
+            b *= 2
+        if chunk > 0:
+            compiled += int(self._warm_compile("chunk",
+                                               _next_pow2(chunk, 8)))
+        kind = self._prefill_kind()
+        s, top_s = 8, _next_pow2(min(max(1, max_prompt), self.max_len), 8)
+        while s <= top_s:
+            compiled += int(self._warm_compile(kind, s))
+            s *= 2
+        return compiled
+
+    def warm_start(self) -> int:
+        """Replay of the persistent bucket manifest: the manifest waits
+        for the port of serving/compile_cache, so there is nothing to
+        replay (the JAX package's answer with its compile cache off)."""
+        return 0
+
+    def close(self) -> None:
+        if self._entry is not None:
+            self._entry.detach(self)
+        self._staged.clear()
+
+    def stats(self) -> dict:
+        out = {
+            "compile_count": self.compile_count,
+            "cache_hits": self.cache_hits,
+            "cache_misses": self.cache_misses,
+            "prefills": self.prefills,
+            "chunk_prefills": self.chunk_prefills,
+            "decode_steps": self.decode_steps,
+            "decode_windows": 0,
+            "window_steps": 0,
+            "swap_count": self.swap_count,
+            "paged_kernel": self.paged_kernel,
+            "kernel_invokes": dict(self.kernel_invokes),
+            "kernel_fallback": 0,     # nothing falls back
+        }
+        if self._entry is not None:
+            out["store"] = f"{self._entry.name}@{self._version}"
+        return out

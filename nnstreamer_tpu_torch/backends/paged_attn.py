@@ -1,0 +1,248 @@
+"""Paged attention kernels — the counterpart of the JAX package's
+backends/pallas_paged.py.
+
+Two hand-written CUDA kernels in ``csrc/paged_attn.cu`` read K/V straight
+from the paged pool through block tables, so the gathered cache never
+exists in device memory:
+
+- ``paged_decode_attn`` — one decode step of one layer: q (B, n_heads,
+  hd) against pool blocks ``tables[b, j]``, mask ``kv_pos <= pos[b]``,
+  blocks past ``pos[b]`` skipped; out (B, n_heads, hd) f32.
+- ``paged_prefill_attn`` — causal attention of one prefill chunk of one
+  layer: q (n_heads, S_c, hd) starting at absolute ``pos0``, through one
+  sequence's table (max_blocks,), mask ``pos0 + row >= kv_pos``; out
+  (n_heads, S_c, hd) f32.
+
+Each has a wrapper that counts its launches, and a plain torch version
+(``*_plain``: gather the table's blocks, −1e30 mask, f32 softmax, product
+with V). A CUDA tensor launches the kernel or the call raises; a CPU
+tensor — the device the caller chose — takes the plain version. Nothing
+falls back. The wrapper launches on the current stream, so the pool
+writes queued before it on that stream land before the kernel reads.
+
+``paged_flash_decode_step`` and ``paged_flash_prefill_chunk`` are the
+layer-stack twins of llm/paged_model.py's reference functions: they
+share its layer stack and differ only in the attention they plug in.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from nnstreamer_tpu_torch.core.errors import BackendError
+from nnstreamer_tpu_torch.llm.paged_model import chunk_layers, decode_layers
+from nnstreamer_tpu_torch.models.transformer import attend
+
+#: q dtypes the kernels take, by the launcher's type code
+_Q_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: largest pool block the kernels tile (a tile is up to 64 keys of whole
+#: blocks)
+MAX_BLOCK_SIZE = 64
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+_SIGNATURES = {
+    "nns_paged_decode": ([_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _L, _L, _L, ctypes.c_float, _P], _I),
+    "nns_paged_prefill": ([_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _L, _L, _L, ctypes.c_float, _P], _I),
+}
+
+
+# -- plain torch versions -----------------------------------------------------
+
+def paged_decode_attn_plain(q, k_pool_l, v_pool_l, tables, pos):
+    """Plain torch version of the decode kernel: gather every table
+    block, mask ``kv_pos <= pos[b]`` with −1e30, softmax in f32, product
+    with V → (B, n_heads, hd) f32."""
+    b, n_heads, _ = q.shape
+    kv_len = tables.shape[1] * k_pool_l.shape[1]
+    mask = (torch.arange(kv_len, device=q.device)[None, None, None, :]
+            <= pos[:, None, None, None])
+    kc = k_pool_l[tables].reshape(b, kv_len, *k_pool_l.shape[2:])
+    vc = v_pool_l[tables].reshape(b, kv_len, *v_pool_l.shape[2:])
+    return attend(q[:, None], kc, vc, mask, n_heads, torch.float32)[:, 0]
+
+
+def paged_prefill_attn_plain(q, k_pool_l, v_pool_l, table, pos0: int):
+    """Plain torch version of the prefill kernel: gather the table's
+    blocks, mask ``pos0 + row >= kv_pos`` with −1e30, softmax in f32,
+    product with V → (n_heads, S_c, hd) f32."""
+    n_heads, s_c, _ = q.shape
+    kv_len = table.shape[0] * k_pool_l.shape[1]
+    pos = int(pos0) + torch.arange(s_c, device=q.device)
+    mask = (torch.arange(kv_len, device=q.device)[None, None, None, :]
+            <= pos[None, None, :, None])
+    kc = k_pool_l[table].reshape(1, kv_len, *k_pool_l.shape[2:])
+    vc = v_pool_l[table].reshape(1, kv_len, *v_pool_l.shape[2:])
+    out = attend(q.transpose(0, 1)[None], kc, vc, mask, n_heads,
+                 torch.float32)
+    return out[0].transpose(0, 1)
+
+
+# -- CUDA launches -------------------------------------------------------------
+
+def _check_pools(what, q, k_pool_l, v_pool_l, n_heads):
+    if q.dtype not in _Q_CODE:
+        raise BackendError(
+            f"{what} kernel takes float32 or bfloat16 q, got {q.dtype}")
+    for name, pool in (("k_pool", k_pool_l), ("v_pool", v_pool_l)):
+        if pool.dtype != torch.float32 or pool.device != q.device:
+            raise BackendError(
+                f"{what} kernel takes a float32 {name} on {q.device}, got "
+                f"{pool.dtype} on {pool.device}")
+        if pool.dim() != 4 or pool.stride(-1) != 1:
+            raise BackendError(
+                f"{what} kernel takes one layer's {name} (num_blocks, "
+                f"block_size, n_kv, hd) with a contiguous last dim, got "
+                f"shape {tuple(pool.shape)} strides {pool.stride()}")
+    if k_pool_l.shape != v_pool_l.shape or \
+            k_pool_l.stride() != v_pool_l.stride():
+        raise BackendError(f"{what}: k and v pools differ in shape or "
+                           f"strides")
+    bs, n_kv, hd = k_pool_l.shape[1:]
+    if q.shape[-1] != hd or n_heads % n_kv:
+        raise BackendError(
+            f"{what}: q heads {n_heads} x {q.shape[-1]} do not fit the "
+            f"pool's {n_kv} kv heads x {hd}")
+    # the kernels copy pool rows 16 bytes at a time (cp.async)
+    if hd % 4 or bs > MAX_BLOCK_SIZE or k_pool_l.data_ptr() % 16 or \
+            v_pool_l.data_ptr() % 16 or any(st % 4 for st in
+                                             k_pool_l.stride()[:3]):
+        raise BackendError(
+            f"{what} kernel needs head_dim a multiple of 4, block_size <= "
+            f"{MAX_BLOCK_SIZE} and 16-byte aligned pool rows; got head_dim "
+            f"{hd}, block_size {bs}, strides {k_pool_l.stride()}")
+
+
+def _int32_on(what, t, device, ndim):
+    if t.dtype != torch.int32 or t.device != device or t.dim() != ndim:
+        raise BackendError(
+            f"{what} takes int32 {ndim}-D block tables/positions on "
+            f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return t.contiguous()
+
+
+def _launch(fn_name, what, q, *args):
+    from nnstreamer_tpu_torch.backends import cuda_build
+
+    lib = cuda_build.load("paged_attn.cu", _SIGNATURES)
+    with torch.cuda.device(q.device):
+        err = getattr(lib, fn_name)(
+            *args, torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check(lib, err, what)
+
+
+def _paged_decode_cuda(q, k_pool_l, v_pool_l, tables, pos):
+    b, n_heads, hd = q.shape
+    _check_pools("paged_decode_attn", q, k_pool_l, v_pool_l, n_heads)
+    tables = _int32_on("paged_decode_attn", tables, q.device, 2)
+    pos = _int32_on("paged_decode_attn", pos, q.device, 1)
+    if tables.shape[0] != b or pos.shape[0] != b:
+        raise BackendError(
+            f"paged_decode_attn: {b} q rows but tables {tuple(tables.shape)}"
+            f" and pos {tuple(pos.shape)}")
+    q = q.contiguous()
+    out = torch.empty((b, n_heads, hd), dtype=torch.float32, device=q.device)
+    _, bs, n_kv, _ = k_pool_l.shape
+    sb, ss, sh, _ = k_pool_l.stride()
+    _launch("nns_paged_decode", "paged_decode_attn", q,
+            q.data_ptr(), _Q_CODE[q.dtype], k_pool_l.data_ptr(),
+            v_pool_l.data_ptr(), tables.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), b, n_heads, n_kv, hd, bs, tables.shape[1],
+            sb, ss, sh, hd ** -0.5)
+    paged_decode_attn.launches += 1
+    return out
+
+
+def _paged_prefill_cuda(q, k_pool_l, v_pool_l, table, pos0):
+    n_heads, s_c, hd = q.shape
+    _check_pools("paged_prefill_attn", q, k_pool_l, v_pool_l, n_heads)
+    table = _int32_on("paged_prefill_attn", table, q.device, 1)
+    q = q.contiguous()
+    out = torch.empty((n_heads, s_c, hd), dtype=torch.float32,
+                      device=q.device)
+    _, bs, n_kv, _ = k_pool_l.shape
+    sb, ss, sh, _ = k_pool_l.stride()
+    _launch("nns_paged_prefill", "paged_prefill_attn", q,
+            q.data_ptr(), _Q_CODE[q.dtype], k_pool_l.data_ptr(),
+            v_pool_l.data_ptr(), table.data_ptr(), out.data_ptr(), n_heads,
+            n_kv, s_c, hd, bs, table.shape[0], int(pos0), sb, ss, sh,
+            hd ** -0.5)
+    paged_prefill_attn.launches += 1
+    return out
+
+
+# -- wrappers -----------------------------------------------------------------
+
+def _plain_device(what, q):
+    if q.device.type != "cpu":
+        raise BackendError(f"{what} runs on cuda or cpu tensors, got "
+                           f"{q.device}")
+
+
+def paged_decode_attn(q, k_pool_l, v_pool_l, tables, pos):
+    """Paged attention for one decode step of one layer.
+
+    q (B, n_heads, hd) f32/bf16 — the step's rope'd queries; k/v_pool_l
+    (num_blocks, block_size, n_kv, hd) f32 — ONE layer's pool, already
+    holding this step's writes; tables (B, max_blocks) int32; pos (B,)
+    int32. Returns (B, n_heads, hd) f32. A CUDA tensor runs the
+    hand-written kernel; a CPU tensor runs the plain version."""
+    if q.is_cuda:
+        return _paged_decode_cuda(q, k_pool_l, v_pool_l, tables, pos)
+    _plain_device("paged_decode_attn", q)
+    return paged_decode_attn_plain(q, k_pool_l, v_pool_l, tables, pos)
+
+
+def paged_prefill_attn(q, k_pool_l, v_pool_l, table, pos0: int):
+    """Causal paged attention for one prefill chunk of one layer.
+
+    q (n_heads, S_c, hd) f32/bf16 — the chunk's rope'd queries (S_c the
+    padded chunk bucket); k/v_pool_l one layer's pool with the chunk's
+    K/V already written; table (max_blocks,) int32; pos0 the chunk's
+    absolute start. Returns (n_heads, S_c, hd) f32. A CUDA tensor runs
+    the hand-written kernel; a CPU tensor runs the plain version."""
+    if q.is_cuda:
+        return _paged_prefill_cuda(q, k_pool_l, v_pool_l, table, pos0)
+    _plain_device("paged_prefill_attn", q)
+    return paged_prefill_attn_plain(q, k_pool_l, v_pool_l, table, pos0)
+
+
+#: kernel launches made by this process (each wrapper counts its own)
+paged_decode_attn.launches = 0
+paged_prefill_attn.launches = 0
+
+
+# -- layer-stack twins --------------------------------------------------------
+
+def paged_flash_decode_step(params, cur, tables, pos, k_pool, v_pool,
+                            *, n_heads=4, dtype=torch.float32):
+    """Twin of `paged_model.paged_decode_step` with the attention from
+    `paged_decode_attn` (one launch per layer)."""
+    def attention(q, li):
+        return paged_decode_attn(q[:, 0], k_pool[li], v_pool[li], tables,
+                                 pos)[:, None].to(dtype)
+
+    logits = decode_layers(params, cur, tables, pos, k_pool, v_pool,
+                           attention, n_heads=n_heads, dtype=dtype)
+    return logits, k_pool, v_pool
+
+
+def paged_flash_prefill_chunk(params, ids, pos0: int, blk_idx, blk_off,
+                              table, k_pool, v_pool, last_idx,
+                              *, n_heads=4, dtype=torch.float32):
+    """Twin of `paged_model.paged_prefill_chunk` with the attention from
+    `paged_prefill_attn` (one launch per layer)."""
+    def attention(q, li):
+        out = paged_prefill_attn(q[0].transpose(0, 1), k_pool[li],
+                                 v_pool[li], table, pos0)
+        return out.transpose(0, 1)[None].to(dtype)
+
+    logits = chunk_layers(params, ids, pos0, blk_idx, blk_off, k_pool,
+                          v_pool, last_idx, attention, n_heads=n_heads,
+                          dtype=dtype)
+    return logits, k_pool, v_pool

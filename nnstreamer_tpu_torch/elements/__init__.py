@@ -4,6 +4,7 @@ element with the port's ELEMENT registry."""
 from nnstreamer_tpu_torch.elements.converter import TensorConverter
 from nnstreamer_tpu_torch.elements.decoder import TensorDecoder, register_decoder
 from nnstreamer_tpu_torch.elements.filter import TensorFilter
+from nnstreamer_tpu_torch.elements.llm import TensorLLM
 from nnstreamer_tpu_torch.elements.sinks import FakeSink, TensorSink
 from nnstreamer_tpu_torch.elements.sources import AppSrc, VideoTestSrc
 from nnstreamer_tpu_torch.elements.transform import TensorTransform, TransformProgram
@@ -14,6 +15,7 @@ __all__ = [
     "TensorConverter",
     "TensorDecoder",
     "TensorFilter",
+    "TensorLLM",
     "TensorSink",
     "TensorTransform",
     "TransformProgram",

@@ -10,6 +10,8 @@ Element model (push-based):
 - `Element.process(pad, buf)` → list of (src_pad, buffer) to emit.
 - `Element.negotiate(in_specs)` → out_specs, raising NegotiationError
   with actionable messages.
+- `Element.start()` after negotiation; `next_deadline()`/`on_timer()`
+  for elements that must wake up without input (timer elements).
 
 Properties are constructor kwargs; string values arrive from the DSL and
 are coerced by each element's `PROPS` declaration.
@@ -62,6 +64,14 @@ class Element:
     #: the scheduler does not wait for them before passing them on, and
     #: bounds how many are in flight ([runtime] max_inflight)
     DEVICE_RESIDENT: bool = False
+    #: element consumes host arrays (decoders, sinks): the JAX package's
+    #: scheduler starts D2H copies early toward it. The port's scheduler
+    #: declares it only — each such element calls to_host() itself
+    WANTS_HOST: bool = False
+    #: eligible for the JAX package's chain fusion (cheap single-in/out
+    #: elements sharing one thread). The port's scheduler gives every
+    #: element its own thread; a timer element must keep one regardless
+    CHAIN_FUSABLE: bool = True
 
     def __init__(self, name: Optional[str] = None, **props):
         self.name = name or f"{self.ELEMENT_NAME}{id(self) & 0xFFFF:x}"
@@ -101,6 +111,9 @@ class Element:
                 f"upstream to turn media into tensors")
         return spec
 
+    def start(self) -> None:
+        """Called after negotiation, before data flows (open engines…)."""
+
     def stop(self) -> None:
         """Called at teardown."""
 
@@ -109,6 +122,18 @@ class Element:
 
     def flush(self) -> List[Emission]:
         """Drain internal state at EOS."""
+        return []
+
+    def next_deadline(self) -> Optional[float]:
+        """Earliest `time.perf_counter()` instant at which this element
+        needs a wakeup even if no buffer arrives (tensor_llm's next
+        serving step). None = no pending deadline. Called only from the
+        element's own worker thread."""
+        return None
+
+    def on_timer(self) -> List[Emission]:
+        """Fired by the scheduler when next_deadline() passes before a
+        buffer arrives. Same threading contract as process()."""
         return []
 
     def __repr__(self):

@@ -10,6 +10,9 @@ var}}, "blocks": [{"expand"?, "depthwise", "project"}], "head": …,
 - conv weights HWIO → OIHW (depthwise (3, 3, 1, C) → (C, 1, 3, 3));
 - dense (cin, cout) → (cout, cin);
 - the four BN vectors as they are.
+
+`transformer_params` carries the JAX transformer's params over as they
+are: the port's transformer keeps the (in, out) dense layout.
 """
 
 from __future__ import annotations
@@ -54,3 +57,21 @@ def load_mobilenet_v2(model: torch.nn.Module, params: Dict[str, Any]) -> torch.n
     key must match both ways)."""
     model.load_state_dict(mobilenet_v2_state_dict(params), strict=True)
     return model
+
+
+_TRANSFORMER_BLOCK_KEYS = ("ln1", "wqkv", "wo", "ln2", "wi", "wd")
+
+
+def transformer_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """JAX transformer params (numpy leaves) → the port's params dict.
+
+    The port keeps the JAX layout — dense weights (in, out), used as
+    ``x @ w`` — so this is a plain f32 copy of embed, blocks (ln1, wqkv,
+    wo, ln2, wi, wd), ln_f and head, with no transpose."""
+    return {
+        "embed": _t(params["embed"]),
+        "blocks": [{k: _t(blk[k]) for k in _TRANSFORMER_BLOCK_KEYS}
+                   for blk in params["blocks"]],
+        "ln_f": _t(params["ln_f"]),
+        "head": _t(params["head"]),
+    }

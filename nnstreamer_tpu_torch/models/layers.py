@@ -75,6 +75,14 @@ def kaiming_init_(w: torch.Tensor, fan_in: int,
                                  generator=generator)
 
 
+def xavier_uniform(shape: Tuple[int, int],
+                   generator: torch.Generator) -> torch.Tensor:
+    """f32 (in, out) dense weight, uniform on ±sqrt(6/(in+out)) (the JAX
+    zoo's xavier_init for a 2-D shape)."""
+    limit = math.sqrt(6.0 / max(1, shape[0] + shape[1]))
+    return torch.empty(shape).uniform_(-limit, limit, generator=generator)
+
+
 class ConvBN(nn.Module):
     """Conv (SAME) + inference BN (+ relu6) — the MobileNet building unit.
     ``groups == cin == cout`` is depthwise (weights (C, 1, kh, kw))."""

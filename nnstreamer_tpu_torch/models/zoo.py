@@ -2,20 +2,22 @@
 
 `zoo://<name>[?k=v&k2=v2]` references resolve here. Builders register on
 import of their module and return `backends.torch_backend.ModelBundle`s.
+Registration also seeds the model store, so ``store://<name>`` serves
+its default build as version ``@0``.
 """
 
 from __future__ import annotations
 
 import importlib
 import threading
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 from urllib.parse import parse_qsl
 
 from nnstreamer_tpu_torch.core.errors import BackendError
 
 _builders: Dict[str, Callable] = {}
 _lock = threading.Lock()
-_BUILTIN_MODULES = ("mobilenet_v2",)
+_BUILTIN_MODULES = ("mobilenet_v2", "transformer")
 
 
 def register_model(name: str):
@@ -28,8 +30,19 @@ def register_model(name: str):
                     f"zoo model {name!r} is already registered (builder "
                     f"{prev.__module__}.{prev.__qualname__})")
             _builders[name] = fn
+        # lazy import: the store resolves zoo refs through this module
+        from nnstreamer_tpu_torch.serving.store import get_store
+
+        get_store().seed_zoo(name, fn)
         return fn
     return deco
+
+
+def builder(name: str) -> Optional[Callable]:
+    """The registered builder of `name`, or None."""
+    _load_builtins()
+    with _lock:
+        return _builders.get(name)
 
 
 def list_models() -> List[str]:

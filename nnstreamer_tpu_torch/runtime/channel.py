@@ -2,12 +2,15 @@
 
 ``put`` wakes the consumer the instant a buffer lands, ``get`` wakes a
 blocked producer the instant a slot frees, and ``close()`` wakes every
-waiter on both sides, so teardown cannot lose a wakeup.
+waiter on both sides, so teardown cannot lose a wakeup. ``get`` can be
+bounded by a deadline, so a timer element's worker sleeps until its next
+deadline or the next buffer, whichever comes first.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from typing import Any, Optional, Tuple
 
@@ -24,6 +27,8 @@ class _Sentinel:
 
 #: ``get()`` result when the channel was closed (teardown) and empty
 CLOSED = _Sentinel("CLOSED")
+#: ``get(deadline)`` result when the deadline passed with no item
+TIMED_OUT = _Sentinel("TIMED_OUT")
 
 
 class Channel:
@@ -31,8 +36,10 @@ class Channel:
 
     - ``put(item)`` blocks while full; returns the post-append depth, or
       ``None`` when the channel closed first (item not delivered).
-    - ``get()`` blocks until an item is available → ``(item, depth)``;
-      ``(CLOSED, 0)`` once the channel is closed and drained.
+    - ``get(deadline=None)`` blocks until an item is available →
+      ``(item, depth)``; ``(CLOSED, 0)`` once the channel is closed and
+      drained; ``(TIMED_OUT, 0)`` when the ``time.perf_counter()``
+      deadline passes first.
     """
 
     __slots__ = ("_buf", "_cap", "_closed", "_lock", "_not_empty",
@@ -58,12 +65,18 @@ class Channel:
             self._not_empty.notify()
             return len(self._buf)
 
-    def get(self) -> Tuple[Any, int]:
+    def get(self, deadline: Optional[float] = None) -> Tuple[Any, int]:
         with self._not_empty:
             while not self._buf:
                 if self._closed:
                     return CLOSED, 0
-                self._not_empty.wait()
+                if deadline is None:
+                    self._not_empty.wait()
+                    continue
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0.0:
+                    return TIMED_OUT, 0
+                self._not_empty.wait(remaining)
             item = self._buf.popleft()
             self._not_full.notify()
             return item, len(self._buf)

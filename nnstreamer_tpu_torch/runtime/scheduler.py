@@ -18,6 +18,10 @@ double-buffered, so a filter's device work overlaps upstream conversion.
   still queued, and syncs the oldest once more than max_inflight are in
   flight. Sinks and host decoders are the pipeline's sync points; EOS
   drains the window before it propagates.
+- Timers: a worker bounds its channel wait by its element's
+  `next_deadline()` and fires `on_timer()` when it passes with no input
+  (tensor_llm runs one serving step per fire). An element with no
+  deadline waits on its channel exactly as before.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from nnstreamer_tpu_torch.core.config import get_config
 from nnstreamer_tpu_torch.core.errors import PipelineError, StreamError
 from nnstreamer_tpu_torch.core.log import get_logger
 from nnstreamer_tpu_torch.graph.pipeline import Element, Link, Pipeline, SourceElement
-from nnstreamer_tpu_torch.runtime.channel import CLOSED, Channel
+from nnstreamer_tpu_torch.runtime.channel import CLOSED, TIMED_OUT, Channel
 from nnstreamer_tpu_torch.runtime.sync import device_sync
 from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
 
@@ -78,6 +82,8 @@ class PipelineRunner:
 
                 fuse_transforms(pipe)
             pipe.negotiate()
+        for e in pipe.elements.values():
+            e.start()
         for l in pipe.links:
             self._route[(l.src.name, l.src_pad)] = l
         for e in pipe.elements.values():
@@ -181,9 +187,19 @@ class PipelineRunner:
         window = deque() if elem.DEVICE_RESIDENT else None
         try:
             while not self._stop_evt.is_set():
-                msg, _ = ch.get()
+                # deadline-aware wait: the channel wait ends at the
+                # element's next deadline, so a timer element wakes up
+                # without input; no deadline = a plain blocking get
+                deadline = elem.next_deadline()
+                if deadline is not None and time.perf_counter() >= deadline:
+                    for sp, b in elem.on_timer():
+                        self._emit(elem, sp, b)
+                    continue
+                msg, _ = ch.get(deadline)
                 if msg is CLOSED:  # teardown wakeup
                     return
+                if msg is TIMED_OUT:  # deadline due: fire on the next turn
+                    continue
                 pad, item = msg
                 if item is EOS:
                     eos_pads.add(pad)

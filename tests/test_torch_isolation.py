@@ -28,6 +28,28 @@ NORM_A = ("tensor_transform mode=arithmetic "
 NORM_B = "tensor_filter framework=pallas model=normalize_u8"
 
 
+#: appsrc ! tensor_llm ! tensor_sink on the zoo transformer, kernel path
+LLM = """
+import numpy as np
+from nnstreamer_tpu_torch.elements import AppSrc, TensorLLM, TensorSink
+from nnstreamer_tpu_torch.tensor.info import TensorFormat, TensorsSpec
+src = AppSrc(spec=TensorsSpec(tensors=(), format=TensorFormat.FLEXIBLE))
+llm = TensorLLM(paged_kernel="pallas", prefill_chunk=4, max_new_tokens=3)
+sink = TensorSink()
+pipe = nt.Pipeline()
+for e in (src, llm, sink):
+    pipe.add(e)
+pipe.link(src, llm)
+pipe.link(llm, sink)
+runner = nt.PipelineRunner(pipe).start()
+src.push(np.arange(1, 7, dtype=np.int32))
+src.end()
+runner.wait(120)
+runner.stop()
+assert sum(len(b.tensors[0]) for b in sink.results) == 3
+"""
+
+
 def _forbidden(name: str) -> bool:
     # exact names: nnstreamer_tpu_torch shares the nnstreamer_tpu prefix
     return name in ("jax", "nnstreamer_tpu") or name.startswith(
@@ -51,6 +73,7 @@ for norm in ({NORM_A!r}, {NORM_B!r}):
     pipe = nt.parse_launch({TINY!r}.format(norm=norm))
     nt.PipelineRunner(pipe).run(120)
     assert len(pipe.get("out").results) == 2
+{LLM}
 bad = [m for m in sys.modules if m in ("jax", "nnstreamer_tpu")
        or m.startswith(("jax.", "nnstreamer_tpu."))]
 assert not bad, bad

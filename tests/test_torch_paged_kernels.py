@@ -1,0 +1,285 @@
+"""The port's paged attention (nnstreamer_tpu_torch/backends/paged_attn.py
+and llm/paged_model.py) against the JAX package's Pallas paged kernels
+and XLA paged reference.
+
+The JAX side runs `pallas_paged.paged_decode_attn`/`paged_prefill_attn`
+in interpret mode, as tests/test_paged_kernels.py does on the CPU. The
+port's side runs on CPU tensors, so its wrappers take the plain torch
+versions: a CUDA kernel has no CPU mode, and chip_smoke.py holds the CUDA
+kernels to these plain versions on the card.
+
+Inputs are numpy-seeded and shared; the pool geometry is the JAX
+tests' (L2, NB16, BS8, NKV2, HD16, MB4). Tolerance 1e-5 absolute on
+attention outputs and logits (f32 on both sides; the two frameworks sum
+in different orders).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nnstreamer_tpu.backends import pallas_paged as jpp
+from nnstreamer_tpu.llm import paged_model as jpm
+from nnstreamer_tpu.models.transformer import init_params
+from nnstreamer_tpu_torch.backends import paged_attn as tpa
+from nnstreamer_tpu_torch.core.errors import BackendError
+from nnstreamer_tpu_torch.llm import paged_model as tpm
+from nnstreamer_tpu_torch.models import bridge
+
+TOL = 1e-5
+L, NB, BS, NKV, HD, MB = 2, 16, 8, 2, 16, 4     # pool geometry
+N_HEADS = 4
+
+
+@pytest.fixture(autouse=True)
+def _cpu_port(monkeypatch):
+    monkeypatch.setenv("NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR", "cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def params():
+    """(JAX params, the port's bridged copy)."""
+    jp = init_params(vocab=61, d_model=64, n_layers=L, n_heads=N_HEADS,
+                     n_kv_heads=NKV, seed=3)
+    return jp, bridge.transformer_params(
+        jax.tree_util.tree_map(np.asarray, jp))
+
+
+def _rand(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x,
+                      np.float32)
+
+
+def _close(a, b, tol=TOL):
+    err = float(np.max(np.abs(_np(a) - _np(b))))
+    assert err <= tol, err
+
+
+# -- the kernels: plain torch vs the Pallas kernels in interpret mode ------
+
+#: name → (tables, pos): holes and out-of-order blocks, staggered rows
+#: (one at a block boundary), pow2 padding rows all on scratch
+DECODE_CASES = {
+    "holey-staggered-padded": ([[3, 9, 0, 0], [7, 0, 0, 0], [0] * 4,
+                                [0] * 4], [12, 5, 0, 0]),
+    "block-boundary": ([[5, 11, 0, 0]], [BS]),
+    "out-of-order-deep": ([[14, 2, 9, 4], [6, 1, 0, 0]],
+                          [4 * BS - 1, BS + 3]),
+}
+
+
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_plain_matches_pallas(case, qdtype):
+    tables, pos = DECODE_CASES[case]
+    tables = np.asarray(tables, np.int32)
+    pos = np.asarray(pos, np.int32)
+    b = tables.shape[0]
+    q = _rand((b, N_HEADS, HD), 1)
+    kp, vp = _rand((NB, BS, NKV, HD), 2), _rand((NB, BS, NKV, HD), 3)
+    jq = jnp.asarray(q).astype(qdtype)
+    ref = jpp.paged_decode_attn(jq, jnp.asarray(kp), jnp.asarray(vp),
+                                jnp.asarray(tables), jnp.asarray(pos))
+    tq = torch.from_numpy(q).to(getattr(torch, qdtype))
+    before = tpa.paged_decode_attn.launches
+    got = tpa.paged_decode_attn(tq, torch.from_numpy(kp),
+                                torch.from_numpy(vp),
+                                torch.from_numpy(tables),
+                                torch.from_numpy(pos))
+    assert got.dtype == torch.float32 and got.shape == (b, N_HEADS, HD)
+    assert tpa.paged_decode_attn.launches == before   # CPU: no launch
+    _close(got, ref)
+
+
+#: name → (S_c, pos0, table): one chunk from 0, later chunks of a
+#: multi-chunk prefill (pos0 > 0), a chunk padded past the table
+PREFILL_CASES = {
+    "first-chunk": (16, 0, [3, 9, 0, 0]),
+    "second-chunk": (8, 8, [2, 6, 13, 0]),
+    "third-chunk-odd-start": (8, 19, [2, 6, 13, 5]),
+    "padded-past-table": (32, 0, [4, 0, 0, 0]),
+}
+
+
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
+def test_prefill_plain_matches_pallas(case, qdtype):
+    s_c, pos0, table = PREFILL_CASES[case]
+    table = np.asarray(table, np.int32)
+    q = _rand((N_HEADS, s_c, HD), 4)
+    kp, vp = _rand((NB, BS, NKV, HD), 5), _rand((NB, BS, NKV, HD), 6)
+    ref = jpp.paged_prefill_attn(jnp.asarray(q).astype(qdtype),
+                                 jnp.asarray(kp), jnp.asarray(vp),
+                                 jnp.asarray(table), pos0)
+    before = tpa.paged_prefill_attn.launches
+    got = tpa.paged_prefill_attn(
+        torch.from_numpy(q).to(getattr(torch, qdtype)),
+        torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(table), pos0)
+    assert got.dtype == torch.float32 and got.shape == (N_HEADS, s_c, HD)
+    assert tpa.paged_prefill_attn.launches == before
+    _close(got, ref)
+
+
+def test_wrappers_refuse_other_devices():
+    q = torch.zeros((1, N_HEADS, HD), device="meta")
+    pool = torch.zeros((NB, BS, NKV, HD), device="meta")
+    with pytest.raises(BackendError, match="cuda or cpu"):
+        tpa.paged_decode_attn(q, pool, pool, torch.zeros((1, MB)),
+                              torch.zeros(1))
+    with pytest.raises(BackendError, match="cuda or cpu"):
+        tpa.paged_prefill_attn(q[0][:, None].expand(N_HEADS, 8, HD),
+                               pool, pool, torch.zeros(MB), 0)
+
+
+# -- the layer stacks on bridged params --------------------------------------
+
+def _jpools():
+    z = jnp.zeros((L, NB, BS, NKV, HD), jnp.float32)
+    return z, z
+
+
+def _tpools():
+    return (torch.zeros((L, NB, BS, NKV, HD)),
+            torch.zeros((L, NB, BS, NKV, HD)))
+
+
+def _targets(n, blocks, s_b, pos0=0):
+    """Per-position (block, offset) scatter targets; padding → scratch."""
+    bi = np.zeros(s_b, np.int32)
+    bo = ((pos0 + np.arange(s_b)) % BS).astype(np.int32)
+    for j in range(n):
+        bi[j] = blocks[(pos0 + j) // BS]
+    return bi, bo
+
+
+def _table(blocks):
+    t = np.zeros(MB, np.int32)
+    t[:len(blocks)] = blocks
+    return t
+
+
+def _prompt(n, seed=0):
+    return np.random.default_rng(seed).integers(1, 60, size=n).astype(
+        np.int32)
+
+
+def _prefill_both(params, prompt, blocks, jpools, tpools):
+    """Whole-prompt prefill on both sides (the reference path)."""
+    jp, tp = params
+    n = len(prompt)
+    s_b = max(8, 1 << (n - 1).bit_length())
+    ids = np.pad(prompt, (0, s_b - n))[None, :]
+    bi, bo = _targets(n, blocks, s_b)
+    jl, jk, jv = jpm.paged_prefill(jp, jnp.asarray(ids), jnp.asarray(bi),
+                                   jnp.asarray(bo), *jpools, n - 1)
+    tl, tk, tv = tpm.paged_prefill(tp, torch.from_numpy(ids),
+                                   torch.from_numpy(bi),
+                                   torch.from_numpy(bo), *tpools, n - 1)
+    return (jl, tl), (jk, jv), (tk, tv)
+
+
+@pytest.mark.parametrize("flavor", ["xla", "pallas"])
+def test_decode_step_matches_jax(params, flavor):
+    """Two live rows at different depths over holey tables, plus pow2
+    padding rows on scratch; then a second step over the updated pools.
+    The port's reference (xla) and kernel twin (pallas) both hold to
+    JAX's paged_decode_step, logits and live pool blocks."""
+    jp, tp = params
+    fn = tpm.paged_decode_step if flavor == "xla" \
+        else tpa.paged_flash_decode_step
+    jpools, tpools = _jpools(), _tpools()
+    (jl, tl), jpools, tpools = _prefill_both(params, _prompt(12, 1), [3, 9],
+                                             jpools, tpools)
+    _close(tl, jl)
+    _, jpools, tpools = _prefill_both(params, _prompt(5, 2), [7], jpools,
+                                      tpools)
+    tabs = np.zeros((4, MB), np.int32)
+    tabs[0, :2] = [3, 9]
+    tabs[1, 0] = 7
+    for cur, pos in (([17, 23, 0, 0], [12, 5, 0, 0]),
+                     ([9, 11, 0, 0], [13, 6, 0, 0])):
+        cur, pos = np.asarray(cur, np.int32), np.asarray(pos, np.int32)
+        ref, *jpools = jpm.paged_decode_step(
+            jp, jnp.asarray(cur), jnp.asarray(tabs), jnp.asarray(pos),
+            *jpools)
+        got, *tpools = fn(tp, torch.from_numpy(cur), torch.from_numpy(tabs),
+                          torch.from_numpy(pos), *tpools)
+        _close(got[:2], ref[:2])
+        for j, t in zip(jpools, tpools):
+            _close(t[:, 1:], j[:, 1:])   # scratch takes padding garbage
+
+
+@pytest.mark.parametrize("flavor", ["xla", "pallas"])
+def test_chunk_matches_jax_full_prefill(params, flavor):
+    """One chunk covering the prompt == JAX's apply_seq_kv prefill, logits
+    and pool contents: the bridge that lets the chunk family replace the
+    whole-prompt prefill for the kernel path."""
+    jp, tp = params
+    fn = tpm.paged_prefill_chunk if flavor == "xla" \
+        else tpa.paged_flash_prefill_chunk
+    prompt, n, s_b = _prompt(12, 5), 12, 16
+    ids = np.pad(prompt, (0, s_b - n))[None, :]
+    bi, bo = _targets(n, [3, 9], s_b)
+    ref, jk, _ = jpm.paged_prefill(jp, jnp.asarray(ids), jnp.asarray(bi),
+                                   jnp.asarray(bo), *_jpools(), n - 1)
+    got, tk, _ = fn(tp, torch.from_numpy(ids), 0, torch.from_numpy(bi),
+                    torch.from_numpy(bo), torch.from_numpy(_table([3, 9])),
+                    *_tpools(), n - 1)
+    _close(got, ref)
+    _close(tk[:, 1:], jk[:, 1:])
+
+
+@pytest.mark.parametrize("flavor", ["xla", "pallas"])
+def test_chunked_prefill_matches_jax_unchunked(params, flavor):
+    """Three 8-token chunks through holey blocks == JAX's one 24-token
+    prefill: later chunks attend earlier chunks' pool KV through the
+    table, with a positional causal mask."""
+    jp, tp = params
+    fn = tpm.paged_prefill_chunk if flavor == "xla" \
+        else tpa.paged_flash_prefill_chunk
+    prompt, blocks = _prompt(24, 6), [2, 6, 13]
+    (ref, _), _, _ = _prefill_both(params, prompt, blocks, _jpools(),
+                                   _tpools())
+    tab = torch.from_numpy(_table(blocks))
+    tpools = _tpools()
+    for c0 in range(0, 24, 8):
+        seg = prompt[c0:c0 + 8]
+        bi, bo = _targets(len(seg), blocks, 8, pos0=c0)
+        out, *tpools = fn(tp, torch.from_numpy(seg[None, :]), c0,
+                          torch.from_numpy(bi), torch.from_numpy(bo), tab,
+                          *tpools, len(seg) - 1)
+    _close(out, ref)
+
+
+def test_chunk_padded_tail_hits_scratch_only(params):
+    """A short chunk padded to its bucket leaves every live block
+    untouched beyond its real tokens: padding writes only scratch."""
+    _, tp = params
+    prompt = _prompt(3, 7)
+    bi, bo = _targets(3, [4], 8)
+    _, kp, _ = tpa.paged_flash_prefill_chunk(
+        tp, torch.from_numpy(np.pad(prompt, (0, 5))[None, :]), 0,
+        torch.from_numpy(bi), torch.from_numpy(bo),
+        torch.from_numpy(_table([4])), *_tpools(), 2)
+    assert float(kp[:, 4, 3:].abs().max()) == 0.0
+    live = torch.ones(NB, dtype=torch.bool)
+    live[[0, 4]] = False
+    assert float(kp[:, live].abs().max()) == 0.0
+
+
+def test_proj_refuses_w8a8_params():
+    store = {"wqkv": torch.zeros(4, 4), "wqkv_scale": torch.ones(4)}
+    with pytest.raises(BackendError, match="W8A8"):
+        tpm._proj(store, "wqkv", torch.zeros(1, 4), torch.float32)
