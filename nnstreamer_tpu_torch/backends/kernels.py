@@ -4,6 +4,13 @@ package's backends/pallas_ops.py).
 - ``normalize_u8`` — integer (or f32) frame → ``(x - mean) * (1/std)`` in
   f32 or bf16; the converter+transform ingest path in one pass. CUDA C++
   in ``csrc/normalize.cu``.
+- ``quantize_rows`` — (M, K) f32/bf16 → int8 (M, K) and f32 scales
+  (M, 1), symmetric per row: the activation half of every W8A8
+  projection. CUDA C++ in ``csrc/quantize_rows.cu``.
+- ``flash_attention`` — (B, S, H, D) attention with an online softmax,
+  causal or not, f32 or bf16: the full-sequence forward's attention.
+  CUDA C++ in ``csrc/flash_attn.cu``; one kernel serves both TPU paths
+  (K/V resident and K/V streamed).
 
 Each kernel has three parts here: the wrapper, which launches the CUDA
 kernel for a CUDA tensor and counts the launch; its plain torch version,
@@ -19,6 +26,18 @@ import ctypes
 import torch
 
 from nnstreamer_tpu_torch.core.errors import BackendError
+
+
+def _dispatch(what: str, x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (plain version); any other device raises."""
+    if x.is_cuda:
+        return True
+    if x.device.type != "cpu":
+        raise BackendError(f"{what} runs on cuda or cpu tensors, got "
+                           f"{x.device}")
+    return False
+
 
 # -- normalize: (x - mean) * (1/std) ---------------------------------------
 
@@ -73,13 +92,204 @@ def normalize_u8(x: torch.Tensor, mean: float = 127.5, std: float = 127.5,
     """uint8 (or int8/int16/uint16/f32) frame → normalized f32/bf16, same
     shape. A CUDA tensor runs the hand-written kernel; a CPU tensor runs
     the plain version."""
-    if x.is_cuda:
+    if _dispatch("normalize_u8", x):
         return _normalize_u8_cuda(x, mean, std, out_dtype)
-    if x.device.type != "cpu":
-        raise BackendError(
-            f"normalize_u8 runs on cuda or cpu tensors, got {x.device}")
     return normalize_u8_plain(x, mean, std, out_dtype)
 
 
 #: kernel launches made by this process (the wrapper counts each one)
 normalize_u8.launches = 0
+
+
+# -- quantize_rows: per-row symmetric int8 ---------------------------------
+
+_FLOAT_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+#: 1/127 rounded to f32. The JAX kernel's ``amax / 127.0`` is compiled by
+#: XLA as a product with this reciprocal (a division by a constant
+#: becomes a multiply), so the scale is ``amax * _INV_127`` in the kernel,
+#: here and in CUDA alike; ``x / scale`` stays a true division.
+_INV_127 = 1.0 / 127.0
+
+
+def quantize_rows_plain(x: torch.Tensor):
+    """Plain torch version of the quantize_rows kernel (the counterpart of
+    `_quantize_rows_xla`): ``amax = max|x|`` per row in f32, ``scale =
+    amax / 127`` as the JAX kernel computes it (``amax * f32(1/127)``; 1
+    where amax is 0), ``q = clip(round(x / scale), ±127)`` with round
+    half to even. → (int8 (M, K), f32 (M, 1))."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax * _INV_127, torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _quantize_rows_cuda(x: torch.Tensor):
+    from nnstreamer_tpu_torch.backends import cuda_build
+
+    if x.dim() != 2 or x.dtype not in _FLOAT_CODE:
+        raise BackendError(
+            f"quantize_rows kernel takes a 2-D float32 or bfloat16 matrix, "
+            f"got {x.dtype} {tuple(x.shape)}")
+    m, k = x.shape
+    if k == 0 or k * x.element_size() > 227 * 1024:
+        raise BackendError(
+            f"quantize_rows kernel stages a row in shared memory: K={k} "
+            f"{x.dtype} must be 1 .. {227 * 1024 // x.element_size()}")
+    # the kernel reads row r at x + r * stride(0): rows must not overlap
+    # (an expanded or broadcast view is copied first)
+    if x.stride(1) != 1 or (m > 1 and x.stride(0) < k):
+        x = x.contiguous()
+    q = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    scale = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    lib = cuda_build.load("quantize_rows.cu", {"nns_quantize_rows": (
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int)})
+    with torch.cuda.device(x.device):
+        err = lib.nns_quantize_rows(
+            x.data_ptr(), _FLOAT_CODE[x.dtype], x.stride(0) if m > 1 else k,
+            q.data_ptr(), scale.data_ptr(), m, k,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(lib, err, "quantize_rows")
+    quantize_rows.launches += 1
+    return q, scale
+
+
+def quantize_rows(x: torch.Tensor):
+    """(M, K) f32/bf16 → (int8 (M, K), f32 scales (M, 1)): symmetric
+    per-row dynamic quantization in one pass, any M. A CUDA tensor runs
+    the hand-written kernel (bit for bit the plain version); a CPU tensor
+    runs the plain version."""
+    if _dispatch("quantize_rows", x):
+        return _quantize_rows_cuda(x)
+    return quantize_rows_plain(x)
+
+
+quantize_rows.launches = 0
+
+
+# -- flash attention ---------------------------------------------------------
+
+#: masked score, and the level at or below which p is forced to 0
+#: (pallas_ops._online_softmax_update)
+_MASKED, _MASKED_BELOW, _L_FLOOR = -1e30, -1e29, 1e-20
+#: largest head dim the CUDA kernel tiles
+FLASH_MAX_HEAD_DIM = 256
+
+
+def _auto_block(s: int, want: int) -> int:
+    """Largest power-of-two block <= `want` that divides `s` (>= 8), as
+    the JAX package picks its flash blocks."""
+    b = min(want, s)
+    while b > 8 and s % b:
+        b //= 2
+    return b
+
+
+def _check_flash_blocks(s: int, block_q: int, block_k: int) -> None:
+    """JAX's shape contract for flash_attention: S divisible by the
+    blocks (explicit, or the largest power of two <= 512 dividing S).
+    The CUDA kernel's own 64 x 64 tiles mask a ragged edge themselves;
+    the contract is kept so both packages accept the same shapes."""
+    bq = min(block_q or _auto_block(s, 512), s)
+    bk = min(block_k or _auto_block(s, 512), s)
+    if s % bq or s % bk:
+        raise ValueError(
+            f"flash_attention needs seq len {s} divisible by block sizes "
+            f"({bq}, {bk}); pad the sequence upstream")
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = False,
+                          q_start: int = 0):
+    """Plain torch version of the flash kernel: the whole row's masked
+    softmax in f32 with the kernel's semantics — scores ``(q·k) *
+    D**-0.5`` in f32, masked scores −1e30 and their p forced to 0, l
+    floored at 1e-20, p cast to v's dtype before the product (f32 sums) —
+    → (B, Sq, H, D) in q's dtype. `q_start` is the absolute position of
+    q's first row (a slice of rows checked against full K/V)."""
+    s_q, s_k, d = q.shape[1], k.shape[1], q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * d ** -0.5
+    if causal:
+        rows = q_start + torch.arange(s_q, device=q.device)
+        mask = rows[:, None] >= torch.arange(s_k, device=q.device)[None, :]
+        s = torch.where(mask, s, torch.full_like(s, _MASKED))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    if causal:
+        p = torch.where(s <= _MASKED_BELOW, torch.zeros_like(p), p)
+    l = p.sum(dim=-1).clamp_min(_L_FLOOR)               # (B, H, Sq)
+    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return (acc / l.transpose(1, 2)[..., None]).to(q.dtype)
+
+
+def _flash_operand(t: torch.Tensor) -> torch.Tensor:
+    """A view the kernel can read with cp.async: innermost dim contiguous,
+    16-byte aligned base and (b, s, h) strides; otherwise a contiguous
+    copy (same values — layout, not arithmetic)."""
+    item = t.element_size()
+    if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
+            (st * item) % 16 for n, st in zip(t.shape[:3], t.stride()[:3])
+            if n > 1):
+        t = t.contiguous()
+    return t
+
+
+def _strides(t: torch.Tensor):
+    return [st if n > 1 else 0 for n, st in zip(t.shape[:3], t.stride()[:3])]
+
+
+def _flash_attention_cuda(q, k, v, causal: bool):
+    from nnstreamer_tpu_torch.backends import cuda_build
+
+    b, s, h, d = q.shape
+    if q.dtype not in _FLOAT_CODE:
+        raise BackendError(
+            f"flash_attention kernel takes float32 or bfloat16, got "
+            f"{q.dtype}")
+    if (d * q.element_size()) % 16 or d > FLASH_MAX_HEAD_DIM:
+        raise BackendError(
+            f"flash_attention kernel needs head_dim * itemsize a multiple "
+            f"of 16 bytes and head_dim <= {FLASH_MAX_HEAD_DIM}; got "
+            f"head_dim {d} {q.dtype}")
+    if b > 65535 or h > 65535:
+        raise BackendError(f"flash_attention kernel: batch {b} or heads {h} "
+                           f"above 65535")
+    q, k, v = (_flash_operand(t) for t in (q, k, v))
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lib = cuda_build.load("flash_attn.cu", {"nns_flash_attn": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 12
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)})
+    with torch.cuda.device(q.device):
+        err = lib.nns_flash_attn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _FLOAT_CODE[q.dtype], b, s, h, d,
+            *_strides(q), *_strides(k), *_strides(v), *_strides(out),
+            d ** -0.5, int(bool(causal)),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check(lib, err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = False, block_q: int = 0,
+                    block_k: int = 0):
+    """Fused attention for (B, S, H, D) tensors (K/V already expanded to
+    H heads for GQA), scale D**-0.5, output in q's dtype. Raises
+    ValueError where the JAX package's flash_attention refuses the shape
+    (S not divisible by the explicit or automatic blocks). A CUDA tensor
+    runs the hand-written kernel; a CPU tensor runs the plain version."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise BackendError(
+            f"flash_attention takes q, k, v of one (B, S, H, D) shape and "
+            f"dtype, got {tuple(q.shape)} {q.dtype}, {tuple(k.shape)} "
+            f"{k.dtype}, {tuple(v.shape)} {v.dtype}")
+    _check_flash_blocks(q.shape[1], block_q, block_k)
+    if _dispatch("flash_attention", q):
+        return _flash_attention_cuda(q, k, v, causal)
+    return flash_attention_plain(q, k, v, causal=causal)
+
+
+flash_attention.launches = 0

@@ -59,8 +59,8 @@ def _next_pow2(n: int, floor: int = 1) -> int:
 
 def _derive_dims(params: dict, n_heads: int) -> dict:
     """Model dims from the transformer params themselves (a store version
-    may differ from the element's properties). Refuses W8A8-quantized
-    params: their int8 path is the W8A8 slice's."""
+    may differ from the element's properties; a W8A8 version's int8
+    weights have the float version's shapes)."""
     try:
         d_model = int(params["embed"].shape[1])
         vocab = int(params["head"].shape[1])
@@ -68,7 +68,6 @@ def _derive_dims(params: dict, n_heads: int) -> dict:
         hd = d_model // n_heads
         n_kv = (int(params["blocks"][0]["wqkv"].shape[1]) - d_model) \
             // 2 // hd
-        quantized = any(k.endswith("_scale") for k in params["blocks"][0])
     except (KeyError, IndexError, AttributeError, TypeError) as e:
         raise BackendError(
             f"tensor_llm needs transformer-family params (embed/blocks/"
@@ -77,11 +76,6 @@ def _derive_dims(params: dict, n_heads: int) -> dict:
     if hd * n_heads != d_model:
         raise BackendError(
             f"n_heads={n_heads} does not divide d_model={d_model}")
-    if quantized:
-        raise BackendError(
-            "tensor_llm params are W8A8-quantized (they carry *_scale); "
-            "W8A8 serving is not ported yet — it comes with the W8A8 "
-            "slice (models/quant.py and the quantize_rows kernel)")
     return {"d_model": d_model, "vocab": vocab, "n_layers": n_layers,
             "head_dim": hd, "n_kv": n_kv}
 
@@ -176,15 +170,25 @@ class PagedLLMExecutor:
         self.decode_steps = 0
 
     # -- params ------------------------------------------------------------
-    def _place(self, params):
+    def _place(self, params, key: str = ""):
         """Params on the executor's device, floats in the activation
         dtype. Every use casts to that dtype anyway (``w.to(dtype)``), so
-        casting once here changes no result and makes each use a no-op."""
+        casting once here changes no result and makes each use a no-op.
+        A W8A8 version keeps its int8 weights int8, stored column-major
+        (`quant.column_major`, the layout the card's int8 product reads
+        fast), and its ``*_scale`` columns f32, as the JAX package keeps
+        them: a bf16 scale would rescale to other numbers."""
         if isinstance(params, dict):
-            return {k: self._place(v) for k, v in params.items()}
+            return {k: self._place(v, k) for k, v in params.items()}
         if isinstance(params, (list, tuple)):
             return [self._place(v) for v in params]
         t = torch.as_tensor(params)
+        if key.endswith("_scale"):
+            return t.to(self.device, torch.float32)
+        if t.dtype == torch.int8 and t.dim() == 2:
+            from nnstreamer_tpu_torch.models.quant import column_major
+
+            return column_major(t.to(self.device))
         if t.is_floating_point():
             return t.to(self.device, self.dtype)
         return t.to(self.device)
@@ -255,10 +259,17 @@ class PagedLLMExecutor:
         return "xla" if kind == "prefill" else self.paged_kernel
 
     def _prefill_kind(self) -> str:
-        """With the CUDA kernels, whole-prompt prefills run as one chunk
-        covering the prompt (kernel-selectable); the torch reference
-        keeps `apply_seq_kv`, the `generate` parity anchor."""
-        return "chunk" if self.paged_kernel == "pallas" else "prefill"
+        """Whole-prompt prefills run as one chunk covering the prompt
+        when the kernel is ``pallas`` or the bound params are W8A8
+        (`apply_seq_kv` is float-only and kernel-fixed; the chunk family
+        is quant-aware and kernel-selectable). Float params on the torch
+        reference keep `apply_seq_kv`, the `generate` parity anchor. The
+        current params are read, so a store swap to a W8A8 version
+        reroutes whole prompts."""
+        if self.paged_kernel == "pallas":
+            return "chunk"
+        return "chunk" if "wqkv_scale" in self.params["blocks"][0] \
+            else "prefill"
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)

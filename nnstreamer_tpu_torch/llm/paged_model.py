@@ -36,7 +36,6 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from nnstreamer_tpu_torch.core.errors import BackendError
 from nnstreamer_tpu_torch.models.transformer import (
     _rotate, apply_seq_kv, attend, rmsnorm, rope, rope_freqs)
 
@@ -47,16 +46,14 @@ Attention = Callable[[torch.Tensor, int], torch.Tensor]
 
 
 def _proj(store, name, x, dtype):
-    """One projection matmul, ``x @ w`` for float params. A store version
-    quantized to W8A8 (params carrying ``<name>_scale``) is refused:
-    its int8 path and the quantize_rows kernel belong to the W8A8
-    slice."""
+    """One projection matmul, quant-aware: a store version whose params
+    carry ``<name>_scale`` (models/quant.quantize_transformer) goes
+    through the W8A8 path (`quantize_rows` + int8 product + rescale);
+    float params keep ``x @ w``, so the float parity is untouched."""
     if f"{name}_scale" in store:
-        raise BackendError(
-            f"params carry {name}_scale (a W8A8-quantized store version); "
-            f"W8A8 serving is not ported yet — it comes with the W8A8 "
-            f"slice (models/quant.py and the quantize_rows kernel). "
-            f"Serve the float version")
+        from nnstreamer_tpu_torch.models.quant import w8a8_matmul
+
+        return w8a8_matmul(x, store[name], store[f"{name}_scale"]).to(dtype)
     return x @ store[name].to(dtype)
 
 

@@ -12,7 +12,9 @@ var}}, "blocks": [{"expand"?, "depthwise", "project"}], "head": …,
 - the four BN vectors as they are.
 
 `transformer_params` carries the JAX transformer's params over as they
-are: the port's transformer keeps the (in, out) dense layout.
+are: the port's transformer keeps the (in, out) dense layout, and a W8A8
+tree (models/quant.quantize_transformer) keeps its int8 weights and f32
+``*_scale`` columns.
 """
 
 from __future__ import annotations
@@ -59,19 +61,24 @@ def load_mobilenet_v2(model: torch.nn.Module, params: Dict[str, Any]) -> torch.n
     return model
 
 
-_TRANSFORMER_BLOCK_KEYS = ("ln1", "wqkv", "wo", "ln2", "wi", "wd")
+def _leaf(a) -> torch.Tensor:
+    """int8 stays int8 (a W8A8 weight); everything else becomes f32."""
+    a = np.asarray(a)
+    if a.dtype == np.int8:
+        return torch.from_numpy(np.array(a, dtype=np.int8))
+    return _t(a)
 
 
 def transformer_params(params: Dict[str, Any]) -> Dict[str, Any]:
     """JAX transformer params (numpy leaves) → the port's params dict.
 
     The port keeps the JAX layout — dense weights (in, out), used as
-    ``x @ w`` — so this is a plain f32 copy of embed, blocks (ln1, wqkv,
-    wo, ln2, wi, wd), ln_f and head, with no transpose."""
-    return {
-        "embed": _t(params["embed"]),
-        "blocks": [{k: _t(blk[k]) for k in _TRANSFORMER_BLOCK_KEYS}
-                   for blk in params["blocks"]],
-        "ln_f": _t(params["ln_f"]),
-        "head": _t(params["head"]),
-    }
+    ``x @ w`` — so this is a plain copy of embed, every block key (ln1,
+    wqkv, wo, ln2, wi, wd and, for a W8A8 tree, their ``*_scale``), ln_f,
+    head and head_scale, with no transpose: int8 weights stay int8, the
+    rest is f32."""
+    out = {k: _leaf(params[k]) for k in ("embed", "ln_f", "head",
+                                         "head_scale") if k in params}
+    out["blocks"] = [{k: _leaf(v) for k, v in blk.items()}
+                     for blk in params["blocks"]]
+    return out

@@ -12,8 +12,10 @@ Attention here keeps the JAX formulation exactly: f32 einsums
 ("bqhd,bkhd->bhqk" / "bhqk,bkhd->bqhd"), an additive −1e30 mask and a
 softmax in f32, so masked positions contribute exactly 0.0. That is what
 lets the paged serving engine (llm/) equal `generate` token for token.
-The full-sequence forward with flash attention (`apply_seq`) is still
-to be ported; `apply_seq_kv` is the prefill path.
+`apply_seq_kv` is the serving engine's prefill path; `apply_seq` is the
+full-sequence forward, its attention the flash kernel
+(``attn="pallas"``) or the reference softmax (``attn="xla"``). Its W8A8
+twin is `models/quant.apply_seq_w8a8`.
 """
 
 from __future__ import annotations
@@ -128,6 +130,47 @@ def attend(q, kc, vc, mask, n_heads: int, dtype):
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p,
                         _expand_kv(vc, n_heads).float()).to(dtype)
+
+
+def apply_seq(params, ids: torch.Tensor, *, n_heads: int = 4,
+              dtype: torch.dtype = torch.float32, mesh=None,
+              attn: str = "auto"):
+    """Full-sequence forward: (B, S) int → (B, S, vocab) f32 logits.
+
+    `attn` picks the attention: "pallas" = the flash-attention kernel
+    (`backends.kernels.flash_attention`, which raises on an S its blocks
+    do not divide), "xla" = the reference softmax
+    (`parallel.ring_attention.reference_attention`), "auto" = pallas when
+    S % 128 == 0, else xla. A `mesh` (ring attention over the sequence
+    sharded across cards) raises: it comes with the multi-GPU slice."""
+    from nnstreamer_tpu_torch.backends.kernels import flash_attention
+    from nnstreamer_tpu_torch.core.errors import BackendError
+    from nnstreamer_tpu_torch.parallel.ring_attention import (
+        reference_attention)
+
+    if mesh is not None:
+        raise BackendError(
+            "apply_seq(mesh=...): ring attention over several cards is not "
+            "ported yet — it comes with the multi-GPU slice; call apply_seq "
+            "without a mesh")
+    b, s = ids.shape
+    x = params["embed"][ids].to(dtype)
+    pos = torch.arange(s, device=ids.device)
+    use_pallas = attn == "pallas" or (attn == "auto" and s % 128 == 0)
+    for blk in params["blocks"]:
+        h = rmsnorm(x, blk["ln1"].to(dtype))
+        q, k, v = _qkv(blk, h, n_heads, dtype)
+        q, k = rope(q, pos), rope(k, pos)
+        k, v = _expand_kv(k, n_heads), _expand_kv(v, n_heads)
+        if use_pallas:
+            out = flash_attention(q, k, v, causal=True)
+        else:
+            out = reference_attention(q, k, v, causal=True)
+        x = x + out.reshape(b, s, -1) @ blk["wo"].to(dtype)
+        h = rmsnorm(x, blk["ln2"].to(dtype))
+        x = x + _mlp(blk, h, dtype)
+    x = rmsnorm(x, params["ln_f"].to(dtype))
+    return (x @ params["head"].to(dtype)).float()
 
 
 def apply_seq_kv(params, ids: torch.Tensor, *, n_heads: int = 4,

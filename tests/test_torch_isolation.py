@@ -74,6 +74,8 @@ for norm in ({NORM_A!r}, {NORM_B!r}):
     nt.PipelineRunner(pipe).run(120)
     assert len(pipe.get("out").results) == 2
 {LLM}
+import nnstreamer_tpu_torch.models.quant
+import nnstreamer_tpu_torch.parallel.ring_attention
 bad = [m for m in sys.modules if m in ("jax", "nnstreamer_tpu")
        or m.startswith(("jax.", "nnstreamer_tpu."))]
 assert not bad, bad

@@ -10,7 +10,11 @@ heads). Around it: the transformer itself, allocator invariants,
 admission under a full pool, unservable requests, EOS retirement, static
 batching, a store hot swap, the element end to end, the scheduler's
 timer contract, and the port's refusals (no card and no CPU request,
-multi-GPU properties, W8A8 params, the decode window).
+multi-GPU properties, the decode window). A W8A8 store version
+(models/quant.quantize_transformer) is served through tensor_llm and
+held to the JAX package's LLMEngine on the same quantized params; a swap
+from the float version to it reroutes whole prompts through the chunk
+family; a bf16 run keeps its scales in f32.
 """
 
 import threading
@@ -22,6 +26,8 @@ import pytest
 import torch
 
 import nnstreamer_tpu_torch as tnns
+from nnstreamer_tpu.llm import LLMEngine as JaxLLMEngine
+from nnstreamer_tpu.models import quant as jq
 from nnstreamer_tpu.models import transformer as jt
 from nnstreamer_tpu_torch.backends import paged_attn
 from nnstreamer_tpu_torch.backends.torch_backend import ModelBundle
@@ -329,13 +335,6 @@ def test_engine_refuses_unported_options(params, kw, match):
         _engine(params[1], **kw)
 
 
-def test_engine_refuses_w8a8_params(params):
-    tp = dict(params[1])
-    tp["blocks"] = [dict(b, wqkv_scale=torch.ones(1)) for b in tp["blocks"]]
-    with pytest.raises(BackendError, match="W8A8"):
-        _engine(tp)
-
-
 # -- the scheduler's timer contract -------------------------------------------
 
 def test_channel_get_times_out_at_deadline():
@@ -518,3 +517,105 @@ def test_tensor_llm_failure_surfaces(params):
     finally:
         runner.stop()
         reset_store()
+
+
+# -- W8A8 serving --------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def qparams(params):
+    """(JAX W8A8 params, the port's bridged copy) of the same model."""
+    jpq = jq.quantize_transformer(params[0])
+    return jpq, bridge.transformer_params(
+        jax.tree_util.tree_map(np.asarray, jpq))
+
+
+W8A8_PROMPTS = {"q0": np.array([5, 17, 33], np.int32),
+                "q1": np.array([41, 2, 9, 60, 12, 7], np.int32)}
+W8A8_NEW = 4
+
+
+@pytest.mark.parametrize("kernel", ["xla", "pallas"])
+def test_tensor_llm_w8a8_matches_jax_engine(qparams, kernel):
+    """appsrc ! tensor_llm ! tensor_sink serving a W8A8 store version gives
+    the tokens of the JAX package's LLMEngine on the same quantized params
+    and the same paged_kernel (its Pallas kernels in interpret mode)."""
+    jpq, tpq = qparams
+    eng = JaxLLMEngine(dict(jpq), n_heads=4, block_size=4, num_blocks=32,
+                       max_batch=4, max_len=MAX_LEN, paged_kernel=kernel)
+    jreqs = {rid: eng.submit(p, max_new_tokens=W8A8_NEW)
+             for rid, p in W8A8_PROMPTS.items()}
+    eng.drain()
+    pipe, src, llm, sink = _llm_pipeline(tpq, paged_kernel=kernel)
+    runner = tnns.PipelineRunner(pipe).start()
+    try:
+        for rid, p in W8A8_PROMPTS.items():
+            src.push(TensorBuffer(tensors=(p,), pts=0, meta={"llm": {
+                "request_id": rid, "max_new_tokens": W8A8_NEW}}))
+        src.end()
+        runner.wait(120)
+    finally:
+        runner.stop()
+        reset_store()
+    got = {}
+    for b in sink.results:
+        got.setdefault(b.meta["llm"]["request_id"], []).extend(
+            int(t) for t in np.asarray(b.tensors[0]))
+    assert got == {rid: list(r.tokens) for rid, r in jreqs.items()}
+    ex = llm.extra_stats()["executor"]
+    assert ex["chunk_prefills"] == len(W8A8_PROMPTS) and ex["prefills"] == 0
+
+
+def test_store_swap_to_w8a8_reroutes_prefill(params, qparams):
+    """A hot swap from the float version to its W8A8 version on the torch
+    reference arm: whole prompts leave `apply_seq_kv` (float-only) for the
+    quant-aware chunk family, and the tokens are the W8A8 model's."""
+    jpq, tpq = qparams
+    reset_store()
+    try:
+        store = get_store()
+        store.register("llm_q_t", ModelBundle(fn=None, params=params[1]))
+        eng = LLMEngine("store://llm_q_t", n_heads=4, block_size=4,
+                        num_blocks=32, max_batch=4, max_len=MAX_LEN)
+        ex = eng.executor
+        prompt = W8A8_PROMPTS["q1"]
+        r1 = eng.submit(prompt, max_new_tokens=W8A8_NEW)
+        eng.drain()
+        assert ex._prefill_kind() == "prefill"
+        assert (ex.prefills, ex.chunk_prefills) == (1, 0)
+        assert np.array_equal(np.array(r1.tokens),
+                              _ref(params[0], prompt, W8A8_NEW))
+        store.register("llm_q_t", ModelBundle(fn=None, params=tpq))
+        store.update("llm_q_t")
+        r2 = eng.submit(prompt, max_new_tokens=W8A8_NEW)
+        eng.drain()
+        assert ex.swap_count == 1 and ex._prefill_kind() == "chunk"
+        assert (ex.prefills, ex.chunk_prefills) == (1, 1)
+        assert ex.params["blocks"][0]["wqkv"].dtype == torch.int8
+    finally:
+        reset_store()
+    jeng = JaxLLMEngine(dict(jpq), n_heads=4, block_size=4, num_blocks=32,
+                        max_batch=4, max_len=MAX_LEN)
+    want = jeng.submit(prompt, max_new_tokens=W8A8_NEW)
+    jeng.drain()
+    assert list(r2.tokens) == list(want.tokens)
+
+
+def test_bf16_w8a8_place_keeps_scales_f32(qparams):
+    """A bf16 run places a W8A8 version with its int8 weights int8 and
+    every ``*_scale`` in f32, as the JAX package keeps them; the rest of
+    the floats go to bf16. It serves finite tokens."""
+    eng = _engine(qparams[1], dtype=torch.bfloat16)
+    p = eng.executor.params
+    blocks = p["blocks"]
+    assert p["head"].dtype == torch.int8 and \
+        p["head_scale"].dtype == torch.float32
+    for blk in blocks:
+        for name in ("wqkv", "wo", "wi", "wd"):
+            assert blk[name].dtype == torch.int8
+            assert blk[name].stride() == (1, blk[name].shape[0])
+            assert blk[f"{name}_scale"].dtype == torch.float32
+        assert blk["ln1"].dtype == torch.bfloat16
+    assert p["embed"].dtype == torch.bfloat16
+    req = eng.submit(W8A8_PROMPTS["q0"], max_new_tokens=3)
+    eng.drain()
+    assert len(req.tokens) == 3 and all(0 <= t < 61 for t in req.tokens)

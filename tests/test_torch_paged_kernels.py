@@ -279,7 +279,61 @@ def test_chunk_padded_tail_hits_scratch_only(params):
     assert float(kp[:, live].abs().max()) == 0.0
 
 
-def test_proj_refuses_w8a8_params():
-    store = {"wqkv": torch.zeros(4, 4), "wqkv_scale": torch.ones(4)}
-    with pytest.raises(BackendError, match="W8A8"):
-        tpm._proj(store, "wqkv", torch.zeros(1, 4), torch.float32)
+# -- W8A8 params ----------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def qparams(params):
+    """(JAX W8A8 params, the port's bridged copy) of the same model."""
+    from nnstreamer_tpu.models.quant import quantize_transformer
+
+    jq = quantize_transformer(params[0])
+    return jq, bridge.transformer_params(
+        jax.tree_util.tree_map(np.asarray, jq))
+
+
+def _quant_close(got, ref):
+    """W8A8 tolerance: a few-ulp float difference between the frameworks
+    can flip one activation across an int8 rounding boundary, moving a
+    logit by about one quantization step — 1e-3 * max |ref|, and the
+    same argmax."""
+    got, ref = _np(got), _np(ref)
+    err = float(np.max(np.abs(got - ref)))
+    assert err <= 1e-3 * float(np.max(np.abs(ref))), err
+    assert np.array_equal(got.argmax(-1), ref.argmax(-1))
+
+
+@pytest.mark.parametrize("flavor", ["xla", "pallas"])
+def test_quantized_chunk_and_decode_match_jax(qparams, flavor):
+    """W8A8 params through one prompt chunk and one decode step: the
+    port's reference (xla) and kernel twin (pallas) against JAX's
+    paged_prefill_chunk / paged_decode_step on the same quantized params
+    (tests/test_paged_kernels.py's quantized parity case), logits and the
+    live pool blocks."""
+    jq, tq = qparams
+    chunk = tpm.paged_prefill_chunk if flavor == "xla" \
+        else tpa.paged_flash_prefill_chunk
+    step = tpm.paged_decode_step if flavor == "xla" \
+        else tpa.paged_flash_decode_step
+    prompt = _prompt(10, 8)
+    ids = np.pad(prompt, (0, 6))[None, :]
+    bi, bo = _targets(10, [3, 8], 16)
+    tab = _table([3, 8])
+    jchunk, jstep = (jax.jit(f, static_argnames=("n_heads", "dtype"))
+                     for f in (jpm.paged_prefill_chunk, jpm.paged_decode_step))
+    ref, jk, jv = jchunk(
+        jq, jnp.asarray(ids), jnp.int32(0), jnp.asarray(bi), jnp.asarray(bo),
+        jnp.asarray(tab), *_jpools(), 9)
+    launches = tpa.paged_prefill_attn.launches
+    got, tk, tv = chunk(tq, torch.from_numpy(ids), 0, torch.from_numpy(bi),
+                        torch.from_numpy(bo), torch.from_numpy(tab),
+                        *_tpools(), 9)
+    _quant_close(got, ref)
+    _close(tk[:, 1:], jk[:, 1:], 1e-3)
+    tabs = np.array([[3, 8, 0, 0]], np.int32)
+    cur, pos = np.array([21], np.int32), np.array([10], np.int32)
+    refd = jstep(jq, jnp.asarray(cur), jnp.asarray(tabs), jnp.asarray(pos),
+                 jk, jv)[0]
+    gotd = step(tq, torch.from_numpy(cur), torch.from_numpy(tabs),
+                torch.from_numpy(pos), tk, tv)[0]
+    _quant_close(gotd, refd)
+    assert tpa.paged_prefill_attn.launches == launches   # CPU: no launch
