@@ -11,6 +11,8 @@ package's backends/pallas_ops.py).
   causal or not, f32 or bf16: the full-sequence forward's attention.
   CUDA C++ in ``csrc/flash_attn.cu``; one kernel serves both TPU paths
   (K/V resident and K/V streamed).
+- ``clamp_scale`` — ``clip(x, lo, hi) * scale + offset`` in x's dtype:
+  the transform ``clamp`` step. CUDA C++ in ``csrc/clamp_scale.cu``.
 
 Each kernel has three parts here: the wrapper, which launches the CUDA
 kernel for a CUDA tensor and counts the launch; its plain torch version,
@@ -22,6 +24,7 @@ the caller chose. A CUDA tensor goes to the kernel or the call raises.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -169,6 +172,156 @@ def quantize_rows(x: torch.Tensor):
 
 
 quantize_rows.launches = 0
+
+
+# -- clamp_scale: clip(x, lo, hi) * scale + offset ---------------------------
+
+#: launcher type codes: floats, and integers (a pure clamp)
+_CLAMP_FLOAT = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+                torch.float64: 3}
+_CLAMP_INT = {torch.uint8: 4, torch.int8: 5, torch.uint16: 6,
+              torch.int16: 7, torch.int32: 8, torch.int64: 9}
+#: dims the CUDA kernel unravels on its strided path
+_CLAMP_MAX_DIMS = 8
+
+
+class _ClampArgs:
+    """The bounds, scale and offset as the kernel uses them for one dtype.
+
+    Floats: each rounded to x's dtype through f32, as JAX rounds a
+    weak-typed Python float (f64 keeps them as they are); ``fold_add``
+    when the offset is +0.0, whose add XLA folds away (so -0.0 survives).
+    Integers: only a pure clamp (scale 1, offset 0; the JAX kernel stores
+    its f32 result into an integer output and refuses), to the bounds
+    rounded inward — ceil(lo), floor(hi) — and saturated to the dtype."""
+
+    def __init__(self, x: torch.Tensor, lo, hi, scale, offset):
+        if x.dtype not in _CLAMP_FLOAT and x.dtype not in _CLAMP_INT:
+            raise BackendError(
+                f"clamp_scale takes {sorted(str(d) for d in (*_CLAMP_FLOAT, *_CLAMP_INT))}"
+                f", not {x.dtype}")
+        lo, hi, scale, offset = (float(v) for v in (lo, hi, scale, offset))
+        if math.isnan(lo) or math.isnan(hi):
+            raise BackendError(f"clamp_scale bounds must be numbers, got "
+                               f"{lo}:{hi}")
+        self.is_int = x.dtype in _CLAMP_INT
+        self.ilo = self.ihi = 0
+        if self.is_int:
+            if scale != 1.0 or offset != 0.0:
+                raise BackendError(
+                    f"clamp_scale on {x.dtype} is a pure clamp: scale must "
+                    f"be 1 and offset 0, got {scale} and {offset}")
+            info = torch.iinfo(x.dtype)
+
+            def inward(v, rnd):
+                v = rnd(v) if math.isfinite(v) else v
+                return int(min(max(v, info.min), info.max))
+
+            self.ilo, self.ihi = inward(lo, math.ceil), inward(hi, math.floor)
+        elif x.dtype != torch.float64:
+            lo, hi, scale, offset = (
+                torch.tensor(v, dtype=torch.float32).to(x.dtype).item()
+                for v in (lo, hi, scale, offset))
+        self.lo, self.hi, self.scale, self.offset = lo, hi, scale, offset
+        self.fold_add = offset == 0.0 and math.copysign(1.0, offset) > 0
+
+
+def _round_sum(p: torch.Tensor, offset: float,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """``p + offset`` rounded once into `out_dtype`, from a `p` (an exact
+    product) at least 2 bits wider than it: the sum is rounded to odd in
+    p's dtype, which the final rounding cannot then round again wrongly.
+    Round to odd: the sum's rounding error is recovered (TwoSum); if it is
+    nonzero and the rounded sum's last bit is even, the sum moves one ulp
+    toward the error."""
+    s = p + offset
+    bb = s - p
+    err = (p - (s - bb)) + (offset - bb)
+    bits = torch.int64 if s.dtype == torch.float64 else torch.int32
+    even = (s.view(bits) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, math.inf),
+                         torch.full_like(s, -math.inf))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(out_dtype)
+
+
+def clamp_scale_plain(x: torch.Tensor, lo: float, hi: float,
+                      scale: float = 1.0, offset: float = 0.0) -> torch.Tensor:
+    """Plain torch version of the clamp_scale kernel, bit for bit (NaN
+    positions aside, whose payloads the card and the CPU set differently):
+    clip with NaN kept and -0.0 below +0.0; then f32 one rounding of
+    ``clip * scale + offset`` (an FMA), f16 one rounding of the exact
+    value, bf16 the product rounded and then the f32 sum rounded, f64
+    two roundings; an integer input is a pure inward-rounded clamp."""
+    a = _ClampArgs(x, lo, hi, scale, offset)
+    if a.is_int:
+        return x.to(torch.int64).clamp(a.ilo, a.ihi).to(x.dtype)
+    comp = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.to(comp)
+    lo_t = torch.tensor(a.lo, dtype=comp, device=x.device)
+    hi_t = torch.tensor(a.hi, dtype=comp, device=x.device)
+    c = torch.where((xf < lo_t) | ((xf == lo_t) & torch.signbit(xf)), lo_t, xf)
+    c = torch.where((c > hi_t) | ((c == hi_t) & ~torch.signbit(c)), hi_t, c)
+    if x.dtype == torch.float32:
+        if a.fold_add:
+            return c * a.scale
+        return _round_sum(c.double() * a.scale, a.offset, torch.float32)
+    if x.dtype == torch.float16:
+        prod = c * a.scale                  # exact in f32: 11 x 11 bits
+        if a.fold_add:
+            return prod.to(torch.float16)
+        return _round_sum(prod, a.offset, torch.float16)
+    if x.dtype == torch.bfloat16:
+        prod = (c * a.scale).to(torch.bfloat16)
+        if a.fold_add:
+            return prod
+        return (prod.float() + a.offset).to(torch.bfloat16)
+    prod = c * a.scale
+    return prod if a.fold_add else prod + a.offset
+
+
+def _clamp_scale_cuda(x: torch.Tensor, a: _ClampArgs) -> torch.Tensor:
+    from nnstreamer_tpu_torch.backends import cuda_build
+
+    contiguous = x.is_contiguous()
+    if not contiguous and x.dim() > _CLAMP_MAX_DIMS:
+        x = x.contiguous()
+        contiguous = True
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    ndim = x.dim()
+    sizes = (ctypes.c_int64 * max(1, ndim))(*x.shape)
+    strides = (ctypes.c_int64 * max(1, ndim))(*x.stride())
+    code = _CLAMP_INT.get(x.dtype, _CLAMP_FLOAT.get(x.dtype))
+    lib = cuda_build.load("clamp_scale.cu", {"nns_clamp_scale": (
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_double] * 4
+        + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+           ctypes.c_void_p], ctypes.c_int)})
+    with torch.cuda.device(x.device):
+        err = lib.nns_clamp_scale(
+            x.data_ptr(), y.data_ptr(), code, x.numel(), ndim,
+            ctypes.addressof(sizes), ctypes.addressof(strides),
+            int(contiguous), a.lo, a.hi, a.scale, a.offset,
+            int(a.fold_add), a.ilo, a.ihi,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_build.check(lib, err, "clamp_scale")
+    clamp_scale.launches += 1
+    return y
+
+
+def clamp_scale(x: torch.Tensor, lo: float, hi: float, scale: float = 1.0,
+                offset: float = 0.0) -> torch.Tensor:
+    """``clip(x, lo, hi) * scale + offset`` in x's dtype, any shape and
+    strides (the output is contiguous). A CUDA tensor runs the
+    hand-written kernel; a CPU tensor runs the plain version."""
+    a = _ClampArgs(x, lo, hi, scale, offset)
+    if _dispatch("clamp_scale", x):
+        return _clamp_scale_cuda(x, a)
+    return clamp_scale_plain(x, lo, hi, scale, offset)
+
+
+clamp_scale.launches = 0
 
 
 # -- flash attention ---------------------------------------------------------

@@ -8,6 +8,12 @@ A model is a callable ``fn(params, *inputs) -> outputs`` plus its params
 - the in-repo model zoo (``model=zoo://mobilenet_v2``) — models/zoo.py
 - a `ModelBundle` or a callable passed programmatically to the element
 
+Filters with the same `shared_tensor_filter_key` hold one model on one
+device (the reference's shared-tensor-filter-key,
+tensor_filter_common.c:2911-3046): the first open builds it and moves
+its params there, later opens take a holder, the last close frees it.
+Every holder must ask for the same model and device.
+
 The backend runs eagerly on its device (`pick_device`). Fused pre/post
 chains run on the device around the model, after staging, so a uint8
 frame crosses to the device as uint8. `invoke` returns without waiting
@@ -17,6 +23,7 @@ sync point.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -42,6 +49,21 @@ class ModelBundle:
     in_spec: Optional[TensorsSpec] = None
     out_spec: Optional[TensorsSpec] = None
     name: str = ""
+
+
+@dataclass
+class _SharedEntry:
+    """One model held on one device by every filter sharing its key."""
+
+    bundle: ModelBundle
+    params: Any
+    device: torch.device
+    model_ref: Optional[str]
+    holders: int = 0
+
+
+_shared_models: Dict[str, _SharedEntry] = {}
+_shared_lock = threading.Lock()
 
 
 def to_tuple(x) -> Tuple:
@@ -86,6 +108,8 @@ class TorchBackend(FilterBackend):
     def __init__(self):
         self._bundle: Optional[ModelBundle] = None
         self._params = None
+        self._shared: Optional[_SharedEntry] = None
+        self._shared_key = ""
         self._pre: Optional[ElementwiseFn] = None
         self._post: Optional[ElementwiseFn] = None
         self.device: Optional[torch.device] = None
@@ -100,10 +124,41 @@ class TorchBackend(FilterBackend):
                 "framework=torch requires model=<zoo://name | ModelBundle | "
                 "callable>")
         self.device = pick_device(props.get("accelerator") or "")
+        key = props.get("shared_tensor_filter_key") or ""
+        if key:
+            self._open_shared(key, model)
+            return
         self._bundle = self._resolve(model)
         self._params = params_to(self._bundle.params, self.device)
         log.info("opened model %s on %s", self._bundle.name or model,
                  self.device)
+
+    def _open_shared(self, key: str, model) -> None:
+        ref = model if isinstance(model, str) else None
+        with _shared_lock:
+            entry = _shared_models.get(key)
+            if entry is None:
+                bundle = self._resolve(model)
+                entry = _SharedEntry(bundle, params_to(bundle.params,
+                                                       self.device),
+                                     self.device, ref)
+                _shared_models[key] = entry
+            elif entry.device != self.device:
+                raise BackendError(
+                    f"shared-tensor-filter-key {key!r} is held on "
+                    f"{entry.device} but this filter asked for "
+                    f"{self.device}; use a different key per device")
+            elif ref is not None and entry.model_ref is not None \
+                    and ref != entry.model_ref:
+                raise BackendError(
+                    f"shared-tensor-filter-key {key!r} already holds model "
+                    f"{entry.model_ref!r}; this filter asked for {ref!r} "
+                    f"(same key, same model)")
+            entry.holders += 1
+            self._shared, self._shared_key = entry, key
+            self._bundle, self._params = entry.bundle, entry.params
+        log.info("opened shared model key=%s holders=%d on %s", key,
+                 entry.holders, self.device)
 
     def _resolve(self, model) -> ModelBundle:
         if isinstance(model, ModelBundle):
@@ -122,6 +177,13 @@ class TorchBackend(FilterBackend):
             f"expected zoo://<name>, a ModelBundle, or a callable")
 
     def close(self) -> None:
+        """Drop this filter's hold on its model (idempotent)."""
+        if self._shared is not None:
+            with _shared_lock:
+                self._shared.holders -= 1
+                if self._shared.holders <= 0:
+                    _shared_models.pop(self._shared_key, None)
+            self._shared = None
         self._params = None
 
     def get_model_info(self):

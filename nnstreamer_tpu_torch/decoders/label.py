@@ -47,7 +47,7 @@ class ImageLabeling(DecoderSubplugin):
         return TensorsSpec.of(TensorInfo((1,), DType.INT32, name="class_index"),
                               rate=in_spec.rate)
 
-    def device_decode(self, tensors):
+    def device_decode(self, tensors, aux=None):
         # torch.argmax returns the first maximal index, as np.argmax does
         idx = torch.argmax(tensors[0].reshape(-1)).to(torch.int32)
         return (idx.reshape(1),)

@@ -5,6 +5,7 @@ from nnstreamer_tpu_torch.elements.converter import TensorConverter
 from nnstreamer_tpu_torch.elements.decoder import TensorDecoder, register_decoder
 from nnstreamer_tpu_torch.elements.filter import TensorFilter
 from nnstreamer_tpu_torch.elements.llm import TensorLLM
+from nnstreamer_tpu_torch.elements.routing import TensorDemux, TensorMux
 from nnstreamer_tpu_torch.elements.sinks import FakeSink, TensorSink
 from nnstreamer_tpu_torch.elements.sources import AppSrc, VideoTestSrc
 from nnstreamer_tpu_torch.elements.transform import TensorTransform, TransformProgram
@@ -14,8 +15,10 @@ __all__ = [
     "FakeSink",
     "TensorConverter",
     "TensorDecoder",
+    "TensorDemux",
     "TensorFilter",
     "TensorLLM",
+    "TensorMux",
     "TensorSink",
     "TensorTransform",
     "TransformProgram",

@@ -12,6 +12,10 @@ other JAX-package properties wait for later slices.
   tensor_transform elements removed by graph/optimize.py; an accepting
   backend runs them on the device. A refusing backend gets them applied
   here, so results never depend on fusion.
+- `shared_tensor_filter_key`: filters with the same key hold one
+  backend model on one device (torch backend; open takes a holder, close
+  drops it, the last close frees it). Each filter keeps its own fused
+  chains.
 - Invoke does not wait for the device: outputs flow downstream as tensors
   whose work may still be queued.
 """
@@ -25,6 +29,7 @@ from nnstreamer_tpu_torch.backends.base import FilterBackend, get_backend
 from nnstreamer_tpu_torch.core.config import get_config
 from nnstreamer_tpu_torch.core.errors import BackendError, PipelineError
 from nnstreamer_tpu_torch.core.registry import register_element
+from nnstreamer_tpu_torch.elements.decoder import aux_on
 from nnstreamer_tpu_torch.graph.optimize import chain_fn, transfer_spec
 from nnstreamer_tpu_torch.graph.pipeline import Element, Emission, PropDef, StreamSpec
 from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
@@ -39,6 +44,8 @@ class TensorFilter(Element):
         "model": PropDef(lambda s: s, None, "model reference (backend-specific)"),
         "accelerator": PropDef(str, "", "device: cuda, cuda:<i> or cpu "
                                         "(empty: [filter] accelerator)"),
+        "shared_tensor_filter_key": PropDef(
+            str, "", "share one device model across filters with this key"),
     }
 
     def __init__(self, name=None, **props):
@@ -50,6 +57,7 @@ class TensorFilter(Element):
         self._post_programs: list = []
         self._fused_in_backend = False
         self._fused_decoder = None             # device-decode subplugin
+        self._decoder_aux = None               # its constants, on device
 
     # -- fusion (called by graph/optimize.py) ------------------------------
     def set_fusion(self, pre_programs, post_programs) -> None:
@@ -69,7 +77,7 @@ class TensorFilter(Element):
         def post(tensors):
             if base_post is not None:
                 tensors = base_post(tensors)
-            return tuple(sub.device_decode(tuple(tensors)))
+            return tuple(sub.device_decode(tuple(tensors), self._decoder_aux))
 
         self._post = post
 
@@ -114,6 +122,8 @@ class TensorFilter(Element):
                 self.fail_negotiation(
                     f"fused device decoder rejected model output "
                     f"{model_out}: {e}")
+            self._decoder_aux = aux_on(self._fused_decoder.device_aux(),
+                                       self.backend.device)
         return [model_out.with_rate(spec.rate)]
 
     def stop(self) -> None:

@@ -15,6 +15,19 @@ Option syntax:
   mode=typecast    option=float32
   mode=arithmetic  option=typecast:float32,add:-127.5,div:127.5
                    (per-channel operands ':'-separated: add:1:2:3)
+  mode=clamp       option=min:max
+  mode=stand       option=default|dc-average[:per-channel]
+
+``clamp`` runs the clamp_scale kernel (backends/kernels.py) on a CUDA
+tensor and its plain version on a CPU tensor or a host array, so host
+and device give the same values. It computes what the JAX mode's clip
+computes on floats; an integer input keeps its dtype, as the negotiated
+spec says, clamped to the bounds rounded inward. ``stand`` is plain
+numpy on the host (the JAX mode's own code) and torch on a tensor: f32
+mean, population std (``correction=0``), ``(x - mean) / (std + 1e-10)``.
+numpy's mean sums pairwise, torch's (and XLA's) in other orders, so the
+tensor path agrees with the host path to f32 rounding of the mean and
+std: within 1e-5 on O(1) outputs (tests/test_torch_clamp.py).
 """
 
 from __future__ import annotations
@@ -25,9 +38,11 @@ from typing import Callable, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from nnstreamer_tpu_torch.backends import kernels
 from nnstreamer_tpu_torch.core.errors import PipelineError
 from nnstreamer_tpu_torch.core.registry import register_element
 from nnstreamer_tpu_torch.graph.pipeline import Element, Emission, PropDef, StreamSpec
+from nnstreamer_tpu_torch.runtime.sync import to_numpy
 from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
 from nnstreamer_tpu_torch.tensor.dtypes import DType
 from nnstreamer_tpu_torch.tensor.info import TensorInfo
@@ -35,8 +50,16 @@ from nnstreamer_tpu_torch.tensor.info import TensorInfo
 #: one compiled step: (fn(array) -> array, out_info_fn(TensorInfo) -> TensorInfo)
 Step = Tuple[Callable, Callable]
 
-MODES = ("typecast", "arithmetic")
+MODES = ("typecast", "arithmetic", "clamp", "stand")
 _ARITH_OPS = ("add", "sub", "mul", "div", "typecast")
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    """Host array → CPU tensor (bfloat16 through its int16 bits)."""
+    a = np.ascontiguousarray(a)
+    if DType.of(a) == DType.BFLOAT16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def _is_float(dtype) -> bool:
@@ -55,9 +78,11 @@ class TransformProgram:
                 f"unknown tensor_transform mode {mode!r}; valid: {MODES}")
         self.mode = mode
         self.option = option or ""
-        self._steps: List[Step] = (
-            [self._step_typecast(self.option)] if mode == "typecast"
-            else self._compile_arith_chain(self.option))
+        compile_mode = {"typecast": lambda o: [self._step_typecast(o)],
+                        "arithmetic": self._compile_arith_chain,
+                        "clamp": lambda o: [self._step_clamp(o)],
+                        "stand": lambda o: [self._step_stand(o)]}[mode]
+        self._steps: List[Step] = compile_mode(self.option)
 
     def apply(self, arr):
         """Run on one array: numpy in → numpy out, tensor in → tensor out
@@ -86,6 +111,57 @@ class TransformProgram:
             return a.astype(dt.np_dtype)
 
         return fn, lambda info: replace(info, dtype=dt)
+
+    @staticmethod
+    def _step_clamp(option: str) -> Step:
+        try:
+            lo, hi = (float(v) for v in option.split(":"))
+        except ValueError:
+            raise PipelineError(
+                f"tensor_transform mode=clamp needs option=min:max, got "
+                f"{option!r}") from None
+        if not lo <= hi:
+            raise PipelineError(f"clamp min {lo} > max {hi}")
+
+        def fn(a):
+            if isinstance(a, torch.Tensor):
+                return kernels.clamp_scale(a, lo, hi)
+            return to_numpy(kernels.clamp_scale(_from_numpy(a), lo, hi))
+
+        return fn, lambda info: info
+
+    @staticmethod
+    def _step_stand(option: str) -> Step:
+        parts = (option or "default").split(":")
+        kind = parts[0] or "default"
+        per_channel = len(parts) > 1 and parts[1] == "per-channel"
+        if kind not in ("default", "dc-average"):
+            raise PipelineError(
+                f"tensor_transform mode=stand supports "
+                f"default|dc-average[:per-channel], got {option!r}")
+
+        def fn_np(a):
+            f = a.astype(np.float32)
+            axes = tuple(range(f.ndim - 1)) if per_channel else None
+            mean = f.mean(axis=axes, keepdims=per_channel)
+            if kind == "dc-average":
+                return f - mean
+            std = f.std(axis=axes, keepdims=per_channel)
+            return (f - mean) / (std + 1e-10)
+
+        def fn_torch(a):
+            f = a.to(torch.float32)
+            dims = tuple(range(f.dim() - 1)) if per_channel else None
+            mean = f.mean(dim=dims, keepdim=per_channel)
+            if kind == "dc-average":
+                return f - mean
+            std = f.std(dim=dims, correction=0, keepdim=per_channel)
+            return (f - mean) / (std + 1e-10)
+
+        def fn(a):
+            return fn_torch(a) if isinstance(a, torch.Tensor) else fn_np(a)
+
+        return fn, lambda info: replace(info, dtype=DType.FLOAT32)
 
     def _compile_arith_chain(self, option: str) -> List[Step]:
         if not option:

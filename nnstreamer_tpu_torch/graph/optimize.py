@@ -4,7 +4,9 @@ Linear chains of `tensor_transform` elements next to a `tensor_filter`
 leave the graph, and their compiled programs go to the filter, whose
 backend runs them on the device around the model — no per-element hop,
 and the frame crosses to the device as uint8. A `tensor_decoder
-device=true` right after the filter's post chain folds in the same way.
+device=true` right after the filter's post chain folds in the same way,
+its constants (the SSD anchors) passed to each decode as an argument on
+the filter's device; a `device=compact` decoder stays in the graph.
 Fusion keeps results the same: negotiation runs after the rewrite, and a
 backend that declines fusion gets the chains applied by the filter
 element.
@@ -111,7 +113,8 @@ def fuse_transforms(pipe: Pipeline) -> int:
 def _is_device_decoder(elem) -> bool:
     from nnstreamer_tpu_torch.elements.decoder import TensorDecoder
 
-    return isinstance(elem, TensorDecoder) and elem.props["device"]
+    # device=compact stays: its host decode still has work to do
+    return isinstance(elem, TensorDecoder) and elem.props["device"] is True
 
 
 def _remove_linear_element(pipe: Pipeline, elem) -> None:

@@ -7,11 +7,17 @@ Grammar:
   node       := element | ref
   element    := NAME (prop)*
   prop       := KEY '=' VALUE        (VALUE may be "quoted with spaces")
-  ref        := NAME '.'             (links to/from a named element)
+  ref        := NAME '.' [PAD]       (links to/from a named element; PAD
+                                      picks the pad — 'sink_0', 'src_1',
+                                      or a bare index — else the next free
+                                      pad: mux/demux branches)
 
 Example:
 
   videotestsrc num-buffers=10 ! tensor_converter ! tensor_sink name=out
+
+  appsrc name=a ! mux.sink_0  appsrc name=b ! mux.sink_1
+  tensor_mux name=mux ! tensor_sink
 
 Element names resolve through the port's ELEMENT registry.
 """
@@ -48,13 +54,33 @@ def parse_launch(description: str, name: str = "pipeline") -> Pipeline:
     # pass 2: link chain by chain
     for chain in chains:
         prev: Optional[Element] = None
+        prev_pad: Optional[int] = None
         for node in chain:
             cur = (node["instance"] if node["kind"] == "element"
                    else pipe.get(node["name"]))
             if prev is not None:
-                pipe.link(prev, cur)
+                pipe.link(prev, cur, src_pad=prev_pad,
+                          dst_pad=_ref_pad(node, "sink"))
             prev = cur
+            prev_pad = _ref_pad(node, "src")
     return pipe
+
+
+def _ref_pad(node: Dict, direction: str) -> Optional[int]:
+    """The explicit pad of a ref node on the side it is used from:
+    'sink_N'/'src_N' name their side, a bare N fits either; None = the
+    next free pad."""
+    pad = node.get("pad") if node["kind"] == "ref" else None
+    if not pad:
+        return None
+    if pad.isdigit():
+        return int(pad)
+    prefix, _, idx = pad.rpartition("_")
+    if prefix in ("sink", "src") and idx.isdigit():
+        return int(idx) if prefix == direction else None
+    raise PipelineError(
+        f"bad pad reference {node['name']}.{pad}: expected sink_<n>, "
+        f"src_<n> or a bare pad index")
 
 
 def _tokenize(description: str) -> List[str]:
@@ -109,9 +135,11 @@ def _split_chains(tokens: List[str]) -> List[List[Dict]]:
             continue
         if not expect_node:  # whitespace-separated chains
             finish_chain()
-        if tok.endswith(".") and _NAME_RE.match(tok[:-1]):
+        name, dot, pad = tok.partition(".")
+        if dot and _NAME_RE.match(name) and (
+                not pad or _NAME_RE.match(pad) or pad.isdigit()):
             finish_node()
-            node = {"kind": "ref", "name": tok[:-1]}
+            node = {"kind": "ref", "name": name, "pad": pad or None}
         elif _NAME_RE.match(tok):
             finish_node()
             node = {"kind": "element", "type": tok, "name": None, "props": {}}

@@ -19,6 +19,7 @@ are coerced by each element's `PROPS` declaration.
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
@@ -32,6 +33,13 @@ log = get_logger("graph")
 
 StreamSpec = Union[TensorsSpec, MediaSpec]
 Emission = Tuple[int, TensorBuffer]  # (src pad index, buffer)
+
+#: suffixes of default element names
+_unnamed = itertools.count()
+
+#: pad count set per instance by its links (tensor_mux sinks, tensor_demux
+#: srcs): NUM_SINK_PADS / NUM_SRC_PADS = DYNAMIC
+DYNAMIC = -1
 
 
 @dataclass
@@ -72,9 +80,13 @@ class Element:
     #: elements sharing one thread). The port's scheduler gives every
     #: element its own thread; a timer element must keep one regardless
     CHAIN_FUSABLE: bool = True
+    #: the pipeline the element was added to (set by Pipeline.add)
+    _pipeline: Optional["Pipeline"] = None
 
     def __init__(self, name: Optional[str] = None, **props):
-        self.name = name or f"{self.ELEMENT_NAME}{id(self) & 0xFFFF:x}"
+        # a counter, not id(): the low bits of two live objects' ids can
+        # coincide, and two unnamed elements of a pipeline would collide
+        self.name = name or f"{self.ELEMENT_NAME}{next(_unnamed)}"
         self.props: Dict[str, Any] = {k: d.default for k, d in self.PROPS.items()}
         self.set_props(**props)
         self.in_specs: List[Optional[StreamSpec]] = []
@@ -200,6 +212,7 @@ class Pipeline:
             raise PipelineError(
                 f"duplicate element name {element.name!r} in pipeline")
         self.elements[element.name] = element
+        element._pipeline = self
         return element
 
     def link(self, src: Element, dst: Element,
@@ -214,11 +227,11 @@ class Pipeline:
             src_pad = self._next_free_pad(src, src_side=True)
         if dst_pad is None:
             dst_pad = self._next_free_pad(dst, src_side=False)
-        if src_pad >= src.NUM_SRC_PADS:
+        if src.NUM_SRC_PADS != DYNAMIC and src_pad >= src.NUM_SRC_PADS:
             raise PipelineError(
                 f"{src.name} has {src.NUM_SRC_PADS} src pad(s); cannot link "
                 f"pad {src_pad}")
-        if dst_pad >= dst.NUM_SINK_PADS:
+        if dst.NUM_SINK_PADS != DYNAMIC and dst_pad >= dst.NUM_SINK_PADS:
             raise PipelineError(
                 f"{dst.name} has {dst.NUM_SINK_PADS} sink pad(s); cannot "
                 f"link pad {dst_pad}")
@@ -265,14 +278,23 @@ class Pipeline:
         self._validate_topology()
         link_spec: Dict[Tuple[str, int], StreamSpec] = {}
         for e in self._topo_order():
-            in_specs: List[StreamSpec] = [None] * e.NUM_SINK_PADS  # type: ignore
-            for l in self.links_to(e):
+            in_links = self.links_to(e)
+            n_sink = (len(in_links) if e.NUM_SINK_PADS == DYNAMIC
+                      else e.NUM_SINK_PADS)
+            in_specs: List[StreamSpec] = [None] * n_sink  # type: ignore
+            for l in in_links:
+                if l.dst_pad >= n_sink:
+                    raise NegotiationError(
+                        f"element {e.name} has unlinked sink pad(s) below "
+                        f"pad {l.dst_pad}")
                 in_specs[l.dst_pad] = link_spec[(l.src.name, l.src_pad)]
             out_specs = e.negotiate(in_specs)
-            if len(out_specs) != e.NUM_SRC_PADS:
+            n_src = (len(self.links_from(e)) if e.NUM_SRC_PADS == DYNAMIC
+                     else e.NUM_SRC_PADS)
+            if len(out_specs) != n_src:
                 raise NegotiationError(
                     f"element {e.name} produced {len(out_specs)} output "
-                    f"spec(s) but has {e.NUM_SRC_PADS} src pad(s)")
+                    f"spec(s) but has {n_src} src pad(s)")
             e.in_specs = list(in_specs)
             e.out_specs = list(out_specs)
             for l in self.links_from(e):
@@ -291,11 +313,11 @@ class Pipeline:
                 "least one (appsrc, videotestsrc, …)")
         for e in self.elements.values():
             n_in, n_out = len(self.links_to(e)), len(self.links_from(e))
-            if n_in != e.NUM_SINK_PADS:
+            if e.NUM_SINK_PADS != DYNAMIC and n_in != e.NUM_SINK_PADS:
                 raise PipelineError(
                     f"element {e.name} needs {e.NUM_SINK_PADS} sink "
                     f"link(s), has {n_in}")
-            if n_out != e.NUM_SRC_PADS:
+            if e.NUM_SRC_PADS != DYNAMIC and n_out != e.NUM_SRC_PADS:
                 raise PipelineError(
                     f"element {e.name} needs {e.NUM_SRC_PADS} src link(s), "
                     f"has {n_out} — every src pad must be linked "

@@ -11,6 +11,10 @@ var}}, "blocks": [{"expand"?, "depthwise", "project"}], "head": …,
 - dense (cin, cout) → (cout, cin);
 - the four BN vectors as they are.
 
+SSD-MobileNetV2 and PoseNet trees carry a MobileNetV2 tree under
+"backbone" plus their own conv+BN units and bias-free head convs, mapped
+the same way.
+
 `transformer_params` carries the JAX transformer's params over as they
 are: the port's transformer keeps the (in, out) dense layout, and a W8A8
 tree (models/quant.quantize_transformer) keeps its int8 weights and f32
@@ -58,6 +62,51 @@ def load_mobilenet_v2(model: torch.nn.Module, params: Dict[str, Any]) -> torch.n
     """Load the JAX param tree into the port's MobileNetV2 (strict: every
     key must match both ways)."""
     model.load_state_dict(mobilenet_v2_state_dict(params), strict=True)
+    return model
+
+
+def _conv(p: Dict[str, Any]) -> torch.Tensor:
+    """A bias-free conv {"w": HWIO} → OIHW."""
+    return _t(p["w"]).permute(3, 2, 0, 1).contiguous()
+
+
+def _prefixed(sd: Dict[str, torch.Tensor], prefix: str):
+    return {prefix + k: v for k, v in sd.items()}
+
+
+def ssd_mobilenet_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX SSD-MobileNetV2 tree ({"backbone", "extras": [{"squeeze",
+    "conv"}], "loc_heads": [{"w"}], "cls_heads": [{"w"}]}) → port state
+    dict."""
+    sd = _prefixed(mobilenet_v2_state_dict(params["backbone"]), "backbone.")
+    for i, ex in enumerate(params["extras"]):
+        sd.update(conv_bn_state(ex["squeeze"], f"extras.{i}.squeeze."))
+        sd.update(conv_bn_state(ex["conv"], f"extras.{i}.conv."))
+    for kind in ("loc_heads", "cls_heads"):
+        for i, p in enumerate(params[kind]):
+            sd[f"{kind}.{i}.weight"] = _conv(p)
+    return sd
+
+
+def load_ssd_mobilenet(model: torch.nn.Module,
+                       params: Dict[str, Any]) -> torch.nn.Module:
+    model.load_state_dict(ssd_mobilenet_state_dict(params), strict=True)
+    return model
+
+
+def posenet_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX PoseNet tree ({"backbone", "proj", "heatmap": {"w"},
+    "offset": {"w"}}) → port state dict."""
+    sd = _prefixed(mobilenet_v2_state_dict(params["backbone"]), "backbone.")
+    sd.update(conv_bn_state(params["proj"], "proj."))
+    sd["heatmap.weight"] = _conv(params["heatmap"])
+    sd["offset.weight"] = _conv(params["offset"])
+    return sd
+
+
+def load_posenet(model: torch.nn.Module,
+                 params: Dict[str, Any]) -> torch.nn.Module:
+    model.load_state_dict(posenet_state_dict(params), strict=True)
     return model
 
 

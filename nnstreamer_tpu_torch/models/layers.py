@@ -106,6 +106,20 @@ class ConvBN(nn.Module):
         return relu6(y) if self.act else y
 
 
+class Conv(nn.Module):
+    """Bias-free conv (SAME), stride 1, in the input's dtype: the SSD and
+    PoseNet heads (the JAX package's ``init_conv`` + ``conv2d``)."""
+
+    def __init__(self, cin: int, cout: int, k: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
+        kaiming_init_(self.weight.data, k * k * cin, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(x, self.weight, dtype=x.dtype)
+
+
 class Dense(nn.Module):
     """``x @ w.T + b`` in the input's dtype; weight (cout, cin) as
     nn.Linear keeps it. The bias is added after the product is rounded,

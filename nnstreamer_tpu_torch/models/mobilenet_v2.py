@@ -9,7 +9,7 @@ Inside, the module runs NCHW.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 from torch import nn
@@ -43,6 +43,7 @@ class InvertedResidual(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         hidden = cin * t
+        self.stride = stride
         self.residual = stride == 1 and cin == cout
         self.expand = (L.ConvBN(cin, hidden, 1, generator=generator)
                        if t != 1 else None)
@@ -59,7 +60,8 @@ class InvertedResidual(nn.Module):
 
 class MobileNetV2(nn.Module):
     """``forward(x)``: x NHWC float, normalized to roughly [-1, 1] →
-    logits (N, num_classes) in f32, computed in `dtype`."""
+    logits (N, num_classes) in f32, computed in `dtype`;
+    ``forward(x, features_only=True)`` → the `features` maps, NHWC."""
 
     def __init__(self, width: float = 1.0, num_classes: int = 1001,
                  dtype: torch.dtype = torch.bfloat16,
@@ -81,8 +83,29 @@ class MobileNetV2(nn.Module):
         self.head = L.ConvBN(cin, head_out, 1, generator=generator)
         self.classifier = L.Dense(head_out, num_classes, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def features(self, h: torch.Tensor,
+                 n_maps: Optional[int] = None) -> List[torch.Tensor]:
+        """NCHW input in the compute dtype → the map entering every
+        stride-2 block, then the head's output (the JAX package's
+        ``features_only``): at 300² the last two are the 19² map of
+        96·width channels and the 10² head. NCHW, compute dtype.
+        `n_maps` stops once that many maps are collected (PoseNet reads
+        only the stride-16 map; XLA drops the rest as dead code)."""
+        h = self.stem(h)
+        feats = []
+        for block in self.blocks:
+            if block.stride == 2:
+                feats.append(h)
+                if len(feats) == n_maps:
+                    return feats
+            h = block(h)
+        feats.append(self.head(h))
+        return feats
+
+    def forward(self, x: torch.Tensor, features_only: bool = False):
         h = x.to(self.dtype).permute(0, 3, 1, 2)   # NHWC → NCHW
+        if features_only:
+            return [f.permute(0, 2, 3, 1) for f in self.features(h)]
         h = self.stem(h)
         for block in self.blocks:
             h = block(h)

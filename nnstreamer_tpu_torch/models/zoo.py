@@ -17,7 +17,7 @@ from nnstreamer_tpu_torch.core.errors import BackendError
 
 _builders: Dict[str, Callable] = {}
 _lock = threading.Lock()
-_BUILTIN_MODULES = ("mobilenet_v2", "transformer")
+_BUILTIN_MODULES = ("mobilenet_v2", "ssd_mobilenet", "posenet", "transformer")
 
 
 def register_model(name: str):

@@ -16,6 +16,7 @@ import threading
 import numpy as np
 import torch
 
+from nnstreamer_tpu_torch.tensor.buffer import HostCopy
 from nnstreamer_tpu_torch.tensor.dtypes import DType
 
 _lock = threading.Lock()
@@ -53,13 +54,25 @@ def device_sync(tensors, forced: bool = True):
 
 def to_host(tensors) -> tuple:
     """Tensors (a tuple or list) → host numpy arrays, after a counted
-    device_sync. Non-tensors pass through unchanged."""
+    device_sync. A D2H copy already in flight (`tensor.buffer.HostCopy`)
+    is waited for on its own event, counted the same way. Non-tensors
+    pass through unchanged."""
+    global _forced
     device_sync(tensors)
-    return tuple(_to_numpy(t) if isinstance(t, torch.Tensor) else t
+    copies = [t for t in tensors if isinstance(t, HostCopy)]
+    for c in copies:
+        c.event.synchronize()
+    if copies:
+        with _lock:
+            _forced += 1
+    return tuple(to_numpy(t.host) if isinstance(t, HostCopy)
+                 else to_numpy(t) if isinstance(t, torch.Tensor) else t
                  for t in tensors)
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A CPU (or finished CUDA) tensor → numpy; bfloat16 through its
+    int16 bits into ml_dtypes' bfloat16."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         # numpy has no bfloat16; ml_dtypes provides it when installed

@@ -20,10 +20,34 @@ from nnstreamer_tpu_torch.tensor.dtypes import DType
 from nnstreamer_tpu_torch.tensor.info import TensorFormat, TensorInfo, TensorsSpec
 
 
+class HostCopy:
+    """A device→host copy in flight: a pinned host tensor the copy was
+    queued into, and a CUDA event recorded behind it on the tensor's
+    stream. The pinned memory must not be read before the event is done
+    (runtime/sync.to_host waits on it). `shape`/`dtype` are the tensor's."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, t: torch.Tensor):
+        self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        self.host.copy_(t, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record(torch.cuda.current_stream(t.device))
+
+    @property
+    def shape(self):
+        return self.host.shape
+
+    @property
+    def dtype(self):
+        return self.host.dtype
+
+
 def is_device_tensor(x) -> bool:
     """A tensor a backend holds: a `torch.Tensor` on CUDA, or on the CPU
-    device when the caller chose the CPU. Host payloads are numpy."""
-    return isinstance(x, torch.Tensor)
+    device when the caller chose the CPU, or a D2H copy still in flight.
+    Host payloads are numpy."""
+    return isinstance(x, (torch.Tensor, HostCopy))
 
 
 @dataclass
@@ -40,6 +64,19 @@ class TensorBuffer:
     @classmethod
     def of(cls, *arrays, pts: Optional[int] = None, **kw) -> "TensorBuffer":
         return cls(tensors=tuple(arrays), pts=pts, **kw)
+
+    @property
+    def num_tensors(self) -> int:
+        return len(self.tensors)
+
+    def subset(self, indices: Sequence[int]) -> "TensorBuffer":
+        """Pick tensors by index (tensor_demux's tensorpick)."""
+        if any(i < 0 or i >= self.num_tensors for i in indices):
+            raise IndexError(
+                f"tensor index out of range: buffer has {self.num_tensors} "
+                f"tensors, requested {list(indices)}")
+        return replace(self, tensors=tuple(self.tensors[i] for i in indices),
+                       meta=dict(self.meta))
 
     def spec(self) -> TensorsSpec:
         """Runtime type of this buffer (for validation against negotiation)."""
@@ -60,6 +97,19 @@ class TensorBuffer:
 
         return replace(self, tensors=to_host(self.tensors),
                        meta=dict(self.meta))
+
+    def prefetch_host(self) -> "TensorBuffer":
+        """Start the D2H copy of every CUDA tensor without waiting: a new
+        buffer holding `HostCopy`s (pinned memory and an event each) in
+        their place. A later to_host() waits only for what is still in
+        flight. A plain `.to("cpu", non_blocking=True)` would not do:
+        into pageable memory it is synchronous."""
+        if not any(isinstance(t, torch.Tensor) and t.is_cuda
+                   for t in self.tensors):
+            return self
+        return replace(self, tensors=tuple(
+            HostCopy(t) if isinstance(t, torch.Tensor) and t.is_cuda else t
+            for t in self.tensors), meta=dict(self.meta))
 
     def with_tensors(self, tensors: Sequence[Any], **kw) -> "TensorBuffer":
         """New buffer with same timing, copied meta, different payload."""

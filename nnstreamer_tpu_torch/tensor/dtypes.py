@@ -83,8 +83,9 @@ class DType(enum.IntEnum):
 
     @classmethod
     def of(cls, array) -> "DType":
-        """DType of a numpy array or a torch tensor."""
-        if isinstance(array, torch.Tensor):
+        """DType of a numpy array, a torch tensor, or anything holding a
+        torch dtype (a D2H copy in flight)."""
+        if isinstance(array.dtype, torch.dtype):
             return cls.from_torch(array.dtype)
         return cls.from_np(array.dtype)
 
