@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (nnstreamer_tpu_torch).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase, on one card
+    python3 chip_smoke.py --slice4    # phases 1, 2 and 20-23 only
 
 Needs one CUDA card, nvcc and the repository checkout around this file;
-imports nothing of JAX. Phases:
+imports nothing of JAX. On a machine with several cards, phases 21-22
+put their four logical devices one per card (--slice4 runs just those
+phases there). Phases:
 
 1. environment: torch/CUDA/nvcc versions and the card's name and power
    limit (nvidia-smi);
@@ -94,18 +97,46 @@ imports nothing of JAX. Phases:
    the 100th clears the threshold, as random weights make it);
 19. C holds one model: memory_allocated rises by about one MobileNetV2
    when the shared filters open, and the muxed logits equal two
-   single-filter runs.
+   single-filter runs;
+20. flash_block_update (the ring-attention step) against its plain
+   version: non-causal and causal, blocks wholly below, on and wholly
+   above the diagonal (above: the carry unchanged bit for bit), offsets
+   that are not multiples of 64, Sq != Sk, a chain of 4 steps from
+   flash_carry_init compared after finalize, q/k/v as the ring's strided
+   (B, H, S, D) views; f32 within 1e-5 * max|plain| + 1e-6, bf16 element
+   by element under phase 12's rule;
+21. with [parallel] virtual_devices=4 (all four shards on cuda:0 on one
+   card, one shard per card on four; the mapping is printed):
+   ring_attention over 4 shards (both arms, causal and not, and dp 2 x
+   sp 2 with batch_axis) against reference_attention, then apply_seq
+   over an sp=4 mesh at phase 13's shape, f32 (TF32 off) against
+   apply_seq without a mesh within FWD_F32_REL, bf16 ms per forward with
+   and without the mesh, and 64 kernel launches per forward by the
+   wrapper and by name in a profiler capture;
+22. sharded serving at full width: phase 8's model and requests through
+   tensor_llm shards=4 ring_prefill_min=1024 paged_kernel=xla (no
+   prefill_chunk): in f32 shards=4 with the ring off equals shards=1 bit
+   for bit (tokens, and teacher-forced logits of the shortest and
+   longest request), the ring arm's tokens equal the blocked arm's under
+   phase 8's near-tie rule, exactly 64 kernel launches per ring prefill
+   (prompts of 1024 tokens or more, bucket 2048); then bf16 tokens/s,
+   TTFT and ITL p50/p99, and memory_allocated per physical device once
+   the weights and pools are placed;
+23. flash_block_update's device time at the serving shape (BH 8) and the
+   forward's (BH 64), a block below the diagonal (the full step), beside
+   its bytes bound and its plain version's time.
 
 It prints the seconds of each phase, the card line and a JSON line of
 kernel numbers before the last line, and ends with {"ok": true,
 "device": {...}}. Any failed check raises, so the exit code is non-zero
 and no result line is printed. Without a CUDA device, or run outside the
 checkout, it exits non-zero at once. A JSON record of the run goes to
-chiprun_out/chip_smoke.json.
+chiprun_out/chip_smoke.json (chip_smoke_slice4.json with --slice4).
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -168,7 +199,8 @@ W8A8_SPREAD = 2.1e-2
 KERNEL_SYMBOL = {"paged_decode_attn": "nns_paged_decode_kernel",
                  "paged_prefill_attn": "nns_paged_prefill_kernel",
                  "quantize_rows": "nns_quantize_rows_kernel",
-                 "flash_attention": "nns_flash_attn_kernel"}
+                 "flash_attention": "nns_flash_attn_kernel",
+                 "flash_block_update": "nns_flash_block_kernel"}
 #: the throwaway kernel that opens every profiler capture (ATen's
 #: at::cuda::sleep, torch.cuda._sleep)
 OPEN_KERNEL = "spin_kernel"
@@ -414,11 +446,13 @@ def named_launches(prof, names) -> dict:
 
 
 def serve(nt, torch, requests, prof=None, new_tokens=LLM_NEW_TOKENS,
-          **props):
+          mem=None, **props):
     """appsrc ! tensor_llm ! tensor_sink with every request pushed at
     t=0. The launch counts are zeroed after start() (which prewarms) and
-    read after the run. → (tokens by request id, element, seconds from
-    the first push to the last token, launches by kernel)."""
+    read after the run; `mem` (a dict), when given, gets each card's
+    memory_allocated right after start(). → (tokens by request id,
+    element, seconds from the first push to the last token, launches by
+    kernel)."""
     from nnstreamer_tpu_torch.backends import kernels
     from nnstreamer_tpu_torch.backends import paged_attn as pa
     from nnstreamer_tpu_torch.elements import AppSrc, TensorLLM, TensorSink
@@ -436,9 +470,13 @@ def serve(nt, torch, requests, prof=None, new_tokens=LLM_NEW_TOKENS,
     runner = nt.PipelineRunner(pipe).start()
     try:
         torch.cuda.synchronize()
+        if mem is not None:
+            mem.update({i: torch.cuda.memory_allocated(i)
+                        for i in range(torch.cuda.device_count())})
         pa.paged_decode_attn.launches = 0
         pa.paged_prefill_attn.launches = 0
         kernels.quantize_rows.launches = 0
+        kernels.flash_block_update.launches = 0
         with prof or nullcontext():
             if prof is not None:
                 open_capture(torch)
@@ -453,7 +491,8 @@ def serve(nt, torch, requests, prof=None, new_tokens=LLM_NEW_TOKENS,
             wall = time.perf_counter() - t0
         launches = {"paged_decode_attn": pa.paged_decode_attn.launches,
                     "paged_prefill_attn": pa.paged_prefill_attn.launches,
-                    "quantize_rows": kernels.quantize_rows.launches}
+                    "quantize_rows": kernels.quantize_rows.launches,
+                    "flash_block_update": kernels.flash_block_update.launches}
     finally:
         runner.stop()
     tokens = {}
@@ -589,23 +628,31 @@ def paged_timing(torch, dev, requests, card) -> dict:
     return out
 
 
-def llm_phases(nt, torch, card, record, phases, ctx) -> dict:
+def llm_model(ctx) -> None:
+    """Phase 8's model (LLM_DIMS, seed 0, registered as store://llm_full)
+    and requests into `ctx`."""
+    from nnstreamer_tpu_torch.backends.torch_backend import ModelBundle
+    from nnstreamer_tpu_torch.models import transformer as tt
+    from nnstreamer_tpu_torch.serving.store import get_store
+
+    params = tt.init_params(**LLM_DIMS, seed=0)
+    get_store().register("llm_full", ModelBundle(fn=None, params=params))
+    ctx.update(params=params, requests=llm_requests())
+
+
+def llm_phases(nt, torch, card, record, phases, ctx) -> list:
     """Phases 7-10. → kernel entries for the JSON line; the model's
     params, the requests and phase 9's bf16 tokens go into `ctx`."""
     from torch.profiler import ProfilerActivity, profile
 
-    from nnstreamer_tpu_torch.backends.torch_backend import ModelBundle
     from nnstreamer_tpu_torch.models import transformer as tt
-    from nnstreamer_tpu_torch.serving.store import get_store
 
     dev = torch.device("cuda", 0)
     errs = check_paged_kernels(torch, dev, record)
     phases.done("7 (paged kernels vs plain)")
 
-    params = tt.init_params(**LLM_DIMS, seed=0)
-    get_store().register("llm_full", ModelBundle(fn=None, params=params))
-    requests = llm_requests()
-    ctx.update(params=params, requests=requests)
+    llm_model(ctx)
+    params, requests = ctx["params"], ctx["requests"]
     print(f"phase 8: prompt lengths {[len(p) for p in requests]}, "
           f"{LLM_NEW_TOKENS} new tokens each")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1766,9 +1813,13 @@ def composite_one_model(nt, torch, card, record) -> dict:
     one = sum(t.numel() * t.element_size()
               for t in (*model.parameters(), *model.buffers()))
     del model
-    torch.cuda.synchronize()
     frames = [tuple(u8_frames((1, 224, 224, 3), 2, 30 + i)) for i in range(3)]
     pipe = composite_pipe(nt, sink="tensor_sink")
+    # models of earlier phases left in reference cycles are freed now,
+    # not by a collection that happens to run while C opens (one such
+    # run read -14524928 B)
+    gc.collect()
+    torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     runner = nt.PipelineRunner(pipe).start()
     opened = torch.cuda.memory_allocated() - before
@@ -1833,55 +1884,429 @@ def slice5_phases(nt, torch, card, record, phases) -> list:
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]}]
 
 
-def main() -> int:
-    import torch
+# -- slice 4: the ring step, ring attention, sharded serving -------------------
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
-              "False); this script measures the card and has nothing to "
-              "do without one", file=sys.stderr)
-        return 2
-    if not (ROOT / "nnstreamer_tpu_torch").is_dir():
-        print(f"chip_smoke: no nnstreamer_tpu_torch package beside "
-              f"{__file__}; run it from a checkout of the repository",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
-    import nnstreamer_tpu_torch as nt
-    from nnstreamer_tpu_torch.backends import cuda_build, kernels
+#: env key of [parallel] virtual_devices (serving/placement.py)
+VIRTUAL_ENV = "NNSTREAMER_TPU_TORCH_PARALLEL_VIRTUAL_DEVICES"
+#: the ring's group: 4 logical devices, round-robin over the cards
+RING_SHARDS = 4
+#: phase 22's sharded serving (LLM_PROPS without chunking, on the torch
+#: attention: the sharded path's attention is not a kernel)
+SHARD_PROPS = dict(paged_kernel="xla", prefill_chunk=0, shards=RING_SHARDS,
+                   ring_prefill_min=1024)
+#: the ring's local block at phase 22's ring bucket (2048 / 4) and at the
+#: forward's S
+RING_BLOCK = 512
 
-    record = {}
-    phases = Phases()
-    # -- 1. environment ---------------------------------------------------
-    card = sh("nvidia-smi", "--query-gpu=name,power.limit",
-              "--format=csv,noheader").splitlines()[0]
-    nvcc = cuda_build.find_nvcc()
-    print(f"phase 1: python {sys.version.split()[0]}, torch "
-          f"{torch.__version__}, torch CUDA {torch.version.cuda}, "
-          f"{sh(nvcc, '--version').splitlines()[-1]}, device "
-          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    print(f"phase 1: card: {card}")
-    record["card"] = card
-    phases.done("1 (environment)")
 
-    # -- 2. build -----------------------------------------------------------
-    # one nvcc per source, all started together
-    t0 = time.perf_counter()
-    sources = ("normalize.cu", "paged_attn.cu", "quantize_rows.cu",
-               "flash_attn.cu", "clamp_scale.cu")
-    with ThreadPoolExecutor(len(sources)) as pool:
-        libs = list(pool.map(cuda_build.build, sources))
-    build_s = time.perf_counter() - t0
-    for lib in libs:
-        ptxas = [l.strip() for l in lib.with_suffix(".log").read_text()
-                 .splitlines() if "registers" in l or "spill" in l]
-        print(f"phase 2: built {lib.name}")
-        for line in ptxas:
-            print(f"phase 2: ptxas: {line}")
-    print(f"phase 2: built {len(libs)} kernel libraries in {build_s:.2f} s "
-          f"(in parallel)")
-    record["build_s"] = build_s
-    phases.done("2 (build)")
+def close_rule(torch, got, ref, bf16: bool):
+    """→ (largest |diff| / limit, max_abs_err): f32 within
+    PAGED_REL * max|ref| + PAGED_ABS, bf16 element by element within
+    phase 12's flash rule (ref an attention output, rows on the last
+    axis)."""
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    if bf16:
+        rms = ref.pow(2).mean(-1, keepdim=True).sqrt()
+        lim = FLASH_BF16_ULP * ref.abs() + FLASH_BF16_ROW * rms
+    else:
+        lim = torch.full_like(ref, PAGED_REL * ref.abs().max().item()
+                              + PAGED_ABS)
+    return (diff / lim).max().item(), diff.max().item()
+
+
+def check_flash_block(torch, dev, record) -> float:
+    """Phase 20: flash_block_update against its plain version → the
+    largest abs error of the finalized output at the serving shape (bf16,
+    (1, 8, 512, 128) views, a block below the diagonal)."""
+    from nnstreamer_tpu_torch.backends import kernels
+
+    rng = np.random.default_rng(8)
+    f32, bf16 = torch.float32, torch.bfloat16
+    d, sl = 128, RING_BLOCK
+
+    def rand(shape, dt):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dt)
+
+    def started(bh, sq):
+        """A carry one non-causal plain step in: finite m, l > 0."""
+        carry = kernels.flash_carry_init(bh, sq, d, device=dev)
+        kernels.flash_block_update_plain(
+            rand((bh, sq, d), f32), rand((bh, sq, d), f32),
+            rand((bh, sq, d), f32), *carry, q_offset=0, k_offset=0,
+            causal=False)
+        return carry
+
+    def views(b, s, dt):
+        """q/k/v as the ring hands them over: (B, H, S, D) views of
+        (B, S, H, D) tensors."""
+        return [rand((b, s, 8, d), dt).transpose(1, 2) for _ in range(3)]
+
+    def flat(bh, sq, sk, dt):
+        return [rand((bh, sq, d), dt), rand((bh, sk, d), dt),
+                rand((bh, sk, d), dt)]
+
+    # name → (q, k, v, q_offset, k_offset, causal)
+    cases = {
+        "f32 (8,512,512) full": (*flat(8, sl, sl, f32), 0, 0, False),
+        "f32 (8,512,512) causal below (q 1024, k 0)":
+            (*flat(8, sl, sl, f32), 1024, 0, True),
+        "f32 (8,512,512) causal diagonal (512, 512)":
+            (*flat(8, sl, sl, f32), 512, 512, True),
+        "f32 (8,512,512) causal above (0, 512)":
+            (*flat(8, sl, sl, f32), 0, 512, True),
+        "f32 (8,512,512) causal offsets 100, 37":
+            (*flat(8, sl, sl, f32), 100, 37, True),
+        "f32 Sq 256 Sk 512 causal (300, 0)":
+            (*flat(8, 256, sl, f32), 300, 0, True),
+        "f32 Sq 512 Sk 128 causal (64, 200)":
+            (*flat(8, sl, 128, f32), 64, 200, True),
+        "bf16 (8,512,512) causal diagonal (512, 512)":
+            (*flat(8, sl, sl, bf16), 512, 512, True),
+        "bf16 serving views (1,8,512,128) causal below (1024, 0)":
+            (*views(1, sl, bf16), 1024, 0, True),
+        "bf16 forward views (8,8,512,128) causal below (1536, 512)":
+            (*views(8, sl, bf16), 1536, 512, True),
+        "bf16 forward views (8,8,512,128) causal above (0, 1024)":
+            (*views(8, sl, bf16), 0, 1024, True),
+        "f32 views (2,8,512,128) full": (*views(2, sl, f32), 0, 0, False),
+    }
+    main_err = None
+    for name, (q, k, v, q_off, k_off, causal) in cases.items():
+        bh = math.prod(q.shape[:-2])
+        start = started(bh, q.shape[-2])
+        got = [t.clone() for t in start]
+        ref = [t.clone() for t in start]
+        kernels.flash_block_update(q, k, v, *got, q_offset=q_off,
+                                   k_offset=k_off, causal=causal)
+        kernels.flash_block_update_plain(q, k, v, *ref, q_offset=q_off,
+                                         k_offset=k_off, causal=causal)
+        torch.cuda.synchronize()
+        check(all(torch.isfinite(t).all().item() for t in got),
+              f"{name}: non-finite carry")
+        if "above" in name:
+            same = all(bits_equal(torch, g, s) and bits_equal(torch, r, s)
+                       for g, r, s in zip(got, ref, start))
+            print(f"phase 20: flash_block_update {name}: carry "
+                  f"{'unchanged bit for bit' if same else 'CHANGED'}")
+            check(same, f"{name}: a block above the diagonal changed the "
+                        f"carry")
+            continue
+        worst = {}
+        for part, g, r in (("m", got[0], ref[0]), ("l", got[1], ref[1])):
+            worst[part] = close_rule(torch, g, r, False)
+        out = kernels.flash_carry_finalize(got[1], got[2])
+        out_ref = kernels.flash_carry_finalize(ref[1], ref[2])
+        worst["out"] = close_rule(torch, out, out_ref, q.dtype == bf16)
+        print(f"phase 20: flash_block_update {name}: largest |diff| / limit "
+              + ", ".join(f"{p} {r:.3f} (max_abs_err {e:.3e})"
+                          for p, (r, e) in worst.items()))
+        for p, (r, _) in worst.items():
+            check(r <= 1.0, f"flash_block_update {name}: {p} differs from "
+                            f"the plain version by {r:.3f} x its limit")
+        record.setdefault("flash_block_errs", {})[name] = worst
+        if name.startswith("bf16 serving"):
+            main_err = worst["out"][1]
+    # a 4-step ring chain from flash_carry_init (shard 1 of 4, causal),
+    # compared after finalize
+    for dt in (f32, bf16):
+        q = rand((1, sl, 8, d), dt).transpose(1, 2)
+        blocks = [views(1, sl, dt)[1:] for _ in range(RING_SHARDS)]
+        chains = [kernels.flash_carry_init(8, sl, d, device=dev)
+                  for _ in range(2)]
+        for step in range(RING_SHARDS):
+            src = (1 - step) % RING_SHARDS
+            for fn, carry in zip((kernels.flash_block_update,
+                                  kernels.flash_block_update_plain), chains):
+                fn(q, *blocks[src], *carry, q_offset=sl, k_offset=src * sl,
+                   causal=True)
+        got, ref = (kernels.flash_carry_finalize(c[1], c[2]) for c in chains)
+        ratio, err = close_rule(torch, got, ref, dt == bf16)
+        label = f"{str(dt).split('.')[-1]} chain of 4 steps from init"
+        print(f"phase 20: flash_block_update {label}: largest |diff| / "
+              f"limit {ratio:.3f} (max_abs_err {err:.3e})")
+        check(ratio <= 1.0, f"flash_block_update {label}: {ratio:.3f} x its "
+                            f"limit")
+        record.setdefault("flash_block_errs", {})[label] = {"out": (ratio,
+                                                                    err)}
+    return main_err
+
+
+def ring_phase(nt, torch, dev, card, record, params) -> int:
+    """Phase 21: ring_attention over 4 logical devices and apply_seq over
+    an sp=4 mesh. → the kernel's launches in one bf16 mesh forward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.backends import kernels
+    from nnstreamer_tpu_torch.models import transformer as tt
+    from nnstreamer_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from nnstreamer_tpu_torch.parallel.ring_attention import (
+        reference_attention, ring_attention)
+
+    mesh = make_mesh(MeshSpec(dp=1, sp=RING_SHARDS))
+    dp_mesh = make_mesh(MeshSpec(dp=2, sp=2))
+    print(f"phase 21: logical devices -> physical: "
+          f"{[str(x) for x in mesh.devices.flat]} (sp {RING_SHARDS}); "
+          f"dp 2 x sp 2: {[str(x) for x in dp_mesh.devices.flat]}")
+    record["ring_devices"] = [str(x) for x in mesh.devices.flat]
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (2, 2048, 8, 128)).astype(np.float32)).to(dev) for _ in range(3))
+    for causal in (False, True):
+        ref = reference_attention(q, k, v, causal=causal)
+        for impl in ("pallas", "xla"):
+            got = ring_attention(q, k, v, mesh=mesh, causal=causal,
+                                 block_impl=impl)
+            ratio, err = close_rule(torch, got, ref, False)
+            label = f"{impl} {'causal' if causal else 'full'}"
+            print(f"phase 21: ring_attention sp {RING_SHARDS} (2,2048,8,128) "
+                  f"f32 {label} vs reference: |diff| / limit {ratio:.3f} "
+                  f"(max_abs_err {err:.3e})")
+            check(ratio <= 1.0, f"ring_attention {label}: {ratio:.3f} x its "
+                                f"limit")
+            record.setdefault("ring_errs", {})[label] = err
+    qb, kb, vb = (t[:, :1024].repeat(2, 1, 1, 1) for t in (q, k, v))
+    ref = reference_attention(qb, kb, vb, causal=True)
+    for impl in ("pallas", "xla"):
+        got = ring_attention(qb, kb, vb, mesh=dp_mesh, causal=True,
+                             block_impl=impl, batch_axis="dp")
+        ratio, err = close_rule(torch, got, ref, False)
+        print(f"phase 21: ring_attention dp 2 x sp 2 batch_axis (4,1024,8,"
+              f"128) f32 {impl} causal vs reference: |diff| / limit "
+              f"{ratio:.3f} (max_abs_err {err:.3e})")
+        check(ratio <= 1.0, f"ring_attention dp x sp {impl}: {ratio:.3f}")
+    del q, k, v, qb, kb, vb, ref, got
+
+    vocab, heads = LLM_DIMS["vocab"], LLM_DIMS["n_heads"]
+    ids = torch.from_numpy(np.random.default_rng(5).integers(
+        0, vocab, (FWD_B, FWD_S))).to(dev)
+    p32 = on_device(params, dev)
+    with torch.inference_mode():
+        ring = tt.apply_seq(p32, ids, n_heads=heads, mesh=mesh)
+        flat = tt.apply_seq(p32, ids, n_heads=heads)
+    torch.cuda.synchronize()
+    check(ring.shape == (FWD_B, FWD_S, vocab) and
+          torch.isfinite(ring).all().item(), "f32 mesh forward not finite")
+    rel = ((ring - flat).abs().max() / flat.abs().max()).item()
+    print(f"phase 21: f32 apply_seq over the sp {RING_SHARDS} mesh vs "
+          f"without a mesh (B {FWD_B}, S {FWD_S}, TF32 off): max |diff| / "
+          f"max |logit| = {rel:.3e} (limit {FWD_F32_REL})")
+    check(rel <= FWD_F32_REL, f"f32 mesh forward differs by {rel:.3e}")
+    del ring, flat, p32
+    p16 = bf16_params(torch, params, dev)
+    runs = {"apply_seq mesh sp4": lambda: tt.apply_seq(
+                p16, ids, n_heads=heads, dtype=torch.bfloat16, mesh=mesh),
+            "apply_seq flash": lambda: tt.apply_seq(
+                p16, ids, n_heads=heads, dtype=torch.bfloat16)}
+    with torch.inference_mode():
+        runs["apply_seq mesh sp4"]()
+        torch.cuda.synchronize()
+        kernels.flash_block_update.launches = 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            open_capture(torch)
+            runs["apply_seq mesh sp4"]()
+            torch.cuda.synchronize()
+        launches = kernels.flash_block_update.launches
+        named = named_launches(prof, ["flash_block_update"])
+        print(f"phase 21: one bf16 mesh forward: flash_block_update wrapper "
+              f"launches {launches}, profiler launches by name {named}")
+        check(launches == named["flash_block_update"] ==
+              LLM_DIMS["n_layers"] * RING_SHARDS ** 2,
+              f"not {RING_SHARDS ** 2} ring-step launches per layer")
+        timing = {}
+        for name, fn in runs.items():
+            ms = event_ms_per_call(torch, fn, 3)
+            timing[name] = {"ms": ms, "tokens_per_s": FWD_B * FWD_S / ms * 1e3}
+            print(f"phase 21: bf16 {name} (B {FWD_B}, S {FWD_S}): {ms:.3f} ms "
+                  f"per forward, {timing[name]['tokens_per_s']:.0f} tokens/s "
+                  f"[{card}]")
+    record["ring_forward"] = {"f32_rel_err": rel, "timing": timing,
+                              "launches": launches,
+                              "profiler_launches": named}
+    return launches
+
+
+def shard_logits(torch, params, prompt, shards, steps=4):
+    """Teacher-forced through a sharded executor (f32, blocked path):
+    prefill, then `steps` decode steps fed the reference's argmax → every
+    step's logits."""
+    from nnstreamer_tpu_torch.backends.llm_exec import PagedLLMExecutor
+
+    blocks = list(range(1, 1 + (len(prompt) + steps + 15) // 16))
+    ex = PagedLLMExecutor(params, n_heads=8, dtype=torch.float32,
+                          block_size=16, num_blocks=len(blocks) + 1,
+                          max_len=LLM_PROPS["max_len"], paged_kernel="xla",
+                          shards=shards)
+    outs = [ex.prefill(prompt, blocks)]
+    for step in range(steps):
+        outs.append(ex.decode([int(np.argmax(outs[-1]))], [blocks],
+                              [len(prompt) + step])[0])
+    ex.close()
+    return outs
+
+
+def shard_serving_phase(nt, torch, card, record, ctx) -> int:
+    """Phase 22: tensor_llm shards=4 at full width. → the kernel's
+    launches in the bf16 run (its ring prefills)."""
+    from nnstreamer_tpu_torch.models import transformer as tt
+
+    dev = torch.device("cuda", 0)
+    params, requests = ctx["params"], ctx["requests"]
+    n_ring = sum(len(p) >= SHARD_PROPS["ring_prefill_min"] for p in requests)
+    for prompt in (min(requests, key=len), max(requests, key=len)):
+        one, four = (shard_logits(torch, params, prompt, n) for n in (1, 4))
+        same = all(np.array_equal(a, b) for a, b in zip(one, four))
+        print(f"phase 22: f32 prompt {len(prompt)}: shards=4 vs shards=1 "
+              f"logits (prefill + 4 decode steps) "
+              f"{'bit-equal' if same else 'DIFFERENT'}")
+        check(same, "shards=4 logits differ from shards=1")
+    blocked = dict(SHARD_PROPS, ring_prefill_min=0)
+    one, _, wall_1, _ = serve(nt, torch, requests, dtype="float32",
+                              **dict(blocked, shards=1))
+    four, llm4, wall_4, _ = serve(nt, torch, requests, dtype="float32",
+                                  **blocked)
+    check(one == four, "shards=4 tokens differ from shards=1")
+    ring, llm_r, wall_r, launches = serve(nt, torch, requests,
+                                          dtype="float32", **SHARD_PROPS)
+    p32 = on_device(params, dev)
+    ties = check_f32_parity(
+        torch, lambda seq: tt.apply_seq_kv(p32, seq.to(dev), n_heads=8)[0][
+            0, -1], requests, ring, four, "22") if ring != four else 0
+    del p32
+    same = sum(ring[k] == four[k] for k in ring)
+    print(f"phase 22: f32 shards=4 tokens equal shards=1 for all "
+          f"{len(requests)} requests ({wall_4:.2f} s vs {wall_1:.2f} s); ring "
+          f"arm vs blocked arm: {same}/{len(requests)} token-identical, "
+          f"{ties} near-tie flips ({wall_r:.2f} s); {n_ring} ring prefills, "
+          f"flash_block_update launches {launches['flash_block_update']}; "
+          f"shard devices {llm_r.engine.executor.stats()['shard_devices']}")
+    check(launches["flash_block_update"] == 64 * n_ring > 0,
+          "not 64 flash_block_update launches per ring prefill")
+    record["shard_f32"] = {"ring_identical": same, "ring_near_ties": ties,
+                           "ring_prefills": n_ring}
+    del llm4, llm_r                     # their pools, before the baseline
+    gc.collect()                        # and whatever cycles still hold
+
+    base = {i: torch.cuda.memory_allocated(i)
+            for i in range(torch.cuda.device_count())}
+    mem = {}
+    _, llm, wall, launches = serve(nt, torch, requests, dtype="bfloat16",
+                                   mem=mem, **SHARD_PROPS)
+    check(launches["flash_block_update"] == 64 * n_ring,
+          "bf16: not 64 flash_block_update launches per ring prefill")
+    lat = llm.engine.latency_ms()
+    ntok = llm.engine.tokens_out
+    ex = llm.engine.executor
+    serving = {"tokens": ntok, "seconds": wall, "tokens_per_s": ntok / wall,
+               "ttft_p50_ms": float(np.percentile(lat["first_token"], 50)),
+               "ttft_p99_ms": float(np.percentile(lat["first_token"], 99)),
+               "itl_p50_ms": float(np.percentile(lat["inter_token"], 50)),
+               "itl_p99_ms": float(np.percentile(lat["inter_token"], 99)),
+               "decode_steps": ex.decode_steps, "prefills": ex.prefills,
+               "ring_prefills": n_ring, "launches": launches,
+               "shard_devices": ex.stats()["shard_devices"],
+               "memory_allocated": mem,
+               "memory_added": {i: mem[i] - base[i] for i in mem}}
+    print(f"phase 22: bf16 shards=4 ring_prefill_min=1024: {ntok} tokens in "
+          f"{wall:.3f} s = {serving['tokens_per_s']:.1f} tokens/s; time to "
+          f"first token p50 {serving['ttft_p50_ms']:.3f} ms p99 "
+          f"{serving['ttft_p99_ms']:.3f} ms; inter-token latency p50 "
+          f"{serving['itl_p50_ms']:.3f} ms p99 {serving['itl_p99_ms']:.3f} "
+          f"ms; memory_allocated after start by card {mem} (+"
+          f"{serving['memory_added']} B over the idle card) [{card}]")
+    record["shard_bf16"] = serving
+    return launches["flash_block_update"]
+
+
+def flash_block_timing(torch, dev, card) -> dict:
+    """Phase 23: flash_block_update's device time (queued CUDA events) at
+    the ring's shapes — serving (B 1, H 8) and forward (B 8, H 8), local
+    blocks of 512, bf16, a block below the diagonal — beside its bound
+    and its plain version's time."""
+    from nnstreamer_tpu_torch.backends import kernels
+
+    rng = np.random.default_rng(10)
+    d, sl, out = 128, RING_BLOCK, {}
+    launches = kernels.flash_block_update.launches
+    for b, what in ((1, "serving"), (FWD_B, "forward")):
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (b, sl, 8, d)).astype(np.float32)).to(dev, torch.bfloat16)
+            .transpose(1, 2) for _ in range(3))
+        bh = b * 8
+        carry = kernels.flash_carry_init(bh, sl, d, device=dev)
+        # q, k, v read once (bf16); m, l and acc (f32) read and written
+        nbytes = 3 * bh * sl * d * 2 + 2 * (2 * bh * sl + bh * sl * d) * 4
+        ops = 4 * bh * sl * sl * d            # q.k and p.v, every key
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / BF16_FLOPS * 1e3
+        args = dict(q_offset=2 * sl, k_offset=0, causal=True)
+        res = {"ms": device_ms_per_call(
+                   torch, lambda: kernels.flash_block_update(
+                       q, k, v, *carry, **args), 20),
+               "plain_ms": device_ms_per_call(
+                   torch, lambda: kernels.flash_block_update_plain(
+                       q, k, v, *carry, **args), 20),
+               "library_ms": None, "bytes": nbytes, "ops": ops,
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        out[what] = res
+        print(f"phase 23: flash_block_update {what} (BH {bh}, Sq = Sk = {sl}, "
+              f"D {d}, bf16, below the diagonal): device {res['ms']:.5f} ms "
+              f"per launch (queued); plain torch {res['plain_ms']:.5f} ms; "
+              f"library: none (no one torch call continues a softmax carry); "
+              f"bound {res['bound_ms']:.6f} ms ({res['bound_by']}: {nbytes} B "
+              f"at 3.35 TB/s, {ops} flop at 989 TFLOP/s bf16) [{card}]")
+    kernels.flash_block_update.launches = launches   # timing not counted
+    return out
+
+
+def slice4_phases(nt, torch, card, record, phases, ctx) -> list:
+    """Phases 20-23 (ctx: phase 8's params and requests). → the
+    flash_block_update entry of the JSON line."""
+    import os
+
+    dev = torch.device("cuda", 0)
+    # f32 products in full f32 (the plain versions, the f32 comparisons);
+    # bf16 products do not read this flag
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    err = check_flash_block(torch, dev, record)
+    phases.done("20 (flash_block_update vs plain)")
+    old = os.environ.get(VIRTUAL_ENV)
+    os.environ[VIRTUAL_ENV] = str(RING_SHARDS)
+    try:
+        fwd = ring_phase(nt, torch, dev, card, record, ctx["params"])
+        phases.done("21 (ring attention and the mesh forward)")
+        launches = shard_serving_phase(nt, torch, card, record, ctx)
+        phases.done("22 (sharded serving)")
+    finally:
+        if old is None:
+            os.environ.pop(VIRTUAL_ENV)
+        else:
+            os.environ[VIRTUAL_ENV] = old
+    timing = flash_block_timing(torch, dev, card)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    record["flash_block_timing"] = timing
+    record["flash_block_launches"] = {"serving_bf16": launches,
+                                      "mesh_forward_bf16": fwd}
+    phases.done("23 (flash_block_update timings)")
+    t = timing["serving"]
+    return [{
+        "name": "flash_block_update", "route": "cuda",
+        "source": "nnstreamer_tpu_torch/backends/csrc/flash_attn.cu",
+        "replaces": "nnstreamer_tpu/backends/pallas_ops.py:431",
+        "launches": launches, "max_abs_err": err,
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None}]
+
+
+def slice1_phases(nt, torch, card, record, phases) -> list:
+    """Phases 3-6. → the normalize_u8 entry of the JSON line."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.backends import kernels
 
     # -- 3. kernel vs plain -------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -1923,8 +2348,6 @@ def main() -> int:
     phases.done("3 (normalize_u8 vs plain)")
 
     # -- 4. main path: pipelines A and B at full width, bf16, cuda ---------
-    from torch.profiler import ProfilerActivity, profile
-
     results = {}
     kernels.normalize_u8.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
@@ -2050,30 +2473,101 @@ def main() -> int:
                               "plain_event_ms_per_call": ev_plain_ms,
                               "bound_ms": bound_ms}
     phases.done("6 (timings)")
-
-    # -- 7-10. paged attention and LLM serving -----------------------------
-    ctx = {}
-    paged = llm_phases(nt, torch, card, record, phases, ctx)
-
-    # -- 11-15. W8A8 serving and the full-sequence forward ---------------
-    slice3 = slice3_phases(nt, torch, card, record, phases, ctx)
-
-    # -- 16-19. clamp_scale, detection, pose, composite -------------------
-    slice5 = slice5_phases(nt, torch, card, record, phases)
-    record["phase_seconds"] = phases.seconds
-
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
-    print(card)
-    print(json.dumps({"kernels": [{
+    return [{
         "name": "normalize_u8", "route": "cuda",
         "source": "nnstreamer_tpu_torch/backends/csrc/normalize.cu",
         "replaces": "nnstreamer_tpu/backends/pallas_ops.py:34",
         "launches": launches, "max_abs_err": main_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None}, *paged, *slice3, *slice5]}))
+        "library_ms": None}]
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="On-card smoke test of the PyTorch/CUDA port (phases "
+                    "in the module docstring).")
+    ap.add_argument(
+        "--slice4", action="store_true",
+        help="run phases 1, 2 and 20-23 only (the ring step, ring "
+             "attention and sharded serving), e.g. on a four-card machine, "
+             "where virtual_devices=4 puts one shard on each card")
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); this script measures the card and has nothing to "
+              "do without one", file=sys.stderr)
+        return 2
+    if not (ROOT / "nnstreamer_tpu_torch").is_dir():
+        print(f"chip_smoke: no nnstreamer_tpu_torch package beside "
+              f"{__file__}; run it from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.backends import cuda_build
+
+    record = {}
+    phases = Phases()
+    # -- 1. environment ---------------------------------------------------
+    card = sh("nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader").splitlines()[0]
+    nvcc = cuda_build.find_nvcc()
+    print(f"phase 1: python {sys.version.split()[0]}, torch "
+          f"{torch.__version__}, torch CUDA {torch.version.cuda}, "
+          f"{sh(nvcc, '--version').splitlines()[-1]}, device "
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    print(f"phase 1: card: {card}")
+    record["card"] = card
+    phases.done("1 (environment)")
+
+    # -- 2. build -----------------------------------------------------------
+    # one nvcc per source, all started together
+    t0 = time.perf_counter()
+    sources = ("normalize.cu", "paged_attn.cu", "quantize_rows.cu",
+               "flash_attn.cu", "clamp_scale.cu")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(cuda_build.build, sources))
+    build_s = time.perf_counter() - t0
+    for lib in libs:
+        ptxas = [l.strip() for l in lib.with_suffix(".log").read_text()
+                 .splitlines() if "registers" in l or "spill" in l]
+        print(f"phase 2: built {lib.name}")
+        for line in ptxas:
+            print(f"phase 2: ptxas: {line}")
+    print(f"phase 2: built {len(libs)} kernel libraries in {build_s:.2f} s "
+          f"(in parallel)")
+    record["build_s"] = build_s
+    phases.done("2 (build)")
+
+    if args.slice4:
+        ctx = {}
+        llm_model(ctx)
+        entries = slice4_phases(nt, torch, card, record, phases, ctx)
+    else:
+        # -- 3-6. normalize_u8, pipelines A and B ------------------------
+        entries = slice1_phases(nt, torch, card, record, phases)
+        # -- 7-10. paged attention and LLM serving -------------------------
+        ctx = {}
+        entries += llm_phases(nt, torch, card, record, phases, ctx)
+        # -- 11-15. W8A8 serving and the full-sequence forward -----------
+        entries += slice3_phases(nt, torch, card, record, phases, ctx)
+        # -- 16-19. clamp_scale, detection, pose, composite ---------------
+        entries += slice5_phases(nt, torch, card, record, phases)
+        # -- 20-23. the ring step, ring attention, sharded serving -------
+        entries += slice4_phases(nt, torch, card, record, phases, ctx)
+    record["phase_seconds"] = phases.seconds
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    name = "chip_smoke_slice4.json" if args.slice4 else "chip_smoke.json"
+    (out_dir / name).write_text(json.dumps(record, indent=1))
+    print(card)
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

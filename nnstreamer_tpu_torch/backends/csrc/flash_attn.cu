@@ -11,6 +11,13 @@
 // memory a tile at a time whatever S is, so one kernel is both. The grid
 // is (q-blocks, heads, batch); no state carries between CTAs.
 //
+// A second kernel, nns_flash_block_kernel, replaces `_flash_block_kernel`
+// / `flash_block_update` (the ring-attention step): the same tile walk
+// over ONE incoming K/V block, starting from and writing back a carry
+// (m, l, acc) that lives in device memory between ring steps, with the
+// causal mask placed by the block's global query/key offsets. Both
+// kernels share the tile code below (attend_tile, walk_tiles).
+//
 // Semantics shared with _online_softmax_update / _causal_mask:
 // - s = (q . k) * scale in f32; bf16 inputs widen exactly, so each
 //   product is exact and the sum is f32, as the MXU's f32 accumulation;
@@ -47,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace {
 
@@ -185,6 +194,151 @@ __device__ __forceinline__ void stage_tile(const T* k_bh, const T* v_bh,
   cp_async_commit();
 }
 
+// One key tile of the online softmax for this thread's kRows query rows
+// (rows ty*kRows ..): s = (q . k) * scale in f32 against the tile's keys
+// key0 .. key0 + kBK - 1; a key is masked (s = -1e30, p = 0) at or past
+// s_len, or, when causal, where its position kpos0 + key exceeds the
+// row's position qpos0 + row; then m, l and acc carry on and acc += p . v
+// with p rounded to T. Every thread of the CTA calls it: it synchronises
+// between the softmax (which fills p_s) and the P.V product.
+template <typename T, int NC>
+__device__ __forceinline__ void attend_tile(
+    const float* q_s, int ldq, const T* k_s, const T* v_s, int ld,
+    float* p_s, int d, int key0, int s_len, int causal, int qpos0,
+    int kpos0, float scale, float (&m)[kRows], float (&l)[kRows],
+    float4 (&acc)[kRows][NC]) {
+  constexpr int CH = 16 / sizeof(T);
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int vec = d / 4;
+
+  // S = Q K^T for this thread's 4 rows x 4 keys
+  float s[kRows][kKeys];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) s[i][j] = 0.f;
+  for (int c0 = 0; c0 < d; c0 += CH) {
+    float kf[kKeys][CH];
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j)
+      load16(k_s + (tx + 16 * j) * ld + c0, kf[j]);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const float* qr = q_s + (ty * kRows + i) * ldq + c0;
+#pragma unroll
+      for (int c4 = 0; c4 < CH; c4 += 4) {
+        const float4 qv = *reinterpret_cast<const float4*>(qr + c4);
+#pragma unroll
+        for (int j = 0; j < kKeys; ++j) {
+          s[i][j] = fmaf(qv.x, kf[j][c4], s[i][j]);
+          s[i][j] = fmaf(qv.y, kf[j][c4 + 1], s[i][j]);
+          s[i][j] = fmaf(qv.z, kf[j][c4 + 2], s[i][j]);
+          s[i][j] = fmaf(qv.w, kf[j][c4 + 3], s[i][j]);
+        }
+      }
+    }
+  }
+
+  // online softmax over the tile, per row, across the half-warp
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = ty * kRows + i;
+    const int qpos = qpos0 + r;
+    float mx = kMasked;
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) {
+      const int key = key0 + tx + 16 * j;
+      const bool ok = key < s_len && (!causal || kpos0 + key <= qpos);
+      s[i][j] = ok ? s[i][j] * scale : kMasked;
+      mx = fmaxf(mx, s[i][j]);
+    }
+    mx = half_max(mx);
+    const float m_new = fmaxf(m[i], mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) {
+      const float e = s[i][j] <= kMaskedBelow ? 0.f : expf(s[i][j] - m_new);
+      p_s[r * kLdp + tx + 16 * j] = round_p(e, T());
+      sum += e;
+    }
+    sum = half_sum(sum);
+    const float corr = expf(m[i] - m_new);
+    l[i] = l[i] * corr + sum;
+    m[i] = m_new;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      acc[i][c].x *= corr;
+      acc[i][c].y *= corr;
+      acc[i][c].z *= corr;
+      acc[i][c].w *= corr;
+    }
+  }
+  __syncthreads();
+
+  // acc += P V
+  for (int key = 0; key < kBK; ++key) {
+    float pv[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) pv[i] = p_s[(ty * kRows + i) * kLdp + key];
+    const T* vr = v_s + key * ld;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int g = tx + 16 * c;
+      if (g < vec) {
+        const float4 vv = load4(vr + 4 * g);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) fma4(acc[i][c], pv[i], vv);
+      }
+    }
+  }
+}
+
+// Copy 64 query rows (row stride qss elements, rows past `rows` zero) into
+// q_s as f32.
+template <typename T>
+__device__ __forceinline__ void stage_q(const T* q_rows, int64_t qss,
+                                        int rows, int d, int ldq,
+                                        float* q_s) {
+  for (int i = threadIdx.x; i < kBQ * d; i += kThreads) {
+    const int r = i / d, c = i - r * d;
+    q_s[r * ldq + c] = r < rows ? to_f32(q_rows[r * qss + c]) : 0.f;
+  }
+}
+
+// The walk over key tiles 0 .. ntiles-1 of one (b, h): the next tile's
+// copy is queued before this tile's math when two tiles fit (nbuf 2),
+// after it otherwise. Tile 0 must already be queued.
+template <typename T, int NC>
+__device__ __forceinline__ void walk_tiles(
+    const T* k_bh, const T* v_bh, int64_t kss, int64_t vss, T* kv_s,
+    int nbuf, int ntiles, const float* q_s, int ldq, float* p_s, int d,
+    int s_len, int causal, int qpos0, int kpos0, float scale,
+    float (&m)[kRows], float (&l)[kRows], float4 (&acc)[kRows][NC]) {
+  constexpr int CH = 16 / sizeof(T);
+  const int ld = d + CH;
+  const int tile_elems = kBK * ld;
+  for (int t = 0; t < ntiles; ++t) {
+    T* k_s = kv_s + (nbuf == 2 ? (t % 2) : 0) * 2 * tile_elems;
+    T* v_s = k_s + tile_elems;
+    if (nbuf == 2 && t + 1 < ntiles) {
+      T* nxt = kv_s + ((t + 1) % 2) * 2 * tile_elems;
+      stage_tile(k_bh, v_bh, kss, vss, s_len, d, ld, t + 1, nxt,
+                 nxt + tile_elems);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    attend_tile<T, NC>(q_s, ldq, k_s, v_s, ld, p_s, d, t * kBK, s_len,
+                       causal, qpos0, kpos0, scale, m, l, acc);
+    __syncthreads();   // this tile's buffers are refilled next
+    if (nbuf == 1 && t + 1 < ntiles)
+      stage_tile(k_bh, v_bh, kss, vss, s_len, d, ld, t + 1, kv_s,
+                 kv_s + tile_elems);
+  }
+  cp_async_wait<0>();
+}
+
 // One CTA per (q-block, head, batch row): 64 query rows against every
 // key tile they may attend.
 template <typename T, int NC>
@@ -220,10 +374,7 @@ __global__ void __launch_bounds__(kThreads) nns_flash_attn_kernel(
 
   stage_tile(k_bh, v_bh, ks.s, vs.s, s_len, d, ld, 0, kv_s,
              kv_s + tile_elems);
-  for (int i = tid; i < kBQ * d; i += kThreads) {
-    const int r = i / d, c = i - r * d;
-    q_s[r * ldq + c] = r < rows ? to_f32(q_bh[r * qs.s + c]) : 0.f;
-  }
+  stage_q(q_bh, qs.s, rows, d, ldq, q_s);
 
   float m[kRows], l[kRows];
   float4 acc[kRows][NC];
@@ -234,107 +385,8 @@ __global__ void __launch_bounds__(kThreads) nns_flash_attn_kernel(
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[i][c] = make_float4(0, 0, 0, 0);
   }
-
-  for (int t = 0; t < ntiles; ++t) {
-    T* k_s = kv_s + (nbuf == 2 ? (t % 2) : 0) * 2 * tile_elems;
-    T* v_s = k_s + tile_elems;
-    if (nbuf == 2 && t + 1 < ntiles) {
-      T* nxt = kv_s + ((t + 1) % 2) * 2 * tile_elems;
-      stage_tile(k_bh, v_bh, ks.s, vs.s, s_len, d, ld, t + 1, nxt,
-                 nxt + tile_elems);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // S = Q K^T for this thread's 4 rows x 4 keys
-    float s[kRows][kKeys];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) s[i][j] = 0.f;
-    for (int c0 = 0; c0 < d; c0 += CH) {
-      float kf[kKeys][CH];
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j)
-        load16(k_s + (tx + 16 * j) * ld + c0, kf[j]);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float* qr = q_s + (ty * kRows + i) * ldq + c0;
-#pragma unroll
-        for (int c4 = 0; c4 < CH; c4 += 4) {
-          const float4 qv = *reinterpret_cast<const float4*>(qr + c4);
-#pragma unroll
-          for (int j = 0; j < kKeys; ++j) {
-            s[i][j] = fmaf(qv.x, kf[j][c4], s[i][j]);
-            s[i][j] = fmaf(qv.y, kf[j][c4 + 1], s[i][j]);
-            s[i][j] = fmaf(qv.z, kf[j][c4 + 2], s[i][j]);
-            s[i][j] = fmaf(qv.w, kf[j][c4 + 3], s[i][j]);
-          }
-        }
-      }
-    }
-
-    // online softmax over the tile, per row, across the half-warp
-    const int key0 = t * kBK;
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = ty * kRows + i;
-      const int qpos = row0 + r;
-      float mx = kMasked;
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const int key = key0 + tx + 16 * j;
-        const bool ok = key < s_len && (!causal || key <= qpos);
-        s[i][j] = ok ? s[i][j] * scale : kMasked;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = half_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const float e = s[i][j] <= kMaskedBelow ? 0.f : expf(s[i][j] - m_new);
-        p_s[r * kLdp + tx + 16 * j] = round_p(e, T());
-        sum += e;
-      }
-      sum = half_sum(sum);
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        acc[i][c].x *= corr;
-        acc[i][c].y *= corr;
-        acc[i][c].z *= corr;
-        acc[i][c].w *= corr;
-      }
-    }
-    __syncthreads();
-
-    // acc += P V
-    for (int key = 0; key < kBK; ++key) {
-      float pv[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = p_s[(ty * kRows + i) * kLdp + key];
-      const T* vr = v_s + key * ld;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int g = tx + 16 * c;
-        if (g < vec) {
-          const float4 vv = load4(vr + 4 * g);
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) fma4(acc[i][c], pv[i], vv);
-        }
-      }
-    }
-    __syncthreads();   // this tile's buffers are refilled next
-    if (nbuf == 1 && t + 1 < ntiles)
-      stage_tile(k_bh, v_bh, ks.s, vs.s, s_len, d, ld, t + 1, kv_s,
-                 kv_s + tile_elems);
-  }
-  cp_async_wait<0>();
+  walk_tiles<T, NC>(k_bh, v_bh, ks.s, vs.s, kv_s, nbuf, ntiles, q_s, ldq,
+                    p_s, d, s_len, causal, row0, 0, scale, m, l, acc);
 
   T* o_bh = out + b * os.b + h * os.h + row0 * os.s;
 #pragma unroll
@@ -354,28 +406,126 @@ __global__ void __launch_bounds__(kThreads) nns_flash_attn_kernel(
   }
 }
 
+// One ring-attention step (replaces pallas_ops._flash_block_kernel /
+// flash_block_update): one CTA per (q-block, bh) continues the online
+// softmax of 64 query rows over every key tile of ONE incoming K/V block,
+// reading the f32 carry m, l (BH, Sq) and acc (BH, Sq, D) and writing it
+// back in place. Query row r sits at position q_off + r and key j at
+// k_off + j. Causal: key tiles whose first key lies past the q-block's
+// last row are skipped; a q-block with none left returns before touching
+// the carry, so a block wholly above the diagonal leaves m, l and acc
+// bit-identical (a fully masked row inside a computed tile keeps them
+// too: corr = 1 and p = 0). bh = b * heads + h addresses q/k/v through
+// their (b, h, s) strides, so the ring's (B, S, H, D) -> (B, H, S, D)
+// views are read without a copy. Bound: bytes at the ring's shapes — the
+// f32 carry (acc alone is twice a bf16 q) is read and written each step.
+template <typename T, int NC>
+__global__ void __launch_bounds__(kThreads) nns_flash_block_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, float* __restrict__ m_g,
+    float* __restrict__ l_g, float* __restrict__ acc_g, Strides qs,
+    Strides ks, Strides vs, int heads, int sq, int sk, int d, float scale,
+    int causal, int q_off, int k_off, int nbuf) {
+  constexpr int CH = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int bh = blockIdx.y, b = bh / heads, h = bh - b * heads;
+  const int row0 = blockIdx.x * kBQ;
+  const int rows = min(kBQ, sq - row0);
+  const int all_tiles = (sk + kBK - 1) / kBK;
+  int ntiles = all_tiles;
+  if (causal) {
+    const int last_q = q_off + row0 + rows - 1;
+    if (last_q < k_off) return;        // wholly above the diagonal
+    ntiles = min(all_tiles, (last_q - k_off) / kBK + 1);
+  }
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int ld = d + CH;
+  const int ldq = d + 4;
+  const int vec = d / 4;
+  const int tile_elems = kBK * ld;
+  T* kv_s = reinterpret_cast<T*>(smem_raw);
+  float* q_s = reinterpret_cast<float*>(kv_s + nbuf * 2 * tile_elems);
+  float* p_s = q_s + kBQ * ldq;
+
+  const T* k_bh = k + b * ks.b + h * ks.h;
+  const T* v_bh = v + b * vs.b + h * vs.h;
+  stage_tile(k_bh, v_bh, ks.s, vs.s, sk, d, ld, 0, kv_s, kv_s + tile_elems);
+  stage_q(q + b * qs.b + h * qs.h + row0 * qs.s, qs.s, rows, d, ldq, q_s);
+
+  const int64_t row_base = static_cast<int64_t>(bh) * sq + row0;
+  float* m_rows = m_g + row_base;
+  float* l_rows = l_g + row_base;
+  float* a_rows = acc_g + row_base * d;
+  float m[kRows], l[kRows];
+  float4 acc[kRows][NC];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = ty * kRows + i;
+    const bool live = r < rows;
+    m[i] = live ? m_rows[r] : kMasked;
+    l[i] = live ? l_rows[r] : 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int g = tx + 16 * c;
+      acc[i][c] = live && g < vec
+          ? *reinterpret_cast<const float4*>(a_rows + r * d + 4 * g)
+          : make_float4(0, 0, 0, 0);
+    }
+  }
+  walk_tiles<T, NC>(k_bh, v_bh, ks.s, vs.s, kv_s, nbuf, ntiles, q_s, ldq,
+                    p_s, d, sk, causal, q_off + row0, k_off, scale, m, l,
+                    acc);
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = ty * kRows + i;
+    if (r >= rows) continue;
+    if (tx == 0) {
+      m_rows[r] = m[i];
+      l_rows[r] = l[i];
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int g = tx + 16 * c;
+      if (g < vec)
+        *reinterpret_cast<float4*>(a_rows + r * d + 4 * g) = acc[i][c];
+    }
+  }
+}
+
+// Shared memory of one CTA: nbuf K/V tile pairs, q_s and p_s. Two tile
+// pairs when they fit (double buffering), else one; 0 bytes when even one
+// does not.
+template <typename T>
+size_t smem_bytes(int d, int* nbuf) {
+  constexpr int CH = 16 / sizeof(T);
+  const size_t tile_pair = 2 * sizeof(T) * kBK * static_cast<size_t>(d + CH);
+  const size_t rest =
+      sizeof(float) * (kBQ * static_cast<size_t>(d + 4) + kBQ * kLdp);
+  *nbuf = 2;
+  if (2 * tile_pair + rest <= kMaxSmem) return 2 * tile_pair + rest;
+  *nbuf = 1;
+  return tile_pair + rest <= kMaxSmem ? tile_pair + rest : 0;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 template <typename T, int NC>
 cudaError_t launch_nc(const void* q, const void* k, const void* v, void* out,
                       Strides qs, Strides ks, Strides vs, Strides os,
                       int batch, int s_len, int n_heads, int d, float scale,
                       int causal, cudaStream_t stream) {
-  constexpr int CH = 16 / sizeof(T);
-  const size_t tile_pair = 2 * sizeof(T) * kBK * static_cast<size_t>(d + CH);
-  const size_t rest =
-      sizeof(float) * (kBQ * static_cast<size_t>(d + 4) + kBQ * kLdp);
-  int nbuf = 2;
-  size_t bytes = nbuf * tile_pair + rest;
-  if (bytes > kMaxSmem) {
-    nbuf = 1;
-    bytes = tile_pair + rest;
-  }
-  if (bytes > kMaxSmem) return cudaErrorInvalidConfiguration;
-  if (bytes > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        nns_flash_attn_kernel<T, NC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-  }
+  int nbuf;
+  const size_t bytes = smem_bytes<T>(d, &nbuf);
+  if (bytes == 0) return cudaErrorInvalidConfiguration;
+  const cudaError_t err = allow_smem(nns_flash_attn_kernel<T, NC>, bytes);
+  if (err != cudaSuccess) return err;
   const dim3 grid((s_len + kBQ - 1) / kBQ, n_heads, batch);
   nns_flash_attn_kernel<T, NC><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -384,18 +534,44 @@ cudaError_t launch_nc(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+template <typename T, int NC>
+cudaError_t launch_block_nc(const void* q, const void* k, const void* v,
+                            float* m, float* l, float* acc, Strides qs,
+                            Strides ks, Strides vs, int bh, int heads,
+                            int sq, int sk, int d, float scale, int causal,
+                            int q_off, int k_off, cudaStream_t stream) {
+  int nbuf;
+  const size_t bytes = smem_bytes<T>(d, &nbuf);
+  if (bytes == 0) return cudaErrorInvalidConfiguration;
+  const cudaError_t err = allow_smem(nns_flash_block_kernel<T, NC>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((sq + kBQ - 1) / kBQ, bh);
+  nns_flash_block_kernel<T, NC><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), m, l, acc, qs, ks, vs, heads, sq, sk, d,
+      scale, causal, q_off, k_off, nbuf);
+  return cudaGetLastError();
+}
+
+// 16-byte rows for cp.async: every (b, s, h) stride and every pointer
+// keeps them aligned.
+template <typename T>
+bool aligned(std::initializer_list<Strides> strides,
+             std::initializer_list<const void*> ptrs) {
+  constexpr int CH = 16 / sizeof(T);
+  for (const Strides& st : strides)
+    if (st.b % CH || st.s % CH || st.h % CH) return false;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    Strides qs, Strides ks, Strides vs, Strides os, int batch,
                    int s_len, int n_heads, int d, float scale, int causal,
                    cudaStream_t stream) {
-  constexpr int CH = 16 / sizeof(T);
-  // 16-byte rows for cp.async; every (b, s, h) stride keeps them aligned
-  const Strides all[4] = {qs, ks, vs, os};
-  for (const Strides& st : all)
-    if (st.b % CH || st.s % CH || st.h % CH) return cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(q) % 16 || reinterpret_cast<uintptr_t>(k) % 16 ||
-      reinterpret_cast<uintptr_t>(v) % 16 || reinterpret_cast<uintptr_t>(out) % 16)
+  if (!aligned<T>({qs, ks, vs, os}, {q, k, v, out}))
     return cudaErrorInvalidValue;
   if (d <= 64)
     return launch_nc<T, 1>(q, k, v, out, qs, ks, vs, os, batch, s_len,
@@ -405,6 +581,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                            n_heads, d, scale, causal, stream);
   return launch_nc<T, 4>(q, k, v, out, qs, ks, vs, os, batch, s_len, n_heads,
                          d, scale, causal, stream);
+}
+
+template <typename T>
+cudaError_t launch_block(const void* q, const void* k, const void* v,
+                         float* m, float* l, float* acc, Strides qs,
+                         Strides ks, Strides vs, int bh, int heads, int sq,
+                         int sk, int d, float scale, int causal, int q_off,
+                         int k_off, cudaStream_t stream) {
+  if (!aligned<T>({qs, ks, vs}, {q, k, v, acc})) return cudaErrorInvalidValue;
+  if (d <= 64)
+    return launch_block_nc<T, 1>(q, k, v, m, l, acc, qs, ks, vs, bh, heads,
+                                 sq, sk, d, scale, causal, q_off, k_off,
+                                 stream);
+  if (d <= 128)
+    return launch_block_nc<T, 2>(q, k, v, m, l, acc, qs, ks, vs, bh, heads,
+                                 sq, sk, d, scale, causal, q_off, k_off,
+                                 stream);
+  return launch_block_nc<T, 4>(q, k, v, m, l, acc, qs, ks, vs, bh, heads, sq,
+                               sk, d, scale, causal, q_off, k_off, stream);
 }
 
 }  // namespace
@@ -439,6 +634,43 @@ int nns_flash_attn(const void* q, const void* k, const void* v, void* out,
       if (d % 8) return cudaErrorInvalidValue;
       return launch<__nv_bfloat16>(q, k, v, out, qs, ks, vs, os, batch,
                                    s_len, n_heads, d, scale, causal, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// One ring step. dtype_code: 0 f32, 1 bf16 (q, k, v alike). q: bh rows of
+// (sq, d), k and v: bh rows of (sk, d), row bh = b * heads + h read at
+// b * s?_b + h * s?_h with position stride s?_s (elements; last dim
+// contiguous, every stride a multiple of 16 bytes, pointers 16-byte
+// aligned). m, l: (bh, sq) f32 and acc: (bh, sq, d) f32, contiguous,
+// updated in place. Launches on `stream`, returns cudaGetLastError();
+// does not synchronise and allocates nothing.
+int nns_flash_block(const void* q, const void* k, const void* v, void* m,
+                    void* l, void* acc, int dtype_code, int bh, int heads,
+                    int sq, int sk, int d, int64_t q_sb, int64_t q_ss,
+                    int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                    int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale,
+                    int causal, int q_off, int k_off, void* stream) {
+  if (bh <= 0 || sq <= 0 || sk <= 0) return cudaSuccess;
+  if (d <= 0 || d > kMaxD || bh > 65535 || heads <= 0 || bh % heads)
+    return cudaErrorInvalidValue;
+  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
+      vs{v_sb, v_ss, v_sh};
+  float* mf = static_cast<float*>(m);
+  float* lf = static_cast<float*>(l);
+  float* af = static_cast<float*>(acc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype_code) {
+    case 0:
+      if (d % 4) return cudaErrorInvalidValue;
+      return launch_block<float>(q, k, v, mf, lf, af, qs, ks, vs, bh, heads,
+                                 sq, sk, d, scale, causal, q_off, k_off, s);
+    case 1:
+      if (d % 8) return cudaErrorInvalidValue;
+      return launch_block<__nv_bfloat16>(q, k, v, mf, lf, af, qs, ks, vs, bh,
+                                         heads, sq, sk, d, scale, causal,
+                                         q_off, k_off, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -40,6 +40,8 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+#: source → the exported functions whose signatures are declared
+_declared: Dict[str, set] = {}
 _lock = threading.Lock()
 
 
@@ -103,18 +105,22 @@ def build(source: str, flags: List[str] = NVCC_FLAGS) -> Path:
 def load(source: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
     """Build (if needed) and load the library of `csrc/<source>`, once
     per process. `signatures` maps each exported function to its
-    (argtypes, restype); pointers must be c_void_p, or ctypes cuts them
-    to 32 bits."""
+    (argtypes, restype), declared the first time the function is asked
+    for (one source may export several launchers); pointers must be
+    c_void_p, or ctypes cuts them to 32 bits."""
     with _lock:
         lib = _loaded.get(source)
         if lib is None:
             lib = ctypes.CDLL(str(build(source)))
-            sigs = {"nns_error_string": ([ctypes.c_int], ctypes.c_char_p),
-                    **signatures}
-            for name, (argtypes, restype) in sigs.items():
+            signatures = {"nns_error_string": ([ctypes.c_int],
+                                               ctypes.c_char_p), **signatures}
+            _loaded[source] = lib
+        declared = _declared.setdefault(source, set())
+        for name, (argtypes, restype) in signatures.items():
+            if name not in declared:
                 fn = getattr(lib, name)
                 fn.argtypes, fn.restype = argtypes, restype
-            _loaded[source] = lib
+                declared.add(name)
         return lib
 
 

@@ -13,6 +13,11 @@ package's backends/pallas_ops.py).
   (K/V resident and K/V streamed).
 - ``clamp_scale`` — ``clip(x, lo, hi) * scale + offset`` in x's dtype:
   the transform ``clamp`` step. CUDA C++ in ``csrc/clamp_scale.cu``.
+- ``flash_block_update`` — one ring-attention step: q continues its
+  online softmax over one incoming K/V block, the (m, l, acc) carry
+  updated in place (`flash_carry_init`, `flash_carry_finalize` beside
+  it). CUDA C++ in ``csrc/flash_attn.cu``, sharing the flash kernel's
+  tile code.
 
 Each kernel has three parts here: the wrapper, which launches the CUDA
 kernel for a CUDA tensor and counts the launch; its plain torch version,
@@ -446,3 +451,162 @@ def flash_attention(q, k, v, *, causal: bool = False, block_q: int = 0,
 
 
 flash_attention.launches = 0
+
+
+# -- flash_block_update: one ring-attention step ------------------------------
+
+def flash_carry_init(bh: int, sq: int, d: int, device=None):
+    """Fresh (m, l, acc) carry for `flash_block_update`: m (BH, Sq) at
+    −1e30, l (BH, Sq) and acc (BH, Sq, D) at 0, all f32. (The JAX
+    package's m and l repeat each row over 8 sublanes for the TPU; here
+    they are plain (BH, Sq).)"""
+    return (torch.full((bh, sq), _MASKED, dtype=torch.float32, device=device),
+            torch.zeros((bh, sq), dtype=torch.float32, device=device),
+            torch.zeros((bh, sq, d), dtype=torch.float32, device=device))
+
+
+def flash_carry_finalize(l: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """acc / max(l, 1e-20) → the attention output (BH, Sq, D) f32."""
+    return acc / l.clamp_min(_L_FLOOR)[..., None]
+
+
+def _flat_rows(t: torch.Tensor) -> torch.Tensor:
+    """(BH, S, D) as it is; (B, H, S, D) → (B·H, S, D)."""
+    return t if t.dim() == 3 else t.reshape(-1, *t.shape[-2:])
+
+
+def flash_block_update_plain(q, k_blk, v_blk, m, l, acc, *, q_offset: int,
+                             k_offset: int, causal: bool):
+    """Plain torch version of the ring-step kernel, over the whole block
+    at once: scores ``(q·k) * D**-0.5`` in f32; when causal, −1e30 where
+    ``q_offset + row < k_offset + col`` and p forced to 0 there; then
+    ``m' = max(m, rowmax)``, ``l' = l·exp(m − m') + Σp``, ``acc' =
+    acc·exp(m − m') + p·v`` with p cast to v's dtype first and summed in
+    f32. A causal block wholly above the diagonal is skipped, as the
+    kernel skips it. The carry is updated in place and returned."""
+    sq, sk, d = q.shape[-2], k_blk.shape[-2], q.shape[-1]
+    if causal and q_offset + sq - 1 < k_offset:
+        return m, l, acc
+    qf, kf, vf = (_flat_rows(t) for t in (q, k_blk, v_blk))
+    s = torch.einsum("bqd,bkd->bqk", qf.float(), kf.float()) * d ** -0.5
+    if causal:
+        rows = q_offset + torch.arange(sq, device=q.device)
+        cols = k_offset + torch.arange(sk, device=q.device)
+        s = torch.where(rows[:, None] >= cols[None, :], s,
+                        torch.full_like(s, _MASKED))
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    if causal:
+        p = torch.where(s <= _MASKED_BELOW, torch.zeros_like(p), p)
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(dim=-1)
+    acc_new = acc * corr[..., None] + torch.einsum(
+        "bqk,bkd->bqd", p.to(vf.dtype).float(), vf.float())
+    m.copy_(m_new)
+    l.copy_(l_new)
+    acc.copy_(acc_new)
+    return m, l, acc
+
+
+def _flash_block_cuda(q, k, v, m, l, acc, q_offset: int, k_offset: int,
+                      causal: bool):
+    from nnstreamer_tpu_torch.backends import cuda_build
+
+    if q.dtype not in _FLOAT_CODE:
+        raise BackendError(
+            f"flash_block_update kernel takes float32 or bfloat16, got "
+            f"{q.dtype}")
+    d = q.shape[-1]
+    if (d * q.element_size()) % 16 or d > FLASH_MAX_HEAD_DIM:
+        raise BackendError(
+            f"flash_block_update kernel needs head_dim * itemsize a multiple "
+            f"of 16 bytes and head_dim <= {FLASH_MAX_HEAD_DIM}; got head_dim "
+            f"{d} {q.dtype}")
+    bh = m.shape[0]
+    if bh > 65535:
+        raise BackendError(f"flash_block_update kernel: BH {bh} above 65535")
+    heads = 1 if q.dim() == 3 else q.shape[1]
+
+    def strides(t):
+        """(b, s, h) element strides: a 3-D (BH, S, D) tensor reads row bh
+        at bh * stride(0) (heads 1), a 4-D (B, H, S, D) one at b *
+        stride(0) + h * stride(1)."""
+        t = _flash_operand(t.unsqueeze(1) if t.dim() == 3 else t)
+        sb, sh, ss = (st if n > 1 else 0
+                      for n, st in zip(t.shape[:3], t.stride()[:3]))
+        return t, (sb, ss, sh)
+
+    (q, qs), (k, ks), (v, vs) = (strides(t) for t in (q, k, v))
+    lib = cuda_build.load("flash_attn.cu", {"nns_flash_block": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 9
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p], ctypes.c_int)})
+    with torch.cuda.device(q.device):
+        err = lib.nns_flash_block(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
+            l.data_ptr(), acc.data_ptr(), _FLOAT_CODE[q.dtype], bh, heads,
+            q.shape[2], k.shape[2], d, *qs, *ks, *vs, d ** -0.5,
+            int(bool(causal)), int(q_offset), int(k_offset),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check(lib, err, "flash_block_update")
+    flash_block_update.launches += 1
+    return m, l, acc
+
+
+#: the JAX package's ring-step blocks: it refuses an Sq or Sk that
+#: min(128, S) does not divide, and so does the port (the CUDA kernel's
+#: own 64-row tiles take any S)
+_RING_BLOCK = 128
+
+
+def flash_block_update(q, k_blk, v_blk, m, l, acc, *, q_offset: int,
+                       k_offset: int, causal: bool):
+    """One ring-attention step: q attends one incoming K/V block and
+    carries the online softmax on in (m, l, acc), updated in place and
+    returned.
+
+    q (BH, Sq, D) and k_blk, v_blk (BH, Sk, D), or all three (B, H, S, D)
+    — BH = B·H, so the ring's transposed views of (B, S, H, D) shards are
+    read through their strides, not copied; one dtype, f32 or bf16. m, l
+    (BH, Sq) and acc (BH, Sq, D): contiguous f32 on q's device.
+    `q_offset`/`k_offset` are the global positions of q's first row and
+    the block's first key (they place the causal mask). Raises ValueError
+    where the JAX package's kernel refuses the shape (Sq, Sk not divisible
+    by min(128, S)). A CUDA tensor runs the hand-written kernel; a CPU
+    tensor runs the plain version."""
+    if q.dim() not in (3, 4) or k_blk.dim() != q.dim() or \
+            k_blk.shape != v_blk.shape or \
+            k_blk.shape[:-2] != q.shape[:-2] or \
+            k_blk.shape[-1] != q.shape[-1] or \
+            k_blk.dtype != q.dtype or v_blk.dtype != q.dtype or \
+            k_blk.device != q.device or v_blk.device != q.device:
+        raise BackendError(
+            f"flash_block_update takes q (BH, Sq, D) and k, v (BH, Sk, D) "
+            f"(or (B, H, S, D)) of one dtype on one device, got "
+            f"{tuple(q.shape)} {q.dtype} {q.device}, {tuple(k_blk.shape)} "
+            f"{k_blk.dtype} {k_blk.device}, {tuple(v_blk.shape)} "
+            f"{v_blk.dtype} {v_blk.device}")
+    sq, sk, d = q.shape[-2], k_blk.shape[-2], q.shape[-1]
+    bh = math.prod(q.shape[:-2])
+    for name, t, shape in (("m", m, (bh, sq)), ("l", l, (bh, sq)),
+                           ("acc", acc, (bh, sq, d))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32 or \
+                not t.is_contiguous() or t.device != q.device:
+            raise BackendError(
+                f"flash_block_update carry {name} must be a contiguous f32 "
+                f"{shape} tensor on {q.device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    bq, bk = min(_RING_BLOCK, sq), min(_RING_BLOCK, sk)
+    if sq % bq or sk % bk:
+        raise ValueError(
+            f"flash_block_update needs Sq={sq}, Sk={sk} divisible by "
+            f"({bq}, {bk})")
+    if _dispatch("flash_block_update", q):
+        return _flash_block_cuda(q, k_blk, v_blk, m, l, acc, q_offset,
+                                 k_offset, causal)
+    return flash_block_update_plain(q, k_blk, v_blk, m, l, acc,
+                                    q_offset=q_offset, k_offset=k_offset,
+                                    causal=causal)
+
+
+flash_block_update.launches = 0

@@ -26,10 +26,21 @@ build or launch raises; nothing falls back (``kernel_fallback`` stays in
 
 A ``store://`` model rides the model-store epoch: `prewarm_version` checks
 an incoming version's cache geometry and places its params on the
-device, `maybe_adopt` swaps them in at a step boundary. Sharded serving
-(``shards``, ``ring_prefill_min``) waits for the multi-GPU slice, the
-compiled decode window (``decode_multi``) for the compiled loop, and the
-persistent bucket manifest (``warm_start``) for serving/compile_cache.
+device, `maybe_adopt` swaps them in at a step boundary.
+
+``shards=N`` serves tensor-parallel over N logical devices
+(serving/sharding.py; ``shard_chips`` names their ordinals, default 0 ..
+N-1): projections canonically blocked and head-sharded, the KV pool one
+kv-head slice per shard device, the residual stream on the group's first
+device — bit-identical to ``shards=1``. Prompts at or past
+``ring_prefill_min`` prefill through ring attention over the same devices
+(kind "ring": allclose, not bit-equal, to the blocked path; counted under
+``kernel_invokes["xla"]`` as the JAX package counts it). Sharded serving
+is float-only and refuses chunked prefill and ``paged_kernel=pallas``
+(the JAX package falls back to XLA there with a count; the port raises).
+The compiled decode window (``decode_multi``) waits for the compiled
+loop, and the persistent bucket manifest (``warm_start``) for
+serving/compile_cache.
 """
 
 from __future__ import annotations
@@ -47,9 +58,6 @@ from nnstreamer_tpu_torch.llm.paged_cache import SCRATCH_BLOCK, PagedKVCache
 from nnstreamer_tpu_torch.runtime.sync import to_host
 
 log = get_logger("backends.llm")
-
-MULTI_GPU = ("the multi-GPU slice (sharded serving over several cards) is "
-             "not ported yet")
 
 
 def _next_pow2(n: int, floor: int = 1) -> int:
@@ -107,12 +115,8 @@ class PagedLLMExecutor:
                  dtype: Optional[torch.dtype] = None, block_size: int = 16,
                  num_blocks: int = 64, max_len: int = 128,
                  paged_kernel: Optional[str] = None, shards: int = 0,
-                 ring_prefill_min: int = 0, name: str = "llm"):
-        if int(shards) > 0 or int(ring_prefill_min) > 0:
-            raise BackendError(
-                f"llm {name}: shards={shards} ring_prefill_min="
-                f"{ring_prefill_min} — {MULTI_GPU}; serve on one card "
-                f"(shards=0, ring_prefill_min=0)")
+                 shard_chips=None, ring_prefill_min: int = 0,
+                 name: str = "llm"):
         kern = (paged_kernel or os.environ.get("NNS_PAGED_KERNEL")
                 or "xla").strip().lower()
         if kern not in ("pallas", "xla"):
@@ -124,7 +128,34 @@ class PagedLLMExecutor:
         self.n_heads = int(n_heads)
         self.dtype = dtype or torch.float32
         self.max_len = int(max_len)
-        self.device = pick_device("")
+        self.shards = int(shards)
+        self.ring_prefill_min = int(ring_prefill_min)
+        self._shard_chips: tuple = ()
+        self._shard_devs: List[torch.device] = []
+        if self.shards:
+            from nnstreamer_tpu_torch.serving import sharding as shg
+
+            shg.validate_shards(self.shards)
+            if kern == "pallas":
+                raise BackendError(
+                    f"llm {name}: paged_kernel=pallas runs the single-card "
+                    f"paged kernels; shards={self.shards} serves through the "
+                    f"sharded torch attention — set paged_kernel=xla")
+            chips = tuple(int(c) for c in shard_chips) \
+                if shard_chips is not None else tuple(range(self.shards))
+            if len(chips) != self.shards:
+                raise BackendError(
+                    f"llm {name}: shards={self.shards} but {len(chips)} "
+                    f"devices leased: {chips}")
+            self._shard_chips = chips
+            self._shard_devs = shg.shard_devices(chips)
+            self.device = self._shard_devs[0]
+        elif self.ring_prefill_min > 0:
+            raise BackendError(
+                f"llm {name}: ring_prefill_min={self.ring_prefill_min} needs "
+                f"shards>0 (the ring runs over the shard group's devices)")
+        else:
+            self.device = pick_device("")
         self._entry = None
         self._pinned: Optional[int] = None
         self._version: Optional[int] = None
@@ -153,13 +184,23 @@ class PagedLLMExecutor:
                 f"tensor_llm model must be a store:// or zoo:// ref or a "
                 f"params dict, got {type(model).__name__}")
         self.__dict__.update(_derive_dims(raw, self.n_heads))
+        # sharded: the blocked tree first, so its typed refusals (float
+        # only, 8-divisible geometry) come before any pool exists
+        self._sparams = self._place_sharded(raw)
         self.params = self._place(raw)
+        self._sfns = None
+        placer = None
+        if self.shards:
+            from nnstreamer_tpu_torch.serving import sharding as shg
+
+            self._sfns = shg.make_llm_fns(self._shard_devs)
+            placer = shg.kv_pool_placer(self._shard_devs)
         bs = int(block_size)
         self.max_blocks = max(1, -(-self.max_len // bs))
         self.cache = PagedKVCache(
             num_blocks=int(num_blocks), block_size=bs,
             n_layers=self.n_layers, n_kv=self.n_kv,
-            head_dim=self.head_dim, device=self.device)
+            head_dim=self.head_dim, device=self.device, placer=placer)
         #: (kind, bucket, kernel) families run at least once
         self._seen: set = set()
         self.compile_count = 0
@@ -193,6 +234,15 @@ class PagedLLMExecutor:
             return t.to(self.device, self.dtype)
         return t.to(self.device)
 
+    def _place_sharded(self, raw):
+        """The blocked tree over the shard devices (None unsharded)."""
+        if not self.shards:
+            return None
+        from nnstreamer_tpu_torch.serving import sharding as shg
+
+        return shg.shard_llm_params(raw, self._shard_devs,
+                                    n_heads=self.n_heads, dtype=self.dtype)
+
     def _geometry_check(self, dims: dict, what: str) -> None:
         if (dims["n_layers"], dims["n_kv"], dims["head_dim"]) != \
                 (self.n_layers, self.n_kv, self.head_dim):
@@ -222,8 +272,8 @@ class PagedLLMExecutor:
             self._geometry_check(_derive_dims(raw, self.n_heads),
                                  f"store swap {self._entry.name}@{old} → "
                                  f"@{cur}")
-            placed = self._place(raw)
-        self.params = placed
+            placed = (self._place_sharded(raw), self._place(raw))
+        self._sparams, self.params = placed
         self._staged.clear()
         self._version, self.adopted_epoch = cur, epoch
         self.swap_count += 1
@@ -237,21 +287,37 @@ class PagedLLMExecutor:
         params = getattr(bundle, "params", bundle)
         self._geometry_check(_derive_dims(params, self.n_heads),
                              f"incoming {self._entry.name}@{version}")
-        self._staged[version] = self._place(params)
+        # sharded: blocking refuses a quantized or ill-shaped version
+        # here, before the epoch flips
+        self._staged[version] = (self._place_sharded(params),
+                                 self._place(params))
         return 0
+
+    def _fn(self, kind: str):
+        """The function serving `kind` on this executor."""
+        if self.shards:
+            return self._sfns[kind]
+        return _fns(kind, self._kind_kernel(kind))
+
+    def _exec_params(self, kind: str):
+        """The params tree `kind` runs on: sharded prefill/decode the
+        blocked tree, everything else (the ring too) the placed raw
+        params."""
+        if self.shards and kind != "ring":
+            return self._sparams
+        return self.params
 
     def _get_fn(self, kind: str, bucket: int):
         """→ (function, first run of this bucket?)."""
-        kernel = self._kind_kernel(kind)
-        key = (kind, bucket, kernel)
+        key = (kind, bucket, self._kind_kernel(kind))
         if key in self._seen:
             self.cache_hits += 1
-            return _fns(kind, kernel), False
+            return self._fn(kind), False
         self.cache_misses += 1
         self._seen.add(key)
         if self._entry is not None and self._version is not None:
             self._entry.note_bucket(self._version, (kind, bucket))
-        return _fns(kind, kernel), True
+        return self._fn(kind), True
 
     def _kind_kernel(self, kind: str) -> str:
         """The whole-prompt prefill is always the torch `apply_seq_kv`
@@ -265,7 +331,10 @@ class PagedLLMExecutor:
         is quant-aware and kernel-selectable). Float params on the torch
         reference keep `apply_seq_kv`, the `generate` parity anchor. The
         current params are read, so a store swap to a W8A8 version
-        reroutes whole prompts."""
+        reroutes whole prompts. Sharded serving (float, xla only) keeps
+        the whole-prompt family; the ring cutover is per prompt."""
+        if self.shards:
+            return "prefill"
         if self.paged_kernel == "pallas":
             return "chunk"
         return "chunk" if "wqkv_scale" in self.params["blocks"][0] \
@@ -285,6 +354,9 @@ class PagedLLMExecutor:
         if self._prefill_kind() == "chunk":
             return self.prefill_chunk(prompt, 0, block_table,
                                       bucket=_next_pow2(plen, 8), sync=sync)
+        kind = "prefill"
+        if self.shards and 0 < self.ring_prefill_min <= plen:
+            kind = "ring"    # the sequence-parallel long-prompt cutover
         s_b = _next_pow2(plen, 8)
         bs = self.cache.block_size
         ids = np.zeros((1, s_b), np.int32)
@@ -293,9 +365,9 @@ class PagedLLMExecutor:
         blk_idx[:plen] = np.asarray(block_table, np.int32)[
             np.arange(plen) // bs]
         blk_off = (np.arange(s_b) % bs).astype(np.int32)
-        fn, fresh = self._get_fn("prefill", s_b)
+        fn, fresh = self._get_fn(kind, s_b)
         logits, self.cache.k, self.cache.v = fn(
-            self.params, self._tensor(ids), self._tensor(blk_idx),
+            self._exec_params(kind), self._tensor(ids), self._tensor(blk_idx),
             self._tensor(blk_off), self.cache.k, self.cache.v, plen - 1,
             n_heads=self.n_heads, dtype=self.dtype)
         self.compile_count += int(fresh)
@@ -311,6 +383,11 @@ class PagedLLMExecutor:
         written so far. `bucket` pins the pad width so every chunk of a
         prompt runs one bucket; 0 = pow2 of this chunk. Returns the
         chunk's last-token logits (host when `sync`, device otherwise)."""
+        if self.shards:
+            raise BackendError(
+                f"llm {self.name}: chunked prefill is not supported with "
+                f"shards={self.shards}; long prompts go through the "
+                f"sequence-parallel ring prefill (ring_prefill_min)")
         clen = int(chunk.shape[0])
         c_b = max(int(bucket) or 0, _next_pow2(clen, 8))
         bs = self.cache.block_size
@@ -351,9 +428,9 @@ class PagedLLMExecutor:
         pos_a[:n] = pos
         fn, fresh = self._get_fn("decode", b_b)
         logits, self.cache.k, self.cache.v = fn(
-            self.params, self._tensor(cur_a), self._tensor(tab_a),
-            self._tensor(pos_a), self.cache.k, self.cache.v,
-            n_heads=self.n_heads, dtype=self.dtype)
+            self._exec_params("decode"), self._tensor(cur_a),
+            self._tensor(tab_a), self._tensor(pos_a), self.cache.k,
+            self.cache.v, n_heads=self.n_heads, dtype=self.dtype)
         self.compile_count += int(fresh)
         self.decode_steps += 1
         self.kernel_invokes[self._kind_kernel("decode")] += 1
@@ -369,25 +446,26 @@ class PagedLLMExecutor:
         if (kind, bucket, self._kind_kernel(kind)) in self._seen:
             return False
         fn, _ = self._get_fn(kind, bucket)
+        params = self._exec_params(kind)
         zeros = self._tensor(np.zeros((bucket,), np.int32))
         blk = self._tensor(np.full((bucket,), SCRATCH_BLOCK, np.int32))
         off = self._tensor(
             (np.arange(bucket) % self.cache.block_size).astype(np.int32))
-        if kind == "prefill":
+        if kind in ("prefill", "ring"):
             logits, self.cache.k, self.cache.v = fn(
-                self.params, zeros[None], blk, off, self.cache.k,
+                params, zeros[None], blk, off, self.cache.k,
                 self.cache.v, 0, n_heads=self.n_heads, dtype=self.dtype)
         elif kind == "chunk":
             tab = self._tensor(np.full((self.max_blocks,), SCRATCH_BLOCK,
                                        np.int32))
             logits, self.cache.k, self.cache.v = fn(
-                self.params, zeros[None], 0, blk, off, tab, self.cache.k,
+                params, zeros[None], 0, blk, off, tab, self.cache.k,
                 self.cache.v, 0, n_heads=self.n_heads, dtype=self.dtype)
         else:
             tab = self._tensor(np.full((bucket, self.max_blocks),
                                        SCRATCH_BLOCK, np.int32))
             logits, self.cache.k, self.cache.v = fn(
-                self.params, zeros, tab, zeros, self.cache.k,
+                params, zeros, tab, zeros, self.cache.k,
                 self.cache.v, n_heads=self.n_heads, dtype=self.dtype)
         to_host((logits,))
         self.compile_count += 1
@@ -398,7 +476,8 @@ class PagedLLMExecutor:
         """Run every bucket a serving run can hit once, ahead of traffic:
         decode pow2 buckets up to `max_batch`, prefill (or, with the CUDA
         kernels, chunk) pow2 buckets up to `max_prompt`, and the chunk
-        bucket of chunked prefill."""
+        bucket of chunked prefill; sharded with a ring cutover, the ring
+        buckets a cutover prompt can land in."""
         compiled = 0
         b, top_b = 1, _next_pow2(max(1, max_batch), 1)
         while b <= top_b:
@@ -412,6 +491,11 @@ class PagedLLMExecutor:
         while s <= top_s:
             compiled += int(self._warm_compile(kind, s))
             s *= 2
+        if self.shards and self.ring_prefill_min > 0:
+            s = _next_pow2(max(8, self.ring_prefill_min), 8)
+            while s <= top_s:
+                compiled += int(self._warm_compile("ring", s))
+                s *= 2
         return compiled
 
     def warm_start(self) -> int:
@@ -440,6 +524,13 @@ class PagedLLMExecutor:
             "kernel_invokes": dict(self.kernel_invokes),
             "kernel_fallback": 0,     # nothing falls back
         }
+        if self.shards:
+            out["shards"] = self.shards
+            out["shard_chips"] = list(self._shard_chips)
+            # the physical device of each shard: a group of logical
+            # devices on one card cannot pass for one across cards
+            out["shard_devices"] = [str(d) for d in self._shard_devs]
+            out["ring_prefill_min"] = self.ring_prefill_min
         if self._entry is not None:
             out["store"] = f"{self._entry.name}@{self._version}"
         return out

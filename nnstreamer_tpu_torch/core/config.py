@@ -45,6 +45,14 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
         # build/torch_kernels beside the package
         "kernel_dir": "",
     },
+    "parallel": {
+        # logical devices for sharded serving and ring attention
+        # (serving/placement.visible_devices): 0 = the real devices (the
+        # CUDA cards, or one CPU when [filter] accelerator is cpu); N > 0
+        # = N logical devices round-robin over those, so a 4-way ring
+        # runs on one card with the launches four cards would make
+        "virtual_devices": "0",
+    },
 }
 
 

@@ -26,6 +26,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from nnstreamer_tpu_torch.core.errors import BackendError
 from nnstreamer_tpu_torch.core.registry import register_element
 from nnstreamer_tpu_torch.graph.pipeline import (
     Element, Emission, PropDef, StreamSpec)
@@ -64,8 +65,15 @@ class TensorLLM(Element):
       kernel that cannot build or launch raises; nothing falls back.
     - prefill_chunk: prompts longer than this prefill in N-token chunks
       interleaved with decode steps (0 = whole-prompt prefill).
-    - shards / ring_prefill_min: multi-GPU serving, not ported yet —
-      anything but 0 fails negotiation.
+    - shards: tensor-parallel shard count (1/2/4/8): the executor serves
+      over that many logical devices (serving/placement.visible_devices;
+      ``[parallel] virtual_devices`` maps several onto one card), leased
+      as one group, with head-sharded projections and KV pool slices —
+      bit-identical to shards=1 by the canonical blocking. Exclusive
+      with prefill_chunk and with paged_kernel=pallas.
+    - ring_prefill_min: with shards>0, prompts at least this long prefill
+      through ring attention over the same devices (allclose, not
+      bit-equal, to the blocked path; decode stays blocked).
     - warm_start: replay manifest buckets at start() (no manifest yet:
       replays nothing).
     - prewarm: run every decode bucket and the prefill buckets up to
@@ -108,11 +116,12 @@ class TensorLLM(Element):
             int, 0, "chunked-prefill chunk size in tokens "
                     "(0 = whole-prompt prefill)"),
         "shards": PropDef(
-            int, 0, "tensor-parallel shard count (0 = one card; "
-                    "multi-GPU serving is not ported yet)"),
+            int, 0, "tensor-parallel shard count (0 = one device; 1/2/4/8 "
+                    "serve over that many leased logical devices)"),
         "ring_prefill_min": PropDef(
-            int, 0, "with shards>0: ring-attention prefill cutover "
-                    "(multi-GPU, not ported yet)"),
+            int, 0, "with shards>0: prompts at least this long prefill "
+                    "through ring attention (0 = always the blocked "
+                    "tensor-parallel path)"),
         "warm_start": PropDef(
             int, 1, "replay manifest prefill buckets at start()"),
         "prewarm": PropDef(
@@ -123,6 +132,7 @@ class TensorLLM(Element):
     def __init__(self, name=None, **props):
         super().__init__(name, **props)
         self.engine = None
+        self._leases = None
         self._deadline: Optional[float] = None
         # per-request emission state, engine-thread only
         self._chunks: Dict[str, List[int]] = {}
@@ -152,16 +162,27 @@ class TensorLLM(Element):
             self.fail_negotiation(
                 f"prefill_chunk must be >= 0, got "
                 f"{self.props['prefill_chunk']}")
-        if int(self.props["shards"]) != 0:
-            self.fail_negotiation(
-                f"shards={self.props['shards']}: tensor-parallel serving "
-                f"over several cards comes with the multi-GPU slice, which "
-                f"is not ported yet; use shards=0 (one card)")
-        if int(self.props["ring_prefill_min"]) != 0:
+        shards = int(self.props["shards"])
+        if shards > 0:
+            from nnstreamer_tpu_torch.serving.sharding import SUPPORTED_SHARDS
+
+            if shards not in SUPPORTED_SHARDS:
+                self.fail_negotiation(
+                    f"shards must be one of {SUPPORTED_SHARDS} (canonical "
+                    f"8-block serving layout), got {shards}")
+            if int(self.props["prefill_chunk"]) > 0:
+                self.fail_negotiation(
+                    "prefill_chunk and shards are exclusive — sharded long "
+                    "prompts use ring_prefill_min (sequence-parallel ring "
+                    "prefill), not chunking")
+            if kern == "pallas":
+                self.fail_negotiation(
+                    "paged_kernel=pallas runs the single-card paged "
+                    "kernels; with shards>0 set paged_kernel=xla")
+        elif int(self.props["ring_prefill_min"]) > 0:
             self.fail_negotiation(
                 "ring_prefill_min needs shards>0 (ring prefill runs over "
-                "the shard group's cards), which the multi-GPU slice "
-                "brings; use 0")
+                "the shard group's devices)")
         if spec.format == TensorFormat.STATIC:
             for t in spec.tensors:
                 if t.dtype != DType.INT32:
@@ -179,6 +200,21 @@ class TensorLLM(Element):
         model = self.props["model"]
         if isinstance(model, str) and "://" not in model:
             model = f"store://{model}"
+        shards = int(self.props["shards"])
+        chips = None
+        if shards > 0:
+            # lease the group's devices under ONE owner, so fencing one
+            # member is one ledger flip for the whole group
+            from nnstreamer_tpu_torch.serving.placement import (
+                VIRTUAL_DEVICES_HINT, ChipLeaseTable, visible_devices)
+
+            ndev = len(visible_devices())
+            if shards > ndev:
+                raise BackendError(
+                    f"tensor_llm {self.name}: shards={shards} needs {shards} "
+                    f"devices, {ndev} visible; {VIRTUAL_DEVICES_HINT}")
+            self._leases = ChipLeaseTable(range(ndev))
+            chips = self._leases.lease(self.name, shards)
         self.engine = LLMEngine(
             model,
             n_heads=int(self.props["n_heads"]),
@@ -190,6 +226,8 @@ class TensorLLM(Element):
             static_batching=self.props["scheduling"] == "static",
             prefill_chunk=int(self.props["prefill_chunk"]),
             paged_kernel=str(self.props["paged_kernel"]) or None,
+            shards=shards, shard_chips=chips,
+            ring_prefill_min=int(self.props["ring_prefill_min"]),
             name=self.name)
         if int(self.props["warm_start"]):
             self.warm_compiles = self.engine.executor.warm_start()
@@ -200,6 +238,8 @@ class TensorLLM(Element):
     def stop(self) -> None:
         if self.engine is not None:
             self.engine.executor.close()
+        if self._leases is not None:
+            self._leases.release(self.name)
 
     # -- dataflow ----------------------------------------------------------
     def process(self, pad: int, buf: TensorBuffer) -> List[Emission]:
@@ -286,4 +326,6 @@ class TensorLLM(Element):
                  "warm_compiles": self.warm_compiles}
         if self.engine is not None:
             stats.update(self.engine.stats())
+        if self._leases is not None:
+            stats["leases"] = self._leases.snapshot()["counts"]
         return stats

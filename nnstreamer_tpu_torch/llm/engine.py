@@ -96,8 +96,9 @@ class LLMEngine:
                  max_batch: int = 8, max_len: int = 128,
                  static_batching: bool = False, prefill_chunk: int = 0,
                  paged_kernel: Optional[str] = None, shards: int = 0,
-                 ring_prefill_min: int = 0, decode_window: int = 0,
-                 tracer=NULL_TRACER, name: str = "llm"):
+                 shard_chips=None, ring_prefill_min: int = 0,
+                 decode_window: int = 0, tracer=NULL_TRACER,
+                 name: str = "llm"):
         from nnstreamer_tpu_torch.backends.llm_exec import PagedLLMExecutor
 
         self.name = name
@@ -112,11 +113,17 @@ class LLMEngine:
         if self.prefill_chunk < 0:
             raise BackendError(
                 f"prefill_chunk must be >= 0, got {self.prefill_chunk}")
+        if int(shards) > 0 and self.prefill_chunk > 0:
+            raise BackendError(
+                f"llm {name}: prefill_chunk and shards are exclusive — "
+                f"sharded long prompts go through the sequence-parallel "
+                f"ring prefill (ring_prefill_min), not chunking")
         self.executor = PagedLLMExecutor(
             model, n_heads=n_heads, dtype=dtype, block_size=block_size,
             num_blocks=num_blocks, max_len=max_len,
             paged_kernel=paged_kernel, shards=shards,
-            ring_prefill_min=ring_prefill_min, name=name)
+            shard_chips=shard_chips, ring_prefill_min=ring_prefill_min,
+            name=name)
         self.cache = self.executor.cache
         self.queue: deque = deque()
         self.active: List[LLMRequest] = []

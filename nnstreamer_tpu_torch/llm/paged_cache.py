@@ -98,10 +98,16 @@ class PagedKVCache:
     torch tensors on `device` (the paged kernels read f32 pools). The
     executor writes them in place; this class owns layout and
     accounting, never math.
+
+    Sharded serving hands a `placer(shape, dtype)` that builds each pool
+    as one slice per shard device, split on the kv-head axis
+    (serving/sharding.kv_pool_placer): k and v are then lists of those
+    slices. Allocator and tables are untouched; only where the bytes live
+    changes.
     """
 
     def __init__(self, *, num_blocks: int, block_size: int, n_layers: int,
-                 n_kv: int, head_dim: int, device=None):
+                 n_kv: int, head_dim: int, device=None, placer=None):
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
         self.n_layers = int(n_layers)
@@ -109,8 +115,12 @@ class PagedKVCache:
         self.head_dim = int(head_dim)
         shape = (self.n_layers, self.num_blocks, self.block_size,
                  self.n_kv, self.head_dim)
-        self.k = torch.zeros(shape, dtype=torch.float32, device=device)
-        self.v = torch.zeros(shape, dtype=torch.float32, device=device)
+        if placer is not None:
+            self.k = placer(shape, torch.float32)
+            self.v = placer(shape, torch.float32)
+        else:
+            self.k = torch.zeros(shape, dtype=torch.float32, device=device)
+            self.v = torch.zeros(shape, dtype=torch.float32, device=device)
         self.allocator = BlockAllocator(self.num_blocks)
 
     def blocks_for(self, n_tokens: int) -> int:

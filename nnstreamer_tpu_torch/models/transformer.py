@@ -14,8 +14,9 @@ softmax in f32, so masked positions contribute exactly 0.0. That is what
 lets the paged serving engine (llm/) equal `generate` token for token.
 `apply_seq_kv` is the serving engine's prefill path; `apply_seq` is the
 full-sequence forward, its attention the flash kernel
-(``attn="pallas"``) or the reference softmax (``attn="xla"``). Its W8A8
-twin is `models/quant.apply_seq_w8a8`.
+(``attn="pallas"``), the reference softmax (``attn="xla"``) or, with a
+mesh, ring attention over its devices. Its W8A8 twin is
+`models/quant.apply_seq_w8a8`.
 """
 
 from __future__ import annotations
@@ -134,25 +135,22 @@ def attend(q, kc, vc, mask, n_heads: int, dtype):
 
 def apply_seq(params, ids: torch.Tensor, *, n_heads: int = 4,
               dtype: torch.dtype = torch.float32, mesh=None,
-              attn: str = "auto"):
+              sp_axis: str = "sp", attn: str = "auto"):
     """Full-sequence forward: (B, S) int → (B, S, vocab) f32 logits.
 
-    `attn` picks the attention: "pallas" = the flash-attention kernel
+    With a `mesh` (parallel.mesh.Mesh), attention runs as ring attention
+    over its `sp_axis` devices (the sequence split across them, K/V
+    rotating; `parallel.ring_attention`, block_impl "auto"); everything
+    else runs on the params' device. Without, `attn` picks the attention:
+    "pallas" = the flash-attention kernel
     (`backends.kernels.flash_attention`, which raises on an S its blocks
     do not divide), "xla" = the reference softmax
     (`parallel.ring_attention.reference_attention`), "auto" = pallas when
-    S % 128 == 0, else xla. A `mesh` (ring attention over the sequence
-    sharded across cards) raises: it comes with the multi-GPU slice."""
+    S % 128 == 0, else xla."""
     from nnstreamer_tpu_torch.backends.kernels import flash_attention
-    from nnstreamer_tpu_torch.core.errors import BackendError
     from nnstreamer_tpu_torch.parallel.ring_attention import (
-        reference_attention)
+        reference_attention, ring_attention)
 
-    if mesh is not None:
-        raise BackendError(
-            "apply_seq(mesh=...): ring attention over several cards is not "
-            "ported yet — it comes with the multi-GPU slice; call apply_seq "
-            "without a mesh")
     b, s = ids.shape
     x = params["embed"][ids].to(dtype)
     pos = torch.arange(s, device=ids.device)
@@ -162,7 +160,10 @@ def apply_seq(params, ids: torch.Tensor, *, n_heads: int = 4,
         q, k, v = _qkv(blk, h, n_heads, dtype)
         q, k = rope(q, pos), rope(k, pos)
         k, v = _expand_kv(k, n_heads), _expand_kv(v, n_heads)
-        if use_pallas:
+        if mesh is not None:
+            out = ring_attention(q, k, v, mesh=mesh, axis=sp_axis,
+                                 causal=True)
+        elif use_pallas:
             out = flash_attention(q, k, v, causal=True)
         else:
             out = reference_attention(q, k, v, causal=True)

@@ -1,3 +1,5 @@
-"""Attention across the sequence (counterpart of the JAX package's
-parallel/). Only the single-card ground truth is ported; the ring over
-several cards waits for the multi-GPU slice."""
+"""Meshes and attention across the sequence (counterpart of the JAX
+package's parallel/): `mesh` (logical devices with named axes) and
+`ring_attention` (the sequence split over a mesh axis, K/V rotating
+between the devices). Dispatch, pipeline, MoE, training and multi-host
+are not ported yet."""

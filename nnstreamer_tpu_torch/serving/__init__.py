@@ -1,2 +1,3 @@
-"""Serving: the versioned model store (more of the serving stack is
-still to be ported)."""
+"""Serving: the versioned model store, device placement (logical
+devices, the lease ledger) and sharded LLM serving (more of the serving
+stack is still to be ported)."""

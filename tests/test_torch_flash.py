@@ -159,6 +159,9 @@ def test_apply_seq_auto_takes_flash_on_128_blocks(params, monkeypatch, s,
 
 
 def test_apply_seq_mesh_waits_for_multi_gpu(params):
-    with pytest.raises(BackendError, match="multi-GPU"):
+    """A mesh runs the attention as a ring over its devices
+    (tests/test_torch_ring.py holds it to JAX's); anything but a
+    parallel.mesh.Mesh is refused by name."""
+    with pytest.raises(BackendError, match="Mesh"):
         tt.apply_seq(params[1], torch.zeros((1, 8), dtype=torch.long),
                      n_heads=2, mesh=object())

@@ -10,11 +10,11 @@ heads). Around it: the transformer itself, allocator invariants,
 admission under a full pool, unservable requests, EOS retirement, static
 batching, a store hot swap, the element end to end, the scheduler's
 timer contract, and the port's refusals (no card and no CPU request,
-multi-GPU properties, the decode window). A W8A8 store version
-(models/quant.quantize_transformer) is served through tensor_llm and
-held to the JAX package's LLMEngine on the same quantized params; a swap
-from the float version to it reroutes whole prompts through the chunk
-family; a bf16 run keeps its scales in f32.
+a shard group wider than the visible devices, the decode window). A
+W8A8 store version (models/quant.quantize_transformer) is served through
+tensor_llm and held to the JAX package's LLMEngine on the same quantized
+params; a swap from the float version to it reroutes whole prompts
+through the chunk family; a bf16 run keeps its scales in f32.
 """
 
 import threading
@@ -327,7 +327,9 @@ def test_no_card_and_no_cpu_request_raises(params, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"shards": 2}, "multi-GPU"), ({"ring_prefill_min": 64}, "multi-GPU"),
+    # one logical device here: a 2-way group names the fix
+    ({"shards": 2}, "virtual_devices"),
+    ({"ring_prefill_min": 64}, "needs shards"),
     ({"decode_window": 4}, "decode window"),
     ({"paged_kernel": "triton"}, "paged_kernel")])
 def test_engine_refuses_unported_options(params, kw, match):
@@ -468,7 +470,8 @@ def test_tensor_llm_properties_registered():
 
 
 @pytest.mark.parametrize("props,match", [
-    ({"shards": 2}, "multi-GPU"), ({"ring_prefill_min": 8}, "multi-GPU"),
+    ({"shards": 3}, "shards must be one of"),
+    ({"ring_prefill_min": 8}, "needs shards"),
     ({"dtype": "float16"}, "dtype"), ({"paged_kernel": "cuda"},
                                       "paged_kernel")])
 def test_tensor_llm_negotiation_refusals(params, props, match):
