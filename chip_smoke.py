@@ -25,7 +25,8 @@ phases there). Phases:
 6. timings: per-frame latency p50/p99 and FPS of A and B with the
    card's busy share, and each kernel's device time beside its bound and
    its plain version's time;
-7. the paged-attention kernels (decode, prefill) against their plain
+7. the paged-attention kernels (decode; prefill, whose products run on
+   the tensor cores as split TF32) against their plain
    torch versions on the card: full width (8 heads, hd 128, block 16)
    and GQA (8 heads on 2 kv heads), holey and out-of-order tables,
    staggered rows (one at a block boundary), pow2 padding rows, a
@@ -41,26 +42,32 @@ phases there). Phases:
    wrappers and by name in a profiler trace (4 per decode step, 4 per
    prefill chunk);
 10. each paged kernel's device time at the serving shapes beside its
-   bytes bound, its plain version's time and
-   scaled_dot_product_attention's on K/V gathered beforehand;
+   bounds (bytes; f32 operations on the CUDA cores; for prefill also its
+   split-TF32 operations on the tensor cores), its plain version's time
+   and scaled_dot_product_attention's on K/V gathered beforehand;
 11. quantize_rows against its plain version, bit for bit (int8 rows and
    f32 scales): the serving shapes (M 1/8/512 x K 1024/4096), the
    forward's M 16384, ragged M, all-zero rows, K not a multiple of the
    vector width, a misaligned strided view, expanded and overlapping
    rows, f32 and bf16;
-12. flash_attention against its plain version: f32 causal and not at
+12. flash_attention against its plain version (f32 on the CUDA-core
+   kernel, bf16 on the tensor-core kernel): f32 causal and not at
    (2, 2048, 8, 128) within 1e-5 * max|plain| + 1e-6; bf16 at the
-   forward's (8, 2048, 8, 128) and at the long (1, 32768, 8, 128) (its
-   first and last 1024 query rows, each slice on its own) element by
-   element within 2^-7 * |plain| + 2^-6 * the row's rms; a GQA-expanded
-   case, strided q/v views of one qkv tensor, S 640, ragged S 1000 and
-   72 (not a multiple of the kernel's 64-row tiles), D 16;
+   forward's (8, 2048, 8, 128), causal and not, and at the long
+   (1, 32768, 8, 128) (its first and last 1024 query rows, each slice on
+   its own) element by element within 2^-7 * |plain| + 2^-6 * the row's
+   rms; a GQA-expanded case, strided q/v views of one qkv tensor, S 640,
+   ragged S 1000, 520 and 72 (not multiples of the kernels' 64-row
+   tiles), D 16, bf16 D 64 and 256, and bf16 D 40 and 24 (which the
+   tensor-core kernel zero-pads to 64);
 13. the full-sequence forward at full width (d_model 1024, 8 heads, 4
    layers, vocab 512, B 8, S 2048): f32 apply_seq with the flash kernel
    against the reference attention (TF32 off), then bf16 timings of
    apply_seq (flash and reference) and apply_seq_w8a8 (flash), with
    4 flash and 17 quantize_rows launches per W8A8 forward counted by the
-   wrappers and by name in a profiler trace;
+   wrappers and by name in a profiler trace, every bf16 flash launch on
+   the tensor-core kernel (the wrapper's variant counts, and no record
+   of the CUDA-core kernel);
 14. W8A8 serving: phase 8's model quantized (models/quant.py) and
    registered as a second store entry, served through tensor_llm — f32
    kernel arm against torch reference arm, teacher-forced logits within
@@ -151,10 +158,11 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 FRAMES = 16
-#: H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and f32
-#: (non-tensor-core) FLOP/s
+#: H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32
+#: (non-tensor-core) FLOP/s and TF32 tensor-core FLOP/s (dense)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 CPU_TOLERANCE = 1e-3     # card vs CPU, relative to max |logit|
 #: paged kernel vs plain: max |diff| <= REL * max |plain| + ABS (f32;
 #: the kernel's online softmax sums in another order than the plain one)
@@ -195,11 +203,13 @@ FWD_F32_REL = 1e-4
 #: exceed it. Token flips between W8A8 arms are reported, not held: the
 #: spread is the size of a typical top-2 gap
 W8A8_SPREAD = 2.1e-2
-#: kernel names in a profiler trace, by wrapper
+#: kernel names in a profiler trace, by wrapper (flash_attention: its bf16
+#: kernel, the main path's; "flash_attention simt" its f32 kernel)
 KERNEL_SYMBOL = {"paged_decode_attn": "nns_paged_decode_kernel",
-                 "paged_prefill_attn": "nns_paged_prefill_kernel",
+                 "paged_prefill_attn": "nns_paged_prefill_tf32_kernel",
                  "quantize_rows": "nns_quantize_rows_kernel",
-                 "flash_attention": "nns_flash_attn_kernel",
+                 "flash_attention": "nns_flash_attn_tc_kernel",
+                 "flash_attention simt": "nns_flash_attn_kernel",
                  "flash_block_update": "nns_flash_block_kernel"}
 #: the throwaway kernel that opens every profiler capture (ATen's
 #: at::cuda::sleep, torch.cuda._sleep)
@@ -587,44 +597,56 @@ def paged_timing(torch, dev, requests, card) -> dict:
     pre_bytes = (kv_tokens * kv_row + q_pre.numel() * 2 + q_pre.numel() * 4
                  + seq.numel() * 4)
     pre_ops = sum(pos0 + r + 1 for r in range(s_c)) * 4 * hd * heads
+    # the prefill kernel's split-TF32 products: Q.K^T with a bf16 q (exact
+    # in TF32) takes 2, P.V 3, each of half the flops
+    pre_tf32_ops = pre_ops // 2 * (2 + 3)
     work = {
         "paged_decode_attn": (
             lambda: pa.paged_decode_attn(q_dec, *pools, t_tab, t_pos),
             lambda: pa.paged_decode_attn_plain(q_dec, *pools, t_tab, t_pos),
             lambda: F.scaled_dot_product_attention(qd32, kd, vd,
                                                    attn_mask=dmask),
-            dec_bytes, dec_ops, f"B{len(requests)} rows at pos "
-                                f"{pos.tolist()}"),
+            dec_bytes, dec_ops, None, f"B{len(requests)} rows at pos "
+                                      f"{pos.tolist()}"),
         "paged_prefill_attn": (
             lambda: pa.paged_prefill_attn(q_pre, *pools, seq, pos0),
             lambda: pa.paged_prefill_attn_plain(q_pre, *pools, seq, pos0),
             lambda: F.scaled_dot_product_attention(qp32, kp, vp,
                                                    attn_mask=pmask),
-            pre_bytes, pre_ops, f"S_c {s_c} at pos0 {pos0}"),
+            pre_bytes, pre_ops, pre_tf32_ops, f"S_c {s_c} at pos0 {pos0}"),
     }
     out = {}
-    for name, (kern, plain, lib, nbytes, ops, shape) in work.items():
+    for name, (kern, plain, lib, nbytes, ops, tf32_ops, shape) in \
+            work.items():
         launches = getattr(pa, name).launches
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / F32_FLOPS * 1e3
+        f32_ms = ops / F32_FLOPS * 1e3
+        # the bound of the design built: decode's f32 FMAs on the CUDA
+        # cores, prefill's split-TF32 products on the tensor cores
+        ops_ms = f32_ms if tf32_ops is None else tf32_ops / TF32_FLOPS * 1e3
         res = {"ms": device_ms_per_call(torch, kern, 20),
                "event_ms": event_ms_per_call(torch, kern, 50),
                "plain_ms": device_ms_per_call(torch, plain, 20),
                "plain_event_ms": event_ms_per_call(torch, plain, 50),
                "library_ms": device_ms_per_call(torch, lib, 20),
-               "bytes": nbytes, "ops": ops,
+               "bytes": nbytes, "ops": ops, "tf32_ops": tf32_ops,
+               "bytes_bound_ms": bytes_ms, "f32_bound_ms": f32_ms,
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
         getattr(pa, name).launches = launches   # timing launches not counted
         out[name] = res
+        tf32 = "" if tf32_ops is None else (
+            f"; split TF32 {tf32_ops} flop at 495 TFLOP/s = "
+            f"{ops_ms:.6f} ms (the kernel's)")
         print(f"phase 10: {name} ({shape}, kv8 hd128 bs16, q bf16): "
               f"device {res['ms']:.5f} ms per launch (queued), "
               f"{res['event_ms']:.5f} ms per call (CUDA events); plain torch "
               f"{res['plain_ms']:.5f} ms device, {res['plain_event_ms']:.5f} "
               f"ms per call; SDPA on pre-gathered K/V, gather not timed, "
               f"{res['library_ms']:.5f} ms device; bound "
-              f"{res['bound_ms']:.6f} ms ({res['bound_by']}: {nbytes} B at "
-              f"3.35 TB/s, {ops} flop at 67 TFLOP/s f32) [{card}]")
+              f"{res['bound_ms']:.6f} ms ({res['bound_by']}); bounds: bytes "
+              f"{nbytes} B at 3.35 TB/s = {bytes_ms:.6f} ms, f32 CUDA cores "
+              f"{ops} flop at 67 TFLOP/s = {f32_ms:.6f} ms{tf32} [{card}]")
     return out
 
 
@@ -830,6 +852,16 @@ def check_flash(torch, dev, record) -> float:
              ("bf16 ragged S72 (2,72,8,128) full",
               qkv(2, 72, 8, 128, bf16), False),
              ("f32 D16 (2,256,4,16) full", qkv(2, 256, 4, 16, f32), False),
+             # the tensor-core kernel's other paths: no mask at the
+             # forward's shape, its 64- and 256-wide head dims, and head
+             # dims it zero-pads (not multiples of 16)
+             ("bf16 (8,2048,8,128) full", qkv(8, 2048, 8, 128, bf16), False),
+             ("bf16 D64 (2,1024,8,64) causal", qkv(2, 1024, 8, 64, bf16),
+              True),
+             ("bf16 D256 (1,512,4,256) causal", qkv(1, 512, 4, 256, bf16),
+              True),
+             ("bf16 D40 (2,520,4,40) causal", qkv(2, 520, 4, 40, bf16), True),
+             ("bf16 D24 (2,256,4,24) full", qkv(2, 256, 4, 24, bf16), False),
              ("bf16 long S (1,32768,8,128) causal",
               qkv(1, 32768, 8, 128, bf16), True)]
     main_err = None
@@ -947,6 +979,8 @@ def forward_phase(torch, dev, card, record, params) -> dict:
         del out
         # the counted main-path run: one bf16 and one W8A8 forward
         kernels.flash_attention.launches = 0
+        kernels.flash_attention.launches_tc = 0
+        kernels.flash_attention.launches_simt = 0
         kernels.quantize_rows.launches = 0
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -956,15 +990,25 @@ def forward_phase(torch, dev, card, record, params) -> dict:
             torch.cuda.synchronize()
         launches = {"flash_attention": kernels.flash_attention.launches,
                     "quantize_rows": kernels.quantize_rows.launches}
+        variants = {"tc": kernels.flash_attention.launches_tc,
+                    "simt": kernels.flash_attention.launches_simt}
         named = named_launches(prof, launches)
+        simt_named = named_launches(prof, ["flash_attention simt"])
         print(f"phase 13: one bf16 apply_seq + one apply_seq_w8a8 forward: "
-              f"wrapper launches {launches}, profiler launches by name "
-              f"{named}")
+              f"wrapper launches {launches}, flash by variant {variants}; "
+              f"profiler launches by name {named} (flash: "
+              f"{KERNEL_SYMBOL['flash_attention']}), "
+              f"{KERNEL_SYMBOL['flash_attention simt']} "
+              f"{simt_named['flash_attention simt']}")
         check(launches == named, f"wrapper launches {launches} != profiler "
                                  f"{named}")
         check(launches == {"flash_attention": 8, "quantize_rows": 17},
               "not 4 flash launches per forward and 17 quantize_rows per "
               "W8A8 forward")
+        check(variants == {"tc": 8, "simt": 0} and
+              simt_named["flash_attention simt"] == 0,
+              f"the bf16 forwards' flash launches did not all run on the "
+              f"tensor-core kernel: {variants}, {simt_named}")
         by_name = {}
         for e in kernel_events(prof):
             row = by_name.setdefault(e.name[:60], [0, 0.0])
@@ -986,7 +1030,8 @@ def forward_phase(torch, dev, card, record, params) -> dict:
           f"tokens equal to bf16's at {100 * agree:.2f}% of positions")
     record["forward_bf16"] = {"timing": timing, "w8a8_over_bf16": ratio,
                               "w8a8_argmax_agree": agree,
-                              "launches": launches}
+                              "launches": launches,
+                              "flash_launches_by_variant": variants}
     return launches
 
 
@@ -1279,9 +1324,9 @@ def slice3_phases(nt, torch, card, record, phases, ctx) -> list:
         "ms": qt["ms"], "plain_ms": qt["plain_ms"], "bound_ms": qt["bound_ms"],
         "bound_by": qt["bound_by"], "library_ms": None}, {
         "name": "flash_attention", "route": "cuda",
-        "source": "nnstreamer_tpu_torch/backends/csrc/flash_attn.cu",
-        "replaces": "nnstreamer_tpu/backends/pallas_ops.py:185 "
-                    "(flash_attention) and :241 (_flash_attention_kgrid)",
+        "source": "nnstreamer_tpu_torch/backends/csrc/flash_attn_tc.cu",
+        "replaces": "nnstreamer_tpu/backends/pallas_ops.py:335 "
+                    "(flash_attention) and :286 (_flash_attention_kgrid)",
         "launches": fwd["flash_attention"], "max_abs_err": f_err,
         "ms": ft["ms"], "plain_ms": ft["plain_ms"], "bound_ms": ft["bound_ms"],
         "bound_by": ft["bound_by"], "library_ms": ft["library_ms"]}]
@@ -2529,7 +2574,7 @@ def main(argv=None) -> int:
     # one nvcc per source, all started together
     t0 = time.perf_counter()
     sources = ("normalize.cu", "paged_attn.cu", "quantize_rows.cu",
-               "flash_attn.cu", "clamp_scale.cu")
+               "flash_attn.cu", "flash_attn_tc.cu", "clamp_scale.cu")
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(cuda_build.build, sources))
     build_s = time.perf_counter() - t0

@@ -1,8 +1,11 @@
-// Flash attention for Hopper (sm_90a): softmax(q k^T * D^-0.5) v over
-// (B, S, H, D) tensors, causal or not, f32 or bf16, without the S x S
-// score matrix ever reaching device memory.
+// Flash attention for Hopper (sm_90a) on the CUDA cores:
+// softmax(q k^T * D^-0.5) v over (B, S, H, D) f32 tensors, causal or not,
+// without the S x S score matrix ever reaching device memory. bf16 calls
+// go to the tensor-core kernel in flash_attn_tc.cu; this kernel keeps f32,
+// whose 1e-5 tolerance a TF32 product would not hold.
 //
-// Replaces both TPU kernels in nnstreamer_tpu/backends/pallas_ops.py:
+// Replaces, for f32, both TPU kernels in
+// nnstreamer_tpu/backends/pallas_ops.py:
 // - `_flash_kernel` / `flash_attention` (K/V of a head resident in VMEM);
 // - `_flash_kgrid_kernel` / `_flash_attention_kgrid` (K/V streamed one
 //   block per sequential grid step, for long S).
@@ -16,7 +19,8 @@
 // over ONE incoming K/V block, starting from and writing back a carry
 // (m, l, acc) that lives in device memory between ring steps, with the
 // causal mask placed by the block's global query/key offsets. Both
-// kernels share the tile code below (attend_tile, walk_tiles).
+// kernels share the tile code below (attend_tile, walk_tiles); the ring
+// step runs on it in f32 and bf16.
 //
 // Semantics shared with _online_softmax_update / _causal_mask:
 // - s = (q . k) * scale in f32; bf16 inputs widen exactly, so each
@@ -31,10 +35,9 @@
 // - causal: key tiles wholly above the block's last row are skipped.
 //
 // Bound: operations. Per (b, h) the work is 4 * S^2 * D flops (half of it
-// under the causal mask) over 4 * S * D elements of traffic. This first
-// version runs the products on the CUDA cores in f32 (no wmma/wgmma, no
-// TMA yet), so its ceiling is the 67 TFLOP/s f32 rate, not the
-// tensor-core peak the bound is stated against. The design:
+// under the causal mask) over 4 * S * D elements of traffic. The products
+// run on the CUDA cores in f32, so the ceiling is the 67 TFLOP/s f32
+// rate. The design:
 // - a CTA of 16 x 16 threads owns 64 query rows of one (b, h); thread
 //   (ty, tx) holds rows ty*4 .. ty*4+3: keys tx + 16 j of each 64-key
 //   tile in S, and float4 column groups tx + 16 c of the output in
@@ -606,37 +609,26 @@ cudaError_t launch_block(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype_code: 0 f32, 1 bf16. q, k, v, out: (batch, s_len, n_heads, d)
-// with element strides (b, s, h) given per tensor and a contiguous last
-// dim; d * itemsize a multiple of 16 and d <= 256; every stride a
-// multiple of 16 bytes and every pointer 16-byte aligned. Launches on
-// `stream` and returns cudaGetLastError() (cudaErrorInvalidValue /
-// InvalidConfiguration for arguments outside the contract); does not
-// synchronise and allocates nothing.
+// q, k, v, out: f32 (batch, s_len, n_heads, d) (bf16 is the tensor-core
+// kernel's, nns_flash_attn_tc) with element strides (b, s, h) given per
+// tensor and a contiguous last dim; d a multiple of 4 and <= 256; every
+// stride a multiple of 16 bytes and every pointer 16-byte aligned.
+// Launches on `stream` and returns cudaGetLastError()
+// (cudaErrorInvalidValue / InvalidConfiguration for arguments outside the
+// contract); does not synchronise and allocates nothing.
 int nns_flash_attn(const void* q, const void* k, const void* v, void* out,
-                   int dtype_code, int batch, int s_len, int n_heads, int d,
+                   int batch, int s_len, int n_heads, int d,
                    int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
                    int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
                    int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
                    float scale, int causal, void* stream) {
   if (batch <= 0 || s_len <= 0 || n_heads <= 0) return cudaSuccess;
-  if (d <= 0 || d > kMaxD || batch > 65535 || n_heads > 65535)
+  if (d <= 0 || d > kMaxD || d % 4 || batch > 65535 || n_heads > 65535)
     return cudaErrorInvalidValue;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype_code) {
-    case 0:
-      if (d % 4) return cudaErrorInvalidValue;
-      return launch<float>(q, k, v, out, qs, ks, vs, os, batch, s_len,
-                           n_heads, d, scale, causal, s);
-    case 1:
-      if (d % 8) return cudaErrorInvalidValue;
-      return launch<__nv_bfloat16>(q, k, v, out, qs, ks, vs, os, batch,
-                                   s_len, n_heads, d, scale, causal, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return launch<float>(q, k, v, out, qs, ks, vs, os, batch, s_len, n_heads,
+                       d, scale, causal, static_cast<cudaStream_t>(stream));
 }
 
 // One ring step. dtype_code: 0 f32, 1 bf16 (q, k, v alike). q: bh rows of

@@ -4,13 +4,14 @@
 //
 // Replaces the TPU kernels in nnstreamer_tpu/backends/pallas_paged.py:
 // - nns_paged_decode_kernel  <- paged_decode_attn  (_paged_decode_kernel)
-// - nns_paged_prefill_kernel <- paged_prefill_attn (_paged_prefill_kernel)
+// - nns_paged_prefill_tf32_kernel <- paged_prefill_attn (_paged_prefill_kernel)
 //
 // Both compute what the TPU kernels compute, not a carry-over of their
 // grids: the TPU walks table blocks as a sequential grid axis with the
 // softmax state in scratch memory; here one CTA owns its query rows for
-// the whole walk and loops over the table itself, a tile of whole pool
-// blocks (up to 64 keys) at a time. Semantics shared with the JAX
+// the whole walk and loops over the table itself, a tile at a time
+// (decode: whole pool blocks, up to 64 keys; prefill: 64 keys, or 32 at
+// head dim 256, whatever the block size). Semantics shared with the JAX
 // package's _online_softmax_update (pallas_ops.py):
 // - s = (q . k) * scale in f32 (q widened from f32 or bf16; pool f32);
 // - masked scores are set to -1e30; p is forced to 0 where s <= -1e29;
@@ -25,8 +26,11 @@
 // block/slot/head strides (innermost dim contiguous); nothing is copied.
 //
 // Bound: bytes for decode (each attended K/V element is read once for
-// 2-4 flops); for a long prefill chunk the f32 operations, since each
-// K/V tile serves a 32-row q-block. The design against both:
+// 2-4 flops). For prefill, the operations: the serving chunk (S_c 512 at
+// pos0 1024, 8 heads x hd 128) does 2.69 GFLOP, 0.0401 ms on the CUDA
+// cores' 67 TFLOP/s f32; as split TF32 (below) its 3 x 2.69 GFLOP take
+// 0.0163 ms at the tensor cores' 495 TFLOP/s TF32; its ~12.6 MB of K/V
+// take ~0.004 ms at 3.35 TB/s. The designs:
 // - K/V tiles move global -> shared with cp.async, 16 bytes a thread,
 //   double-buffered so the next tile's copy overlaps this tile's math;
 //   a tile slot past the walk is zero-filled, so masked p = 0 never meets
@@ -37,16 +41,27 @@
 //   softmax, and the P.V accumulators in registers, with the tile's keys
 //   split over the threads that would otherwise idle (partials summed
 //   once at the end);
-// - prefill: a 16x16 thread grid over a 32-row q-block (so a 512-row
-//   chunk of 8 heads fills 128 SMs with 8 warps each), each thread a
-//   2-row x 4-key block of S and a 2-row x (head_dim/16)-column block of
-//   the output in registers, so shared memory serves 6 float4 loads per
-//   32 FMAs; the online softmax runs in registers with half-warp
-//   shuffles.
+// - prefill: both products on the tensor cores as split TF32
+//   (mma.sync.m16n8k8.tf32, f32 accumulators). Each f32 operand x is
+//   split into hi = tf32(x) and lo = tf32(x - hi), and a.b is taken as
+//   lo_a.hi_b + hi_a.lo_b + hi_a.hi_b: the dropped lo.lo term is ~2^-22
+//   of the product, near f32, where one TF32 product (2^-11) would not
+//   hold the 1e-5 tolerance. A bf16 q is exact in TF32 (lo = 0), so its
+//   Q.K^T takes two products; P.V (f32 p, not rounded, f32 pool) three.
+//   A CTA of 16 warps owns 32 query rows of one head: two row groups of
+//   16 times eight key warps, each taking 8 keys of every 64-key tile
+//   with its own (m, l, acc), combined once after the walk (head dim 256:
+//   four key warps and 32-key tiles, for the registers). So the serving
+//   chunk's 128 CTAs run 2048 warps, one CTA an SM (~155 KB of shared
+//   memory with a bf16 q: two f32 K/V tile pairs and the q-block's TF32
+//   parts); of the layouts measured this was the fastest at the serving
+//   shape (PERF.md). The online softmax runs on the accumulator
+//   fragments in registers (quad shuffles); Q.K^T's k index runs over
+//   dims (2t, 2t+1) and P.V's over keys (2t, 2t+1), so S's accumulator
+//   fragment is P.V's A fragment as it stands and P never touches shared
+//   memory.
 // Still ahead (later work): a split over the KV axis for small decode
-// batches (the longest row walks alone in its CTA), TMA, and tensor-core
-// products (TF32 would not hold the 1e-5 tolerance; a bf16-pool variant
-// could use wgmma).
+// batches (the longest row walks alone in its CTA), TMA, and wgmma.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,10 +78,6 @@ constexpr float kLFloor = 1e-20f;
 constexpr int kTileKeys = 64;        // keys per tile (whole pool blocks)
 constexpr int kDecodeThreads = 128;
 constexpr int kDecodeMaxOut = 4;     // float4 accumulators per thread
-constexpr int kPrefillRows = 32;     // query rows per prefill CTA
-constexpr int kPrefillThreads = 256; // 16 x 16
-constexpr int kRowsPerThread = kPrefillRows / (kPrefillThreads / 16);
-constexpr int kPrefillMaxCols = 4;   // float4 column groups per thread
 constexpr int kDefaultSmem = 48 * 1024;
 constexpr int kMaxSmem = 227 * 1024;
 
@@ -85,20 +96,6 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// max / sum over the 16 lanes of a half-warp (xor offsets stay inside it)
-__device__ __forceinline__ float half_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float half_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
@@ -335,148 +332,305 @@ __global__ void __launch_bounds__(kDecodeThreads) nns_paged_decode_kernel(
   }
 }
 
-// One CTA per (query head h, q-block of 32 rows): causal attention of the
-// chunk's rows (absolute positions pos0 + row) against the sequence's
-// table blocks up to the q-block's last row. Thread (ty, tx) of the
-// 16 x 16 grid owns rows ty*R .. ty*R+R-1 (R = kRowsPerThread): keys
-// tx + 16 j of each tile in S, and float4 column groups tx + 16 c of the
-// output.
-template <typename Q>
-__global__ void __launch_bounds__(kPrefillThreads) nns_paged_prefill_kernel(
+// -- prefill: split-TF32 products on the tensor cores -------------------------
+
+constexpr int kPreRowWarps = 2;                    // 16 query rows each
+constexpr int kPreRows = 16 * kPreRowWarps;        // query rows per CTA
+constexpr int kPreMaxHd = 256;
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// x = hi + lo + O(2^-22 x), hi = tf32(x) and lo = tf32(x - hi), both
+// rounded to nearest (ties away), as TF32 bit patterns
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// d += a (16x8 tf32, row) * b (8x8 tf32, col), f32 accumulator
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b to near-f32 accuracy from split operands: the cross terms
+// first, then hi * hi; lo * lo (~2^-22 of the product) is dropped, and so
+// is lo_a * hi_b when a has no low part (A_LO false: a bf16 q is exact
+// in TF32)
+template <bool A_LO>
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           const uint32_t (&b)[4]) {
+  if (A_LO) mma_tf32(d, a_lo, b[0], b[1]);
+  mma_tf32(d, a_hi, b[2], b[3]);
+  mma_tf32(d, a_hi, b[0], b[1]);
+}
+
+// b: {hi0, hi1, lo0, lo1} of the two values of a B fragment
+__device__ __forceinline__ void split_b(float x0, float x1, uint32_t (&b)[4]) {
+  split_tf32(x0, b[0], b[2]);
+  split_tf32(x1, b[1], b[3]);
+}
+
+// One prefill CTA by head dim (padded): its key warps (each takes 8
+// keys of every tile), and its shared memory (floats, then the table):
+// two K/V tile pairs (reused at the end for the key warps' partials),
+// the q-block's TF32 hi parts and, for an f32 q, its lo parts. Eight key
+// warps (16 warps, 64-key tiles) where a thread's 128 registers hold the
+// accumulators (head dim <= 128), else four. Row strides: K and q rows
+// are HDP + 8 floats (= 8 mod 32: the 64-bit fragment reads of 8 rows x
+// 4 lanes cover the 32 banks once per half-warp), V rows HDP + 4 (= 4
+// mod 32: the 32-bit reads of rows 2t and 2t + 1, columns g, do too).
+template <int HDP>
+struct PrefillCfg {
+  static constexpr int kKeyWarps = HDP <= 128 ? 8 : 4;
+  static constexpr int kTileKeys = 8 * kKeyWarps;
+  static constexpr int kThreads = 32 * kPreRowWarps * kKeyWarps;
+  static constexpr int kLdK = HDP + 8, kLdV = HDP + 4, kLdQ = HDP + 8;
+  static constexpr int kTileK = kTileKeys * kLdK;
+  static constexpr int kTileV = kTileKeys * kLdV;
+  static constexpr int kRed = HDP / 2 + 4;   // acc fragments, m, l
+  static constexpr int kRedFloats =
+      (kKeyWarps - 1) * kPreRowWarps * kRed * 32;
+  static constexpr int kKvFloats =
+      2 * (kTileK + kTileV) > kRedFloats ? 2 * (kTileK + kTileV) : kRedFloats;
+  static size_t bytes(bool q_lo, int mb) {
+    return sizeof(float) * (kKvFloats + (q_lo ? 2 : 1) * kPreRows * kLdQ) +
+           sizeof(int) * static_cast<size_t>(mb);
+  }
+};
+
+// One CTA per (query head h, q-block of kPreRows rows): causal attention
+// of the chunk's rows (absolute positions pos0 + row) against the
+// sequence's table blocks up to the q-block's last row, kTileKeys keys a
+// tile. Warp (rw, kw) owns rows 16 rw .. 16 rw + 15 and keys 8 kw ..
+// 8 kw + 7 of every tile, with its own (m, l, acc); the kKeyWarps
+// partials of a row group are combined once, after the walk. In a
+// fragment, lane (g, t) holds rows g and g + 8 at columns 2t and 2t + 1;
+// the k index of Q.K^T runs over dims (2t, 2t + 1) and that of P.V over
+// keys (2t, 2t + 1), so S's accumulator fragment is P.V's A fragment as
+// it stands.
+template <typename Q, int HDP>
+__global__ void __launch_bounds__(PrefillCfg<HDP>::kThreads)
+    nns_paged_prefill_tf32_kernel(
     const Q* __restrict__ q, const float* __restrict__ k_pool,
     const float* __restrict__ v_pool, const int* __restrict__ table,
     float* __restrict__ out, int n_heads, int n_kv, int s_c, int hd, int bs,
-    int mb, int pos0, int64_t sb, int64_t ss, int64_t sh, float scale,
-    int nbuf) {
+    int mb, int pos0, int64_t sb, int64_t ss, int64_t sh, float scale) {
+  using L = PrefillCfg<HDP>;
+  constexpr bool kQLo = sizeof(Q) == sizeof(float);
+  constexpr int kNT = HDP / 8;   // 8-dim steps of Q.K^T; 8-column out tiles
   extern __shared__ __align__(16) float smem[];
-  const int h = blockIdx.x, row_lo = blockIdx.y * kPrefillRows;
-  const int rows = min(kPrefillRows, s_c - row_lo);
-  const int vec = hd / 4;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int q_lo = pos0 + row_lo;
-  const int q_hi = q_lo + rows - 1;
+  float* kv_s = smem;                                  // 2 x (K, V)
+  float* qh_s = kv_s + L::kKvFloats;                   // rows x kLdQ
+  float* ql_s = qh_s + kPreRows * L::kLdQ;             // f32 q only
+  int* tab_s = reinterpret_cast<int*>(ql_s + (kQLo ? kPreRows * L::kLdQ : 0));
 
-  PoolWalk w;
-  w.k_pool = k_pool;
-  w.v_pool = v_pool;
-  w.sb = sb;
-  w.ss = ss;
-  w.head_off = (h / (n_heads / n_kv)) * sh;
-  w.bs = bs;
-  w.hd = hd;
-  w.ld = hd + 4;                      // float4-aligned, conflict-free
-  w.bpt = max(1, kTileKeys / bs);
-  w.nblk = q_hi < 0 ? 0 : min(mb, q_hi / bs + 1);
-  const int tile_keys = w.bpt * bs;
-  const int nj = (tile_keys + 15) / 16;  // keys per thread in S
-  const int nc = (vec + 15) / 16;        // column groups per thread
-  // p_s row stride: the two half-warps' rows land 16 banks apart
-  const int ldp = kTileKeys + 8;
+  const int h = blockIdx.x, row_lo = blockIdx.y * kPreRows;
+  const int rows = min(kPreRows, s_c - row_lo);
+  const int q_hi = pos0 + row_lo + rows - 1;
+  const int nblk = q_hi < 0 ? 0 : min(mb, q_hi / bs + 1);
+  const int nkeys = nblk * bs;
+  const int ntiles = (nkeys + L::kTileKeys - 1) / L::kTileKeys;
+  const int64_t head_off = static_cast<int64_t>(h / (n_heads / n_kv)) * sh;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rw = warp % kPreRowWarps, kw = warp / kPreRowWarps;
+  const int g = lane / 4, t4 = lane % 4;
 
-  float* kv_s = smem;                                   // nbuf x 2 tiles
-  float* q_s = kv_s + nbuf * 2 * tile_keys * w.ld;      // rows x ld
-  float* p_s = q_s + kPrefillRows * w.ld;               // rows x ldp
-  int* tab_s = reinterpret_cast<int*>(p_s + kPrefillRows * ldp);  // nblk
-  w.table = tab_s;
-
-  const int64_t row0 = (static_cast<int64_t>(h) * s_c + row_lo) * hd;
-  for (int i = tid; i < kPrefillRows * hd; i += kPrefillThreads) {
-    const int r = i / hd, d = i - r * hd;
-    q_s[r * w.ld + d] = r < rows ? to_f32(q[row0 + i]) : 0.f;
+  const int64_t q0 = (static_cast<int64_t>(h) * s_c + row_lo) * hd;
+  for (int i = threadIdx.x; i < kPreRows * HDP; i += L::kThreads) {
+    const int r = i / HDP, c = i - r * HDP;
+    const float x = r < rows && c < hd ? to_f32(q[q0 + r * hd + c]) : 0.f;
+    uint32_t hi, lo;
+    split_tf32(x, hi, lo);
+    qh_s[r * L::kLdQ + c] = __uint_as_float(hi);
+    if (kQLo) ql_s[r * L::kLdQ + c] = __uint_as_float(lo);
   }
-  for (int i = tid; i < w.nblk; i += kPrefillThreads) tab_s[i] = table[i];
+  for (int i = threadIdx.x; i < nblk; i += L::kThreads) tab_s[i] = table[i];
   __syncthreads();
 
-  float m[kRowsPerThread], l[kRowsPerThread];
-  float4 acc[kRowsPerThread][kPrefillMaxCols];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    m[i] = kMasked;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kPrefillMaxCols; ++c)
-      acc[i][c] = make_float4(0, 0, 0, 0);
-  }
-
-  walk_tiles(w, nbuf, kv_s, [&](int t, const float* k_s, const float* v_s) {
-    const int key0 = t * tile_keys;
-    float s[kRowsPerThread][4];
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d4 = 0; d4 < vec; ++d4) {
-      float4 qv[kRowsPerThread], kv[4];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-        qv[i] = reinterpret_cast<const float4*>(
-            q_s + (ty * kRowsPerThread + i) * w.ld)[d4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = j < nj ? reinterpret_cast<const float4*>(
-                             k_s + min(tx + 16 * j, tile_keys - 1) * w.ld)[d4]
-                       : make_float4(0, 0, 0, 0);
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dot4(qv[i], kv[j], s[i][j]);
+  // queue tile t's copy: key t * L::kTileKeys + r sits in table block
+  // key / bs at slot key % bs; keys past the walk and dims past hd are
+  // zero-filled
+  auto stage = [&](int t) {
+    float* k_s = kv_s + (t & 1) * (L::kTileK + L::kTileV);
+    float* v_s = k_s + L::kTileK;
+    constexpr int kChunks = HDP / 4;
+    for (int i = threadIdx.x; i < L::kTileKeys * kChunks; i += L::kThreads) {
+      const int r = i / kChunks, c = (i - r * kChunks) * 4;
+      const int key = t * L::kTileKeys + r;
+      const bool live = key < nkeys && c < hd;
+      int64_t off = 0;
+      if (live) {
+        const int j = key / bs;
+        off = static_cast<int64_t>(tab_s[j]) * sb + (key - j * bs) * ss +
+              head_off + c;
+      }
+      cp_async16(k_s + r * L::kLdK + c, k_pool + off, live ? 16 : 0);
+      cp_async16(v_s + r * L::kLdV + c, v_pool + off, live ? 16 : 0);
     }
+    cp_async_commit();
+  };
+
+  float acc[kNT][4];
 #pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-      const int qp = q_lo + ty * kRowsPerThread + i;
-      float mx = kMasked;
+  for (int n = 0; n < kNT; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = tx + 16 * j;
-        const bool ok = key < tile_keys && qp >= key0 + key;
-        s[i][j] = ok ? s[i][j] * scale : kMasked;
-        mx = fmaxf(mx, s[i][j]);
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};   // rows g, g + 8
+  const int qp = pos0 + row_lo + rw * 16 + g;            // row g's position
+  const float* qh_r = qh_s + (rw * 16 + g) * L::kLdQ + 2 * t4;
+  const float* ql_r = ql_s + (rw * 16 + g) * L::kLdQ + 2 * t4;
+
+  if (ntiles > 0) stage(0);
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();   // tile t landed; every warp is done with tile t - 1
+    if (t + 1 < ntiles) stage(t + 1);
+    const float* k_s = kv_s + (t & 1) * (L::kTileK + L::kTileV);
+    const float* v_s = k_s + L::kTileK;
+    const float* k_r = k_s + (8 * kw + g) * L::kLdK + 2 * t4;
+    const float* v_r = v_s + (8 * kw + 2 * t4) * L::kLdV + g;
+
+    // S = Q K^T, 16 rows x this warp's 8 keys
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < kNT; ++kk) {
+      const float2 q0h = *reinterpret_cast<const float2*>(qh_r + 8 * kk);
+      const float2 q1h =
+          *reinterpret_cast<const float2*>(qh_r + 8 * L::kLdQ + 8 * kk);
+      const uint32_t a_hi[4] = {__float_as_uint(q0h.x), __float_as_uint(q1h.x),
+                                __float_as_uint(q0h.y), __float_as_uint(q1h.y)};
+      uint32_t a_lo[4] = {0u, 0u, 0u, 0u};
+      if (kQLo) {
+        const float2 q0l = *reinterpret_cast<const float2*>(ql_r + 8 * kk);
+        const float2 q1l =
+            *reinterpret_cast<const float2*>(ql_r + 8 * L::kLdQ + 8 * kk);
+        a_lo[0] = __float_as_uint(q0l.x);
+        a_lo[1] = __float_as_uint(q1l.x);
+        a_lo[2] = __float_as_uint(q0l.y);
+        a_lo[3] = __float_as_uint(q1l.y);
       }
-      mx = half_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      float sum = 0.f;
+      const float2 kv = *reinterpret_cast<const float2*>(k_r + 8 * kk);
+      uint32_t b[4];
+      split_b(kv.x, kv.y, b);
+      mma_3xtf32<kQLo>(s, a_hi, a_lo, b);
+    }
+
+    // online softmax: e 0, 1 are row g at keys key0 + 2t, + 1; e 2, 3
+    // row g + 8
+    const int key0 = t * L::kTileKeys + 8 * kw + 2 * t4;
+    float mx[2] = {kMasked, kMasked};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = s[i][j] <= kMaskedBelow ? 0.f : expf(s[i][j] - m_new);
-        const int key = tx + 16 * j;
-        if (key < tile_keys)
-          p_s[(ty * kRowsPerThread + i) * ldp + key] = e;
-        sum += e;
-      }
-      sum = half_sum(sum);
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + sum;
+    for (int e = 0; e < 4; ++e) {
+      const int key = key0 + (e & 1);
+      const bool ok = key < nkeys && key <= qp + 8 * (e >> 1);
+      s[e] = ok ? s[e] * scale : kMasked;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[e]);
+    }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mx[i]));
+      corr[i] = expf(m[i] - m_new);
       m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kPrefillMaxCols; ++c) acc[i][c] = acc[i][c] * corr;
+      l[i] *= corr[i];
     }
-    __syncthreads();
-    for (int key = 0; key < tile_keys; ++key) {
-      float pv[kRowsPerThread];
 #pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-        pv[i] = p_s[(ty * kRowsPerThread + i) * ldp + key];
-      const float4* vr = reinterpret_cast<const float4*>(v_s + key * w.ld);
-#pragma unroll
-      for (int c = 0; c < kPrefillMaxCols; ++c) {
-        if (c < nc && tx + 16 * c < vec) {
-          const float4 vv = vr[tx + 16 * c];
-#pragma unroll
-          for (int i = 0; i < kRowsPerThread; ++i) fma4(acc[i][c], pv[i], vv);
-        }
-      }
+    for (int e = 0; e < 4; ++e) {
+      const float p = s[e] <= kMaskedBelow ? 0.f : expf(s[e] - m[e >> 1]);
+      l[e >> 1] += p;
+      s[e] = p;
     }
-  });
 
+    // acc = acc * corr + P V, P (f32, not rounded) split like V
+    uint32_t p_hi[4], p_lo[4];
+    split_tf32(s[0], p_hi[0], p_lo[0]);
+    split_tf32(s[2], p_hi[1], p_lo[1]);
+    split_tf32(s[1], p_hi[2], p_lo[2]);
+    split_tf32(s[3], p_hi[3], p_lo[3]);
 #pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int r = ty * kRowsPerThread + i;
-    if (r >= rows) continue;
-    const float inv = 1.f / fmaxf(l[i], kLFloor);
-    float4* o4 = reinterpret_cast<float4*>(out + row0 + r * hd);
+    for (int n = 0; n < kNT; ++n) {
+      acc[n][0] *= corr[0];
+      acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1];
+      acc[n][3] *= corr[1];
+      uint32_t b[4];
+      split_b(v_r[8 * n], v_r[L::kLdV + 8 * n], b);
+      mma_3xtf32<true>(acc[n], p_hi, p_lo, b);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the tile buffers now hold the key warps' partials
+
+  // warps kw > 0 leave (m, l, acc) in shared memory (element-major, so
+  // the 32 lanes hit 32 banks); warp kw = 0 of the row group folds them
+  // into its own, in kw order, and writes out = acc / max(l, 1e-20)
 #pragma unroll
-    for (int c = 0; c < kPrefillMaxCols; ++c)
-      if (c < nc && tx + 16 * c < vec) o4[tx + 16 * c] = acc[i][c] * inv;
+  for (int i = 0; i < 2; ++i) l[i] = quad_sum(l[i]);
+  if (kw > 0) {
+    float* red = kv_s + ((kw - 1) * kPreRowWarps + rw) * L::kRed * 32 + lane;
+    red[0] = m[0];
+    red[32] = m[1];
+    red[64] = l[0];
+    red[96] = l[1];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[(4 + 4 * n + e) * 32] = acc[n][e];
+  }
+  __syncthreads();
+  if (kw > 0) return;
+  for (int w = 1; w < L::kKeyWarps; ++w) {
+    const float* red =
+        kv_s + ((w - 1) * kPreRowWarps + rw) * L::kRed * 32 + lane;
+    float c_own[2], c_part[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_part = red[32 * i];
+      const float m_new = fmaxf(m[i], m_part);
+      c_own[i] = expf(m[i] - m_new);
+      c_part[i] = expf(m_part - m_new);
+      l[i] = l[i] * c_own[i] + red[64 + 32 * i] * c_part[i];
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n][e] = acc[n][e] * c_own[e >> 1] +
+                    red[(4 + 4 * n + e) * 32] * c_part[e >> 1];
+  }
+  float lf[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) lf[i] = fmaxf(l[i], kLFloor);
+  float* o_h = out + static_cast<int64_t>(h) * s_c * hd;
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+    const int col = 8 * n + 2 * t4;
+    if (col >= hd) continue;   // hd is even: col + 1 is inside too
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row_lo + rw * 16 + g + 8 * i;
+      if (row < s_c)
+        *reinterpret_cast<float2*>(o_h + static_cast<int64_t>(row) * hd +
+                                   col) =
+            make_float2(acc[n][2 * i] / lf[i], acc[n][2 * i + 1] / lf[i]);
+    }
   }
 }
 
@@ -532,31 +686,47 @@ cudaError_t launch_decode(const void* q, const void* k_pool,
   return cudaGetLastError();
 }
 
+template <typename Q, int HDP>
+cudaError_t launch_prefill_hd(const void* q, const void* k_pool,
+                              const void* v_pool, const void* table,
+                              void* out, int n_heads, int n_kv, int s_c,
+                              int hd, int bs, int mb, int pos0, int64_t sb,
+                              int64_t ss, int64_t sh, float scale,
+                              cudaStream_t stream) {
+  const size_t bytes =
+      PrefillCfg<HDP>::bytes(sizeof(Q) == sizeof(float), mb);
+  if (bytes > kMaxSmem) return cudaErrorInvalidConfiguration;
+  cudaError_t err = ensure_smem(nns_paged_prefill_tf32_kernel<Q, HDP>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(n_heads, (s_c + kPreRows - 1) / kPreRows);
+  nns_paged_prefill_tf32_kernel<Q, HDP>
+      <<<grid, PrefillCfg<HDP>::kThreads, bytes, stream>>>(
+      static_cast<const Q*>(q), static_cast<const float*>(k_pool),
+      static_cast<const float*>(v_pool), static_cast<const int*>(table),
+      static_cast<float*>(out), n_heads, n_kv, s_c, hd, bs, mb, pos0, sb, ss,
+      sh, scale);
+  return cudaGetLastError();
+}
+
+// the head dim padded to the kernel's 64, 128 or 256 (zero-filled)
 template <typename Q>
 cudaError_t launch_prefill(const void* q, const void* k_pool,
                            const void* v_pool, const void* table, void* out,
                            int n_heads, int n_kv, int s_c, int hd, int bs,
                            int mb, int pos0, int64_t sb, int64_t ss,
                            int64_t sh, float scale, cudaStream_t stream) {
-  const size_t ld = hd + 4;
-  const size_t tile_keys =
-      static_cast<size_t>(std::max(1, kTileKeys / bs)) * bs;
-  size_t bytes = 0;
-  const int nbuf = pick_nbuf(
-      sizeof(float) * 2 * tile_keys * ld,
-      sizeof(float) * kPrefillRows * (ld + kTileKeys + 8) + sizeof(int) * mb,
-      &bytes);
-  if (nbuf == 0 || hd / 4 > 16 * kPrefillMaxCols)
-    return cudaErrorInvalidConfiguration;
-  cudaError_t err = ensure_smem(nns_paged_prefill_kernel<Q>, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(n_heads, (s_c + kPrefillRows - 1) / kPrefillRows);
-  nns_paged_prefill_kernel<Q><<<grid, kPrefillThreads, bytes, stream>>>(
-      static_cast<const Q*>(q), static_cast<const float*>(k_pool),
-      static_cast<const float*>(v_pool), static_cast<const int*>(table),
-      static_cast<float*>(out), n_heads, n_kv, s_c, hd, bs, mb, pos0, sb, ss,
-      sh, scale, nbuf);
-  return cudaGetLastError();
+  if (hd > kPreMaxHd) return cudaErrorInvalidConfiguration;
+  if (hd <= 64)
+    return launch_prefill_hd<Q, 64>(q, k_pool, v_pool, table, out, n_heads,
+                                    n_kv, s_c, hd, bs, mb, pos0, sb, ss, sh,
+                                    scale, stream);
+  if (hd <= 128)
+    return launch_prefill_hd<Q, 128>(q, k_pool, v_pool, table, out, n_heads,
+                                     n_kv, s_c, hd, bs, mb, pos0, sb, ss, sh,
+                                     scale, stream);
+  return launch_prefill_hd<Q, 256>(q, k_pool, v_pool, table, out, n_heads,
+                                   n_kv, s_c, hd, bs, mb, pos0, sb, ss, sh,
+                                   scale, stream);
 }
 
 // the kernels' shape contract, checked before any launch

@@ -9,15 +9,17 @@ package's backends/pallas_ops.py).
   projection. CUDA C++ in ``csrc/quantize_rows.cu``.
 - ``flash_attention`` — (B, S, H, D) attention with an online softmax,
   causal or not, f32 or bf16: the full-sequence forward's attention.
-  CUDA C++ in ``csrc/flash_attn.cu``; one kernel serves both TPU paths
-  (K/V resident and K/V streamed).
+  Two CUDA C++ kernels, picked by dtype (`flash_variant`): bf16 on the
+  tensor cores in ``csrc/flash_attn_tc.cu``, f32 on the CUDA cores in
+  ``csrc/flash_attn.cu``; each serves both TPU paths (K/V resident and
+  K/V streamed).
 - ``clamp_scale`` — ``clip(x, lo, hi) * scale + offset`` in x's dtype:
   the transform ``clamp`` step. CUDA C++ in ``csrc/clamp_scale.cu``.
 - ``flash_block_update`` — one ring-attention step: q continues its
   online softmax over one incoming K/V block, the (m, l, acc) carry
   updated in place (`flash_carry_init`, `flash_carry_finalize` beside
-  it). CUDA C++ in ``csrc/flash_attn.cu``, sharing the flash kernel's
-  tile code.
+  it). CUDA C++ in ``csrc/flash_attn.cu``, sharing the f32 flash
+  kernel's tile code (CUDA cores, f32 or bf16).
 
 Each kernel has three parts here: the wrapper, which launches the CUDA
 kernel for a CUDA tensor and counts the launch; its plain torch version,
@@ -334,8 +336,30 @@ clamp_scale.launches = 0
 #: masked score, and the level at or below which p is forced to 0
 #: (pallas_ops._online_softmax_update)
 _MASKED, _MASKED_BELOW, _L_FLOOR = -1e30, -1e29, 1e-20
-#: largest head dim the CUDA kernel tiles
+#: largest head dim the CUDA kernels tile
 FLASH_MAX_HEAD_DIM = 256
+#: flash kernels: variant → (source, launcher)
+_FLASH_KERNELS = {"tc": ("flash_attn_tc.cu", "nns_flash_attn_tc"),
+                  "simt": ("flash_attn.cu", "nns_flash_attn")}
+
+
+def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The CUDA kernel that takes a flash call: ``"tc"`` for bf16 (both
+    products on the tensor cores, bf16 in, f32 sums, as the MXU) and
+    ``"simt"`` for f32 (f32 FMAs on the CUDA cores: TF32 tensor-core
+    products would not hold the f32 tolerance). Raises BackendError for
+    what neither takes: another dtype, a head dim above 256, or a row
+    that is not a multiple of 16 bytes."""
+    if dtype not in _FLOAT_CODE:
+        raise BackendError(
+            f"flash_attention kernel takes float32 or bfloat16, got {dtype}")
+    if head_dim <= 0 or (head_dim * dtype.itemsize) % 16 or \
+            head_dim > FLASH_MAX_HEAD_DIM:
+        raise BackendError(
+            f"flash_attention kernel needs head_dim * itemsize a multiple "
+            f"of 16 bytes and head_dim <= {FLASH_MAX_HEAD_DIM}; got "
+            f"head_dim {head_dim} {dtype}")
+    return "tc" if dtype == torch.bfloat16 else "simt"
 
 
 def _auto_block(s: int, want: int) -> int:
@@ -402,32 +426,29 @@ def _flash_attention_cuda(q, k, v, causal: bool):
     from nnstreamer_tpu_torch.backends import cuda_build
 
     b, s, h, d = q.shape
-    if q.dtype not in _FLOAT_CODE:
-        raise BackendError(
-            f"flash_attention kernel takes float32 or bfloat16, got "
-            f"{q.dtype}")
-    if (d * q.element_size()) % 16 or d > FLASH_MAX_HEAD_DIM:
-        raise BackendError(
-            f"flash_attention kernel needs head_dim * itemsize a multiple "
-            f"of 16 bytes and head_dim <= {FLASH_MAX_HEAD_DIM}; got "
-            f"head_dim {d} {q.dtype}")
+    variant = flash_variant(q.dtype, d)
     if b > 65535 or h > 65535:
         raise BackendError(f"flash_attention kernel: batch {b} or heads {h} "
                            f"above 65535")
     q, k, v = (_flash_operand(t) for t in (q, k, v))
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    lib = cuda_build.load("flash_attn.cu", {"nns_flash_attn": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 12
+    source, fn = _FLASH_KERNELS[variant]
+    lib = cuda_build.load(source, {fn: (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_int64] * 12
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)})
     with torch.cuda.device(q.device):
-        err = lib.nns_flash_attn(
+        err = getattr(lib, fn)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _FLOAT_CODE[q.dtype], b, s, h, d,
+            b, s, h, d,
             *_strides(q), *_strides(k), *_strides(v), *_strides(out),
             d ** -0.5, int(bool(causal)),
             torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check(lib, err, "flash_attention")
+    cuda_build.check(lib, err, f"flash_attention ({variant} kernel)")
     flash_attention.launches += 1
+    if variant == "tc":
+        flash_attention.launches_tc += 1
+    else:
+        flash_attention.launches_simt += 1
     return out
 
 
@@ -437,7 +458,8 @@ def flash_attention(q, k, v, *, causal: bool = False, block_q: int = 0,
     H heads for GQA), scale D**-0.5, output in q's dtype. Raises
     ValueError where the JAX package's flash_attention refuses the shape
     (S not divisible by the explicit or automatic blocks). A CUDA tensor
-    runs the hand-written kernel; a CPU tensor runs the plain version."""
+    runs the hand-written kernel of its dtype (`flash_variant`); a CPU
+    tensor runs the plain version."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape or \
             k.dtype != q.dtype or v.dtype != q.dtype:
         raise BackendError(
@@ -450,7 +472,10 @@ def flash_attention(q, k, v, *, causal: bool = False, block_q: int = 0,
     return flash_attention_plain(q, k, v, causal=causal)
 
 
+#: kernel launches made by this process, in all and by variant
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
+flash_attention.launches_simt = 0
 
 
 # -- flash_block_update: one ring-attention step ------------------------------

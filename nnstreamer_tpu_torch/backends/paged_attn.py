@@ -11,7 +11,8 @@ exists in device memory:
 - ``paged_prefill_attn`` — causal attention of one prefill chunk of one
   layer: q (n_heads, S_c, hd) starting at absolute ``pos0``, through one
   sequence's table (max_blocks,), mask ``pos0 + row >= kv_pos``; out
-  (n_heads, S_c, hd) f32.
+  (n_heads, S_c, hd) f32. Its products run on the tensor cores as split
+  TF32 (three TF32 products per f32 product), which keeps f32 accuracy.
 
 Each has a wrapper that counts its launches, and a plain torch version
 (``*_plain``: gather the table's blocks, −1e30 mask, f32 softmax, product

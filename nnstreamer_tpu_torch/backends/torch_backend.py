@@ -27,14 +27,13 @@ import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
 from nnstreamer_tpu_torch.backends.base import (
     ArrayTuple, ElementwiseFn, FilterBackend, pick_device, register_backend)
 from nnstreamer_tpu_torch.core.errors import BackendError
 from nnstreamer_tpu_torch.core.log import get_logger
-from nnstreamer_tpu_torch.tensor.dtypes import DType
+from nnstreamer_tpu_torch.tensor.dtypes import DType, host_tensor
 from nnstreamer_tpu_torch.tensor.info import TensorInfo, TensorsSpec
 
 log = get_logger("backend.torch")
@@ -96,8 +95,7 @@ def stage(arrs, device: torch.device) -> Tuple[ArrayTuple, int]:
         if isinstance(a, torch.Tensor) and a.device == device:
             staged.append(a)
             continue
-        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
-            np.ascontiguousarray(a))
+        t = a if isinstance(a, torch.Tensor) else host_tensor(a)
         staged.append(t.to(device, non_blocking=True))
         transfers += 1
     return tuple(staged), transfers

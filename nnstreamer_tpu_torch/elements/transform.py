@@ -44,7 +44,7 @@ from nnstreamer_tpu_torch.core.registry import register_element
 from nnstreamer_tpu_torch.graph.pipeline import Element, Emission, PropDef, StreamSpec
 from nnstreamer_tpu_torch.runtime.sync import to_numpy
 from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
-from nnstreamer_tpu_torch.tensor.dtypes import DType
+from nnstreamer_tpu_torch.tensor.dtypes import DType, host_tensor
 from nnstreamer_tpu_torch.tensor.info import TensorInfo
 
 #: one compiled step: (fn(array) -> array, out_info_fn(TensorInfo) -> TensorInfo)
@@ -52,14 +52,6 @@ Step = Tuple[Callable, Callable]
 
 MODES = ("typecast", "arithmetic", "clamp", "stand")
 _ARITH_OPS = ("add", "sub", "mul", "div", "typecast")
-
-
-def _from_numpy(a: np.ndarray) -> torch.Tensor:
-    """Host array → CPU tensor (bfloat16 through its int16 bits)."""
-    a = np.ascontiguousarray(a)
-    if DType.of(a) == DType.BFLOAT16:
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
 
 
 def _is_float(dtype) -> bool:
@@ -126,7 +118,7 @@ class TransformProgram:
         def fn(a):
             if isinstance(a, torch.Tensor):
                 return kernels.clamp_scale(a, lo, hi)
-            return to_numpy(kernels.clamp_scale(_from_numpy(a), lo, hi))
+            return to_numpy(kernels.clamp_scale(host_tensor(a), lo, hi))
 
         return fn, lambda info: info
 
@@ -210,8 +202,13 @@ class TransformProgram:
 
         def fn_torch(a):
             if _is_float(a.dtype):
-                b = scalar if scalar is not None else torch.from_numpy(
-                    vec).to(a.device, a.dtype)
+                # the scalar rounded to a's dtype first, as numpy and jnp
+                # round a weak-typed Python float (torch would compute a
+                # half or bf16 op with the scalar in f32)
+                if scalar is not None:
+                    b = torch.tensor(scalar, dtype=a.dtype)
+                else:
+                    b = torch.from_numpy(vec).to(a.device, a.dtype)
                 return combine(a, b)
             if promotes:
                 a = a.to(torch.float32)

@@ -142,3 +142,13 @@ _NAMES = {
 
 _BY_NAME = {name: dt for dt, name in _NAMES.items()}
 _BY_TORCH = {tdt: dt for dt, tdt in _TORCH_DTYPES.items()}
+
+
+def host_tensor(a: np.ndarray) -> torch.Tensor:
+    """Host array → CPU tensor sharing its memory where it can.
+    ``torch.from_numpy`` refuses ml_dtypes' bfloat16, so a bfloat16
+    array crosses as its int16 bits, viewed back as torch.bfloat16."""
+    a = np.ascontiguousarray(a)
+    if str(a.dtype) == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)

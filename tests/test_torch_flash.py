@@ -165,3 +165,87 @@ def test_apply_seq_mesh_waits_for_multi_gpu(params):
     with pytest.raises(BackendError, match="Mesh"):
         tt.apply_seq(params[1], torch.zeros((1, 8), dtype=torch.long),
                      n_heads=2, mesh=object())
+
+
+# -- the bf16 tensor-core kernel: its variant and its numerical design -------
+
+@pytest.mark.parametrize("dtype,d,variant", [
+    (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"),
+    (torch.bfloat16, 24, "tc"), (torch.bfloat16, 256, "tc"),
+    (torch.float32, 128, "simt"), (torch.float32, 16, "simt"),
+    (torch.float32, 4, "simt")])
+def test_flash_variant_by_dtype(dtype, d, variant):
+    """bf16 → the tensor-core kernel, f32 → the CUDA-core kernel."""
+    assert kernels.flash_variant(dtype, d) == variant
+
+
+@pytest.mark.parametrize("dtype,d", [
+    (torch.float16, 128), (torch.bfloat16, 12), (torch.float32, 6),
+    (torch.bfloat16, 264), (torch.float32, 0)])
+def test_flash_variant_refuses_what_no_kernel_takes(dtype, d):
+    with pytest.raises(BackendError):
+        kernels.flash_variant(dtype, d)
+
+
+#: chip_smoke.py phase 12's bf16 rule, element by element: |diff| <=
+#: 2^-7 * |plain| + 2^-6 * (rms of plain's row over D)
+FLASH_BF16_ULP, FLASH_BF16_ROW = 2 ** -7, 2 ** -6
+
+
+def _flash_tc_design(q, k, v, causal):
+    """The bf16 tensor-core kernel's arithmetic in torch: the head dim
+    zero-padded to the kernel's 64, 128 or 256; 64-key tiles; bf16
+    operands, so every product is exact in f32 and every sum is f32; l
+    sums the f32 p; the P.V product takes p rounded to bf16; out =
+    acc / max(l, 1e-20) rounded to bf16."""
+    b, s, h, d = q.shape
+    dp = 64 if d <= 64 else 128 if d <= 128 else 256
+    qf, kf, vf = (torch.nn.functional.pad(t, (0, dp - d)).float()
+                  .transpose(1, 2) for t in (q, k, v))      # (B, H, S, DP)
+    rows = torch.arange(s)
+    m = torch.full((b, h, s), -1e30)
+    l = torch.zeros(b, h, s)
+    acc = torch.zeros(b, h, s, dp)
+    for t in range(0, s, 64):
+        keys = torch.arange(t, min(t + 64, s))
+        sc = qf @ kf[:, :, keys].transpose(-1, -2) * d ** -0.5
+        if causal:
+            sc = torch.where(keys[None, :] <= rows[:, None], sc,
+                             torch.full_like(sc, -1e30))
+        m_new = torch.maximum(m, sc.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.where(sc <= -1e29, torch.zeros_like(sc),
+                        torch.exp(sc - m_new[..., None]))
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + \
+            p.to(torch.bfloat16).float() @ vf[:, :, keys]
+        m = m_new
+    out = acc / l.clamp_min(1e-20)[..., None]
+    return out[..., :d].transpose(1, 2).to(torch.bfloat16)
+
+
+#: name → ((B, S, H, D), causal): a causal and a full case, a ragged S, and
+#: head dims the kernel pads (24, 40) or takes at its other widths (64, 256)
+TC_CASES = {
+    "causal": ((2, 256, 2, 128), True),
+    "full": ((2, 192, 2, 128), False),
+    "d64-ragged-s72": ((2, 72, 2, 64), False),
+    "d40-padded-s520-causal": ((1, 520, 2, 40), True),
+    "d24-padded": ((2, 128, 2, 24), False),
+    "d256-causal": ((1, 128, 2, 256), True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TC_CASES))
+def test_bf16_tensor_core_design_holds_plain(case):
+    shape, causal = TC_CASES[case]
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(3))
+    ref = kernels.flash_attention_plain(q, k, v, causal=causal).float()
+    got = _flash_tc_design(q, k, v, causal)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    rms = ref.pow(2).mean(-1, keepdim=True).sqrt()
+    lim = FLASH_BF16_ULP * ref.abs() + FLASH_BF16_ROW * rms
+    ratio = ((got.float() - ref).abs() / lim).max().item()
+    assert ratio <= 1.0, ratio

@@ -337,3 +337,128 @@ def test_quantized_chunk_and_decode_match_jax(qparams, flavor):
                 torch.from_numpy(pos), tk, tv)[0]
     _quant_close(gotd, refd)
     assert tpa.paged_prefill_attn.launches == launches   # CPU: no launch
+
+
+# -- the prefill kernel's numerical design, emulated -------------------------
+#
+# The CUDA prefill kernel takes both products on the tensor cores as split
+# TF32: each f32 operand x is split into hi = tf32(x) and lo = tf32(x -
+# hi), and a.b is lo_a.hi_b + hi_a.lo_b + hi_a.hi_b with f32 sums. A CUDA
+# kernel cannot run here, so the arithmetic is emulated in torch: TF32
+# rounding is cvt.rna's, the f32 mantissa rounded to 10 bits (to nearest,
+# ties away from zero) on the int32 view. The emulation splits the keys
+# as the kernel's four key warps do (8 keys of each 32-key tile, each
+# with its own m/l/acc) and combines their partials as the kernel does.
+# It must hold
+# the plain version within phase 7's rule (1e-5 * max|plain| + 1e-6) on
+# phase 7's prefill shapes; a single-TF32 control (one product of the
+# rounded operands) must not, which shows the rule has teeth.
+
+PAGED_REL, PAGED_ABS = 1e-5, 1e-6
+#: the kernel's tile and key split
+TILE_KEYS, KEY_WARPS = 32, 4
+
+
+def _tf32(x):
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_mm(a, b):
+    """a @ b as split TF32 (the kernel's three products)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _single_mm(a, b):
+    """a @ b as one TF32 product (the control)."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _prefill_design(q, k_pool_l, v_pool_l, table, pos0, mm):
+    """The prefill kernel's arithmetic with products `mm`: each key warp's
+    softmax partial (m, l, acc) over its 8 keys of every 32-key tile
+    (taken over all of them at once: the kernel's tile-by-tile recurrence
+    differs only in the order of its f32 sums), then the warps' partials
+    folded in order → (n_heads, S_c, hd) f32."""
+    n_heads, s_c, hd = q.shape
+    n_kv = k_pool_l.shape[2]
+    kc, vc = (p[table].reshape(-1, n_kv, hd).repeat_interleave(
+        n_heads // n_kv, dim=1).transpose(0, 1) for p in (k_pool_l, v_pool_l))
+    key = torch.arange(kc.shape[1])
+    qf = q.float()
+    rows = pos0 + torch.arange(s_c)
+    parts = []
+    for kw in range(KEY_WARPS):
+        keys = key[(key % TILE_KEYS) // 8 == kw]
+        s = mm(qf, kc[:, keys].transpose(1, 2)) * hd ** -0.5
+        s = torch.where(keys[None, None, :] <= rows[None, :, None], s,
+                        torch.full_like(s, -1e30))
+        m = s.amax(-1)
+        p = torch.where(s <= -1e29, torch.zeros_like(s),
+                        torch.exp(s - m[..., None]))
+        parts.append((m, p.sum(-1), mm(p, vc[:, keys])))
+    m, l, acc = parts[0]
+    for m_p, l_p, acc_p in parts[1:]:
+        m_new = torch.maximum(m, m_p)
+        c_own, c_part = torch.exp(m - m_new), torch.exp(m_p - m_new)
+        l = l * c_own + l_p * c_part
+        acc = acc * c_own[..., None] + acc_p * c_part[..., None]
+        m = m_new
+    return acc / l.clamp_min(1e-20)[..., None]
+
+
+def _phase7_pools(n_kv):
+    """Phase 7's prefill inputs at its shapes (block 16, hd 128, a holey
+    96-block table of a 1535-token sequence), from a smaller pool."""
+    rng = np.random.default_rng(1)
+    nb, bs, hd = 129, 16, 128
+    pools = [torch.from_numpy(rng.standard_normal(
+        (nb, bs, n_kv, hd)).astype(np.float32)) for _ in range(2)]
+    table = torch.from_numpy(
+        rng.permutation(np.arange(1, nb))[:1535 // bs + 1].astype(np.int32))
+    return pools, table
+
+
+def _design_err(n_kv, qdtype, s_c, pos0, mm):
+    pools, table = _phase7_pools(n_kv)
+    q = torch.from_numpy(np.random.default_rng(s_c + pos0).standard_normal(
+        (8, s_c, 128)).astype(np.float32)).to(getattr(torch, qdtype))
+    ref = tpa.paged_prefill_attn_plain(q, *pools, table, pos0)
+    got = _prefill_design(q, *pools, table, pos0, mm)
+    err = (got - ref).abs().max().item()
+    return err, PAGED_REL * ref.abs().max().item() + PAGED_ABS
+
+
+#: phase 7's prefill chunks: (S_c, pos0)
+PHASE7_CHUNKS = [(512, 0), (512, 1024), (64, 1000), (8, 0)]
+
+
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_kv", [8, 2])
+@pytest.mark.parametrize("s_c,pos0", PHASE7_CHUNKS)
+def test_split_tf32_prefill_design_holds_plain(s_c, pos0, n_kv, qdtype):
+    err, lim = _design_err(n_kv, qdtype, s_c, pos0, _split_mm)
+    assert err <= lim, (err, lim)
+
+
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s_c,pos0", [(512, 1024), (8, 0)])
+def test_single_tf32_control_exceeds_limit(s_c, pos0, qdtype):
+    err, lim = _design_err(8, qdtype, s_c, pos0, _single_mm)
+    assert err > lim, (err, lim)
+
+
+def test_tf32_rounding_is_rna():
+    """10 explicit mantissa bits, to nearest, ties away from zero."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 * 0.99,
+                      one + 1.5 * ulp, 3.0e-39], dtype=torch.float32)
+    want = torch.tensor([one + ulp, -(one + ulp), one, one + 2 * ulp,
+                         _tf32(torch.tensor([3.0e-39])).item()])
+    assert torch.equal(_tf32(x), want)
+    ties = x[[0, 1, 3]]                  # hi + lo holds these exactly
+    hi = _tf32(ties)
+    assert torch.equal(hi + _tf32(ties - hi), ties)
