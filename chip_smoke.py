@@ -83,9 +83,12 @@ phases there). Phases:
 16. clamp_scale against its plain version, bit for bit (NaN positions
    compared): P's frame (1x257x257x3 f32), 16M f32 elements spread over
    60 binades, strided views, bf16 and f16 (affine, an offset of +0,
-   bounds the dtype cannot hold), integer clamps; its device time at P's
-   frame and at 16M beside its bytes bound, its plain version's and
-   torch.clamp's;
+   bounds the dtype cannot hold), integer clamps, f64, and the
+   contiguous kernel's edges (n below one CTA's work and below one
+   vector, n not a multiple of the vector, bases not 16-byte aligned);
+   its device time at P's frame and at 16M (queued, in turns with
+   torch.clamp, and by the profiler) beside its bytes bound, its plain
+   version's and torch.clamp's;
 17. BASELINE configs 2-4 at full width in bf16, bench.py's pipelines with
    uint8 ingest: D (SSD-MobileNetV2 300², 1917 anchors, 91 classes) with
    the bounding_boxes decoder compact (max_in_flight 4 and 1), device=true
@@ -106,9 +109,13 @@ phases there). Phases:
    when the shared filters open, and the muxed logits equal two
    single-filter runs;
 20. flash_block_update (the ring-attention step) against its plain
-   version: non-causal and causal, blocks wholly below, on and wholly
-   above the diagonal (above: the carry unchanged bit for bit), offsets
-   that are not multiples of 64, Sq != Sk, a chain of 4 steps from
+   version, bf16 on the tensor-core kernel and f32 on the CUDA-core one
+   (the wrapper's variant counts): non-causal and causal, blocks wholly
+   below, on and wholly above the diagonal (above: the carry unchanged
+   bit for bit), diagonal blocks whose first rows meet no live key (those
+   rows' carry bit for bit) at the serving ring's BH 8 and the forward's
+   BH 64, offsets that are not multiples of 64, Sq != Sk, ragged Sk and
+   Sq (72), head dims 64, 256 and 40, a chain of 4 steps from
    flash_carry_init compared after finalize, q/k/v as the ring's strided
    (B, H, S, D) views; f32 within 1e-5 * max|plain| + 1e-6, bf16 element
    by element under phase 12's rule;
@@ -119,19 +126,25 @@ phases there). Phases:
    over an sp=4 mesh at phase 13's shape, f32 (TF32 off) against
    apply_seq without a mesh within FWD_F32_REL, bf16 ms per forward with
    and without the mesh, and 64 kernel launches per forward by the
-   wrapper and by name in a profiler capture;
+   wrapper and by name in a profiler capture, all on the tensor-core
+   kernel (the wrapper's variant counts, no CUDA-core record);
 22. sharded serving at full width: phase 8's model and requests through
    tensor_llm shards=4 ring_prefill_min=1024 paged_kernel=xla (no
    prefill_chunk): in f32 shards=4 with the ring off equals shards=1 bit
    for bit (tokens, and teacher-forced logits of the shortest and
    longest request), the ring arm's tokens equal the blocked arm's under
    phase 8's near-tie rule, exactly 64 kernel launches per ring prefill
-   (prompts of 1024 tokens or more, bucket 2048); then bf16 tokens/s,
-   TTFT and ITL p50/p99, and memory_allocated per physical device once
-   the weights and pools are placed;
+   (prompts of 1024 tokens or more, bucket 2048; f32 on the CUDA-core
+   kernel); then bf16 tokens/s, TTFT and ITL p50/p99, and
+   memory_allocated per physical device once the weights and pools are
+   placed, every bf16 ring step on the tensor-core kernel by the
+   wrapper's count and, in a second profiled run with 2 new tokens, by
+   name;
 23. flash_block_update's device time at the serving shape (BH 8) and the
-   forward's (BH 64), a block below the diagonal (the full step), beside
-   its bytes bound and its plain version's time.
+   forward's (BH 64), a block below the diagonal (the full step): the
+   bf16 tensor-core kernel (queued CUDA events and the profiler) beside
+   its bytes bound, its plain version's time and the CUDA-core kernel's
+   in bf16 (through its launcher alone) and in f32.
 
 It prints the seconds of each phase, the card line and a JSON line of
 kernel numbers before the last line, and ends with {"ok": true,
@@ -203,14 +216,16 @@ FWD_F32_REL = 1e-4
 #: exceed it. Token flips between W8A8 arms are reported, not held: the
 #: spread is the size of a typical top-2 gap
 W8A8_SPREAD = 2.1e-2
-#: kernel names in a profiler trace, by wrapper (flash_attention: its bf16
-#: kernel, the main path's; "flash_attention simt" its f32 kernel)
+#: kernel names in a profiler trace, by wrapper (flash_attention and
+#: flash_block_update: their bf16 kernels, the main path's; "... simt"
+#: their f32 kernels on the CUDA cores)
 KERNEL_SYMBOL = {"paged_decode_attn": "nns_paged_decode_kernel",
                  "paged_prefill_attn": "nns_paged_prefill_tf32_kernel",
                  "quantize_rows": "nns_quantize_rows_kernel",
                  "flash_attention": "nns_flash_attn_tc_kernel",
                  "flash_attention simt": "nns_flash_attn_kernel",
-                 "flash_block_update": "nns_flash_block_kernel"}
+                 "flash_block_update": "nns_flash_block_tc_kernel",
+                 "flash_block_update simt": "nns_flash_block_kernel"}
 #: the throwaway kernel that opens every profiler capture (ATen's
 #: at::cuda::sleep, torch.cuda._sleep)
 OPEN_KERNEL = "spin_kernel"
@@ -487,6 +502,8 @@ def serve(nt, torch, requests, prof=None, new_tokens=LLM_NEW_TOKENS,
         pa.paged_prefill_attn.launches = 0
         kernels.quantize_rows.launches = 0
         kernels.flash_block_update.launches = 0
+        kernels.flash_block_update.launches_tc = 0
+        kernels.flash_block_update.launches_simt = 0
         with prof or nullcontext():
             if prof is not None:
                 open_capture(torch)
@@ -502,7 +519,11 @@ def serve(nt, torch, requests, prof=None, new_tokens=LLM_NEW_TOKENS,
         launches = {"paged_decode_attn": pa.paged_decode_attn.launches,
                     "paged_prefill_attn": pa.paged_prefill_attn.launches,
                     "quantize_rows": kernels.quantize_rows.launches,
-                    "flash_block_update": kernels.flash_block_update.launches}
+                    # ring steps by variant, as KERNEL_SYMBOL names them
+                    "flash_block_update":
+                        kernels.flash_block_update.launches_tc,
+                    "flash_block_update simt":
+                        kernels.flash_block_update.launches_simt}
     finally:
         runner.stop()
     tokens = {}
@@ -1477,6 +1498,28 @@ def check_clamp_scale(torch, dev, card) -> dict:
                                           endpoint=True)).to(dt).to(dev)
         cases[f"1M {str(dt).split('.')[-1]} clamp"] = (x, (10.5, 100.5,
                                                            1.0, 0.0))
+    # the contiguous kernel's edges: fewer elements than one CTA's
+    # vectors or than one vector (the last CTA's tail alone), a length
+    # that is not a multiple of the vector, and bases that are not 16-byte
+    # aligned (one element a thread)
+    flat_frame = frame.view(-1)
+    cases.update({
+        "f32 n 100 (below one CTA's work)": (big[:100], (-1.0, 1.0, 2.0,
+                                                           0.5)),
+        "f32 n 3 (below one vector)": (big[:3], (-1.0, 1.0, 1.0, 0.0)),
+        "f32 n 4099 (not a multiple of the vector)": (big[:4099],
+                                                      (-2.0, 2.0, 0.5, 0.0)),
+        "f32 P frame from a 4-byte-misaligned base": (flat_frame[1:],
+                                                       (-1.0, 1.0, 1.0, 0.0)),
+        "bf16 2-byte-misaligned base, n 65535":
+            (cases["1M bfloat16 affine"][0][1:1 << 16], (-1.3, 2.7, 1.1,
+                                                          0.3)),
+        "u8 n 1M + 5 (tail of 5)": (torch.from_numpy(rng.integers(
+            0, 256, (1 << 20) + 5)).to(torch.uint8).to(dev), (10.5, 200.5,
+                                                              1.0, 0.0)),
+        "f64 1M affine": (spread(1 << 20).double().to(dev),
+                          (-1e9, 1e9, 3.0000001, 1e-7)),
+    })
     errs = {}
     for name, (x, args) in cases.items():
         got = kernels.clamp_scale(x, *args)
@@ -1489,7 +1532,8 @@ def check_clamp_scale(torch, dev, card) -> dict:
             check(torch.equal(nan_g, nan_r),
                   f"clamp_scale {name}: NaN in other places than the plain "
                   f"version's")
-            bits = {2: torch.int16, 4: torch.int32}[got.element_size()]
+            bits = {2: torch.int16, 4: torch.int32,
+                8: torch.int64}[got.element_size()]
             same = torch.equal(got[~nan_g].view(bits), ref[~nan_r].view(bits))
             err = (got[~nan_g].double() - ref[~nan_r].double()).abs()
             err = err[torch.isfinite(err)]
@@ -1511,23 +1555,37 @@ def check_clamp_scale(torch, dev, card) -> dict:
         ops = 4 * n
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / F32_FLOPS * 1e3
+        kern = (lambda: kernels.clamp_scale(x, -1.0, 1.0))
+        lib = (lambda: torch.clamp(x, -1.0, 1.0))
+        # in turns: library, kernel, kernel, library
+        turns = [device_ms_per_call(torch, fn, iters)
+                 for fn in (lib, kern, kern, lib)]
+        prof_ms, kept = profiled_ms_per_launch(
+            torch, kern, "nns_clamp_scale_kernel", iters)
+        lib_prof_ms, lib_kept = profiled_ms_per_launch(torch, lib, "clamp",
+                                                       iters)
         res = {
-            "ms": device_ms_per_call(
-                torch, lambda: kernels.clamp_scale(x, -1.0, 1.0), iters),
-            "event_ms": event_ms_per_call(
-                torch, lambda: kernels.clamp_scale(x, -1.0, 1.0), iters),
+            "ms": (turns[1] + turns[2]) / 2, "turns_ms": turns,
+            "profiler_ms": prof_ms, "profiler_records": kept,
+            "event_ms": event_ms_per_call(torch, kern, iters),
             "plain_ms": device_ms_per_call(
                 torch, lambda: kernels.clamp_scale_plain(x, -1.0, 1.0), iters),
-            "library_ms": device_ms_per_call(
-                torch, lambda: torch.clamp(x, -1.0, 1.0), iters),
+            "library_ms": (turns[0] + turns[3]) / 2,
+            "library_profiler_ms": lib_prof_ms,
             "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
         timing[key] = res
+        fmt = (lambda v: "not measured" if v is None else f"{v:.5f} ms")
         print(f"phase 16: clamp_scale {key} ({n} f32): device "
-              f"{res['ms']:.5f} ms per launch (queued), {res['event_ms']:.5f} "
-              f"ms per call from Python; plain torch {res['plain_ms']:.5f} ms; "
-              f"torch.clamp {res['library_ms']:.5f} ms; bound "
-              f"{res['bound_ms']:.6f} ms ({nbytes} B at 3.35 TB/s) [{card}]")
+              f"{res['ms']:.5f} ms per launch (queued; in turns torch.clamp, "
+              f"kernel, kernel, torch.clamp: "
+              f"{', '.join(f'{t:.5f}' for t in turns)}), "
+              f"{fmt(prof_ms)} by the profiler ({kept} records; torch.clamp "
+              f"{fmt(lib_prof_ms)}, {lib_kept} records), "
+              f"{res['event_ms']:.5f} ms per call from Python; plain torch "
+              f"{res['plain_ms']:.5f} ms; torch.clamp {res['library_ms']:.5f} "
+              f"ms; bound {res['bound_ms']:.6f} ms ({nbytes} B at 3.35 TB/s) "
+              f"[{card}]")
     kernels.clamp_scale.launches = launches     # timing launches not counted
     return {"errs": errs, "timing": timing,
             "main_err": errs["P frame f32 (1,257,257,3)"]}
@@ -1961,9 +2019,10 @@ def close_rule(torch, got, ref, bf16: bool):
 
 
 def check_flash_block(torch, dev, record) -> float:
-    """Phase 20: flash_block_update against its plain version → the
-    largest abs error of the finalized output at the serving shape (bf16,
-    (1, 8, 512, 128) views, a block below the diagonal)."""
+    """Phase 20: flash_block_update against its plain version, bf16 on
+    the tensor-core kernel and f32 on the CUDA-core one → the largest abs
+    error of the finalized output at the serving shape (bf16, (1, 8, 512,
+    128) views, a block below the diagonal)."""
     from nnstreamer_tpu_torch.backends import kernels
 
     rng = np.random.default_rng(8)
@@ -1974,25 +2033,26 @@ def check_flash_block(torch, dev, record) -> float:
         return torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(dev, dt)
 
-    def started(bh, sq):
+    def started(bh, sq, dh):
         """A carry one non-causal plain step in: finite m, l > 0."""
-        carry = kernels.flash_carry_init(bh, sq, d, device=dev)
+        carry = kernels.flash_carry_init(bh, sq, dh, device=dev)
         kernels.flash_block_update_plain(
-            rand((bh, sq, d), f32), rand((bh, sq, d), f32),
-            rand((bh, sq, d), f32), *carry, q_offset=0, k_offset=0,
+            rand((bh, sq, dh), f32), rand((bh, sq, dh), f32),
+            rand((bh, sq, dh), f32), *carry, q_offset=0, k_offset=0,
             causal=False)
         return carry
 
-    def views(b, s, dt):
+    def views(b, s, dt, dh=d):
         """q/k/v as the ring hands them over: (B, H, S, D) views of
         (B, S, H, D) tensors."""
-        return [rand((b, s, 8, d), dt).transpose(1, 2) for _ in range(3)]
+        return [rand((b, s, 8, dh), dt).transpose(1, 2) for _ in range(3)]
 
-    def flat(bh, sq, sk, dt):
-        return [rand((bh, sq, d), dt), rand((bh, sk, d), dt),
-                rand((bh, sk, d), dt)]
+    def flat(bh, sq, sk, dt, dh=d):
+        return [rand((bh, sq, dh), dt), rand((bh, sk, dh), dt),
+                rand((bh, sk, dh), dt)]
 
-    # name → (q, k, v, q_offset, k_offset, causal)
+    # name → (q, k, v, q_offset, k_offset, causal); "dead N": rows 0 .. N-1
+    # meet no live key inside computed tiles (carry bit for bit)
     cases = {
         "f32 (8,512,512) full": (*flat(8, sl, sl, f32), 0, 0, False),
         "f32 (8,512,512) causal below (q 1024, k 0)":
@@ -2016,15 +2076,40 @@ def check_flash_block(torch, dev, record) -> float:
         "bf16 forward views (8,8,512,128) causal above (0, 1024)":
             (*views(8, sl, bf16), 0, 1024, True),
         "f32 views (2,8,512,128) full": (*views(2, sl, f32), 0, 0, False),
+        # the tensor-core kernel's two layouts (BH 8: eight key warps over
+        # 128-key tiles; BH 64: the flash kernel's CTA) on a diagonal
+        # block whose first rows meet no live key
+        "bf16 serving views (1,8,512,128) causal dead 100 (0, 100)":
+            (*views(1, sl, bf16), 0, 100, True),
+        "bf16 forward views (8,8,512,128) causal dead 37 (40, 77)":
+            (*views(8, sl, bf16), 40, 77, True),
+        # its other paths: no mask, head dims 64 and 256 and one it pads
+        # (40), a ragged Sk (keys past it zero-filled and masked), Sq != Sk
+        "bf16 serving views (1,8,512,128) full": (*views(1, sl, bf16), 0, 0,
+                                                  False),
+        "bf16 D64 (8,512,512) causal offsets 100, 37":
+            (*flat(8, sl, sl, bf16, 64), 100, 37, True),
+        "bf16 D256 (4,256,256) causal diagonal (256, 256)":
+            (*flat(4, 256, 256, bf16, 256), 256, 256, True),
+        "bf16 D40 (8,256,256) full": (*flat(8, 256, 256, bf16, 40), 0, 0,
+                                      False),
+        "bf16 ragged Sk 72 (8,512,72) causal (64, 200)":
+            (*flat(8, sl, 72, bf16), 64, 200, True),
+        "bf16 ragged Sq 72 (8,72,512) causal (600, 0)":
+            (*flat(8, 72, sl, bf16), 600, 0, True),
     }
+    kernels.flash_block_update.launches_tc = 0
+    kernels.flash_block_update.launches_simt = 0
+    want = {"tc": 0, "simt": 0}
     main_err = None
     for name, (q, k, v, q_off, k_off, causal) in cases.items():
-        bh = math.prod(q.shape[:-2])
-        start = started(bh, q.shape[-2])
+        bh, dh = math.prod(q.shape[:-2]), q.shape[-1]
+        start = started(bh, q.shape[-2], dh)
         got = [t.clone() for t in start]
         ref = [t.clone() for t in start]
         kernels.flash_block_update(q, k, v, *got, q_offset=q_off,
                                    k_offset=k_off, causal=causal)
+        want["tc" if q.dtype == bf16 else "simt"] += 1
         kernels.flash_block_update_plain(q, k, v, *ref, q_offset=q_off,
                                          k_offset=k_off, causal=causal)
         torch.cuda.synchronize()
@@ -2038,6 +2123,14 @@ def check_flash_block(torch, dev, record) -> float:
             check(same, f"{name}: a block above the diagonal changed the "
                         f"carry")
             continue
+        if " dead " in name:
+            n = int(name.split(" dead ")[1].split()[0])
+            same = all(bits_equal(torch, g[:, :n], s[:, :n]) and
+                       bits_equal(torch, r[:, :n], s[:, :n])
+                       for g, r, s in zip(got, ref, start))
+            print(f"phase 20: flash_block_update {name}: the {n} rows with "
+                  f"no live key {'unchanged bit for bit' if same else 'CHANGED'}")
+            check(same, f"{name}: rows with no live key changed the carry")
         worst = {}
         for part, g, r in (("m", got[0], ref[0]), ("l", got[1], ref[1])):
             worst[part] = close_rule(torch, g, r, False)
@@ -2051,7 +2144,7 @@ def check_flash_block(torch, dev, record) -> float:
             check(r <= 1.0, f"flash_block_update {name}: {p} differs from "
                             f"the plain version by {r:.3f} x its limit")
         record.setdefault("flash_block_errs", {})[name] = worst
-        if name.startswith("bf16 serving"):
+        if name.startswith("bf16 serving views (1,8,512,128) causal below"):
             main_err = worst["out"][1]
     # a 4-step ring chain from flash_carry_init (shard 1 of 4, causal),
     # compared after finalize
@@ -2066,6 +2159,7 @@ def check_flash_block(torch, dev, record) -> float:
                                   kernels.flash_block_update_plain), chains):
                 fn(q, *blocks[src], *carry, q_offset=sl, k_offset=src * sl,
                    causal=True)
+            want["tc" if dt == bf16 else "simt"] += 1
         got, ref = (kernels.flash_carry_finalize(c[1], c[2]) for c in chains)
         ratio, err = close_rule(torch, got, ref, dt == bf16)
         label = f"{str(dt).split('.')[-1]} chain of 4 steps from init"
@@ -2075,6 +2169,13 @@ def check_flash_block(torch, dev, record) -> float:
                             f"limit")
         record.setdefault("flash_block_errs", {})[label] = {"out": (ratio,
                                                                     err)}
+    variants = {"tc": kernels.flash_block_update.launches_tc,
+                "simt": kernels.flash_block_update.launches_simt}
+    print(f"phase 20: flash_block_update launches by variant {variants} "
+          f"(every bf16 call on the tensor-core kernel, every f32 call on "
+          f"the CUDA-core one: {want})")
+    check(variants == want, f"ring-step variants {variants}, not {want}")
+    record["flash_block_variants"] = variants
     return main_err
 
 
@@ -2148,18 +2249,30 @@ def ring_phase(nt, torch, dev, card, record, params) -> int:
         runs["apply_seq mesh sp4"]()
         torch.cuda.synchronize()
         kernels.flash_block_update.launches = 0
+        kernels.flash_block_update.launches_tc = 0
+        kernels.flash_block_update.launches_simt = 0
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             open_capture(torch)
             runs["apply_seq mesh sp4"]()
             torch.cuda.synchronize()
         launches = kernels.flash_block_update.launches
-        named = named_launches(prof, ["flash_block_update"])
+        variants = {"tc": kernels.flash_block_update.launches_tc,
+                    "simt": kernels.flash_block_update.launches_simt}
+        named = named_launches(prof, ["flash_block_update",
+                                      "flash_block_update simt"])
         print(f"phase 21: one bf16 mesh forward: flash_block_update wrapper "
-              f"launches {launches}, profiler launches by name {named}")
-        check(launches == named["flash_block_update"] ==
-              LLM_DIMS["n_layers"] * RING_SHARDS ** 2,
+              f"launches {launches}, by variant {variants}; profiler "
+              f"launches by name {named} "
+              f"({KERNEL_SYMBOL['flash_block_update']}, "
+              f"{KERNEL_SYMBOL['flash_block_update simt']})")
+        per_forward = LLM_DIMS["n_layers"] * RING_SHARDS ** 2
+        check(launches == named["flash_block_update"] == per_forward,
               f"not {RING_SHARDS ** 2} ring-step launches per layer")
+        check(variants == {"tc": per_forward, "simt": 0} and
+              named["flash_block_update simt"] == 0,
+              f"the bf16 mesh forward's ring steps did not all run on the "
+              f"tensor-core kernel: {variants}, {named}")
         timing = {}
         for name, fn in runs.items():
             ms = event_ms_per_call(torch, fn, 3)
@@ -2167,8 +2280,11 @@ def ring_phase(nt, torch, dev, card, record, params) -> int:
             print(f"phase 21: bf16 {name} (B {FWD_B}, S {FWD_S}): {ms:.3f} ms "
                   f"per forward, {timing[name]['tokens_per_s']:.0f} tokens/s "
                   f"[{card}]")
+    ratio = timing["apply_seq mesh sp4"]["ms"] / timing["apply_seq flash"]["ms"]
+    print(f"phase 21: bf16 mesh / flash forward time {ratio:.3f}")
     record["ring_forward"] = {"f32_rel_err": rel, "timing": timing,
-                              "launches": launches,
+                              "mesh_over_flash": ratio, "launches": launches,
+                              "launches_by_variant": variants,
                               "profiler_launches": named}
     return launches
 
@@ -2215,6 +2331,8 @@ def shard_serving_phase(nt, torch, card, record, ctx) -> int:
     check(one == four, "shards=4 tokens differ from shards=1")
     ring, llm_r, wall_r, launches = serve(nt, torch, requests,
                                           dtype="float32", **SHARD_PROPS)
+    ring_steps = (launches["flash_block_update"] +
+                  launches["flash_block_update simt"])
     p32 = on_device(params, dev)
     ties = check_f32_parity(
         torch, lambda seq: tt.apply_seq_kv(p32, seq.to(dev), n_heads=8)[0][
@@ -2225,10 +2343,13 @@ def shard_serving_phase(nt, torch, card, record, ctx) -> int:
           f"{len(requests)} requests ({wall_4:.2f} s vs {wall_1:.2f} s); ring "
           f"arm vs blocked arm: {same}/{len(requests)} token-identical, "
           f"{ties} near-tie flips ({wall_r:.2f} s); {n_ring} ring prefills, "
-          f"flash_block_update launches {launches['flash_block_update']}; "
+          f"flash_block_update launches {ring_steps} (CUDA-core kernel "
+          f"{launches['flash_block_update simt']}); "
           f"shard devices {llm_r.engine.executor.stats()['shard_devices']}")
-    check(launches["flash_block_update"] == 64 * n_ring > 0,
+    check(ring_steps == 64 * n_ring > 0,
           "not 64 flash_block_update launches per ring prefill")
+    check(launches["flash_block_update simt"] == 64 * n_ring,
+          "f32 ring steps not on the CUDA-core kernel")
     record["shard_f32"] = {"ring_identical": same, "ring_near_ties": ties,
                            "ring_prefills": n_ring}
     del llm4, llm_r                     # their pools, before the baseline
@@ -2239,8 +2360,10 @@ def shard_serving_phase(nt, torch, card, record, ctx) -> int:
     mem = {}
     _, llm, wall, launches = serve(nt, torch, requests, dtype="bfloat16",
                                    mem=mem, **SHARD_PROPS)
-    check(launches["flash_block_update"] == 64 * n_ring,
-          "bf16: not 64 flash_block_update launches per ring prefill")
+    check(launches["flash_block_update"] == 64 * n_ring and
+          launches["flash_block_update simt"] == 0,
+          "bf16: not 64 flash_block_update launches per ring prefill, all "
+          "on the tensor-core kernel")
     lat = llm.engine.latency_ms()
     ntok = llm.engine.tokens_out
     ex = llm.engine.executor
@@ -2262,23 +2385,47 @@ def shard_serving_phase(nt, torch, card, record, ctx) -> int:
           f"ms; memory_allocated after start by card {mem} (+"
           f"{serving['memory_added']} B over the idle card) [{card}]")
     record["shard_bf16"] = serving
+    del llm
+    # the bf16 ring prefills again under the profiler (2 new tokens, so
+    # the capture is the prefills): every ring step by name on the
+    # tensor-core kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    _, _, _, plaunch = serve(nt, torch, requests, prof=prof, new_tokens=2,
+                             dtype="bfloat16", **SHARD_PROPS)
+    named = named_launches(prof, ["flash_block_update",
+                                  "flash_block_update simt"])
+    wrapper = {k: plaunch[k] for k in named}
+    print(f"phase 22: profiled bf16 run (2 new tokens): flash_block_update "
+          f"wrapper launches by variant {wrapper}, profiler launches by name "
+          f"{named}")
+    check(named == wrapper == {"flash_block_update": 64 * n_ring,
+                               "flash_block_update simt": 0},
+          f"bf16 ring prefills: profiler {named}, wrapper {wrapper}")
+    serving["profiler_launches"] = named
     return launches["flash_block_update"]
 
 
 def flash_block_timing(torch, dev, card) -> dict:
     """Phase 23: flash_block_update's device time (queued CUDA events) at
     the ring's shapes — serving (B 1, H 8) and forward (B 8, H 8), local
-    blocks of 512, bf16, a block below the diagonal — beside its bound
-    and its plain version's time."""
+    blocks of 512, a block below the diagonal — in bf16 on the
+    tensor-core kernel (the main path's), beside its bound, its plain
+    version's time and two CUDA-core readings: bf16 through the launcher
+    alone (what the main path ran before the tensor-core kernel; the
+    wrapper never takes it) and f32 through the wrapper."""
     from nnstreamer_tpu_torch.backends import kernels
 
     rng = np.random.default_rng(10)
     d, sl, out = 128, RING_BLOCK, {}
-    launches = kernels.flash_block_update.launches
+    fb = kernels.flash_block_update
+    counts = (fb.launches, fb.launches_tc, fb.launches_simt)
     for b, what in ((1, "serving"), (FWD_B, "forward")):
         q, k, v = (torch.from_numpy(rng.standard_normal(
             (b, sl, 8, d)).astype(np.float32)).to(dev, torch.bfloat16)
             .transpose(1, 2) for _ in range(3))
+        q32, k32, v32 = (t.float() for t in (q, k, v))
         bh = b * 8
         carry = kernels.flash_carry_init(bh, sl, d, device=dev)
         # q, k, v read once (bf16); m, l and acc (f32) read and written
@@ -2287,23 +2434,37 @@ def flash_block_timing(torch, dev, card) -> dict:
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / BF16_FLOPS * 1e3
         args = dict(q_offset=2 * sl, k_offset=0, causal=True)
-        res = {"ms": device_ms_per_call(
+        step = (lambda: kernels.flash_block_update(q, k, v, *carry, **args))
+        prof_ms, kept = profiled_ms_per_launch(
+            torch, step, KERNEL_SYMBOL["flash_block_update"], 20)
+        res = {"ms": device_ms_per_call(torch, step, 20),
+               "profiler_ms": prof_ms, "profiler_records": kept,
+               "simt_bf16_ms": device_ms_per_call(
+                   torch, lambda: kernels._flash_block_launch(
+                       "simt", q, k, v, *carry, 2 * sl, 0, True), 20),
+               "simt_f32_ms": device_ms_per_call(
                    torch, lambda: kernels.flash_block_update(
-                       q, k, v, *carry, **args), 20),
+                       q32, k32, v32, *carry, **args), 20),
                "plain_ms": device_ms_per_call(
                    torch, lambda: kernels.flash_block_update_plain(
                        q, k, v, *carry, **args), 20),
                "library_ms": None, "bytes": nbytes, "ops": ops,
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        res["ms_again"] = device_ms_per_call(torch, step, 20)
         out[what] = res
+        fmt = (lambda v: "not measured" if v is None else f"{v:.5f} ms")
         print(f"phase 23: flash_block_update {what} (BH {bh}, Sq = Sk = {sl}, "
-              f"D {d}, bf16, below the diagonal): device {res['ms']:.5f} ms "
-              f"per launch (queued); plain torch {res['plain_ms']:.5f} ms; "
-              f"library: none (no one torch call continues a softmax carry); "
-              f"bound {res['bound_ms']:.6f} ms ({res['bound_by']}: {nbytes} B "
-              f"at 3.35 TB/s, {ops} flop at 989 TFLOP/s bf16) [{card}]")
-    kernels.flash_block_update.launches = launches   # timing not counted
+              f"D {d}, below the diagonal): bf16 tensor-core kernel "
+              f"{res['ms']:.5f} / {res['ms_again']:.5f} ms per launch "
+              f"(queued, before and after the others), {fmt(prof_ms)} by the "
+              f"profiler ({kept} records); CUDA-core kernel bf16 "
+              f"{res['simt_bf16_ms']:.5f} ms, f32 {res['simt_f32_ms']:.5f} "
+              f"ms; plain torch {res['plain_ms']:.5f} ms; library: none (no "
+              f"one torch call continues a softmax carry); bf16 bound "
+              f"{res['bound_ms']:.6f} ms ({res['bound_by']}: {nbytes} B at "
+              f"3.35 TB/s, {ops} flop at 989 TFLOP/s bf16) [{card}]")
+    fb.launches, fb.launches_tc, fb.launches_simt = counts   # not counted
     return out
 
 
@@ -2340,7 +2501,7 @@ def slice4_phases(nt, torch, card, record, phases, ctx) -> list:
     t = timing["serving"]
     return [{
         "name": "flash_block_update", "route": "cuda",
-        "source": "nnstreamer_tpu_torch/backends/csrc/flash_attn.cu",
+        "source": "nnstreamer_tpu_torch/backends/csrc/flash_attn_tc.cu",
         "replaces": "nnstreamer_tpu/backends/pallas_ops.py:431",
         "launches": launches, "max_abs_err": err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -24,10 +24,26 @@
 //   floor(hi)), computed by the caller; scale and offset must be 1 and 0.
 //
 // Bound: bytes. Per element one read and one write of itemsize bytes for
-// a handful of operations. A contiguous, 16-byte-aligned input moves as
-// 16-byte vectors in a grid-stride loop (tail elements scalar); any other
-// input takes the strided path, one element per iteration, its offset
-// unravelled from the shape and strides; the output is always contiguous.
+// a handful of operations. The main path's call is one frame, P's
+// (1, 257, 257, 3) f32: 0.79 MB each way, about 2 us of launch, latency
+// and tail against 0.47 us of bytes. The design (PERF.md has the
+// measured alternatives):
+// - the clip is branch-free (compares combined into predicates and
+//   selects): short-circuit && and || compile to a branch per element,
+//   which costs more than the loads at a frame's size;
+// - contiguous input, both pointers 16-byte aligned: one 16-byte vector
+//   per thread, 256-thread CTAs, a grid of the tensor's size (P's frame:
+//   194 CTAs, one wave); two or four vectors per thread measured slower
+//   at P's frame and no faster at 16M, and a grid capped at one wave
+//   and looping slower at 16M;
+// - 32-bit indices when n < 2^31, 64-bit above;
+// - the vector width (16 bytes, or one element when a pointer is not
+//   16-byte aligned) and the fold of a +0 offset are template
+//   parameters, not branches;
+// - the last CTA alone does the elements past the last whole vector;
+// - any other layout takes the strided kernel, one element per
+//   iteration, its offset unravelled from the shape and strides; the
+//   output is always contiguous.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -35,163 +51,201 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kMaxDims = 8;
+constexpr int kThreads = 256;                  // one vector each
 
-struct Params {
-  int64_t n;
+// The bounds, scale and offset in the precision the dtype computes in:
+// f32 for f32, bf16 and f16; f64 for f64; the inward-rounded integer
+// bounds for integers.
+template <typename T, bool kInt = std::is_integral<T>::value>
+struct Args {
+  float lo, hi, scale, offset;
+};
+template <>
+struct Args<double, false> {
+  double lo, hi, scale, offset;
+};
+template <typename T>
+struct Args<T, true> {
+  long long lo, hi;
+};
+
+// The strided kernel's view of x (elements)
+struct Shape {
   int ndim;
   int64_t sizes[kMaxDims];
-  int64_t strides[kMaxDims];  // in elements
-  float flo, fhi, fscale, foffset;
-  double dlo, dhi, dscale, doffset;
-  long long ilo, ihi;
-  bool fold_add;  // offset is +0.0: y = round(clip(x) * scale)
+  int64_t strides[kMaxDims];
 };
 
 template <typename T, int N>
-struct alignas(16) Vec {
+struct alignas(sizeof(T) * N) Vec {
   T v[N];
 };
 
+// clip without branches: the compares are combined with & and |, so
+// they become predicates and selects, not a branch per element. A NaN
+// fails every compare and passes through; -0.0 == +0.0, so the sign bit
+// orders them.
 __device__ __forceinline__ float clip_f(float x, float lo, float hi) {
-  if (isnan(x)) return x;
-  float v = (x < lo || (x == lo && signbit(x))) ? lo : x;
-  return (v > hi || (v == hi && !signbit(v))) ? hi : v;
+  const bool below = (x < lo) | ((x == lo) & (__float_as_int(x) < 0));
+  const float v = below ? lo : x;
+  const bool above = (v > hi) | ((v == hi) & (__float_as_int(v) >= 0));
+  return above ? hi : v;
 }
 
 __device__ __forceinline__ double clip_d(double x, double lo, double hi) {
-  if (isnan(x)) return x;
-  double v = (x < lo || (x == lo && signbit(x))) ? lo : x;
-  return (v > hi || (v == hi && !signbit(v))) ? hi : v;
+  const bool below =
+      (x < lo) | ((x == lo) & (__double_as_longlong(x) < 0));
+  const double v = below ? lo : x;
+  const bool above =
+      (v > hi) | ((v == hi) & (__double_as_longlong(v) >= 0));
+  return above ? hi : v;
 }
 
-template <typename T>
-struct Op;
+// y of one element; FOLD: the offset is +0.0 and its add is dropped
+template <bool FOLD>
+__device__ __forceinline__ float apply(float x, const Args<float>& a) {
+  const float c = clip_f(x, a.lo, a.hi);
+  return FOLD ? __fmul_rn(c, a.scale) : __fmaf_rn(c, a.scale, a.offset);
+}
 
-template <>
-struct Op<float> {
-  __device__ __forceinline__ static float apply(float x, const Params& p) {
-    const float c = clip_f(x, p.flo, p.fhi);
-    return p.fold_add ? __fmul_rn(c, p.fscale)
-                      : __fmaf_rn(c, p.fscale, p.foffset);
+template <bool FOLD>
+__device__ __forceinline__ __half apply(__half x, const Args<__half>& a) {
+  const float c = clip_f(__half2float(x), a.lo, a.hi);
+  const float prod = __fmul_rn(c, a.scale);  // exact: 11 x 11 bits
+  if (FOLD) return __float2half_rn(prod);
+  float s = __fadd_rn(prod, a.offset);
+  const float bb = __fsub_rn(s, prod);
+  const float err = __fadd_rn(__fsub_rn(prod, __fsub_rn(s, bb)),
+                              __fsub_rn(a.offset, bb));
+  // round to odd in f32 (24 bits >= 11 + 2), then once to f16
+  if (err != 0.0f && (__float_as_uint(s) & 1u) == 0u) {
+    s = nextafterf(s, err > 0.0f ? INFINITY : -INFINITY);
   }
-};
+  return __float2half_rn(s);
+}
 
-template <>
-struct Op<__half> {
-  __device__ __forceinline__ static __half apply(__half x, const Params& p) {
-    const float c = clip_f(__half2float(x), p.flo, p.fhi);
-    const float prod = __fmul_rn(c, p.fscale);  // exact: 11 x 11 bits
-    if (p.fold_add) return __float2half_rn(prod);
-    float s = __fadd_rn(prod, p.foffset);
-    const float bb = __fsub_rn(s, prod);
-    const float err = __fadd_rn(__fsub_rn(prod, __fsub_rn(s, bb)),
-                                __fsub_rn(p.foffset, bb));
-    // round to odd in f32 (24 bits >= 11 + 2), then once to f16
-    if (err != 0.0f && (__float_as_uint(s) & 1u) == 0u) {
-      s = nextafterf(s, err > 0.0f ? INFINITY : -INFINITY);
-    }
-    return __float2half_rn(s);
-  }
-};
+template <bool FOLD>
+__device__ __forceinline__ __nv_bfloat16 apply(
+    __nv_bfloat16 x, const Args<__nv_bfloat16>& a) {
+  const float c = clip_f(__bfloat162float(x), a.lo, a.hi);
+  const __nv_bfloat16 prod = __float2bfloat16_rn(__fmul_rn(c, a.scale));
+  if (FOLD) return prod;
+  return __float2bfloat16_rn(__fadd_rn(__bfloat162float(prod), a.offset));
+}
 
-template <>
-struct Op<__nv_bfloat16> {
-  __device__ __forceinline__ static __nv_bfloat16 apply(__nv_bfloat16 x,
-                                                        const Params& p) {
-    const float c = clip_f(__bfloat162float(x), p.flo, p.fhi);
-    const __nv_bfloat16 prod = __float2bfloat16_rn(__fmul_rn(c, p.fscale));
-    if (p.fold_add) return prod;
-    return __float2bfloat16_rn(__fadd_rn(__bfloat162float(prod), p.foffset));
-  }
-};
+template <bool FOLD>
+__device__ __forceinline__ double apply(double x, const Args<double>& a) {
+  const double prod = __dmul_rn(clip_d(x, a.lo, a.hi), a.scale);
+  return FOLD ? prod : __dadd_rn(prod, a.offset);
+}
 
-template <>
-struct Op<double> {
-  __device__ __forceinline__ static double apply(double x, const Params& p) {
-    const double prod = __dmul_rn(clip_d(x, p.dlo, p.dhi), p.dscale);
-    return p.fold_add ? prod : __dadd_rn(prod, p.doffset);
-  }
-};
+// integers: max then min, as torch.clamp (lo > hi gives hi); FOLD unused
+template <bool FOLD, typename I>
+__device__ __forceinline__
+    typename std::enable_if<std::is_integral<I>::value, I>::type
+    apply(I x, const Args<I>& a) {
+  long long v = static_cast<long long>(x);
+  v = v < a.lo ? a.lo : v;
+  return static_cast<I>(v > a.hi ? a.hi : v);
+}
 
-template <typename I>
-struct IntOp {
-  __device__ __forceinline__ static I apply(I x, const Params& p) {
-    // max then min, as torch.clamp (lo > hi gives hi)
-    long long v = static_cast<long long>(x);
-    v = v < p.ilo ? p.ilo : v;
-    return static_cast<I>(v > p.ihi ? p.ihi : v);
-  }
-};
-
-template <typename T>
-struct Pick {
-  using type = Op<T>;
-};
-template <> struct Pick<uint8_t> { using type = IntOp<uint8_t>; };
-template <> struct Pick<int8_t> { using type = IntOp<int8_t>; };
-template <> struct Pick<uint16_t> { using type = IntOp<uint16_t>; };
-template <> struct Pick<int16_t> { using type = IntOp<int16_t>; };
-template <> struct Pick<int32_t> { using type = IntOp<int32_t>; };
-template <> struct Pick<int64_t> { using type = IntOp<int64_t>; };
-
-template <typename T>
-__global__ void nns_clamp_scale_kernel(const T* __restrict__ x,
-                                       T* __restrict__ y, Params p,
-                                       bool contiguous, bool vectorized) {
-  using F = typename Pick<T>::type;
-  constexpr int VEC = 16 / sizeof(T) > 0 ? 16 / sizeof(T) : 1;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t tid =
-      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (!contiguous) {
-    for (int64_t i = tid; i < p.n; i += stride) {
-      int64_t rem = i, off = 0;
-      for (int d = p.ndim - 1; d >= 0; --d) {
-        off += (rem % p.sizes[d]) * p.strides[d];
-        rem /= p.sizes[d];
-      }
-      y[i] = F::apply(x[off], p);
-    }
-    return;
-  }
-  int64_t scalar_from = 0;
-  if (vectorized) {
-    const int64_t nvec = p.n / VEC;
-    const Vec<T, VEC>* xv = reinterpret_cast<const Vec<T, VEC>*>(x);
-    Vec<T, VEC>* yv = reinterpret_cast<Vec<T, VEC>*>(y);
-    for (int64_t i = tid; i < nvec; i += stride) {
-      const Vec<T, VEC> in = xv[i];
-      Vec<T, VEC> out;
+// Contiguous x and y, vectors of VEC elements (VEC 1: a pointer is not
+// 16-byte aligned), indices of type I: thread i of the grid does vector
+// i (the grid covers the vectors; it loops only past 2^31 - 1 CTAs).
+template <typename T, int VEC, bool FOLD, typename I>
+__global__ void __launch_bounds__(kThreads) nns_clamp_scale_kernel(
+    const T* __restrict__ x, T* __restrict__ y, I n, Args<T> a) {
+  using V = Vec<T, VEC>;
+  const V* __restrict__ xv = reinterpret_cast<const V*>(x);
+  V* __restrict__ yv = reinterpret_cast<V*>(y);
+  const I nvec = n / VEC;
+  for (I i = static_cast<I>(blockIdx.x) * kThreads + threadIdx.x; i < nvec;
+       i += static_cast<I>(gridDim.x) * kThreads) {
+    const V in = xv[i];
+    V out;
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) out.v[k] = F::apply(in.v[k], p);
-      yv[i] = out;
-    }
-    scalar_from = nvec * VEC;
+    for (int e = 0; e < VEC; ++e) out.v[e] = apply<FOLD>(in.v[e], a);
+    yv[i] = out;
   }
-  for (int64_t i = scalar_from + tid; i < p.n; i += stride) {
-    y[i] = F::apply(x[i], p);
+  if (VEC > 1 && blockIdx.x == gridDim.x - 1) {
+    for (I i = nvec * VEC + threadIdx.x; i < n; i += kThreads)
+      y[i] = apply<FOLD>(x[i], a);
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, void* y, const Params& p, bool contiguous,
-                   cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  constexpr int VEC = 16 / sizeof(T);
-  const bool vectorized = contiguous &&
-                          reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                          reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  const int64_t work = vectorized ? (p.n + VEC - 1) / VEC : p.n;
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > 8192) blocks = 8192;
-  nns_clamp_scale_kernel<T><<<static_cast<int>(blocks), kThreads, 0,
-                              stream>>>(static_cast<const T*>(x),
-                                        static_cast<T*>(y), p, contiguous,
-                                        vectorized);
+// Any other layout: element i of the dense output from x's strides.
+template <typename T, bool FOLD>
+__global__ void __launch_bounds__(kThreads) nns_clamp_scale_strided_kernel(
+    const T* __restrict__ x, T* __restrict__ y, int64_t n, Shape sh,
+    Args<T> a) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n; i += stride) {
+    int64_t rem = i, off = 0;
+    for (int d = sh.ndim - 1; d >= 0; --d) {
+      off += (rem % sh.sizes[d]) * sh.strides[d];
+      rem /= sh.sizes[d];
+    }
+    y[i] = apply<FOLD>(x[off], a);
+  }
+}
+
+template <typename T, int VEC, bool FOLD, typename I>
+cudaError_t launch_contiguous(const void* x, void* y, int64_t n,
+                              const Args<T>& a, cudaStream_t stream) {
+  constexpr int64_t kMaxGrid = 0x7fffffff;
+  const int64_t blocks = (n / VEC + kThreads - 1) / kThreads;
+  const int grid = static_cast<int>(blocks < 1 ? 1 : blocks < kMaxGrid
+                                                         ? blocks
+                                                         : kMaxGrid);
+  nns_clamp_scale_kernel<T, VEC, FOLD, I><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), static_cast<I>(n), a);
   return cudaGetLastError();
+}
+
+template <typename T, bool FOLD>
+cudaError_t launch_fold(const void* x, void* y, int64_t n, const Shape* sh,
+                        const Args<T>& a, cudaStream_t stream) {
+  if (sh != nullptr) {
+    int64_t blocks = (n + kThreads - 1) / kThreads;
+    if (blocks > 8192) blocks = 8192;
+    nns_clamp_scale_strided_kernel<T, FOLD>
+        <<<static_cast<int>(blocks), kThreads, 0, stream>>>(
+            static_cast<const T*>(x), static_cast<T*>(y), n, *sh, a);
+    return cudaGetLastError();
+  }
+  constexpr int VEC = 16 / sizeof(T);
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  if (n < (int64_t{1} << 31))
+    return vec ? launch_contiguous<T, VEC, FOLD, uint32_t>(x, y, n, a, stream)
+               : launch_contiguous<T, 1, FOLD, uint32_t>(x, y, n, a, stream);
+  return vec ? launch_contiguous<T, VEC, FOLD, int64_t>(x, y, n, a, stream)
+             : launch_contiguous<T, 1, FOLD, int64_t>(x, y, n, a, stream);
+}
+
+template <typename T>
+cudaError_t launch_float(const void* x, void* y, int64_t n, const Shape* sh,
+                         double lo, double hi, double scale, double offset,
+                         bool fold_add, cudaStream_t stream) {
+  using A = Args<T>;
+  using F = decltype(A::lo);   // float, or double for f64
+  const A a{static_cast<F>(lo), static_cast<F>(hi), static_cast<F>(scale),
+            static_cast<F>(offset)};
+  return fold_add ? launch_fold<T, true>(x, y, n, sh, a, stream)
+                  : launch_fold<T, false>(x, y, n, sh, a, stream);
+}
+
+template <typename T>
+cudaError_t launch_int(const void* x, void* y, int64_t n, const Shape* sh,
+                       long long ilo, long long ihi, cudaStream_t stream) {
+  return launch_fold<T, true>(x, y, n, sh, Args<T>{ilo, ihi}, stream);
 }
 
 }  // namespace
@@ -212,37 +266,33 @@ int nns_clamp_scale(const void* x, void* y, int dtype, int64_t n, int ndim,
                     long long ihi, void* stream) {
   if (n <= 0) return cudaSuccess;
   if (ndim < 0 || ndim > kMaxDims) return cudaErrorInvalidValue;
-  Params p;
-  p.n = n;
-  p.ndim = ndim;
-  for (int d = 0; d < ndim; ++d) {
-    p.sizes[d] = sizes[d];
-    p.strides[d] = strides[d];
+  Shape shape;
+  const Shape* sh = nullptr;
+  if (!contiguous) {
+    shape.ndim = ndim;
+    for (int d = 0; d < ndim; ++d) {
+      shape.sizes[d] = sizes[d];
+      shape.strides[d] = strides[d];
+    }
+    sh = &shape;
   }
-  p.flo = static_cast<float>(lo);
-  p.fhi = static_cast<float>(hi);
-  p.fscale = static_cast<float>(scale);
-  p.foffset = static_cast<float>(offset);
-  p.dlo = lo;
-  p.dhi = hi;
-  p.dscale = scale;
-  p.doffset = offset;
-  p.ilo = ilo;
-  p.ihi = ihi;
-  p.fold_add = fold_add != 0;
-  const bool c = contiguous != 0;
+  const bool fold = fold_add != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float>(x, y, p, c, s);
-    case 1: return launch<__nv_bfloat16>(x, y, p, c, s);
-    case 2: return launch<__half>(x, y, p, c, s);
-    case 3: return launch<double>(x, y, p, c, s);
-    case 4: return launch<uint8_t>(x, y, p, c, s);
-    case 5: return launch<int8_t>(x, y, p, c, s);
-    case 6: return launch<uint16_t>(x, y, p, c, s);
-    case 7: return launch<int16_t>(x, y, p, c, s);
-    case 8: return launch<int32_t>(x, y, p, c, s);
-    case 9: return launch<int64_t>(x, y, p, c, s);
+    case 0: return launch_float<float>(x, y, n, sh, lo, hi, scale, offset,
+                                       fold, s);
+    case 1: return launch_float<__nv_bfloat16>(x, y, n, sh, lo, hi, scale,
+                                               offset, fold, s);
+    case 2: return launch_float<__half>(x, y, n, sh, lo, hi, scale, offset,
+                                        fold, s);
+    case 3: return launch_float<double>(x, y, n, sh, lo, hi, scale, offset,
+                                        fold, s);
+    case 4: return launch_int<uint8_t>(x, y, n, sh, ilo, ihi, s);
+    case 5: return launch_int<int8_t>(x, y, n, sh, ilo, ihi, s);
+    case 6: return launch_int<uint16_t>(x, y, n, sh, ilo, ihi, s);
+    case 7: return launch_int<int16_t>(x, y, n, sh, ilo, ihi, s);
+    case 8: return launch_int<int32_t>(x, y, n, sh, ilo, ihi, s);
+    case 9: return launch_int<int64_t>(x, y, n, sh, ilo, ihi, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -15,12 +15,14 @@
 // is (q-blocks, heads, batch); no state carries between CTAs.
 //
 // A second kernel, nns_flash_block_kernel, replaces `_flash_block_kernel`
-// / `flash_block_update` (the ring-attention step): the same tile walk
-// over ONE incoming K/V block, starting from and writing back a carry
-// (m, l, acc) that lives in device memory between ring steps, with the
-// causal mask placed by the block's global query/key offsets. Both
-// kernels share the tile code below (attend_tile, walk_tiles); the ring
-// step runs on it in f32 and bf16.
+// / `flash_block_update` (the ring-attention step) for f32: the same tile
+// walk over ONE incoming K/V block, starting from and writing back a
+// carry (m, l, acc) that lives in device memory between ring steps, with
+// the causal mask placed by the block's global query/key offsets. Both
+// kernels share the tile code below (attend_tile, walk_tiles). bf16 ring
+// steps run on the tensor cores (nns_flash_block_tc_kernel in
+// flash_attn_tc.cu); this kernel's launcher still takes bf16, which only
+// a side-by-side timing uses.
 //
 // Semantics shared with _online_softmax_update / _causal_mask:
 // - s = (q . k) * scale in f32; bf16 inputs widen exactly, so each

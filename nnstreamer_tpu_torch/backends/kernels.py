@@ -18,8 +18,10 @@ package's backends/pallas_ops.py).
 - ``flash_block_update`` — one ring-attention step: q continues its
   online softmax over one incoming K/V block, the (m, l, acc) carry
   updated in place (`flash_carry_init`, `flash_carry_finalize` beside
-  it). CUDA C++ in ``csrc/flash_attn.cu``, sharing the f32 flash
-  kernel's tile code (CUDA cores, f32 or bf16).
+  it). Two CUDA C++ kernels, picked by dtype as flash's are
+  (`flash_block_variant`): bf16 on the tensor cores in
+  ``csrc/flash_attn_tc.cu``, f32 on the CUDA cores in
+  ``csrc/flash_attn.cu`` (the f32 flash kernel's tile code).
 
 Each kernel has three parts here: the wrapper, which launches the CUDA
 kernel for a CUDA tensor and counts the launch; its plain torch version,
@@ -343,7 +345,8 @@ _FLASH_KERNELS = {"tc": ("flash_attn_tc.cu", "nns_flash_attn_tc"),
                   "simt": ("flash_attn.cu", "nns_flash_attn")}
 
 
-def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
+def flash_variant(dtype: torch.dtype, head_dim: int,
+                  what: str = "flash_attention") -> str:
     """The CUDA kernel that takes a flash call: ``"tc"`` for bf16 (both
     products on the tensor cores, bf16 in, f32 sums, as the MXU) and
     ``"simt"`` for f32 (f32 FMAs on the CUDA cores: TF32 tensor-core
@@ -352,14 +355,22 @@ def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
     that is not a multiple of 16 bytes."""
     if dtype not in _FLOAT_CODE:
         raise BackendError(
-            f"flash_attention kernel takes float32 or bfloat16, got {dtype}")
+            f"{what} kernel takes float32 or bfloat16, got {dtype}")
     if head_dim <= 0 or (head_dim * dtype.itemsize) % 16 or \
             head_dim > FLASH_MAX_HEAD_DIM:
         raise BackendError(
-            f"flash_attention kernel needs head_dim * itemsize a multiple "
+            f"{what} kernel needs head_dim * itemsize a multiple "
             f"of 16 bytes and head_dim <= {FLASH_MAX_HEAD_DIM}; got "
             f"head_dim {head_dim} {dtype}")
     return "tc" if dtype == torch.bfloat16 else "simt"
+
+
+def flash_block_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The CUDA kernel that takes a ring step, by the flash rule
+    (`flash_variant`): ``"tc"`` for bf16 (``nns_flash_block_tc_kernel``,
+    tensor cores), ``"simt"`` for f32 (``nns_flash_block_kernel``, CUDA
+    cores); raises for what neither takes."""
+    return flash_variant(dtype, head_dim, "flash_block_update")
 
 
 def _auto_block(s: int, want: int) -> int:
@@ -533,20 +544,20 @@ def flash_block_update_plain(q, k_blk, v_blk, m, l, acc, *, q_offset: int,
     return m, l, acc
 
 
-def _flash_block_cuda(q, k, v, m, l, acc, q_offset: int, k_offset: int,
-                      causal: bool):
+#: ring-step kernels: variant → (source, launcher)
+_FLASH_BLOCK_KERNELS = {"tc": ("flash_attn_tc.cu", "nns_flash_block_tc"),
+                        "simt": ("flash_attn.cu", "nns_flash_block")}
+
+
+def _flash_block_launch(variant: str, q, k, v, m, l, acc, q_offset: int,
+                        k_offset: int, causal: bool) -> None:
+    """Launch one ring-step kernel, ``"tc"`` (bf16) or ``"simt"`` (f32,
+    or bf16 on the CUDA cores); counts nothing. The wrapper takes the
+    variant of q's dtype (`flash_block_variant`); a direct ``"simt"``
+    call on bf16 is only a reading beside the tensor-core kernel."""
     from nnstreamer_tpu_torch.backends import cuda_build
 
-    if q.dtype not in _FLOAT_CODE:
-        raise BackendError(
-            f"flash_block_update kernel takes float32 or bfloat16, got "
-            f"{q.dtype}")
     d = q.shape[-1]
-    if (d * q.element_size()) % 16 or d > FLASH_MAX_HEAD_DIM:
-        raise BackendError(
-            f"flash_block_update kernel needs head_dim * itemsize a multiple "
-            f"of 16 bytes and head_dim <= {FLASH_MAX_HEAD_DIM}; got head_dim "
-            f"{d} {q.dtype}")
     bh = m.shape[0]
     if bh > 65535:
         raise BackendError(f"flash_block_update kernel: BH {bh} above 65535")
@@ -562,25 +573,40 @@ def _flash_block_cuda(q, k, v, m, l, acc, q_offset: int, k_offset: int,
         return t, (sb, ss, sh)
 
     (q, qs), (k, ks), (v, vs) = (strides(t) for t in (q, k, v))
-    lib = cuda_build.load("flash_attn.cu", {"nns_flash_block": (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 9
+    source, fn = _FLASH_BLOCK_KERNELS[variant]
+    # the CUDA-core launcher also takes a dtype code (0 f32, 1 bf16)
+    code = [] if variant == "tc" else [_FLOAT_CODE[q.dtype]]
+    lib = cuda_build.load(source, {fn: (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * (5 + len(code))
+        + [ctypes.c_int64] * 9
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
            ctypes.c_void_p], ctypes.c_int)})
     with torch.cuda.device(q.device):
-        err = lib.nns_flash_block(
+        err = getattr(lib, fn)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
-            l.data_ptr(), acc.data_ptr(), _FLOAT_CODE[q.dtype], bh, heads,
-            q.shape[2], k.shape[2], d, *qs, *ks, *vs, d ** -0.5,
-            int(bool(causal)), int(q_offset), int(k_offset),
+            l.data_ptr(), acc.data_ptr(), *code, bh, heads, q.shape[2],
+            k.shape[2], d, *qs, *ks, *vs, d ** -0.5, int(bool(causal)),
+            int(q_offset), int(k_offset),
             torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check(lib, err, "flash_block_update")
+    cuda_build.check(lib, err, f"flash_block_update ({variant} kernel)")
+
+
+def _flash_block_cuda(q, k, v, m, l, acc, q_offset: int, k_offset: int,
+                      causal: bool):
+    variant = flash_block_variant(q.dtype, q.shape[-1])
+    _flash_block_launch(variant, q, k, v, m, l, acc, q_offset, k_offset,
+                        causal)
     flash_block_update.launches += 1
+    if variant == "tc":
+        flash_block_update.launches_tc += 1
+    else:
+        flash_block_update.launches_simt += 1
     return m, l, acc
 
 
 #: the JAX package's ring-step blocks: it refuses an Sq or Sk that
-#: min(128, S) does not divide, and so does the port (the CUDA kernel's
-#: own 64-row tiles take any S)
+#: min(128, S) does not divide, and so does the port (the CUDA kernels'
+#: own tiles take any S)
 _RING_BLOCK = 128
 
 
@@ -597,8 +623,9 @@ def flash_block_update(q, k_blk, v_blk, m, l, acc, *, q_offset: int,
     `q_offset`/`k_offset` are the global positions of q's first row and
     the block's first key (they place the causal mask). Raises ValueError
     where the JAX package's kernel refuses the shape (Sq, Sk not divisible
-    by min(128, S)). A CUDA tensor runs the hand-written kernel; a CPU
-    tensor runs the plain version."""
+    by min(128, S)). A CUDA tensor runs the hand-written kernel of its
+    dtype (`flash_block_variant`); a CPU tensor runs the plain
+    version."""
     if q.dim() not in (3, 4) or k_blk.dim() != q.dim() or \
             k_blk.shape != v_blk.shape or \
             k_blk.shape[:-2] != q.shape[:-2] or \
@@ -634,4 +661,7 @@ def flash_block_update(q, k_blk, v_blk, m, l, acc, *, q_offset: int,
                                     causal=causal)
 
 
+#: kernel launches made by this process, in all and by variant
 flash_block_update.launches = 0
+flash_block_update.launches_tc = 0
+flash_block_update.launches_simt = 0

@@ -15,6 +15,9 @@ softmax, the sums in another order); the rings and the forward 2e-4, as
 tests/test_parallel.py holds JAX's rings to its reference.
 """
 
+import functools
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -177,6 +180,220 @@ def test_flash_block_refuses_what_jax_refuses():
     with pytest.raises(BackendError, match="one device"):
         kernels.flash_block_update(q, kv.to("meta"), kv, m, l, a,
                                    q_offset=0, k_offset=0, causal=False)
+
+
+# -- the bf16 tensor-core ring step: its variant and its numerical design ------
+
+@pytest.mark.parametrize("dtype,d,variant", [
+    (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"),
+    (torch.bfloat16, 40, "tc"), (torch.bfloat16, 256, "tc"),
+    (torch.float32, 128, "simt"), (torch.float32, 4, "simt")])
+def test_flash_block_variant_by_dtype(dtype, d, variant):
+    """bf16 → the tensor-core ring kernel, f32 → the CUDA-core one."""
+    assert kernels.flash_block_variant(dtype, d) == variant
+
+
+@pytest.mark.parametrize("dtype,d", [
+    (torch.float16, 128), (torch.bfloat16, 12), (torch.float32, 6),
+    (torch.bfloat16, 264), (torch.float32, 0)])
+def test_flash_block_variant_refuses_what_flash_refuses(dtype, d):
+    for pick in (kernels.flash_variant, kernels.flash_block_variant):
+        with pytest.raises(BackendError):
+            pick(dtype, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_block_cpu_counts_no_launch(dtype):
+    """A CPU tensor takes the plain version: no launch in all or in
+    either variant."""
+    q = torch.from_numpy(_rand((2, 64, 16), 40)).to(dtype)
+    carry = kernels.flash_carry_init(2, 64, 16)
+    counts = (kernels.flash_block_update.launches,
+              kernels.flash_block_update.launches_tc,
+              kernels.flash_block_update.launches_simt)
+    kernels.flash_block_update(q, q, q, *carry, q_offset=64, k_offset=0,
+                               causal=True)
+    assert (kernels.flash_block_update.launches,
+            kernels.flash_block_update.launches_tc,
+            kernels.flash_block_update.launches_simt) == counts
+    assert torch.isfinite(carry[2]).all()
+
+
+# The CUDA kernel (csrc/flash_attn_tc.cu) cannot run here, so its order of
+# operations is emulated in torch: tiles of TK keys, each split over KW key
+# warps (TK / KW keys each) with their own (m, l, acc) — key warp 0 from
+# the carry, the others from flash_carry_init's values — folded in kw
+# order after the walk; m natural, each exponent one FFMA s * (scale *
+# log2 e) - m * log2 e (emulated in f64, rounded once), corr and the fold
+# factors 2^((m_old - m_new) * log2 e); masked scores -inf; l sums the f32
+# p; P.V takes p rounded to bf16. The kernel's skips (a CTA above the
+# diagonal, key tiles past a CTA's last row) only drop fully masked work,
+# which leaves every value as it is, so the emulation walks every tile.
+# It must hold JAX's Pallas kernel (interpret mode) under chip_smoke.py
+# phase 12's bf16 rule for the output, and m and l under phase 20's f32
+# rule; a row with no live key keeps its carry bit for bit.
+
+#: chip_smoke.py phase 12's bf16 rule: |diff| <= 2^-7 * |ref| + 2^-6 * row
+#: rms; phase 20's f32 rule for m and l: 1e-5 * max|ref| + 1e-6
+FLASH_BF16_ULP, FLASH_BF16_ROW = 2 ** -7, 2 ** -6
+CARRY_REL, CARRY_ABS = 1e-5, 1e-6
+LOG2E = np.float32(1.4426950408889634)
+#: the kernel's layouts: name → (key warps, keys per tile)
+TC_LAYOUTS = {"wide": (1, 64), "split": (8, 128)}
+
+
+def _ring_tc_design(q, k, v, carry, q_off, k_off, causal, layout):
+    """The tensor-core ring step's arithmetic on (BH, S, D) bf16 q, k, v
+    and an f32 (m, l, acc) carry → the new carry (copies)."""
+    kw_n, tk = TC_LAYOUTS[layout]
+    sq, sk, d = q.shape[1], k.shape[1], q.shape[2]
+    scale = np.float32(d ** -0.5)
+    sl2 = torch.tensor(scale * LOG2E, dtype=torch.float64)
+    qf, kf = q.float(), k.float()
+    rows = q_off + torch.arange(sq)
+    parts = []
+    for kw in range(kw_n):
+        if kw == 0:
+            m, l, acc = (t.clone() for t in carry)
+        else:
+            m, l, acc = kernels.flash_carry_init(q.shape[0], sq, d)
+        for t0 in range(0, sk, tk):
+            keys = torch.arange(t0 + kw * tk // kw_n,
+                                min(t0 + (kw + 1) * tk // kw_n, sk))
+            if keys.numel() == 0:
+                continue
+            s = qf @ kf[:, keys].transpose(1, 2)               # raw dots
+            if causal:
+                live = (k_off + keys)[None, :] <= rows[:, None]
+                s = torch.where(live, s, torch.full_like(s, -math.inf))
+            m_new = torch.maximum(m, s.amax(-1) * scale)
+            corr = torch.exp2((m - m_new) * LOG2E)
+            neg = -(m_new * LOG2E)
+            p = torch.exp2((s.double() * sl2 + neg.double()[..., None])
+                           .float())
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + \
+                p.to(torch.bfloat16).float() @ v[:, keys].float()
+            m = m_new
+        parts.append((m, l, acc))
+    m, l, acc = parts[0]
+    for m_p, l_p, acc_p in parts[1:]:
+        m_new = torch.maximum(m, m_p)
+        c_own = torch.exp2((m - m_new) * LOG2E)
+        c_part = torch.exp2((m_p - m_new) * LOG2E)
+        l = l * c_own + l_p * c_part
+        acc = acc * c_own[..., None] + acc_p * c_part[..., None]
+        m = m_new
+    return m, l, acc
+
+
+def _bf16(shape, seed):
+    return torch.from_numpy(_rand(shape, seed)).to(torch.bfloat16)
+
+
+def _jax_step_bf16(q, k, v, carry, q_off, k_off, causal):
+    """JAX's Pallas kernel (interpret mode) on bf16 q, k, v."""
+    m, l, a = (np.asarray(t) for t in carry)
+    rep = [jnp.asarray(np.repeat(x[:, None, :], 8, axis=1)) for x in (m, l)]
+    qj, kj, vj = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                  for t in (q, k, v))
+    jm, jl, ja = jops.flash_block_update(
+        qj, kj, vj, *rep, jnp.asarray(a), q_offset=q_off, k_offset=k_off,
+        causal=causal)
+    return (torch.from_numpy(np.asarray(jm)[:, 0].copy()),
+            torch.from_numpy(np.asarray(jl)[:, 0].copy()),
+            torch.from_numpy(np.asarray(ja).copy()))
+
+
+def _assert_rules(got, want):
+    """Output (acc / l) under the bf16 rule, m and l under the f32 one."""
+    for g, w in zip(got[:2], want[:2]):
+        lim = CARRY_REL * w.abs().max().item() + CARRY_ABS
+        assert (g - w).abs().max().item() <= lim
+    out, ref = (kernels.flash_carry_finalize(c[1], c[2]) for c in (got, want))
+    rms = ref.pow(2).mean(-1, keepdim=True).sqrt()
+    lim = FLASH_BF16_ULP * ref.abs() + FLASH_BF16_ROW * rms
+    ratio = ((out - ref).abs() / lim).max().item()
+    assert ratio <= 1.0, ratio
+
+
+#: name → (Sq, Sk, q_offset, k_offset, causal, rows with no live key)
+TC_STEP_CASES = {
+    "full": (256, 256, 0, 0, False, 0),
+    # rows 0 .. 39 meet no live key, inside computed tiles of both
+    # layouts (the split layout's 32-row CTA 32 .. 63 too)
+    "diagonal-dead-rows": (128, 128, 0, 40, True, 40),
+    "offsets-not-64-multiples": (256, 128, 37, 100, True, 63),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_step_case(case):
+    sq, sk, q_off, k_off, causal, _ = TC_STEP_CASES[case]
+    bh, d = 2, 64
+    carry = _started_carry(bh, sq, d, seed=50)
+    carry = tuple(torch.from_numpy(x) for x in carry)
+    q = _bf16((bh, sq, d), 51)
+    k, v = _bf16((bh, sk, d), 52), _bf16((bh, sk, d), 53)
+    return q, k, v, carry, _jax_step_bf16(q, k, v, carry, q_off, k_off,
+                                           causal)
+
+
+@pytest.mark.parametrize("layout", sorted(TC_LAYOUTS))
+@pytest.mark.parametrize("case", sorted(TC_STEP_CASES))
+def test_tc_ring_design_holds_pallas(case, layout):
+    sq, sk, q_off, k_off, causal, dead = TC_STEP_CASES[case]
+    q, k, v, carry, want = _tc_step_case(case)
+    got = _ring_tc_design(q, k, v, carry, q_off, k_off, causal, layout)
+    _assert_rules(got, want)
+    # a row that meets no live key keeps its carry bit for bit, in the
+    # design, in JAX's kernel and in the port's plain version
+    plain = [t.clone() for t in carry]
+    kernels.flash_block_update_plain(q, k, v, *plain, q_offset=q_off,
+                                     k_offset=k_off, causal=causal)
+    for g, w, p_, c in zip(got, want, plain, carry):
+        for t in (g, w, p_):
+            assert torch.equal(t[:, :dead].view(torch.int32),
+                               c[:, :dead].view(torch.int32))
+
+
+#: the chain's inputs: q and four 128-key shards (BH 2, D 64)
+CHAIN_SL = 128
+
+
+def _chain_inputs():
+    bh, d = 2, 64
+    q = _bf16((bh, CHAIN_SL, d), 60)
+    blocks = [(_bf16((bh, CHAIN_SL, d), 61 + i),
+               _bf16((bh, CHAIN_SL, d), 65 + i)) for i in range(4)]
+    return q, blocks
+
+
+def _chain(step_fn):
+    """Four causal steps from flash_carry_init for the shard at position
+    1 of a 4-way ring; blocks above the diagonal are skipped, as the
+    wrapper's plain version and the kernel skip them."""
+    q, blocks = _chain_inputs()
+    carry = kernels.flash_carry_init(q.shape[0], CHAIN_SL, q.shape[2])
+    for step in range(4):
+        src = (1 - step) % 4
+        if 2 * CHAIN_SL - 1 < src * CHAIN_SL:
+            continue
+        carry = step_fn(q, *blocks[src], carry, CHAIN_SL, src * CHAIN_SL,
+                        True)
+    return carry
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_chain():
+    return _chain(_jax_step_bf16)
+
+
+@pytest.mark.parametrize("layout", sorted(TC_LAYOUTS))
+def test_tc_ring_design_chain_from_init_holds_pallas(layout):
+    """The chain compared after finalize."""
+    got = _chain(lambda *a: _ring_tc_design(*a, layout))
+    _assert_rules(got, _jax_chain())
 
 
 # -- the mesh -------------------------------------------------------------------
