@@ -25,13 +25,16 @@ phases there). Phases:
 6. timings: per-frame latency p50/p99 and FPS of A and B with the
    card's busy share, and each kernel's device time beside its bound and
    its plain version's time;
-7. the paged-attention kernels (decode; prefill, whose products run on
-   the tensor cores as split TF32) against their plain
-   torch versions on the card: full width (8 heads, hd 128, block 16)
-   and GQA (8 heads on 2 kv heads), holey and out-of-order tables,
-   staggered rows (one at a block boundary), pow2 padding rows, a
-   multi-chunk prefill with pos0 > 0, q in f32 and bf16 — within
-   1e-5 * max|plain| + 1e-6;
+7. the paged-attention kernels (decode, each row's walk split over the
+   KV axis; prefill, whose products run on the tensor cores as split
+   TF32) against their plain torch versions on the card: full width (8
+   heads, hd 128, block 16) and GQA (8 heads on 2 kv heads), holey and
+   out-of-order tables, staggered rows (one at a block boundary), pow2
+   padding rows, one long row alone (B 1 at pos 1567), rows on the
+   decode plan's split boundaries (the last key of a split, the first of
+   the next, the table's last slot), a multi-chunk prefill with pos0 >
+   0, q in f32 and bf16 — within 1e-5 * max|plain| + 1e-6; each decode
+   case launched twice, the two outputs equal bit for bit;
 8. LLM serving at full width through tensor_llm (d_model 1024, 8 heads,
    4 layers, vocab 512, max_len 2048; paged_kernel=pallas,
    prefill_chunk=512): 8 requests of 64-1536 prompt tokens, 64 new tokens
@@ -41,15 +44,20 @@ phases there). Phases:
    inter-token latency p50/p99, and the kernels' launches counted by the
    wrappers and by name in a profiler trace (4 per decode step, 4 per
    prefill chunk);
-10. each paged kernel's device time at the serving shapes beside its
-   bounds (bytes; f32 operations on the CUDA cores; for prefill also its
-   split-TF32 operations on the tensor cores), its plain version's time
-   and scaled_dot_product_attention's on K/V gathered beforehand;
+10. each paged kernel's device time at the serving shapes (decode also
+   at one row alone, B 1 at pos 1567) beside its bounds (bytes; f32
+   operations on the CUDA cores; for prefill also its split-TF32
+   operations on the tensor cores), its plain version's time and
+   scaled_dot_product_attention's on K/V gathered beforehand; for decode
+   the CTAs the launch ran and how many of them were live;
 11. quantize_rows against its plain version, bit for bit (int8 rows and
    f32 scales): the serving shapes (M 1/8/512 x K 1024/4096), the
    forward's M 16384, ragged M, all-zero rows, K not a multiple of the
    vector width, a misaligned strided view, expanded and overlapping
-   rows, f32 and bf16;
+   rows, the register path's longest rows, rows on the shared-memory
+   path (long ones, ragged ones at the 48 KB edge, the longest), f32
+   and bf16; the launcher's path for each shape (the main path's on the
+   register path);
 12. flash_attention against its plain version (f32 on the CUDA-core
    kernel, bf16 on the tensor-core kernel): f32 causal and not at
    (2, 2048, 8, 128) within 1e-5 * max|plain| + 1e-6; bf16 at the
@@ -79,7 +87,8 @@ phases there). Phases:
    and ITL with 17 quantize_rows launches per decode step and per chunk;
 15. quantize_rows and flash_attention device times at the main path's
    shapes beside their bounds, their plain versions' times and, for
-   flash, scaled_dot_product_attention's;
+   flash, scaled_dot_product_attention's; beside quantize_rows, the
+   launch floor (a kernel that returns at once, queued the same way);
 16. clamp_scale against its plain version, bit for bit (NaN positions
    compared): P's frame (1x257x257x3 f32), 16M f32 elements spread over
    60 binades, strided views, bf16 and f16 (affine, an offset of +0,
@@ -380,10 +389,35 @@ class Phases:
 
 # -- paged attention: kernels vs plain ----------------------------------------
 
+def sm_count(torch, dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def decode_split_keys(torch, dev, batch, n_kv, hd=128, bs=16, mb=128) -> int:
+    """Keys per split of the decode kernel's plan for this shape."""
+    from nnstreamer_tpu_torch.backends import paged_attn as pa
+
+    return pa.decode_plan(batch, 8, n_kv, hd, bs, mb,
+                          sm_count(torch, dev)).bps * bs
+
+
+def decode_rows(rng, perm, depths, bs, mb):
+    """Block tables (holey, out of order, disjoint rows) and positions of
+    rows at the given depths (one past a row's table: its last slot)."""
+    tables = np.zeros((len(depths), mb), np.int32)
+    for b, depth in enumerate(depths):
+        n = min(mb, depth // bs + 1)
+        tables[b, :n] = perm[b * mb:b * mb + n]
+    return tables, np.asarray(depths, np.int32)
+
+
 def paged_cases(torch, dev):
     """(name, kernel fn, plain fn, args) for every checked case: decode
     and prefill at full width (8 heads, 8 kv heads, hd 128, block 16)
-    and GQA (8 heads on 2 kv heads), q f32 and bf16."""
+    and GQA (8 heads on 2 kv heads), q f32 and bf16; decode also one long
+    row alone (B 1 at pos 1567) and rows on the kernel's split boundaries
+    (the last key of a split, the first of the next, the table's last
+    slot)."""
     from nnstreamer_tpu_torch.backends import paged_attn as pa
 
     rng = np.random.default_rng(1)
@@ -395,23 +429,26 @@ def paged_cases(torch, dev):
             for _ in range(2)]
         # rows: holey/out-of-order tables, staggered depths (row 1 at a
         # block boundary), two pow2 padding rows on the scratch block
-        tables = np.zeros((8, mb), np.int32)
-        pos = np.zeros(8, np.int32)
         perm = rng.permutation(np.arange(1, nb))
-        for b, depth in enumerate((1535, 16, 700, 63, 1000, 3)):
-            n = depth // bs + 1
-            tables[b, :n] = perm[b * mb:b * mb + n]
-            pos[b] = depth
-        t_tab = torch.from_numpy(tables).to(dev)
-        t_pos = torch.from_numpy(pos).to(dev)
+        tables, pos = decode_rows(rng, perm, (1535, 16, 700, 63, 1000, 3,
+                                              0, 0), bs, mb)
+        tables[6:] = 0
+        split = decode_split_keys(torch, dev, 4, n_kv)
+        rows = {"B8": (tables, pos),
+                "B1 pos 1567": decode_rows(rng, perm, (1567,), bs, mb),
+                f"B4 split boundaries (split {split} keys)": decode_rows(
+                    rng, perm, (split - 1, split, 3 * split, mb * bs - 1),
+                    bs, mb)}
         seq = torch.from_numpy(tables[0]).to(dev)   # 96 holey blocks
         for qdt in (torch.float32, torch.bfloat16):
             tag = f"kv{n_kv} {str(qdt).split('.')[-1]}"
-            q = torch.from_numpy(rng.standard_normal(
-                (8, 8, hd)).astype(np.float32)).to(dev, qdt)
-            cases.append((f"decode {tag} B8", pa.paged_decode_attn,
-                          pa.paged_decode_attn_plain,
-                          (q, *pools, t_tab, t_pos)))
+            for rname, (tab, ps) in rows.items():
+                q = torch.from_numpy(rng.standard_normal(
+                    (len(ps), 8, hd)).astype(np.float32)).to(dev, qdt)
+                cases.append((f"decode {tag} {rname}", pa.paged_decode_attn,
+                              pa.paged_decode_attn_plain,
+                              (q, *pools, torch.from_numpy(tab).to(dev),
+                               torch.from_numpy(ps).to(dev))))
             # chunks: first of a long prompt, later chunks (pos0 > 0,
             # one not block-aligned), a short chunk padded to its bucket
             for s_c, pos0 in ((512, 0), (512, 1024), (64, 1000), (8, 0)):
@@ -431,13 +468,21 @@ def check_paged_kernels(torch, dev, record) -> dict:
     for name, kern, plain, args in paged_cases(torch, dev):
         got = kern(*args)
         ref = plain(*args)
+        # decode folds its splits' partials in split order, whichever CTA
+        # ends last: a second launch gives the same bits
+        again = kern(*args) if name.startswith("decode") else got
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         lim = PAGED_REL * ref.abs().max().item() + PAGED_ABS
-        print(f"phase 7: {name}: max_abs_err {err:.3e} (limit {lim:.3e})")
+        same = bits_equal(torch, got, again)
+        print(f"phase 7: {name}: max_abs_err {err:.3e} (limit {lim:.3e})"
+              + (f"; second launch bitwise "
+                 f"{'equal' if same else 'DIFFERENT'}"
+                 if name.startswith("decode") else ""))
         check(torch.isfinite(got).all().item(), f"{name}: non-finite output")
         check(err <= lim, f"{name}: kernel differs from its plain version "
                           f"by {err:.3e} > {lim:.3e}")
+        check(same, f"{name}: two launches on the same input differ")
         record.setdefault("paged_kernel_errs", {})[name] = err
         if "kv8 bfloat16" in name:
             key = name.split()[0]
@@ -570,9 +615,11 @@ def check_f32_parity(torch, last_logits, requests, got, ref,
 
 def paged_timing(torch, dev, requests, card) -> dict:
     """Each paged kernel at the serving shapes (bf16 q as in phase 9;
-    decode: the 8 rows midway through their 64 new tokens; prefill: the
-    third 512-token chunk of the longest prompt) → kernel, plain and
-    SDPA-on-pre-gathered times and the bytes bound."""
+    decode: the 8 rows midway through their 64 new tokens, and one row
+    alone at pos 1567; prefill: the third 512-token chunk of the longest
+    prompt) → kernel, plain and SDPA-on-pre-gathered times, the bytes
+    bound and, for decode, the CTAs the launch ran and how many were
+    live."""
     import torch.nn.functional as F
 
     from nnstreamer_tpu_torch.backends import paged_attn as pa
@@ -606,14 +653,30 @@ def paged_timing(torch, dev, requests, card) -> dict:
     dmask = (torch.arange(mb * bs, device=dev)[None, :]
              <= t_pos[:, None])[:, None, None, :]
     qd32 = q_dec.float()[:, :, None]
+    # one long row alone: the case the split over the KV axis is for
+    pos1 = np.array([1567], np.int32)
+    tab1 = np.zeros((1, mb), np.int32)
+    tab1[0, :pos1[0] // bs + 1] = perm[:pos1[0] // bs + 1]
+    t_tab1, t_pos1 = (torch.from_numpy(a).to(dev) for a in (tab1, pos1))
+    q_one = q_dec[:1].contiguous()
+    k1, v1 = gathered(t_tab1, 1)
+    mask1 = (torch.arange(mb * bs, device=dev)
+             <= t_pos1[0])[None, None, None, :]
+    q1_32 = q_one.float()[:, :, None]
     kp, vp = gathered(seq, 1)
     pmask = (torch.arange(mb * bs, device=dev)[None, :]
              <= pos0 + torch.arange(s_c, device=dev)[:, None])[None, None]
     qp32 = q_pre.float()[None]
     kv_row = n_kv * hd * 4 * 2
-    dec_bytes = (int((pos + 1).sum()) * kv_row + q_dec.numel() * 2
-                 + q_dec.numel() * 4 + tables.nbytes + pos.nbytes)
-    dec_ops = int((pos + 1).sum()) * 4 * hd * heads
+    def dec_work(pos, tables, q):
+        # each attended K/V row read once, q read, out written; 4 flops a
+        # key and dim per query head
+        nbytes = (int((pos + 1).sum()) * kv_row + q.numel() * 2
+                  + q.numel() * 4 + tables.nbytes + pos.nbytes)
+        return nbytes, int((pos + 1).sum()) * 4 * hd * heads
+
+    dec_bytes, dec_ops = dec_work(pos, tables, q_dec)
+    one_bytes, one_ops = dec_work(pos1, tab1, q_one)
     kv_tokens = min(pos0 + s_c, mb * bs)
     pre_bytes = (kv_tokens * kv_row + q_pre.numel() * 2 + q_pre.numel() * 4
                  + seq.numel() * 4)
@@ -629,6 +692,13 @@ def paged_timing(torch, dev, requests, card) -> dict:
                                                    attn_mask=dmask),
             dec_bytes, dec_ops, None, f"B{len(requests)} rows at pos "
                                       f"{pos.tolist()}"),
+        "paged_decode_attn B1": (
+            lambda: pa.paged_decode_attn(q_one, *pools, t_tab1, t_pos1),
+            lambda: pa.paged_decode_attn_plain(q_one, *pools, t_tab1,
+                                               t_pos1),
+            lambda: F.scaled_dot_product_attention(q1_32, k1, v1,
+                                                   attn_mask=mask1),
+            one_bytes, one_ops, None, "B1 row at pos 1567"),
         "paged_prefill_attn": (
             lambda: pa.paged_prefill_attn(q_pre, *pools, seq, pos0),
             lambda: pa.paged_prefill_attn_plain(q_pre, *pools, seq, pos0),
@@ -637,9 +707,13 @@ def paged_timing(torch, dev, requests, card) -> dict:
             pre_bytes, pre_ops, pre_tf32_ops, f"S_c {s_c} at pos0 {pos0}"),
     }
     out = {}
+    sms = sm_count(torch, dev)
+    live_splits = lambda p, plan: sum(                       # noqa: E731
+        max(1, -(-(int(x) // bs + 1) // plan.bps)) for x in p)
     for name, (kern, plain, lib, nbytes, ops, tf32_ops, shape) in \
             work.items():
-        launches = getattr(pa, name).launches
+        wrapper = getattr(pa, name.split()[0])
+        launches = wrapper.launches
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         f32_ms = ops / F32_FLOPS * 1e3
         # the bound of the design built: decode's f32 FMAs on the CUDA
@@ -654,11 +728,20 @@ def paged_timing(torch, dev, requests, card) -> dict:
                "bytes_bound_ms": bytes_ms, "f32_bound_ms": f32_ms,
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-        getattr(pa, name).launches = launches   # timing launches not counted
+        wrapper.launches = launches   # timing launches not counted
         out[name] = res
-        tf32 = "" if tf32_ops is None else (
+        extra = "" if tf32_ops is None else (
             f"; split TF32 {tf32_ops} flop at 495 TFLOP/s = "
             f"{ops_ms:.6f} ms (the kernel's)")
+        if name.startswith("paged_decode_attn"):
+            p = pos1 if name.endswith("B1") else pos
+            plan = pa.decode_plan(len(p), heads, n_kv, hd, bs, mb, sms)
+            res.update(splits=plan.splits, blocks_per_split=plan.bps,
+                       ctas=len(p) * n_kv * plan.splits,
+                       live_ctas=n_kv * live_splits(p, plan))
+            extra = (f"; grid {len(p)} x {n_kv} x {plan.splits} splits of "
+                    f"{plan.bps} blocks = {res['ctas']} CTAs on {sms} SMs, "
+                    f"{res['live_ctas']} live")
         print(f"phase 10: {name} ({shape}, kv8 hd128 bs16, q bf16): "
               f"device {res['ms']:.5f} ms per launch (queued), "
               f"{res['event_ms']:.5f} ms per call (CUDA events); plain torch "
@@ -667,7 +750,7 @@ def paged_timing(torch, dev, requests, card) -> dict:
               f"{res['library_ms']:.5f} ms device; bound "
               f"{res['bound_ms']:.6f} ms ({res['bound_by']}); bounds: bytes "
               f"{nbytes} B at 3.35 TB/s = {bytes_ms:.6f} ms, f32 CUDA cores "
-              f"{ops} flop at 67 TFLOP/s = {f32_ms:.6f} ms{tf32} [{card}]")
+              f"{ops} flop at 67 TFLOP/s = {f32_ms:.6f} ms{extra} [{card}]")
     return out
 
 
@@ -816,7 +899,21 @@ def check_quantize_rows(torch, dev) -> float:
                rows(1, 1024).expand(64, 1024)),
               ("overlapping rows (row stride 512) M64 K1024 bfloat16",
                torch.as_strided(rows(1, 64 * 512 + 512).to(bf16),
-                                (64, 1024), (512, 1)))]
+                                (64, 1024), (512, 1))),
+              # the register path's longest rows (8 vectors a lane over
+              # 16 warps), rows past it, ragged rows at the 48 KB edge of
+              # shared memory without opting in, and the longest row
+              ("K12288 float32 (registers, 8 vectors a lane)",
+               rows(16, 12288)),
+              ("K20000 float32 (shared-memory path)", rows(8, 20000)),
+              ("K40000 bfloat16 (shared-memory path)",
+               rows(8, 40000).to(bf16)),
+              ("K12285 float32 (shared-memory path, 49140 B)",
+               rows(8, 12285)),
+              ("K24573 bfloat16 (shared-memory path, 49146 B)",
+               rows(8, 24573).to(bf16)),
+              ("K58104 float32 (shared-memory path, the longest row)",
+               rows(4, 58104))]
     worst = 0.0
     for name, x in cases:
         q, s = kernels.quantize_rows(x)
@@ -825,9 +922,21 @@ def check_quantize_rows(torch, dev) -> float:
         err = max((q.int() - qp.int()).abs().max().item(),
                   (s - sp).abs().max().item())
         same = bits_equal(torch, q, qp) and bits_equal(torch, s, sp)
+        # the launcher's path for a contiguous x (views: after the
+        # wrapper's copy, or strided rows the kernel reads in place)
+        path = kernels.quantize_rows_layout(
+            x.shape[1], x.dtype, x.is_contiguous() and x.data_ptr() % 16 == 0)
         print(f"phase 11: quantize_rows {name}: max_abs_err {err} bitwise "
-              f"{'equal' if same else 'DIFFERENT'}")
+              f"{'equal' if same else 'DIFFERENT'}; path for contiguous "
+              f"rows: {path[0]}" + (f" ({path[1]} vectors a lane, {path[2]} "
+                                   f"warps a row)" if path[1] else ""))
         check(same, f"quantize_rows {name} differs from its plain version")
+        if name.startswith(("M", "forward")) or "(registers" in name:
+            check(path[0] == "registers",
+                  f"quantize_rows {name}: the main path's shape takes "
+                  f"{path[0]}")
+        if "shared-memory path" in name:
+            check(path[0] == "shared memory", f"{name}: takes {path[0]}")
         worst = max(worst, err)
     return worst
 
@@ -1270,16 +1379,27 @@ def slice3_timing(torch, dev, card) -> dict:
 
     launches = (kernels.quantize_rows.launches,
                 kernels.flash_attention.launches)
+    # the launch floor: a kernel that returns at once (ATen's spin kernel
+    # for 0 cycles), queued as the kernels below are
+    floor_ms = device_ms_per_call(torch, lambda: torch.cuda._sleep(0), 50)
+    out["launch floor"] = {"ms": floor_ms}
+    print(f"phase 15: launch floor (torch.cuda._sleep(0), a kernel that "
+          f"returns at once): device {floor_ms:.5f} ms per launch (queued) "
+          f"[{card}]")
     for m, k in ((8, 1024), (8, 4096), (512, 1024), (512, 4096),
                  (16384, 1024)):
         x = torch.from_numpy(rng.standard_normal((m, k)).astype(
             np.float32)).to(dev, torch.bfloat16)
         # read bf16, write int8 and one f32 scale per row; abs, max,
         # divide, round, clip per element on the f32 units
-        measure(f"quantize_rows M{m} K{k} bf16",
-                lambda x=x: kernels.quantize_rows(x),
+        key = f"quantize_rows M{m} K{k} bf16"
+        measure(key, lambda x=x: kernels.quantize_rows(x),
                 lambda x=x: kernels.quantize_rows_plain(x), None,
                 m * k * 3 + m * 4, 5 * m * k, F32_FLOPS, 50)
+        r = out[key]
+        print(f"phase 15: {key}: {r['ms']:.5f} ms = {r['ms'] / floor_ms:.3f}"
+              f" x the launch floor, {r['bound_ms'] / r['ms']:.3f} of its "
+              f"bound [{card}]")
     for b, s in ((8, 2048), (1, 32768)):
         q, k, v = (torch.from_numpy(rng.standard_normal(
             (b, s, 8, 128)).astype(np.float32)).to(dev, torch.bfloat16)

@@ -8,39 +8,57 @@
 //
 // Both compute what the TPU kernels compute, not a carry-over of their
 // grids: the TPU walks table blocks as a sequential grid axis with the
-// softmax state in scratch memory; here one CTA owns its query rows for
-// the whole walk and loops over the table itself, a tile at a time
-// (decode: whole pool blocks, up to 64 keys; prefill: 64 keys, or 32 at
-// head dim 256, whatever the block size). Semantics shared with the JAX
-// package's _online_softmax_update (pallas_ops.py):
+// softmax state in scratch memory. Here decode splits each row's walk
+// over the KV axis into CTAs of whole pool blocks and folds their
+// partials in the same launch; prefill gives one CTA its query rows for
+// the whole walk, a 64-key tile at a time (32 at head dim 256), whatever
+// the block size. Semantics shared with the JAX package's
+// _online_softmax_update (pallas_ops.py):
 // - s = (q . k) * scale in f32 (q widened from f32 or bf16; pool f32);
 // - masked scores are set to -1e30; p is forced to 0 where s <= -1e29;
 // - m starts at -1e30, l at 0; corr = exp(m_old - m_new);
 //   l = l * corr + sum(p); acc = acc * corr + p . v;
 // - out = acc / max(l, 1e-20), f32.
-// Decode masks kv_pos <= pos[b] (inclusive) and skips table blocks that
-// start past pos[b]; prefill masks pos0 + row >= kv_pos and skips blocks
-// that start past the q-block's last row. GQA: query head h reads kv head
+// Partials (m, l, acc) of disjoint key sets fold as M = max m, l = sum
+// l e^(m - M), acc = sum acc e^(m - M); one with no live key (m -1e30,
+// l 0) adds nothing. Decode masks kv_pos <= pos[b] (inclusive) and skips
+// table blocks that start past pos[b] (a row with pos < 0 gives 0);
+// prefill masks pos0 + row >= kv_pos and skips blocks that start past
+// the q-block's last row. GQA: query head h reads kv head
 // h / (n_heads / n_kv) straight from the narrow pool, never a
 // group-expanded copy. The pool of one layer arrives as a pointer plus
 // block/slot/head strides (innermost dim contiguous); nothing is copied.
 //
-// Bound: bytes for decode (each attended K/V element is read once for
-// 2-4 flops). For prefill, the operations: the serving chunk (S_c 512 at
-// pos0 1024, 8 heads x hd 128) does 2.69 GFLOP, 0.0401 ms on the CUDA
-// cores' 67 TFLOP/s f32; as split TF32 (below) its 3 x 2.69 GFLOP take
-// 0.0163 ms at the tensor cores' 495 TFLOP/s TF32; its ~12.6 MB of K/V
-// take ~0.004 ms at 3.35 TB/s. The designs:
-// - K/V tiles move global -> shared with cp.async, 16 bytes a thread,
-//   double-buffered so the next tile's copy overlaps this tile's math;
-//   a tile slot past the walk is zero-filled, so masked p = 0 never meets
-//   an uninitialised (possibly NaN) value;
-// - the CTA's slice of the block table is copied to shared memory once;
-// - decode: one thread per (query head, key) for q.k (float4 rows of a
-//   padded tile, conflict-free), one warp per query head for the
-//   softmax, and the P.V accumulators in registers, with the tile's keys
-//   split over the threads that would otherwise idle (partials summed
-//   once at the end);
+// Bound: bytes for decode (each attended K/V element, 4 bytes of the f32
+// pool, is read once for 2 flops of q.k and 2 of p.v). For prefill, the
+// operations: the serving chunk (S_c 512 at pos0 1024, 8 heads x hd 128)
+// does 2.69 GFLOP, 0.0401 ms on the CUDA cores' 67 TFLOP/s f32; as split
+// TF32 (below) its 3 x 2.69 GFLOP take 0.0163 ms at the tensor cores'
+// 495 TFLOP/s TF32; its ~12.6 MB of K/V take ~0.004 ms at 3.35 TB/s.
+// The designs:
+// - decode: grid (batch, n_kv, splits). Split s of a row takes table
+//   blocks s * bps .. s * bps + bps - 1; the host picks splits and bps
+//   from the table width, batch * n_kv and the SM count (it never reads
+//   pos), so a few short rows' dead splits return at once and a long
+//   row's walk runs on many SMs. A CTA's four warps each walk their own
+//   batches of 8 keys (4 where more heads or dims take the registers)
+//   with (m, l, acc) in registers, no barrier per batch: lane i holds
+//   dims 4i .. 4i + 3 of q, acc and each batch key's K and V row (16-byte
+//   loads, a batch's 2-4 KB in flight a warp); the batch's dot products
+//   are summed by one reduce-scatter of shuffles, so each lane ends with
+//   one key's score, takes its exp, and the p's are broadcast for p.v.
+//   The warps' partials fold once through shared memory; the split's
+//   partial goes to a workspace, and the last live split of a (row, kv
+//   head) to take an atomic ticket (after __threadfence) folds all of
+//   them in split order, so the result does not depend on which CTA ran
+//   last, writes out and resets the ticket to 0 for the next launch on
+//   that stream. A row with a single live split writes out directly.
+//   GQA shares each K/V load among the group's heads;
+// - prefill: K/V tiles move global -> shared with cp.async, 16 bytes a
+//   thread, double-buffered so the next tile's copy overlaps this tile's
+//   math; a tile slot past the walk is zero-filled, so masked p = 0
+//   never meets an uninitialised (possibly NaN) value; the CTA's slice
+//   of the block table is copied to shared memory once;
 // - prefill: both products on the tensor cores as split TF32
 //   (mma.sync.m16n8k8.tf32, f32 accumulators). Each f32 operand x is
 //   split into hi = tf32(x) and lo = tf32(x - hi), and a.b is taken as
@@ -60,8 +78,8 @@
 //   dims (2t, 2t+1) and P.V's over keys (2t, 2t+1), so S's accumulator
 //   fragment is P.V's A fragment as it stands and P never touches shared
 //   memory.
-// Still ahead (later work): a split over the KV axis for small decode
-// batches (the longest row walks alone in its CTA), TMA, and wgmma.
+// Still ahead (later work): TMA and wgmma for prefill; for decode, K/V
+// loads of the next batch issued before this batch's math.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,28 +93,14 @@ namespace {
 constexpr float kMasked = -1e30f;
 constexpr float kMaskedBelow = -1e29f;
 constexpr float kLFloor = 1e-20f;
-constexpr int kTileKeys = 64;        // keys per tile (whole pool blocks)
-constexpr int kDecodeThreads = 128;
-constexpr int kDecodeMaxOut = 4;     // float4 accumulators per thread
+constexpr int kMaxBlock = 64;        // pool block size, at most
+constexpr int kDecMaxTable = 4096;   // table blocks a decode split stages
 constexpr int kDefaultSmem = 48 * 1024;
 constexpr int kMaxSmem = 227 * 1024;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 __device__ __forceinline__ float4 operator*(float4 a, float s) {
@@ -134,201 +138,258 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Where one layer's pool is and how one CTA walks it.
-struct PoolWalk {
-  const float* k_pool;
-  const float* v_pool;
-  const int* table;      // this walk's block table (shared memory)
-  int64_t sb, ss;        // block / slot strides (elements)
-  int64_t head_off;      // kv head * head stride
-  int bs, hd, ld;        // block size, head dim, smem row stride
-  int bpt;               // pool blocks per tile
-  int nblk;              // table blocks this CTA attends
+// -- decode: each row's walk split over the KV axis ---------------------------
+
+constexpr int kDecWarps = 4;                      // key warps per CTA
+constexpr int kDecThreads = 32 * kDecWarps;
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// One decode CTA by GP (the query group g padded to a power of two) and
+// VPL (128-dim chunks of the head, 4 dims a lane each): KB keys per warp
+// batch (fewer where the registers hold more heads or dims), and the
+// floats of one (acc, m, l) partial.
+template <int GP, int VPL>
+struct DecodeCfg {
+  static constexpr int kKB = (VPL == 1 && GP <= 2) ? 8 : 4;
+  static constexpr int kKeyShift = kKB == 8 ? 2 : 3;  // lane >> it: its key
+  static constexpr int kHdp = 128 * VPL;
+  static constexpr int kAcc = GP * kHdp;
+  // m and l of each head after acc, padded so each warp's partial in
+  // shared memory starts 16-byte aligned
+  static constexpr int kPart = kAcc + (2 * GP + 3) / 4 * 4;
 };
 
-// Queue the copy of tile t (blocks t*bpt .. t*bpt+bpt-1) into k_s/v_s,
-// rows = keys; blocks past the walk are zero-filled.
-__device__ __forceinline__ void stage_tile(const PoolWalk& w, int t,
-                                           float* k_s, float* v_s) {
-  const int vec = w.hd / 4;
-  const int n = w.bpt * w.bs * vec;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int row = i / vec, d = (i - row * vec) * 4;
-    const int blk = row / w.bs, slot = row - blk * w.bs;
-    const int j = t * w.bpt + blk;
-    const bool live = j < w.nblk;
-    const int64_t off =
-        live ? static_cast<int64_t>(w.table[j]) * w.sb + slot * w.ss +
-                   w.head_off + d
-             : 0;
-    cp_async16(k_s + row * w.ld + d, w.k_pool + off, live ? 16 : 0);
-    cp_async16(v_s + row * w.ld + d, w.v_pool + off, live ? 16 : 0);
-  }
-  cp_async_commit();
-}
-
-// Walk every tile with a double-buffered (nbuf 2) or single-buffered
-// (nbuf 1) copy; body(tile, k_s, v_s) runs between barriers.
-template <typename Body>
-__device__ __forceinline__ void walk_tiles(const PoolWalk& w, int nbuf,
-                                           float* kv_s, Body body) {
-  const int tile_elems = w.bpt * w.bs * w.ld;
-  const int ntiles = (w.nblk + w.bpt - 1) / w.bpt;
-  if (ntiles == 0) return;
-  stage_tile(w, 0, kv_s, kv_s + tile_elems);
-  for (int t = 0; t < ntiles; ++t) {
-    float* cur = kv_s + (t % nbuf) * 2 * tile_elems;
-    const bool ahead = nbuf == 2 && t + 1 < ntiles;
-    if (ahead) {
-      float* nxt = kv_s + ((t + 1) % 2) * 2 * tile_elems;
-      stage_tile(w, t + 1, nxt, nxt + tile_elems);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+// Reduce-scatter of KB per-lane partial sums over the warp: each halving
+// step keeps half of the values and adds the partner's copy of them, so
+// the KB sums take KB - 1 + log2(32 / KB) shuffles, not 5 KB. On return
+// v[0] is the whole sum of key (lane >> (5 - log2 KB)), the same in the
+// 32 / KB lanes that hold it.
+template <int N, int OFF, int KB>
+struct Scatter {
+  static __device__ __forceinline__ void run(float (&v)[KB], int lane) {
+    const bool hi = lane & OFF;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const float send = hi ? v[i] : v[i + N / 2];
+      const float keep = hi ? v[i + N / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
     }
-    __syncthreads();
-    body(t, cur, cur + tile_elems);
-    __syncthreads();
-    if (nbuf == 1 && t + 1 < ntiles)
-      stage_tile(w, t + 1, kv_s, kv_s + tile_elems);
+    Scatter<N / 2, OFF / 2, KB>::run(v, lane);
   }
+};
+template <int OFF, int KB>
+struct Scatter<1, OFF, KB> {
+  static __device__ __forceinline__ void run(float (&v)[KB], int) {
+#pragma unroll
+    for (int o = OFF; o > 0; o >>= 1)
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+  }
+};
+
+// Fold n (acc, m, l) partials, in order, into element `e` of one head:
+// M = max m, L = sum l e^(m - M), A = sum acc e^(m - M) → A (M and L
+// through the pointers). A partial with no live key (m -1e30, l 0, acc
+// 0) adds nothing.
+template <typename Load>
+__device__ __forceinline__ float fold_parts(Load ld, int n, int e, int m_at,
+                                            int l_at, float* M, float* L) {
+  float mx = kMasked;
+  for (int i = 0; i < n; ++i) mx = fmaxf(mx, ld(i, m_at));
+  float a = 0.f, s = 0.f;
+  for (int i = 0; i < n; ++i) {
+    const float c = expf(ld(i, m_at) - mx);
+    s = fmaf(ld(i, l_at), c, s);
+    a = fmaf(ld(i, e), c, a);
+  }
+  *M = mx;
+  *L = s;
+  return a;
 }
 
-// One CTA per (row b, kv head): the g query heads of the group against
-// every table block j with j * bs <= pos[b].
-template <typename Q>
-__global__ void __launch_bounds__(kDecodeThreads) nns_paged_decode_kernel(
+// Grid (batch, n_kv, splits): CTA (b, kv head, split) attends the g query
+// heads of the group against table blocks split * bps .. + bps - 1 of
+// row b, up to pos[b]. A split past pos[b] returns at once; a row with
+// one live split (or none: pos < 0) writes out itself. Otherwise each
+// live split leaves its partial in ws, and the last of them to take a
+// ticket folds all of them in split order, writes out and resets the
+// ticket. In the CTA, warp w takes key batches w, w + 4, ... with its
+// own (m, l, acc) in registers: lane i holds dims 4i .. 4i + 3 of each
+// 128-dim chunk of q and acc, and of every batch key's K and V row (16-
+// byte loads, 2 KB loads in flight each).
+template <typename Q, int GP, int VPL>
+__global__ void __launch_bounds__(kDecThreads) nns_paged_decode_kernel(
     const Q* __restrict__ q, const float* __restrict__ k_pool,
     const float* __restrict__ v_pool, const int* __restrict__ tables,
-    const int* __restrict__ pos, float* __restrict__ out, int n_heads,
-    int n_kv, int hd, int bs, int mb, int64_t sb, int64_t ss, int64_t sh,
-    float scale, int nbuf) {
-  extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.x, kvh = blockIdx.y;
-  const int g = n_heads / n_kv;
-  const int vec = hd / 4;
-  const int nout = g * vec;                      // float4 outputs
-  const int parts = max(1, kDecodeThreads / nout);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int nwarps = kDecodeThreads / 32;
+    const int* __restrict__ pos, float* __restrict__ out,
+    float* __restrict__ ws, int* __restrict__ tickets, int n_heads,
+    int n_kv, int hd, int bs, int mb, int bps, int64_t sb, int64_t ss,
+    int64_t sh, float scale) {
+  using C = DecodeCfg<GP, VPL>;
+  constexpr int KB = C::kKB;
+  __shared__ __align__(16) float red_s[kDecWarps * C::kPart];
+  __shared__ int last_s;
+  extern __shared__ int tab_s[];                    // the split's blocks
+
+  const int b = blockIdx.x, kvh = blockIdx.y, split = blockIdx.z;
   const int p = pos[b];
+  const int nblk = p < 0 ? 0 : min(mb, p / bs + 1);
+  const int nlive = (nblk + bps - 1) / bps;
+  if (split > 0 && split >= nlive) return;          // no live key here
+  const int blk0 = split * bps;
+  const int nb = max(0, min(bps, nblk - blk0));
+  const int key0 = blk0 * bs, key1 = key0 + nb * bs;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = n_heads / n_kv;
 
-  PoolWalk w;
-  w.k_pool = k_pool;
-  w.v_pool = v_pool;
-  w.sb = sb;
-  w.ss = ss;
-  w.head_off = kvh * sh;
-  w.bs = bs;
-  w.hd = hd;
-  w.ld = hd + 4;                      // float4-aligned, conflict-free
-  w.bpt = max(1, kTileKeys / bs);
-  w.nblk = p < 0 ? 0 : min(mb, p / bs + 1);
-  const int tile_keys = w.bpt * bs;
-
-  float* kv_s = smem;                                  // nbuf x 2 tiles
-  float* q_s = kv_s + nbuf * 2 * tile_keys * w.ld;     // g x hd
-  float* s_s = q_s + g * hd;                           // g x tile_keys
-  float* m_s = s_s + g * tile_keys;                    // g
-  float* l_s = m_s + g;                                // g
-  float* c_s = l_s + g;                                // g
-  int* tab_s = reinterpret_cast<int*>(c_s + g);        // nblk
-  w.table = tab_s;
-
+  for (int i = tid; i < nb; i += kDecThreads)
+    tab_s[i] = tables[static_cast<int64_t>(b) * mb + blk0 + i];
   const int64_t row0 = (static_cast<int64_t>(b) * n_heads + kvh * g) * hd;
-  for (int i = tid; i < g * hd; i += kDecodeThreads)
-    q_s[i] = to_f32(q[row0 + i]);
-  for (int i = tid; i < w.nblk; i += kDecodeThreads)
-    tab_s[i] = tables[static_cast<int64_t>(b) * mb + i];
-  for (int i = tid; i < g; i += kDecodeThreads) {
-    m_s[i] = kMasked;
-    l_s[i] = 0.f;
-  }
-  __syncthreads();
-
-  // thread tid accumulates outputs o = tid % nout + k * kDecodeThreads
-  // (when nout >= the block) over the keys of its part tid / nout
-  const int part = tid / nout < parts ? tid / nout : parts;  // parts = idle
-  float4 acc[kDecodeMaxOut];
+  float4 qv[GP][VPL], acc[GP][VPL];
+  float m[GP], l[GP];
 #pragma unroll
-  for (int k = 0; k < kDecodeMaxOut; ++k) acc[k] = make_float4(0, 0, 0, 0);
-
-  walk_tiles(w, nbuf, kv_s, [&](int t, const float* k_s, const float* v_s) {
-    const int key0 = t * tile_keys;
-    for (int i = tid; i < g * tile_keys; i += kDecodeThreads) {
-      const int h = i / tile_keys, k = i - h * tile_keys;
-      const float4* qr = reinterpret_cast<const float4*>(q_s + h * hd);
-      const float4* kr = reinterpret_cast<const float4*>(k_s + k * w.ld);
-      float d0 = 0.f, d1 = 0.f;          // two chains for ILP
-      int d4 = 0;
-      for (; d4 + 1 < vec; d4 += 2) {
-        d0 = dot4(qr[d4], kr[d4], d0);
-        d1 = dot4(qr[d4 + 1], kr[d4 + 1], d1);
-      }
-      if (d4 < vec) d0 = dot4(qr[d4], kr[d4], d0);
-      s_s[i] = key0 + k <= p ? (d0 + d1) * scale : kMasked;
-    }
-    __syncthreads();
-    for (int h = warp; h < g; h += nwarps) {
-      float* sr = s_s + h * tile_keys;
-      float mx = kMasked;
-      for (int k = lane; k < tile_keys; k += 32) mx = fmaxf(mx, sr[k]);
-      mx = warp_max(mx);
-      const float m_new = fmaxf(m_s[h], mx);
-      float sum = 0.f;
-      for (int k = lane; k < tile_keys; k += 32) {
-        const float s = sr[k];
-        const float e = s <= kMaskedBelow ? 0.f : expf(s - m_new);
-        sr[k] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_s[h] - m_new);
-        c_s[h] = corr;
-        l_s[h] = l_s[h] * corr + sum;
-        m_s[h] = m_new;
-      }
-    }
-    __syncthreads();
-    if (part < parts) {
+  for (int h = 0; h < GP; ++h) {
+    m[h] = kMasked;
+    l[h] = 0.f;
 #pragma unroll
-      for (int k = 0; k < kDecodeMaxOut; ++k) {
-        const int o = tid % nout + k * kDecodeThreads;
-        if (o >= nout || (k > 0 && nout <= kDecodeThreads)) break;
-        const int h = o / vec, d4 = o - h * vec;
-        const float* pr = s_s + h * tile_keys;
-        float4 a = acc[k] * c_s[h];
-        for (int key = part; key < tile_keys; key += parts)
-          fma4(a, pr[key],
-               reinterpret_cast<const float4*>(v_s + key * w.ld)[d4]);
-        acc[k] = a;
-      }
-    }
-  });
-
-  // sum the parts' partial accumulators, normalise, write
-  float4* red = reinterpret_cast<float4*>(kv_s);       // parts x nout
-  if (part < parts) {
-#pragma unroll
-    for (int k = 0; k < kDecodeMaxOut; ++k) {
-      const int o = tid % nout + k * kDecodeThreads;
-      if (o >= nout || (k > 0 && nout <= kDecodeThreads)) break;
-      red[part * nout + o] = acc[k];
+    for (int c = 0; c < VPL; ++c) {
+      const int d = c * 128 + 4 * lane;
+      qv[h][c] = h < g && d < hd ? load4(q + row0 + h * hd + d)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+      acc[h][c] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
-  __syncthreads();
-  float4* o4 = reinterpret_cast<float4*>(out + row0);
-  for (int o = tid; o < nout; o += kDecodeThreads) {
-    float4 a = red[o];
-    for (int pt = 1; pt < parts; ++pt) {
-      const float4 x = red[pt * nout + o];
-      a.x += x.x;
-      a.y += x.y;
-      a.z += x.z;
-      a.w += x.w;
+  __syncthreads();                                  // tab_s is in
+
+  const int64_t head_off = kvh * sh;
+  const int nbatch = (key1 - key0 + KB - 1) / KB;
+  for (int j = warp; j < nbatch; j += kDecWarps) {
+    const int kb = key0 + j * KB;
+    int blk = kb / bs, slot = kb - blk * bs;
+    blk -= blk0;
+    float4 kr[KB][VPL], vr[KB][VPL];
+#pragma unroll
+    for (int i = 0; i < KB; ++i) {
+      const bool in = kb + i < key1;
+      int64_t off = 0;
+      if (in) off = static_cast<int64_t>(tab_s[blk]) * sb + slot * ss + head_off;
+#pragma unroll
+      for (int c = 0; c < VPL; ++c) {
+        const int d = c * 128 + 4 * lane;
+        if (in && d < hd) {
+          kr[i][c] = load4(k_pool + off + d);
+          vr[i][c] = load4(v_pool + off + d);
+        } else {
+          kr[i][c] = vr[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+      if (++slot == bs) {
+        slot = 0;
+        ++blk;
+      }
     }
-    o4[o] = a * (1.f / fmaxf(l_s[o / vec], kLFloor));
+    const int key = kb + (lane >> C::kKeyShift);    // this lane's key
+    const bool valid = key <= p && key < key1;
+#pragma unroll
+    for (int h = 0; h < GP; ++h) {
+      float sc[KB];
+#pragma unroll
+      for (int i = 0; i < KB; ++i) {
+        float d0 = 0.f;
+#pragma unroll
+        for (int c = 0; c < VPL; ++c) d0 = dot4(qv[h][c], kr[i][c], d0);
+        sc[i] = d0;
+      }
+      Scatter<KB, 16, KB>::run(sc, lane);
+      const float s = valid ? sc[0] * scale : kMasked;
+      float mx = s;
+#pragma unroll
+      for (int o = 1 << C::kKeyShift; o < 32; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m[h], mx);
+      const float corr = expf(m[h] - m_new);
+      const float e = s <= kMaskedBelow ? 0.f : expf(s - m_new);
+      l[h] = fmaf(l[h], corr, e);                   // this lane's key only
+      m[h] = m_new;
+#pragma unroll
+      for (int c = 0; c < VPL; ++c) acc[h][c] = acc[h][c] * corr;
+#pragma unroll
+      for (int i = 0; i < KB; ++i) {
+        const float pk = __shfl_sync(0xffffffffu, e, i << C::kKeyShift);
+#pragma unroll
+        for (int c = 0; c < VPL; ++c) fma4(acc[h][c], pk, vr[i][c]);
+      }
+    }
+  }
+
+  // the warps' partials (l summed over the lanes of distinct keys) into
+  // shared memory, folded in warp order into the split's
+  float* mine = red_s + warp * C::kPart;
+#pragma unroll
+  for (int h = 0; h < GP; ++h) {
+#pragma unroll
+    for (int o = 1 << C::kKeyShift; o < 32; o <<= 1)
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], o);
+#pragma unroll
+    for (int c = 0; c < VPL; ++c)
+      *reinterpret_cast<float4*>(mine + h * C::kHdp + c * 128 + 4 * lane) =
+          acc[h][c];
+    if (lane == 0) {
+      mine[C::kAcc + h] = m[h];
+      mine[C::kAcc + GP + h] = l[h];
+    }
+  }
+  __syncthreads();
+  const auto from_warps = [&](int w, int i) { return red_s[w * C::kPart + i]; };
+  const int64_t pair = static_cast<int64_t>(b) * n_kv + kvh;
+  float* part = ws + (pair * gridDim.z + split) * C::kPart;
+  for (int e = tid; e < C::kAcc; e += kDecThreads) {
+    const int h = e / C::kHdp, d = e - h * C::kHdp;
+    float mx, lsum;
+    const float a = fold_parts(from_warps, kDecWarps, e, C::kAcc + h,
+                               C::kAcc + GP + h, &mx, &lsum);
+    if (nlive <= 1) {
+      if (h < g && d < hd) out[row0 + h * hd + d] = a / fmaxf(lsum, kLFloor);
+    } else {
+      part[e] = a;
+      if (d == 0) {
+        part[C::kAcc + h] = mx;
+        part[C::kAcc + GP + h] = lsum;
+      }
+    }
+  }
+  if (nlive <= 1) return;
+
+  // ticket: the partial is visible before the count moves; the CTA that
+  // takes the last ticket reads the partials after seeing the count
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    last_s = atomicAdd(tickets + pair, 1) == nlive - 1;
+    if (last_s) tickets[pair] = 0;                  // every live split took one
+  }
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  const float* parts = ws + pair * gridDim.z * C::kPart;
+  const auto from_splits = [&](int s, int i) {
+    return __ldcg(parts + static_cast<int64_t>(s) * C::kPart + i);
+  };
+  for (int e = tid; e < C::kAcc; e += kDecThreads) {
+    const int h = e / C::kHdp, d = e - h * C::kHdp;
+    if (h >= g || d >= hd) continue;
+    float mx, lsum;
+    const float a = fold_parts(from_splits, nlive, e, C::kAcc + h,
+                               C::kAcc + GP + h, &mx, &lsum);
+    out[row0 + h * hd + d] = a / fmaxf(lsum, kLFloor);
   }
 }
 
@@ -644,46 +705,61 @@ cudaError_t ensure_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// Shared memory for nbuf K/V tile pairs plus `rest` floats: double
-// buffering when it fits, else single.
-int pick_nbuf(size_t tile_pair_bytes, size_t rest_bytes, size_t* bytes) {
-  for (int nbuf = 2; nbuf >= 1; --nbuf) {
-    *bytes = nbuf * tile_pair_bytes + rest_bytes;
-    if (*bytes <= kMaxSmem) return nbuf;
-  }
-  return 0;
+template <typename Q, int GP, int VPL>
+cudaError_t launch_decode_cfg(const void* q, const void* k_pool,
+                              const void* v_pool, const void* tables,
+                              const void* pos, void* out, void* ws,
+                              int64_t ws_floats, void* tickets, int n_tickets,
+                              int batch, int n_heads, int n_kv, int hd, int bs,
+                              int mb, int splits, int bps, int64_t sb,
+                              int64_t ss, int64_t sh, float scale,
+                              cudaStream_t stream) {
+  const int64_t pairs = static_cast<int64_t>(batch) * n_kv;
+  if (splits < 1 || splits > 65535 || n_kv > 65535 || bps < 1 ||
+      static_cast<int64_t>(splits) * bps < mb || bps > kDecMaxTable)
+    return cudaErrorInvalidConfiguration;
+  if (splits > 1 &&
+      (ws == nullptr || tickets == nullptr || n_tickets < pairs ||
+       ws_floats < pairs * splits * DecodeCfg<GP, VPL>::kPart))
+    return cudaErrorInvalidValue;
+  const size_t bytes = sizeof(int) * std::min(bps, mb);
+  nns_paged_decode_kernel<Q, GP, VPL>
+      <<<dim3(batch, n_kv, splits), kDecThreads, bytes, stream>>>(
+          static_cast<const Q*>(q), static_cast<const float*>(k_pool),
+          static_cast<const float*>(v_pool), static_cast<const int*>(tables),
+          static_cast<const int*>(pos), static_cast<float*>(out),
+          static_cast<float*>(ws), static_cast<int*>(tickets), n_heads, n_kv,
+          hd, bs, mb, bps, sb, ss, sh, scale);
+  return cudaGetLastError();
 }
 
+// the kernel by the group padded to a power of two and the 128-dim
+// chunks of the head (GP * VPL <= 8: the registers)
 template <typename Q>
 cudaError_t launch_decode(const void* q, const void* k_pool,
                           const void* v_pool, const void* tables,
-                          const void* pos, void* out, int batch, int n_heads,
-                          int n_kv, int hd, int bs, int mb, int64_t sb,
-                          int64_t ss, int64_t sh, float scale,
-                          cudaStream_t stream) {
+                          const void* pos, void* out, void* ws,
+                          int64_t ws_floats, void* tickets, int n_tickets,
+                          int batch, int n_heads, int n_kv, int hd, int bs,
+                          int mb, int splits, int bps, int64_t sb, int64_t ss,
+                          int64_t sh, float scale, cudaStream_t stream) {
   const int g = n_heads / n_kv;
-  const size_t tile_keys =
-      static_cast<size_t>(std::max(1, kTileKeys / bs)) * bs;
-  size_t bytes = 0;
-  const size_t tile_pair = sizeof(float) * 2 * tile_keys * (hd + 4);
-  const int nbuf = pick_nbuf(
-      tile_pair,
-      sizeof(float) * (static_cast<size_t>(g) * hd + g * tile_keys + 3 * g) +
-          sizeof(int) * mb,
-      &bytes);
-  // the final reduction reuses the tile buffers: parts x g*hd floats
-  if (nbuf == 0 || g * hd / 4 > kDecodeMaxOut * kDecodeThreads ||
-      sizeof(float) * std::max(kDecodeThreads * 4, g * hd) > nbuf * tile_pair)
-    return cudaErrorInvalidConfiguration;
-  cudaError_t err = ensure_smem(nns_paged_decode_kernel<Q>, bytes);
-  if (err != cudaSuccess) return err;
-  nns_paged_decode_kernel<Q><<<dim3(batch, n_kv), kDecodeThreads, bytes,
-                               stream>>>(
-      static_cast<const Q*>(q), static_cast<const float*>(k_pool),
-      static_cast<const float*>(v_pool), static_cast<const int*>(tables),
-      static_cast<const int*>(pos), static_cast<float*>(out), n_heads, n_kv,
-      hd, bs, mb, sb, ss, sh, scale, nbuf);
-  return cudaGetLastError();
+  const int vpl = (hd + 127) / 128;
+#define NNS_DECODE(GPV, VPLV)                                                 \
+  if (g <= GPV && vpl == VPLV)                                                \
+    return launch_decode_cfg<Q, GPV, VPLV>(                                   \
+        q, k_pool, v_pool, tables, pos, out, ws, ws_floats, tickets,          \
+        n_tickets, batch, n_heads, n_kv, hd, bs, mb, splits, bps, sb, ss, sh, \
+        scale, stream);
+  NNS_DECODE(1, 1)
+  NNS_DECODE(2, 1)
+  NNS_DECODE(4, 1)
+  NNS_DECODE(8, 1)
+  NNS_DECODE(1, 2)
+  NNS_DECODE(2, 2)
+  NNS_DECODE(4, 2)
+#undef NNS_DECODE
+  return cudaErrorInvalidValue;
 }
 
 template <typename Q, int HDP>
@@ -733,7 +809,7 @@ cudaError_t launch_prefill(const void* q, const void* k_pool,
 bool shapes_ok(int n_heads, int n_kv, int hd, int bs, int mb, int64_t sb,
                int64_t ss, int64_t sh) {
   return n_kv > 0 && n_heads % n_kv == 0 && hd > 0 && hd % 4 == 0 &&
-         bs > 0 && bs <= kTileKeys && mb > 0 && sb % 4 == 0 && ss % 4 == 0 &&
+         bs > 0 && bs <= kMaxBlock && mb > 0 && sb % 4 == 0 && ss % 4 == 0 &&
          sh % 4 == 0;
 }
 
@@ -741,32 +817,41 @@ bool shapes_ok(int n_heads, int n_kv, int hd, int bs, int mb, int64_t sb,
 
 extern "C" {
 
-// q_code: 0 f32, 1 bf16. q (batch, n_heads, hd) contiguous; k/v pool of
-// one layer with block/slot/head strides sb/ss/sh in elements (innermost
-// contiguous, 16-byte aligned rows: hd and the strides multiples of 4);
-// tables (batch, mb) and pos (batch,) int32; out (batch, n_heads, hd)
-// f32. block size <= 64. Launches on `stream`, returns
-// cudaGetLastError() (or cudaErrorInvalidValue / InvalidConfiguration
-// for shapes outside the contract); does not synchronise and allocates
-// nothing.
+// q_code: 0 f32, 1 bf16. q (batch, n_heads, hd) contiguous, 16-byte
+// aligned; k/v pool of one layer with block/slot/head strides sb/ss/sh in
+// elements (innermost contiguous, 16-byte aligned rows: hd and the
+// strides multiples of 4); tables (batch, mb) and pos (batch,) int32; out
+// (batch, n_heads, hd) f32. block size <= 64; g = n_heads / n_kv padded
+// to a power of two, times ceil(hd / 128), at most 8 (hd <= 256). The
+// walk is split in `splits` CTAs of `bps` table blocks per (row, kv
+// head), splits * bps >= mb and bps <= 4096; with splits > 1, ws holds
+// ws_floats >= batch * n_kv * splits * (GP * 128 * ceil(hd / 128) +
+// 2 GP rounded up to a multiple of 4) floats and tickets n_tickets >= batch * n_kv ints, all 0 before the
+// first launch on a stream (each launch leaves them 0; two streams never
+// share them). Launches on `stream`, returns cudaGetLastError() (or
+// cudaErrorInvalidValue / InvalidConfiguration for arguments outside the
+// contract); does not synchronise and allocates nothing.
 int nns_paged_decode(const void* q, int q_code, const void* k_pool,
                      const void* v_pool, const void* tables, const void* pos,
-                     void* out, int batch, int n_heads, int n_kv, int hd,
-                     int bs, int mb, int64_t sb, int64_t ss, int64_t sh,
-                     float scale, void* stream) {
+                     void* out, void* ws, int64_t ws_floats, void* tickets,
+                     int n_tickets, int batch, int n_heads, int n_kv, int hd,
+                     int bs, int mb, int splits, int bps, int64_t sb,
+                     int64_t ss, int64_t sh, float scale, void* stream) {
   if (batch <= 0) return cudaSuccess;
   if (!shapes_ok(n_heads, n_kv, hd, bs, mb, sb, ss, sh))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (q_code) {
     case 0:
-      return launch_decode<float>(q, k_pool, v_pool, tables, pos, out, batch,
-                                  n_heads, n_kv, hd, bs, mb, sb, ss, sh,
-                                  scale, s);
+      return launch_decode<float>(q, k_pool, v_pool, tables, pos, out, ws,
+                                  ws_floats, tickets, n_tickets, batch,
+                                  n_heads, n_kv, hd, bs, mb, splits, bps, sb,
+                                  ss, sh, scale, s);
     case 1:
-      return launch_decode<__nv_bfloat16>(q, k_pool, v_pool, tables, pos, out,
-                                          batch, n_heads, n_kv, hd, bs, mb,
-                                          sb, ss, sh, scale, s);
+      return launch_decode<__nv_bfloat16>(
+          q, k_pool, v_pool, tables, pos, out, ws, ws_floats, tickets,
+          n_tickets, batch, n_heads, n_kv, hd, bs, mb, splits, bps, sb, ss,
+          sh, scale, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -138,6 +138,38 @@ def quantize_rows_plain(x: torch.Tensor):
     return q, scale
 
 
+#: the longest row the kernel takes: a block's 227 KB of shared memory
+#: less the shared-memory path's own 32 bytes
+_QUANT_MAX_ROW_BYTES = 227 * 1024 - 32
+
+
+def _quantize_rows_lib():
+    from nnstreamer_tpu_torch.backends import cuda_build
+
+    return cuda_build.load("quantize_rows.cu", {
+        "nns_quantize_rows": (
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+            ctypes.c_int),
+        "nns_quantize_rows_layout": (
+            [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)],
+            ctypes.c_int)})
+
+
+def quantize_rows_layout(k: int, dtype: torch.dtype, aligned: bool = True):
+    """The path the CUDA launcher takes for rows of `k` values of `dtype`
+    (16-byte aligned rows and output where `aligned`): ("registers",
+    vectors a lane, warps a row) or ("shared memory", 0, 0). Builds the
+    kernel's library; for reports on the card."""
+    nv, wpr = ctypes.c_int(), ctypes.c_int()
+    reg = _quantize_rows_lib().nns_quantize_rows_layout(
+        _FLOAT_CODE[dtype], k, int(aligned), ctypes.byref(nv),
+        ctypes.byref(wpr))
+    return ("registers", nv.value, wpr.value) if reg else \
+        ("shared memory", 0, 0)
+
+
 def _quantize_rows_cuda(x: torch.Tensor):
     from nnstreamer_tpu_torch.backends import cuda_build
 
@@ -146,20 +178,18 @@ def _quantize_rows_cuda(x: torch.Tensor):
             f"quantize_rows kernel takes a 2-D float32 or bfloat16 matrix, "
             f"got {x.dtype} {tuple(x.shape)}")
     m, k = x.shape
-    if k == 0 or k * x.element_size() > 227 * 1024:
+    if k == 0 or k * x.element_size() > _QUANT_MAX_ROW_BYTES:
         raise BackendError(
-            f"quantize_rows kernel stages a row in shared memory: K={k} "
-            f"{x.dtype} must be 1 .. {227 * 1024 // x.element_size()}")
+            f"quantize_rows kernel holds a row in registers or shared "
+            f"memory: K={k} {x.dtype} must be 1 .. "
+            f"{_QUANT_MAX_ROW_BYTES // x.element_size()}")
     # the kernel reads row r at x + r * stride(0): rows must not overlap
     # (an expanded or broadcast view is copied first)
     if x.stride(1) != 1 or (m > 1 and x.stride(0) < k):
         x = x.contiguous()
     q = torch.empty((m, k), dtype=torch.int8, device=x.device)
     scale = torch.empty((m, 1), dtype=torch.float32, device=x.device)
-    lib = cuda_build.load("quantize_rows.cu", {"nns_quantize_rows": (
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-        ctypes.c_int)})
+    lib = _quantize_rows_lib()
     with torch.cuda.device(x.device):
         err = lib.nns_quantize_rows(
             x.data_ptr(), _FLOAT_CODE[x.dtype], x.stride(0) if m > 1 else k,

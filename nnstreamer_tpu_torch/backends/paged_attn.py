@@ -7,7 +7,10 @@ exists in device memory:
 
 - ``paged_decode_attn`` — one decode step of one layer: q (B, n_heads,
   hd) against pool blocks ``tables[b, j]``, mask ``kv_pos <= pos[b]``,
-  blocks past ``pos[b]`` skipped; out (B, n_heads, hd) f32.
+  blocks past ``pos[b]`` skipped; out (B, n_heads, hd) f32. Each row's
+  walk is split over the KV axis (`decode_plan`): the splits of a (row,
+  kv head) fold their partials in the same launch, through a workspace
+  and tickets that the wrapper keeps per device and stream.
 - ``paged_prefill_attn`` — causal attention of one prefill chunk of one
   layer: q (n_heads, S_c, hd) starting at absolute ``pos0``, through one
   sequence's table (max_blocks,), mask ``pos0 + row >= kv_pos``; out
@@ -29,6 +32,7 @@ share its layer stack and differ only in the attention they plug in.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -42,12 +46,20 @@ _Q_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: blocks)
 MAX_BLOCK_SIZE = 64
 
+#: decode: warps per CTA and most table blocks one split stages (as
+#: csrc/paged_attn.cu's kDecWarps and kDecMaxTable), CTAs aimed at per
+#: SM (a short row's splits past its position return at once)
+DECODE_WARPS, DECODE_MAX_TABLE, DECODE_CTAS_PER_SM = 4, 4096, 8
+#: decode: padded query group x 128-dim head chunks a lane's registers hold
+DECODE_MAX_GROUP_CHUNKS = 8
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _SIGNATURES = {
-    "nns_paged_decode": ([_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _L, _L, _L, ctypes.c_float, _P], _I),
+    "nns_paged_decode": ([_P, _I, _P, _P, _P, _P, _P, _P, _L, _P, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _I, _L, _L, _L,
+                          ctypes.c_float, _P], _I),
     "nns_paged_prefill": ([_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _L, _L, _L, ctypes.c_float, _P], _I),
 }
@@ -119,6 +131,74 @@ def _check_pools(what, q, k_pool_l, v_pool_l, n_heads):
             f"{hd}, block_size {bs}, strides {k_pool_l.stride()}")
 
 
+class DecodePlan(NamedTuple):
+    """How the decode kernel splits a launch: the query group padded to a
+    power of two (``gp``), 128-dim head chunks a lane holds (``vpl``),
+    keys a warp takes per batch (``kb``), splits per (row, kv head) and
+    table blocks per split (``bps``), floats of one split's partial
+    (``gp``, ``vpl``, ``kb`` and ``part_floats`` as the kernel's
+    DecodeCfg has them)."""
+    gp: int
+    vpl: int
+    kb: int
+    splits: int
+    bps: int
+    part_floats: int
+
+
+def decode_plan(batch: int, n_heads: int, n_kv: int, hd: int, bs: int,
+                mb: int, sms: int) -> DecodePlan:
+    """The decode kernel's layout for these shapes on a card of `sms` SMs.
+    It never reads ``pos`` (that would synchronise every step): splits
+    come from the table width `mb` and ``batch * n_kv`` against
+    DECODE_CTAS_PER_SM CTAs an SM, each split at least two batches a warp
+    (fewer, longer splits fold faster where a long row walks alone);
+    where ``batch * n_kv`` fills that alone, one split (unless the table
+    outgrows DECODE_MAX_TABLE blocks)."""
+    g = n_heads // n_kv
+    gp = 1 << (g - 1).bit_length()
+    vpl = -(-hd // 128)
+    if hd > 256 or gp * vpl > DECODE_MAX_GROUP_CHUNKS:
+        raise BackendError(
+            f"paged_decode_attn kernel holds a lane's share of q and acc "
+            f"for the query group in registers: head_dim <= 256 and "
+            f"next_pow2(n_heads / n_kv) * ceil(head_dim / 128) <= "
+            f"{DECODE_MAX_GROUP_CHUNKS}; got {n_heads} heads on {n_kv} kv "
+            f"heads, head_dim {hd}")
+    kb = 8 if vpl == 1 and gp <= 2 else 4
+    splits = max(1, -(-DECODE_CTAS_PER_SM * sms // (batch * n_kv)))
+    bps = max(-(-mb // splits), -(-2 * DECODE_WARPS * kb // bs))
+    bps = min(bps, DECODE_MAX_TABLE)
+    return DecodePlan(gp, vpl, kb, -(-mb // bps), bps,
+                      gp * 128 * vpl + -(-2 * gp // 4) * 4)
+
+
+#: (device index, batch, n_heads, n_kv, hd, bs, mb) → DecodePlan
+_plans: Dict[tuple, DecodePlan] = {}
+#: (device index, stream) → (workspace f32, tickets int32): the tickets are
+#: zeroed once here and left 0 by every launch; a stream never shares them
+_workspaces: Dict[Tuple[int, int], tuple] = {}
+
+
+def _decode_plan_on(device, *shape) -> DecodePlan:
+    key = (device.index, *shape)
+    plan = _plans.get(key)
+    if plan is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = _plans[key] = decode_plan(*shape, sms)
+    return plan
+
+
+def _decode_workspace(device, stream: int, floats: int, tickets: int):
+    ws, tk = _workspaces.get((device.index, stream), (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(max(floats, 1), dtype=torch.float32, device=device)
+    if tk is None or tk.numel() < tickets:
+        tk = torch.zeros(max(tickets, 1), dtype=torch.int32, device=device)
+    _workspaces[(device.index, stream)] = (ws, tk)
+    return ws, tk
+
+
 def _int32_on(what, t, device, ndim):
     if t.dtype != torch.int32 or t.device != device or t.dim() != ndim:
         raise BackendError(
@@ -127,13 +207,14 @@ def _int32_on(what, t, device, ndim):
     return t.contiguous()
 
 
-def _launch(fn_name, what, q, *args):
+def _launch(fn_name, what, q, *args, stream=None):
     from nnstreamer_tpu_torch.backends import cuda_build
 
     lib = cuda_build.load("paged_attn.cu", _SIGNATURES)
+    if stream is None:
+        stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = getattr(lib, fn_name)(
-            *args, torch.cuda.current_stream(q.device).cuda_stream)
+        err = getattr(lib, fn_name)(*args, stream)
     cuda_build.check(lib, err, what)
 
 
@@ -147,14 +228,22 @@ def _paged_decode_cuda(q, k_pool_l, v_pool_l, tables, pos):
             f"paged_decode_attn: {b} q rows but tables {tuple(tables.shape)}"
             f" and pos {tuple(pos.shape)}")
     q = q.contiguous()
+    if q.data_ptr() % 16:          # the kernel reads q 16 (f32) or 8 bytes
+        q = q.clone()
     out = torch.empty((b, n_heads, hd), dtype=torch.float32, device=q.device)
     _, bs, n_kv, _ = k_pool_l.shape
     sb, ss, sh, _ = k_pool_l.stride()
+    mb = tables.shape[1]
+    plan = _decode_plan_on(q.device, b, n_heads, n_kv, hd, bs, mb)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    floats = b * n_kv * plan.splits * plan.part_floats
+    ws, tk = _decode_workspace(q.device, stream, floats, b * n_kv)
     _launch("nns_paged_decode", "paged_decode_attn", q,
             q.data_ptr(), _Q_CODE[q.dtype], k_pool_l.data_ptr(),
             v_pool_l.data_ptr(), tables.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), b, n_heads, n_kv, hd, bs, tables.shape[1],
-            sb, ss, sh, hd ** -0.5)
+            out.data_ptr(), ws.data_ptr(), ws.numel(), tk.data_ptr(),
+            tk.numel(), b, n_heads, n_kv, hd, bs, mb, plan.splits, plan.bps,
+            sb, ss, sh, hd ** -0.5, stream=stream)
     paged_decode_attn.launches += 1
     return out
 

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time design variants of two hand-written kernels on the card.
 
-    python3 nnstreamer_tpu_torch/tools/kernel_variants.py
+    python3 nnstreamer_tpu_torch/tools/kernel_variants.py [SECTION ...]
 
 Needs one CUDA card and nvcc, and runs from a checkout (it uses
-chip_smoke.py's timers). It builds, into build/kernel_variants/:
+chip_smoke.py's timers). SECTIONs (all by default): ring, clamp, decode,
+quantize. It builds, into build/kernel_variants/:
 
 - a copy of backends/csrc/flash_attn_tc.cu with one more entry point,
   which launches the bf16 ring-step kernel in a layout chosen by index
@@ -20,7 +21,16 @@ chip_smoke.py's timers). It builds, into build/kernel_variants/:
   checked bit for bit against the plain version and timed at P's frame
   (1x257x257x3) and at 16M elements beside the shipped kernel and
   torch.clamp, in turns; and the count of branch instructions in each
-  clip's SASS (cuobjdump).
+  clip's SASS (cuobjdump);
+- copies of backends/csrc/quantize_rows.cu whose register path spreads a
+  row over other numbers of values a lane and packs rows into other CTA
+  sizes, each checked bit for bit against the plain version and timed at
+  the main path's five shapes beside the launch floor, in turns.
+
+It also launches the shipped paged decode kernel under other split plans
+(CTAs aimed at per SM, so blocks per split), each held to the plain
+version and timed at the serving shape and at one row at pos 1567, in
+turns.
 
 PERF.md cites the numbers it prints.
 """
@@ -39,6 +49,12 @@ ROOT = Path(__file__).resolve().parents[2]
 OUT = ROOT / "build" / "kernel_variants"
 #: ring-step layouts at head dim 128: (query warps, key warps, keys a tile)
 RING_LAYOUTS = [(4, 1, 64), (2, 2, 64), (1, 4, 64), (2, 4, 64), (1, 8, 128)]
+#: decode split plans: CTAs aimed at per SM (the shipped plan's
+#: paged_attn.DECODE_CTAS_PER_SM is one of them)
+DECODE_CTAS = [2, 4, 8, 16, 32]
+#: quantize_rows register layouts: (values a lane, threads a CTA at least)
+QUANT_LAYOUTS = [(8, 128), (4, 128), (16, 128), (32, 128), (8, 256),
+                 (16, 256)]
 #: clamp variants: (branch-free clip, threads, vectors a thread, one wave)
 CLAMP_VARIANTS = [(False, 256, 1, False), (True, 256, 1, False),
                   (True, 128, 2, False), (True, 128, 4, False),
@@ -166,9 +182,154 @@ def build(cuda_build) -> tuple:
     return libs[0], libs[1], sass
 
 
-def main() -> int:
+def build_quantize(cuda_build) -> list:
+    """Copies of quantize_rows.cu in QUANT_LAYOUTS → their libraries."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    src = (cuda_build.CSRC / "quantize_rows.cu").read_text()
+    lanes = "lanes = (k + 7) / 8;"
+    threads = "constexpr int kRegThreads = 128;"
+    assert lanes in src and threads in src
+    nvcc = cuda_build.find_nvcc()
+
+    def compile_(layout):
+        values, cta = layout
+        name = f"quantize_v{values}_t{cta}"
+        text = src.replace(lanes, f"lanes = (k + {values - 1}) / {values};")
+        text = text.replace(threads, f"constexpr int kRegThreads = {cta};")
+        (OUT / f"{name}.cu").write_text(text)
+        lib = OUT / f"{name}.so"
+        proc = subprocess.run([nvcc, *cuda_build.NVCC_FLAGS, "-o", str(lib),
+                               str(OUT / f"{name}.cu")], capture_output=True,
+                              text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc {name}: {proc.stderr[-3000:]}")
+        return lib
+
+    with ThreadPoolExecutor(len(QUANT_LAYOUTS)) as pool:
+        return list(pool.map(compile_, QUANT_LAYOUTS))
+
+
+def decode_plans(torch, cs, card) -> None:
+    """The shipped decode kernel under each plan of DECODE_CTAS, held to
+    the plain version and timed in turns."""
+    from nnstreamer_tpu_torch.backends import paged_attn as pa
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(12)
+    nb, bs, n_kv, hd, mb = 1025, 16, 8, 128, 128
+    pools = [torch.from_numpy(rng.standard_normal(
+        (nb, bs, n_kv, hd)).astype(np.float32)).to(dev) for _ in range(2)]
+    perm = rng.permutation(np.arange(1, nb))
+    lens = [len(p) + cs.LLM_NEW_TOKENS // 2 for p in cs.llm_requests()]
+    sms = cs.sm_count(torch, dev)
+    lib = cuda_build_load(pa)
+    for label, depths in (("serving B8", lens), ("B1 pos 1567", [1567])):
+        tables, pos = cs.decode_rows(rng, perm, depths, bs, mb)
+        tab, ps = (torch.from_numpy(a).to(dev) for a in (tables, pos))
+        q = torch.from_numpy(rng.standard_normal(
+            (len(depths), 8, hd)).astype(np.float32)).to(dev, torch.bfloat16)
+        ref = pa.paged_decode_attn_plain(q, *pools, tab, ps)
+        fns = {}
+        for ctas in DECODE_CTAS:
+            shipped = pa.DECODE_CTAS_PER_SM
+            pa.DECODE_CTAS_PER_SM = ctas
+            plan = pa.decode_plan(len(depths), 8, n_kv, hd, bs, mb, sms)
+            pa.DECODE_CTAS_PER_SM = shipped
+            ws = torch.empty(max(1, len(depths) * n_kv * plan.splits *
+                                 plan.part_floats), device=dev)
+            tk = torch.zeros(len(depths) * n_kv, dtype=torch.int32,
+                             device=dev)
+
+            def run(plan=plan, ws=ws, tk=tk):
+                out = torch.empty((len(depths), 8, hd), device=dev)
+                sb, ss, sh, _ = pools[0].stride()
+                err = lib.nns_paged_decode(
+                    q.data_ptr(), 1, pools[0].data_ptr(), pools[1].data_ptr(),
+                    tab.data_ptr(), ps.data_ptr(), out.data_ptr(),
+                    ws.data_ptr(), ws.numel(), tk.data_ptr(), tk.numel(),
+                    len(depths), 8, n_kv, hd, bs, mb, plan.splits, plan.bps,
+                    sb, ss, sh, hd ** -0.5,
+                    torch.cuda.current_stream().cuda_stream)
+                assert err == 0, err
+                return out
+
+            err = (run() - ref).abs().max().item()
+            assert err <= cs.PAGED_REL * ref.abs().max().item() + cs.PAGED_ABS
+            fns[f"{ctas} CTAs an SM: {plan.splits} splits of {plan.bps} "
+                f"blocks"] = run
+        names = list(fns)
+        times = {n: [] for n in names}
+        for order in (names, names[::-1]):          # in turns
+            for n in order:
+                times[n].append(cs.device_ms_per_call(torch, fns[n], 50))
+        for n in names:
+            print(f"decode {label}, {n}: {np.mean(times[n]):.5f} ms queued "
+                  f"({', '.join(f'{t:.5f}' for t in times[n])}) [{card}]")
+
+
+def cuda_build_load(pa):
+    from nnstreamer_tpu_torch.backends import cuda_build
+
+    return cuda_build.load("paged_attn.cu", pa._SIGNATURES)
+
+
+def quantize_layouts(torch, cs, card, libs) -> None:
+    """Each QUANT_LAYOUTS copy at the main path's shapes, bit for bit and
+    timed in turns beside the launch floor."""
+    from nnstreamer_tpu_torch.backends import kernels
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(13)
+    floor = cs.device_ms_per_call(torch, lambda: torch.cuda._sleep(0), 200)
+    print(f"quantize_rows: launch floor {floor:.5f} ms [{card}]")
+    fns_lib = []
+    for lib in libs:
+        cdll = ctypes.CDLL(str(lib))
+        cdll.nns_quantize_rows.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        cdll.nns_quantize_rows.restype = ctypes.c_int
+        fns_lib.append(cdll)
+    for m, k in ((8, 1024), (8, 4096), (512, 1024), (512, 4096),
+                 (16384, 1024)):
+        x = torch.from_numpy(rng.standard_normal((m, k)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        want = kernels.quantize_rows_plain(x)
+        fns = {}
+        for (values, cta), cdll in zip(QUANT_LAYOUTS, fns_lib):
+            def run(cdll=cdll):
+                q = torch.empty((m, k), dtype=torch.int8, device=dev)
+                s = torch.empty((m, 1), device=dev)
+                assert cdll.nns_quantize_rows(
+                    x.data_ptr(), 1, k, q.data_ptr(), s.data_ptr(), m, k,
+                    torch.cuda.current_stream().cuda_stream) == 0
+                return q, s
+            got = run()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+            fns[f"~{values} values a lane, CTAs of >= {cta} threads"] = run
+        names = list(fns)
+        times = {n: [] for n in names}
+        for order in (names, names[::-1]):          # in turns
+            for n in order:
+                times[n].append(cs.device_ms_per_call(torch, fns[n], 200))
+        for n in names:
+            print(f"quantize_rows M{m} K{k} bf16, {n}: "
+                  f"{np.mean(times[n]):.5f} ms queued "
+                  f"({', '.join(f'{t:.5f}' for t in times[n])}) [{card}]")
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("sections", nargs="*",
+                    choices=["ring", "clamp", "decode", "quantize"],
+                    help="sections to run (all by default)")
+    sections = set(ap.parse_args(argv).sections or
+                   ("ring", "clamp", "decode", "quantize"))
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
         return 2
@@ -179,6 +340,12 @@ def main() -> int:
     card = cs.sh("nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader").splitlines()[0]
     print(f"card: {card}")
+    if "decode" in sections:
+        decode_plans(torch, cs, card)
+    if "quantize" in sections:
+        quantize_layouts(torch, cs, card, build_quantize(cuda_build))
+    if not sections & {"ring", "clamp"}:
+        return 0
     ring_lib, clamp_lib, sass = build(cuda_build)
     for free in (False, True):
         fns = [f for f in sass.split("Function : ")[1:]
@@ -191,113 +358,123 @@ def main() -> int:
     rng = np.random.default_rng(11)
     stream = (lambda: torch.cuda.current_stream().cuda_stream)
 
-    # -- ring-step layouts --------------------------------------------------
-    lib = ctypes.CDLL(str(ring_lib))
-    lib.variant_block.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 +
-                                  [ctypes.c_int] * 5 + [ctypes.c_int64] * 9 +
-                                  [ctypes.c_float] + [ctypes.c_int] * 3 +
-                                  [ctypes.c_void_p])
-    lib.variant_block.restype = ctypes.c_int
-    for b in (1, 8):
-        q, k, v = (torch.from_numpy(rng.standard_normal(
-            (b, 512, 8, 128)).astype(np.float32)).to(dev, torch.bfloat16)
-            .transpose(1, 2) for _ in range(3))
-        bh, st = 8 * b, [512 * 8 * 128 if b > 1 else 0, 8 * 128, 128]
-        start = kernels.flash_carry_init(bh, 512, 128, device=dev)
-        kernels.flash_block_update_plain(q.float(), k.float(), v.float(),
-                                         *start, q_offset=0, k_offset=0,
-                                         causal=False)
+    if "ring" in sections:
+        # -- ring-step layouts ----------------------------------------------
+        lib = ctypes.CDLL(str(ring_lib))
+        lib.variant_block.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 +
+                                      [ctypes.c_int] * 5 +
+                                      [ctypes.c_int64] * 9 +
+                                      [ctypes.c_float] + [ctypes.c_int] * 3 +
+                                      [ctypes.c_void_p])
+        lib.variant_block.restype = ctypes.c_int
+        for b in (1, 8):
+            q, k, v = (torch.from_numpy(rng.standard_normal(
+                (b, 512, 8, 128)).astype(np.float32)).to(dev, torch.bfloat16)
+                .transpose(1, 2) for _ in range(3))
+            bh, st = 8 * b, [512 * 8 * 128 if b > 1 else 0, 8 * 128, 128]
+            start = kernels.flash_carry_init(bh, 512, 128, device=dev)
+            kernels.flash_block_update_plain(q.float(), k.float(), v.float(),
+                                             *start, q_offset=0, k_offset=0,
+                                             causal=False)
 
-        def step(i, carry, q_off, k_off):
-            err = lib.variant_block(
-                i, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                *(t.data_ptr() for t in carry), bh, 8, 512, 512, 128, *st,
-                *st, *st, 128 ** -0.5, 1, q_off, k_off, stream())
-            assert err == 0, err
+            def step(i, carry, q_off, k_off):
+                err = lib.variant_block(
+                    i, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    *(t.data_ptr() for t in carry), bh, 8, 512, 512, 128, *st,
+                    *st, *st, 128 ** -0.5, 1, q_off, k_off, stream())
+                assert err == 0, err
 
-        ref = [t.clone() for t in start]
-        kernels.flash_block_update_plain(q, k, v, *ref, q_offset=1024,
-                                         k_offset=0, causal=True)
-        for i, layout in enumerate(RING_LAYOUTS):
-            got = [t.clone() for t in start]
-            step(i, got, 1024, 0)
-            ratio = cs.close_rule(torch, kernels.flash_carry_finalize(
-                got[1], got[2]), kernels.flash_carry_finalize(ref[1], ref[2]),
-                True)[0]
-            below = cs.device_ms_per_call(
-                torch, lambda: step(i, got, 1024, 0), 50)
-            diag = cs.device_ms_per_call(
-                torch, lambda: step(i, got, 512, 512), 50)
-            print(f"ring step BH {bh}, (query warps, key warps, keys a tile) "
-                  f"{layout}: |diff| / limit {ratio:.3f}; below the "
-                  f"diagonal {below:.5f} ms, on it {diag:.5f} ms [{card}]")
-            assert ratio <= 1.0
-    q, k, v = (torch.from_numpy(rng.standard_normal((8, 512, 128)).astype(
-        np.float32)).to(dev, torch.bfloat16) for _ in range(3))
-    carry = kernels.flash_carry_init(8, 512, 128, device=dev)
-    counts = (kernels.flash_block_update.launches,
-              kernels.flash_block_update.launches_tc)
-    for sk in (64, 128, 256, 512):
+            ref = [t.clone() for t in start]
+            kernels.flash_block_update_plain(q, k, v, *ref, q_offset=1024,
+                                             k_offset=0, causal=True)
+            for i, layout in enumerate(RING_LAYOUTS):
+                got = [t.clone() for t in start]
+                step(i, got, 1024, 0)
+                ratio = cs.close_rule(torch, kernels.flash_carry_finalize(
+                    got[1], got[2]),
+                    kernels.flash_carry_finalize(ref[1], ref[2]),
+                    True)[0]
+                below = cs.device_ms_per_call(
+                    torch, lambda: step(i, got, 1024, 0), 50)
+                diag = cs.device_ms_per_call(
+                    torch, lambda: step(i, got, 512, 512), 50)
+                print(f"ring step BH {bh}, (query warps, key warps, "
+                      f"keys a tile) "
+                      f"{layout}: |diff| / limit {ratio:.3f}; below the "
+                      f"diagonal {below:.5f} ms, on it {diag:.5f} ms [{card}]")
+                assert ratio <= 1.0
+        q, k, v = (torch.from_numpy(rng.standard_normal((8, 512, 128)).astype(
+            np.float32)).to(dev, torch.bfloat16) for _ in range(3))
+        carry = kernels.flash_carry_init(8, 512, 128, device=dev)
+        counts = (kernels.flash_block_update.launches,
+                  kernels.flash_block_update.launches_tc)
+        for sk in (64, 128, 256, 512):
+            ms = cs.device_ms_per_call(
+                torch, lambda: kernels.flash_block_update(
+                q, k[:, :sk], v[:, :sk], *carry, q_offset=0, k_offset=0,
+                causal=False), 50)
+            print(f"ring step BH 8, shipped layout, non-causal Sk {sk}: "
+                  f"{ms:.5f} ms [{card}]")
         ms = cs.device_ms_per_call(torch, lambda: kernels.flash_block_update(
-            q, k[:, :sk], v[:, :sk], *carry, q_offset=0, k_offset=0,
-            causal=False), 50)
-        print(f"ring step BH 8, shipped layout, non-causal Sk {sk}: "
+            q, k, v, *carry, q_offset=0, k_offset=1024, causal=True), 50)
+        print(f"ring step BH 8, a block above the diagonal (launch and "
+              f"return): "
               f"{ms:.5f} ms [{card}]")
-    ms = cs.device_ms_per_call(torch, lambda: kernels.flash_block_update(
-        q, k, v, *carry, q_offset=0, k_offset=1024, causal=True), 50)
-    print(f"ring step BH 8, a block above the diagonal (launch and return): "
-          f"{ms:.5f} ms [{card}]")
-    (kernels.flash_block_update.launches,
-     kernels.flash_block_update.launches_tc) = counts
-    qf, kf, vf = (t.view(1, 8, 512, 128).transpose(1, 2) for t in (q, k, v))
-    launches = kernels.flash_attention.launches
-    ms = cs.device_ms_per_call(torch, lambda: kernels.flash_attention(
-        qf, kf, vf, causal=False), 50)
-    kernels.flash_attention.launches = launches
-    print(f"flash_attention (1, 512, 8, 128) bf16 non-causal, the same "
-          f"products: {ms:.5f} ms [{card}]")
+        (kernels.flash_block_update.launches,
+         kernels.flash_block_update.launches_tc) = counts
+        qf, kf, vf = (t.view(1, 8, 512, 128).transpose(1, 2)
+                      for t in (q, k, v))
+        launches = kernels.flash_attention.launches
+        ms = cs.device_ms_per_call(torch, lambda: kernels.flash_attention(
+            qf, kf, vf, causal=False), 50)
+        kernels.flash_attention.launches = launches
+        print(f"flash_attention (1, 512, 8, 128) bf16 non-causal, the same "
+              f"products: {ms:.5f} ms [{card}]")
 
-    # -- clamp variants -----------------------------------------------------
-    lib = ctypes.CDLL(str(clamp_lib))
-    lib.variant_clamp.argtypes = [ctypes.c_int, ctypes.c_void_p,
-                                  ctypes.c_void_p, ctypes.c_uint32,
-                                  ctypes.c_float, ctypes.c_float,
-                                  ctypes.c_void_p]
-    lib.variant_clamp.restype = ctypes.c_int
-    frame = torch.from_numpy(rng.uniform(-1.2, 1.2, (1, 257, 257, 3)).astype(
-        np.float32)).to(dev)
-    big = torch.from_numpy(rng.standard_normal(1 << 24).astype(
-        np.float32)).to(dev)
-    launches = kernels.clamp_scale.launches
-    for key, x in (("P's frame", frame), ("16M", big)):
-        def variant(i):
-            def run():
-                y = torch.empty_like(x)
-                assert lib.variant_clamp(i, x.data_ptr(), y.data_ptr(),
-                                         x.numel(), -1.0, 1.0, stream()) == 0
-                return y
-            return run
-        want = kernels.clamp_scale_plain(x, -1.0, 1.0)
-        fns = {"torch.clamp": lambda: torch.clamp(x, -1.0, 1.0),
-               "shipped clamp_scale": lambda: kernels.clamp_scale(x, -1.0,
-                                                                  1.0)}
-        for i, (free, t, u, wave) in enumerate(CLAMP_VARIANTS):
-            assert torch.equal(variant(i)(), want)
-            fns[f"{'&/|' if free else '&&/||'} clip, {t} threads, {u} "
-                f"vector(s) a thread, {'one wave' if wave else 'full'} "
-                f"grid"] = variant(i)
-        names = list(fns)
-        times = {n: [] for n in names}
-        for order in (names, names[::-1]):          # in turns
-            for n in order:
-                times[n].append(cs.device_ms_per_call(torch, fns[n], 200))
-        for n in names:
-            prof = cs.profiled_ms_per_launch(
-                torch, fns[n], "clamp", 200)[0]
-            print(f"clamp {key}, {n}: {np.mean(times[n]):.5f} ms queued "
-                  f"({', '.join(f'{t:.5f}' for t in times[n])}), "
-                  f"{prof:.5f} ms by the profiler [{card}]")
-    kernels.clamp_scale.launches = launches
+    if "clamp" in sections:
+        # -- clamp variants -------------------------------------------------
+        lib = ctypes.CDLL(str(clamp_lib))
+        lib.variant_clamp.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                      ctypes.c_void_p, ctypes.c_uint32,
+                                      ctypes.c_float, ctypes.c_float,
+                                      ctypes.c_void_p]
+        lib.variant_clamp.restype = ctypes.c_int
+        frame = torch.from_numpy(rng.uniform(
+            -1.2, 1.2, (1, 257, 257, 3)).astype(
+            np.float32)).to(dev)
+        big = torch.from_numpy(rng.standard_normal(1 << 24).astype(
+            np.float32)).to(dev)
+        launches = kernels.clamp_scale.launches
+        for key, x in (("P's frame", frame), ("16M", big)):
+            def variant(i):
+                def run():
+                    y = torch.empty_like(x)
+                    assert lib.variant_clamp(i, x.data_ptr(), y.data_ptr(),
+                                             x.numel(), -1.0, 1.0,
+                                             stream()) == 0
+                    return y
+                return run
+            want = kernels.clamp_scale_plain(x, -1.0, 1.0)
+            fns = {"torch.clamp": lambda: torch.clamp(x, -1.0, 1.0),
+                   "shipped clamp_scale": lambda: kernels.clamp_scale(x, -1.0,
+                                                                      1.0)}
+            for i, (free, t, u, wave) in enumerate(CLAMP_VARIANTS):
+                assert torch.equal(variant(i)(), want)
+                fns[f"{'&/|' if free else '&&/||'} clip, {t} threads, {u} "
+                    f"vector(s) a thread, {'one wave' if wave else 'full'} "
+                    f"grid"] = variant(i)
+            names = list(fns)
+            times = {n: [] for n in names}
+            for order in (names, names[::-1]):          # in turns
+                for n in order:
+                    times[n].append(cs.device_ms_per_call(torch, fns[n], 200))
+            for n in names:
+                prof = cs.profiled_ms_per_launch(
+                    torch, fns[n], "clamp", 200)[0]
+                print(f"clamp {key}, {n}: {np.mean(times[n]):.5f} ms queued "
+                      f"({', '.join(f'{t:.5f}' for t in times[n])}), "
+                      f"{prof:.5f} ms by the profiler [{card}]")
+        kernels.clamp_scale.launches = launches
     return 0
 
 

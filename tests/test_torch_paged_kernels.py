@@ -76,6 +76,8 @@ DECODE_CASES = {
     "block-boundary": ([[5, 11, 0, 0]], [BS]),
     "out-of-order-deep": ([[14, 2, 9, 4], [6, 1, 0, 0]],
                           [4 * BS - 1, BS + 3]),
+    "last-slot-every-row": ([[14, 2, 9, 4], [5, 11, 3, 7], [0] * 4],
+                            [4 * BS - 1, 4 * BS - 1, 0]),
 }
 
 
@@ -462,3 +464,198 @@ def test_tf32_rounding_is_rna():
     ties = x[[0, 1, 3]]                  # hi + lo holds these exactly
     hi = _tf32(ties)
     assert torch.equal(hi + _tf32(ties - hi), ties)
+
+
+# -- the decode kernel's split walk, emulated ---------------------------------
+#
+# The CUDA decode kernel splits each row's walk over the KV axis: split s
+# of a (row, kv head) takes table blocks s * bps .. s * bps + bps - 1 (the
+# plan of `paged_attn.decode_plan`), its four warps take batches of KB
+# keys in turn (warp w: batches w, w + 4, ...), each with its own online
+# softmax (m, l, acc); the warps' partials fold into the split's, and the
+# live splits' partials fold in split order (M = max m, weights
+# e^(m - M)). A row with one live split writes out directly; a split past
+# pos returns. The emulation repeats that order of operations in torch
+# (the dot products and the p.v sums in another f32 order than the
+# kernel's shuffles). It must hold the plain version within phase 7's
+# rule on phase 7's decode shapes, and JAX's Pallas kernel in interpret
+# mode within 1e-5 at the test geometry; a control that folds the splits
+# without the e^(m - M) weights must not.
+
+DECODE_WARPS = tpa.DECODE_WARPS
+
+
+def _fold(m, l, acc, dim, weighted=True):
+    """Fold partials along `dim` (m, l: (..., g); acc: (..., g, hd))."""
+    mx = m.amax(dim, keepdim=True)
+    c = torch.exp(m - mx) if weighted else torch.ones_like(m)
+    return (mx.squeeze(dim), (l * c).sum(dim),
+            (acc * c[..., None]).sum(dim))
+
+
+def _decode_split_design(q, k_pool_l, v_pool_l, tables, pos, bps, kb,
+                         weighted=True):
+    """The decode kernel's arithmetic → (B, n_heads, hd) f32."""
+    b_n, n_heads, hd = q.shape
+    _, bs, n_kv, _ = k_pool_l.shape
+    mb = tables.shape[1]
+    g = n_heads // n_kv
+    scale = hd ** -0.5
+    out = torch.zeros((b_n, n_heads, hd))
+    for b in range(b_n):
+        p = int(pos[b])
+        nblk = 0 if p < 0 else min(mb, p // bs + 1)
+        nlive = -(-nblk // bps)
+        n_s = max(nlive, 1)
+        qf = q[b].float().reshape(n_kv, g, hd)
+        key0 = torch.arange(n_s) * bps * bs                       # (S,)
+        key1 = key0 + (torch.clamp(nblk - torch.arange(n_s) * bps, 0, bps)
+                       * bs)
+        m = torch.full((n_s, DECODE_WARPS, n_kv, g), -1e30)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((n_s, DECODE_WARPS, n_kv, g, hd))
+        steps = -(-bps * bs // (DECODE_WARPS * kb))
+        for t in range(steps):
+            batch = t * DECODE_WARPS + torch.arange(DECODE_WARPS)   # (W,)
+            key = (key0[:, None, None] + batch[None, :, None] * kb
+                   + torch.arange(kb)[None, None, :])             # (S,W,KB)
+            inside = key < key1[:, None, None]
+            blk = torch.where(inside, tables[b][(key // bs).clamp(max=mb - 1)],
+                              torch.zeros_like(key))
+            slot = key % bs
+            kr = torch.where(inside[..., None, None], k_pool_l[blk, slot],
+                             torch.zeros(()))                     # (S,W,KB,kv,hd)
+            vr = torch.where(inside[..., None, None], v_pool_l[blk, slot],
+                             torch.zeros(()))
+            s = torch.einsum("hgd,swkhd->swhgk", qf, kr) * scale
+            valid = (inside & (key <= p))[:, :, None, None, :]
+            s = torch.where(valid, s, torch.full_like(s, -1e30))
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp(m - m_new)
+            e = torch.where(s <= -1e29, torch.zeros_like(s),
+                            torch.exp(s - m_new[..., None]))
+            l = l * corr + e.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("swhgk,swkhd->swhgd",
+                                                       e, vr)
+            m = m_new
+        m, l, acc = _fold(m, l, acc, 1)                     # the warps
+        if nlive > 1:
+            m, l, acc = _fold(m[:nlive], l[:nlive], acc[:nlive], 0, weighted)
+        else:
+            m, l, acc = m[0], l[0], acc[0]
+        out[b] = (acc / l.clamp_min(1e-20)[..., None]).reshape(n_heads, hd)
+    return out
+
+
+def _phase7_decode(n_kv, rows, qdtype):
+    """Phase 7's decode inputs at its shapes (8 heads, block 16, hd 128, a
+    128-block table), from a smaller pool: rows at the given depths,
+    padding rows (depth None) on block 0 at pos 0."""
+    rng = np.random.default_rng(n_kv + len(rows))
+    nb, bs, hd, mb = 129, 16, 128, 128
+    pools = [torch.from_numpy(rng.standard_normal(
+        (nb, bs, n_kv, hd)).astype(np.float32)) for _ in range(2)]
+    tables = np.zeros((len(rows), mb), np.int32)
+    for b, depth in enumerate(rows):
+        if depth is not None:
+            n = depth // bs + 1
+            tables[b, :n] = rng.permutation(np.arange(1, nb))[:n]
+    pos = np.array([d or 0 for d in rows], np.int32)
+    q = torch.from_numpy(rng.standard_normal(
+        (len(rows), 8, hd)).astype(np.float32)).to(getattr(torch, qdtype))
+    return q, pools, torch.from_numpy(tables), torch.from_numpy(pos)
+
+
+def _split_keys(batch, n_kv):
+    plan = tpa.decode_plan(batch, 8, n_kv, 128, 16, 128, sms=132)
+    return plan, plan.bps * 16
+
+
+def _phase7_rows(n_kv):
+    """Phase 7's decode row sets: the staggered B8 rows with two padding
+    rows, one long row alone, and B4 rows on split boundaries (the last
+    key of split 0, the first of split 1, the first of split 3, the
+    table's last slot)."""
+    split = _split_keys(4, n_kv)[1]
+    return {"B8": (1535, 16, 700, 63, 1000, 3, None, None),
+            "B1-pos1567": (1567,),
+            "B4-boundaries": (split - 1, split, 3 * split, 2047)}
+
+
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_kv", [8, 2])
+@pytest.mark.parametrize("rows", ["B8", "B1-pos1567", "B4-boundaries"])
+def test_split_decode_design_holds_plain(rows, n_kv, qdtype):
+    depths = _phase7_rows(n_kv)[rows]
+    q, pools, tables, pos = _phase7_decode(n_kv, depths, qdtype)
+    plan, _ = _split_keys(len(depths), n_kv)
+    ref = tpa.paged_decode_attn_plain(q, *pools, tables, pos)
+    got = _decode_split_design(q, *pools, tables, pos, plan.bps, plan.kb)
+    err = (got - ref).abs().max().item()
+    assert err <= PAGED_REL * ref.abs().max().item() + PAGED_ABS, err
+
+
+def test_split_decode_control_exceeds_limit():
+    """Folding the splits' partials without their e^(m - M) weights
+    misses the rule by far: the fold's weights are what the test sees."""
+    q, pools, tables, pos = _phase7_decode(8, (1567,), "float32")
+    plan, _ = _split_keys(1, 8)
+    ref = tpa.paged_decode_attn_plain(q, *pools, tables, pos)
+    got = _decode_split_design(q, *pools, tables, pos, plan.bps, plan.kb,
+                               weighted=False)
+    err = (got - ref).abs().max().item()
+    assert err > PAGED_REL * ref.abs().max().item() + PAGED_ABS, err
+
+
+def test_decode_plan_splits_by_sms_and_width():
+    """The serving shape (B 8 x 8 kv heads) and one long row each split
+    the 128-block table; a batch that fills the card alone walks whole
+    rows; a split holds at least two batches a warp; past the register
+    limit the plan raises."""
+    serving = tpa.decode_plan(8, 8, 8, 128, 16, 128, sms=132)
+    assert (serving.splits, serving.bps, serving.kb) == (16, 8, 8)
+    long_row = tpa.decode_plan(1, 8, 8, 128, 16, 128, sms=132)
+    assert (long_row.splits, long_row.bps) == (32, 4)
+    assert tpa.decode_plan(256, 8, 8, 128, 16, 128, sms=132).splits == 1
+    gqa = tpa.decode_plan(8, 8, 2, 128, 16, 128, sms=132)
+    assert (gqa.gp, gqa.kb, gqa.bps * 16) == (4, 4, 32)
+    assert tpa.decode_plan(1, 4, 4, 256, 16, 128, sms=132).vpl == 2
+    with pytest.raises(BackendError, match="head_dim <= 256"):
+        tpa.decode_plan(1, 8, 1, 256, 16, 128, sms=132)
+    with pytest.raises(BackendError, match="head_dim <= 256"):
+        tpa.decode_plan(1, 4, 4, 320, 16, 128, sms=132)
+
+
+#: the design against the Pallas kernel: (tables, pos, bps) at the test
+#: geometry, with splits of 1 or 2 blocks: rows on a split boundary (the
+#: last key of split 0, the first of split 1), a row whose later splits
+#: hold no live key, a row past its table (pos < 0 gives 0), padding rows
+DESIGN_CASES = {
+    "boundaries-bps1": ([[3, 9, 0, 0], [7, 2, 0, 0], [0] * 4, [0] * 4],
+                        [BS - 1, BS, 0, 0], 1),
+    "dead-splits-bps1": ([[14, 2, 9, 4], [6, 0, 0, 0]], [4 * BS - 1, 3], 1),
+    "boundaries-bps2": ([[5, 11, 3, 0], [12, 1, 8, 4]],
+                        [2 * BS - 1, 2 * BS], 2),
+    "negative-pos": ([[5, 11, 0, 0], [3, 0, 0, 0]], [-1, 4], 1),
+}
+
+
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_heads", [4, 8])
+@pytest.mark.parametrize("case", sorted(DESIGN_CASES))
+def test_split_decode_design_matches_pallas(case, n_heads, qdtype):
+    tables, pos, bps = DESIGN_CASES[case]
+    tables = np.asarray(tables, np.int32)
+    pos = np.asarray(pos, np.int32)
+    b = tables.shape[0]
+    q = _rand((b, n_heads, HD), 11)
+    kp, vp = _rand((NB, BS, NKV, HD), 12), _rand((NB, BS, NKV, HD), 13)
+    ref = jpp.paged_decode_attn(jnp.asarray(q).astype(qdtype),
+                                jnp.asarray(kp), jnp.asarray(vp),
+                                jnp.asarray(tables), jnp.asarray(pos))
+    kb = 8 if n_heads // NKV <= 2 else 4
+    got = _decode_split_design(torch.from_numpy(q).to(getattr(torch, qdtype)),
+                               torch.from_numpy(kp), torch.from_numpy(vp),
+                               torch.from_numpy(tables),
+                               torch.from_numpy(pos), bps, kb)
+    _close(got, ref)

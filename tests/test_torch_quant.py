@@ -95,6 +95,43 @@ def test_quantize_rows_plain_matches_jax(shape, dtype):
     assert float(s[zero, 0]) == 1.0 and int(q[zero].abs().max()) == 0
 
 
+#: one case on each path of the CUDA launcher (csrc/quantize_rows.cu,
+#: reg_layout; chip_smoke.py phase 11 prints the path each shape takes
+#: and holds the kernel to the plain version bit for bit): rows in
+#: registers over 4 or 16 warps with 1, 2 or 8 vectors a lane, and the
+#: shared-memory path for K not a multiple of the vector width and for
+#: rows past the register path; M 1 on both K
+QUANT_PATHS = {
+    "registers-bf16-K1024": (8, 1024, "bfloat16"),
+    "registers-f32-K1024": (8, 1024, "float32"),
+    "registers-bf16-K4096": (8, 4096, "bfloat16"),
+    "registers-f32-K4096": (8, 4096, "float32"),
+    "registers-8-vectors-f32-K12288": (3, 12288, "float32"),
+    "shared-f32-K1001-ragged": (5, 1001, "float32"),
+    "shared-bf16-K1003-ragged": (5, 1003, "bfloat16"),
+    "shared-f32-K20000-long": (2, 20000, "float32"),
+    "M1-bf16-K1024": (1, 1024, "bfloat16"),
+    "M1-f32-K4096": (1, 4096, "float32"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(QUANT_PATHS))
+def test_quantize_rows_launcher_paths_match_jax(case):
+    """Bit for bit against the Pallas kernel in interpret mode at each
+    path's shape: rows of magnitudes e^-4 .. e^4 and an all-zero row."""
+    m, k, dtype = QUANT_PATHS[case]
+    rng = np.random.default_rng(k + m)
+    x = rng.standard_normal((m, k)) * np.exp(rng.uniform(-4, 4, (m, 1)))
+    if m > 1:
+        x[m // 2] = 0.0
+    x = jnp.asarray(x.astype(np.float32)).astype(dtype)
+    jqx, jsx = jops.quantize_rows(x)
+    q, s = kernels.quantize_rows(torch.from_numpy(
+        np.array(x.astype(jnp.float32))).to(getattr(torch, dtype)))
+    assert np.array_equal(q.numpy(), np.asarray(jqx))
+    assert _bits_equal(s.numpy(), jsx)
+
+
 def test_quantize_rows_refuses_other_devices():
     with pytest.raises(BackendError, match="cuda or cpu"):
         kernels.quantize_rows(torch.zeros((2, 8), device="meta"))
