@@ -12,9 +12,13 @@ phases there). Phases:
 1. environment: torch/CUDA/nvcc versions and the card's name and power
    limit (nvidia-smi);
 2. build the hand-written kernels from the checkout's sources (nvcc);
-3. each kernel against its plain torch version on the card, on the
-   inputs the pipeline gives it and on odd, misaligned and other-dtype
-   inputs — bit for bit;
+3. normalize_u8 against its plain torch version on the card, bit for
+   bit: every dtype a stream carries in (u8, i8, u16, i16, i32, u32, i64,
+   u64, f16, bf16, f32, f64; full-range integers) into every float dtype
+   out (f32, bf16, f16, f64), each at the frame, at n 1001 and misaligned,
+   and u8 at 16M elements; then the float16 pipeline (`tensor_transform
+   mode=typecast option=float16 ! tensor_filter framework=pallas
+   model=normalize_u8`) on the card, 4 launches, bit for bit its CPU run;
 4. the main path: pipelines A (quick start, fused transform) and B
    (kernel path, host and device=true label decode) at full width,
    MobileNetV2 1.0 on 224x224x3 uint8 frames, bf16, on cuda; the launch
@@ -23,8 +27,12 @@ phases there). Phases:
    logits within 1e-3 of max |logit| (cuDNN and the CPU sum in different
    orders and may use different conv algorithms; TF32 off);
 6. timings: per-frame latency p50/p99 and FPS of A and B with the
-   card's busy share, and each kernel's device time beside its bound and
-   its plain version's time;
+   card's busy share; normalize_u8's device time at the frame and at 16M
+   beside its bound, the launch floor and its plain version's time; per
+   call from Python (host time, and CUDA events back to back); and each
+   step of one call's launch on the host (perf_counter_ns over 10,000
+   calls) on the path before the shared Launcher and on the shipped one
+   (tools/kernel_variants.py launch_breakdown);
 7. the paged-attention kernels (decode, each row's walk split over the
    KV axis; prefill, whose products run on the tensor cores as split
    TF32) against their plain torch versions on the card: full width (8
@@ -155,8 +163,14 @@ phases there). Phases:
    its bytes bound, its plain version's time and the CUDA-core kernel's
    in bf16 (through its launcher alone) and in f32.
 
+Each kernel's timing phase (6, 10, 15, 16, 23) also prints its time per
+call from Python, back to back — the host's time (the launch path's own
+cost) and CUDA events — and, where one torch call computes the same
+function (SDPA, torch.clamp), that call's; phase 15 also times the f32
+flash kernel at the forward's shape beside SDPA in f32 (TF32 off).
+
 It prints the seconds of each phase, the card line and a JSON line of
-kernel numbers before the last line, and ends with {"ok": true,
+kernel numbers (each with host_ms_per_call) before the last line, and ends with {"ok": true,
 "device": {...}}. Any failed check raises, so the exit code is non-zero
 and no result line is printed. Without a CUDA device, or run outside the
 checkout, it exits non-zero at once. A JSON record of the run goes to
@@ -341,6 +355,20 @@ def event_ms_per_call(torch, fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms_per_call(torch, fn, iters: int = 200) -> float:
+    """Host time per call of `fn` from Python, back to back, the card's
+    work not waited for: the launch path's own cost (`iters` stays far
+    below what the launch queue holds, so the host never waits on it)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host_s * 1e3 / iters
 
 
 def closed_loop_latency(nt, norm: str, n: int, warmup: int):
@@ -720,10 +748,12 @@ def paged_timing(torch, dev, requests, card) -> dict:
         # cores, prefill's split-TF32 products on the tensor cores
         ops_ms = f32_ms if tf32_ops is None else tf32_ops / TF32_FLOPS * 1e3
         res = {"ms": device_ms_per_call(torch, kern, 20),
-               "event_ms": event_ms_per_call(torch, kern, 50),
+               "event_ms": event_ms_per_call(torch, kern, 200),
+               "host_ms": host_ms_per_call(torch, kern, 200),
                "plain_ms": device_ms_per_call(torch, plain, 20),
                "plain_event_ms": event_ms_per_call(torch, plain, 50),
                "library_ms": device_ms_per_call(torch, lib, 20),
+               "library_event_ms": event_ms_per_call(torch, lib, 50),
                "bytes": nbytes, "ops": ops, "tf32_ops": tf32_ops,
                "bytes_bound_ms": bytes_ms, "f32_bound_ms": f32_ms,
                "bound_ms": max(bytes_ms, ops_ms),
@@ -743,11 +773,13 @@ def paged_timing(torch, dev, requests, card) -> dict:
                     f"{plan.bps} blocks = {res['ctas']} CTAs on {sms} SMs, "
                     f"{res['live_ctas']} live")
         print(f"phase 10: {name} ({shape}, kv8 hd128 bs16, q bf16): "
-              f"device {res['ms']:.5f} ms per launch (queued), "
-              f"{res['event_ms']:.5f} ms per call (CUDA events); plain torch "
+              f"device {res['ms']:.5f} ms per launch (queued); per call "
+              f"from Python, back to back: host {res['host_ms']:.5f} ms, "
+              f"{res['event_ms']:.5f} ms by CUDA events; plain torch "
               f"{res['plain_ms']:.5f} ms device, {res['plain_event_ms']:.5f} "
               f"ms per call; SDPA on pre-gathered K/V, gather not timed, "
-              f"{res['library_ms']:.5f} ms device; bound "
+              f"{res['library_ms']:.5f} ms device, "
+              f"{res['library_event_ms']:.5f} ms per call; bound "
               f"{res['bound_ms']:.6f} ms ({res['bound_by']}); bounds: bytes "
               f"{nbytes} B at 3.35 TB/s = {bytes_ms:.6f} ms, f32 CUDA cores "
               f"{ops} flop at 67 TFLOP/s = {f32_ms:.6f} ms{extra} [{card}]")
@@ -854,7 +886,8 @@ def llm_phases(nt, torch, card, record, phases, ctx) -> list:
         "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
         "bound_ms": timing[name]["bound_ms"],
         "bound_by": timing[name]["bound_by"],
-        "library_ms": timing[name]["library_ms"]}
+        "library_ms": timing[name]["library_ms"],
+        "host_ms_per_call": timing[name]["host_ms"]}
         for name, key, line in (("paged_decode_attn", "decode", 69),
                                 ("paged_prefill_attn", "prefill", 170))]
 
@@ -1352,12 +1385,16 @@ def slice3_timing(torch, dev, card) -> dict:
     def measure(key, kern, plain, lib, nbytes, ops, peak, iters):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / peak * 1e3
-        symbol = KERNEL_SYMBOL[key.split()[0]]
+        symbol = KERNEL_SYMBOL[key.split()[0] +
+                               (" simt" if " f32 " in key else "")]
         prof_ms, kept = profiled_ms_per_launch(torch, kern, symbol, iters)
         res = {"ms": device_ms_per_call(torch, kern, iters),
                "profiler_ms": prof_ms, "profiler_records": kept,
                "event_ms": event_ms_per_call(torch, kern, iters),
+               "host_ms": host_ms_per_call(torch, kern,
+                                           200 if iters >= 20 else iters),
                "plain_ms": None, "plain_event_ms": None, "library_ms": None,
+               "library_event_ms": None,
                "bytes": nbytes, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
         if plain is not None:
@@ -1365,20 +1402,24 @@ def slice3_timing(torch, dev, card) -> dict:
             res["plain_event_ms"] = event_ms_per_call(torch, plain, iters)
         if lib is not None:
             res["library_ms"] = device_ms_per_call(torch, lib, iters)
+            res["library_event_ms"] = event_ms_per_call(torch, lib, iters)
         out[key] = res
         fmt = (lambda v: "not measured" if v is None else f"{v:.5f} ms")
         print(f"phase 15: {key}: device {res['ms']:.5f} ms per launch "
               f"(queued), {fmt(prof_ms)} per launch by the profiler "
-              f"({kept} of {iters} records kept), {res['event_ms']:.5f} ms "
-              f"per call from Python; "
-              f"plain torch {fmt(res['plain_ms'])} device, "
-              f"{fmt(res['plain_event_ms'])} per call; library "
-              f"{fmt(res['library_ms'])}; bound {res['bound_ms']:.6f} ms "
+              f"({kept} of {iters} records kept); per call from Python, back "
+              f"to back: host {res['host_ms']:.5f} ms, {res['event_ms']:.5f} "
+              f"ms by CUDA events; plain torch {fmt(res['plain_ms'])} "
+              f"device, {fmt(res['plain_event_ms'])} per call; library "
+              f"{fmt(res['library_ms'])} device, "
+              f"{fmt(res['library_event_ms'])} per call; bound "
+              f"{res['bound_ms']:.6f} ms "
               f"({res['bound_by']}: {nbytes} B at 3.35 TB/s, {ops} op at "
               f"{peak / 1e12:.0f} TOP/s) [{card}]")
 
-    launches = (kernels.quantize_rows.launches,
-                kernels.flash_attention.launches)
+    fa = kernels.flash_attention
+    launches = (kernels.quantize_rows.launches, fa.launches, fa.launches_tc,
+                fa.launches_simt)
     # the launch floor: a kernel that returns at once (ATen's spin kernel
     # for 0 cycles), queued as the kernels below are
     floor_ms = device_ms_per_call(torch, lambda: torch.cuda._sleep(0), 50)
@@ -1421,6 +1462,21 @@ def slice3_timing(torch, dev, card) -> dict:
                     qt, kt, vt, is_causal=True),
                 4 * b * s * 8 * 128 * 2, pairs * 4 * 128, BF16_FLOPS,
                 5 if long else 20)
+        if not long:
+            # the f32 kernel on the CUDA cores at the forward's shape,
+            # beside SDPA in f32 with TF32 off
+            q32, k32, v32 = (t.float() for t in (q, k, v))
+            tf32 = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            measure(f"flash_attention ({b},{s},8,128) f32 causal",
+                    lambda: kernels.flash_attention(q32, k32, v32,
+                                                    causal=True),
+                    None, lambda: F.scaled_dot_product_attention(
+                        q32.transpose(1, 2), k32.transpose(1, 2),
+                        v32.transpose(1, 2), is_causal=True),
+                    4 * b * s * 8 * 128 * 4, pairs * 4 * 128, F32_FLOPS, 5)
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            del q32, k32, v32
         del q, k, v, qt, kt, vt
     # the int8 product (torch._int_mm, not a kernel of the port) at the
     # W8A8 forward's wqkv shape, with the weight row- and column-major
@@ -1436,8 +1492,8 @@ def slice3_timing(torch, dev, card) -> dict:
     print(f"phase 15: torch._int_mm 16384x1024x3072 int8: weight row-major "
           f"{int_mm['row-major']:.5f} ms, column-major "
           f"{int_mm['column-major']:.5f} ms (queued) [{card}]")
-    kernels.quantize_rows.launches, kernels.flash_attention.launches = \
-        launches                            # timing launches not counted
+    (kernels.quantize_rows.launches, fa.launches, fa.launches_tc,
+     fa.launches_simt) = launches           # timing launches not counted
     return out
 
 
@@ -1463,14 +1519,16 @@ def slice3_phases(nt, torch, card, record, phases, ctx) -> list:
         "replaces": "nnstreamer_tpu/backends/pallas_ops.py:57",
         "launches": serving["quantize_rows"], "max_abs_err": q_err,
         "ms": qt["ms"], "plain_ms": qt["plain_ms"], "bound_ms": qt["bound_ms"],
-        "bound_by": qt["bound_by"], "library_ms": None}, {
+        "bound_by": qt["bound_by"], "library_ms": None,
+        "host_ms_per_call": qt["host_ms"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "nnstreamer_tpu_torch/backends/csrc/flash_attn_tc.cu",
         "replaces": "nnstreamer_tpu/backends/pallas_ops.py:335 "
                     "(flash_attention) and :286 (_flash_attention_kgrid)",
         "launches": fwd["flash_attention"], "max_abs_err": f_err,
         "ms": ft["ms"], "plain_ms": ft["plain_ms"], "bound_ms": ft["bound_ms"],
-        "bound_by": ft["bound_by"], "library_ms": ft["library_ms"]}]
+        "bound_by": ft["bound_by"], "library_ms": ft["library_ms"],
+        "host_ms_per_call": ft["host_ms"]}]
 
 
 # -- slice 5: clamp_scale, detection, pose, composite ------------------------
@@ -1688,9 +1746,12 @@ def check_clamp_scale(torch, dev, card) -> dict:
             "ms": (turns[1] + turns[2]) / 2, "turns_ms": turns,
             "profiler_ms": prof_ms, "profiler_records": kept,
             "event_ms": event_ms_per_call(torch, kern, iters),
+            "host_ms": host_ms_per_call(torch, kern, iters),
             "plain_ms": device_ms_per_call(
                 torch, lambda: kernels.clamp_scale_plain(x, -1.0, 1.0), iters),
             "library_ms": (turns[0] + turns[3]) / 2,
+            "library_event_ms": event_ms_per_call(torch, lib, iters),
+            "library_host_ms": host_ms_per_call(torch, lib, iters),
             "library_profiler_ms": lib_prof_ms,
             "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
@@ -1702,7 +1763,10 @@ def check_clamp_scale(torch, dev, card) -> dict:
               f"{', '.join(f'{t:.5f}' for t in turns)}), "
               f"{fmt(prof_ms)} by the profiler ({kept} records; torch.clamp "
               f"{fmt(lib_prof_ms)}, {lib_kept} records), "
-              f"{res['event_ms']:.5f} ms per call from Python; plain torch "
+              f"per call from Python, back to back: host "
+              f"{res['host_ms']:.5f} ms, {res['event_ms']:.5f} ms by CUDA "
+              f"events (torch.clamp: host {res['library_host_ms']:.5f} ms, "
+              f"{res['library_event_ms']:.5f} ms by events); plain torch "
               f"{res['plain_ms']:.5f} ms; torch.clamp {res['library_ms']:.5f} "
               f"ms; bound {res['bound_ms']:.6f} ms ({nbytes} B at 3.35 TB/s) "
               f"[{card}]")
@@ -2104,7 +2168,8 @@ def slice5_phases(nt, torch, card, record, phases) -> list:
         "replaces": "nnstreamer_tpu/backends/pallas_ops.py:126",
         "launches": launches, "max_abs_err": clamp["main_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"]}]
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "host_ms_per_call": t["host_ms"]}]
 
 
 # -- slice 4: the ring step, ring attention, sharded serving -------------------
@@ -2572,13 +2637,17 @@ def flash_block_timing(torch, dev, card) -> dict:
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
         res["ms_again"] = device_ms_per_call(torch, step, 20)
+        res["host_ms"] = host_ms_per_call(torch, step, 200)
+        res["event_ms"] = event_ms_per_call(torch, step, 200)
         out[what] = res
         fmt = (lambda v: "not measured" if v is None else f"{v:.5f} ms")
         print(f"phase 23: flash_block_update {what} (BH {bh}, Sq = Sk = {sl}, "
               f"D {d}, below the diagonal): bf16 tensor-core kernel "
               f"{res['ms']:.5f} / {res['ms_again']:.5f} ms per launch "
               f"(queued, before and after the others), {fmt(prof_ms)} by the "
-              f"profiler ({kept} records); CUDA-core kernel bf16 "
+              f"profiler ({kept} records); per call from Python, back to "
+              f"back: host {res['host_ms']:.5f} ms, {res['event_ms']:.5f} ms "
+              f"by CUDA events; CUDA-core kernel bf16 "
               f"{res['simt_bf16_ms']:.5f} ms, f32 {res['simt_f32_ms']:.5f} "
               f"ms; plain torch {res['plain_ms']:.5f} ms; library: none (no "
               f"one torch call continues a softmax carry); bf16 bound "
@@ -2625,7 +2694,8 @@ def slice4_phases(nt, torch, card, record, phases, ctx) -> list:
         "replaces": "nnstreamer_tpu/backends/pallas_ops.py:431",
         "launches": launches, "max_abs_err": err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None}]
+        "bound_by": t["bound_by"], "library_ms": None,
+        "host_ms_per_call": t["host_ms"]}]
 
 
 def slice1_phases(nt, torch, card, record, phases) -> list:
@@ -2639,37 +2709,89 @@ def slice1_phases(nt, torch, card, record, phases) -> list:
     rng = np.random.default_rng(0)
 
     def rand(dtype, shape):
-        if dtype == np.float32:
-            return (rng.standard_normal(shape) * 100).astype(np.float32)
+        if np.dtype(dtype).kind == "f":
+            return (rng.standard_normal(shape) * 100).astype(dtype)
         info = np.iinfo(dtype)
         return rng.integers(info.min, info.max, shape, dtype, endpoint=True)
 
-    frame_u8 = torch.from_numpy(rand(np.uint8, (1, 224, 224, 3))).to(dev)
-    base = torch.from_numpy(rand(np.uint8, (1 + 150528,))).to(dev)
+    def on_card(dtype, shape):
+        """Full-range integers, floats ~N(0, 100); 16-bit floats made by
+        torch (numpy has no bfloat16 without ml_dtypes)."""
+        if dtype in (torch.float16, torch.bfloat16):
+            return torch.from_numpy(rand(np.float32, shape)).to(dev, dtype)
+        return torch.from_numpy(rand(dtype, shape)).to(dev)
+
+    frame_u8 = on_card(np.uint8, (1, 224, 224, 3))
+    # every dtype a stream carries in (F4: all but the first five raised
+    # on the card before), every float dtype out
+    in_dtypes = {"u8": np.uint8, "i8": np.int8, "u16": np.uint16,
+                 "i16": np.int16, "f32": np.float32, "i32": np.int32,
+                 "u32": np.uint32, "i64": np.int64, "u64": np.uint64,
+                 "f16": torch.float16, "bf16": torch.bfloat16,
+                 "f64": np.float64}
+    out_dtypes = (torch.float32, torch.bfloat16, torch.float16,
+                  torch.float64)
     cases = {"frame u8": frame_u8,
-             "odd 1001 u8": torch.from_numpy(rand(np.uint8, (1001,))).to(dev),
-             "misaligned u8": base[1:]}
-    for dt in (np.int8, np.uint16, np.int16, np.float32):
-        cases[f"frame {np.dtype(dt).name}"] = torch.from_numpy(
-            rand(dt, (1, 224, 224, 3))).to(dev)
-    main_err = None
+             "16M u8": on_card(np.uint8, (1 << 24,))}
+    for name, dt in in_dtypes.items():
+        if name != "u8":
+            cases[f"frame {name}"] = on_card(dt, (1, 224, 224, 3))
+        cases[f"odd 1001 {name}"] = on_card(dt, (1001,))
+        # one element past a 16-byte boundary: the unaligned path
+        cases[f"misaligned {name}"] = on_card(dt, (1 + 150528,))[1:]
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    main_err, plain_on_cpu = None, set()
     for name, x in cases.items():
-        for out_dtype in (torch.float32, torch.bfloat16):
+        for out_dtype in out_dtypes:
             got = kernels.normalize_u8(x, out_dtype=out_dtype)
-            ref = kernels.normalize_u8_plain(x, out_dtype=out_dtype)
+            try:
+                ref = kernels.normalize_u8_plain(x, out_dtype=out_dtype)
+            except RuntimeError:
+                # torch has no cast of this dtype on the card: the plain
+                # version on a CPU copy of the same input
+                plain_on_cpu.add(str(x.dtype))
+                ref = kernels.normalize_u8_plain(
+                    x.cpu(), out_dtype=out_dtype).to(dev)
             torch.cuda.synchronize()
-            err = (got.float() - ref.float()).abs().max().item()
-            same = torch.equal(got.view(torch.int16) if out_dtype ==
-                               torch.bfloat16 else got.view(torch.int32),
-                               ref.view(torch.int16) if out_dtype ==
-                               torch.bfloat16 else ref.view(torch.int32))
-            print(f"phase 3: normalize_u8 {name} -> "
-                  f"{str(out_dtype).split('.')[-1]}: max_abs_err {err} "
-                  f"bitwise {'equal' if same else 'DIFFERENT'}")
+            err = (got.double() - ref.double()).abs().max().item()
+            view = bits[out_dtype.itemsize]
+            same = got.dtype == out_dtype and torch.equal(got.view(view),
+                                                          ref.view(view))
+            if not same or name in ("frame u8", "16M u8", "misaligned u8"):
+                print(f"phase 3: normalize_u8 {name} -> "
+                      f"{str(out_dtype).split('.')[-1]}: max_abs_err {err} "
+                      f"bitwise {'equal' if same else 'DIFFERENT'}")
             check(same, f"normalize_u8 {name} -> {out_dtype} differs from "
                         f"its plain version (max abs err {err})")
             if name == "frame u8" and out_dtype == torch.float32:
                 main_err = err
+    print(f"phase 3: normalize_u8: {len(cases)} inputs x {len(out_dtypes)} "
+          f"output dtypes ({len(in_dtypes)} input dtypes at the frame, n "
+          f"1001 and misaligned; u8 also at 16M) all bit for bit; plain "
+          f"version on a CPU copy for {sorted(plain_on_cpu) or 'none'}")
+    del cases
+    # F4's pipeline: a float16 stream into the normalize filter
+    f16_desc = ("videotestsrc num-buffers=4 ! tensor_converter ! "
+                "tensor_transform mode=typecast option=float16 ! "
+                "tensor_filter framework=pallas model=normalize_u8 "
+                "accelerator={} ! tensor_sink name=out")
+    launches = kernels.normalize_u8.launches
+    f16_card = run_pipeline(nt, f16_desc.format("cuda"))
+    f16_launches = kernels.normalize_u8.launches - launches
+    f16_cpu = run_pipeline(nt, f16_desc.format("cpu"))
+    check(len(f16_card) == len(f16_cpu) == 4 and f16_launches == 4,
+          f"f16 pipeline: {len(f16_card)} / {len(f16_cpu)} buffers, "
+          f"{f16_launches} launches")
+    for a, b in zip(f16_card, f16_cpu):
+        check(a.tensors[0].dtype == np.float32
+              and a.tensors[0].shape == b.tensors[0].shape
+              and np.array_equal(a.tensors[0].view(np.int32),
+                                 b.tensors[0].view(np.int32)),
+              "f16 pipeline: the card's frames differ from the CPU's")
+    print(f"phase 3: typecast float16 ! normalize_u8 pipeline: 4 frames "
+          f"{f16_card[0].tensors[0].shape} float32 on the card, "
+          f"{f16_launches} kernel launches, bit for bit the CPU run's")
+    kernels.normalize_u8.launches = launches
 
     phases.done("3 (normalize_u8 vs plain)")
 
@@ -2775,38 +2897,54 @@ def slice1_phases(nt, torch, card, record, phases) -> list:
               f"frame x FPS) [{card}]")
     record["pipelines"] = timings
 
-    x = frame_u8
-    y_bytes = x.numel() * 4
-    moved = x.numel() * x.element_size() + y_bytes
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * x.numel() / F32_FLOPS * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    kern = lambda: kernels.normalize_u8(x)              # noqa: E731
-    plain = lambda: kernels.normalize_u8_plain(x)       # noqa: E731
-    ms = device_ms_per_call(torch, kern, 200)
-    plain_ms = device_ms_per_call(torch, plain, 200)
-    ev_ms = event_ms_per_call(torch, kern, 1000)
-    ev_plain_ms = event_ms_per_call(torch, plain, 1000)
-    print(f"phase 6: normalize_u8 (1,224,224,3) u8->f32: device {ms:.5f} ms "
-          f"per launch (queued), {ev_ms:.5f} ms per call back-to-back "
-          f"(CUDA events); plain torch {plain_ms:.5f} ms device, "
-          f"{ev_plain_ms:.5f} ms per call; bound {bound_ms:.6f} ms "
-          f"({moved} B at 3.35 TB/s) — far below the few-microsecond "
-          f"launch overhead, so launch cost, not bandwidth, sets this "
-          f"kernel's time at this size [{card}]")
-    record["normalize_u8"] = {"device_ms": ms, "event_ms_per_call": ev_ms,
-                              "plain_device_ms": plain_ms,
-                              "plain_event_ms_per_call": ev_plain_ms,
-                              "bound_ms": bound_ms}
+    from nnstreamer_tpu_torch.tools import kernel_variants
+
+    norm = {}
+    floor_ms = device_ms_per_call(torch, lambda: torch.cuda._sleep(0), 200)
+    big = torch.from_numpy(rand(np.uint8, (1 << 24,))).to(dev)
+    for key, x in (("frame", frame_u8), ("16M", big)):
+        moved = x.numel() * x.element_size() + x.numel() * 4
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * x.numel() / F32_FLOPS * 1e3
+        kern = lambda x=x: kernels.normalize_u8(x)            # noqa: E731
+        plain = lambda x=x: kernels.normalize_u8_plain(x)     # noqa: E731
+        r = norm[key] = {
+            "ms": device_ms_per_call(torch, kern, 200),
+            "host_ms": host_ms_per_call(torch, kern, 1000),
+            "event_ms": event_ms_per_call(torch, kern, 1000),
+            "plain_ms": device_ms_per_call(torch, plain, 200),
+            "plain_event_ms": event_ms_per_call(torch, plain, 1000),
+            "bytes": moved, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        print(f"phase 6: normalize_u8 {key} {tuple(x.shape)} u8->f32: device "
+              f"{r['ms']:.5f} ms per launch (queued; {r['bound_ms'] / r['ms']:.3f}"
+              f" of the bound, {r['ms'] / floor_ms:.3f} x the launch floor "
+              f"{floor_ms:.5f} ms); per call from Python, back to back: host "
+              f"{r['host_ms']:.5f} ms, {r['event_ms']:.5f} ms by CUDA events; "
+              f"plain torch {r['plain_ms']:.5f} ms device, "
+              f"{r['plain_event_ms']:.5f} ms per call; bound "
+              f"{r['bound_ms']:.6f} ms ({moved} B at 3.35 TB/s) [{card}]")
+    del big
+    # what one call costs on the host, step by step, on both launch paths
+    steps = kernel_variants.launch_breakdown(torch, frame_u8, 10000)
+    for path, us in steps.items():
+        what = ("what one call costs" if path == "calls" else
+                f"launch steps, {path} the shared Launcher")
+        print(f"phase 6: normalize_u8 {what}, us per call over 10000 calls: "
+              + "; ".join(f"{k} {v:.3f}" for k, v in us.items())
+              + f" [{card}]")
+    record["normalize_u8"] = {**norm, "launch_floor_ms": floor_ms,
+                              "launch_steps_us": steps}
     phases.done("6 (timings)")
+    r = norm["frame"]
     return [{
         "name": "normalize_u8", "route": "cuda",
         "source": "nnstreamer_tpu_torch/backends/csrc/normalize.cu",
         "replaces": "nnstreamer_tpu/backends/pallas_ops.py:34",
-        "launches": launches, "max_abs_err": main_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None}]
+        "launches": launches, "max_abs_err": main_err, "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+        "host_ms_per_call": r["host_ms"]}]
 
 
 def main(argv=None) -> int:

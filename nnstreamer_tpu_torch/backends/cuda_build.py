@@ -13,6 +13,10 @@ a plain-C source takes seconds.
   the finished file is renamed into place, so a reader never sees half.
 - A missing ``nvcc`` or a failed build raises `BackendError`. Nothing
   falls back to the plain version.
+
+Every wrapper launches through a `Launcher`: the C launcher resolved once,
+then per call only the device check, one C call for the current stream,
+the ctypes call and the test of its return (`Launcher.__call__`).
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, List
+
+import torch
 
 from nnstreamer_tpu_torch.core.config import get_config
 from nnstreamer_tpu_torch.core.errors import BackendError
@@ -124,11 +130,80 @@ def load(source: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
         return lib
 
 
-def check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    """Raise if a launcher returned a CUDA error (cudaGetLastError after
-    the launch: a refused launch never runs, and no later synchronize
-    would report it)."""
-    if err != 0:
-        raise BackendError(
-            f"{what}: CUDA error {err} "
-            f"({lib.nns_error_string(err).decode()})")
+#: torch's C hooks, bound at the first launch (torch built for the CPU
+#: has none of them): the calling thread's current device, and a device's
+#: current stream as an int — the call PyTorch's own generated launchers
+#: make; the public ``current_stream`` builds a Stream object
+_thread_device = None
+_raw_stream = None
+
+
+def _bind_torch() -> None:
+    global _thread_device, _raw_stream
+    c = torch._C
+    _thread_device = getattr(c, "_cuda_getDevice", None) or \
+        torch.cuda.current_device
+    _raw_stream = getattr(c, "_cuda_getCurrentRawStream", None) or \
+        (lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+
+def raw_stream(index: int) -> int:
+    """Device `index`'s current CUDA stream (a cudaStream_t, as an int)."""
+    if _raw_stream is None:
+        _bind_torch()
+    return _raw_stream(index)
+
+
+class Launcher:
+    """One exported C launcher of `csrc/<source>`, bound once.
+
+    ``launcher(device_index, *args)`` calls ``symbol(*args, stream)`` on
+    the device's current stream and raises `BackendError`, naming `what`,
+    if it returns a CUDA error (cudaGetLastError after the launch: a
+    refused launch never runs, and no later synchronize would report it).
+    The library is built, loaded and the signature declared at the first
+    call; after that a call costs the device check, one C call for the
+    stream, the ctypes call and the test of its return. The thread's
+    device is switched, and restored, only when it is not `device_index`
+    (shards on cuda:1..3 from one thread). `argtypes` leaves out the
+    trailing stream (``stream=False``: an export that takes none, called
+    through `function()`); pointers must be c_void_p, or ctypes cuts them
+    to 32 bits. Every export returns an int."""
+
+    __slots__ = ("source", "symbol", "argtypes", "what", "fn",
+                 "error_string")
+
+    def __init__(self, source: str, symbol: str, argtypes, what: str,
+                 stream: bool = True):
+        self.source, self.symbol, self.what = source, symbol, what
+        self.argtypes = [*argtypes, ctypes.c_void_p] if stream else \
+            list(argtypes)
+        self.fn = self.error_string = None
+
+    def function(self):
+        """The bound C function (built, loaded and declared once)."""
+        if self.fn is None:
+            lib = load(self.source, {self.symbol: (self.argtypes,
+                                                   ctypes.c_int)})
+            if _raw_stream is None:
+                _bind_torch()
+            self.error_string = lib.nns_error_string
+            self.fn = getattr(lib, self.symbol)
+        return self.fn
+
+    def __call__(self, index: int, *args, stream=None) -> None:
+        fn = self.fn or self.function()
+        if stream is None:
+            stream = _raw_stream(index)
+        if _thread_device() == index:
+            err = fn(*args, stream)
+        else:
+            prev = torch.cuda._exchange_device(index)
+            try:
+                err = fn(*args, stream)
+            finally:
+                torch.cuda._maybe_exchange_device(prev)
+        if err:
+            raise BackendError(
+                f"{self.what}: CUDA error {err} "
+                f"({self.error_string(err).decode()})")

@@ -1,9 +1,9 @@
 """Hand-written kernels for streaming hot ops (counterpart of the JAX
 package's backends/pallas_ops.py).
 
-- ``normalize_u8`` — integer (or f32) frame → ``(x - mean) * (1/std)`` in
-  f32 or bf16; the converter+transform ingest path in one pass. CUDA C++
-  in ``csrc/normalize.cu``.
+- ``normalize_u8`` — a frame of any stream dtype → ``(x - mean) *
+  (1/std)`` in f32, bf16, f16 or f64; the converter+transform ingest path
+  in one pass. CUDA C++ in ``csrc/normalize.cu``.
 - ``quantize_rows`` — (M, K) f32/bf16 → int8 (M, K) and f32 scales
   (M, 1), symmetric per row: the activation half of every W8A8
   projection. CUDA C++ in ``csrc/quantize_rows.cu``.
@@ -28,16 +28,24 @@ kernel for a CUDA tensor and counts the launch; its plain torch version,
 which repeats the kernel's arithmetic; and the dispatch between them,
 which takes the plain version only for a tensor on the CPU — the device
 the caller chose. A CUDA tensor goes to the kernel or the call raises.
+Every launch goes through a `cuda_build.Launcher`, bound at its first
+call.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import struct
+from typing import Dict
 
 import torch
 
+from nnstreamer_tpu_torch.backends.cuda_build import Launcher
 from nnstreamer_tpu_torch.core.errors import BackendError
+
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                  ctypes.c_float)
 
 
 def _dispatch(what: str, x: torch.Tensor) -> bool:
@@ -53,11 +61,17 @@ def _dispatch(what: str, x: torch.Tensor) -> bool:
 
 # -- normalize: (x - mean) * (1/std) ---------------------------------------
 
-#: input dtypes the CUDA kernel takes, by the launcher's type code
+#: input and output dtypes the CUDA kernel takes, by the launcher's type
+#: codes: every dtype a tensor stream carries in, every float out
 _NORM_IN = {torch.uint8: 0, torch.int8: 1, torch.uint16: 2, torch.int16: 3,
-            torch.float32: 4}
-_NORM_OUT = {torch.float32: 0, torch.bfloat16: 1}
+            torch.float32: 4, torch.int32: 5, torch.uint32: 6,
+            torch.int64: 7, torch.uint64: 8, torch.float16: 9,
+            torch.bfloat16: 10, torch.float64: 11}
+_NORM_OUT = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+             torch.float64: 3}
 _NARROW_INTS = (torch.uint8, torch.int8, torch.uint16, torch.int16)
+_NORMALIZE = Launcher("normalize.cu", "nns_normalize",
+                      [_P, _I, _P, _I, _L, _F, _F], "normalize_u8")
 
 
 def normalize_u8_plain(x: torch.Tensor, mean: float = 127.5,
@@ -74,38 +88,31 @@ def normalize_u8_plain(x: torch.Tensor, mean: float = 127.5,
 
 def _normalize_u8_cuda(x: torch.Tensor, mean: float, std: float,
                        out_dtype: torch.dtype) -> torch.Tensor:
-    from nnstreamer_tpu_torch.backends import cuda_build
-
-    if x.dtype not in _NORM_IN:
+    in_code = _NORM_IN.get(x.dtype)
+    if in_code is None:
         raise BackendError(
             f"normalize_u8 kernel takes {sorted(str(d) for d in _NORM_IN)} "
             f"input, got {x.dtype}")
-    if out_dtype not in _NORM_OUT:
-        raise BackendError(
-            f"normalize_u8 kernel writes float32 or bfloat16, not {out_dtype}")
     x = x.contiguous()
     y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    lib = cuda_build.load("normalize.cu", {"nns_normalize": (
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int64, ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
-        ctypes.c_int)})
-    with torch.cuda.device(x.device):
-        err = lib.nns_normalize(
-            x.data_ptr(), _NORM_IN[x.dtype], y.data_ptr(),
-            _NORM_OUT[out_dtype], x.numel(), float(mean), 1.0 / float(std),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(lib, err, "normalize_u8")
+    _NORMALIZE(x.device.index, x.data_ptr(), in_code, y.data_ptr(),
+               _NORM_OUT[out_dtype], x.numel(), mean, 1.0 / std)
     normalize_u8.launches += 1
     return y
 
 
 def normalize_u8(x: torch.Tensor, mean: float = 127.5, std: float = 127.5,
                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """uint8 (or int8/int16/uint16/f32) frame → normalized f32/bf16, same
-    shape. A CUDA tensor runs the hand-written kernel; a CPU tensor runs
-    the plain version."""
+    """A frame of any stream dtype (uint8 on the main path) → normalized
+    `out_dtype` (a float dtype), same shape. A CUDA tensor runs the
+    hand-written kernel; a CPU tensor runs the plain version. Any other
+    `out_dtype` raises on both."""
+    if out_dtype not in _NORM_OUT:
+        raise BackendError(
+            f"normalize_u8 writes {sorted(str(d) for d in _NORM_OUT)}, not "
+            f"{out_dtype}")
     if _dispatch("normalize_u8", x):
-        return _normalize_u8_cuda(x, mean, std, out_dtype)
+        return _normalize_u8_cuda(x, float(mean), float(std), out_dtype)
     return normalize_u8_plain(x, mean, std, out_dtype)
 
 
@@ -143,18 +150,12 @@ def quantize_rows_plain(x: torch.Tensor):
 _QUANT_MAX_ROW_BYTES = 227 * 1024 - 32
 
 
-def _quantize_rows_lib():
-    from nnstreamer_tpu_torch.backends import cuda_build
-
-    return cuda_build.load("quantize_rows.cu", {
-        "nns_quantize_rows": (
-            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-            ctypes.c_int),
-        "nns_quantize_rows_layout": (
-            [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)],
-            ctypes.c_int)})
+_QUANTIZE = Launcher("quantize_rows.cu", "nns_quantize_rows",
+                     [_P, _I, _L, _P, _P, _I, _I], "quantize_rows")
+_QUANTIZE_LAYOUT = Launcher(
+    "quantize_rows.cu", "nns_quantize_rows_layout",
+    [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    "quantize_rows_layout", stream=False)
 
 
 def quantize_rows_layout(k: int, dtype: torch.dtype, aligned: bool = True):
@@ -163,7 +164,7 @@ def quantize_rows_layout(k: int, dtype: torch.dtype, aligned: bool = True):
     vectors a lane, warps a row) or ("shared memory", 0, 0). Builds the
     kernel's library; for reports on the card."""
     nv, wpr = ctypes.c_int(), ctypes.c_int()
-    reg = _quantize_rows_lib().nns_quantize_rows_layout(
+    reg = _QUANTIZE_LAYOUT.function()(
         _FLOAT_CODE[dtype], k, int(aligned), ctypes.byref(nv),
         ctypes.byref(wpr))
     return ("registers", nv.value, wpr.value) if reg else \
@@ -171,8 +172,6 @@ def quantize_rows_layout(k: int, dtype: torch.dtype, aligned: bool = True):
 
 
 def _quantize_rows_cuda(x: torch.Tensor):
-    from nnstreamer_tpu_torch.backends import cuda_build
-
     if x.dim() != 2 or x.dtype not in _FLOAT_CODE:
         raise BackendError(
             f"quantize_rows kernel takes a 2-D float32 or bfloat16 matrix, "
@@ -189,13 +188,9 @@ def _quantize_rows_cuda(x: torch.Tensor):
         x = x.contiguous()
     q = torch.empty((m, k), dtype=torch.int8, device=x.device)
     scale = torch.empty((m, 1), dtype=torch.float32, device=x.device)
-    lib = _quantize_rows_lib()
-    with torch.cuda.device(x.device):
-        err = lib.nns_quantize_rows(
-            x.data_ptr(), _FLOAT_CODE[x.dtype], x.stride(0) if m > 1 else k,
-            q.data_ptr(), scale.data_ptr(), m, k,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(lib, err, "quantize_rows")
+    _QUANTIZE(x.device.index, x.data_ptr(), _FLOAT_CODE[x.dtype],
+              x.stride(0) if m > 1 else k, q.data_ptr(), scale.data_ptr(), m,
+              k)
     quantize_rows.launches += 1
     return q, scale
 
@@ -222,6 +217,12 @@ _CLAMP_INT = {torch.uint8: 4, torch.int8: 5, torch.uint16: 6,
               torch.int16: 7, torch.int32: 8, torch.int64: 9}
 #: dims the CUDA kernel unravels on its strided path
 _CLAMP_MAX_DIMS = 8
+#: a strided tensor's sizes and strides, as the launcher reads them
+_CLAMP_DIMS = ctypes.c_int64 * _CLAMP_MAX_DIMS
+_D = ctypes.c_double
+_CLAMP = Launcher("clamp_scale.cu", "nns_clamp_scale",
+                  [_P, _P, _I, _L, _I, _P, _P, _I, _D, _D, _D, _D, _I,
+                   ctypes.c_longlong, ctypes.c_longlong], "clamp_scale")
 
 
 class _ClampArgs:
@@ -232,37 +233,56 @@ class _ClampArgs:
     when the offset is +0.0, whose add XLA folds away (so -0.0 survives).
     Integers: only a pure clamp (scale 1, offset 0; the JAX kernel stores
     its f32 result into an integer output and refuses), to the bounds
-    rounded inward — ceil(lo), floor(hi) — and saturated to the dtype."""
+    rounded inward — ceil(lo), floor(hi) — and saturated to the dtype.
+    ``code`` is the launcher's type code."""
 
-    def __init__(self, x: torch.Tensor, lo, hi, scale, offset):
-        if x.dtype not in _CLAMP_FLOAT and x.dtype not in _CLAMP_INT:
+    def __init__(self, dtype: torch.dtype, lo, hi, scale, offset):
+        if dtype not in _CLAMP_FLOAT and dtype not in _CLAMP_INT:
             raise BackendError(
                 f"clamp_scale takes {sorted(str(d) for d in (*_CLAMP_FLOAT, *_CLAMP_INT))}"
-                f", not {x.dtype}")
+                f", not {dtype}")
         lo, hi, scale, offset = (float(v) for v in (lo, hi, scale, offset))
         if math.isnan(lo) or math.isnan(hi):
             raise BackendError(f"clamp_scale bounds must be numbers, got "
                                f"{lo}:{hi}")
-        self.is_int = x.dtype in _CLAMP_INT
+        self.is_int = dtype in _CLAMP_INT
+        self.code = _CLAMP_INT[dtype] if self.is_int else _CLAMP_FLOAT[dtype]
         self.ilo = self.ihi = 0
         if self.is_int:
             if scale != 1.0 or offset != 0.0:
                 raise BackendError(
-                    f"clamp_scale on {x.dtype} is a pure clamp: scale must "
+                    f"clamp_scale on {dtype} is a pure clamp: scale must "
                     f"be 1 and offset 0, got {scale} and {offset}")
-            info = torch.iinfo(x.dtype)
+            info = torch.iinfo(dtype)
 
             def inward(v, rnd):
                 v = rnd(v) if math.isfinite(v) else v
                 return int(min(max(v, info.min), info.max))
 
             self.ilo, self.ihi = inward(lo, math.ceil), inward(hi, math.floor)
-        elif x.dtype != torch.float64:
+        elif dtype != torch.float64:
             lo, hi, scale, offset = (
-                torch.tensor(v, dtype=torch.float32).to(x.dtype).item()
+                torch.tensor(v, dtype=torch.float32).to(dtype).item()
                 for v in (lo, hi, scale, offset))
         self.lo, self.hi, self.scale, self.offset = lo, hi, scale, offset
         self.fold_add = offset == 0.0 and math.copysign(1.0, offset) > 0
+
+
+#: (dtype, the four values' bits) → _ClampArgs: a stream's clamp passes
+#: the same values every frame, and rounding them costs four tensor round
+#: trips; the bits key keeps -0.0 apart from +0.0
+_clamp_args_made: Dict[tuple, _ClampArgs] = {}
+
+
+def _clamp_args(dtype: torch.dtype, lo, hi, scale, offset) -> _ClampArgs:
+    key = (dtype, struct.pack("4d", lo, hi, scale, offset))
+    a = _clamp_args_made.get(key)
+    if a is None:
+        a = _ClampArgs(dtype, lo, hi, scale, offset)
+        if len(_clamp_args_made) >= 256:
+            _clamp_args_made.clear()
+        _clamp_args_made[key] = a
+    return a
 
 
 def _round_sum(p: torch.Tensor, offset: float,
@@ -292,7 +312,7 @@ def clamp_scale_plain(x: torch.Tensor, lo: float, hi: float,
     ``clip * scale + offset`` (an FMA), f16 one rounding of the exact
     value, bf16 the product rounded and then the f32 sum rounded, f64
     two roundings; an integer input is a pure inward-rounded clamp."""
-    a = _ClampArgs(x, lo, hi, scale, offset)
+    a = _clamp_args(x.dtype, lo, hi, scale, offset)
     if a.is_int:
         return x.to(torch.int64).clamp(a.ilo, a.ihi).to(x.dtype)
     comp = torch.float64 if x.dtype == torch.float64 else torch.float32
@@ -320,31 +340,18 @@ def clamp_scale_plain(x: torch.Tensor, lo: float, hi: float,
 
 
 def _clamp_scale_cuda(x: torch.Tensor, a: _ClampArgs) -> torch.Tensor:
-    from nnstreamer_tpu_torch.backends import cuda_build
-
     contiguous = x.is_contiguous()
     if not contiguous and x.dim() > _CLAMP_MAX_DIMS:
         x = x.contiguous()
         contiguous = True
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    ndim = x.dim()
-    sizes = (ctypes.c_int64 * max(1, ndim))(*x.shape)
-    strides = (ctypes.c_int64 * max(1, ndim))(*x.stride())
-    code = _CLAMP_INT.get(x.dtype, _CLAMP_FLOAT.get(x.dtype))
-    lib = cuda_build.load("clamp_scale.cu", {"nns_clamp_scale": (
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-        + [ctypes.c_double] * 4
-        + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-           ctypes.c_void_p], ctypes.c_int)})
-    with torch.cuda.device(x.device):
-        err = lib.nns_clamp_scale(
-            x.data_ptr(), y.data_ptr(), code, x.numel(), ndim,
-            ctypes.addressof(sizes), ctypes.addressof(strides),
-            int(contiguous), a.lo, a.hi, a.scale, a.offset,
-            int(a.fold_add), a.ilo, a.ihi,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(lib, err, "clamp_scale")
+    # the launcher reads sizes and strides only for a strided x
+    sizes = strides = None
+    if not contiguous:
+        sizes, strides = _CLAMP_DIMS(*x.shape), _CLAMP_DIMS(*x.stride())
+    _CLAMP(x.device.index, x.data_ptr(), y.data_ptr(), a.code, x.numel(),
+           x.dim(), sizes, strides, contiguous, a.lo, a.hi, a.scale,
+           a.offset, a.fold_add, a.ilo, a.ihi)
     clamp_scale.launches += 1
     return y
 
@@ -354,7 +361,7 @@ def clamp_scale(x: torch.Tensor, lo: float, hi: float, scale: float = 1.0,
     """``clip(x, lo, hi) * scale + offset`` in x's dtype, any shape and
     strides (the output is contiguous). A CUDA tensor runs the
     hand-written kernel; a CPU tensor runs the plain version."""
-    a = _ClampArgs(x, lo, hi, scale, offset)
+    a = _clamp_args(x.dtype, lo, hi, scale, offset)
     if _dispatch("clamp_scale", x):
         return _clamp_scale_cuda(x, a)
     return clamp_scale_plain(x, lo, hi, scale, offset)
@@ -370,9 +377,13 @@ clamp_scale.launches = 0
 _MASKED, _MASKED_BELOW, _L_FLOOR = -1e30, -1e29, 1e-20
 #: largest head dim the CUDA kernels tile
 FLASH_MAX_HEAD_DIM = 256
-#: flash kernels: variant → (source, launcher)
-_FLASH_KERNELS = {"tc": ("flash_attn_tc.cu", "nns_flash_attn_tc"),
-                  "simt": ("flash_attn.cu", "nns_flash_attn")}
+#: flash kernels by variant
+_FLASH_ARGS = [_P] * 4 + [_I] * 4 + [_L] * 12 + [_F, _I]
+_FLASH_KERNELS = {
+    "tc": Launcher("flash_attn_tc.cu", "nns_flash_attn_tc", _FLASH_ARGS,
+                   "flash_attention (tc kernel)"),
+    "simt": Launcher("flash_attn.cu", "nns_flash_attn", _FLASH_ARGS,
+                     "flash_attention (simt kernel)")}
 
 
 def flash_variant(dtype: torch.dtype, head_dim: int,
@@ -464,8 +475,6 @@ def _strides(t: torch.Tensor):
 
 
 def _flash_attention_cuda(q, k, v, causal: bool):
-    from nnstreamer_tpu_torch.backends import cuda_build
-
     b, s, h, d = q.shape
     variant = flash_variant(q.dtype, d)
     if b > 65535 or h > 65535:
@@ -473,18 +482,10 @@ def _flash_attention_cuda(q, k, v, causal: bool):
                            f"above 65535")
     q, k, v = (_flash_operand(t) for t in (q, k, v))
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    source, fn = _FLASH_KERNELS[variant]
-    lib = cuda_build.load(source, {fn: (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_int64] * 12
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)})
-    with torch.cuda.device(q.device):
-        err = getattr(lib, fn)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, s, h, d,
-            *_strides(q), *_strides(k), *_strides(v), *_strides(out),
-            d ** -0.5, int(bool(causal)),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check(lib, err, f"flash_attention ({variant} kernel)")
+    _FLASH_KERNELS[variant](
+        q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), b, s, h, d, *_strides(q), *_strides(k),
+        *_strides(v), *_strides(out), d ** -0.5, bool(causal))
     flash_attention.launches += 1
     if variant == "tc":
         flash_attention.launches_tc += 1
@@ -574,9 +575,15 @@ def flash_block_update_plain(q, k_blk, v_blk, m, l, acc, *, q_offset: int,
     return m, l, acc
 
 
-#: ring-step kernels: variant → (source, launcher)
-_FLASH_BLOCK_KERNELS = {"tc": ("flash_attn_tc.cu", "nns_flash_block_tc"),
-                        "simt": ("flash_attn.cu", "nns_flash_block")}
+#: ring-step kernels by variant; the CUDA-core launcher also takes a
+#: dtype code (0 f32, 1 bf16) after the carry
+_FLASH_BLOCK_KERNELS = {
+    "tc": Launcher("flash_attn_tc.cu", "nns_flash_block_tc",
+                   [_P] * 6 + [_I] * 5 + [_L] * 9 + [_F] + [_I] * 3,
+                   "flash_block_update (tc kernel)"),
+    "simt": Launcher("flash_attn.cu", "nns_flash_block",
+                     [_P] * 6 + [_I] * 6 + [_L] * 9 + [_F] + [_I] * 3,
+                     "flash_block_update (simt kernel)")}
 
 
 def _flash_block_launch(variant: str, q, k, v, m, l, acc, q_offset: int,
@@ -585,8 +592,6 @@ def _flash_block_launch(variant: str, q, k, v, m, l, acc, q_offset: int,
     or bf16 on the CUDA cores); counts nothing. The wrapper takes the
     variant of q's dtype (`flash_block_variant`); a direct ``"simt"``
     call on bf16 is only a reading beside the tensor-core kernel."""
-    from nnstreamer_tpu_torch.backends import cuda_build
-
     d = q.shape[-1]
     bh = m.shape[0]
     if bh > 65535:
@@ -603,22 +608,12 @@ def _flash_block_launch(variant: str, q, k, v, m, l, acc, q_offset: int,
         return t, (sb, ss, sh)
 
     (q, qs), (k, ks), (v, vs) = (strides(t) for t in (q, k, v))
-    source, fn = _FLASH_BLOCK_KERNELS[variant]
-    # the CUDA-core launcher also takes a dtype code (0 f32, 1 bf16)
-    code = [] if variant == "tc" else [_FLOAT_CODE[q.dtype]]
-    lib = cuda_build.load(source, {fn: (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * (5 + len(code))
-        + [ctypes.c_int64] * 9
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-           ctypes.c_void_p], ctypes.c_int)})
-    with torch.cuda.device(q.device):
-        err = getattr(lib, fn)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(),
-            l.data_ptr(), acc.data_ptr(), *code, bh, heads, q.shape[2],
-            k.shape[2], d, *qs, *ks, *vs, d ** -0.5, int(bool(causal)),
-            int(q_offset), int(k_offset),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check(lib, err, f"flash_block_update ({variant} kernel)")
+    code = () if variant == "tc" else (_FLOAT_CODE[q.dtype],)
+    _FLASH_BLOCK_KERNELS[variant](
+        q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        m.data_ptr(), l.data_ptr(), acc.data_ptr(), *code, bh, heads,
+        q.shape[2], k.shape[2], d, *qs, *ks, *vs, d ** -0.5, bool(causal),
+        int(q_offset), int(k_offset))
 
 
 def _flash_block_cuda(q, k, v, m, l, acc, q_offset: int, k_offset: int,

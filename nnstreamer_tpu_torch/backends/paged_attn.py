@@ -21,8 +21,9 @@ Each has a wrapper that counts its launches, and a plain torch version
 (``*_plain``: gather the table's blocks, −1e30 mask, f32 softmax, product
 with V). A CUDA tensor launches the kernel or the call raises; a CPU
 tensor — the device the caller chose — takes the plain version. Nothing
-falls back. The wrapper launches on the current stream, so the pool
-writes queued before it on that stream land before the kernel reads.
+falls back. The wrapper launches on the current stream (through a
+`cuda_build.Launcher`), so the pool writes queued before it on that
+stream land before the kernel reads.
 
 ``paged_flash_decode_step`` and ``paged_flash_prefill_chunk`` are the
 layer-stack twins of llm/paged_model.py's reference functions: they
@@ -36,6 +37,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from nnstreamer_tpu_torch.backends.cuda_build import Launcher, raw_stream
 from nnstreamer_tpu_torch.core.errors import BackendError
 from nnstreamer_tpu_torch.llm.paged_model import chunk_layers, decode_layers
 from nnstreamer_tpu_torch.models.transformer import attend
@@ -56,13 +58,13 @@ DECODE_MAX_GROUP_CHUNKS = 8
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
-_SIGNATURES = {
-    "nns_paged_decode": ([_P, _I, _P, _P, _P, _P, _P, _P, _L, _P, _I, _I,
-                          _I, _I, _I, _I, _I, _I, _I, _L, _L, _L,
-                          ctypes.c_float, _P], _I),
-    "nns_paged_prefill": ([_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _I, _L, _L, _L, ctypes.c_float, _P], _I),
-}
+_DECODE = Launcher("paged_attn.cu", "nns_paged_decode",
+                   [_P, _I, _P, _P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I,
+                    _I, _I, _I, _I, _I, _L, _L, _L, ctypes.c_float],
+                   "paged_decode_attn")
+_PREFILL = Launcher("paged_attn.cu", "nns_paged_prefill",
+                    [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L,
+                     _L, _L, ctypes.c_float], "paged_prefill_attn")
 
 
 # -- plain torch versions -----------------------------------------------------
@@ -180,22 +182,25 @@ _plans: Dict[tuple, DecodePlan] = {}
 _workspaces: Dict[Tuple[int, int], tuple] = {}
 
 
-def _decode_plan_on(device, *shape) -> DecodePlan:
-    key = (device.index, *shape)
+def _decode_plan_on(index: int, *shape) -> DecodePlan:
+    key = (index, *shape)
     plan = _plans.get(key)
     if plan is None:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
         plan = _plans[key] = decode_plan(*shape, sms)
     return plan
 
 
 def _decode_workspace(device, stream: int, floats: int, tickets: int):
-    ws, tk = _workspaces.get((device.index, stream), (None, None))
+    key = (device.index, stream)
+    ws, tk = _workspaces.get(key, (None, None))
+    if ws is not None and ws.numel() >= floats and tk.numel() >= tickets:
+        return ws, tk
     if ws is None or ws.numel() < floats:
         ws = torch.empty(max(floats, 1), dtype=torch.float32, device=device)
     if tk is None or tk.numel() < tickets:
         tk = torch.zeros(max(tickets, 1), dtype=torch.int32, device=device)
-    _workspaces[(device.index, stream)] = (ws, tk)
+    _workspaces[key] = (ws, tk)
     return ws, tk
 
 
@@ -205,17 +210,6 @@ def _int32_on(what, t, device, ndim):
             f"{what} takes int32 {ndim}-D block tables/positions on "
             f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     return t.contiguous()
-
-
-def _launch(fn_name, what, q, *args, stream=None):
-    from nnstreamer_tpu_torch.backends import cuda_build
-
-    lib = cuda_build.load("paged_attn.cu", _SIGNATURES)
-    if stream is None:
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = getattr(lib, fn_name)(*args, stream)
-    cuda_build.check(lib, err, what)
 
 
 def _paged_decode_cuda(q, k_pool_l, v_pool_l, tables, pos):
@@ -234,12 +228,12 @@ def _paged_decode_cuda(q, k_pool_l, v_pool_l, tables, pos):
     _, bs, n_kv, _ = k_pool_l.shape
     sb, ss, sh, _ = k_pool_l.stride()
     mb = tables.shape[1]
-    plan = _decode_plan_on(q.device, b, n_heads, n_kv, hd, bs, mb)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    index = q.device.index
+    plan = _decode_plan_on(index, b, n_heads, n_kv, hd, bs, mb)
+    stream = raw_stream(index)
     floats = b * n_kv * plan.splits * plan.part_floats
     ws, tk = _decode_workspace(q.device, stream, floats, b * n_kv)
-    _launch("nns_paged_decode", "paged_decode_attn", q,
-            q.data_ptr(), _Q_CODE[q.dtype], k_pool_l.data_ptr(),
+    _DECODE(index, q.data_ptr(), _Q_CODE[q.dtype], k_pool_l.data_ptr(),
             v_pool_l.data_ptr(), tables.data_ptr(), pos.data_ptr(),
             out.data_ptr(), ws.data_ptr(), ws.numel(), tk.data_ptr(),
             tk.numel(), b, n_heads, n_kv, hd, bs, mb, plan.splits, plan.bps,
@@ -257,11 +251,10 @@ def _paged_prefill_cuda(q, k_pool_l, v_pool_l, table, pos0):
                       device=q.device)
     _, bs, n_kv, _ = k_pool_l.shape
     sb, ss, sh, _ = k_pool_l.stride()
-    _launch("nns_paged_prefill", "paged_prefill_attn", q,
-            q.data_ptr(), _Q_CODE[q.dtype], k_pool_l.data_ptr(),
-            v_pool_l.data_ptr(), table.data_ptr(), out.data_ptr(), n_heads,
-            n_kv, s_c, hd, bs, table.shape[0], int(pos0), sb, ss, sh,
-            hd ** -0.5)
+    _PREFILL(q.device.index, q.data_ptr(), _Q_CODE[q.dtype],
+             k_pool_l.data_ptr(), v_pool_l.data_ptr(), table.data_ptr(),
+             out.data_ptr(), n_heads, n_kv, s_c, hd, bs, table.shape[0],
+             int(pos0), sb, ss, sh, hd ** -0.5)
     paged_prefill_attn.launches += 1
     return out
 
