@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py             # every phase, on one card
     python3 chip_smoke.py --slice4    # phases 1, 2 and 20-23 only
+    python3 chip_smoke.py --slice6    # phases 1, 2 and 24-26 only
 
 Needs one CUDA card, nvcc and the repository checkout around this file;
 imports nothing of JAX. On a machine with several cards, phases 21-22
@@ -161,7 +162,32 @@ phases there). Phases:
    forward's (BH 64), a block below the diagonal (the full step): the
    bf16 tensor-core kernel (queued CUDA events and the profiler) beside
    its bytes bound, its plain version's time and the CUDA-core kernel's
-   in bf16 (through its launcher alone) and in f32.
+   in bf16 (through its launcher alone) and in f32;
+24. A and B, 64 frames each, untraced and then with
+   PipelineRunner(trace=True): the traced labels, scores and pts bit for
+   bit the untraced run's, 64 process spans for every element, 64
+   backend invoke spans on each filter, the decoder's 64 read-backs the
+   only forced syncs (traced and counted), normalize_u8 launched 64 times
+   in B, the Chrome trace written to chiprun_out/trace_{A,B}.json and
+   parsed back with one track per element; report() printed;
+25. the LLM cell (bf16, phase 8's 8 requests) untraced and traced:
+   tokens identical, kernel_spans()[(llm, "pallas")] equal to the
+   executor's decode steps plus prefill chunks, 4 paged launches per
+   each, 8 request records whose TTFT equal the engine's samples and
+   whose ITL lie within them;
+26. B with tensor_fault mode=raise probability=0.05 seed=7
+   error-policy=skip before the normalize: emitted + skipped + dropped =
+   64, the skipped pts the seed's draws, the survivors bit for bit
+   phase 24's clean frames; B with a 30 s delay fault under
+   stall_budget_s=0.5 watchdog_action=fail raises WatchdogStall; B cold
+   in a fresh process with an empty kernel directory (nvcc at the first
+   launch, the first cuDNN call) draws no watchdog warning at the default
+   30 s budget; then timings of two arms held in this one process at
+   once, in turns: A and B with the tracer off and on, D compact-1,
+   P host-1 and P host-1 with its transforms unfused with chain fusion
+   off and on (closed-loop latency p50/p99 over 100 frames interleaved
+   frame by frame, frames/s over bursts of 100 frames in turns a b b a),
+   and the tracer hooks' host cost per recorded event.
 
 Each kernel's timing phase (6, 10, 15, 16, 23) also prints its time per
 call from Python, back to back — the host's time (the launch path's own
@@ -271,9 +297,9 @@ def sh(*cmd: str) -> str:
                           check=True).stdout.strip()
 
 
-def run_pipeline(nt, desc: str):
+def run_pipeline(nt, desc: str, **runner_kw):
     pipe = nt.parse_launch(desc)
-    nt.PipelineRunner(pipe).run(600)
+    nt.PipelineRunner(pipe, **runner_kw).run(600)
     return pipe.get("out").results
 
 
@@ -371,9 +397,10 @@ def host_ms_per_call(torch, fn, iters: int = 200) -> float:
     return host_s * 1e3 / iters
 
 
-def closed_loop_latency(nt, norm: str, n: int, warmup: int):
+def closed_loop_latency(nt, norm: str, n: int, warmup: int, **runner_kw):
     """Per-frame latency: push one frame into an appsrc pipeline and wait
-    for its label at the sink, n times. → (latencies in ms)."""
+    for its label at the sink, n times (`runner_kw` to PipelineRunner).
+    → (latencies in ms)."""
     from nnstreamer_tpu_torch.elements.sources import AppSrc
 
     got = threading.Event()
@@ -381,7 +408,7 @@ def closed_loop_latency(nt, norm: str, n: int, warmup: int):
         f"appsrc name=src dims=3:224:224:1 types=uint8 ! {norm} ! {MODEL} ! "
         f"{LABEL} ! tensor_sink name=out collect=false")
     pipe.get("out").set_props(new_data=lambda buf: got.set())
-    runner = nt.PipelineRunner(pipe).start()
+    runner = nt.PipelineRunner(pipe, **runner_kw).start()
     src: AppSrc = pipe.get("src")
     frame = np.random.default_rng(0).integers(0, 256, (1, 224, 224, 3),
                                               np.uint8)
@@ -544,13 +571,14 @@ def named_launches(prof, names) -> dict:
 
 
 def serve(nt, torch, requests, prof=None, new_tokens=LLM_NEW_TOKENS,
-          mem=None, **props):
+          mem=None, trace=False, **props):
     """appsrc ! tensor_llm ! tensor_sink with every request pushed at
     t=0. The launch counts are zeroed after start() (which prewarms) and
     read after the run; `mem` (a dict), when given, gets each card's
-    memory_allocated right after start(). → (tokens by request id,
-    element, seconds from the first push to the last token, launches by
-    kernel)."""
+    memory_allocated right after start(); `trace` goes to the runner
+    (the element's `_tracer` is then the run's Tracer). → (tokens by
+    request id, element, seconds from the first push to the last token,
+    launches by kernel)."""
     from nnstreamer_tpu_torch.backends import kernels
     from nnstreamer_tpu_torch.backends import paged_attn as pa
     from nnstreamer_tpu_torch.elements import AppSrc, TensorLLM, TensorSink
@@ -565,7 +593,7 @@ def serve(nt, torch, requests, prof=None, new_tokens=LLM_NEW_TOKENS,
         pipe.add(e)
     pipe.link(src, llm)
     pipe.link(llm, sink)
-    runner = nt.PipelineRunner(pipe).start()
+    runner = nt.PipelineRunner(pipe, trace=trace).start()
     try:
         torch.cuda.synchronize()
         if mem is not None:
@@ -1775,8 +1803,9 @@ def check_clamp_scale(torch, dev, card) -> dict:
             "main_err": errs["P frame f32 (1,257,257,3)"]}
 
 
-def measure_cell(nt, torch, pipe, frame, lag, n_lat, n_fps):
-    """One cell in one pipeline ending in a tensor_sink named out: start
+def measure_cell(nt, torch, pipe, frame, lag, n_lat, n_fps, **runner_kw):
+    """One cell in one pipeline ending in a tensor_sink named out, run
+    by PipelineRunner(pipe, **runner_kw): start
     it (model build and negotiation outside every measurement), push
     SLICE5_FRAMES frames inside one profiler capture opened with
     open_capture (the clamp_scale count zeroed just before, read just
@@ -1806,9 +1835,9 @@ def measure_cell(nt, torch, pipe, frame, lag, n_lat, n_fps):
     pipe.get("out").set_props(new_data=on_buf, collect=False)
     buf = (TensorBuffer.of(*frame) if isinstance(frame, tuple)
            else TensorBuffer.of(frame))
-    runner = nt.PipelineRunner(pipe).start()
+    runner = nt.PipelineRunner(pipe, **runner_kw).start()
     src = pipe.get("src")
-    res = {}
+    res = {"fused_chains": runner.fused_chains()}
     try:
         kernels.clamp_scale.launches = 0
         with profile(activities=[ProfilerActivity.CPU,
@@ -2947,12 +2976,435 @@ def slice1_phases(nt, torch, card, record, phases) -> list:
         "host_ms_per_call": r["host_ms"]}]
 
 
+# -- slice 6: the traced, fault-tolerant host runtime --------------------------
+
+TRACE_FRAMES = 64
+#: B with the tensor_fault of phase 26 (seeded, as in the JAX package)
+FAULT_P, FAULT_SEED = 0.05, 7
+#: one process that runs B cold: fresh kernel directory (nvcc builds
+#: normalize.cu at the first launch), first cuDNN call, default watchdog
+#: (30 s budget, warn); prints its stats as one JSON line
+COLD_B = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import nnstreamer_tpu_torch as nt
+from nnstreamer_tpu_torch.backends import cuda_build, kernels
+t0 = time.perf_counter()
+pipe = nt.parse_launch(sys.argv[2])
+runner = nt.PipelineRunner(pipe)
+runner.run(600)
+st = runner.stats()
+print(json.dumps({
+    "seconds": time.perf_counter() - t0,
+    "frames": len(pipe.get("out").results),
+    "watchdog_warnings": {k: v["watchdog_warnings"] for k, v in st.items()},
+    "proctime_max_ms": {k: v["proctime_max_us"] / 1e3
+                        for k, v in st.items()},
+    "stall_budget_s": runner._stall_budget_s,
+    "kernel_dir": str(cuda_build.kernel_dir()),
+    "built": sorted(p.name for p in cuda_build.kernel_dir().glob("*.so")),
+    "normalize_launches": kernels.normalize_u8.launches}))
+"""
+
+
+def b_desc(n: int, extra: str = "", norm: str = NORM_B) -> str:
+    """Pipeline A or B (by `norm`) over n videotestsrc frames with every
+    element named; `extra` goes between the converter and the normalize."""
+    mid = f"{extra} ! " if extra else ""
+    return (f"videotestsrc num-buffers={n} ! tensor_converter name=conv ! "
+            f"{mid}{norm} name=norm ! {MODEL} name=model ! {LABEL} name=dec "
+            f"! tensor_sink name=out")
+
+
+def same_frames(a, b) -> bool:
+    """Two runs' label buffers equal bit for bit: pts, payload, label
+    index and score (the top logit as a float)."""
+    return len(a) == len(b) and all(
+        x.pts == y.pts and x.tensors[0].tobytes() == y.tensors[0].tobytes()
+        and x.meta["label_index"] == y.meta["label_index"]
+        and x.meta["score"] == y.meta["score"] for x, y in zip(a, b))
+
+
+def traced_pipelines(nt, torch, card, record) -> dict:
+    """Phase 24: A and B, TRACE_FRAMES frames each, untraced then traced.
+    → the untraced B frames by pts (phase 26's reference)."""
+    from nnstreamer_tpu_torch.backends import kernels
+    from nnstreamer_tpu_torch.graph.pipeline import SourceElement
+    from nnstreamer_tpu_torch.runtime import sync
+
+    out = {}
+    clean_b = None
+    for name, norm in (("A", NORM_A), ("B", NORM_B)):
+        desc = b_desc(TRACE_FRAMES, norm=norm)
+        plain = run_pipeline(nt, desc)
+        pipe = nt.parse_launch(desc)
+        runner = nt.PipelineRunner(pipe, trace=True)
+        kernels.normalize_u8.launches = 0
+        forced0 = sync.forced_sync_count()
+        t0 = time.perf_counter()
+        runner.run(600)
+        wall = time.perf_counter() - t0
+        launches = kernels.normalize_u8.launches
+        forced = sync.forced_sync_count() - forced0
+        tr = runner.tracer
+        traced = pipe.get("out").results
+        check(same_frames(plain, traced) and len(traced) == TRACE_FRAMES,
+              f"{name}: traced outputs differ from the untraced run")
+        spans, invokes = {}, {}
+        for ph, cat, el, label, *_ in tr.events():
+            if ph == "X" and label == "process":
+                spans[el] = spans.get(el, 0) + 1
+            if ph == "X" and cat == "backend" and label == "invoke":
+                invokes[el] = invokes.get(el, 0) + 1
+        elements = [e.name for e in pipe.elements.values()
+                    if not isinstance(e, SourceElement)]
+        check(all(spans.get(e) == TRACE_FRAMES for e in elements),
+              f"{name}: process spans {spans}, expected {TRACE_FRAMES} for "
+              f"each of {elements}")
+        filters = ["model"] + (["norm"] if name == "B" else [])
+        check(invokes == {f: TRACE_FRAMES for f in filters},
+              f"{name}: backend invoke spans {invokes}")
+        # the label decoder reads every frame back: the only forced syncs
+        # of the run, one a frame, all traced under it
+        check(tr.forced_syncs() == {"dec": TRACE_FRAMES} and
+              forced == TRACE_FRAMES,
+              f"{name}: forced syncs traced {tr.forced_syncs()}, counted "
+              f"{forced}; expected {TRACE_FRAMES} at dec")
+        check(launches == (TRACE_FRAMES if name == "B" else 0),
+              f"{name}: normalize_u8 launched {launches} times")
+        check(tr.events_dropped == 0, f"{name}: the event ring wrapped")
+        path = ROOT / "chiprun_out" / f"trace_{name}.json"
+        path.parent.mkdir(exist_ok=True)
+        path.write_text(json.dumps(tr.to_chrome_trace(f"pipeline {name}")))
+        doc = json.loads(path.read_text())
+        tracks = {ev["args"]["name"] for ev in doc["traceEvents"]
+                  if ev["ph"] == "M" and ev["name"] == "thread_name"}
+        check(set(elements) <= tracks, f"{name}: trace tracks {tracks}")
+        st = runner.stats()
+        out[name] = {"seconds": wall, "events": tr.total_events,
+                     "normalize_launches": launches, "forced_syncs": forced,
+                     "trace_bytes": path.stat().st_size,
+                     "proctime_avg_us": {k: v["proctime_avg_us"]
+                                         for k, v in st.items()},
+                     "queue_wait_avg_us": {k: v["queue_wait_avg_us"]
+                                           for k, v in st.items()},
+                     "inflight_peak": tr.inflight_gauges(),
+                     "interlatency": tr.interlatency()}
+        print(f"phase 24: {name} traced: {len(traced)} frames bit for bit "
+              f"the untraced run's; {TRACE_FRAMES} process spans per "
+              f"element, backend invoke spans {invokes}, forced syncs "
+              f"{tr.forced_syncs()}, normalize_u8 launches {launches}; "
+              f"{tr.total_events} events, trace {path.name} "
+              f"({out[name]['trace_bytes']} B) [{card}]")
+        print(runner.report())
+        if name == "B":
+            clean_b = {b.pts: b for b in plain}
+    record["traced_pipelines"] = out
+    return clean_b
+
+
+def traced_llm(nt, torch, card, record, ctx) -> None:
+    """Phase 25: the LLM cell (bf16, 8 requests) untraced, then traced."""
+    requests = ctx["requests"]
+    ref, _, wall0, _ = serve(nt, torch, requests, dtype="bfloat16")
+    got, llm, wall1, launches = serve(nt, torch, requests, dtype="bfloat16",
+                                      trace=True)
+    ex, tr = llm.engine.executor, llm._tracer
+    check(got == ref, "traced LLM tokens differ from the untraced run's")
+    spans = tr.kernel_spans()
+    served = ex.decode_steps + ex.chunk_prefills
+    check(spans.get((llm.name, "pallas")) == ex.kernel_invokes["pallas"]
+          == served > 0 and set(spans) == {(llm.name, "pallas")},
+          f"kernel spans {spans}, executor kernel_invokes "
+          f"{ex.kernel_invokes}, {served} decode steps and chunks")
+    check(launches["paged_decode_attn"] == 4 * ex.decode_steps and
+          launches["paged_prefill_attn"] == 4 * ex.chunk_prefills,
+          f"paged launches {launches} for {ex.decode_steps} decode steps "
+          f"and {ex.chunk_prefills} chunks")
+    recs = tr.llm_requests()
+    lat = llm.engine.latency_ms()
+    ttft = sorted(a["first_token_ms"] for *_, a in recs)
+    check(len(recs) == len(requests) and ttft == lat["first_token"],
+          f"{len(recs)} request records; TTFT {ttft} vs the engine's "
+          f"{lat['first_token']}")
+    itl = lat["inter_token"]
+    check(sum(a["n_tokens"] for *_, a in recs) == llm.engine.tokens_out and
+          all(itl[0] <= a["itl_p50_ms"] <= itl[-1] for *_, a in recs),
+          "request records' tokens and ITL disagree with the engine's")
+    res = {"tokens": llm.engine.tokens_out, "seconds_untraced": wall0,
+           "seconds_traced": wall1, "kernel_spans": spans[(llm.name,
+                                                           "pallas")],
+           "decode_steps": ex.decode_steps,
+           "prefill_chunks": ex.chunk_prefills, "launches": launches,
+           "forced_syncs": tr.forced_syncs(), "events": tr.total_events}
+    record["traced_llm"] = res
+    print(f"phase 25: LLM traced: tokens identical to the untraced run; "
+          f"kernel spans (llm, pallas) {res['kernel_spans']} = "
+          f"{ex.decode_steps} decode steps + {ex.chunk_prefills} chunks; "
+          f"launches {launches}; {len(recs)} request records, TTFT p50 "
+          f"{np.percentile(ttft, 50):.3f} ms; forced syncs "
+          f"{tr.forced_syncs()}; {wall0:.3f} s untraced, {wall1:.3f} s "
+          f"traced [{card}]")
+
+
+def policies_on_card(nt, torch, card, record, clean_b) -> None:
+    """Phase 26, checks: B with a seeded raise fault under skip, a delay
+    fault against watchdog_action=fail, and B cold in a fresh process."""
+    import shutil
+
+    from nnstreamer_tpu_torch.backends import kernels
+    from nnstreamer_tpu_torch.core.errors import StreamError, WatchdogStall
+
+    rng = np.random.default_rng(FAULT_SEED)
+    frame_ns = int(1e9 / 30)
+    expect = {i * frame_ns for i in range(TRACE_FRAMES)
+              if rng.random() < FAULT_P}
+    pipe = nt.parse_launch(b_desc(
+        TRACE_FRAMES, f"tensor_fault name=flt mode=raise probability="
+        f"{FAULT_P} seed={FAULT_SEED} error-policy=skip"))
+    runner = nt.PipelineRunner(pipe)
+    kernels.normalize_u8.launches = 0
+    runner.run(600)
+    st = runner.stats()["flt"]
+    got = pipe.get("out").results
+    survived = {b.pts for b in got}
+    check(len(got) + st["skipped"] + st["dropped"] == TRACE_FRAMES,
+          f"conservation: {len(got)} out + {st['skipped']} skipped + "
+          f"{st['dropped']} dropped != {TRACE_FRAMES}")
+    check(set(clean_b) - survived == expect and st["skipped"] == len(expect)
+          == st["errors"] > 0,
+          f"faulted pts {sorted(set(clean_b) - survived)}, the seed's "
+          f"{sorted(expect)}")
+    check(same_frames(got, [clean_b[b.pts] for b in got]),
+          "surviving frames differ from the clean run's")
+    check(kernels.normalize_u8.launches == len(got),
+          f"{kernels.normalize_u8.launches} normalize launches for "
+          f"{len(got)} frames")
+    print(f"phase 26: B with tensor_fault raise p {FAULT_P} seed "
+          f"{FAULT_SEED} under skip: {len(got)} frames out + "
+          f"{st['skipped']} skipped + {st['dropped']} dropped = "
+          f"{TRACE_FRAMES}; skipped frames {sorted(expect)} (pts) as the "
+          f"seed draws them; survivors bit for bit the clean run's")
+
+    pipe = nt.parse_launch(b_desc(8, "tensor_fault name=delay mode=delay "
+                                     "delay-ms=30000 period=1"))
+    runner = nt.PipelineRunner(pipe, stall_budget_s=0.5,
+                               watchdog_action="fail")
+    t0 = time.perf_counter()
+    try:
+        runner.run(60)
+        raised = None
+    except StreamError as e:
+        raised = e
+    fired = time.perf_counter() - t0
+    check(raised is not None and isinstance(raised.__cause__, WatchdogStall)
+          and "element delay exceeded its stall budget" in str(raised)
+          and fired < 5.0,
+          f"delay fault vs stall budget 0.5 s: {raised!r} after {fired:.2f} s")
+    print(f"phase 26: B with a 30 s delay fault, stall_budget_s 0.5, "
+          f"watchdog_action fail: WatchdogStall after {fired:.3f} s "
+          f"({raised})")
+
+    cold_dir = ROOT / "build" / "cold_kernels"
+    shutil.rmtree(cold_dir, ignore_errors=True)
+    env = {**__import__("os").environ,
+           "NNSTREAMER_TPU_TORCH_BUILD_KERNEL_DIR": str(cold_dir)}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", COLD_B, str(ROOT), b_desc(16)],
+        capture_output=True, text=True, env=env, timeout=600)
+    cold_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cold B failed:\n{proc.stderr[-3000:]}")
+    cold = json.loads(proc.stdout.strip().splitlines()[-1])
+    cold["process_seconds"] = cold_s
+    shutil.rmtree(cold_dir, ignore_errors=True)
+    check(cold["frames"] == 16 and cold["normalize_launches"] == 16
+          and cold["kernel_dir"] == str(cold_dir)
+          and any(n.startswith("normalize-") for n in cold["built"]),
+          f"cold B: {cold}")
+    check(not any(cold["watchdog_warnings"].values()),
+          f"the watchdog fired on cold B: {cold['watchdog_warnings']}")
+    record["policies"] = {"fault_skip": {"out": len(got),
+                                         "skipped": st["skipped"],
+                                         "faulted_pts": sorted(expect)},
+                          "watchdog_fail_s": fired, "cold_b": cold}
+    print(f"phase 26: B cold in a fresh process (kernels built into an "
+          f"empty directory): {cold['frames']} frames, no watchdog warning "
+          f"at the {cold['stall_budget_s']} s budget; slowest call per "
+          f"element (ms) {cold['proctime_max_ms']}; {cold['seconds']:.2f} s "
+          f"in the pipeline, {cold_s:.2f} s for the process [{card}]")
+
+
+def interleaved_arms(nt, build, frame, n_lat, warmup, n_burst, arms):
+    """Latency and frames/s of several arms of one pipeline, in turns in
+    one process: each arm's pipeline (build(): an appsrc named src to a
+    tensor_sink named out) runs under its own PipelineRunner(**kw), all
+    at once. Latency: each round pushes one frame into every arm in turn
+    (the order reversed every other round) and waits for it at the sink.
+    Frames/s: n_burst frames pushed at once into one arm, timed to the
+    last one's arrival, arms in turns a b b a.
+    → ({arm: latencies in ms}, {arm: [frames/s]}, {arm: runner})."""
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    runs = {}
+
+    def arrive(arm):
+        def on_buf(b):
+            runs[arm][2][0] += 1
+            runs[arm][3].set()
+        return on_buf
+
+    def wait_count(arm, n):
+        deadline = time.monotonic() + 300
+        while runs[arm][2][0] < n:
+            check(time.monotonic() < deadline,
+                  f"{arm}: {runs[arm][2][0]} of {n} frames in 300 s")
+            time.sleep(0.0005)
+
+    try:
+        for arm, kw in arms.items():
+            pipe = build()
+            pipe.get("out").set_props(new_data=arrive(arm), collect=False)
+            runs[arm] = (pipe, nt.PipelineRunner(pipe, **kw).start(), [0],
+                         threading.Event())
+        lat = {arm: [] for arm in arms}
+        order = list(arms)
+        pts = 0
+        for i in range(warmup + n_lat):
+            for arm in (order if i % 2 == 0 else order[::-1]):
+                pipe, _, _, got = runs[arm]
+                got.clear()
+                t0 = time.perf_counter()
+                pipe.get("src").push(TensorBuffer.of(frame, pts=pts))
+                pts += 1
+                check(got.wait(60), f"{arm}: no frame back within 60 s")
+                if i >= warmup:
+                    lat[arm].append((time.perf_counter() - t0) * 1e3)
+        fps = {arm: [] for arm in arms}
+        for arm in order + order[::-1]:
+            pipe, _, count, _ = runs[arm]
+            start = count[0]
+            t0 = time.perf_counter()
+            for _ in range(n_burst):
+                pipe.get("src").push(TensorBuffer.of(frame, pts=pts))
+                pts += 1
+            wait_count(arm, start + n_burst)
+            fps[arm].append(n_burst / (time.perf_counter() - t0))
+        for pipe, runner, _, _ in runs.values():
+            pipe.get("src").end()
+            runner.wait(60)
+    finally:
+        for _, runner, _, _ in runs.values():
+            runner.stop()
+    return lat, fps, {arm: r[1] for arm, r in runs.items()}
+
+
+def tracer_hook_us(n: int = 20000) -> float:
+    """Host µs per recorded event of the scheduler's hooks on this
+    machine's CPU (enqueue, dequeue, process span, backend span,
+    in-flight gauge in turn, each with its perf_counter read)."""
+    from nnstreamer_tpu_torch.runtime.tracing import Tracer
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    tr = Tracer()
+    buf = TensorBuffer.of(np.zeros(1, np.uint8))
+    tr.source_emit("src", buf, time.perf_counter())
+    t0 = time.perf_counter()
+    for _ in range(n):
+        tr.enqueue("e", 1, time.perf_counter())
+        tr.dequeue("e", 0, time.perf_counter())
+        t = time.perf_counter()
+        tr.record_process("e", buf, t, time.perf_counter())
+        tr.backend_span("e", "invoke", t, time.perf_counter())
+        tr.record_inflight("e", 1, time.perf_counter())
+    return (time.perf_counter() - t0) / (5 * n) * 1e6
+
+
+def runtime_timings(nt, torch, card, record) -> None:
+    """Phase 26, timings, arms alternating in this one process: A and B
+    with the tracer off and on, D compact-1, P host-1 and P host-1 with
+    its transforms unfused with chain fusion off and on. Latency p50/p99
+    over 100 closed-loop frames a arm, interleaved frame by frame, and
+    frames/s over bursts of 100 frames, two a arm in turns
+    (interleaved_arms); the tracer's own host cost per event
+    (tracer_hook_us)."""
+    res = {}
+    fa = u8_frames((1, 224, 224, 3), 1, 0)[0]
+    fd = u8_frames((1, 300, 300, 3), 1, 1)[0]
+    fp = u8_frames((1, 257, 257, 3), 1, 2)[0]
+    ab = "appsrc name=src dims=3:224:224:1 types=uint8 ! {} ! " + \
+        f"{MODEL} ! {LABEL} ! tensor_sink name=out"
+    tracer = {"tracer off": {"trace": False}, "tracer on": {"trace": True}}
+    fusion = {"fusion off": {"chain_fusion": False},
+              "fusion on": {"chain_fusion": True}}
+    p_desc = p_head() + f"{P_DEC} max_in_flight=1 ! tensor_sink name=out"
+    cells = {
+        "A": (ab.format(NORM_A), fa, tracer),
+        "B": (ab.format(NORM_B), fa, tracer),
+        "D compact-1": (d_head() + f"{D_DEC} {D_MODES['D compact-1']} ! "
+                        f"tensor_sink name=out", fd, fusion),
+        "P host-1": (p_desc, fp, fusion),
+        "P host-1 unfused": (p_desc, fp, {
+            a: {**kw, "optimize": False} for a, kw in fusion.items()}),
+    }
+    for name, (desc, frame, arms) in cells.items():
+        def build(desc=desc):
+            return nt.parse_launch(desc)
+        lat, fps, runners = interleaved_arms(nt, build, frame, 100, 10,
+                                             100, arms)
+        res[name] = {}
+        for arm in arms:
+            r = res[name][arm] = {
+                "p50_ms": float(np.percentile(lat[arm], 50)),
+                "p99_ms": float(np.percentile(lat[arm], 99)),
+                "mean_ms": float(np.mean(lat[arm])), "fps": fps[arm],
+                "fused_chains": runners[arm].fused_chains()}
+            tr = runners[arm].tracer
+            if tr.active:
+                r["events_per_frame"] = tr.total_events / 310
+            print(f"phase 26: {name}, {arm}: latency p50 {r['p50_ms']:.3f} "
+                  f"ms, p99 {r['p99_ms']:.3f} ms, mean {r['mean_ms']:.3f} "
+                  f"ms (100 frames, interleaved with the other arm); "
+                  + " / ".join(f"{f:.1f}" for f in fps[arm])
+                  + f" frames/s (bursts of 100, in turns); fused chains "
+                  f"{r['fused_chains']}"
+                  + (f"; {r['events_per_frame']:.1f} events a frame"
+                     if "events_per_frame" in r else "") + f" [{card}]")
+        a, b = list(arms)
+        d = 100 * (res[name][b]["p50_ms"] / res[name][a]["p50_ms"] - 1)
+        print(f"phase 26: {name}: {b} vs {a}: latency p50 {d:+.2f}% "
+              f"[{card}]")
+    hook = tracer_hook_us()
+    res["tracer_hook_us_per_event"] = hook
+    for name in ("A", "B"):
+        ev = res[name]["tracer on"]["events_per_frame"]
+        print(f"phase 26: tracer hooks cost {hook:.3f} us a recorded event "
+              f"on this host; {name} records {ev:.1f} events a frame: "
+              f"{hook * ev / 1e3:.4f} ms a frame [{card}]")
+    record["runtime_timings"] = res
+
+
+def slice6_phases(nt, torch, card, record, phases, ctx) -> None:
+    """Phases 24-26."""
+    clean_b = traced_pipelines(nt, torch, card, record)
+    phases.done("24 (A and B traced)")
+    traced_llm(nt, torch, card, record, ctx)
+    phases.done("25 (LLM traced)")
+    policies_on_card(nt, torch, card, record, clean_b)
+    runtime_timings(nt, torch, card, record)
+    phases.done("26 (policies, watchdog, tracer and fusion timings)")
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(
         description="On-card smoke test of the PyTorch/CUDA port (phases "
                     "in the module docstring).")
+    ap.add_argument(
+        "--slice6", action="store_true",
+        help="run phases 1, 2 and 24-26 only (the traced, fault-tolerant "
+             "runtime over A/B and LLM serving)")
     ap.add_argument(
         "--slice4", action="store_true",
         help="run phases 1, 2 and 20-23 only (the ring step, ring "
@@ -3012,6 +3464,11 @@ def main(argv=None) -> int:
         ctx = {}
         llm_model(ctx)
         entries = slice4_phases(nt, torch, card, record, phases, ctx)
+    elif args.slice6:
+        ctx = {}
+        llm_model(ctx)
+        slice6_phases(nt, torch, card, record, phases, ctx)
+        entries = []
     else:
         # -- 3-6. normalize_u8, pipelines A and B ------------------------
         entries = slice1_phases(nt, torch, card, record, phases)
@@ -3024,11 +3481,14 @@ def main(argv=None) -> int:
         entries += slice5_phases(nt, torch, card, record, phases)
         # -- 20-23. the ring step, ring attention, sharded serving -------
         entries += slice4_phases(nt, torch, card, record, phases, ctx)
+        # -- 24-26. the traced, fault-tolerant host runtime -------------
+        slice6_phases(nt, torch, card, record, phases, ctx)
     record["phase_seconds"] = phases.seconds
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    name = "chip_smoke_slice4.json" if args.slice4 else "chip_smoke.json"
+    name = ("chip_smoke_slice4.json" if args.slice4 else
+            "chip_smoke_slice6.json" if args.slice6 else "chip_smoke.json")
     (out_dir / name).write_text(json.dumps(record, indent=1))
     print(card)
     print(json.dumps({"kernels": entries}))

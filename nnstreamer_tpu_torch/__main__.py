@@ -3,6 +3,13 @@
     python -m nnstreamer_tpu_torch 'videotestsrc num-buffers=16 ! \
         tensor_converter ! tensor_filter model=zoo://mobilenet_v2 ! \
         tensor_decoder mode=image_labeling ! tensor_sink'
+    python -m nnstreamer_tpu_torch --stats '...pipeline...'
+                                            # per-element stats JSON
+    python -m nnstreamer_tpu_torch trace '...pipeline...' --out t.json
+                                            # traced run: report() and a
+                                            #  Chrome trace (Perfetto)
+    python -m nnstreamer_tpu_torch trace --merge a.json b.json --out m.json
+                                            # traces onto one timeline
 
 Runs the pipeline string to EOS on the CUDA device (set
 NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR=cpu to run on the CPU).
@@ -11,27 +18,102 @@ NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR=cpu to run on the CPU).
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
 
 
+def _trace_main(argv) -> int:
+    """`trace` subcommand: run a pipeline with the tracer on, print the
+    observability report, write a Chrome-trace JSON (Perfetto /
+    chrome://tracing); or, with --merge, merge trace files."""
+    ap = argparse.ArgumentParser(
+        prog="nnstreamer_tpu_torch trace",
+        description="run a pipeline traced: element report + Chrome trace")
+    ap.add_argument("pipeline", nargs="+",
+                    help="pipeline description string (with --merge: two "
+                         "or more Chrome-trace JSON files)")
+    ap.add_argument("--out", default="trace.json", metavar="FILE",
+                    help="Chrome-trace JSON output path (default trace.json)")
+    ap.add_argument("--merge", action="store_true",
+                    help="merge already-written trace JSONs onto one "
+                         "timeline (distinct process track groups) "
+                         "instead of running a pipeline")
+    ap.add_argument("--timeout", type=float, default=None,
+                    help="max run seconds")
+    ap.add_argument("--no-optimize", action="store_true",
+                    help="disable transform-into-filter fusion")
+    args = ap.parse_args(argv)
+
+    if args.merge:
+        from nnstreamer_tpu_torch.runtime.tracing import merge_chrome_traces
+
+        docs = []
+        for path in args.pipeline:
+            with open(path) as f:
+                docs.append(json.load(f))
+        merged = merge_chrome_traces(
+            docs, labels=[os.path.basename(p) for p in args.pipeline])
+        with open(args.out, "w") as f:
+            json.dump(merged, f)
+        print(f"merged {len(docs)} trace(s) -> {args.out} "
+              f"({len(merged['traceEvents'])} events)", file=sys.stderr)
+        return 0
+    if len(args.pipeline) != 1:
+        print("trace takes one pipeline description (or --merge with "
+              "trace files)", file=sys.stderr)
+        return 2
+
+    from nnstreamer_tpu_torch.graph.parse import parse_launch
+    from nnstreamer_tpu_torch.runtime.scheduler import PipelineRunner
+
+    pipe = parse_launch(args.pipeline[0])
+    runner = PipelineRunner(pipe, optimize=not args.no_optimize, trace=True)
+    interrupted = False
+    try:
+        runner.start()
+        runner.wait(args.timeout)
+    except KeyboardInterrupt:
+        interrupted = True
+        print("interrupted — writing partial trace", file=sys.stderr)
+    finally:
+        runner.stop()
+    with open(args.out, "w") as f:
+        json.dump(runner.tracer.to_chrome_trace(pipe.name), f)
+    print(runner.report())
+    print(f"chrome trace written to {args.out} "
+          f"(load in Perfetto or chrome://tracing)", file=sys.stderr)
+    return 130 if interrupted else 0
+
+
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "trace":
+        return _trace_main(argv[1:])
     ap = argparse.ArgumentParser(
         prog="nnstreamer_tpu_torch",
         description="streaming AI pipelines on PyTorch/CUDA (gst-launch parity)")
     ap.add_argument("pipeline", help="pipeline description string")
     ap.add_argument("--timeout", type=float, default=None,
                     help="max run seconds")
+    ap.add_argument("--stats", action="store_true",
+                    help="print per-element stats JSON after EOS")
+    ap.add_argument("--no-optimize", action="store_true",
+                    help="disable transform-into-filter fusion")
     args = ap.parse_args(argv)
 
     from nnstreamer_tpu_torch.graph.parse import parse_launch
     from nnstreamer_tpu_torch.runtime.scheduler import PipelineRunner
 
-    runner = PipelineRunner(parse_launch(args.pipeline))
+    runner = PipelineRunner(parse_launch(args.pipeline),
+                            optimize=not args.no_optimize)
     try:
         runner.run(args.timeout)
     except KeyboardInterrupt:
         print("interrupted", file=sys.stderr)
         return 130
+    if args.stats:
+        print(json.dumps(runner.stats(), indent=2, default=float))
     return 0
 
 

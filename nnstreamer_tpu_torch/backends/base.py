@@ -10,14 +10,19 @@ chains next to it in the graph, so they run on the device with the model.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from nnstreamer_tpu_torch.core.config import get_config
-from nnstreamer_tpu_torch.core.errors import BackendError
+from nnstreamer_tpu_torch.core.errors import BackendError, CircuitOpenError
+from nnstreamer_tpu_torch.core.log import get_logger
 from nnstreamer_tpu_torch.core.registry import PluginKind, registry
+from nnstreamer_tpu_torch.runtime.tracing import NULL_TRACER
 from nnstreamer_tpu_torch.tensor.info import TensorsSpec
+
+log = get_logger("backend")
 
 ArrayTuple = Tuple[Any, ...]
 ElementwiseFn = Callable[[ArrayTuple], ArrayTuple]
@@ -60,6 +65,15 @@ class FilterBackend:
     """One model-execution engine instance (per tensor_filter element)."""
 
     BACKEND_NAME: str = ""
+    #: tracing hooks — the owning tensor_filter hands down the session
+    #: tracer and its element name at start(), so the backend records
+    #: invoke spans on the element's track when tracer.active
+    tracer = NULL_TRACER
+    trace_name: str = ""
+    #: invoke exceptions seen by the owning tensor_filter (its stats'
+    #: backend_invoke_failures; breaker short-circuits are not counted —
+    #: the backend was never touched)
+    invoke_failures: int = 0
 
     def open(self, props: Dict[str, Any]) -> None:
         """Load the model described by element properties (fw->open)."""
@@ -86,8 +100,107 @@ class FilterBackend:
         return False
 
     def invoke(self, tensors: ArrayTuple) -> ArrayTuple:
-        """Run the model on one frame's tensors (the hot loop)."""
+        """Run the model on one frame's tensors (the hot loop): `run`,
+        recorded as one backend "invoke" span on the owning element's
+        track when the tracer is active. The span is host time — staging
+        and the launches; PyTorch runs eagerly, so there is no compile
+        step to mark, where the JAX package's XLA backend marks a
+        bucket's first jit."""
+        tr = self.tracer
+        if not tr.active:
+            return self.run(tensors)
+        t0 = time.perf_counter()
+        out = self.run(tensors)
+        tr.backend_span(self.trace_name or self.BACKEND_NAME, "invoke", t0,
+                        time.perf_counter())
+        return out
+
+    def run(self, tensors: ArrayTuple) -> ArrayTuple:
+        """The backend's invoke proper (see `invoke`)."""
         raise NotImplementedError
+
+
+class CircuitBreaker:
+    """Consecutive-failure circuit breaker around backend invokes:
+
+    - **closed** (normal): invokes pass through; `threshold` consecutive
+      failures open the circuit.
+    - **open**: `guard()` raises CircuitOpenError without touching the
+      backend, so the owning tensor_filter's error policy serves the
+      degrade/skip path at queue speed instead of stacking failures on a
+      dead backend. After `cooldown_s` the next guard() half-opens.
+    - **half-open**: exactly one probe invoke passes through — success
+      closes the circuit, failure re-opens it with a fresh cooldown.
+
+    Driven by the single worker thread of the owning element, so state
+    transitions need no lock. `clock` is injectable for deterministic
+    tests.
+    """
+
+    def __init__(self, threshold: int, cooldown_s: float,
+                 clock: Callable[[], float] = time.monotonic):
+        if threshold < 1:
+            raise ValueError(f"breaker threshold must be >= 1, got "
+                             f"{threshold}")
+        self.threshold = threshold
+        self.cooldown_s = max(0.0, cooldown_s)
+        self._clock = clock
+        self.state = "closed"            # closed | open | half_open
+        self._failures = 0               # consecutive, current streak
+        self._opened_at = 0.0
+        # observability counters (tensor_filter extra_stats)
+        self.opened_count = 0
+        self.short_circuited = 0
+        self.probes = 0
+        self.recoveries = 0
+
+    def guard(self, owner: str = "backend") -> None:
+        """Call before an invoke. Raises CircuitOpenError while the
+        circuit is open and cooling down; moves open → half_open once
+        the cooldown has elapsed (the caller's next invoke is the
+        probe)."""
+        if self.state == "closed":
+            return
+        if self.state == "open":
+            waited = self._clock() - self._opened_at
+            if waited < self.cooldown_s:
+                self.short_circuited += 1
+                raise CircuitOpenError(
+                    f"{owner}: circuit open after {self._failures} "
+                    f"consecutive backend failures; cooling down "
+                    f"({self.cooldown_s - waited:.2f}s of "
+                    f"{self.cooldown_s:.2f}s left) — serving the "
+                    f"fallback/skip path")
+            self.state = "half_open"
+            self.probes += 1
+            log.info("%s: circuit half-open — probing backend", owner)
+        # half_open: let exactly this invoke through as the probe
+
+    def record_success(self) -> None:
+        if self.state != "closed":
+            self.recoveries += 1
+            log.info("circuit closed — probe invoke succeeded")
+        self.state = "closed"
+        self._failures = 0
+
+    def record_failure(self) -> None:
+        self._failures += 1
+        if self.state == "half_open" or (
+                self.state == "closed" and self._failures >= self.threshold):
+            self.state = "open"
+            self._opened_at = self._clock()
+            self.opened_count += 1
+            log.warning("circuit opened after %d consecutive backend "
+                        "failure(s); cooling down %.2fs",
+                        self._failures, self.cooldown_s)
+
+    def stats(self) -> Dict[str, Any]:
+        return {"state": self.state,
+                "consecutive_failures": self._failures,
+                "opened": self.opened_count,
+                "short_circuited": self.short_circuited,
+                "probes": self.probes,
+                "recoveries": self.recoveries}
 
 
 def register_backend(*names: str):

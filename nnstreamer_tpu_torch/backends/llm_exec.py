@@ -16,6 +16,15 @@ accounting's meaning as the first run of a (kind, bucket, kernel) — for
 ``pallas``, the first run also builds the CUDA kernels — and
 ``compile_count``/``cache_hits``/``cache_misses`` count it the same way.
 
+Tracing (the engine hands down its tracer): each prefill, prefill chunk
+and decode is one backend span on the engine's track — "compile" on a
+bucket's first run, "invoke" after — with ``what=``, ``bucket=`` and
+``kernel=`` (pallas | xla | ring), so `Tracer.kernel_spans()` counts the
+calls per kernel; warm-up runs are "compile" spans without ``kernel=``.
+A span's host time includes the read-back when the call syncs (its
+forced sync is traced under ``<name>:prefill`` etc.), and only the
+launches when it does not.
+
 ``paged_kernel`` (property, else ``$NNS_PAGED_KERNEL``, else ``xla``):
 ``pallas`` runs the attention through the hand-written CUDA kernels
 (backends/paged_attn.py) and routes whole-prompt prefills through the
@@ -46,6 +55,7 @@ serving/compile_cache.
 from __future__ import annotations
 
 import os
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -56,6 +66,7 @@ from nnstreamer_tpu_torch.core.errors import BackendError
 from nnstreamer_tpu_torch.core.log import get_logger
 from nnstreamer_tpu_torch.llm.paged_cache import SCRATCH_BLOCK, PagedKVCache
 from nnstreamer_tpu_torch.runtime.sync import to_host
+from nnstreamer_tpu_torch.runtime.tracing import NULL_TRACER
 
 log = get_logger("backends.llm")
 
@@ -116,13 +127,14 @@ class PagedLLMExecutor:
                  num_blocks: int = 64, max_len: int = 128,
                  paged_kernel: Optional[str] = None, shards: int = 0,
                  shard_chips=None, ring_prefill_min: int = 0,
-                 name: str = "llm"):
+                 tracer=NULL_TRACER, name: str = "llm"):
         kern = (paged_kernel or os.environ.get("NNS_PAGED_KERNEL")
                 or "xla").strip().lower()
         if kern not in ("pallas", "xla"):
             raise BackendError(
                 f"paged_kernel must be 'pallas' or 'xla', got {kern!r}")
         self.name = name
+        self.tracer = tracer
         self.paged_kernel = kern
         self.kernel_invokes: Dict[str, int] = {"pallas": 0, "xla": 0}
         self.n_heads = int(n_heads)
@@ -277,6 +289,10 @@ class PagedLLMExecutor:
         self._staged.clear()
         self._version, self.adopted_epoch = cur, epoch
         self.swap_count += 1
+        self.tracer.record_swap(
+            self.name, time.perf_counter(), model=self._entry.name,
+            from_version=old, to_version=cur, epoch=epoch,
+            prewarmed=True)
         log.info("llm %s adopted %s@%d epoch=%d", self.name,
                  self._entry.name, cur, epoch)
 
@@ -340,6 +356,17 @@ class PagedLLMExecutor:
         return "chunk" if "wqkv_scale" in self.params["blocks"][0] \
             else "prefill"
 
+    def _span(self, kind: str, t0: float, t1: float, **args) -> None:
+        if self.tracer.active:
+            self.tracer.backend_span(self.name, kind, t0, t1, **args)
+
+    def _logits(self, logits, sync: bool, what: str):
+        """Host (vocab,)-rows of `logits` after one traced forced sync
+        when `sync`, else the device tensor."""
+        if not sync:
+            return logits
+        return to_host((logits,), self.tracer, f"{self.name}:{what}")[0]
+
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
@@ -366,14 +393,24 @@ class PagedLLMExecutor:
             np.arange(plen) // bs]
         blk_off = (np.arange(s_b) % bs).astype(np.int32)
         fn, fresh = self._get_fn(kind, s_b)
+        t0 = time.perf_counter()
         logits, self.cache.k, self.cache.v = fn(
             self._exec_params(kind), self._tensor(ids), self._tensor(blk_idx),
             self._tensor(blk_off), self.cache.k, self.cache.v, plen - 1,
             n_heads=self.n_heads, dtype=self.dtype)
+        out = self._logits(logits, sync, "prefill")
+        kernel = "ring" if kind == "ring" else "xla"
+        if fresh:
+            self._span("compile", t0, time.perf_counter(),
+                       what="llm_prefill", bucket=s_b, kernel=kernel)
+        else:
+            self._span("invoke", t0, time.perf_counter(),
+                       what="llm_prefill", bucket=s_b, plen=plen,
+                       kernel=kernel)
         self.compile_count += int(fresh)
         self.prefills += 1
         self.kernel_invokes["xla"] += 1
-        return to_host((logits,))[0] if sync else logits
+        return out
 
     def prefill_chunk(self, chunk: np.ndarray, pos0: int,
                       block_table: List[int], *, bucket: int = 0,
@@ -400,15 +437,25 @@ class PagedLLMExecutor:
         tab = np.full((self.max_blocks,), SCRATCH_BLOCK, np.int32)
         tab[:len(block_table)] = block_table
         fn, fresh = self._get_fn("chunk", c_b)
+        t0 = time.perf_counter()
         logits, self.cache.k, self.cache.v = fn(
             self.params, self._tensor(ids), int(pos0),
             self._tensor(blk_idx), self._tensor(blk_off), self._tensor(tab),
             self.cache.k, self.cache.v, clen - 1, n_heads=self.n_heads,
             dtype=self.dtype)
+        out = self._logits(logits, sync, "prefill_chunk")
+        kernel = self._kind_kernel("chunk")
+        if fresh:
+            self._span("compile", t0, time.perf_counter(),
+                       what="llm_prefill_chunk", bucket=c_b, kernel=kernel)
+        else:
+            self._span("invoke", t0, time.perf_counter(),
+                       what="llm_prefill_chunk", bucket=c_b, clen=clen,
+                       kernel=kernel)
         self.compile_count += int(fresh)
         self.chunk_prefills += 1
-        self.kernel_invokes[self._kind_kernel("chunk")] += 1
-        return to_host((logits,))[0] if sync else logits
+        self.kernel_invokes[kernel] += 1
+        return out
 
     # -- decode ------------------------------------------------------------
     def decode(self, cur: List[int], tables: List[List[int]],
@@ -427,14 +474,23 @@ class PagedLLMExecutor:
         pos_a = np.zeros((b_b,), np.int32)
         pos_a[:n] = pos
         fn, fresh = self._get_fn("decode", b_b)
+        t0 = time.perf_counter()
         logits, self.cache.k, self.cache.v = fn(
             self._exec_params("decode"), self._tensor(cur_a),
             self._tensor(tab_a), self._tensor(pos_a), self.cache.k,
             self.cache.v, n_heads=self.n_heads, dtype=self.dtype)
+        out = self._logits(logits, sync, "decode")
+        kernel = self._kind_kernel("decode")
+        if fresh:
+            self._span("compile", t0, time.perf_counter(),
+                       what="llm_decode", bucket=b_b, kernel=kernel)
+        else:
+            self._span("invoke", t0, time.perf_counter(),
+                       what="llm_decode", bucket=b_b, rows=n, kernel=kernel)
         self.compile_count += int(fresh)
         self.decode_steps += 1
-        self.kernel_invokes[self._kind_kernel("decode")] += 1
-        return to_host((logits,))[0][:n] if sync else logits
+        self.kernel_invokes[kernel] += 1
+        return out[:n] if sync else out
 
     # -- warm paths --------------------------------------------------------
     def _warm_compile(self, kind: str, bucket: int) -> bool:
@@ -446,6 +502,7 @@ class PagedLLMExecutor:
         if (kind, bucket, self._kind_kernel(kind)) in self._seen:
             return False
         fn, _ = self._get_fn(kind, bucket)
+        t0 = time.perf_counter()
         params = self._exec_params(kind)
         zeros = self._tensor(np.zeros((bucket,), np.int32))
         blk = self._tensor(np.full((bucket,), SCRATCH_BLOCK, np.int32))
@@ -467,8 +524,10 @@ class PagedLLMExecutor:
             logits, self.cache.k, self.cache.v = fn(
                 params, zeros, tab, zeros, self.cache.k,
                 self.cache.v, n_heads=self.n_heads, dtype=self.dtype)
-        to_host((logits,))
+        to_host((logits,), self.tracer, f"{self.name}:warm_{kind}")
         self.compile_count += 1
+        self._span("compile", t0, time.perf_counter(),
+                   what=f"llm_{kind}_warm", bucket=bucket)
         return True
 
     def prewarm_buckets(self, *, max_batch: int, max_prompt: int,

@@ -12,6 +12,11 @@ Registration:
 the backend run the function once on zeros to learn the output spec.
 Host numpy inputs are staged to the device in their own dtype (a uint8
 frame crosses as 1 byte per element) and the kernel runs there.
+
+With the session tracer active each invoke is one backend "invoke" span
+(`FilterBackend.invoke`); there is no "compile" span: the kernel
+library is built at its first launch (backends/cuda_build.py), inside
+that first invoke span.
 """
 
 from __future__ import annotations
@@ -116,7 +121,7 @@ class KernelBackend(FilterBackend):
         self._pre, self._post = pre, post
         return True
 
-    def invoke(self, tensors: ArrayTuple) -> ArrayTuple:
+    def run(self, tensors: ArrayTuple) -> ArrayTuple:
         ts, _ = stage(tensors, self.device)
         with torch.inference_mode():
             if self._pre is not None:

@@ -19,6 +19,9 @@ chains run on the device around the model, after staging, so a uint8
 frame crosses to the device as uint8. `invoke` returns without waiting
 for the device; the sink or host decoder that reads the result is the
 sync point.
+
+With the session tracer active each invoke is one backend "invoke" span
+(`FilterBackend.invoke`); there is no "compile" span: nothing compiles.
 """
 
 from __future__ import annotations
@@ -208,7 +211,7 @@ class TorchBackend(FilterBackend):
         self._pre, self._post = pre, post
         return True
 
-    def invoke(self, tensors: ArrayTuple) -> ArrayTuple:
+    def run(self, tensors: ArrayTuple) -> ArrayTuple:
         xs, transfers = stage(tensors, self.device)
         self.staging_transfers += transfers
         self.staging_elided += len(xs) - transfers

@@ -39,6 +39,22 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
         # DEVICE_RESIDENT element may have in flight before its worker
         # syncs the oldest; 0 = sync after every dispatch
         "max_inflight": "8",
+        # scheduler-level chain fusion: run linear chains of cheap
+        # single-in/single-out elements in one worker thread (direct
+        # call-through, no channel hop per element)
+        "chain_fusion": "1",
+        # policy-handled errors in a row, with no successful process()
+        # anywhere in the pipeline, before the run escalates to failure
+        # (0 = never)
+        "max_consecutive_errors": "100",
+        # the stall watchdog: an element inside process()/flush() longer
+        # than stall_budget_s, or an input queue at capacity longer than
+        # queue_stall_budget_s (empty = stall_budget_s), is flagged;
+        # watchdog_action warn | fail
+        "watchdog": "1",
+        "stall_budget_s": "30.0",
+        "queue_stall_budget_s": "",
+        "watchdog_action": "warn",
     },
     "build": {
         # directory the hand-written kernels are compiled into; empty =
@@ -98,6 +114,22 @@ class Config:
         except ValueError:
             raise ConfigError(
                 f"config [{group}] {key}={v!r} is not an integer") from None
+
+    def get_bool(self, group: str, key: str, default: bool = False) -> bool:
+        v = self.get(group, key)
+        if v is None or not v.strip():
+            return default
+        return v.strip().lower() in ("1", "true", "yes", "on")
+
+    def get_float(self, group: str, key: str, default: float = 0.0) -> float:
+        v = self.get(group, key)
+        if v is None or not v.strip():
+            return default
+        try:
+            return float(v)
+        except ValueError:
+            raise ConfigError(
+                f"config [{group}] {key}={v!r} is not a number") from None
 
 
 _global: Optional[Config] = None

@@ -2,7 +2,9 @@
 element with the port's ELEMENT registry."""
 
 from nnstreamer_tpu_torch.elements.converter import TensorConverter
+from nnstreamer_tpu_torch.elements.debug import TensorDebug
 from nnstreamer_tpu_torch.elements.decoder import TensorDecoder, register_decoder
+from nnstreamer_tpu_torch.elements.fault import TensorFault
 from nnstreamer_tpu_torch.elements.filter import TensorFilter
 from nnstreamer_tpu_torch.elements.llm import TensorLLM
 from nnstreamer_tpu_torch.elements.routing import TensorDemux, TensorMux
@@ -14,8 +16,10 @@ __all__ = [
     "AppSrc",
     "FakeSink",
     "TensorConverter",
+    "TensorDebug",
     "TensorDecoder",
     "TensorDemux",
+    "TensorFault",
     "TensorFilter",
     "TensorLLM",
     "TensorMux",

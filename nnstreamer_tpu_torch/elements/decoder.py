@@ -187,7 +187,12 @@ class TensorDecoder(Element):
                 return [(0, buf)]
         if dev == "compact" or depth > 1:
             return self._window(buf, depth)
-        return [(0, self.sub.decode(buf.to_host()))]
+        return [(0, self.sub.decode(self._host(buf)))]
+
+    def _host(self, buf: TensorBuffer) -> TensorBuffer:
+        """The frame on the host: the decoder is the pipeline's sync
+        point, and its forced sync is counted and traced here."""
+        return buf.to_host(self._tracer, self.name)
 
     def _window(self, buf: TensorBuffer, depth: int) -> List[Emission]:
         """Queue the frame's D2H copy; decode and emit frames while
@@ -195,10 +200,11 @@ class TensorDecoder(Element):
         self._inflight.append(buf.prefetch_host())
         ems: List[Emission] = []
         while len(self._inflight) >= depth:
-            ems.append((0, self.sub.decode(self._inflight.pop(0).to_host())))
+            ems.append((0, self.sub.decode(
+                self._host(self._inflight.pop(0)))))
         return ems
 
     def flush(self) -> List[Emission]:
-        ems = [(0, self.sub.decode(b.to_host())) for b in self._inflight]
+        ems = [(0, self.sub.decode(self._host(b))) for b in self._inflight]
         self._inflight.clear()
         return ems

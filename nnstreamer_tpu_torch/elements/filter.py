@@ -18,6 +18,13 @@ other JAX-package properties wait for later slices.
   chains.
 - Invoke does not wait for the device: outputs flow downstream as tensors
   whose work may still be queued.
+- **Circuit breaker** (`breaker_threshold`, `breaker_cooldown_ms`):
+  after that many consecutive invoke failures the circuit opens and
+  invokes short-circuit with CircuitOpenError for the cooldown, then one
+  half-open probe decides recovery (backends/base.CircuitBreaker). Pair
+  it with error-policy=skip or degrade.
+- At start() the runner's tracer is handed to the backend, whose invoke
+  spans then land on this element's track.
 """
 
 from __future__ import annotations
@@ -25,9 +32,11 @@ from __future__ import annotations
 from typing import Callable, List, Optional, Sequence
 
 from nnstreamer_tpu_torch.backends import pallas_backend, torch_backend  # noqa: F401 (register)
-from nnstreamer_tpu_torch.backends.base import FilterBackend, get_backend
+from nnstreamer_tpu_torch.backends.base import (
+    CircuitBreaker, FilterBackend, get_backend)
 from nnstreamer_tpu_torch.core.config import get_config
-from nnstreamer_tpu_torch.core.errors import BackendError, PipelineError
+from nnstreamer_tpu_torch.core.errors import (
+    BackendError, CircuitOpenError, PipelineError)
 from nnstreamer_tpu_torch.core.registry import register_element
 from nnstreamer_tpu_torch.elements.decoder import aux_on
 from nnstreamer_tpu_torch.graph.optimize import chain_fn, transfer_spec
@@ -39,6 +48,9 @@ from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
 class TensorFilter(Element):
     ELEMENT_NAME = "tensor_filter"
     DEVICE_RESIDENT = True
+    #: its own worker thread is what overlaps its launches with upstream
+    #: conversion, so it never joins a fused chain
+    CHAIN_FUSABLE = False
     PROPS = {
         "framework": PropDef(str, "", "backend name (torch|xla|pallas)"),
         "model": PropDef(lambda s: s, None, "model reference (backend-specific)"),
@@ -46,6 +58,10 @@ class TensorFilter(Element):
                                         "(empty: [filter] accelerator)"),
         "shared_tensor_filter_key": PropDef(
             str, "", "share one device model across filters with this key"),
+        "breaker_threshold": PropDef(
+            int, 0, "consecutive invoke failures to open the circuit (0=off)"),
+        "breaker_cooldown_ms": PropDef(
+            float, 1000.0, "open-circuit cooldown before the probe invoke"),
     }
 
     def __init__(self, name=None, **props):
@@ -58,6 +74,7 @@ class TensorFilter(Element):
         self._fused_in_backend = False
         self._fused_decoder = None             # device-decode subplugin
         self._decoder_aux = None               # its constants, on device
+        self._breaker: Optional[CircuitBreaker] = None
 
     # -- fusion (called by graph/optimize.py) ------------------------------
     def set_fusion(self, pre_programs, post_programs) -> None:
@@ -126,9 +143,50 @@ class TensorFilter(Element):
                                        self.backend.device)
         return [model_out.with_rate(spec.rate)]
 
+    def start(self) -> None:
+        # a test may pre-install a breaker with an injected clock; build
+        # one here only if the props ask for it and none exists yet
+        if self._breaker is None and self.props["breaker_threshold"] > 0:
+            self._breaker = CircuitBreaker(
+                self.props["breaker_threshold"],
+                self.props["breaker_cooldown_ms"] / 1e3)
+        if self.backend is not None:
+            self.backend.tracer = self._tracer
+            self.backend.trace_name = self.name
+
     def stop(self) -> None:
         if self.backend is not None:
             self.backend.close()
+
+    def extra_stats(self) -> dict:
+        """Backend and breaker counters merged into this element's
+        stats() row."""
+        out = {}
+        for k in ("invoke_failures", "staging_transfers", "staging_elided"):
+            v = getattr(self.backend, k, None)
+            if v is not None:
+                out["backend_" + k] = v
+        if self._breaker is not None:
+            for k, v in self._breaker.stats().items():
+                out["breaker_" + k] = v
+        return out
+
+    def _invoke_guarded(self, inputs):
+        """One backend invoke through the circuit breaker (when
+        configured). A short-circuit raises CircuitOpenError without
+        touching the backend and without counting as a new failure; the
+        element's error policy decides what it means."""
+        br = self._breaker
+        if br is None:
+            return self.backend.invoke(inputs)
+        br.guard(self.name)
+        try:
+            out = self.backend.invoke(inputs)
+        except Exception:
+            br.record_failure()
+            raise
+        br.record_success()
+        return out
 
     # -- hot loop ----------------------------------------------------------
     def process(self, pad: int, buf: TensorBuffer) -> List[Emission]:
@@ -136,8 +194,11 @@ class TensorFilter(Element):
         if self._pre is not None and not self._fused_in_backend:
             inputs = self._pre(inputs)
         try:
-            outputs = self.backend.invoke(inputs)
+            outputs = self._invoke_guarded(inputs)
+        except CircuitOpenError:
+            raise   # keep the type — error policies never retry these
         except Exception as e:
+            self.backend.invoke_failures += 1
             raise BackendError(
                 f"tensor_filter {self.name}: invoke failed on frame "
                 f"pts={buf.pts}: {e}") from e

@@ -228,7 +228,7 @@ class TensorLLM(Element):
             paged_kernel=str(self.props["paged_kernel"]) or None,
             shards=shards, shard_chips=chips,
             ring_prefill_min=int(self.props["ring_prefill_min"]),
-            name=self.name)
+            tracer=self._tracer, name=self.name)
         if int(self.props["warm_start"]):
             self.warm_compiles = self.engine.executor.warm_start()
         if int(self.props["prewarm"]) > 0:

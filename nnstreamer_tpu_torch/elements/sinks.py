@@ -29,7 +29,9 @@ class TensorSink(SinkElement):
         self.eos = threading.Event()
 
     def render(self, buf: TensorBuffer) -> None:
-        buf = buf.to_host()  # the single D2H point of the pipeline
+        # the single D2H point of the pipeline; its forced sync is
+        # counted and traced under this element
+        buf = buf.to_host(self._tracer, self.name)
         if self.props["collect"]:
             with self._lock:
                 self.results.append(buf)
@@ -59,5 +61,5 @@ class FakeSink(SinkElement):
 
     def render(self, buf: TensorBuffer) -> None:
         if self.props["sync_device"]:
-            device_sync(buf.tensors)
+            device_sync(buf.tensors, self._tracer, self.name)
         self.count += 1

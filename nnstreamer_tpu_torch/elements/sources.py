@@ -24,7 +24,10 @@ class VideoTestSrc(SourceElement):
 
     Patterns: `gradient` (default; per-frame-varying diagonal ramp) and
     `random` (seeded uniform noise). The frames equal the JAX package's
-    for the same (pattern, seed).
+    for the same (pattern, seed). An upstream QoS event
+    (`{"type": "qos", "min_interval_ns": N}`) makes it skip frames closer
+    than N ns after the last one it emitted, before computing them
+    (counted in `qos_skipped`).
     """
 
     ELEMENT_NAME = "videotestsrc"
@@ -50,7 +53,17 @@ class VideoTestSrc(SourceElement):
         frame_ns = int(NS / rate)
         pattern = self.props["pattern"]
         rng = np.random.default_rng(self.props["seed"])
+        next_qos_pts = 0
         for i in range(self.props["num_buffers"]):
+            pts = i * frame_ns
+            # downstream throttle QoS (an upstream event): skip BEFORE
+            # computing the frame — the point of the event
+            qos = self.qos_min_interval_ns
+            if qos and pts < next_qos_pts:
+                self.qos_skipped += 1
+                continue
+            if qos:
+                next_qos_pts = pts + qos
             if pattern == "random":
                 frame = rng.integers(0, 256, size=(h, w, c), dtype=np.uint8)
             elif pattern == "gradient":
@@ -62,7 +75,7 @@ class VideoTestSrc(SourceElement):
                 raise PipelineError(
                     f"videotestsrc pattern {pattern!r} unknown "
                     f"(gradient|random)")
-            yield TensorBuffer.of(frame, pts=i * frame_ns, duration=frame_ns)
+            yield TensorBuffer.of(frame, pts=pts, duration=frame_ns)
 
 
 @register_element("appsrc")

@@ -28,7 +28,11 @@ def _is_fusable_transform(pipe: Pipeline, elem) -> bool:
 
     return (isinstance(elem, TensorTransform)
             and len(pipe.links_to(elem)) == 1
-            and len(pipe.links_from(elem)) == 1)
+            and len(pipe.links_from(elem)) == 1
+            # a transform with its own error policy stays a separate
+            # element: fused, its failures would be charged to (and
+            # policied by) the filter instead
+            and elem.error_policy.kind == "fail")
 
 
 def chain_fn(programs) -> Optional[Callable]:

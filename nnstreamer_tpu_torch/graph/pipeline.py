@@ -12,6 +12,12 @@ Element model (push-based):
   with actionable messages.
 - `Element.start()` after negotiation; `next_deadline()`/`on_timer()`
   for elements that must wake up without input (timer elements).
+- Every element takes `error-policy` (fail | skip | retry:N[:backoff_ms]
+  | degrade; core/errors.ErrorPolicy), enforced by the scheduler. Under
+  degrade the element gets one more src pad, the fallback pad, which
+  carries its pad-0 input stream and must be linked.
+- Upstream events (`post_upstream_event`) walk the link graph toward
+  the sources (videotestsrc's QoS skip consumes `{"type": "qos"}`).
 
 Properties are constructor kwargs; string values arrive from the DSL and
 are coerced by each element's `PROPS` declaration.
@@ -23,9 +29,11 @@ import itertools
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
-from nnstreamer_tpu_torch.core.errors import NegotiationError, PipelineError
+from nnstreamer_tpu_torch.core.errors import (
+    FAIL_FAST, ErrorPolicy, NegotiationError, PipelineError)
 from nnstreamer_tpu_torch.core.log import get_logger
 from nnstreamer_tpu_torch.graph.media import MediaSpec
+from nnstreamer_tpu_torch.runtime.tracing import NULL_TRACER
 from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
 from nnstreamer_tpu_torch.tensor.info import TensorsSpec
 
@@ -68,6 +76,15 @@ class Element:
     NUM_SINK_PADS: int = 1
     NUM_SRC_PADS: int = 1
     PROPS: Dict[str, PropDef] = {}
+    #: properties every element understands, resolved alongside the
+    #: subclass PROPS table
+    COMMON_PROPS: Dict[str, PropDef] = {
+        "error_policy": PropDef(
+            ErrorPolicy.parse, FAIL_FAST,
+            "what the scheduler does when process() raises: fail "
+            "(default) | skip | retry:N[:backoff_ms] | degrade "
+            "(route input to the added fallback src pad)"),
+    }
     #: outputs may leave as tensors whose device work is still queued:
     #: the scheduler does not wait for them before passing them on, and
     #: bounds how many are in flight ([runtime] max_inflight)
@@ -76,18 +93,28 @@ class Element:
     #: scheduler starts D2H copies early toward it. The port's scheduler
     #: declares it only — each such element calls to_host() itself
     WANTS_HOST: bool = False
-    #: eligible for the JAX package's chain fusion (cheap single-in/out
-    #: elements sharing one thread). The port's scheduler gives every
-    #: element its own thread; a timer element must keep one regardless
+    #: eligible for scheduler-level chain fusion (runtime/scheduler.py):
+    #: linear runs of cheap single-in/single-out elements execute in one
+    #: worker thread with direct call-through. tensor_filter sets False:
+    #: its own thread is what overlaps its launches with upstream work
     CHAIN_FUSABLE: bool = True
     #: the pipeline the element was added to (set by Pipeline.add)
     _pipeline: Optional["Pipeline"] = None
+    #: hooks the runner sets before start(): the session tracer (emit
+    #: custom events behind `if self._tracer.active:`), the upstream
+    #: event router, and the teardown event that blocking elements
+    #: (injected delays) wait on instead of sleeping blind
+    _tracer = NULL_TRACER
+    _event_router = None
+    _stop_evt = None
 
     def __init__(self, name: Optional[str] = None, **props):
         # a counter, not id(): the low bits of two live objects' ids can
         # coincide, and two unnamed elements of a pipeline would collide
         self.name = name or f"{self.ELEMENT_NAME}{next(_unnamed)}"
-        self.props: Dict[str, Any] = {k: d.default for k, d in self.PROPS.items()}
+        self.props: Dict[str, Any] = {
+            k: d.default for k, d in self.COMMON_PROPS.items()}
+        self.props.update({k: d.default for k, d in self.PROPS.items()})
         self.set_props(**props)
         self.in_specs: List[Optional[StreamSpec]] = []
         self.out_specs: List[Optional[StreamSpec]] = []
@@ -95,9 +122,10 @@ class Element:
     def set_props(self, **props) -> None:
         for key, value in props.items():
             k = key.replace("-", "_")
-            pd = self.PROPS.get(k)
+            pd = self.PROPS.get(k) or self.COMMON_PROPS.get(k)
             if pd is None:
-                valid = sorted(p.replace("_", "-") for p in self.PROPS)
+                valid = sorted(p.replace("_", "-") for p in
+                               list(self.PROPS) + list(self.COMMON_PROPS))
                 raise PipelineError(
                     f"element {self.ELEMENT_NAME!r} ({self.name}) has no "
                     f"property {key!r}; valid properties: {valid}")
@@ -107,6 +135,49 @@ class Element:
                 raise PipelineError(
                     f"bad value {value!r} for property {key!r} of element "
                     f"{self.name}: {e}") from e
+
+    # -- error policy ------------------------------------------------------
+    @property
+    def error_policy(self) -> ErrorPolicy:
+        """Parsed error-policy property (FAIL_FAST unless overridden)."""
+        return self.props.get("error_policy") or FAIL_FAST
+
+    @property
+    def fallback_src_pad(self) -> Optional[int]:
+        """Pad index the scheduler routes failed input buffers to under
+        error-policy=degrade: one extra src pad after the declared ones
+        (a plain 1-src element degrades on pad 1, a sink on pad 0). It
+        carries the element's sink pad 0 input stream, unprocessed.
+        None unless the policy is degrade."""
+        if self.error_policy.kind != "degrade" \
+                or self.NUM_SRC_PADS == DYNAMIC:
+            return None
+        return self.NUM_SRC_PADS
+
+    @property
+    def num_sink_pads(self) -> int:
+        return self.NUM_SINK_PADS
+
+    @property
+    def num_src_pads(self) -> int:
+        if self.fallback_src_pad is not None:
+            return self.NUM_SRC_PADS + 1
+        return self.NUM_SRC_PADS
+
+    # -- upstream events (GStreamer upstream-event analog) -----------------
+    def post_upstream_event(self, event: dict) -> None:
+        """Send an event toward the pipeline's sources (e.g. a QoS
+        throttle). Routed against the link graph by the runner; each
+        upstream element's handle_upstream_event() may consume it
+        (return True) or let it propagate further. No-op outside a
+        running pipeline."""
+        router = self._event_router
+        if router is not None:
+            router(self, event)
+
+    def handle_upstream_event(self, event: dict) -> bool:
+        """Return True to consume the event (stops propagation)."""
+        return False
 
     def negotiate(self, in_specs: Sequence[StreamSpec]) -> List[StreamSpec]:
         """Compute output specs from input specs. Runs once, build time."""
@@ -154,6 +225,18 @@ class Element:
 
 class SourceElement(Element):
     NUM_SINK_PADS = 0
+
+    #: QoS pacing requested from downstream (0 = none): sources should
+    #: not *generate* frames closer together than this (skip before
+    #: compute, the point of an upstream QoS event)
+    qos_min_interval_ns: int = 0
+    qos_skipped: int = 0
+
+    def handle_upstream_event(self, event: dict) -> bool:
+        if event.get("type") == "qos":
+            self.qos_min_interval_ns = int(event.get("min_interval_ns", 0))
+            return True
+        return False
 
     def negotiate(self, in_specs: Sequence[StreamSpec]) -> List[StreamSpec]:
         return [self.output_spec()]
@@ -227,9 +310,9 @@ class Pipeline:
             src_pad = self._next_free_pad(src, src_side=True)
         if dst_pad is None:
             dst_pad = self._next_free_pad(dst, src_side=False)
-        if src.NUM_SRC_PADS != DYNAMIC and src_pad >= src.NUM_SRC_PADS:
+        if src.NUM_SRC_PADS != DYNAMIC and src_pad >= src.num_src_pads:
             raise PipelineError(
-                f"{src.name} has {src.NUM_SRC_PADS} src pad(s); cannot link "
+                f"{src.name} has {src.num_src_pads} src pad(s); cannot link "
                 f"pad {src_pad}")
         if dst.NUM_SINK_PADS != DYNAMIC and dst_pad >= dst.NUM_SINK_PADS:
             raise PipelineError(
@@ -289,8 +372,13 @@ class Pipeline:
                         f"pad {l.dst_pad}")
                 in_specs[l.dst_pad] = link_spec[(l.src.name, l.src_pad)]
             out_specs = e.negotiate(in_specs)
+            fb = e.fallback_src_pad
+            if fb is not None and len(out_specs) == fb:
+                # the degrade fallback pad carries the element's pad-0
+                # input stream verbatim, so its spec is the input spec
+                out_specs = list(out_specs) + [in_specs[0]]
             n_src = (len(self.links_from(e)) if e.NUM_SRC_PADS == DYNAMIC
-                     else e.NUM_SRC_PADS)
+                     else e.num_src_pads)
             if len(out_specs) != n_src:
                 raise NegotiationError(
                     f"element {e.name} produced {len(out_specs)} output "
@@ -312,16 +400,36 @@ class Pipeline:
                 "pipeline has no source element; every pipeline needs at "
                 "least one (appsrc, videotestsrc, …)")
         for e in self.elements.values():
+            policy = e.error_policy
+            if policy.kind != "fail" and isinstance(e, SourceElement):
+                raise PipelineError(
+                    f"element {e.name}: error-policy={policy} is not "
+                    f"supported on a source element — a generate() "
+                    f"failure kills its pump thread, so sources are "
+                    f"always fail-fast; put the policy on the element "
+                    f"that can actually fail per-buffer")
+            if policy.kind == "degrade" and e.NUM_SRC_PADS == DYNAMIC:
+                raise PipelineError(
+                    f"element {e.name}: error-policy=degrade needs a "
+                    f"fixed src pad count to place the fallback pad, but "
+                    f"{e.ELEMENT_NAME} has dynamic src pads; use skip or "
+                    f"retry instead")
             n_in, n_out = len(self.links_to(e)), len(self.links_from(e))
-            if e.NUM_SINK_PADS != DYNAMIC and n_in != e.NUM_SINK_PADS:
+            if e.NUM_SINK_PADS != DYNAMIC and n_in != e.num_sink_pads:
                 raise PipelineError(
-                    f"element {e.name} needs {e.NUM_SINK_PADS} sink "
+                    f"element {e.name} needs {e.num_sink_pads} sink "
                     f"link(s), has {n_in}")
-            if e.NUM_SRC_PADS != DYNAMIC and n_out != e.NUM_SRC_PADS:
+            if e.NUM_SRC_PADS != DYNAMIC and n_out != e.num_src_pads:
+                hint = (
+                    f" (error-policy=degrade adds a fallback src pad — "
+                    f"pad {e.fallback_src_pad} — that must be linked, "
+                    f"e.g. to a cheaper model branch or a sink)"
+                    if e.fallback_src_pad is not None else
+                    " — every src pad must be linked (terminate unused "
+                    "branches with fakesink)")
                 raise PipelineError(
-                    f"element {e.name} needs {e.NUM_SRC_PADS} src link(s), "
-                    f"has {n_out} — every src pad must be linked "
-                    f"(terminate unused branches with fakesink)")
+                    f"element {e.name} needs {e.num_src_pads} src link(s), "
+                    f"has {n_out}{hint}")
 
     def _topo_order(self) -> List[Element]:
         indeg = {name: len(self.links_to(e)) for name, e in self.elements.items()}

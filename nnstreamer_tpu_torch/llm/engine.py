@@ -123,7 +123,7 @@ class LLMEngine:
             num_blocks=num_blocks, max_len=max_len,
             paged_kernel=paged_kernel, shards=shards,
             shard_chips=shard_chips, ring_prefill_min=ring_prefill_min,
-            name=name)
+            tracer=tracer, name=name)
         self.cache = self.executor.cache
         self.queue: deque = deque()
         self.active: List[LLMRequest] = []
@@ -275,7 +275,8 @@ class LLMEngine:
         `active` and merge into this step's decode batch."""
         if not pending:
             return
-        arrays = to_host([lg for _, lg in pending])
+        arrays = to_host([lg for _, lg in pending], self.tracer,
+                         f"{self.name}:prefill_batch")
         for (req, _), lg in zip(pending, arrays):
             tok = self._sample(req, lg)
             self._record_token(req, tok)

@@ -81,6 +81,11 @@ class Channel:
             self._not_full.notify()
             return item, len(self._buf)
 
+    def full(self) -> bool:
+        """At capacity right now (the watchdog's queue-stall probe)."""
+        with self._lock:
+            return len(self._buf) >= self._cap
+
     def close(self) -> None:
         """Refuse further puts and wake every waiter."""
         with self._lock:

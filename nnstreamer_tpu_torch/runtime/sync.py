@@ -6,12 +6,14 @@ scheduler's in-flight window) goes through :func:`device_sync`, and
 every read-back through :func:`to_host`. One call site means one way to
 wait — a CUDA stream synchronize per device the tensors live on — and one
 count of the *forced* syncs, the host-path tax the async dispatch exists
-to avoid.
+to avoid. Given a tracer and an element name, a forced sync is also
+recorded on the tracer (`Tracer.record_forced_sync`).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 import torch
@@ -28,15 +30,23 @@ def forced_sync_count() -> int:
     return _forced
 
 
-def device_sync(tensors, forced: bool = True):
+def _count(tracer, name) -> None:
+    global _forced
+    with _lock:
+        _forced += 1
+    if tracer is not None and tracer.active:
+        tracer.record_forced_sync(name or "?", time.perf_counter())
+
+
+def device_sync(tensors, tracer=None, name=None, forced: bool = True):
     """Block until the device work behind every CUDA tensor in
     ``tensors`` (a tuple, a list or one tensor) has finished.
 
-    Free, and not counted, when nothing in it is a CUDA tensor.
-    ``forced=True`` marks a semantic sync (sink, sync latency mode) and
-    is counted; ``forced=False`` marks the in-flight window's
+    Free, and neither counted nor traced, when nothing in it is a CUDA
+    tensor. ``forced=True`` marks a semantic sync (sink, sync latency
+    mode) and is counted, and traced on ``tracer`` under element
+    ``name``; ``forced=False`` marks the in-flight window's
     backpressure. Returns ``tensors`` unchanged."""
-    global _forced
     leaves = tensors if isinstance(tensors, (tuple, list)) else (tensors,)
     devices = {t.device for t in leaves
                if isinstance(t, torch.Tensor) and t.is_cuda}
@@ -47,24 +57,24 @@ def device_sync(tensors, forced: bool = True):
         # (default) stream, so finishing it finishes these tensors
         torch.cuda.current_stream(dev).synchronize()
     if forced:
-        with _lock:
-            _forced += 1
+        _count(tracer, name)
     return tensors
 
 
-def to_host(tensors) -> tuple:
-    """Tensors (a tuple or list) → host numpy arrays, after a counted
-    device_sync. A D2H copy already in flight (`tensor.buffer.HostCopy`)
-    is waited for on its own event, counted the same way. Non-tensors
-    pass through unchanged."""
-    global _forced
-    device_sync(tensors)
+def to_host(tensors, tracer=None, name=None) -> tuple:
+    """Tensors (a tuple or list) → host numpy arrays. Whatever had to be
+    waited for — the streams behind CUDA tensors, the events of D2H
+    copies already in flight (`tensor.buffer.HostCopy`), or both — is
+    one forced sync, counted and traced once. Non-tensors pass through
+    unchanged."""
+    waited = any(isinstance(t, torch.Tensor) and t.is_cuda
+                 for t in tensors)
+    device_sync(tensors, forced=False)
     copies = [t for t in tensors if isinstance(t, HostCopy)]
     for c in copies:
         c.event.synchronize()
-    if copies:
-        with _lock:
-            _forced += 1
+    if waited or copies:
+        _count(tracer, name)
     return tuple(to_numpy(t.host) if isinstance(t, HostCopy)
                  else to_numpy(t) if isinstance(t, torch.Tensor) else t
                  for t in tensors)

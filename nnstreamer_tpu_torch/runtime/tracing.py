@@ -1,17 +1,92 @@
-"""Tracing — only what the LLM engine needs so far.
+"""Pipeline tracing: span events, interlatency, queue gauges, Chrome trace.
 
-- `percentile`: nearest-rank percentile over a sorted sample (the
-  engine's time-to-first-token and inter-token latency summaries).
-- `NULL_TRACER`: the inactive default. Every call site guards its hook
-  with ``if tracer.active:``, so the null tracer carries nothing else;
-  the recording `Tracer` (spans, Chrome traces, reports) is still to be
-  ported.
+The four GstShark tracers that matter for pipeline tuning, as runtime
+citizens (counterpart of the JAX package's runtime/tracing.py):
+
+- proctime    → always-on `ElementStats` (scheduler.py) + "X" span events
+                per element invocation when tracing is on
+- interlatency→ per-buffer source-timestamp tagging: every source emit
+                stamps `buf.meta[SOURCE_TS_META]`; every downstream
+                element records (now - source_ts) into a bounded
+                reservoir, giving p50/p95/p99 end-to-end latency *per
+                element* (the sink rows are the pipeline latency)
+- queuelevel  → queue-depth gauges sampled at enqueue/dequeue ("C"
+                counter events) + an always-on per-queue high-water mark
+- forced syncs and the async window → `record_forced_sync` per element
+                (runtime/sync.py) and the in-flight gauge
+
+Two implementations share one duck type: `Tracer` (recording) and
+`NullTracer` (`NULL_TRACER`, the default). The scheduler keeps hooks out
+of the hot path by guarding every call site with `if tracer.active:` —
+a traced-off run pays one attribute load per hook site, nothing else.
+
+Timing model. Every span is host time (`time.perf_counter`). PyTorch
+queues CUDA work and returns, so a process span of a DEVICE_RESIDENT
+element (tensor_filter) covers the launches only; the card's time for
+that frame lands on whichever span waits for it — the decoder's or
+sink's read-back, counted as a forced sync. The tracer adds no CUDA
+events: device time per kernel belongs to a device profiler.
+
+Ring-buffer discipline: events land in a `collections.deque(maxlen=N)`
+under one lock, with the count of events ever recorded, so the count
+stays exact across worker threads; when the ring wraps, the oldest
+events fall off and `events_dropped` in `summary()` says how many.
+
+Export: `to_chrome_trace()` emits the Trace Event Format JSON that
+chrome://tracing and Perfetto load — one named track (tid) per element
+thread, "X" complete spans for process/timer/flush/backend work, "C"
+counters for queue depth and in-flight windows, "i" instants for EOS,
+drops, errors, watchdog warnings and forced syncs.
+
+Not ported yet (the hooks exist on `NullTracer`, and so on `Tracer`, as
+no-ops with the JAX package's signatures): the request-scoped hop and
+request records, worker shipping (`ship_delta`/`ingest_child`), admission
+sheds and worker events (the pool and edge, slice 7); compiled-window
+and loop-bail records (the compiled loop); autotuner decisions.
 """
 
 from __future__ import annotations
 
+import bisect
 import math
-from typing import List
+import threading
+import time
+from collections import deque
+from typing import Any, Deque, Dict, List, Optional, Tuple
+
+#: TensorBuffer.meta key carrying the pipeline-entry timestamp
+#: (time.perf_counter seconds, stamped by the scheduler at source emit).
+#: `with_tensors` copies meta, so the stamp survives every element.
+SOURCE_TS_META = "_trace_src_ts"
+
+#: histogram bucket upper bounds (seconds) for per-element proctime —
+#: log-spaced 10µs → 10s, the range a pipeline stage can plausibly
+#: occupy (the JAX package's bounds, so the two render the same buckets)
+HIST_BOUNDS_S = tuple(
+    round(10.0 ** (e / 3.0), 9) for e in range(-15, 4))  # 1e-5 .. 10.0
+
+
+class _Hist:
+    """Fixed-bound cumulative histogram: monotone counts (never
+    recomputed from a windowed reservoir — two consecutive reads must
+    never see a bucket count decrease)."""
+
+    __slots__ = ("counts", "sum", "count")
+
+    def __init__(self):
+        self.counts = [0] * (len(HIST_BOUNDS_S) + 1)   # +1 = +Inf
+        self.sum = 0.0
+        self.count = 0
+
+    def record(self, v: float) -> None:
+        self.counts[bisect.bisect_left(HIST_BOUNDS_S, v)] += 1
+        self.sum += v
+        self.count += 1
+
+    def snapshot(self) -> dict:
+        return {"bounds": list(HIST_BOUNDS_S),
+                "counts": list(self.counts),
+                "sum": self.sum, "count": self.count}
 
 
 def percentile(sorted_vals: List[float], p: float) -> float:
@@ -25,9 +100,476 @@ def percentile(sorted_vals: List[float], p: float) -> float:
 
 
 class NullTracer:
-    """Do-nothing tracer: `.active` is False, so no hook is ever called."""
+    """Do-nothing tracer: the default. Every hook exists so callers can
+    skip the `.active` guard where the call is not on a hot path."""
 
     active = False
 
+    def source_emit(self, name, buf, t):
+        pass
 
+    def enqueue(self, dst, depth, t):
+        pass
+
+    def dequeue(self, name, depth, t):
+        pass
+
+    def record_process(self, name, buf, t0, t1):
+        pass
+
+    def record_timer(self, name, t0, t1):
+        pass
+
+    def record_flush(self, name, t0, t1):
+        pass
+
+    def record_eos(self, name, t):
+        pass
+
+    def record_drop(self, name, t):
+        pass
+
+    def record_error(self, name, exc_type, t, **args):
+        pass
+
+    def record_watchdog(self, name, kind, t, **args):
+        pass
+
+    def watchdog_counts(self):
+        return {}
+
+    def record_flight(self, kind, t, **args):
+        pass
+
+    def flight_dumps(self):
+        return []
+
+    def record_device_counter(self, name, value, t):
+        pass
+
+    def worker_counts(self):
+        return {}
+
+    def backend_span(self, name, kind, t0, t1, **args):
+        pass
+
+    def device_span(self, device, kind, t0, t1, **args):
+        pass
+
+    def record_swap(self, name, t, **args):
+        pass
+
+    def swap_events(self):
+        return []
+
+    def record_llm_request(self, name, req_id, t, **args):
+        pass
+
+    def record_forced_sync(self, name, t):
+        pass
+
+    def record_inflight(self, name, depth, t):
+        pass
+
+    def record_compiled_window(self, name, k, t0, t1):
+        pass
+
+    def compiled_windows(self):
+        return {}
+
+    def record_loop_bail(self, name, cause, t):
+        pass
+
+    def loop_bails(self):
+        return {}
+
+    def record_shed(self, name, cause, t, **args):
+        pass
+
+    def record_worker_event(self, name, wid, kind, t, **args):
+        pass
+
+    def record_request(self, name, trace_id, hops, t, **args):
+        pass
+
+    def record_autotune(self, name, knob, t, **args):
+        pass
+
+    def ship_delta(self):
+        return None
+
+    def ingest_child(self, wid, pid, payload, offset_s=0.0, label=None):
+        pass
+
+    def tenant_summary(self):
+        return {}
+
+    def kernel_spans(self):
+        return {}
+
+    def instant(self, name, label, t=None, **args):
+        pass
+
+
+#: shared no-op singleton — scheduler, elements and backends all default
+#: to this; PipelineRunner(trace=True) swaps in a recording Tracer
 NULL_TRACER = NullTracer()
+
+# event tuple layout: (ph, cat, name, label, ts, dur, args)
+_Event = Tuple[str, str, str, str, float, float, Any]
+
+
+class Tracer(NullTracer):
+    """Recording tracer fed by the scheduler's hook points.
+
+    All hooks are called from element worker threads. The event ring
+    and its count sit under one lock; each element's interlatency
+    reservoir, histogram and per-element counters are written only by
+    the thread that runs that element; the gauge peak update is a benign
+    read-modify-write between an element's producers and its worker (a
+    lost race costs one sample, never a crash). The hooks of the
+    subsystems not ported yet stay the inherited no-ops.
+    """
+
+    active = True
+
+    def __init__(self, max_events: int = 65536,
+                 max_latency_samples: int = 8192):
+        self._t0 = time.perf_counter()
+        self._events: Deque[_Event] = deque(maxlen=max_events)
+        self._total_events = 0
+        self._lock = threading.Lock()
+        self._max_latency_samples = max_latency_samples
+        # element name -> reservoir of (t_done - t_source_emit) seconds
+        self._interlat: Dict[str, Deque[float]] = {}
+        # dst element name -> {"peak": max depth ever sampled}
+        self._gauges: Dict[str, Dict[str, int]] = {}
+        # model hot-swap adoptions (serving/store.py): kept whole, not
+        # just as ring events, so report() renders every swap even after
+        # the ring wraps
+        self._swaps: List[Tuple[str, float, dict]] = []
+        # retired LLM requests (llm/engine.py): kept whole for the same
+        # reason — per-request serving latency survives ring wrap
+        self._llm_requests: List[Tuple[str, str, float, dict]] = []
+        # element name -> count of forced host syncs (runtime/sync.py)
+        self._forced: Dict[str, int] = {}
+        # (element, kernel) -> backend spans tagged with a kernel= arg
+        # (llm_exec prefill/chunk/decode): kept whole like _forced so
+        # per-kernel attribution survives ring wrap
+        self._kernel_spans: Dict[Tuple[str, str], int] = {}
+        # element name -> {"peak": max async in-flight depth sampled}
+        self._inflight: Dict[str, Dict[str, int]] = {}
+        # element name -> cumulative proctime histogram (seconds)
+        self._hists: Dict[str, _Hist] = {}
+        # element name -> {kind: count} of watchdog warnings: kept whole
+        # so the totals survive ring wrap
+        self._watchdogs: Dict[str, Dict[str, int]] = {}
+        # flight-recorder dumps: kept whole — each one is a post-mortem
+        # anchor
+        self._flights: List[Tuple[str, float, dict]] = []
+
+    # -- scheduler hooks ---------------------------------------------------
+    def source_emit(self, name: str, buf, t: float) -> None:
+        """Stamp the buffer's pipeline-entry time (interlatency origin)."""
+        meta = getattr(buf, "meta", None)
+        if isinstance(meta, dict):
+            meta[SOURCE_TS_META] = t
+        self._append("i", "source", name, "emit", t, 0.0, None)
+
+    def enqueue(self, dst: str, depth: int, t: float) -> None:
+        self._gauge(dst, depth, t)
+
+    def dequeue(self, name: str, depth: int, t: float) -> None:
+        self._gauge(name, depth, t)
+
+    def record_process(self, name: str, buf, t0: float, t1: float) -> None:
+        self._append("X", "element", name, "process", t0, t1 - t0, None)
+        h = self._hists.get(name)
+        if h is None:
+            h = self._hists[name] = _Hist()
+        h.record(t1 - t0)
+        meta = getattr(buf, "meta", None)
+        src_ts = meta.get(SOURCE_TS_META) if isinstance(meta, dict) \
+            else None
+        if src_ts is not None:
+            r = self._interlat.get(name)
+            if r is None:
+                r = self._interlat[name] = deque(
+                    maxlen=self._max_latency_samples)
+            r.append(t1 - src_ts)
+
+    def record_timer(self, name: str, t0: float, t1: float) -> None:
+        self._append("X", "element", name, "timer", t0, t1 - t0, None)
+
+    def record_flush(self, name: str, t0: float, t1: float) -> None:
+        self._append("X", "element", name, "flush", t0, t1 - t0, None)
+
+    def record_eos(self, name: str, t: float) -> None:
+        self._append("i", "element", name, "eos", t, 0.0, None)
+
+    def record_drop(self, name: str, t: float) -> None:
+        self._append("i", "element", name, "buffer_dropped", t, 0.0, None)
+
+    def record_error(self, name: str, exc_type: str, t: float,
+                     **args) -> None:
+        """A process() exception handled by the element's error policy
+        (args carry the policy and the buffer's pts)."""
+        args = dict(args, exc=exc_type)
+        self._append("i", "error", name, "error", t, 0.0, args)
+
+    def record_watchdog(self, name: str, kind: str, t: float,
+                        **args) -> None:
+        """A watchdog warning: kind is "stall" (process() over budget)
+        or "queue" (input queue at capacity over budget), counted per
+        (element, kind) wrap-proof."""
+        c = self._watchdogs.get(name)
+        if c is None:
+            c = self._watchdogs[name] = {}
+        c[kind] = c.get(kind, 0) + 1
+        self._append("i", "watchdog", name, f"watchdog_{kind}", t, 0.0,
+                     args or None)
+
+    def watchdog_counts(self) -> Dict[str, Dict[str, int]]:
+        """Per-element watchdog-kind totals (wrap-proof)."""
+        return {name: dict(c) for name, c in self._watchdogs.items()}
+
+    def backend_span(self, name: str, kind: str, t0: float, t1: float,
+                     **args) -> None:
+        """Backend-side span (invoke; the LLM executor's first run of a
+        bucket is "compile") on the owning element's track; args carry
+        bucket details. A ``kernel=`` arg (the LLM executor's
+        pallas/xla attribution) is additionally counted per (element,
+        kernel) — wrap-proof, read back via `kernel_spans()`."""
+        kern = (args or {}).get("kernel")
+        if kern is not None:
+            key = (name, str(kern))
+            self._kernel_spans[key] = self._kernel_spans.get(key, 0) + 1
+        self._append("X", "backend", name, kind, t0, t1 - t0, args or None)
+
+    def kernel_spans(self) -> Dict[Tuple[str, str], int]:
+        """(element, kernel) -> count of kernel-tagged backend spans."""
+        return dict(self._kernel_spans)
+
+    def device_span(self, device: int, kind: str, t0: float, t1: float,
+                    **args) -> None:
+        """Per-device span (replica invoke / shard stage): one track per
+        card (``dev0``..``devN``); args carry the owning element."""
+        self._append("X", "device", f"dev{int(device)}", kind, t0,
+                     t1 - t0, args or None)
+
+    def record_swap(self, name: str, t: float, **args) -> None:
+        """A store-driven model hot swap adopted by `name` (the LLM
+        executor's maybe_adopt); args carry model/from_version/
+        to_version/epoch/prewarmed."""
+        self._swaps.append((name, t, dict(args)))
+        self._append("i", "swap", name, "model_swap", t, 0.0,
+                     args or None)
+
+    def swap_events(self) -> List[Tuple[str, float, dict]]:
+        return list(self._swaps)
+
+    def record_llm_request(self, name: str, req_id: str, t: float,
+                           **args) -> None:
+        """One retired LLM request (llm/engine.py); args carry the
+        request summary: prompt_len/n_tokens/first_token_ms/itl_p50_ms/
+        finish_reason. Kept whole so per-request serving latency
+        survives ring wrap."""
+        self._llm_requests.append((name, req_id, t, dict(args)))
+        self._append("i", "llm", name, "llm_request", t, 0.0,
+                     dict(args, req_id=req_id))
+
+    def llm_requests(self) -> List[Tuple[str, str, float, dict]]:
+        return list(self._llm_requests)
+
+    def record_forced_sync(self, name: str, t: float) -> None:
+        """A semantic host sync (runtime/sync.py device_sync or to_host
+        with forced=True): a decoder or sink reading results back, the
+        LLM engine's whole-step read-back. These are the host-path tax
+        async dispatch exists to remove — count per element."""
+        self._forced[name] = self._forced.get(name, 0) + 1
+        self._append("i", "sync", name, "forced_sync", t, 0.0, None)
+
+    def forced_syncs(self) -> Dict[str, int]:
+        return dict(self._forced)
+
+    def record_inflight(self, name: str, depth: int, t: float) -> None:
+        """Async-dispatch window gauge: number of unresolved device
+        results a DEVICE_RESIDENT element holds in flight (sampled after
+        the window drain, so the recorded peak never exceeds
+        [runtime] max_inflight)."""
+        g = self._inflight.get(name)
+        if g is None:
+            g = self._inflight[name] = {"peak": 0}
+        if depth > g["peak"]:
+            g["peak"] = depth
+        self._append("C", "inflight", name, "inflight_dispatch", t, 0.0,
+                     depth)
+
+    def inflight_gauges(self) -> Dict[str, dict]:
+        return {name: dict(g) for name, g in self._inflight.items()}
+
+    def record_flight(self, kind: str, t: float, **args) -> None:
+        """One flight-recorder dump; args carry the bundle path and
+        trigger cause. Kept whole — dumps are rare."""
+        self._flights.append((kind, t, dict(args)))
+        self._append("i", "flight", "flightrec", f"flight_{kind}", t,
+                     0.0, args or None)
+
+    def flight_dumps(self) -> List[Tuple[str, float, dict]]:
+        return list(self._flights)
+
+    def record_device_counter(self, name: str, value: float,
+                              t: float) -> None:
+        """Device-plane counter sample (utilization per bucket, memory
+        per device), rendered as a Chrome-trace counter track."""
+        self._append("C", "devprof", name, "devprof", t, 0.0, value)
+
+    def instant(self, name: str, label: str, t: Optional[float] = None,
+                **args) -> None:
+        if t is None:
+            t = time.perf_counter()
+        self._append("i", "element", name, label, t, 0.0, args or None)
+
+    # -- internals ---------------------------------------------------------
+    def _append(self, ph: str, cat: str, name: str, label: str,
+                ts: float, dur: float, args) -> None:
+        with self._lock:
+            self._total_events += 1
+            self._events.append((ph, cat, name, label, ts, dur, args))
+
+    def _gauge(self, dst: str, depth: int, t: float) -> None:
+        g = self._gauges.get(dst)
+        if g is None:
+            g = self._gauges[dst] = {"peak": 0}
+        if depth > g["peak"]:
+            g["peak"] = depth
+        self._append("C", "queue", dst, "queue_depth", t, 0.0, depth)
+
+    # -- read-out ----------------------------------------------------------
+    def events(self) -> List[_Event]:
+        return list(self._events)
+
+    @property
+    def total_events(self) -> int:
+        """Monotone count of every event ever recorded (never decreases
+        when the ring wraps; ring length is `len(events())`)."""
+        return self._total_events
+
+    @property
+    def events_dropped(self) -> int:
+        """Events the ring lost to wrapping."""
+        return max(0, self._total_events - len(self._events))
+
+    def hists(self) -> Dict[str, dict]:
+        """Per-element cumulative proctime histograms (snapshot dicts)."""
+        return {name: h.snapshot() for name, h in self._hists.items()}
+
+    def interlatency(self) -> Dict[str, dict]:
+        """Per-element end-to-end latency percentiles (ms) from source
+        emit to completion of that element's process()."""
+        out = {}
+        for name, r in self._interlat.items():
+            vals = sorted(r)
+            if not vals:
+                continue
+            out[name] = {
+                "n": len(vals),
+                "p50_ms": 1e3 * percentile(vals, 50),
+                "p95_ms": 1e3 * percentile(vals, 95),
+                "p99_ms": 1e3 * percentile(vals, 99),
+                "max_ms": 1e3 * vals[-1],
+            }
+        return out
+
+    def queue_gauges(self) -> Dict[str, dict]:
+        return {name: dict(g) for name, g in self._gauges.items()}
+
+    def summary(self) -> dict:
+        """The JAX package's summary keys; the counters of subsystems
+        not ported yet (sheds, workers, autotune, requests, children)
+        read empty."""
+        return {
+            "interlatency": self.interlatency(),
+            "queues": self.queue_gauges(),
+            "events": len(self._events),
+            "events_dropped": self.events_dropped,
+            "swaps": len(self._swaps),
+            "llm_requests": len(self._llm_requests),
+            "forced_syncs": dict(self._forced),
+            "inflight": self.inflight_gauges(),
+            "sheds": {},
+            "workers": {},
+            "autotune": {},
+            "requests": 0,
+            "children": {},
+        }
+
+    def to_chrome_trace(self, pipeline_name: str = "pipeline") -> dict:
+        """Trace Event Format dict — `json.dump` it and load the file in
+        Perfetto or chrome://tracing. pid 0 is this process, one tid per
+        element in order of first appearance; ts/dur in µs relative to
+        tracer creation."""
+        trace: List[dict] = [{"ph": "M", "name": "process_name", "pid": 0,
+                              "tid": 0, "args": {"name": pipeline_name}}]
+        tids: Dict[str, int] = {}
+
+        def tid_of(name: str) -> int:
+            t = tids.get(name)
+            if t is None:
+                t = tids[name] = len(tids) + 1
+                trace.append({"ph": "M", "name": "thread_name", "pid": 0,
+                              "tid": t, "args": {"name": name}})
+            return t
+
+        for ph, cat, name, label, ts, dur, args in list(self._events):
+            us = round((ts - self._t0) * 1e6, 3)
+            if ph == "X":
+                ev = {"ph": "X", "cat": cat, "name": label, "pid": 0,
+                      "tid": tid_of(name), "ts": us,
+                      "dur": round(dur * 1e6, 3)}
+                if args:
+                    ev["args"] = dict(args)
+            elif ph == "C":
+                if cat == "devprof":
+                    ev = {"ph": "C", "cat": cat, "name": name, "pid": 0,
+                          "tid": 0, "ts": us, "args": {"value": args}}
+                else:
+                    track = "inflight" if cat == "inflight" else "queue"
+                    ev = {"ph": "C", "cat": cat, "name": f"{track}:{name}",
+                          "pid": 0, "tid": 0, "ts": us,
+                          "args": {"depth": args}}
+            else:  # "i" instant, scoped to the element's track
+                ev = {"ph": "i", "cat": cat, "name": label, "pid": 0,
+                      "tid": tid_of(name), "ts": us, "s": "t"}
+                if args:
+                    ev["args"] = dict(args)
+            trace.append(ev)
+        return {"traceEvents": trace, "displayTimeUnit": "ms"}
+
+
+def merge_chrome_traces(docs: List[dict],
+                        labels: Optional[List[str]] = None) -> dict:
+    """Merge several Trace Event Format documents (each from
+    `to_chrome_trace`) into one, remapping pids so every input keeps
+    its own process track groups — the `trace --merge` CLI. `labels`
+    (optional, parallel to `docs`) prefix each input's process names so
+    the Perfetto sidebar says which file a track came from."""
+    merged: List[dict] = []
+    base = 0
+    for i, doc in enumerate(docs):
+        events = doc.get("traceEvents", []) if isinstance(doc, dict) \
+            else list(doc)
+        label = labels[i] if labels and i < len(labels) else None
+        top = 0
+        for ev in events:
+            pid = ev.get("pid", 0)
+            top = max(top, pid if isinstance(pid, int) else 0)
+            ev = dict(ev, pid=(pid if isinstance(pid, int) else 0) + base)
+            if (label and ev.get("ph") == "M"
+                    and ev.get("name") == "process_name"):
+                args = dict(ev.get("args") or {})
+                args["name"] = f"{label}/{args.get('name', '?')}"
+                ev["args"] = args
+            merged.append(ev)
+        base += top + 1
+    return {"traceEvents": merged, "displayTimeUnit": "ms"}

@@ -88,14 +88,15 @@ class TensorBuffer:
     def on_device(self) -> bool:
         return any(is_device_tensor(t) for t in self.tensors)
 
-    def to_host(self) -> "TensorBuffer":
+    def to_host(self, tracer=None, name=None) -> "TensorBuffer":
         """Materialize all tensors as numpy (the one D2H point per frame),
-        through the runtime's host-sync choke point."""
+        through the runtime's host-sync choke point; the forced sync is
+        traced on `tracer` under element `name` when given."""
         if not self.on_device:
             return self
         from nnstreamer_tpu_torch.runtime.sync import to_host
 
-        return replace(self, tensors=to_host(self.tensors),
+        return replace(self, tensors=to_host(self.tensors, tracer, name),
                        meta=dict(self.meta))
 
     def prefetch_host(self) -> "TensorBuffer":
