@@ -4,6 +4,7 @@
     python3 chip_smoke.py             # every phase, on one card
     python3 chip_smoke.py --slice4    # phases 1, 2 and 20-23 only
     python3 chip_smoke.py --slice6    # phases 1, 2 and 24-26 only
+    python3 chip_smoke.py --batching  # phases 1, 2, 27 and 28 only
 
 Needs one CUDA card, nvcc and the repository checkout around this file;
 imports nothing of JAX. On a machine with several cards, phases 21-22
@@ -187,7 +188,32 @@ phases there). Phases:
    P host-1 and P host-1 with its transforms unfused with chain fusion
    off and on (closed-loop latency p50/p99 over 100 frames interleaved
    frame by frame, frames/s over bursts of 100 frames in turns a b b a),
-   and the tracer hooks' host cost per recorded event.
+   and the tracer hooks' host cost per recorded event;
+27. B micro-batched at full width (bf16): `videotestsrc ! tensor_converter
+   ! tensor_batch max-batch=8 max-latency-ms=20 ! tensor_filter
+   framework=pallas model=normalize_u8 ! tensor_filter
+   model=zoo://mobilenet_v2 ! tensor_unbatch ! tensor_decoder
+   mode=image_labeling ! tensor_sink` over 203 frames: normalize_u8
+   launched exactly 203 times (once a frame, through the base
+   invoke_batched), the model filter's buckets within {1, 2, 4, 8} and its
+   batch_size_hist summing to 203 frames, pts in order, labels equal to
+   unbatched B's (a flip only where the top-2 gap is within the two runs'
+   logit difference), f32 logits (TF32 off) within 1e-3 of max |logit| of
+   unbatched B's; a traced run's process span per batch; then batched and
+   unbatched B live at once, every bucket warmed, bursts of 200 frames in
+   turns a b b a: frames/s to the last frame, latency p50/p99 under the
+   burst, kernel time a frame (a profiled burst) and the card's busy
+   share;
+28. tensor_filter's properties and FLEXIBLE invokes on the card:
+   output_combination=i0,o0 on B's model filter (the normalize output and
+   the logits bit for bit; the passed tensor is the input object, on the
+   card), latency_mode=sync (forced_syncs = frames, outputs bit for bit
+   the async run's), C (two filters on one key, f32, TF32 off) reloaded
+   through one filter after frame 2 (both branches switch at the next
+   frame: within 1e-3 of the new model's logits), crop → MobileNetV2
+   invoke_dynamic=true custom=dynamic_spatial=true over 6 regions in 3
+   frames, card vs CPU within 1e-3 of max |logit|, the bucket shapes
+   exactly those the rule predicts.
 
 Each kernel's timing phase (6, 10, 15, 16, 23) also prints its time per
 call from Python, back to back — the host's time (the launch path's own
@@ -200,7 +226,9 @@ kernel numbers (each with host_ms_per_call) before the last line, and ends with 
 "device": {...}}. Any failed check raises, so the exit code is non-zero
 and no result line is printed. Without a CUDA device, or run outside the
 checkout, it exits non-zero at once. A JSON record of the run goes to
-chiprun_out/chip_smoke.json (chip_smoke_slice4.json with --slice4).
+chiprun_out/chip_smoke.json (chip_smoke_slice4.json with --slice4,
+chip_smoke_slice6.json with --slice6, chip_smoke_batching.json with
+--batching).
 """
 
 from __future__ import annotations
@@ -3395,6 +3423,420 @@ def slice6_phases(nt, torch, card, record, phases, ctx) -> None:
     phases.done("26 (policies, watchdog, tracer and fusion timings)")
 
 
+# -- Queue 1 items 1c-1d: micro-batched B, filter properties, FLEXIBLE ------
+
+BATCH_FRAMES = 203
+BATCH_MAX = 8
+#: tensor_batch's deadline in phases 27-28 (PERF.md §6): about one
+#: unbatched B frame's host time, so a lone frame waits at most that long
+BATCH_LATENCY_MS = 20
+BATCH = (f"tensor_batch name=batch max-batch={BATCH_MAX} "
+         f"max-latency-ms={BATCH_LATENCY_MS}")
+#: frames a burst in phase 27's timing arms, and bursts an arm
+BURST, BURSTS = 200, 1
+APPSRC = "appsrc name=src dims=3:224:224:1 types=uint8"
+
+
+def b_string(head: str, batched: bool, model: str = MODEL,
+             label: bool = True) -> str:
+    """Pipeline B after `head`, micro-batched (tensor_batch before the
+    normalize filter, tensor_unbatch after the model) or not."""
+    mid = (f"{BATCH} ! {NORM_B} name=norm ! {model} name=model ! "
+           f"tensor_unbatch name=unb" if batched else
+           f"{NORM_B} name=norm ! {model} name=model")
+    tail = f" ! {LABEL} name=dec" if label else ""
+    return f"{head} ! {mid}{tail} ! tensor_sink name=out"
+
+
+def label_flips(nt, head, labels_b, labels_u):
+    """Frames whose batched and unbatched bf16 labels differ, each with
+    the unbatched run's top-2 logit gap and the two runs' largest logit
+    difference on that frame (from runs without the decoder). A flip is
+    a near tie when the gap is no larger than that difference."""
+    flips = [i for i, (a, b) in enumerate(zip(labels_b, labels_u)) if a != b]
+    if not flips:
+        return []
+    zb = run_pipeline(nt, b_string(head, True, label=False))
+    zu = run_pipeline(nt, b_string(head, False, label=False))
+    out = []
+    for i in flips:
+        a, b = zb[i].tensors[0][0], zu[i].tensors[0][0]
+        top2 = np.sort(b)[-2:]
+        out.append({"frame": i, "gap": float(top2[1] - top2[0]),
+                    "diff": float(np.abs(a - b).max())})
+    return out
+
+
+def burst_arms(nt, torch, descs, frame, n, bursts, prof_frames=48):
+    """Each arm's pipeline (descs: arm -> string, an appsrc named src to a
+    tensor_sink named out) live at once in this process. Every bucket is
+    warmed first (1, 2, 4 and 8 frames, each waited for). Then bursts of
+    n frames pushed at once into one arm at a time, arms in turns a b b
+    a: frames/s from the first push to the last arrival, and each frame's
+    latency from its push to its arrival at the sink. Last, one profiled
+    burst of prof_frames an arm: CUDA kernel time per frame. → {arm:
+    {"fps": [...], "lat": [ms...], "device_ms_per_frame": x}}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    live, res = {}, {arm: {"fps": [], "lat": []} for arm in descs}
+    pts = [0]
+
+    def arrive(arm):
+        def on_buf(b):
+            live[arm][2][b.pts] = time.perf_counter()
+        return on_buf
+
+    def burst(arm, k):
+        pipe, _, seen = live[arm]
+        first = pts[0]
+        pushed = {}
+        t0 = time.perf_counter()
+        for _ in range(k):
+            pushed[pts[0]] = time.perf_counter()
+            pipe.get("src").push(TensorBuffer.of(frame, pts=pts[0]))
+            pts[0] += 1
+        deadline = time.monotonic() + 300
+        while len([p for p in pushed if p in seen]) < k:
+            check(time.monotonic() < deadline,
+                  f"{arm}: burst of {k} not drained in 300 s")
+            time.sleep(0.0005)
+        last = max(seen[p] for p in pushed)
+        return k / (last - t0), [(seen[p] - pushed[p]) * 1e3
+                                 for p in range(first, pts[0])]
+
+    try:
+        for arm, desc in descs.items():
+            pipe = nt.parse_launch(desc)
+            pipe.get("out").set_props(new_data=arrive(arm), collect=False)
+            live[arm] = (pipe, nt.PipelineRunner(pipe).start(), {})
+        for arm in descs:
+            for k in (1, 2, 4, BATCH_MAX, 3):
+                burst(arm, k)
+        order = list(descs)
+        for _ in range(bursts):
+            for arm in order + order[::-1]:
+                fps, lat = burst(arm, n)
+                res[arm]["fps"].append(fps)
+                res[arm]["lat"] += lat
+        for arm in order:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                open_capture(torch)
+                burst(arm, prof_frames)
+                torch.cuda.synchronize()
+            res[arm]["device_ms_per_frame"] = sum(
+                e.time_range.elapsed_us()
+                for e in kernel_events(prof)) / 1e3 / prof_frames
+        for pipe, runner, _ in live.values():
+            pipe.get("src").end()
+            runner.wait(60)
+    finally:
+        for _, runner, _ in live.values():
+            runner.stop()
+    return res
+
+
+def batched_b_phase(nt, torch, card, record) -> None:
+    """Phase 27: B micro-batched at full width (MobileNetV2 1.0, 224²,
+    bf16): the main path's counts and buckets, labels against unbatched
+    B, f32 logits against unbatched B, then batched and unbatched B timed
+    in turns in this one process."""
+    from nnstreamer_tpu_torch.backends import kernels
+
+    head = f"videotestsrc num-buffers={BATCH_FRAMES} ! tensor_converter"
+    pipe = nt.parse_launch(b_string(head, True))
+    runner = nt.PipelineRunner(pipe)
+    kernels.normalize_u8.launches = 0
+    t0 = time.perf_counter()
+    runner.run(600)
+    wall = time.perf_counter() - t0
+    launches = kernels.normalize_u8.launches
+    out = pipe.get("out").results
+    model = pipe.get("model").backend
+    st = runner.stats()
+    hist = dict(sorted(model.batch_size_hist.items()))
+    buckets = sorted({k[1] for k in model.bucket_shapes})
+    pts = [b.pts for b in out]
+    print(f"phase 27: B micro-batched (max-batch {BATCH_MAX}, max-latency-ms "
+          f"{BATCH_LATENCY_MS}), {BATCH_FRAMES} frames in {wall:.3f} s: "
+          f"normalize_u8 launched {launches} times; tensor_batch occupancy "
+          f"{st['batch']['occupancy_hist']} (flushes full "
+          f"{st['batch']['flush_full']}, deadline "
+          f"{st['batch']['flush_deadline']}, eos {st['batch']['flush_eos']}); "
+          f"the model filter's occupancies {hist}, bucket batch sizes "
+          f"{buckets} [{card}]")
+    check(launches == BATCH_FRAMES,
+          f"normalize_u8 launched {launches} times for {BATCH_FRAMES} frames")
+    check(set(buckets) <= {1, 2, 4, 8} and buckets,
+          f"model buckets {model.bucket_shapes} outside {{1, 2, 4, 8}}")
+    check(sum(n * c for n, c in hist.items()) == BATCH_FRAMES,
+          f"batch_size_hist {hist} does not sum to {BATCH_FRAMES} frames")
+    check(len(out) == BATCH_FRAMES and pts == sorted(pts)
+          and len(set(pts)) == BATCH_FRAMES,
+          f"{len(out)} frames out, pts in order: {pts == sorted(pts)}")
+    plain = run_pipeline(nt, b_string(head, False))
+    labels_b = [b.meta["label_index"] for b in out]
+    labels_u = [b.meta["label_index"] for b in plain]
+    check([b.pts for b in plain] == pts, "unbatched B's pts differ")
+    flips = label_flips(nt, head, labels_b, labels_u)
+    print(f"phase 27: bf16 labels, batched vs unbatched B: "
+          f"{BATCH_FRAMES - len(flips)}/{BATCH_FRAMES} equal"
+          + (f"; flips (frame, top-2 gap, max |logit diff|): "
+             + ", ".join(f"({f['frame']}, {f['gap']:.4g}, {f['diff']:.4g})"
+                         for f in flips) if flips else "")
+          + f"; {len(set(labels_u))} distinct labels")
+    check(all(f["gap"] <= f["diff"] for f in flips),
+          f"batched labels flip beyond a near tie: {flips}")
+
+    # f32, TF32 off: logits of the batched path against unbatched B
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n32 = 2 * BATCH_MAX + 3
+    head32 = f"videotestsrc num-buffers={n32} ! tensor_converter"
+    m32 = f"{MODEL}?dtype=float32"
+    zb = run_pipeline(nt, b_string(head32, True, m32, label=False))
+    zu = run_pipeline(nt, b_string(head32, False, m32, label=False))
+    torch.backends.cudnn.allow_tf32 = True
+    gb = np.concatenate([b.tensors[0] for b in zb])
+    gu = np.concatenate([b.tensors[0] for b in zu])
+    rel = float(np.abs(gb - gu).max() / np.abs(gu).max())
+    print(f"phase 27: f32 (TF32 off), {n32} frames: batched vs unbatched "
+          f"logits max |diff| / max |logit| = {rel:.3e} (tolerance "
+          f"{CPU_TOLERANCE}); labels equal: "
+          f"{bool((gb.argmax(-1) == gu.argmax(-1)).all())}")
+    check(gb.shape == gu.shape == (n32, 1001) and np.isfinite(gb).all(),
+          f"f32 batched logits {gb.shape}")
+    check((gb.argmax(-1) == gu.argmax(-1)).all(), "f32 labels differ")
+    check(rel <= CPU_TOLERANCE, f"f32 batched logits differ by {rel:.3e}")
+
+    # the model filter's process span per batch, from the tracer
+    pipe = nt.parse_launch(b_string(
+        f"videotestsrc num-buffers={TRACE_FRAMES} ! tensor_converter", True))
+    runner = nt.PipelineRunner(pipe, trace=True)
+    runner.run(600)
+    spans = {}
+    batched_spans = []
+    for ph, cat, el, label, ts, dur, args in runner.tracer.events():
+        if ph == "X" and label == "process":
+            spans.setdefault(el, []).append(dur * 1e3)
+        if ph == "X" and cat == "backend" and label == "invoke_batched":
+            batched_spans.append((args["n"], args["bucket"]))
+    # median: a bucket's first batch also takes the batchability verdict
+    span_ms = {el: {"median": float(np.median(v)), "max": float(max(v))}
+               for el, v in spans.items()}
+    print(f"phase 27: traced, {TRACE_FRAMES} frames: process spans "
+          f"(count, median ms, max ms) "
+          + ", ".join(f"{el} ({len(spans[el])}, {span_ms[el]['median']:.3f}"
+                      f", {span_ms[el]['max']:.3f})" for el in sorted(spans))
+          + f"; the model's invoke_batched spans (n, bucket) "
+          f"{batched_spans} [{card}]")
+    check(len(spans.get("norm", ())) == len(batched_spans)
+          == len(spans.get("model", ())) and sum(
+              n for n, _ in batched_spans) == TRACE_FRAMES,
+          "one normalize and one model span per batch")
+
+    descs = {"unbatched": b_string(APPSRC, False),
+             "batched": b_string(APPSRC, True)}
+    frame = u8_frames((1, 224, 224, 3), 1, 0)[0]
+    arms = burst_arms(nt, torch, descs, frame, BURST, BURSTS)
+    res = {}
+    for arm, r in arms.items():
+        fps = float(np.median(r["fps"]))
+        res[arm] = {"fps": r["fps"], "fps_median": fps,
+                    "p50_ms": float(np.percentile(r["lat"], 50)),
+                    "p99_ms": float(np.percentile(r["lat"], 99)),
+                    "device_ms_per_frame": r["device_ms_per_frame"],
+                    "busy_share": r["device_ms_per_frame"] * fps / 1e3}
+        print(f"phase 27: {arm} B, bursts of {BURST} frames in turns: "
+              + " / ".join(f"{f:.1f}" for f in r["fps"])
+              + f" frames/s to the last frame; latency under the burst p50 "
+              f"{res[arm]['p50_ms']:.3f} ms p99 {res[arm]['p99_ms']:.3f} ms; "
+              f"{r['device_ms_per_frame']:.3f} ms of kernel time a frame, "
+              f"card busy {100 * res[arm]['busy_share']:.1f}% [{card}]")
+    ratio = res["batched"]["fps_median"] / res["unbatched"]["fps_median"]
+    print(f"phase 27: batched / unbatched frames/s {ratio:.3f} [{card}]")
+    record["batched_b"] = {
+        "launches": launches, "occupancy_hist": st["batch"]["occupancy_hist"],
+        "flushes": {k: st["batch"][k] for k in
+                    ("flush_full", "flush_deadline", "flush_eos")},
+        "batch_size_hist": hist, "buckets": buckets, "label_flips": flips,
+        "f32_rel_err": rel, "process_span_ms": span_ms,
+        "invoke_batched_spans": batched_spans, "timings": res,
+        "fps_ratio": ratio}
+
+
+def filter_props_phase(nt, torch, card, record) -> None:
+    """Phase 28: tensor_filter's properties and FLEXIBLE invokes on the
+    card: an i0,o0 output combination, latency-mode=sync, a shared-key
+    reload mid-stream, crop → MobileNetV2 invoke-dynamic."""
+    from nnstreamer_tpu_torch.backends.torch_backend import next_pow2
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    n = 8
+    head = f"videotestsrc num-buffers={n} ! tensor_converter"
+    normed = run_pipeline(nt, f"{head} ! {NORM_B} ! tensor_sink name=out")
+    plain = run_pipeline(nt, b_string(head, False, label=False))
+    pipe = nt.parse_launch(
+        f"{head} ! {NORM_B} name=norm ! {MODEL} name=model "
+        f"output_combination=i0,o0 ! tensor_sink name=out")
+    runner = nt.PipelineRunner(pipe).start()
+    try:
+        runner.wait(600)
+        # the passed-through tensor is the filter's input object, on the
+        # card (asked of the filter before stop() closes its backend)
+        x = torch.from_numpy(normed[0].tensors[0]).cuda()
+        (_, ob), = pipe.get("model").process(0, TensorBuffer.of(x, pts=0))
+    finally:
+        runner.stop()
+    check(ob.tensors[0] is x and ob.tensors[0].is_cuda,
+          "i0 is not the input tensor itself on the card")
+    combo = pipe.get("out").results
+    check(len(combo) == n and all(
+        c.tensors[0].tobytes() == m.tensors[0].tobytes()
+        and c.tensors[1].tobytes() == p.tensors[0].tobytes()
+        for c, m, p in zip(combo, normed, plain)),
+        "output_combination=i0,o0: not (the normalize output, the logits)")
+    print(f"phase 28: output_combination=i0,o0: {n} frames = (the normalize "
+          f"output, B's logits) bit for bit; the passed tensor is the input "
+          f"object on {ob.tensors[0].device}")
+
+    pipe = nt.parse_launch(
+        f"{head} ! {NORM_B} name=norm ! {MODEL} name=model "
+        f"latency_mode=sync ! tensor_sink name=out")
+    runner = nt.PipelineRunner(pipe)
+    runner.run(600)
+    synced = pipe.get("out").results
+    st = runner.stats()["model"]
+    check(st.get("forced_syncs") == n, f"forced_syncs {st.get('forced_syncs')}"
+                                       f" for {n} frames")
+    check(len(synced) == n and all(
+        a.tensors[0].tobytes() == b.tensors[0].tobytes()
+        for a, b in zip(synced, plain)), "sync outputs differ from async")
+    print(f"phase 28: latency_mode=sync: forced_syncs {st['forced_syncs']} "
+          f"for {n} frames, outputs bit for bit the async run's; invoke "
+          f"latency {st['invoke_latency_us']:.1f} us (sync) [{card}]")
+
+    # a shared-key reload mid-stream (C's two filters, f32, TF32 off)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    old, new = ("zoo://mobilenet_v2?dtype=float32",
+                "zoo://mobilenet_v2?dtype=float32&seed=1")
+    frames = [tuple(u8_frames((1, 224, 224, 3), 2, 40 + i)) for i in range(4)]
+    pipe = composite_pipe(nt, model=old, sink="tensor_sink")
+    pipe.get("fa").set_props(is_updatable=True)
+    runner = nt.PipelineRunner(pipe).start()
+    src, sink = pipe.get("src"), pipe.get("out")
+    try:
+        for i, f in enumerate(frames):
+            if i == 2:
+                deadline = time.monotonic() + 120
+                while len(sink.results) < 2:
+                    check(time.monotonic() < deadline, "C stalled")
+                    time.sleep(0.001)
+                pipe.get("fa").reload_model(new)
+            src.push(TensorBuffer.of(*f, pts=i))
+        src.end()
+        runner.wait(600)
+    finally:
+        runner.stop()
+    muxed = sink.results
+    reload_worst, apart = 0.0, np.inf
+    for branch in (0, 1):
+        refs = {}
+        for ref in (old, new):
+            refs[ref] = run_desc(
+                nt, ingest("3:224:224:1") + f"tensor_filter model={ref} ! "
+                "tensor_sink name=out", [f[branch] for f in frames])
+        for i, m in enumerate(muxed):
+            want = refs[old if i < 2 else new][i].tensors[0]
+            other = refs[new if i < 2 else old][i].tensors[0]
+            scale = float(np.abs(want).max())
+            reload_worst = max(reload_worst, float(
+                np.abs(m.tensors[branch] - want).max()) / scale)
+            apart = min(apart, float(np.abs(m.tensors[branch] - other).max())
+                        / scale)
+    torch.backends.cudnn.allow_tf32 = True
+    print(f"phase 28: C reload through one of two filters on one key after "
+          f"frame 2: {len(muxed)} muxed frames, each branch within "
+          f"{reload_worst:.3e} of max |logit| of its expected model and "
+          f">= {apart:.3e} from the other [{card}]")
+    check(len(muxed) == len(frames) and reload_worst <= CPU_TOLERANCE
+          and apart > 100 * CPU_TOLERANCE,
+          f"shared reload: {len(muxed)} frames, worst {reload_worst:.3e}, the "
+          f"other model {apart:.3e}")
+
+    # crop → MobileNetV2 invoke-dynamic with spatial bucketing, f32
+    torch.backends.cudnn.allow_tf32 = False
+    regions = [np.array([[0, 0, 100, 80], [10, 10, 57, 57]], np.uint32),
+               np.array([[0, 0, 224, 224]], np.uint32),
+               np.array([[5, 5, 33, 120], [50, 50, 100, 80],
+                         [60, 60, 100, 80]], np.uint32)]
+    img = u8_frames((1, 224, 224, 3), len(regions), 50)
+    predicted = set()
+    for reg in regions:
+        shapes = {}
+        for x, y, w, h in reg:
+            shapes[(1, int(h), int(w), 3)] = shapes.get(
+                (1, int(h), int(w), 3), 0) + 1
+        for (_, h, w, c), k in shapes.items():
+            predicted.add(("bat", next_pow2(k), 1, next_pow2(h, 16),
+                           next_pow2(w, 16), c))
+    outs, buckets = {}, None
+    for accel in ("cuda", "cpu"):
+        pipe = nt.parse_launch(
+            f"appsrc name=raw dims=3:224:224:1 types=uint8 ! {NORM_B} "
+            f"accelerator={accel} ! crop.sink_0 appsrc name=info dims=4:1 "
+            f"types=uint32 ! crop.sink_1 tensor_crop name=crop ! "
+            f"tensor_filter name=f model=zoo://mobilenet_v2?dtype=float32 "
+            f"accelerator={accel} invoke_dynamic=true "
+            f"custom=dynamic_spatial=true ! tensor_sink name=out")
+        runner = nt.PipelineRunner(pipe).start()
+        try:
+            for i, (f, reg) in enumerate(zip(img, regions)):
+                pipe.get("raw").push(TensorBuffer.of(f, pts=i))
+                pipe.get("info").push(TensorBuffer.of(reg, pts=i))
+            pipe.get("raw").end()
+            pipe.get("info").end()
+            runner.wait(600)
+        finally:
+            runner.stop()
+        outs[accel] = pipe.get("out").results
+        if accel == "cuda":
+            buckets = set(pipe.get("f").backend.bucket_shapes)
+    torch.backends.cudnn.allow_tf32 = True
+    worst = 0.0
+    for g, c, reg in zip(outs["cuda"], outs["cpu"], regions):
+        check(len(g.tensors) == len(c.tensors) == len(reg),
+              f"{len(g.tensors)} region outputs for {len(reg)} regions")
+        for a, b in zip(g.tensors, c.tensors):
+            check(a.shape == b.shape == (1, 1001) and np.isfinite(a).all(),
+                  f"region output {a.shape}")
+            worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+    print(f"phase 28: crop -> MobileNetV2 invoke_dynamic "
+          f"dynamic_spatial, {sum(len(r) for r in regions)} regions in "
+          f"{len(regions)} frames: card vs CPU max |diff| / max |logit| "
+          f"{worst:.3e} (tolerance {CPU_TOLERANCE}); bucket shapes "
+          f"{sorted(buckets)}, predicted {sorted(predicted)} [{card}]")
+    check(len(outs["cuda"]) == len(regions), "crop frames lost")
+    check(worst <= CPU_TOLERANCE, f"crop card vs CPU {worst:.3e}")
+    check(buckets == predicted, f"buckets {buckets} != {predicted}")
+    record["filter_props"] = {"reload_rel_err": reload_worst,
+                              "reload_other_model": apart,
+                              "crop_rel_err": worst,
+                              "crop_buckets": sorted(buckets)}
+
+
+def batching_phases(nt, torch, card, record, phases) -> None:
+    """Phases 27-28."""
+    batched_b_phase(nt, torch, card, record)
+    phases.done("27 (B micro-batched)")
+    filter_props_phase(nt, torch, card, record)
+    phases.done("28 (filter properties, FLEXIBLE invokes)")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3405,6 +3847,10 @@ def main(argv=None) -> int:
         "--slice6", action="store_true",
         help="run phases 1, 2 and 24-26 only (the traced, fault-tolerant "
              "runtime over A/B and LLM serving)")
+    ap.add_argument(
+        "--batching", action="store_true",
+        help="run phases 1, 2, 27 and 28 only (B micro-batched, the filter "
+             "properties and FLEXIBLE invokes)")
     ap.add_argument(
         "--slice4", action="store_true",
         help="run phases 1, 2 and 20-23 only (the ring step, ring "
@@ -3469,6 +3915,9 @@ def main(argv=None) -> int:
         llm_model(ctx)
         slice6_phases(nt, torch, card, record, phases, ctx)
         entries = []
+    elif args.batching:
+        batching_phases(nt, torch, card, record, phases)
+        entries = []
     else:
         # -- 3-6. normalize_u8, pipelines A and B ------------------------
         entries = slice1_phases(nt, torch, card, record, phases)
@@ -3483,12 +3932,16 @@ def main(argv=None) -> int:
         entries += slice4_phases(nt, torch, card, record, phases, ctx)
         # -- 24-26. the traced, fault-tolerant host runtime -------------
         slice6_phases(nt, torch, card, record, phases, ctx)
+        # -- 27-28. micro-batching, filter properties, FLEXIBLE --------
+        batching_phases(nt, torch, card, record, phases)
     record["phase_seconds"] = phases.seconds
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     name = ("chip_smoke_slice4.json" if args.slice4 else
-            "chip_smoke_slice6.json" if args.slice6 else "chip_smoke.json")
+            "chip_smoke_slice6.json" if args.slice6 else
+            "chip_smoke_batching.json" if args.batching else
+            "chip_smoke.json")
     (out_dir / name).write_text(json.dumps(record, indent=1))
     print(card)
     print(json.dumps({"kernels": entries}))

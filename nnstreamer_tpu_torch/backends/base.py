@@ -11,7 +11,7 @@ chains next to it in the graph, so they run on the device with the model.
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -20,6 +20,7 @@ from nnstreamer_tpu_torch.core.errors import BackendError, CircuitOpenError
 from nnstreamer_tpu_torch.core.log import get_logger
 from nnstreamer_tpu_torch.core.registry import PluginKind, registry
 from nnstreamer_tpu_torch.runtime.tracing import NULL_TRACER
+from nnstreamer_tpu_torch.tensor.buffer import coalesce
 from nnstreamer_tpu_torch.tensor.info import TensorsSpec
 
 log = get_logger("backend")
@@ -118,6 +119,48 @@ class FilterBackend:
     def run(self, tensors: ArrayTuple) -> ArrayTuple:
         """The backend's invoke proper (see `invoke`)."""
         raise NotImplementedError
+
+    def invoke_flexible(self, regions: Sequence[Any]) -> Sequence[Any]:
+        """Run the model over a FLEXIBLE buffer's variable-shape regions
+        (tensor_crop output), one output per region. Default: one invoke
+        per region; the torch backend batches same-shape regions."""
+        return [self.invoke((r,))[0] for r in regions]
+
+    def invoke_batched(self, tensors: ArrayTuple, n: int,
+                       keepdims: Sequence[bool] = ()) -> ArrayTuple:
+        """Run the model over a micro-batch (tensor_batch upstream): each
+        input carries `n` frames on axis 0 — concatenated where the
+        per-frame leading dim is 1 (keepdims[j] True), stacked on a new
+        axis otherwise. Outputs come back batched by the same rule.
+
+        Default: one invoke per frame on a `t[i:i+1]` / `t[i]` view, the
+        outputs restacked — right for any backend. The torch backend
+        overrides it with one padded call per power-of-two bucket."""
+        frames_out = []
+        for i in range(n):
+            frame = tuple(
+                t[i:i + 1] if (j < len(keepdims) and keepdims[j]) else t[i]
+                for j, t in enumerate(tensors))
+            frames_out.append(self.invoke(frame))
+        return restack_frames(frames_out)
+
+    def reload(self, model: Any) -> None:
+        raise BackendError(
+            f"backend {self.BACKEND_NAME!r} does not support model reload")
+
+
+def restack_frames(frames_out: Sequence[ArrayTuple]) -> ArrayTuple:
+    """Per-frame invoke outputs → batched wire format: per output k,
+    concatenated on axis 0 where the per-frame result's leading dim is 1,
+    else stacked on a new axis (tensor_batch's rule on the input side, so
+    tensor_unbatch splits by rank alone). Device tensors stay on their
+    device."""
+    out = []
+    for k in range(len(frames_out[0])):
+        rows = [f[k] for f in frames_out]
+        out.append(coalesce(rows, len(rows[0].shape) >= 1
+                            and rows[0].shape[0] == 1))
+    return tuple(out)
 
 
 class CircuitBreaker:

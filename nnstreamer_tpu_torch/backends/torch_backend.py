@@ -20,22 +20,44 @@ frame crosses to the device as uint8. `invoke` returns without waiting
 for the device; the sink or host decoder that reads the result is the
 sync point.
 
+Micro-batches (tensor_batch upstream) run as ONE call per batch, the
+occupancy padded up to the next power of two with copies of the last
+row and the pad rows sliced off the outputs (`invoke_batched`). FLEXIBLE
+buffers (tensor_crop regions) run one call per group of same-shape
+regions, padded the same way, and with ``custom=dynamic_spatial=true``
+their H and W zero-padded up to powers of two >= 16
+(`invoke_flexible`). Whether a model takes a batched shape is decided
+once per (shapes, dtypes) by running it on ``meta`` tensors (no data,
+no device work); a model that refuses runs per frame (per region)
+instead. Nothing compiles, so where the JAX package counts compiles per
+bucket, `bucket_shapes` holds the distinct bucket shapes that ran.
+
+`reload` stages the new model on the device before it drops the old
+one; filters sharing a key pick a reload up at their next invoke.
+
 With the session tracer active each invoke is one backend "invoke" span
-(`FilterBackend.invoke`); there is no "compile" span: nothing compiles.
+(`FilterBackend.invoke`), each batched invoke one "invoke_batched" span
+with its occupancy and bucket; there is no "compile" span: nothing
+compiles.
 """
 
 from __future__ import annotations
 
+import copy
+import itertools
 import threading
+import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from nnstreamer_tpu_torch.backends.base import (
     ArrayTuple, ElementwiseFn, FilterBackend, pick_device, register_backend)
 from nnstreamer_tpu_torch.core.errors import BackendError
 from nnstreamer_tpu_torch.core.log import get_logger
+from nnstreamer_tpu_torch.modelio import parse_loader_opts
 from nnstreamer_tpu_torch.tensor.dtypes import DType, host_tensor
 from nnstreamer_tpu_torch.tensor.info import TensorInfo, TensorsSpec
 
@@ -62,10 +84,49 @@ class _SharedEntry:
     device: torch.device
     model_ref: Optional[str]
     holders: int = 0
+    #: bumped by every reload; a holder re-reads bundle and params when
+    #: its copy of the version is stale
+    version: int = 0
 
 
 _shared_models: Dict[str, _SharedEntry] = {}
 _shared_lock = threading.Lock()
+
+
+def next_pow2(n: int, floor: int = 1) -> int:
+    v = max(n, floor)
+    return 1 << (v - 1).bit_length()
+
+
+def params_on_meta(params):
+    """A copy of a model's params on the ``meta`` device (shapes and
+    dtypes, no storage): an nn.Module deep-copied with every parameter
+    and buffer swapped for a meta tensor (the original is not touched,
+    so a holder may go on running it), a (nested) dict or list of
+    tensors by copy."""
+    if isinstance(params, torch.nn.Module):
+        memo = {}
+        for t in itertools.chain(params.parameters(), params.buffers()):
+            m = torch.empty_like(t, device="meta")
+            memo[id(t)] = (torch.nn.Parameter(m, requires_grad=False)
+                           if isinstance(t, torch.nn.Parameter) else m)
+        return copy.deepcopy(params, memo)
+    if isinstance(params, torch.Tensor):
+        return torch.empty_like(params, device="meta")
+    if isinstance(params, dict):
+        return {k: params_on_meta(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(params_on_meta(v) for v in params)
+    return params
+
+
+def pad_rows(x: torch.Tensor, n: int, nb: int) -> torch.Tensor:
+    """Pad axis 0 from n to nb rows with copies of the last row: real
+    data keeps the pad lanes tame, and they are sliced off before anyone
+    sees them (BN runs in eval mode: no row sees another)."""
+    if nb <= n:
+        return x
+    return torch.cat([x, x[-1:].expand((nb - n,) + tuple(x.shape[1:]))])
 
 
 def to_tuple(x) -> Tuple:
@@ -113,10 +174,22 @@ class TorchBackend(FilterBackend):
         self._shared_key = ""
         self._pre: Optional[ElementwiseFn] = None
         self._post: Optional[ElementwiseFn] = None
+        self._version = 0                 # of the shared entry held
         self.device: Optional[torch.device] = None
+        self._dynamic_spatial = False
+        self._loader_opts: Dict[str, Any] = {}
+        # batchability verdicts by (batched shapes, dtypes), and the
+        # params on the meta device they are taken with
+        self._batch_ok: Dict[tuple, bool] = {}
+        self._meta = None
         # inputs that were already on the device skip the copy
         self.staging_transfers = 0
         self.staging_elided = 0
+        #: micro-batch occupancies served in one call ({n: invokes})
+        self.batch_size_hist: Dict[int, int] = {}
+        #: distinct bucket shapes run by invoke_batched/invoke_flexible
+        #: (the JAX package's compile_count counts one compile for each)
+        self.bucket_shapes: set = set()
 
     def open(self, props: Dict[str, Any]) -> None:
         model = props.get("model")
@@ -124,6 +197,16 @@ class TorchBackend(FilterBackend):
             raise BackendError(
                 "framework=torch requires model=<zoo://name | ModelBundle | "
                 "callable>")
+        opts = parse_loader_opts(props.get("custom") or "")
+        self._dynamic_spatial = bool(opts.pop("dynamic_spatial", False))
+        # the reference's dedicated props override the custom= string
+        for prop, key in (("inputname", "input_names"),
+                          ("outputname", "output_names")):
+            v = props.get(prop) or ""
+            if v:
+                opts[key] = [s for s in v.split(",") if s]
+        #: options for a model-file loader (none reads them yet)
+        self._loader_opts = opts
         self.device = pick_device(props.get("accelerator") or "")
         key = props.get("shared_tensor_filter_key") or ""
         if key:
@@ -158,6 +241,7 @@ class TorchBackend(FilterBackend):
             entry.holders += 1
             self._shared, self._shared_key = entry, key
             self._bundle, self._params = entry.bundle, entry.params
+            self._version = entry.version
         log.info("opened shared model key=%s holders=%d on %s", key,
                  entry.holders, self.device)
 
@@ -211,10 +295,25 @@ class TorchBackend(FilterBackend):
         self._pre, self._post = pre, post
         return True
 
-    def run(self, tensors: ArrayTuple) -> ArrayTuple:
+    def _adopt_shared(self) -> None:
+        """Take up a reload made through another holder of the shared
+        key (at an invoke boundary: one invoke never mixes two models)."""
+        sh = self._shared
+        if sh is not None and sh.version != self._version:
+            with _shared_lock:
+                self._bundle, self._params = sh.bundle, sh.params
+                self._version = sh.version
+            self._batch_ok.clear()
+            self._meta = None
+
+    def _stage(self, tensors) -> ArrayTuple:
         xs, transfers = stage(tensors, self.device)
         self.staging_transfers += transfers
         self.staging_elided += len(xs) - transfers
+        return xs
+
+    def _call(self, xs: ArrayTuple) -> ArrayTuple:
+        """pre chain, model, post chain on device tensors."""
         with torch.inference_mode():
             if self._pre is not None:
                 xs = self._pre(xs)
@@ -222,3 +321,116 @@ class TorchBackend(FilterBackend):
             if self._post is not None:
                 out = to_tuple(self._post(out))
         return out
+
+    def run(self, tensors: ArrayTuple) -> ArrayTuple:
+        self._adopt_shared()
+        return self._call(self._stage(tensors))
+
+    def _batchable(self, sig: Tuple[Tuple[tuple, torch.dtype], ...]) -> bool:
+        """Does the model (with its fused chains) take inputs of these
+        (shape, dtype)s, batch axis first, and give every output that
+        batch axis? Decided on the meta device — shapes only, nothing
+        runs on the card — and cached per signature, as the JAX package
+        caches its eval_shape verdict."""
+        ok = self._batch_ok.get(sig)
+        if ok is None:
+            if self._meta is None:
+                self._meta = params_on_meta(self._params)
+            try:
+                xs = tuple(torch.empty(shape, dtype=dt, device="meta")
+                           for shape, dt in sig)
+                with torch.inference_mode():
+                    if self._pre is not None:
+                        xs = self._pre(xs)
+                    out = to_tuple(self._bundle.fn(self._meta, *xs))
+                    if self._post is not None:
+                        out = to_tuple(self._post(out))
+                nb = sig[0][0][0]
+                ok = all(o.dim() >= 1 and o.shape[0] == nb for o in out)
+            except Exception as e:
+                log.info("model %s takes no batched input %s (%s): it runs "
+                         "per frame", self._bundle.name, sig, e)
+                ok = False
+            self._batch_ok[sig] = ok
+        return ok
+
+    def invoke_batched(self, tensors: ArrayTuple, n: int,
+                       keepdims: Sequence[bool] = ()) -> ArrayTuple:
+        """One call per micro-batch: `n` padded to the next power of two
+        (copies of the last row), the pad rows sliced off the outputs, so
+        ragged occupancies run at most log2(max_batch) + 1 shapes. A
+        model that refuses the batched shape runs per frame (the base
+        path)."""
+        self._adopt_shared()
+        xs = self._stage(tensors)
+        nb = next_pow2(n)
+        sig = tuple(((nb,) + tuple(x.shape[1:]), x.dtype) for x in xs)
+        if not self._batchable(sig):
+            return super().invoke_batched(xs, n, keepdims)
+        self.batch_size_hist[n] = self.batch_size_hist.get(n, 0) + 1
+        self.bucket_shapes.add(("dynb", nb) + tuple(s for s, _ in sig))
+        tr = self.tracer
+        t0 = time.perf_counter() if tr.active else 0.0
+        out = self._call(tuple(pad_rows(x, n, nb) for x in xs))
+        out = tuple(o[:n] for o in out)
+        if tr.active:
+            tr.backend_span(self.trace_name or self.BACKEND_NAME,
+                            "invoke_batched", t0, time.perf_counter(), n=n,
+                            bucket=nb)
+        return out
+
+    def invoke_flexible(self, regions: Sequence[Any]) -> List[Any]:
+        """Per-buffer variable-shape regions (tensor_crop output) with a
+        bounded set of bucket shapes: same-shape regions stacked (or
+        concatenated, leading dim 1) into one call, padded to a
+        power-of-two batch; with custom=dynamic_spatial=true, H and W
+        (the axes before the last) zero-padded first to powers of two
+        >= 16, which suits shape-polymorphic models whose output does not
+        see the padding (global-pool classifiers). A model that refuses
+        the batched shape runs region by region."""
+        self._adopt_shared()
+        rs = self._stage(regions)
+        out: List[Any] = [None] * len(rs)
+        groups: Dict[tuple, List[int]] = {}
+        for i, r in enumerate(rs):
+            groups.setdefault(tuple(r.shape), []).append(i)
+        for shape, idxs in groups.items():
+            arrs = [rs[i] for i in idxs]
+            if self._dynamic_spatial and len(shape) >= 3:
+                ph = next_pow2(shape[-3], 16) - shape[-3]
+                pw = next_pow2(shape[-2], 16) - shape[-2]
+                if ph or pw:
+                    arrs = [F.pad(a, (0, 0, 0, pw, 0, ph)) for a in arrs]
+                    shape = tuple(arrs[0].shape)
+            n, nb = len(arrs), next_pow2(len(arrs))
+            stacked = shape[0] != 1
+            batched = ((nb,) + shape) if stacked else ((nb,) + shape[1:])
+            if not self._batchable(((batched, arrs[0].dtype),)):
+                self.bucket_shapes.add(("seq",) + shape)
+                for i, a in zip(idxs, arrs):
+                    out[i] = self._call((a,))[0]
+                continue
+            self.bucket_shapes.add(("bat", nb) + shape)
+            block = (torch.stack if stacked else torch.cat)(arrs, 0)
+            res = self._call((pad_rows(block, n, nb),))[0]
+            for k, i in enumerate(idxs):
+                out[i] = res[k] if stacked else res[k:k + 1]
+        return out
+
+    def reload(self, model: Any) -> None:
+        """Hot model swap (is-updatable): the new model is resolved and
+        its params staged on the device before the old ones are dropped.
+        Through a shared key it updates the shared entry, so every holder
+        takes it up at its next invoke."""
+        bundle = self._resolve(model)
+        params = params_to(bundle.params, self.device)
+        if self._shared is not None:
+            with _shared_lock:
+                self._shared.bundle = bundle
+                self._shared.params = params
+                self._shared.version += 1
+            self._adopt_shared()
+            return
+        self._bundle, self._params = bundle, params
+        self._batch_ok.clear()
+        self._meta = None

@@ -1,6 +1,8 @@
 """Pipeline elements. Importing this package registers every built-in
 element with the port's ELEMENT registry."""
 
+from nnstreamer_tpu_torch.elements.batch import TensorBatch, TensorUnbatch
+from nnstreamer_tpu_torch.elements.control import TensorCrop
 from nnstreamer_tpu_torch.elements.converter import TensorConverter
 from nnstreamer_tpu_torch.elements.debug import TensorDebug
 from nnstreamer_tpu_torch.elements.decoder import TensorDecoder, register_decoder
@@ -15,7 +17,9 @@ from nnstreamer_tpu_torch.elements.transform import TensorTransform, TransformPr
 __all__ = [
     "AppSrc",
     "FakeSink",
+    "TensorBatch",
     "TensorConverter",
+    "TensorCrop",
     "TensorDebug",
     "TensorDecoder",
     "TensorDemux",
@@ -25,6 +29,7 @@ __all__ = [
     "TensorMux",
     "TensorSink",
     "TensorTransform",
+    "TensorUnbatch",
     "TransformProgram",
     "VideoTestSrc",
     "register_decoder",

@@ -31,13 +31,27 @@ from nnstreamer_tpu_torch.core.errors import FaultInjected, PipelineError
 from nnstreamer_tpu_torch.core.registry import register_element
 from nnstreamer_tpu_torch.graph.pipeline import Element, Emission, PropDef, StreamSpec
 from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+from nnstreamer_tpu_torch.tensor.dtypes import DType
 
 _MODES = ("raise", "corrupt", "corrupt-shape", "delay", "drop")
+
+
+def _torch_dtype(dt: np.dtype) -> torch.dtype:
+    """The torch dtype of numpy dtype `dt`: a stream dtype's from the
+    port's table (bfloat16 included, which `torch.from_numpy` refuses),
+    any other (bool, complex) as `torch.from_numpy` maps it."""
+    try:
+        return DType.from_np(dt).torch_dtype
+    except ValueError:
+        return torch.from_numpy(np.zeros(0, dt)).dtype
 
 
 @register_element("tensor_fault")
 class TensorFault(Element):
     ELEMENT_NAME = "tensor_fault"
+    # a passthrough: a micro-batched stream flows through untouched
+    # (faults then apply per coalesced buffer, not per frame)
+    ACCEPTS_DYN_BATCH = True
     PROPS = {
         "mode": PropDef(str, "raise", "|".join(_MODES)),
         "probability": PropDef(float, 0.0, "per-buffer fault probability"),
@@ -104,8 +118,7 @@ class TensorFault(Element):
                 raise PipelineError(
                     f"tensor_fault {self.name}: bad corrupt-dtype "
                     f"{self.props['corrupt_dtype']!r}") from None
-            tdt = torch.from_numpy(np.zeros(0, dt)).dtype
-            bad = tuple(t.to(tdt) if isinstance(t, torch.Tensor)
+            bad = tuple(t.to(_torch_dtype(dt)) if isinstance(t, torch.Tensor)
                         else np.asarray(t).astype(dt) for t in buf.tensors)
         else:  # corrupt-shape
             bad = tuple(t.reshape(-1) for t in buf.tensors)

@@ -1,23 +1,33 @@
-"""tensor_filter — the model-execution element, per-frame path.
+"""tensor_filter — the model-execution element.
 
 Reference parity: gst/nnstreamer/tensor_filter/tensor_filter.c +
 tensor_filter_common.c: backend open at negotiation, model-info-driven
-negotiation (set-input-info for adaptive models), invoke error
-propagation. Input/output overrides, combinations, batching and the
-other JAX-package properties wait for later slices.
+negotiation (set-input-info for adaptive models), input/output
+overrides (`input`/`inputtype`/`output`/`outputtype`), input/output
+combinations, per-invoke latency/throughput (:354-460), hot reload
+(`is-updatable`), invoke-dynamic, invoke error propagation.
 
 - `framework=` picks the backend (torch, alias xla; pallas for the
   hand-written kernels); empty means [filter] default_backend (torch).
+- `custom=` is the backend's option string (modelio.parse_loader_opts);
+  `inputname`/`outputname` go into the same loader options.
 - **Fusion**: `set_fusion()` receives the programs of adjacent
   tensor_transform elements removed by graph/optimize.py; an accepting
   backend runs them on the device. A refusing backend gets them applied
   here, so results never depend on fusion.
 - `shared_tensor_filter_key`: filters with the same key hold one
   backend model on one device (torch backend; open takes a holder, close
-  drops it, the last close frees it). Each filter keeps its own fused
-  chains.
+  drops it, the last close frees it; a reload through one holder reaches
+  all). Each filter keeps its own fused chains.
+- **Micro-batches** (tensor_batch upstream): one backend
+  `invoke_batched` per coalesced buffer; outputs stay batched, with the
+  dyn_batch meta, for tensor_unbatch downstream.
+- **FLEXIBLE** input (tensor_crop upstream) needs `invoke-dynamic=true`:
+  one backend `invoke_flexible` over the buffer's regions.
 - Invoke does not wait for the device: outputs flow downstream as tensors
-  whose work may still be queued.
+  whose work may still be queued, so the latency stats time the host's
+  launches; `latency-mode=sync` waits for each buffer's outputs (one
+  forced sync, counted as `forced_syncs`) for the true per-frame latency.
 - **Circuit breaker** (`breaker_threshold`, `breaker_cooldown_ms`):
   after that many consecutive invoke failures the circuit opens and
   invokes short-circuit with CircuitOpenError for the cooldown, then one
@@ -29,7 +39,10 @@ other JAX-package properties wait for later slices.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+import time
+from collections import deque
+from dataclasses import replace
+from typing import Callable, List, Optional, Sequence, Tuple
 
 from nnstreamer_tpu_torch.backends import pallas_backend, torch_backend  # noqa: F401 (register)
 from nnstreamer_tpu_torch.backends.base import (
@@ -41,21 +54,74 @@ from nnstreamer_tpu_torch.core.registry import register_element
 from nnstreamer_tpu_torch.elements.decoder import aux_on
 from nnstreamer_tpu_torch.graph.optimize import chain_fn, transfer_spec
 from nnstreamer_tpu_torch.graph.pipeline import Element, Emission, PropDef, StreamSpec
+from nnstreamer_tpu_torch.runtime.sync import device_sync
 from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+from nnstreamer_tpu_torch.tensor.info import TensorFormat, TensorsSpec
+
+
+def _prop_bool(s) -> bool:
+    return str(s).lower() in ("1", "true")
+
+
+def _parse_combination(s: str) -> Optional[List[int]]:
+    if not s:
+        return None
+    try:
+        return [int(x) for x in s.split(",")]
+    except ValueError:
+        raise PipelineError(
+            f"bad combination list {s!r}; expected comma-separated tensor "
+            f"indices like '0,2'") from None
+
+
+def _parse_out_combination(s: str) -> Optional[List[Tuple[str, int]]]:
+    """'i0,o1' → [('i', 0), ('o', 1)]: pass input 0 through, then model
+    output 1 (the reference's output-combination,
+    tensor_filter.c:820-877)."""
+    if not s:
+        return None
+    out = []
+    for part in s.split(","):
+        part = part.strip()
+        if len(part) < 2 or part[0] not in "io" or not part[1:].isdigit():
+            raise PipelineError(
+                f"bad output-combination entry {part!r}; entries are "
+                f"i<idx> (pass input) or o<idx> (model output)")
+        out.append((part[0], int(part[1:])))
+    return out
 
 
 @register_element("tensor_filter")
 class TensorFilter(Element):
     ELEMENT_NAME = "tensor_filter"
     DEVICE_RESIDENT = True
+    #: one backend invoke per coalesced buffer of a tensor_batch upstream
+    ACCEPTS_DYN_BATCH = True
     #: its own worker thread is what overlaps its launches with upstream
     #: conversion, so it never joins a fused chain
     CHAIN_FUSABLE = False
     PROPS = {
         "framework": PropDef(str, "", "backend name (torch|xla|pallas)"),
         "model": PropDef(lambda s: s, None, "model reference (backend-specific)"),
+        "custom": PropDef(str, "", "opaque backend option string"),
         "accelerator": PropDef(str, "", "device: cuda, cuda:<i> or cpu "
                                         "(empty: [filter] accelerator)"),
+        "input": PropDef(str, "", "override input dims (dim string list)"),
+        "inputtype": PropDef(str, "", "override input types"),
+        "output": PropDef(str, "", "override output dims"),
+        "outputtype": PropDef(str, "", "override output types"),
+        # which graph nodes of a multi-node model file are the I/O (the
+        # reference's tensorflow filter props); "," separates names
+        "inputname": PropDef(str, "", "model input node name(s)"),
+        "outputname": PropDef(str, "", "model output node name(s)"),
+        "input_combination": PropDef(str, "", "sink-tensor subset, e.g. 0,2"),
+        "output_combination": PropDef(
+            str, "", "i<n>=input passthrough / o<n>=output picks"),
+        "latency_mode": PropDef(str, "async", "async|sync stats timing"),
+        "is_updatable": PropDef(_prop_bool, False),
+        "invoke_dynamic": PropDef(
+            _prop_bool, False,
+            "accept FLEXIBLE input (per-buffer shapes, bucketed calls)"),
         "shared_tensor_filter_key": PropDef(
             str, "", "share one device model across filters with this key"),
         "breaker_threshold": PropDef(
@@ -75,6 +141,17 @@ class TensorFilter(Element):
         self._fused_decoder = None             # device-decode subplugin
         self._decoder_aux = None               # its constants, on device
         self._breaker: Optional[CircuitBreaker] = None
+        self._in_combination = _parse_combination(
+            self.props["input_combination"])
+        self._out_combination = _parse_out_combination(
+            self.props["output_combination"])
+        self._lat_window = deque(maxlen=10)    # last 10, reference :443-455
+        self._invoke_count = 0
+        self._t_start: Optional[float] = None
+        self._flexible = False
+        self._dyn_batched = 0                  # dyn_batch of the input
+        self._batch_keepdims: List[bool] = []
+        self._forced_syncs = 0                 # latency-mode=sync waits
 
     # -- fusion (called by graph/optimize.py) ------------------------------
     def set_fusion(self, pre_programs, post_programs) -> None:
@@ -105,6 +182,22 @@ class TensorFilter(Element):
 
     def negotiate(self, in_specs: Sequence[StreamSpec]) -> List[StreamSpec]:
         spec = self.expect_tensors(in_specs[0])
+        combined = (self._in_combination is not None
+                    or self._out_combination is not None)
+        self._dyn_batched = spec.dyn_batch
+        if spec.dyn_batch:
+            if combined:
+                self.fail_negotiation(
+                    "input-/output-combination cannot apply to a "
+                    "micro-batched stream (batched buffers carry one "
+                    "variable batch axis, not fixed per-frame tensor "
+                    "slots); place tensor_batch after the combination or "
+                    "drop the combination properties")
+            # the model and every check below see the PER-FRAME spec;
+            # dyn_batch goes back onto the output spec at the end
+            spec = replace(spec, dyn_batch=0)
+            self._batch_keepdims = [len(t.shape) >= 1 and t.shape[0] == 1
+                                    for t in spec.tensors]
         fw = self._framework_name()
         try:
             self.backend = get_backend(fw)
@@ -117,15 +210,44 @@ class TensorFilter(Element):
         if self._pre is not None or self._post is not None:
             self._fused_in_backend = self.backend.fuse(self._pre, self._post)
 
-        model_in, model_out = self.backend.get_model_info()
+        if spec.format == TensorFormat.FLEXIBLE:
+            if combined:
+                self.fail_negotiation(
+                    "input-/output-combination cannot apply to a FLEXIBLE "
+                    "stream (per-buffer region count, no fixed tensor "
+                    "indices); remove the combination properties or make "
+                    "the stream static with tensor_resize")
+            if not self.props["invoke_dynamic"]:
+                self.fail_negotiation(
+                    "input stream is FLEXIBLE (per-buffer shapes, e.g. from "
+                    "tensor_crop) but invoke-dynamic is off. Either set "
+                    "invoke_dynamic=true (shape-bucketed calls; the model "
+                    "must accept the per-buffer shapes — use "
+                    "custom=dynamic_spatial=true for shape-polymorphic "
+                    "models) or insert `tensor_resize size=H:W` to make the "
+                    "stream static")
+            self._flexible = True
+            # per-region output shapes are known only per buffer
+            model_out = self.backend.get_model_info()[1]
+            return [TensorsSpec(
+                tensors=model_out.tensors if model_out is not None else (),
+                format=TensorFormat.FLEXIBLE, rate=spec.rate)]
+
+        info_in, info_out = self.backend.get_model_info()
+        model_in = self._override_spec(
+            self.props["input"], self.props["inputtype"], info_in)
+        model_out = self._override_spec(
+            self.props["output"], self.props["outputtype"], info_out)
+        fed = spec if self._in_combination is None else self._subset_spec(spec)
         # what the model itself sees after any fused pre-chain
-        model_sees = transfer_spec(self._pre_programs, spec)
+        model_sees = transfer_spec(self._pre_programs, fed)
         if model_in is not None and not model_in.is_compatible(model_sees):
             self.fail_negotiation(
                 f"model expects input {model_in} but receives {model_sees}"
-                + (f" (= {spec} after fused pre-transforms)"
+                + (f" (= {fed} after fused pre-transforms)"
                    if self._pre_programs else "")
-                + ". Fix the upstream pipeline (converter/transform dims)")
+                + ". Fix the upstream pipeline (converter/transform dims) or "
+                  "override with input=/inputtype= properties")
         if model_out is None:
             try:
                 model_out = self.backend.set_input_info(model_sees)
@@ -133,6 +255,10 @@ class TensorFilter(Element):
                 self.fail_negotiation(str(e))
         model_out = transfer_spec(self._post_programs, model_out)
         if self._fused_decoder is not None:
+            if self._out_combination is not None:
+                self.fail_negotiation(
+                    "output-combination cannot combine with a fused device "
+                    "decoder (the decoder consumes the whole output set)")
             try:
                 model_out = self._fused_decoder.device_negotiate(model_out)
             except (ValueError, PipelineError) as e:
@@ -141,9 +267,39 @@ class TensorFilter(Element):
                     f"{model_out}: {e}")
             self._decoder_aux = aux_on(self._fused_decoder.device_aux(),
                                        self.backend.device)
-        return [model_out.with_rate(spec.rate)]
+        out = model_out.with_rate(spec.rate)
+        if self._out_combination is not None:
+            infos = []
+            for kind, idx in self._out_combination:
+                pool = spec.tensors if kind == "i" else out.tensors
+                if idx >= len(pool):
+                    self.fail_negotiation(
+                        f"output-combination {kind}{idx} out of range "
+                        f"({'input' if kind == 'i' else 'output'} has "
+                        f"{len(pool)} tensors)")
+                infos.append(pool[idx])
+            out = replace(out, tensors=tuple(infos))
+        if self._dyn_batched:
+            out = replace(out, dyn_batch=self._dyn_batched)
+        return [out]
+
+    def _subset_spec(self, spec: TensorsSpec) -> TensorsSpec:
+        idxs = self._in_combination
+        if any(i >= spec.num_tensors for i in idxs):
+            self.fail_negotiation(
+                f"input-combination {idxs} out of range for "
+                f"{spec.num_tensors}-tensor input")
+        return replace(spec, tensors=tuple(spec.tensors[i] for i in idxs))
+
+    @staticmethod
+    def _override_spec(dims: str, types: str,
+                       fallback) -> Optional[TensorsSpec]:
+        if dims:
+            return TensorsSpec.from_strings(dims, types or "float32")
+        return fallback
 
     def start(self) -> None:
+        self._t_start = time.monotonic()
         # a test may pre-install a breaker with an injected clock; build
         # one here only if the props ask for it and none exists yet
         if self._breaker is None and self.props["breaker_threshold"] > 0:
@@ -166,42 +322,150 @@ class TensorFilter(Element):
             v = getattr(self.backend, k, None)
             if v is not None:
                 out["backend_" + k] = v
+        # micro-batch occupancies served in one call ({n: invokes}) and
+        # the number of distinct bucket shapes run
+        hist = getattr(self.backend, "batch_size_hist", None)
+        if hist:
+            out["backend_batch_size_hist"] = dict(sorted(hist.items()))
+        buckets = getattr(self.backend, "bucket_shapes", None)
+        if buckets:
+            out["backend_bucket_shapes"] = len(buckets)
         if self._breaker is not None:
             for k, v in self._breaker.stats().items():
                 out["breaker_" + k] = v
+        if self._forced_syncs:
+            out["forced_syncs"] = self._forced_syncs
         return out
 
-    def _invoke_guarded(self, inputs):
+    def _invoke_guarded(self, invoke, *args):
         """One backend invoke through the circuit breaker (when
         configured). A short-circuit raises CircuitOpenError without
         touching the backend and without counting as a new failure; the
         element's error policy decides what it means."""
         br = self._breaker
         if br is None:
-            return self.backend.invoke(inputs)
+            return invoke(*args)
         br.guard(self.name)
         try:
-            out = self.backend.invoke(inputs)
+            out = invoke(*args)
         except Exception:
             br.record_failure()
             raise
         br.record_success()
         return out
 
-    # -- hot loop ----------------------------------------------------------
-    def process(self, pad: int, buf: TensorBuffer) -> List[Emission]:
-        inputs = buf.tensors
-        if self._pre is not None and not self._fused_in_backend:
-            inputs = self._pre(inputs)
+    def _invoke_or_raise(self, what: Callable[[], str], invoke, *args):
+        """`_invoke_guarded`, a failure counted and raised as BackendError
+        with `what()` (built only then) naming the buffer."""
         try:
-            outputs = self._invoke_guarded(inputs)
+            return self._invoke_guarded(invoke, *args)
         except CircuitOpenError:
             raise   # keep the type — error policies never retry these
         except Exception as e:
             self.backend.invoke_failures += 1
             raise BackendError(
-                f"tensor_filter {self.name}: invoke failed on frame "
-                f"pts={buf.pts}: {e}") from e
+                f"tensor_filter {self.name}: {what()}: {e}") from e
+
+    def _sync_outputs(self, outputs) -> tuple:
+        """latency-mode=sync: one whole-tuple forced sync per buffer
+        (runtime/sync.py, traced under this element), counted as the
+        `forced_syncs` stat."""
+        device_sync(tuple(outputs), self._tracer, self.name)
+        self._forced_syncs += 1
+        return tuple(outputs)
+
+    # -- hot loop ----------------------------------------------------------
+    def process(self, pad: int, buf: TensorBuffer) -> List[Emission]:
+        if self._flexible:
+            return self._process_flexible(buf)
+        if self._dyn_batched:
+            return self._process_batched(buf)
+        inputs = buf.tensors
+        if self._in_combination is not None:
+            inputs = tuple(inputs[i] for i in self._in_combination)
+        t0 = time.perf_counter()
+        if self._pre is not None and not self._fused_in_backend:
+            inputs = self._pre(inputs)
+        outputs = self._invoke_or_raise(
+            lambda: f"invoke failed on frame pts={buf.pts}",
+            self.backend.invoke, inputs)
         if self._post is not None and not self._fused_in_backend:
             outputs = self._post(outputs)
+        if self.props["latency_mode"] == "sync":
+            outputs = self._sync_outputs(outputs)
+        self._lat_window.append(time.perf_counter() - t0)
+        self._invoke_count += 1
+        if self._out_combination is not None:
+            outputs = tuple(buf.tensors[idx] if kind == "i" else outputs[idx]
+                            for kind, idx in self._out_combination)
         return [(0, buf.with_tensors(outputs))]
+
+    def _process_batched(self, buf: TensorBuffer) -> List[Emission]:
+        """A micro-batch (tensor_batch upstream): one batched invoke over
+        the coalesced frames; outputs stay batched and keep the dyn_batch
+        meta for tensor_unbatch. Host-side fused chains are elementwise,
+        so they apply to the batched arrays directly."""
+        db = buf.meta.get("dyn_batch")
+        if db is None:
+            raise BackendError(
+                f"tensor_filter {self.name}: micro-batched stream buffer "
+                f"has no dyn_batch meta (upstream element dropped it?)")
+        n = int(db["n"])
+        inputs = buf.tensors
+        t0 = time.perf_counter()
+        if self._pre is not None and not self._fused_in_backend:
+            inputs = self._pre(inputs)
+        outputs = self._invoke_or_raise(
+            lambda: f"batched invoke failed on buffer pts={buf.pts} "
+                    f"occupancy={n}",
+            self.backend.invoke_batched, inputs, n, self._batch_keepdims)
+        if self._post is not None and not self._fused_in_backend:
+            outputs = self._post(outputs)
+        if self.props["latency_mode"] == "sync":
+            outputs = self._sync_outputs(outputs)
+        self._lat_window.append(time.perf_counter() - t0)
+        self._invoke_count += n   # the throughput counts FRAMES
+        return [(0, buf.with_tensors(outputs))]
+
+    def _process_flexible(self, buf: TensorBuffer) -> List[Emission]:
+        """A FLEXIBLE buffer: N variable-shape regions, one model output
+        each (invoke-dynamic). Host-side fused chains apply per region."""
+        regions = list(buf.tensors)
+        if self._pre is not None and not self._fused_in_backend:
+            regions = [self._pre((r,))[0] for r in regions]
+        t0 = time.perf_counter()
+        outputs = list(self._invoke_or_raise(
+            lambda: f"flexible invoke failed on frame pts={buf.pts} with "
+                    f"region shapes {[tuple(r.shape) for r in regions]}",
+            self.backend.invoke_flexible, regions))
+        if self._post is not None and not self._fused_in_backend:
+            outputs = [self._post((o,))[0] for o in outputs]
+        if self.props["latency_mode"] == "sync":
+            outputs = self._sync_outputs(outputs)
+        self._lat_window.append(time.perf_counter() - t0)
+        self._invoke_count += 1
+        return [(0, buf.with_tensors(tuple(outputs)))]
+
+    # -- stats (the reference's latency/throughput props) ------------------
+    @property
+    def latency_us(self) -> float:
+        """Average invoke latency, µs, over the last 10 (prop `latency`)."""
+        if not self._lat_window:
+            return 0.0
+        return 1e6 * sum(self._lat_window) / len(self._lat_window)
+
+    @property
+    def throughput(self) -> float:
+        """Frames invoked a second since start (prop `throughput`)."""
+        if not self._invoke_count or self._t_start is None:
+            return 0.0
+        dt = time.monotonic() - self._t_start
+        return self._invoke_count / dt if dt > 0 else 0.0
+
+    def reload_model(self, model) -> None:
+        """Hot swap (is-updatable + model property update)."""
+        if not self.props["is_updatable"]:
+            raise PipelineError(
+                f"tensor_filter {self.name} is not reloadable; construct it "
+                f"with is-updatable=true to allow hot model swaps")
+        self.backend.reload(model)

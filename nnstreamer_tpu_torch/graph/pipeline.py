@@ -186,12 +186,19 @@ class Element:
     def fail_negotiation(self, msg: str) -> None:
         raise NegotiationError(f"element {self.name} ({self.ELEMENT_NAME}): {msg}")
 
+    #: element understands micro-batched streams (buffers with a
+    #: variable leading batch axis, tensor_batch upstream); every other
+    #: element refuses them at negotiation
+    ACCEPTS_DYN_BATCH: bool = False
+
     def expect_tensors(self, spec: StreamSpec, pad: int = 0) -> TensorsSpec:
         if not isinstance(spec, TensorsSpec):
             self.fail_negotiation(
                 f"sink pad {pad} requires a tensor stream but got "
                 f"{type(spec).__name__} ({spec}); insert a tensor_converter "
                 f"upstream to turn media into tensors")
+        if spec.dyn_batch and not self.ACCEPTS_DYN_BATCH:
+            self.fail_negotiation(_batched_refusal(self, pad, spec))
         return spec
 
     def start(self) -> None:
@@ -221,6 +228,13 @@ class Element:
 
     def __repr__(self):
         return f"<{type(self).__name__} {self.name}>"
+
+
+def _batched_refusal(e: Element, pad: int, spec: TensorsSpec) -> str:
+    return (f"sink pad {pad} stream is dynamically micro-batched "
+            f"(tensor_batch upstream, up to {spec.dyn_batch} frames per "
+            f"buffer) but {e.ELEMENT_NAME} is not batch-aware; insert "
+            f"tensor_unbatch before it to restore per-frame buffers")
 
 
 class SourceElement(Element):
@@ -371,6 +385,15 @@ class Pipeline:
                         f"element {e.name} has unlinked sink pad(s) below "
                         f"pad {l.dst_pad}")
                 in_specs[l.dst_pad] = link_spec[(l.src.name, l.src_pad)]
+            # checked here too, not only in expect_tensors, so elements
+            # whose negotiate() never looks at the spec (sinks) still
+            # refuse micro-batched links they cannot read
+            for i, s in enumerate(in_specs):
+                if isinstance(s, TensorsSpec) and s.dyn_batch \
+                        and not e.ACCEPTS_DYN_BATCH:
+                    raise NegotiationError(
+                        f"element {e.name} ({e.ELEMENT_NAME}): "
+                        f"{_batched_refusal(e, i, s)}")
             out_specs = e.negotiate(in_specs)
             fb = e.fallback_src_pad
             if fb is not None and len(out_specs) == fb:

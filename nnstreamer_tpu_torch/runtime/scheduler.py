@@ -384,8 +384,12 @@ class PipelineRunner:
         out = {}
         for name, s in self._stats.items():
             d = s.as_dict()
-            extra = getattr(self.pipeline.elements.get(name),
-                            "extra_stats", None)
+            e = self.pipeline.elements.get(name)
+            if hasattr(e, "latency_us"):
+                # tensor_filter's own props, the reference's two counters
+                d["invoke_latency_us"] = e.latency_us
+                d["invoke_throughput"] = e.throughput
+            extra = getattr(e, "extra_stats", None)
             if extra is not None:
                 d.update(extra())
             out[name] = d
@@ -426,6 +430,19 @@ class PipelineRunner:
                 continue     # mid-chain links have no queue at all
             lines.append(f"  {l.src.name} → {l.dst.name}: "
                          f"peak {d['queue_peak']}/{self._cap}")
+        batchers = [(name, d) for name, d in sorted(st.items())
+                    if "occupancy_hist" in d]
+        if batchers:
+            lines.append("")
+            lines.append("micro-batching (occupancy {frames: batches}, "
+                         "flush reasons):")
+            for name, d in batchers:
+                lines.append(
+                    f"  {name}: {d['frames_in']} frames in "
+                    f"{d['batches_out']} batches, occupancy "
+                    f"{d['occupancy_hist']} avg {d['occupancy_avg']:.2f}; "
+                    f"flushes full={d['flush_full']} "
+                    f"deadline={d['flush_deadline']} eos={d['flush_eos']}")
         rob = [(name, d) for name, d in sorted(st.items())
                if any(d.get(k) for k in
                       ("errors", "retries", "skipped", "degraded",

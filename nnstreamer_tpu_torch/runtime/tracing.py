@@ -288,9 +288,7 @@ class Tracer(NullTracer):
         if h is None:
             h = self._hists[name] = _Hist()
         h.record(t1 - t0)
-        meta = getattr(buf, "meta", None)
-        src_ts = meta.get(SOURCE_TS_META) if isinstance(meta, dict) \
-            else None
+        src_ts = self._buf_source_ts(buf)
         if src_ts is not None:
             r = self._interlat.get(name)
             if r is None:
@@ -436,6 +434,27 @@ class Tracer(NullTracer):
         with self._lock:
             self._total_events += 1
             self._events.append((ph, cat, name, label, ts, dur, args))
+
+    @staticmethod
+    def _buf_source_ts(buf) -> Optional[float]:
+        """Earliest source stamp reachable from `buf`: its own, or for a
+        micro-batch the oldest frame's (the deadline-bound frame, whose
+        latency matters)."""
+        meta = getattr(buf, "meta", None)
+        if not isinstance(meta, dict):
+            return None
+        ts = meta.get(SOURCE_TS_META)
+        if ts is not None:
+            return ts
+        db = meta.get("dyn_batch")
+        if isinstance(db, dict):
+            stamps = [f["meta"][SOURCE_TS_META]
+                      for f in db.get("frames", ())
+                      if isinstance(f.get("meta"), dict)
+                      and SOURCE_TS_META in f["meta"]]
+            if stamps:
+                return min(stamps)
+        return None
 
     def _gauge(self, dst: str, depth: int, t: float) -> None:
         g = self._gauges.get(dst)

@@ -14,9 +14,10 @@ from __future__ import annotations
 from dataclasses import dataclass, field, replace
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from nnstreamer_tpu_torch.tensor.dtypes import DType
+from nnstreamer_tpu_torch.tensor.dtypes import DType, host_tensor
 from nnstreamer_tpu_torch.tensor.info import TensorFormat, TensorInfo, TensorsSpec
 
 
@@ -41,6 +42,19 @@ class HostCopy:
     @property
     def dtype(self):
         return self.host.dtype
+
+
+def coalesce(rows: Sequence, keep: bool):
+    """Rows → one array: concatenated on axis 0 where `keep` (per-row
+    leading dim 1), else stacked on a new axis 0. torch when any row is a
+    torch tensor (host rows join it on that tensor's device), numpy
+    otherwise."""
+    first = next((r for r in rows if isinstance(r, torch.Tensor)), None)
+    if first is None:
+        return (np.concatenate if keep else np.stack)(rows, axis=0)
+    rows = [r if isinstance(r, torch.Tensor)
+            else host_tensor(np.asarray(r)).to(first.device) for r in rows]
+    return (torch.cat if keep else torch.stack)(rows, dim=0)
 
 
 def is_device_tensor(x) -> bool:

@@ -126,6 +126,12 @@ class TensorsSpec:
     tensors: Tuple[TensorInfo, ...]
     format: TensorFormat = TensorFormat.STATIC
     rate: Fraction = Fraction(0, 1)  # frames/sec; 0/1 = unknown
+    #: >0: buffers carry micro-batches (tensor_batch upstream) of up to
+    #: this many frames on a leading batch axis. `tensors` keeps the
+    #: PER-FRAME shapes: occupancy varies buffer to buffer, so it is not
+    #: part of the static type. Elements that are not batch-aware refuse
+    #: such streams at negotiation (Element.expect_tensors)
+    dyn_batch: int = 0
 
     def __post_init__(self):
         object.__setattr__(self, "tensors", tuple(self.tensors))
@@ -171,6 +177,9 @@ class TensorsSpec:
         need per-tensor dtype+shape compatibility."""
         if TensorFormat.FLEXIBLE in (self.format, other.format):
             return True
+        if self.dyn_batch != other.dyn_batch:
+            # batched buffers carry an extra, variable batch axis
+            return False
         if self.format != other.format or self.num_tensors != other.num_tensors:
             return False
         return all(a.is_compatible(b)
@@ -182,4 +191,5 @@ class TensorsSpec:
     def __str__(self) -> str:
         body = ", ".join(str(t) for t in self.tensors)
         r = f" @{self.rate}fps" if self.rate else ""
-        return f"TensorsSpec[{self.format.name.lower()}]({body}{r})"
+        db = f" dyn_batch<={self.dyn_batch}" if self.dyn_batch else ""
+        return f"TensorsSpec[{self.format.name.lower()}]({body}{r}{db})"

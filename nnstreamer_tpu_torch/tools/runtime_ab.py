@@ -4,6 +4,8 @@ this one, untraced, in one process on the card.
 
     python3 nnstreamer_tpu_torch/tools/runtime_ab.py OLD_ROOT \
         [--frames 200] [--repeats 3] [--out chiprun_out/runtime_ab.json]
+    python3 nnstreamer_tpu_torch/tools/runtime_ab.py OLD_ROOT --llm \
+        [--repeats 3] [--tokens 64] [--max-prompt 1536]
 
 OLD_ROOT is a checkout that holds `nnstreamer_tpu_torch/` (for example
 the parent commit unpacked with `git archive` into a directory that
@@ -31,12 +33,25 @@ the median over every round of the arm's latency less "old"'s in the
 same round, with the share of rounds in which the arm was slower,
 beside the card's name and power limit.
 
+With `--llm` it compares LLM serving instead: the LLM cell (d_model
+1024, 8 heads of 128, 4 layers, vocab 512, seeded weights; `tensor_llm
+paged_kernel=pallas prefill_chunk=512 max_len=2048 max_batch=8
+prewarm=512` in bf16; 8 requests of 64-1536 prompt tokens, 64 new
+tokens each, all at t=0) served through `appsrc ! tensor_llm !
+tensor_sink` by each package, arms in turns old, new, new, old,
+`--repeats` times after one warm-up run an arm. It prints tokens/s
+(first push to last token), time to first token and inter-token
+latency p50/p99 per run and per arm (medians over the runs), and
+whether the two arms' tokens are equal. Both packages build their
+kernels into this checkout's `build/torch_kernels/`.
+
 With `NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR=cpu` it runs on the CPU (a
 dry run of the script; its times are not the card's).
 """
 
 import importlib
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -125,6 +140,112 @@ def interleave(arms: dict, frame, frames: int) -> tuple:
     return lat, fps
 
 
+LLM_DIMS = dict(d_model=1024, n_heads=8, n_layers=4, vocab=512)
+LLM_PROPS = dict(model="store://llm_ab", n_heads=8, paged_kernel="pallas",
+                 prefill_chunk=512, block_size=16, max_len=2048,
+                 num_blocks=1025, max_batch=8, prewarm=512,
+                 dtype="bfloat16")
+LLM_REQUESTS = 8
+
+
+def llm_requests(max_prompt: int):
+    """8 prompts of lengths spread over 64..max_prompt (seeded)."""
+    rng = np.random.default_rng(0)
+    lens = rng.permutation(np.linspace(64, max_prompt,
+                                       LLM_REQUESTS).astype(int))
+    return [rng.integers(0, LLM_DIMS["vocab"], n).astype(np.int32)
+            for n in lens]
+
+
+def serve_llm(nt, requests, new_tokens: int) -> dict:
+    """The LLM cell through package `nt`: every request pushed at t=0.
+    → tokens/s, TTFT and ITL percentiles, tokens by request."""
+    import torch
+
+    el = importlib.import_module(nt.__name__ + ".elements")
+    info = importlib.import_module(nt.__name__ + ".tensor.info")
+    buffer = importlib.import_module(nt.__name__ + ".tensor.buffer")
+    src = el.AppSrc(spec=info.TensorsSpec(
+        tensors=(), format=info.TensorFormat.FLEXIBLE))
+    llm = el.TensorLLM(**LLM_PROPS)
+    sink = el.TensorSink()
+    pipe = nt.Pipeline("llm")
+    for e in (src, llm, sink):
+        pipe.add(e)
+    pipe.link(src, llm)
+    pipe.link(llm, sink)
+    sync = torch.cuda.synchronize if torch.cuda.is_available() \
+        else (lambda: None)
+    runner = nt.PipelineRunner(pipe).start()
+    try:
+        sync()
+        t0 = time.perf_counter()
+        for i, p in enumerate(requests):
+            src.push(buffer.TensorBuffer(tensors=(p,), pts=i, meta={"llm": {
+                "request_id": f"r{i}", "max_new_tokens": new_tokens}}))
+        src.end()
+        runner.wait(600)
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        runner.stop()
+    tokens = {}
+    for b in sink.results:
+        tokens.setdefault(b.meta["llm"]["request_id"], []).extend(
+            int(t) for t in b.tensors[0])
+    lat = llm.engine.latency_ms()
+    n = llm.engine.tokens_out
+    return {"tokens_per_s": n / wall, "seconds": wall, "tokens_out": n,
+            "ttft_p50_ms": float(np.percentile(lat["first_token"], 50)),
+            "itl_p50_ms": float(np.percentile(lat["inter_token"], 50)),
+            "itl_p99_ms": float(np.percentile(lat["inter_token"], 99)),
+            "tokens": tokens}
+
+
+def llm_ab(old, new, args, card) -> dict:
+    """Arms old and new serving the LLM cell in turns (module doc)."""
+    params = new.models.transformer.init_params(**LLM_DIMS, seed=0)
+    for nt in (old, new):
+        store = importlib.import_module(nt.__name__ + ".serving.store")
+        tb = importlib.import_module(nt.__name__ + ".backends.torch_backend")
+        store.get_store().register("llm_ab", tb.ModelBundle(
+            fn=None, params=params))
+    requests = llm_requests(args.max_prompt)
+    arms = {"old": old, "new": new}
+    runs = {arm: [] for arm in arms}
+    ref = {}
+    for arm, nt in arms.items():
+        ref[arm] = serve_llm(nt, requests, args.tokens)["tokens"]
+    same = ref["old"] == ref["new"]
+    for r in range(args.repeats):
+        for arm in ("old", "new", "new", "old"):
+            res = serve_llm(arms[arm], requests, args.tokens)
+            same = same and res.pop("tokens") == ref["old"]
+            runs[arm].append(res)
+            print(f"runtime_ab: LLM, repeat {r}, {arm}: "
+                  f"{res['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+                  f"{res['ttft_p50_ms']:.3f} ms, ITL p50 "
+                  f"{res['itl_p50_ms']:.3f} ms p99 {res['itl_p99_ms']:.3f} "
+                  f"ms [{card}]", flush=True)
+    summary = {arm: {k: statistics.median(x[k] for x in rs)
+                     for k in ("tokens_per_s", "ttft_p50_ms", "itl_p50_ms",
+                               "itl_p99_ms")}
+               for arm, rs in runs.items()}
+    s = summary["new"]
+    s["tokens_per_s_vs_old_pct"] = 100 * (
+        s["tokens_per_s"] / summary["old"]["tokens_per_s"] - 1)
+    s["itl_p50_vs_old_pct"] = 100 * (
+        s["itl_p50_ms"] / summary["old"]["itl_p50_ms"] - 1)
+    print(f"runtime_ab: LLM: " + "; ".join(
+        f"{arm} {v['tokens_per_s']:.1f} tokens/s, ITL p50 "
+        f"{v['itl_p50_ms']:.3f} ms p99 {v['itl_p99_ms']:.3f} ms"
+        for arm, v in summary.items())
+        + f" (new vs old: tokens/s {s['tokens_per_s_vs_old_pct']:+.2f}%, "
+        f"ITL p50 {s['itl_p50_vs_old_pct']:+.2f}%); tokens equal: {same}; "
+        f"medians of {2 * args.repeats} runs an arm [{card}]")
+    return {"runs": runs, "summary": summary, "tokens_equal": same}
+
+
 def card_name() -> str:
     try:
         return subprocess.run(
@@ -142,15 +263,34 @@ def main(argv=None) -> int:
     ap.add_argument("old_root")
     ap.add_argument("--frames", type=int, default=200)
     ap.add_argument("--repeats", type=int, default=3)
-    ap.add_argument("--out", default="chiprun_out/runtime_ab.json")
+    ap.add_argument("--out", default=None,
+                    help="JSON record (default chiprun_out/runtime_ab.json, "
+                         "runtime_ab_llm.json with --llm)")
+    ap.add_argument("--llm", action="store_true",
+                    help="compare LLM serving instead of pipelines A/B")
+    ap.add_argument("--tokens", type=int, default=64,
+                    help="--llm: new tokens a request")
+    ap.add_argument("--max-prompt", type=int, default=1536,
+                    help="--llm: the longest prompt")
     args = ap.parse_args(argv)
     old_root = Path(args.old_root).resolve()
     if not (old_root / PKG).is_dir():
         ap.error(f"no {PKG} package in {old_root}")
+    # one kernel directory for both packages (the same sources build once)
+    os.environ.setdefault("NNSTREAMER_TPU_TORCH_BUILD_KERNEL_DIR",
+                          str(ROOT / "build" / "torch_kernels"))
     sys.path.insert(0, str(ROOT))
     new = importlib.import_module(PKG)
     old = load_old(old_root)
     card = card_name()
+    if args.llm:
+        importlib.import_module(PKG + ".models.transformer")
+        res = llm_ab(old, new, args, card)
+        out = Path(args.out or "chiprun_out/runtime_ab_llm.json")
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps({"card": card, "old_root": str(old_root),
+                                   **res}))
+        return 0
     frame = np.random.default_rng(0).integers(0, 256, (1, 224, 224, 3),
                                               np.uint8)
     runs, lats = {}, {}
@@ -197,7 +337,7 @@ def main(argv=None) -> int:
                if arm != "old" else "")
             for arm, v in s.items())
             + f"; medians of {args.repeats} repeats [{card}]")
-    out = Path(args.out)
+    out = Path(args.out or "chiprun_out/runtime_ab.json")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"card": card, "old_root": str(old_root),
                                "runs": runs, "summary": summary,

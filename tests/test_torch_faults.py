@@ -405,6 +405,28 @@ class TestTensorFault:
         assert b.tensors[0].dtype == torch.int16
         assert b.tensors[0].tolist() == [[2, 2, 2], [2, 2, 2]]
 
+    def test_corrupt_bfloat16_matches_jax(self):
+        """Fault F5: corrupt-dtype=bfloat16 gives bfloat16 frames, bit for
+        bit the JAX package's (the port raised: torch.from_numpy refuses
+        ml_dtypes' bfloat16)."""
+        (jp, _), (tp, _) = _run_both(
+            "videotestsrc width=4 height=4 num-buffers=2 ! "
+            "tensor_converter ! tensor_fault mode=corrupt period=1 "
+            "corrupt-dtype=bfloat16 ! tensor_sink name=out", timeout=15)
+        got, want = tp.get("out").results, jp.get("out").results
+        assert len(got) == len(want) == 2
+        for g, w in zip(got, want):
+            g, w = g.tensors[0], np.asarray(w.tensors[0])
+            assert g.shape == w.shape == (1, 4, 4, 3)
+            assert str(g.dtype) == str(w.dtype) == "bfloat16"
+        assert _frames(got) == _frames(want)
+
+    def test_corrupt_device_tensor_bfloat16(self):
+        f = TensorFault(mode="corrupt", period=1, corrupt_dtype="bfloat16")
+        (_, b), = f.process(0, TensorBuffer.of(torch.ones(2, 3) * 2.5))
+        assert b.tensors[0].dtype == torch.bfloat16
+        assert b.tensors[0].tolist() == [[2.5] * 3] * 2
+
     def test_corrupt_shape_breaks_downstream(self, models):
         def strict(ts):
             if ts[0].ndim != 4:        # (1, 4, 4, 3) from the converter

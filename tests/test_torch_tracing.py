@@ -41,6 +41,7 @@ from nnstreamer_tpu.backends.custom import unregister_custom_easy
 from nnstreamer_tpu.llm import LLMEngine as JaxLLMEngine
 from nnstreamer_tpu.models import transformer as jt
 from nnstreamer_tpu.runtime import tracing as jtr
+from nnstreamer_tpu.tensor.buffer import TensorBuffer as JaxBuffer
 
 import nnstreamer_tpu_torch as tnns
 from nnstreamer_tpu_torch.__main__ import main as port_main
@@ -289,6 +290,40 @@ class TestTracerCore:
 
 
 # -- Chrome trace ------------------------------------------------------------
+
+    def test_batch_flush_markers_and_batched_interlatency(self):
+        """From test_tracing.py: 10 frames at max-batch 4 flush full,
+        full, then at EOS; interlatency survives batch → unbatch (the
+        frames' stamps ride in the dyn_batch metas), and a batched buffer
+        is stamped by its oldest frame."""
+        desc = ("appsrc name=in dims=4 types=float32 ! "
+                "tensor_batch name=b max-batch=4 max-latency-ms=1000 ! "
+                "tensor_unbatch name=u ! tensor_sink name=out")
+        flushes, inters = [], []
+        for pkg, buf_cls in ((jnns, JaxBuffer), (tnns, TensorBuffer)):
+            p = pkg.parse_launch(desc)
+            runner = pkg.PipelineRunner(p, trace=True).start()
+            src = p.get("in")
+            for i in range(10):
+                src.push(buf_cls.of(np.full((4,), float(i), np.float32),
+                                    pts=i))
+            src.end()
+            runner.wait(30)
+            runner.stop()
+            flushes.append([(name, label, args) for ph, _, name, label, _,
+                            _, args in runner.tracer.events()
+                            if ph == "i" and label.startswith("flush_")])
+            inters.append({k: v["n"] for k, v in
+                           runner.tracer.interlatency().items()})
+        assert flushes[1] == flushes[0]
+        labels = [l for _, l, _ in flushes[1]]
+        assert labels.count("flush_full") == 2
+        assert labels.count("flush_eos") == 1
+        assert {a["n"] for _, _, a in flushes[1]} == {4, 2}
+        assert inters[1] == inters[0]
+        assert inters[1]["out"] == 10 and inters[1]["b"] == 10
+        assert inters[1]["u"] == 3          # one sample a batch
+
 
 class TestChromeTrace:
     def test_schema_and_one_track_per_element(self, models):
