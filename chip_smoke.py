@@ -5,6 +5,7 @@
     python3 chip_smoke.py --slice4    # phases 1, 2 and 20-23 only
     python3 chip_smoke.py --slice6    # phases 1, 2 and 24-26 only
     python3 chip_smoke.py --batching  # phases 1, 2, 27 and 28 only
+    python3 chip_smoke.py --window    # phases 1, 2, 29 and 30 only
 
 Needs one CUDA card, nvcc and the repository checkout around this file;
 imports nothing of JAX. On a machine with several cards, phases 21-22
@@ -165,7 +166,8 @@ phases there). Phases:
    its bytes bound, its plain version's time and the CUDA-core kernel's
    in bf16 (through its launcher alone) and in f32;
 24. A and B, 64 frames each, untraced and then with
-   PipelineRunner(trace=True): the traced labels, scores and pts bit for
+   PipelineRunner(trace=True), compiled windows off (the per-frame
+   path's spans are counted by name): the traced labels, scores and pts bit for
    bit the untraced run's, 64 process spans for every element, 64
    backend invoke spans on each filter, the decoder's 64 read-backs the
    only forced syncs (traced and counted), normalize_u8 launched 64 times
@@ -200,8 +202,8 @@ phases there). Phases:
    unbatched B's (a flip only where the top-2 gap is within the two runs'
    logit difference), f32 logits (TF32 off) within 1e-3 of max |logit| of
    unbatched B's; a traced run's process span per batch; then batched and
-   unbatched B live at once, every bucket warmed, bursts of 200 frames in
-   turns a b b a: frames/s to the last frame, latency p50/p99 under the
+   unbatched B live at once (compiled windows off: the per-frame path),
+   every bucket warmed, bursts of 200 frames in turns a b b a: frames/s to the last frame, latency p50/p99 under the
    burst, kernel time a frame (a profiled burst) and the card's busy
    share;
 28. tensor_filter's properties and FLEXIBLE invokes on the card:
@@ -213,7 +215,29 @@ phases there). Phases:
    frame: within 1e-3 of the new model's logits), crop → MobileNetV2
    invoke_dynamic=true custom=dynamic_spatial=true over 6 regions in 3
    frames, card vs CPU within 1e-3 of max |logit|, the bucket shapes
-   exactly those the rule predicts.
+   exactly those the rule predicts;
+29. compiled windows (one CUDA-graph replay a window) on A, B, P
+   (PoseNet 257², the clamp fused) and D (SSD, device=true) at full
+   width in bf16: 200 frames pushed at once, compiled_loop off and on:
+   outputs bit for bit, frame by frame (and B in f32, TF32 off), the
+   windows, frames in windows, bails by cause (no "error" on A, B, P),
+   windows by K (within {2, 4, 8}), graphs captured, seconds per
+   capture, memory_allocated before and after, the model's traced
+   process span a frame; P's clamp_scale launches = frames (replays
+   counted), and in a profiled run of 48 frames = the profiler's records
+   by name; C (f32) reloaded
+   through one shared filter mid-stream: the other takes the "swap"
+   bail, both serve the new model from the next frame, its graphs are
+   the new model's; then both arms live at once, bursts of 200 frames in
+   turns a b b a: frames/s, latency p50/p99 under the burst, kernel
+   time a frame and the card's busy share;
+30. the LLM cell through LLMEngine(decode_window=8) against
+   decode_window=0: tokens identical in f32 and bf16; bf16 runs in turns
+   a b b a (tokens/s, TTFT, ITL p50/p99), then a profiled run per arm
+   (busy share, cudaLaunchKernel and cudaGraphLaunch calls,
+   paged_decode_attn launches = 4 x decode steps = the profiler's
+   records, replays counted; the (b_b, steps) graphs held); W8A8 bf16
+   tokens identical with 17 quantize_rows launches per step and chunk.
 
 Each kernel's timing phase (6, 10, 15, 16, 23) also prints its time per
 call from Python, back to back — the host's time (the launch path's own
@@ -228,7 +252,7 @@ and no result line is printed. Without a CUDA device, or run outside the
 checkout, it exits non-zero at once. A JSON record of the run goes to
 chiprun_out/chip_smoke.json (chip_smoke_slice4.json with --slice4,
 chip_smoke_slice6.json with --slice6, chip_smoke_batching.json with
---batching).
+--batching, chip_smoke_window.json with --window).
 """
 
 from __future__ import annotations
@@ -240,6 +264,7 @@ import subprocess
 import sys
 import threading
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
 from pathlib import Path
@@ -343,12 +368,50 @@ def open_capture(torch) -> None:
     time.sleep(0.01)
 
 
+def close_capture(torch) -> None:
+    """Run last inside every profiler capture: a pause, then throwaway
+    kernels, waited for. The profiler drops kernel records that end near
+    its stop (in runs of this script: three of phase 9's 300 paged decode
+    records, one of P's clamp records twice), so no counted kernel may be
+    among a capture's last; kernel_events leaves these out."""
+    time.sleep(0.02)
+    open_capture(torch)
+
+
 def kernel_events(prof):
     """The card's kernel records in a capture, open_capture's left out."""
     from torch.autograd import DeviceType
 
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA
             and OPEN_KERNEL not in e.name]
+
+
+#: profiled runs a wrapper-against-profiler launch count may take
+PROFILE_ATTEMPTS = 3
+
+
+def profiled_agreement(label: str, attempt):
+    """Repeat `attempt()` → (wrapper counts, profiler counts by name,
+    result) until the two agree, at most PROFILE_ATTEMPTS times → (the
+    agreeing attempt's result, attempts taken). The profiler drops a
+    kernel record now and then even inside padded captures (in one full
+    run of this script, one of P's 48 clamp records in phase 29), so an
+    attempt whose profiler count falls short of the wrapper's is printed
+    and repeated. A profiler count above the
+    wrapper's (a launch the wrapper did not count) fails at once, and so
+    does no agreement in PROFILE_ATTEMPTS runs."""
+    for i in range(1, PROFILE_ATTEMPTS + 1):
+        wrapper, named, res = attempt()
+        if wrapper == named:
+            return res, i
+        check(all(named[k] <= wrapper[k] for k in wrapper),
+              f"{label}: the profiler counts more launches than the "
+              f"wrapper: {named} against {wrapper}")
+        print(f"{label}: profiled run {i} of {PROFILE_ATTEMPTS}: wrapper "
+              f"{wrapper}, profiler {named} (records missing); run again")
+    raise RuntimeError(f"chip_smoke check failed: {label}: wrapper and "
+                       f"profiler disagree in {PROFILE_ATTEMPTS} profiled "
+                       f"runs, the last {wrapper} against {named}")
 
 
 def device_ms_per_call(torch, fn, iters: int) -> float:
@@ -390,6 +453,7 @@ def profiled_ms_per_launch(torch, fn, symbol: str, iters: int):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+        close_capture(torch)
     durs = [e.time_range.elapsed_us() for e in kernel_events(prof)
             if symbol in e.name]
     # a second reading beside the CUDA-event time: a capture that kept no
@@ -645,6 +709,8 @@ def serve(nt, torch, requests, prof=None, new_tokens=LLM_NEW_TOKENS,
             runner.wait(600)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            if prof is not None:
+                close_capture(torch)
         launches = {"paged_decode_attn": pa.paged_decode_attn.launches,
                     "paged_prefill_attn": pa.paged_prefill_attn.launches,
                     "quantize_rows": kernels.quantize_rows.launches,
@@ -1207,6 +1273,7 @@ def forward_phase(torch, dev, card, record, params) -> dict:
             runs["apply_seq flash"]()
             runs["apply_seq_w8a8 flash"]()
             torch.cuda.synchronize()
+            close_capture(torch)
         launches = {"flash_attention": kernels.flash_attention.launches,
                     "quantize_rows": kernels.quantize_rows.launches}
         variants = {"tc": kernels.flash_attention.launches_tc,
@@ -1875,6 +1942,7 @@ def measure_cell(nt, torch, pipe, frame, lag, n_lat, n_fps, **runner_kw):
                 src.push(buf)
             wait_for(SLICE5_FRAMES - lag)
             torch.cuda.synchronize()
+            close_capture(torch)
         res["clamp_launches"] = kernels.clamp_scale.launches
         lat = []
         for _ in range(n_lat if not lag else 0):
@@ -2498,6 +2566,7 @@ def ring_phase(nt, torch, dev, card, record, params) -> int:
             open_capture(torch)
             runs["apply_seq mesh sp4"]()
             torch.cuda.synchronize()
+            close_capture(torch)
         launches = kernels.flash_block_update.launches
         variants = {"tc": kernels.flash_block_update.launches_tc,
                     "simt": kernels.flash_block_update.launches_simt}
@@ -2861,6 +2930,7 @@ def slice1_phases(nt, torch, card, record, phases) -> list:
         results["B"] = run_pipeline(
             nt, f"{SRC} ! {NORM_B} ! {MODEL} ! {LABEL} ! tensor_sink name=out")
         torch.cuda.synchronize()
+        close_capture(torch)
     launches = kernels.normalize_u8.launches
     norm_events = [e for e in kernel_events(prof)
                    if "nns_normalize_kernel" in e.name]
@@ -2882,6 +2952,7 @@ def slice1_phases(nt, torch, card, record, phases) -> list:
         results["A"] = run_pipeline(
             nt, f"{SRC} ! {NORM_A} ! {MODEL} ! {LABEL} ! tensor_sink name=out")
         torch.cuda.synchronize()
+        close_capture(torch)
     per_frame["A"] = kernel_events(prof)
     for name, evs in per_frame.items():
         # kernels and device time per frame (first frame's setup included)
@@ -3064,9 +3135,11 @@ def traced_pipelines(nt, torch, card, record) -> dict:
     clean_b = None
     for name, norm in (("A", NORM_A), ("B", NORM_B)):
         desc = b_desc(TRACE_FRAMES, norm=norm)
-        plain = run_pipeline(nt, desc)
+        # compiled windows off: this phase counts the per-frame path's
+        # spans by name (one backend invoke span a frame)
+        plain = run_pipeline(nt, desc, compiled_loop=False)
         pipe = nt.parse_launch(desc)
-        runner = nt.PipelineRunner(pipe, trace=True)
+        runner = nt.PipelineRunner(pipe, trace=True, compiled_loop=False)
         kernels.normalize_u8.launches = 0
         forced0 = sync.forced_sync_count()
         t0 = time.perf_counter()
@@ -3467,10 +3540,14 @@ def label_flips(nt, head, labels_b, labels_u):
     return out
 
 
-def burst_arms(nt, torch, descs, frame, n, bursts, prof_frames=48):
+def burst_arms(nt, torch, descs, frame, n, bursts, prof_frames=48,
+               runner_kw=None):
     """Each arm's pipeline (descs: arm -> string, an appsrc named src to a
-    tensor_sink named out) live at once in this process. Every bucket is
-    warmed first (1, 2, 4 and 8 frames, each waited for). Then bursts of
+    tensor_sink named out; runner_kw: arm -> PipelineRunner keywords)
+    live at once in this process. Every bucket is
+    warmed first (1, 2, 4 and 8 frames, each waited for, then one untimed
+    burst of n, which captures the graph of every window size a burst
+    forms, so no timed burst pays for a capture). Then bursts of
     n frames pushed at once into one arm at a time, arms in turns a b b
     a: frames/s from the first push to the last arrival, and each frame's
     latency from its push to its arrival at the sink. Last, one profiled
@@ -3510,9 +3587,10 @@ def burst_arms(nt, torch, descs, frame, n, bursts, prof_frames=48):
         for arm, desc in descs.items():
             pipe = nt.parse_launch(desc)
             pipe.get("out").set_props(new_data=arrive(arm), collect=False)
-            live[arm] = (pipe, nt.PipelineRunner(pipe).start(), {})
+            live[arm] = (pipe, nt.PipelineRunner(
+                pipe, **(runner_kw or {}).get(arm, {})).start(), {})
         for arm in descs:
-            for k in (1, 2, 4, BATCH_MAX, 3):
+            for k in (1, 2, 4, BATCH_MAX, 3, n):
                 burst(arm, k)
         order = list(descs)
         for _ in range(bursts):
@@ -3527,6 +3605,7 @@ def burst_arms(nt, torch, descs, frame, n, bursts, prof_frames=48):
                 open_capture(torch)
                 burst(arm, prof_frames)
                 torch.cuda.synchronize()
+                close_capture(torch)
             res[arm]["device_ms_per_frame"] = sum(
                 e.time_range.elapsed_us()
                 for e in kernel_events(prof)) / 1e3 / prof_frames
@@ -3641,7 +3720,10 @@ def batched_b_phase(nt, torch, card, record) -> None:
     descs = {"unbatched": b_string(APPSRC, False),
              "batched": b_string(APPSRC, True)}
     frame = u8_frames((1, 224, 224, 3), 1, 0)[0]
-    arms = burst_arms(nt, torch, descs, frame, BURST, BURSTS)
+    # compiled windows off: the unbatched arm measures the per-frame path
+    # (phase 29 measures windows against it)
+    arms = burst_arms(nt, torch, descs, frame, BURST, BURSTS,
+                      runner_kw={a: {"compiled_loop": False} for a in descs})
     res = {}
     for arm, r in arms.items():
         fps = float(np.median(r["fps"]))
@@ -3837,6 +3919,504 @@ def batching_phases(nt, torch, card, record, phases) -> None:
     phases.done("28 (filter properties, FLEXIBLE invokes)")
 
 
+# -- Queue 1 item 1e: compiled windows (CUDA-graph replays) -----------------
+
+#: phase 29: frames pushed at once per run (f32 B: fewer; P's profiled
+#: run: fewer, as phase 27's profiled bursts)
+WINDOW_FRAMES, WINDOW_F32_FRAMES, WINDOW_PROF_FRAMES = 200, 64, 48
+#: phase 30: the engine's decode window
+DECODE_WINDOW = 8
+
+
+def window_pipes():
+    """Phase 29's pipelines: name → (the string whose raw outputs are
+    compared, the string timed in bursts, the model filter's name, the
+    frame's shape). Each reads an appsrc named src and ends in a
+    tensor_sink named out; bf16 models."""
+    a = f"{APPSRC} ! {NORM_A} ! {MODEL} name=model"
+    b = f"{APPSRC} ! {NORM_B} name=norm ! {MODEL} name=model"
+    label = f" ! {LABEL} name=dec ! tensor_sink name=out"
+    d = d_head() + f"{D_DEC} device=true ! tensor_sink name=out"
+    return {
+        "A": (a + " ! tensor_sink name=out", a + label, "model",
+              (1, 224, 224, 3)),
+        "B": (b + " ! tensor_sink name=out", b + label, "model",
+              (1, 224, 224, 3)),
+        "P": (p_head() + "tensor_sink name=out",
+              p_head() + f"{P_DEC} max_in_flight=1 ! tensor_sink name=out",
+              "f", (1, 257, 257, 3)),
+        "D": (d, d, "f", (1, 300, 300, 3)),
+    }
+
+
+def window_run(nt, torch, desc, frames, model, prof=None, warm=(),
+               **runner_kw):
+    """`desc` traced over `frames` pushed at once (pts = index), the
+    clamp_scale count zeroed first; `prof`, when given, around the run.
+    `warm`: bursts of frames pushed and drained before, outside `prof`
+    and the counts (so the graphs are captured outside the profile).
+    → {"out", "stats" (the model filter's row), "khist" (windows by K),
+    "span_ms" (the model's process span a frame, median), "graphs",
+    "captures", "capture_s", "capture_failed", "mem" (memory_allocated
+    before start and after the run), "clamp", "seconds"}."""
+    from nnstreamer_tpu_torch.backends import kernels
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    pipe = nt.parse_launch(desc)
+    runner = nt.PipelineRunner(pipe, trace=True, **runner_kw)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    runner.start()
+    src, sink = pipe.get("src"), pipe.get("out")
+    pts = 0
+    try:
+        for n in warm:
+            for _ in range(n):
+                src.push(TensorBuffer.of(frames[0], pts=pts))
+                pts += 1
+            deadline = time.monotonic() + 120
+            while len(sink.results) < pts:
+                check(time.monotonic() < deadline, "warm-up stalled")
+                time.sleep(0.001)
+        torch.cuda.synchronize()
+        sink.results.clear()
+        kernels.clamp_scale.launches = 0
+        with prof or nullcontext():
+            if prof is not None:
+                open_capture(torch)
+            t0 = time.perf_counter()
+            for i, f in enumerate(frames):
+                src.push(TensorBuffer.of(f, pts=pts + i))
+            src.end()
+            runner.wait(600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if prof is not None:
+                close_capture(torch)
+        be = pipe.get(model).backend
+        res = {"graphs": sorted(k[0] for k in be._graphs.graphs),
+               "captures": be.window_compile_count,
+               "capture_s": list(be.capture_seconds),
+               "capture_failed": sorted(set(be._graphs.failed.values())),
+               "mem": (mem0, torch.cuda.memory_allocated()),
+               "clamp": kernels.clamp_scale.launches, "seconds": wall}
+    finally:
+        runner.stop()
+    tr = runner.tracer
+    check(tr.events_dropped == 0, "the event ring wrapped")
+    khist, spans = {}, []
+    for ph, cat, el, label, ts, dur, args in tr.events():
+        if el == model and label == "compiled_window":
+            khist[args["frames"]] = khist.get(args["frames"], 0) + 1
+        if el == model and ph == "X" and label == "process":
+            spans.append(dur * 1e3)
+    res.update(out=pipe.get("out").results, stats=runner.stats()[model],
+               khist=dict(sorted(khist.items())),
+               span_ms=float(np.median(spans)))
+    return res
+
+
+def same_outputs(a, b) -> bool:
+    """Two runs' buffers equal bit for bit, frame by frame."""
+    return len(a) == len(b) and all(
+        x.pts == y.pts and len(x.tensors) == len(y.tensors) and all(
+            np.asarray(u).tobytes() == np.asarray(v).tobytes()
+            for u, v in zip(x.tensors, y.tensors)) for x, y in zip(a, b))
+
+
+def window_reload(nt, torch, card) -> dict:
+    """Phase 29's swap: C's two filters on one key (f32, TF32 off), 12
+    frames pushed at once and drained, a reload through fa, 12 more: fb
+    takes the "swap" bail, both branches serve the new model from frame
+    12, and fb's graphs are all the new model's."""
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    old, new = ("zoo://mobilenet_v2?dtype=float32",
+                "zoo://mobilenet_v2?dtype=float32&seed=1")
+    half = 12
+    frames = [tuple(u8_frames((1, 224, 224, 3), 2, 60 + i))
+              for i in range(2 * half)]
+    pipe = composite_pipe(nt, model=old, sink="tensor_sink")
+    pipe.get("fa").set_props(is_updatable=True)
+    runner = nt.PipelineRunner(pipe, trace=True).start()
+    src, sink = pipe.get("src"), pipe.get("out")
+    try:
+        for i, f in enumerate(frames):
+            if i == half:
+                deadline = time.monotonic() + 120
+                while len(sink.results) < half:
+                    check(time.monotonic() < deadline, "C stalled")
+                    time.sleep(0.001)
+                pre = pipe.get("fb").backend.window_compile_count
+                pipe.get("fa").reload_model(new)
+            src.push(TensorBuffer.of(*f, pts=i))
+        src.end()
+        runner.wait(600)
+        fb = pipe.get("fb").backend
+        fresh = all(g.keep[1] is fb._params
+                    for g in fb._graphs.graphs.values())
+        post = fb.window_compile_count
+        failed = {f: sorted(set(pipe.get(f).backend._graphs.failed.values()))
+                  for f in ("fa", "fb")}
+    finally:
+        runner.stop()
+    muxed = sink.results
+    st = runner.stats()
+    worst, apart = 0.0, np.inf
+    for branch in (0, 1):
+        refs = {ref: run_desc(nt, ingest("3:224:224:1") +
+                              f"tensor_filter model={ref} ! "
+                              "tensor_sink name=out",
+                              [f[branch] for f in frames])
+                for ref in (old, new)}
+        for i, m in enumerate(muxed):
+            want = refs[old if i < half else new][i].tensors[0]
+            other = refs[new if i < half else old][i].tensors[0]
+            scale = float(np.abs(want).max())
+            worst = max(worst, float(np.abs(m.tensors[branch] - want).max())
+                        / scale)
+            apart = min(apart, float(np.abs(m.tensors[branch] - other).max())
+                        / scale)
+    torch.backends.cudnn.allow_tf32 = True
+    bails = {f: st[f].get("loop_bails") for f in ("fa", "fb")}
+    out = {"frames": len(muxed), "rel_err": worst, "other_model": apart,
+           "loop": {f: {k: st[f].get(k) for k in
+                        ("loop_entries", "compiled_steps", "loop_bails")}
+                    for f in ("fa", "fb")},
+           "fb_captures_before_reload": pre, "fb_captures": post,
+           "fb_graphs_all_new": fresh}
+    print(f"phase 29: C reloaded through fa after frame {half} (f32, TF32 "
+          f"off): {len(muxed)} muxed frames, each branch within "
+          f"{worst:.3e} of max |logit| of its expected model and >= "
+          f"{apart:.3e} from the other; loop {out['loop']}; fb captured "
+          f"{pre} graphs before the reload, {post} in all, every graph it "
+          f"holds the new model's: {fresh}; captures refused: {failed} "
+          f"[{card}]")
+    check(len(muxed) == len(frames) and worst <= CPU_TOLERANCE
+          and apart > 100 * CPU_TOLERANCE,
+          f"reload: {len(muxed)} frames, worst {worst:.3e}, other "
+          f"{apart:.3e}")
+    check((bails["fb"] or {}).get("swap", 0) >= 1,
+          f"fb took no swap bail: {bails}")
+    check(fresh and post > pre, "fb's graphs are not the new model's")
+    check(not any(b.get("error") for b in bails.values() if b),
+          f"error bails in the reload: {bails}")
+    return out
+
+
+def window_vision_phase(nt, torch, card, record) -> None:
+    """Phase 29: A, B, P and D with compiled windows on and off."""
+    from torch.profiler import ProfilerActivity, profile
+
+    res = {}
+    for name, (desc, timed, model, shape) in window_pipes().items():
+        frames = u8_frames(shape, WINDOW_FRAMES, 29)
+        off = window_run(nt, torch, desc, frames, model, compiled_loop=False)
+        on = window_run(nt, torch, desc, frames, model)
+        st = on["stats"]
+        bails = st["loop_bails"]
+        share = st["compiled_steps"] / st["buffers"]
+        r = {"identical": same_outputs(on["out"], off["out"]),
+             "loop_entries": st["loop_entries"],
+             "compiled_steps": st["compiled_steps"], "compiled_share": share,
+             "loop_bails": bails, "k_hist": on["khist"],
+             "graphs": on["graphs"], "captures": on["captures"],
+             "capture_s": on["capture_s"],
+             "capture_failed": on["capture_failed"],
+             "mem_on": on["mem"], "mem_off": off["mem"],
+             "span_ms": {"off": off["span_ms"], "on": on["span_ms"]},
+             "seconds": {"off": off["seconds"], "on": on["seconds"]}}
+        print(f"phase 29: {name}, {WINDOW_FRAMES} frames pushed at once: "
+              f"loop-on outputs bit for bit loop-off's: {r['identical']}; "
+              f"{st['loop_entries']} windows, {st['compiled_steps']} frames "
+              f"in windows ({100 * share:.1f}%), bails {bails}, windows by "
+              f"K {on['khist']}; graphs captured {on['captures']} (K "
+              f"{on['graphs']}), seconds per capture "
+              + ", ".join(f"{c:.3f}" for c in on["capture_s"])
+              + f"; memory_allocated before/after the run: loop off "
+              f"{off['mem'][0]}/{off['mem'][1]} B, on {on['mem'][0]}/"
+              f"{on['mem'][1]} B; the model's process span a frame (traced "
+              f"median) off {off['span_ms']:.3f} ms, on {on['span_ms']:.3f} "
+              f"ms; run {off['seconds']:.3f} s off, {on['seconds']:.3f} s "
+              f"on [{card}]")
+        if on["capture_failed"]:
+            print(f"phase 29: {name}: capture refused: "
+                  f"{on['capture_failed']}")
+        check(r["identical"], f"{name}: loop-on outputs differ from loop-off")
+        check(set(on["khist"]) <= {2, 4, 8},
+              f"{name}: windows of K {on['khist']}")
+        if name != "D":
+            check(st["loop_entries"] > 0 and bails.get("error", 0) == 0,
+                  f"{name}: {st['loop_entries']} windows, bails {bails}")
+        if name == "P":
+            # the profiler against the wrapper: a shorter run (fewer
+            # records) whose graphs were captured before the profile began
+            # (close_capture says why the profiles are padded)
+            def attempt():
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                short = window_run(nt, torch, desc,
+                                   frames[:WINDOW_PROF_FRAMES], model,
+                                   prof=prof, warm=(16, 3))
+                clamps = [e.id for e in kernel_events(prof)
+                          if "nns_clamp_scale_kernel" in e.name]
+                launches = {e.id for e in prof.events()
+                            if e.name == "cudaGraphLaunch"}
+                per_launch = Counter(Counter(
+                    i for i in clamps if i in launches).values())
+                graphs = sum(a.count for a in prof.key_averages()
+                             if a.key == "cudaGraphLaunch")
+                print(f"phase 29: P: profiled run: clamp records per "
+                      f"cudaGraphLaunch {dict(per_launch)}, outside a "
+                      f"replay {sum(i not in launches for i in clamps)}")
+                return ({"clamp_scale": short["clamp"]},
+                        {"clamp_scale": len(clamps)},
+                        (short, len(clamps), graphs))
+
+            (short, named, graphs), tries = profiled_agreement(
+                "phase 29: P", attempt)
+            r["clamp_launches"] = on["clamp"]
+            r["clamp_profiled"] = (short["clamp"], named, graphs, tries)
+            print(f"phase 29: P: clamp_scale launches {on['clamp']} by the "
+                  f"wrapper (replays counted) for {WINDOW_FRAMES} frames; a "
+                  f"profiled run of {WINDOW_PROF_FRAMES} frames: "
+                  f"{short['clamp']} by the wrapper, {named} by name in the "
+                  f"profiler, {graphs} cudaGraphLaunch calls (profiled run "
+                  f"{tries} of at most {PROFILE_ATTEMPTS})")
+            check(on["clamp"] == WINDOW_FRAMES and short["clamp"] == named
+                  == WINDOW_PROF_FRAMES and graphs > 0,
+                  f"P: clamp_scale {on['clamp']} for {WINDOW_FRAMES} frames, "
+                  f"{short['clamp']} / {named} for {WINDOW_PROF_FRAMES}")
+        res[name] = r
+
+    # B in f32 (TF32 off), bit for bit
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sep = "&" if "?" in MODEL else "?"
+    desc = window_pipes()["B"][0].replace(MODEL, f"{MODEL}{sep}dtype=float32")
+    frames = u8_frames((1, 224, 224, 3), WINDOW_F32_FRAMES, 31)
+    off = window_run(nt, torch, desc, frames, "model", compiled_loop=False)
+    on = window_run(nt, torch, desc, frames, "model")
+    torch.backends.cudnn.allow_tf32 = True
+    same = same_outputs(on["out"], off["out"])
+    print(f"phase 29: B f32 (TF32 off), {WINDOW_F32_FRAMES} frames: loop-on "
+          f"bit for bit loop-off: {same}; {on['stats']['loop_entries']} "
+          f"windows, bails {on['stats']['loop_bails']}")
+    check(same and on["stats"]["loop_entries"] > 0,
+          "B f32: loop-on outputs differ or no window ran")
+    res["B f32"] = {"identical": same, "loop_entries":
+                    on["stats"]["loop_entries"]}
+
+    res["reload"] = window_reload(nt, torch, card)
+
+    # timings: loop off and on live at once, bursts in turns a b b a
+    for name, (_, timed, _, shape) in window_pipes().items():
+        frame = u8_frames(shape, 1, 0)[0]
+        arms = burst_arms(nt, torch, {"off": timed, "on": timed}, frame,
+                          BURST, BURSTS,
+                          runner_kw={"off": {"compiled_loop": False},
+                                     "on": {}})
+        t = {}
+        for arm, a in arms.items():
+            fps = float(np.median(a["fps"]))
+            t[arm] = {"fps": a["fps"], "fps_median": fps,
+                      "p50_ms": float(np.percentile(a["lat"], 50)),
+                      "p99_ms": float(np.percentile(a["lat"], 99)),
+                      "device_ms_per_frame": a["device_ms_per_frame"],
+                      "busy_share": a["device_ms_per_frame"] * fps / 1e3}
+            print(f"phase 29: {name} loop {arm}, bursts of {BURST} frames in "
+                  f"turns: " + " / ".join(f"{f:.1f}" for f in a["fps"])
+                  + f" frames/s; latency under the burst p50 "
+                  f"{t[arm]['p50_ms']:.3f} ms p99 {t[arm]['p99_ms']:.3f} ms; "
+                  f"{a['device_ms_per_frame']:.3f} ms of kernel time a frame, "
+                  f"card busy {100 * t[arm]['busy_share']:.1f}% [{card}]")
+        t["fps_ratio"] = t["on"]["fps_median"] / t["off"]["fps_median"]
+        t["fps_ratio_range"] = (min(t["on"]["fps"]) / max(t["off"]["fps"]),
+                                max(t["on"]["fps"]) / min(t["off"]["fps"]))
+        print(f"phase 29: {name} loop on / off frames/s "
+              f"{t['fps_ratio']:.3f} (median over median; burst by burst "
+              f"{t['fps_ratio_range'][0]:.3f} to "
+              f"{t['fps_ratio_range'][1]:.3f}) [{card}]")
+        res[name]["timings"] = t
+    record["windows"] = res
+
+
+def decode_engine(torch, window: int, dtype, model="store://llm_full"):
+    """The LLM cell's engine (phase 8's shapes) with `window`."""
+    from nnstreamer_tpu_torch.llm import LLMEngine
+
+    p = LLM_PROPS
+    eng = LLMEngine(model, n_heads=p["n_heads"], dtype=dtype,
+                    block_size=p["block_size"], num_blocks=p["num_blocks"],
+                    max_batch=p["max_batch"], max_len=p["max_len"],
+                    prefill_chunk=p["prefill_chunk"],
+                    paged_kernel=p["paged_kernel"], decode_window=window)
+    eng.prewarm(p["prewarm"])
+    return eng
+
+
+def engine_serve(torch, eng, requests, prof=None) -> dict:
+    """Every request submitted at t=0, drained; the launch counts zeroed
+    first. → {"tokens", "seconds", "launches", "ttft", "itl" (ms)}."""
+    from nnstreamer_tpu_torch.backends import kernels
+    from nnstreamer_tpu_torch.backends import paged_attn as pa
+
+    pa.paged_decode_attn.launches = 0
+    pa.paged_prefill_attn.launches = 0
+    kernels.quantize_rows.launches = 0
+    ex = eng.executor
+    steps0, windows0 = ex.decode_steps, ex.decode_windows
+    torch.cuda.synchronize()
+    with prof or nullcontext():
+        if prof is not None:
+            open_capture(torch)
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=LLM_NEW_TOKENS, req_id=f"r{i}")
+                for i, p in enumerate(requests)]
+        eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if prof is not None:
+            close_capture(torch)
+    return {"tokens": {r.req_id: list(r.tokens) for r in reqs},
+            "seconds": wall,
+            "launches": {"paged_decode_attn": pa.paged_decode_attn.launches,
+                         "paged_prefill_attn": pa.paged_prefill_attn.launches,
+                         "quantize_rows": kernels.quantize_rows.launches},
+            "decode_steps": ex.decode_steps - steps0,
+            "decode_windows": ex.decode_windows - windows0,
+            "ttft": [r.first_token_ms for r in reqs],
+            "itl": [x for r in reqs for x in r.itl_ms]}
+
+
+def decode_window_phase(nt, torch, card, record, ctx) -> None:
+    """Phase 30: the LLM cell through LLMEngine(decode_window=8) against
+    decode_window=0 — f32 and bf16 tokens identical, W8A8 too, launches
+    with replays counted against the profiler, timings in turns."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.backends.torch_backend import ModelBundle
+    from nnstreamer_tpu_torch.models import quant
+    from nnstreamer_tpu_torch.serving.store import get_store
+
+    requests = ctx["requests"]
+    res = {}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        runs = {w: engine_serve(torch, decode_engine(torch, w, dtype),
+                                requests) for w in (DECODE_WINDOW, 0)}
+        same = runs[DECODE_WINDOW]["tokens"] == runs[0]["tokens"]
+        print(f"phase 30: {label}: decode_window={DECODE_WINDOW} tokens "
+              f"identical to per-step: {same}; "
+              f"{runs[DECODE_WINDOW]['decode_windows']} windows")
+        check(same, f"{label}: windowed tokens differ from per-step")
+        check(runs[DECODE_WINDOW]["decode_windows"] > 0,
+              f"{label}: no decode window ran")
+        res[f"{label}_identical"] = same
+
+    # bf16 timings: both engines live, warmed by one run each (every
+    # window graph captured), then runs in turns a b b a, then profiled
+    engines = {w: decode_engine(torch, w, torch.bfloat16)
+               for w in (DECODE_WINDOW, 0)}
+    for eng in engines.values():
+        engine_serve(torch, eng, requests)
+    timed = {w: [] for w in engines}
+    for w in (DECODE_WINDOW, 0, 0, DECODE_WINDOW):
+        timed[w].append(engine_serve(torch, engines[w], requests))
+    for w, eng in engines.items():
+        def attempt():
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            run = engine_serve(torch, eng, requests, prof=prof)
+            named = named_launches(prof, ("paged_decode_attn",
+                                          "paged_prefill_attn"))
+            return ({k: run["launches"][k] for k in named}, named,
+                    (prof, run, named))
+
+        (prof, run, named), tries = profiled_agreement(
+            f"phase 30: window {w}", attempt)
+        evs = kernel_events(prof)
+        busy = sum(e.time_range.elapsed_us() for e in evs) / 1e6 / \
+            run["seconds"]
+        launch_calls = {a.key: a.count for a in prof.key_averages()
+                        if a.key.startswith(("cudaLaunchKernel",
+                                             "cudaGraphLaunch"))}
+        arm = f"window {w}"
+        runs = timed[w]
+        tps = [sum(map(len, r["tokens"].values())) / r["seconds"]
+               for r in runs]
+        ttft = [x for r in runs for x in r["ttft"]]
+        itl = [x for r in runs for x in r["itl"]]
+        ex = eng.executor
+        res[arm] = {
+            "tokens_per_s": tps,
+            "ttft_p50_ms": float(np.percentile(ttft, 50)),
+            "ttft_p99_ms": float(np.percentile(ttft, 99)),
+            "itl_p50_ms": float(np.percentile(itl, 50)),
+            "itl_p99_ms": float(np.percentile(itl, 99)),
+            "busy_share_profiled": busy, "launch_calls": launch_calls,
+            "launches": run["launches"], "profiler_launches": named,
+            "profiled_runs": tries,
+            "decode_steps": run["decode_steps"],
+            "decode_windows": run["decode_windows"],
+            "engine": {k: eng.stats()[k] for k in
+                       ("decode_window", "decode_windows", "window_tokens")},
+            "graphs": [list(k[:2]) for k in ex.window_graphs()]}
+        print(f"phase 30: bf16 {arm}: " + " / ".join(f"{x:.1f}" for x in tps)
+              + f" tokens/s; TTFT p50 {res[arm]['ttft_p50_ms']:.3f} ms p99 "
+              f"{res[arm]['ttft_p99_ms']:.3f} ms; ITL p50 "
+              f"{res[arm]['itl_p50_ms']:.3f} ms p99 "
+              f"{res[arm]['itl_p99_ms']:.3f} ms; profiled run: card busy "
+              f"{100 * busy:.1f}%, {launch_calls}, {run['decode_steps']} "
+              f"decode steps in {run['decode_windows']} windows, wrapper "
+              f"launches {run['launches']}, by name {named} (profiled run "
+              f"{tries} of at most {PROFILE_ATTEMPTS}); engine "
+              f"{res[arm]['engine']}; (b_b, steps) graphs "
+              f"{res[arm]['graphs']} [{card}]")
+        check(run["launches"]["paged_decode_attn"]
+              == 4 * run["decode_steps"] == named["paged_decode_attn"],
+              f"{arm}: paged_decode_attn {run['launches']} / {named} for "
+              f"{run['decode_steps']} steps")
+        check(run["launches"]["paged_prefill_attn"]
+              == named["paged_prefill_attn"], f"{arm}: prefill launches")
+    same = all(timed[DECODE_WINDOW][i]["tokens"] == timed[0][0]["tokens"]
+               for i in range(2))
+    check(same, "bf16 timed runs: windowed tokens differ")
+
+    # W8A8: the quantized model (phase 14's), per-step against windows
+    if "llm_w8a8" not in get_store().names():
+        get_store().register("llm_w8a8", ModelBundle(
+            fn=None, params=quant.quantize_transformer(ctx["params"])))
+    runs = {w: engine_serve(torch, decode_engine(
+        torch, w, torch.bfloat16, "store://llm_w8a8"), requests)
+        for w in (DECODE_WINDOW, 0)}
+    same = runs[DECODE_WINDOW]["tokens"] == runs[0]["tokens"]
+    per_step = {w: r["launches"]["quantize_rows"] / (
+        r["decode_steps"] + r["launches"]["paged_prefill_attn"] / 4)
+        for w, r in runs.items()}
+    print(f"phase 30: W8A8 bf16: decode_window={DECODE_WINDOW} tokens "
+          f"identical to per-step: {same}; "
+          f"{runs[DECODE_WINDOW]['decode_windows']} windows; quantize_rows "
+          f"launches per decode step and chunk {per_step} [{card}]")
+    check(same, "W8A8: windowed tokens differ from per-step")
+    check(all(v == 17 for v in per_step.values()),
+          f"W8A8: quantize_rows launches per step {per_step}")
+    res["w8a8"] = {"identical": same, "quantize_rows_per_step": per_step}
+    record["decode_window"] = res
+
+
+def window_phases(nt, torch, card, record, phases, ctx) -> None:
+    """Phases 29-30."""
+    window_vision_phase(nt, torch, card, record)
+    phases.done("29 (vision windows)")
+    if "requests" not in ctx:
+        llm_model(ctx)
+    decode_window_phase(nt, torch, card, record, ctx)
+    phases.done("30 (LLM decode window)")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3851,6 +4431,10 @@ def main(argv=None) -> int:
         "--batching", action="store_true",
         help="run phases 1, 2, 27 and 28 only (B micro-batched, the filter "
              "properties and FLEXIBLE invokes)")
+    ap.add_argument(
+        "--window", action="store_true",
+        help="run phases 1, 2, 29 and 30 only (compiled windows: vision "
+             "pipelines and the LLM decode window)")
     ap.add_argument(
         "--slice4", action="store_true",
         help="run phases 1, 2 and 20-23 only (the ring step, ring "
@@ -3918,6 +4502,9 @@ def main(argv=None) -> int:
     elif args.batching:
         batching_phases(nt, torch, card, record, phases)
         entries = []
+    elif args.window:
+        window_phases(nt, torch, card, record, phases, {})
+        entries = []
     else:
         # -- 3-6. normalize_u8, pipelines A and B ------------------------
         entries = slice1_phases(nt, torch, card, record, phases)
@@ -3934,6 +4521,8 @@ def main(argv=None) -> int:
         slice6_phases(nt, torch, card, record, phases, ctx)
         # -- 27-28. micro-batching, filter properties, FLEXIBLE --------
         batching_phases(nt, torch, card, record, phases)
+        # -- 29-30. compiled windows, the LLM decode window --------------
+        window_phases(nt, torch, card, record, phases, ctx)
     record["phase_seconds"] = phases.seconds
 
     out_dir = ROOT / "chiprun_out"
@@ -3941,6 +4530,7 @@ def main(argv=None) -> int:
     name = ("chip_smoke_slice4.json" if args.slice4 else
             "chip_smoke_slice6.json" if args.slice6 else
             "chip_smoke_batching.json" if args.batching else
+            "chip_smoke_window.json" if args.window else
             "chip_smoke.json")
     (out_dir / name).write_text(json.dumps(record, indent=1))
     print(card)

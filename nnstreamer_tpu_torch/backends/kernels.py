@@ -24,7 +24,8 @@ package's backends/pallas_ops.py).
   ``csrc/flash_attn.cu`` (the f32 flash kernel's tile code).
 
 Each kernel has three parts here: the wrapper, which launches the CUDA
-kernel for a CUDA tensor and counts the launch; its plain torch version,
+kernel for a CUDA tensor and counts the launch (`cuda_graphs.count_launch`:
+a launch captured into a CUDA graph counts at each replay); its plain torch version,
 which repeats the kernel's arithmetic; and the dispatch between them,
 which takes the plain version only for a tensor on the CPU — the device
 the caller chose. A CUDA tensor goes to the kernel or the call raises.
@@ -42,6 +43,7 @@ from typing import Dict
 import torch
 
 from nnstreamer_tpu_torch.backends.cuda_build import Launcher
+from nnstreamer_tpu_torch.backends.cuda_graphs import count_launch
 from nnstreamer_tpu_torch.core.errors import BackendError
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
@@ -97,7 +99,7 @@ def _normalize_u8_cuda(x: torch.Tensor, mean: float, std: float,
     y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     _NORMALIZE(x.device.index, x.data_ptr(), in_code, y.data_ptr(),
                _NORM_OUT[out_dtype], x.numel(), mean, 1.0 / std)
-    normalize_u8.launches += 1
+    count_launch(normalize_u8)
     return y
 
 
@@ -191,7 +193,7 @@ def _quantize_rows_cuda(x: torch.Tensor):
     _QUANTIZE(x.device.index, x.data_ptr(), _FLOAT_CODE[x.dtype],
               x.stride(0) if m > 1 else k, q.data_ptr(), scale.data_ptr(), m,
               k)
-    quantize_rows.launches += 1
+    count_launch(quantize_rows)
     return q, scale
 
 
@@ -352,7 +354,7 @@ def _clamp_scale_cuda(x: torch.Tensor, a: _ClampArgs) -> torch.Tensor:
     _CLAMP(x.device.index, x.data_ptr(), y.data_ptr(), a.code, x.numel(),
            x.dim(), sizes, strides, contiguous, a.lo, a.hi, a.scale,
            a.offset, a.fold_add, a.ilo, a.ihi)
-    clamp_scale.launches += 1
+    count_launch(clamp_scale)
     return y
 
 
@@ -486,11 +488,7 @@ def _flash_attention_cuda(q, k, v, causal: bool):
         q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), b, s, h, d, *_strides(q), *_strides(k),
         *_strides(v), *_strides(out), d ** -0.5, bool(causal))
-    flash_attention.launches += 1
-    if variant == "tc":
-        flash_attention.launches_tc += 1
-    else:
-        flash_attention.launches_simt += 1
+    count_launch(flash_attention, f"launches_{variant}")
     return out
 
 
@@ -621,11 +619,7 @@ def _flash_block_cuda(q, k, v, m, l, acc, q_offset: int, k_offset: int,
     variant = flash_block_variant(q.dtype, q.shape[-1])
     _flash_block_launch(variant, q, k, v, m, l, acc, q_offset, k_offset,
                         causal)
-    flash_block_update.launches += 1
-    if variant == "tc":
-        flash_block_update.launches_tc += 1
-    else:
-        flash_block_update.launches_simt += 1
+    count_launch(flash_block_update, f"launches_{variant}")
     return m, l, acc
 
 

@@ -47,20 +47,33 @@ device — bit-identical to ``shards=1``. Prompts at or past
 ``kernel_invokes["xla"]`` as the JAX package counts it). Sharded serving
 is float-only and refuses chunked prefill and ``paged_kernel=pallas``
 (the JAX package falls back to XLA there with a count; the port raises).
-The compiled decode window (``decode_multi``) waits for the compiled
-loop, and the persistent bucket manifest (``warm_start``) for
+The persistent bucket manifest (``warm_start``) waits for
 serving/compile_cache.
+
+The compiled decode window (``decode_multi``, the engine's
+``decode_window``) runs K greedy decode steps with the sampled token
+fed back on the device (``torch.argmax``, the first maximum, as the
+host's ``np.argmax``) and one read-back per window. Its body is exactly
+the per-step decode, K times. On the CPU it runs eagerly; on the card the
+first window of a (row bucket, steps, kernel) runs eagerly and is then
+captured into one CUDA graph (backends/cuda_graphs.py) that later
+windows replay: ``cur``, ``tables`` and ``pos`` are its
+static inputs, the KV pools are written in place (their storage never
+changes), and the graphs share one memory pool. They bake in the params
+held, so a store swap drops them at adoption. A capture that fails
+raises; nothing falls back.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from nnstreamer_tpu_torch.backends import cuda_graphs
 from nnstreamer_tpu_torch.backends.base import pick_device
 from nnstreamer_tpu_torch.core.errors import BackendError
 from nnstreamer_tpu_torch.core.log import get_logger
@@ -221,6 +234,14 @@ class PagedLLMExecutor:
         self.prefills = 0
         self.chunk_prefills = 0
         self.decode_steps = 0
+        # compiled decode windows (decode_multi): windows run, and the
+        # decode steps they served
+        self.decode_windows = 0
+        self.window_steps = 0
+        # (bucket, steps, kernel) → graph, for the params version held
+        # (the store epoch adopted)
+        self._graphs = cuda_graphs.GraphCache()
+        self._graphs.use(self.adopted_epoch)
 
     # -- params ------------------------------------------------------------
     def _place(self, params, key: str = ""):
@@ -287,6 +308,7 @@ class PagedLLMExecutor:
             placed = (self._place_sharded(raw), self._place(raw))
         self._sparams, self.params = placed
         self._staged.clear()
+        self._graphs.use(epoch)   # the old graphs baked in the old params
         self._version, self.adopted_epoch = cur, epoch
         self.swap_count += 1
         self.tracer.record_swap(
@@ -458,6 +480,20 @@ class PagedLLMExecutor:
         return out
 
     # -- decode ------------------------------------------------------------
+    def _decode_inputs(self, cur: List[int], tables: List[List[int]],
+                       pos: List[int], b_b: int) -> Tuple[torch.Tensor, ...]:
+        """(cur, tables, pos) of the live rows padded to the row bucket
+        `b_b`, on the device; padding rows write the scratch block."""
+        n = len(cur)
+        cur_a = np.zeros((b_b,), np.int32)
+        cur_a[:n] = cur
+        tab_a = np.full((b_b, self.max_blocks), SCRATCH_BLOCK, np.int32)
+        for i, t in enumerate(tables):
+            tab_a[i, :len(t)] = t
+        pos_a = np.zeros((b_b,), np.int32)
+        pos_a[:n] = pos
+        return self._tensor(cur_a), self._tensor(tab_a), self._tensor(pos_a)
+
     def decode(self, cur: List[int], tables: List[List[int]],
                pos: List[int], *, sync: bool = True):
         """One decode step for `len(cur)` live rows (bucketed to pow2;
@@ -466,18 +502,11 @@ class PagedLLMExecutor:
         tensor (b_b, vocab)."""
         n = len(cur)
         b_b = _next_pow2(n, 1)
-        cur_a = np.zeros((b_b,), np.int32)
-        cur_a[:n] = cur
-        tab_a = np.full((b_b, self.max_blocks), SCRATCH_BLOCK, np.int32)
-        for i, t in enumerate(tables):
-            tab_a[i, :len(t)] = t
-        pos_a = np.zeros((b_b,), np.int32)
-        pos_a[:n] = pos
         fn, fresh = self._get_fn("decode", b_b)
         t0 = time.perf_counter()
         logits, self.cache.k, self.cache.v = fn(
-            self._exec_params("decode"), self._tensor(cur_a),
-            self._tensor(tab_a), self._tensor(pos_a), self.cache.k,
+            self._exec_params("decode"),
+            *self._decode_inputs(cur, tables, pos, b_b), self.cache.k,
             self.cache.v, n_heads=self.n_heads, dtype=self.dtype)
         out = self._logits(logits, sync, "decode")
         kernel = self._kind_kernel("decode")
@@ -491,6 +520,75 @@ class PagedLLMExecutor:
         self.decode_steps += 1
         self.kernel_invokes[kernel] += 1
         return out[:n] if sync else out
+
+    def decode_multi(self, cur: List[int], tables: List[List[int]],
+                     pos: List[int], steps: int) -> np.ndarray:
+        """`steps` greedy decode steps for `len(cur)` live rows as one
+        window (the engine's `decode_window`): the sampled token feeds the
+        next step on the device, and the host reads the tokens back once.
+        Returns a host (n, steps) int32 token matrix.
+
+        The caller keeps the window's invariants (llm/engine.py
+        `_window_len`): every row greedy, `steps` within every row's
+        remaining budget (its blocks were allocated at admission, so
+        position pos + steps - 1 is backed), and a row that meets EOS
+        mid-window has its later tokens discarded on the host — their KV
+        writes land in blocks it still owned."""
+        n = len(cur)
+        steps = int(steps)
+        b_b = _next_pow2(n, 1)
+        kernel = self._kind_kernel("decode")
+        fn = self._fn("decode")
+        params = self._exec_params("decode")
+
+        def body(cur_t, tab_t, pos_t):
+            toks = []
+            for _ in range(steps):
+                logits, _, _ = fn(params, cur_t, tab_t, pos_t, self.cache.k,
+                                  self.cache.v, n_heads=self.n_heads,
+                                  dtype=self.dtype)
+                cur_t = torch.argmax(logits, dim=-1).to(torch.int32)
+                toks.append(cur_t)
+                pos_t = pos_t + 1
+            return torch.stack(toks, dim=1)
+
+        key = (b_b, steps, kernel)
+        fresh = ("decmulti",) + key not in self._seen
+        inputs = self._decode_inputs(cur, tables, pos, b_b)
+        t0 = time.perf_counter()
+        g = self._graphs.get(key)
+        if g is not None:
+            toks = g.run(inputs)
+        else:
+            # the first window of a key (every window on the CPU) runs
+            # eagerly; on the card it is the warm-up of the capture
+            toks = body(*inputs)
+            if self.device.type == "cuda":
+                self._graphs.capture(
+                    key, body, inputs, keep=(params,),
+                    what=f"llm {self.name} decode window (bucket, steps, "
+                         f"kernel) {key}")
+        self._seen.add(("decmulti",) + key)
+        out = to_host((toks,), self.tracer, f"{self.name}:decmulti")[0][:n]
+        t1 = time.perf_counter()
+        if fresh:
+            self.compile_count += 1
+            self._span("compile", t0, t1, what="llm_decode_multi",
+                       bucket=b_b, steps=steps, kernel=kernel)
+        else:
+            self._span("invoke", t0, t1, what="llm_decode_multi",
+                       bucket=b_b, steps=steps, rows=n, kernel=kernel)
+        # the ledger counts the same decode steps whether or not a
+        # window served them
+        self.decode_steps += steps
+        self.kernel_invokes[kernel] += steps
+        self.decode_windows += 1
+        self.window_steps += steps
+        return out
+
+    def window_graphs(self) -> List[tuple]:
+        """(bucket, steps, kernel) of every decode-window graph held."""
+        return sorted(self._graphs.graphs)
 
     # -- warm paths --------------------------------------------------------
     def _warm_compile(self, kind: str, bucket: int) -> bool:
@@ -576,8 +674,8 @@ class PagedLLMExecutor:
             "prefills": self.prefills,
             "chunk_prefills": self.chunk_prefills,
             "decode_steps": self.decode_steps,
-            "decode_windows": 0,
-            "window_steps": 0,
+            "decode_windows": self.decode_windows,
+            "window_steps": self.window_steps,
             "swap_count": self.swap_count,
             "paged_kernel": self.paged_kernel,
             "kernel_invokes": dict(self.kernel_invokes),

@@ -10,7 +10,8 @@ exists in device memory:
   blocks past ``pos[b]`` skipped; out (B, n_heads, hd) f32. Each row's
   walk is split over the KV axis (`decode_plan`): the splits of a (row,
   kv head) fold their partials in the same launch, through a workspace
-  and tickets that the wrapper keeps per device and stream.
+  and tickets that the wrapper keeps per device and stream (a CUDA graph
+  that captures a launch holds the pair it captured).
 - ``paged_prefill_attn`` — causal attention of one prefill chunk of one
   layer: q (n_heads, S_c, hd) starting at absolute ``pos0``, through one
   sequence's table (max_blocks,), mask ``pos0 + row >= kv_pos``; out
@@ -38,6 +39,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from nnstreamer_tpu_torch.backends.cuda_build import Launcher, raw_stream
+from nnstreamer_tpu_torch.backends.cuda_graphs import count_launch
 from nnstreamer_tpu_torch.core.errors import BackendError
 from nnstreamer_tpu_torch.llm.paged_model import chunk_layers, decode_layers
 from nnstreamer_tpu_torch.models.transformer import attend
@@ -238,7 +240,9 @@ def _paged_decode_cuda(q, k_pool_l, v_pool_l, tables, pos):
             out.data_ptr(), ws.data_ptr(), ws.numel(), tk.data_ptr(),
             tk.numel(), b, n_heads, n_kv, hd, bs, mb, plan.splits, plan.bps,
             sb, ss, sh, hd ** -0.5, stream=stream)
-    paged_decode_attn.launches += 1
+    # a graph capturing this launch holds the workspace and tickets it
+    # bakes in, so replacing them here never frees what it replays into
+    count_launch(paged_decode_attn, keep=(ws, tk))
     return out
 
 
@@ -255,7 +259,7 @@ def _paged_prefill_cuda(q, k_pool_l, v_pool_l, table, pos0):
              k_pool_l.data_ptr(), v_pool_l.data_ptr(), table.data_ptr(),
              out.data_ptr(), n_heads, n_kv, s_c, hd, bs, table.shape[0],
              int(pos0), sb, ss, sh, hd ** -0.5)
-    paged_prefill_attn.launches += 1
+    count_launch(paged_prefill_attn)
     return out
 
 

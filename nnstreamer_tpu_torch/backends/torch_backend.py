@@ -33,7 +33,28 @@ instead. Nothing compiles, so where the JAX package counts compiles per
 bucket, `bucket_shapes` holds the distinct bucket shapes that ran.
 
 `reload` stages the new model on the device before it drops the old
-one; filters sharing a key pick a reload up at their next invoke.
+one; filters sharing a key pick a reload up at their next invoke
+(`swap_pending` says one is waiting). The model held is one tuple
+(bundle, params, serial) swapped in one store, and every invoke reads it
+once (`_held`), so a reload from another thread never splits an invoke
+or a window between two models; what was derived from the model before
+(batchability verdicts, captured graphs) is dropped by the invoking
+thread at its next invoke, never by the reloading one.
+
+Compiled windows (`invoke_window`, the scheduler's steady-state loop):
+K same-signature frames run as K per-frame calls — the fused pre chain,
+the model, the fused post chain, each at the frame's own shape, so the
+outputs are bit for bit those of K invokes. On the CPU the K calls run
+eagerly. On the card the first window of a (K, input signature) runs
+them eagerly (the warm-up a capture needs) and captures them into one
+CUDA graph (backends/cuda_graphs.py); later windows copy their frames
+into its static inputs, replay it once and clone its outputs, since the
+scheduler keeps emitted outputs in flight past the next replay. The
+graphs of one backend are those of the model serial it holds and share
+one memory pool (`cuda_graphs.GraphCache`); a reload drops them (each
+holds the params it baked in until then); a capture that fails raises,
+and its key is remembered so the next window raises at once, before it
+stages its frames (the scheduler's "error" bail runs them per frame).
 
 With the session tracer active each invoke is one backend "invoke" span
 (`FilterBackend.invoke`), each batched invoke one "invoke_batched" span
@@ -53,6 +74,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from nnstreamer_tpu_torch.backends import cuda_graphs
 from nnstreamer_tpu_torch.backends.base import (
     ArrayTuple, ElementwiseFn, FilterBackend, pick_device, register_backend)
 from nnstreamer_tpu_torch.core.errors import BackendError
@@ -91,6 +113,9 @@ class _SharedEntry:
 
 _shared_models: Dict[str, _SharedEntry] = {}
 _shared_lock = threading.Lock()
+#: one serial per model a backend takes up (process-wide: two models held
+#: one after the other never share one)
+_model_serials = itertools.count(1)
 
 
 def next_pow2(n: int, floor: int = 1) -> int:
@@ -168,8 +193,8 @@ def stage(arrs, device: torch.device) -> Tuple[ArrayTuple, int]:
 @register_backend("torch", "xla")
 class TorchBackend(FilterBackend):
     def __init__(self):
-        self._bundle: Optional[ModelBundle] = None
-        self._params = None
+        #: (bundle, params, serial) of the model held, replaced whole
+        self._model: Tuple[Optional[ModelBundle], Any, int] = (None, None, 0)
         self._shared: Optional[_SharedEntry] = None
         self._shared_key = ""
         self._pre: Optional[ElementwiseFn] = None
@@ -190,6 +215,34 @@ class TorchBackend(FilterBackend):
         #: distinct bucket shapes run by invoke_batched/invoke_flexible
         #: (the JAX package's compile_count counts one compile for each)
         self.bucket_shapes: set = set()
+        #: compiled windows served and the frames they served (the JAX
+        #: package's names)
+        self.window_invokes = 0
+        self.window_frames = 0
+        # (K, input signature) → graph, for the model serial held; its
+        # version is also that of `_batch_ok` and `_meta`
+        self._graphs = cuda_graphs.GraphCache()
+
+    @property
+    def _bundle(self) -> Optional[ModelBundle]:
+        return self._model[0]
+
+    @property
+    def _params(self):
+        return self._model[1]
+
+    @property
+    def window_compile_count(self) -> int:
+        """CUDA graphs captured (the JAX package's name)."""
+        return self._graphs.captures
+
+    @property
+    def capture_seconds(self) -> List[float]:
+        """Each capture's host seconds."""
+        return self._graphs.capture_seconds
+
+    def _hold(self, bundle: ModelBundle, params) -> None:
+        self._model = (bundle, params, next(_model_serials))
 
     def open(self, props: Dict[str, Any]) -> None:
         model = props.get("model")
@@ -212,10 +265,9 @@ class TorchBackend(FilterBackend):
         if key:
             self._open_shared(key, model)
             return
-        self._bundle = self._resolve(model)
-        self._params = params_to(self._bundle.params, self.device)
-        log.info("opened model %s on %s", self._bundle.name or model,
-                 self.device)
+        bundle = self._resolve(model)
+        self._hold(bundle, params_to(bundle.params, self.device))
+        log.info("opened model %s on %s", bundle.name or model, self.device)
 
     def _open_shared(self, key: str, model) -> None:
         ref = model if isinstance(model, str) else None
@@ -240,7 +292,7 @@ class TorchBackend(FilterBackend):
                     f"(same key, same model)")
             entry.holders += 1
             self._shared, self._shared_key = entry, key
-            self._bundle, self._params = entry.bundle, entry.params
+            self._hold(entry.bundle, entry.params)
             self._version = entry.version
         log.info("opened shared model key=%s holders=%d on %s", key,
                  entry.holders, self.device)
@@ -269,7 +321,8 @@ class TorchBackend(FilterBackend):
                 if self._shared.holders <= 0:
                     _shared_models.pop(self._shared_key, None)
             self._shared = None
-        self._params = None
+        self._model = (self._bundle, None, next(_model_serials))
+        self._graphs.use(None)
 
     def get_model_info(self):
         return self._bundle.in_spec, self._bundle.out_spec
@@ -278,14 +331,15 @@ class TorchBackend(FilterBackend):
         """Infer the model's output spec by running the bare model once on
         zeros of `in_spec` on the target device (fused chains do not take
         part: `in_spec` is already what the model sees)."""
+        bundle, params, _ = self._model
         zeros = [torch.zeros(t.shape, dtype=t.dtype.torch_dtype,
                              device=self.device) for t in in_spec.tensors]
         try:
             with torch.inference_mode():
-                out = to_tuple(self._bundle.fn(self._params, *zeros))
+                out = to_tuple(bundle.fn(params, *zeros))
         except Exception as e:
             raise BackendError(
-                f"model {self._bundle.name!r} does not accept input "
+                f"model {bundle.name!r} does not accept input "
                 f"{in_spec}: {e}") from e
         return TensorsSpec(tensors=tuple(
             TensorInfo(tuple(o.shape), DType.of(o)) for o in out))
@@ -301,10 +355,26 @@ class TorchBackend(FilterBackend):
         sh = self._shared
         if sh is not None and sh.version != self._version:
             with _shared_lock:
-                self._bundle, self._params = sh.bundle, sh.params
+                self._hold(sh.bundle, sh.params)
                 self._version = sh.version
+
+    def _held(self) -> Tuple[ModelBundle, Any, int]:
+        """The model an invoke runs, read once at its start (after taking
+        up a shared reload). What was derived from an earlier model —
+        batchability verdicts, the meta copy, captured graphs — is
+        dropped here, on the invoking thread."""
+        self._adopt_shared()
+        model = self._model
+        if self._graphs.use(model[2]):
             self._batch_ok.clear()
             self._meta = None
+        return model
+
+    def swap_pending(self) -> bool:
+        """A reload through another holder of the shared key that this
+        backend has not taken up yet (the compiled loop's "swap" bail)."""
+        sh = self._shared
+        return sh is not None and sh.version != self._version
 
     def _stage(self, tensors) -> ArrayTuple:
         xs, transfers = stage(tensors, self.device)
@@ -312,44 +382,49 @@ class TorchBackend(FilterBackend):
         self.staging_elided += len(xs) - transfers
         return xs
 
-    def _call(self, xs: ArrayTuple) -> ArrayTuple:
-        """pre chain, model, post chain on device tensors."""
+    def _call(self, xs: ArrayTuple, model) -> ArrayTuple:
+        """pre chain, `model` (a `_held` tuple), post chain on device
+        tensors."""
+        bundle, params, _ = model
         with torch.inference_mode():
             if self._pre is not None:
                 xs = self._pre(xs)
-            out = to_tuple(self._bundle.fn(self._params, *xs))
+            out = to_tuple(bundle.fn(params, *xs))
             if self._post is not None:
                 out = to_tuple(self._post(out))
         return out
 
     def run(self, tensors: ArrayTuple) -> ArrayTuple:
-        self._adopt_shared()
-        return self._call(self._stage(tensors))
+        model = self._held()
+        return self._call(self._stage(tensors), model)
 
-    def _batchable(self, sig: Tuple[Tuple[tuple, torch.dtype], ...]) -> bool:
+    def _batchable(self, sig: Tuple[Tuple[tuple, torch.dtype], ...],
+                   model=None) -> bool:
         """Does the model (with its fused chains) take inputs of these
         (shape, dtype)s, batch axis first, and give every output that
         batch axis? Decided on the meta device — shapes only, nothing
         runs on the card — and cached per signature, as the JAX package
-        caches its eval_shape verdict."""
+        caches its eval_shape verdict. `model`: a `_held` tuple (the one
+        held by default)."""
         ok = self._batch_ok.get(sig)
         if ok is None:
+            bundle, params, _ = model or self._model
             if self._meta is None:
-                self._meta = params_on_meta(self._params)
+                self._meta = params_on_meta(params)
             try:
                 xs = tuple(torch.empty(shape, dtype=dt, device="meta")
                            for shape, dt in sig)
                 with torch.inference_mode():
                     if self._pre is not None:
                         xs = self._pre(xs)
-                    out = to_tuple(self._bundle.fn(self._meta, *xs))
+                    out = to_tuple(bundle.fn(self._meta, *xs))
                     if self._post is not None:
                         out = to_tuple(self._post(out))
                 nb = sig[0][0][0]
                 ok = all(o.dim() >= 1 and o.shape[0] == nb for o in out)
             except Exception as e:
                 log.info("model %s takes no batched input %s (%s): it runs "
-                         "per frame", self._bundle.name, sig, e)
+                         "per frame", bundle.name, sig, e)
                 ok = False
             self._batch_ok[sig] = ok
         return ok
@@ -361,17 +436,17 @@ class TorchBackend(FilterBackend):
         ragged occupancies run at most log2(max_batch) + 1 shapes. A
         model that refuses the batched shape runs per frame (the base
         path)."""
-        self._adopt_shared()
+        model = self._held()
         xs = self._stage(tensors)
         nb = next_pow2(n)
         sig = tuple(((nb,) + tuple(x.shape[1:]), x.dtype) for x in xs)
-        if not self._batchable(sig):
+        if not self._batchable(sig, model):
             return super().invoke_batched(xs, n, keepdims)
         self.batch_size_hist[n] = self.batch_size_hist.get(n, 0) + 1
         self.bucket_shapes.add(("dynb", nb) + tuple(s for s, _ in sig))
         tr = self.tracer
         t0 = time.perf_counter() if tr.active else 0.0
-        out = self._call(tuple(pad_rows(x, n, nb) for x in xs))
+        out = self._call(tuple(pad_rows(x, n, nb) for x in xs), model)
         out = tuple(o[:n] for o in out)
         if tr.active:
             tr.backend_span(self.trace_name or self.BACKEND_NAME,
@@ -388,7 +463,7 @@ class TorchBackend(FilterBackend):
         >= 16, which suits shape-polymorphic models whose output does not
         see the padding (global-pool classifiers). A model that refuses
         the batched shape runs region by region."""
-        self._adopt_shared()
+        model = self._held()
         rs = self._stage(regions)
         out: List[Any] = [None] * len(rs)
         groups: Dict[tuple, List[int]] = {}
@@ -405,14 +480,14 @@ class TorchBackend(FilterBackend):
             n, nb = len(arrs), next_pow2(len(arrs))
             stacked = shape[0] != 1
             batched = ((nb,) + shape) if stacked else ((nb,) + shape[1:])
-            if not self._batchable(((batched, arrs[0].dtype),)):
+            if not self._batchable(((batched, arrs[0].dtype),), model):
                 self.bucket_shapes.add(("seq",) + shape)
                 for i, a in zip(idxs, arrs):
-                    out[i] = self._call((a,))[0]
+                    out[i] = self._call((a,), model)[0]
                 continue
             self.bucket_shapes.add(("bat", nb) + shape)
             block = (torch.stack if stacked else torch.cat)(arrs, 0)
-            res = self._call((pad_rows(block, n, nb),))[0]
+            res = self._call((pad_rows(block, n, nb),), model)[0]
             for k, i in enumerate(idxs):
                 out[i] = res[k] if stacked else res[k:k + 1]
         return out
@@ -421,7 +496,8 @@ class TorchBackend(FilterBackend):
         """Hot model swap (is-updatable): the new model is resolved and
         its params staged on the device before the old ones are dropped.
         Through a shared key it updates the shared entry, so every holder
-        takes it up at its next invoke."""
+        takes it up at its next invoke. May run on another thread than
+        the invokes: it only swaps the model held (see `_held`)."""
         bundle = self._resolve(model)
         params = params_to(bundle.params, self.device)
         if self._shared is not None:
@@ -431,6 +507,52 @@ class TorchBackend(FilterBackend):
                 self._shared.version += 1
             self._adopt_shared()
             return
-        self._bundle, self._params = bundle, params
-        self._batch_ok.clear()
-        self._meta = None
+        self._hold(bundle, params)
+
+    # -- compiled windows --------------------------------------------------
+    def invoke_window(self, frames: Sequence[ArrayTuple]) -> List[ArrayTuple]:
+        """K same-signature frames as one compiled window → K output
+        tuples, bit for bit those of K invokes (see the module
+        docstring). The model is picked once, at the window's start."""
+        model = self._held()
+        key = (len(frames), tuple((tuple(x.shape), str(x.dtype))
+                                  for x in frames[0]))
+        on_card = self.device.type == "cuda"
+        g = self._graphs.get(key) if on_card else None  # raises if failed
+        staged = [self._stage(f) for f in frames]
+        t0 = time.perf_counter()
+        if on_card:
+            outs = self._window_on_card(model, key, g, staged)
+        else:
+            outs = [self._call(xs, model) for xs in staged]
+        self.window_invokes += 1
+        self.window_frames += len(staged)
+        tr = self.tracer
+        if tr.active:
+            tr.backend_span(self.trace_name or self.BACKEND_NAME,
+                            "invoke_window", t0, time.perf_counter(),
+                            frames=len(staged))
+        return outs
+
+    def _window_on_card(self, model, key, g,
+                        staged: List[ArrayTuple]) -> List[ArrayTuple]:
+        """Replay `g`, the graph of `key` for `model`; without one, run
+        the window eagerly (the warm-up a capture needs, and this
+        window's outputs) and capture it."""
+        flat = [x for xs in staged for x in xs]
+        with torch.inference_mode():
+            if g is not None:
+                outs = g.run(flat)
+                return [tuple(o.clone() for o in out) for out in outs]
+            outs = [self._call(xs, model) for xs in staged]
+            k, n_in = len(staged), len(staged[0])
+
+            def body(*flat):
+                return [self._call(tuple(flat[i * n_in:(i + 1) * n_in]),
+                                   model) for i in range(k)]
+
+            self._graphs.capture(
+                key, body, flat, keep=model[:2],
+                what=f"model {model[0].name!r} window K={k} inputs "
+                     f"{list(key[1])}")
+        return outs

@@ -55,6 +55,13 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
         "stall_budget_s": "30.0",
         "queue_stall_budget_s": "",
         "watchdog_action": "warn",
+        # the compiled steady-state loop (runtime/compiled_loop.py): after
+        # compiled_loop_arm identical-signature frames a tensor_filter's
+        # worker sweeps up to compiled_loop_window queued frames into one
+        # window (one CUDA-graph replay on the card)
+        "compiled_loop": "1",
+        "compiled_loop_window": "8",
+        "compiled_loop_arm": "4",
     },
     "build": {
         # directory the hand-written kernels are compiled into; empty =

@@ -162,10 +162,14 @@ class BoundingBoxes(DecoderSubplugin):
             rate=in_spec.rate)
 
     def device_aux(self):
-        # the anchors are an argument of the decode, moved to the device
-        # once, never a constant rebuilt per frame
+        # the anchors and the output scale are arguments of the decode,
+        # moved to the device once, never constants copied per frame (a
+        # CUDA-graph capture of the decode refuses that copy)
         return {"anchors": torch.from_numpy(
-            np.asarray(self._anchors, np.float32))}
+            np.asarray(self._anchors, np.float32)),
+            "scale": torch.tensor([self.out_h, self.out_w, self.out_h,
+                                   self.out_w, 1.0, 1.0],
+                                  dtype=torch.float32)}
 
     def _device_anchors(self, aux, device) -> torch.Tensor:
         anchors = (aux or {}).get("anchors")
@@ -182,9 +186,7 @@ class BoundingBoxes(DecoderSubplugin):
             score_thresh=self.score_thresh, iou_thresh=self.iou_thresh,
             top_k_out=self._top_k, nms=self._nms_mode)
         # host decoder emits output-pixel coordinates; match it
-        scale = torch.tensor([self.out_h, self.out_w, self.out_h, self.out_w,
-                              1.0, 1.0], dtype=torch.float32)
-        return (det * scale.to(det.device),)
+        return (det * aux["scale"],)
 
     # -- device compaction (tensor_decoder device=compact) ------------------
     def device_compact_check(self) -> None:

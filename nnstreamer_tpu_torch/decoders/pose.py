@@ -75,6 +75,12 @@ class PoseEstimation(DecoderSubplugin):
             TensorInfo((self._k, 3), DType.FLOAT32, name="keypoints"),
             rate=in_spec.rate)
 
+    def device_aux(self):
+        # the output scale is an argument of the decode, moved to the
+        # device once (a CUDA-graph capture refuses a copy per frame)
+        return {"scale": torch.tensor([self.out_w, self.out_h, 1.0],
+                                      dtype=torch.float32)}
+
     def device_decode(self, tensors, aux=None):
         from nnstreamer_tpu_torch.decoders.device import pose_decode_device
 
@@ -82,8 +88,7 @@ class PoseEstimation(DecoderSubplugin):
             tensors[0], tensors[1] if len(tensors) > 1 else None,
             in_h=self.in_h, in_w=self.in_w)
         # host decoder emits [x_px, y_px, score]; match it
-        scale = torch.tensor([self.out_w, self.out_h, 1.0], dtype=torch.float32)
-        return (kps * scale.to(kps.device),)
+        return (kps * aux["scale"],)
 
     def _keypoints(self, buf: TensorBuffer) -> np.ndarray:
         hm = np.asarray(buf.tensors[0])[0]          # (h, w, K)

@@ -35,6 +35,13 @@ combinations, per-invoke latency/throughput (:354-460), hot reload
   it with error-policy=skip or degrade.
 - At start() the runner's tracer is handed to the backend, whose invoke
   spans then land on this element's track.
+- **Compiled windows** (`compiled_loop`, default on; the scheduler's
+  [runtime] compiled_loop gates the whole mechanism): in steady state the
+  scheduler hands K queued frames to `process_window`, one backend
+  `invoke_window` (one CUDA-graph replay on the card), outputs bit for
+  bit those of K `process` calls. FLEXIBLE or micro-batched input, an
+  armed breaker, `latency-mode=sync` and a backend without
+  `invoke_window` (framework=pallas) keep the per-frame path.
 """
 
 from __future__ import annotations
@@ -128,6 +135,11 @@ class TensorFilter(Element):
             int, 0, "consecutive invoke failures to open the circuit (0=off)"),
         "breaker_cooldown_ms": PropDef(
             float, 1000.0, "open-circuit cooldown before the probe invoke"),
+        # per-element opt-out of the scheduler's compiled steady-state
+        # window (runtime/compiled_loop.py)
+        "compiled_loop": PropDef(
+            _prop_bool, True,
+            "allow the scheduler's compiled steady-state window"),
     }
 
     def __init__(self, name=None, **props):
@@ -318,7 +330,8 @@ class TensorFilter(Element):
         """Backend and breaker counters merged into this element's
         stats() row."""
         out = {}
-        for k in ("invoke_failures", "staging_transfers", "staging_elided"):
+        for k in ("invoke_failures", "staging_transfers", "staging_elided",
+                  "window_invokes", "window_frames", "window_compile_count"):
             v = getattr(self.backend, k, None)
             if v is not None:
                 out["backend_" + k] = v
@@ -445,6 +458,61 @@ class TensorFilter(Element):
         self._lat_window.append(time.perf_counter() - t0)
         self._invoke_count += 1
         return [(0, buf.with_tensors(tuple(outputs)))]
+
+    # -- compiled steady-state window (scheduler bypass) --------------------
+    def window_capable(self) -> bool:
+        """Whether the scheduler may serve this element's frames through
+        compiled windows. Excluded are the paths whose per-frame behavior
+        is not one fixed-shape invoke: FLEXIBLE and micro-batched input
+        (their own bucketing), an armed breaker (per-frame failure
+        accounting), sync latency mode (the point is a sync per frame),
+        and a backend without `invoke_window`."""
+        return (bool(self.props["compiled_loop"])
+                and self.backend is not None
+                and hasattr(self.backend, "invoke_window")
+                and not self._flexible
+                and not self._dyn_batched
+                and self._breaker is None
+                and self.props["latency_mode"] != "sync")
+
+    def swap_pending(self) -> bool:
+        """A reload this backend has not taken up yet (through another
+        holder of its shared key): the scheduler bails the window (cause
+        "swap") so the new model is adopted at a per-frame invoke."""
+        fn = getattr(self.backend, "swap_pending", None)
+        return bool(fn()) if fn is not None else False
+
+    def process_window(self, pad: int,
+                       bufs: List[TensorBuffer]) -> List[Emission]:
+        """K same-signature frames through ONE backend `invoke_window`.
+        Combinations and host-side chains apply per frame exactly as
+        `process()` applies them, so outputs are bit for bit those of K
+        `process` calls; only the launches change. A raise leaves all K
+        frames to the scheduler, which re-runs them per frame so the
+        error lands on the precise frame that faulted."""
+        frames = []
+        for buf in bufs:
+            inputs = buf.tensors
+            if self._in_combination is not None:
+                inputs = tuple(inputs[i] for i in self._in_combination)
+            if self._pre is not None and not self._fused_in_backend:
+                inputs = self._pre(inputs)
+            frames.append(tuple(inputs))
+        t0 = time.perf_counter()
+        outs = self.backend.invoke_window(frames)
+        per = (time.perf_counter() - t0) / len(bufs)
+        emissions: List[Emission] = []
+        for buf, outputs in zip(bufs, outs):
+            if self._post is not None and not self._fused_in_backend:
+                outputs = self._post(outputs)
+            self._lat_window.append(per)
+            self._invoke_count += 1
+            if self._out_combination is not None:
+                outputs = tuple(buf.tensors[idx] if kind == "i"
+                                else outputs[idx]
+                                for kind, idx in self._out_combination)
+            emissions.append((0, buf.with_tensors(tuple(outputs))))
+        return emissions
 
     # -- stats (the reference's latency/throughput props) ------------------
     @property

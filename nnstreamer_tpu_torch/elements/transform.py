@@ -200,6 +200,19 @@ class TransformProgram:
             b = scalar if scalar is not None else vec.astype(a.dtype)
             return combine(a, b).astype(a.dtype)
 
+        # per-channel operands, made once per (device, dtype) at the
+        # chain's first call there: no host-to-device copy per frame,
+        # which a CUDA-graph capture of the chain would also refuse
+        operands = {}
+
+        def operand(device, dtype):
+            b = operands.get((device, dtype))
+            if b is None:
+                host = vec.astype(np.int64) if dtype == torch.int64 else vec
+                b = operands[(device, dtype)] = torch.from_numpy(host).to(
+                    device, dtype)
+            return b
+
         def fn_torch(a):
             if _is_float(a.dtype):
                 # the scalar rounded to a's dtype first, as numpy and jnp
@@ -208,18 +221,18 @@ class TransformProgram:
                 if scalar is not None:
                     b = torch.tensor(scalar, dtype=a.dtype)
                 else:
-                    b = torch.from_numpy(vec).to(a.device, a.dtype)
+                    b = operand(a.device, a.dtype)
                 return combine(a, b)
             if promotes:
                 a = a.to(torch.float32)
-                b = scalar if scalar is not None else torch.from_numpy(
-                    vec).to(a.device)
+                b = scalar if scalar is not None else operand(
+                    a.device, torch.float32)
                 return combine(a, b)
             # integer op on an integer tensor: exact in int64, then the
             # cast back wraps like numpy's (a float → int cast saturates
             # on CUDA, so the result is never taken through a float)
-            b = int(scalar) if scalar is not None else torch.from_numpy(
-                vec.astype(np.int64)).to(a.device)
+            b = int(scalar) if scalar is not None else operand(
+                a.device, torch.int64)
             return combine(a.to(torch.int64), b).to(a.dtype)
 
         def fn(a):

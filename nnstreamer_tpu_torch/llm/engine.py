@@ -20,6 +20,14 @@ draws from a per-request seeded Generator, so a request's tokens do not
 depend on its batchmates. Host syncs are batched: every prefill or chunk
 launched in a step returns device logits, resolved together by one
 `runtime.sync` read-back, plus one for the decode batch.
+
+``decode_window=K`` (0, the default, disables it): when the batch is in
+steady state — nothing queued or prefilling, every live row greedy — up
+to K decode steps run as one window (`executor.decode_multi`: one
+CUDA-graph replay on the card, the token fed back by an on-device
+argmax), K rounded down to a power of two and never past any row's
+remaining budget. Tokens equal the per-step path's; they arrive in
+window-sized bursts, which the inter-token percentiles show.
 """
 
 from __future__ import annotations
@@ -106,10 +114,10 @@ class LLMEngine:
         self.max_batch = int(max_batch)
         self.static = bool(static_batching)
         self.prefill_chunk = int(prefill_chunk)
-        if int(decode_window) != 0:
+        self.decode_window = int(decode_window)
+        if self.decode_window < 0:
             raise BackendError(
-                f"decode_window={decode_window}: the compiled decode window "
-                f"(executor.decode_multi) is not ported yet; use 0")
+                f"decode_window must be >= 0, got {self.decode_window}")
         if self.prefill_chunk < 0:
             raise BackendError(
                 f"prefill_chunk must be >= 0, got {self.prefill_chunk}")
@@ -134,6 +142,8 @@ class LLMEngine:
         self.tokens_out = 0
         self.steps = 0
         self.admission_blocked = 0
+        self.decode_windows = 0
+        self.window_tokens = 0
         self._first_ms: List[float] = []
         self._itl_ms: List[float] = []
 
@@ -284,9 +294,47 @@ class LLMEngine:
             done = self._maybe_finish(req, tok)
             events.append(TokenEvent(req, [tok], done))
 
+    def _window_len(self, live: List[LLMRequest]) -> int:
+        """How many decode steps may run as one window now: 1 means the
+        per-step path, >= 2 `decode_multi`. Pending admissions and
+        prefills re-form the batch every step, a sampled row needs the
+        host's generator every token, sharded decode stays per step, and
+        a window never outruns a row's remaining budget (a row that meets
+        EOS early has its later tokens discarded). Rounded down to a
+        power of two so each batch bucket holds log2(window) graphs."""
+        if self.decode_window < 2 or self.queue or self.prefilling:
+            return 1
+        if self.executor.shards:
+            return 1
+        if any(r.temperature > 0.0 for r in live):
+            return 1
+        k = min(self.decode_window,
+                min(r.max_new_tokens - len(r.tokens) for r in live))
+        if k < 2:
+            return 1
+        return 1 << (k.bit_length() - 1)
+
     def _decode(self, events: List[TokenEvent]) -> None:
         live = [r for r in self.active if r.state == "active"]
         if not live:
+            return
+        k = self._window_len(live)
+        if k >= 2:
+            toks = self.executor.decode_multi(
+                [r.tokens[-1] for r in live],
+                [r.block_table for r in live],
+                [r.pos for r in live], k)
+            self.decode_windows += 1
+            for j in range(k):
+                for i, req in enumerate(live):
+                    if req.state != "active":
+                        continue   # retired mid-window: discard its tail
+                    req.pos += 1
+                    tok = int(toks[i, j])
+                    self._record_token(req, tok)
+                    done = self._maybe_finish(req, tok)
+                    events.append(TokenEvent(req, [tok], done))
+                    self.window_tokens += 1
             return
         logits = self.executor.decode(
             [r.tokens[-1] for r in live],
@@ -370,9 +418,9 @@ class LLMEngine:
             "admission_blocked": self.admission_blocked,
             "scheduling": "static" if self.static else "continuous",
             "prefill_chunk": self.prefill_chunk,
-            "decode_window": 0,
-            "decode_windows": 0,
-            "window_tokens": 0,
+            "decode_window": self.decode_window,
+            "decode_windows": self.decode_windows,
+            "window_tokens": self.window_tokens,
             "cache": self.cache.stats(),
             "executor": self.executor.stats(),
         }

@@ -40,6 +40,7 @@ class Channel:
       ``(item, depth)``; ``(CLOSED, 0)`` once the channel is closed and
       drained; ``(TIMED_OUT, 0)`` when the ``time.perf_counter()``
       deadline passes first.
+    - ``get_nowait()`` never blocks (the compiled loop's sweep).
     """
 
     __slots__ = ("_buf", "_cap", "_closed", "_lock", "_not_empty",
@@ -77,6 +78,18 @@ class Channel:
                 if remaining <= 0.0:
                     return TIMED_OUT, 0
                 self._not_empty.wait(remaining)
+            item = self._buf.popleft()
+            self._not_full.notify()
+            return item, len(self._buf)
+
+    def get_nowait(self) -> Tuple[Any, int]:
+        """Non-blocking get for a compiled window's sweep: ``(item,
+        depth)`` when an item is buffered, ``(CLOSED, 0)`` when closed and
+        drained, ``(TIMED_OUT, 0)`` when merely empty. Never sleeps, so a
+        slow producer never stalls the window boundary."""
+        with self._not_empty:
+            if not self._buf:
+                return (CLOSED, 0) if self._closed else (TIMED_OUT, 0)
             item = self._buf.popleft()
             self._not_full.notify()
             return item, len(self._buf)

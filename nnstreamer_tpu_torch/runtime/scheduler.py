@@ -36,14 +36,21 @@ double-buffered, so a filter's device work overlaps upstream conversion.
 - Timers: a worker bounds its channel wait by its element's
   `next_deadline()` and fires `on_timer()` when it passes with no input
   (tensor_llm runs one serving step per fire).
+- Compiled steady-state loop ([runtime] compiled_loop, default on):
+  after `compiled_loop_arm` identical-signature frames a fail-fast
+  tensor_filter's worker sweeps up to `compiled_loop_window` frames
+  already queued into one window (`process_window`; one CUDA-graph
+  replay on the card), rounded down to a power of two; shape changes,
+  errors, pending swaps, armed timers and EOS bail back to per-frame
+  mode, counted by cause (runtime/compiled_loop.py). Fused chains never
+  enter a window.
 - Observability: always-on `ElementStats` per element (`stats()`,
   `report()`); with `trace=True` a recording `Tracer` gets every hook,
   each behind one `if tracer.active:` test (runtime/tracing.py says how
   to read host spans of device work).
 
-The JAX package's device segments and compiled steady-state loop are
-not ported yet, so neither their runner knobs nor their report sections
-exist here.
+The JAX package's device segments are not ported yet, so neither their
+runner knob nor their report section exists here.
 """
 
 from __future__ import annotations
@@ -59,6 +66,8 @@ from nnstreamer_tpu_torch.core.errors import (
 from nnstreamer_tpu_torch.core.log import get_logger
 from nnstreamer_tpu_torch.graph.pipeline import Element, Link, Pipeline, SourceElement
 from nnstreamer_tpu_torch.runtime.channel import CLOSED, TIMED_OUT, Channel
+from nnstreamer_tpu_torch.runtime.compiled_loop import (
+    LoopStats, SteadyStateDetector, frame_signature)
 from nnstreamer_tpu_torch.runtime.sync import device_sync
 from nnstreamer_tpu_torch.runtime.tracing import NULL_TRACER, Tracer
 from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
@@ -171,7 +180,9 @@ class PipelineRunner:
     Tracer, or a tracer object), `max_consecutive_errors` (100; 0 never
     escalates), `watchdog` (on), `stall_budget_s` (30.0),
     `queue_stall_budget_s` (= stall_budget_s), `watchdog_action` (warn |
-    fail), `chain_fusion` (on), `max_inflight` (8), `queue_capacity` (4).
+    fail), `chain_fusion` (on), `max_inflight` (8), `queue_capacity` (4),
+    `compiled_loop` (on), `compiled_loop_window` (8, at least 2),
+    `compiled_loop_arm` (4).
     """
 
     def __init__(self, pipeline: Pipeline, queue_capacity: Optional[int] = None,
@@ -182,7 +193,10 @@ class PipelineRunner:
                  queue_stall_budget_s: Optional[float] = None,
                  watchdog_action: Optional[str] = None,
                  chain_fusion: Optional[bool] = None,
-                 max_inflight: Optional[int] = None):
+                 max_inflight: Optional[int] = None,
+                 compiled_loop: Optional[bool] = None,
+                 compiled_loop_window: Optional[int] = None,
+                 compiled_loop_arm: Optional[int] = None):
         self.pipeline = pipeline
         self._optimize = optimize
         if hasattr(trace, "active"):
@@ -200,6 +214,21 @@ class PipelineRunner:
         if chain_fusion is None:
             chain_fusion = cfg.get_bool("runtime", "chain_fusion", True)
         self._chain_fusion = bool(chain_fusion)
+        # compiled steady-state loop: arm after N identical-signature
+        # frames, then sweep <= K queued frames into one window
+        if compiled_loop is None:
+            compiled_loop = cfg.get_bool("runtime", "compiled_loop", True)
+        self._compiled_loop = bool(compiled_loop)
+        if compiled_loop_window is None:
+            compiled_loop_window = cfg.get_int(
+                "runtime", "compiled_loop_window", 8)
+        self._loop_window = max(2, compiled_loop_window)
+        if compiled_loop_arm is None:
+            compiled_loop_arm = cfg.get_int("runtime", "compiled_loop_arm", 4)
+        self._loop_arm = max(1, compiled_loop_arm)
+        # element name -> LoopStats, only for elements whose worker runs
+        # with the loop on
+        self._loop_stats: Dict[str, LoopStats] = {}
         # head name -> ordered members; member name -> head name (built
         # in start(), after transform fusion)
         self._chains: Dict[str, List[Element]] = {}
@@ -392,13 +421,17 @@ class PipelineRunner:
             extra = getattr(e, "extra_stats", None)
             if extra is not None:
                 d.update(extra())
+            ls = self._loop_stats.get(name)
+            if ls is not None:
+                # loop_entries / compiled_steps / loop_bails{cause}
+                d.update(ls.snapshot())
             out[name] = d
         return out
 
     def report(self) -> str:
         """Human-readable observability report: per-element proctime
         table (heaviest first), fused chains, per-link queue high-water
-        marks, robustness counters and — when tracing is on —
+        marks, micro-batching, compiled windows, robustness counters and — when tracing is on —
         interlatency per element (sinks marked: the sink rows are the
         end-to-end latency), forced syncs and in-flight window peaks,
         then backend counters and model swaps."""
@@ -443,6 +476,21 @@ class PipelineRunner:
                     f"{d['occupancy_hist']} avg {d['occupancy_avg']:.2f}; "
                     f"flushes full={d['flush_full']} "
                     f"deadline={d['flush_deadline']} eos={d['flush_eos']}")
+        loops = [(name, ls) for name, ls in sorted(self._loop_stats.items())
+                 if ls.entries or ls.steps or ls.bails]
+        if loops:
+            lines.append("")
+            lines.append("compiled steady-state windows (scheduler "
+                         "bypass, [runtime] compiled_loop):")
+            for name, ls in loops:
+                total = st.get(name, {}).get("buffers", 0)
+                share = 100.0 * ls.steps / total if total else 0.0
+                bails = " ".join(f"{c}={ls.bails[c]}"
+                                 for c in sorted(ls.bails)) or "none"
+                lines.append(
+                    f"  {name}: windows={ls.entries} "
+                    f"compiled_frames={ls.steps} ({share:.0f}% of "
+                    f"{total}) bails: {bails}")
         rob = [(name, d) for name, d in sorted(st.items())
                if any(d.get(k) for k in
                       ("errors", "retries", "skipped", "degraded",
@@ -919,6 +967,140 @@ class PipelineRunner:
             self._fail(src, e)
             self._try_eos(src)
 
+    def _run_compiled_window(self, elem, ch: Channel, stats: ElementStats,
+                             lstats: LoopStats,
+                             detector: SteadyStateDetector,
+                             pending: deque, window, tr, pad: int, item,
+                             t_enq: float, sig) -> bool:
+        """One compiled steady-state window attempt, starting at `item`
+        (detector already armed). True when the frame was consumed here —
+        a window ran, or its frames went back through `pending` for the
+        per-frame path; False when the caller must process `item` per
+        frame (entry bail, or fewer than two matching frames queued).
+
+        Stats reconcile exactly on every path: a K-frame window records
+        K buffers of dt/K each (and per-frame queue waits and tracer
+        process spans); an errored window re-runs its frames per frame
+        so the error policy lands on the precise frame that faulted."""
+        now = time.perf_counter()
+        # entry bails: state a window must not bake in. Both are
+        # transient — the detector stays armed and the next frame retries
+        # (swap adoption and timer fires happen per frame)
+        if elem.swap_pending():
+            lstats.bail("swap")
+            if tr.active:
+                tr.record_loop_bail(elem.name, "swap", now)
+            return False
+        if elem.next_deadline() is not None:
+            lstats.bail("timer")
+            if tr.active:
+                tr.record_loop_bail(elem.name, "timer", now)
+            return False
+        batch = [(pad, item, t_enq)]
+        eos_msg = None
+        parked = None
+        while len(batch) < self._loop_window:
+            m, d = ch.get_nowait()
+            if m is TIMED_OUT or m is CLOSED:
+                break      # channel empty or closed: run what we have
+            if tr.active:
+                tr.dequeue(elem.name, d, time.perf_counter())
+            p2, it2, _ = m
+            if it2 is EOS:
+                # the partial window runs first, then the EOS cascades
+                # through the ordinary path (flush + in-flight drain)
+                eos_msg = m
+                lstats.bail("eos")
+                if tr.active:
+                    tr.record_loop_bail(elem.name, "eos",
+                                        time.perf_counter())
+                detector.reset()
+                break
+            if p2 != pad or frame_signature(it2) != sig:
+                # divergent frame: parked for the per-frame path after
+                # this window; the streak restarts behind it
+                parked = m
+                lstats.bail("shape")
+                if tr.active:
+                    tr.record_loop_bail(elem.name, "shape",
+                                        time.perf_counter())
+                detector.reset()
+                break
+            batch.append(m)
+        if len(batch) < 2:
+            # a window of one is the per-frame path with extra steps
+            if parked is not None:
+                pending.append(parked)
+            if eos_msg is not None:
+                pending.append(eos_msg)
+            return False
+        # power-of-two round-down: each K is its own captured graph, so
+        # {2, 4, 8} bounds a signature's graphs to log2(window); the
+        # remainder runs per frame through `pending`
+        k = 1 << (len(batch).bit_length() - 1)
+        leftover = batch[k:]
+        batch = batch[:k]
+        t0 = time.perf_counter()
+        for _, _, te in batch:
+            if te:
+                stats.record_wait(t0 - te)
+        self._inflight[elem.name] = time.monotonic()
+        try:
+            emissions = elem.process_window(pad, [m[1] for m in batch])
+        except Exception as e:
+            # re-run every frame per frame so the error (and the
+            # fail-fast policy) lands on the precise frame that faulted —
+            # frames before it still emit. t_enq zeroed: the queue wait
+            # is already counted. The element's first failed window is
+            # a warning; later ones (a capture that keeps failing) show
+            # in the error bails and at debug level
+            lstats.bail("error")
+            say = log.warning if lstats.bails["error"] == 1 else log.debug
+            say("element %s: a window of %d frames failed (%s); they re-run "
+                "per frame", elem.name, k, e)
+            if tr.active:
+                tr.record_loop_bail(elem.name, "error", time.perf_counter())
+            detector.reset()
+            rerun = [(p, it, 0.0) for p, it, _ in batch]
+            rerun.extend(leftover)
+            if parked is not None:
+                rerun.append(parked)
+            if eos_msg is not None:
+                rerun.append(eos_msg)
+            pending.extendleft(reversed(rerun))
+            return True
+        finally:
+            self._inflight.pop(elem.name, None)
+        t1 = time.perf_counter()
+        lstats.entries += 1
+        lstats.steps += k
+        per = (t1 - t0) / k
+        for i, m in enumerate(batch):
+            stats.record(per)
+            if tr.active:
+                tr.record_process(elem.name, m[1], t0 + i * per,
+                                  t0 + (i + 1) * per)
+        if tr.active:
+            tr.record_compiled_window(elem.name, k, t0, t1)
+        self._consec_errors = 0
+        for sp, b in emissions:
+            self._emit(elem, sp, b)
+            if window is not None and isinstance(b, TensorBuffer) \
+                    and b.on_device:
+                window.append(b.tensors)
+        if window:
+            while len(window) > self._max_inflight:
+                device_sync(window.popleft(), forced=False)
+            if tr.active:
+                tr.record_inflight(elem.name, len(window),
+                                   time.perf_counter())
+        pending.extend(leftover)
+        if parked is not None:
+            pending.append(parked)
+        if eos_msg is not None:
+            pending.append(eos_msg)
+        return True
+
     def _work(self, elem: Element) -> None:
         ch = self._queues[elem.name]
         n_pads = max(1, len(self.pipeline.links_to(elem)))
@@ -930,6 +1112,21 @@ class PipelineRunner:
         # downstream with their device work still queued; this worker
         # syncs the OLDEST once more than max_inflight are live
         window = deque() if elem.DEVICE_RESIDENT else None
+        # compiled steady-state loop: only fail-fast elements whose
+        # window_capable() holds (tensor_filter with a window-capable
+        # backend); every other element pays one probe at thread start
+        loop_on = (self._compiled_loop and policy.kind == "fail"
+                   and getattr(elem, "window_capable", None) is not None
+                   and elem.window_capable())
+        detector = SteadyStateDetector(self._loop_arm) if loop_on else None
+        lstats = None
+        if loop_on:
+            lstats = self._loop_stats[elem.name] = LoopStats()
+        # frames taken off the channel but handed back by a window bail
+        # (a divergent frame, an error re-run, a trailing EOS): consumed
+        # in order before the channel is read again, and never re-enter
+        # a window, so order is kept by construction
+        pending: deque = deque()
         try:
             while not self._stop_evt.is_set():
                 # deadline-aware wait: the channel wait ends at the
@@ -946,13 +1143,19 @@ class PipelineRunner:
                             tr.record_timer(elem.name, now,
                                             time.perf_counter())
                         continue
-                msg, depth = ch.get(deadline)
-                if msg is CLOSED:  # teardown wakeup (stop()/_fail())
-                    return
-                if msg is TIMED_OUT:  # deadline due: fire on the next turn
-                    continue
-                if tr.active:
-                    tr.dequeue(elem.name, depth, time.perf_counter())
+                if pending:
+                    # bailed-window frames: already dequeued and traced
+                    msg = pending.popleft()
+                    from_pending = True
+                else:
+                    msg, depth = ch.get(deadline)
+                    if msg is CLOSED:  # teardown wakeup (stop()/_fail())
+                        return
+                    if msg is TIMED_OUT:  # deadline due: fire next turn
+                        continue
+                    if tr.active:
+                        tr.dequeue(elem.name, depth, time.perf_counter())
+                    from_pending = False
                 pad, item, t_enq = msg
                 if item is EOS:
                     eos_pads.add(pad)
@@ -978,8 +1181,17 @@ class PipelineRunner:
                         self._broadcast_eos(elem)
                         return
                     continue
+                # bail-parked frames never re-enter a window (that would
+                # reorder them past frames still in `pending`)
+                if detector is not None and not from_pending:
+                    sig = frame_signature(item)
+                    if detector.observe(sig) and self._run_compiled_window(
+                            elem, ch, stats, lstats, detector, pending,
+                            window, tr, pad, item, t_enq, sig):
+                        continue
                 t0 = time.perf_counter()
-                stats.record_wait(t0 - t_enq)
+                if t_enq:
+                    stats.record_wait(t0 - t_enq)
                 if policy.kind == "fail":
                     # hot path: one watchdog stamp on either side
                     self._inflight[elem.name] = time.monotonic()

@@ -41,8 +41,8 @@ drops, errors, watchdog warnings and forced syncs.
 Not ported yet (the hooks exist on `NullTracer`, and so on `Tracer`, as
 no-ops with the JAX package's signatures): the request-scoped hop and
 request records, worker shipping (`ship_delta`/`ingest_child`), admission
-sheds and worker events (the pool and edge, slice 7); compiled-window
-and loop-bail records (the compiled loop); autotuner decisions.
+sheds and worker events (the pool and edge, slice 7); autotuner
+decisions.
 """
 
 from __future__ import annotations
@@ -259,6 +259,13 @@ class Tracer(NullTracer):
         self._kernel_spans: Dict[Tuple[str, str], int] = {}
         # element name -> {"peak": max async in-flight depth sampled}
         self._inflight: Dict[str, Dict[str, int]] = {}
+        # element name -> {"windows": n, "frames": n} compiled
+        # steady-state windows (runtime/compiled_loop.py): kept whole so
+        # the compiled-window share survives ring wrap
+        self._compiled: Dict[str, Dict[str, int]] = {}
+        # element name -> {cause: count} of armed windows that fell back
+        # to per-frame mode (kept whole for the same reason)
+        self._loop_bails: Dict[str, Dict[str, int]] = {}
         # element name -> cumulative proctime histogram (seconds)
         self._hists: Dict[str, _Hist] = {}
         # element name -> {kind: count} of watchdog warnings: kept whole
@@ -405,6 +412,37 @@ class Tracer(NullTracer):
 
     def inflight_gauges(self) -> Dict[str, dict]:
         return {name: dict(g) for name, g in self._inflight.items()}
+
+    def record_compiled_window(self, name: str, k: int, t0: float,
+                               t1: float) -> None:
+        """One compiled steady-state window (runtime/compiled_loop.py):
+        `k` frames served by one backend invoke_window (one CUDA-graph
+        replay on the card). Counted wrap-proof per element."""
+        c = self._compiled.get(name)
+        if c is None:
+            c = self._compiled[name] = {"windows": 0, "frames": 0}
+        c["windows"] += 1
+        c["frames"] += int(k)
+        self._append("X", "element", name, "compiled_window", t0,
+                     t1 - t0, {"frames": int(k)})
+
+    def compiled_windows(self) -> Dict[str, Dict[str, int]]:
+        """Per-element {"windows": n, "frames": n} totals (wrap-proof)."""
+        return {name: dict(c) for name, c in self._compiled.items()}
+
+    def record_loop_bail(self, name: str, cause: str, t: float) -> None:
+        """An armed compiled window fell back to per-frame mode; cause is
+        one of compiled_loop.BAIL_CAUSES."""
+        c = self._loop_bails.get(name)
+        if c is None:
+            c = self._loop_bails[name] = {}
+        c[cause] = c.get(cause, 0) + 1
+        self._append("i", "element", name, f"loop_bail_{cause}", t,
+                     0.0, None)
+
+    def loop_bails(self) -> Dict[str, Dict[str, int]]:
+        """Per-element {cause: count} bail totals (wrap-proof)."""
+        return {name: dict(c) for name, c in self._loop_bails.items()}
 
     def record_flight(self, kind: str, t: float, **args) -> None:
         """One flight-recorder dump; args carry the bundle path and

@@ -10,7 +10,8 @@ heads). Around it: the transformer itself, allocator invariants,
 admission under a full pool, unservable requests, EOS retirement, static
 batching, a store hot swap, the element end to end, the scheduler's
 timer contract, and the port's refusals (no card and no CPU request,
-a shard group wider than the visible devices, the decode window). A
+a shard group wider than the visible devices, a negative decode
+window). A
 W8A8 store version (models/quant.quantize_transformer) is served through
 tensor_llm and held to the JAX package's LLMEngine on the same quantized
 params; a swap from the float version to it reroutes whole prompts
@@ -330,7 +331,7 @@ def test_no_card_and_no_cpu_request_raises(params, monkeypatch):
     # one logical device here: a 2-way group names the fix
     ({"shards": 2}, "virtual_devices"),
     ({"ring_prefill_min": 64}, "needs shards"),
-    ({"decode_window": 4}, "decode window"),
+    ({"decode_window": -1}, "decode_window must be >= 0"),
     ({"paged_kernel": "triton"}, "paged_kernel")])
 def test_engine_refuses_unported_options(params, kw, match):
     with pytest.raises(BackendError, match=match):

@@ -94,8 +94,11 @@ def _sleepy(ts):
 
 def _run(pkg, desc, timeout=60, **kw):
     p = pkg.parse_launch(desc)
-    if pkg is jnns:   # the JAX package's scheduler bypasses, off
-        kw = {"compiled_loop": False, "device_segments": False, **kw}
+    # the scheduler bypasses off: the JAX package's device segments and
+    # both packages' compiled loop (per-frame spans are compared)
+    kw = {"compiled_loop": False, **kw}
+    if pkg is jnns:
+        kw = {"device_segments": False, **kw}
     runner = pkg.PipelineRunner(p, trace=True, **kw).start()
     try:
         runner.wait(timeout)
@@ -153,9 +156,16 @@ class TestTracerCore:
             assert t.ship_delta() is None
             t.ingest_child(0, 1, {})
             t.record_request("svc", "id", [], 0.0)
-            t.record_compiled_window("f", 4, 0.0, 1.0)
             t.record_autotune("svc", "knob", 0.0)
-            assert t.compiled_windows() == {} and t.tenant_summary() == {}
+            assert t.tenant_summary() == {}
+        # the compiled loop's hooks (ported): no-ops on the null tracer,
+        # recorded on the recording one as the JAX package's Tracer does
+        for t, j in ((NULL_TRACER, jtr.NULL_TRACER), (Tracer(), jtr.Tracer())):
+            for tr in (t, j):
+                tr.record_compiled_window("f", 4, 0.0, 1.0)
+                tr.record_loop_bail("f", "eos", 0.0)
+            assert (t.compiled_windows(), t.loop_bails()) == \
+                (j.compiled_windows(), j.loop_bails())
 
     def test_percentile_matches_jax(self):
         vals = sorted(float(i) for i in range(1, 101))
@@ -374,7 +384,7 @@ class TestChromeTrace:
             p = pkg.parse_launch(desc)
             p.get("model").set_props(model=model)
             kw = ({"compiled_loop": False, "device_segments": False}
-                  if pkg is jnns else {})
+                  if pkg is jnns else {"compiled_loop": False})
             runner = pkg.PipelineRunner(p, trace=True, **kw)
             runner.run(120)
             runs[pkg] = (p, runner)
