@@ -6,6 +6,7 @@
     python3 chip_smoke.py --slice6    # phases 1, 2 and 24-26 only
     python3 chip_smoke.py --batching  # phases 1, 2, 27 and 28 only
     python3 chip_smoke.py --window    # phases 1, 2, 29 and 30 only
+    python3 chip_smoke.py --modelio   # phases 1, 2 and 31-33 only
 
 Needs one CUDA card, nvcc and the repository checkout around this file;
 imports nothing of JAX. On a machine with several cards, phases 21-22
@@ -237,7 +238,32 @@ phases there). Phases:
    (busy share, cudaLaunchKernel and cudaGraphLaunch calls,
    paged_decode_attn launches = 4 x decode steps = the profiler's
    records, replays counted; the (b_b, steps) graphs held); W8A8 bf16
-   tokens identical with 17 quantize_rows launches per step and chunk.
+   tokens identical with 17 quantize_rows launches per step and chunk;
+31. model files (nnstreamer_tpu_torch/tools/tflite_fixture.py writes
+   config 1's MobileNetV2 1.0 at 224², 1001 classes, zoo://mobilenet_v2's
+   seed-0 params with BN folded, into a temporary directory: F float32,
+   Q uint8 calibrated on 8 seeded frames, the WHILE counter, and m.npz
+   through the port's save_params): F (`tensor_filter
+   framework=tensorflow-lite model=mbv2_float.tflite` after the
+   normalize_u8 filter) in f32 (TF32 off) within 1e-3 of max |logit| of
+   its CPU run and of zoo://mobilenet_v2 on the card, labels equal; F in
+   its default bf16 with normalize_u8 launched once a frame (wrapper and
+   profiler, profiled_agreement) and its labels against f32 printed; Q
+   through custom=dtype=int8 (uint8 frames straight in) bit for bit its
+   CPU run over 16 frames, Q under dtype=bfloat16 against it printed;
+   model=m.npz bit for bit the zoo bundle; F behind tensor_batch
+   max-batch=8: one invoke a frame (the file's baked batch), labels equal
+   to unbatched F's;
+32. B (zoo), F, Q int8-native and Q under bf16 live at once: closed-loop
+   latency p50/p99 frame by frame in turns, then bursts of 200 frames in
+   turns a b b a with compiled windows off and on (frames/s, latency under
+   the burst, CUDA kernels and kernel time a frame from a profiled burst,
+   the card's busy share); F's and Q's windows bit for bit their per-frame
+   runs (64 frames);
+33. the WHILE counter (a LESS cond subgraph, an ADD/MUL body) on the card,
+   32 frames pushed at once: its window captures refused by the WHILE op
+   (one attempt a window size, remembered, one warning, "error" bails),
+   the frames run per frame, outputs bit for bit the CPU's.
 
 Each kernel's timing phase (6, 10, 15, 16, 23) also prints its time per
 call from Python, back to back — the host's time (the launch path's own
@@ -252,13 +278,15 @@ and no result line is printed. Without a CUDA device, or run outside the
 checkout, it exits non-zero at once. A JSON record of the run goes to
 chiprun_out/chip_smoke.json (chip_smoke_slice4.json with --slice4,
 chip_smoke_slice6.json with --slice6, chip_smoke_batching.json with
---batching, chip_smoke_window.json with --window).
+--batching, chip_smoke_window.json with --window,
+chip_smoke_modelio.json with --modelio).
 """
 
 from __future__ import annotations
 
 import gc
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -3551,8 +3579,9 @@ def burst_arms(nt, torch, descs, frame, n, bursts, prof_frames=48,
     n frames pushed at once into one arm at a time, arms in turns a b b
     a: frames/s from the first push to the last arrival, and each frame's
     latency from its push to its arrival at the sink. Last, one profiled
-    burst of prof_frames an arm: CUDA kernel time per frame. → {arm:
-    {"fps": [...], "lat": [ms...], "device_ms_per_frame": x}}."""
+    burst of prof_frames an arm: CUDA kernel time and kernel records per
+    frame. → {arm: {"fps": [...], "lat": [ms...], "device_ms_per_frame":
+    x, "kernels_per_frame": n}}."""
     from torch.profiler import ProfilerActivity, profile
 
     from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
@@ -3606,9 +3635,10 @@ def burst_arms(nt, torch, descs, frame, n, bursts, prof_frames=48,
                 burst(arm, prof_frames)
                 torch.cuda.synchronize()
                 close_capture(torch)
+            evs = kernel_events(prof)
             res[arm]["device_ms_per_frame"] = sum(
-                e.time_range.elapsed_us()
-                for e in kernel_events(prof)) / 1e3 / prof_frames
+                e.time_range.elapsed_us() for e in evs) / 1e3 / prof_frames
+            res[arm]["kernels_per_frame"] = len(evs) / prof_frames
         for pipe, runner, _ in live.values():
             pipe.get("src").end()
             runner.wait(60)
@@ -4417,6 +4447,398 @@ def window_phases(nt, torch, card, record, phases, ctx) -> None:
     phases.done("30 (LLM decode window)")
 
 
+# -- 31-33. model-file ingestion -------------------------------------------------
+
+#: phase 31: frames for F's f32 checks, Q's bit-for-bit check and the
+#: micro-batched run; phase 32: closed-loop frames an arm (after warm-up)
+MODELIO_F32_FRAMES, MODELIO_Q_FRAMES, MODELIO_BATCH_FRAMES = 8, 16, 24
+MODELIO_LAT, MODELIO_WARMUP, MODELIO_WINDOW_FRAMES = 40, 5, 64
+#: phase 33: frames pushed at once through the WHILE model
+WHILE_FRAMES = 32
+
+
+def write_model_files(torch, out_dir: Path) -> dict:
+    """Config 1's model as files (tools/tflite_fixture.py): MobileNetV2
+    1.0 at 224², 1001 classes, from zoo://mobilenet_v2's seed 0 (f32
+    params), float32 and uint8 (calibrated on the CPU over 8 seeded
+    frames); the WHILE counter; and m.npz, the zoo model through the
+    port's save_params. → {name: path} plus the f32 zoo module."""
+    from nnstreamer_tpu_torch.modelio import save_params
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import build
+    from nnstreamer_tpu_torch.tools import tflite_fixture as fx
+
+    t0 = time.perf_counter()
+    model = build(dtype="float32", seed=0).params
+    files = {"F": out_dir / "mbv2_float.tflite",
+             "Q": out_dir / "mbv2_quant.tflite",
+             "W": out_dir / "while_counter.tflite",
+             "npz": out_dir / "m.npz"}
+    fx.write_mobilenet_v2(model, files["F"])
+    fx.write_mobilenet_v2(model, files["Q"], quant=True)
+    fx.write_while_counter(files["W"])
+    save_params(str(files["npz"]), "zoo://mobilenet_v2", model)
+    print(f"phase 31: wrote " + ", ".join(
+        f"{f.name} ({f.stat().st_size} B)" for f in files.values())
+        + f" in {time.perf_counter() - t0:.2f} s")
+    return {k: str(v) for k, v in files.items()}
+
+
+def f_model(files, extra: str = "", name: str = "model") -> str:
+    return (f"tensor_filter name={name} framework=tensorflow-lite "
+            f"model={files['F']}{extra}")
+
+
+def q_model(files, dtype: str = "int8", name: str = "model") -> str:
+    return (f"tensor_filter name={name} framework=tensorflow-lite "
+            f"model={files['Q']} custom=dtype={dtype}")
+
+
+def logits_of(results):
+    return np.stack([np.asarray(r.tensors[0]) for r in results])
+
+
+def modelio_correctness(nt, torch, card, record, files) -> None:
+    """Phase 31: F against the CPU and the zoo model (f32, TF32 off), its
+    bf16 labels, normalize_u8 once a frame; Q int8-native bit for bit its
+    CPU run, Q under bf16; the .npz round trip; F micro-batched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.backends import kernels
+
+    res = {}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    frames = u8_frames((1, 224, 224, 3), MODELIO_F32_FRAMES, 31)
+    f32 = " custom=dtype=float32"
+    card_f = logits_of(run_desc(
+        nt, f"{APPSRC} ! {NORM_B} ! {f_model(files, f32)} ! "
+            f"tensor_sink name=out", frames))
+    cpu_f = logits_of(run_desc(
+        nt, f"{APPSRC} ! {NORM_B} accelerator=cpu ! "
+            f"{f_model(files, f32 + ' accelerator=cpu')} ! "
+            f"tensor_sink name=out", frames))
+    zoo = logits_of(run_desc(
+        nt, f"{APPSRC} ! {NORM_B} ! {MODEL}?dtype=float32 ! "
+            f"tensor_sink name=out", frames))
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    scale = float(np.abs(cpu_f).max())
+    err_cpu = float(np.abs(card_f - cpu_f).max()) / scale
+    err_zoo = float(np.abs(card_f - zoo).max()) / float(np.abs(zoo).max())
+    labels = [card_f.argmax(-1).ravel(), cpu_f.argmax(-1).ravel(),
+              zoo.argmax(-1).ravel()]
+    same_labels = all(np.array_equal(labels[0], lab) for lab in labels[1:])
+    res["F_f32"] = {"frames": len(frames), "rel_err_cpu": err_cpu,
+                    "rel_err_zoo": err_zoo, "labels_equal": same_labels,
+                    "shape": list(card_f.shape[1:])}
+    print(f"phase 31: F (mbv2_float.tflite, f32, TF32 off) on the card, "
+          f"{len(frames)} frames: logits within {err_cpu:.3e} of max "
+          f"|logit| of the CPU run and {err_zoo:.3e} of zoo://mobilenet_v2 "
+          f"(same params, BN unfolded) on the card; labels equal: "
+          f"{same_labels} [{card}]")
+    check(card_f.shape[1:] == (1, 1001) and np.isfinite(card_f).all(),
+          f"F logits {card_f.shape}")
+    check(err_cpu <= CPU_TOLERANCE and err_zoo <= CPU_TOLERANCE,
+          f"F f32: {err_cpu:.3e} from the CPU, {err_zoo:.3e} from the zoo")
+    check(same_labels, f"F f32 labels card / CPU / zoo: {labels}")
+
+    # F in its default bf16, normalize_u8 counted by wrapper and profiler
+    bf_desc = (f"{APPSRC} ! {NORM_B} ! {f_model(files)} ! {LABEL} ! "
+               f"tensor_sink name=out")
+
+    def attempt():
+        kernels.normalize_u8.launches = 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            open_capture(torch)
+            out = run_desc(nt, bf_desc, frames)
+            torch.cuda.synchronize()
+            close_capture(torch)
+        named = sum("nns_normalize_kernel" in e.name
+                    for e in kernel_events(prof))
+        launched = kernels.normalize_u8.launches
+        return ({"normalize_u8": launched}, {"normalize_u8": named},
+                (out, launched, len(kernel_events(prof))))
+
+    (bf_out, launched, n_kernels), tries = profiled_agreement(
+        "phase 31: F bf16", attempt)
+    bf_labels = [r.meta["label_index"] for r in bf_out]
+    agree = int(sum(a == b for a, b in zip(bf_labels, labels[0])))
+    res["F_bf16"] = {"label_agreement_with_f32": agree,
+                     "normalize_launches": launched,
+                     "kernels_per_frame": n_kernels / len(frames),
+                     "profiled_runs": tries}
+    print(f"phase 31: F bf16 (the default): labels equal the f32 run's on "
+          f"{agree} of {len(frames)} frames; normalize_u8 launched "
+          f"{launched} times for {len(frames)} frames, by the wrapper and "
+          f"by name in the profiler (profiled run {tries}); "
+          f"{n_kernels / len(frames):.1f} CUDA kernels a frame, the first "
+          f"frame's set-up included")
+    check(len(bf_out) == len(frames) and launched == len(frames),
+          f"F bf16: normalize_u8 launched {launched} times for "
+          f"{len(frames)} frames ({len(bf_out)} out)")
+
+    # Q int8-native: the card against the CPU, bit for bit
+    qframes = u8_frames((1, 224, 224, 3), MODELIO_Q_FRAMES, 32)
+    q_card = logits_of(run_desc(
+        nt, f"{APPSRC} ! {q_model(files)} ! tensor_sink name=out", qframes))
+    q_cpu = logits_of(run_desc(
+        nt, f"{APPSRC} ! {q_model(files)} accelerator=cpu ! "
+            f"tensor_sink name=out", qframes))
+    q_same = q_card.dtype == np.uint8 and np.array_equal(q_card, q_cpu)
+    q_bf = logits_of(run_desc(
+        nt, f"{APPSRC} ! {q_model(files, 'bfloat16')} ! "
+            f"tensor_sink name=out", qframes))
+    q_agree = int((q_bf.argmax(-1) == q_card.argmax(-1)).sum())
+    lsb = int(np.abs(q_bf.astype(int) - q_card.astype(int)).max())
+    res["Q"] = {"frames": len(qframes), "card_equals_cpu": bool(q_same),
+                "bf16_top1_agreement": q_agree, "bf16_max_lsb": lsb}
+    print(f"phase 31: Q (mbv2_quant.tflite, custom=dtype=int8), "
+          f"{len(qframes)} frames: uint8 logits on the card bit for bit "
+          f"the CPU run's: {q_same}; Q under dtype=bfloat16 (dequantize -> "
+          f"bf16) top-1 equal to int8-native's on {q_agree} of "
+          f"{len(qframes)}, largest difference {lsb} LSB")
+    check(q_same, f"Q int8 card != CPU (max diff "
+                  f"{np.abs(q_card.astype(int) - q_cpu.astype(int)).max()})")
+
+    # .npz: the port's save_params wrote the zoo model; model=m.npz
+    zoo_b = logits_of(run_desc(
+        nt, f"{APPSRC} ! {NORM_B} ! {MODEL} ! tensor_sink name=out", frames))
+    npz_b = logits_of(run_desc(
+        nt, f"{APPSRC} ! {NORM_B} ! tensor_filter model={files['npz']} ! "
+            f"tensor_sink name=out", frames))
+    npz_same = np.array_equal(zoo_b, npz_b)
+    res["npz"] = {"identical": bool(npz_same)}
+    print(f"phase 31: model=m.npz (save_params of zoo://mobilenet_v2, "
+          f"bf16): outputs bit for bit the zoo bundle's: {npz_same}")
+    check(npz_same, "m.npz outputs differ from the zoo bundle's")
+
+    # F micro-batched: one invoke a frame (the lowered batch is 1)
+    bframes = u8_frames((1, 224, 224, 3), MODELIO_BATCH_FRAMES, 33)
+    pipe = nt.parse_launch(
+        f"{APPSRC} ! {BATCH} ! {NORM_B} ! {f_model(files)} ! tensor_unbatch "
+        f"! {LABEL} ! tensor_sink name=out")
+    kernels.normalize_u8.launches = 0
+    batched = push_all(nt, pipe, bframes).get("out").results
+    norm_batched = kernels.normalize_u8.launches
+    be = pipe.get("model").backend
+    unb = run_desc(nt, f"{APPSRC} ! {NORM_B} ! {f_model(files)} ! {LABEL} "
+                       f"! tensor_sink name=out", bframes)
+    lb = [r.meta["label_index"] for r in batched]
+    lu = [r.meta["label_index"] for r in unb]
+    verdicts = sorted(set(be._batch_ok.values()))
+    res["F_batched"] = {"frames": len(batched), "labels_equal": lb == lu,
+                        "batch_size_hist": be.batch_size_hist,
+                        "verdicts": verdicts,
+                        "normalize_launches": norm_batched}
+    print(f"phase 31: F behind tensor_batch max-batch={BATCH_MAX}: "
+          f"{len(batched)} frames, the model's batched calls "
+          f"{be.batch_size_hist or 'none'} (batchability verdicts "
+          f"{verdicts}: one invoke a frame), normalize_u8 launched "
+          f"{norm_batched} times, labels equal to unbatched F's: {lb == lu}")
+    check(len(batched) == len(bframes) and lb == lu
+          and not be.batch_size_hist and verdicts == [False]
+          and norm_batched == len(bframes),
+          f"F batched: {len(batched)} frames, hist {be.batch_size_hist}, "
+          f"normalize_u8 {norm_batched}, labels equal {lb == lu}")
+    record["modelio_correctness"] = res
+
+
+def closed_loop_arms(nt, descs, frame, n_lat, warmup):
+    """Closed-loop latency of several pipelines live at once (descs: arm →
+    string from an appsrc named src to a tensor_sink named out): each
+    round pushes one frame into every arm in turn (the order reversed
+    every other round) and waits for it at the sink. → {arm: [ms]}."""
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    live, lat = {}, {arm: [] for arm in descs}
+    try:
+        for arm, desc in descs.items():
+            got = threading.Event()
+            pipe = nt.parse_launch(desc)
+            pipe.get("out").set_props(new_data=lambda b, g=got: g.set(),
+                                      collect=False)
+            live[arm] = (pipe, nt.PipelineRunner(pipe).start(), got)
+        order = list(descs)
+        for i in range(warmup + n_lat):
+            for arm in (order if i % 2 == 0 else order[::-1]):
+                pipe, _, got = live[arm]
+                got.clear()
+                t0 = time.perf_counter()
+                pipe.get("src").push(TensorBuffer.of(frame, pts=i))
+                check(got.wait(60), f"{arm}: no frame back within 60 s")
+                if i >= warmup:
+                    lat[arm].append((time.perf_counter() - t0) * 1e3)
+        for pipe, runner, _ in live.values():
+            pipe.get("src").end()
+            runner.wait(60)
+    finally:
+        for _, runner, _ in live.values():
+            runner.stop()
+    return lat
+
+
+def modelio_timings(nt, torch, card, record, files) -> None:
+    """Phase 32: zoo B, F, Q int8-native and Q under bf16, live at once:
+    closed-loop p50/p99 frame by frame in turns; bursts of 200 in turns a
+    b b a, compiled_loop off and on (frames/s, latency under the burst,
+    busy share, kernels a frame); F's and Q's windows bit for bit their
+    per-frame runs."""
+    tail = f"{LABEL} name=dec ! tensor_sink name=out"
+    descs = {
+        "B": f"{APPSRC} ! {NORM_B} ! {MODEL} name=model ! {tail}",
+        "F": f"{APPSRC} ! {NORM_B} ! {f_model(files)} ! {tail}",
+        "Q int8": f"{APPSRC} ! {q_model(files)} ! {tail}",
+        "Q bf16": f"{APPSRC} ! {q_model(files, 'bfloat16')} ! {tail}",
+    }
+    frame = u8_frames((1, 224, 224, 3), 1, 0)[0]
+    res = {arm: {} for arm in descs}
+    lat = closed_loop_arms(nt, descs, frame, MODELIO_LAT, MODELIO_WARMUP)
+    for arm, ms in lat.items():
+        res[arm]["closed_p50_ms"] = float(np.percentile(ms, 50))
+        res[arm]["closed_p99_ms"] = float(np.percentile(ms, 99))
+        print(f"phase 32: {arm}: closed-loop latency over {len(ms)} frames "
+              f"(arms in turns, frame by frame) p50 "
+              f"{res[arm]['closed_p50_ms']:.3f} ms p99 "
+              f"{res[arm]['closed_p99_ms']:.3f} ms [{card}]")
+    for loop in ("off", "on"):
+        kw = {} if loop == "on" else {"compiled_loop": False}
+        arms = burst_arms(nt, torch, descs, frame, BURST, BURSTS,
+                          runner_kw={arm: kw for arm in descs})
+        for arm, a in arms.items():
+            fps = float(np.median(a["fps"]))
+            r = {"fps": a["fps"], "fps_median": fps,
+                 "p50_ms": float(np.percentile(a["lat"], 50)),
+                 "p99_ms": float(np.percentile(a["lat"], 99)),
+                 "device_ms_per_frame": a["device_ms_per_frame"],
+                 "kernels_per_frame": a["kernels_per_frame"],
+                 "busy_share": a["device_ms_per_frame"] * fps / 1e3}
+            res[arm][f"loop_{loop}"] = r
+            print(f"phase 32: {arm} loop {loop}, bursts of {BURST} frames in "
+                  f"turns: " + " / ".join(f"{f:.1f}" for f in a["fps"])
+                  + f" frames/s; latency under the burst p50 "
+                  f"{r['p50_ms']:.3f} ms p99 {r['p99_ms']:.3f} ms; "
+                  f"{r['kernels_per_frame']:.1f} CUDA kernels and "
+                  f"{r['device_ms_per_frame']:.3f} ms of kernel time a "
+                  f"frame, card busy {100 * r['busy_share']:.1f}% [{card}]")
+    # windows bit for bit the per-frame path (raw outputs)
+    for arm, model in (("F", f_model(files)), ("Q int8", q_model(files))):
+        norm = f"{NORM_B} ! " if arm == "F" else ""
+        desc = f"{APPSRC} ! {norm}{model} ! tensor_sink name=out"
+        wframes = u8_frames((1, 224, 224, 3), MODELIO_WINDOW_FRAMES, 34)
+        off = window_run(nt, torch, desc, wframes, "model",
+                         compiled_loop=False)
+        on = window_run(nt, torch, desc, wframes, "model")
+        st = on["stats"]
+        same = same_outputs(on["out"], off["out"])
+        res[arm]["window"] = {"identical": same,
+                              "loop_entries": st["loop_entries"],
+                              "compiled_steps": st["compiled_steps"],
+                              "loop_bails": st["loop_bails"],
+                              "k_hist": on["khist"],
+                              "captures": on["captures"],
+                              "capture_s": on["capture_s"]}
+        print(f"phase 32: {arm}, {len(wframes)} frames pushed at once: "
+              f"loop-on bit for bit loop-off: {same}; {st['loop_entries']} "
+              f"windows, {st['compiled_steps']} frames in windows, bails "
+              f"{st['loop_bails']}, windows by K {on['khist']}, "
+              f"{on['captures']} graphs captured")
+        check(same and st["loop_entries"] > 0
+              and not st["loop_bails"].get("error"),
+              f"{arm}: windows differ from per-frame or none ran: "
+              f"{st['loop_bails']}")
+    record["modelio_timings"] = res
+
+
+class _Warnings(logging.Handler):
+    """Collects the port's warning records."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record.getMessage())
+
+
+def while_phase(nt, torch, card, record, files) -> None:
+    """Phase 33: the WHILE counter on the card: its window captures bail
+    as "error" (one capture attempted a window size, remembered; one
+    warning) and the frames run per frame, bit for bit the CPU's."""
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    rng = np.random.default_rng(33)
+    xs = [rng.normal(0, 1, (1, 8)).astype(np.float32)
+          for _ in range(WHILE_FRAMES)]
+    desc = ("appsrc name=src dims=8:1 types=float32 ! tensor_filter "
+            f"name=model framework=tensorflow-lite model={files['W']} "
+            "custom=dtype=float32{} ! tensor_sink name=out")
+    warn = _Warnings()
+    logging.getLogger("nnstreamer_tpu_torch").addHandler(warn)
+    try:
+        pipe = nt.parse_launch(desc.format(""))
+        runner = nt.PipelineRunner(pipe).start()
+        try:
+            for i, x in enumerate(xs):
+                pipe.get("src").push(TensorBuffer.of(x, pts=i))
+            pipe.get("src").end()
+            runner.wait(300)
+            # read before stop: closing the backend drops its graphs and
+            # remembered failures
+            be = pipe.get("model").backend
+            failed = list(be._graphs.failed.values())
+            captures = be.window_compile_count
+        finally:
+            runner.stop()
+    finally:
+        logging.getLogger("nnstreamer_tpu_torch").removeHandler(warn)
+    card_out = pipe.get("out").results
+    st = runner.stats()["model"]
+    cpu_out = run_desc(nt, desc.format(" accelerator=cpu"), xs)
+    same = len(card_out) == len(cpu_out) == len(xs) and all(
+        all(np.asarray(u).tobytes() == np.asarray(v).tobytes()
+            for u, v in zip(a.tensors, b.tensors))
+        for a, b in zip(card_out, cpu_out))
+    counters = sorted({int(np.asarray(r.tensors[1])) for r in card_out})
+    window_warnings = [w for w in warn.records if "re-run per frame" in w]
+    res = {"frames": len(card_out), "identical_to_cpu": same,
+           "counters": counters, "loop_entries": st["loop_entries"],
+           "loop_bails": st["loop_bails"], "captures": captures,
+           "capture_failures": len(failed),
+           "window_warnings": len(window_warnings)}
+    print(f"phase 33: WHILE counter on the card, {len(xs)} frames pushed at "
+          f"once: outputs bit for bit the CPU's: {same} (counters "
+          f"{counters}); windows {st['loop_entries']}, bails "
+          f"{st['loop_bails']}, graphs captured {captures}, "
+          f"capture keys failed {len(failed)}, window warnings "
+          f"{len(window_warnings)}: {window_warnings[:1]}; the capture's "
+          f"error: {failed[:1]}")
+    check(same and counters == [5], "WHILE: card differs from the CPU")
+    # one capture attempt a window size (K in {2, 4, 8}: one graph key
+    # each), each remembered: later windows of that K fail at once
+    check(1 <= len(failed) <= 3
+          and st["loop_bails"].get("error", 0) >= len(failed)
+          and captures == 0 and len(window_warnings) == 1,
+          f"WHILE: bails {st['loop_bails']}, {len(failed)} failed "
+          f"captures, {captures} graphs, "
+          f"{len(window_warnings)} warnings")
+    record["while"] = res
+
+
+def modelio_phases(nt, torch, card, record, phases) -> None:
+    """Phases 31-33, the model files in a temporary directory."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_modelio_") as d:
+        files = write_model_files(torch, Path(d))
+        modelio_correctness(nt, torch, card, record, files)
+        phases.done("31 (model files: correctness)")
+        modelio_timings(nt, torch, card, record, files)
+        phases.done("32 (model files: timings)")
+        while_phase(nt, torch, card, record, files)
+        phases.done("33 (WHILE)")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4435,6 +4857,10 @@ def main(argv=None) -> int:
         "--window", action="store_true",
         help="run phases 1, 2, 29 and 30 only (compiled windows: vision "
              "pipelines and the LLM decode window)")
+    ap.add_argument(
+        "--modelio", action="store_true",
+        help="run phases 1, 2 and 31-33 only (model-file ingestion: "
+             "TFLite float, int8-native and WHILE, .npz)")
     ap.add_argument(
         "--slice4", action="store_true",
         help="run phases 1, 2 and 20-23 only (the ring step, ring "
@@ -4505,6 +4931,9 @@ def main(argv=None) -> int:
     elif args.window:
         window_phases(nt, torch, card, record, phases, {})
         entries = []
+    elif args.modelio:
+        modelio_phases(nt, torch, card, record, phases)
+        entries = []
     else:
         # -- 3-6. normalize_u8, pipelines A and B ------------------------
         entries = slice1_phases(nt, torch, card, record, phases)
@@ -4523,6 +4952,8 @@ def main(argv=None) -> int:
         batching_phases(nt, torch, card, record, phases)
         # -- 29-30. compiled windows, the LLM decode window --------------
         window_phases(nt, torch, card, record, phases, ctx)
+        # -- 31-33. model files: TFLite float / int8, WHILE, .npz -------
+        modelio_phases(nt, torch, card, record, phases)
     record["phase_seconds"] = phases.seconds
 
     out_dir = ROOT / "chiprun_out"
@@ -4531,6 +4962,7 @@ def main(argv=None) -> int:
             "chip_smoke_slice6.json" if args.slice6 else
             "chip_smoke_batching.json" if args.batching else
             "chip_smoke_window.json" if args.window else
+            "chip_smoke_modelio.json" if args.modelio else
             "chip_smoke.json")
     (out_dir / name).write_text(json.dumps(record, indent=1))
     print(card)

@@ -6,6 +6,8 @@ A model is a callable ``fn(params, *inputs) -> outputs`` plus its params
 (an ``nn.Module``, a dict of tensors, or None). Sources of models:
 
 - the in-repo model zoo (``model=zoo://mobilenet_v2``) — models/zoo.py
+- a model file (``model=x.tflite``, ``model=m.npz``) through
+  modelio.load_model_file, with the ``custom=`` loader options
 - a `ModelBundle` or a callable passed programmatically to the element
 
 Filters with the same `shared_tensor_filter_key` hold one model on one
@@ -248,8 +250,8 @@ class TorchBackend(FilterBackend):
         model = props.get("model")
         if model is None:
             raise BackendError(
-                "framework=torch requires model=<zoo://name | ModelBundle | "
-                "callable>")
+                "framework=torch requires model=<zoo://name | model file | "
+                "ModelBundle | callable>")
         opts = parse_loader_opts(props.get("custom") or "")
         self._dynamic_spatial = bool(opts.pop("dynamic_spatial", False))
         # the reference's dedicated props override the custom= string
@@ -258,7 +260,7 @@ class TorchBackend(FilterBackend):
             v = props.get(prop) or ""
             if v:
                 opts[key] = [s for s in v.split(",") if s]
-        #: options for a model-file loader (none reads them yet)
+        #: options for a model-file loader (modelio.load_model_file)
         self._loader_opts = opts
         self.device = pick_device(props.get("accelerator") or "")
         key = props.get("shared_tensor_filter_key") or ""
@@ -304,6 +306,12 @@ class TorchBackend(FilterBackend):
             from nnstreamer_tpu_torch.models.zoo import build_model
 
             return build_model(model[len("zoo://"):])
+        if isinstance(model, str):
+            from nnstreamer_tpu_torch import modelio
+
+            if modelio.model_ext(model) in modelio.MODEL_EXTENSIONS \
+                    or "," in model:
+                return modelio.load_model_file(model, **self._loader_opts)
         if callable(model):
             return ModelBundle(fn=lambda params, *xs: model(*xs),
                                in_spec=getattr(model, "in_spec", None),
@@ -311,7 +319,8 @@ class TorchBackend(FilterBackend):
                                name=getattr(model, "__name__", "callable"))
         raise BackendError(
             f"unrecognized model reference {model!r} for framework=torch; "
-            f"expected zoo://<name>, a ModelBundle, or a callable")
+            f"expected zoo://<name>, a model file (.tflite, .npz), a "
+            f"ModelBundle, or a callable")
 
     def close(self) -> None:
         """Drop this filter's hold on its model (idempotent)."""

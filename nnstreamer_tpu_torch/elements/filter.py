@@ -8,7 +8,9 @@ combinations, per-invoke latency/throughput (:354-460), hot reload
 (`is-updatable`), invoke-dynamic, invoke error propagation.
 
 - `framework=` picks the backend (torch, alias xla; pallas for the
-  hand-written kernels); empty means [filter] default_backend (torch).
+  hand-written kernels; the reference's tensorflow-lite names map to
+  torch, `_FRAMEWORK_ALIASES`); empty means the model file's extension
+  (modelio.MODEL_EXTENSIONS), then [filter] default_backend (torch).
 - `custom=` is the backend's option string (modelio.parse_loader_opts);
   `inputname`/`outputname` go into the same loader options.
 - **Fusion**: `set_fusion()` receives the programs of adjacent
@@ -187,10 +189,31 @@ class TensorFilter(Element):
 
         self._post = post
 
+    #: reference framework names → the port's backends, so reference
+    #: pipeline strings run verbatim. Only the frameworks whose model
+    #: files the port loads map to torch (tensorflow: its .tflite files;
+    #: .pb waits for model-file ingestion's second group)
+    _FRAMEWORK_ALIASES = {
+        "tensorflow-lite": "torch", "tensorflow1-lite": "torch",
+        "tensorflow2-lite": "torch", "tensorflow": "torch",
+    }
+
     # -- negotiation / backend open ---------------------------------------
     def _framework_name(self) -> str:
-        return (self.props["framework"]
-                or get_config().get("filter", "default_backend") or "torch")
+        """framework= (through the aliases); empty: the backend that
+        loads the model file's extension, then [filter] default_backend."""
+        fw = self.props["framework"]
+        if fw:
+            return self._FRAMEWORK_ALIASES.get(fw, fw)
+        model = self.props["model"]
+        if isinstance(model, str):
+            from nnstreamer_tpu_torch.modelio import (
+                MODEL_EXTENSIONS, model_ext)
+
+            ext = model_ext(model)
+            if ext in MODEL_EXTENSIONS:
+                return MODEL_EXTENSIONS[ext]
+        return get_config().get("filter", "default_backend") or "torch"
 
     def negotiate(self, in_specs: Sequence[StreamSpec]) -> List[StreamSpec]:
         spec = self.expect_tensors(in_specs[0])

@@ -93,9 +93,16 @@ def fuse_transforms(pipe: Pipeline) -> int:
             cur = out_links[0].dst
             down.append(cur)
 
+        # a device=true decoder right after the post chain runs inside the
+        # filter, unless the filter reroutes or reshapes its output set
+        # (output_combination, invoke_dynamic): then the decoder stays an
+        # element of its own and still decodes on the device (as the JAX
+        # package's fusion pass decides)
         dec = None
         out_links = pipe.links_from(cur)
-        if len(out_links) == 1 and _is_device_decoder(out_links[0].dst):
+        if (len(out_links) == 1 and _is_device_decoder(out_links[0].dst)
+                and not f.props.get("invoke_dynamic")
+                and not f.props.get("output_combination")):
             dec = out_links[0].dst
 
         if not up and not down and dec is None:

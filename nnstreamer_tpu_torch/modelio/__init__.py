@@ -1,12 +1,165 @@
-"""Model-file ingestion. For now only the `custom=` option parser that
-every filter backend shares; the file loaders (TFLite, params bundles,
-...) come with model-file ingestion."""
+"""Model-file ingestion (the reference's "load model= files" capability,
+`tensor_filter_common.c:1208` extension auto-detect +
+`tensor_filter_tensorflow_lite.cc` and friends) — the JAX package's
+modelio/__init__.py for the formats the port reads so far:
+
+- `.tflite` — TFLite flatbuffer, parsed with a self-contained reader and
+  lowered to torch (tflite.py; quantized uint8/int8 models dequantize →
+  bf16, or run int8-native with custom=dtype=int8, tflite_quant.py).
+- `.npz` — this framework's own serialized params format for zoo models
+  (params_io.py), in the JAX package's layout both ways.
+
+`.pb`, `.pt`, `.uff`, `.caffemodel`, `.dlc`, `.rtm` and caffe2's
+"init_net.pb,predict_net.pb" pairs are recognised and refused with a
+`BackendError` saying the format is not ported yet (ROADMAP Queue 1,
+item 2). `load_model_file(path, **opts)` dispatches on extension and
+returns a `backends.torch_backend.ModelBundle`; `parse_loader_opts`
+parses the filter's `custom=` string into those options.
+"""
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import os
+from typing import Any, Dict, Optional
 
 from nnstreamer_tpu_torch.core.errors import BackendError
+from nnstreamer_tpu_torch.modelio.params_io import load_params, save_params
+from nnstreamer_tpu_torch.modelio.tflite import (
+    lower_tflite, parse_tflite, register_tflite_custom_op)
+import nnstreamer_tpu_torch.modelio.tflite_custom  # noqa: F401 (registers ops)
+
+#: extensions this package recognises → default backend. Only tflite and
+#: npz load yet; the others are refused naming the roadmap item
+MODEL_EXTENSIONS = {"tflite": "torch", "npz": "torch", "pb": "torch",
+                    "pt": "torch", "uff": "torch", "caffemodel": "torch",
+                    "dlc": "torch", "rtm": "torch"}
+#: formats recognised but not ported yet
+_NOT_PORTED = ("pb", "pt", "uff", "caffemodel", "dlc", "rtm")
+
+
+def model_ext(path: str) -> str:
+    """The lower-case extension of a model path ("" without one): what
+    picks the loader, and the filter's backend when framework= is empty."""
+    return path.rsplit(".", 1)[-1].lower() if "." in path else ""
+
+
+def _not_ported(what: str) -> BackendError:
+    return BackendError(
+        f"{what} is not ported to nnstreamer_tpu_torch yet (ROADMAP "
+        f"Queue 1 item 2, model-file ingestion: graphdef, caffe, caffe2, "
+        f"uff, dlc, rtm, then torchscript); the port loads .tflite and "
+        f".npz")
+
+
+def load_model_file(path: str, batch: Optional[int] = None,
+                    compute_dtype: Optional[str] = None,
+                    quantize_output: bool = True,
+                    input_names=None, output_names=None,
+                    sample_rate: int = 16000, side: Optional[int] = None):
+    """Load a model file into a ModelBundle (extension-dispatched)."""
+    from nnstreamer_tpu_torch.backends.torch_backend import ModelBundle
+    from nnstreamer_tpu_torch.tensor.dtypes import DType
+    from nnstreamer_tpu_torch.tensor.info import TensorInfo, TensorsSpec
+
+    def mk(shapes, dtypes):
+        return TensorsSpec(tensors=tuple(
+            TensorInfo(shape=tuple(s), dtype=DType.from_np(d))
+            for s, d in zip(shapes, dtypes)))
+
+    if "," in path:
+        # "init_net.pb,predict_net.pb" — the reference's caffe2 filter
+        # model-pair syntax (tensor_filter_caffe2.cc)
+        parts = [p.strip() for p in path.split(",") if p.strip()]
+        if len(parts) != 2:
+            raise BackendError(
+                f"a comma model pair must be exactly "
+                f"'init_net.pb,predict_net.pb', got {path!r}")
+        for p in parts:
+            if not os.path.exists(p):
+                raise BackendError(f"model file {p!r} does not exist")
+        if compute_dtype is not None:
+            raise BackendError(
+                "custom=dtype= is not consumed by caffe2 init,predict "
+                "pairs (they run in the NetDef's declared dtypes); "
+                "supported for .tflite and .pt")
+        raise _not_ported(f"the caffe2 init,predict pair {path!r}")
+
+    if not os.path.exists(path):
+        raise BackendError(
+            f"model file {path!r} does not exist; supported formats: "
+            f"{sorted(MODEL_EXTENSIONS)}")
+    ext = model_ext(path)
+
+    if ext not in ("pb", "uff") and (input_names or output_names):
+        # fail loudly rather than silently ignoring a binding request
+        raise BackendError(
+            f"inputname/outputname bind graph nodes and apply to "
+            f".pb/.uff models only (got a .{ext} file)")
+    if side is not None:
+        raise BackendError(
+            f"custom=side= declares a caffe2 NetDef input resolution "
+            f"and applies to init,predict pairs only (got {path!r})")
+    if compute_dtype is not None and ext not in ("tflite", "pt"):
+        # only the tflite/.pt lowerings consume a compute dtype; the
+        # rest run in the graph's own dtypes (.npz archs take dtype via
+        # the arch query string instead). An allowlist, so a format can't
+        # silently swallow dtype= (the loader's fail-loud convention,
+        # like inputname/outputname and side above).
+        raise BackendError(
+            f"custom=dtype= is not consumed by .{ext} models (they run "
+            f"in the graph's declared dtypes; .npz archs take "
+            f"?dtype=... in the arch string); supported for .tflite "
+            f"and .pt")
+
+    if ext == "tflite":
+        # per-format compute default: tflite runs bf16 (tensor-core
+        # native, quantized models dequantize into it); int8/native/auto
+        # pick the int8-native lowering
+        compute_dtype = compute_dtype or "bfloat16"
+        graph = parse_tflite(path)
+        if compute_dtype in ("int8", "native", "auto"):
+            from nnstreamer_tpu_torch.modelio.tflite_quant import (
+                lower_tflite_quant, quantized_graph_supported)
+            if quantized_graph_supported(graph):
+                try:
+                    lowered = lower_tflite_quant(graph, batch=batch)
+                except BackendError:
+                    # support pre-check is necessarily approximate
+                    # (e.g. per-channel weight zero points surface only
+                    # during lowering); auto falls back to float
+                    if compute_dtype != "auto":
+                        raise
+                    lowered = lower_tflite(graph, batch=batch,
+                                           quantize_output=quantize_output)
+            elif compute_dtype == "auto":
+                lowered = lower_tflite(graph, batch=batch,
+                                       quantize_output=quantize_output)
+            else:
+                raise BackendError(
+                    f"{path!r} is not a fully-quantized graph; int8-native "
+                    f"execution needs per-tensor uint8/int8 quantization "
+                    f"throughout (use dtype=bfloat16)")
+        else:
+            lowered = lower_tflite(graph, batch=batch,
+                                   compute_dtype=compute_dtype,
+                                   quantize_output=quantize_output)
+        return ModelBundle(
+            fn=lowered.fn, params=lowered.params,
+            in_spec=mk(lowered.in_shapes, lowered.in_dtypes),
+            out_spec=mk(lowered.out_shapes, lowered.out_dtypes),
+            name=lowered.name)
+
+    if ext == "npz":
+        from nnstreamer_tpu_torch.modelio.params_io import load_model
+
+        return load_model(path)
+
+    if ext in _NOT_PORTED:
+        raise _not_ported(f"the .{ext} format ({path!r})")
+
+    raise BackendError(
+        f"unsupported model file extension {ext!r} for {path!r}; "
+        f"supported: {sorted(MODEL_EXTENSIONS)}")
 
 
 def _int_opt(k: str, v: str) -> int:
@@ -51,4 +204,6 @@ def parse_loader_opts(custom: str) -> Dict[str, Any]:
     return opts
 
 
-__all__ = ["parse_loader_opts"]
+__all__ = ["load_model_file", "load_params", "save_params",
+           "parse_tflite", "lower_tflite", "parse_loader_opts",
+           "register_tflite_custom_op", "MODEL_EXTENSIONS"]

@@ -19,6 +19,12 @@ the same way.
 are: the port's transformer keeps the (in, out) dense layout, and a W8A8
 tree (models/quant.quantize_transformer) keeps its int8 weights and f32
 ``*_scale`` columns.
+
+Each has an inverse (`mobilenet_v2_tree`, `ssd_mobilenet_tree`,
+`posenet_tree`, `transformer_tree`: the port's module or params → the
+JAX-layout tree with numpy leaves), so `.npz` params files
+(modelio/params_io.py) move both ways between the two packages.
+`JAX_TREE` and `PORT_LOADER` name them by zoo model.
 """
 
 from __future__ import annotations
@@ -131,3 +137,95 @@ def transformer_params(params: Dict[str, Any]) -> Dict[str, Any]:
     out["blocks"] = [{k: _leaf(v) for k, v in blk.items()}
                      for blk in params["blocks"]]
     return out
+
+
+# -- the inverses: port → JAX-layout numpy trees ------------------------------
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu").numpy().copy()
+
+
+def conv_bn_tree(sd: Dict[str, torch.Tensor], prefix: str) -> Dict[str, Any]:
+    """ConvBN keys → {"conv": {"w": HWIO}, "bn": {...}} (inverse of
+    `conv_bn_state`)."""
+    return {"conv": {"w": _np(sd[f"{prefix}weight"].permute(2, 3, 1, 0))},
+            "bn": {k: _np(sd[f"{prefix}{k}"])
+                   for k in ("scale", "bias", "mean", "var")}}
+
+
+def _mobilenet_v2_tree_sd(sd: Dict[str, torch.Tensor],
+                          prefix: str = "") -> Dict[str, Any]:
+    tree: Dict[str, Any] = {"stem": conv_bn_tree(sd, f"{prefix}stem."),
+                            "blocks": []}
+    i = 0
+    while f"{prefix}blocks.{i}.depthwise.weight" in sd:
+        blk = {}
+        for part in ("expand", "depthwise", "project"):
+            if f"{prefix}blocks.{i}.{part}.weight" in sd:
+                blk[part] = conv_bn_tree(sd, f"{prefix}blocks.{i}.{part}.")
+        tree["blocks"].append(blk)
+        i += 1
+    tree["head"] = conv_bn_tree(sd, f"{prefix}head.")
+    if f"{prefix}classifier.weight" in sd:
+        tree["classifier"] = {
+            "w": _np(sd[f"{prefix}classifier.weight"].t()),
+            "b": _np(sd[f"{prefix}classifier.bias"])}
+    return tree
+
+
+def mobilenet_v2_tree(model: torch.nn.Module) -> Dict[str, Any]:
+    """The port's MobileNetV2 → the JAX param tree (numpy leaves)."""
+    return _mobilenet_v2_tree_sd(model.state_dict())
+
+
+def _conv_tree(sd, key: str) -> Dict[str, np.ndarray]:
+    return {"w": _np(sd[key].permute(2, 3, 1, 0))}
+
+
+def ssd_mobilenet_tree(model: torch.nn.Module) -> Dict[str, Any]:
+    """The port's SSD-MobileNetV2 → the JAX tree."""
+    sd = model.state_dict()
+    tree = {"backbone": _mobilenet_v2_tree_sd(sd, "backbone."),
+            "extras": [], "loc_heads": [], "cls_heads": []}
+    i = 0
+    while f"extras.{i}.squeeze.weight" in sd:
+        tree["extras"].append({
+            "squeeze": conv_bn_tree(sd, f"extras.{i}.squeeze."),
+            "conv": conv_bn_tree(sd, f"extras.{i}.conv.")})
+        i += 1
+    for kind in ("loc_heads", "cls_heads"):
+        i = 0
+        while f"{kind}.{i}.weight" in sd:
+            tree[kind].append(_conv_tree(sd, f"{kind}.{i}.weight"))
+            i += 1
+    return tree
+
+
+def posenet_tree(model: torch.nn.Module) -> Dict[str, Any]:
+    """The port's PoseNet → the JAX tree."""
+    sd = model.state_dict()
+    return {"backbone": _mobilenet_v2_tree_sd(sd, "backbone."),
+            "proj": conv_bn_tree(sd, "proj."),
+            "heatmap": _conv_tree(sd, "heatmap.weight"),
+            "offset": _conv_tree(sd, "offset.weight")}
+
+
+def transformer_tree(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's transformer params → the JAX tree (the same keys and
+    layout; numpy leaves)."""
+    out = {k: _np(v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = [{k: _np(v) for k, v in blk.items()}
+                     for blk in params["blocks"]]
+    return out
+
+
+#: zoo model → (port params → JAX tree)
+JAX_TREE = {"mobilenet_v2": mobilenet_v2_tree,
+            "ssd_mobilenet": ssd_mobilenet_tree,
+            "posenet": posenet_tree,
+            "transformer": transformer_tree}
+#: zoo model → (the zoo bundle's params, a JAX tree) → params to run
+PORT_LOADER = {"mobilenet_v2": load_mobilenet_v2,
+               "ssd_mobilenet": load_ssd_mobilenet,
+               "posenet": load_posenet,
+               "transformer": lambda _params, tree: transformer_params(tree)}
