@@ -6,7 +6,7 @@
     python3 chip_smoke.py --slice6    # phases 1, 2 and 24-26 only
     python3 chip_smoke.py --batching  # phases 1, 2, 27 and 28 only
     python3 chip_smoke.py --window    # phases 1, 2, 29 and 30 only
-    python3 chip_smoke.py --modelio   # phases 1, 2 and 31-33 only
+    python3 chip_smoke.py --modelio   # phases 1, 2 and 31-35 only
 
 Needs one CUDA card, nvcc and the repository checkout around this file;
 imports nothing of JAX. On a machine with several cards, phases 21-22
@@ -263,7 +263,30 @@ phases there). Phases:
 33. the WHILE counter (a LESS cond subgraph, an ADD/MUL body) on the card,
    32 frames pushed at once: its window captures refused by the WHILE op
    (one attempt a window size, remembered, one warning, "error" bails),
-   the frames run per frame, outputs bit for bit the CPU's.
+   the frames run per frame, outputs bit for bit the CPU's;
+34. model files, second group (nnstreamer_tpu_torch/tools/model_fixtures.py
+   writes them at full width, weights from seed 0, into a temporary
+   directory): G config 1's MobileNetV2 as a frozen GraphDef (`tensor_filter
+   model=mbv2.pb inputname=input outputname=logits` after the normalize_u8
+   filter), S the speech-commands conv model (seeded one-second WAV bytes
+   into `inputname=wav_data`: DecodeWav on the host, AudioSpectrogram, Mfcc,
+   two convs, FC to 12), M MobileNetV1 0.25 at 224² as .rtm after the
+   normalize_u8 filter (`framework=deepview-rt`), L Caffe's LeNet
+   (.caffemodel), R a CIFAR-10 ResNet-20 caffe2 init,predict pair
+   (`framework=caffe2`), U LeNet-5 as .uff (`framework=tensorrt inputname=in
+   outputname=out`), the add2 .dlc pair (`framework=snpe`): each f32 on the
+   card (TF32 off) within 1e-3 of max |y| of its CPU run with labels equal,
+   G also of zoo://mobilenet_v2; the add2 pair bit for bit its CPU run, x + 2
+   exact (uint8 saturating at 255); normalize_u8 once a frame on G and M
+   (wrapper and profiler, profiled_agreement); S's host stage (the WAV
+   decode) once a frame; G, M and S with compiled windows (64 frames pushed
+   at once) bit for bit their per-frame outputs, S's host stage run before
+   each window's copy, once a frame;
+35. every cell of phase 34 closed-loop, all live at once, frame by frame in
+   turns (latency p50/p99); G, M and S in bursts of 200 frames in turns a b
+   b a, compiled windows off, then on (frames/s, latency under the burst,
+   CUDA kernels and kernel time a frame from a profiled burst, the card's
+   busy share).
 
 Each kernel's timing phase (6, 10, 15, 16, 23) also prints its time per
 call from Python, back to back — the host's time (the launch path's own
@@ -980,12 +1003,18 @@ def llm_phases(nt, torch, card, record, phases, ctx) -> list:
     record["llm_f32"] = {"identical": same, "near_ties": ties}
     phases.done("8 (LLM f32 parity)")
 
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    _, llm, wall_p, launches = serve(nt, torch, requests, prof=prof,
-                                     dtype="bfloat16")
+    def attempt():
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        _, llm, wall_p, launches = serve(nt, torch, requests, prof=prof,
+                                         dtype="bfloat16")
+        named = named_launches(prof, launches)
+        return launches, named, (prof, llm, wall_p, launches, named)
+
+    (prof, llm, wall_p, launches, named), tries = profiled_agreement(
+        "phase 9", attempt)
     ex = llm.engine.executor
     evs = kernel_events(prof)
-    named = named_launches(prof, launches)
     busy = sum(e.time_range.elapsed_us() for e in evs) / 1e6 / wall_p
     host = sorted(prof.key_averages(), key=lambda a: a.self_cpu_time_total,
                   reverse=True)[:8]
@@ -994,10 +1023,8 @@ def llm_phases(nt, torch, card, record, phases, ctx) -> list:
     print(f"phase 9: bf16 (profiled): {ex.decode_steps} decode steps, "
           f"{ex.chunk_prefills} prefill chunks, kernel_invokes "
           f"{ex.kernel_invokes}; wrapper launches {launches}; profiler "
-          f"launches by name {named}; card busy {100 * busy:.1f}% of "
-          f"{wall_p:.3f} s")
-    check(launches == named, f"wrapper launches {launches} != profiler "
-                             f"{named}")
+          f"launches by name {named} (profiled run {tries}); card busy "
+          f"{100 * busy:.1f}% of {wall_p:.3f} s")
     check(launches["paged_decode_attn"] == 4 * ex.decode_steps > 0,
           "not 4 decode launches per decode step")
     check(launches["paged_prefill_attn"] == 4 * ex.chunk_prefills > 0,
@@ -1291,31 +1318,34 @@ def forward_phase(torch, dev, card, record, params) -> dict:
                  out["apply_seq flash"].argmax(-1)).float().mean().item()
         del out
         # the counted main-path run: one bf16 and one W8A8 forward
-        kernels.flash_attention.launches = 0
-        kernels.flash_attention.launches_tc = 0
-        kernels.flash_attention.launches_simt = 0
-        kernels.quantize_rows.launches = 0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            open_capture(torch)
-            runs["apply_seq flash"]()
-            runs["apply_seq_w8a8 flash"]()
-            torch.cuda.synchronize()
-            close_capture(torch)
-        launches = {"flash_attention": kernels.flash_attention.launches,
-                    "quantize_rows": kernels.quantize_rows.launches}
-        variants = {"tc": kernels.flash_attention.launches_tc,
-                    "simt": kernels.flash_attention.launches_simt}
-        named = named_launches(prof, launches)
+        def attempt():
+            kernels.flash_attention.launches = 0
+            kernels.flash_attention.launches_tc = 0
+            kernels.flash_attention.launches_simt = 0
+            kernels.quantize_rows.launches = 0
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                open_capture(torch)
+                runs["apply_seq flash"]()
+                runs["apply_seq_w8a8 flash"]()
+                torch.cuda.synchronize()
+                close_capture(torch)
+            launches = {"flash_attention": kernels.flash_attention.launches,
+                        "quantize_rows": kernels.quantize_rows.launches}
+            variants = {"tc": kernels.flash_attention.launches_tc,
+                        "simt": kernels.flash_attention.launches_simt}
+            named = named_launches(prof, launches)
+            return launches, named, (prof, launches, variants, named)
+
+        (prof, launches, variants, named), tries = profiled_agreement(
+            "phase 13", attempt)
         simt_named = named_launches(prof, ["flash_attention simt"])
         print(f"phase 13: one bf16 apply_seq + one apply_seq_w8a8 forward: "
               f"wrapper launches {launches}, flash by variant {variants}; "
               f"profiler launches by name {named} (flash: "
-              f"{KERNEL_SYMBOL['flash_attention']}), "
+              f"{KERNEL_SYMBOL['flash_attention']}; profiled run {tries}), "
               f"{KERNEL_SYMBOL['flash_attention simt']} "
               f"{simt_named['flash_attention simt']}")
-        check(launches == named, f"wrapper launches {launches} != profiler "
-                                 f"{named}")
         check(launches == {"flash_attention": 8, "quantize_rows": 17},
               "not 4 flash launches per forward and 17 quantize_rows per "
               "W8A8 forward")
@@ -1476,19 +1506,23 @@ def w8a8_serving_phase(nt, torch, dev, card, record, ctx) -> dict:
                           "float_arm_spread": float_spread,
                           "w8a8_vs_float_spread": quant_spread}
 
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    _, llm, wall_p, launches = serve(nt, torch, requests, prof=prof,
-                                     dtype="bfloat16", **w8)
+    def attempt():
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        _, llm, wall_p, launches = serve(nt, torch, requests, prof=prof,
+                                         dtype="bfloat16", **w8)
+        named = named_launches(prof, launches)
+        return launches, named, (prof, llm, wall_p, launches, named)
+
+    (prof, llm, wall_p, launches, named), tries = profiled_agreement(
+        "phase 14", attempt)
     ex = llm.engine.executor
-    named = named_launches(prof, launches)
     busy = sum(e.time_range.elapsed_us() for e in kernel_events(prof)) \
         / 1e6 / wall_p
     print(f"phase 14: W8A8 bf16 (profiled): {ex.decode_steps} decode steps, "
           f"{ex.chunk_prefills} prefill chunks; wrapper launches {launches}; "
-          f"profiler launches by name {named}; card busy {100 * busy:.1f}% "
-          f"of {wall_p:.3f} s")
-    check(launches == named, f"wrapper launches {launches} != profiler "
-                             f"{named}")
+          f"profiler launches by name {named} (profiled run {tries}); card "
+          f"busy {100 * busy:.1f}% of {wall_p:.3f} s")
     check(launches["quantize_rows"] ==
           17 * (ex.decode_steps + ex.chunk_prefills) > 0,
           "not 17 quantize_rows launches per decode step and per chunk")
@@ -2019,9 +2053,16 @@ def slice5_timings(nt, torch, card, record) -> dict:
                if "max_in_flight" in mode else 0)
         # D host: numpy NMS over ~1,900 boxes, ~5 frames/s
         slow = name == "D host"
-        r, evs = measure_cell(nt, torch, build(), frame, lag,
-                              10 if slow else 20, 8 if slow else 40)
-        clamp_named = sum("nns_clamp_scale_kernel" in e.name for e in evs)
+
+        def attempt():
+            r, evs = measure_cell(nt, torch, build(), frame, lag,
+                                  10 if slow else 20, 8 if slow else 40)
+            named = sum("nns_clamp_scale_kernel" in e.name for e in evs)
+            return ({"clamp_scale": r["clamp_launches"]},
+                    {"clamp_scale": named}, (r, evs, named))
+
+        (r, evs, clamp_named), tries = profiled_agreement(
+            f"phase 17: {name}", attempt)
         kern = len(evs) / SLICE5_FRAMES
         dev_ms = sum(e.time_range.elapsed_us() for e in evs) / 1e3 \
             / SLICE5_FRAMES
@@ -2030,14 +2071,12 @@ def slice5_timings(nt, torch, card, record) -> dict:
                "fps": r["fps"], "device_busy_share": dev_ms * r["fps"] / 1e3,
                "clamp_launches": r["clamp_launches"],
                "clamp_kernels_by_name": clamp_named,
+               "profiled_runs": tries,
                "addcmul_kernels_per_frame": nms}
         if name.startswith("P"):
             check(r["clamp_launches"] == SLICE5_FRAMES,
                   f"{name}: clamp_scale launched {r['clamp_launches']} times "
                   f"for {SLICE5_FRAMES} frames, expected one per frame")
-            check(clamp_named == SLICE5_FRAMES,
-                  f"{name}: profiler saw {clamp_named} clamp kernels for "
-                  f"{SLICE5_FRAMES} frames")
         else:
             check(r["clamp_launches"] == 0, f"{name}: clamp launched off P")
         if r["lat"]:
@@ -2053,7 +2092,8 @@ def slice5_timings(nt, torch, card, record) -> dict:
               f"{kern:.1f} CUDA kernels and {dev_ms:.3f} ms of kernel time "
               f"per frame, device busy {100 * res['device_busy_share']:.1f}%; "
               f"clamp_scale {r['clamp_launches']} launches for "
-              f"{SLICE5_FRAMES} frames ({clamp_named} by name); addcmul "
+              f"{SLICE5_FRAMES} frames ({clamp_named} by name, profiled run "
+              f"{tries}); addcmul "
               f"(greedy NMS steps) {nms:g} per frame [{card}]")
     record["slice5_pipelines"] = out
     return out
@@ -2586,25 +2626,34 @@ def ring_phase(nt, torch, dev, card, record, params) -> int:
     with torch.inference_mode():
         runs["apply_seq mesh sp4"]()
         torch.cuda.synchronize()
-        kernels.flash_block_update.launches = 0
-        kernels.flash_block_update.launches_tc = 0
-        kernels.flash_block_update.launches_simt = 0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            open_capture(torch)
-            runs["apply_seq mesh sp4"]()
-            torch.cuda.synchronize()
-            close_capture(torch)
-        launches = kernels.flash_block_update.launches
-        variants = {"tc": kernels.flash_block_update.launches_tc,
-                    "simt": kernels.flash_block_update.launches_simt}
-        named = named_launches(prof, ["flash_block_update",
-                                      "flash_block_update simt"])
+
+        def attempt():
+            kernels.flash_block_update.launches = 0
+            kernels.flash_block_update.launches_tc = 0
+            kernels.flash_block_update.launches_simt = 0
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                open_capture(torch)
+                runs["apply_seq mesh sp4"]()
+                torch.cuda.synchronize()
+                close_capture(torch)
+            launches = kernels.flash_block_update.launches
+            variants = {"tc": kernels.flash_block_update.launches_tc,
+                        "simt": kernels.flash_block_update.launches_simt}
+            named = named_launches(prof, ["flash_block_update",
+                                          "flash_block_update simt"])
+            wrapper = {"flash_block_update": variants["tc"],
+                       "flash_block_update simt": variants["simt"]}
+            return wrapper, named, (launches, variants, named)
+
+        (launches, variants, named), tries = profiled_agreement(
+            "phase 21", attempt)
         print(f"phase 21: one bf16 mesh forward: flash_block_update wrapper "
               f"launches {launches}, by variant {variants}; profiler "
               f"launches by name {named} "
               f"({KERNEL_SYMBOL['flash_block_update']}, "
-              f"{KERNEL_SYMBOL['flash_block_update simt']})")
+              f"{KERNEL_SYMBOL['flash_block_update simt']}; profiled run "
+              f"{tries})")
         per_forward = LLM_DIMS["n_layers"] * RING_SHARDS ** 2
         check(launches == named["flash_block_update"] == per_forward,
               f"not {RING_SHARDS ** 2} ring-step launches per layer")
@@ -2730,15 +2779,21 @@ def shard_serving_phase(nt, torch, card, record, ctx) -> int:
     # tensor-core kernel
     from torch.profiler import ProfilerActivity, profile
 
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    _, _, _, plaunch = serve(nt, torch, requests, prof=prof, new_tokens=2,
-                             dtype="bfloat16", **SHARD_PROPS)
-    named = named_launches(prof, ["flash_block_update",
-                                  "flash_block_update simt"])
-    wrapper = {k: plaunch[k] for k in named}
+    def attempt():
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        _, _, _, plaunch = serve(nt, torch, requests, prof=prof,
+                                 new_tokens=2, dtype="bfloat16",
+                                 **SHARD_PROPS)
+        named = named_launches(prof, ["flash_block_update",
+                                      "flash_block_update simt"])
+        wrapper = {k: plaunch[k] for k in named}
+        return wrapper, named, (wrapper, named)
+
+    (wrapper, named), tries = profiled_agreement("phase 22", attempt)
     print(f"phase 22: profiled bf16 run (2 new tokens): flash_block_update "
           f"wrapper launches by variant {wrapper}, profiler launches by name "
-          f"{named}")
+          f"{named} (profiled run {tries})")
     check(named == wrapper == {"flash_block_update": 64 * n_ring,
                                "flash_block_update simt": 0},
           f"bf16 ring prefills: profiler {named}, wrapper {wrapper}")
@@ -3581,11 +3636,13 @@ def burst_arms(nt, torch, descs, frame, n, bursts, prof_frames=48,
     latency from its push to its arrival at the sink. Last, one profiled
     burst of prof_frames an arm: CUDA kernel time and kernel records per
     frame. → {arm: {"fps": [...], "lat": [ms...], "device_ms_per_frame":
-    x, "kernels_per_frame": n}}."""
+    x, "kernels_per_frame": n}}. `frame`: one frame for every arm, or a
+    dict of one an arm."""
     from torch.profiler import ProfilerActivity, profile
 
     from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
 
+    frames = frame if isinstance(frame, dict) else dict.fromkeys(descs, frame)
     live, res = {}, {arm: {"fps": [], "lat": []} for arm in descs}
     pts = [0]
 
@@ -3601,7 +3658,7 @@ def burst_arms(nt, torch, descs, frame, n, bursts, prof_frames=48,
         t0 = time.perf_counter()
         for _ in range(k):
             pushed[pts[0]] = time.perf_counter()
-            pipe.get("src").push(TensorBuffer.of(frame, pts=pts[0]))
+            pipe.get("src").push(TensorBuffer.of(frames[arm], pts=pts[0]))
             pts[0] += 1
         deadline = time.monotonic() + 300
         while len([p for p in pushed if p in seen]) < k:
@@ -4648,9 +4705,11 @@ def closed_loop_arms(nt, descs, frame, n_lat, warmup):
     """Closed-loop latency of several pipelines live at once (descs: arm →
     string from an appsrc named src to a tensor_sink named out): each
     round pushes one frame into every arm in turn (the order reversed
-    every other round) and waits for it at the sink. → {arm: [ms]}."""
+    every other round) and waits for it at the sink. `frame`: one frame
+    for every arm, or a dict of one an arm. → {arm: [ms]}."""
     from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
 
+    frames = frame if isinstance(frame, dict) else dict.fromkeys(descs, frame)
     live, lat = {}, {arm: [] for arm in descs}
     try:
         for arm, desc in descs.items():
@@ -4665,7 +4724,7 @@ def closed_loop_arms(nt, descs, frame, n_lat, warmup):
                 pipe, _, got = live[arm]
                 got.clear()
                 t0 = time.perf_counter()
-                pipe.get("src").push(TensorBuffer.of(frame, pts=i))
+                pipe.get("src").push(TensorBuffer.of(frames[arm], pts=i))
                 check(got.wait(60), f"{arm}: no frame back within 60 s")
                 if i >= warmup:
                     lat[arm].append((time.perf_counter() - t0) * 1e3)
@@ -4825,8 +4884,301 @@ def while_phase(nt, torch, card, record, files) -> None:
     record["while"] = res
 
 
+# -- 34-35. model files, second group ----------------------------------------------
+
+#: phase 34: frames of each card-vs-CPU check and of the windowed runs;
+#: phase 35: closed-loop frames an arm (after warm-up)
+MODELIO2_FRAMES, MODELIO2_WINDOW_FRAMES = 6, 64
+SPEECH_IN = "appsrc name=src dims=1:16022 types=int16"
+
+
+def write_model_files2(out_dir: Path) -> dict:
+    """The second group's models (tools/model_fixtures.py) at full width,
+    weights from seed 0: G config 1's MobileNetV2 (zoo://mobilenet_v2
+    seed 0, BN folded) as a frozen GraphDef; S the speech-commands conv
+    model (64 filters); M MobileNetV1 0.25 at 224² as .rtm; L Caffe's
+    LeNet; R a CIFAR-10 ResNet-20 caffe2 pair; U LeNet-5 as .uff; the
+    add2 .dlc pair. → {name: path}."""
+    from nnstreamer_tpu_torch.tools import model_fixtures as mf
+
+    t0 = time.perf_counter()
+    files = mf.write_all(out_dir)
+    print("phase 34: wrote " + ", ".join(
+        f"{f.name} ({f.stat().st_size} B)" for f in files.values())
+        + f" in {time.perf_counter() - t0:.2f} s")
+    files = {k: str(v) for k, v in files.items()}
+    files["R"] = f"{files['R_init']},{files['R_predict']}"
+    return files
+
+
+def speech_frames(n: int, seed: int) -> list:
+    """n seeded one-second WAV files as the reference feeds them: the
+    file's bytes as an int16 (16022, 1) tensor, header included."""
+    from nnstreamer_tpu_torch.tools.model_fixtures import seeded_speech
+
+    return [np.frombuffer(seeded_speech(seed + i), np.int16).reshape(-1, 1)
+            for i in range(n)]
+
+
+def modelio2_cells(files) -> dict:
+    """name → (the filter after the head, the head (an appsrc named src,
+    with G's and M's normalize_u8 filter), a decoder tail or "")."""
+    norm = f"{APPSRC} ! {NORM_B}"
+    return {
+        "G": (f"tensor_filter name=model model={files['G']} inputname=input "
+              f"outputname=logits", norm, LABEL),
+        "M": (f"tensor_filter name=model framework=deepview-rt "
+              f"model={files['M']}", norm, LABEL),
+        "S": (f"tensor_filter name=model model={files['S']} "
+              f"inputname=wav_data outputname=labels_softmax", SPEECH_IN,
+              LABEL),
+        "L": (f"tensor_filter name=model model={files['L']}",
+              "appsrc name=src dims=28:28:1:1 types=float32", ""),
+        "R": (f"tensor_filter name=model framework=caffe2 "
+              f"model={files['R']}",
+              "appsrc name=src dims=32:32:3:1 types=float32", ""),
+        "U": (f"tensor_filter name=model framework=tensorrt "
+              f"model={files['U']} inputname=in outputname=out",
+              "appsrc name=src dims=1:28:28:1 types=float32", ""),
+        "DLC f32": (f"tensor_filter name=model framework=snpe "
+                    f"model={files['DLC_f']}",
+                    "appsrc name=src dims=1 types=float32", ""),
+        "DLC u8": (f"tensor_filter name=model framework=snpe "
+                   f"model={files['DLC_u8']}",
+                   "appsrc name=src dims=1 types=uint8", ""),
+    }
+
+
+def modelio2_frames(n: int, seed: int) -> dict:
+    """Seeded input frames of each cell."""
+    rng = np.random.default_rng(seed)
+    img = u8_frames((1, 224, 224, 3), n, seed)
+    return {"G": img, "M": img, "S": speech_frames(n, seed),
+            "L": [rng.normal(0, 1, (1, 1, 28, 28)).astype(np.float32)
+                  for _ in range(n)],
+            "R": [rng.normal(0, 1, (1, 3, 32, 32)).astype(np.float32)
+                  for _ in range(n)],
+            "U": [rng.normal(0, 1, (1, 28, 28, 1)).astype(np.float32)
+                  for _ in range(n)],
+            "DLC f32": [np.asarray([v], np.float32)
+                        for v in rng.uniform(-100, 100, n)],
+            "DLC u8": [np.asarray([v], np.uint8)
+                       for v in (0, 10, 1, 253, 254, 255)[:n]]}
+
+
+def cell_desc(cell, accel: str = "", tail: bool = False) -> str:
+    model, head, dec = cell
+    if accel:
+        head = head.replace(NORM_B, f"{NORM_B} accelerator={accel}")
+        model = f"{model} accelerator={accel}"
+    end = f"{dec} ! " if tail and dec else ""
+    return f"{head} ! {model} ! {end}tensor_sink name=out"
+
+
+class CountedDecodes:
+    """Counts the GraphDef host stage's WAV decodes (the module function
+    its host_pre calls) while it is entered."""
+
+    def __enter__(self):
+        from nnstreamer_tpu_torch.modelio import graphdef
+
+        self.mod, self.real, self.n = graphdef, graphdef.decode_wav_bytes, 0
+
+        def counted(*a, **k):
+            self.n += 1
+            return self.real(*a, **k)
+
+        graphdef.decode_wav_bytes = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.decode_wav_bytes = self.real
+
+
+def modelio2_correctness(nt, torch, card, record, files) -> None:
+    """Phase 34: every file f32 on the card (TF32 off) against its own
+    CPU run, G against zoo://mobilenet_v2, the add2 pair bit for bit;
+    normalize_u8 once a frame on G and M (wrapper = profiler); S's host
+    stage once a frame; G, M and S under compiled windows bit for bit
+    their per-frame outputs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.backends import kernels
+
+    cells = modelio2_cells(files)
+    frames = modelio2_frames(MODELIO2_FRAMES, 34)
+    res = {}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with CountedDecodes() as dec:
+            card_out = {k: logits_of(run_desc(nt, cell_desc(c), frames[k]))
+                        for k, c in cells.items()}
+            s_decodes = dec.n
+        cpu_out = {k: logits_of(run_desc(nt, cell_desc(c, "cpu"), frames[k]))
+                   for k, c in cells.items()}
+        zoo = logits_of(run_desc(
+            nt, f"{APPSRC} ! {NORM_B} ! {MODEL}?dtype=float32 ! "
+                f"tensor_sink name=out", frames["G"]))
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    for k, got in card_out.items():
+        want = cpu_out[k]
+        check(got.shape == want.shape and got.shape[0] == len(frames[k]),
+              f"{k}: {got.shape} on the card, {want.shape} on the CPU")
+        if k.startswith("DLC"):
+            xs = np.stack(frames[k]).astype(np.float64)
+            exact = np.clip(np.round(xs + 2), 0, 255) if k == "DLC u8" \
+                else (xs.astype(np.float32) + np.float32(2)).astype(
+                    np.float64)
+            same = got.tobytes() == want.tobytes()
+            res[k] = {"frames": len(got), "card_equals_cpu": same,
+                      "x_plus_2_exact": bool(np.array_equal(got, exact)),
+                      "dtype": str(got.dtype)}
+            print(f"phase 34: {k} ({got.dtype}): card bit for bit the CPU: "
+                  f"{same}; x + 2 exact: {res[k]['x_plus_2_exact']} "
+                  f"(in {xs.ravel()[:3].tolist()} -> out "
+                  f"{got.ravel()[:3].tolist()})")
+            check(same and res[k]["x_plus_2_exact"], f"{k}: not x + 2")
+            continue
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max()) / scale
+        lab = [got.reshape(len(got), -1).argmax(-1),
+               want.reshape(len(want), -1).argmax(-1)]
+        res[k] = {"frames": len(got), "shape": list(got.shape[1:]),
+                  "rel_err_cpu": err, "labels_equal": bool(
+                      np.array_equal(*lab)), "max_abs": scale}
+        extra = ""
+        if k == "G":
+            ez = float(np.abs(got - zoo).max()) / float(np.abs(zoo).max())
+            zl = bool(np.array_equal(lab[0], zoo.reshape(len(zoo), -1)
+                                     .argmax(-1)))
+            res[k].update(rel_err_zoo=ez, labels_equal_zoo=zl)
+            extra = (f"; {ez:.3e} of max |logit| from zoo://mobilenet_v2 "
+                     f"(same params, BN unfolded) on the card, labels "
+                     f"equal {zl}")
+            check(ez <= CPU_TOLERANCE and zl, f"G vs zoo: {ez:.3e}")
+        print(f"phase 34: {k} f32 (TF32 off) on the card, {len(got)} frames "
+              f"{tuple(got.shape[1:])}: within {err:.3e} of max |y| "
+              f"({scale:.4g}) of its CPU run, labels equal "
+              f"{res[k]['labels_equal']}{extra} [{card}]")
+        check(np.isfinite(got).all() and err <= CPU_TOLERANCE
+              and res[k]["labels_equal"], f"{k}: card vs CPU {err:.3e}, "
+                                          f"labels {lab}")
+    res["S"]["host_decodes"] = s_decodes
+    print(f"phase 34: S: the host stage decoded {s_decodes} WAV files for "
+          f"{len(frames['S'])} frames")
+    check(s_decodes == len(frames["S"]), f"S: {s_decodes} decodes")
+
+    # normalize_u8 once a frame on G and M, by the wrapper and by name
+    for k in ("G", "M"):
+        desc = cell_desc(cells[k], tail=True)
+
+        def attempt():
+            kernels.normalize_u8.launches = 0
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                open_capture(torch)
+                out = run_desc(nt, desc, frames[k])
+                torch.cuda.synchronize()
+                close_capture(torch)
+            named = sum("nns_normalize_kernel" in e.name
+                        for e in kernel_events(prof))
+            launched = kernels.normalize_u8.launches
+            return ({"normalize_u8": launched}, {"normalize_u8": named},
+                    (out, launched))
+
+        (out, launched), tries = profiled_agreement(f"phase 34: {k}",
+                                                    attempt)
+        res[k].update(normalize_launches=launched, profiled_runs=tries)
+        print(f"phase 34: {k}: normalize_u8 launched {launched} times for "
+              f"{len(frames[k])} frames, by the wrapper and by name in the "
+              f"profiler (profiled run {tries})")
+        check(len(out) == len(frames[k]) and launched == len(frames[k]),
+              f"{k}: normalize_u8 launched {launched} times")
+
+    # compiled windows bit for bit the per-frame path; S's host stage runs
+    # before each window's copy into the graph's inputs
+    for k in ("G", "M", "S"):
+        desc = cell_desc(cells[k])
+        wframes = (speech_frames(MODELIO2_WINDOW_FRAMES, 340) if k == "S"
+                   else u8_frames((1, 224, 224, 3), MODELIO2_WINDOW_FRAMES,
+                                  340))
+        off = window_run(nt, torch, desc, wframes, "model",
+                         compiled_loop=False)
+        with CountedDecodes() as dec:
+            on = window_run(nt, torch, desc, wframes, "model")
+        st = on["stats"]
+        same = same_outputs(on["out"], off["out"])
+        res[k]["window"] = {"identical": same,
+                            "loop_entries": st["loop_entries"],
+                            "compiled_steps": st["compiled_steps"],
+                            "loop_bails": st["loop_bails"],
+                            "k_hist": on["khist"],
+                            "captures": on["captures"],
+                            "capture_s": on["capture_s"],
+                            "host_decodes": dec.n}
+        print(f"phase 34: {k}, {len(wframes)} frames pushed at once: "
+              f"loop-on bit for bit loop-off: {same}; {st['loop_entries']} "
+              f"windows, {st['compiled_steps']} frames in windows, bails "
+              f"{st['loop_bails']}, windows by K {on['khist']}, "
+              f"{on['captures']} graphs captured"
+              + (f", {dec.n} WAV decodes on the host" if k == "S" else ""))
+        check(same and st["loop_entries"] > 0 and on["captures"] > 0
+              and not st["loop_bails"].get("error"),
+              f"{k}: windows differ from per-frame or none ran: "
+              f"{st['loop_bails']}")
+        if k == "S":
+            check(dec.n == len(wframes), f"S windows: {dec.n} decodes for "
+                                         f"{len(wframes)} frames")
+    record["modelio2_correctness"] = res
+
+
+def modelio2_timings(nt, torch, card, record, files) -> None:
+    """Phase 35: every cell closed-loop (p50/p99, all live at once, frame
+    by frame in turns); G, M and S also in bursts of 200 in turns a b b
+    a, compiled windows off, then on (frames/s, latency under the burst,
+    CUDA kernels and kernel ms a frame from a profiled burst, the card's
+    busy share)."""
+    cells = modelio2_cells(files)
+    first = {k: v[0] for k, v in modelio2_frames(1, 35).items()}
+    descs = {k: cell_desc(c, tail=True) for k, c in cells.items()}
+    res = {k: {} for k in cells}
+    lat = closed_loop_arms(nt, descs, first, MODELIO_LAT, MODELIO_WARMUP)
+    for k, ms in lat.items():
+        res[k]["closed_p50_ms"] = float(np.percentile(ms, 50))
+        res[k]["closed_p99_ms"] = float(np.percentile(ms, 99))
+        print(f"phase 35: {k}: closed-loop latency over {len(ms)} frames "
+              f"(arms in turns, frame by frame) p50 "
+              f"{res[k]['closed_p50_ms']:.3f} ms p99 "
+              f"{res[k]['closed_p99_ms']:.3f} ms [{card}]")
+    timed = {k: descs[k] for k in ("G", "M", "S")}
+    for loop in ("off", "on"):
+        kw = {} if loop == "on" else {"compiled_loop": False}
+        arms = burst_arms(nt, torch, timed, first, BURST, BURSTS,
+                          runner_kw={k: kw for k in timed})
+        for k, a in arms.items():
+            fps = float(np.median(a["fps"]))
+            r = {"fps": a["fps"], "fps_median": fps,
+                 "p50_ms": float(np.percentile(a["lat"], 50)),
+                 "p99_ms": float(np.percentile(a["lat"], 99)),
+                 "device_ms_per_frame": a["device_ms_per_frame"],
+                 "kernels_per_frame": a["kernels_per_frame"],
+                 "busy_share": a["device_ms_per_frame"] * fps / 1e3}
+            res[k][f"loop_{loop}"] = r
+            print(f"phase 35: {k} loop {loop}, bursts of {BURST} frames in "
+                  f"turns: " + " / ".join(f"{f:.1f}" for f in a["fps"])
+                  + f" frames/s; latency under the burst p50 "
+                  f"{r['p50_ms']:.3f} ms p99 {r['p99_ms']:.3f} ms; "
+                  f"{r['kernels_per_frame']:.1f} CUDA kernels and "
+                  f"{r['device_ms_per_frame']:.3f} ms of kernel time a "
+                  f"frame, card busy {100 * r['busy_share']:.1f}% [{card}]")
+    record["modelio2_timings"] = res
+
+
 def modelio_phases(nt, torch, card, record, phases) -> None:
-    """Phases 31-33, the model files in a temporary directory."""
+    """Phases 31-35, the model files in a temporary directory."""
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_modelio_") as d:
@@ -4837,6 +5189,11 @@ def modelio_phases(nt, torch, card, record, phases) -> None:
         phases.done("32 (model files: timings)")
         while_phase(nt, torch, card, record, files)
         phases.done("33 (WHILE)")
+        files2 = write_model_files2(Path(d) / "second")
+        modelio2_correctness(nt, torch, card, record, files2)
+        phases.done("34 (model files, second group: correctness)")
+        modelio2_timings(nt, torch, card, record, files2)
+        phases.done("35 (model files, second group: timings)")
 
 
 def main(argv=None) -> int:
@@ -4859,8 +5216,9 @@ def main(argv=None) -> int:
              "pipelines and the LLM decode window)")
     ap.add_argument(
         "--modelio", action="store_true",
-        help="run phases 1, 2 and 31-33 only (model-file ingestion: "
-             "TFLite float, int8-native and WHILE, .npz)")
+        help="run phases 1, 2 and 31-35 only (model-file ingestion: "
+             "TFLite float, int8-native and WHILE, .npz; GraphDef with the "
+             "audio front end, Caffe, Caffe2, UFF, DLC, RTM)")
     ap.add_argument(
         "--slice4", action="store_true",
         help="run phases 1, 2 and 20-23 only (the ring step, ring "
@@ -4952,7 +5310,7 @@ def main(argv=None) -> int:
         batching_phases(nt, torch, card, record, phases)
         # -- 29-30. compiled windows, the LLM decode window --------------
         window_phases(nt, torch, card, record, phases, ctx)
-        # -- 31-33. model files: TFLite float / int8, WHILE, .npz -------
+        # -- 31-35. model files: TFLite, WHILE, .npz; the second group ---
         modelio_phases(nt, torch, card, record, phases)
     record["phase_seconds"] = phases.seconds
 

@@ -6,7 +6,8 @@ A model is a callable ``fn(params, *inputs) -> outputs`` plus its params
 (an ``nn.Module``, a dict of tensors, or None). Sources of models:
 
 - the in-repo model zoo (``model=zoo://mobilenet_v2``) — models/zoo.py
-- a model file (``model=x.tflite``, ``model=m.npz``) through
+- a model file (``model=x.tflite``, ``m.npz``, ``g.pb``, ``n.caffemodel``,
+  ``init.pb,predict.pb``, ``l.uff``, ``a.dlc``, ``m.rtm``) through
   modelio.load_model_file, with the ``custom=`` loader options
 - a `ModelBundle` or a callable passed programmatically to the element
 
@@ -18,7 +19,11 @@ Every holder must ask for the same model and device.
 
 The backend runs eagerly on its device (`pick_device`). Fused pre/post
 chains run on the device around the model, after staging, so a uint8
-frame crosses to the device as uint8. `invoke` returns without waiting
+frame crosses to the device as uint8. A bundle's `host_pre` (the
+GraphDef DecodeWav entry) runs on the host before staging, once a frame:
+in `run`, per frame of a window before its copy into the graph's inputs,
+per frame where a micro-batch gives way to one invoke a frame; the
+FLEXIBLE path refuses it. `invoke` returns without waiting
 for the device; the sink or host decoder that reads the result is the
 sync point.
 
@@ -97,6 +102,11 @@ class ModelBundle:
     in_spec: Optional[TensorsSpec] = None
     out_spec: Optional[TensorsSpec] = None
     name: str = ""
+    #: optional host-side input stage, run on each frame's tensors before
+    #: staging: for inputs that are bytes to parse, not tensor math (the
+    #: GraphDef DecodeWav entry decodes the RIFF header here and the PCM
+    #: samples go to the device)
+    host_pre: Optional[Callable[[tuple], tuple]] = None
 
 
 @dataclass
@@ -166,13 +176,15 @@ def to_tuple(x) -> Tuple:
 
 def params_to(params, device: torch.device):
     """Move a model's params to `device`: an nn.Module in place (and into
-    eval mode), a (nested) dict of tensors by copy."""
+    eval mode), a (nested) dict, list or tuple of tensors by copy."""
     if isinstance(params, torch.nn.Module):
         return params.to(device).eval()
     if isinstance(params, torch.Tensor):
         return params.to(device)
     if isinstance(params, dict):
         return {k: params_to(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(params_to(v, device) for v in params)
     return params
 
 
@@ -319,7 +331,8 @@ class TorchBackend(FilterBackend):
                                name=getattr(model, "__name__", "callable"))
         raise BackendError(
             f"unrecognized model reference {model!r} for framework=torch; "
-            f"expected zoo://<name>, a model file (.tflite, .npz), a "
+            f"expected zoo://<name>, a model file (.tflite, .npz, .pb, "
+            f".caffemodel, init,predict .pb pair, .uff, .dlc, .rtm), a "
             f"ModelBundle, or a callable")
 
     def close(self) -> None:
@@ -405,6 +418,8 @@ class TorchBackend(FilterBackend):
 
     def run(self, tensors: ArrayTuple) -> ArrayTuple:
         model = self._held()
+        if model[0].host_pre is not None:
+            tensors = tuple(model[0].host_pre(tuple(tensors)))
         return self._call(self._stage(tensors), model)
 
     def _batchable(self, sig: Tuple[Tuple[tuple, torch.dtype], ...],
@@ -444,8 +459,11 @@ class TorchBackend(FilterBackend):
         (copies of the last row), the pad rows sliced off the outputs, so
         ragged occupancies run at most log2(max_batch) + 1 shapes. A
         model that refuses the batched shape runs per frame (the base
-        path)."""
+        path), and so does a model with a host-side input stage: it parses
+        each frame's bytes and has no batched form."""
         model = self._held()
+        if model[0].host_pre is not None:
+            return super().invoke_batched(tensors, n, keepdims)
         xs = self._stage(tensors)
         nb = next_pow2(n)
         sig = tuple(((nb,) + tuple(x.shape[1:]), x.dtype) for x in xs)
@@ -471,8 +489,14 @@ class TorchBackend(FilterBackend):
         (the axes before the last) zero-padded first to powers of two
         >= 16, which suits shape-polymorphic models whose output does not
         see the padding (global-pool classifiers). A model that refuses
-        the batched shape runs region by region."""
+        the batched shape runs region by region. A model with a host-side
+        input stage is refused (the JAX package's text)."""
         model = self._held()
+        if model[0].host_pre is not None:
+            raise BackendError(
+                f"model {model[0].name!r} has a host-side input stage "
+                f"(host_pre) which the flexible-shape path does not "
+                f"support; use the fixed-shape invoke path")
         rs = self._stage(regions)
         out: List[Any] = [None] * len(rs)
         groups: Dict[tuple, List[int]] = {}
@@ -528,6 +552,11 @@ class TorchBackend(FilterBackend):
                                   for x in frames[0]))
         on_card = self.device.type == "cuda"
         g = self._graphs.get(key) if on_card else None  # raises if failed
+        host_pre = model[0].host_pre
+        if host_pre is not None:
+            # the host stage runs before the copy into the graph's static
+            # inputs, never inside a capture
+            frames = [tuple(host_pre(tuple(f))) for f in frames]
         staged = [self._stage(f) for f in frames]
         t0 = time.perf_counter()
         if on_card:

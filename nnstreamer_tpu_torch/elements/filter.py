@@ -8,8 +8,8 @@ combinations, per-invoke latency/throughput (:354-460), hot reload
 (`is-updatable`), invoke-dynamic, invoke error propagation.
 
 - `framework=` picks the backend (torch, alias xla; pallas for the
-  hand-written kernels; the reference's tensorflow-lite names map to
-  torch, `_FRAMEWORK_ALIASES`); empty means the model file's extension
+  hand-written kernels; the reference's framework names of the formats
+  the port loads map to torch, `_FRAMEWORK_ALIASES`); empty means the model file's extension
   (modelio.MODEL_EXTENSIONS), then [filter] default_backend (torch).
 - `custom=` is the backend's option string (modelio.parse_loader_opts);
   `inputname`/`outputname` go into the same loader options.
@@ -190,12 +190,14 @@ class TensorFilter(Element):
         self._post = post
 
     #: reference framework names → the port's backends, so reference
-    #: pipeline strings run verbatim. Only the frameworks whose model
-    #: files the port loads map to torch (tensorflow: its .tflite files;
-    #: .pb waits for model-file ingestion's second group)
+    #: pipeline strings run verbatim (`framework=snpe model=add2_float.dlc`,
+    #: `framework=deepview-rt model=....rtm`). Only the frameworks whose
+    #: model files the port loads map to torch (pytorch waits for .pt)
     _FRAMEWORK_ALIASES = {
         "tensorflow-lite": "torch", "tensorflow1-lite": "torch",
         "tensorflow2-lite": "torch", "tensorflow": "torch",
+        "caffe2": "torch", "snpe": "torch", "deepview-rt": "torch",
+        "tensorrt": "torch", "armnn": "torch",
     }
 
     # -- negotiation / backend open ---------------------------------------

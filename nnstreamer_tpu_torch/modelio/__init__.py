@@ -8,13 +8,21 @@ modelio/__init__.py for the formats the port reads so far:
   bf16, or run int8-native with custom=dtype=int8, tflite_quant.py).
 - `.npz` — this framework's own serialized params format for zoo models
   (params_io.py), in the JAX package's layout both ways.
+- `.pb` — a frozen TF GraphDef (graphdef.py; a DecodeWav entry decodes
+  on the host, the bundle's `host_pre`); `inputname=`/`outputname=`
+  bind its nodes.
+- `.caffemodel` — a Caffe NetParameter snapshot (caffe.py).
+- `"init_net.pb,predict_net.pb"` — a caffe2 NetDef pair (caffe2.py).
+- `.uff` — an NVIDIA/TensorRT UFF MetaGraph (uff.py; no input shape in
+  the file: the filter negotiates it from caps).
+- `.dlc` — an SNPE Deep Learning Container (dlc.py).
+- `.rtm` — a DeepViewRT model (rtm.py).
 
-`.pb`, `.pt`, `.uff`, `.caffemodel`, `.dlc`, `.rtm` and caffe2's
-"init_net.pb,predict_net.pb" pairs are recognised and refused with a
-`BackendError` saying the format is not ported yet (ROADMAP Queue 1,
-item 2). `load_model_file(path, **opts)` dispatches on extension and
-returns a `backends.torch_backend.ModelBundle`; `parse_loader_opts`
-parses the filter's `custom=` string into those options.
+`.pt` (TorchScript) is recognised and refused with a `BackendError`
+saying it is not ported yet (ROADMAP Queue 1, item 2).
+`load_model_file(path, **opts)` dispatches on extension and returns a
+`backends.torch_backend.ModelBundle`; `parse_loader_opts` parses the
+filter's `custom=` string into those options.
 """
 
 from __future__ import annotations
@@ -28,13 +36,13 @@ from nnstreamer_tpu_torch.modelio.tflite import (
     lower_tflite, parse_tflite, register_tflite_custom_op)
 import nnstreamer_tpu_torch.modelio.tflite_custom  # noqa: F401 (registers ops)
 
-#: extensions this package recognises → default backend. Only tflite and
-#: npz load yet; the others are refused naming the roadmap item
+#: extensions this package recognises → default backend (.pt is refused
+#: naming the roadmap item)
 MODEL_EXTENSIONS = {"tflite": "torch", "npz": "torch", "pb": "torch",
                     "pt": "torch", "uff": "torch", "caffemodel": "torch",
                     "dlc": "torch", "rtm": "torch"}
 #: formats recognised but not ported yet
-_NOT_PORTED = ("pb", "pt", "uff", "caffemodel", "dlc", "rtm")
+_NOT_PORTED = ("pt",)
 
 
 def model_ext(path: str) -> str:
@@ -46,9 +54,9 @@ def model_ext(path: str) -> str:
 def _not_ported(what: str) -> BackendError:
     return BackendError(
         f"{what} is not ported to nnstreamer_tpu_torch yet (ROADMAP "
-        f"Queue 1 item 2, model-file ingestion: graphdef, caffe, caffe2, "
-        f"uff, dlc, rtm, then torchscript); the port loads .tflite and "
-        f".npz")
+        f"Queue 1 item 2, model-file ingestion: torchscript); the port "
+        f"loads .tflite, .npz, .pb, .caffemodel, caffe2 init,predict "
+        f"pairs, .uff, .dlc and .rtm")
 
 
 def load_model_file(path: str, batch: Optional[int] = None,
@@ -82,7 +90,17 @@ def load_model_file(path: str, batch: Optional[int] = None,
                 "custom=dtype= is not consumed by caffe2 init,predict "
                 "pairs (they run in the NetDef's declared dtypes); "
                 "supported for .tflite and .pt")
-        raise _not_ported(f"the caffe2 init,predict pair {path!r}")
+        from nnstreamer_tpu_torch.modelio.caffe2 import lower_caffe2
+
+        lowered = lower_caffe2(parts[0], parts[1],
+                               input_names=input_names,
+                               output_names=output_names, batch=batch,
+                               side=side)
+        return ModelBundle(
+            fn=lowered.fn, params=lowered.params,
+            in_spec=mk(lowered.in_shapes, lowered.in_dtypes),
+            out_spec=mk(lowered.out_shapes, lowered.out_dtypes),
+            name=lowered.name)
 
     if not os.path.exists(path):
         raise BackendError(
@@ -153,6 +171,55 @@ def load_model_file(path: str, batch: Optional[int] = None,
         from nnstreamer_tpu_torch.modelio.params_io import load_model
 
         return load_model(path)
+
+    if ext == "pb":
+        from nnstreamer_tpu_torch.modelio.graphdef import (
+            lower_graphdef, parse_graphdef)
+
+        lowered = lower_graphdef(
+            parse_graphdef(path), input_names=input_names,
+            output_names=output_names, batch=batch,
+            sample_rate=sample_rate)
+        wav = lowered.host_pre is not None
+        return ModelBundle(
+            fn=lowered.fn, params=lowered.params,
+            # wav-entry graphs take raw file bytes whose length is
+            # pipeline-declared (reference: input=1:16022 inputtype=int16)
+            in_spec=None if wav else mk(lowered.in_shapes,
+                                        lowered.in_dtypes),
+            out_spec=mk(lowered.out_shapes, lowered.out_dtypes),
+            name=os.path.basename(path), host_pre=lowered.host_pre)
+
+    if ext == "uff":
+        from nnstreamer_tpu_torch.modelio.uff import lower_uff, parse_uff
+
+        lowered = lower_uff(parse_uff(path), input_names=input_names,
+                            output_names=output_names)
+        # UFF carries no input shape (reference: pipeline-declared
+        # dims); fn takes any NHWC input, specs negotiate from caps
+        return ModelBundle(fn=lowered.fn, params=lowered.params,
+                           in_spec=None, out_spec=None,
+                           name=os.path.basename(path))
+
+    if ext in ("dlc", "rtm", "caffemodel"):
+        if ext == "dlc":
+            from nnstreamer_tpu_torch.modelio.dlc import lower_dlc, parse_dlc
+
+            lowered = lower_dlc(parse_dlc(path), batch=batch)
+        elif ext == "rtm":
+            from nnstreamer_tpu_torch.modelio.rtm import lower_rtm, parse_rtm
+
+            lowered = lower_rtm(parse_rtm(path), batch=batch)
+        else:
+            from nnstreamer_tpu_torch.modelio.caffe import (
+                lower_caffe, parse_caffemodel)
+
+            lowered = lower_caffe(parse_caffemodel(path), batch=batch)
+        return ModelBundle(
+            fn=lowered.fn, params=lowered.params,
+            in_spec=mk(lowered.in_shapes, lowered.in_dtypes),
+            out_spec=mk(lowered.out_shapes, lowered.out_dtypes),
+            name=os.path.basename(path))
 
     if ext in _NOT_PORTED:
         raise _not_ported(f"the .{ext} format ({path!r})")

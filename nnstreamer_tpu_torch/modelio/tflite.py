@@ -377,6 +377,24 @@ class LoweredModel:
     out_shapes: List[Tuple[int, ...]]
     out_dtypes: List[np.dtype]
     name: str = ""
+    #: a host-side input stage run on each frame before staging (the
+    #: GraphDef DecodeWav entry: bytes in, decoded samples out)
+    host_pre: Optional[Callable[[tuple], tuple]] = None
+
+
+def probe_outputs(fn, params, in_shapes, in_dtypes
+                  ) -> Tuple[List[Tuple[int, ...]], List[np.dtype]]:
+    """The output shapes and dtypes of `fn(params, *inputs)`, run once on
+    the ``meta`` device (no data, no device work) — the lowerings'
+    counterpart of the JAX package's eval_shape probe."""
+    from nnstreamer_tpu_torch.backends.torch_backend import params_on_meta
+
+    xs = [torch.empty(tuple(s), dtype=torch_dtype(d), device="meta")
+          for s, d in zip(in_shapes, in_dtypes)]
+    with torch.inference_mode():
+        outs = fn(params_on_meta(params), *xs)
+    return ([tuple(int(d) for d in o.shape) for o in outs],
+            [np.dtype(str(o.dtype).replace("torch.", "")) for o in outs])
 
 
 def batch_shaper(graph: TFLiteGraph, batch: Optional[int]):
@@ -625,10 +643,19 @@ def _spatial_pads(x_nchw: torch.Tensor, k_hw, stride, dil, same: bool):
 
 def _conv_nhwc(x: torch.Tensor, w: torch.Tensor, b, stride, dil,
                same: bool, groups: int) -> torch.Tensor:
-    """NHWC conv with OIHW weights: the NCHW view in, the NHWC view out;
-    uneven SAME pads through F.pad."""
+    """NHWC conv with OIHW weights, VALID or TF SAME padding."""
+    pads = _spatial_pads(x.permute(0, 3, 1, 2), w.shape[2:], stride, dil,
+                         same)
+    return conv_nhwc(x, w, b, stride, dil, pads, groups)
+
+
+def conv_nhwc(x: torch.Tensor, w: torch.Tensor, b, stride, dil, pads,
+              groups: int) -> torch.Tensor:
+    """NHWC conv with OIHW weights and explicit (top, bottom, left,
+    right) pads: the NCHW view in, the NHWC view out; uneven pads through
+    F.pad."""
     xc = x.permute(0, 3, 1, 2)
-    pt, pb, pl, pr = _spatial_pads(xc, w.shape[2:], stride, dil, same)
+    pt, pb, pl, pr = pads
     if pt == pb and pl == pr:
         y = F.conv2d(xc, w, b, stride=stride, padding=(pt, pl),
                      dilation=dil, groups=groups)
@@ -636,6 +663,42 @@ def _conv_nhwc(x: torch.Tensor, w: torch.Tensor, b, stride, dil,
         y = F.conv2d(F.pad(xc, (pl, pr, pt, pb)), w, b, stride=stride,
                      dilation=dil, groups=groups)
     return y.permute(0, 2, 3, 1)
+
+
+def pool_nhwc(x: torch.Tensor, is_max: bool, window, stride, pads,
+              cache) -> torch.Tensor:
+    """NHWC max or average pool with explicit (top, bottom, left, right)
+    pads, in TF's meaning: padding never wins a max, and an average
+    divides by the valid pixels of its window (a count tensor made once
+    per shape; asymmetric under SAME, so count_include_pad cannot say
+    it). Averages come back float32."""
+    xc = x.permute(0, 3, 1, 2)
+    pt, pb, pl, pr = pads
+    if is_max:
+        if any(pads):
+            xc = F.pad(xc, (pl, pr, pt, pb), value=float("-inf"))
+        return F.max_pool2d(xc, window, stride).permute(0, 2, 3, 1)
+    xf = xc.to(torch.float32)
+    if not any(pads):
+        return F.avg_pool2d(xf, window, stride).permute(0, 2, 3, 1)
+    s = F.avg_pool2d(F.pad(xf, (pl, pr, pt, pb)), window, stride,
+                     divisor_override=1)
+    h, w_ = xc.shape[2], xc.shape[3]
+
+    def count():
+        ones = np.pad(np.ones((h, w_), np.float32), ((pt, pb), (pl, pr)))
+        oh = (h + pt + pb - window[0]) // stride[0] + 1
+        ow = (w_ + pl + pr - window[1]) // stride[1] + 1
+        c = np.zeros((oh, ow), np.float32)
+        for i in range(oh):
+            for j in range(ow):
+                c[i, j] = ones[i * stride[0]:i * stride[0] + window[0],
+                               j * stride[1]:j * stride[1] + window[1]].sum()
+        return c
+
+    cnt = _dev_const(cache, ("avgcnt", h, w_, tuple(window), tuple(stride),
+                             tuple(pads)), x.device, count)
+    return (s / cnt).permute(0, 2, 3, 1)
 
 
 def _dev_const(cache, key, device, make: Callable[[], np.ndarray],
@@ -844,41 +907,11 @@ def _eval_op(graph: TFLiteGraph, sg: "Subgraph", op: OpDef, get,
         x = get(op.inputs[0])
         stride = (opt_i(2, 1), opt_i(1, 1))
         window = (opt_i(4, 1), opt_i(3, 1))
-        xc = x.permute(0, 3, 1, 2)
-        pads = _spatial_pads(xc, window, stride, (1, 1),
+        pads = _spatial_pads(x.permute(0, 3, 1, 2), window, stride, (1, 1),
                              opt_b(0) == _PAD_SAME)
-        pt, pb, pl, pr = pads
-        if code == OP["MAX_POOL_2D"]:
-            if any(pads):
-                xc = F.pad(xc, (pl, pr, pt, pb), value=float("-inf"))
-            y = F.max_pool2d(xc, window, stride)
-        else:
-            xf = xc.to(torch.float32)
-            if not any(pads):
-                y = F.avg_pool2d(xf, window, stride)
-            else:
-                s = F.avg_pool2d(F.pad(xf, (pl, pr, pt, pb)), window,
-                                 stride, divisor_override=1)
-                h, w_ = xc.shape[2], xc.shape[3]
-
-                def count():
-                    ones = np.pad(np.ones((h, w_), np.float32),
-                                  ((pt, pb), (pl, pr)))
-                    oh = (h + pt + pb - window[0]) // stride[0] + 1
-                    ow = (w_ + pl + pr - window[1]) // stride[1] + 1
-                    c = np.zeros((oh, ow), np.float32)
-                    for i in range(oh):
-                        for j in range(ow):
-                            c[i, j] = ones[i * stride[0]:i * stride[0]
-                                           + window[0],
-                                           j * stride[1]:j * stride[1]
-                                           + window[1]].sum()
-                    return c
-
-                y = s / _dev_const(cache, ("avgcnt", h, w_, window, stride,
-                                           pads), x.device, count)
-            y = y.to(cdt)
-        return _act(y.permute(0, 2, 3, 1), opt_b(5))
+        y = pool_nhwc(x, code == OP["MAX_POOL_2D"], window, stride, pads,
+                      cache)
+        return _act(y.to(cdt), opt_b(5))
 
     if code in (OP["ADD"], OP["MUL"], OP["SUB"], OP["DIV"],
                 OP["MAXIMUM"], OP["MINIMUM"]):

@@ -17,8 +17,9 @@ the torch backend), against the JAX package, on the CPU.
   `custom=dtype=int8` give the labels the
   JAX pipeline gives on the same file and frames; the float file behind
   `tensor_batch` runs one invoke a frame (its batch is baked) with
-  outputs equal to the unbatched run's; formats not ported yet and the
-  loader's refusals raise with their text; with no card and no CPU
+  outputs equal to the unbatched run's; `.pt` (not ported yet) and the
+  loader's refusals raise with their text, and a garbage file of each
+  format of the second group with the JAX loader's; with no card and no CPU
   request a model file's filter refuses to open;
 - a `device=true` decoder after a filter with `output_combination` stays
   an element of its own (fault F6: the port fused it, and negotiation
@@ -286,13 +287,28 @@ def test_torch_filter_float_file_micro_batched_runs_per_frame(mbv2_files):
 @pytest.mark.parametrize("ext", ["pb", "pt", "uff", "caffemodel", "dlc",
                                  "rtm"])
 def test_torch_formats_not_ported_raise(tmp_path, ext):
+    """.pt is not ported yet; a garbage file of each other format fails
+    loud with the JAX loader's text."""
+    from nnstreamer_tpu.core.errors import BackendError as JBackendError
+    from nnstreamer_tpu.modelio import load_model_file as jload_model_file
+
     p = tmp_path / f"m.{ext}"
     p.write_bytes(b"\x00" * 16)
-    with pytest.raises(BackendError, match="not ported.*Queue 1 item 2"):
+    if ext == "pt":
+        with pytest.raises(BackendError, match="not ported.*Queue 1 item 2"):
+            load_model_file(str(p))
+        return
+    with pytest.raises(BackendError) as got:
         load_model_file(str(p))
+    with pytest.raises(JBackendError) as want:
+        jload_model_file(str(p))
+    assert str(got.value) == str(want.value)
 
 
 def test_torch_caffe2_pair_refused(tmp_path):
+    from nnstreamer_tpu.core.errors import BackendError as JBackendError
+    from nnstreamer_tpu.modelio import load_model_file as jload_model_file
+
     with pytest.raises(BackendError, match="exactly"):
         load_model_file("a.pb,b.pb,c.pb")
     with pytest.raises(BackendError, match="does not exist"):
@@ -300,8 +316,11 @@ def test_torch_caffe2_pair_refused(tmp_path):
     a, b = tmp_path / "i.pb", tmp_path / "p.pb"
     a.write_bytes(b"x")
     b.write_bytes(b"x")
-    with pytest.raises(BackendError, match="not ported"):
+    with pytest.raises(BackendError, match="is not a caffe2 NetDef") as got:
         load_model_file(f"{a},{b}")
+    with pytest.raises(JBackendError) as want:
+        jload_model_file(f"{a},{b}")
+    assert str(got.value) == str(want.value)
 
 
 def test_torch_loader_refusals(tmp_path, mbv2_files):
