@@ -191,13 +191,13 @@ class TensorFilter(Element):
 
     #: reference framework names → the port's backends, so reference
     #: pipeline strings run verbatim (`framework=snpe model=add2_float.dlc`,
-    #: `framework=deepview-rt model=....rtm`). Only the frameworks whose
-    #: model files the port loads map to torch (pytorch waits for .pt)
+    #: `framework=deepview-rt model=....rtm`, `framework=pytorch
+    #: model=....pt`): every framework whose model files the port loads
     _FRAMEWORK_ALIASES = {
         "tensorflow-lite": "torch", "tensorflow1-lite": "torch",
         "tensorflow2-lite": "torch", "tensorflow": "torch",
         "caffe2": "torch", "snpe": "torch", "deepview-rt": "torch",
-        "tensorrt": "torch", "armnn": "torch",
+        "tensorrt": "torch", "armnn": "torch", "pytorch": "torch",
     }
 
     # -- negotiation / backend open ---------------------------------------

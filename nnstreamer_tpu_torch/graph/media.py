@@ -1,4 +1,5 @@
-"""Media-domain stream specs (the video/x-raw, text/x-raw caps analog).
+"""Media-domain stream specs (the video/x-raw, text/x-raw,
+application/octet-stream caps analog).
 
 Only the edges of a pipeline speak media: sources produce media buffers,
 `tensor_converter` turns them into tensors, `tensor_decoder` turns tensors
@@ -63,3 +64,10 @@ class TextSpec(MediaSpec):
     @property
     def media(self) -> MediaType:
         return MediaType.TEXT
+
+
+@dataclass(frozen=True)
+class OctetSpec(MediaSpec):
+    @property
+    def media(self) -> MediaType:
+        return MediaType.OCTET

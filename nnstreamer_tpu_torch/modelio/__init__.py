@@ -17,9 +17,10 @@ modelio/__init__.py for the formats the port reads so far:
   the file: the filter negotiates it from caps).
 - `.dlc` — an SNPE Deep Learning Container (dlc.py).
 - `.rtm` — a DeepViewRT model (rtm.py).
+- `.pt` — a TorchScript archive, legacy (model.json) or modern
+  (data.pkl), its code interpreted onto torch ops (torchscript.py; no
+  input shape in the file: the filter negotiates it from caps).
 
-`.pt` (TorchScript) is recognised and refused with a `BackendError`
-saying it is not ported yet (ROADMAP Queue 1, item 2).
 `load_model_file(path, **opts)` dispatches on extension and returns a
 `backends.torch_backend.ModelBundle`; `parse_loader_opts` parses the
 filter's `custom=` string into those options.
@@ -36,27 +37,16 @@ from nnstreamer_tpu_torch.modelio.tflite import (
     lower_tflite, parse_tflite, register_tflite_custom_op)
 import nnstreamer_tpu_torch.modelio.tflite_custom  # noqa: F401 (registers ops)
 
-#: extensions this package recognises → default backend (.pt is refused
-#: naming the roadmap item)
+#: extensions this package recognises → default backend
 MODEL_EXTENSIONS = {"tflite": "torch", "npz": "torch", "pb": "torch",
                     "pt": "torch", "uff": "torch", "caffemodel": "torch",
                     "dlc": "torch", "rtm": "torch"}
-#: formats recognised but not ported yet
-_NOT_PORTED = ("pt",)
 
 
 def model_ext(path: str) -> str:
     """The lower-case extension of a model path ("" without one): what
     picks the loader, and the filter's backend when framework= is empty."""
     return path.rsplit(".", 1)[-1].lower() if "." in path else ""
-
-
-def _not_ported(what: str) -> BackendError:
-    return BackendError(
-        f"{what} is not ported to nnstreamer_tpu_torch yet (ROADMAP "
-        f"Queue 1 item 2, model-file ingestion: torchscript); the port "
-        f"loads .tflite, .npz, .pb, .caffemodel, caffe2 init,predict "
-        f"pairs, .uff, .dlc and .rtm")
 
 
 def load_model_file(path: str, batch: Optional[int] = None,
@@ -190,6 +180,19 @@ def load_model_file(path: str, batch: Optional[int] = None,
             out_spec=mk(lowered.out_shapes, lowered.out_dtypes),
             name=os.path.basename(path), host_pre=lowered.host_pre)
 
+    if ext == "pt":
+        from nnstreamer_tpu_torch.modelio.torchscript import (
+            lower_torchscript)
+
+        lowered = lower_torchscript(
+            path, compute_dtype=compute_dtype or "float32")
+        # TorchScript archives carry no input shape metadata (like the
+        # reference, dims are pipeline-declared: tensor_filter_pytorch
+        # gets them from caps); specs resolve via set_input_info
+        return ModelBundle(fn=lowered.fn, params=lowered.params,
+                           in_spec=None, out_spec=None,
+                           name=os.path.basename(path))
+
     if ext == "uff":
         from nnstreamer_tpu_torch.modelio.uff import lower_uff, parse_uff
 
@@ -220,9 +223,6 @@ def load_model_file(path: str, batch: Optional[int] = None,
             in_spec=mk(lowered.in_shapes, lowered.in_dtypes),
             out_spec=mk(lowered.out_shapes, lowered.out_dtypes),
             name=os.path.basename(path))
-
-    if ext in _NOT_PORTED:
-        raise _not_ported(f"the .{ext} format ({path!r})")
 
     raise BackendError(
         f"unsupported model file extension {ext!r} for {path!r}; "

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Writes TF GraphDef, Caffe, Caffe2, UFF, DLC and RTM model files and
-PCM16 WAV files for tests and on-card checks (fixture tooling, not a
-feature of the system: nothing registers it with the pipeline and the
-package does not export it).
+"""Writes TF GraphDef, Caffe, Caffe2, UFF, DLC, RTM and TorchScript model
+files and PCM16 WAV files for tests and on-card checks (fixture tooling,
+not a feature of the system: nothing registers it with the pipeline and
+the package does not export it).
 
 The machine with the card has no tensorflow, caffe, TensorRT, SNPE or
 DeepViewRT, and the repository holds no model file, so the loaders'
@@ -36,18 +36,31 @@ port's zoo model) parameters:
   the reference's `mobilenet_v1_0.25_224.rtm`) as an RTMx flatbuffer:
   28 convs (depthwise with groups = C and HWCM weights), average pool,
   reshape, softmax;
-- `wav_bytes` — a PCM16 RIFF/WAVE file.
+- `wav_bytes` — a PCM16 RIFF/WAVE file;
+- TorchScript (torch's own writer for the modern archive format):
+  `write_torchscript_mbv2` — the zoo's MobileNetV2 module (NHWC in, NCHW
+  inside, as the reference's LeNet-5 takes NHWC frames) saved with
+  `torch.jit.trace`; `write_torchscript_encoder` — an
+  `nn.TransformerEncoder` (batch first) saved with `torch.jit.script`;
+  `write_legacy_lenet5` — a producerVersion-1.0 archive (`model.json`,
+  `code/lenet5.py`, `tensors/N`), the layout of the reference's
+  `pytorch_lenet5.pt`, which current torch no longer writes or loads:
+  LeNet-5 at lenet.prototxt's widths, uint8 NHWC (1, 28, 28, 1) in, a
+  uint8 softmax (1, 10) out.
 
     python3 nnstreamer_tpu_torch/tools/model_fixtures.py OUT_DIR \\
-        [--width 1.0] [--size 224] [--filters 64] [--seed 0]
+        [--width 1.0] [--size 224] [--filters 64] [--seed 0] \\
+        [--d-model 1024] [--layers 4]
 
-writes every model above into OUT_DIR (mbv2.pb from ``zoo://mobilenet_v2``
-built with that seed and width, at that input size) and one second of
-seeded audio, speech.wav.
+writes every model above into OUT_DIR (mbv2.pb and mbv2.pt from
+``zoo://mobilenet_v2`` built with that seed and width, at that input
+size; enc.pt with d_model, 8 heads, a 4·d_model FFN and that many layers)
+and one second of seeded audio, speech.wav.
 """
 
 from __future__ import annotations
 
+import json
 import struct
 import sys
 import zipfile
@@ -813,6 +826,138 @@ def write_rtm_mobilenet_v1(path, width: float = 0.25, input_size: int = 224,
         f"mobilenet_v1_{width}_{input_size}"))
 
 
+# -- TorchScript --------------------------------------------------------------
+
+def write_torchscript_mbv2(model, path, input_size: int = 224) -> None:
+    """The zoo's MobileNetV2 module (`models.mobilenet_v2.MobileNetV2`, f32)
+    traced on a zero NHWC frame and saved: NHWC (1, size, size, 3) f32 in,
+    logits (1, classes) out. Its TF-SAME pads are traced as the numbers
+    they are at this size (`layers.same_pads` on ints), as a frozen graph
+    holds them: traced from the frame's shape, they would be size
+    arithmetic on one-element tensors, which the JAX package's loader
+    cannot turn back into the ints `pad` takes."""
+    import warnings
+
+    import torch
+
+    from nnstreamer_tpu_torch.models import layers
+
+    x = torch.zeros(1, input_size, input_size, 3)
+    same_pads = layers.same_pads
+    layers.same_pads = lambda n, k, s: same_pads(int(n), int(k), int(s))
+    try:
+        with torch.no_grad(), warnings.catch_warnings():
+            warnings.simplefilter("ignore", torch.jit.TracerWarning)
+            traced = torch.jit.trace(model.eval(), x)
+    finally:
+        layers.same_pads = same_pads
+    torch.jit.save(traced, str(path))
+
+
+def write_torchscript_encoder(path, d_model: int = 1024, nhead: int = 8,
+                              dim_ff: int = 4096, layers: int = 4,
+                              seed: int = 0) -> None:
+    """An `nn.TransformerEncoder` of `layers` post-norm ReLU layers, batch
+    first, weights from torch's default init under `seed`, scripted and
+    saved: (B, S, d_model) f32 in and out."""
+    import torch
+    from torch import nn
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        layer = nn.TransformerEncoderLayer(d_model, nhead, dim_ff,
+                                           batch_first=True)
+        net = nn.TransformerEncoder(layer, layers,
+                                    enable_nested_tensor=False).eval()
+    torch.jit.save(torch.jit.script(net), str(path))
+
+
+#: the legacy archive's LeNet-5 forward, as torch 1.0 serialized code: uint8
+#: NHWC frames scaled to [0, 1], NCHW inside, a softmax scaled to uint8
+LEGACY_LENET5_CODE = """op_version_set = 0
+def forward(self,
+    input: Tensor) -> Tensor:
+  _0 = torch.permute(torch._cast_Float(input, False), [0, 3, 1, 2])
+  _1 = torch.div(_0, 255.)
+  _2 = torch._convolution(_1, self.conv1.weight, self.conv1.bias, [1, 1], [0, 0], [1, 1], False, [0, 0], 1, False, False, True)
+  _3 = torch.max_pool2d(_2, [2, 2], [2, 2], [0, 0], [1, 1], False)
+  _4 = torch._convolution(_3, self.conv2.weight, self.conv2.bias, [1, 1], [0, 0], [1, 1], False, [0, 0], 1, False, False, True)
+  _5 = torch.max_pool2d(_4, [2, 2], [2, 2], [0, 0], [1, 1], False)
+  _6 = torch.view(_5, [-1, 800])
+  _7 = torch.addmm(self.fc1.bias, _6, torch.t(self.fc1.weight), beta=1, alpha=1)
+  _8 = torch.relu(_7)
+  _9 = torch.addmm(self.fc2.bias, _8, torch.t(self.fc2.weight), beta=1, alpha=1)
+  _10 = torch.mul(torch.softmax(_9, 1), 255)
+  return torch.to(_10, 0, False, False)
+"""
+
+
+def write_legacy_lenet5(path, seed: int = 0) -> None:
+    """LeNet-5 at lenet.prototxt's widths (conv 20 5×5, max-pool 2/2, conv
+    50 5×5, max-pool, fc 500, ReLU, fc 10, softmax) with seeded He
+    weights, as a producerVersion-1.0 TorchScript archive: `model.json`
+    (the module tree, parameters by tensor id, each tensor's dims,
+    strides and storage key), `code/lenet5.py` and raw little-endian
+    storages `tensors/N`."""
+    rng = np.random.default_rng(seed)
+    blobs = [("conv1", _he(rng, (20, 1, 5, 5), 25),
+              rng.normal(0, 0.01, 20).astype(np.float32)),
+             ("conv2", _he(rng, (50, 20, 5, 5), 500),
+              rng.normal(0, 0.01, 50).astype(np.float32)),
+             ("fc1", _he(rng, (500, 800), 800),
+              rng.normal(0, 0.01, 500).astype(np.float32)),
+             ("fc2", _he(rng, (10, 500), 500),
+              rng.normal(0, 0.01, 10).astype(np.float32))]
+    tensors, subs, records = [], [], {}
+    for name, w, b in blobs:
+        params = []
+        for pname, arr in (("weight", w), ("bias", b)):
+            tid = len(tensors)
+            strides = np.cumprod((1,) + arr.shape[:0:-1])[::-1]
+            tensors.append({
+                "dims": [str(d) for d in arr.shape], "offset": "0",
+                "strides": [str(int(s)) for s in strides],
+                "requiresGrad": True, "dataType": "FLOAT",
+                "data": {"key": f"tensors/{tid}"}, "device": "cpu"})
+            records[f"tensors/{tid}"] = arr.astype("<f4").tobytes()
+            params.append({"isBuffer": False, "tensorId": str(tid),
+                           "name": pname})
+        subs.append({"name": name, "parameters": params,
+                     "optimize": True})
+    meta = {"protoVersion": "2", "producerName": "pytorch",
+            "producerVersion": "1.0",
+            "mainModule": {"name": "lenet5", "submodules": subs,
+                           "torchscriptArena": {"key": "code/lenet5.py"},
+                           "optimize": True},
+            "tensors": tensors}
+    with zipfile.ZipFile(path, "w") as zf:
+        zf.writestr("lenet5/version", "1\n")
+        zf.writestr("lenet5/model.json", json.dumps(meta))
+        zf.writestr("lenet5/code/lenet5.py", LEGACY_LENET5_CODE)
+        for key, data in records.items():
+            zf.writestr(f"lenet5/{key}", data)
+
+
+def write_torchscript(out: Path, width: float = 1.0, size: int = 224,
+                      d_model: int = 1024, layers: int = 4,
+                      seed: int = 0) -> Dict[str, Path]:
+    """The TorchScript fixtures into `out` → {"T": mbv2.pt (the zoo's
+    MobileNetV2 at that width and size, traced), "TX": enc.pt (8 heads,
+    FFN 4·d_model, scripted), "LT": lenet5.pt (legacy)}."""
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import build
+
+    out.mkdir(parents=True, exist_ok=True)
+    files = {"T": out / "mbv2.pt", "TX": out / "enc.pt",
+             "LT": out / "lenet5.pt"}
+    model = build(width=width, input_size=size, dtype="float32",
+                  seed=seed).params
+    write_torchscript_mbv2(model, files["T"], input_size=size)
+    write_torchscript_encoder(files["TX"], d_model=d_model,
+                              dim_ff=4 * d_model, layers=layers, seed=seed)
+    write_legacy_lenet5(files["LT"], seed=seed)
+    return files
+
+
 def write_all(out: Path, width: float = 1.0, size: int = 224,
               filters: int = 64, seed: int = 0) -> Dict[str, Path]:
     """Every fixture into `out` → {name: path}."""
@@ -848,10 +993,15 @@ def main(argv=None) -> int:
     ap.add_argument("--size", type=int, default=224)
     ap.add_argument("--filters", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--d-model", type=int, default=1024)
+    ap.add_argument("--layers", type=int, default=4)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
     files = write_all(Path(args.out_dir), args.width, args.size,
                       args.filters, args.seed)
+    files.update(write_torchscript(Path(args.out_dir), args.width,
+                                   args.size, args.d_model, args.layers,
+                                   args.seed))
     for f in files.values():
         print(f"{f}: {f.stat().st_size} bytes")
     return 0

@@ -17,9 +17,9 @@ the torch backend), against the JAX package, on the CPU.
   `custom=dtype=int8` give the labels the
   JAX pipeline gives on the same file and frames; the float file behind
   `tensor_batch` runs one invoke a frame (its batch is baked) with
-  outputs equal to the unbatched run's; `.pt` (not ported yet) and the
-  loader's refusals raise with their text, and a garbage file of each
-  format of the second group with the JAX loader's; with no card and no CPU
+  outputs equal to the unbatched run's; the loader's refusals raise with
+  their text, and a garbage file of each format of the second group and
+  of `.pt` with the JAX loader's; with no card and no CPU
   request a model file's filter refuses to open;
 - a `device=true` decoder after a filter with `output_combination` stays
   an element of its own (fault F6: the port fused it, and negotiation
@@ -287,17 +287,13 @@ def test_torch_filter_float_file_micro_batched_runs_per_frame(mbv2_files):
 @pytest.mark.parametrize("ext", ["pb", "pt", "uff", "caffemodel", "dlc",
                                  "rtm"])
 def test_torch_formats_not_ported_raise(tmp_path, ext):
-    """.pt is not ported yet; a garbage file of each other format fails
-    loud with the JAX loader's text."""
+    """Every format is ported: a garbage file of each (a .pt included)
+    fails loud with the JAX loader's text."""
     from nnstreamer_tpu.core.errors import BackendError as JBackendError
     from nnstreamer_tpu.modelio import load_model_file as jload_model_file
 
     p = tmp_path / f"m.{ext}"
     p.write_bytes(b"\x00" * 16)
-    if ext == "pt":
-        with pytest.raises(BackendError, match="not ported.*Queue 1 item 2"):
-            load_model_file(str(p))
-        return
     with pytest.raises(BackendError) as got:
         load_model_file(str(p))
     with pytest.raises(JBackendError) as want:
