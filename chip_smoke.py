@@ -6,7 +6,8 @@
     python3 chip_smoke.py --slice6    # phases 1, 2 and 24-26 only
     python3 chip_smoke.py --batching  # phases 1, 2, 27 and 28 only
     python3 chip_smoke.py --window    # phases 1, 2, 29 and 30 only
-    python3 chip_smoke.py --modelio   # phases 1, 2 and 31-37 only
+    python3 chip_smoke.py --modelio   # phases 1, 2 and 31-38 only
+    python3 chip_smoke.py --elements  # phases 1, 2, 39 and 40 only
 
 Needs one CUDA card, nvcc and the repository checkout around this file;
 imports nothing of JAX. On a machine with several cards, phases 21-22
@@ -314,6 +315,46 @@ phases there). Phases:
    off, then on (frames/s, latency under the burst, CUDA kernels and kernel
    time a frame, the card's busy share); host ms a call of T's code walk,
    of its recorded call list and of G's bound steps.
+38. item 2's pieces that had run only on the CPU: the TorchScript LSTM
+   (uni- and bidirectional), GRU, SDPA block (full and causal),
+   MultiheadAttention and TransformerDecoder archives
+   (tools/model_fixtures.write_torchscript_nn, written here) and the
+   TFLite files only TensorFlow writes, committed in
+   nnstreamer_tpu_torch/tools/data/ (the breadth ops, the
+   TFLite_Detection_PostProcess custom op, the keras LSTM's WHILE graph),
+   and custom=batch=4 on config 1's MobileNetV2 file, each f32 on the card
+   (TF32 off) within 1e-3 of max |y| of its own CPU run (detections: the
+   same count and classes, boxes and scores within 1e-4), batch=4 also of
+   four batch-1 invokes;
+39. the DSL's elements at full width (MobileNetV2 1.0, 224², seed 0; f32
+   with TF32 off for the checks, bf16 for the launch counts and windows;
+   frames from seeded numpy): E1 a 640×480 source tee'd into normalize_u8
+   → tensor_resize 224² bilinear (on the card: its output CUDA tensors
+   within 1e-5 of max |.| of the CPU run) → the model → labels (equal to
+   the CPU run's, logits within 1e-3 of max |logit|), and a preview
+   branch (tensor_rate 10/1 throttle=false → tensor_resize 120×160 →
+   transpose; bit for bit the CPU run, as many frames); normalize_u8 once
+   a frame (wrapper and profiler); windows on = off bit for bit. E2
+   tensor_if on one device logit (a threshold between two first-pass
+   values), passthrough / fill_zero through queues into join: every
+   frame's label that of the host decision, one forced sync a frame under
+   tensor_if; an average / range_inclusive gate before B's head: the model
+   runs exactly on the frames that pass. E3 (1, 224, 448, 3) → normalize_u8
+   → tensor_split → two shared MobileNetV2 filters → tensor_merge →
+   tensor_aggregator 4 every 2: CUDA tensors, merged logits within 1e-6 of
+   max |logit| of single-filter runs on contiguous halves, each window the
+   stack of its frames, windows on = off, one model's memory. A
+   transposed view into the model (fused and unfused) against the CPU
+   run. E4 a
+   tensor_repo loop s ← 0.9·s + 0.1·logits: the recurrence within 1e-6,
+   no forced sync, no thread left. 3b: filesrc .npy → B → filesink gives
+   B's labels' bytes; tensor_sink to-host=false max-results=4 keeps the
+   last 4 as CUDA tensors;
+40. E1, E3 and B (bf16) live at once: closed-loop p50/p99 frame by frame
+   in turns; bursts of 200 in turns a b b a, compiled windows off, then on
+   (frames/s, latency under the burst, CUDA kernels and kernel time a
+   frame, busy share); host and device ms a call of E1's resize, host ms
+   a frame of its preview branch; E2's forced syncs a frame.
 
 Each kernel's timing phase (6, 10, 15, 16, 23) also prints its time per
 call from Python, back to back — the host's time (the launch path's own
@@ -329,7 +370,8 @@ checkout, it exits non-zero at once. A JSON record of the run goes to
 chiprun_out/chip_smoke.json (chip_smoke_slice4.json with --slice4,
 chip_smoke_slice6.json with --slice6, chip_smoke_batching.json with
 --batching, chip_smoke_window.json with --window,
-chip_smoke_modelio.json with --modelio).
+chip_smoke_modelio.json with --modelio, chip_smoke_elements.json with
+--elements).
 """
 
 from __future__ import annotations
@@ -5597,8 +5639,673 @@ def torchscript_timings(nt, torch, card, record, files, files1,
     record["torchscript_timings"] = res
 
 
+# -- 38. item 2's CPU-only pieces on the card ---------------------------------
+
+class NoTf32:
+    """TF32 off for matmuls and convolutions inside the block, the
+    previous settings back after."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        b = self.torch.backends
+        self.saved = (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32)
+        b.cuda.matmul.allow_tf32 = b.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        b = self.torch.backends
+        b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32 = self.saved
+
+
+def single_outputs(model, xs, custom="", accel=""):
+    """One SingleShot invoke of `model` (framework torch) on host arrays
+    → its outputs as host arrays."""
+    from nnstreamer_tpu_torch.runtime.sync import to_host
+    from nnstreamer_tpu_torch.single import SingleShot
+
+    with SingleShot(model=model, framework="torch", custom=custom,
+                    accelerator=accel) as s:
+        outs = s.invoke(*xs)
+        if not accel:
+            check(all(o.is_cuda for o in outs), f"{model}: not on the card")
+        return [np.asarray(o) for o in to_host(outs)]
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want| over output lists (float64)."""
+    scale = max(float(np.abs(np.asarray(w, np.float64)).max()) for w in want)
+    return max(float(np.abs(np.asarray(g, np.float64)
+                            - np.asarray(w, np.float64)).max())
+               for g, w in zip(got, want)) / max(scale, 1e-30)
+
+
+def item2_card_phase(nt, torch, card, record) -> None:
+    """Phase 38: the TorchScript recurrent/attention/MHA/decoder archives
+    (tools/model_fixtures.write_torchscript_nn, written here) and the
+    TFLite files only TensorFlow writes (committed in tools/data/:
+    the breadth ops, the TFLite_Detection_PostProcess custom op, the
+    keras LSTM's WHILE graph), and `custom=batch=4` on config 1's
+    MobileNetV2 file (tools/tflite_fixture.py), each f32 on the card (TF32
+    off) against its own CPU run, within CPU_TOLERANCE of max |y|;
+    detections: the same count and classes."""
+    import tempfile
+
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import build
+    from nnstreamer_tpu_torch.tools import model_fixtures as mf
+    from nnstreamer_tpu_torch.tools import tflite_fixture as fx
+    from nnstreamer_tpu_torch.tools import tflite_tf_fixtures as tff
+
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_item2_") as d, \
+            NoTf32(torch):
+        d = Path(d)
+        for name in mf.TORCHSCRIPT_NN:
+            path = str(d / f"{name}.pt")
+            xs = mf.write_torchscript_nn(path, name)
+            got = single_outputs(path, xs)
+            want = single_outputs(path, xs, accel="cpu")
+            err = rel_err(got, want)
+            res[name] = {"outputs": len(got), "rel_err_cpu": err}
+            print(f"phase 38: TorchScript {name} ({len(got)} outputs, "
+                  f"inputs {[x.shape for x in xs]}) f32 on the card within "
+                  f"{err:.3e} of max |y| of its CPU run [{card}]")
+            check(len(got) == len(want) and all(
+                np.isfinite(g).all() for g in got) and err <= CPU_TOLERANCE,
+                f"{name}: card vs CPU {err:.3e}")
+        files = {k: str(tff.DATA / v) for k, v in tff.FILES.items()}
+        rng = np.random.default_rng(38)
+        cases = {"elementwise": [[rng.normal(0, 1, (2, 8)).astype(np.float32)]
+                                 for _ in range(2)],
+                 "spatial": [[rng.normal(0, 1, (1, 4, 4, 8))
+                              .astype(np.float32)] for _ in range(2)],
+                 "lstm": [[rng.normal(0, 1, (1, 8, 6)).astype(np.float32)]
+                          for _ in range(2)]}
+        for name, inputs in cases.items():
+            errs = [rel_err(single_outputs(files[name], xs, "dtype=float32"),
+                            single_outputs(files[name], xs, "dtype=float32",
+                                           "cpu")) for xs in inputs]
+            res[name] = {"rel_err_cpu": max(errs)}
+            print(f"phase 38: TFLite {name} ({Path(files[name]).name}) f32 "
+                  f"on the card within {max(errs):.3e} of max |y| of its CPU "
+                  f"run, {len(inputs)} inputs [{card}]")
+            check(max(errs) <= CPU_TOLERANCE, f"{name}: {errs}")
+        dets = []
+        for seed in (10, 11, 12):
+            r = np.random.default_rng(seed)
+            N, C = tff.DETECT_N, tff.DETECT_C
+            be = r.normal(0, 0.5, (1, N, 4)).astype(np.float32)
+            sc = r.uniform(0, 0.25, (1, N, C + 1)).astype(np.float32)
+            for i in r.choice(N, 6, replace=False):
+                sc[0, i, r.integers(1, C + 1)] = r.uniform(0.6, 0.99)
+            g = single_outputs(files["detect"], [be, sc], "dtype=float32")
+            w = single_outputs(files["detect"], [be, sc], "dtype=float32",
+                               "cpu")
+            n = int(w[3][0])
+            same = int(g[3][0]) == n and np.array_equal(g[1][0][:n],
+                                                        w[1][0][:n])
+            err = max(float(np.abs(g[k][0][:n] - w[k][0][:n]).max())
+                      for k in (0, 2)) if n else 0.0
+            dets.append({"count": n, "same_count_classes": bool(same),
+                         "max_abs_err": err})
+            check(same and n > 0 and err <= 1e-4,
+                  f"detect seed {seed}: {dets[-1]}")
+        res["detect"] = dets
+        print(f"phase 38: TFLite detect (TFLite_Detection_PostProcess) on "
+              f"the card vs its CPU run, 3 seeded cases: detections "
+              f"{[x['count'] for x in dets]}, counts and classes equal, "
+              f"boxes and scores within "
+              f"{max(x['max_abs_err'] for x in dets):.3e} [{card}]")
+        mb = d / "mbv2_float.tflite"
+        fx.write_mobilenet_v2(build(dtype="float32", seed=0).params, mb)
+        frames = [np.random.default_rng(380 + i).uniform(
+            -1, 1, (1, 224, 224, 3)).astype(np.float32) for i in range(4)]
+        x4 = np.concatenate(frames)
+        b4 = single_outputs(str(mb), [x4], "batch=4,dtype=float32")[0]
+        b4_cpu = single_outputs(str(mb), [x4], "batch=4,dtype=float32",
+                                "cpu")[0]
+        b1 = np.concatenate([single_outputs(str(mb), [f], "dtype=float32")[0]
+                             for f in frames])
+        e_cpu, e_b1 = rel_err([b4], [b4_cpu]), rel_err([b4], [b1])
+        res["batch4"] = {"shape": list(b4.shape), "rel_err_cpu": e_cpu,
+                         "rel_err_batch1": e_b1}
+        print(f"phase 38: custom=batch=4 on mbv2_float.tflite (full width, "
+              f"224²): output {b4.shape}, within {e_cpu:.3e} of max |logit| "
+              f"of its CPU run and {e_b1:.3e} of four batch-1 invokes on the "
+              f"card [{card}]")
+        check(b4.shape == (4, 1001) and e_cpu <= CPU_TOLERANCE
+              and e_b1 <= CPU_TOLERANCE, f"batch=4: {res['batch4']}")
+    record["item2_on_card"] = res
+
+
+# -- 39-40. the DSL's elements: tee, tensor_if, split/merge, repo -------------
+
+#: phase 39's frames a check, E1's preview rate, phase 40's closed-loop
+#: frames an arm (after warm-up)
+ELEM_FRAMES, ELEM_LAT, ELEM_WARMUP = 12, 30, 5
+V640 = "videotestsrc width=640 height=480 pattern=random"
+NORM_CPU = NORM_B + " accelerator=cpu"
+
+
+def e1_desc(n: int, dtype: str = "float32", accel: str = "",
+            src: str = "", preview: str = "tensor_sink name=preview") -> str:
+    """E1: a 640×480 source tee'd into the model branch (normalize_u8 →
+    tensor_resize 224² bilinear on the card → MobileNetV2 → labels, the
+    logits also kept) and the preview branch (tensor_rate 10/1, no
+    throttle → tensor_resize 120×160 nearest → transpose to NCHW)."""
+    acc = f" accelerator={accel}" if accel else ""
+    src = src or f"{V640} num-buffers={n} ! tensor_converter"
+    return (f"{src} ! tee name=t "
+            f"t. ! queue ! {NORM_B}{acc} ! tensor_resize name=rs "
+            f"size=224:224 method=bilinear ! tensor_filter name=model "
+            f"model=zoo://mobilenet_v2?dtype={dtype}{acc} ! tee name=m "
+            f"m. ! queue ! {LABEL} ! tensor_sink name=labels "
+            f"m. ! queue ! tensor_sink name=logits "
+            f"t. ! queue ! tensor_rate framerate=10/1 throttle=false ! "
+            f"tensor_resize size=120:160 ! tensor_transform mode=transpose "
+            f"option=1:2:0:3 ! {preview}")
+
+
+def e3_desc(dtype: str = "float32", accel: str = "",
+            tail: str = "tensor_sink name=out to-host=false") -> str:
+    """E3: (1, 224, 448, 3) uint8 → normalize_u8 → tensor_split into two
+    224² halves (strided views) → two MobileNetV2 filters sharing one
+    model → tensor_merge on axis 0 → (the merged logits kept) →
+    tensor_aggregator windows of 4 frames every 2."""
+    acc = f" accelerator={accel}" if accel else ""
+    model = (f"model=zoo://mobilenet_v2?dtype={dtype}{acc} "
+             f"shared-tensor-filter-key=e3{accel}{dtype}")
+    return (f"appsrc name=src dims=3:448:224:1 types=uint8 ! {NORM_B}{acc} ! "
+            f"tensor_split name=sp tensorseg=224:224 axis=2 "
+            f"sp.src_0 ! tensor_filter name=fa {model} ! mg.sink_0 "
+            f"sp.src_1 ! tensor_filter name=fb {model} ! mg.sink_1 "
+            f"tensor_merge name=mg option=0 sync-mode=nosync ! tee name=mt "
+            f"mt. ! queue ! tensor_sink name=merged to-host=false "
+            f"mt. ! queue ! tensor_aggregator frames-out=4 frames-flush=2 "
+            f"frames-dim=0 ! {tail}")
+
+
+def e2_desc(idx: int, thr: float, accel: str = "") -> str:
+    """E2: MobileNetV2 logits → tensor_if on logit `idx` (> thr: pass,
+    else zeros) → both branches through queue into join → labels."""
+    acc = f" accelerator={accel}" if accel else ""
+    return (f"{APPSRC} ! {NORM_B}{acc} ! tensor_filter name=model "
+            f"model=zoo://mobilenet_v2?dtype=float32{acc} ! tensor_if "
+            f"name=gate compared-value=a_value compared-value-option=0:{idx} "
+            f"operator=gt supplied-value={thr!r} then=passthrough "
+            f"else=fill_zero "
+            f"gate.src_0 ! queue ! j.sink_0 gate.src_1 ! queue ! j.sink_1 "
+            f"join name=j ! {LABEL} ! tensor_sink name=out")
+
+
+def gate_desc(lo: int, hi: int, accel: str = "") -> str:
+    """B's head behind an `average` / range_inclusive gate on the uint8
+    frames."""
+    acc = f" accelerator={accel}" if accel else ""
+    return (f"{APPSRC} ! tensor_if compared-value=average "
+            f"compared-value-option=0 operator=range_inclusive "
+            f"supplied-value={lo}:{hi} ! {NORM_B}{acc} ! tensor_filter "
+            f"name=model model=zoo://mobilenet_v2?dtype=float32{acc} ! "
+            f"{LABEL} ! tensor_sink name=out")
+
+
+def run_sinks(nt, desc, frames=None, sinks=("out",), **runner_kw):
+    """`desc` run to EOS (frames pushed into "src" when given) → ({sink:
+    results}, runner)."""
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    pipe = nt.parse_launch(desc)
+    runner = nt.PipelineRunner(pipe, **runner_kw).start()
+    try:
+        if frames is not None:
+            for i, f in enumerate(frames):
+                pipe.get("src").push(TensorBuffer.of(f, pts=i))
+            pipe.get("src").end()
+        runner.wait(600)
+    finally:
+        runner.stop()
+    return {s: pipe.get(s).results for s in sinks}, runner, pipe
+
+
+def e1_phase(nt, torch, card, res) -> None:
+    """E1: the resize on the card against the CPU; labels, f32 logits and
+    the preview against the CPU run; normalize_u8 once a frame (wrapper
+    and profiler); compiled windows on and off bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.backends import kernels
+
+    n = ELEM_FRAMES
+    sinks = ("labels", "logits", "preview")
+    rs_tail = (f"{V640} num-buffers=4 ! tensor_converter ! {NORM_B}{{acc}} "
+               f"! tensor_resize name=rs size=224:224 method=bilinear ! "
+               f"tensor_sink name=out to-host=false")
+    with NoTf32(torch):
+        rs_card, _, pipe = run_sinks(nt, rs_tail.format(acc=""))
+        on_card = sorted({str(k[3]) for k in pipe.get("rs")._consts})
+        rs_cpu, _, _ = run_sinks(nt, rs_tail.format(acc=" accelerator=cpu"))
+        card_out, _, pipe = run_sinks(nt, e1_desc(n), sinks=sinks)
+        cpu_out, _, _ = run_sinks(nt, e1_desc(n, accel="cpu"), sinks=sinks)
+    rs_card, rs_cpu = rs_card["out"], rs_cpu["out"]
+    check(len(rs_card) == len(rs_cpu) == 4 and all(
+        r.tensors[0].is_cuda for r in rs_card),
+        f"E1 resize: {len(rs_card)} outputs, not all CUDA tensors")
+    got = [r.tensors[0].cpu().numpy() for r in rs_card]
+    want = [r.tensors[0].numpy() for r in rs_cpu]
+    rs_err = rel_err(got, want)
+    res["resize"] = {"devices": on_card, "rel_err_cpu": rs_err,
+                     "shape": list(got[0].shape)}
+    print(f"phase 39: E1 tensor_resize 640×480 → 224² bilinear ran on "
+          f"{on_card}: its f32 output {got[0].shape} (CUDA tensors) within "
+          f"{rs_err:.3e} of max |.| of the CPU run [{card}]")
+    check(on_card == ["cuda:0"] and rs_err <= 1e-5, f"E1 resize: {res}")
+    lab = [[b.meta["label_index"] for b in o["labels"]]
+           for o in (card_out, cpu_out)]
+    lg = [logits_of(o["logits"]) for o in (card_out, cpu_out)]
+    err = rel_err([lg[0]], [lg[1]])
+    prev_same = same_outputs(card_out["preview"], cpu_out["preview"])
+    res["model_branch"] = {"frames": len(lab[0]), "labels_equal":
+                           lab[0] == lab[1], "rel_err_cpu": err}
+    res["preview"] = {"frames": len(card_out["preview"]),
+                      "cpu_frames": len(cpu_out["preview"]),
+                      "identical": prev_same,
+                      "shape": list(np.asarray(
+                          card_out["preview"][0].tensors[0]).shape)}
+    print(f"phase 39: E1 f32 (TF32 off), {n} frames of 640×480: labels "
+          f"equal the CPU run's: {lab[0] == lab[1]} ({lab[0][:4]}…); logits "
+          f"within {err:.3e} of max |logit|; preview {res['preview']} bit "
+          f"for bit the CPU run [{card}]")
+    check(len(lab[0]) == n and lab[0] == lab[1] and err <= CPU_TOLERANCE,
+          f"E1 model branch: {res['model_branch']}")
+    check(prev_same and 0 < len(card_out["preview"]) < n
+          and res["preview"]["shape"] == [1, 3, 120, 160],
+          f"E1 preview: {res['preview']}")
+
+    def attempt():
+        kernels.normalize_u8.launches = 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            open_capture(torch)
+            out, _, _ = run_sinks(nt, e1_desc(n, "bfloat16"), sinks=sinks)
+            torch.cuda.synchronize()
+            close_capture(torch)
+        named = sum("nns_normalize_kernel" in e.name
+                    for e in kernel_events(prof))
+        launched = kernels.normalize_u8.launches
+        return ({"normalize_u8": launched}, {"normalize_u8": named},
+                (out, launched))
+
+    (out, launched), tries = profiled_agreement("phase 39: E1", attempt)
+    res["normalize_launches"] = launched
+    print(f"phase 39: E1 bf16: normalize_u8 launched {launched} times for "
+          f"{n} frames of 640×480, by the wrapper and by name in the "
+          f"profiler (profiled run {tries})")
+    check(launched == n and len(out["labels"]) == n,
+          f"E1: normalize_u8 launched {launched} times for {n} frames")
+    runs = {}
+    for loop in (False, True):
+        out, runner, _ = run_sinks(nt, e1_desc(3 * n, "bfloat16"),
+                                   sinks=sinks, compiled_loop=loop)
+        runs[loop] = (out, runner.stats()["model"])
+    same = all(same_outputs(runs[True][0][s], runs[False][0][s])
+               for s in sinks)
+    st = runs[True][1]
+    res["window"] = {"identical": same, "loop_entries": st["loop_entries"],
+                     "compiled_steps": st["compiled_steps"],
+                     "loop_bails": st["loop_bails"]}
+    print(f"phase 39: E1 bf16, {3 * n} frames: compiled windows on bit for "
+          f"bit off on every sink: {same}; {st['loop_entries']} windows, "
+          f"{st['compiled_steps']} frames in windows, bails "
+          f"{st['loop_bails']}")
+    check(same, "E1: windows on and off differ")
+
+
+def e2_phase(nt, torch, card, res) -> None:
+    """E2: tensor_if on one device logit, threshold between two first-pass
+    values so both branches fire; each frame's branch = the host
+    decision on the same logits; one forced sync a frame under
+    tensor_if. Then the average / range_inclusive gate: the model runs
+    exactly on the frames that pass."""
+    n = ELEM_FRAMES
+    frames = u8_frames((1, 224, 224, 3), n, 39)
+    with NoTf32(torch):
+        first = logits_of(run_desc(
+            nt, f"{APPSRC} ! {NORM_B} ! tensor_filter "
+                f"model=zoo://mobilenet_v2?dtype=float32 ! tensor_sink "
+                f"name=out", frames)).reshape(n, -1)
+        idx = int(np.argmax(first.std(0)))
+        vals = np.sort(first[:, idx])
+        gaps = np.diff(vals)[n // 4: n - n // 4]
+        k = n // 4 + int(np.argmax(gaps))
+        thr = float((vals[k] + vals[k + 1]) / 2)
+        out, runner, _ = run_sinks(nt, e2_desc(idx, thr), frames, trace=True)
+    decided = first[:, idx] > thr
+    got = {b.pts: b.meta["label_index"] for b in out["out"]}
+    want = {i: int(first[i].argmax()) if decided[i] else 0
+            for i in range(n)}
+    syncs = runner.tracer.forced_syncs().get("gate", 0)
+    res["E2"] = {"frames": len(got), "logit": idx, "threshold": thr,
+                 "then": int(decided.sum()), "labels_match": got == want,
+                 "then_labels_nonzero": bool(all(
+                     want[i] != 0 for i in range(n) if decided[i])),
+                 "forced_syncs_under_tensor_if": syncs}
+    print(f"phase 39: E2 tensor_if on logit {idx} > {thr:.6g} (f32, TF32 "
+          f"off): {int(decided.sum())} of {n} frames then (passthrough), the "
+          f"rest else (fill_zero), joined: every frame's label matches the "
+          f"host decision on the first pass's logits: {got == want}; forced "
+          f"syncs under tensor_if {syncs} ({syncs / n:.3f} a frame) [{card}]")
+    check(got == want and 0 < decided.sum() < n and syncs == n,
+          f"E2: {res['E2']}, got {got}, want {want}")
+    rng = np.random.default_rng(391)
+    bright = rng.integers(20, 236, n)
+    gframes = [np.clip(b + rng.integers(-20, 21, (1, 224, 224, 3)), 0, 255)
+               .astype(np.uint8) for b in bright]
+    lo, hi = 80, 170
+    passes = [i for i, f in enumerate(gframes) if lo <= f.mean() <= hi]
+    out, runner, _ = run_sinks(nt, gate_desc(lo, hi), gframes)
+    ran = runner.stats()["model"]["buffers"]
+    pts = [b.pts for b in out["out"]]
+    res["gate"] = {"frames": n, "pass": passes, "model_buffers": ran,
+                   "out_pts": pts}
+    print(f"phase 39: average / range_inclusive {lo}:{hi} gate on uint8 "
+          f"frames of brightness {bright.tolist()}: frames {passes} pass; "
+          f"the model ran {ran} times, labels at pts {pts}")
+    check(ran == len(passes) and pts == passes and 0 < len(passes) < n,
+          f"gate: {res['gate']}")
+
+
+def e3_phase(nt, torch, card, res) -> None:
+    """E3: results stay CUDA tensors; merged logits = two single-filter
+    runs on contiguous halves (f32, TF32 off); each window the stack of
+    its frames; windows on = off; one model's memory; normalize_u8 once
+    a frame (the wrapper's count)."""
+    from nnstreamer_tpu_torch.backends import kernels
+    from nnstreamer_tpu_torch.models.zoo import build_model
+
+    n = 10
+    frames = u8_frames((1, 224, 448, 3), n, 393)
+    model = build_model("mobilenet_v2?dtype=float32").params
+    one = sum(t.numel() * t.element_size()
+              for t in (*model.parameters(), *model.buffers()))
+    del model
+    gc.collect()
+    torch.cuda.synchronize()
+    with NoTf32(torch):
+        pipe = nt.parse_launch(e3_desc())
+        before = torch.cuda.memory_allocated()
+        runner = nt.PipelineRunner(pipe).start()
+        opened = torch.cuda.memory_allocated() - before
+        kernels.normalize_u8.launches = 0
+        push_and_wait(pipe, runner, frames)
+        launched = kernels.normalize_u8.launches
+        wins, merged = pipe.get("out").results, pipe.get("merged").results
+        halves = [logits_of(run_desc(
+            nt, f"appsrc name=src dims=3:224:224:1 types=uint8 ! {NORM_B} ! "
+                f"tensor_filter model=zoo://mobilenet_v2?dtype=float32 ! "
+                f"tensor_sink name=out",
+            [np.ascontiguousarray(f[:, :, h * 224:(h + 1) * 224])
+             for f in frames])) for h in (0, 1)]
+        off, _, _ = run_sinks(nt, e3_desc(), frames,
+                              sinks=("out", "merged"), compiled_loop=False)
+    cuda = all(r.tensors[0].is_cuda for r in wins + merged)
+    m = [r.tensors[0].cpu().numpy() for r in merged]
+    ref = [np.concatenate([halves[0][i], halves[1][i]]) for i in range(n)]
+    err = rel_err(m, ref)
+    stacked = all(
+        np.array_equal(w.tensors[0].cpu().numpy(),
+                       np.concatenate(m[2 * j:2 * j + 4]))
+        and w.pts == merged[2 * j + 3].pts for j, w in enumerate(wins))
+    same = (same_outputs(_host(wins), _host(off["out"]))
+            and same_outputs(_host(merged), _host(off["merged"])))
+    res["E3"] = {"frames": n, "windows": len(wins), "cuda": cuda,
+                 "rel_err_halves": err, "windows_stack_frames": stacked,
+                 "windows_on_equal_off": same, "opened_bytes": opened,
+                 "model_bytes": one, "normalize_launches": launched}
+    print(f"phase 39: E3, {n} frames (1, 224, 448, 3): {len(merged)} merged "
+          f"(2, 1001) and {len(wins)} windows (8, 1001), CUDA tensors: "
+          f"{cuda}; merged within {err:.3e} of max |logit| of two "
+          f"single-filter runs on contiguous halves (f32, TF32 off); each "
+          f"window the stack of its 4 frames bit for bit: {stacked}; "
+          f"windows on = off: {same}; opening E3 took {opened} B, one "
+          f"MobileNetV2 {one} B; normalize_u8 launched {launched} times "
+          f"[{card}]")
+    check(launched == n and cuda and len(merged) == n and len(wins) == (n - 4) // 2 + 1
+          and err <= 1e-6 and stacked and same
+          and 0.5 * one <= opened <= 1.5 * one, f"E3: {res['E3']}")
+
+
+def _host(results):
+    return [r.to_host() for r in results]
+
+
+def push_and_wait(pipe, runner, frames):
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    try:
+        for i, f in enumerate(frames):
+            pipe.get("src").push(TensorBuffer.of(f, pts=i))
+        pipe.get("src").end()
+        runner.wait(600)
+    finally:
+        runner.stop()
+
+
+def view_phase(nt, torch, card, res) -> None:
+    """A transposed view into the model filter: `transpose 0:2:1:3`
+    (H and W swapped, 224² stays 224²) fused into the filter (a permuted
+    view reaches the model) and unfused (a view staged contiguous), each
+    against the CPU run (f32, TF32 off)."""
+    frames = u8_frames((1, 224, 224, 3), 6, 396)
+    desc = (f"{APPSRC} ! {NORM_B}{{acc}} ! tensor_transform mode=transpose "
+            f"option=0:2:1:3 ! tensor_filter "
+            f"model=zoo://mobilenet_v2?dtype=float32{{acc}} ! tensor_sink "
+            f"name=out")
+    with NoTf32(torch):
+        runs = {k: logits_of(run_sinks(nt, desc.format(acc=acc), frames,
+                                       optimize=opt)[0]["out"])
+                for k, acc, opt in (("fused", "", True),
+                                    ("unfused", "", False),
+                                    ("cpu", " accelerator=cpu", True))}
+    errs = {k: rel_err([runs[k]], [runs["cpu"]]) for k in ("fused",
+                                                           "unfused")}
+    labels = {k: runs[k].reshape(len(frames), -1).argmax(-1).tolist()
+              for k in runs}
+    res["transposed_view"] = {"rel_err_cpu": errs, "labels": labels}
+    print(f"phase 39: transpose 0:2:1:3 into MobileNetV2, {len(frames)} "
+          f"frames f32: fused (a permuted view into the model) within "
+          f"{errs['fused']:.3e} and unfused (staged contiguous) within "
+          f"{errs['unfused']:.3e} of max |logit| of the CPU run; labels "
+          f"equal: {labels['fused'] == labels['unfused'] == labels['cpu']} "
+          f"[{card}]")
+    check(max(errs.values()) <= CPU_TOLERANCE
+          and labels["fused"] == labels["unfused"] == labels["cpu"],
+          f"transposed view: {res['transposed_view']}")
+
+
+def e4_phase(nt, torch, card, res) -> None:
+    """E4: a repo loop s ← 0.9·s + 0.1·logits over the card's logits:
+    the states equal the recurrence in torch, no forced sync in the loop,
+    the runner stops with no thread left waiting."""
+    from nnstreamer_tpu_torch.backends.torch_backend import ModelBundle
+    from nnstreamer_tpu_torch.elements import REPO
+    from nnstreamer_tpu_torch.runtime import sync
+
+    n = ELEM_FRAMES
+    frames = u8_frames((1, 224, 224, 3), n, 394)
+    REPO.reset()
+    desc = (f"tensor_repo_src name=state slot=39 dims=1001:1 types=float32 "
+            f"count={n} ! mx.sink_0 "
+            f"{APPSRC} ! {NORM_B} ! tensor_filter name=model "
+            f"model=zoo://mobilenet_v2?dtype=float32 ! tee name=lt "
+            f"lt. ! queue ! mx.sink_1 "
+            f"lt. ! queue ! tensor_sink name=logits to-host=false "
+            f"tensor_mux name=mx sync-mode=nosync ! tensor_filter name=rec ! "
+            f"tee name=st st. ! queue ! tensor_repo_sink slot=39 "
+            f"st. ! queue ! tensor_sink name=out to-host=false")
+    with NoTf32(torch):
+        pipe = nt.parse_launch(desc)
+        pipe.get("rec").set_props(model=ModelBundle(
+            fn=lambda p, s, x: (0.9 * s + 0.1 * x,), name="recurrence"))
+        runner = nt.PipelineRunner(pipe, trace=True).start()
+        syncs0 = sync.forced_sync_count()
+        push_and_wait(pipe, runner, frames)
+        syncs = sync.forced_sync_count() - syncs0
+    states = [r.tensors[0] for r in pipe.get("out").results]
+    logits = [r.tensors[0] for r in pipe.get("logits").results]
+    s = torch.zeros(1, 1001, device="cuda")
+    ref = []
+    for x in logits:
+        s = 0.9 * s + 0.1 * x
+        ref.append(s)
+    err = max(float((a - b).abs().max()) for a, b in zip(states, ref))
+    cuda = all(t.is_cuda for t in states)
+    waiting = [t.name for t in threading.enumerate()
+               if t.is_alive() and ("state" in t.name or "repo" in t.name)]
+    res["E4"] = {"frames": len(states), "max_abs_err": err, "cuda": cuda,
+                 "forced_syncs": syncs, "threads_left": waiting,
+                 "traced_syncs": runner.tracer.forced_syncs()}
+    print(f"phase 39: E4 repo loop, {n} frames: states s ← 0.9·s + "
+          f"0.1·logits as CUDA tensors ({cuda}) within {err:.3e} of the "
+          f"recurrence in torch; forced syncs in the run {syncs}; threads "
+          f"left {waiting} [{card}]")
+    check(len(states) == n and cuda and err <= 1e-6 and syncs == 0
+          and not waiting, f"E4: {res['E4']}")
+
+
+def io_phase(nt, torch, card, res) -> None:
+    """3b on the card: filesrc .npy → B → filesink = B's labels' bytes;
+    tensor_sink to-host=false max-results=4 keeps the last 4 as CUDA
+    tensors."""
+    import tempfile
+
+    n = ELEM_FRAMES
+    frames = u8_frames((1, 224, 224, 3), n, 395)
+    b = run_desc(nt, f"{APPSRC} ! {NORM_B} ! {MODEL} ! {LABEL} ! "
+                     f"tensor_sink name=out", frames)
+    want = b"".join(np.asarray(r.tensors[0]).tobytes() for r in b)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_io_") as d:
+        npy, txt = Path(d) / "frames.npy", Path(d) / "labels.txt"
+        np.save(npy, np.stack(frames))
+        run_sinks(nt, f"filesrc location={npy} ! {NORM_B} ! {MODEL} ! "
+                      f"{LABEL} ! filesink location={txt}", sinks=())
+        got = txt.read_bytes()
+    out, _, _ = run_sinks(nt, f"{APPSRC} ! {NORM_B} ! {MODEL} ! tensor_sink "
+                              f"name=out to-host=false max-results=4", frames)
+    kept = out["out"]
+    res["io"] = {"filesink_bytes": len(got), "filesink_equal": got == want,
+                 "kept": [r.pts for r in kept],
+                 "kept_cuda": all(r.tensors[0].is_cuda for r in kept)}
+    print(f"phase 39: filesrc frames.npy → B → filesink: {len(got)} bytes, "
+          f"B's labels' bytes: {got == want}; tensor_sink to-host=false "
+          f"max-results=4 kept pts {res['io']['kept']} as CUDA tensors: "
+          f"{res['io']['kept_cuda']}")
+    check(got == want and len(got) > 0
+          and res["io"]["kept"] == list(range(n - 4, n))
+          and res["io"]["kept_cuda"], f"3b: {res['io']}")
+
+
+def elements_correctness(nt, torch, card, record) -> None:
+    """Phase 39: E1-E4 and 3b on the card."""
+    res = {}
+    e1_phase(nt, torch, card, res)
+    e2_phase(nt, torch, card, res)
+    e3_phase(nt, torch, card, res)
+    view_phase(nt, torch, card, res)
+    e4_phase(nt, torch, card, res)
+    io_phase(nt, torch, card, res)
+    record["elements_correctness"] = res
+
+
+def elements_timings(nt, torch, card, record) -> None:
+    """Phase 40 (no claim): E1, E3 and B live at once: closed-loop
+    p50/p99 frame by frame in turns; bursts of 200 in turns a b b a,
+    compiled windows off, then on (frames/s, latency under the burst,
+    kernels and kernel ms a frame, busy share); host and device ms a
+    call of E1's resize on the card and host ms a frame of its preview
+    branch; E2's forced syncs a frame (phase 39)."""
+    from nnstreamer_tpu_torch.elements.transform import (
+        TensorResize, TransformProgram)
+
+    tail = f"{LABEL} ! tensor_sink name=out"
+    descs = {
+        "B": f"{APPSRC} ! {NORM_B} ! {MODEL} ! {tail}",
+        "E1": e1_desc(0, "bfloat16",
+                      src="appsrc name=src dims=3:640:480:1 types=uint8",
+                      preview="fakesink").replace(
+            "tensor_sink name=labels", "tensor_sink name=out").replace(
+            "m. ! queue ! tensor_sink name=logits", "m. ! queue ! fakesink"),
+        "E3": e3_desc("bfloat16", tail="fakesink").replace(
+            "tensor_sink name=merged to-host=false", "tensor_sink name=out"),
+    }
+    rng = np.random.default_rng(40)
+    first = {"B": rng.integers(0, 256, (1, 224, 224, 3), np.uint8),
+             "E1": rng.integers(0, 256, (1, 480, 640, 3), np.uint8),
+             "E3": rng.integers(0, 256, (1, 224, 448, 3), np.uint8)}
+    res = {k: {} for k in descs}
+    lat = closed_loop_arms(nt, descs, first, ELEM_LAT, ELEM_WARMUP)
+    for k, ms in lat.items():
+        res[k]["closed_p50_ms"] = float(np.percentile(ms, 50))
+        res[k]["closed_p99_ms"] = float(np.percentile(ms, 99))
+        print(f"phase 40: {k}: closed-loop latency over {len(ms)} frames "
+              f"(arms in turns, frame by frame) p50 "
+              f"{res[k]['closed_p50_ms']:.3f} ms p99 "
+              f"{res[k]['closed_p99_ms']:.3f} ms [{card}]")
+    for loop in ("off", "on"):
+        kw = {} if loop == "on" else {"compiled_loop": False}
+        arms = burst_arms(nt, torch, descs, first, BURST, BURSTS,
+                          runner_kw={k: kw for k in descs})
+        for k, a in arms.items():
+            fps = float(np.median(a["fps"]))
+            r = {"fps": a["fps"], "fps_median": fps,
+                 "p50_ms": float(np.percentile(a["lat"], 50)),
+                 "p99_ms": float(np.percentile(a["lat"], 99)),
+                 "device_ms_per_frame": a["device_ms_per_frame"],
+                 "kernels_per_frame": a["kernels_per_frame"],
+                 "busy_share": a["device_ms_per_frame"] * fps / 1e3}
+            res[k][f"loop_{loop}"] = r
+            print(f"phase 40: {k} loop {loop}, bursts of {BURST} frames in "
+                  f"turns: " + " / ".join(f"{f:.1f}" for f in a["fps"])
+                  + f" frames/s; latency under the burst p50 "
+                  f"{r['p50_ms']:.3f} ms p99 {r['p99_ms']:.3f} ms; "
+                  f"{r['kernels_per_frame']:.1f} CUDA kernels and "
+                  f"{r['device_ms_per_frame']:.3f} ms of kernel time a "
+                  f"frame, card busy {100 * r['busy_share']:.1f}% [{card}]")
+    rs = TensorResize(name="rs", size="224:224", method="bilinear")
+    x = torch.from_numpy(first["E1"]).cuda().float()
+    resize = {"host_ms": host_ms_per_call(torch, lambda: rs._resize(x)),
+              "device_ms": device_ms_per_call(torch, lambda: rs._resize(x),
+                                              200)}
+    pv = TensorResize(name="pv", size="120:160")
+    tp = TransformProgram("transpose", "1:2:0:3")
+    frame = first["E1"]
+    t0 = time.perf_counter()
+    for _ in range(200):
+        tp.apply(pv._resize(frame))
+    resize["preview_host_ms"] = (time.perf_counter() - t0) * 1e3 / 200
+    res["E1"]["resize"] = resize
+    syncs = record.get("elements_correctness", {}).get("E2", {}).get(
+        "forced_syncs_under_tensor_if")
+    res["E2_forced_syncs_per_frame"] = (syncs / ELEM_FRAMES
+                                        if syncs is not None else None)
+    print(f"phase 40: E1's tensor_resize 640×480 → 224² bilinear (f32, on "
+          f"the card): host {resize['host_ms']:.4f} ms a call, device "
+          f"{resize['device_ms']:.4f} ms; the preview branch (nearest "
+          f"120×160 + transpose, host uint8) {resize['preview_host_ms']:.4f} "
+          f"ms a frame; E2's forced syncs a frame "
+          f"{res['E2_forced_syncs_per_frame']} [{card}]")
+    record["elements_timings"] = res
+
+
+def elements_phases(nt, torch, card, record, phases) -> None:
+    """Phases 39-40."""
+    elements_correctness(nt, torch, card, record)
+    phases.done("39 (the DSL's elements: correctness)")
+    elements_timings(nt, torch, card, record)
+    phases.done("40 (the DSL's elements: timings)")
+
+
 def modelio_phases(nt, torch, card, record, phases) -> None:
-    """Phases 31-37, the model files in a temporary directory."""
+    """Phases 31-38, the model files in temporary directories."""
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_modelio_") as d:
@@ -5619,6 +6326,8 @@ def modelio_phases(nt, torch, card, record, phases) -> None:
         phases.done("36 (TorchScript and the last decoders: correctness)")
         torchscript_timings(nt, torch, card, record, files3, files, files2)
         phases.done("37 (TorchScript: timings)")
+    item2_card_phase(nt, torch, card, record)
+    phases.done("38 (item 2's CPU-only pieces on the card)")
 
 
 def main(argv=None) -> int:
@@ -5641,11 +6350,16 @@ def main(argv=None) -> int:
              "pipelines and the LLM decode window)")
     ap.add_argument(
         "--modelio", action="store_true",
-        help="run phases 1, 2 and 31-37 only (model-file ingestion: "
+        help="run phases 1, 2 and 31-38 only (model-file ingestion: "
              "TFLite float, int8-native and WHILE, .npz; GraphDef with the "
              "audio front end, Caffe, Caffe2, UFF, DLC, RTM; TorchScript "
              "legacy and modern; the image_segment, direct_video and "
-             "octet_stream decoders)")
+             "octet_stream decoders; item 2's CPU-only files on the card)")
+    ap.add_argument(
+        "--elements", action="store_true",
+        help="run phases 1, 2, 39 and 40 only (tee, queue, tensor_resize, "
+             "tensor_rate, tensor_if, join, split/merge, the aggregator, "
+             "the repo loop, filesrc/filesink, tensor_sink to-host=false)")
     ap.add_argument(
         "--slice4", action="store_true",
         help="run phases 1, 2 and 20-23 only (the ring step, ring "
@@ -5719,6 +6433,9 @@ def main(argv=None) -> int:
     elif args.modelio:
         modelio_phases(nt, torch, card, record, phases)
         entries = []
+    elif args.elements:
+        elements_phases(nt, torch, card, record, phases)
+        entries = []
     else:
         # -- 3-6. normalize_u8, pipelines A and B ------------------------
         entries = slice1_phases(nt, torch, card, record, phases)
@@ -5737,9 +6454,11 @@ def main(argv=None) -> int:
         batching_phases(nt, torch, card, record, phases)
         # -- 29-30. compiled windows, the LLM decode window --------------
         window_phases(nt, torch, card, record, phases, ctx)
-        # -- 31-37. model files: TFLite, WHILE, .npz; the second group;
-        # TorchScript and the last decoders ------------------------------
+        # -- 31-38. model files: TFLite, WHILE, .npz; the second group;
+        # TorchScript and the last decoders; item 2's CPU-only files ------
         modelio_phases(nt, torch, card, record, phases)
+        # -- 39-40. the DSL's elements -----------------------------------
+        elements_phases(nt, torch, card, record, phases)
     record["phase_seconds"] = phases.seconds
 
     out_dir = ROOT / "chiprun_out"
@@ -5749,6 +6468,7 @@ def main(argv=None) -> int:
             "chip_smoke_batching.json" if args.batching else
             "chip_smoke_window.json" if args.window else
             "chip_smoke_modelio.json" if args.modelio else
+            "chip_smoke_elements.json" if args.elements else
             "chip_smoke.json")
     (out_dir / name).write_text(json.dumps(record, indent=1))
     print(card)

@@ -8,15 +8,19 @@ imports torch and numpy, never jax, and nothing of `nnstreamer_tpu`.
   core/      — config, subplugin registry, logging, errors
   graph/     — pipeline graph, gst-launch-style DSL, negotiation, fusion
   runtime/   — push-model scheduler, channels, the host-sync choke point
-  elements/  — sources, converter, transform, filter, decoder, sinks,
-               tensor_llm
+  elements/  — sources, converter, transform and resize, filter,
+               decoder, routing (mux, merge, split, tee, join, queue),
+               control (tensor_if, tensor_rate, tensor_crop),
+               aggregator, repo loops, sparse codec, sinks, tensor_llm
   backends/  — the torch model engine, the paged-LLM executor and the
                hand-written CUDA kernels
   models/    — MobileNetV2 and the transformer in PyTorch, the zoo, the
                JAX weights bridge
   llm/       — paged KV cache, paged reference math, serving engine
   serving/   — the versioned model store
-  decoders/  — image_labeling
+  decoders/  — image_labeling, bounding boxes, pose, segment, video,
+               octet stream
+  single.py  — SingleShot, one model without a pipeline
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (`accelerator=cpu` on a tensor_filter, or
@@ -41,6 +45,7 @@ __all__ = [
     "PipelineRunner",
     "StreamError",
     "TensorLLM",
+    "SingleShot",
     "__version__",
 ]
 
@@ -52,6 +57,7 @@ _LAZY = {
                        "PipelineRunner"),
     "StreamError": ("nnstreamer_tpu_torch.core.errors", "StreamError"),
     "TensorLLM": ("nnstreamer_tpu_torch.elements.llm", "TensorLLM"),
+    "SingleShot": ("nnstreamer_tpu_torch.single", "SingleShot"),
 }
 
 

@@ -191,12 +191,16 @@ def params_to(params, device: torch.device):
 def stage(arrs, device: torch.device) -> Tuple[ArrayTuple, int]:
     """Move inputs to `device`, skipping tensors already there. Host
     numpy crosses in its own dtype (a uint8 frame stays 1 byte/element).
-    → (staged tensors, number of transfers made)."""
+    A strided view already on the device (a tensor_split segment, a
+    transposed tensor) is made contiguous, as a host array is on its way
+    over: the model then sees one layout whether a frame runs alone or
+    is copied into a compiled window's static input, so the two give the
+    same bits. → (staged tensors, number of transfers made)."""
     staged = []
     transfers = 0
     for a in arrs:
         if isinstance(a, torch.Tensor) and a.device == device:
-            staged.append(a)
+            staged.append(a.contiguous())
             continue
         t = a if isinstance(a, torch.Tensor) else host_tensor(a)
         staged.append(t.to(device, non_blocking=True))

@@ -21,6 +21,7 @@ class PluginKind(enum.Enum):
     ELEMENT = "element"
     FILTER = "filter"        # model-execution backends
     DECODER = "decoder"      # tensor→media decoders
+    CONVERTER = "converter"  # media→tensor converters
 
 
 class Registry:
@@ -42,6 +43,10 @@ class Registry:
                 log.warning("replacing %s plugin %r", kind.value, name)
             self._tables[kind][name] = obj
         return obj
+
+    def unregister(self, kind: PluginKind, name: str) -> bool:
+        with self._lock:
+            return self._tables[kind].pop(name, None) is not None
 
     def get(self, kind: PluginKind, name: str) -> Any:
         obj = self.find(kind, name)

@@ -1,22 +1,40 @@
 """Pipeline elements. Importing this package registers every built-in
 element with the port's ELEMENT registry."""
 
+from nnstreamer_tpu_torch.elements.aggregator import TensorAggregator
 from nnstreamer_tpu_torch.elements.batch import TensorBatch, TensorUnbatch
-from nnstreamer_tpu_torch.elements.control import TensorCrop
-from nnstreamer_tpu_torch.elements.converter import TensorConverter
+from nnstreamer_tpu_torch.elements.control import (
+    TensorCrop, TensorIf, TensorRate, register_if_condition)
+from nnstreamer_tpu_torch.elements.converter import (
+    ConverterSubplugin, TensorConverter, register_converter)
 from nnstreamer_tpu_torch.elements.debug import TensorDebug
 from nnstreamer_tpu_torch.elements.decoder import TensorDecoder, register_decoder
 from nnstreamer_tpu_torch.elements.fault import TensorFault
 from nnstreamer_tpu_torch.elements.filter import TensorFilter
 from nnstreamer_tpu_torch.elements.llm import TensorLLM
-from nnstreamer_tpu_torch.elements.routing import TensorDemux, TensorMux
-from nnstreamer_tpu_torch.elements.sinks import FakeSink, TensorSink
-from nnstreamer_tpu_torch.elements.sources import AppSrc, VideoTestSrc
-from nnstreamer_tpu_torch.elements.transform import TensorTransform, TransformProgram
+from nnstreamer_tpu_torch.elements.repo import REPO, TensorRepoSink, TensorRepoSrc
+from nnstreamer_tpu_torch.elements.routing import (
+    Join, Queue, Tee, TensorDemux, TensorMerge, TensorMux, TensorSplit)
+from nnstreamer_tpu_torch.elements.sinks import FakeSink, FileSink, TensorSink
+from nnstreamer_tpu_torch.elements.sources import (
+    AppSrc, AudioTestSrc, FileSrc, TensorSrc, VideoTestSrc)
+from nnstreamer_tpu_torch.elements.sparse_elements import (
+    TensorSparseDec, TensorSparseEnc)
+from nnstreamer_tpu_torch.elements.transform import (
+    TensorResize, TensorTransform, TransformProgram)
 
 __all__ = [
     "AppSrc",
+    "AudioTestSrc",
+    "ConverterSubplugin",
     "FakeSink",
+    "FileSink",
+    "FileSrc",
+    "Join",
+    "Queue",
+    "REPO",
+    "Tee",
+    "TensorAggregator",
     "TensorBatch",
     "TensorConverter",
     "TensorCrop",
@@ -25,12 +43,24 @@ __all__ = [
     "TensorDemux",
     "TensorFault",
     "TensorFilter",
+    "TensorIf",
     "TensorLLM",
+    "TensorMerge",
     "TensorMux",
+    "TensorRate",
+    "TensorRepoSink",
+    "TensorRepoSrc",
+    "TensorResize",
     "TensorSink",
+    "TensorSparseDec",
+    "TensorSparseEnc",
+    "TensorSplit",
+    "TensorSrc",
     "TensorTransform",
     "TensorUnbatch",
     "TransformProgram",
     "VideoTestSrc",
+    "register_converter",
     "register_decoder",
+    "register_if_condition",
 ]

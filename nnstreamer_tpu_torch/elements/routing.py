@@ -1,10 +1,16 @@
-"""Stream routing elements: tensor_mux and tensor_demux (the JAX
-package's elements/routing.py; merge, split, join, tee and queue wait for
-a later slice).
+"""Stream routing elements: mux, merge, demux, split, join, tee, queue
+(the JAX package's elements/routing.py).
 
 - tensor_mux   (gsttensor_mux.c)   — N tensor streams → 1 multi-tensor
+- tensor_merge (gsttensor_merge.c) — N single-tensor streams → 1 tensor,
+  concatenated along a chosen dim
 - tensor_demux (gsttensor_demux.c) — 1 multi-tensor stream → N streams,
   with `tensorpick` subset/reorder ('+' groups several tensors per pad)
+- tensor_split (gsttensor_split.c) — 1 tensor → N along a dim (tensorseg)
+- join         (gst/join/gstjoin.c) — N-to-1 active-pad pass-through
+- tee          (GStreamer core)    — 1-to-N duplication
+- queue        (GStreamer core)    — a pass-through: every link already
+  is a bounded queue
 
 Multi-pad time synchronization implements the reference's four policies
 (nnstreamer_plugin_api_impl.c:267, modes tensor_common.h:62-68,
@@ -18,7 +24,15 @@ Documentation/synchronization-policies-at-mux-merge.md):
 - refresh — emit on every arrival, reusing the last-seen buffer of every
   other pad.
 
-Both pass tensor references: no copy, on whatever device they are.
+Mux, demux, split, join and tee pass tensor references (split gives
+views): no copy, on whatever device the tensors are. No element of the
+port writes a stream tensor in place, so every branch of a tee may hold
+the same object, as every JAX branch holds the same immutable array.
+A concatenation (merge, tensor_aggregator) runs where the tensors are:
+numpy when every input is a host array, bit for bit the JAX package's
+host path; torch on the device of the first tensor input otherwise, host
+inputs moved there (`tensor.buffer.concatenate`). A device tensor is
+never moved to the host.
 """
 
 from __future__ import annotations
@@ -33,8 +47,9 @@ from nnstreamer_tpu_torch.core.log import get_logger
 from nnstreamer_tpu_torch.core.registry import register_element
 from nnstreamer_tpu_torch.graph.pipeline import (
     DYNAMIC, Element, Emission, PropDef, StreamSpec)
-from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
-from nnstreamer_tpu_torch.tensor.info import MAX_TENSORS_PER_FRAME, TensorsSpec
+from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer, concatenate
+from nnstreamer_tpu_torch.tensor.info import (
+    MAX_TENSORS_PER_FRAME, TensorInfo, TensorsSpec)
 
 log = get_logger("elements.routing")
 
@@ -176,6 +191,8 @@ class TensorMux(Element):
     ELEMENT_NAME = "tensor_mux"
     NUM_SINK_PADS = DYNAMIC
     NUM_SRC_PADS = 1
+    # dynamic fan-in: chain fusion is single-in/single-out only
+    CHAIN_FUSABLE = False
     PROPS = {
         "sync_mode": PropDef(str, "slowest", "|".join(SYNC_MODES)),
         "sync_option": PropDef(str, "", "basepad option '<pad>:<window_ns>'"),
@@ -218,6 +235,99 @@ class TensorMux(Element):
         ]
 
 
+@register_element("tensor_merge")
+class TensorMerge(Element):
+    """N single-tensor streams → 1 tensor, concatenated along a dim.
+
+    mode=linear option=<dim> — dim indexes the ROW-MAJOR shape. The
+    reference's channel/width/height/batch keywords map onto row-major
+    axes of NHWC at negotiation (gsttensor_merge.c linear modes).
+    """
+
+    ELEMENT_NAME = "tensor_merge"
+    NUM_SINK_PADS = DYNAMIC
+    NUM_SRC_PADS = 1
+    # dynamic fan-in: chain fusion is single-in/single-out only
+    CHAIN_FUSABLE = False
+    _KEYWORDS = {"batch": 0, "height": 1, "width": 2, "channel": 3}
+    PROPS = {
+        "mode": PropDef(str, "linear"),
+        "option": PropDef(str, "channel", "concat axis: int or NHWC keyword"),
+        "sync_mode": PropDef(str, "slowest", "|".join(SYNC_MODES)),
+        "sync_option": PropDef(str, ""),
+    }
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self._collect: Optional[_SyncCollect] = None
+        self._axis = 0
+
+    def _resolve_axis(self, ndim: int) -> int:
+        opt = self.props["option"].strip()
+        if opt in self._KEYWORDS:
+            if ndim != 4:
+                self.fail_negotiation(
+                    f"axis keyword {opt!r} assumes NHWC rank-4 tensors but "
+                    f"input rank is {ndim}; use a numeric axis")
+            return self._KEYWORDS[opt]
+        try:
+            ax = int(opt)
+        except ValueError:
+            self.fail_negotiation(
+                f"bad merge option {opt!r}: expected an axis number or one "
+                f"of {sorted(self._KEYWORDS)}")
+        return ax % ndim
+
+    def negotiate(self, in_specs: Sequence[StreamSpec]) -> List[StreamSpec]:
+        specs = [self.expect_tensors(s, i) for i, s in enumerate(in_specs)]
+        if self.props["mode"] != "linear":
+            self.fail_negotiation(
+                f"unsupported merge mode {self.props['mode']!r} (only "
+                f"'linear' exists — the reference's other modes were never "
+                f"implemented either, gsttensor_merge.c)")
+        for i, s in enumerate(specs):
+            if s.num_tensors != 1:
+                self.fail_negotiation(
+                    f"sink pad {i} carries {s.num_tensors} tensors; "
+                    f"tensor_merge needs single-tensor streams (use "
+                    f"tensor_mux for multi-tensor framing)")
+        first = specs[0].tensors[0]
+        ax = self._resolve_axis(len(first.shape))
+        self._axis = ax
+        out_dim = 0
+        for i, s in enumerate(specs):
+            t = s.tensors[0]
+            if t.dtype != first.dtype:
+                self.fail_negotiation(
+                    f"dtype mismatch on pad {i}: {t.dtype.type_name} vs "
+                    f"{first.dtype.type_name}")
+            if len(t.shape) != len(first.shape) or any(
+                    a != b for d, (a, b) in enumerate(zip(t.shape, first.shape))
+                    if d != ax):
+                self.fail_negotiation(
+                    f"shape mismatch on pad {i}: {t.shape} vs {first.shape} "
+                    f"(must agree on all axes except concat axis {ax})")
+            out_dim += t.shape[ax]
+        shape = tuple(out_dim if d == ax else v
+                      for d, v in enumerate(first.shape))
+        self._collect = _SyncCollect(self, len(specs),
+                                     self.props["sync_mode"],
+                                     self.props["sync_option"])
+        return [TensorsSpec.of(TensorInfo(shape, first.dtype),
+                               rate=_common_rate(specs))]
+
+    def _merged(self, group: List[TensorBuffer]) -> Emission:
+        return (0, TensorBuffer(
+            tensors=(concatenate([b.tensors[0] for b in group], self._axis),),
+            pts=max((b.pts or 0) for b in group)))
+
+    def process(self, pad: int, buf: TensorBuffer) -> List[Emission]:
+        return [self._merged(g) for g in self._collect.offer(pad, buf)]
+
+    def flush(self) -> List[Emission]:
+        return [self._merged(g) for g in self._collect.drain()]
+
+
 @register_element("tensor_demux")
 class TensorDemux(Element):
     """1 multi-tensor stream → N streams. `tensorpick` picks/reorders;
@@ -226,6 +336,8 @@ class TensorDemux(Element):
     ELEMENT_NAME = "tensor_demux"
     NUM_SINK_PADS = 1
     NUM_SRC_PADS = DYNAMIC
+    # dynamic fan-out: chain fusion is single-in/single-out only
+    CHAIN_FUSABLE = False
     PROPS = {
         "tensorpick": PropDef(str, "", "e.g. '0,2' or '0,1+2'; empty = all"),
     }
@@ -264,3 +376,139 @@ class TensorDemux(Element):
         return [
             (p, buf.subset(grp)) for p, grp in enumerate(self._picks)
         ]
+
+
+@register_element("tensor_split")
+class TensorSplit(Element):
+    """1 tensor → N tensors along an axis by `tensorseg` sizes.
+
+    tensorseg="2:4:2" splits axis (default: last) into sizes 2,4,2 —
+    the per-dimension unshard primitive (gsttensor_split.c). Each
+    segment is a view of the input (a strided one unless the axis is the
+    outermost): the filter stages a strided host array by copy, and the
+    CUDA kernels' wrappers make their input contiguous.
+    """
+
+    ELEMENT_NAME = "tensor_split"
+    NUM_SINK_PADS = 1
+    NUM_SRC_PADS = DYNAMIC
+    # dynamic fan-out: chain fusion is single-in/single-out only
+    CHAIN_FUSABLE = False
+    PROPS = {
+        "tensorseg": PropDef(str, None, "colon-separated segment sizes"),
+        "axis": PropDef(int, -1, "row-major split axis (default last)"),
+    }
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self._sizes: List[int] = []
+        self._axis = -1
+
+    def negotiate(self, in_specs: Sequence[StreamSpec]) -> List[StreamSpec]:
+        spec = self.expect_tensors(in_specs[0])
+        if spec.num_tensors != 1:
+            self.fail_negotiation(
+                f"tensor_split needs a single-tensor stream, got "
+                f"{spec.num_tensors} tensors (tensor_demux separates them)")
+        if not self.props["tensorseg"]:
+            self.fail_negotiation("tensorseg=<s1:s2:…> is required")
+        t = spec.tensors[0]
+        self._axis = self.props["axis"] % len(t.shape)
+        try:
+            self._sizes = [int(x) for x in self.props["tensorseg"].split(":")]
+        except ValueError:
+            self.fail_negotiation(
+                f"bad tensorseg {self.props['tensorseg']!r}: expected "
+                f"colon-separated ints")
+        if sum(self._sizes) != t.shape[self._axis]:
+            self.fail_negotiation(
+                f"tensorseg {self._sizes} sums to {sum(self._sizes)} but "
+                f"axis {self._axis} has size {t.shape[self._axis]}")
+        outs = [TensorsSpec.of(TensorInfo(
+            tuple(s if d == self._axis else v for d, v in enumerate(t.shape)),
+            t.dtype), rate=spec.rate) for s in self._sizes]
+        n_out = len(self._pipeline.links_from(self)) if self._pipeline else 0
+        if n_out and n_out != len(outs):
+            self.fail_negotiation(
+                f"{len(outs)} segments but {n_out} src pads linked")
+        return outs
+
+    def process(self, pad: int, buf: TensorBuffer) -> List[Emission]:
+        t = buf.tensors[0]
+        out = []
+        off = 0
+        for p, s in enumerate(self._sizes):
+            sl = [slice(None)] * t.ndim
+            sl[self._axis] = slice(off, off + s)
+            out.append((p, buf.with_tensors((t[tuple(sl)],))))
+            off += s
+        return out
+
+
+@register_element("join")
+class Join(Element):
+    """N-to-1 active-pad pass-through without synchronization — whatever
+    arrives on any pad goes out (gst/join/gstjoin.c). Used to rejoin
+    branches after demux/tensor_if routing. The buffers keep their
+    placement: a host fill from one branch and device tensors from
+    another leave as they came."""
+
+    ELEMENT_NAME = "join"
+    NUM_SINK_PADS = DYNAMIC
+    NUM_SRC_PADS = 1
+    # dynamic fan-in: chain fusion is single-in/single-out only
+    CHAIN_FUSABLE = False
+    PROPS = {}
+
+    def negotiate(self, in_specs: Sequence[StreamSpec]) -> List[StreamSpec]:
+        specs = [self.expect_tensors(s, i) for i, s in enumerate(in_specs)]
+        first = specs[0]
+        for i, s in enumerate(specs[1:], 1):
+            if not first.is_compatible(s):
+                self.fail_negotiation(
+                    f"pad {i} spec {s} incompatible with pad 0 spec {first}; "
+                    f"join requires identical stream types on every pad")
+        return [first]
+
+    def process(self, pad: int, buf: TensorBuffer) -> List[Emission]:
+        return [(0, buf)]
+
+
+@register_element("tee")
+class Tee(Element):
+    """1-to-N duplication. Zero-copy: every branch receives the same
+    buffer and tensor objects, safe because no element writes a stream
+    tensor in place (a transform or filter on one branch makes new
+    tensors; the other branches' data stays unchanged)."""
+
+    ELEMENT_NAME = "tee"
+    NUM_SINK_PADS = 1
+    NUM_SRC_PADS = DYNAMIC
+    # dynamic fan-out: chain fusion is single-in/single-out only
+    CHAIN_FUSABLE = False
+    PROPS = {}
+
+    def negotiate(self, in_specs: Sequence[StreamSpec]) -> List[StreamSpec]:
+        n = len(self._pipeline.links_from(self)) if self._pipeline else 1
+        return [in_specs[0]] * max(1, n)
+
+    def process(self, pad: int, buf: TensorBuffer) -> List[Emission]:
+        return [(p, buf) for p in range(len(self.out_specs))]
+
+
+@register_element("queue")
+class Queue(Element):
+    """DSL-parity no-op: every link in this runtime already is a bounded
+    queue (runtime/scheduler.py), so `queue` just passes through."""
+
+    ELEMENT_NAME = "queue"
+    PROPS = {
+        "max_size_buffers": PropDef(int, 0, "accepted, ignored"),
+        "leaky": PropDef(str, "", "accepted, ignored"),
+    }
+
+    def negotiate(self, in_specs: Sequence[StreamSpec]) -> List[StreamSpec]:
+        return [in_specs[0]]
+
+    def process(self, pad: int, buf: TensorBuffer) -> List[Emission]:
+        return [(0, buf)]

@@ -1,4 +1,4 @@
-"""Media-domain stream specs (the video/x-raw, text/x-raw,
+"""Media-domain stream specs (the video/x-raw, audio/x-raw, text/x-raw,
 application/octet-stream caps analog).
 
 Only the edges of a pipeline speak media: sources produce media buffers,
@@ -57,6 +57,30 @@ class VideoSpec(MediaSpec):
     def frame_shape(self) -> Tuple[int, int, int]:
         """(H, W, C) row-major."""
         return (self.height, self.width, self.channels)
+
+
+@dataclass(frozen=True)
+class AudioSpec(MediaSpec):
+    sample_rate: int = 16000
+    channels: int = 1
+    sample_format: str = "S16LE"  # S8 | S16LE | S32LE | F32LE | F64LE
+
+    _FORMATS = {"S8": "int8", "S16LE": "int16", "S32LE": "int32",
+                "F32LE": "float32", "F64LE": "float64"}
+
+    def __post_init__(self):
+        if self.sample_format not in self._FORMATS:
+            raise ValueError(
+                f"unsupported audio format {self.sample_format!r}; "
+                f"supported: {sorted(self._FORMATS)}")
+
+    @property
+    def media(self) -> MediaType:
+        return MediaType.AUDIO
+
+    @property
+    def dtype_name(self) -> str:
+        return self._FORMATS[self.sample_format]
 
 
 @dataclass(frozen=True)

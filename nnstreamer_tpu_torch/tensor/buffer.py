@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from nnstreamer_tpu_torch.core.errors import PipelineError
 from nnstreamer_tpu_torch.tensor.dtypes import DType, host_tensor
 from nnstreamer_tpu_torch.tensor.info import TensorFormat, TensorInfo, TensorsSpec
 
@@ -44,17 +45,45 @@ class HostCopy:
         return self.host.dtype
 
 
+def on_one_side(arrays) -> list:
+    """The JAX package's `_xp` rule for joining arrays: all host arrays
+    stay numpy; once one is a torch tensor, every one becomes a tensor on
+    that tensor's device (host arrays through `host_tensor`, which reads
+    bfloat16). A device tensor never moves to the host; tensors on two
+    devices raise."""
+    first = next((a for a in arrays if isinstance(a, torch.Tensor)), None)
+    if first is None:
+        return list(arrays)
+    out = []
+    for a in arrays:
+        if not isinstance(a, torch.Tensor):
+            a = host_tensor(np.asarray(a)).to(first.device)
+        elif a.device != first.device:
+            raise PipelineError(
+                f"cannot join tensors on {first.device} and {a.device}; "
+                f"route them to one device first")
+        out.append(a)
+    return out
+
+
+def concatenate(arrays, axis: int):
+    """np.concatenate or torch.cat, by `on_one_side`'s rule."""
+    arrays = on_one_side(arrays)
+    if isinstance(arrays[0], torch.Tensor):
+        return torch.cat(arrays, dim=axis)
+    return np.concatenate(arrays, axis=axis)
+
+
 def coalesce(rows: Sequence, keep: bool):
     """Rows → one array: concatenated on axis 0 where `keep` (per-row
-    leading dim 1), else stacked on a new axis 0. torch when any row is a
-    torch tensor (host rows join it on that tensor's device), numpy
-    otherwise."""
-    first = next((r for r in rows if isinstance(r, torch.Tensor)), None)
-    if first is None:
-        return (np.concatenate if keep else np.stack)(rows, axis=0)
-    rows = [r if isinstance(r, torch.Tensor)
-            else host_tensor(np.asarray(r)).to(first.device) for r in rows]
-    return (torch.cat if keep else torch.stack)(rows, dim=0)
+    leading dim 1), else stacked on a new axis 0, by `on_one_side`'s
+    rule."""
+    if keep:
+        return concatenate(rows, 0)
+    rows = on_one_side(rows)
+    if isinstance(rows[0], torch.Tensor):
+        return torch.stack(rows, dim=0)
+    return np.stack(rows, axis=0)
 
 
 def is_device_tensor(x) -> bool:

@@ -50,6 +50,10 @@ class DType(enum.IntEnum):
         return _TORCH_DTYPES[self]
 
     @property
+    def itemsize(self) -> int:
+        return _TORCH_DTYPES[self].itemsize
+
+    @property
     def type_name(self) -> str:
         return _NAMES[self]
 

@@ -109,6 +109,11 @@ class TensorInfo:
     def num_elements(self) -> int:
         return math.prod(self.shape) if self.shape else 1
 
+    @property
+    def nbytes(self) -> int:
+        """Byte size of one frame (gst_tensor_info_get_size analog)."""
+        return self.num_elements * self.dtype.itemsize
+
     def is_compatible(self, other: "TensorInfo") -> bool:
         return (self.dtype == other.dtype
                 and shapes_compatible(self.shape, other.shape))

@@ -42,6 +42,9 @@ port's zoo model) parameters:
   inside, as the reference's LeNet-5 takes NHWC frames) saved with
   `torch.jit.trace`; `write_torchscript_encoder` — an
   `nn.TransformerEncoder` (batch first) saved with `torch.jit.script`;
+  `write_torchscript_nn` — the recurrent and attention archives
+  (`TORCHSCRIPT_NN`: LSTM, GRU, an SDPA block, MultiheadAttention, a
+  TransformerDecoder) with their seeded inputs;
   `write_legacy_lenet5` — a producerVersion-1.0 archive (`model.json`,
   `code/lenet5.py`, `tensors/N`), the layout of the reference's
   `pytorch_lenet5.pt`, which current torch no longer writes or loads:
@@ -936,6 +939,120 @@ def write_legacy_lenet5(path, seed: int = 0) -> None:
         zf.writestr("lenet5/code/lenet5.py", LEGACY_LENET5_CODE)
         for key, data in records.items():
             zf.writestr(f"lenet5/{key}", data)
+
+
+#: the recurrent and attention archives of `write_torchscript_nn`
+TORCHSCRIPT_NN = ("lstm", "lstm_bidir", "gru", "attention",
+                  "attention_causal", "mha", "decoder")
+
+
+def _torchscript_nn_module(name: str):
+    """The module of one `TORCHSCRIPT_NN` archive and its torch seed."""
+    import torch
+    import torch.nn.functional as F
+    from torch import nn
+
+    if name in ("lstm", "lstm_bidir"):
+        bidir = name == "lstm_bidir"
+
+        class Lstm(nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.rnn = nn.LSTM(6, 5, num_layers=2, batch_first=True,
+                                   bidirectional=bidir)
+                self.fc = nn.Linear(5 * (2 if bidir else 1), 3)
+
+            def forward(self, x):
+                y, (h, c) = self.rnn(x)
+                return self.fc(y[:, -1]), h, c
+
+        return Lstm, 8
+    if name == "gru":
+        class Gru(nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.rnn = nn.GRU(4, 8, batch_first=True)
+
+            def forward(self, x):
+                y, h = self.rnn(x)
+                return y, h
+
+        return Gru, 9
+    if name in ("attention", "attention_causal"):
+        causal = name == "attention_causal"
+
+        class Attention(nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.qkv = nn.Linear(32, 96)
+                self.out = nn.Linear(32, 32)
+                self.causal = causal
+
+            def forward(self, x):
+                B, S, D = x.shape[0], x.shape[1], x.shape[2]
+                qkv = self.qkv(x).reshape(B, S, 3, 4, 8)
+                q = qkv[:, :, 0].transpose(1, 2)
+                k = qkv[:, :, 1].transpose(1, 2)
+                v = qkv[:, :, 2].transpose(1, 2)
+                a = F.scaled_dot_product_attention(q, k, v,
+                                                   is_causal=self.causal)
+                a = a.transpose(1, 2).reshape(B, S, D)
+                return self.out(a)
+
+        return Attention, 11
+    if name == "mha":
+        class Mha(nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.mha = nn.MultiheadAttention(32, 4, batch_first=True)
+                self.ln = nn.LayerNorm(32)
+
+            def forward(self, x):
+                y, _ = self.mha(x, x, x, need_weights=False)
+                return self.ln(x + y)
+
+        return Mha, 12
+    if name == "decoder":
+        def decoder():
+            layer = nn.TransformerDecoderLayer(
+                d_model=32, nhead=4, dim_feedforward=64, batch_first=True)
+            return nn.TransformerDecoder(layer, num_layers=2)
+
+        return decoder, 14
+    raise ValueError(f"no TorchScript archive {name!r}; valid: "
+                     f"{TORCHSCRIPT_NN}")
+
+
+def torchscript_nn_inputs(name: str) -> List[np.ndarray]:
+    """The seeded f32 inputs of one `TORCHSCRIPT_NN` archive."""
+    if name in ("lstm", "lstm_bidir"):
+        return [np.random.RandomState(8).randn(2, 7, 6).astype(np.float32)]
+    if name == "gru":
+        return [np.random.RandomState(9).randn(3, 5, 4).astype(np.float32)]
+    if name in ("attention", "attention_causal"):
+        return [np.random.RandomState(11).randn(2, 10, 32).astype(np.float32)]
+    if name == "mha":
+        return [np.random.RandomState(12).randn(2, 9, 32).astype(np.float32)]
+    return [np.random.RandomState(14).randn(2, 7, 32).astype(np.float32),
+            np.random.RandomState(15).randn(2, 9, 32).astype(np.float32)]
+
+
+def write_torchscript_nn(path, name: str) -> List[np.ndarray]:
+    """One recurrent or attention archive (`TORCHSCRIPT_NN`): nn.LSTM (two
+    layers, uni- or bidirectional) with a linear head, nn.GRU, a
+    self-attention block over F.scaled_dot_product_attention (full or
+    causal), nn.MultiheadAttention with a residual LayerNorm, an
+    nn.TransformerDecoder (two layers, self and cross attention); weights
+    from torch's default init under the archive's seed, scripted and
+    saved → its seeded inputs."""
+    import torch
+
+    make, seed = _torchscript_nn_module(name)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        net = make().eval()
+    torch.jit.save(torch.jit.script(net), str(path))
+    return torchscript_nn_inputs(name)
 
 
 def write_torchscript(out: Path, width: float = 1.0, size: int = 224,

@@ -1,8 +1,8 @@
 """FLEXIBLE invokes in the port (tensor_crop → tensor_filter
 invoke-dynamic=true, the torch backend's invoke_flexible) held to the
 JAX package's on the same regions, on the CPU (from
-tests/test_dynamic_shapes.py; its crop → tensor_resize test waits for
-tensor_resize). The port compiles nothing: its `bucket_shapes` (the
+tests/test_dynamic_shapes.py; its crop → tensor_resize static path is
+in tests/test_torch_resize.py). The port compiles nothing: its `bucket_shapes` (the
 distinct bucket shapes run) is held equal to JAX's `compile_count`."""
 
 import numpy as np

@@ -7,11 +7,12 @@ pipeline string, the test runs it in both and compares what is
 deterministic: outputs, the policy counters of `stats()`, the pts the
 seeded fault hits. Where the JAX tests register a custom filter
 (`register_custom_easy`), the port's tests register a kernel-filter
-function (`register_pallas_filter`). Left out with the modules they test: tensor_repo's slot
-overflow (elements/repo.py is not ported) and the pickling of the
-serving errors (ServerBusyError, SegmentStageError: slice 7). No test
-asserts a wall-clock bound; the watchdog tests use budgets far from the
-delays they flag.
+function (`register_pallas_filter`). tensor_repo's slot overflow is
+held to JAX's error text (without the JAX test's elapsed-time bound).
+Left out with the module it tests: the pickling of the serving errors
+(ServerBusyError, SegmentStageError: slice 7). No test asserts a
+wall-clock bound; the watchdog tests use budgets far from the delays
+they flag.
 """
 
 import pickle
@@ -760,3 +761,44 @@ class TestErrorPickling:
             ours = [c.__name__ for c in type(e).__mro__]
             theirs = [c.__name__ for c in getattr(jerr, name).__mro__]
             assert ours == theirs, name
+
+
+# -- repo slot overflow (stop-aware put) -------------------------------------
+
+class TestRepoSlot:
+    @pytest.mark.parametrize("stopping", [False, True])
+    def test_full_slot_raises_descriptive_stream_error(self, stopping):
+        """A full slot: the put gives up after put_timeout, or at once
+        when the pipeline is stopping, with the JAX element's text."""
+        import queue as _queue
+        import threading
+
+        from nnstreamer_tpu.core.errors import StreamError as JStreamError
+        from nnstreamer_tpu.elements.repo import REPO as JREPO
+        from nnstreamer_tpu.elements.repo import TensorRepoSink as JSink
+        from nnstreamer_tpu.tensor.buffer import TensorBuffer as JBuf
+        from nnstreamer_tpu_torch.elements.repo import REPO, TensorRepoSink
+        from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+        texts = []
+        for repo, sink_cls, buf_cls, err in (
+                (JREPO, JSink, JBuf, JStreamError),
+                (REPO, TensorRepoSink, TensorBuffer, StreamError)):
+            repo.reset()
+            sink = sink_cls(name="back", slot=77, put_timeout=0.4)
+            if stopping:
+                sink._stop_evt = threading.Event()
+                sink._stop_evt.set()
+            q = repo.slot(77)
+            buf = buf_cls.of(np.zeros((2,), np.float32))
+            while True:                        # fill to capacity (16)
+                try:
+                    q.put_nowait(buf)
+                except _queue.Full:
+                    break
+            with pytest.raises(err, match="stopping" if stopping
+                               else "slot 77") as e:
+                sink.render(buf)
+            texts.append(str(e.value))
+            repo.reset()
+        assert texts[1] == texts[0]

@@ -6,9 +6,11 @@ Ported from tests/test_hostpath.py (TestChainFusion, TestWatchdogPrune)
 and tests/test_runtime.py (test_stats_report_queue_wait). Where both
 packages run a pipeline, the
 test builds it in both and compares `fused_chains()`, outputs (bit for
-bit: host elements) and stats counters. tensor_batch and tee are not
-ported, so the deadline and fan-out rules run on a timer element
-defined here and on tensor_demux. Not copied:
+bit: host elements) and stats counters. The deadline rule runs on a
+timer element defined here; the fan-out rule on tensor_demux and on a
+real tee (tests/test_hostpath.py's case); chains through queue,
+tensor_rate and tensor_aggregator give JAX's `fused_chains()`. Not
+copied:
 `test_fused_chain_cheaper_per_frame_than_unfused`, a wall-clock
 comparison (chain fusion's per-frame cost is measured on the card,
 chip_smoke.py phase 26), and the channel/staging/profiler tests of
@@ -327,6 +329,71 @@ class TestChainFusion:
         assert runner.fused_chains() == []
         np.testing.assert_array_equal(s1.results[0].tensors[0], 2 * x)
         np.testing.assert_array_equal(s2.results[0].tensors[0], 3 * x)
+
+    @pytest.mark.parametrize("pkg", ["torch", "jax"])
+    def test_tee_fan_out_not_fused(self, pkg):
+        """tests/test_hostpath.py's case: a tee fans out (2 out-links)
+        and t0 alone is a 1-element run: nothing fuses, and both sinks
+        still see the frame."""
+        ns = PKGS[pkg]
+        from importlib import import_module
+
+        tee_cls = import_module(ns.nns.__name__ + ".elements.routing").Tee
+        pipe = ns.nns.Pipeline("fanout")
+        src = ns.AppSrc(spec=ns.Spec.of(
+            ns.Info((1, 4), ns.DType.FLOAT32)), name="in")
+        t0 = ns.Transform(name="t0", mode="arithmetic", option="add:1.0")
+        tee = tee_cls(name="tee")
+        s1, s2 = ns.Sink(name="o1"), ns.Sink(name="o2")
+        for e in (src, t0, tee, s1, s2):
+            pipe.add(e)
+        pipe.link(src, t0)
+        pipe.link(t0, tee)
+        pipe.link(tee, s1, src_pad=0)
+        pipe.link(tee, s2, src_pad=1)
+        runner = ns.nns.PipelineRunner(pipe, optimize=False).start()
+        try:
+            src.push(ns.Buf.of(np.ones((1, 4), np.float32), pts=0))
+            src.end()
+            runner.wait(30)
+        finally:
+            runner.stop()
+        assert runner.fused_chains() == []
+        assert len(pipe.get("o1").results) == 1
+        assert len(pipe.get("o2").results) == 1
+        np.testing.assert_array_equal(s1.results[0].tensors[0],
+                                      np.full((1, 4), 2.0, np.float32))
+
+    @pytest.mark.parametrize("desc", [
+        # queue is a pass-through member of the chain around it
+        "appsrc name=in dims=4:1 types=float32 ! queue name=q0 ! "
+        "tensor_transform name=t0 mode=arithmetic option=add:1.0 ! "
+        "queue name=q1 ! tensor_sink name=out",
+        # tensor_rate and tensor_aggregator fuse as any 1-in/1-out element
+        "appsrc name=in dims=4:1 types=float32 ! "
+        "tensor_transform name=t0 mode=arithmetic option=add:1.0 ! "
+        "tensor_rate name=r framerate=1000000000/2 throttle=false ! "
+        "tensor_aggregator name=a frames-out=2 frames-flush=1 ! "
+        "tensor_transform name=t1 mode=arithmetic option=mul:2.0 ! "
+        "tensor_sink name=out",
+        # a tee splits two chains; the merge after it joins none
+        "appsrc name=in dims=4:1 types=float32 ! queue name=q0 ! "
+        "tensor_transform name=t0 mode=arithmetic option=add:1.0 ! "
+        "tee name=t t. ! queue name=qa ! "
+        "tensor_aggregator name=a frames-out=2 ! m.sink_0 "
+        "t. ! queue name=qb ! tensor_rate name=r framerate=1000000000/2 "
+        "throttle=false ! tensor_aggregator name=b frames-out=2 ! m.sink_1 "
+        "tensor_merge name=m option=1 sync-mode=nosync ! queue name=qm ! "
+        "tensor_sink name=out",
+    ], ids=["queue", "rate-aggregator", "tee-merge"])
+    def test_new_elements_fuse_like_jax(self, desc):
+        runs = _both(desc, 6)
+        (jp, jr), (tp, tr) = runs["jax"], runs["torch"]
+        assert sorted(tr.fused_chains()) == sorted(jr.fused_chains())
+        assert tr.fused_chains()
+        assert _frames(tp.get("out").results) == \
+            _frames(jp.get("out").results)
+        assert tp.get("out").results
 
     def test_chain_error_attributed_to_failing_member(self):
 

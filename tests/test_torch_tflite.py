@@ -82,14 +82,6 @@ def jax_run(path, *xs, **opts):
     return [np.asarray(t) for t in jax.jit(m.fn)(m.params, *xs)]
 
 
-def _convert_fn(fn, sig, path):
-    f = tf.function(fn, input_signature=sig)
-    c = tf.lite.TFLiteConverter.from_concrete_functions(
-        [f.get_concrete_function()])
-    path.write_bytes(c.convert())
-    return str(path)
-
-
 def _convert_frozen(model, in_shape):
     from tensorflow.python.framework.convert_to_constants import (
         convert_variables_to_constants_v2)
@@ -116,120 +108,25 @@ def _golden_vs_interpreter_and_jax(path, *xs, atol=1e-4):
 
 # -- fixtures (built once per module) -----------------------------------------
 
-def _breadth1(x):
-    a = tf.exp(x) + tf.math.log(tf.abs(x) + 1.0)
-    b = tf.sqrt(tf.abs(x)) * tf.math.rsqrt(tf.abs(x) + 1.0)
-    c = tf.pow(x, 3.0) - tf.math.squared_difference(x, 2.0)
-    d = tf.floor(x) + tf.math.ceil(x) - (-x)
-    e = tf.sin(x) + tf.cos(x) + tf.nn.elu(x) + tf.nn.gelu(x)
-    f = tf.where(x > 0, a, b)
-    g = tf.reduce_max(c, axis=1, keepdims=True) \
-        + tf.reduce_min(d, axis=1, keepdims=True)
-    h = tf.reduce_prod(tf.clip_by_value(x, 0.5, 1.5), axis=1,
-                       keepdims=True)
-    i = tf.cast(tf.argmin(x, axis=1), tf.float32)
-    j = tf.tile(g + h, [1, 8])
-    k = tf.pad(e, [[0, 0], [2, 2]], mode="REFLECT")
-    return f + j, k, i
-
-
 @pytest.fixture(scope="module")
 def breadth_models(tmp_path_factory):
-    d = tmp_path_factory.mktemp("torch_breadth")
-    rng = np.random.default_rng(0)
-    w = tf.constant(rng.normal(0, 0.3, (2, 2, 3, 8)).astype(np.float32))
+    """tools/tflite_tf_fixtures.py's breadth models (its committed files
+    are these, written with the same code)."""
+    from nnstreamer_tpu_torch.tools import tflite_tf_fixtures as tff
 
-    def sink2(x):
-        a = tf.nn.depth_to_space(x, 2)
-        b = tf.nn.space_to_depth(a, 2)
-        c = tf.math.l2_normalize(b, axis=-1)
-        parts = tf.unstack(c, axis=3)
-        dd = tf.nn.conv2d_transpose(c, w, [1, 8, 8, 3], [1, 2, 2, 1])
-        return dd, parts[0] + parts[1]
-
-    return {
-        "elementwise": _convert_fn(
-            _breadth1, [tf.TensorSpec((2, 8), tf.float32)],
-            d / "sink1.tflite"),
-        "spatial": _convert_fn(
-            sink2, [tf.TensorSpec((1, 4, 4, 8), tf.float32)],
-            d / "sink2.tflite"),
-    }
+    return tff.write_breadth(tmp_path_factory.mktemp("torch_breadth"))
 
 
 @pytest.fixture(scope="module")
 def built_models(tmp_path_factory):
     """A detection head ending in the TFLite_Detection_PostProcess custom
     op and a keras LSTM (a WHILE control-flow graph), built as the JAX
-    tests' `built_models` builds them."""
+    tests' `built_models` builds them, by tools/tflite_tf_fixtures.py."""
+    from nnstreamer_tpu_torch.tools import tflite_tf_fixtures as tff
+
     d = tmp_path_factory.mktemp("torch_built_tflite")
-    N, C = 96, 4
-    gd = tf.compat.v1.GraphDef()
-
-    def node(name, op, inputs=(), **attrs):
-        n = gd.node.add()
-        n.name = name
-        n.op = op
-        n.input.extend(inputs)
-        for k, v in attrs.items():
-            if isinstance(v, bool):
-                n.attr[k].b = v
-            elif isinstance(v, int):
-                n.attr[k].i = v
-            elif isinstance(v, float):
-                n.attr[k].f = v
-            elif isinstance(v, np.ndarray):
-                n.attr[k].tensor.CopyFrom(tf.make_tensor_proto(v))
-        n.attr.get_or_create("T")
-        return n
-
-    pl = node("box_encodings", "Placeholder")
-    pl.attr["dtype"].type = tf.float32.as_datatype_enum
-    pl.attr["shape"].shape.CopyFrom(tf.TensorShape((1, N, 4)).as_proto())
-    pl2 = node("class_predictions", "Placeholder")
-    pl2.attr["dtype"].type = tf.float32.as_datatype_enum
-    pl2.attr["shape"].shape.CopyFrom(
-        tf.TensorShape((1, N, C + 1)).as_proto())
-    rng = np.random.default_rng(0)
-    anch = np.concatenate([rng.uniform(0.1, 0.9, (N, 2)),
-                           rng.uniform(0.1, 0.3, (N, 2))],
-                          axis=1).astype(np.float32)
-    cn = node("anchors", "Const", value=anch)
-    cn.attr["dtype"].type = tf.float32.as_datatype_enum
-    node("TFLite_Detection_PostProcess", "TFLite_Detection_PostProcess",
-         ["box_encodings", "class_predictions", "anchors"],
-         max_detections=10, max_classes_per_detection=1,
-         nms_score_threshold=0.3, nms_iou_threshold=0.5, num_classes=C,
-         y_scale=10.0, x_scale=10.0, h_scale=5.0, w_scale=5.0,
-         use_regular_nms=False, detections_per_class=100)
-    pb = d / "detect.pb"
-    pb.write_bytes(gd.SerializeToString())
-    conv = tf.compat.v1.lite.TFLiteConverter.from_frozen_graph(
-        str(pb), ["box_encodings", "class_predictions"],
-        ["TFLite_Detection_PostProcess", "TFLite_Detection_PostProcess:1",
-         "TFLite_Detection_PostProcess:2",
-         "TFLite_Detection_PostProcess:3"],
-        input_shapes={"box_encodings": [1, N, 4],
-                      "class_predictions": [1, N, C + 1]})
-    conv.allow_custom_ops = True
-    det = d / "detect.tflite"
-    det.write_bytes(conv.convert())
-
-    from tensorflow.python.framework.convert_to_constants import (
-        convert_variables_to_constants_v2)
-
-    m = tf.keras.Sequential([
-        tf.keras.layers.Input((8, 6), batch_size=1),
-        tf.keras.layers.LSTM(5, return_sequences=False),
-        tf.keras.layers.Dense(3, activation="softmax"),
-    ])
-    f = tf.function(lambda x: m(x),
-                    input_signature=[tf.TensorSpec((1, 8, 6), tf.float32)])
-    frozen = convert_variables_to_constants_v2(f.get_concrete_function())
-    c2 = tf.lite.TFLiteConverter.from_concrete_functions([frozen], m)
-    lstm = d / "lstm.tflite"
-    lstm.write_bytes(c2.convert())
-    return {"detect": str(det), "lstm": str(lstm), "N": N, "C": C}
+    return {"detect": tff.write_detect(d), "lstm": tff.write_lstm(d),
+            "N": tff.DETECT_N, "C": tff.DETECT_C}
 
 
 @pytest.fixture(scope="module")

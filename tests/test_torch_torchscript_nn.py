@@ -62,6 +62,13 @@ def _hold(path, *xs, rtol=1e-4, atol=1e-5, torch_xs=None):
     return got, b
 
 
+def _nn_archive(tmp_path, name):
+    """One of `model_fixtures.TORCHSCRIPT_NN` written into tmp_path →
+    (path, *its seeded inputs)."""
+    path = str(tmp_path / f"{name}.pt")
+    return (path, *mf.write_torchscript_nn(path, name))
+
+
 def _script(tmp_path, model, name="m.pt"):
     path = str(tmp_path / name)
     torch.jit.save(torch.jit.script(model.eval()), path)
@@ -71,38 +78,14 @@ def _script(tmp_path, model, name="m.pt"):
 @pytest.mark.parametrize("bidir", [False, True])
 def test_torch_scripted_lstm_matches_torch_and_jax(tmp_path, bidir):
     """nn.LSTM (torch.lstm): output and final states, two layers,
-    uni- and bidirectional."""
-    class Net(tnn.Module):
-        def __init__(self):
-            super().__init__()
-            self.rnn = tnn.LSTM(6, 5, num_layers=2, batch_first=True,
-                                bidirectional=bidir)
-            self.fc = tnn.Linear(5 * (2 if bidir else 1), 3)
-
-        def forward(self, x):
-            y, (h, c) = self.rnn(x)
-            return self.fc(y[:, -1]), h, c
-
-    torch.manual_seed(8)
-    x = np.random.RandomState(8).randn(2, 7, 6).astype(np.float32)
-    outs, _ = _hold(_script(tmp_path, Net()), x)
+    uni- and bidirectional (`model_fixtures.write_torchscript_nn`, the
+    archives the card's phase 38 writes)."""
+    outs, _ = _hold(*_nn_archive(tmp_path,
+                                 "lstm_bidir" if bidir else "lstm"))
     assert len(outs) == 3
 
-
 def test_torch_scripted_gru_matches_torch_and_jax(tmp_path):
-    class Net(tnn.Module):
-        def __init__(self):
-            super().__init__()
-            self.rnn = tnn.GRU(4, 8, batch_first=True)
-
-        def forward(self, x):
-            y, h = self.rnn(x)
-            return y, h
-
-    torch.manual_seed(9)
-    x = np.random.RandomState(9).randn(3, 5, 4).astype(np.float32)
-    _hold(_script(tmp_path, Net()), x)
-
+    _hold(*_nn_archive(tmp_path, "gru"))
 
 def test_torch_scripted_text_classifier_matches_torch_and_jax(tmp_path):
     """Embedding + LSTM + Linear over int32 token ids."""
@@ -127,28 +110,8 @@ def test_torch_scripted_text_classifier_matches_torch_and_jax(tmp_path):
 def test_torch_scripted_attention_block_matches_torch_and_jax(tmp_path,
                                                               causal):
     """F.scaled_dot_product_attention in a self-attention block."""
-    class Net(tnn.Module):
-        def __init__(self):
-            super().__init__()
-            self.qkv = tnn.Linear(32, 96)
-            self.out = tnn.Linear(32, 32)
-            self.causal = causal
-
-        def forward(self, x):
-            B, S, D = x.shape[0], x.shape[1], x.shape[2]
-            qkv = self.qkv(x).reshape(B, S, 3, 4, 8)
-            q = qkv[:, :, 0].transpose(1, 2)
-            k = qkv[:, :, 1].transpose(1, 2)
-            v = qkv[:, :, 2].transpose(1, 2)
-            a = F.scaled_dot_product_attention(q, k, v,
-                                               is_causal=self.causal)
-            a = a.transpose(1, 2).reshape(B, S, D)
-            return self.out(a)
-
-    torch.manual_seed(11)
-    x = np.random.RandomState(11).randn(2, 10, 32).astype(np.float32)
-    _hold(_script(tmp_path, Net()), x)
-
+    _hold(*_nn_archive(tmp_path,
+                       "attention_causal" if causal else "attention"))
 
 def test_torch_scripted_sdpa_causal_cross_length_matches_torch_and_jax(
         tmp_path):
@@ -168,20 +131,7 @@ def test_torch_scripted_sdpa_causal_cross_length_matches_torch_and_jax(
 def test_torch_scripted_multihead_attention_matches_torch_and_jax(
         tmp_path):
     """nn.MultiheadAttention through _native_multi_head_attention."""
-    class Net(tnn.Module):
-        def __init__(self):
-            super().__init__()
-            self.mha = tnn.MultiheadAttention(32, 4, batch_first=True)
-            self.ln = tnn.LayerNorm(32)
-
-        def forward(self, x):
-            y, _ = self.mha(x, x, x, need_weights=False)
-            return self.ln(x + y)
-
-    torch.manual_seed(12)
-    x = np.random.RandomState(12).randn(2, 9, 32).astype(np.float32)
-    _hold(_script(tmp_path, Net()), x)
-
+    _hold(*_nn_archive(tmp_path, "mha"))
 
 @pytest.mark.parametrize("norm_first,act", [(False, "gelu"),
                                             (True, "relu")])
@@ -218,15 +168,7 @@ def test_torch_scripted_transformer_decoder_matches_torch_and_jax(
         tmp_path):
     """nn.TransformerDecoder (self + cross attention through SDPA, a
     two-input forward)."""
-    torch.manual_seed(14)
-    layer = tnn.TransformerDecoderLayer(
-        d_model=32, nhead=4, dim_feedforward=64, batch_first=True)
-    net = tnn.TransformerDecoder(layer, num_layers=2)
-    path = _script(tmp_path, net, "dec.pt")
-    tgt = np.random.RandomState(14).randn(2, 7, 32).astype(np.float32)
-    mem = np.random.RandomState(15).randn(2, 9, 32).astype(np.float32)
-    _hold(path, tgt, mem)
-
+    _hold(*_nn_archive(tmp_path, "decoder"))
 
 def test_torch_scripted_residual_cnn_matches_torch_and_jax(tmp_path):
     """ResNet-pattern residual blocks (conv+bn chains, a strided
