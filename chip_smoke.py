@@ -8,8 +8,10 @@
     python3 chip_smoke.py --window    # phases 1, 2, 29 and 30 only
     python3 chip_smoke.py --modelio   # phases 1, 2 and 31-38 only
     python3 chip_smoke.py --elements  # phases 1, 2, 39 and 40 only
+    python3 chip_smoke.py --streaming # phases 1, 2, 41 and 42 only
 
-Needs one CUDA card, nvcc and the repository checkout around this file;
+Needs one CUDA card, nvcc, g++ (phase 42) and the repository checkout
+around this file;
 imports nothing of JAX. On a machine with several cards, phases 21-22
 put their four logical devices one per card (--slice4 runs just those
 phases there). Phases:
@@ -351,10 +353,38 @@ phases there). Phases:
    B's labels' bytes; tensor_sink to-host=false max-results=4 keeps the
    last 4 as CUDA tensors;
 40. E1, E3 and B (bf16) live at once: closed-loop p50/p99 frame by frame
-   in turns; bursts of 200 in turns a b b a, compiled windows off, then on
+   in turns; bursts of 160 in turns a b b a, compiled windows off, then on
    (frames/s, latency under the burst, CUDA kernels and kernel time a
    frame, busy share); host and device ms a call of E1's resize, host ms
    a frame of its preview branch; E2's forced syncs a frame.
+41. Queue 1 item 3c (seeded weights, frames from seeded numpy): E5 the
+   reference's repo-looped LSTM (tensor_repo_src (h, c) and an appsrc's x
+   → tensor_mux → zoo://lstm at its widths, d_in 32, d_hidden 64 →
+   tensor_demux 0,1+2 → sink and tensor_repo_sink), 64 steps: every y a
+   torch recurrence of the same weights on the card (held to 1e-6),
+   within 1e-5 of max |y| of the CPU run (TF32 off), no forced sync,
+   windows on = off bit for bit. E6 keyword spotting at window 1024
+   (audiotestsrc → tensor_converter frames-per-tensor=1024 → typecast →
+   zoo://audio_classifier), beside the same string with normalize_u8
+   (int16 → f32) for the typecast: logits within 1e-4 of max |logit|,
+   labels equal, normalize_u8 on each int16 (1024, 1) window of the path
+   = its plain version bit for bit (wrapper and filter), normalize_u8
+   once a window (wrapper = profiler), the
+   batch=4 bundle through SingleShot = four batch-1 calls. E7 B with a
+   framework=custom ×0.5 scaler before the model and a framework=python3
+   passthrough after it, beside tensor_transform mul:0.5 and no script:
+   logits bit for bit, labels equal, 1.000 forced syncs a frame (the
+   script's), the scaler's CUDA output the plain normalize ×0.5; the
+   python3 decoder → mode=custom-script: round trip of a frame of logits;
+42. Queue 1 item 3d: wire frames of buffers of CUDA tensors (8 dtypes,
+   meta) byte for byte those of the same buffers on the host, one counted
+   sync a frame; ipc_sink in a spawned process → ipc_src → B at B's frame,
+   the native library built at first use with g++, labels equal B
+   direct's, frames/s of both in turns B, ipc, ipc, B; tensor_src_iio
+   from a fake sysfs tree into a filter on the card; prefetch_to_device at
+   depth 2 at B's frame and at 16 MB: in order, each batch its source,
+   the side copy stream's overlap with a busy consumer as a share of copy
+   time (CUDA events).
 
 Each kernel's timing phase (6, 10, 15, 16, 23) also prints its time per
 call from Python, back to back — the host's time (the launch path's own
@@ -371,7 +401,7 @@ chiprun_out/chip_smoke.json (chip_smoke_slice4.json with --slice4,
 chip_smoke_slice6.json with --slice6, chip_smoke_batching.json with
 --batching, chip_smoke_window.json with --window,
 chip_smoke_modelio.json with --modelio, chip_smoke_elements.json with
---elements).
+--elements, chip_smoke_streaming.json with --streaming).
 """
 
 from __future__ import annotations
@@ -5783,6 +5813,9 @@ def item2_card_phase(nt, torch, card, record) -> None:
 #: phase 39's frames a check, E1's preview rate, phase 40's closed-loop
 #: frames an arm (after warm-up)
 ELEM_FRAMES, ELEM_LAT, ELEM_WARMUP = 12, 30, 5
+#: phase 40's bursts: 160 frames (200 until phases 41-42 took about
+#: the 40 frames' time)
+ELEM_BURST = 160
 V640 = "videotestsrc width=640 height=480 pattern=random"
 NORM_CPU = NORM_B + " accelerator=cpu"
 
@@ -6218,7 +6251,7 @@ def elements_correctness(nt, torch, card, record) -> None:
 
 def elements_timings(nt, torch, card, record) -> None:
     """Phase 40 (no claim): E1, E3 and B live at once: closed-loop
-    p50/p99 frame by frame in turns; bursts of 200 in turns a b b a,
+    p50/p99 frame by frame in turns; bursts of 160 in turns a b b a,
     compiled windows off, then on (frames/s, latency under the burst,
     kernels and kernel ms a frame, busy share); host and device ms a
     call of E1's resize on the card and host ms a frame of its preview
@@ -6252,7 +6285,7 @@ def elements_timings(nt, torch, card, record) -> None:
               f"{res[k]['closed_p99_ms']:.3f} ms [{card}]")
     for loop in ("off", "on"):
         kw = {} if loop == "on" else {"compiled_loop": False}
-        arms = burst_arms(nt, torch, descs, first, BURST, BURSTS,
+        arms = burst_arms(nt, torch, descs, first, ELEM_BURST, BURSTS,
                           runner_kw={k: kw for k in descs})
         for k, a in arms.items():
             fps = float(np.median(a["fps"]))
@@ -6263,7 +6296,7 @@ def elements_timings(nt, torch, card, record) -> None:
                  "kernels_per_frame": a["kernels_per_frame"],
                  "busy_share": a["device_ms_per_frame"] * fps / 1e3}
             res[k][f"loop_{loop}"] = r
-            print(f"phase 40: {k} loop {loop}, bursts of {BURST} frames in "
+            print(f"phase 40: {k} loop {loop}, bursts of {ELEM_BURST} frames in "
                   f"turns: " + " / ".join(f"{f:.1f}" for f in a["fps"])
                   + f" frames/s; latency under the burst p50 "
                   f"{r['p50_ms']:.3f} ms p99 {r['p99_ms']:.3f} ms; "
@@ -6330,6 +6363,613 @@ def modelio_phases(nt, torch, card, record, phases) -> None:
     phases.done("38 (item 2's CPU-only pieces on the card)")
 
 
+# -- phases 41-42: Queue 1 items 3c-3d ---------------------------------------
+
+#: E5: the zoo LSTM's widths (its defaults) and the loop's steps
+LSTM_D_IN, LSTM_D_H, LSTM_STEPS = 32, 64, 64
+#: E6: the keyword-spotting pipeline of tests/test_streaming_models.py
+AUDIO_WINDOW, AUDIO_BUFFERS, AUDIO_SPB = 1024, 64, 256
+AUDIO_WINDOWS = AUDIO_BUFFERS * AUDIO_SPB // AUDIO_WINDOW
+AUDIO_HEAD = (f"audiotestsrc num-buffers={AUDIO_BUFFERS} "
+              f"samples-per-buffer={AUDIO_SPB} wave=sine freq=880 ! "
+              f"tensor_converter frames-per-tensor={AUDIO_WINDOW} ! ")
+AUDIO_MODEL = ("tensor_filter name=model model=zoo://audio_classifier?"
+               f"window={AUDIO_WINDOW}&num_classes=12")
+AUDIO_TYPECAST = "tensor_transform mode=typecast option=float32"
+#: E6's two arms agree within this share of max |logit| (the per-window
+#: standardization absorbs normalize_u8's affine map; f32, TF32 off)
+AUDIO_REL = 1e-4
+#: E7 and phase 42: frames of B
+STREAM_FRAMES = 16
+IPC_FRAMES = 64
+#: prefetch: batches a run, and the consumer's busy kernel a batch (cycles
+#: of torch.cuda._sleep, ~2e9 a second)
+PREFETCH_BATCHES, PREFETCH_DEPTH = 16, 2
+
+#: E7's scripts, written to the reference's python3 contracts
+#: (backends/python3_script.py, elements/script_codec.py)
+PASSTHROUGH_PY = '''
+import nnstreamer_python as nns
+
+
+class CustomFilter(object):
+    def setInputDim(self, input_dims):
+        self.dims = input_dims
+        return input_dims
+
+    def invoke(self, input_array):
+        return input_array
+'''
+DECODER_PY = '''
+import numpy as np
+
+
+class CustomDecoder(object):
+    def decode(self, raw_data, in_info, rate_n, rate_d):
+        out = [np.array([len(raw_data)], np.uint32).tobytes()]
+        for raw, info in zip(raw_data, in_info):
+            out += [np.array(info.getDims(), np.uint32).tobytes(),
+                    np.array([raw.size], np.uint32).tobytes(), raw.tobytes()]
+        return b"".join(out)
+'''
+CONVERTER_PY = '''
+import numpy as np
+import nnstreamer_python as nns
+
+
+class CustomConverter(object):
+    def convert(self, input_array):
+        data = input_array[0].tobytes()
+        n = int(np.frombuffer(data[:4], np.uint32)[0])
+        off, infos, raws = 4, [], []
+        for _ in range(n):
+            dims = [int(d) for d in np.frombuffer(data[off:off + 16],
+                                                   np.uint32)]
+            size = int(np.frombuffer(data[off + 16:off + 20], np.uint32)[0])
+            off += 20
+            infos.append(nns.TensorShape(dims, np.float32))
+            raws.append(data[off:off + size])
+            off += size
+        return infos, raws, 0, 0
+'''
+
+
+def lstm_loop_desc(slot: int, accel: str = "") -> str:
+    """tests/test_streaming_models.py:36-73 as a string: the repo's (h, c)
+    and an appsrc's x muxed into zoo://lstm, y to the sink and (h', c')
+    back to the repo."""
+    acc = f" accelerator={accel}" if accel else ""
+    return (f"tensor_repo_src name=state slot={slot} dims={LSTM_D_H}:1,"
+            f"{LSTM_D_H}:1 types=float32,float32 count={LSTM_STEPS + 1} ! "
+            f"mx.sink_1 appsrc name=src dims={LSTM_D_IN}:1 types=float32 ! "
+            f"mx.sink_0 tensor_mux name=mx sync-mode=nosync ! tensor_filter "
+            f"name=model model=zoo://lstm?d_in={LSTM_D_IN}&d_hidden="
+            f"{LSTM_D_H}{acc} ! tensor_demux name=dm tensorpick=0,1+2 "
+            f"dm.src_0 ! tensor_sink name=out to-host=false dm.src_1 ! "
+            f"tensor_repo_sink slot={slot}")
+
+
+def e5_phase(nt, torch, card, res) -> None:
+    """E5: the repo-looped LSTM at the zoo's widths, 64 steps: every y
+    equal to a torch recurrence of the same weights on the card (bit for
+    bit expected, held to 1e-6), within 1e-5 of max |y| of the CPU run
+    (TF32 off), no forced sync (the state stays on the card after the
+    priming zeros), compiled windows on = off bit for bit."""
+    from nnstreamer_tpu_torch.elements import REPO
+    from nnstreamer_tpu_torch.models import lstm
+    from nnstreamer_tpu_torch.models.zoo import build_model
+    from nnstreamer_tpu_torch.runtime import sync
+
+    rng = np.random.default_rng(41)
+    xs = [rng.normal(size=(1, LSTM_D_IN)).astype(np.float32)
+          for _ in range(LSTM_STEPS)]
+    runs = {}
+    with NoTf32(torch):
+        for key, accel, kw in (("card", "", {}), ("cpu", "cpu", {}),
+                               ("off", "", {"compiled_loop": False})):
+            REPO.reset()
+            pipe = nt.parse_launch(lstm_loop_desc(41, accel))
+            runner = nt.PipelineRunner(pipe, **kw).start()
+            syncs0 = sync.forced_sync_count()
+            push_and_wait(pipe, runner, xs)
+            runs[key] = ([r.tensors[0] for r in pipe.get("out").results],
+                         sync.forced_sync_count() - syncs0,
+                         runner.stats()["model"])
+        params = {k: v.cuda() for k, v in build_model(
+            f"lstm?d_in={LSTM_D_IN}&d_hidden={LSTM_D_H}").params.items()}
+        h = c = torch.zeros(1, LSTM_D_H, device="cuda")
+        ref = []
+        with torch.inference_mode():
+            for x in xs:
+                y, h, c = lstm.apply(params, torch.from_numpy(x).cuda(), h, c)
+                ref.append(y)
+    ys, syncs, st = runs["card"]
+    cuda = all(isinstance(y, torch.Tensor) and y.is_cuda for y in ys)
+    err = max(float((a - b).abs().max()) for a, b in zip(ys, ref))
+    cpu = [np.asarray(y) for y in runs["cpu"][0]]
+    cpu_err = rel_err([y.cpu().numpy() for y in ys], cpu)
+    same = all(torch.equal(a, b) for a, b in zip(ys, runs["off"][0]))
+    res["E5"] = {"steps": len(ys), "cuda": cuda, "max_abs_err_torch": err,
+                 "rel_err_cpu": cpu_err, "forced_syncs": syncs,
+                 "windows_on_equal_off": same,
+                 "loop_entries": st["loop_entries"],
+                 "compiled_steps": st["compiled_steps"]}
+    print(f"phase 41: E5 repo-looped zoo://lstm (d_in {LSTM_D_IN}, d_hidden "
+          f"{LSTM_D_H}), {len(ys)} steps: y as CUDA tensors ({cuda}) within "
+          f"{err:.3e} of a torch recurrence of the same weights on the card; "
+          f"within {cpu_err:.3e} of max |y| of the CPU run (TF32 off); "
+          f"forced syncs {syncs}; windows on = off bit for bit: {same} "
+          f"({st['loop_entries']} windows) [{card}]")
+    check(len(ys) == LSTM_STEPS and cuda and err <= 1e-6
+          and cpu_err <= 1e-5 and syncs == 0 and same, f"E5: {res['E5']}")
+
+
+def e6_phase(nt, torch, card, res) -> dict:
+    """E6: keyword spotting at window 1024, the typecast form against
+    normalize_u8 (int16 → f32, once a window) before the model: logits
+    within AUDIO_REL of max |logit|, labels equal; the kernel on each
+    int16 (window, 1) frame of the path, through the wrapper and the
+    pipeline's filter, = its plain version bit for bit (the logits alone
+    cannot see a wrong scale or offset: the per-window standardization
+    cancels any affine map); the wrapper's launches and the profiler's
+    records both = the windows; the batch=4 bundle
+    through SingleShot = four batch-1 calls. → #1's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.backends import kernels
+    from nnstreamer_tpu_torch.single import SingleShot
+
+    tail = f" ! {AUDIO_MODEL} ! tensor_sink name=out"
+    with NoTf32(torch):
+        typecast = run_sinks(nt, AUDIO_HEAD + AUDIO_TYPECAST + tail)[0]["out"]
+
+        def attempt():
+            kernels.normalize_u8.launches = 0
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                open_capture(torch)
+                out = run_sinks(nt, AUDIO_HEAD + NORM_B + tail)[0]["out"]
+                torch.cuda.synchronize()
+                close_capture(torch)
+            named = sum("nns_normalize_kernel" in e.name
+                        for e in kernel_events(prof))
+            launched = kernels.normalize_u8.launches
+            return ({"normalize_u8": launched}, {"normalize_u8": named},
+                    (out, launched))
+
+        (kernel_arm, launched), tries = profiled_agreement("phase 41: E6",
+                                                           attempt)
+        # the kernel on the path's own windows: the int16 (window, 1)
+        # frames the converter makes, each through the wrapper and through
+        # the pipeline's filter, against the plain version, bit for bit
+        windows = [torch.from_numpy(np.asarray(r.tensors[0])).cuda()
+                   for r in run_sinks(nt, AUDIO_HEAD + "tensor_sink "
+                                      "name=raw", sinks=("raw",))[0]["raw"]]
+        normed = run_sinks(nt, AUDIO_HEAD + NORM_B + " ! tensor_sink "
+                           "name=norm to-host=false",
+                           sinks=("norm",))[0]["norm"]
+        plain = [kernels.normalize_u8_plain(w) for w in windows]
+        direct = [kernels.normalize_u8(w) for w in windows]
+        torch.cuda.synchronize()
+        win_ok = (len(windows) == len(normed) == AUDIO_WINDOWS and all(
+            w.dtype == torch.int16 and tuple(w.shape) == (AUDIO_WINDOW, 1)
+            for w in windows))
+        win_bits = win_ok and all(
+            torch.equal(d.view(torch.int32), p.view(torch.int32))
+            and torch.equal(r.tensors[0].view(torch.int32),
+                            p.view(torch.int32))
+            for d, r, p in zip(direct, normed, plain))
+        win_err = max(float((d - p).abs().max())
+                      for d, p in zip(direct, plain)) if plain else None
+        lg = [logits_of(typecast), logits_of(kernel_arm)]
+        err = rel_err([lg[1]], [lg[0]])
+        labels = [list(map(int, a.argmax(-1))) for a in lg]
+        x = np.random.default_rng(416).normal(
+            0, 3000, (4, AUDIO_WINDOW, 1)).astype(np.float32)
+        with SingleShot(model=f"zoo://audio_classifier?window={AUDIO_WINDOW}"
+                              f"&batch=4", framework="torch") as s4:
+            four = s4.invoke(x)[0]
+        with SingleShot(model=f"zoo://audio_classifier?window={AUDIO_WINDOW}",
+                        framework="torch") as s1:
+            ones = torch.stack([s1.invoke(x[i])[0] for i in range(4)])
+        b_err = rel_err([four.cpu().numpy()], [ones.cpu().numpy()])
+    res["E6"] = {"windows": len(lg[0]), "rel_err": err,
+                 "labels_equal": labels[0] == labels[1],
+                 "int16_windows_bitwise": win_bits,
+                 "int16_max_abs_err": win_err,
+                 "normalize_launches": launched, "profiled_run": tries,
+                 "batch4_on_card": four.is_cuda, "batch4_rel_err": b_err}
+    print(f"phase 41: E6 keyword spotting, window {AUDIO_WINDOW}, "
+          f"{len(lg[0])} windows: normalize_u8 (int16 → f32) against the "
+          f"typecast: logits within {err:.3e} of max |logit|, labels equal "
+          f"{labels[0] == labels[1]} ({labels[0][:4]}…); normalize_u8 on "
+          f"the {len(windows)} int16 ({AUDIO_WINDOW}, 1) windows, through "
+          f"the wrapper and the pipeline's filter, = the plain version bit "
+          f"for bit: {win_bits} (max_abs_err {win_err}); normalize_u8 "
+          f"launched {launched} times, by the wrapper and by name in the "
+          f"profiler (profiled run {tries}); batch=4 through SingleShot on "
+          f"the card within {b_err:.3e} of four batch-1 calls (TF32 off) "
+          f"[{card}]")
+    check(len(lg[0]) == len(lg[1]) == AUDIO_WINDOWS and err <= AUDIO_REL
+          and labels[0] == labels[1] and launched == AUDIO_WINDOWS
+          and win_bits and four.is_cuda and b_err <= 1e-5,
+          f"E6: {res['E6']}")
+    return {"E6": launched}
+
+
+def e7_phase(nt, torch, card, res, scripts) -> dict:
+    """E7: config 1's B with a framework=custom scaler (×0.5) between
+    normalize_u8 and the model and a framework=python3 passthrough after
+    it, beside B with `tensor_transform mode=arithmetic option=mul:0.5`
+    and no script: logits bit for bit, labels equal; the scaler's output
+    the plain computation; forced syncs 1.000 a frame, the script's; the
+    python3 decoder and mode=custom-script: round-trip a frame of
+    logits. → #1's launches."""
+    from nnstreamer_tpu_torch.backends import custom, kernels
+    from nnstreamer_tpu_torch.runtime import sync
+
+    frames = u8_frames((1, 224, 224, 3), STREAM_FRAMES, 417)
+    custom.register_custom_easy("chip_half", lambda ts: (ts[0] * 0.5,))
+    tail = (f"{MODEL} ! tee name=t t. ! queue ! {LABEL} ! tensor_sink "
+            f"name=labels t. ! queue ! tensor_sink name=logits")
+    script = (f"{APPSRC} ! {NORM_B} ! tensor_filter framework=custom "
+              f"model=chip_half ! {MODEL} ! tensor_filter framework=python3 "
+              f"model={scripts['passthrough']} ! tee name=t t. ! queue ! "
+              f"{LABEL} ! tensor_sink name=labels t. ! queue ! tensor_sink "
+              f"name=logits")
+    plain = (f"{APPSRC} ! {NORM_B} ! tensor_transform mode=arithmetic "
+             f"option=mul:0.5 ! {tail}")
+    sinks = ("labels", "logits")
+    try:
+        kernels.normalize_u8.launches = 0
+        syncs0 = sync.forced_sync_count()
+        got, _, _ = run_sinks(nt, script, frames, sinks=sinks)
+        syncs = sync.forced_sync_count() - syncs0
+        launched = kernels.normalize_u8.launches
+        ref, _, _ = run_sinks(nt, plain, frames, sinks=sinks)
+        scaled, _, _ = run_sinks(
+            nt, f"{APPSRC} ! {NORM_B} ! tensor_filter framework=custom "
+                f"model=chip_half ! tensor_sink name=out to-host=false",
+            frames[:2])
+    finally:
+        custom.unregister_custom_easy("chip_half")
+    same = same_outputs(got["logits"], ref["logits"])
+    labels = [[b.meta["label_index"] for b in o["labels"]] for o in (got, ref)]
+    host_logits = all(isinstance(r.tensors[0], np.ndarray)
+                      for r in got["logits"])
+    want = [kernels.normalize_u8_plain(torch.from_numpy(f).cuda()) * 0.5
+            for f in frames[:2]]
+    scaler = all(r.tensors[0].is_cuda and torch.equal(r.tensors[0], w)
+                 for r, w in zip(scaled["out"], want))
+    dec = run_sinks(
+        nt, f"{APPSRC} ! {NORM_B} ! {MODEL} ! tee name=t t. ! queue ! "
+            f"tensor_decoder mode=python3 option1={scripts['decoder']} ! "
+            f"tensor_converter mode=custom-script:{scripts['converter']} ! "
+            f"tensor_sink name=rt t. ! queue ! tensor_sink name=logits",
+        frames[:1], sinks=("rt", "logits"))[0]
+    rt = np.asarray(dec["rt"][0].tensors[0]).reshape(-1)
+    lg = np.asarray(dec["logits"][0].tensors[0]).astype(np.float32).reshape(-1)
+    roundtrip = rt.tobytes() == lg.tobytes()
+    res["E7"] = {"frames": len(labels[0]), "logits_identical": same,
+                 "labels_equal": labels[0] == labels[1],
+                 "script_outputs_on_host": host_logits,
+                 "forced_syncs_per_frame": syncs / STREAM_FRAMES,
+                 "normalize_launches": launched, "scaler_plain": scaler,
+                 "codec_roundtrip": roundtrip}
+    print(f"phase 41: E7 B ({STREAM_FRAMES} frames, bf16) with a "
+          f"framework=custom ×0.5 scaler before the model and a "
+          f"framework=python3 passthrough after it: logits bit for bit those "
+          f"of tensor_transform mul:0.5 without the script: {same}; labels "
+          f"equal {labels[0] == labels[1]}; forced syncs "
+          f"{syncs / STREAM_FRAMES:.3f} a frame (the script's; its outputs "
+          f"host arrays: {host_logits}); the scaler's CUDA output = the "
+          f"plain normalize ×0.5: {scaler}; normalize_u8 launched "
+          f"{launched} times; python3 decoder → mode=custom-script: gives "
+          f"back the logits' bytes: {roundtrip} [{card}]")
+    check(same and labels[0] == labels[1] and len(labels[0]) == STREAM_FRAMES
+          and syncs == STREAM_FRAMES and host_logits and scaler
+          and launched == STREAM_FRAMES and roundtrip, f"E7: {res['E7']}")
+    return {"E7": launched}
+
+
+def streaming_correctness(nt, torch, card, record) -> dict:
+    """Phase 41: E5-E7. → normalize_u8's launches by path."""
+    import tempfile
+
+    res = {}
+    e5_phase(nt, torch, card, res)
+    launches = e6_phase(nt, torch, card, res)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scripts_") as d:
+        scripts = {}
+        for name, text in (("passthrough", PASSTHROUGH_PY),
+                           ("decoder", DECODER_PY),
+                           ("converter", CONVERTER_PY)):
+            scripts[name] = str(Path(d) / f"{name}.py")
+            Path(scripts[name]).write_text(text)
+        launches.update(e7_phase(nt, torch, card, res, scripts))
+    record["streaming"] = res
+    return launches
+
+
+def wire_phase(nt, torch, card, res) -> None:
+    """Wire frames of a buffer of CUDA tensors (every dtype): the bytes of
+    the same buffer on the host, one counted sync a frame."""
+    from nnstreamer_tpu_torch.edge import wire
+    from nnstreamer_tpu_torch.runtime import sync
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    g = torch.Generator(device="cuda").manual_seed(42)
+    dtypes = (torch.uint8, torch.int16, torch.int32, torch.int64,
+              torch.float16, torch.bfloat16, torch.float32, torch.float64)
+    frames = []
+    for i in range(4):
+        ts = [torch.randn(3, 5, 7, device="cuda", generator=g).mul(50)
+              .to(dt) for dt in dtypes]
+        frames.append(TensorBuffer.of(*ts, pts=i).with_meta(
+            label="x", boxes=np.arange(6, dtype=np.float32).reshape(1, 6)))
+    syncs0 = sync.forced_sync_count()
+    enc = [wire.encode_buffer(b, client_id=7) for b in frames]
+    syncs = sync.forced_sync_count() - syncs0
+    host = [wire.encode_buffer(b.to_host(), client_id=7) for b in frames]
+    same = enc == host
+    back = [wire.decode_buffer(e)[0] for e in enc]
+    values = all(np.asarray(t).tobytes() == np.asarray(u).tobytes()
+                 for b, h in zip(back, frames)
+                 for t, u in zip(b.tensors, h.to_host().tensors))
+    res["wire"] = {"frames": len(enc), "bytes_equal_host": same,
+                   "forced_syncs_per_frame": syncs / len(enc),
+                   "decoded_equal": values, "bytes": len(enc[0])}
+    print(f"phase 42: wire frames of {len(enc)} buffers of CUDA tensors "
+          f"({len(dtypes)} dtypes, {len(enc[0])} bytes each): byte for byte "
+          f"those of the same buffers on the host: {same}; forced syncs "
+          f"{syncs / len(enc):.3f} a frame; decoded = the values: {values}")
+    check(same and values and syncs == len(enc), f"wire: {res['wire']}")
+
+
+def _ipc_child(ring, turns, n, created, go, done):
+    """Phase 42's producer process (spawned): for each turn, appsrc →
+    ipc_sink on its own ring; the frames are pushed when the parent says
+    go, and the ring is kept until the parent has read it all."""
+    sys.path.insert(0, str(ROOT))
+    import nnstreamer_tpu_torch as nt
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    frames = u8_frames((1, 224, 224, 3), n, 42)
+    for t in range(turns):
+        pipe = nt.parse_launch(f"{APPSRC} ! ipc_sink ring={ring}-{t} "
+                               f"capacity={1 << 24}")
+        runner = nt.PipelineRunner(pipe).start()
+        created[t].set()
+        go[t].wait(300)
+        for i, f in enumerate(frames):
+            pipe.get("src").push(TensorBuffer.of(f, pts=i))
+        pipe.get("src").end()
+        runner.wait(300)
+        done[t].wait(300)
+        runner.stop()
+
+
+def ipc_phase(nt, torch, card, res) -> None:
+    """ipc_sink in a spawned child feeds ipc_src here, at B's frame, the
+    native library built at first use; B's model after ipc_src gives B
+    direct's labels; frames/s of both in turns B, ipc, ipc, B."""
+    import multiprocessing
+    import os
+
+    from nnstreamer_tpu_torch import native
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    build_s = time.perf_counter() - t0
+    frames = u8_frames((1, 224, 224, 3), IPC_FRAMES, 42)
+    tail = f"{NORM_B} ! {MODEL} ! {LABEL} ! tensor_sink name=out"
+    ctx = multiprocessing.get_context("spawn")
+    ring = f"/chip-smoke-{os.getpid()}"
+    ev = {k: [ctx.Event() for _ in range(2)] for k in ("created", "go",
+                                                      "done")}
+    child = ctx.Process(target=_ipc_child, args=(
+        ring, 2, IPC_FRAMES, ev["created"], ev["go"], ev["done"]))
+    child.start()
+    fps, labels = {"B": [], "ipc": []}, {}
+    try:
+        # warm the model once so no arm pays for a first build
+        run_desc(nt, f"{APPSRC} ! {tail}", frames[:2])
+        for arm, turn in (("B", None), ("ipc", 0), ("ipc", 1), ("B", None)):
+            if arm == "B":
+                pipe = nt.parse_launch(f"{APPSRC} ! {tail}")
+                runner = nt.PipelineRunner(pipe).start()
+                t = time.perf_counter()
+                push_and_wait(pipe, runner, frames)
+            else:
+                check(ev["created"][turn].wait(300),
+                      "ipc: the child never created its ring")
+                pipe = nt.parse_launch(
+                    f"ipc_src ring={ring}-{turn} dims=3:224:224:1 "
+                    f"types=uint8 ! {tail}")
+                runner = nt.PipelineRunner(pipe).start()
+                t = time.perf_counter()
+                ev["go"][turn].set()
+                try:
+                    runner.wait(300)
+                finally:
+                    runner.stop()
+                    ev["done"][turn].set()
+            fps[arm].append(IPC_FRAMES / (time.perf_counter() - t))
+            labels.setdefault(arm, [b.meta["label_index"]
+                                    for b in pipe.get("out").results])
+        child.join(120)
+    finally:
+        for e in ev["go"] + ev["done"]:
+            e.set()
+        if child.is_alive():
+            child.kill()
+            child.join(10)
+    res["ipc"] = {"frames": len(labels["ipc"]), "labels_equal":
+                  labels["ipc"] == labels["B"], "fps": fps,
+                  "child_exit": child.exitcode, "library": lib.name,
+                  "build_s": build_s}
+    print(f"phase 42: ipc_sink in a spawned process → ipc_src → B "
+          f"({IPC_FRAMES} frames of 1×224×224×3 u8; {lib.name} built with "
+          f"g++ in {build_s:.2f} s): labels equal B direct's: "
+          f"{labels['ipc'] == labels['B']}; frames/s in turns B / ipc / ipc "
+          f"/ B: {fps['B'][0]:.1f} / {fps['ipc'][0]:.1f} / "
+          f"{fps['ipc'][1]:.1f} / {fps['B'][1]:.1f} [{card}]")
+    check(len(labels["ipc"]) == IPC_FRAMES and labels["ipc"] == labels["B"]
+          and child.exitcode == 0, f"ipc: {res['ipc']}")
+
+
+def iio_phase(nt, torch, card, res) -> None:
+    """tensor_src_iio from a fake sysfs tree (3 × s16 and a u64
+    timestamp, scale and offset) into a filter on the card: CUDA tensors
+    equal to the model on an independent numpy decode."""
+    import struct
+    import tempfile
+
+    from nnstreamer_tpu_torch.backends.torch_backend import ModelBundle
+
+    n, fpt = 64, 16
+    rng = np.random.default_rng(42)
+    raw = rng.integers(-2048, 2048, (n, 3)).astype(np.int16)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_iio_") as d:
+        dev = Path(d) / "iio:device0"
+        scan = dev / "scan_elements"
+        scan.mkdir(parents=True)
+        (dev / "name").write_text("chip_accel\n")
+        (dev / "sampling_frequency").write_text("400\n")
+        for i, ch in enumerate(("in_accel_x", "in_accel_y", "in_accel_z")):
+            (scan / f"{ch}_en").write_text("1\n")
+            (scan / f"{ch}_index").write_text(f"{i}\n")
+            (scan / f"{ch}_type").write_text("le:s16/16>>0\n")
+            (dev / f"{ch}_scale").write_text("0.5\n")
+            (dev / f"{ch}_offset").write_text("3\n")
+        (scan / "in_timestamp_en").write_text("1\n")
+        (scan / "in_timestamp_index").write_text("3\n")
+        (scan / "in_timestamp_type").write_text("le:u64/64>>0\n")
+        data = Path(d) / "samples.bin"
+        data.write_bytes(b"".join(struct.pack("<hhh2xQ", *map(int, r), 1000 + i)
+                                  for i, r in enumerate(raw)))
+        pipe = nt.parse_launch(
+            f"tensor_src_iio device=chip_accel base_dir={d} data={data} "
+            f"frames_per_tensor={fpt} ! tensor_filter name=f ! "
+            f"tensor_sink name=out to-host=false")
+        pipe.get("f").set_props(model=ModelBundle(
+            fn=lambda p, x: (x[:, :3] * 2.0 + 1.0,), name="affine"))
+        nt.run_pipeline(pipe, timeout=120)
+    out = pipe.get("out").results
+    want = ((raw.astype(np.float32) + 3.0) * 0.5) * 2.0 + 1.0
+    cuda = all(r.tensors[0].is_cuda for r in out)
+    got = np.concatenate([r.tensors[0].cpu().numpy() for r in out])
+    same = got.shape == want.shape and bool(np.array_equal(got, want))
+    res["iio"] = {"buffers": len(out), "cuda": cuda, "equal": same}
+    print(f"phase 42: tensor_src_iio (fake sysfs: 3 × le:s16 + u64 "
+          f"timestamp, scale 0.5, offset 3) → a filter on the card: "
+          f"{len(out)} buffers of {fpt} samples as CUDA tensors ({cuda}), "
+          f"equal to the model on a numpy decode: {same}")
+    check(len(out) == n // fpt and cuda and same, f"iio: {res['iio']}")
+
+
+def prefetch_run(torch, shape, busy_cycles: int):
+    """prefetch_to_device at depth 2 through a CopyStager whose copies a
+    `put=` wrapper pins and brackets with timing events on the copy
+    stream, a
+    consumer that reads each batch behind a busy kernel → (batches in
+    order and equal to their sources, the copies' overlap with the
+    consumer's busy kernels as a share of copy time, copy ms a batch)."""
+    from nnstreamer_tpu_torch.runtime.input_pipeline import (
+        CopyStager, prefetch_to_device)
+
+    rng = np.random.default_rng(sum(shape))
+    src = [rng.integers(0, 256, shape, np.uint8) for _ in
+           range(PREFETCH_BATCHES)]
+    for i, s in enumerate(src):
+        s.reshape(-1)[0] = i
+    stager = CopyStager("cuda")
+    timed = []
+
+    def put(x, device):
+        # pinned here, so the stager's own pin_memory() is a no-op and
+        # the bracket holds the copy alone
+        pinned = torch.from_numpy(x).pin_memory()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stager.stream)
+        staged = stager(pinned)
+        end.record(stager.stream)
+        timed.append((start, end))
+        return staged
+
+    base = torch.cuda.Event(enable_timing=True)
+    base.record()
+    busy, got = [], []
+    for y in prefetch_to_device(iter(src), depth=PREFETCH_DEPTH, put=put):
+        b0 = torch.cuda.Event(enable_timing=True)
+        b1 = torch.cuda.Event(enable_timing=True)
+        b0.record()
+        torch.cuda._sleep(busy_cycles)
+        total = y.sum(dtype=torch.int64)
+        b1.record()
+        busy.append((b0, b1))
+        got.append((y, total))
+    torch.cuda.synchronize()
+
+    def span(a, b):
+        return base.elapsed_time(a), base.elapsed_time(b)
+
+    copies = [span(*c) for c in timed]
+    busy = [span(*b) for b in busy]
+    overlap = sum(max(0.0, min(c1, b1) - max(c0, b0))
+                  for c0, c1 in copies for b0, b1 in busy)
+    copy_ms = sum(c1 - c0 for c0, c1 in copies)
+    ordered = [int(y.reshape(-1)[0]) for y, _ in got] == list(
+        range(PREFETCH_BATCHES))
+    equal = all(np.array_equal(y.cpu().numpy(), s) and int(tot) == int(
+        s.sum(dtype=np.int64)) for (y, tot), s in zip(got, src))
+    return ordered, equal, overlap / copy_ms, copy_ms / len(copies)
+
+
+def prefetch_phase(nt, torch, card, res) -> None:
+    """prefetch_to_device at depth 2 at B's frame and at a 16 MB frame: in
+    order, each batch its host source, the copy stream overlapping a busy
+    consumer (the overlap as a share of copy time, from CUDA events)."""
+    out = {}
+    for name, shape, cycles in (("B frame", (1, 224, 224, 3), 400_000),
+                                ("16 MB", (16, 1024, 1024), 4_000_000)):
+        prefetch_run(torch, shape, cycles)          # warm: streams, pinned
+        ordered, equal, share, copy_ms = prefetch_run(torch, shape, cycles)
+        out[name] = {"ordered": ordered, "equal": equal,
+                     "overlap_share": share, "copy_ms": copy_ms,
+                     "busy_ms": cycles / 2e6}
+        print(f"phase 42: prefetch_to_device depth {PREFETCH_DEPTH}, "
+              f"{PREFETCH_BATCHES} batches of {name} {shape} u8: in order "
+              f"{ordered}, each its host source {equal}; copy "
+              f"{copy_ms:.4f} ms a batch on the side stream, "
+              f"{100 * share:.1f}% of copy time under the consumer's busy "
+              f"kernels (~{cycles / 2e6:.1f} ms each) [{card}]")
+        check(ordered and equal, f"prefetch {name}: {out[name]}")
+    check(out["16 MB"]["overlap_share"] > 0,
+          f"prefetch: the copies never overlapped the consumer: {out}")
+    res["prefetch"] = out
+
+
+def streaming_io(nt, torch, card, record) -> None:
+    """Phase 42: the wire format, ipc, iio and the prefetching input."""
+    res = {}
+    wire_phase(nt, torch, card, res)
+    ipc_phase(nt, torch, card, res)
+    iio_phase(nt, torch, card, res)
+    prefetch_phase(nt, torch, card, res)
+    record["streaming_io"] = res
+
+
+def streaming_phases(nt, torch, card, record, phases) -> dict:
+    """Phases 41-42. → normalize_u8's launches by path."""
+    launches = streaming_correctness(nt, torch, card, record)
+    phases.done("41 (zoo LSTM and audio, the script backends)")
+    streaming_io(nt, torch, card, record)
+    phases.done("42 (wire, ipc, iio, prefetch)")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6360,6 +7000,12 @@ def main(argv=None) -> int:
         help="run phases 1, 2, 39 and 40 only (tee, queue, tensor_resize, "
              "tensor_rate, tensor_if, join, split/merge, the aggregator, "
              "the repo loop, filesrc/filesink, tensor_sink to-host=false)")
+    ap.add_argument(
+        "--streaming", action="store_true",
+        help="run phases 1, 2, 41 and 42 only (zoo://lstm in a repo loop, "
+             "zoo://audio_classifier, the custom and python3 backends, the "
+             "script codecs; the wire format, ipc, tensor_src_iio and the "
+             "prefetching input)")
     ap.add_argument(
         "--slice4", action="store_true",
         help="run phases 1, 2 and 20-23 only (the ring step, ring "
@@ -6436,6 +7082,9 @@ def main(argv=None) -> int:
     elif args.elements:
         elements_phases(nt, torch, card, record, phases)
         entries = []
+    elif args.streaming:
+        streaming_phases(nt, torch, card, record, phases)
+        entries = []
     else:
         # -- 3-6. normalize_u8, pipelines A and B ------------------------
         entries = slice1_phases(nt, torch, card, record, phases)
@@ -6459,6 +7108,11 @@ def main(argv=None) -> int:
         modelio_phases(nt, torch, card, record, phases)
         # -- 39-40. the DSL's elements -----------------------------------
         elements_phases(nt, torch, card, record, phases)
+        # -- 41-42. items 3c-3d: E6 and E7 launch #1 too ----------------
+        extra = streaming_phases(nt, torch, card, record, phases)
+        norm = next(e for e in entries if e["name"] == "normalize_u8")
+        norm["launches_by_path"] = {"B": norm["launches"], **extra}
+        norm["launches"] += sum(extra.values())
     record["phase_seconds"] = phases.seconds
 
     out_dir = ROOT / "chiprun_out"
@@ -6469,6 +7123,7 @@ def main(argv=None) -> int:
             "chip_smoke_window.json" if args.window else
             "chip_smoke_modelio.json" if args.modelio else
             "chip_smoke_elements.json" if args.elements else
+            "chip_smoke_streaming.json" if args.streaming else
             "chip_smoke.json")
     (out_dir / name).write_text(json.dumps(record, indent=1))
     print(card)

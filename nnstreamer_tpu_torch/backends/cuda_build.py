@@ -10,7 +10,8 @@ a plain-C source takes seconds.
   default ``build/torch_kernels`` beside the package), named by a hash of
   the source and the flags, so an edited source or flag rebuilds.
 - A file lock serialises processes that build the same library at once;
-  the finished file is renamed into place, so a reader never sees half.
+  the finished file is renamed into place, so a reader never sees half
+  (`build_locked`, which the native library's g++ build shares).
 - A missing ``nvcc`` or a failed build raises `BackendError`. Nothing
   falls back to the plain version.
 
@@ -29,7 +30,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 import torch
 
@@ -73,10 +74,47 @@ def find_nvcc() -> str:
     return found
 
 
+def source_key(sources: List[Path], flags: List[str]) -> str:
+    """Hash of the sources' bytes and the flags: the library's name."""
+    h = hashlib.sha256()
+    for src in sources:
+        h.update(src.read_bytes())
+    h.update("\0".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 def library_path(source: str, flags: List[str] = NVCC_FLAGS) -> Path:
-    src = (CSRC / source).read_bytes()
-    key = hashlib.sha256(src + "\0".join(flags).encode()).hexdigest()[:16]
+    key = source_key([CSRC / source], flags)
     return kernel_dir() / f"{Path(source).stem}-{key}.so"
+
+
+def build_locked(out: Path, command: Callable[[Path], List[str]],
+                 what: str) -> Path:
+    """Run the compiler `command(tmp)` unless `out` exists, under a file
+    lock beside it, then rename its output into place → `out`. The
+    compiler's output is kept beside the library, same name with the
+    suffix ``.log``; a failed build raises `BackendError` with it."""
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if out.exists():  # another process built it while we waited
+                return out
+            tmp = out.with_suffix(f".tmp{os.getpid()}")
+            cmd = command(tmp)
+            log.info("building %s: %s", what, " ".join(cmd))
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise BackendError(
+                    f"{Path(cmd[0]).name} failed ({proc.returncode}) "
+                    f"building {what}:\n{proc.stderr[-4000:]}")
+            out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            os.replace(tmp, out)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return out
 
 
 def build(source: str, flags: List[str] = NVCC_FLAGS) -> Path:
@@ -87,25 +125,9 @@ def build(source: str, flags: List[str] = NVCC_FLAGS) -> Path:
     if out.exists():
         return out
     nvcc = find_nvcc()
-    out.parent.mkdir(parents=True, exist_ok=True)
-    with open(out.with_suffix(".lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        try:
-            if out.exists():  # another process built it while we waited
-                return out
-            tmp = out.with_suffix(f".tmp{os.getpid()}")
-            cmd = [nvcc, *flags, "-o", str(tmp), str(CSRC / source)]
-            log.info("building %s: %s", source, " ".join(cmd))
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise BackendError(
-                    f"nvcc failed ({proc.returncode}) building {source}:\n"
-                    f"{proc.stderr[-4000:]}")
-            out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, out)
-        finally:
-            fcntl.flock(lock, fcntl.LOCK_UN)
-    return out
+    return build_locked(
+        out, lambda tmp: [nvcc, *flags, "-o", str(tmp), str(CSRC / source)],
+        source)
 
 
 def load(source: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:

@@ -18,7 +18,7 @@ import configparser
 import os
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from nnstreamer_tpu_torch.core.errors import ConfigError
 
@@ -26,6 +26,11 @@ ENV_PREFIX = "NNSTREAMER_TPU_TORCH_"
 CONF_ENV = "NNSTREAMER_TPU_TORCH_CONF"
 
 _DEFAULTS: Dict[str, Dict[str, str]] = {
+    "common": {
+        # directories whose *.py files are imported on a registry miss
+        # (core/registry.py); ${NNSTREAMER_TPU_TORCH_PLUGINS} comes first
+        "plugin_paths": "",
+    },
     "filter": {
         "default_backend": "torch",
         # where a filter runs when its accelerator= property is empty.
@@ -127,6 +132,20 @@ class Config:
         if v is None or not v.strip():
             return default
         return v.strip().lower() in ("1", "true", "yes", "on")
+
+    def plugin_paths(self) -> List[Path]:
+        """Directories scanned for plugin modules: ``$NNSTREAMER_TPU_TORCH_
+        PLUGINS`` first, then ``[common] plugin_paths`` (os.pathsep-
+        separated). The JAX package reads ``$NNSTREAMER_TPU_PLUGINS``, so
+        a path set for one package loads nothing into the other."""
+        paths: List[Path] = []
+        env = os.environ.get(f"{ENV_PREFIX}PLUGINS", "")
+        ini = self.get("common", "plugin_paths") or ""
+        for chunk in (env, ini):
+            for p in chunk.split(os.pathsep):
+                if p.strip():
+                    paths.append(Path(p.strip()).expanduser())
+        return paths
 
     def get_float(self, group: str, key: str, default: float = 0.0) -> float:
         v = self.get(group, key)

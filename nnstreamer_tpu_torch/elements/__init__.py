@@ -11,10 +11,14 @@ from nnstreamer_tpu_torch.elements.debug import TensorDebug
 from nnstreamer_tpu_torch.elements.decoder import TensorDecoder, register_decoder
 from nnstreamer_tpu_torch.elements.fault import TensorFault
 from nnstreamer_tpu_torch.elements.filter import TensorFilter
+from nnstreamer_tpu_torch.elements.iio import TensorSrcIIO
+from nnstreamer_tpu_torch.elements.ipc import IpcSink, IpcSrc
 from nnstreamer_tpu_torch.elements.llm import TensorLLM
 from nnstreamer_tpu_torch.elements.repo import REPO, TensorRepoSink, TensorRepoSrc
 from nnstreamer_tpu_torch.elements.routing import (
     Join, Queue, Tee, TensorDemux, TensorMerge, TensorMux, TensorSplit)
+# the python3 decoder, and the wire decoder and converter
+from nnstreamer_tpu_torch.elements import script_codec, wire_codec  # noqa: F401
 from nnstreamer_tpu_torch.elements.sinks import FakeSink, FileSink, TensorSink
 from nnstreamer_tpu_torch.elements.sources import (
     AppSrc, AudioTestSrc, FileSrc, TensorSrc, VideoTestSrc)
@@ -30,6 +34,8 @@ __all__ = [
     "FakeSink",
     "FileSink",
     "FileSrc",
+    "IpcSink",
+    "IpcSrc",
     "Join",
     "Queue",
     "REPO",
@@ -56,6 +62,7 @@ __all__ = [
     "TensorSparseEnc",
     "TensorSplit",
     "TensorSrc",
+    "TensorSrcIIO",
     "TensorTransform",
     "TensorUnbatch",
     "TransformProgram",

@@ -10,7 +10,9 @@ frame (H, W, C) becomes a (N, H, W, C) uint8 tensor of N =
 frames_per_tensor frames; audio chunks of any length become
 (frames_per_tensor, channels) tensors; text and octet frames become the
 declared fixed-size tensor. `mode=custom:<name>` dispatches to a
-`ConverterSubplugin` registered with `register_converter`.
+`ConverterSubplugin` registered with `register_converter` (`wire`,
+elements/wire_codec.py), `mode=custom-script:<script.py>` to a python3
+CustomConverter script (elements/script_codec.py).
 """
 
 from __future__ import annotations
@@ -56,12 +58,12 @@ class TensorConverter(Element):
         if mode:
             kind, _, sub = mode.partition(":")
             if kind == "custom-script" and sub:
-                raise PipelineError(
-                    f"tensor_converter {self.name}: mode=custom-script runs "
-                    f"a python3 converter script, which needs the script "
-                    f"codec the port does not have yet (ROADMAP Queue 1 "
-                    f"item 3c); register a ConverterSubplugin and use "
-                    f"mode=custom:<name>")
+                # reference python3 converter scripts (CustomConverter)
+                from nnstreamer_tpu_torch.elements.script_codec import (
+                    make_script_converter)
+
+                self._subplugin = make_script_converter(sub)
+                return [self._subplugin.negotiate(spec)]
             if kind != "custom" or not sub:
                 self.fail_negotiation(
                     f"mode must be custom:<subplugin name> or "

@@ -8,8 +8,10 @@ combinations, per-invoke latency/throughput (:354-460), hot reload
 (`is-updatable`), invoke-dynamic, invoke error propagation.
 
 - `framework=` picks the backend (torch, alias xla; pallas for the
-  hand-written kernels; the reference's framework names of the formats
-  the port loads map to torch, `_FRAMEWORK_ALIASES`); empty means the model file's extension
+  hand-written kernels; custom (alias custom-easy) for python callables;
+  python3 for reference-contract scripts; the reference's framework names
+  of the formats the port loads map to torch, `_FRAMEWORK_ALIASES`);
+  empty means the model file's extension
   (modelio.MODEL_EXTENSIONS), then [filter] default_backend (torch).
 - `custom=` is the backend's option string (modelio.parse_loader_opts);
   `inputname`/`outputname` go into the same loader options.
@@ -53,7 +55,8 @@ from collections import deque
 from dataclasses import replace
 from typing import Callable, List, Optional, Sequence, Tuple
 
-from nnstreamer_tpu_torch.backends import pallas_backend, torch_backend  # noqa: F401 (register)
+from nnstreamer_tpu_torch.backends import (  # noqa: F401 (register)
+    custom, pallas_backend, python3_script, torch_backend)
 from nnstreamer_tpu_torch.backends.base import (
     CircuitBreaker, FilterBackend, get_backend)
 from nnstreamer_tpu_torch.core.config import get_config
@@ -110,7 +113,8 @@ class TensorFilter(Element):
     #: conversion, so it never joins a fused chain
     CHAIN_FUSABLE = False
     PROPS = {
-        "framework": PropDef(str, "", "backend name (torch|xla|pallas)"),
+        "framework": PropDef(str, "", "backend name "
+                                      "(torch|xla|pallas|custom|python3)"),
         "model": PropDef(lambda s: s, None, "model reference (backend-specific)"),
         "custom": PropDef(str, "", "opaque backend option string"),
         "accelerator": PropDef(str, "", "device: cuda, cuda:<i> or cpu "
@@ -192,12 +196,14 @@ class TensorFilter(Element):
     #: reference framework names → the port's backends, so reference
     #: pipeline strings run verbatim (`framework=snpe model=add2_float.dlc`,
     #: `framework=deepview-rt model=....rtm`, `framework=pytorch
-    #: model=....pt`): every framework whose model files the port loads
+    #: model=....pt`): every framework whose model files the port loads,
+    #: and the reference's custom-easy (the custom backend)
     _FRAMEWORK_ALIASES = {
         "tensorflow-lite": "torch", "tensorflow1-lite": "torch",
         "tensorflow2-lite": "torch", "tensorflow": "torch",
         "caffe2": "torch", "snpe": "torch", "deepview-rt": "torch",
         "tensorrt": "torch", "armnn": "torch", "pytorch": "torch",
+        "custom-easy": "custom",
     }
 
     # -- negotiation / backend open ---------------------------------------

@@ -18,10 +18,12 @@ the same way.
 `transformer_params` carries the JAX transformer's params over as they
 are: the port's transformer keeps the (in, out) dense layout, and a W8A8
 tree (models/quant.quantize_transformer) keeps its int8 weights and f32
-``*_scale`` columns.
+``*_scale`` columns. `lstm_params` copies the LSTM's the same way;
+`audio_classifier_params` turns its conv weights WIO → (Cout, Cin, K).
 
-Each has an inverse (`mobilenet_v2_tree`, `ssd_mobilenet_tree`,
-`posenet_tree`, `transformer_tree`: the port's module or params → the
+The vision and transformer bridges each have an inverse
+(`mobilenet_v2_tree`, `ssd_mobilenet_tree`, `posenet_tree`,
+`transformer_tree`: the port's module or params → the
 JAX-layout tree with numpy leaves), so `.npz` params files
 (modelio/params_io.py) move both ways between the two packages.
 `JAX_TREE` and `PORT_LOADER` name them by zoo model.
@@ -137,6 +139,22 @@ def transformer_params(params: Dict[str, Any]) -> Dict[str, Any]:
     out["blocks"] = [{k: _leaf(v) for k, v in blk.items()}
                      for blk in params["blocks"]]
     return out
+
+
+def lstm_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX LSTM params ({"wx": (d_in, 4h), "wh": (h, 4h), "b": (4h,)}) →
+    the port's: the same keys and layout, f32 (the port's cell computes
+    ``x @ wx`` as JAX does, so nothing is transposed per call)."""
+    return {k: _t(params[k]) for k in ("wx", "wh", "b")}
+
+
+def audio_classifier_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """JAX audio classifier params → the port's: each block's conv weight
+    WIO (K, Cin, Cout) → (Cout, Cin, K), once; biases and the dense head
+    (C, num_classes) as they are."""
+    return {"blocks": [{"w": _t(b["w"]).permute(2, 1, 0).contiguous(),
+                        "b": _t(b["b"])} for b in params["blocks"]],
+            "head_w": _t(params["head_w"]), "head_b": _t(params["head_b"])}
 
 
 # -- the inverses: port → JAX-layout numpy trees ------------------------------

@@ -12,8 +12,8 @@ that just want `invoke()`.
     runner.close()
 
 `framework` names a backend of the port's registry: ``torch`` (also
-registered as ``xla``, so the JAX package's default runs verbatim) or
-``pallas``. The backend runs on the card unless ``accelerator=cpu`` (or
+registered as ``xla``, so the JAX package's default runs verbatim),
+``pallas``, ``custom`` or ``python3``. The backend runs on the card unless ``accelerator=cpu`` (or
 NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR=cpu) asks for the CPU, and
 `invoke` returns its tensors without waiting for the device.
 """
@@ -23,7 +23,9 @@ from __future__ import annotations
 from typing import Any, Optional, Tuple
 
 # importing the backends registers them
+import nnstreamer_tpu_torch.backends.custom  # noqa: F401
 import nnstreamer_tpu_torch.backends.pallas_backend  # noqa: F401
+import nnstreamer_tpu_torch.backends.python3_script  # noqa: F401
 import nnstreamer_tpu_torch.backends.torch_backend  # noqa: F401
 from nnstreamer_tpu_torch.backends.base import get_backend
 from nnstreamer_tpu_torch.core.errors import BackendError, PipelineError

@@ -870,6 +870,9 @@ def test_repo_teardown_unblocks_the_source():
     runner = tnns.PipelineRunner(pipe).start()
     assert got.wait(30)
     runner.stop()
+    # stop() only interrupts the sources and closes the queues; it joins
+    # no worker, so read the threads after a bounded wait for them
+    runner.wait(30)
     assert len(sink.results) == 1
     assert not any(t.is_alive() and "state" in t.name
                    for t in threading.enumerate())

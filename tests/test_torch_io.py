@@ -6,8 +6,8 @@ the JAX package's, on the CPU.
 - the converter: video frames-per-tensor (shapes, rate, the frames),
   the audio sample adapter (tests/test_runtime.py, tests/
   test_streaming_models.py), text and octet frames, `mode=custom:<name>`
-  through `register_converter`, the custom-script refusal (the script
-  codec is not ported yet);
+  through `register_converter`, a missing custom-script script (the
+  scripts run in tests/test_torch_scripts.py);
 - tensor_src, filesrc (.npy, .npz, raw; tests/test_runtime_extras.py),
   audiotestsrc, videotestsrc's solid pattern and is-live pacing (counted
   on a controlled clock, never timed), appsrc's rate;
@@ -36,7 +36,7 @@ from nnstreamer_tpu.tensor import meta as jmeta
 from nnstreamer_tpu.tensor import sparse as jsparse
 from nnstreamer_tpu.tensor.buffer import TensorBuffer as JBuf
 from nnstreamer_tpu.tensor.dtypes import DType as JDType
-from nnstreamer_tpu_torch.core.errors import PipelineError
+from nnstreamer_tpu_torch.core.errors import BackendError, PipelineError
 from nnstreamer_tpu_torch.elements import converter as tconv
 from nnstreamer_tpu_torch.elements import sinks as tsinks
 from nnstreamer_tpu_torch.elements import sources as tsources
@@ -233,7 +233,9 @@ def test_converter_custom_subplugin_and_script_refusal():
     with pytest.raises(PipelineError, match="no converter plugin"):
         tnns.parse_launch("appsrc dims=3 ! tensor_converter "
                           "mode=custom:nope ! fakesink").negotiate()
-    with pytest.raises(PipelineError, match="item 3c"):
+    # custom-script runs a python3 CustomConverter script
+    # (tests/test_torch_scripts.py); a missing one fails loud, naming it
+    with pytest.raises(BackendError, match="conv.py.*does not exist"):
         tnns.parse_launch("appsrc dims=3 ! tensor_converter "
                           "mode=custom-script:conv.py ! fakesink").negotiate()
 
