@@ -9,6 +9,7 @@
     python3 chip_smoke.py --modelio   # phases 1, 2 and 31-38 only
     python3 chip_smoke.py --elements  # phases 1, 2, 39 and 40 only
     python3 chip_smoke.py --streaming # phases 1, 2, 41 and 42 only
+    python3 chip_smoke.py --serving   # phases 1, 2, 43 and 44 only
 
 Needs one CUDA card, nvcc, g++ (phase 42) and the repository checkout
 around this file;
@@ -232,7 +233,7 @@ phases there). Phases:
    by name; C (f32) reloaded
    through one shared filter mid-stream: the other takes the "swap"
    bail, both serve the new model from the next frame, its graphs are
-   the new model's; then both arms live at once, bursts of 200 frames in
+   the new model's; then both arms live at once, bursts of 120 frames in
    turns a b b a: frames/s, latency p50/p99 under the burst, kernel
    time a frame and the card's busy share;
 30. the LLM cell through LLMEngine(decode_window=8) against
@@ -353,7 +354,7 @@ phases there). Phases:
    B's labels' bytes; tensor_sink to-host=false max-results=4 keeps the
    last 4 as CUDA tensors;
 40. E1, E3 and B (bf16) live at once: closed-loop p50/p99 frame by frame
-   in turns; bursts of 160 in turns a b b a, compiled windows off, then on
+   in turns; bursts of 100 in turns a b b a, compiled windows off, then on
    (frames/s, latency under the burst, CUDA kernels and kernel time a
    frame, busy share); host and device ms a call of E1's resize, host ms
    a frame of its preview branch; E2's forced syncs a frame.
@@ -385,6 +386,36 @@ phases there). Phases:
    depth 2 at B's frame and at 16 MB: in order, each batch its source,
    the side copy stream's overlap with a busy consumer as a share of copy
    time (CUDA events).
+43. Queue 1 items 4a-4b (config 1 at full width, MobileNetV2 1.0 at 224²,
+   uint8 frames, bf16 unless stated; store://mbv2 v1 = the zoo's seed-0
+   weights, v2 = seed 1): Q1 `tensor_query_serversrc ! normalize_u8 !
+   tensor_filter model=store://mbv2 ! tensor_query_serversink` against
+   `appsrc ! tensor_query_client ! image_labeling`, 32 frames: logits bit
+   for bit B run directly on the same version, normalize_u8 launched 32
+   times (wrapper and profiler, profiled_agreement), 1.000 forced syncs a
+   frame (the reply's); two clients at once, each in its own order, bit
+   for bit; Q3 canary `store://mbv2@2:0.25 canary_seed=7` (windows on):
+   every frame one version's direct output bit for bit, the version
+   sequence the port's CPU routing over the card's split of invokes and
+   windows; Q3 hot swap (a second entry, 1 → 2 once 40 of 160 frames are
+   back with frames up to 80 in flight, the rest pushed after the flip,
+   so frames flow under the barrier): no torn frame, versions never go back, barrier_ok, a
+   prewarmed adoption, at least one "swap" bail; overload
+   (max_pending=2, 64 frames at once from a raw client): answered + typed
+   BUSY = 64, results in pts order; hybrid (a broker and a topic), bit for
+   bit; Q2 BatchedQueryServer (bucket 8, pre = the normalize_u8 kernel on
+   the card batch, f32 with TF32 off), 4 clients x 16 frames: the
+   normalized batch bit for bit the plain version's, launches = the
+   dispatcher's batches (wrapper and profiler), each client's logits
+   within 1e-3 of max |logit| of B's per frame, in pts order; the bucket
+   manifest: a spawned process replays it at start and its first frame
+   equals this process's;
+44. (no claim) Q1 beside B direct: closed-loop p50/p99 frame by frame in
+   turns, bursts of 160 in turns a b b a with windows on (frames/s,
+   latency under the burst, kernel time a frame, busy share); Q2 (bf16)
+   with 1, 4 and 8 clients in turns 1 4 8 8 4 1 (aggregate frames/s,
+   mean batch occupancy, p50/p99); B on store:// beside zoo://, closed
+   loop in turns (the routing's cost a frame).
 
 Each kernel's timing phase (6, 10, 15, 16, 23) also prints its time per
 call from Python, back to back — the host's time (the launch path's own
@@ -401,7 +432,8 @@ chiprun_out/chip_smoke.json (chip_smoke_slice4.json with --slice4,
 chip_smoke_slice6.json with --slice6, chip_smoke_batching.json with
 --batching, chip_smoke_window.json with --window,
 chip_smoke_modelio.json with --modelio, chip_smoke_elements.json with
---elements, chip_smoke_streaming.json with --streaming).
+--elements, chip_smoke_streaming.json with --streaming,
+chip_smoke_serving.json with --serving).
 """
 
 from __future__ import annotations
@@ -4129,8 +4161,11 @@ def batching_phases(nt, torch, card, record, phases) -> None:
 # -- Queue 1 item 1e: compiled windows (CUDA-graph replays) -----------------
 
 #: phase 29: frames pushed at once per run (f32 B: fewer; P's profiled
-#: run: fewer, as phase 27's profiled bursts)
+#: run: fewer, as phase 27's profiled bursts); its timing bursts: 120
+#: frames (200, phase 27's BURST, until phases 43-44 took the whole run
+#: past 760 s)
 WINDOW_FRAMES, WINDOW_F32_FRAMES, WINDOW_PROF_FRAMES = 200, 64, 48
+WINDOW_BURST = 120
 #: phase 30: the engine's decode window
 DECODE_WINDOW = 8
 
@@ -4430,7 +4465,7 @@ def window_vision_phase(nt, torch, card, record) -> None:
     for name, (_, timed, _, shape) in window_pipes().items():
         frame = u8_frames(shape, 1, 0)[0]
         arms = burst_arms(nt, torch, {"off": timed, "on": timed}, frame,
-                          BURST, BURSTS,
+                          WINDOW_BURST, BURSTS,
                           runner_kw={"off": {"compiled_loop": False},
                                      "on": {}})
         t = {}
@@ -4441,8 +4476,8 @@ def window_vision_phase(nt, torch, card, record) -> None:
                       "p99_ms": float(np.percentile(a["lat"], 99)),
                       "device_ms_per_frame": a["device_ms_per_frame"],
                       "busy_share": a["device_ms_per_frame"] * fps / 1e3}
-            print(f"phase 29: {name} loop {arm}, bursts of {BURST} frames in "
-                  f"turns: " + " / ".join(f"{f:.1f}" for f in a["fps"])
+            print(f"phase 29: {name} loop {arm}, bursts of {WINDOW_BURST} "
+                  f"frames in turns: " + " / ".join(f"{f:.1f}" for f in a["fps"])
                   + f" frames/s; latency under the burst p50 "
                   f"{t[arm]['p50_ms']:.3f} ms p99 {t[arm]['p99_ms']:.3f} ms; "
                   f"{a['device_ms_per_frame']:.3f} ms of kernel time a frame, "
@@ -5813,9 +5848,9 @@ def item2_card_phase(nt, torch, card, record) -> None:
 #: phase 39's frames a check, E1's preview rate, phase 40's closed-loop
 #: frames an arm (after warm-up)
 ELEM_FRAMES, ELEM_LAT, ELEM_WARMUP = 12, 30, 5
-#: phase 40's bursts: 160 frames (200 until phases 41-42 took about
-#: the 40 frames' time)
-ELEM_BURST = 160
+#: phase 40's bursts: 100 frames (200 until phases 41-42 came, 160 until
+#: phases 43-44 took the whole run past 760 s)
+ELEM_BURST = 100
 V640 = "videotestsrc width=640 height=480 pattern=random"
 NORM_CPU = NORM_B + " accelerator=cpu"
 
@@ -6251,7 +6286,7 @@ def elements_correctness(nt, torch, card, record) -> None:
 
 def elements_timings(nt, torch, card, record) -> None:
     """Phase 40 (no claim): E1, E3 and B live at once: closed-loop
-    p50/p99 frame by frame in turns; bursts of 160 in turns a b b a,
+    p50/p99 frame by frame in turns; bursts of 100 in turns a b b a,
     compiled windows off, then on (frames/s, latency under the burst,
     kernels and kernel ms a frame, busy share); host and device ms a
     call of E1's resize on the card and host ms a frame of its preview
@@ -6970,6 +7005,770 @@ def streaming_phases(nt, torch, card, record, phases) -> dict:
     return launches
 
 
+# -- phases 43-44: the model store on the filter, the query edge ---------
+
+#: phases 43-44 (Queue 1 items 4a-4b): Q1's frames, the two clients'
+#: frames each, the canary's, the hot swap's burst, the overload burst,
+#: Q2's clients and frames a client; timings: the burst, closed-loop
+#: frames, warm-up frames, and Q2's frames a client in its timing arms
+Q1_FRAMES, Q_TWO_FRAMES, Q3_FRAMES = 32, 16, 48
+SWAP_FRAMES, OVERLOAD_FRAMES = 160, 64
+Q2_CLIENTS, Q2_FRAMES = 4, 16
+Q_BURST, Q_LAT, Q_WARMUP, Q2_TIMED = 160, 64, 8, 32
+Q_TIMEOUT = 120
+#: served logits of Q2 (f32, TF32 off, cuDNN free to pick another
+#: algorithm at batch 8) against B's per frame, relative to max |logit|
+Q2_REL = 1e-3
+CANARY = "store://mbv2@2:0.25 canary_seed=7"
+
+
+def q_server(nt, sid, model, src_extra="", trace=False):
+    """Q1's server pipeline → (pipe, runner, port): tensor_query_serversrc
+    ! normalize_u8 ! tensor_filter model=`model` ! tensor_query_serversink."""
+    pipe = nt.parse_launch(
+        f"tensor_query_serversrc name=ssrc id={sid} port=0 "
+        f"dims=3:224:224:1 types=uint8 {src_extra} ! {NORM_B} ! "
+        f"tensor_filter name=f model={model} ! "
+        f"tensor_query_serversink id={sid}")
+    runner = nt.PipelineRunner(pipe, trace=trace).start()
+    return pipe, runner, pipe.get("ssrc").port
+
+
+def q_client_desc(port, extra=""):
+    """Q1's client: frames to the server, labels and logits back."""
+    return (f"{APPSRC} ! tensor_query_client name=qc port={port} "
+            f"timeout={Q_TIMEOUT} {extra} ! tee name=t t. ! queue ! {LABEL} "
+            f"! tensor_sink name=labels t. ! queue ! tensor_sink name=logits")
+
+
+def q_ask(nt, port, frames, extra=""):
+    """One client run → (logits by frame, labels by frame, pts)."""
+    out, _, _ = run_sinks(nt, q_client_desc(port, extra), frames,
+                          sinks=("labels", "logits"))
+    return (logits_of(out["logits"]),
+            [b.meta["label_index"] for b in out["labels"]],
+            [b.pts for b in out["logits"]])
+
+
+def b_logits(nt, model, frames):
+    """B run directly on `model` (per frame, in this process) → (logits,
+    labels)."""
+    out, _, _ = run_sinks(
+        nt, f"{APPSRC} ! {NORM_B} ! tensor_filter model={model} ! tee "
+            f"name=t t. ! queue ! {LABEL} ! tensor_sink name=labels t. ! "
+            f"queue ! tensor_sink name=logits", frames,
+        sinks=("labels", "logits"))
+    return (logits_of(out["logits"]),
+            [b.meta["label_index"] for b in out["labels"]])
+
+
+def rows_equal(a, b) -> list:
+    """Per frame: are the two rows the same bytes."""
+    return [x.tobytes() == y.tobytes() for x, y in zip(a, b)]
+
+
+def wrap_calls(backend) -> list:
+    """Record a torch backend's invokes (1) and windows (K) in order."""
+    calls = []
+    inv, win = backend.invoke, backend.invoke_window
+
+    def invoke(t):
+        calls.append(1)
+        return inv(t)
+
+    def invoke_window(frames):
+        calls.append(len(frames))
+        return win(frames)
+
+    backend.invoke, backend.invoke_window = invoke, invoke_window
+    return calls
+
+
+def canary_cpu_versions(calls) -> list:
+    """The port on the CPU, fed the card's split of invokes and windows:
+    versions by frame of ``store://pq@2:0.25 canary_seed=7`` over
+    probe_scale at 2 (v1) and 3 (v2) — the routing alone, whatever the
+    model."""
+    from nnstreamer_tpu_torch.backends.torch_backend import TorchBackend
+    from nnstreamer_tpu_torch.serving.store import get_store
+
+    st = get_store()
+    st.register("pq", "zoo://probe_scale?scale=2")
+    st.register("pq", "zoo://probe_scale?scale=3")
+    b = TorchBackend()
+    b.open({"model": "store://pq@2:0.25", "accelerator": "cpu",
+            "canary_seed": 7})
+    x = np.ones((8, 1), np.float32)
+    seq = []
+    try:
+        for k in calls:
+            outs = [b.invoke((x,))] if k == 1 else b.invoke_window([(x,)] * k)
+            seq += [1 if float(np.asarray(o[0])[0, 0]) == 2.0 else 2
+                    for o in outs]
+    finally:
+        b.close()
+    return seq
+
+
+def q1_phase(nt, torch, card, res) -> int:
+    """Q1 through the query edge against B direct; two clients at once.
+    → normalize_u8's launches in Q1."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.backends import kernels
+    from nnstreamer_tpu_torch.runtime import sync
+
+    frames = u8_frames((1, 224, 224, 3), Q1_FRAMES, 431)
+    ref, ref_labels = b_logits(nt, "store://mbv2", frames)
+    pipe, runner, port = q_server(nt, 4301, "store://mbv2")
+    try:
+        def attempt():
+            kernels.normalize_u8.launches = 0
+            syncs0 = sync.forced_sync_count()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                open_capture(torch)
+                got = q_ask(nt, port, frames, "max_in_flight=4")
+                torch.cuda.synchronize()
+                close_capture(torch)
+            syncs = sync.forced_sync_count() - syncs0
+            named = sum("nns_normalize_kernel" in e.name
+                        for e in kernel_events(prof))
+            launched = kernels.normalize_u8.launches
+            return ({"normalize_u8": launched}, {"normalize_u8": named},
+                    (got, launched, syncs))
+
+        ((logits, labels, pts), launched, syncs), tries = profiled_agreement(
+            "phase 43: Q1", attempt)
+        same = rows_equal(logits, ref)
+        st = runner.stats()
+        adm = st["ssrc"]
+        res["Q1"] = {"frames": len(pts), "bit_for_bit": sum(same),
+                     "labels_equal": labels == ref_labels,
+                     "pts_in_order": pts == list(range(Q1_FRAMES)),
+                     "normalize_launches": launched,
+                     "forced_syncs_per_frame": syncs / Q1_FRAMES,
+                     "admitted": adm["admitted"], "replied": adm["replied"],
+                     "windows": st["f"].get("loop_entries", 0)}
+        print(f"phase 43: Q1 (serversrc ! normalize_u8 ! store://mbv2 ! "
+              f"serversink; client max_in_flight 4; bf16), {Q1_FRAMES} "
+              f"frames: logits bit for bit B direct's on the same version: "
+              f"{sum(same)}/{Q1_FRAMES}, labels equal {labels == ref_labels}, "
+              f"pts in order {res['Q1']['pts_in_order']}; normalize_u8 "
+              f"launched {launched} times, by the wrapper and by name "
+              f"(profiled run {tries}); {syncs / Q1_FRAMES:.3f} forced syncs "
+              f"a frame (the reply's); the model filter's windows "
+              f"{res['Q1']['windows']} [{card}]")
+        check(all(same) and len(same) == Q1_FRAMES and labels == ref_labels
+              and res["Q1"]["pts_in_order"] and launched == Q1_FRAMES
+              and syncs == Q1_FRAMES, f"Q1: {res['Q1']}")
+
+        # two clients with frames in flight at once, each its own order
+        two = {c: u8_frames((1, 224, 224, 3), Q_TWO_FRAMES, 432 + c)
+               for c in (0, 1)}
+        want = {c: b_logits(nt, "store://mbv2", two[c])[0] for c in two}
+        with ThreadPoolExecutor(2) as ex:
+            got = dict(zip(two, ex.map(
+                lambda c: q_ask(nt, port, two[c], "max_in_flight=8"), two)))
+        ok = {c: all(rows_equal(got[c][0], want[c]))
+              and got[c][2] == list(range(Q_TWO_FRAMES)) for c in two}
+        res["two_clients"] = ok
+        print(f"phase 43: two clients at once ({Q_TWO_FRAMES} frames each, "
+              f"max_in_flight 8): each in pts order with its own frames' "
+              f"logits bit for bit: {ok}")
+        check(all(ok.values()), f"two clients: {ok}")
+    finally:
+        runner.stop()
+    return launched
+
+
+def q3_canary(nt, torch, card, res) -> None:
+    """Q3 canary: store://mbv2@2:0.25 canary_seed=7 behind the query edge,
+    windows on: every frame one version's direct output bit for bit, the
+    version sequence the port's on the CPU for the same split."""
+    from nnstreamer_tpu_torch.serving.store import get_store
+
+    frames = u8_frames((1, 224, 224, 3), Q3_FRAMES, 433)
+    direct = {v: b_logits(nt, f"store://mbv2@{v}", frames)[0] for v in (1, 2)}
+    entry = get_store().entry("mbv2")
+    pipe, runner, port = q_server(nt, 4302, CANARY)
+    try:
+        calls = wrap_calls(pipe.get("f").backend)
+        before = entry.stats_dict()
+        logits, _, pts = q_ask(nt, port, frames, "max_in_flight=8")
+        after = entry.stats_dict()
+    finally:
+        runner.stop()
+    seq = []
+    for i, row in enumerate(logits):
+        hit = [v for v in (1, 2) if row.tobytes() == direct[v][i].tobytes()]
+        seq.append(hit[0] if len(hit) == 1 else None)
+    cpu = canary_cpu_versions(calls)
+    # the entry's counters are process-wide: this run's share
+    counts = {v: after.get(v, {}).get("invokes", 0)
+              - before.get(v, {}).get("invokes", 0) for v in (1, 2)}
+    res["Q3_canary"] = {"frames": len(seq), "versions": seq, "calls": calls,
+                        "cpu_versions_equal": seq == cpu,
+                        "invokes_by_version": counts,
+                        "windows": sum(k > 1 for k in calls)}
+    print(f"phase 43: Q3 canary ({CANARY}, v2 = seed-1 weights, windows "
+          f"on), {Q3_FRAMES} frames: each one version's direct output bit "
+          f"for bit: {None not in seq}; v2 on {seq.count(2)} frames; "
+          f"{len(calls)} backend calls, {res['Q3_canary']['windows']} of "
+          f"them windows; the version sequence equals the port's CPU "
+          f"routing over the same split: {seq == cpu}; per-version invokes "
+          f"{counts} [{card}]")
+    check(None not in seq and seq == cpu and pts == list(range(Q3_FRAMES))
+          and sum(counts.values()) == Q3_FRAMES and 0 < seq.count(2)
+          and counts[2] == seq.count(2), f"Q3 canary: {res['Q3_canary']}")
+
+
+def q3_swap(nt, torch, card, res) -> None:
+    """Q3 hot swap: store://mbv2s updated 1 → 2 in the middle of a burst,
+    windows on: no torn frame, versions never go back, the barrier, a
+    "swap" bail, a prewarmed flip. The swap starts once a quarter of the
+    burst is back, with the frames up to its half in flight; the second
+    half is pushed once the epoch has flipped, so frames flow under the
+    barrier (the card otherwise drains the whole burst before the
+    prewarm ends)."""
+    from nnstreamer_tpu_torch.serving.store import get_store
+
+    store = get_store()
+    e = store.entry("mbv2")
+    for v in (1, 2):
+        store.register("mbv2s", e.bundle(v))
+    frames = u8_frames((1, 224, 224, 3), SWAP_FRAMES, 434)
+    direct = {v: b_logits(nt, f"store://mbv2s@{v}", frames)[0]
+              for v in (1, 2)}
+    entry = store.entry("mbv2s")
+    pipe, runner, port = q_server(nt, 4303, "store://mbv2s", trace=True)
+    rep = {}
+    try:
+        cpipe = nt.parse_launch(q_client_desc(port, "max_in_flight=16"))
+        crun = nt.PipelineRunner(cpipe).start()
+        from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+        def push():
+            for i, f in enumerate(frames):
+                if i == SWAP_FRAMES // 2:
+                    t_end = time.monotonic() + 120
+                    while entry.epoch == 0 and time.monotonic() < t_end:
+                        time.sleep(0.001)
+                cpipe.get("src").push(TensorBuffer.of(f, pts=i))
+            cpipe.get("src").end()
+
+        pusher = threading.Thread(target=push)
+        pusher.start()
+        sink = cpipe.get("logits")
+        deadline = time.monotonic() + 120
+        while len(sink.results) < SWAP_FRAMES // 4:
+            check(time.monotonic() < deadline, "swap: no flow in 120 s")
+            time.sleep(0.002)
+        rep = store.update("mbv2s", 2, wait_s=60)
+        pusher.join(120)
+        crun.wait(300)
+        crun.stop()
+        st = runner.stats()["f"]
+        swaps = runner.tracer.swap_events()
+    finally:
+        runner.stop()
+    logits = logits_of(sink.results)
+    seq = []
+    for i, row in enumerate(logits):
+        hit = [v for v in (1, 2) if row.tobytes() == direct[v][i].tobytes()]
+        seq.append(hit[0] if len(hit) == 1 else None)
+    flip = seq.index(2) if 2 in seq else len(seq)
+    monotone = all(v == 1 for v in seq[:flip]) and all(
+        v == 2 for v in seq[flip:])
+    bails = st.get("loop_bails", {})
+    res["Q3_swap"] = {
+        "frames": len(seq), "torn": seq.count(None), "monotone": monotone,
+        "flip_at": flip, "barrier_ok": rep.get("barrier_ok"),
+        "prewarmed_buckets": rep.get("prewarmed_buckets"),
+        "prewarmed_flip": [bool(a.get("prewarmed")) for _, _, a in swaps],
+        "loop_bails": bails, "windows": st.get("loop_entries", 0)}
+    print(f"phase 43: Q3 hot swap store://mbv2s 1 → 2 after "
+          f"{SWAP_FRAMES // 4} of {SWAP_FRAMES} frames back (client in "
+          f"flight 16, frames {SWAP_FRAMES // 2}+ pushed after the flip, "
+          f"windows on): torn frames {seq.count(None)}, versions never "
+          f"go back {monotone} (flip at frame {flip}), barrier_ok "
+          f"{rep.get('barrier_ok')}, {rep.get('prewarmed_buckets')} buckets "
+          f"prewarmed, adoptions prewarmed {res['Q3_swap']['prewarmed_flip']}"
+          f", {res['Q3_swap']['windows']} windows, bails {bails} [{card}]")
+    check(len(seq) == SWAP_FRAMES and None not in seq and monotone
+          and SWAP_FRAMES // 4 <= flip <= SWAP_FRAMES // 2
+          and rep.get("barrier_ok") is True
+          and rep.get("prewarmed_buckets", 0) >= 1
+          and res["Q3_swap"]["prewarmed_flip"] == [True]
+          and bails.get("swap", 0) >= 1, f"Q3 swap: {res['Q3_swap']}")
+
+
+def q_overload(nt, torch, card, res) -> None:
+    """max_pending=2 and a burst from a raw client: every frame comes
+    back as a RESULT or a typed BUSY, results in pts order."""
+    import json as _json
+
+    from nnstreamer_tpu_torch.edge import protocol as P
+    from nnstreamer_tpu_torch.edge.wire import decode_buffer, encode_buffer
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    frames = u8_frames((1, 224, 224, 3), OVERLOAD_FRAMES, 435)
+    pipe, runner, port = q_server(nt, 4304, "store://mbv2",
+                                  src_extra="max_pending=2")
+    results, busy, causes = [], [], Counter()
+    done, hello = threading.Event(), threading.Event()
+
+    def on_msg(mtype, payload):
+        if mtype == P.T_HELLO_ACK:
+            hello.set()
+            return
+        if mtype == P.T_RESULT:
+            results.append(decode_buffer(payload)[0].pts)
+        elif mtype == P.T_BUSY:
+            info = _json.loads(payload.decode())
+            busy.append(info["pts"])
+            causes[info["cause"]] += 1
+        if len(results) + len(busy) >= OVERLOAD_FRAMES:
+            done.set()
+
+    cli = P.MsgClient("127.0.0.1", port, on_message=on_msg)
+    try:
+        cli.send(P.T_HELLO, b'{"dims": "3:224:224:1", "types": "uint8"}')
+        check(hello.wait(30), "overload: no HELLO_ACK")
+        for i, f in enumerate(frames):
+            cli.send(P.T_DATA, encode_buffer(TensorBuffer.of(f, pts=i)))
+        check(done.wait(120), f"overload: {len(results)} results and "
+                              f"{len(busy)} BUSY of {OVERLOAD_FRAMES}")
+        adm = runner.stats()["ssrc"]
+    finally:
+        cli.close()
+        runner.stop()
+    res["overload"] = {"answered": len(results), "busy": len(busy),
+                       "causes": dict(causes),
+                       "results_in_order": results == sorted(results),
+                       "admitted": adm["admitted"], "replied": adm["replied"]}
+    print(f"phase 43: overload (max_pending=2, {OVERLOAD_FRAMES} frames at "
+          f"once): {len(results)} answered + {len(busy)} typed BUSY "
+          f"{dict(causes)} = {len(results) + len(busy)}, results in pts "
+          f"order {res['overload']['results_in_order']}")
+    check(sorted(results + busy) == list(range(OVERLOAD_FRAMES)) and busy
+          and results == sorted(results)
+          and adm["admitted"] == adm["replied"] == len(results),
+          f"overload: {res['overload']}")
+
+
+def q_hybrid(nt, torch, card, res) -> None:
+    """connect_type=hybrid: the client finds the server through a broker
+    by topic."""
+    from nnstreamer_tpu_torch.edge import EdgeBroker
+
+    frames = u8_frames((1, 224, 224, 3), 4, 436)
+    ref, _ = b_logits(nt, "store://mbv2", frames)
+    broker = EdgeBroker("127.0.0.1", 0)
+    try:
+        pipe, runner, _ = q_server(
+            nt, 4305, "store://mbv2",
+            src_extra=f"broker_port={broker.port} topic=infer/mbv2")
+        try:
+            logits, _, _ = q_ask(
+                nt, broker.port, frames,
+                "connect_type=hybrid topic=infer/mbv2")
+        finally:
+            runner.stop()
+    finally:
+        broker.close()
+    same = rows_equal(logits, ref)
+    res["hybrid"] = {"frames": len(same), "bit_for_bit": sum(same)}
+    print(f"phase 43: hybrid (a broker, topic infer/mbv2): {sum(same)}/"
+          f"{len(frames)} frames bit for bit B direct's")
+    check(len(same) == len(frames) and all(same), f"hybrid: {res['hybrid']}")
+
+
+def q2_clients(nt, port, frames_of, n_clients, in_flight=4):
+    """n clients at once against a batched server → {client: (logits,
+    pts, [ms a frame])}."""
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    def run(c):
+        pipe = nt.parse_launch(
+            f"{APPSRC} ! tensor_query_client port={port} timeout={Q_TIMEOUT} "
+            f"max_in_flight={in_flight} ! tensor_sink name=out")
+        seen = {}
+        pipe.get("out").set_props(
+            new_data=lambda b: seen.__setitem__(b.pts, time.perf_counter()))
+        runner = nt.PipelineRunner(pipe).start()
+        pushed = {}
+        try:
+            for i, f in enumerate(frames_of(c)):
+                pushed[i] = time.perf_counter()
+                pipe.get("src").push(TensorBuffer.of(f, pts=i))
+            pipe.get("src").end()
+            runner.wait(300)
+        finally:
+            runner.stop()
+        res = pipe.get("out").results
+        return c, (logits_of(res), [b.pts for b in res],
+                   [(seen[p] - pushed[p]) * 1e3 for p in pushed if p in seen])
+
+    with ThreadPoolExecutor(n_clients) as ex:
+        return dict(ex.map(run, range(n_clients)))
+
+
+def q2_phase(nt, torch, card, res) -> int:
+    """Q2: BatchedQueryServer, bucket 8, pre = the normalize_u8 kernel, 4
+    clients x 16 frames, f32 with TF32 off. → normalize_u8's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.backends import kernels
+    from nnstreamer_tpu_torch.edge import BatchedQueryServer
+    from nnstreamer_tpu_torch.tensor.dtypes import DType
+    from nnstreamer_tpu_torch.tensor.info import TensorInfo, TensorsSpec
+
+    def frames_of(c):
+        return u8_frames((1, 224, 224, 3), Q2_FRAMES, 440 + c)
+
+    model = "zoo://mobilenet_v2?dtype=float32"
+    seen = []
+
+    def pre(x):
+        y = kernels.normalize_u8(x)
+        if len(seen) < 3:
+            seen.append((x.clone(), y.clone()))
+        return y
+
+    with NoTf32(torch):
+        ref = {c: b_logits(nt, model, frames_of(c))[0]
+               for c in range(Q2_CLIENTS)}
+        srv = BatchedQueryServer(
+            model, sid=4306, bucket=BATCH_MAX, max_delay_ms=2.0, pre=pre,
+            in_spec=TensorsSpec.of(TensorInfo((1, 224, 224, 3),
+                                              DType.UINT8)))
+        try:
+            def attempt():
+                kernels.normalize_u8.launches = 0
+                b0 = srv.stats()["batches"]
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    open_capture(torch)
+                    got = q2_clients(nt, srv.port, frames_of, Q2_CLIENTS)
+                    torch.cuda.synchronize()
+                    close_capture(torch)
+                named = sum("nns_normalize_kernel" in e.name
+                            for e in kernel_events(prof))
+                launched = kernels.normalize_u8.launches
+                batches = srv.stats()["batches"] - b0
+                return ({"normalize_u8": launched}, {"normalize_u8": named},
+                        (got, launched, batches))
+
+            (got, launched, batches), tries = profiled_agreement(
+                "phase 43: Q2", attempt)
+            st = srv.stats()
+        finally:
+            srv.close()
+    plain = all(torch.equal(y, kernels.normalize_u8_plain(x))
+                for x, y in seen)
+    err = max(float(np.abs(got[c][0] - ref[c]).max()
+                    / np.abs(ref[c]).max()) for c in got)
+    routed = all(got[c][1] == list(range(Q2_FRAMES)) for c in got)
+    res["Q2"] = {"clients": Q2_CLIENTS, "frames": Q2_FRAMES * Q2_CLIENTS,
+                 "batches": batches, "normalize_launches": launched,
+                 "normalized_batch_bit_for_bit": plain,
+                 "batch_shapes": [list(x.shape) for x, _ in seen],
+                 "max_rel_err": err, "routed_in_order": routed,
+                 "admitted": st["admitted"], "replied": st["replied"]}
+    print(f"phase 43: Q2 BatchedQueryServer (bucket {BATCH_MAX}, pre = "
+          f"normalize_u8 on the card batch, f32, TF32 off), {Q2_CLIENTS} "
+          f"clients x {Q2_FRAMES} frames: {batches} batches, normalize_u8 "
+          f"launched {launched} times by the wrapper and by name (profiled "
+          f"run {tries}); the normalized batch bit for bit the plain "
+          f"version's: {plain} (batches {res['Q2']['batch_shapes']}); each "
+          f"client's logits within {err:.3e} of max |logit| of B's per "
+          f"frame, routed in pts order {routed} [{card}]")
+    check(plain and launched == batches and 0 < batches < Q2_CLIENTS
+          * Q2_FRAMES and err <= Q2_REL and routed
+          and st["admitted"] == st["replied"], f"Q2: {res['Q2']}")
+    return launched
+
+
+MANIFEST_CHILD = r"""
+import hashlib, json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import nnstreamer_tpu_torch as nt
+from nnstreamer_tpu_torch.serving.store import get_store
+from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+get_store().register("mbvm", "zoo://mobilenet_v2")
+pipe = nt.parse_launch(sys.argv[2])
+runner = nt.PipelineRunner(pipe).start()
+warm = pipe.get("f").backend.warm_start_buckets
+frame = np.random.default_rng(437).integers(0, 256, (1, 224, 224, 3),
+                                            np.uint8)
+pipe.get("src").push(TensorBuffer.of(frame, pts=0))
+pipe.get("src").end()
+runner.wait(300)
+runner.stop()
+row = np.asarray(pipe.get("out").results[0].tensors[0])
+print(json.dumps({"warm": warm, "sha": hashlib.sha256(row.tobytes())
+                  .hexdigest()}))
+"""
+
+
+def q_manifest(nt, torch, card, res) -> None:
+    """The bucket manifest: this process serves store://mbvm with the
+    manifest on; a spawned process reads it, replays its buckets at
+    start, and its first frame equals this process's."""
+    import hashlib
+    import os
+    import tempfile
+
+    from nnstreamer_tpu_torch.serving import compile_cache
+    from nnstreamer_tpu_torch.serving.store import get_store
+
+    desc = (f"{APPSRC} ! {NORM_B} ! tensor_filter name=f model=store://mbvm "
+            f"! tensor_sink name=out")
+    frame = np.random.default_rng(437).integers(0, 256, (1, 224, 224, 3),
+                                                np.uint8)
+    keys = ("NNSTREAMER_TPU_TORCH_SERVING_COMPILE_CACHE",
+            "NNSTREAMER_TPU_TORCH_SERVING_COMPILE_CACHE_DIR")
+    saved = {k: os.environ.get(k) for k in keys}
+    with tempfile.TemporaryDirectory() as d:
+        os.environ[keys[0]], os.environ[keys[1]] = "1", d
+        compile_cache.reset()
+        try:
+            get_store().register("mbvm", "zoo://mobilenet_v2")
+            out, _, _ = run_sinks(nt, desc, [frame])
+            row = np.asarray(out["out"][0].tensors[0])
+            mine = hashlib.sha256(row.tobytes()).hexdigest()
+            rows = json.loads((Path(d) / "manifest.json").read_text())
+            t0 = time.perf_counter()
+            child = json.loads(subprocess.run(
+                [sys.executable, "-c", MANIFEST_CHILD, str(ROOT), desc],
+                capture_output=True, text=True, check=True,
+                env=dict(os.environ), timeout=600).stdout.splitlines()[-1])
+            child_s = time.perf_counter() - t0
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            compile_cache.reset()
+    res["manifest"] = {"rows": rows, "child_warm_buckets": child["warm"],
+                       "first_frame_equal": child["sha"] == mine,
+                       "child_seconds": child_s}
+    print(f"phase 43: bucket manifest {rows}; a spawned process replayed "
+          f"{child['warm']} bucket(s) at start and its first frame equals "
+          f"this process's: {child['sha'] == mine} ({child_s:.2f} s for the "
+          f"child)")
+    check(child["warm"] >= 1 and child["sha"] == mine
+          and rows.get("mbvm@1"), f"manifest: {res['manifest']}")
+
+
+def serving_correctness(nt, torch, card, record) -> dict:
+    """Phase 43. → normalize_u8's launches by cell."""
+    from nnstreamer_tpu_torch.serving.store import get_store
+
+    store = get_store()
+    store.register("mbv2", "zoo://mobilenet_v2")
+    store.register("mbv2", "zoo://mobilenet_v2?seed=1")
+    res = {}
+    try:
+        q1 = q1_phase(nt, torch, card, res)
+        q3_canary(nt, torch, card, res)
+        q3_swap(nt, torch, card, res)
+        q_overload(nt, torch, card, res)
+        q_hybrid(nt, torch, card, res)
+        q2 = q2_phase(nt, torch, card, res)
+        q_manifest(nt, torch, card, res)
+    finally:
+        record["serving_correctness"] = res
+    return {"Q1": q1, "Q2": q2}
+
+
+def q2_timing(nt, torch, card, res) -> None:
+    """Q2 (bf16) with 1, 4 and 8 clients, arms in turns 1 4 8 8 4 1:
+    aggregate frames/s, mean batch occupancy, p50 latency."""
+    from nnstreamer_tpu_torch.backends import kernels
+    from nnstreamer_tpu_torch.edge import BatchedQueryServer
+    from nnstreamer_tpu_torch.tensor.dtypes import DType
+    from nnstreamer_tpu_torch.tensor.info import TensorInfo, TensorsSpec
+
+    frame = u8_frames((1, 224, 224, 3), 1, 445)[0]
+    srv = BatchedQueryServer(
+        "zoo://mobilenet_v2", sid=4307, bucket=BATCH_MAX, max_delay_ms=2.0,
+        pre=kernels.normalize_u8,
+        in_spec=TensorsSpec.of(TensorInfo((1, 224, 224, 3), DType.UINT8)))
+    out = {n: [] for n in (1, 4, 8)}
+    try:
+        q2_clients(nt, srv.port, lambda c: [frame] * 8, 8, in_flight=8)
+        for n in (1, 4, 8, 8, 4, 1):
+            b0 = srv.stats()
+            t0 = time.perf_counter()
+            got = q2_clients(nt, srv.port, lambda c: [frame] * Q2_TIMED, n,
+                             in_flight=8)
+            wall = time.perf_counter() - t0
+            b1 = srv.stats()
+            lat = [ms for g in got.values() for ms in g[2]]
+            out[n].append({"fps": n * Q2_TIMED / wall,
+                           "occupancy": (b1["frames"] - b0["frames"])
+                           / (b1["batches"] - b0["batches"]),
+                           "p50_ms": float(np.percentile(lat, 50)),
+                           "p99_ms": float(np.percentile(lat, 99))})
+    finally:
+        srv.close()
+    res["Q2"] = out
+    for n, runs in out.items():
+        print(f"phase 44: Q2 {n} client(s) x {Q2_TIMED} frames (in flight "
+              f"8 each, bf16): " + " / ".join(
+                  f"{r['fps']:.1f} frames/s, occupancy {r['occupancy']:.2f}, "
+                  f"p50 {r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms"
+                  for r in runs) + f" [{card}]")
+
+
+def q1_bursts(nt, torch, port, frame, card, res) -> None:
+    """Q1 against B direct, bursts of Q_BURST frames in turns a b b a,
+    windows on. B runs in one live pipeline, every window size warmed
+    first (phase 27's burst_arms rule). A pipelined query client emits a
+    reply only when its window fills or at EOS, so each Q1 burst is a
+    fresh client, connected before the clock starts, that pushes the
+    burst and EOS; the server (and its graphs) lives across bursts, and
+    one untimed burst warms it. Then one profiled burst an arm: kernel
+    time a frame and the card's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    tail = f"{LABEL} ! tensor_sink name=out collect=false"
+    b_pipe = nt.parse_launch(f"{APPSRC} ! {NORM_B} ! {MODEL} ! {tail}")
+    b_seen = {}
+    b_pipe.get("out").set_props(
+        new_data=lambda b: b_seen.__setitem__(b.pts, time.perf_counter()))
+    b_run = nt.PipelineRunner(b_pipe).start()
+    pts = [0]
+
+    def burst(arm, k):
+        if arm == "Q1":
+            pipe = nt.parse_launch(
+                f"{APPSRC} ! tensor_query_client port={port} "
+                f"timeout={Q_TIMEOUT} max_in_flight=8 ! {tail}")
+            seen = {}
+            pipe.get("out").set_props(
+                new_data=lambda b: seen.__setitem__(b.pts,
+                                                    time.perf_counter()))
+            runner = nt.PipelineRunner(pipe).start()
+        else:
+            pipe, seen, runner = b_pipe, b_seen, None
+        pushed = {}
+        t0 = time.perf_counter()
+        for _ in range(k):
+            pushed[pts[0]] = time.perf_counter()
+            pipe.get("src").push(TensorBuffer.of(frame, pts=pts[0]))
+            pts[0] += 1
+        if runner is not None:
+            pipe.get("src").end()
+            runner.wait(300)
+            runner.stop()
+        deadline = time.monotonic() + 300
+        while len([p for p in pushed if p in seen]) < k:
+            check(time.monotonic() < deadline,
+                  f"{arm}: burst of {k} not drained in 300 s")
+            time.sleep(0.0005)
+        last = max(seen[p] for p in pushed)
+        return k / (last - t0), [(seen[p] - pushed[p]) * 1e3 for p in pushed]
+
+    out = {arm: {"fps": [], "lat": []} for arm in ("Q1", "B")}
+    try:
+        for k in (1, 2, 4, BATCH_MAX, 3, Q_BURST):
+            burst("B", k)
+        burst("Q1", Q_BURST)
+        for arm in ("Q1", "B", "B", "Q1"):
+            fps, lat = burst(arm, Q_BURST)
+            out[arm]["fps"].append(fps)
+            out[arm]["lat"] += lat
+        for arm in out:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                open_capture(torch)
+                burst(arm, 48)
+                torch.cuda.synchronize()
+                close_capture(torch)
+            out[arm]["device_ms_per_frame"] = sum(
+                e.time_range.elapsed_us() for e in kernel_events(prof)) \
+                / 1e3 / 48
+        b_pipe.get("src").end()
+        b_run.wait(60)
+    finally:
+        b_run.stop()
+    for arm, a in out.items():
+        fps = float(np.median(a["fps"]))
+        r = res[arm]
+        r.update({"burst_fps": a["fps"],
+                  "burst_p50_ms": float(np.percentile(a["lat"], 50)),
+                  "burst_p99_ms": float(np.percentile(a["lat"], 99)),
+                  "device_ms_per_frame": a["device_ms_per_frame"],
+                  "busy_share": a["device_ms_per_frame"] * fps / 1e3})
+        print(f"phase 44: {arm}: closed loop p50 {r['closed_p50_ms']:.3f} "
+              f"ms p99 {r['closed_p99_ms']:.3f} ms (arms in turns, frame "
+              f"by frame); bursts of {Q_BURST} in turns: " + " / ".join(
+                  f"{f:.1f}" for f in a["fps"]) + f" frames/s, latency "
+              f"under the burst p50 {r['burst_p50_ms']:.3f} ms p99 "
+              f"{r['burst_p99_ms']:.3f} ms, {r['device_ms_per_frame']:.3f} "
+              f"ms of kernel time a frame, card busy "
+              f"{100 * r['busy_share']:.1f}% [{card}]")
+
+
+def serving_timings(nt, torch, card, record) -> None:
+    """Phase 44 (no claim): Q1 beside B direct (closed loop frame by frame
+    in turns; bursts of Q_BURST in turns a b b a with windows on, kernel
+    time and busy share); Q2 with 1, 4 and 8 clients; store:// beside
+    zoo:// on B closed loop."""
+    from nnstreamer_tpu_torch.serving.store import get_store
+
+    get_store().register("mbvt", "zoo://mobilenet_v2")
+    frame = u8_frames((1, 224, 224, 3), 1, 444)[0]
+    tail = f"{LABEL} ! tensor_sink name=out"
+    pipe, runner, port = q_server(nt, 4308, "store://mbvt")
+    try:
+        # the closed loop's client waits for each reply (in flight 1)
+        lat = closed_loop_arms(
+            nt, {"Q1": f"{APPSRC} ! tensor_query_client port={port} "
+                       f"timeout={Q_TIMEOUT} ! {tail}",
+                 "B": f"{APPSRC} ! {NORM_B} ! {MODEL} ! {tail}"},
+            frame, Q_LAT, Q_WARMUP)
+        res = {k: {"closed_p50_ms": float(np.percentile(v, 50)),
+                   "closed_p99_ms": float(np.percentile(v, 99))}
+               for k, v in lat.items()}
+        q1_bursts(nt, torch, port, frame, card, res)
+    finally:
+        runner.stop()
+    q2_timing(nt, torch, card, res)
+    route = closed_loop_arms(
+        nt, {"store": f"{APPSRC} ! {NORM_B} ! tensor_filter "
+                      f"model=store://mbvt ! {tail}",
+             "zoo": f"{APPSRC} ! {NORM_B} ! {MODEL} ! {tail}"},
+        frame, Q_LAT, Q_WARMUP)
+    p50 = {k: float(np.percentile(v, 50)) for k, v in route.items()}
+    res["routing"] = {k: {"p50_ms": p50[k],
+                          "p99_ms": float(np.percentile(v, 99))}
+                      for k, v in route.items()}
+    res["routing"]["store_minus_zoo_p50_ms"] = p50["store"] - p50["zoo"]
+    print(f"phase 44: B closed loop, store://mbvt beside zoo://mobilenet_v2 "
+          f"(frame by frame in turns): p50 {p50['store']:.3f} ms vs "
+          f"{p50['zoo']:.3f} ms, the routing's cost "
+          f"{p50['store'] - p50['zoo']:+.3f} ms a frame [{card}]")
+    record["serving_timings"] = res
+
+
+def serving_phases(nt, torch, card, record, phases) -> dict:
+    """Phases 43-44. → normalize_u8's launches by cell."""
+    launches = serving_correctness(nt, torch, card, record)
+    phases.done("43 (store:// on the filter, the query edge: correctness)")
+    serving_timings(nt, torch, card, record)
+    phases.done("44 (the query edge: timings)")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -7006,6 +7805,12 @@ def main(argv=None) -> int:
              "zoo://audio_classifier, the custom and python3 backends, the "
              "script codecs; the wire format, ipc, tensor_src_iio and the "
              "prefetching input)")
+    ap.add_argument(
+        "--serving", action="store_true",
+        help="run phases 1, 2, 43 and 44 only (store:// on the vision "
+             "filter: canary, hot swap, the bucket manifest; the query "
+             "edge: tensor_query_*, BUSY, hybrid discovery, the batched "
+             "query server)")
     ap.add_argument(
         "--slice4", action="store_true",
         help="run phases 1, 2 and 20-23 only (the ring step, ring "
@@ -7085,6 +7890,9 @@ def main(argv=None) -> int:
     elif args.streaming:
         streaming_phases(nt, torch, card, record, phases)
         entries = []
+    elif args.serving:
+        serving_phases(nt, torch, card, record, phases)
+        entries = []
     else:
         # -- 3-6. normalize_u8, pipelines A and B ------------------------
         entries = slice1_phases(nt, torch, card, record, phases)
@@ -7110,6 +7918,8 @@ def main(argv=None) -> int:
         elements_phases(nt, torch, card, record, phases)
         # -- 41-42. items 3c-3d: E6 and E7 launch #1 too ----------------
         extra = streaming_phases(nt, torch, card, record, phases)
+        # -- 43-44. items 4a-4b: Q1 once a frame, Q2 once a batch -------
+        extra.update(serving_phases(nt, torch, card, record, phases))
         norm = next(e for e in entries if e["name"] == "normalize_u8")
         norm["launches_by_path"] = {"B": norm["launches"], **extra}
         norm["launches"] += sum(extra.values())
@@ -7124,6 +7934,7 @@ def main(argv=None) -> int:
             "chip_smoke_modelio.json" if args.modelio else
             "chip_smoke_elements.json" if args.elements else
             "chip_smoke_streaming.json" if args.streaming else
+            "chip_smoke_serving.json" if args.serving else
             "chip_smoke.json")
     (out_dir / name).write_text(json.dumps(record, indent=1))
     print(card)

@@ -17,7 +17,11 @@ imports torch and numpy, never jax, and nothing of `nnstreamer_tpu`.
   models/    — MobileNetV2 and the transformer in PyTorch, the zoo, the
                JAX weights bridge
   llm/       — paged KV cache, paged reference math, serving engine
-  serving/   — the versioned model store
+  serving/   — the versioned model store, its bucket manifest, tenancy
+  traffic/   — admission control (bounded, weighted-fair, typed BUSY)
+  edge/      — the wire format, TCP transport, query client/server and
+               the batching query server, the edge broker
+  parallel/  — meshes, ring attention, the one-card batch dispatcher
   decoders/  — image_labeling, bounding boxes, pose, segment, video,
                octet stream
   single.py  — SingleShot, one model without a pipeline

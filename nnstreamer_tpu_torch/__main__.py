@@ -10,6 +10,9 @@
                                             #  Chrome trace (Perfetto)
     python -m nnstreamer_tpu_torch trace --merge a.json b.json --out m.json
                                             # traces onto one timeline
+    python -m nnstreamer_tpu_torch models list           # store contents
+    python -m nnstreamer_tpu_torch models describe NAME  # versions/stats
+    python -m nnstreamer_tpu_torch models swap NAME [VER]  # hot swap
 
 Runs the pipeline string to EOS on the CUDA device (set
 NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR=cpu to run on the CPU).
@@ -86,10 +89,55 @@ def _trace_main(argv) -> int:
     return 130 if interrupted else 0
 
 
+def _models_main(argv) -> int:
+    """`models` subcommand: the model store's operator surface — list
+    served names, describe one (versions, aliases, stats, swaps), trigger
+    a hot swap. The store is this process's: `list` and `describe` show
+    the zoo seeds (``@0``) and whatever the process registered."""
+    ap = argparse.ArgumentParser(
+        prog="nnstreamer_tpu_torch models",
+        description="model store: list / describe NAME / swap NAME [VER]")
+    sub = ap.add_subparsers(dest="cmd")
+    sub.add_parser("list", help="list store models (zoo builtins seed @0)")
+    p_desc = sub.add_parser("describe", help="versions, aliases, stats")
+    p_desc.add_argument("name")
+    p_swap = sub.add_parser("swap",
+                            help="hot-swap NAME to VERSION (default latest)")
+    p_swap.add_argument("name")
+    p_swap.add_argument("version", nargs="?", default=None)
+    p_swap.add_argument("--no-prewarm", action="store_true",
+                        help="skip pre-warming attached backends (the "
+                             "first post-swap invokes then meet a cold "
+                             "version)")
+    args = ap.parse_args(argv)
+
+    from nnstreamer_tpu_torch.models.zoo import list_models
+    from nnstreamer_tpu_torch.serving.store import get_store
+
+    store = get_store()
+    if args.cmd in (None, "list"):
+        for m in sorted(set(store.names()) | set(list_models())):
+            e = store.entry(m)
+            cur, epoch = e.state
+            print(f"store://{m}  current=@{cur} epoch={epoch} "
+                  f"versions={sorted(e.versions)}")
+        return 0
+    if args.cmd == "describe":
+        print(json.dumps(store.describe(args.name), indent=2,
+                         default=float))
+        return 0
+    report = store.update(args.name, args.version,
+                          prewarm=not args.no_prewarm)
+    print(json.dumps(report, indent=2, default=float))
+    return 0
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "trace":
         return _trace_main(argv[1:])
+    if argv and argv[0] == "models":
+        return _models_main(argv[1:])
     ap = argparse.ArgumentParser(
         prog="nnstreamer_tpu_torch",
         description="streaming AI pipelines on PyTorch/CUDA (gst-launch parity)")

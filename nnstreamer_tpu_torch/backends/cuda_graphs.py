@@ -33,7 +33,9 @@ shares:
   a later window raises at once. A new version drops them all and takes
   a fresh pool: PyTorch refuses to capture again into a pool whose
   graphs are all gone while it still holds blocks, such as the capture
-  stream's cuBLAS workspace.
+  stream's cuBLAS workspace. A backend serving a ``store://`` model
+  keeps one cache for each live version (current and canary), so the
+  windows of two versions in turns each replay their own graphs.
 
 A window's static inputs are allocated outside the graph's pool; its
 outputs live in the pool and are cloned by the caller before they
@@ -183,6 +185,14 @@ class GraphCache:
         self._pool = None
         self.version = version
         return True
+
+    def drop(self) -> None:
+        """Drop every graph, remembered failure and the pool, keeping the
+        version held and the capture counts (a release under memory
+        pressure, or a version leaving a backend's live set)."""
+        self.graphs.clear()
+        self.failed.clear()
+        self._pool = None
 
     def get(self, key: Hashable) -> Optional[Graph]:
         failed = self.failed.get(key)

@@ -47,8 +47,8 @@ device — bit-identical to ``shards=1``. Prompts at or past
 ``kernel_invokes["xla"]`` as the JAX package counts it). Sharded serving
 is float-only and refuses chunked prefill and ``paged_kernel=pallas``
 (the JAX package falls back to XLA there with a count; the port raises).
-The persistent bucket manifest (``warm_start``) waits for
-serving/compile_cache.
+``warm_start`` replays the persistent bucket manifest
+(serving/compile_cache.py) at element start, when it is on.
 
 The compiled decode window (``decode_multi``, the engine's
 ``decode_window``) runs K greedy decode steps with the sampled token
@@ -656,10 +656,28 @@ class PagedLLMExecutor:
         return compiled
 
     def warm_start(self) -> int:
-        """Replay of the persistent bucket manifest: the manifest waits
-        for the port of serving/compile_cache, so there is nothing to
-        replay (the JAX package's answer with its compile cache off)."""
-        return 0
+        """Replay the persistent manifest's prefill/decode/chunk/ring
+        buckets for the bound version (element start(), off the hot
+        path; serving/compile_cache.py): each runs once, as prewarm runs
+        them. A bucket that fails is skipped with a warning — warm start
+        is never a gate. → buckets run."""
+        if self._entry is None:
+            return 0
+        from nnstreamer_tpu_torch.serving.compile_cache import (
+            manifest_buckets)
+
+        compiled = 0
+        for kind, bucket in manifest_buckets(self._entry.name,
+                                             self._version):
+            if (kind == "chunk" and self.shards) or (
+                    kind == "ring" and not self.shards):
+                continue
+            try:
+                compiled += int(self._warm_compile(kind, bucket))
+            except Exception as e:    # warm start is never a gate
+                log.warning("llm warm_start bucket %s failed: %s",
+                            (kind, bucket), e)
+        return compiled
 
     def close(self) -> None:
         if self._entry is not None:

@@ -63,6 +63,27 @@ holds the params it baked in until then); a capture that fails raises,
 and its key is remembered so the next window raises at once, before it
 stages its frames (the scheduler's "error" bail runs them per frame).
 
+``store://`` models (serving/store.py) are bound to the process-wide
+model store instead of held alone: the backend attaches as a swap handle
+and keeps one `_VState` per live version — the version's bundle, its
+params on the device, its held-model tuple and its own `GraphCache`.
+Every fixed-shape invoke, micro-batch and compiled window picks its
+version at its start (`_pick_version`): the pinned one (``@3``,
+``@alias``), the canary at its seeded ratio (``@2:0.05``, the filter's
+``canary_seed``; one draw an invoke and one a window, as the JAX
+package draws), or the tracked current, adopting a flipped epoch first
+(`_adopt`, on the invoking thread). A swap's `prewarm_version` stages
+the incoming version's params on the device and runs it once on every
+bucket shape this backend has served, off the hot path — a version that
+refuses one aborts the swap before the flip. Graphs are kept by version
+for the live set only (current, canary, pinned): a canary's windows
+replay the graph of the version they picked, and a version's graphs go
+when it leaves the set, as the JAX package drops its compiled buckets.
+`warm_start` replays the persistent bucket manifest
+(serving/compile_cache.py) at element start. Each invoke records its
+host time under its version (`version_stats`); a window records K
+invokes of dt/K each.
+
 With the session tracer active each invoke is one backend "invoke" span
 (`FilterBackend.invoke`), each batched invoke one "invoke_batched" span
 with its occupancy and bucket; there is no "compile" span: nothing
@@ -73,9 +94,10 @@ from __future__ import annotations
 
 import copy
 import itertools
+import random
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -87,6 +109,7 @@ from nnstreamer_tpu_torch.backends.base import (
 from nnstreamer_tpu_torch.core.errors import BackendError
 from nnstreamer_tpu_torch.core.log import get_logger
 from nnstreamer_tpu_torch.modelio import parse_loader_opts
+from nnstreamer_tpu_torch.runtime.sync import device_sync
 from nnstreamer_tpu_torch.tensor.dtypes import DType, host_tensor
 from nnstreamer_tpu_torch.tensor.info import TensorInfo, TensorsSpec
 
@@ -121,6 +144,18 @@ class _SharedEntry:
     #: bumped by every reload; a holder re-reads bundle and params when
     #: its copy of the version is stale
     version: int = 0
+
+
+@dataclass
+class _VState:
+    """One store version resident in this backend: the held-model tuple
+    an invoke runs (bundle, params on the device, serial) and the CUDA
+    graphs captured from it."""
+
+    version: int
+    model: Tuple[ModelBundle, Any, int]
+    graphs: cuda_graphs.GraphCache = field(
+        default_factory=cuda_graphs.GraphCache)
 
 
 _shared_models: Dict[str, _SharedEntry] = {}
@@ -188,6 +223,39 @@ def params_to(params, device: torch.device):
     return params
 
 
+def params_copy_to(params, device: torch.device):
+    """`params_to` for params held by someone else (a model store
+    version every handle shares): an nn.Module with any parameter or
+    buffer off `device` is deep-copied before it moves, so the owner's
+    module stays where it was; a tree of tensors moves by copy anyway."""
+    if isinstance(params, torch.nn.Module) and any(
+            t.device != device
+            for t in itertools.chain(params.parameters(), params.buffers())):
+        params = copy.deepcopy(params)
+    return params_to(params, device)
+
+
+def tree_bytes(params) -> int:
+    """Bytes of every tensor in a model's params (an nn.Module's
+    parameters and buffers, or a nested dict/list of tensors)."""
+    if isinstance(params, torch.nn.Module):
+        return sum(t.numel() * t.element_size() for t in itertools.chain(
+            params.parameters(), params.buffers()))
+    if isinstance(params, torch.Tensor):
+        return params.numel() * params.element_size()
+    if isinstance(params, dict):
+        return sum(tree_bytes(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(tree_bytes(v) for v in params)
+    return 0
+
+
+def bucket_pairs(xs) -> tuple:
+    """((shape, dtype name), ...) of staged tensors: a bucket key's
+    tensor part, in the JAX package's spelling ("float32", "uint8")."""
+    return tuple((tuple(x.shape), DType.of(x).type_name) for x in xs)
+
+
 def stage(arrs, device: torch.device) -> Tuple[ArrayTuple, int]:
     """Move inputs to `device`, skipping tensors already there. Host
     numpy crosses in its own dtype (a uint8 frame stays 1 byte/element).
@@ -221,10 +289,12 @@ class TorchBackend(FilterBackend):
         self.device: Optional[torch.device] = None
         self._dynamic_spatial = False
         self._loader_opts: Dict[str, Any] = {}
-        # batchability verdicts by (batched shapes, dtypes), and the
-        # params on the meta device they are taken with
+        # batchability verdicts by (model serial, batched shapes and
+        # dtypes), and the params on the meta device they are taken with
+        # (by serial); `batch_verdicts` counts the verdicts taken
         self._batch_ok: Dict[tuple, bool] = {}
-        self._meta = None
+        self._metas: Dict[int, Any] = {}
+        self.batch_verdicts = 0
         # inputs that were already on the device skip the copy
         self.staging_transfers = 0
         self.staging_elided = 0
@@ -240,6 +310,27 @@ class TorchBackend(FilterBackend):
         # (K, input signature) → graph, for the model serial held; its
         # version is also that of `_batch_ok` and `_meta`
         self._graphs = cuda_graphs.GraphCache()
+        # -- store:// serving (serving/store.py handle protocol) --------
+        self._store_entry = None
+        self._pinned_version: Optional[int] = None
+        self._adopted_version: Optional[int] = None
+        #: the store epoch this handle serves (the swap barrier reads it)
+        self.adopted_epoch = 0
+        self._canary: Optional[Tuple[int, float]] = None
+        self._canary_rng: Optional[random.Random] = None
+        #: the live versions: current (or pinned) and the canary's
+        self._vstates: Dict[int, _VState] = {}
+        #: version → vstate staged by prewarm_version, installed at adopt
+        self._staged: Dict[int, _VState] = {}
+        #: bucket keys served (prewarm and the manifest replay these)
+        self._served: Dict[tuple, bool] = {}
+        #: captures and their seconds of graph caches already dropped
+        self._retired_captures = 0
+        self._retired_capture_seconds: List[float] = []
+        #: epoch adoptions (the JAX package's swap_count)
+        self.swap_count = 0
+        #: buckets the last warm_start ran (the bucket manifest's replay)
+        self.warm_start_buckets = 0
 
     @property
     def _bundle(self) -> Optional[ModelBundle]:
@@ -250,14 +341,25 @@ class TorchBackend(FilterBackend):
         return self._model[1]
 
     @property
+    def _meta(self):
+        """The held model's params on the meta device (once a verdict
+        has been taken on it)."""
+        return self._metas.get(self._model[2])
+
+    def _graph_caches(self) -> List[cuda_graphs.GraphCache]:
+        return [self._graphs] + [vs.graphs for vs in self._vstates.values()]
+
+    @property
     def window_compile_count(self) -> int:
         """CUDA graphs captured (the JAX package's name)."""
-        return self._graphs.captures
+        return self._retired_captures + sum(
+            g.captures for g in self._graph_caches())
 
     @property
     def capture_seconds(self) -> List[float]:
         """Each capture's host seconds."""
-        return self._graphs.capture_seconds
+        return self._retired_capture_seconds + [
+            s for g in self._graph_caches() for s in g.capture_seconds]
 
     def _hold(self, bundle: ModelBundle, params) -> None:
         self._model = (bundle, params, next(_model_serials))
@@ -280,6 +382,14 @@ class TorchBackend(FilterBackend):
         self._loader_opts = opts
         self.device = pick_device(props.get("accelerator") or "")
         key = props.get("shared_tensor_filter_key") or ""
+        if isinstance(model, str) and model.startswith("store://"):
+            if key:
+                raise BackendError(
+                    "store:// models are already process-shared through "
+                    "the model store; shared-tensor-filter-key cannot "
+                    "combine with a store reference — drop the key")
+            self._open_store(model, props)
+            return
         if key:
             self._open_shared(key, model)
             return
@@ -318,6 +428,11 @@ class TorchBackend(FilterBackend):
     def _resolve(self, model) -> ModelBundle:
         if isinstance(model, ModelBundle):
             return model
+        if isinstance(model, str) and model.startswith("store://"):
+            raise BackendError(
+                f"{model!r} resolves through the ModelStore at open(); "
+                f"store refs cannot nest as version sources — register "
+                f"the underlying model instead")
         if isinstance(model, str) and model.startswith("zoo://"):
             from nnstreamer_tpu_torch.models.zoo import build_model
 
@@ -340,7 +455,15 @@ class TorchBackend(FilterBackend):
             f"ModelBundle, or a callable")
 
     def close(self) -> None:
-        """Drop this filter's hold on its model (idempotent)."""
+        """Drop this filter's hold on its model (idempotent). A store
+        handle detaches but keeps its entry: version_stats() stays
+        readable for post-stop reports."""
+        if self._store_entry is not None:
+            self._store_entry.detach(self)
+            for vs in self._vstates.values():
+                self._retire(vs)
+            self._vstates.clear()
+            self._staged.clear()
         if self._shared is not None:
             with _shared_lock:
                 self._shared.holders -= 1
@@ -386,19 +509,29 @@ class TorchBackend(FilterBackend):
 
     def _held(self) -> Tuple[ModelBundle, Any, int]:
         """The model an invoke runs, read once at its start (after taking
-        up a shared reload). What was derived from an earlier model —
+        up a shared reload, or a flipped store epoch: the adopted
+        version, no canary draw). What was derived from an earlier model —
         batchability verdicts, the meta copy, captured graphs — is
         dropped here, on the invoking thread."""
+        if self._store_entry is not None:
+            self._maybe_adopt()
+            return self._model
         self._adopt_shared()
         model = self._model
         if self._graphs.use(model[2]):
             self._batch_ok.clear()
-            self._meta = None
+            self._metas.clear()
         return model
 
     def swap_pending(self) -> bool:
-        """A reload through another holder of the shared key that this
-        backend has not taken up yet (the compiled loop's "swap" bail)."""
+        """A reload through another holder of the shared key, or a store
+        epoch flip, that this backend has not taken up yet (the compiled
+        loop's "swap" bail: adoption then happens at a per-frame invoke
+        boundary)."""
+        if self._store_entry is not None:
+            if self._pinned_version is not None:
+                return False
+            return self._store_entry.state[1] != self.adopted_epoch
         sh = self._shared
         return sh is not None and sh.version != self._version
 
@@ -421,6 +554,8 @@ class TorchBackend(FilterBackend):
         return out
 
     def run(self, tensors: ArrayTuple) -> ArrayTuple:
+        if self._store_entry is not None:
+            return self._run_store(tensors)
         model = self._held()
         if model[0].host_pre is not None:
             tensors = tuple(model[0].host_pre(tuple(tensors)))
@@ -434,18 +569,19 @@ class TorchBackend(FilterBackend):
         runs on the card — and cached per signature, as the JAX package
         caches its eval_shape verdict. `model`: a `_held` tuple (the one
         held by default)."""
-        ok = self._batch_ok.get(sig)
+        bundle, params, serial = model or self._model
+        ok = self._batch_ok.get((serial, sig))
         if ok is None:
-            bundle, params, _ = model or self._model
-            if self._meta is None:
-                self._meta = params_on_meta(params)
+            meta = self._metas.get(serial)
+            if meta is None:
+                meta = self._metas[serial] = params_on_meta(params)
             try:
                 xs = tuple(torch.empty(shape, dtype=dt, device="meta")
                            for shape, dt in sig)
                 with torch.inference_mode():
                     if self._pre is not None:
                         xs = self._pre(xs)
-                    out = to_tuple(bundle.fn(self._meta, *xs))
+                    out = to_tuple(bundle.fn(meta, *xs))
                     if self._post is not None:
                         out = to_tuple(self._post(out))
                 nb = sig[0][0][0]
@@ -454,7 +590,8 @@ class TorchBackend(FilterBackend):
                 log.info("model %s takes no batched input %s (%s): it runs "
                          "per frame", bundle.name, sig, e)
                 ok = False
-            self._batch_ok[sig] = ok
+            self.batch_verdicts += 1
+            self._batch_ok[(serial, sig)] = ok
         return ok
 
     def invoke_batched(self, tensors: ArrayTuple, n: int,
@@ -464,8 +601,15 @@ class TorchBackend(FilterBackend):
         ragged occupancies run at most log2(max_batch) + 1 shapes. A
         model that refuses the batched shape runs per frame (the base
         path), and so does a model with a host-side input stage: it parses
-        each frame's bytes and has no batched form."""
-        model = self._held()
+        each frame's bytes and has no batched form. A store model picks
+        one version for the whole micro-batch (the canary's granularity
+        is the buffer)."""
+        ver = None
+        if self._store_entry is not None:
+            ver = self._pick_version()
+            model = self._vstates[ver].model
+        else:
+            model = self._held()
         if model[0].host_pre is not None:
             return super().invoke_batched(tensors, n, keepdims)
         xs = self._stage(tensors)
@@ -476,8 +620,18 @@ class TorchBackend(FilterBackend):
         self.batch_size_hist[n] = self.batch_size_hist.get(n, 0) + 1
         self.bucket_shapes.add(("dynb", nb) + tuple(s for s, _ in sig))
         tr = self.tracer
-        t0 = time.perf_counter() if tr.active else 0.0
-        out = self._call(tuple(pad_rows(x, n, nb) for x in xs), model)
+        t0 = time.perf_counter() if tr.active or ver is not None else 0.0
+        padded = tuple(pad_rows(x, n, nb) for x in xs)
+        if ver is not None:
+            self._note_bucket(ver, ("dynb", nb) + bucket_pairs(padded))
+            try:
+                out = self._call(padded, model)
+            except Exception:
+                self._record_invoke(ver, t0, error=True)
+                raise
+            self._record_invoke(ver, t0)
+        else:
+            out = self._call(padded, model)
         out = tuple(o[:n] for o in out)
         if tr.active:
             tr.backend_span(self.trace_name or self.BACKEND_NAME,
@@ -535,6 +689,14 @@ class TorchBackend(FilterBackend):
         Through a shared key it updates the shared entry, so every holder
         takes it up at its next invoke. May run on another thread than
         the invokes: it only swaps the model held (see `_held`)."""
+        if self._store_entry is not None:
+            raise BackendError(
+                f"this filter serves {self._store_entry.name!r} through the "
+                f"model store; per-filter reload would fork it from the "
+                f"registry — register the new weights as a version and "
+                f"ModelStore.update({self._store_entry.name!r}, <version>) "
+                f"instead (or `python -m nnstreamer_tpu_torch models "
+                f"swap`)")
         bundle = self._resolve(model)
         params = params_to(bundle.params, self.device)
         if self._shared is not None:
@@ -546,16 +708,292 @@ class TorchBackend(FilterBackend):
             return
         self._hold(bundle, params)
 
+    # -- store:// serving (serving/store.py handle protocol) --------------
+    def _open_store(self, model: str, props: Dict[str, Any]) -> None:
+        """Bind this backend to a served model in the process-wide
+        ModelStore: resolve the baseline version, attach as a swap
+        handle, and set up canary routing when the ref carries a split
+        (``store://name@2:0.05``)."""
+        from nnstreamer_tpu_torch.serving.compile_cache import (
+            maybe_enable_compile_cache)
+        from nnstreamer_tpu_torch.serving.store import (
+            get_store, parse_store_ref)
+
+        maybe_enable_compile_cache()
+        ref = parse_store_ref(model)
+        entry = get_store().entry(ref.name)
+        _, epoch = entry.state
+        if ref.version is not None:
+            self._pinned_version = entry.resolve_version(ref.version)
+            base = self._pinned_version
+        else:
+            base = entry.resolve_version(None)
+        self._adopted_version, self.adopted_epoch = base, epoch
+        self._vstates[base] = self._make_vstate(base, entry.bundle(base))
+        self._model = self._vstates[base].model
+        if ref.canary_version is not None:
+            cv = entry.resolve_version(ref.canary_version)
+            if cv == base:
+                raise BackendError(
+                    f"canary reference {model!r} routes to the baseline "
+                    f"version @{base} itself; pick a different version "
+                    f"to canary")
+            self._canary = (cv, ref.canary_ratio)
+            self._canary_rng = random.Random(
+                int(props.get("canary_seed") or 0))
+            self._vstates[cv] = self._make_vstate(cv, entry.bundle(cv))
+        self._store_entry = entry
+        entry.attach(self)
+        log.info("opened store model %s@%d epoch=%d%s on %s", ref.name,
+                 base, epoch,
+                 f" canary=@{self._canary[0]}:{self._canary[1]}"
+                 if self._canary else "", self.device)
+
+    @property
+    def tracks_store_epoch(self) -> bool:
+        """True when this handle follows ``current`` (un-pinned), i.e.
+        takes part in the swap barrier."""
+        return self._store_entry is not None and self._pinned_version is None
+
+    def _make_vstate(self, version: int, bundle: ModelBundle) -> _VState:
+        """`version` resident here: its params on the device (a copy:
+        the store's bundle is every handle's) and a serial of its own."""
+        vs = _VState(version, (bundle,
+                               params_copy_to(bundle.params, self.device),
+                               next(_model_serials)))
+        vs.graphs.use(vs.model[2])
+        return vs
+
+    def _pick_version(self) -> int:
+        """Adopt a flipped epoch, then route this invoke: the pinned
+        version (immune to swaps), the canary version at its seeded
+        ratio, or the tracked current."""
+        if self._pinned_version is not None:
+            return self._pinned_version
+        self._maybe_adopt()
+        if (self._canary is not None
+                and self._canary_rng.random() < self._canary[1]):
+            return self._canary[0]
+        return self._adopted_version
+
+    def _maybe_adopt(self) -> None:
+        if self._pinned_version is not None:
+            return
+        cur, epoch = self._store_entry.state    # one read: a consistent pair
+        if epoch != self.adopted_epoch:
+            self._adopt(cur, epoch)
+
+    def _adopt(self, cur: int, epoch: int) -> None:
+        """Flip this backend to the new current version (on the element's
+        worker thread, at an invoke boundary): install the state staged
+        by `prewarm_version` (or resolve it now), retire the versions
+        that left the live set — their params, graphs and batchability
+        verdicts — and point the held model at the adopted version, so
+        negotiation-era paths (set_input_info, FLEXIBLE invokes) follow."""
+        old = self._adopted_version
+        staged = self._staged.pop(cur, None)
+        if cur not in self._vstates:
+            self._vstates[cur] = staged if staged is not None else \
+                self._make_vstate(cur, self._store_entry.bundle(cur))
+        live = {cur}
+        if self._canary is not None:
+            live.add(self._canary[0])
+        for v in [v for v in self._vstates if v not in live]:
+            self._retire(self._vstates.pop(v))
+        serials = {vs.model[2] for vs in self._vstates.values()}
+        for k in [k for k in self._batch_ok if k[0] not in serials]:
+            del self._batch_ok[k]
+        for k in [k for k in self._metas if k not in serials]:
+            del self._metas[k]
+        self._model = self._vstates[cur].model
+        self._adopted_version, self.adopted_epoch = cur, epoch
+        self.swap_count += 1
+        self.tracer.record_swap(
+            self.trace_name or self.BACKEND_NAME, time.perf_counter(),
+            model=self._store_entry.name, from_version=old, to_version=cur,
+            epoch=epoch, prewarmed=staged is not None)
+        log.info("adopted %s@%d epoch=%d (from @%s, prewarmed=%s)",
+                 self._store_entry.name, cur, epoch, old,
+                 staged is not None)
+
+    def _retire(self, vs: _VState) -> None:
+        """Drop a version's graphs (and with them the params they baked
+        in), keeping their capture counts."""
+        self._retired_captures += vs.graphs.captures
+        self._retired_capture_seconds += vs.graphs.capture_seconds
+        vs.graphs.drop()
+
+    @staticmethod
+    def _bucket_array_specs(basekey: tuple):
+        """(shape, dtype name) list to materialize a recorded bucket, or
+        None for kinds that are not replayed (FLEXIBLE seq/bat)."""
+        if basekey[0] == "fix":
+            return list(basekey[1:])
+        if basekey[0] == "dynb":
+            return list(basekey[2:])
+        return None
+
+    def _run_bucket(self, model, basekey: tuple) -> bool:
+        """Run `model` once on zeros of a recorded bucket, and wait for it
+        (off the hot path: a swap's prewarm, the manifest's replay). A
+        micro-batch bucket takes its batchability verdict first. False
+        for a kind that is not replayed."""
+        specs = self._bucket_array_specs(basekey)
+        if specs is None:
+            return False
+        xs = tuple(torch.zeros(s, dtype=DType.from_name(d).torch_dtype,
+                               device=self.device) for s, d in specs)
+        if basekey[0] == "dynb" and not self._batchable(
+                tuple((tuple(x.shape), x.dtype) for x in xs), model):
+            raise BackendError(
+                f"the model takes no batched input {specs}")
+        device_sync(self._call(xs, model), forced=False)
+        return True
+
+    def prewarm_version(self, version: int, bundle: ModelBundle) -> int:
+        """Stage the incoming version OFF the hot path (on the swap
+        controller's thread, before the epoch flips): its params on the
+        device, then one run on every bucket shape this backend has
+        served (allocator blocks, cuDNN's algorithm choice and the
+        batchability verdicts are then in place for the first real
+        frame). The worker installs the staged state at adoption. A
+        version that rejects a served bucket raises here, aborting the
+        swap before anything flips. → buckets run."""
+        vs = self._make_vstate(version, bundle)
+        warmed = 0
+        for basekey in list(self._served):
+            try:
+                warmed += int(self._run_bucket(vs.model, basekey))
+            except Exception as e:
+                serial = vs.model[2]
+                for k in [k for k in self._batch_ok if k[0] == serial]:
+                    self._batch_ok.pop(k, None)
+                self._metas.pop(serial, None)
+                raise BackendError(
+                    f"pre-warm of {self._store_entry.name}@{version} "
+                    f"failed on served bucket {basekey[0]} "
+                    f"{self._bucket_array_specs(basekey)}: {e} — swap "
+                    f"aborted before the epoch flip; the serving version "
+                    f"is unchanged") from e
+        self._staged[version] = vs
+        return warmed
+
+    def warm_start(self) -> int:
+        """Replay the persistent manifest's bucket set for the bound
+        version (tensor_filter.start(), before any buffer flows): each
+        recorded bucket runs once on zeros. A bucket the model no longer
+        takes is skipped with a warning: warm start is never a gate.
+        → buckets run."""
+        if self._store_entry is None:
+            return 0
+        from nnstreamer_tpu_torch.serving.compile_cache import (
+            manifest_buckets)
+
+        ver = self._adopted_version
+        vs = self._vstates.get(ver)
+        if vs is None:
+            return 0
+        warmed = 0
+        for basekey in manifest_buckets(self._store_entry.name, ver):
+            try:
+                if not self._run_bucket(vs.model, basekey):
+                    continue
+            except Exception as e:
+                log.warning("warm-start bucket %s skipped: %s",
+                            basekey[:2], e)
+                continue
+            self._served.setdefault(basekey, True)
+            warmed += 1
+        if warmed:
+            log.info("warm start: %d manifest buckets run for %s@%d",
+                     warmed, self._store_entry.name, ver)
+        self.warm_start_buckets = warmed
+        return warmed
+
+    def _note_bucket(self, version: int, basekey: tuple) -> None:
+        if basekey not in self._served:
+            self._served[basekey] = True
+            self._store_entry.note_bucket(version, basekey)
+
+    def version_stats(self) -> Dict[int, dict]:
+        """Per-version invoke/error/p95 counters of the bound store entry
+        (process-wide across handles), for extra_stats."""
+        if self._store_entry is None:
+            return {}
+        return self._store_entry.stats_dict()
+
+    def _record_invoke(self, version: int, t0: float,
+                       error: bool = False) -> None:
+        self._store_entry.record(version, time.perf_counter() - t0,
+                                 error=error)
+
+    def _run_store(self, tensors: ArrayTuple) -> ArrayTuple:
+        """One frame through the store routing point: pick the version
+        (adopting a flipped epoch first), run it, record the invoke under
+        it. The bucket key carries shapes and dtypes, so a swap can
+        prewarm it and the manifest replay it."""
+        ver = self._pick_version()
+        model = self._vstates[ver].model
+        if model[0].host_pre is not None:
+            tensors = tuple(model[0].host_pre(tuple(tensors)))
+        xs = self._stage(tensors)
+        self._note_bucket(ver, ("fix",) + bucket_pairs(xs))
+        t0 = time.perf_counter()
+        try:
+            out = self._call(xs, model)
+        except Exception:
+            self._record_invoke(ver, t0, error=True)
+            raise
+        self._record_invoke(ver, t0)
+        return out
+
+    # -- residency (serving/tenancy.ModelResidency) ------------------------
+    def jit_cache_size(self) -> int:
+        """What this backend built from its model and could rebuild: the
+        CUDA graphs captured and held, and the batched-shape verdicts. A
+        model with zero is cold: releasing it again is free."""
+        return sum(len(g.graphs) for g in self._graph_caches()) \
+            + len(self._batch_ok)
+
+    def release_compiled(self) -> int:
+        """Drop the graphs (and their pool) and the verdicts, under
+        memory pressure. Params, specs and store attachments stay: the
+        next window captures again, the next micro-batch takes its
+        verdict again, results are bit for bit unchanged. → entries
+        released."""
+        n = self.jit_cache_size()
+        for g in self._graph_caches():
+            g.drop()
+        self._batch_ok.clear()
+        self._metas.clear()
+        return n
+
+    def resident_bytes(self) -> int:
+        """Device bytes held by this model's params (every resident store
+        version, or the one model held)."""
+        if self._vstates:
+            return sum(tree_bytes(vs.model[1])
+                       for vs in self._vstates.values())
+        return tree_bytes(self._params)
+
     # -- compiled windows --------------------------------------------------
     def invoke_window(self, frames: Sequence[ArrayTuple]) -> List[ArrayTuple]:
         """K same-signature frames as one compiled window → K output
         tuples, bit for bit those of K invokes (see the module
-        docstring). The model is picked once, at the window's start."""
-        model = self._held()
+        docstring). The model is picked once, at the window's start (a
+        store model's version too: one canary draw a window, and K
+        invokes of dt/K each in its per-version record)."""
+        ver = None
+        if self._store_entry is not None:
+            ver = self._pick_version()
+            vs = self._vstates[ver]
+            model, graphs = vs.model, vs.graphs
+        else:
+            model, graphs = self._held(), self._graphs
         key = (len(frames), tuple((tuple(x.shape), str(x.dtype))
                                   for x in frames[0]))
         on_card = self.device.type == "cuda"
-        g = self._graphs.get(key) if on_card else None  # raises if failed
+        g = graphs.get(key) if on_card else None  # raises if failed
         host_pre = model[0].host_pre
         if host_pre is not None:
             # the host stage runs before the copy into the graph's static
@@ -563,21 +1001,33 @@ class TorchBackend(FilterBackend):
             frames = [tuple(host_pre(tuple(f))) for f in frames]
         staged = [self._stage(f) for f in frames]
         t0 = time.perf_counter()
-        if on_card:
-            outs = self._window_on_card(model, key, g, staged)
-        else:
-            outs = [self._call(xs, model) for xs in staged]
+        try:
+            if on_card:
+                outs = self._window_on_card(model, key, g, staged, graphs)
+            else:
+                outs = [self._call(xs, model) for xs in staged]
+        except Exception:
+            if ver is not None:
+                self._record_invoke(ver, t0, error=True)
+            raise
+        t1 = time.perf_counter()
+        if ver is not None:
+            # K invokes of dt/K each: the per-version ledger counts the
+            # same frames whether or not a window served them
+            k = len(staged)
+            for _ in range(k):
+                self._store_entry.record(ver, (t1 - t0) / k)
         self.window_invokes += 1
         self.window_frames += len(staged)
         tr = self.tracer
         if tr.active:
             tr.backend_span(self.trace_name or self.BACKEND_NAME,
-                            "invoke_window", t0, time.perf_counter(),
-                            frames=len(staged))
+                            "invoke_window", t0, t1, frames=len(staged),
+                            **({"version": ver} if ver is not None else {}))
         return outs
 
-    def _window_on_card(self, model, key, g,
-                        staged: List[ArrayTuple]) -> List[ArrayTuple]:
+    def _window_on_card(self, model, key, g, staged: List[ArrayTuple],
+                        graphs: cuda_graphs.GraphCache) -> List[ArrayTuple]:
         """Replay `g`, the graph of `key` for `model`; without one, run
         the window eagerly (the warm-up a capture needs, and this
         window's outputs) and capture it."""
@@ -593,7 +1043,7 @@ class TorchBackend(FilterBackend):
                 return [self._call(tuple(flat[i * n_in:(i + 1) * n_in]),
                                    model) for i in range(k)]
 
-            self._graphs.capture(
+            graphs.capture(
                 key, body, flat, keep=model[:2],
                 what=f"model {model[0].name!r} window K={k} inputs "
                      f"{list(key[1])}")

@@ -73,6 +73,14 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
         # build/torch_kernels beside the package
         "kernel_dir": "",
     },
+    "serving": {
+        # the persistent bucket manifest (serving/compile_cache.py):
+        # store-served filters record every bucket they serve and replay
+        # the set at the next start (opt-in); compile_cache_dir empty =
+        # ~/.cache/nnstreamer_tpu_torch/manifest
+        "compile_cache": "0",
+        "compile_cache_dir": "",
+    },
     "parallel": {
         # logical devices for sharded serving and ring attention
         # (serving/placement.visible_devices): 0 = the real devices (the

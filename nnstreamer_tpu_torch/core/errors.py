@@ -9,8 +9,30 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 
+def _rebuild_error(cls, args, state):
+    """Pickle reconstructor (see NNStreamerTPUError.__reduce__): rebuilds
+    without calling the subclass __init__, then restores args and
+    instance state verbatim."""
+    exc = cls.__new__(cls)
+    Exception.__init__(exc, *args)
+    exc.__dict__.update(state)
+    return exc
+
+
 class NNStreamerTPUError(Exception):
-    """Base class for all framework errors."""
+    """Base class for all framework errors.
+
+    Every framework error survives a pickle round trip (errors cross
+    process boundaries once a worker pool ships them back over a pipe).
+    Subclasses whose ``__init__`` takes other arguments
+    (`ServerBusyError`) would break naive pickling, which calls
+    ``cls(*args)`` again, so the base class reduces to a reconstructor
+    that bypasses ``__init__`` and restores ``args`` and ``__dict__``
+    exactly (the JAX package's contract)."""
+
+    def __reduce__(self):
+        return (_rebuild_error,
+                (type(self), self.args, dict(self.__dict__)))
 
 
 class ConfigError(NNStreamerTPUError):
@@ -33,6 +55,25 @@ class BackendError(NNStreamerTPUError):
 
 class StreamError(NNStreamerTPUError):
     """Runtime dataflow failure (the GST_FLOW_ERROR analog)."""
+
+
+class ServerBusyError(StreamError):
+    """A remote query server refused a frame at admission (wire `BUSY`
+    reply): its bounded queue was full, its outstanding-request bound was
+    hit, or the frame's deadline had already passed. Carries the server's
+    view of the overload so callers — and the element error-policy
+    machinery — can back off: `retry:N:backoff` on the client re-offers
+    after the backoff, `degrade` routes the frame to the fallback pad,
+    `skip` sheds it locally."""
+
+    def __init__(self, msg: str, *, queue_depth: int = 0,
+                 retry_after_ms: float = 0.0, cause: str = "queue_full",
+                 pts=None):
+        super().__init__(msg)
+        self.queue_depth = queue_depth
+        self.retry_after_ms = retry_after_ms
+        self.cause = cause
+        self.pts = pts
 
 
 class FaultInjected(StreamError):

@@ -137,6 +137,10 @@ class TensorFilter(Element):
             "accept FLEXIBLE input (per-buffer shapes, bucketed calls)"),
         "shared_tensor_filter_key": PropDef(
             str, "", "share one device model across filters with this key"),
+        # store:// serving: canary splits are routed by a seeded RNG so
+        # a run's version sequence is reproducible
+        "canary_seed": PropDef(
+            int, 0, "seed for store:// canary routing (deterministic)"),
         "breaker_threshold": PropDef(
             int, 0, "consecutive invoke failures to open the circuit (0=off)"),
         "breaker_cooldown_ms": PropDef(
@@ -352,6 +356,11 @@ class TensorFilter(Element):
         if self.backend is not None:
             self.backend.tracer = self._tracer
             self.backend.trace_name = self.name
+            # a store-bound backend replays its persistent bucket
+            # manifest here, before any buffer flows
+            warm = getattr(self.backend, "warm_start", None)
+            if warm is not None:
+                warm()
 
     def stop(self) -> None:
         if self.backend is not None:
@@ -362,7 +371,8 @@ class TensorFilter(Element):
         stats() row."""
         out = {}
         for k in ("invoke_failures", "staging_transfers", "staging_elided",
-                  "window_invokes", "window_frames", "window_compile_count"):
+                  "window_invokes", "window_frames", "window_compile_count",
+                  "warm_start_buckets"):
             v = getattr(self.backend, k, None)
             if v is not None:
                 out["backend_" + k] = v
@@ -374,6 +384,16 @@ class TensorFilter(Element):
         buckets = getattr(self.backend, "bucket_shapes", None)
         if buckets:
             out["backend_bucket_shapes"] = len(buckets)
+        # store:// serving: per-version invoke/error/p95 counters and the
+        # epoch adoptions, under backend_ keys (report()'s backend section)
+        vstats = getattr(self.backend, "version_stats", None)
+        if vstats is not None:
+            for ver, d in vstats().items():
+                for k, v in d.items():
+                    out[f"backend_v{ver}_{k}"] = v
+        swaps = getattr(self.backend, "swap_count", 0)
+        if swaps:
+            out["backend_swaps"] = swaps
         if self._breaker is not None:
             for k, v in self._breaker.stats().items():
                 out["breaker_" + k] = v

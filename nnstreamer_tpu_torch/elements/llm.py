@@ -74,8 +74,8 @@ class TensorLLM(Element):
     - ring_prefill_min: with shards>0, prompts at least this long prefill
       through ring attention over the same devices (allclose, not
       bit-equal, to the blocked path; decode stays blocked).
-    - warm_start: replay manifest buckets at start() (no manifest yet:
-      replays nothing).
+    - warm_start: replay the persistent bucket manifest's buckets at
+      start() ([serving] compile_cache; nothing when it is off).
     - prewarm: run every decode bucket and the prefill buckets up to
       this prompt length once at start() (0 = lazily on first use).
     """

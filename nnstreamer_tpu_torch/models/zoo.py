@@ -18,7 +18,7 @@ from nnstreamer_tpu_torch.core.errors import BackendError
 _builders: Dict[str, Callable] = {}
 _lock = threading.Lock()
 _BUILTIN_MODULES = ("mobilenet_v2", "ssd_mobilenet", "posenet", "lstm",
-                    "transformer", "audio_classifier")
+                    "transformer", "audio_classifier", "probe")
 
 
 def register_model(name: str):

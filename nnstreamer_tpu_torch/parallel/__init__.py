@@ -1,5 +1,6 @@
-"""Meshes and attention across the sequence (counterpart of the JAX
-package's parallel/): `mesh` (logical devices with named axes) and
-`ring_attention` (the sequence split over a mesh axis, K/V rotating
-between the devices). Dispatch, pipeline, MoE, training and multi-host
-are not ported yet."""
+"""Meshes, attention across the sequence and batch dispatch (counterpart
+of the JAX package's parallel/): `mesh` (logical devices with named
+axes), `ring_attention` (the sequence split over a mesh axis, K/V
+rotating between the devices) and `dispatch` (frames from many streams
+coalesced into batches on one card). The mesh dispatcher over several
+cards, pipeline, MoE, training and multi-host are not ported yet."""

@@ -16,8 +16,10 @@ double-buffered, so a filter's device work overlaps upstream conversion.
   `max_consecutive_errors` policy-handled errors in a row.
 - Watchdog (default on): a monitor thread flags an element inside
   process()/flush() longer than `stall_budget_s` and an input queue at
-  capacity longer than `queue_stall_budget_s`; `watchdog_action=fail`
-  tears the pipeline down with WatchdogStall.
+  capacity longer than `queue_stall_budget_s`, and an admission queue
+  (an element with `admission_counters()`, tensor_query_serversrc)
+  pinned at max_pending with no reply for that budget;
+  `watchdog_action=fail` tears the pipeline down with WatchdogStall.
 - Backpressure: bounded channels block the producer ([runtime]
   queue_capacity).
 - Chain fusion ([runtime] chain_fusion, default on): maximal linear
@@ -275,6 +277,11 @@ class PipelineRunner:
         self._wd_warned_proc: Dict[str, float] = {}
         self._wd_q_full_since: Dict[str, float] = {}
         self._wd_warned_q: Dict[str, float] = {}
+        # wedged admission: element name -> (monotonic instant its
+        # admission queue was found pinned, its replied count then), and
+        # the incident already warned
+        self._wd_adm_since: Dict[str, Tuple[float, int]] = {}
+        self._wd_warned_adm: Dict[str, float] = {}
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> "PipelineRunner":
@@ -898,6 +905,54 @@ class PipelineRunner:
                     f"{q_budget:.2f}s)",
                     full_for_s=round(full_for, 3), budget_s=q_budget,
                     capacity=self._cap):
+                return True
+        return self._scan_admission(now, q_budget)
+
+    def _scan_admission(self, now: float, q_budget: float) -> bool:
+        """Wedged admission: an element exposing `admission_counters()`
+        (tensor_query_serversrc) whose admission queue sits pinned at
+        max_pending with ZERO replies for the queue stall budget. Depth
+        alone is healthy under overload (BUSY at the door is the design);
+        depth pinned AND no reply progress means the service behind the
+        queue is gone while clients burn their timeouts. Reply progress
+        re-arms the incident; depth recovery prunes it."""
+        adm_since = self._wd_adm_since
+        warned_adm = self._wd_warned_adm
+        for name, elem in list(self.pipeline.elements.items()):
+            probe = getattr(elem, "admission_counters", None)
+            if probe is None:
+                continue
+            try:
+                c = probe()
+            except Exception:
+                continue
+            if c["depth"] < c["max_pending"]:
+                adm_since.pop(name, None)
+                warned_adm.pop(name, None)
+                continue
+            since, replied0 = adm_since.setdefault(
+                name, (now, c["replied"]))
+            if c["replied"] != replied0:
+                # progress: re-arm the incident at the new reply count
+                adm_since[name] = (now, c["replied"])
+                warned_adm.pop(name, None)
+                continue
+            wedged_for = now - since
+            if wedged_for <= q_budget or warned_adm.get(name) == since:
+                continue
+            warned_adm[name] = since
+            if self._flag(
+                    name, "wedged-admission",
+                    f"admission queue of {name} wedged — depth pinned at "
+                    f"max_pending ({c['max_pending']}) with zero replies "
+                    f"for {wedged_for:.2f}s (budget {q_budget:.2f}s); the "
+                    f"service behind it is not draining",
+                    f"wedged-admission: admission queue of {name} stayed "
+                    f"pinned at max_pending ({c['max_pending']}) with zero "
+                    f"replies for {wedged_for:.2f}s (budget "
+                    f"{q_budget:.2f}s)",
+                    wedged_for_s=round(wedged_for, 3), budget_s=q_budget,
+                    max_pending=c["max_pending"], replied=c["replied"]):
                 return True
         return False
 

@@ -38,19 +38,26 @@ thread, "X" complete spans for process/timer/flush/backend work, "C"
 counters for queue depth and in-flight windows, "i" instants for EOS,
 drops, errors, watchdog warnings and forced syncs.
 
+Request-scoped tracing (the serving edge): a trace context rides
+``buf.meta[TRACE_CTX_META]`` across the query wire (`ensure_trace_ctx`,
+`stamp_hop`, `hop_spans`); a query server records each completed
+request's hop list (`record_request`, `requests`, `tenant_summary`) and
+each admission refusal or shed by cause (`record_shed`, `shed_counts`).
+
 Not ported yet (the hooks exist on `NullTracer`, and so on `Tracer`, as
-no-ops with the JAX package's signatures): the request-scoped hop and
-request records, worker shipping (`ship_delta`/`ingest_child`), admission
-sheds and worker events (the pool and edge, slice 7); autotuner
-decisions.
+no-ops with the JAX package's signatures): worker shipping
+(`ship_delta`/`ingest_child`) and worker events (the pool, Queue 1 item
+4c); autotuner decisions.
 """
 
 from __future__ import annotations
 
 import bisect
 import math
+import os
 import threading
 import time
+import uuid
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Tuple
 
@@ -58,6 +65,127 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 #: (time.perf_counter seconds, stamped by the scheduler at source emit).
 #: `with_tensors` copies meta, so the stamp survives every element.
 SOURCE_TS_META = "_trace_src_ts"
+
+#: TensorBuffer.meta key carrying the request-scoped trace context:
+#: ``{"id": <16-hex>, "hops": [{"hop": str, "t": float, "pid": int,
+#: ...extra}, ...]}``. Everything inside is wire-JSON-safe (edge/wire.py
+#: serializes nested dicts/lists), so the context crosses the query wire
+#: intact and comes back in the reply — to a JAX peer too (the same key).
+TRACE_CTX_META = "_trace_ctx"
+
+
+def new_trace_id() -> str:
+    """16-hex request id (random, collision-safe at serving scale)."""
+    return uuid.uuid4().hex[:16]
+
+
+def ensure_trace_ctx(meta: dict, trace_id: Optional[str] = None) -> dict:
+    """Get-or-create the trace context in `meta`. Creation happens at
+    most once per request: a retry path re-offering the SAME buffer finds
+    the existing context and keeps its id."""
+    ctx = meta.get(TRACE_CTX_META)
+    if not isinstance(ctx, dict) or "id" not in ctx:
+        ctx = meta[TRACE_CTX_META] = {
+            "id": trace_id or new_trace_id(), "hops": []}
+    elif not isinstance(ctx.get("hops"), list):
+        ctx["hops"] = []
+    return ctx
+
+
+def get_trace_ctx(meta) -> Optional[dict]:
+    """The trace context riding `meta`, or None (never creates)."""
+    if not isinstance(meta, dict):
+        return None
+    ctx = meta.get(TRACE_CTX_META)
+    return ctx if isinstance(ctx, dict) and "id" in ctx else None
+
+
+def stamp_hop(meta, hop: str, t: Optional[float] = None,
+              **extra) -> Optional[dict]:
+    """Append one hop record to the trace context in `meta` — a no-op
+    (one dict lookup) when no context rides the buffer, so stamping sites
+    can live on the hot path unguarded. Returns the hop record (or None).
+    Timestamps are `time.perf_counter()` seconds (CLOCK_MONOTONIC on
+    Linux, shared by every process on the host)."""
+    ctx = get_trace_ctx(meta)
+    if ctx is None:
+        return None
+    rec = {"hop": hop, "t": time.perf_counter() if t is None else t,
+           "pid": os.getpid()}
+    if extra:
+        rec.update(extra)
+    ctx["hops"].append(rec)
+    return rec
+
+
+#: canonical serving-path hop order; hop_spans() derives the per-stage
+#: decomposition from it
+HOP_STAGES = (
+    ("admission_wait_ms", "admit", "dequeue"),
+    ("route_ms", "dequeue", "dispatch"),
+    ("worker_queue_ms", "dispatch", "worker_recv"),
+    ("service_ms", "worker_recv", "worker_done"),
+    ("reply_ms", "worker_done", "reply"),
+)
+
+
+def hop_spans(hops: List[dict]) -> Dict[str, Any]:
+    """Per-stage latency decomposition (ms) from a hop list: admission
+    wait / route / worker queue / service / reply, plus total. For a
+    redelivered request the LAST occurrence of each hop wins (the attempt
+    that produced the reply); earlier occurrences show up in
+    `retries`/`redeliveries` counts instead."""
+    last: Dict[str, dict] = {}
+    for h in hops:
+        if isinstance(h, dict) and "hop" in h and "t" in h:
+            last[h["hop"]] = h
+    out: Dict[str, Any] = {}
+    for key, a, b in HOP_STAGES:
+        if a in last and b in last:
+            dt = (last[b]["t"] - last[a]["t"]) * 1e3
+            if dt >= 0:
+                out[key] = round(dt, 3)
+    ts = [h["t"] for h in hops if isinstance(h, dict) and "t" in h]
+    if len(ts) >= 2:
+        out["total_ms"] = round((max(ts) - min(ts)) * 1e3, 3)
+    n_send = sum(1 for h in hops if isinstance(h, dict)
+                 and h.get("hop") == "client_send")
+    if n_send > 1:
+        out["retries"] = n_send - 1
+    n_re = sum(1 for h in hops if isinstance(h, dict)
+               and h.get("hop") == "reoffer")
+    if n_re:
+        out["redeliveries"] = n_re
+    hosts: List[str] = []
+    for h in hops:
+        if isinstance(h, dict) and h.get("hop") == "dispatch" \
+                and "host" in h and str(h["host"]) not in hosts:
+            hosts.append(str(h["host"]))
+    if hosts:
+        out["hosts"] = hosts
+    return out
+
+
+#: the hop chain every REPLIED frame's trace carries on the pooled
+#: serving path (client_send/client_recv are recorded locally by the
+#: client, not serialized). A redelivered frame repeats hops;
+#: completeness only asks that each stage appears at least once.
+REQUIRED_REPLY_HOPS = ("admit", "dequeue", "dispatch", "worker_recv",
+                       "worker_done", "reply")
+
+
+def missing_hops(hops: List[dict],
+                 required: tuple = REQUIRED_REPLY_HOPS) -> tuple:
+    """The required hop names absent from a trace's hop list, in
+    canonical order — empty tuple means the chain is complete."""
+    seen = {h.get("hop") for h in hops if isinstance(h, dict)}
+    return tuple(r for r in required if r not in seen)
+
+
+def trace_chain_complete(hops: List[dict],
+                         required: tuple = REQUIRED_REPLY_HOPS) -> bool:
+    """True iff the trace carries the full serving hop chain."""
+    return not missing_hops(hops, required)
 
 #: histogram bucket upper bounds (seconds) for per-element proctime —
 #: log-spaced 10µs → 10s, the range a pipeline stage can plausibly
@@ -192,6 +320,12 @@ class NullTracer:
     def record_request(self, name, trace_id, hops, t, **args):
         pass
 
+    def requests(self):
+        return []
+
+    def shed_counts(self):
+        return {}
+
     def record_autotune(self, name, knob, t, **args):
         pass
 
@@ -274,6 +408,15 @@ class Tracer(NullTracer):
         # flight-recorder dumps: kept whole — each one is a post-mortem
         # anchor
         self._flights: List[Tuple[str, float, dict]] = []
+        # server name -> {cause: count} of admission sheds/rejections
+        # (edge/query.py): kept whole — per-cause totals must survive
+        # ring wrap under sustained overload
+        self._sheds: Dict[str, Dict[str, int]] = {}
+        # completed request timelines (name, trace_id, t_done, hops,
+        # args): kept whole, bounded
+        self._requests: List[Tuple[str, str, float, list, dict]] = []
+        self._max_requests = 4096
+        self._requests_dropped = 0
 
     # -- scheduler hooks ---------------------------------------------------
     def source_emit(self, name: str, buf, t: float) -> None:
@@ -362,10 +505,78 @@ class Tracer(NullTracer):
         self._append("X", "device", f"dev{int(device)}", kind, t0,
                      t1 - t0, args or None)
 
+    def record_shed(self, name: str, cause: str, t: float,
+                    **args) -> None:
+        """One request refused or shed at a query server's admission
+        queue (edge/query.py). `cause` is the admission taxonomy:
+        queue_full / inflight_full / deadline / reject_oldest /
+        dispatch_error / shutdown. Dict writes under the GIL — a lost
+        race between two threads costs one count at worst."""
+        c = self._sheds.get(name)
+        if c is None:
+            c = self._sheds[name] = {}
+        c[cause] = c.get(cause, 0) + 1
+        self._append("i", "admission", name, f"shed_{cause}", t, 0.0,
+                     args or None)
+
+    def shed_counts(self) -> Dict[str, Dict[str, int]]:
+        return {name: dict(c) for name, c in self._sheds.items()}
+
+    def record_request(self, name: str, trace_id: str, hops: List[dict],
+                       t: float, **args) -> None:
+        """One completed request timeline: `hops` is the trace-context
+        hop list that came back with the reply (edge/query.py). Kept
+        whole (bounded FIFO) so timelines survive ring wrap."""
+        if len(self._requests) >= self._max_requests:
+            del self._requests[:self._max_requests // 4]
+            self._requests_dropped += self._max_requests // 4
+        self._requests.append(
+            (name, trace_id, t, [dict(h) for h in hops
+                                 if isinstance(h, dict)], dict(args)))
+        self._append("i", "request", name, "request_done", t, 0.0,
+                     dict(args, trace_id=trace_id, hops=len(hops)))
+
+    def requests(self) -> List[Tuple[str, str, float, list, dict]]:
+        return list(self._requests)
+
+    def tenant_summary(self) -> Dict[str, dict]:
+        """Per-tenant rollup over the bounded request window: completed
+        count, completion rate across the window span, and server-side
+        latency percentiles (first recorded hop → completion). Only
+        requests recorded with a ``tenant=`` arg contribute (the query
+        server adds it when admission stamped a tenant class) — what the
+        ScalingController reads for per-tenant demand."""
+        acc: Dict[str, dict] = {}
+        for _name, _tid, t, hops, args in list(self._requests):
+            tenant = args.get("tenant")
+            if tenant is None:
+                continue
+            row = acc.setdefault(
+                tenant, {"count": 0, "lat": [], "t0": t, "t1": t})
+            row["count"] += 1
+            row["t0"] = min(row["t0"], t)
+            row["t1"] = max(row["t1"], t)
+            ts = [h["t"] for h in hops
+                  if isinstance(h.get("t"), (int, float))]
+            if ts:
+                row["lat"].append(max(0.0, t - min(ts)))
+        out: Dict[str, dict] = {}
+        for tenant, row in acc.items():
+            lat = sorted(row["lat"])
+            span = row["t1"] - row["t0"]
+            out[tenant] = {
+                "count": row["count"],
+                "rate_hz": (row["count"] - 1) / span
+                if row["count"] > 1 and span > 0 else float(row["count"]),
+                "p50_ms": 1e3 * percentile(lat, 50.0),
+                "p99_ms": 1e3 * percentile(lat, 99.0),
+            }
+        return out
+
     def record_swap(self, name: str, t: float, **args) -> None:
-        """A store-driven model hot swap adopted by `name` (the LLM
-        executor's maybe_adopt); args carry model/from_version/
-        to_version/epoch/prewarmed."""
+        """A store-driven model hot swap adopted by `name` (the torch
+        backend's and the LLM executor's adoption); args carry model/
+        from_version/to_version/epoch/prewarmed."""
         self._swaps.append((name, t, dict(args)))
         self._append("i", "swap", name, "model_swap", t, 0.0,
                      args or None)
@@ -543,8 +754,7 @@ class Tracer(NullTracer):
 
     def summary(self) -> dict:
         """The JAX package's summary keys; the counters of subsystems
-        not ported yet (sheds, workers, autotune, requests, children)
-        read empty."""
+        not ported yet (workers, autotune, children) read empty."""
         return {
             "interlatency": self.interlatency(),
             "queues": self.queue_gauges(),
@@ -554,10 +764,10 @@ class Tracer(NullTracer):
             "llm_requests": len(self._llm_requests),
             "forced_syncs": dict(self._forced),
             "inflight": self.inflight_gauges(),
-            "sheds": {},
+            "sheds": self.shed_counts(),
             "workers": {},
             "autotune": {},
-            "requests": 0,
+            "requests": len(self._requests) + self._requests_dropped,
             "children": {},
         }
 

@@ -73,6 +73,11 @@ def parse_dim_string(s: str) -> Tuple[int, ...]:
     return tuple(reversed(dims))
 
 
+def to_dim_string(shape: Sequence[int]) -> str:
+    """Row-major shape → reference-style innermost-first dim string."""
+    return ":".join(str(d) for d in reversed(tuple(shape)))
+
+
 def shapes_compatible(a: Sequence[int], b: Sequence[int]) -> bool:
     """Shape equality ignoring leading (outermost) size-1 dims."""
     def strip(s):
@@ -113,6 +118,9 @@ class TensorInfo:
     def nbytes(self) -> int:
         """Byte size of one frame (gst_tensor_info_get_size analog)."""
         return self.num_elements * self.dtype.itemsize
+
+    def to_dim_string(self) -> str:
+        return to_dim_string(self.shape)
 
     def is_compatible(self, other: "TensorInfo") -> bool:
         return (self.dtype == other.dtype
@@ -189,6 +197,15 @@ class TensorsSpec:
             return False
         return all(a.is_compatible(b)
                    for a, b in zip(self.tensors, other.tensors))
+
+    def to_strings(self):
+        """→ (dims, types, names) reference-style property strings (the
+        query handshake's caps)."""
+        return (
+            ",".join(t.to_dim_string() for t in self.tensors),
+            ",".join(t.dtype.type_name for t in self.tensors),
+            ",".join(t.name for t in self.tensors),
+        )
 
     def with_rate(self, rate) -> "TensorsSpec":
         return replace(self, rate=Fraction(rate))

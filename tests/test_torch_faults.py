@@ -9,8 +9,9 @@ seeded fault hits. Where the JAX tests register a custom filter
 (`register_custom_easy`), the port's tests register a kernel-filter
 function (`register_pallas_filter`). tensor_repo's slot overflow is
 held to JAX's error text (without the JAX test's elapsed-time bound).
-Left out with the module it tests: the pickling of the serving errors
-(ServerBusyError, SegmentStageError: slice 7). No test asserts a
+Every error class round-trips through pickle with its state, as JAX's
+(ServerBusyError's fields too); SegmentStageError comes with the device
+segments (ROADMAP Queue 1 item 4e). No test asserts a
 wall-clock bound; the watchdog tests use budgets far from the delays
 they flag.
 """
@@ -733,6 +734,9 @@ _ERR_INSTANCES = [
     errors_mod.PipelineError("unbalanced tee"),
     errors_mod.BackendError("open failed"),
     errors_mod.StreamError("flow error"),
+    errors_mod.ServerBusyError(
+        "server busy", queue_depth=17, retry_after_ms=12.5,
+        cause="worker_lost", pts=42),
     errors_mod.FaultInjected("injected at pts=3"),
     errors_mod.WatchdogStall("element x stalled 2.0s"),
     errors_mod.CircuitOpenError("breaker open, 3 failures"),
@@ -746,6 +750,26 @@ class TestErrorPickling:
         back = pickle.loads(pickle.dumps(exc))
         assert type(back) is type(exc)
         assert back.args == exc.args and str(back) == str(exc)
+        assert back.__dict__ == exc.__dict__
+
+    def test_rich_state_survives(self):
+        e = errors_mod.ServerBusyError(
+            "busy", queue_depth=9, retry_after_ms=7.0, cause="shutdown",
+            pts=5)
+        back = pickle.loads(pickle.dumps(e))
+        assert (back.queue_depth, back.retry_after_ms, back.cause,
+                back.pts) == (9, 7.0, "shutdown", 5)
+
+    def test_round_trip_matches_jax(self):
+        from nnstreamer_tpu.core import errors as jerr
+
+        e = jerr.ServerBusyError("busy", queue_depth=3, retry_after_ms=1.5,
+                                 cause="deadline", pts=8)
+        ours = errors_mod.ServerBusyError(
+            "busy", queue_depth=3, retry_after_ms=1.5, cause="deadline",
+            pts=8)
+        back = pickle.loads(pickle.dumps(ours))
+        assert back.__dict__ == e.__dict__ and back.args == e.args
 
     def test_every_public_error_class_is_covered(self):
         public = {obj for name, obj in vars(errors_mod).items()

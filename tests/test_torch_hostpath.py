@@ -15,9 +15,11 @@ copied:
 comparison (chain fusion's per-frame cost is measured on the card,
 chip_smoke.py phase 26), and the channel/staging/profiler tests of
 modules the port does not have (tools/profile_hostpath.py, the XLA
-backend's staging). TestWedgedAdmission waits for the query server: the
-watchdog's admission scan probes `admission_counters()`, which no port
-element has yet.
+backend's staging). TestWedgedAdmission drives the watchdog's
+wedged-admission scan with a synthetic clock over a stand-in element
+with `admission_counters()` (tests/test_hostpath.py's case), and over a
+real tensor_query_serversrc whose service is gone, against JAX's scan on
+the same script.
 """
 
 from types import SimpleNamespace
@@ -636,3 +638,115 @@ class TestWatchdogPrune:
         assert runner._watchdog_scan(4000.9) is True
         assert isinstance(runner._error, WatchdogStall)
         assert "input queue of element phantom" in str(runner._error)
+
+
+class TestWedgedAdmission:
+    """Watchdog wedged-admission incidents: depth pinned at max_pending
+    with zero reply progress for the queue stall budget."""
+
+    @staticmethod
+    def _runner(counters, pkg=tnns, Stats=ElementStats, tracer=None, **kw):
+        p = pkg.parse_launch("appsrc name=in dims=2 ! tensor_sink name=out")
+        runner = pkg.PipelineRunner(
+            p, optimize=False, watchdog=False,
+            trace=tracer if tracer is not None else Tracer(),
+            stall_budget_s=0.5, queue_stall_budget_s=0.5, **kw).start()
+        p.get("in").end()
+        runner.wait(10)
+        runner.stop()
+        elem = SimpleNamespace(
+            name="adm", admission_counters=lambda: dict(counters))
+        runner.pipeline.elements["adm"] = elem
+        runner._stats.setdefault("adm", Stats())
+        return runner
+
+    def test_warn_once_rearm_on_progress_prune_on_recovery(self):
+        c = {"depth": 8, "max_pending": 8, "replied": 0}
+        runner = self._runner(c)
+        warns = lambda: runner.stats()["adm"]["watchdog_warnings"]
+        assert runner._watchdog_scan(3000.0) is False   # arms
+        assert runner._wd_adm_since == {"adm": (3000.0, 0)}
+        assert warns() == 0
+        assert runner._watchdog_scan(3000.9) is False   # past budget
+        assert warns() == 1
+        assert runner._wd_warned_adm == {"adm": 3000.0}
+        wd = [e for e in runner.tracer.events()
+              if e[3] == "watchdog_wedged-admission"]
+        assert len(wd) == 1 and wd[0][2] == "adm"
+        assert runner._watchdog_scan(3001.5) is False   # same incident
+        assert warns() == 1
+        c["replied"] = 3                                # progress: re-arm
+        assert runner._watchdog_scan(3002.0) is False
+        assert runner._wd_adm_since == {"adm": (3002.0, 3)}
+        assert runner._wd_warned_adm == {}
+        assert runner._watchdog_scan(3002.8) is False   # wedged again
+        assert warns() == 2
+        c["depth"] = 2                                  # recovery prunes
+        assert runner._watchdog_scan(3003.0) is False
+        assert runner._wd_adm_since == {} and runner._wd_warned_adm == {}
+
+    def test_depth_pinned_but_replies_flowing_never_warns(self):
+        c = {"depth": 8, "max_pending": 8, "replied": 0}
+        runner = self._runner(c)
+        assert runner._watchdog_scan(4000.0) is False
+        for i, t in enumerate((4000.4, 4000.8, 4001.2, 4001.6)):
+            c["replied"] = i + 1
+            assert runner._watchdog_scan(t) is False
+        assert runner.stats()["adm"]["watchdog_warnings"] == 0
+        assert runner._wd_warned_adm == {}
+
+    def test_action_fail_escalates_to_watchdog_stall(self):
+        c = {"depth": 4, "max_pending": 4, "replied": 7}
+        runner = self._runner(c, watchdog_action="fail")
+        assert runner._watchdog_scan(5000.0) is False   # arms
+        assert runner._watchdog_scan(5000.9) is True    # escalates
+        assert isinstance(runner._error, WatchdogStall)
+        assert "wedged-admission" in str(runner._error)
+
+    def test_scan_script_matches_jax(self):
+        """One counter script, one clock, both packages' scans: the same
+        verdicts, bookkeeping and warning counts at every step."""
+        from nnstreamer_tpu.runtime.tracing import Tracer as JTracer
+
+        script = [(0.0, 8, 0), (0.3, 8, 0), (0.6, 8, 0), (0.9, 8, 0),
+                  (1.0, 8, 2), (1.4, 8, 2), (1.6, 8, 2), (2.0, 5, 2),
+                  (2.1, 8, 2), (2.7, 8, 2)]
+        logs = []
+        for pkg, Stats, tr in ((jnns, JStats, JTracer()),
+                               (tnns, ElementStats, Tracer())):
+            c = {"depth": 0, "max_pending": 8, "replied": 0}
+            runner = self._runner(c, pkg=pkg, Stats=Stats, tracer=tr)
+            log = []
+            for t, depth, replied in script:
+                c.update(depth=depth, replied=replied)
+                log.append((runner._watchdog_scan(6000.0 + t),
+                            dict(runner._wd_adm_since),
+                            dict(runner._wd_warned_adm),
+                            runner.stats()["adm"]["watchdog_warnings"]))
+            logs.append(log)
+        assert logs[1] == logs[0]
+        assert logs[1][-1][3] == 3
+
+    def test_real_serversrc_is_probed(self):
+        """A tensor_query_serversrc whose admission queue holds
+        max_pending frames nobody takes: the scan reads its counters and
+        flags it."""
+        from nnstreamer_tpu_torch.edge import QueryServer
+
+        from nnstreamer_tpu_torch.edge.query import TensorQueryServerSrc
+
+        runner = self._runner({"depth": 0, "max_pending": 1, "replied": 0})
+        ssrc = TensorQueryServerSrc(name="ssrc", id=61, dims="1:8")
+        runner.pipeline.elements["ssrc"] = ssrc
+        runner._stats.setdefault("ssrc", ElementStats())
+        q = QueryServer.get(61).frames
+        try:
+            q.configure(max_pending=2)
+            for i in range(2):
+                assert q.offer(TensorBuffer.of(
+                    np.ones((8, 1), np.float32), pts=i)).admitted
+            assert runner._watchdog_scan(7000.0) is False
+            assert runner._watchdog_scan(7000.9) is False
+            assert runner.stats()["ssrc"]["watchdog_warnings"] == 1
+        finally:
+            QueryServer.reset_all()

@@ -76,6 +76,11 @@ for norm in ({NORM_A!r}, {NORM_B!r}):
 {LLM}
 import nnstreamer_tpu_torch.models.quant
 import nnstreamer_tpu_torch.parallel.ring_attention
+import nnstreamer_tpu_torch.edge
+import nnstreamer_tpu_torch.parallel.dispatch
+import nnstreamer_tpu_torch.serving.compile_cache
+import nnstreamer_tpu_torch.serving.tenancy
+import nnstreamer_tpu_torch.traffic
 bad = [m for m in sys.modules if m in ("jax", "nnstreamer_tpu")
        or m.startswith(("jax.", "nnstreamer_tpu."))]
 assert not bad, bad

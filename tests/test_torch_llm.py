@@ -300,7 +300,7 @@ def test_store_refuses_unported_refs(params):
     try:
         get_store().register("llm_ref_t", ModelBundle(fn=None,
                                                       params=params[1]))
-        with pytest.raises(BackendError, match="aliases are not ported"):
+        with pytest.raises(BackendError, match="no version alias 'prod'"):
             _engine("store://llm_ref_t@prod")
         with pytest.raises(BackendError, match="no version 7"):
             _engine("store://llm_ref_t@7")

@@ -22,8 +22,10 @@ and named where they show:
 Not copied: `TestSchedulerAccounting::test_noop_tracer_overhead_smoke`,
 a wall-clock bound (the tracer's cost is measured on the card,
 chip_smoke.py phase 26); the tensor_batch flush markers and the XLA
-bucket cache counters (their modules are not ported); TestTraceContext
-and TestChildShipping (the pool's distributed tracing, slice 7).
+bucket cache counters (their modules are not ported); TestChildShipping
+(the worker pool's trace shipping, ROADMAP Queue 1 item 4c).
+TestTraceContext holds the request-scoped helpers (the query edge's
+trace context, hop spans) and the shed/request records to JAX's.
 """
 
 import json
@@ -702,3 +704,89 @@ def test_store_swap_is_traced():
     assert args == {"model": "tr_swap", "from_version": 1,
                     "to_version": 2, "epoch": 1, "prewarmed": True}
     assert len(tracer.llm_requests()) == 2
+
+
+# -- request-scoped trace context (the query edge) ---------------------------
+
+class TestTraceContext:
+    def test_ensure_creates_once_and_reuses_id(self):
+        meta = {}
+        ctx = ttr.ensure_trace_ctx(meta)
+        assert len(ctx["id"]) == 16 and ctx["hops"] == []
+        assert ttr.ensure_trace_ctx(meta)["id"] == ctx["id"]
+        assert meta[ttr.TRACE_CTX_META] is ctx
+        assert ttr.TRACE_CTX_META == jtr.TRACE_CTX_META
+
+    def test_get_never_creates_and_stamp_is_noop_without_ctx(self):
+        meta = {"pts": 3}
+        assert ttr.get_trace_ctx(meta) is None and meta == {"pts": 3}
+        assert ttr.get_trace_ctx(None) is None
+        assert ttr.get_trace_ctx({"_trace_ctx": "junk"}) is None
+        assert ttr.stamp_hop(meta, "admit") is None and meta == {"pts": 3}
+        assert ttr.stamp_hop("not-a-dict", "admit") is None
+
+    def test_stamp_appends_with_extras(self):
+        meta = {}
+        ttr.ensure_trace_ctx(meta)
+        rec = ttr.stamp_hop(meta, "dispatch", wid=1, attempt=0)
+        assert rec["hop"] == "dispatch" and rec["wid"] == 1
+        assert rec["pid"] > 0 and rec["t"] > 0
+        assert ttr.get_trace_ctx(meta)["hops"] == [rec]
+
+    @pytest.mark.parametrize("hops", [
+        [("client_send", 1.000), ("admit", 1.001), ("dequeue", 1.003),
+         ("dispatch", 1.004), ("worker_recv", 1.010),
+         ("worker_done", 1.030), ("reply", 1.031)],
+        [("client_send", 0.0), ("client_send", 0.050), ("admit", 0.051),
+         ("dequeue", 0.052), ("dispatch", 0.053), ("reoffer", 0.080),
+         ("dispatch", 0.081), ("worker_recv", 0.082),
+         ("worker_done", 0.092), ("reply", 0.093)],
+        [("client_send", 0.0), ("admit", 0.001), ("dispatch", 0.002, "hB"),
+         ("reoffer", 0.050), ("dispatch", 0.051, "hA"),
+         ("dispatch", 0.052, "hA"), ("worker_recv", 0.053),
+         ("worker_done", 0.060), ("reply", 0.061)],
+        [("admit", 0.0), ("reply", 0.5)],
+    ], ids=["stages", "redelivery", "hosts", "partial"])
+    def test_hop_spans_and_missing_hops_match_jax(self, hops):
+        recs = [dict({"hop": h[0], "t": h[1]},
+                     **({"host": h[2]} if len(h) > 2 else {}))
+                for h in hops]
+        assert ttr.hop_spans(recs) == jtr.hop_spans(recs)
+        assert ttr.missing_hops(recs) == jtr.missing_hops(recs)
+        assert ttr.trace_chain_complete(recs) == \
+            jtr.trace_chain_complete(recs)
+
+    def test_wire_codec_carries_nested_ctx(self):
+        from nnstreamer_tpu_torch.edge.wire import (
+            decode_buffer, encode_buffer)
+
+        buf = TensorBuffer.of(np.ones((4,), np.float32), pts=7)
+        ttr.ensure_trace_ctx(buf.meta)
+        ttr.stamp_hop(buf.meta, "client_send", pts=7)
+        out, _ = decode_buffer(encode_buffer(buf))
+        ctx = ttr.get_trace_ctx(out.meta)
+        assert ctx["id"] == ttr.get_trace_ctx(buf.meta)["id"]
+        assert ctx["hops"][0]["hop"] == "client_send"
+
+    def test_sheds_requests_and_tenants_match_jax(self):
+        trs = (ttr.Tracer(max_events=4), jtr.Tracer(max_events=4))
+        for tr in trs:                    # a tiny ring: force the wrap
+            for i in range(10):
+                tr.record_shed("query_server_5", "queue_full", float(i),
+                               pts=i)
+            tr.record_shed("query_server_5", "shutdown", 11.0)
+            for i in range(6):
+                hops = [{"hop": "admit", "t": 100.0 + i},
+                        {"hop": "reply", "t": 100.0 + i + 0.002 * (i + 1)}]
+                tr.record_request("query_server_5", f"id{i}", hops,
+                                  100.0 + i + 0.002 * (i + 1),
+                                  tenant="a" if i % 3 else "b")
+        ours, theirs = trs
+        assert ours.shed_counts() == theirs.shed_counts() == {
+            "query_server_5": {"queue_full": 10, "shutdown": 1}}
+        assert ours.summary()["sheds"] == ours.shed_counts()
+        assert ours.summary()["requests"] == theirs.summary()["requests"] \
+            == 6
+        assert [r[:3] for r in ours.requests()] == \
+            [r[:3] for r in theirs.requests()]
+        assert ours.tenant_summary() == theirs.tenant_summary()
