@@ -10,6 +10,7 @@
     python3 chip_smoke.py --elements  # phases 1, 2, 39 and 40 only
     python3 chip_smoke.py --streaming # phases 1, 2, 41 and 42 only
     python3 chip_smoke.py --serving   # phases 1, 2, 43 and 44 only
+    python3 chip_smoke.py --pool      # phases 1, 2, 45 and 46 only
 
 Needs one CUDA card, nvcc, g++ (phase 42) and the repository checkout
 around this file;
@@ -233,7 +234,7 @@ phases there). Phases:
    by name; C (f32) reloaded
    through one shared filter mid-stream: the other takes the "swap"
    bail, both serve the new model from the next frame, its graphs are
-   the new model's; then both arms live at once, bursts of 120 frames in
+   the new model's; then both arms live at once, bursts of 64 frames in
    turns a b b a: frames/s, latency p50/p99 under the burst, kernel
    time a frame and the card's busy share;
 30. the LLM cell through LLMEngine(decode_window=8) against
@@ -417,6 +418,30 @@ phases there). Phases:
    mean batch occupancy, p50/p99); B on store:// beside zoo://, closed
    loop in turns (the routing's cost a frame).
 
+45. Queue 1 items 4c-4d: pipeline B's two filters (`normalize_u8 !
+   tensor_filter model=store://mobilenet_v2`, the zoo's seed 0, bf16,
+   (1, 224, 224, 3) uint8 frames) in supervised pool workers, a 2-worker
+   pool with the shm lane and a 1-worker pool on the pipe, both traced,
+   every child on cuda:0: pooled logits within 1e-5·max|logit| of B run
+   directly in this process (bit for bit reported), the two lanes'
+   logits; normalize_u8 once a frame in the children, as each child's
+   wrapper counts its launches (shipped in its trace deltas, beside the
+   norm filter's spans); SIGKILL of one worker with frames in flight (every
+   frame answered once, none off B direct's, conservation exact, the
+   replacement up on the card); a two-phase swap to a preloaded version
+   2 (seed 1) under traffic (no torn frame, the epoch flips on both
+   workers, every frame sent after the flip v2); the autotuner bound to
+   the live admission queue, dry run then applied (every applied
+   decision in the audit ring, the invariants after each); a /metrics
+   scrape parsed against pqs.stats();
+46. (no claim) closed-loop p50/p99 of pooled B with 1 and 2 workers
+   beside B direct, frame by frame in turns; bursts from 1, 2 and 4
+   clients in turns 1 2 4 4 2 1; each child's start; the shm lane
+   against the pipe per hop (serving/shm.hop_latency_ab at B's frame);
+   then drain: no orphan pid, no shm segment left; the children's
+   launches of normalize_u8 over both phases against the norm spans and
+   the replies (the kernels line adds them).
+
 Each kernel's timing phase (6, 10, 15, 16, 23) also prints its time per
 call from Python, back to back — the host's time (the launch path's own
 cost) and CUDA events — and, where one torch call computes the same
@@ -433,7 +458,8 @@ chip_smoke_slice6.json with --slice6, chip_smoke_batching.json with
 --batching, chip_smoke_window.json with --window,
 chip_smoke_modelio.json with --modelio, chip_smoke_elements.json with
 --elements, chip_smoke_streaming.json with --streaming,
-chip_smoke_serving.json with --serving).
+chip_smoke_serving.json with --serving, chip_smoke_pool.json with
+--pool).
 """
 
 from __future__ import annotations
@@ -4161,11 +4187,11 @@ def batching_phases(nt, torch, card, record, phases) -> None:
 # -- Queue 1 item 1e: compiled windows (CUDA-graph replays) -----------------
 
 #: phase 29: frames pushed at once per run (f32 B: fewer; P's profiled
-#: run: fewer, as phase 27's profiled bursts); its timing bursts: 120
+#: run: fewer, as phase 27's profiled bursts); its timing bursts: 64
 #: frames (200, phase 27's BURST, until phases 43-44 took the whole run
-#: past 760 s)
+#: past 760 s; 120 until phases 45-46 took it past 820 s)
 WINDOW_FRAMES, WINDOW_F32_FRAMES, WINDOW_PROF_FRAMES = 200, 64, 48
-WINDOW_BURST = 120
+WINDOW_BURST = 64
 #: phase 30: the engine's decode window
 DECODE_WINDOW = 8
 
@@ -7769,6 +7795,565 @@ def serving_phases(nt, torch, card, record, phases) -> dict:
     return launches
 
 
+# -- phases 45-46: the supervised worker pool and the metrics plane ----------
+
+POOL_FRAMES, POOL_KILL_FRAMES, POOL_SWAP_FRAMES = 16, 48, 48
+POOL_TUNE_FRAMES, POOL_LAT, POOL_WARMUP, POOL_BURST = 48, 40, 4, 32
+#: pooled logits against B direct in this process, relative to max
+#: |logit|: the same weights and kernels, another process's cuDNN choice
+POOL_REL = 1e-5
+POOL_NORM = "tensor_filter name=norm framework=pallas model=normalize_u8"
+#: the served model: the store's zoo seed (@0, MobileNetV2 1.0 at 224²,
+#: bf16, seed 0) and a version 2 (seed 1) that every child preloads
+POOL_STORE, POOL_V1 = "mobilenet_v2", 0
+POOL_V2_REF = "zoo://mobilenet_v2?seed=1"
+POOL_SHAPE, POOL_DIMS = (1, 224, 224, 3), "3:224:224:1"
+#: where every child must serve (each picks it through pick_device)
+POOL_DEVICE = "cuda:0"
+#: a child's start is an import of torch and a CUDA context: seconds
+POOL_KW = dict(ready_timeout_s=0, spawn_grace_s=180.0, hb_timeout_s=20.0,
+               frame_deadline_s=120.0, drain_timeout_s=30.0,
+               restart_backoff_s=0.05)
+
+
+class PoolClient:
+    """A raw query-wire client: every RESULT and typed BUSY by pts, with
+    how many times each pts came back (a duplicate is a fault)."""
+
+    def __init__(self, port):
+        import json as _json
+
+        from nnstreamer_tpu_torch.edge import protocol as P
+        from nnstreamer_tpu_torch.edge.wire import decode_buffer
+
+        self.P, self._json, self._decode = P, _json, decode_buffer
+        self.results, self.busy, self.seen = {}, {}, Counter()
+        self.t_back = {}
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        self._hello = threading.Event()
+        self.c = P.MsgClient("127.0.0.1", port, on_message=self._on)
+        self.c.send(P.T_HELLO, _json.dumps(
+            {"dims": POOL_DIMS, "types": "uint8"}).encode())
+        check(self._hello.wait(60), "pool client: no HELLO_ACK")
+
+    def _on(self, mtype, payload):
+        P = self.P
+        if mtype == P.T_HELLO_ACK:
+            self._hello.set()
+            return
+        with self._cv:
+            if mtype == P.T_RESULT:
+                buf, _ = self._decode(payload)
+                self.results[buf.pts] = np.asarray(buf.tensors[0]).astype(
+                    np.float32)
+                self.seen[buf.pts] += 1
+                self.t_back[buf.pts] = time.perf_counter()
+            elif mtype == P.T_BUSY:
+                info = self._json.loads(payload.decode())
+                self.busy[info["pts"]] = info["cause"]
+                self.seen[info["pts"]] += 1
+            self._cv.notify_all()
+
+    def send(self, pts, frame):
+        from nnstreamer_tpu_torch.edge.wire import encode_buffer
+        from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+        self.c.send(self.P.T_DATA,
+                    encode_buffer(TensorBuffer.of(frame, pts=pts)))
+
+    def wait(self, pts_set, timeout=300.0):
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while not all(p in self.seen for p in pts_set):
+                left = deadline - time.monotonic()
+                check(left > 0, f"pool client: {len(pts_set)} frames not "
+                                f"answered within {timeout} s")
+                self._cv.wait(min(left, 1.0))
+
+    def close(self):
+        self.c.close()
+
+
+def pool_conserved(c) -> bool:
+    return (c["offered"] == c["admitted"] + sum(c["rejected"].values())
+            and c["admitted"] == c["replied"] + sum(c["shed"].values())
+            + c["depth"] + c["inflight"])
+
+
+def pool_launches(tracer) -> int:
+    """normalize_u8's launches in the pool's children, as the wrapper's
+    counter counted them there: each child's tracer hears of every
+    counted launch (`cuda_graphs.observe_launches`) and ships the count
+    in its trace deltas."""
+    return sum(n for k, n in tracer.kernel_launches().items()
+               if k.startswith("w") and k.endswith("/normalize_u8"))
+
+
+def pool_spans(tracer) -> int:
+    """The norm filter's process spans in the children's shipped traces:
+    one a frame the filter handled, whatever ran inside it."""
+    return sum(h["count"] for n, h in tracer.hists().items()
+               if n.startswith("w") and n.endswith("/norm"))
+
+
+def rel_to(got, ref) -> float:
+    return float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+
+
+def pool_preload() -> tuple:
+    """(name, version, ref) recipes of the served versions beyond the
+    store's zoo seed, for the children and this process alike."""
+    return ((POOL_STORE, 2, POOL_V2_REF),)
+
+
+def pool_start(nt, workers, sid, tracer=None, **kw):
+    """A PooledQueryServer of pipeline B's two filters (every version
+    preloaded in each child), not waited for."""
+    from nnstreamer_tpu_torch.serving.pool import PooledQueryServer
+    from nnstreamer_tpu_torch.serving.worker import WorkerSpec
+
+    spec = WorkerSpec(
+        kind="pipeline", dims=POOL_DIMS, types="uint8",
+        pipeline=f"{POOL_NORM} ! tensor_filter name=mbv2 "
+                 f"model=store://{POOL_STORE}", preload=pool_preload())
+    return PooledQueryServer(spec, workers=workers, sid=sid, tracer=tracer,
+                             max_pending=256, **dict(POOL_KW, **kw))
+
+
+def child_starts(tracer, pool_name) -> list:
+    """Seconds from each spawn to its ready handshake (restarts too), as
+    the pool's lifecycle events on the tracer record them."""
+    spawned, out = {}, []
+    for name, wid, kind, t, _ in tracer.worker_events():
+        if name != pool_name:
+            continue
+        if kind == "spawn":
+            spawned[wid] = t
+        elif kind == "ready" and wid in spawned:
+            out.append(t - spawned.pop(wid))
+    return out
+
+
+def pool_correctness(nt, torch, card, record, ctx) -> None:
+    """Phase 45."""
+    from nnstreamer_tpu_torch.runtime.tracing import Tracer
+    from nnstreamer_tpu_torch.serving.autotune import AutoTuner, SLOSpec
+    from nnstreamer_tpu_torch.serving.metrics import (
+        MetricsServer, metrics_snapshot, parse_prometheus, scrape)
+
+    from nnstreamer_tpu_torch.serving.worker import _register_preloads
+
+    res = {}
+    record["pool_correctness"] = res
+    frames = u8_frames(POOL_SHAPE, POOL_FRAMES, 451)
+    tr2, tr1 = Tracer(), Tracer()
+    # two workers with the shm lane, one without: both start at once
+    pqs2 = pool_start(nt, 2, 4501, tracer=tr2)
+    pqs1 = pool_start(nt, 1, 4502, tracer=tr1, shm_transport=False)
+    ctx.update(pqs2=pqs2, pqs1=pqs1, tr2=tr2, tr1=tr1)
+    # B directly in this process on the same versions, pinned, while the
+    # children start
+    _register_preloads(pool_preload())
+    refs = {}
+    for v in (POOL_V1, 2):
+        out = run_sinks(nt, f"{APPSRC} ! {NORM_B} ! tensor_filter "
+                            f"model=store://{POOL_STORE}@{v} ! tensor_sink "
+                            f"name=out", frames)[0]["out"]
+        refs[v] = logits_of(out).astype(np.float32)
+    ref1, ref2 = refs[POOL_V1], refs[2]
+    check(pqs2.pool.wait_ready(240) and pqs1.pool.wait_ready(240),
+          f"pool: workers not ready: {pqs2.stats()['workers']} "
+          f"{pqs1.stats()['workers']}")
+    devs = [w["device"] for p in (pqs2, pqs1) for w in p.stats()["workers"]]
+    res["devices"] = devs
+    check(all(d == POOL_DEVICE for d in devs), f"pool devices: {devs}")
+
+    # -- logits, shm lane on (2 workers) and off (1 worker) --------------
+    got = {}
+    for key, pqs in (("shm", pqs2), ("pipe", pqs1)):
+        cli = PoolClient(pqs.port)
+        try:
+            for i, f in enumerate(frames):
+                cli.send(i, f)
+            cli.wait(range(POOL_FRAMES))
+        finally:
+            cli.close()
+        check(not cli.busy, f"pool {key}: BUSY {cli.busy}")
+        got[key] = np.stack([cli.results[i] for i in range(POOL_FRAMES)])
+    errs = {k: rel_to(v, ref1) for k, v in got.items()}
+    bits = {k: sum(a.tobytes() == b.tobytes() for a, b in zip(v, ref1))
+            for k, v in got.items()}
+    lanes_equal = sum(a.tobytes() == b.tobytes()
+                      for a, b in zip(got["shm"], got["pipe"]))
+    p2 = pqs2.stats()["pool"]
+    res["logits"] = {"max_rel": errs, "bit_for_bit": bits,
+                     "shm_vs_pipe_bit_for_bit": lanes_equal,
+                     "shm_frames": p2["shm_frames"],
+                     "pipe_shm_frames": pqs1.stats()["pool"]["shm_frames"]}
+    print(f"phase 45: pooled B (appsrc ! normalize_u8 ! store://{POOL_STORE} "
+          f"! tensor_sink in each child; bf16, {POOL_SHAPE} uint8), "
+          f"{POOL_FRAMES} frames: 2 workers with the shm lane max |diff| / "
+          f"max|logit| {errs['shm']:.3e} ({bits['shm']}/{POOL_FRAMES} bit "
+          f"for bit B direct's), 1 worker on the pipe {errs['pipe']:.3e} "
+          f"({bits['pipe']}/{POOL_FRAMES}); the two lanes bit for bit "
+          f"{lanes_equal}/{POOL_FRAMES}; shm records {p2['shm_frames']}, "
+          f"children on {sorted(set(devs))} [{card}]")
+    check(max(errs.values()) <= POOL_REL and p2["shm_frames"] >= 2 *
+          POOL_FRAMES and res["logits"]["pipe_shm_frames"] == 0,
+          f"pool logits: {res['logits']}")
+    # the kernel ran in the children: each child's wrapper counts its
+    # launches, and its trace deltas carry them beside the norm filter's
+    # spans (the heartbeat lane ships every 0.1 s)
+    def seen():
+        return {k: {"launches": pool_launches(t), "spans": pool_spans(t)}
+                for k, t in (("2 workers", tr2), ("1 worker", tr1))}
+
+    deadline = time.monotonic() + 30
+    while min(min(c.values()) for c in seen().values()) < POOL_FRAMES \
+            and time.monotonic() < deadline:
+        time.sleep(0.05)
+    counts = seen()
+    res["launches_logits"] = counts
+    print(f"phase 45: normalize_u8 in the children, launches as their "
+          f"wrappers counted them / the norm filter's spans, both from the "
+          f"shipped trace deltas: " + ", ".join(
+              f"{k} {c['launches']} / {c['spans']}"
+              for k, c in counts.items())
+          + f" for {POOL_FRAMES} frames each")
+    check(all(c == {"launches": POOL_FRAMES, "spans": POOL_FRAMES}
+              for c in counts.values()), f"pool launches: {counts}")
+
+    # -- SIGKILL of one worker mid-flood ---------------------------------
+    old_pids = pqs2.pool.pids()
+    cli = PoolClient(pqs2.port)
+    killed = []
+    try:
+        for i in range(POOL_KILL_FRAMES):
+            cli.send(100 + i, frames[i % POOL_FRAMES])
+            if i == POOL_KILL_FRAMES // 3:
+                deadline = time.monotonic() + 60
+                while not pqs2.pool.stats()["workers"][0]["inflight"]:
+                    check(time.monotonic() < deadline, "kill: worker 0 idle")
+                    time.sleep(0.001)
+                killed.append(pqs2.pool.kill_worker(0))
+        cli.wait([100 + i for i in range(POOL_KILL_FRAMES)])
+    finally:
+        cli.close()
+    dup = [p for p, n in cli.seen.items() if n != 1]
+    bad = [p for p, v in cli.results.items()
+           if rel_to(v, ref1[(p - 100) % POOL_FRAMES]) > POOL_REL]
+    check(pqs2.pool.wait_ready(240), "kill: no replacement worker")
+    c = pqs2.admission_counters()
+    st = pqs2.stats()
+    new_pid = pqs2.pool.pids()[0]
+    res["kill"] = {"killed": killed[0], "replaced_by": new_pid,
+                   "answered": len(cli.results), "busy": dict(cli.busy),
+                   "duplicates": dup, "wrong": bad,
+                   "reoffered": st["pool"]["reoffered"],
+                   "restarts": st["pool"]["restarts"],
+                   "conserved": pool_conserved(c),
+                   "device": st["workers"][0]["device"]}
+    print(f"phase 45: SIGKILL of worker 0 (pid {killed[0]}) with frames in "
+          f"flight, {POOL_KILL_FRAMES} frames: {len(cli.results)} answered, "
+          f"BUSY {dict(cli.busy)}, duplicates {dup}, off B direct {bad}, "
+          f"re-offered {st['pool']['reoffered']}, restarts "
+          f"{st['pool']['restarts']}; the replacement (pid {new_pid}) came "
+          f"up on {st['workers'][0]['device']}; offered == admitted + "
+          f"rejected and admitted == replied + shed + depth + inflight: "
+          f"{pool_conserved(c)}")
+    check(killed[0] == old_pids[0] and len(cli.results) == POOL_KILL_FRAMES
+          and not cli.busy and not dup and not bad
+          and st["pool"]["restarts"] == 1 and pool_conserved(c)
+          and new_pid != killed[0]
+          and st["workers"][0]["device"] == POOL_DEVICE,
+          f"kill: {res['kill']}")
+
+    # -- two-phase swap to the preloaded version 2 under traffic ---------
+    cli = PoolClient(pqs2.port)
+    epoch0 = pqs2.pool.epoch
+    try:
+        half = POOL_SWAP_FRAMES // 2
+        for i in range(half):
+            cli.send(200 + i, frames[i % POOL_FRAMES])
+        rep = pqs2.swap(POOL_STORE, 2, timeout_s=180.0)
+        for i in range(half, POOL_SWAP_FRAMES):
+            cli.send(200 + i, frames[i % POOL_FRAMES])
+        cli.wait([200 + i for i in range(POOL_SWAP_FRAMES)])
+    finally:
+        cli.close()
+    version, torn = {}, []
+    for p, v in cli.results.items():
+        k = (p - 200) % POOL_FRAMES
+        e1, e2 = rel_to(v, ref1[k]), rel_to(v, ref2[k])
+        version[p] = 1 if e1 <= POOL_REL else 2 if e2 <= POOL_REL else 0
+        if not version[p]:
+            torn.append((p, e1, e2))
+    after = [version.get(200 + i) for i in range(half, POOL_SWAP_FRAMES)]
+    res["swap"] = {"ok": rep["ok"], "epoch": [epoch0, pqs2.pool.epoch],
+                   "workers": {str(w): r for w, r in rep["workers"].items()},
+                   "v1": sum(v == 1 for v in version.values()),
+                   "v2": sum(v == 2 for v in version.values()),
+                   "torn": torn, "after_all_v2": all(v == 2 for v in after)}
+    print(f"phase 45: two-phase swap store://{POOL_STORE} → @2 (preloaded) "
+          f"with {half} frames in flight, {half} more after: ok "
+          f"{rep['ok']}, epoch {epoch0} → {pqs2.pool.epoch}, commit on "
+          f"{sum(r.get('commit_ok', False) for r in rep['workers'].values())}"
+          f"/2 workers; {res['swap']['v1']} frames v1, {res['swap']['v2']} "
+          f"v2, torn {torn}, every frame sent after the flip v2 "
+          f"{res['swap']['after_all_v2']}")
+    check(rep["ok"] and pqs2.pool.epoch == epoch0 + 1
+          and len(rep["workers"]) == 2 and not torn
+          and res["swap"]["after_all_v2"] and not cli.busy,
+          f"swap: {res['swap']}")
+
+    # -- the autotuner on the live admission queue: dry run, then applied
+    tuned = {}
+    for dry in (True, False):
+        applied_ok = []
+
+        def on_apply(rec, pqs=pqs2, ok=applied_ok):
+            ok.append(pool_conserved(pqs.admission_counters()))
+
+        def victims(vs, pqs=pqs2):
+            for v in vs:
+                pqs.qs.send_busy(v.meta.get("client_id"), v.pts,
+                                 "bound_shrink")
+
+        mp0 = pqs2.admission_counters()["max_pending"]
+        tuner = AutoTuner(SLOSpec(p99_budget_ms=40.0), admission=pqs2.qs.frames,
+                          tracer=tr2, dry_run=dry, interval_s=0.02,
+                          cooldown_s=0.05, on_apply=on_apply,
+                          on_victims=victims).start()
+        cli = PoolClient(pqs2.port)
+        base = 400 if dry else 500
+        try:
+            for i in range(POOL_TUNE_FRAMES):
+                cli.send(base + i, frames[i % POOL_FRAMES])
+            cli.wait([base + i for i in range(POOL_TUNE_FRAMES)])
+        finally:
+            cli.close()
+            tuner.stop()
+        st = tuner.stats()
+        audit = tuner.audit()
+        mp1 = pqs2.admission_counters()["max_pending"]
+        tuned["dry_run" if dry else "applied"] = {
+            "ticks": st["ticks"], "decisions": st["decisions"],
+            "applied_total": st["applied_total"],
+            "dry_run_total": st["dry_run_total"],
+            "audit_applied": sum(a["outcome"] == "applied" for a in audit),
+            "audit_dropped": st["audit_dropped"],
+            "max_pending": [mp0, mp1],
+            "conserved_after_each_apply": all(applied_ok),
+            "answered": len(cli.results), "busy": len(cli.busy),
+            "conserved": pool_conserved(pqs2.admission_counters())}
+        if dry:
+            check(st["applied_total"] == 0 and st["dry_run_total"] >= 1
+                  and mp1 == mp0, f"autotune dry run: {tuned}")
+    a = tuned["applied"]
+    res["autotune"] = tuned
+    print(f"phase 45: autotuner on the live admission queue (p99 budget "
+          f"40 ms), {POOL_TUNE_FRAMES} frames each: dry run "
+          f"{tuned['dry_run']['dry_run_total']} decisions, max_pending "
+          f"{tuned['dry_run']['max_pending']}; applied "
+          f"{a['applied_total']} (all {a['audit_applied']} in the audit "
+          f"ring), max_pending {a['max_pending']}, invariants after each "
+          f"{a['conserved_after_each_apply']}; answered {a['answered']} + "
+          f"BUSY {a['busy']}")
+    check(a["applied_total"] >= 1 and a["audit_applied"] ==
+          a["applied_total"] and a["audit_dropped"] == 0
+          and a["conserved_after_each_apply"] and a["conserved"]
+          and a["answered"] + a["busy"] == POOL_TUNE_FRAMES,
+          f"autotune: {tuned}")
+    pqs2.qs.frames.configure(max_pending=256)
+
+    # -- a /metrics scrape against pqs.stats() ---------------------------
+    def collect():
+        s = pqs2.stats()
+        return metrics_snapshot(tracer=tr2, admission=s.pop("admission"),
+                                pool=s, devprof=None)
+
+    msrv = MetricsServer(collect)
+    try:
+        time.sleep(0.3)                  # the children's last deltas
+        fams = parse_prometheus(scrape(
+            f"http://127.0.0.1:{msrv.port}/metrics"))
+        s = pqs2.stats()
+    finally:
+        msrv.close()
+
+    def val(fam, key=None):
+        return fams[fam]["samples"][key or fam]
+
+    adm, pool = s["admission"], s["pool"]
+    pairs = {"offered": (val("nns_admission_offered_total"),
+                         adm["offered"]),
+             "admitted": (val("nns_admission_admitted_total"),
+                          adm["admitted"]),
+             "replied": (val("nns_admission_replied_total"),
+                         adm["replied"]),
+             "rejected": (sum(fams["nns_admission_rejected_total"]
+                              ["samples"].values()),
+                          sum(adm["rejected"].values())),
+             "restarts": (val("nns_pool_restarts_total"), pool["restarts"]),
+             "reoffered": (val("nns_pool_reoffered_total"),
+                           pool["reoffered"]),
+             "shm_frames": (val("nns_shm_frames_total"),
+                            pool["shm_frames"]),
+             "epoch": (val("nns_pool_epoch"), pool["epoch"]),
+             "ready": (val("nns_pool_ready"), pool["ready"])}
+    res["metrics"] = {k: list(v) for k, v in pairs.items()}
+    print(f"phase 45: /metrics scrape against pqs.stats(): "
+          + ", ".join(f"{k} {int(a)}={b}" for k, (a, b) in pairs.items()))
+    check(all(a == b for a, b in pairs.values()), f"metrics: {pairs}")
+
+
+def pool_drain(ctx, res, strict=True) -> None:
+    """close() both pools: no orphan pid, no shm segment left."""
+    from nnstreamer_tpu_torch.serving.pool import proc_alive
+
+    out = {}
+    for key in ("pqs2", "pqs1"):
+        pqs = ctx.pop(key, None)
+        if pqs is None:
+            continue
+        pids = pqs.pool.all_pids_ever()
+        replied = pqs.admission_counters()["replied"]
+        reoffered = pqs.stats()["pool"]["reoffered"]
+        pqs.close()
+        out[key] = {"pids": pids, "replied": replied, "reoffered": reoffered,
+                    "alive": [p for p in pids if proc_alive(p)],
+                    "segments": pqs.pool.shm_segments()}
+    res["drain"] = out
+    print(f"phase 45: drain: " + "; ".join(
+        f"{k}: {len(v['pids'])} pids ever, alive {v['alive']}, shm "
+        f"segments {v['segments']}" for k, v in out.items()))
+    if strict:
+        check(all(not v["alive"] and not v["segments"]
+                  for v in out.values()), f"drain: {out}")
+
+
+def pool_timings(nt, torch, card, record, ctx) -> None:
+    """Phase 46 (no claim): closed-loop p50 of pooled B with 1 and 2
+    workers beside B direct, frame by frame in turns; bursts from 1, 2
+    and 4 clients against the 2-worker pool in turns 1 2 4 4 2 1; each
+    child's start; the shm lane against the pipe per hop."""
+    from nnstreamer_tpu_torch.edge.wire import encode_buffer
+    from nnstreamer_tpu_torch.serving.shm import hop_latency_ab
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    res = {}
+    record["pool_timings"] = res
+    pqs2, pqs1 = ctx["pqs2"], ctx["pqs1"]
+    frame = u8_frames(POOL_SHAPE, 1, 461)[0]
+    tail = "tensor_sink name=out"
+    lat = closed_loop_arms(
+        nt, {"pool1": f"{APPSRC} ! tensor_query_client port={pqs1.port} "
+                      f"timeout={Q_TIMEOUT} ! {tail}",
+             "pool2": f"{APPSRC} ! tensor_query_client port={pqs2.port} "
+                      f"timeout={Q_TIMEOUT} ! {tail}",
+             "B": f"{APPSRC} ! {NORM_B} ! tensor_filter "
+                  f"model=store://{POOL_STORE}@2 ! {tail}"},
+        frame, POOL_LAT, POOL_WARMUP)
+    res["closed"] = {k: {"p50_ms": float(np.percentile(v, 50)),
+                         "p99_ms": float(np.percentile(v, 99))}
+                     for k, v in lat.items()}
+    print(f"phase 46: closed loop (frame by frame in turns, {POOL_LAT} "
+          f"frames an arm): " + ", ".join(
+              f"{k} p50 {v['p50_ms']:.3f} ms p99 {v['p99_ms']:.3f} ms"
+              for k, v in res["closed"].items()) + f" [{card}]")
+    # a pool answers a client's frames in the order its workers finish
+    # them: the bursts use raw clients (a pipelined tensor_query_client
+    # holds replies to its send order), connected before the clock starts
+    bursts = {n: [] for n in (1, 2, 4)}
+    for n in (1, 2, 4, 4, 2, 1):
+        clients = [PoolClient(pqs2.port) for _ in range(n)]
+        try:
+            t0 = time.perf_counter()
+            for i in range(POOL_BURST):
+                for cli in clients:
+                    cli.send(i, frame)
+            for cli in clients:
+                cli.wait(range(POOL_BURST))
+            wall = time.perf_counter() - t0
+        finally:
+            for cli in clients:
+                cli.close()
+        check(all(len(c.results) == POOL_BURST for c in clients),
+              f"burst of {n} clients: {[len(c.busy) for c in clients]} BUSY")
+        bursts[n].append(n * POOL_BURST / wall)
+    res["bursts_fps"] = bursts
+    print(f"phase 46: bursts of {POOL_BURST} frames a client (all sent at "
+          f"once) against the 2-worker pool, in turns 1 2 4 4 2 1: " + ", ".join(
+              f"{n} client(s) " + " / ".join(f"{f:.1f}" for f in v)
+              + " frames/s" for n, v in bursts.items()) + f" [{card}]")
+    starts = {"pool2": child_starts(ctx["tr2"], pqs2.pool.name),
+              "pool1": child_starts(ctx["tr1"], pqs1.pool.name)}
+    res["child_start_s"] = starts
+    print(f"phase 46: each child's start (spawn to ready: torch, the CUDA "
+          f"context, the pipeline and its model): " + ", ".join(
+              f"{k} " + " / ".join(f"{s:.2f}" for s in v) + " s"
+              for k, v in starts.items()) + " (the 2-worker pool's third is "
+          f"the replacement after the SIGKILL)")
+    nbytes = len(encode_buffer(TensorBuffer.of(frame, pts=0)))
+    hop = hop_latency_ab(payload_bytes=nbytes, n=200)
+    res["hop"] = hop
+    print(f"phase 46: one hop parent → child → parent of a {nbytes}-byte "
+          f"frame, 200 round trips a lane: pipe p50 {hop['pipe_p50_ms']:.3f}"
+          f" ms p99 {hop['pipe_p99_ms']:.3f} ms, shm p50 "
+          f"{hop['shm_p50_ms']:.3f} ms p99 {hop['shm_p99_ms']:.3f} ms "
+          f"({hop['hop_speedup']:.2f}x) [{card}]")
+
+
+def pool_launch_tally(ctx, res) -> int:
+    """After the drain, when every child that stopped on its own has
+    shipped its last deltas: normalize_u8's launches counted in each
+    pool's children against the norm filter's spans and the pool's
+    replies. → the launches of both pools."""
+    out = {}
+    for key in ("2", "1"):
+        drained = res["drain"][f"pqs{key}"]
+        out[key] = {"launches": pool_launches(ctx[f"tr{key}"]),
+                    "spans": pool_spans(ctx[f"tr{key}"]),
+                    "replied": drained["replied"],
+                    "reoffered": drained["reoffered"]}
+    res["launches_in_children"] = out
+    print(f"phase 46: normalize_u8 in the children over phases 45-46, "
+          f"launches as their wrappers counted them / norm spans / replies "
+          f"(re-offered): " + ", ".join(
+              f"{k}-worker pool {c['launches']} / {c['spans']} / "
+              f"{c['replied']} ({c['reoffered']})" for k, c in out.items())
+          + " (the SIGKILLed child's launches since its last ship are "
+          f"lost with it)")
+    one, two = out["1"], out["2"]
+    # the 1-worker pool lost no child: every count closes; a frame the
+    # killed child had launched for is re-offered and launched again
+    check(one["launches"] == one["spans"] == one["replied"]
+          and two["spans"] <= two["launches"]
+          <= two["replied"] + two["reoffered"],
+          f"launches in the children: {out}")
+    return one["launches"] + two["launches"]
+
+
+def pool_phases(nt, torch, card, record, phases) -> dict:
+    """Phases 45-46. → normalize_u8's launches in the children."""
+    ctx = {}
+    try:
+        pool_correctness(nt, torch, card, record, ctx)
+        phases.done("45 (the worker pool, the metrics plane, the "
+                    "autotuner: correctness)")
+        pool_timings(nt, torch, card, record, ctx)
+    except BaseException:
+        pool_drain(ctx, record.setdefault("pool_correctness", {}),
+                   strict=False)
+        raise
+    # drain last: the timings run on the same two pools
+    pool_drain(ctx, record["pool_correctness"])
+    launched = pool_launch_tally(ctx, record["pool_correctness"])
+    phases.done("46 (the worker pool: timings; drain)")
+    return {"pool": launched}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -7811,6 +8396,11 @@ def main(argv=None) -> int:
              "filter: canary, hot swap, the bucket manifest; the query "
              "edge: tensor_query_*, BUSY, hybrid discovery, the batched "
              "query server)")
+    ap.add_argument(
+        "--pool", action="store_true",
+        help="run phases 1, 2, 45 and 46 only (pipeline B in supervised "
+             "pool workers: the shm lane, SIGKILL, swap, drain; the "
+             "autotuner and /metrics on the live pool; timings)")
     ap.add_argument(
         "--slice4", action="store_true",
         help="run phases 1, 2 and 20-23 only (the ring step, ring "
@@ -7893,6 +8483,9 @@ def main(argv=None) -> int:
     elif args.serving:
         serving_phases(nt, torch, card, record, phases)
         entries = []
+    elif args.pool:
+        pool_phases(nt, torch, card, record, phases)
+        entries = []
     else:
         # -- 3-6. normalize_u8, pipelines A and B ------------------------
         entries = slice1_phases(nt, torch, card, record, phases)
@@ -7920,6 +8513,8 @@ def main(argv=None) -> int:
         extra = streaming_phases(nt, torch, card, record, phases)
         # -- 43-44. items 4a-4b: Q1 once a frame, Q2 once a batch -------
         extra.update(serving_phases(nt, torch, card, record, phases))
+        # -- 45-46. items 4c-4d: #1 once a frame in every pool child ----
+        extra.update(pool_phases(nt, torch, card, record, phases))
         norm = next(e for e in entries if e["name"] == "normalize_u8")
         norm["launches_by_path"] = {"B": norm["launches"], **extra}
         norm["launches"] += sum(extra.values())
@@ -7935,6 +8530,7 @@ def main(argv=None) -> int:
             "chip_smoke_elements.json" if args.elements else
             "chip_smoke_streaming.json" if args.streaming else
             "chip_smoke_serving.json" if args.serving else
+            "chip_smoke_pool.json" if args.pool else
             "chip_smoke.json")
     (out_dir / name).write_text(json.dumps(record, indent=1))
     print(card)

@@ -59,6 +59,19 @@ CAPTURE_MODE = "thread_local"
 
 _tls = threading.local()
 _capture_lock = threading.Lock()
+#: told ``(wrapper name, n)`` of every launch `count_launch` counts, when
+#: set (`observe_launches`)
+_observer: Optional[Callable[[str, int], None]] = None
+
+
+def observe_launches(fn: Optional[Callable[[str, int], None]]) -> None:
+    """Report every counted launch to ``fn(kernel, n)`` as well — at the
+    launch outside a capture, and n at each replay of a graph that holds
+    n — or stop reporting with None. A pool worker child passes its
+    tracer's `record_launches`, so the parent reads the child's launches
+    from the shipped trace deltas."""
+    global _observer
+    _observer = fn
 
 
 class Tally:
@@ -75,6 +88,8 @@ class Tally:
         """One replay: each captured launch ran once more."""
         for (fn, attr), n in self.launches.items():
             setattr(fn, attr, getattr(fn, attr) + n)
+            if attr == "launches" and _observer is not None:
+                _observer(fn.__name__, n)
 
 
 def count_launch(fn, *counters: str, keep: Sequence[Any] = ()) -> None:
@@ -82,12 +97,15 @@ def count_launch(fn, *counters: str, keep: Sequence[Any] = ()) -> None:
     each counter named in `counters` (the variant counts) — or, while this
     thread captures a graph, +1 in the capture's tally, which every replay
     adds. `keep`: buffers the launch reads through their address, held by
-    the graph being captured (outside a capture nothing holds them)."""
+    the graph being captured (outside a capture nothing holds them). The
+    observer, if any, hears of each counted launch."""
     tally = getattr(_tls, "tally", None)
     if tally is None:
         fn.launches += 1
         for attr in counters:
             setattr(fn, attr, getattr(fn, attr) + 1)
+        if _observer is not None:
+            _observer(fn.__name__, 1)
         return
     for attr in ("launches",) + counters:
         key = (fn, attr)

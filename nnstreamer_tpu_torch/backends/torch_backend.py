@@ -303,6 +303,9 @@ class TorchBackend(FilterBackend):
         #: distinct bucket shapes run by invoke_batched/invoke_flexible
         #: (the JAX package's compile_count counts one compile for each)
         self.bucket_shapes: set = set()
+        #: ((row shape, dtype name), ...) of the last batched micro-batch
+        #: (stage_bucket runs another occupancy bucket of it)
+        self._last_dynb: Optional[tuple] = None
         #: compiled windows served and the frames they served (the JAX
         #: package's names)
         self.window_invokes = 0
@@ -619,6 +622,8 @@ class TorchBackend(FilterBackend):
             return super().invoke_batched(xs, n, keepdims)
         self.batch_size_hist[n] = self.batch_size_hist.get(n, 0) + 1
         self.bucket_shapes.add(("dynb", nb) + tuple(s for s, _ in sig))
+        self._last_dynb = tuple((tuple(x.shape[1:]), DType.of(x).type_name)
+                                for x in xs)
         tr = self.tracer
         t0 = time.perf_counter() if tr.active or ver is not None else 0.0
         padded = tuple(pad_rows(x, n, nb) for x in xs)
@@ -946,6 +951,50 @@ class TorchBackend(FilterBackend):
             raise
         self._record_invoke(ver, t0)
         return out
+
+    def stage_bucket(self, nb: int) -> bool:
+        """Run the pow2 occupancy bucket ``nb`` of the last micro-batch
+        signature once, OFF the hot path, on zeros, and register it under
+        the bucket keys `invoke_batched` uses (`bucket_shapes`, and the
+        store entry's bucket record, so a swap prewarms it and the
+        manifest replays it) — the autotuner stages a refined bucket here
+        *before* flipping ``tensor_batch``'s ``max_batch``, so the first
+        flush at the new size meets cuDNN's algorithm choice, the
+        allocator's blocks and the batchability verdict already in place.
+        A micro-batch runs eagerly (CUDA graphs are the compiled windows',
+        keyed by window), so there is no bucket graph to capture. Called
+        from the controller thread: it reads the model held (a store
+        handle's adopted version) and never adopts or drops state the
+        worker owns. An error is logged and returns False: the bucket
+        stays unstaged. → True when the bucket is live (run here or
+        already served)."""
+        pairs = self._last_dynb
+        if pairs is None or nb < 1:
+            return False
+        nb = next_pow2(int(nb))
+        batched = tuple(((nb,) + tuple(s), d) for s, d in pairs)
+        shape_key = ("dynb", nb) + tuple(s for s, _ in batched)
+        ver = None
+        if self._store_entry is not None:
+            ver = self._adopted_version
+            vs = self._vstates.get(ver)
+            if vs is None:
+                return False
+            model = vs.model
+        else:
+            model = self._model
+        if shape_key in self.bucket_shapes:
+            return True
+        basekey = ("dynb", nb) + batched
+        try:
+            self._run_bucket(model, basekey)
+        except Exception as e:
+            log.warning("stage_bucket(%d) skipped: %s", nb, e)
+            return False
+        self.bucket_shapes.add(shape_key)
+        if ver is not None:
+            self._note_bucket(ver, basekey)
+        return True
 
     # -- residency (serving/tenancy.ModelResidency) ------------------------
     def jit_cache_size(self) -> int:

@@ -72,6 +72,9 @@ class QueryServer:
         # serversrc re-knobs this from its properties at start().
         self.frames: AdmissionQueue = AdmissionQueue(max_pending=64)
         self.tracer = NULL_TRACER
+        # set by serving/pool.py when a WorkerPool services this id;
+        # serversrc extra_stats folds the pool's per-worker view in
+        self.pool = None
 
     @classmethod
     def get(cls, sid: int) -> "QueryServer":
@@ -379,6 +382,9 @@ class TensorQueryServerSrc(SourceElement):
             out[f"rejected_{cause}"] = v
         for cause, v in c["shed"].items():
             out[f"shed_{cause}"] = v
+        srv = self._srv or QueryServer.get(self.props["id"])
+        if srv.pool is not None:
+            out.update(srv.pool.extra_stats())
         return out
 
 

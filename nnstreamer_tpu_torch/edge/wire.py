@@ -36,6 +36,31 @@ _HEAD = struct.Struct("<IIqQI")  # magic, num, pts, client_id, meta_len
 #: refuse to allocate absurd frames from hostile/corrupt headers
 MAX_FRAME_BYTES = 1 << 31
 
+# -- same-host shared-memory lane record framing --------------------------
+# The shm ring (serving/shm.py) moves the exact same wire-frame bytes the
+# pipe would have pickled, so the cross-host protocol above is untouched;
+# only the *carrier* changes. Each ring record is SHM_REC header + payload.
+SHM_REC_MAGIC = 0x54505553  # 'TPUS'
+SHM_REC = struct.Struct("<IIQ")  # magic, payload_len, seq
+
+
+def pack_shm_record(payload: bytes, seq: int) -> bytes:
+    """Header for one shm ring record carrying ``payload``."""
+    return SHM_REC.pack(SHM_REC_MAGIC, len(payload), seq)
+
+
+def unpack_shm_record(head: bytes) -> Tuple[int, int]:
+    """``(payload_len, seq)`` from a record header; raises ValueError
+    on a bad magic (a torn or stale record — the reader treats that as
+    a transport fault and falls back to the pipe lane)."""
+    magic, length, seq = SHM_REC.unpack(head)
+    if magic != SHM_REC_MAGIC:
+        raise ValueError(
+            f"bad shm record magic 0x{magic:08x} (want "
+            f"0x{SHM_REC_MAGIC:08x})")
+    return length, seq
+
+
 #: recursion guard for nested meta (a trace context is depth 3:
 #: ctx → hops list → hop dict; 8 leaves headroom without letting a
 #: pathological self-referential meta spin the encoder)

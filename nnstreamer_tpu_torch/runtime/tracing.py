@@ -44,10 +44,19 @@ Request-scoped tracing (the serving edge): a trace context rides
 request's hop list (`record_request`, `requests`, `tenant_summary`) and
 each admission refusal or shed by cause (`record_shed`, `shed_counts`).
 
-Not ported yet (the hooks exist on `NullTracer`, and so on `Tracer`, as
-no-ops with the JAX package's signatures): worker shipping
-(`ship_delta`/`ingest_child`) and worker events (the pool, Queue 1 item
-4c); autotuner decisions.
+Child tracers (serving/pool.py): a worker process runs its own `Tracer`
+and ships `ship_delta()` payloads (drained event batches plus monotone
+counter and histogram deltas) over its pipe; the parent's `ingest_child`
+merges them with a per-worker clock offset sampled at handshake, so
+`to_chrome_trace()` renders one Perfetto *process* (track group) per
+worker and `summary()` is pool-wide. Counter merging is delta-based,
+which keeps parent totals monotone across worker restarts. The payload
+layout is the JAX package's: a port child ships to a JAX parent and back.
+A pool child also counts its kernel launches here (`record_launches`,
+fed by `cuda_graphs.observe_launches`) and ships them under a
+``launches`` key of its own, which the JAX parent ignores.
+The pool's lifecycle events (`record_worker_event`) and the autotuner's
+decisions (`record_autotune`) are kept whole beside the ring.
 """
 
 from __future__ import annotations
@@ -211,6 +220,12 @@ class _Hist:
         self.sum += v
         self.count += 1
 
+    def add_counts(self, counts: List[int], s: float, n: int) -> None:
+        for i, c in enumerate(counts[:len(self.counts)]):
+            self.counts[i] += c
+        self.sum += s
+        self.count += n
+
     def snapshot(self) -> dict:
         return {"bounds": list(HIST_BOUNDS_S),
                 "counts": list(self.counts),
@@ -329,16 +344,37 @@ class NullTracer:
     def record_autotune(self, name, knob, t, **args):
         pass
 
+    def enable_shipping(self):
+        pass
+
     def ship_delta(self):
         return None
 
     def ingest_child(self, wid, pid, payload, offset_s=0.0, label=None):
         pass
 
+    def worker_events(self):
+        return []
+
+    def autotune_events(self):
+        return []
+
+    def autotune_counts(self):
+        return {}
+
+    def children(self):
+        return {}
+
     def tenant_summary(self):
         return {}
 
     def kernel_spans(self):
+        return {}
+
+    def record_launches(self, kernel, n=1):
+        pass
+
+    def kernel_launches(self):
         return {}
 
     def instant(self, name, label, t=None, **args):
@@ -361,8 +397,7 @@ class Tracer(NullTracer):
     reservoir, histogram and per-element counters are written only by
     the thread that runs that element; the gauge peak update is a benign
     read-modify-write between an element's producers and its worker (a
-    lost race costs one sample, never a crash). The hooks of the
-    subsystems not ported yet stay the inherited no-ops.
+    lost race costs one sample, never a crash).
     """
 
     active = True
@@ -391,6 +426,10 @@ class Tracer(NullTracer):
         # (llm_exec prefill/chunk/decode): kept whole like _forced so
         # per-kernel attribution survives ring wrap
         self._kernel_spans: Dict[Tuple[str, str], int] = {}
+        # kernel wrapper name -> launches its wrapper counted while this
+        # tracer observed them (`cuda_graphs.observe_launches`, set in a
+        # pool worker child); a child's ship as deltas, merged w{wid}/
+        self._launches: Dict[str, int] = {}
         # element name -> {"peak": max async in-flight depth sampled}
         self._inflight: Dict[str, Dict[str, int]] = {}
         # element name -> {"windows": n, "frames": n} compiled
@@ -417,6 +456,28 @@ class Tracer(NullTracer):
         self._requests: List[Tuple[str, str, float, list, dict]] = []
         self._max_requests = 4096
         self._requests_dropped = 0
+        # worker-pool lifecycle events (serving/pool.py): kept whole — a
+        # post-mortem needs the full spawn/kill/restart/degraded sequence
+        # even after a chaos run wraps the ring
+        self._worker_events: List[Tuple[str, int, str, float, dict]] = []
+        # autotuner decisions (serving/autotune.py): bounded keep-whole
+        # list with the same FIFO drop scheme as _requests, plus
+        # per-knob/outcome counts that survive the drop
+        self._autotune: List[Tuple[str, str, float, dict]] = []
+        self._max_autotune = 1024
+        self._autotune_dropped = 0
+        self._autotune_counts: Dict[str, Dict[str, int]] = {}
+        # -- worker-side shipping state (enable_shipping/ship_delta) --
+        self._shipping = False
+        self._ship_samples: Dict[str, List[float]] = {}
+        self._shipped_events = 0
+        self._ship_prev: Dict[str, Any] = {}
+        # -- parent-side child-merge state (ingest_child) --
+        # wid -> ring of offset-adjusted child events (own drop budget,
+        # so a wrapped parent ring never silently eats child telemetry)
+        self._child_events: Dict[int, Deque[_Event]] = {}
+        self._child_meta: Dict[int, dict] = {}
+        self._child_max_events = max(1024, max_events // 4)
 
     # -- scheduler hooks ---------------------------------------------------
     def source_emit(self, name: str, buf, t: float) -> None:
@@ -445,6 +506,12 @@ class Tracer(NullTracer):
                 r = self._interlat[name] = deque(
                     maxlen=self._max_latency_samples)
             r.append(t1 - src_ts)
+            if self._shipping:
+                s = self._ship_samples.get(name)
+                if s is None:
+                    s = self._ship_samples[name] = []
+                if len(s) < self._max_latency_samples:
+                    s.append(t1 - src_ts)
 
     def record_timer(self, name: str, t0: float, t1: float) -> None:
         self._append("X", "element", name, "timer", t0, t1 - t0, None)
@@ -498,6 +565,17 @@ class Tracer(NullTracer):
         """(element, kernel) -> count of kernel-tagged backend spans."""
         return dict(self._kernel_spans)
 
+    def record_launches(self, kernel: str, n: int = 1) -> None:
+        """`n` launches of the kernel wrapper `kernel`, as its launch
+        counter (`cuda_graphs.count_launch`) counted them."""
+        with self._lock:
+            self._launches[kernel] = self._launches.get(kernel, 0) + n
+
+    def kernel_launches(self) -> Dict[str, int]:
+        """Launches by kernel wrapper; a child's under ``w{wid}/``."""
+        with self._lock:
+            return dict(self._launches)
+
     def device_span(self, device: int, kind: str, t0: float, t1: float,
                     **args) -> None:
         """Per-device span (replica invoke / shard stage): one track per
@@ -521,6 +599,52 @@ class Tracer(NullTracer):
 
     def shed_counts(self) -> Dict[str, Dict[str, int]]:
         return {name: dict(c) for name, c in self._sheds.items()}
+
+    def record_worker_event(self, name: str, wid: int, kind: str,
+                            t: float, **args) -> None:
+        """One worker-pool lifecycle event (serving/pool.py). `kind` is
+        the supervision taxonomy: spawn / ready / kill / exit / restart
+        / reoffer / degraded / swap_commit / swap_abort / drain_stop.
+        wid is the pool slot (-1 for pool-level events like swaps)."""
+        self._worker_events.append((name, wid, kind, t, dict(args)))
+        self._append("i", "worker", f"{name}/w{wid}", f"worker_{kind}",
+                     t, 0.0, args or None)
+
+    def worker_events(self) -> List[Tuple[str, int, str, float, dict]]:
+        return list(self._worker_events)
+
+    def worker_counts(self) -> Dict[str, Dict[str, int]]:
+        """Per-pool event-kind totals (the summary() view; the full
+        ordered sequence is worker_events())."""
+        out: Dict[str, Dict[str, int]] = {}
+        for name, _wid, kind, _t, _args in list(self._worker_events):
+            c = out.setdefault(name, {})
+            c[kind] = c.get(kind, 0) + 1
+        return out
+
+    def record_autotune(self, name: str, knob: str, t: float,
+                        **args) -> None:
+        """One autotuner decision (serving/autotune.py); args carry
+        old/new/outcome plus the sensor evidence that justified it.
+        Single writer (the controller thread)."""
+        self._autotune.append((name, knob, t, dict(args)))
+        if len(self._autotune) > self._max_autotune:
+            drop = max(1, self._max_autotune // 4)
+            del self._autotune[:drop]
+            self._autotune_dropped += drop
+        c = self._autotune_counts.get(knob)
+        if c is None:
+            c = self._autotune_counts[knob] = {}
+        outcome = str(args.get("outcome", "unknown"))
+        c[outcome] = c.get(outcome, 0) + 1
+        self._append("i", "autotune", name, f"tune_{knob}", t, 0.0,
+                     args or None)
+
+    def autotune_events(self) -> List[Tuple[str, str, float, dict]]:
+        return list(self._autotune)
+
+    def autotune_counts(self) -> Dict[str, Dict[str, int]]:
+        return {k: dict(v) for k, v in self._autotune_counts.items()}
 
     def record_request(self, name: str, trace_id: str, hops: List[dict],
                        t: float, **args) -> None:
@@ -677,6 +801,218 @@ class Tracer(NullTracer):
             t = time.perf_counter()
         self._append("i", "element", name, label, t, 0.0, args or None)
 
+    # -- worker-side shipping ----------------------------------------------
+    def enable_shipping(self) -> None:
+        """Mark this tracer as a worker-side child that will be drained
+        by periodic `ship_delta()` calls (serving/worker.py heartbeat
+        thread). Turns on the interlatency sample side-buffer; without
+        shipping enabled that buffer is never touched."""
+        self._shipping = True
+
+    def ship_delta(self) -> Optional[dict]:
+        """Drain everything recorded since the last ship into one
+        picklable payload for the supervisor pipe, or None when nothing
+        happened. Counters and histograms ship as DELTAS, not
+        cumulative values: the parent adds them, which keeps pool-level
+        totals monotone across worker restarts (a replacement worker
+        simply resumes contributing deltas from zero)."""
+        prev = self._ship_prev
+        payload: Dict[str, Any] = {}
+
+        with self._lock:
+            events = list(self._events)
+            self._events.clear()
+            total = self._total_events
+            self._shipped_events += len(events)
+        if events:
+            payload["events"] = events
+        total_prev = prev.get("total_events", 0)
+        if total != total_prev:
+            payload["events_total_delta"] = total - total_prev
+            prev["total_events"] = total
+        dropped = max(0, total - self._shipped_events)
+        drop_prev = prev.get("events_dropped", 0)
+        if dropped != drop_prev:
+            payload["events_dropped_delta"] = dropped - drop_prev
+            prev["events_dropped"] = dropped
+
+        hist_prev = prev.setdefault("hists", {})
+        hist_out = {}
+        for name, h in list(self._hists.items()):
+            p = hist_prev.get(name)
+            if p is None:
+                p = hist_prev[name] = {
+                    "counts": [0] * len(h.counts), "sum": 0.0, "count": 0}
+            if h.count != p["count"]:
+                counts, hsum, hcount = list(h.counts), h.sum, h.count
+                hist_out[name] = {
+                    "counts": [c - pc for c, pc
+                               in zip(counts, p["counts"])],
+                    "sum": hsum - p["sum"],
+                    "count": hcount - p["count"],
+                }
+                p["counts"] = counts
+                p["sum"], p["count"] = hsum, hcount
+        if hist_out:
+            payload["hists"] = hist_out
+
+        forced_prev = prev.setdefault("forced", {})
+        forced_out = {}
+        for name, n in list(self._forced.items()):
+            d = n - forced_prev.get(name, 0)
+            if d:
+                forced_out[name] = d
+                forced_prev[name] = n
+        if forced_out:
+            payload["forced"] = forced_out
+
+        # read after the histograms: a frame's launch is counted before
+        # its process span ends, so a payload never ships a span whose
+        # launch it lacks
+        launch_prev = prev.setdefault("launches", {})
+        launch_out = {}
+        for name, n in self.kernel_launches().items():
+            d = n - launch_prev.get(name, 0)
+            if d:
+                launch_out[name] = d
+                launch_prev[name] = n
+        if launch_out:
+            payload["launches"] = launch_out
+
+        shed_prev = prev.setdefault("sheds", {})
+        shed_out: Dict[str, Dict[str, int]] = {}
+        for name, causes in list(self._sheds.items()):
+            p = shed_prev.setdefault(name, {})
+            for cause, n in list(causes.items()):
+                d = n - p.get(cause, 0)
+                if d:
+                    shed_out.setdefault(name, {})[cause] = d
+                    p[cause] = n
+        if shed_out:
+            payload["sheds"] = shed_out
+
+        if self._ship_samples:
+            samples, self._ship_samples = self._ship_samples, {}
+            payload["interlat"] = samples
+
+        for key, src in (("swaps", self._swaps),
+                         ("worker_events", self._worker_events),
+                         ("requests", self._requests)):
+            i = prev.get(f"n_{key}", 0)
+            if len(src) > i:
+                payload[key] = src[i:]
+                prev[f"n_{key}"] = len(src)
+
+        gauges = {name: g["peak"] for name, g in list(self._gauges.items())}
+        if gauges != prev.get("gauges"):
+            payload["gauges"] = gauges
+            prev["gauges"] = dict(gauges)
+        inflight = {name: g["peak"]
+                    for name, g in list(self._inflight.items())}
+        if inflight != prev.get("inflight"):
+            payload["inflight"] = inflight
+            prev["inflight"] = dict(inflight)
+
+        return payload or None
+
+    # -- parent-side child merge -------------------------------------------
+    def ingest_child(self, wid: int, pid: int, payload: dict,
+                     offset_s: float = 0.0,
+                     label: Optional[str] = None) -> None:
+        """Merge one `ship_delta()` payload from worker slot `wid`.
+        Child element names are namespaced `w{wid}/` so per-element
+        stats never collide across workers; child events land in a
+        per-worker ring (own drop budget) with `offset_s` applied, so a
+        wrapped parent ring never silently eats child telemetry and
+        `to_chrome_trace()` can render one process track group per
+        worker."""
+        meta = self._child_meta.get(wid)
+        if meta is None:
+            meta = self._child_meta[wid] = {
+                "pid": pid, "label": label or f"worker{wid}",
+                "offset_s": offset_s, "events_total": 0,
+                "events_dropped_child": 0, "batches": 0}
+        else:
+            # a restarted slot reuses the ring but tracks the new pid
+            meta["pid"] = pid
+            meta["offset_s"] = offset_s
+            if label:
+                meta["label"] = label
+        meta["batches"] += 1
+        pfx = f"w{wid}/"
+
+        events = payload.get("events")
+        if events:
+            ring = self._child_events.get(wid)
+            if ring is None:
+                ring = self._child_events[wid] = deque(
+                    maxlen=self._child_max_events)
+            for ev in events:
+                ph, cat, name, lbl, ts, dur, args = ev
+                ring.append((ph, cat, name, lbl, ts + offset_s, dur,
+                             args))
+            meta["events_total"] += len(events)
+        meta["events_dropped_child"] += payload.get(
+            "events_dropped_delta", 0)
+
+        for name, h in payload.get("hists", {}).items():
+            dst = self._hists.get(pfx + name)
+            if dst is None:
+                dst = self._hists[pfx + name] = _Hist()
+            dst.add_counts(h["counts"], h["sum"], h["count"])
+
+        for name, d in payload.get("forced", {}).items():
+            key = pfx + name
+            self._forced[key] = self._forced.get(key, 0) + d
+
+        for name, d in payload.get("launches", {}).items():
+            self.record_launches(pfx + name, d)
+
+        for name, causes in payload.get("sheds", {}).items():
+            c = self._sheds.setdefault(pfx + name, {})
+            for cause, d in causes.items():
+                c[cause] = c.get(cause, 0) + d
+
+        for name, samples in payload.get("interlat", {}).items():
+            r = self._interlat.get(pfx + name)
+            if r is None:
+                r = self._interlat[pfx + name] = deque(
+                    maxlen=self._max_latency_samples)
+            r.extend(samples)
+
+        for name, t, args in payload.get("swaps", ()):
+            self._swaps.append((pfx + name, t + offset_s, dict(args)))
+        for name, w, kind, t, args in payload.get("worker_events", ()):
+            self._worker_events.append(
+                (pfx + name, w, kind, t + offset_s, dict(args)))
+        for name, tid_, t, hops, args in payload.get("requests", ()):
+            self.record_request(pfx + name, tid_, hops, t + offset_s,
+                                **args)
+
+        for name, peak in payload.get("gauges", {}).items():
+            g = self._gauges.setdefault(pfx + name, {"peak": 0})
+            if peak > g["peak"]:
+                g["peak"] = peak
+        for name, peak in payload.get("inflight", {}).items():
+            g = self._inflight.setdefault(pfx + name, {"peak": 0})
+            if peak > g["peak"]:
+                g["peak"] = peak
+
+    def children(self) -> Dict[int, dict]:
+        """Per-worker merge bookkeeping: pid, label, clock offset,
+        events ingested, and the two drop budgets (child-reported +
+        parent-ring)."""
+        out = {}
+        for wid, meta in list(self._child_meta.items()):
+            m = dict(meta)
+            ring = self._child_events.get(wid)
+            kept = len(ring) if ring is not None else 0
+            m["events_kept"] = kept
+            m["events_dropped"] = (m["events_dropped_child"]
+                                   + max(0, m["events_total"] - kept))
+            out[wid] = m
+        return out
+
     # -- internals ---------------------------------------------------------
     def _append(self, ph: str, cat: str, name: str, label: str,
                 ts: float, dur: float, args) -> None:
@@ -719,14 +1055,24 @@ class Tracer(NullTracer):
 
     @property
     def total_events(self) -> int:
-        """Monotone count of every event ever recorded (never decreases
-        when the ring wraps; ring length is `len(events())`)."""
-        return self._total_events
+        """Monotone count of every event ever recorded in the tree
+        (never decreases when the ring wraps; ring length is
+        `len(events())`); on a pool parent, children's events too."""
+        n = self._total_events
+        for m in list(self._child_meta.values()):
+            n += m["events_total"]
+        return n
 
     @property
     def events_dropped(self) -> int:
-        """Events the ring lost to wrapping."""
-        return max(0, self._total_events - len(self._events))
+        """Events lost anywhere in the tree: this ring's wrap losses
+        (events shipped to a parent are not drops) plus, on a pool
+        parent, every child's, child-reported and parent-ring alike."""
+        own = max(0, self._total_events - self._shipped_events
+                  - len(self._events))
+        for m in self.children().values():
+            own += m["events_dropped"]
+        return own
 
     def hists(self) -> Dict[str, dict]:
         """Per-element cumulative proctime histograms (snapshot dicts)."""
@@ -753,8 +1099,7 @@ class Tracer(NullTracer):
         return {name: dict(g) for name, g in self._gauges.items()}
 
     def summary(self) -> dict:
-        """The JAX package's summary keys; the counters of subsystems
-        not ported yet (workers, autotune, children) read empty."""
+        """The JAX package's summary keys."""
         return {
             "interlatency": self.interlatency(),
             "queues": self.queue_gauges(),
@@ -765,52 +1110,70 @@ class Tracer(NullTracer):
             "forced_syncs": dict(self._forced),
             "inflight": self.inflight_gauges(),
             "sheds": self.shed_counts(),
-            "workers": {},
-            "autotune": {},
+            "workers": self.worker_counts(),
+            "autotune": self.autotune_counts(),
             "requests": len(self._requests) + self._requests_dropped,
-            "children": {},
+            "children": {str(wid): m
+                         for wid, m in self.children().items()},
         }
 
     def to_chrome_trace(self, pipeline_name: str = "pipeline") -> dict:
         """Trace Event Format dict — `json.dump` it and load the file in
         Perfetto or chrome://tracing. pid 0 is this process, one tid per
-        element in order of first appearance; ts/dur in µs relative to
-        tracer creation."""
-        trace: List[dict] = [{"ph": "M", "name": "process_name", "pid": 0,
-                              "tid": 0, "args": {"name": pipeline_name}}]
-        tids: Dict[str, int] = {}
+        element in order of first appearance; each ingested worker gets
+        its own pid (= wid + 1), so it renders as its own Perfetto
+        process track group, named from the handshake label. ts/dur in
+        µs relative to tracer creation."""
+        trace: List[dict] = []
+        tids_by_pid: Dict[int, Dict[str, int]] = {}
 
-        def tid_of(name: str) -> int:
+        def add_process(pid: int, pname: str) -> None:
+            trace.append({"ph": "M", "name": "process_name", "pid": pid,
+                          "tid": 0, "args": {"name": pname}})
+
+        def tid_of(pid: int, name: str) -> int:
+            tids = tids_by_pid.setdefault(pid, {})
             t = tids.get(name)
             if t is None:
                 t = tids[name] = len(tids) + 1
-                trace.append({"ph": "M", "name": "thread_name", "pid": 0,
+                trace.append({"ph": "M", "name": "thread_name", "pid": pid,
                               "tid": t, "args": {"name": name}})
             return t
 
-        for ph, cat, name, label, ts, dur, args in list(self._events):
-            us = round((ts - self._t0) * 1e6, 3)
-            if ph == "X":
-                ev = {"ph": "X", "cat": cat, "name": label, "pid": 0,
-                      "tid": tid_of(name), "ts": us,
-                      "dur": round(dur * 1e6, 3)}
-                if args:
-                    ev["args"] = dict(args)
-            elif ph == "C":
-                if cat == "devprof":
-                    ev = {"ph": "C", "cat": cat, "name": name, "pid": 0,
-                          "tid": 0, "ts": us, "args": {"value": args}}
-                else:
-                    track = "inflight" if cat == "inflight" else "queue"
-                    ev = {"ph": "C", "cat": cat, "name": f"{track}:{name}",
-                          "pid": 0, "tid": 0, "ts": us,
-                          "args": {"depth": args}}
-            else:  # "i" instant, scoped to the element's track
-                ev = {"ph": "i", "cat": cat, "name": label, "pid": 0,
-                      "tid": tid_of(name), "ts": us, "s": "t"}
-                if args:
-                    ev["args"] = dict(args)
-            trace.append(ev)
+        def emit(pid: int, events) -> None:
+            for ph, cat, name, label, ts, dur, args in events:
+                us = round((ts - self._t0) * 1e6, 3)
+                if ph == "X":
+                    ev = {"ph": "X", "cat": cat, "name": label, "pid": pid,
+                          "tid": tid_of(pid, name), "ts": us,
+                          "dur": round(dur * 1e6, 3)}
+                    if args:
+                        ev["args"] = dict(args)
+                elif ph == "C":
+                    if cat == "devprof":
+                        ev = {"ph": "C", "cat": cat, "name": name,
+                              "pid": pid, "tid": 0, "ts": us,
+                              "args": {"value": args}}
+                    else:
+                        track = "inflight" if cat == "inflight" else "queue"
+                        ev = {"ph": "C", "cat": cat,
+                              "name": f"{track}:{name}", "pid": pid,
+                              "tid": 0, "ts": us, "args": {"depth": args}}
+                else:  # "i" instant, scoped to the element's track
+                    ev = {"ph": "i", "cat": cat, "name": label, "pid": pid,
+                          "tid": tid_of(pid, name), "ts": us, "s": "t"}
+                    if args:
+                        ev["args"] = dict(args)
+                trace.append(ev)
+
+        add_process(0, pipeline_name)
+        emit(0, list(self._events))
+        for wid in sorted(self._child_events):
+            meta = self._child_meta.get(wid, {})
+            add_process(wid + 1,
+                        f"{meta.get('label', f'worker{wid}')} "
+                        f"(pid {meta.get('pid', '?')})")
+            emit(wid + 1, list(self._child_events[wid]))
         return {"traceEvents": trace, "displayTimeUnit": "ms"}
 
 

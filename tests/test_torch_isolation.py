@@ -81,6 +81,11 @@ import nnstreamer_tpu_torch.parallel.dispatch
 import nnstreamer_tpu_torch.serving.compile_cache
 import nnstreamer_tpu_torch.serving.tenancy
 import nnstreamer_tpu_torch.traffic
+import nnstreamer_tpu_torch.serving.shm
+import nnstreamer_tpu_torch.serving.worker
+import nnstreamer_tpu_torch.serving.pool
+import nnstreamer_tpu_torch.serving.metrics
+import nnstreamer_tpu_torch.serving.autotune
 bad = [m for m in sys.modules if m in ("jax", "nnstreamer_tpu")
        or m.startswith(("jax.", "nnstreamer_tpu."))]
 assert not bad, bad
@@ -145,3 +150,83 @@ def test_cpu_runs_only_when_asked(monkeypatch):
     assert pick_device("") == torch.device("cpu")
     with pytest.raises(BackendError, match="not a device"):
         pick_device("tpu")
+
+
+#: a python3 filter that answers with what its own process has imported:
+#: [number of jax / JAX-package modules, torch imported]
+_MODULES_PROBE = """
+import sys
+import numpy as np
+import nnstreamer_python as nns
+
+
+class CustomFilter:
+    def __init__(self, *args):
+        pass
+
+    def getInputDim(self):
+        return [nns.TensorShape([8, 1], np.float32)]
+
+    def getOutputDim(self):
+        return [nns.TensorShape([2], np.int32)]
+
+    def invoke(self, xs):
+        bad = [m for m in sys.modules if m in ("jax", "nnstreamer_tpu")
+               or m.startswith(("jax.", "nnstreamer_tpu."))]
+        return [np.array([len(bad), int("torch" in sys.modules)],
+                         np.int32)]
+"""
+
+
+def test_pool_worker_child_imports_no_jax(tmp_path, monkeypatch):
+    """A spawned pool worker is a port process: the pipeline it runs
+    reports its own sys.modules, which hold torch and nothing of jax or
+    the JAX package (this test process has both loaded)."""
+    import numpy as np
+
+    from nnstreamer_tpu.edge import protocol as JP
+    from nnstreamer_tpu.edge import wire as jwire
+    from nnstreamer_tpu.tensor.buffer import TensorBuffer as JBuffer
+    from nnstreamer_tpu_torch.serving.pool import (
+        PooledQueryServer, proc_alive)
+    from nnstreamer_tpu_torch.serving.worker import WorkerSpec
+
+    import json
+    import threading
+
+    assert "jax" in sys.modules           # the parent has it
+    script = tmp_path / "modules_probe.py"
+    script.write_text(_MODULES_PROBE)
+    monkeypatch.setenv("NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR", "cpu")
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    pqs = PooledQueryServer(
+        WorkerSpec(kind="pipeline", dims="8:1", types="float32",
+                   pipeline=f"tensor_filter framework=python3 "
+                            f"model={script}"),
+        workers=1, sid=19900, ready_timeout_s=60.0)
+    got = {}
+    done = threading.Event()
+
+    def on(mtype, payload):
+        if mtype == JP.T_RESULT:
+            got["buf"], _ = jwire.decode_buffer(payload)
+            done.set()
+        elif mtype != JP.T_HELLO_ACK:
+            done.set()
+
+    try:
+        cli = JP.MsgClient("127.0.0.1", pqs.port, on_message=on)
+        try:
+            cli.send(JP.T_HELLO, json.dumps(
+                {"dims": "8:1", "types": "float32"}).encode())
+            cli.send(JP.T_DATA, jwire.encode_buffer(
+                JBuffer.of(np.ones((1, 8), np.float32), pts=0)))
+            assert done.wait(60)
+        finally:
+            cli.close()
+        n_bad, has_torch = np.asarray(got["buf"].tensors[0]).tolist()
+        assert (n_bad, has_torch) == (0, 1)
+    finally:
+        pids = pqs.pool.all_pids_ever()
+        pqs.close()
+    assert not any(proc_alive(p) for p in pids)

@@ -153,9 +153,11 @@ class TestTracerCore:
             return {n for n in dir(cls) if not n.startswith("_")}
 
         assert public(jtr.NullTracer) <= public(NullTracer)
-        # the hooks of later slices exist as no-ops on both tracers
+        # the shipping and autotune hooks: no-ops on the null tracer; a
+        # fresh recording tracer ships what the JAX package's ships
+        assert NULL_TRACER.ship_delta() is None
+        assert Tracer().ship_delta() == jtr.Tracer().ship_delta()
         for t in (NULL_TRACER, Tracer()):
-            assert t.ship_delta() is None
             t.ingest_child(0, 1, {})
             t.record_request("svc", "id", [], 0.0)
             t.record_autotune("svc", "knob", 0.0)
@@ -790,3 +792,143 @@ class TestTraceContext:
         assert [r[:3] for r in ours.requests()] == \
             [r[:3] for r in theirs.requests()]
         assert ours.tenant_summary() == theirs.tenant_summary()
+
+
+# -- worker shipping and the pool's merge (Queue 1 item 4c) ------------------
+
+def _child_records(tr, Buffer, shift=0.0):
+    """One worker's worth of records, fed alike to either package."""
+    tr.enable_shipping()
+    buf = Buffer.of(np.ones((2,), np.float32))
+    buf.meta[tr_src_key(tr)] = 1.0
+    for i in range(4):
+        tr.record_process("echo", buf, 1.0 + i, 1.0 + i + 1e-3 * (i + 1))
+    tr.record_forced_sync("sink", 2.0)
+    tr.record_shed("query_server_0", "queue_full", 2.5)
+    tr.enqueue("q", 3, 2.6)
+    tr.record_worker_event("pool", 0, "spawn", 2.7, pid=11)
+    tr.record_request("query_server_0", "abcd",
+                      [{"hop": "admit", "t": 3.0},
+                       {"hop": "reply", "t": 3.004}], 3.004, tenant="t")
+
+
+def tr_src_key(tr):
+    mod = ttr if isinstance(tr, ttr.Tracer) else jtr
+    return mod.SOURCE_TS_META
+
+
+def _summary_view(tr):
+    s = tr.summary()
+    return {k: v for k, v in s.items() if k != "interlatency"}, \
+        {n: h["counts"] for n, h in tr.hists().items()}, \
+        sorted(tr.interlatency())
+
+
+@pytest.mark.parametrize("child,parent", [("port", "jax"), ("jax", "port")])
+def test_ship_delta_crosses_packages(child, parent):
+    """A payload one package's child tracer ships, the other package's
+    parent ingests: the merged summary, histograms, children and events
+    equal those of a parent of the child's own package, key by key; two
+    ships carry deltas, never totals (the second payload holds only what
+    came after the first)."""
+    mods = {"port": (ttr, TensorBuffer), "jax": (jtr, JaxBuffer)}
+    cmod, Buffer = mods[child]
+    kid = cmod.Tracer()
+    _child_records(kid, Buffer)
+    first = kid.ship_delta()
+    kid.record_process("echo", Buffer.of(np.ones((2,), np.float32)),
+                       9.0, 9.5)
+    second = kid.ship_delta()
+    assert second["hists"]["echo"]["count"] == 1
+    assert "worker_events" not in second and "requests" not in second
+    assert kid.ship_delta() is None           # nothing new: no payload
+    merged = {}
+    for name, (pmod, _) in mods.items():
+        par = pmod.Tracer()
+        for payload in (first, second):
+            par.ingest_child(0, 4242, payload, offset_s=0.5,
+                             label="pool-w0")
+        merged[name] = par
+    ours, theirs = merged[parent], merged[child]
+    assert _summary_view(ours) == _summary_view(theirs)
+    assert ours.children() == theirs.children()
+    assert ours.total_events == theirs.total_events
+    assert ours.events_dropped == theirs.events_dropped
+    assert ours.worker_events() == theirs.worker_events()
+    assert [r[:3] for r in ours.requests()] == \
+        [r[:3] for r in theirs.requests()]
+    assert ours.summary()["children"]["0"]["label"] == "pool-w0"
+    assert ours.summary()["workers"] == {"w0/pool": {"spawn": 1}}
+    assert "w0/echo" in ours.hists() and \
+        ours.hists()["w0/echo"]["count"] == 5
+    # one process track group per worker in the Chrome export
+    doc = ours.to_chrome_trace("pool")
+    procs = {e["pid"]: e["args"]["name"] for e in doc["traceEvents"]
+             if e.get("name") == "process_name"}
+    assert procs == {0: "pool", 1: "pool-w0 (pid 4242)"}
+    assert any(e.get("pid") == 1 and e.get("ph") == "X"
+               for e in doc["traceEvents"])
+
+
+def test_child_ring_wrap_counts_exactly_as_jax():
+    """A child whose ring wraps between ships reports its drops in the
+    delta: the parent counts the 8 events it got and the 12 the child's
+    ring lost, the same on both packages."""
+    out = []
+    for mod, Buffer in ((ttr, TensorBuffer), (jtr, JaxBuffer)):
+        kid = mod.Tracer(max_events=8)
+        kid.enable_shipping()
+        buf = Buffer.of(np.ones((2,), np.float32))
+        for i in range(20):
+            kid.record_process("echo", buf, float(i), float(i) + 1e-3)
+        par = mod.Tracer()
+        par.ingest_child(1, 7, kid.ship_delta())
+        out.append((par.total_events, par.events_dropped,
+                    par.children()[1]["events_dropped"],
+                    kid.events_dropped))
+    assert out[0] == out[1] == (8, 12, 12, 12)
+
+
+def test_child_launch_counts_ship_to_the_parent():
+    """A pool child's tracer hears of every launch a kernel wrapper
+    counts (`cuda_graphs.observe_launches`), one at a launch and n at
+    each replay of a graph that captured n; it ships them as deltas
+    beside the spans, a port parent merges them under ``w{wid}/``, and a
+    JAX parent takes the same payload and merges the same summary."""
+    from nnstreamer_tpu_torch.backends import cuda_graphs
+
+    def normalize_u8():
+        pass
+
+    normalize_u8.launches = 0
+    normalize_u8.launches_tc = 0
+    kid = Tracer()
+    kid.enable_shipping()
+    cuda_graphs.observe_launches(kid.record_launches)
+    try:
+        cuda_graphs.count_launch(normalize_u8)
+        cuda_graphs.count_launch(normalize_u8, "launches_tc")
+        tally = cuda_graphs.Tally()
+        tally.launches = {(normalize_u8, "launches"): 3,
+                          (normalize_u8, "launches_tc"): 3}
+        tally.add()
+    finally:
+        cuda_graphs.observe_launches(None)
+    cuda_graphs.count_launch(normalize_u8)    # no observer: wrapper only
+    assert normalize_u8.launches == 6 and normalize_u8.launches_tc == 4
+    assert kid.kernel_launches() == {"normalize_u8": 5}
+    kid.record_process("norm", TensorBuffer.of(np.ones((2,), np.float32)),
+                       1.0, 1.5)
+    first = kid.ship_delta()
+    assert first["launches"] == {"normalize_u8": 5}
+    kid.record_launches("normalize_u8", 2)
+    second = kid.ship_delta()
+    assert second == {"launches": {"normalize_u8": 2}}
+    assert kid.ship_delta() is None
+    port, jax_parent = Tracer(), jtr.Tracer()
+    for par in (port, jax_parent):
+        for payload in (first, second):
+            par.ingest_child(3, 99, payload)
+    assert port.kernel_launches() == {"w3/normalize_u8": 7}
+    assert _summary_view(port) == _summary_view(jax_parent)
+    assert NULL_TRACER.kernel_launches() == {}
