@@ -11,6 +11,7 @@
     python3 chip_smoke.py --streaming # phases 1, 2, 41 and 42 only
     python3 chip_smoke.py --serving   # phases 1, 2, 43 and 44 only
     python3 chip_smoke.py --pool      # phases 1, 2, 45 and 46 only
+    python3 chip_smoke.py --placement # phases 1, 2 and 47-49 only
 
 Needs one CUDA card, nvcc, g++ (phase 42) and the repository checkout
 around this file;
@@ -260,7 +261,7 @@ phases there). Phases:
    max-batch=8: one invoke a frame (the file's baked batch), labels equal
    to unbatched F's;
 32. B (zoo), F, Q int8-native and Q under bf16 live at once: closed-loop
-   latency p50/p99 frame by frame in turns, then bursts of 200 frames in
+   latency p50/p99 frame by frame in turns, then bursts of 100 frames in
    turns a b b a with compiled windows off and on (frames/s, latency under
    the burst, CUDA kernels and kernel time a frame from a profiled burst,
    the card's busy share); F's and Q's windows bit for bit their per-frame
@@ -355,7 +356,7 @@ phases there). Phases:
    B's labels' bytes; tensor_sink to-host=false max-results=4 keeps the
    last 4 as CUDA tensors;
 40. E1, E3 and B (bf16) live at once: closed-loop p50/p99 frame by frame
-   in turns; bursts of 100 in turns a b b a, compiled windows off, then on
+   in turns; bursts of 64 in turns a b b a, compiled windows off, then on
    (frames/s, latency under the burst, CUDA kernels and kernel time a
    frame, busy share); host and device ms a call of E1's resize, host ms
    a frame of its preview branch; E2's forced syncs a frame.
@@ -442,6 +443,45 @@ phases there). Phases:
    launches of normalize_u8 over both phases against the norm spans and
    the replies (the kernels line adds them).
 
+47. Queue 1 item 4e, placement, on 4 logical devices (virtual_devices=4,
+   all on cuda:0 with one card), pipeline B's model filter (MobileNetV2
+   1.0, 224², bf16, seed 0) behind normalize_u8, 32 frames: R2
+   (devices=2) bit for bit B's, Σ replica invokes = replied; SH1/SH2
+   (shards=1/2) and SH2x2 (devices=4 shards=2, two groups), SH2 bit for
+   bit SH1; normalize_u8 once a frame on each; memory_allocated when
+   each of B, R2 and SH2 is opened, and SH2's param bytes per logical
+   device; a replica fenced mid-stream (R2) and a member device fenced
+   mid-stream (SH2x2: its whole group, both lease rows fenced), every
+   frame answered once, bit for bit B's, the sum conserved; a store://
+   swap 1 → 2 (seed 1) under traffic across R2's replicas: no torn
+   frame, versions never go back, both replicas in the new epoch; B, R2
+   and SH2 closed loop frame by frame in turns (p50/p99);
+48. device segments: SEG is B's model cut at the pooled features into
+   two store:// models built here from one zoo module's params
+   (backbone, then classifier) joined by `tensor_transform
+   mode=typecast option=bfloat16`: one composed segment reported, logits
+   bit for bit device_segments=False's and within 1e-3·max|.| of B's,
+   normalize_u8 once a frame; with windows on, a warmed burst of 32
+   frames under the profiler: cudaGraphLaunch calls = the head's windows
+   replayed (one window, one replay) and the windowed logits its
+   per-frame ones; a 2-stage plan (plan_from_tracer on the traced
+   segments-off run, apply_plan): stages on ordinals 0 and 1, bit for
+   bit, one staging transfer a frame at the cut; B and SEG in bursts of
+   64 in turns, windows off then on (frames/s, latency, kernels and
+   kernel time a frame);
+49. Queue 1 item 4f: the device profiler on B per frame — the model
+   bucket's FLOPs (FlopCounterMode) within 1% of the analytic count of
+   its convs and dense layer, device ms an invoke (CUDA events) beside
+   the profiler's kernel time a frame, achieved TFLOP/s and MFU against
+   the spec-sheet peak, the memory ledger against
+   torch.cuda.memory_allocated; /metrics carrying the nns_jit_*,
+   nns_invoke_* and nns_device_hbm_* families with stats()' values; a
+   FlightRecorder on a traced Q1 with a p99 budget it must breach: one
+   bundle per cooldown window, `flight --json` and `flight --inspect`
+   read back; the profiler's cost, B closed loop off on on off;
+   normalize_u8 on R2, SH2 and SEG counted by its wrapper and by name in
+   one profile (profiled_agreement).
+
 Each kernel's timing phase (6, 10, 15, 16, 23) also prints its time per
 call from Python, back to back — the host's time (the launch path's own
 cost) and CUDA events — and, where one torch call computes the same
@@ -459,7 +499,7 @@ chip_smoke_slice6.json with --slice6, chip_smoke_batching.json with
 chip_smoke_modelio.json with --modelio, chip_smoke_elements.json with
 --elements, chip_smoke_streaming.json with --streaming,
 chip_smoke_serving.json with --serving, chip_smoke_pool.json with
---pool).
+--pool, chip_smoke_placement.json with --placement).
 """
 
 from __future__ import annotations
@@ -4699,6 +4739,9 @@ def window_phases(nt, torch, card, record, phases, ctx) -> None:
 #: micro-batched run; phase 32: closed-loop frames an arm (after warm-up)
 MODELIO_F32_FRAMES, MODELIO_Q_FRAMES, MODELIO_BATCH_FRAMES = 8, 16, 24
 MODELIO_LAT, MODELIO_WARMUP, MODELIO_WINDOW_FRAMES = 40, 5, 64
+#: phase 32's bursts: 100 frames (200, phase 27's BURST, until phases 47-49
+#: came)
+MODELIO_BURST = 100
 #: phase 33: frames pushed at once through the WHILE model
 WHILE_FRAMES = 32
 
@@ -4928,8 +4971,8 @@ def closed_loop_arms(nt, descs, frame, n_lat, warmup):
 
 def modelio_timings(nt, torch, card, record, files) -> None:
     """Phase 32: zoo B, F, Q int8-native and Q under bf16, live at once:
-    closed-loop p50/p99 frame by frame in turns; bursts of 200 in turns a
-    b b a, compiled_loop off and on (frames/s, latency under the burst,
+    closed-loop p50/p99 frame by frame in turns; bursts of MODELIO_BURST in
+    turns a b b a, compiled_loop off and on (frames/s, latency under the burst,
     busy share, kernels a frame); F's and Q's windows bit for bit their
     per-frame runs."""
     tail = f"{LABEL} name=dec ! tensor_sink name=out"
@@ -4951,7 +4994,7 @@ def modelio_timings(nt, torch, card, record, files) -> None:
               f"{res[arm]['closed_p99_ms']:.3f} ms [{card}]")
     for loop in ("off", "on"):
         kw = {} if loop == "on" else {"compiled_loop": False}
-        arms = burst_arms(nt, torch, descs, frame, BURST, BURSTS,
+        arms = burst_arms(nt, torch, descs, frame, MODELIO_BURST, BURSTS,
                           runner_kw={arm: kw for arm in descs})
         for arm, a in arms.items():
             fps = float(np.median(a["fps"]))
@@ -4962,7 +5005,8 @@ def modelio_timings(nt, torch, card, record, files) -> None:
                  "kernels_per_frame": a["kernels_per_frame"],
                  "busy_share": a["device_ms_per_frame"] * fps / 1e3}
             res[arm][f"loop_{loop}"] = r
-            print(f"phase 32: {arm} loop {loop}, bursts of {BURST} frames in "
+            print(f"phase 32: {arm} loop {loop}, bursts of {MODELIO_BURST} "
+                  f"frames in "
                   f"turns: " + " / ".join(f"{f:.1f}" for f in a["fps"])
                   + f" frames/s; latency under the burst p50 "
                   f"{r['p50_ms']:.3f} ms p99 {r['p99_ms']:.3f} ms; "
@@ -5874,9 +5918,9 @@ def item2_card_phase(nt, torch, card, record) -> None:
 #: phase 39's frames a check, E1's preview rate, phase 40's closed-loop
 #: frames an arm (after warm-up)
 ELEM_FRAMES, ELEM_LAT, ELEM_WARMUP = 12, 30, 5
-#: phase 40's bursts: 100 frames (200 until phases 41-42 came, 160 until
-#: phases 43-44 took the whole run past 760 s)
-ELEM_BURST = 100
+#: phase 40's bursts: 64 frames (200 until phases 41-42 came, 160 until
+#: phases 43-44 took the whole run past 760 s, 100 until phases 47-49 came)
+ELEM_BURST = 64
 V640 = "videotestsrc width=640 height=480 pattern=random"
 NORM_CPU = NORM_B + " accelerator=cpu"
 
@@ -8354,6 +8398,737 @@ def pool_phases(nt, torch, card, record, phases) -> dict:
     return {"pool": launched}
 
 
+# -- phases 47-49: placement, device segments, the device profiler ------------
+
+#: logical devices of phases 47-48 (all on cuda:0 with one card)
+PLC_DEVICES = 4
+PLC_FRAMES, PLC_LAT, PLC_WARMUP = 32, 30, 4
+SEG_BURST, SEG_PROF_FRAMES = 64, 32
+#: SEG's logits against B's, relative to max |logit| (the bound held;
+#: the cut's two typecasts are exact, so SEG is expected bit for bit)
+SEG_REL = 1e-3
+FLIGHT_COOLDOWN_S = 1.5
+#: note_dispatch + note_launched pairs timed on the host
+HOOK_ITERS = 10000
+#: config 1's model and frame (a CPU rehearsal swaps in a small one)
+PLC_ZOO, PLC_SHAPE = "zoo://mobilenet_v2", (1, 224, 224, 3)
+
+
+def plc_in() -> str:
+    h, w, c = PLC_SHAPE[1:]
+    return f"appsrc name=src dims={c}:{w}:{h}:1 types=uint8"
+
+
+def plc_desc(extra: str = "", model: str = "") -> str:
+    """B with `extra` on its model filter: appsrc ! normalize_u8 ! model
+    ! tensor_sink (the logits)."""
+    model = model or f"tensor_filter name=model model={PLC_ZOO}"
+    return f"{plc_in()} ! {NORM_B} ! {model} {extra} ! tensor_sink name=out"
+
+
+def counted_run(nt, desc, frames, **runner_kw):
+    """`desc` over `frames`, normalize_u8's count set to 0 just before and
+    read just after → (logits, launches, model filter, runner)."""
+    from nnstreamer_tpu_torch.backends import kernels
+
+    kernels.normalize_u8.launches = 0
+    out, runner, pipe = run_sinks(nt, desc, frames, **runner_kw)
+    return (logits_of(out["out"]), kernels.normalize_u8.launches,
+            pipe.get("model") if "model" in pipe.elements else None, runner)
+
+
+def seed1(ref: str) -> str:
+    """The zoo reference with seed 1 (a second version's weights)."""
+    return ref + ("&" if "?" in ref else "?") + "seed=1"
+
+
+def fence_run(nt, desc, frames, fence):
+    """`desc` over `frames`, `fence(filter)` called once half of them are
+    back → (logits by pts, replies, the filter's stats)."""
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    pipe = nt.parse_launch(desc)
+    runner = nt.PipelineRunner(pipe).start()
+    src, sink, f = pipe.get("src"), pipe.get("out"), pipe.get("model")
+    half = len(frames) // 2
+    try:
+        for i, fr in enumerate(frames):
+            if i == half:
+                deadline = time.monotonic() + 120
+                while len(sink.results) < half:
+                    check(time.monotonic() < deadline, "fence run stalled")
+                    time.sleep(0.001)
+                fence(f)
+            src.push(TensorBuffer.of(fr, pts=i))
+        src.end()
+        runner.wait(600)
+    finally:
+        runner.stop()
+    res = sink.results
+    return ({int(b.pts): np.asarray(b.tensors[0]) for b in res}, len(res),
+            f.extra_stats())
+
+
+def swap_run(nt, torch, frames, ref1, ref2, card, res) -> None:
+    """R2 on a store:// model swapped 1 → 2 under traffic: no torn frame
+    (each frame's logits one version's bits), versions never go back,
+    both replicas in one epoch."""
+    from nnstreamer_tpu_torch.serving.store import get_store
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    store = get_store()
+    store.register("plc_mbv2", PLC_ZOO)
+    store.register("plc_mbv2", seed1(PLC_ZOO))
+    pipe = nt.parse_launch(plc_desc(
+        "devices=2", "tensor_filter name=model model=store://plc_mbv2"))
+    runner = nt.PipelineRunner(pipe).start()
+    src, sink, f = pipe.get("src"), pipe.get("out"), pipe.get("model")
+    n = len(frames)
+    try:
+        for i in range(n // 2):
+            src.push(TensorBuffer.of(frames[i], pts=i))
+        deadline = time.monotonic() + 120
+        while len(sink.results) < n // 4:
+            check(time.monotonic() < deadline, "swap run stalled")
+            time.sleep(0.001)
+        rep = store.update("plc_mbv2", 2)        # frames in flight
+        for i in range(n // 2, n):
+            src.push(TensorBuffer.of(frames[i], pts=i))
+        src.end()
+        runner.wait(600)
+        epochs = f.replicas.adopted_epochs()
+    finally:
+        runner.stop()
+    got = {int(b.pts): np.asarray(b.tensors[0]) for b in sink.results}
+    vers = [1 if got[i].tobytes() == ref1[i].tobytes() else
+            2 if got[i].tobytes() == ref2[i].tobytes() else 0
+            for i in range(n)]
+    torn = vers.count(0)
+    monotone = all(a <= b for a, b in zip(vers, vers[1:]))
+    res["R2_swap"] = {"versions": vers, "torn": torn, "epochs": epochs,
+                      "prewarmed_buckets": rep["prewarmed_buckets"]}
+    print(f"phase 47: R2 swap 1 -> 2 under traffic ({n} frames, the flip "
+          f"with frames in flight): versions by frame {vers}; torn frames "
+          f"{torn}; adopted epochs {epochs}; prewarmed buckets "
+          f"{rep['prewarmed_buckets']} [{card}]")
+    check(torn == 0 and monotone and vers[-1] == 2
+          and len(set(epochs)) == 1 and epochs[0] == rep["epoch"],
+          f"R2 swap: {res['R2_swap']}")
+
+
+def placement_phase(nt, torch, card, record) -> int:
+    """Phase 47: R2, SH2, SH2x2 on PLC_DEVICES logical devices. →
+    normalize_u8's launches on the new paths."""
+    frames = u8_frames(PLC_SHAPE, PLC_FRAMES, 471)
+    res, launched = {}, 0
+    ref, _, _, _ = counted_run(nt, plc_desc(), frames, compiled_loop=False)
+    arms = {"R2": "devices=2", "SH1": "shards=1", "SH2": "shards=2",
+            "SH2x2": "devices=4 shards=2"}
+    mem = {}
+    for arm, extra in arms.items():
+        logits, n, f, runner = counted_run(nt, plc_desc(extra), frames)
+        st = runner.stats()["model"]
+        same = rows_equal(logits, ref)
+        launched += n
+        res[arm] = {"bit_for_bit_B": sum(same), "launches": n,
+                    "replica_invokes": st.get("replica_invokes"),
+                    "replied": len(logits)}
+        res[arm]["logits"] = logits
+        print(f"phase 47: {arm} (B's model filter with {extra}, "
+              f"virtual_devices={PLC_DEVICES}), {PLC_FRAMES} frames: logits "
+              f"bit for bit B's {sum(same)}/{PLC_FRAMES}; replica invokes "
+              f"{st.get('replica_invokes')} = replied {len(logits)}; "
+              f"normalize_u8 launched {n} times [{card}]")
+        check(n == PLC_FRAMES and st.get("replica_invokes") == PLC_FRAMES
+              == len(logits), f"{arm}: {res[arm]}")
+    check(all(rows_equal(res["R2"]["logits"], ref)),
+          "R2's logits differ from B's")
+    check(all(rows_equal(res["SH2"]["logits"], res["SH1"]["logits"])),
+          "SH2's logits differ from SH1's")
+    for arm in arms:
+        res[arm].pop("logits")
+    # memory_allocated by arm: each opened alone, the delta over its start;
+    # SH2's param bytes on each logical device of its group
+    for arm, extra in (("B", ""), ("R2", "devices=2"), ("SH2", "shards=2")):
+        gc.collect()
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        pipe = nt.parse_launch(plc_desc(extra))
+        runner = nt.PipelineRunner(pipe).start()
+        torch.cuda.synchronize()
+        mem[arm] = torch.cuda.memory_allocated() - m0
+        if arm == "SH2":
+            res["SH2"]["shard_bytes"] = [
+                r.backend.shard_bytes()
+                for r in pipe.get("model").replicas._replicas]
+        pipe.get("src").end()
+        runner.wait(60)
+        runner.stop()
+    res["memory_allocated_opened"] = mem
+    print(f"phase 47: memory_allocated when opened (the filter's backends "
+          f"and params, one card): B {mem['B']} B, R2 {mem['R2']} B (head "
+          f"+ 2 replicas), SH2 {mem['SH2']} B (head + the group's slices); "
+          f"SH2's params per logical device {res['SH2']['shard_bytes']} "
+          f"[{card}]")
+
+    # fences: every frame answered once, Σ replica invokes = replied
+    for arm, extra, fence in (
+            ("R2 fence", "devices=2",
+             lambda f: f.replicas.fence(0, "drill")),
+            ("SH2x2 fence", "devices=4 shards=2",
+             lambda f: f.replicas.fence_device(1, "drill"))):
+        got, replied, st = fence_run(nt, plc_desc(extra), frames, fence)
+        same = all(got[i].tobytes() == ref[i].tobytes()
+                   for i in range(PLC_FRAMES))
+        res[arm] = {"replied": replied, "bit_for_bit_B": same,
+                    "replica_invokes": st["replica_invokes"],
+                    "live": st["replica_live"],
+                    "fences": st["replica_fences"],
+                    "leases": st.get("leases")}
+        print(f"phase 47: {arm} mid-stream: {replied} of {PLC_FRAMES} "
+              f"frames answered, each once, bit for bit B's {same}; replica "
+              f"invokes {st['replica_invokes']}, live {st['replica_live']}, "
+              f"fences {st['replica_fences']}, leases {st.get('leases')}")
+        check(replied == PLC_FRAMES == st["replica_invokes"]
+              and sorted(got) == list(range(PLC_FRAMES)) and same
+              and st["replica_fences"] == 1, f"{arm}: {res[arm]}")
+        if "SH" in arm:
+            check(st["leases"]["fenced"] == 2, f"{arm}: the group's two "
+                  f"devices are not both fenced: {st['leases']}")
+    ref2, _, _, _ = counted_run(
+        nt, plc_desc("", f"tensor_filter name=model model={seed1(PLC_ZOO)}"),
+        frames, compiled_loop=False)
+    swap_run(nt, torch, frames, ref, ref2, card, res)
+
+    lat = closed_loop_arms(
+        nt, {"B": plc_desc(), "R2": plc_desc("devices=2"),
+             "SH2": plc_desc("shards=2")}, frames[0], PLC_LAT, PLC_WARMUP)
+    res["closed_loop"] = {a: {"p50_ms": float(np.percentile(v, 50)),
+                              "p99_ms": float(np.percentile(v, 99))}
+                          for a, v in lat.items()}
+    print(f"phase 47: closed loop frame by frame in turns ({PLC_LAT} frames "
+          f"an arm): " + ", ".join(
+              f"{a} p50 {r['p50_ms']:.3f} ms p99 {r['p99_ms']:.3f} ms"
+              for a, r in res["closed_loop"].items()) + f" [{card}]")
+    record["placement"] = res
+    return launched
+
+
+def seg_register(torch) -> None:
+    """SEG's two store models from one zoo MobileNetV2 (1.0, bf16, seed 0)
+    module and its parameters: the backbone to the pooled features (f32),
+    the classifier from them; together the zoo model's forward."""
+    from nnstreamer_tpu_torch.backends.torch_backend import ModelBundle
+    from nnstreamer_tpu_torch.models import layers as L
+    from nnstreamer_tpu_torch.models.zoo import build_model
+    from nnstreamer_tpu_torch.serving.store import get_store
+
+    m = build_model(PLC_ZOO[len("zoo://"):]).params
+
+    def backbone(mod, x):
+        h = x.to(mod.dtype).permute(0, 3, 1, 2)
+        h = mod.stem(h)
+        for block in mod.blocks:
+            h = block(h)
+        return L.global_avg_pool(mod.head(h)).to(torch.float32)
+
+    def classifier(dense, h):
+        return dense(h).to(torch.float32)
+
+    store = get_store()
+    store.register("seg_bb", ModelBundle(fn=backbone, params=m,
+                                         name="mbv2_backbone"))
+    store.register("seg_cl", ModelBundle(fn=classifier, params=m.classifier,
+                                         name="mbv2_classifier"))
+
+
+SEG_MID = ("tensor_filter name=bb model=store://seg_bb ! tensor_transform "
+           "mode=typecast option=bfloat16 ! tensor_filter name=cl "
+           "model=store://seg_cl")
+
+
+def seg_desc() -> str:
+    return f"{plc_in()} ! {NORM_B} ! {SEG_MID} ! tensor_sink name=out"
+
+
+def seg_windows(nt, torch, frames, card, res) -> None:
+    """SEG with windows on: a warmed burst under the profiler, its
+    cudaGraphLaunch calls against the head's replays (one window, one
+    replay) and its outputs against the per-frame run's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    pipe = nt.parse_launch(seg_desc())
+    runner = nt.PipelineRunner(pipe).start()
+    src, sink = pipe.get("src"), pipe.get("out")
+    be = pipe.get("bb").backend
+    pts = 0
+    try:
+        for k in (1, 2, 4, 8, 3, len(frames)):        # capture every K
+            for j in range(k):
+                src.push(TensorBuffer.of(frames[j % len(frames)], pts=pts))
+                pts += 1
+            deadline = time.monotonic() + 120
+            while len(sink.results) < pts:
+                check(time.monotonic() < deadline, "SEG warm-up stalled")
+                time.sleep(0.001)
+        sink.results.clear()
+        torch.cuda.synchronize()
+        w0, c0 = be.window_invokes, be.window_compile_count
+        f0 = be.window_frames
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            open_capture(torch)
+            for j, fr in enumerate(frames):
+                src.push(TensorBuffer.of(fr, pts=pts + j))
+            deadline = time.monotonic() + 120
+            while len(sink.results) < len(frames):
+                check(time.monotonic() < deadline, "SEG burst stalled")
+                time.sleep(0.001)
+            torch.cuda.synchronize()
+            close_capture(torch)
+        windows = be.window_invokes - w0
+        captured = be.window_compile_count - c0
+        in_windows = be.window_frames - f0
+        src.end()
+        runner.wait(60)
+    finally:
+        runner.stop()
+    graphs = sum(a.count for a in prof.key_averages()
+                 if a.key == "cudaGraphLaunch")
+    kernel_launches = sum(a.count for a in prof.key_averages()
+                          if a.key == "cudaLaunchKernel")
+    st = runner.stats()["bb"]
+    res["windows"] = {"frames": len(frames), "windows": windows,
+                      "frames_in_windows": in_windows,
+                      "captured": captured, "cudaGraphLaunch": graphs,
+                      "cudaLaunchKernel": kernel_launches,
+                      "compiled_steps": st.get("compiled_steps"),
+                      "out": logits_of(sink.results)}
+    print(f"phase 48: SEG windows on, {len(frames)} frames pushed at once "
+          f"(graphs warmed first): {windows} windows of the head holding "
+          f"{in_windows} frames (the rest per frame while the loop arms), "
+          f"{captured} captured in the burst, {graphs} cudaGraphLaunch and "
+          f"{kernel_launches} cudaLaunchKernel calls in its profile "
+          f"(normalize_u8 and the per-frame frames launch outside a graph) "
+          f"[{card}]")
+    check(windows > 0 and graphs == windows - captured,
+          f"SEG: one window, one replay: {res['windows']}")
+
+
+def segment_phase(nt, torch, card, record) -> int:
+    """Phase 48: SEG composed, windowed, planned on two logical devices,
+    timed beside B. → normalize_u8's launches on SEG's runs."""
+    from nnstreamer_tpu_torch.serving.placement import (
+        apply_plan, plan_from_tracer)
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    seg_register(torch)
+    frames = u8_frames(PLC_SHAPE, PLC_FRAMES, 481)
+    res = {}
+    b, _, _, _ = counted_run(nt, plc_desc(), frames, compiled_loop=False)
+    on, n_on, _, r_on = counted_run(nt, seg_desc(), frames,
+                                    compiled_loop=False)
+    off, n_off, _, r_off = counted_run(nt, seg_desc(), frames,
+                                       compiled_loop=False,
+                                       device_segments=False, trace=True)
+    segs = r_on.device_segments()
+    rel = float(np.abs(on - b).max() / np.abs(b).max())
+    same = rows_equal(on, off)
+    res.update(segments=segs, bit_for_bit_off=sum(same), rel_to_B=rel,
+               bit_for_bit_B=sum(rows_equal(on, b)), launches=n_on)
+    print(f"phase 48: SEG (B's model cut at the pooled features: "
+          f"store://seg_bb ! typecast bfloat16 ! store://seg_cl, one zoo "
+          f"module's params), {PLC_FRAMES} frames: segments {segs}; logits "
+          f"bit for bit device_segments=False's {sum(same)}/{PLC_FRAMES}, "
+          f"B's {res['bit_for_bit_B']}/{PLC_FRAMES}, max |SEG - B| / max "
+          f"|B| {rel:.3e}; normalize_u8 launched {n_on} (on) and {n_off} "
+          f"(off) times [{card}]")
+    check(segs == [{"head": "bb", "segment": "bb+cl", "size": 2,
+                    "composed": True}] and all(same) and rel <= SEG_REL
+          and n_on == n_off == PLC_FRAMES, f"SEG: {res}")
+
+    seg_windows(nt, torch, frames, card, res)
+    check(all(rows_equal(res["windows"].pop("out"), on)),
+          "SEG's windowed logits differ from its per-frame logits")
+
+    # a 2-stage plan from the traced segments-off run, on ordinals 0 and 1
+    plan = plan_from_tracer(r_off.tracer, ["bb", "cl"], 2)
+    pipe = nt.parse_launch(seg_desc())
+    pinned = apply_plan(pipe, plan)
+    from nnstreamer_tpu_torch.backends import kernels
+
+    kernels.normalize_u8.launches = 0
+    runner = nt.PipelineRunner(pipe, compiled_loop=False).start()
+    try:
+        for i, fr in enumerate(frames):
+            pipe.get("src").push(TensorBuffer.of(fr, pts=i))
+        pipe.get("src").end()
+        runner.wait(600)
+    finally:
+        runner.stop()
+    n_plan = kernels.normalize_u8.launches
+    planned = logits_of(pipe.get("out").results)
+    st = runner.stats()
+    ords = [pipe.get(g[0]).backend.device_ordinal for g in plan.stages]
+    res["plan"] = {"report": plan.report(), "pinned": pinned,
+                   "ordinals": ords,
+                   "bit_for_bit_off": sum(rows_equal(planned, off)),
+                   "staging_transfers": {
+                       g[0]: st[g[0]]["backend_staging_transfers"]
+                       for g in plan.stages},
+                   "segments": runner.device_segments()}
+    print(f"phase 48: plan_from_tracer on the traced segments-off run: "
+          f"stages {plan.stages} on ordinals {ords} (planned "
+          f"{plan.devices}), stage seconds "
+          + ", ".join(f"{t * 1e3:.3f} ms" for t in plan.stage_times_s)
+          + f", bubble {plan.bubble_fraction:.3f}; applied: logits bit for "
+          f"bit the segments-off run's {res['plan']['bit_for_bit_off']}/"
+          f"{PLC_FRAMES}, staging transfers {res['plan']['staging_transfers']}"
+          f" (the cut's handoff, one a frame) [{card}]")
+    check(len(plan.stages) == 2 and ords == [0, 1]
+          and res["plan"]["bit_for_bit_off"] == PLC_FRAMES
+          and st["cl"]["backend_staging_transfers"] == PLC_FRAMES
+          and n_plan == PLC_FRAMES and not runner.device_segments(),
+          f"SEG plan: {res['plan']}")
+
+    # per-frame and windowed frames/s beside B, in turns
+    descs = {"B": plc_desc(), "SEG": seg_desc()}
+    frame = frames[0]
+    for loop in ("off", "on"):
+        kw = {} if loop == "on" else {"compiled_loop": False}
+        arms = burst_arms(nt, torch, descs, frame, SEG_BURST, 1,
+                          prof_frames=SEG_PROF_FRAMES,
+                          runner_kw={a: kw for a in descs})
+        for arm, a in arms.items():
+            fps = float(np.median(a["fps"]))
+            res.setdefault("timings", {})[f"{arm} loop {loop}"] = {
+                "fps": a["fps"], "p50_ms": float(np.percentile(a["lat"], 50)),
+                "device_ms_per_frame": a["device_ms_per_frame"],
+                "kernels_per_frame": a["kernels_per_frame"]}
+            print(f"phase 48: {arm} loop {loop}, bursts of {SEG_BURST} in "
+                  f"turns: " + " / ".join(f"{f:.1f}" for f in a["fps"])
+                  + f" frames/s; latency under the burst p50 "
+                  f"{np.percentile(a['lat'], 50):.3f} ms; "
+                  f"{a['kernels_per_frame']:.1f} kernels and "
+                  f"{a['device_ms_per_frame']:.3f} ms of kernel time a "
+                  f"frame [{card}]")
+    record["segments"] = res
+    return n_on + n_off + n_plan
+
+
+def mbv2_flops(model, size: int, batch: int = 1) -> int:
+    """2 × the multiply-adds of MobileNetV2's convolutions and dense layer
+    at `size`², from the module's weight shapes (a SAME conv of stride s
+    maps H to ceil(H / s))."""
+    flops, h = 0, size
+
+    def conv(unit, h):
+        cout, cin_g, kh, kw = unit.weight.shape
+        ho = math.ceil(h / unit.stride)
+        return 2 * batch * cout * cin_g * kh * kw * ho * ho, ho
+
+    units = [model.stem] + [u for blk in model.blocks for u in
+                            (blk.expand, blk.depthwise, blk.project)
+                            if u is not None] + [model.head]
+    for unit in units:
+        f, h = conv(unit, h)
+        flops += f
+    cout, cin = model.classifier.weight.shape
+    return flops + 2 * batch * cout * cin
+
+
+def profiler_phase(nt, torch, card, record) -> int:
+    """Phase 49: the device profiler on B, /metrics, the flight recorder
+    on Q1, the profiler's cost. → normalize_u8's launches on B's
+    profiled run."""
+    import contextlib
+    import io
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.__main__ import main as cli
+    from nnstreamer_tpu_torch.models.zoo import build_model
+    from nnstreamer_tpu_torch.runtime import devprof
+    from nnstreamer_tpu_torch.runtime.flightrec import (
+        FlightRecorder, list_bundles)
+    from nnstreamer_tpu_torch.serving.autotune import AutoTuner, SLOSpec
+    from nnstreamer_tpu_torch.serving.metrics import (
+        MetricsServer, metrics_snapshot, parse_prometheus, render_prometheus,
+        scrape)
+
+    frames = u8_frames(PLC_SHAPE, PLC_FRAMES, 491)
+    res = {}
+    prof = devprof.get()
+    prof.reset()
+    prof.enable(True)
+    try:
+        _, launched, _, _ = counted_run(nt, plc_desc(), frames,
+                                        compiled_loop=False)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(0)
+        st = prof.stats()
+        after = torch.cuda.memory_allocated(0)
+        want = mbv2_flops(build_model(PLC_ZOO[len("zoo://"):]).params,
+                          PLC_SHAPE[1])
+        jit = next(r for r in st["jit"] if r["filter"] == "model")
+        inv = next(r for r in st["invoke"] if r["filter"] == "model")
+        hbm = next((r["bytes"] for r in st["hbm"]
+                    if r["device"] == "cuda:0"
+                    and r["kind"] == "bytes_in_use"), None)
+        # the profiler's kernel time a frame: the card's kernel records of
+        # a profiled per-frame run
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as tp:
+            open_capture(torch)
+            run_sinks(nt, plc_desc(), frames[:SEG_PROF_FRAMES],
+                      compiled_loop=False)
+            torch.cuda.synchronize()
+            close_capture(torch)
+        evs = kernel_events(tp)
+        kern_ms = sum(e.time_range.elapsed_us() for e in evs) / 1e3 \
+            / SEG_PROF_FRAMES
+        model_ms = sum(e.time_range.elapsed_us() for e in evs
+                       if "nns_normalize_kernel" not in e.name) / 1e3 \
+            / SEG_PROF_FRAMES
+        res["B"] = {"flops": jit["flops"], "analytic_flops": want,
+                    "bytes_lower_bound": jit["bytes_accessed"],
+                    "compile_s": jit["compile_s"],
+                    "invoke_p50_ms": inv["p50_ms"],
+                    "samples": inv["samples_total"],
+                    "achieved_tflops": inv["achieved_tflops"],
+                    "mfu": inv["mfu"], "roofline": jit["roofline"],
+                    "peak_tflops": st["peak_tflops"],
+                    "peak_hbm_gbps": st["peak_hbm_gbps"],
+                    "kernel_ms_per_frame": kern_ms,
+                    "model_kernel_ms_per_frame": model_ms,
+                    "hbm_bytes_in_use": hbm,
+                    "memory_allocated": (before, after)}
+        print(f"phase 49: the device profiler on B (per frame, {PLC_FRAMES} "
+              f"frames): the model bucket {jit['bucket']}: "
+              f"{jit['flops']:.0f} FLOPs a frame by FlopCounterMode, the "
+              f"analytic count of its convs and dense layer {want} "
+              f"(ratio {jit['flops'] / want:.6f}); bytes (lower bound) "
+              f"{jit['bytes_accessed']:.0f}; first run "
+              f"{jit['compile_s'] * 1e3:.1f} ms; device ms an invoke "
+              f"(CUDA events, p50 of {inv['samples_total']}) "
+              f"{inv['p50_ms']:.4f} against the profiler's kernel time a "
+              f"frame {kern_ms:.4f} ms ({model_ms:.4f} ms without "
+              f"normalize_u8); achieved {inv['achieved_tflops']:.4f} TFLOP/s, "
+              f"MFU {inv['achieved_tflops'] / st['peak_tflops']:.3e} (the "
+              f"row's, rounded as JAX rounds it: {inv['mfu']}) of the "
+              f"{st['peak_tflops']} TFLOP/s "
+              f"spec-sheet peak ({st['device_kind']}), roofline "
+              f"{jit['roofline']}; memory ledger bytes_in_use {hbm} "
+              f"against torch.cuda.memory_allocated {before}..{after} "
+              f"[{card}]")
+        check(abs(jit["flops"] - want) <= 0.01 * want
+              and inv["samples_total"] > 0 and hbm is not None
+              and before <= hbm <= after
+              and launched == PLC_FRAMES,
+              f"profiler on B: {res['B']}")
+
+        # /metrics carries the device families, the values of stats()
+        srv = MetricsServer(lambda: metrics_snapshot(devprof=prof.stats()),
+                            port=0)
+        try:
+            st = prof.stats()
+            fams = parse_prometheus(scrape(
+                f"http://127.0.0.1:{srv.port}/metrics"))
+        finally:
+            srv.close()
+        flops_row = fams["nns_jit_flops"]["samples"]
+        got = {k: v for k, v in flops_row.items() if 'filter="model"' in k}
+        samples = {k: v for k, v in
+                   fams["nns_invoke_samples_total"]["samples"].items()
+                   if 'filter="model"' in k}
+        inv = next(r for r in st["invoke"] if r["filter"] == "model")
+        present = sorted(f for f in fams if f.startswith(
+            ("nns_jit_", "nns_invoke_", "nns_device_hbm_")))
+        res["metrics"] = {"families": present, "jit_flops": got,
+                          "samples": samples}
+        print(f"phase 49: /metrics: {len(present)} device families "
+              f"{present}; the model's jit flops {got}, invoke samples "
+              f"{samples} (stats(): {jit['flops']:.0f}, "
+              f"{inv['samples_total']})")
+        check(list(got.values()) == [jit["flops"]]
+              and list(samples.values()) == [float(inv["samples_total"])]
+              and {"nns_jit_flops", "nns_invoke_mfu",
+                   "nns_device_hbm_bytes"} <= set(present),
+              f"/metrics: {res['metrics']}")
+    finally:
+        prof.enable(False)
+
+    # the flight recorder on Q1: a p99 budget it must breach
+    flight_dir = tempfile.mkdtemp(prefix="chip_flight_")
+    pipe, runner, port = q_server(nt, 4901, PLC_ZOO, trace=True)
+    try:
+        tuner = AutoTuner(SLOSpec(p99_budget_ms=0.001),
+                          tracer=runner.tracer, dry_run=True)
+        rec = FlightRecorder(flight_dir, cooldown_s=FLIGHT_COOLDOWN_S).attach(
+            tracer=runner.tracer, autotune=tuner,
+            prom=lambda: render_prometheus(metrics_snapshot(
+                tracer=runner.tracer)))
+        t_dump = None
+        for rnd in range(3):
+            if rnd == 2:     # the third round after the window closed
+                time.sleep(max(0.0, FLIGHT_COOLDOWN_S
+                               - (time.monotonic() - t_dump)) + 0.2)
+            q_ask(nt, port, frames[:8])
+            tuner.tick()
+            if t_dump is None:
+                t_dump = time.monotonic()
+        fst = rec.stats()
+    finally:
+        runner.stop()
+    bundles = list_bundles(flight_dir)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc_list = cli(["flight", flight_dir, "--json"])
+    listed = json.loads(out.getvalue())
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc_inspect = cli(["flight", flight_dir, "--inspect",
+                          bundles[0]["name"]])
+    inspected = json.loads(out.getvalue())
+    res["flight"] = {"dumps": fst["dumps"], "suppressed": fst["suppressed"],
+                     "bundles": [b["name"] for b in bundles],
+                     "files": bundles[0]["files"], "rc": (rc_list,
+                                                          rc_inspect)}
+    print(f"phase 49: the flight recorder on Q1 (p99 budget 0.001 ms, "
+          f"cooldown {FLIGHT_COOLDOWN_S} s, 3 rounds of 8 frames, the third "
+          f"after the window): dumps {fst['dumps']}, suppressed "
+          f"{fst['suppressed']}, bundles {res['flight']['bundles']} with "
+          f"{bundles[0]['files']}; flight list rc {rc_list} "
+          f"({len(listed)} rows), flight --inspect rc {rc_inspect} (cause "
+          f"{inspected['cause']['kind']})")
+    check(fst["dumps"] == {"slo_breach": 2}
+          and fst["suppressed"] == {"slo_breach": 1} and len(bundles) == 2
+          and rc_list == 0 and len(listed) == 2 and rc_inspect == 0
+          and inspected["cause"]["kind"] == "slo_breach"
+          and "trace.json" in bundles[0]["files"],
+          f"flight recorder: {res['flight']}")
+
+    # the profiler's cost on the hot path: its two hooks a frame on the
+    # host, then B closed loop, off on on off off on on off
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    # the hot loop's pattern: 8 invokes in flight, then the sync that
+    # drains their samples (the scheduler's max_inflight)
+    dev = torch.device("cuda", 0)
+    probe = devprof.DeviceProfiler().enable()
+    hook_s = drain_s = 0.0
+    for _ in range(HOOK_ITERS // 8):
+        t0 = time.perf_counter()
+        for _ in range(8):
+            probe.note_dispatch("f", "b", dev)
+            probe.note_launched()
+        hook_s += time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probe.sample_sync()
+        drain_s += time.perf_counter() - t0
+    hook_us = hook_s / HOOK_ITERS * 1e6
+    drain_us = drain_s / HOOK_ITERS * 1e6
+    got = threading.Event()
+    pipe = nt.parse_launch(plc_desc())
+    pipe.get("out").set_props(new_data=lambda b: got.set(), collect=False)
+    runner = nt.PipelineRunner(pipe).start()
+    lat = {"off": [], "on": []}
+    try:
+        pts = 0
+        for arm in ("off", "on", "on", "off") * 2:
+            prof.enable(arm == "on")
+            for i in range(PLC_WARMUP + PLC_LAT):
+                got.clear()
+                t0 = time.perf_counter()
+                pipe.get("src").push(TensorBuffer.of(frames[0], pts=pts))
+                pts += 1
+                check(got.wait(60), "no frame back within 60 s")
+                if i >= PLC_WARMUP:
+                    lat[arm].append((time.perf_counter() - t0) * 1e3)
+        pipe.get("src").end()
+        runner.wait(60)
+    finally:
+        prof.enable(False)
+        runner.stop()
+    res["cost"] = {a: {"p50_ms": float(np.percentile(v, 50)),
+                       "p99_ms": float(np.percentile(v, 99))}
+                   for a, v in lat.items()}
+    res["cost"]["hooks_us_per_frame"] = hook_us
+    res["cost"]["drain_us_per_sample"] = drain_us
+    print(f"phase 49: the profiler's host time a frame over {HOOK_ITERS} "
+          f"frames in flights of 8: note_dispatch + note_launched (two "
+          f"CUDA events recorded) {hook_us:.2f} µs, the sample's read at "
+          f"the sync {drain_us:.2f} µs [{card}]")
+    print(f"phase 49: B closed loop with the profiler off and on, in turns "
+          f"off on on off, twice ({4 * PLC_LAT} frames an arm): p50 off "
+          f"{res['cost']['off']['p50_ms']:.3f} ms, on "
+          f"{res['cost']['on']['p50_ms']:.3f} ms; p99 off "
+          f"{res['cost']['off']['p99_ms']:.3f} ms, on "
+          f"{res['cost']['on']['p99_ms']:.3f} ms [{card}]")
+    record["profiler"] = res
+    return launched
+
+
+def new_paths_agreement(nt, torch, card, record) -> None:
+    """normalize_u8 on R2, SH2 and SEG, counted by its wrapper and by name
+    in one profile (profiled_agreement)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.backends import kernels
+
+    frames = u8_frames(PLC_SHAPE, 8, 499)
+
+    def attempt():
+        kernels.normalize_u8.launches = 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            open_capture(torch)
+            for desc in (plc_desc("devices=2"), plc_desc("shards=2"),
+                         seg_desc()):
+                run_sinks(nt, desc, frames)
+            torch.cuda.synchronize()
+            close_capture(torch)
+        named = sum("nns_normalize_kernel" in e.name
+                    for e in kernel_events(prof))
+        launched = kernels.normalize_u8.launches
+        return {"normalize_u8": launched}, {"normalize_u8": named}, launched
+
+    launched, tries = profiled_agreement("phase 49: new paths", attempt)
+    record["new_paths_agreement"] = {"launches": launched, "tries": tries}
+    print(f"phase 49: normalize_u8 on R2, SH2 and SEG ({len(frames)} frames "
+          f"each): {launched} launches by the wrapper and by name in one "
+          f"profile (profiled run {tries}) [{card}]")
+    check(launched == 3 * len(frames), f"new paths: {launched} launches")
+
+
+def placement_phases(nt, torch, card, record, phases) -> dict:
+    """Phases 47-49 on PLC_DEVICES logical devices. → normalize_u8's
+    launches on the new paths."""
+    import os
+
+    old = os.environ.get(VIRTUAL_ENV)
+    os.environ[VIRTUAL_ENV] = str(PLC_DEVICES)
+    try:
+        launched = placement_phase(nt, torch, card, record)
+        phases.done("47 (placement: replicas, dense shards, fences, swap)")
+        launched += segment_phase(nt, torch, card, record)
+        phases.done("48 (device segments: SEG, its windows, the plan)")
+        launched += profiler_phase(nt, torch, card, record)
+        new_paths_agreement(nt, torch, card, record)
+        phases.done("49 (the device profiler, /metrics, the flight "
+                    "recorder)")
+    finally:
+        if old is None:
+            os.environ.pop(VIRTUAL_ENV, None)
+        else:
+            os.environ[VIRTUAL_ENV] = old
+    return {"placement": launched}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -8401,6 +9176,12 @@ def main(argv=None) -> int:
         help="run phases 1, 2, 45 and 46 only (pipeline B in supervised "
              "pool workers: the shm lane, SIGKILL, swap, drain; the "
              "autotuner and /metrics on the live pool; timings)")
+    ap.add_argument(
+        "--placement", action="store_true",
+        help="run phases 1, 2 and 47-49 only (B's model filter as replicas "
+             "and dense shards on logical devices, B's model as a two-filter "
+             "device segment and its plan, the device profiler and the "
+             "flight recorder)")
     ap.add_argument(
         "--slice4", action="store_true",
         help="run phases 1, 2 and 20-23 only (the ring step, ring "
@@ -8486,6 +9267,9 @@ def main(argv=None) -> int:
     elif args.pool:
         pool_phases(nt, torch, card, record, phases)
         entries = []
+    elif args.placement:
+        placement_phases(nt, torch, card, record, phases)
+        entries = []
     else:
         # -- 3-6. normalize_u8, pipelines A and B ------------------------
         entries = slice1_phases(nt, torch, card, record, phases)
@@ -8515,6 +9299,8 @@ def main(argv=None) -> int:
         extra.update(serving_phases(nt, torch, card, record, phases))
         # -- 45-46. items 4c-4d: #1 once a frame in every pool child ----
         extra.update(pool_phases(nt, torch, card, record, phases))
+        # -- 47-49. items 4e-4f: #1 once a frame on R2, SH2, SEG -------
+        extra.update(placement_phases(nt, torch, card, record, phases))
         norm = next(e for e in entries if e["name"] == "normalize_u8")
         norm["launches_by_path"] = {"B": norm["launches"], **extra}
         norm["launches"] += sum(extra.values())
@@ -8531,6 +9317,7 @@ def main(argv=None) -> int:
             "chip_smoke_streaming.json" if args.streaming else
             "chip_smoke_serving.json" if args.serving else
             "chip_smoke_pool.json" if args.pool else
+            "chip_smoke_placement.json" if args.placement else
             "chip_smoke.json")
     (out_dir / name).write_text(json.dumps(record, indent=1))
     print(card)

@@ -14,8 +14,11 @@
     python -m nnstreamer_tpu_torch models describe NAME  # versions/stats
     python -m nnstreamer_tpu_torch models swap NAME [VER]  # hot swap
     python -m nnstreamer_tpu_torch serve --workers 2 --pipeline '...' \
-        --metrics-port 0 [--slo slo.json]   # supervised worker pool
+        --metrics-port 0 [--slo slo.json] [--flight-dir DIR]
+                                            # supervised worker pool
     python -m nnstreamer_tpu_torch top http://127.0.0.1:PORT/metrics
+    python -m nnstreamer_tpu_torch flight DIR [--inspect NAME] [--json]
+                                            # flight-recorder bundles
 
 Runs the pipeline string to EOS on the CUDA device (set
 NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR=cpu to run on the CPU).
@@ -148,8 +151,8 @@ def _serve_main(argv) -> int:
     model=normalize_u8 ! tensor_filter model=store://mobilenet_v2');
     without --pipeline the workers echo after --service-ms, which gives
     a known-capacity pool for drills and demos. The JAX package's flags,
-    with their behaviour; the flight recorder and the mesh are refused
-    until their modules are ported."""
+    with their behaviour; the mesh (--join, --join-name, --zone) is
+    refused until its module is ported."""
     ap = argparse.ArgumentParser(
         prog="nnstreamer_tpu_torch serve",
         description="supervised multi-process serving pool")
@@ -202,7 +205,11 @@ def _serve_main(argv) -> int:
                     help="write the merged multi-process Chrome trace "
                          "here at drain (also turns on the pool tracer)")
     ap.add_argument("--flight-dir", default=None, metavar="DIR",
-                    help="not ported yet (Queue 1 item 4f)")
+                    help="arm the SLO-breach flight recorder: forensic "
+                         "bundles dumped into DIR on SLO breach / "
+                         "conservation mismatch / worker fence / "
+                         "watchdog (also turns on the pool tracer and "
+                         "the device profiler)")
     ap.add_argument("--join", default=None, metavar="HOST:PORT",
                     help="not ported yet (Queue 1 item 4g)")
     ap.add_argument("--join-name", default=None,
@@ -211,11 +218,6 @@ def _serve_main(argv) -> int:
                     help="not ported yet (Queue 1 item 4g)")
     args = ap.parse_args(argv)
 
-    if args.flight_dir is not None:
-        print("serve --flight-dir: the flight recorder "
-              "(runtime/flightrec.py) is not ported yet (Queue 1 item "
-              "4f)", file=sys.stderr)
-        return 2
     for flag, v in (("--join", args.join), ("--join-name", args.join_name),
                     ("--zone", args.zone)):
         if v is not None:
@@ -227,10 +229,15 @@ def _serve_main(argv) -> int:
     from nnstreamer_tpu_torch.serving.worker import WorkerSpec
 
     tracer = None
-    if args.metrics_port is not None or args.trace_out:
+    if args.metrics_port is not None or args.trace_out or args.flight_dir:
         from nnstreamer_tpu_torch.runtime.tracing import Tracer
 
         tracer = Tracer()
+    prof = None
+    if args.metrics_port is not None or args.flight_dir:
+        from nnstreamer_tpu_torch.runtime import devprof
+
+        prof = devprof.get().enable()
     table = None
     if args.tenants:
         from nnstreamer_tpu_torch.serving.tenancy import TenantTable
@@ -284,7 +291,7 @@ def _serve_main(argv) -> int:
         return metrics_snapshot(
             tracer=tracer, admission=s.pop("admission"), pool=s,
             autotune=tuner.stats() if tuner is not None else None,
-            devprof=None)
+            devprof=prof.stats() if prof is not None else None)
 
     msrv = None
     if args.metrics_port is not None:
@@ -295,6 +302,24 @@ def _serve_main(argv) -> int:
                              health=lambda: {"pool": pqs.stats()["pool"]})
         print(f"metrics on http://{args.metrics_host}:{msrv.port}"
               f"/metrics", file=sys.stderr)
+    flight = None
+    if args.flight_dir:
+        from nnstreamer_tpu_torch.runtime.flightrec import FlightRecorder
+        from nnstreamer_tpu_torch.serving.metrics import render_prometheus
+
+        def _flight_env():
+            return {"cmd": "serve", "argv": list(argv),
+                    "workers": args.workers, "port": pqs.port,
+                    "devprof": prof.stats() if prof is not None else None}
+
+        flight = FlightRecorder(args.flight_dir).attach(
+            tracer=tracer, autotune=tuner,
+            prom=lambda: render_prometheus(collect()),
+            env=_flight_env)
+        flight.run_background(
+            lambda: {"admission": pqs.stats().get("admission")})
+        print(f"flight recorder armed -> {args.flight_dir}",
+              file=sys.stderr)
     print(f"pool serving on {args.host}:{pqs.port} "
           f"({args.workers} worker(s); SIGTERM/^C drains)",
           file=sys.stderr, flush=True)
@@ -312,6 +337,8 @@ def _serve_main(argv) -> int:
     finally:
         if tuner is not None:
             tuner.stop()
+        if flight is not None:
+            flight.close()
         pqs.close()
         if msrv is not None:
             msrv.close()
@@ -357,6 +384,48 @@ def _top_main(argv) -> int:
     return 0
 
 
+def _flight_main(argv) -> int:
+    """`flight` subcommand: list / inspect the forensic bundles a flight
+    recorder (runtime/flightrec.py) dumped into a directory."""
+    ap = argparse.ArgumentParser(
+        prog="nnstreamer_tpu_torch flight",
+        description="inspect SLO-breach flight-recorder bundles")
+    ap.add_argument("dir", help="flight directory (serve --flight-dir)")
+    ap.add_argument("--inspect", default=None, metavar="NAME",
+                    help="print one bundle's parsed artifacts "
+                         "(bundle dir name, e.g. flight-0001-slo_breach)")
+    ap.add_argument("--json", action="store_true",
+                    help="print raw JSON instead of the table")
+    args = ap.parse_args(argv)
+
+    from nnstreamer_tpu_torch.runtime.flightrec import (
+        list_bundles, load_bundle)
+
+    if args.inspect:
+        bundle = load_bundle(os.path.join(args.dir, args.inspect))
+        print(json.dumps(bundle, indent=None if args.json else 2,
+                         default=str))
+        return 0
+    bundles = list_bundles(args.dir)
+    if args.json:
+        print(json.dumps(bundles, default=str))
+        return 0
+    if not bundles:
+        print(f"no flight bundles in {args.dir}", file=sys.stderr)
+        return 1
+    print(f"{'bundle':<36} {'kind':<16} {'when':<20} cause")
+    print("-" * 100)
+    for b in bundles:
+        when = time.strftime("%Y-%m-%d %H:%M:%S",
+                             time.localtime(b.get("wall_time") or 0))
+        cause = json.dumps(b.get("cause") or {}, default=str)
+        if len(cause) > 40:
+            cause = cause[:37] + "..."
+        print(f"{b['name']:<36} {str(b.get('kind')):<16} {when:<20} "
+              f"{cause}")
+    return 0
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "trace":
@@ -367,6 +436,8 @@ def main(argv=None) -> int:
         return _serve_main(argv[1:])
     if argv and argv[0] == "top":
         return _top_main(argv[1:])
+    if argv and argv[0] == "flight":
+        return _flight_main(argv[1:])
     ap = argparse.ArgumentParser(
         prog="nnstreamer_tpu_torch",
         description="streaming AI pipelines on PyTorch/CUDA (gst-launch parity)")

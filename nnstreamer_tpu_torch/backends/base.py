@@ -37,11 +37,25 @@ def pick_device(accelerator: str = "") -> torch.device:
     Empty means the port-wide default, config key [filter] accelerator
     (env NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR), which is "cuda". The
     CPU runs only when asked for by name: with no CUDA device this raises
-    instead of carrying on quietly on the CPU.
+    instead of carrying on quietly on the CPU. With ``[parallel]
+    virtual_devices`` set, the index of "cuda:<i>" (and "cpu:<i>") is a
+    logical ordinal (serving/placement.py) and resolves to the device it
+    maps onto.
     """
     accel = (accelerator or get_config().get("filter", "accelerator")
              or "cuda").strip().lower()
     kind, _, idx = accel.partition(":")
+    if kind in ("cuda", "cpu") and idx.isdigit() \
+            and get_config().get_int("parallel", "virtual_devices", 0) > 0:
+        from nnstreamer_tpu_torch.serving.placement import device_of
+
+        dev = device_of(int(idx))
+        if dev.type != kind:
+            raise BackendError(
+                f"accelerator={accel!r}: logical device {idx} is on "
+                f"{dev}, not {kind} ([filter] accelerator decides where "
+                f"the logical devices live)")
+        return dev
     if kind == "cpu":
         return torch.device("cpu")
     if kind != "cuda":

@@ -87,7 +87,30 @@ invokes of dt/K each.
 With the session tracer active each invoke is one backend "invoke" span
 (`FilterBackend.invoke`), each batched invoke one "invoke_batched" span
 with its occupancy and bucket; there is no "compile" span: nothing
-compiles.
+compiles. `compile_count` counts what stands in for a compile: the first
+run of a (model, bucket) and each CUDA graph captured.
+
+Device segments (graph/optimize.fuse_segments): `compose_segment`
+accepts the filters absorbed downstream of this one — member backends
+that are `TorchBackend`s on this backend's device (and logical ordinal),
+with no canary and no host-side input stage — and one invoke then runs
+the pre chain, this model, each connecting chain and member model, and
+the post chain (a compiled window captures all of it in one CUDA graph).
+Anything else is declined, as the JAX package declines it, and the
+element runs the member invokes itself with the same bits. Each invoke
+boundary (`_seg_begin`) adopts the members' flipped store epochs and
+takes their held models; a change retires the graphs that baked in the
+old ones.
+
+Logical devices (``[parallel] virtual_devices``): a backend opened with
+``accelerator=<type>:<ordinal>`` knows its `device_ordinal` and tags its
+outputs with it; an input tagged with another ordinal is copied on
+staging even where the two ordinals share a card (a plan stage's
+handoff, counted in `staging_transfers`, as a second card would copy).
+
+The device profiler (runtime/devprof.py), when on, gets each bucket's
+first run (its FLOPs under FlopCounterMode, params and I/O bytes, host
+seconds) and a pair of CUDA events around every invoke and window.
 """
 
 from __future__ import annotations
@@ -106,9 +129,10 @@ import torch.nn.functional as F
 from nnstreamer_tpu_torch.backends import cuda_graphs
 from nnstreamer_tpu_torch.backends.base import (
     ArrayTuple, ElementwiseFn, FilterBackend, pick_device, register_backend)
-from nnstreamer_tpu_torch.core.errors import BackendError
+from nnstreamer_tpu_torch.core.errors import BackendError, SegmentStageError
 from nnstreamer_tpu_torch.core.log import get_logger
 from nnstreamer_tpu_torch.modelio import parse_loader_opts
+from nnstreamer_tpu_torch.runtime import devprof
 from nnstreamer_tpu_torch.runtime.sync import device_sync
 from nnstreamer_tpu_torch.tensor.dtypes import DType, host_tensor
 from nnstreamer_tpu_torch.tensor.info import TensorInfo, TensorsSpec
@@ -256,19 +280,32 @@ def bucket_pairs(xs) -> tuple:
     return tuple((tuple(x.shape), DType.of(x).type_name) for x in xs)
 
 
-def stage(arrs, device: torch.device) -> Tuple[ArrayTuple, int]:
+#: the attribute naming the logical ordinal of the backend that made a
+#: tensor (set on the outputs of a backend pinned to one)
+ORDINAL_TAG = "_nns_ordinal"
+
+
+def stage(arrs, device: torch.device,
+          ordinal: Optional[int] = None) -> Tuple[ArrayTuple, int]:
     """Move inputs to `device`, skipping tensors already there. Host
     numpy crosses in its own dtype (a uint8 frame stays 1 byte/element).
     A strided view already on the device (a tensor_split segment, a
     transposed tensor) is made contiguous, as a host array is on its way
     over: the model then sees one layout whether a frame runs alone or
     is copied into a compiled window's static input, so the two give the
-    same bits. → (staged tensors, number of transfers made)."""
+    same bits. A tensor another logical device's backend made (its
+    ORDINAL_TAG not `ordinal`) is copied even on the same card.
+    → (staged tensors, number of transfers made)."""
     staged = []
     transfers = 0
     for a in arrs:
         if isinstance(a, torch.Tensor) and a.device == device:
-            staged.append(a.contiguous())
+            src = getattr(a, ORDINAL_TAG, None)
+            if ordinal is not None and src is not None and src != ordinal:
+                staged.append(a.clone(memory_format=torch.contiguous_format))
+                transfers += 1
+            else:
+                staged.append(a.contiguous())
             continue
         t = a if isinstance(a, torch.Tensor) else host_tensor(a)
         staged.append(t.to(device, non_blocking=True))
@@ -287,6 +324,9 @@ class TorchBackend(FilterBackend):
         self._post: Optional[ElementwiseFn] = None
         self._version = 0                 # of the shared entry held
         self.device: Optional[torch.device] = None
+        #: the logical ordinal of ``accelerator=<type>:<i>`` (None: the
+        #: filter did not pin one)
+        self.device_ordinal: Optional[int] = None
         self._dynamic_spatial = False
         self._loader_opts: Dict[str, Any] = {}
         # batchability verdicts by (model serial, batched shapes and
@@ -334,6 +374,15 @@ class TorchBackend(FilterBackend):
         self.swap_count = 0
         #: buckets the last warm_start ran (the bucket manifest's replay)
         self.warm_start_buckets = 0
+        #: (model serial, bucket label) pairs run once: a first run is
+        #: what stands in for the JAX package's compile
+        self._ran: set = set()
+        # -- device segment (compose_segment) -----------------------------
+        #: [(mid chain | None, member TorchBackend, member name)]
+        self._segment: List[tuple] = []
+        #: the members' held models this invoke, and their serials
+        self._seg_models: tuple = ()
+        self._seg_sig: tuple = ()
 
     @property
     def _bundle(self) -> Optional[ModelBundle]:
@@ -357,6 +406,11 @@ class TorchBackend(FilterBackend):
         """CUDA graphs captured (the JAX package's name)."""
         return self._retired_captures + sum(
             g.captures for g in self._graph_caches())
+
+    @property
+    def compile_count(self) -> int:
+        """First runs of a (model, bucket) and CUDA graphs captured."""
+        return len(self._ran) + self.window_compile_count
 
     @property
     def capture_seconds(self) -> List[float]:
@@ -383,7 +437,10 @@ class TorchBackend(FilterBackend):
                 opts[key] = [s for s in v.split(",") if s]
         #: options for a model-file loader (modelio.load_model_file)
         self._loader_opts = opts
-        self.device = pick_device(props.get("accelerator") or "")
+        accel = str(props.get("accelerator") or "")
+        self.device = pick_device(accel)
+        idx = accel.partition(":")[2].strip()
+        self.device_ordinal = int(idx) if idx.isdigit() else None
         key = props.get("shared_tensor_filter_key") or ""
         if isinstance(model, str) and model.startswith("store://"):
             if key:
@@ -501,6 +558,63 @@ class TorchBackend(FilterBackend):
         self._pre, self._post = pre, post
         return True
 
+    # -- device segment (graph/optimize.fuse_segments) ---------------------
+    def compose_segment(self, stages) -> bool:
+        """Accept a device segment: `stages` is [(mid chain | None,
+        member backend, member name)] in dataflow order. Accepting means
+        each member's model runs inside this backend's invoke, between
+        this model and the post chain — one invoke (one graph replay in
+        a window) for the whole run. Declined, as the JAX package
+        declines it, when a member cannot ride one invoke: not a torch
+        backend, another device or logical ordinal, per-invoke canary
+        routing, or a host-side input stage; the element then invokes the
+        members itself, with the same bits."""
+        for _, mb, mname in stages:
+            if not isinstance(mb, TorchBackend):
+                log.info("segment declined: member %s is not torch", mname)
+                return False
+            if (mb.device, mb.device_ordinal) != (self.device,
+                                                  self.device_ordinal):
+                log.info("segment declined: member %s is on %s (ordinal "
+                         "%s), head on %s (ordinal %s)", mname, mb.device,
+                         mb.device_ordinal, self.device, self.device_ordinal)
+                return False
+            if mb._canary is not None:
+                log.info("segment declined: member %s has canary "
+                         "routing", mname)
+                return False
+            if any(vs.model[0].host_pre is not None
+                   for vs in mb._vstates.values()) or (
+                    mb._bundle is not None
+                    and mb._bundle.host_pre is not None):
+                log.info("segment declined: member %s model has a "
+                         "host-side input stage", mname)
+                return False
+        self._segment = list(stages)
+        self._seg_begin()
+        return True
+
+    def _seg_begin(self) -> None:
+        """Segment-invoke boundary: adopt the members' flipped store
+        epochs and take their held models for this invoke. A member that
+        changed model (a swap, a reload) changes the signature, which
+        retires the graphs and verdicts that baked in the old one."""
+        if not self._segment:
+            return
+        models = []
+        for _, mb, _ in self._segment:
+            if mb._store_entry is not None:
+                models.append(mb._vstates[mb._pick_version()].model)
+            else:
+                models.append(mb._held())
+        sig = tuple(m[2] for m in models)
+        if sig != self._seg_sig:
+            if self._seg_sig:
+                for g in self._graph_caches():
+                    g.drop()
+            self._seg_sig = sig
+        self._seg_models = tuple(models)
+
     def _adopt_shared(self) -> None:
         """Take up a reload made through another holder of the shared
         key (at an invoke boundary: one invoke never mixes two models)."""
@@ -531,6 +645,8 @@ class TorchBackend(FilterBackend):
         epoch flip, that this backend has not taken up yet (the compiled
         loop's "swap" bail: adoption then happens at a per-frame invoke
         boundary)."""
+        if any(mb.swap_pending() for _, mb, _ in self._segment):
+            return True
         if self._store_entry is not None:
             if self._pinned_version is not None:
                 return False
@@ -539,30 +655,93 @@ class TorchBackend(FilterBackend):
         return sh is not None and sh.version != self._version
 
     def _stage(self, tensors) -> ArrayTuple:
-        xs, transfers = stage(tensors, self.device)
+        if self.device_ordinal is None:
+            xs, transfers = stage(tensors, self.device)
+        else:
+            xs, transfers = stage(tensors, self.device, self.device_ordinal)
         self.staging_transfers += transfers
         self.staging_elided += len(xs) - transfers
         return xs
 
+    def _tag(self, out: ArrayTuple) -> ArrayTuple:
+        """Mark outputs with this backend's logical ordinal (pinned
+        backends only), so a backend on another ordinal stages a copy."""
+        if self.device_ordinal is not None:
+            for o in out:
+                if isinstance(o, torch.Tensor):
+                    setattr(o, ORDINAL_TAG, self.device_ordinal)
+        return out
+
     def _call(self, xs: ArrayTuple, model) -> ArrayTuple:
-        """pre chain, `model` (a `_held` tuple), post chain on device
-        tensors."""
+        """pre chain, `model` (a `_held` tuple), the segment's member
+        stages (this invoke's snapshot of their models), post chain on
+        device tensors."""
         bundle, params, _ = model
         with torch.inference_mode():
             if self._pre is not None:
                 xs = self._pre(xs)
             out = to_tuple(bundle.fn(params, *xs))
+            if self._segment:
+                out = self._run_segment(out, self._seg_models)
             if self._post is not None:
                 out = to_tuple(self._post(out))
         return out
 
-    def run(self, tensors: ArrayTuple) -> ArrayTuple:
+    def _run_segment(self, out: ArrayTuple, models: tuple) -> ArrayTuple:
+        """Each member's connecting chain and model, in dataflow order; a
+        failure names the member element."""
+        for (mid, _, name), m in zip(self._segment, models):
+            try:
+                if mid is not None:
+                    out = to_tuple(mid(out))
+                out = to_tuple(m[0].fn(m[1], *out))
+            except Exception as e:
+                raise SegmentStageError(name, e) from e
+        return out
+
+    # -- device profiler hooks (runtime/devprof.py) -----------------------
+    def _prof_label(self) -> str:
+        """The profiler's filter label: the element's trace name, else
+        the store model's name, else the bundle's."""
+        if self.trace_name:
+            return self.trace_name
         if self._store_entry is not None:
-            return self._run_store(tensors)
+            return self._store_entry.name
+        b = self._bundle
+        return b.name if b is not None and b.name else "torch"
+
+    def _invoke_call(self, xs: ArrayTuple, model, label: str) -> ArrayTuple:
+        """`_call` with the first-run record (`compile_count`) and the
+        profiler's hooks: a (model, bucket)'s first run is counted under
+        FlopCounterMode, every later one sampled by CUDA events."""
+        key = (model[2], self._seg_sig, label)
+        prof = devprof.get()
+        if key not in self._ran:
+            self._ran.add(key)
+            if prof.enabled:
+                prof.attach_model(self._prof_label(), self)
+                return prof.capture_cost(
+                    self._prof_label(), label,
+                    lambda: self._call(xs, model),
+                    params=(model[1],) + tuple(m[1] for m in
+                                               self._seg_models),
+                    inputs=xs)
+        if not prof.enabled:
+            return self._call(xs, model)
+        prof.note_dispatch(self._prof_label(), label, self.device)
+        out = self._call(xs, model)
+        prof.note_launched()
+        return out
+
+    def run(self, tensors: ArrayTuple) -> ArrayTuple:
+        self._seg_begin()
+        if self._store_entry is not None:
+            return self._tag(self._run_store(tensors))
         model = self._held()
         if model[0].host_pre is not None:
             tensors = tuple(model[0].host_pre(tuple(tensors)))
-        return self._call(self._stage(tensors), model)
+        return self._tag(self._invoke_call(self._stage(tensors), model,
+                                           "static"))
 
     def _batchable(self, sig: Tuple[Tuple[tuple, torch.dtype], ...],
                    model=None) -> bool:
@@ -572,19 +751,21 @@ class TorchBackend(FilterBackend):
         runs on the card — and cached per signature, as the JAX package
         caches its eval_shape verdict. `model`: a `_held` tuple (the one
         held by default)."""
-        bundle, params, serial = model or self._model
-        ok = self._batch_ok.get((serial, sig))
+        model = model or self._model
+        bundle, _, serial = model
+        ok = self._batch_ok.get((serial, self._seg_sig, sig))
         if ok is None:
-            meta = self._metas.get(serial)
-            if meta is None:
-                meta = self._metas[serial] = params_on_meta(params)
             try:
                 xs = tuple(torch.empty(shape, dtype=dt, device="meta")
                            for shape, dt in sig)
                 with torch.inference_mode():
                     if self._pre is not None:
                         xs = self._pre(xs)
-                    out = to_tuple(bundle.fn(meta, *xs))
+                    out = to_tuple(bundle.fn(self._meta_of(model), *xs))
+                    if self._segment:
+                        out = self._run_segment(out, tuple(
+                            (m[0], self._meta_of(m), m[2])
+                            for m in self._seg_models))
                     if self._post is not None:
                         out = to_tuple(self._post(out))
                 nb = sig[0][0][0]
@@ -594,8 +775,15 @@ class TorchBackend(FilterBackend):
                          "per frame", bundle.name, sig, e)
                 ok = False
             self.batch_verdicts += 1
-            self._batch_ok[(serial, sig)] = ok
+            self._batch_ok[(serial, self._seg_sig, sig)] = ok
         return ok
+
+    def _meta_of(self, model):
+        """A held model's params on the meta device, by serial."""
+        meta = self._metas.get(model[2])
+        if meta is None:
+            meta = self._metas[model[2]] = params_on_meta(model[1])
+        return meta
 
     def invoke_batched(self, tensors: ArrayTuple, n: int,
                        keepdims: Sequence[bool] = ()) -> ArrayTuple:
@@ -607,6 +795,7 @@ class TorchBackend(FilterBackend):
         each frame's bytes and has no batched form. A store model picks
         one version for the whole micro-batch (the canary's granularity
         is the buffer)."""
+        self._seg_begin()
         ver = None
         if self._store_entry is not None:
             ver = self._pick_version()
@@ -627,17 +816,18 @@ class TorchBackend(FilterBackend):
         tr = self.tracer
         t0 = time.perf_counter() if tr.active or ver is not None else 0.0
         padded = tuple(pad_rows(x, n, nb) for x in xs)
+        label = f"dynb:{nb}"
         if ver is not None:
             self._note_bucket(ver, ("dynb", nb) + bucket_pairs(padded))
             try:
-                out = self._call(padded, model)
+                out = self._invoke_call(padded, model, label)
             except Exception:
                 self._record_invoke(ver, t0, error=True)
                 raise
             self._record_invoke(ver, t0)
         else:
-            out = self._call(padded, model)
-        out = tuple(o[:n] for o in out)
+            out = self._invoke_call(padded, model, label)
+        out = self._tag(tuple(o[:n] for o in out))
         if tr.active:
             tr.backend_span(self.trace_name or self.BACKEND_NAME,
                             "invoke_batched", t0, time.perf_counter(), n=n,
@@ -654,6 +844,7 @@ class TorchBackend(FilterBackend):
         see the padding (global-pool classifiers). A model that refuses
         the batched shape runs region by region. A model with a host-side
         input stage is refused (the JAX package's text)."""
+        self._seg_begin()
         model = self._held()
         if model[0].host_pre is not None:
             raise BackendError(
@@ -686,7 +877,7 @@ class TorchBackend(FilterBackend):
             res = self._call((pad_rows(block, n, nb),), model)[0]
             for k, i in enumerate(idxs):
                 out[i] = res[k] if stacked else res[k:k + 1]
-        return out
+        return list(self._tag(tuple(out)))
 
     def reload(self, model: Any) -> None:
         """Hot model swap (is-updatable): the new model is resolved and
@@ -853,6 +1044,9 @@ class TorchBackend(FilterBackend):
             raise BackendError(
                 f"the model takes no batched input {specs}")
         device_sync(self._call(xs, model), forced=False)
+        label = devprof.bucket_label(basekey) if basekey[0] == "fix" \
+            else f"dynb:{basekey[1]}"
+        self._ran.add((model[2], self._seg_sig, label))
         return True
 
     def prewarm_version(self, version: int, bundle: ModelBundle) -> int:
@@ -894,6 +1088,7 @@ class TorchBackend(FilterBackend):
         from nnstreamer_tpu_torch.serving.compile_cache import (
             manifest_buckets)
 
+        self._seg_begin()       # single-threaded (tensor_filter.start)
         ver = self._adopted_version
         vs = self._vstates.get(ver)
         if vs is None:
@@ -942,10 +1137,11 @@ class TorchBackend(FilterBackend):
         if model[0].host_pre is not None:
             tensors = tuple(model[0].host_pre(tuple(tensors)))
         xs = self._stage(tensors)
-        self._note_bucket(ver, ("fix",) + bucket_pairs(xs))
+        basekey = ("fix",) + bucket_pairs(xs)
+        self._note_bucket(ver, basekey)
         t0 = time.perf_counter()
         try:
-            out = self._call(xs, model)
+            out = self._invoke_call(xs, model, devprof.bucket_label(basekey))
         except Exception:
             self._record_invoke(ver, t0, error=True)
             raise
@@ -1025,6 +1221,12 @@ class TorchBackend(FilterBackend):
                        for vs in self._vstates.values())
         return tree_bytes(self._params)
 
+    def resident_bytes_by_version(self) -> Dict[str, int]:
+        """{"v<N>": bytes} per resident store version (the profiler's
+        per-version memory rows); empty for a model held alone."""
+        return {f"v{ver}": tree_bytes(vs.model[1])
+                for ver, vs in sorted(self._vstates.items())}
+
     # -- compiled windows --------------------------------------------------
     def invoke_window(self, frames: Sequence[ArrayTuple]) -> List[ArrayTuple]:
         """K same-signature frames as one compiled window → K output
@@ -1032,6 +1234,7 @@ class TorchBackend(FilterBackend):
         docstring). The model is picked once, at the window's start (a
         store model's version too: one canary draw a window, and K
         invokes of dt/K each in its per-version record)."""
+        self._seg_begin()
         ver = None
         if self._store_entry is not None:
             ver = self._pick_version()
@@ -1049,12 +1252,11 @@ class TorchBackend(FilterBackend):
             # inputs, never inside a capture
             frames = [tuple(host_pre(tuple(f))) for f in frames]
         staged = [self._stage(f) for f in frames]
+        label = f"win:{len(frames)}"
         t0 = time.perf_counter()
         try:
-            if on_card:
-                outs = self._window_on_card(model, key, g, staged, graphs)
-            else:
-                outs = [self._call(xs, model) for xs in staged]
+            outs = self._window_call(model, key, g, staged, graphs, label,
+                                     on_card)
         except Exception:
             if ver is not None:
                 self._record_invoke(ver, t0, error=True)
@@ -1073,19 +1275,63 @@ class TorchBackend(FilterBackend):
             tr.backend_span(self.trace_name or self.BACKEND_NAME,
                             "invoke_window", t0, t1, frames=len(staged),
                             **({"version": ver} if ver is not None else {}))
+        return [self._tag(o) for o in outs]
+
+    def _window_call(self, model, key, g, staged, graphs, label: str,
+                     on_card: bool) -> List[ArrayTuple]:
+        """One window's run with the profiler's hooks: the first window
+        of a K is counted (its eager run under FlopCounterMode; on the
+        card the capture after it is timed with it), every later window
+        sampled by CUDA events."""
+        prof = devprof.get()
+        first = (model[2], self._seg_sig, label)
+        if not prof.enabled or (first in self._ran or g is not None):
+            if prof.enabled:
+                prof.note_dispatch(self._prof_label(), label, self.device)
+            if on_card:
+                outs = self._window_on_card(model, key, g, staged, graphs)
+            else:
+                outs = [self._call(xs, model) for xs in staged]
+            if prof.enabled:
+                prof.note_launched()
+            return outs
+        from torch.utils.flop_counter import FlopCounterMode
+
+        self._ran.add(first)
+        prof.attach_model(self._prof_label(), self)
+        counter = FlopCounterMode(display=False)
+        t0 = time.perf_counter()
+        if on_card:
+            outs = self._window_on_card(model, key, g, staged, graphs,
+                                        counter)
+        else:
+            with counter:
+                outs = [self._call(xs, model) for xs in staged]
+        prof.note_compile(
+            self._prof_label(), label, seconds=time.perf_counter() - t0,
+            flops=counter.get_total_flops(),
+            bytes_accessed=devprof.tensor_bytes(
+                (model[1],) + tuple(m[1] for m in self._seg_models),
+                staged, outs))
         return outs
 
     def _window_on_card(self, model, key, g, staged: List[ArrayTuple],
-                        graphs: cuda_graphs.GraphCache) -> List[ArrayTuple]:
+                        graphs: cuda_graphs.GraphCache,
+                        counter=None) -> List[ArrayTuple]:
         """Replay `g`, the graph of `key` for `model`; without one, run
         the window eagerly (the warm-up a capture needs, and this
-        window's outputs) and capture it."""
+        window's outputs; under the profiler's `counter` when given) and
+        capture it."""
         flat = [x for xs in staged for x in xs]
         with torch.inference_mode():
             if g is not None:
                 outs = g.run(flat)
                 return [tuple(o.clone() for o in out) for out in outs]
-            outs = [self._call(xs, model) for xs in staged]
+            if counter is not None:
+                with counter:
+                    outs = [self._call(xs, model) for xs in staged]
+            else:
+                outs = [self._call(xs, model) for xs in staged]
             k, n_in = len(staged), len(staged[0])
 
             def body(*flat):
@@ -1093,7 +1339,8 @@ class TorchBackend(FilterBackend):
                                    model) for i in range(k)]
 
             graphs.capture(
-                key, body, flat, keep=model[:2],
+                key, body, flat,
+                keep=model[:2] + tuple(m[1] for m in self._seg_models),
                 what=f"model {model[0].name!r} window K={k} inputs "
                      f"{list(key[1])}")
         return outs

@@ -48,6 +48,11 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
         # single-in/single-out elements in one worker thread (direct
         # call-through, no channel hop per element)
         "chain_fusion": "1",
+        # device segments (graph/optimize.fuse_segments): before transform
+        # fusion, filter → transform → filter runs collapse into the
+        # upstream head filter, whose backend runs every member model in
+        # one invoke (one CUDA graph in a compiled window)
+        "device_segments": "1",
         # policy-handled errors in a row, with no successful process()
         # anywhere in the pipeline, before the run escalates to failure
         # (0 = never)

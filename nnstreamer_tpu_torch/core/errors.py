@@ -53,6 +53,17 @@ class BackendError(NNStreamerTPUError):
     kernel, or invoke."""
 
 
+class SegmentStageError(BackendError):
+    """A member stage of a composed device segment failed (composed or
+    host-fallback invoke). Carries the *member element's* name so the
+    owning head filter charges the failure to the element the user
+    wrote, not to the surviving head."""
+
+    def __init__(self, member: str, exc: BaseException):
+        super().__init__(f"segment stage {member!r} failed: {exc}")
+        self.member = member
+
+
 class StreamError(NNStreamerTPUError):
     """Runtime dataflow failure (the GST_FLOW_ERROR analog)."""
 

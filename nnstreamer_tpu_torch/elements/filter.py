@@ -44,8 +44,25 @@ combinations, per-invoke latency/throughput (:354-460), hot reload
   scheduler hands K queued frames to `process_window`, one backend
   `invoke_window` (one CUDA-graph replay on the card), outputs bit for
   bit those of K `process` calls. FLEXIBLE or micro-batched input, an
-  armed breaker, `latency-mode=sync` and a backend without
-  `invoke_window` (framework=pallas) keep the per-frame path.
+  armed breaker, `latency-mode=sync`, a backend without `invoke_window`
+  (framework=pallas), replicas and a segment whose members run host
+  side keep the per-frame path.
+- **Placement** (serving/placement.py, serving/sharding.py):
+  ``devices=N`` serves through N replicas, one whole backend per
+  logical device behind least-outstanding routing; ``shards=N`` through
+  one shard group whose weights are stored split over N devices;
+  ``devices=M shards=N`` through M/N such groups. Each replica or group
+  runs the one-device program, so outputs are the same bits. Declined
+  softly — a log line and the `replica_decline` stat, the one-device
+  path kept — for an explicit accelerator, a shared key, a store canary
+  and a segment head (and, for shards, host-side chains, I/O overrides
+  and a framework other than torch).
+- **Device segments** (graph/optimize.fuse_segments): downstream filters
+  absorbed into this head (`absorb_member`) are negotiated through it in
+  a chain and offered to the backend (`compose_segment`); a backend that
+  declines gets the member invokes run here, per buffer, with the same
+  bits. A member's failure is charged to the member by name
+  (SegmentStageError).
 """
 
 from __future__ import annotations
@@ -61,7 +78,8 @@ from nnstreamer_tpu_torch.backends.base import (
     CircuitBreaker, FilterBackend, get_backend)
 from nnstreamer_tpu_torch.core.config import get_config
 from nnstreamer_tpu_torch.core.errors import (
-    BackendError, CircuitOpenError, PipelineError)
+    BackendError, CircuitOpenError, PipelineError, SegmentStageError)
+from nnstreamer_tpu_torch.core.log import get_logger
 from nnstreamer_tpu_torch.core.registry import register_element
 from nnstreamer_tpu_torch.elements.decoder import aux_on
 from nnstreamer_tpu_torch.graph.optimize import chain_fn, transfer_spec
@@ -69,6 +87,8 @@ from nnstreamer_tpu_torch.graph.pipeline import Element, Emission, PropDef, Stre
 from nnstreamer_tpu_torch.runtime.sync import device_sync
 from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
 from nnstreamer_tpu_torch.tensor.info import TensorFormat, TensorsSpec
+
+log = get_logger("filter")
 
 
 def _prop_bool(s) -> bool:
@@ -119,6 +139,16 @@ class TensorFilter(Element):
         "custom": PropDef(str, "", "opaque backend option string"),
         "accelerator": PropDef(str, "", "device: cuda, cuda:<i> or cpu "
                                         "(empty: [filter] accelerator)"),
+        # data-parallel replicas (serving/placement.py): replica i is a
+        # whole backend on logical device i, the same bits as devices=0
+        "devices": PropDef(
+            int, 0, "data-parallel replicas, one per device (0=off)"),
+        # dense shards (serving/sharding.py): one backend whose weights
+        # are stored split over N devices, leased as one group (a fenced
+        # member fences the group); with devices=M, M//N groups
+        "shards": PropDef(
+            int, 0, "shards per group: one model stored split over N "
+                    "devices (0=off; 2/4/8)"),
         "input": PropDef(str, "", "override input dims (dim string list)"),
         "inputtype": PropDef(str, "", "override input types"),
         "output": PropDef(str, "", "override output dims"),
@@ -174,6 +204,19 @@ class TensorFilter(Element):
         self._dyn_batched = 0                  # dyn_batch of the input
         self._batch_keepdims: List[bool] = []
         self._forced_syncs = 0                 # latency-mode=sync waits
+        # device segment (graph/optimize.fuse_segments): downstream
+        # filters absorbed into this head as (mid programs, element)
+        self._members: List[Tuple[list, "TensorFilter"]] = []
+        # negotiated member stages: (mid chain | None, member, member
+        # batch keepdims)
+        self._member_stages: List[Tuple[Optional[Callable],
+                                        "TensorFilter", List[bool]]] = []
+        self._segment_in_backend = False
+        # replicas or shard groups (devices=/shards=): when set, invokes
+        # route through them; self.backend stays the negotiation source
+        # and runs no frame
+        self.replicas = None
+        self._replica_decline = ""
 
     # -- fusion (called by graph/optimize.py) ------------------------------
     def set_fusion(self, pre_programs, post_programs) -> None:
@@ -196,6 +239,20 @@ class TensorFilter(Element):
             return tuple(sub.device_decode(tuple(tensors), self._decoder_aux))
 
         self._post = post
+
+    def absorb_member(self, mid_programs, member: "TensorFilter") -> None:
+        """Absorb a downstream tensor_filter (and the transform chain
+        before it) removed by `graph/optimize.fuse_segments`: its model
+        runs in this head's backend invoke (`compose_segment`), or, where
+        the backend declines, is invoked here per buffer."""
+        self._members.append((list(mid_programs or []), member))
+
+    def segment_name(self) -> str:
+        """head+member1+member2… — the trace and report identity of the
+        segment (empty without members)."""
+        if not self._members:
+            return ""
+        return "+".join([self.name] + [m.name for _, m in self._members])
 
     #: reference framework names → the port's backends, so reference
     #: pipeline strings run verbatim (`framework=snpe model=add2_float.dlc`,
@@ -274,6 +331,13 @@ class TensorFilter(Element):
                     "models) or insert `tensor_resize size=H:W` to make the "
                     "stream static")
             self._flexible = True
+            if int(self.props["devices"] or 0) > 0:
+                self._replica_decline = (
+                    "FLEXIBLE stream (per-buffer shapes route through one "
+                    "backend's bucket set)")
+                log.warning("tensor_filter %s: devices=%d declined: %s",
+                            self.name, self.props["devices"],
+                            self._replica_decline)
             # per-region output shapes are known only per buffer
             model_out = self.backend.get_model_info()[1]
             return [TensorsSpec(
@@ -295,11 +359,18 @@ class TensorFilter(Element):
                    if self._pre_programs else "")
                 + ". Fix the upstream pipeline (converter/transform dims) or "
                   "override with input=/inputtype= properties")
-        if model_out is None:
+        need_set_input = model_out is None
+        if need_set_input:
             try:
                 model_out = self.backend.set_input_info(model_sees)
             except BackendError as e:
                 self.fail_negotiation(str(e))
+        # a segment's members negotiate in a chain, each on the previous
+        # stage's output after its connecting transforms, with every
+        # member-side check (model info, overrides, backend open) as if
+        # it were still in the graph
+        if self._members:
+            model_out = self._negotiate_members(model_out, spec.rate)
         model_out = transfer_spec(self._post_programs, model_out)
         if self._fused_decoder is not None:
             if self._out_combination is not None:
@@ -314,6 +385,10 @@ class TensorFilter(Element):
                     f"{model_out}: {e}")
             self._decoder_aux = aux_on(self._fused_decoder.device_aux(),
                                        self.backend.device)
+        # devices=/shards=: replicate the negotiated backend setup on the
+        # placed backends (after the decoder fusion, so each serves the
+        # final program)
+        self._maybe_setup_replicas(fw, need_set_input, model_sees)
         out = model_out.with_rate(spec.rate)
         if self._out_combination is not None:
             infos = []
@@ -329,6 +404,123 @@ class TensorFilter(Element):
         if self._dyn_batched:
             out = replace(out, dyn_batch=self._dyn_batched)
         return [out]
+
+    def _maybe_setup_replicas(self, fw: str, need_set_input: bool,
+                              model_sees) -> None:
+        """Open the devices=N replicas or shards=N groups
+        (serving/placement.py, serving/sharding.py). Each replica backend
+        gets the head's open props (plus its device pin), fused chains
+        and set_input_info, so each serves the head's program. What is
+        not supported declines softly (a log line and the
+        `replica_decline` stat; the one-device path serves): placement
+        never changes what a pipeline computes, only where."""
+        n = int(self.props["devices"] or 0)
+        shards = int(self.props["shards"] or 0)
+        if n <= 0 and shards <= 0:
+            return
+        decline = ""
+        if self._members:
+            decline = ("segment head (members absorbed); replicate the "
+                       "unfused filters or use segment placement instead")
+        elif self.props["accelerator"]:
+            decline = (f"accelerator={self.props['accelerator']!r} pins "
+                       f"one device explicitly")
+        elif self.props["shared_tensor_filter_key"]:
+            decline = "shared-tensor-filter-key holds one device-resident model"
+        elif "@" in str(self.props["model"] or "") and \
+                ":" in str(self.props["model"]).rpartition("@")[2]:
+            decline = "store canary split routes per-backend (seeded RNG)"
+        if not decline and shards > 0:
+            # a shard group serves the raw model bundle: a host-side
+            # chain or explicit I/O overrides have no per-group replay
+            if self._pre is not None or self._post is not None:
+                decline = ("custom-ops pre/post chain (sharded groups "
+                           "serve the raw model bundle)")
+            elif any(self.props[k] for k in
+                     ("input", "inputtype", "output", "outputtype",
+                      "inputname", "outputname")):
+                decline = "explicit I/O override props are single-backend"
+            elif fw != "torch":
+                decline = f"framework {fw!r} (sharding is torch-only)"
+        if decline:
+            what = f"devices={n}" if shards <= 0 else f"shards={shards}"
+            self._replica_decline = decline
+            log.warning("tensor_filter %s: %s declined: %s",
+                        self.name, what, decline)
+            return
+        if shards > 0:
+            from nnstreamer_tpu_torch.serving.sharding import (
+                SUPPORTED_SHARDS, ShardedReplicaSet)
+
+            if shards not in SUPPORTED_SHARDS:
+                self.fail_negotiation(
+                    f"shards must be one of {SUPPORTED_SHARDS} "
+                    f"(canonical 8-block serving layout), got {shards}")
+            groups = max(1, n // shards) if n > 0 else 1
+            try:
+                self.replicas = ShardedReplicaSet.open_sharded(
+                    self.props["model"], shards=shards, groups=groups,
+                    name=self.name, tracer=self._tracer)
+            except BackendError as e:
+                self.fail_negotiation(f"shards={shards}: {e}")
+            return
+        from nnstreamer_tpu_torch.serving.placement import ReplicaSet
+
+        pre, post = self._pre, self._post
+        fused = self._fused_in_backend
+
+        def configure(b):
+            if pre is not None or post is not None:
+                if bool(b.fuse(pre, post)) != fused:
+                    raise BackendError(
+                        "replica backend disagreed with the head about "
+                        "pre/post fusion — placement would change results")
+            if need_set_input:
+                b.set_input_info(model_sees)
+
+        try:
+            self.replicas = ReplicaSet.open(
+                fw, dict(self.props), n, configure=configure,
+                name=self.name)
+        except BackendError as e:
+            self.fail_negotiation(f"devices={n}: {e}")
+
+    def _negotiate_members(self, model_out: TensorsSpec, rate) -> TensorsSpec:
+        """Negotiate the segment's members in a chain, then offer the
+        backend the composition. → the last member's output spec."""
+        self._member_stages = []
+        cur = model_out
+        for mids, m in self._members:
+            cur = transfer_spec(mids, cur)
+            keep = [len(t.shape) >= 1 and t.shape[0] == 1
+                    for t in cur.tensors]
+            [cur] = m.negotiate([cur.with_rate(rate)])
+            self._member_stages.append((chain_fn(mids), m, keep))
+        compose = getattr(self.backend, "compose_segment", None)
+        self._segment_in_backend = bool(compose is not None and compose(
+            [(fn, m.backend, m.name) for fn, m, _ in self._member_stages]))
+        if not self._segment_in_backend:
+            log.info("segment %s: backend declined composition; member "
+                     "invokes run host side (results identical)",
+                     self.segment_name())
+        return cur
+
+    def _apply_segment_host(self, outputs, n=None, keepdims=None):
+        """Declined composition: each member's connecting chain and model
+        invoke here, in dataflow order — one invoke per member instead of
+        one per segment, the same bits."""
+        for fn, m, keep in self._member_stages:
+            if fn is not None:
+                outputs = fn(outputs)
+            try:
+                if n is None:
+                    outputs = m.backend.invoke(outputs)
+                else:
+                    outputs = m.backend.invoke_batched(outputs, n, keep)
+            except Exception as e:
+                m.backend.invoke_failures += 1
+                raise SegmentStageError(m.name, e) from e
+        return outputs
 
     def _subset_spec(self, spec: TensorsSpec) -> TensorsSpec:
         idxs = self._in_combination
@@ -354,17 +546,36 @@ class TensorFilter(Element):
                 self.props["breaker_threshold"],
                 self.props["breaker_cooldown_ms"] / 1e3)
         if self.backend is not None:
+            # a composed segment's spans land on the joined member names,
+            # so report() shows the segment and not vanished elements
             self.backend.tracer = self._tracer
-            self.backend.trace_name = self.name
+            self.backend.trace_name = self.segment_name() or self.name
             # a store-bound backend replays its persistent bucket
-            # manifest here, before any buffer flows
+            # manifest here, before any buffer flows; with replicas the
+            # head backend serves no frame, so they warm instead
             warm = getattr(self.backend, "warm_start", None)
-            if warm is not None:
+            if warm is not None and self.replicas is None:
                 warm()
+        if self.replicas is not None:
+            self.replicas.warm_start(self._tracer, self.name)
+        for _, m, _ in self._member_stages:
+            if m.backend is not None:
+                m.backend.tracer = self._tracer
+                m.backend.trace_name = m.name   # swaps keep member names
+                warm = getattr(m.backend, "warm_start", None)
+                if warm is not None and not self._segment_in_backend:
+                    # the host fallback invokes the member backend: warm
+                    # its manifest like any filter's
+                    warm()
 
     def stop(self) -> None:
+        if self.replicas is not None:
+            self.replicas.close()
         if self.backend is not None:
             self.backend.close()
+        for _, m in self._members:
+            if m.backend is not None:
+                m.backend.close()
 
     def extra_stats(self) -> dict:
         """Backend and breaker counters merged into this element's
@@ -397,8 +608,35 @@ class TensorFilter(Element):
         if self._breaker is not None:
             for k, v in self._breaker.stats().items():
                 out["breaker_" + k] = v
+        if self._members:
+            out["segment"] = self.segment_name()
+            out["segment_size"] = 1 + len(self._members)
+            out["segment_composed"] = int(self._segment_in_backend)
+            mswaps = sum(getattr(m.backend, "swap_count", 0) or 0
+                         for _, m in self._members)
+            if mswaps:
+                out["backend_swaps"] = out.get("backend_swaps", 0) + mswaps
         if self._forced_syncs:
             out["forced_syncs"] = self._forced_syncs
+        if self.replicas is not None:
+            rst = self.replicas.stats()
+            out["replica_devices"] = rst["devices"]
+            out["replica_live"] = rst["live"]
+            out["replica_invokes"] = sum(
+                r["invokes"] for r in rst["replicas"])
+            out["replica_errors"] = sum(
+                r["errors"] for r in rst["replicas"])
+            out["replica_reoffers"] = rst["reoffers"]
+            out["replica_fences"] = rst["fences"]
+            # per-device rows ride along for the metrics plane
+            out["replicas"] = rst["replicas"]
+            if "group_size" in rst:       # shard groups
+                out["shards"] = rst["group_size"]
+                out["shard_groups"] = rst["devices"]
+                if "leases" in rst:
+                    out["leases"] = rst["leases"]
+        if self._replica_decline:
+            out["replica_decline"] = self._replica_decline
         return out
 
     def _invoke_guarded(self, invoke, *args):
@@ -420,15 +658,40 @@ class TensorFilter(Element):
 
     def _invoke_or_raise(self, what: Callable[[], str], invoke, *args):
         """`_invoke_guarded`, a failure counted and raised as BackendError
-        with `what()` (built only then) naming the buffer."""
+        with `what()` (built only then) naming the buffer; a segment
+        member's failure names the member."""
         try:
             return self._invoke_guarded(invoke, *args)
         except CircuitOpenError:
             raise   # keep the type — error policies never retry these
+        except SegmentStageError as e:
+            self.backend.invoke_failures += 1
+            raise BackendError(
+                f"tensor_filter {self.name}: segment member {e.member!r} "
+                f"failed: {what()}: {e}") from e
         except Exception as e:
             self.backend.invoke_failures += 1
             raise BackendError(
                 f"tensor_filter {self.name}: {what()}: {e}") from e
+
+    def _invoke_segment(self, inputs):
+        """One invoke of this filter: through the replicas, or the
+        backend (a composed segment runs every member inside it) and the
+        host-side members after it. The breaker guards it as one unit."""
+        if self.replicas is not None:
+            return self.replicas.invoke(inputs)
+        outputs = self.backend.invoke(inputs)
+        if self._member_stages and not self._segment_in_backend:
+            outputs = self._apply_segment_host(outputs)
+        return outputs
+
+    def _invoke_segment_batched(self, inputs, n, keepdims):
+        if self.replicas is not None:
+            return self.replicas.invoke_batched(inputs, n, keepdims)
+        outputs = self.backend.invoke_batched(inputs, n, keepdims)
+        if self._member_stages and not self._segment_in_backend:
+            outputs = self._apply_segment_host(outputs, n, keepdims)
+        return outputs
 
     def _sync_outputs(self, outputs) -> tuple:
         """latency-mode=sync: one whole-tuple forced sync per buffer
@@ -452,7 +715,7 @@ class TensorFilter(Element):
             inputs = self._pre(inputs)
         outputs = self._invoke_or_raise(
             lambda: f"invoke failed on frame pts={buf.pts}",
-            self.backend.invoke, inputs)
+            self._invoke_segment, inputs)
         if self._post is not None and not self._fused_in_backend:
             outputs = self._post(outputs)
         if self.props["latency_mode"] == "sync":
@@ -482,7 +745,7 @@ class TensorFilter(Element):
         outputs = self._invoke_or_raise(
             lambda: f"batched invoke failed on buffer pts={buf.pts} "
                     f"occupancy={n}",
-            self.backend.invoke_batched, inputs, n, self._batch_keepdims)
+            self._invoke_segment_batched, inputs, n, self._batch_keepdims)
         if self._post is not None and not self._fused_in_backend:
             outputs = self._post(outputs)
         if self.props["latency_mode"] == "sync":
@@ -515,16 +778,21 @@ class TensorFilter(Element):
         """Whether the scheduler may serve this element's frames through
         compiled windows. Excluded are the paths whose per-frame behavior
         is not one fixed-shape invoke: FLEXIBLE and micro-batched input
-        (their own bucketing), an armed breaker (per-frame failure
-        accounting), sync latency mode (the point is a sync per frame),
-        and a backend without `invoke_window`."""
+        (their own bucketing), replica routing (a placement decision a
+        frame), an armed breaker (per-frame failure accounting), sync
+        latency mode (the point is a sync per frame), a segment whose
+        members run host side (host Python a frame anyway), and a
+        backend without `invoke_window`."""
         return (bool(self.props["compiled_loop"])
                 and self.backend is not None
                 and hasattr(self.backend, "invoke_window")
                 and not self._flexible
                 and not self._dyn_batched
+                and self.replicas is None
                 and self._breaker is None
-                and self.props["latency_mode"] != "sync")
+                and self.props["latency_mode"] != "sync"
+                and not (self._member_stages
+                         and not self._segment_in_backend))
 
     def swap_pending(self) -> bool:
         """A reload this backend has not taken up yet (through another

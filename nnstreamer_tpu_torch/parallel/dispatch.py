@@ -36,7 +36,7 @@ import queue as _q
 import threading
 import time
 from concurrent.futures import Future
-from typing import Any, Callable, List, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -76,25 +76,36 @@ class BatchCore:
     of real frames at its front; it returns one tensor or a tuple of
     them, resolved per frame as tuples of numpy rows.
 
+    `capacity` bounds the queue: submit() raises a typed StreamError once
+    `outstanding` (accepted but unresolved frames) reaches it, so a slow
+    device backpressures its callers (0 = unbounded).
+
+    `raw=True` switches the payload from stackable frames to opaque
+    invocation payloads: no squeeze, stack or pad; `run(items, n)` gets
+    the payload list as is and returns one output tuple per item, each
+    resolved as a tuple of numpy arrays (the replica path of
+    serving/placement.py routes whole filter invocations). `abort` fails
+    the queued payloads at once and shuts down (a fenced replica).
+
     Conservation contract: counters are bumped under `_lock` BEFORE
     futures resolve, so a caller that observed its result and then read
     stats() always sees its own frame counted; every accepted frame ends
     in exactly one of frames / errors / shutdown-failed.
-
-    The JAX package's queue bound (`capacity`), raw payloads and fenced
-    `abort` serve its replica placement (serving/placement.py), not
-    ported yet, and come with it.
     """
 
     def __init__(self, run: Callable[[Any, int], Any],
                  buckets: Sequence[int], max_delay_s: float, *,
-                 device: torch.device, name: str = "dispatch"):
+                 device: Optional[torch.device] = None,
+                 capacity: int = 0, raw: bool = False,
+                 name: str = "dispatch"):
         self._run = run
         self.buckets = sorted({int(b) for b in buckets})
         if not self.buckets or self.buckets[0] < 1:
             raise StreamError(f"bad bucket set {buckets!r}")
         self.max_delay = max_delay_s
-        self.device = device
+        self.device = device if device is not None else torch.device("cpu")
+        self.capacity = int(capacity)
+        self.raw = bool(raw)
         self.name = name
         self._pending: List[Tuple[Any, Future]] = []
         self._lock = threading.Lock()
@@ -127,10 +138,21 @@ class BatchCore:
         with self._lock:
             if self._stop:
                 raise StreamError(f"{self.name}: dispatcher is shut down")
+            if self.capacity and self._outstanding >= self.capacity:
+                raise StreamError(
+                    f"{self.name}: queue full "
+                    f"({self._outstanding}/{self.capacity} outstanding)")
             self._outstanding += 1
             self._pending.append((frame, fut))
         self._wake.set()
         return fut
+
+    @property
+    def outstanding(self) -> int:
+        """Frames accepted but not yet resolved (queued and in flight):
+        the least-outstanding router's load signal."""
+        with self._lock:
+            return self._outstanding
 
     def stats(self) -> dict:
         """Consistent counter snapshot (one lock hold — the counters are
@@ -229,6 +251,9 @@ class BatchCore:
         return batch.to(dev)
 
     def _run_batch(self, take) -> None:
+        if self.raw:
+            self._run_raw(take)
+            return
         try:
             frames = [self._squeeze(f) for f, _ in take]
             n = len(frames)
@@ -240,6 +265,41 @@ class BatchCore:
             self._done_q.put((tuple(_start_d2h(o) for o in outs), take, n))
         except Exception as e:  # resolve futures, never hang clients
             self._fail(take, e)
+
+    def _run_raw(self, take) -> None:
+        """Raw payloads: one output tuple per payload, no stack or pad;
+        the same overlapped read-back (each CUDA output's copy starts
+        here, the completion thread reads it)."""
+        n = len(take)
+        try:
+            outs = self._run([p for p, _ in take], n)
+            if len(outs) != n:
+                raise StreamError(
+                    f"raw run returned {len(outs)} results for {n} "
+                    f"payloads")
+            started = [tuple(_start_d2h(o) for o in per_item)
+                       for per_item in outs]
+            self._done_q.put((started, take, n))
+        except Exception as e:
+            self._fail(take, e)
+
+    def abort(self, cause: str = "aborted") -> None:
+        """Fence-style teardown: fail every queued payload at once (the
+        device is gone; draining would lie), let a batch already launched
+        complete, then shut down. The caller re-routes the failed
+        payloads to surviving replicas."""
+        with self._lock:
+            if self._shutdown_done:
+                return
+            self._stop = True    # refuse new submits before draining
+            doomed = self._pending
+            self._pending = []
+            self.errors += len(doomed)
+            self._outstanding -= len(doomed)
+        for _, fut in doomed:
+            if not fut.done():
+                fut.set_exception(StreamError(f"{self.name}: {cause}"))
+        self.shutdown(cause)
 
     def _fail(self, take, e: Exception) -> None:
         with self._lock:
@@ -267,9 +327,13 @@ class BatchCore:
                 continue
             outs, take, n = item
             try:
-                host = [_host(o) for o in outs]
-                results = [tuple(h[i] for h in host)
-                           for i in range(len(take))]
+                if self.raw:
+                    results = [tuple(_host(o) for o in per_item)
+                               for per_item in outs]
+                else:
+                    host = [_host(o) for o in outs]
+                    results = [tuple(h[i] for h in host)
+                               for i in range(len(take))]
                 # count BEFORE resolving: a caller that observed its
                 # result (and then read stats()) must see these frames
                 with self._lock:

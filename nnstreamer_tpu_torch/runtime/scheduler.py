@@ -46,13 +46,17 @@ double-buffered, so a filter's device work overlaps upstream conversion.
   errors, pending swaps, armed timers and EOS bail back to per-frame
   mode, counted by cause (runtime/compiled_loop.py). Fused chains never
   enter a window.
+- Device segments ([runtime] device_segments, default on): before
+  transform fusion, maximal filter → transform → filter runs collapse
+  into one surviving head filter whose backend runs every member model in
+  one invoke (`graph/optimize.fuse_segments`); `device_segments()` and
+  report()'s "device segments" section list them.
 - Observability: always-on `ElementStats` per element (`stats()`,
   `report()`); with `trace=True` a recording `Tracer` gets every hook,
   each behind one `if tracer.active:` test (runtime/tracing.py says how
-  to read host spans of device work).
-
-The JAX package's device segments are not ported yet, so neither their
-runner knob nor their report section exists here.
+  to read host spans of device work). With the device profiler on
+  (runtime/devprof.py), `stop()` writes its counters onto the tracer's
+  devprof track.
 """
 
 from __future__ import annotations
@@ -182,9 +186,9 @@ class PipelineRunner:
     Tracer, or a tracer object), `max_consecutive_errors` (100; 0 never
     escalates), `watchdog` (on), `stall_budget_s` (30.0),
     `queue_stall_budget_s` (= stall_budget_s), `watchdog_action` (warn |
-    fail), `chain_fusion` (on), `max_inflight` (8), `queue_capacity` (4),
-    `compiled_loop` (on), `compiled_loop_window` (8, at least 2),
-    `compiled_loop_arm` (4).
+    fail), `chain_fusion` (on), `device_segments` (on), `max_inflight`
+    (8), `queue_capacity` (4), `compiled_loop` (on),
+    `compiled_loop_window` (8, at least 2), `compiled_loop_arm` (4).
     """
 
     def __init__(self, pipeline: Pipeline, queue_capacity: Optional[int] = None,
@@ -195,6 +199,7 @@ class PipelineRunner:
                  queue_stall_budget_s: Optional[float] = None,
                  watchdog_action: Optional[str] = None,
                  chain_fusion: Optional[bool] = None,
+                 device_segments: Optional[bool] = None,
                  max_inflight: Optional[int] = None,
                  compiled_loop: Optional[bool] = None,
                  compiled_loop_window: Optional[int] = None,
@@ -216,6 +221,11 @@ class PipelineRunner:
         if chain_fusion is None:
             chain_fusion = cfg.get_bool("runtime", "chain_fusion", True)
         self._chain_fusion = bool(chain_fusion)
+        # device segments: filter → transform → filter runs fused into one
+        # composed invoke before transform fusion (graph/optimize)
+        if device_segments is None:
+            device_segments = cfg.get_bool("runtime", "device_segments", True)
+        self._device_segments = bool(device_segments)
         # compiled steady-state loop: arm after N identical-signature
         # frames, then sweep <= K queued frames into one window
         if compiled_loop is None:
@@ -290,8 +300,14 @@ class PipelineRunner:
         pipe = self.pipeline
         if not pipe._negotiated:
             if self._optimize:
-                from nnstreamer_tpu_torch.graph.optimize import fuse_transforms
+                from nnstreamer_tpu_torch.graph.optimize import (
+                    fuse_segments, fuse_transforms)
 
+                # segments first: the head's pre chain, the post chain
+                # after the last member and a trailing device decoder are
+                # then absorbed by the transform pass
+                if self._device_segments:
+                    fuse_segments(pipe)
                 fuse_transforms(pipe)
             pipe.negotiate()
         for name in pipe.elements:
@@ -384,6 +400,10 @@ class PipelineRunner:
 
     def stop(self) -> None:
         """Request teardown; safe to call multiple times."""
+        if self.tracer.active and not self._stop_evt.is_set():
+            from nnstreamer_tpu_torch.runtime import devprof
+
+            devprof.get().emit_counters(self.tracer)
         self._stop_evt.set()
         for e in self.pipeline.elements.values():
             if isinstance(e, SourceElement):
@@ -462,6 +482,15 @@ class PipelineRunner:
                          "call-through):")
             for chain in self._chains.values():
                 lines.append("  " + " → ".join(m.name for m in chain))
+        segs = self.device_segments()
+        if segs:
+            lines.append("")
+            lines.append("device segments (one composed invoke per "
+                         "segment):")
+            for s in segs:
+                lines.append(
+                    f"  {s['segment']}: {s['size']} filters, "
+                    f"{'composed' if s['composed'] else 'host fallback'}")
         lines.append("")
         lines.append(f"queue high-water (capacity {self._cap}):")
         for l in self.pipeline.links:
@@ -650,6 +679,22 @@ class PipelineRunner:
                 self._chain_member[m.name] = e.name
             log.debug("pipeline %r: chain-fused %s (one worker thread)",
                       pipe.name, " → ".join(m.name for m in chain))
+
+    def device_segments(self) -> List[dict]:
+        """The device segments `fuse_segments` formed (after start()):
+        one dict per surviving head with absorbed members — {head,
+        segment (joined names), size, composed}; composed=False means the
+        backend declined and the members run host side (the same bits,
+        one invoke per member)."""
+        out = []
+        for e in self.pipeline.elements.values():
+            seg = getattr(e, "segment_name", None)
+            if seg is None or not seg():
+                continue
+            out.append({"head": e.name, "segment": seg(),
+                        "size": 1 + len(e._members),
+                        "composed": bool(e._segment_in_backend)})
+        return out
 
     def fused_chains(self) -> List[List[str]]:
         """Element-name chains the scheduler fused (after start())."""

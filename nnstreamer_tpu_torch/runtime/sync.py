@@ -7,7 +7,10 @@ every read-back through :func:`to_host`. One call site means one way to
 wait — a CUDA stream synchronize per device the tensors live on — and one
 count of the *forced* syncs, the host-path tax the async dispatch exists
 to avoid. Given a tracer and an element name, a forced sync is also
-recorded on the tracer (`Tracer.record_forced_sync`).
+recorded on the tracer (`Tracer.record_forced_sync`). With the device
+profiler on (runtime/devprof.py), each sync also closes this thread's
+finished invoke samples — their CUDA events are complete once the wait
+is — without a sync of the profiler's own or any change to the count.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import time
 import numpy as np
 import torch
 
+from nnstreamer_tpu_torch.runtime import devprof
 from nnstreamer_tpu_torch.tensor.buffer import HostCopy
 from nnstreamer_tpu_torch.tensor.dtypes import DType
 
@@ -50,12 +54,17 @@ def device_sync(tensors, tracer=None, name=None, forced: bool = True):
     leaves = tensors if isinstance(tensors, (tuple, list)) else (tensors,)
     devices = {t.device for t in leaves
                if isinstance(t, torch.Tensor) and t.is_cuda}
+    prof = devprof.get()
     if not devices:
+        if prof.enabled:
+            prof.sample_sync()
         return tensors
     for dev in devices:
         # the scheduler's threads all launch on each device's current
         # (default) stream, so finishing it finishes these tensors
         torch.cuda.current_stream(dev).synchronize()
+    if prof.enabled:
+        prof.sample_sync()
     if forced:
         _count(tracer, name)
     return tensors

@@ -268,9 +268,8 @@ class AutoTuner:
         self.hysteresis_frac = float(hysteresis_frac)
         self.cooldown_s = float(cooldown_s)
         self.name = name
-        # flight recorder (the JAX package's runtime/flightrec.py, not
-        # ported yet: Queue 1 item 4f): when set, tick() feeds it
-        # observed-p99-over-budget breaches
+        # flight recorder (runtime/flightrec.py attach()): when set,
+        # tick() feeds it observed-p99-over-budget breaches
         self.flight: Any = None
         self._on_apply = on_apply
         self._on_victims = on_victims

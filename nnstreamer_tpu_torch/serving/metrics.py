@@ -25,10 +25,9 @@ The HTTP handler is deliberately dependency-free (http.server from the
 stdlib) and runs entirely host-side: it reads counters under their own
 locks and never touches device state.
 
-`devprof=` takes a device profiler's stats() (the nns_jit_*,
-nns_invoke_* and nns_device_hbm_* families). The port has no device
-profiler yet, so `serve` passes None and those families are absent from
-its scrapes (ROADMAP N25).
+`devprof=` takes the device profiler's stats() (runtime/devprof.py: the
+nns_jit_*, nns_invoke_* and nns_device_hbm_* families); `serve
+--metrics-port` turns the profiler on and passes it.
 """
 
 from __future__ import annotations

@@ -1,6 +1,23 @@
-"""Sharded LLM serving: one transformer across N devices (``shards=N``),
-the counterpart of the JAX package's serving/sharding.py for the paged
-LLM path.
+"""Sharded serving: one model across N devices (``shards=N``), the
+counterpart of the JAX package's serving/sharding.py — the dense filter
+path (`ShardedBackend`, `ShardedReplicaSet`) and the paged LLM path.
+
+**Dense path** (`ShardedBackend`): any ``fn(params, *inputs)`` model
+serves sharded by storing its params through parallel/mesh.py's
+`shard_params` under `dense_shard_rules` (a conv's output channels, the
+classifier's input features, the column/row rules of 2-D dense weights;
+what a group does not divide stays whole): each split leaf lives as its
+contiguous slices, slice i on the group's device i. Each invoke gathers
+the split leaves onto the group's first ("home") device —
+``torch.cat`` of the slices in their fixed order, pure data movement —
+and runs the unmodified model on them (`torch.func.functional_call` for
+an nn.Module), so the output equals the one-device output bit for bit
+for ANY model. Storage is partitioned; the gathered copy lives on the
+home device for the invoke (the JAX package gathers inside its SPMD
+program, ROADMAP N28). `ShardedReplicaSet` (``devices=M shards=N``)
+puts M/N such groups behind the `ReplicaSet` front door, each leasing
+its devices from a `ChipLeaseTable`; fencing any member device fences
+its whole group, and its queued work re-offers to the others.
 
 **Canonical blocking — the bit-parity mechanism.** Every sharded weight
 is cut into a FIXED number of blocks (``FIXED_BLOCKS = 8``, the largest
@@ -36,22 +53,28 @@ parity anchor.
 
 The sharded decode and prefill attention is plain torch (the JAX
 package's einsum), not a kernel; the ring's step is the
-`flash_block_update` kernel on CUDA tensors. `ShardedBackend` (the dense
-filter path) and `ShardedReplicaSet` are not ported yet.
+`flash_block_update` kernel on CUDA tensors.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+import threading
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from nnstreamer_tpu_torch.core.errors import BackendError
+from nnstreamer_tpu_torch.core.log import get_logger
 from nnstreamer_tpu_torch.llm.paged_model import _rope_rows
 from nnstreamer_tpu_torch.models.transformer import (
     _expand_kv, _mlp, _qkv, attend, rmsnorm, rope)
-from nnstreamer_tpu_torch.serving.placement import device_of
+from nnstreamer_tpu_torch.serving.placement import (
+    VIRTUAL_DEVICES_HINT, ChipLeaseTable, ReplicaSet, device_of,
+    visible_devices)
+
+log = get_logger("serving.sharding")
 
 #: canonical block count: numerics depend on this constant, never on the
 #: shard count, so any N dividing it serves bit-identical outputs
@@ -77,6 +100,368 @@ def shard_devices(indices: Sequence[int]) -> List[torch.device]:
     """The devices of a shard group's logical ordinals (typed error past
     the visible ones, naming ``[parallel] virtual_devices``)."""
     return [device_of(int(i)) for i in indices]
+
+
+# -- the dense path: split storage, gathered on use ----------------------------
+
+def dense_shard_rules():
+    """Column/row rules for dict-tree dense params (the JAX layout:
+    ``w1``-style names split the output axis, ``w2``/``wo``/``wd`` the
+    input axis), layered over parallel/mesh.default_param_rules (the
+    conv and classifier rules under the port's names)."""
+    from nnstreamer_tpu_torch.parallel.mesh import default_param_rules
+
+    return (
+        ("w1", (None, "tp")),
+        ("wi", (None, "tp")),
+        ("wqkv", (None, "tp")),
+        ("w2", ("tp", None)),
+        ("wo", ("tp", None)),
+        ("wd", ("tp", None)),
+    ) + tuple(default_param_rules())
+
+
+class _Call(torch.nn.Module):
+    """The unmodified model fn over a module: `functional_call` swaps in
+    the gathered params and buffers under the ``m.`` prefix."""
+
+    def __init__(self, fn, module: torch.nn.Module):
+        super().__init__()
+        self.fn = fn
+        self.m = module
+
+    def forward(self, *xs):
+        return self.fn(self.m, *xs)
+
+
+def _rebuild(tree, full: Dict[str, torch.Tensor], path=()):
+    """`tree` (dict/list/tuple of leaves) with every leaf replaced by
+    ``full[<its /-joined path>]``."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, full, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(v, full, path + (str(i),))
+                          for i, v in enumerate(tree))
+    key = "/".join(path)
+    return full.get(key, tree)
+
+
+class ShardedBackend:
+    """One model served from one shard group of N logical devices.
+
+    Its params are stored split over the group (`shard_params` under
+    `dense_shard_rules`); each invoke gathers the split leaves onto the
+    home device in their fixed order and runs the unmodified model fn,
+    so outputs are those of the one-device backend bit for bit and each
+    device stores 1/N of every split weight.
+
+    The store handle protocol, as the torch backend's:
+    `prewarm_version` places the incoming version and runs it once on
+    every input signature this group served, before the store's epoch
+    flips (a failure raises there: nothing flipped); `maybe_adopt` flips
+    at the next invoke, and a flip after a prewarm runs nothing for the
+    first time."""
+
+    def __init__(self, model, device_indices: Sequence[int], *,
+                 name: str = "sharded"):
+        from nnstreamer_tpu_torch.parallel.mesh import Mesh
+
+        self.name = name
+        self.device_indices = tuple(int(i) for i in device_indices)
+        self.shards = validate_shards(len(self.device_indices))
+        self.devices = shard_devices(self.device_indices)
+        self.home = self.devices[0]
+        self.mesh = Mesh(np.array(self.devices, dtype=object), ("tp",))
+        self.invokes = 0
+        self.invoke_failures = 0
+        self.adopted_epoch = -1
+        self.swap_count = 0
+        self.staging_transfers = 0
+        self.staging_elided = 0
+        self._lock = threading.Lock()
+        #: (version, input signature) pairs run once (the JAX package's
+        #: compiles: one per SPMD executable)
+        self._ran: set = set()
+        #: version → {"placed", "fn", "skeleton", "tree", "host_pre"}
+        self._vers: Dict[Any, dict] = {}
+        self._entry = None
+        self._pinned = None
+        self._version: Any = None
+        self._bind(model)
+
+    # -- model binding -------------------------------------------------------
+    def _bind(self, model) -> None:
+        if isinstance(model, str) and model.startswith("store://"):
+            from nnstreamer_tpu_torch.serving.store import (
+                get_store, parse_store_ref)
+
+            ref = parse_store_ref(model)
+            self._entry = get_store().entry(ref.name)
+            if ref.version is not None:
+                self._pinned = self._entry.resolve_version(ref.version)
+                self._version = self._pinned
+            else:
+                cur, epoch = self._entry.state
+                self._version, self.adopted_epoch = cur, epoch
+            if self._version is None:
+                raise BackendError(
+                    f"sharded backend: store model {ref.name!r} has no "
+                    f"versions registered")
+            self._vers[self._version] = self._place(
+                self._entry.bundle(self._version))
+            self._entry.attach(self)
+            return
+        # anything else (zoo://, ModelBundle, callables, model files)
+        # resolves through the torch backend's model resolution
+        from nnstreamer_tpu_torch.backends.torch_backend import TorchBackend
+
+        self._version = None
+        self._vers[None] = self._place(TorchBackend()._resolve(model))
+
+    def _place(self, bundle) -> dict:
+        """Split a version's params over the group (copies; the bundle
+        stays the store's)."""
+        from nnstreamer_tpu_torch.backends.torch_backend import (
+            params_on_meta)
+        from nnstreamer_tpu_torch.parallel.mesh import shard_params
+
+        params = bundle.params
+        ver = {"fn": bundle.fn, "host_pre": getattr(bundle, "host_pre", None),
+               "placed": {}, "skeleton": None, "tree": params}
+        if params is None:
+            return ver
+        ver["placed"] = shard_params(params, self.mesh, "tp",
+                                     dense_shard_rules())
+        if isinstance(params, torch.nn.Module):
+            ver["skeleton"] = _Call(bundle.fn, params_on_meta(params).eval())
+        return ver
+
+    def _gather(self, ver: dict) -> Dict[str, torch.Tensor]:
+        """Every leaf whole on the home device: a split leaf's slices
+        concatenated in device order, a whole one as stored."""
+        full = {}
+        for path, leaf in ver["placed"].items():
+            parts = leaf["parts"]
+            if leaf["dim"] is None:
+                full[path] = parts[0]
+            else:
+                full[path] = torch.cat(
+                    [p.to(self.home, non_blocking=True) for p in parts],
+                    dim=leaf["dim"])
+        return full
+
+    @property
+    def tracks_store_epoch(self) -> bool:
+        return self._entry is not None and self._pinned is None
+
+    def shard_bytes(self) -> List[int]:
+        """Bytes of params stored on each device of the group, in group
+        order (whole leaves count on the home device)."""
+        out = [0] * len(self.devices)
+        with self._lock:
+            vers = list(self._vers.values())
+        for ver in vers:
+            for leaf in ver["placed"].values():
+                for i, p in enumerate(leaf["parts"]):
+                    out[i] += p.numel() * p.element_size()
+        return out
+
+    def resident_bytes(self) -> int:
+        return sum(self.shard_bytes())
+
+    # -- store handle protocol -----------------------------------------------
+    def maybe_adopt(self) -> None:
+        if not self.tracks_store_epoch:
+            return
+        cur, epoch = self._entry.state
+        if epoch == self.adopted_epoch:
+            return
+        with self._lock:
+            if cur not in self._vers:        # flip without a prewarm
+                self._vers[cur] = self._place(self._entry.bundle(cur))
+            for v in [v for v in self._vers
+                      if v not in (cur, self._pinned)]:
+                del self._vers[v]
+            self._version, self.adopted_epoch = cur, epoch
+            self.swap_count += 1
+        log.info("sharded %s adopted %s@%s epoch=%d", self.name,
+                 self._entry.name, cur, epoch)
+
+    def prewarm_version(self, version, bundle) -> int:
+        """Swap controller hook: place the incoming version over the
+        group and run it once on every input signature the group has
+        served, before the flip (a failure raises here). → signatures
+        run."""
+        with self._lock:
+            self._vers[version] = self._place(bundle)
+            served = sorted({k[1] for k in self._ran})
+        warmed = 0
+        for sig in served:
+            xs = tuple(torch.zeros(shape, dtype=dt, device=self.home)
+                       for shape, dt in sig)
+            self._run(xs, version)
+            warmed += 1
+        return warmed
+
+    # -- execution -------------------------------------------------------------
+    def _run(self, xs: tuple, version) -> tuple:
+        ver = self._vers[version]
+        sig = tuple((tuple(x.shape), x.dtype) for x in xs)
+        self._ran.add((version, sig))
+        with torch.inference_mode():
+            if ver["skeleton"] is not None:
+                full = {"m." + k: v for k, v in self._gather(ver).items()}
+                out = torch.func.functional_call(ver["skeleton"], full, xs)
+            elif ver["placed"]:
+                out = ver["fn"](_rebuild(ver["tree"], self._gather(ver)),
+                                *xs)
+            else:
+                out = ver["fn"](ver["tree"], *xs)
+        return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+    def invoke(self, inputs: tuple) -> tuple:
+        from nnstreamer_tpu_torch.backends.torch_backend import stage
+
+        self.maybe_adopt()
+        version = self._version
+        try:
+            pre = self._vers[version]["host_pre"]
+            if pre is not None:
+                inputs = pre(tuple(inputs))
+            xs, moved = stage(inputs, self.home)
+            self.staging_transfers += moved
+            self.staging_elided += len(xs) - moved
+            out = self._run(xs, version)
+        except BackendError:
+            self.invoke_failures += 1
+            raise
+        self.invokes += 1
+        return out
+
+    def invoke_batched(self, inputs: tuple, n: int, keepdims) -> tuple:
+        # the group serves the stacked batch as one invocation; the
+        # batching semantics (stack axis, keepdims) are the caller's
+        return self.invoke(inputs)
+
+    # -- lifecycle -------------------------------------------------------------
+    @property
+    def compile_count(self) -> int:
+        """(version, input signature) pairs run for the first time."""
+        return len(self._ran)
+
+    def warm_start(self) -> None:
+        return None
+
+    def close(self) -> None:
+        if self._entry is not None:
+            try:
+                self._entry.detach(self)
+            except Exception:
+                pass
+        with self._lock:
+            self._vers.clear()
+
+    def stats(self) -> dict:
+        return {
+            "devices": list(self.device_indices),
+            "shards": self.shards,
+            "invokes": self.invokes,
+            "compile_count": self.compile_count,
+            "adopted_epoch": self.adopted_epoch,
+            "swap_count": self.swap_count,
+            "shard_bytes": self.shard_bytes(),
+        }
+
+
+class ShardedReplicaSet(ReplicaSet):
+    """G shard groups of N devices each behind the ReplicaSet front door.
+
+    Each "replica" is one `ShardedBackend`, so routing, backpressure,
+    the re-offer path and the conservation ledger are the ReplicaSet's;
+    what changes is the unit of failure: `fence_device(d)` fences the
+    device's whole GROUP (a group cannot serve without one of its
+    slices), its lease rows go fenced in the group's `ChipLeaseTable`,
+    and the stranded work re-routes to the surviving groups."""
+
+    def __init__(self, backends, group_devices: List[Tuple[int, ...]],
+                 leases: Optional[ChipLeaseTable] = None, **kw):
+        self.group_devices = [tuple(g) for g in group_devices]
+        self.leases = leases
+        super().__init__(backends, list(range(len(backends))), **kw)
+
+    @classmethod
+    def open_sharded(cls, model, *, shards: int, groups: int = 0,
+                     leases: Optional[ChipLeaseTable] = None,
+                     queue_cap: int = 64, name: str = "sharded",
+                     tracer=None) -> "ShardedReplicaSet":
+        """Open `groups` shard groups of `shards` devices (0 = as many as
+        the visible devices fit, at least one), each leasing its devices
+        from `leases` under one owner (a fresh table over the visible
+        devices when the caller shares none)."""
+        shards = validate_shards(shards)
+        ndev = len(visible_devices())
+        if groups <= 0:
+            groups = max(1, ndev // shards)
+        if groups * shards > ndev:
+            raise BackendError(
+                f"shards={shards} x {groups} groups needs "
+                f"{groups * shards} devices, {ndev} visible; "
+                f"{VIRTUAL_DEVICES_HINT}")
+        if leases is None:
+            leases = ChipLeaseTable(range(ndev))
+        store_name = ""
+        if isinstance(model, str) and model.startswith("store://"):
+            store_name = model[len("store://"):].split("@", 1)[0]
+        backends, group_devs = [], []
+        try:
+            for g in range(groups):
+                chips = leases.lease(f"{name}/g{g}", shards)
+                b = ShardedBackend(model, chips, name=f"{name}/g{g}")
+                backends.append(b)
+                group_devs.append(chips)
+        except Exception:
+            for g, b in enumerate(backends):
+                try:
+                    b.close()
+                except Exception:
+                    pass
+                leases.release(f"{name}/g{g}")
+            raise
+        return cls(backends, group_devs, leases, queue_cap=queue_cap,
+                   bucket=1, name=name, tracer=tracer,
+                   store_name=store_name)
+
+    def group_of(self, chip: int) -> Optional[int]:
+        for g, devs in enumerate(self.group_devices):
+            if int(chip) in devs:
+                return g
+        return None
+
+    def fence_device(self, chip: int, cause: str = "fenced") -> bool:
+        """A member device died: fence its whole shard group — the lease
+        rows and the routing replica — so conservation flows through the
+        inherited re-offer path."""
+        g = self.group_of(chip)
+        if g is None:
+            return False
+        if self.leases is not None:
+            self.leases.fence(f"{self.name}/g{g}")
+        return self.fence(g, f"member device {chip} {cause}")
+
+    def stats(self) -> dict:
+        out = super().stats()
+        # rows stay under "replicas" (filter.extra_stats and the metric
+        # scrape read that key); sharding adds fields, not a schema
+        for g, row in enumerate(out["replicas"]):
+            row["group"] = g
+            row["devices"] = list(self.group_devices[g])
+            row["shards"] = len(self.group_devices[g])
+        out["group_size"] = (len(self.group_devices[0])
+                             if self.group_devices else 0)
+        if self.leases is not None:
+            out["leases"] = self.leases.snapshot()["counts"]
+        return out
 
 
 # -- blocked weights -----------------------------------------------------------

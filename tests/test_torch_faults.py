@@ -10,8 +10,8 @@ seeded fault hits. Where the JAX tests register a custom filter
 function (`register_pallas_filter`). tensor_repo's slot overflow is
 held to JAX's error text (without the JAX test's elapsed-time bound).
 Every error class round-trips through pickle with its state, as JAX's
-(ServerBusyError's fields too); SegmentStageError comes with the device
-segments (ROADMAP Queue 1 item 4e). No test asserts a
+(ServerBusyError's fields too, SegmentStageError's member). No test
+asserts a
 wall-clock bound; the watchdog tests use budgets far from the delays
 they flag.
 """
@@ -740,6 +740,7 @@ _ERR_INSTANCES = [
     errors_mod.FaultInjected("injected at pts=3"),
     errors_mod.WatchdogStall("element x stalled 2.0s"),
     errors_mod.CircuitOpenError("breaker open, 3 failures"),
+    errors_mod.SegmentStageError("f2", RuntimeError("member exploded")),
 ]
 
 

@@ -86,6 +86,11 @@ import nnstreamer_tpu_torch.serving.worker
 import nnstreamer_tpu_torch.serving.pool
 import nnstreamer_tpu_torch.serving.metrics
 import nnstreamer_tpu_torch.serving.autotune
+import nnstreamer_tpu_torch.serving.placement
+import nnstreamer_tpu_torch.serving.sharding
+import nnstreamer_tpu_torch.runtime.devprof
+import nnstreamer_tpu_torch.runtime.flightrec
+import nnstreamer_tpu_torch.parallel.mesh
 bad = [m for m in sys.modules if m in ("jax", "nnstreamer_tpu")
        or m.startswith(("jax.", "nnstreamer_tpu."))]
 assert not bad, bad
@@ -124,6 +129,23 @@ def _imported_modules(path: Path):
 def test_no_module_imports_jax_or_the_jax_package(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path} imports {bad}"
+
+
+#: the modules of the placement, segment and profiler slice: the scan above
+#: must reach each of them
+SLICE_MODULES = ("serving/placement.py", "serving/sharding.py",
+                 "parallel/mesh.py", "parallel/dispatch.py",
+                 "graph/optimize.py", "runtime/devprof.py",
+                 "runtime/flightrec.py", "runtime/sync.py",
+                 "backends/torch_backend.py", "elements/filter.py",
+                 "__main__.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES)
+def test_scan_covers_the_placement_and_profiler_modules(rel):
+    path = PORT / rel
+    assert path in sorted(PORT.rglob("*.py"))
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
 
 
 def test_no_cuda_and_no_cpu_request_raises(monkeypatch):

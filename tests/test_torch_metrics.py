@@ -183,7 +183,7 @@ class TestExposition:
 
 def _snapshots(tr_mod, Buffer):
     """Snapshot inputs covering every family the port can be handed
-    (devprof aside: the port passes None, ROADMAP N25)."""
+    (devprof's: tests/test_torch_devprof.py)."""
     tr = _feed(tr_mod.Tracer(), Buffer, 6, "f")
     tr.record_compiled_window("f", 4, 1.0, 1.001)
     tr.record_loop_bail("f", "eos", 1.0)

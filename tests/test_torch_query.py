@@ -489,7 +489,8 @@ def test_serversrc_refuses_wildcard_advertise(broker):
 
 def test_registry_probe():
     """The three query elements are the port's now; seven element names
-    stay JAX-only, and the filter's property set has canary_seed."""
+    stay JAX-only, and the filter has every property of JAX's (canary_seed,
+    devices and shards among them)."""
     import nnstreamer_tpu.elements  # noqa: F401  (registers built-ins)
     import nnstreamer_tpu_torch.elements  # noqa: F401
     from nnstreamer_tpu.core.registry import PluginKind as JKind
@@ -512,7 +513,8 @@ def test_registry_probe():
     from nnstreamer_tpu.elements import TensorFilter as JFilter
     from nnstreamer_tpu_torch.elements import TensorFilter as TFilter
 
-    assert set(JFilter.PROPS) - set(TFilter.PROPS) == {"devices", "shards"}
+    assert set(JFilter.PROPS) - set(TFilter.PROPS) == set()
+    assert {"devices", "shards", "canary_seed"} <= set(TFilter.PROPS)
 
 
 # -- across the packages ------------------------------------------------------

@@ -1,12 +1,12 @@
 """`python -m nnstreamer_tpu_torch serve` and `top` (JAX
 `nnstreamer_tpu/__main__.py`'s subcommands on the port), on the CPU.
 
-`serve --workers 2` (echo) with `--metrics-port 0` and `--slo`, driven by
-a port `tensor_query_client`; `top` against its endpoint for one frame;
-SIGTERM drains it with rc 0 and no orphan worker. The flags whose
-modules are not ported yet — `--flight-dir` (Queue 1 item 4f), `--join`,
-`--join-name` and `--zone` (item 4g) — are refused with a message
-naming the item, before anything starts.
+`serve --workers 2` (echo) with `--metrics-port 0`, `--slo` and
+`--flight-dir`, driven by a port `tensor_query_client`; `top` against its
+endpoint for one frame; SIGTERM drains it with rc 0 and no orphan worker.
+The flags whose module is not ported yet — `--join`, `--join-name` and
+`--zone` (Queue 1 item 4g) — are refused with a message naming the item,
+before anything starts.
 """
 
 import json
@@ -60,12 +60,13 @@ def test_serve_metrics_slo_top_and_sigterm_drain(tmp_path):
     proc = subprocess.Popen(
         [sys.executable, "-m", "nnstreamer_tpu_torch", "serve",
          "--workers", "2", "--service-ms", "1", "--metrics-port", "0",
-         "--slo", str(slo)],
+         "--slo", str(slo), "--flight-dir", str(tmp_path / "flight")],
         cwd=ROOT, env=_env(), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
     try:
         m, _ = _read_until(proc, r"metrics on (http://\S+/metrics)")
         url = m.group(1)
+        _read_until(proc, r"flight recorder armed")
         m, _ = _read_until(proc, r"pool serving on [\d.]+:(\d+)")
         port = int(m.group(1))
         pipe = tnns.parse_launch(
@@ -87,8 +88,11 @@ def test_serve_metrics_slo_top_and_sigterm_drain(tmp_path):
             "nns_admission_replied_total"] == 6.0
         assert fams["nns_pool_ready"]["samples"]["nns_pool_ready"] == 2.0
         assert "nns_autotune_dry_run" in fams
-        assert not any(f.startswith(("nns_jit_", "nns_invoke_",
-                                     "nns_device_hbm_")) for f in fams)
+        # --metrics-port turns the device profiler on: its families
+        # render (the echo pool's parent runs no model, so no rows)
+        for fam in ("nns_jit_flops", "nns_invoke_mfu",
+                    "nns_device_hbm_bytes"):
+            assert fam in fams
         top = subprocess.run(
             [sys.executable, "-m", "nnstreamer_tpu_torch", "top", url,
              "--iterations", "1"], cwd=ROOT, env=_env(),
@@ -114,7 +118,6 @@ def test_serve_metrics_slo_top_and_sigterm_drain(tmp_path):
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("--flight-dir", "/nonexistent", "4f"),
     ("--join", "127.0.0.1:1", "4g"),
     ("--join-name", "h0", "4g"),
     ("--zone", "z", "4g"),

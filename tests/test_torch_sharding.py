@@ -14,7 +14,15 @@ tests/test_sharding.py's geometry. The gates:
   width only: each JAX width is a fresh compile on the CPU mesh;
 - tensor_llm with shards (with and without the ring) emits the tokens of
   the JAX package's element on the same bridged params;
-- the refusals, the lease ledger and the logical-device map.
+- the refusals, the lease ledger and the logical-device map;
+- the dense path (`ShardedBackend`, `ShardedReplicaSet`, the filter's
+  ``shards=``): outputs at shards 1/2/4/8 `np.array_equal` to the
+  one-device model's, the same `param_specs` as JAX's for a MobileNetV2
+  param tree (a conv's O axis, the classifier's input axis, what a
+  width does not divide whole), group routing, a member fence fencing
+  its group with Σ group invokes == frames, a store swap one epoch
+  across groups with nothing run for the first time after the flip, the
+  filter prop's parity and soft declines beside JAX's.
 """
 
 import jax
@@ -378,3 +386,277 @@ def test_tensor_llm_shards_emit_jax_tokens(eight_cpu_devices, params):
 def test_tensor_llm_negotiation_refusals(params, props, match):
     with pytest.raises(NegotiationError, match=match):
         _run_port(params[1], np.arange(1, 9, dtype=np.int32), **props)
+
+
+# -- the dense path ------------------------------------------------------------------
+
+MBV2_ZOO = "mobilenet_v2?width=0.35&input_size=32&dtype=float32"
+DENSE_DIM = 16
+
+
+def _dense_bundles(seed=3):
+    w = np.random.default_rng(seed).normal(
+        size=(DENSE_DIM, DENSE_DIM)).astype(np.float32)
+    return (JaxModelBundle(fn=lambda p, x: (x @ p["w"],), params={"w": w},
+                           name="sh_mlp"),
+            ModelBundle(fn=lambda p, x: (x @ p["w"],),
+                        params={"w": torch.from_numpy(w.copy())},
+                        name="sh_mlp"))
+
+
+@pytest.fixture(scope="module")
+def mbv2_pair():
+    """(the JAX-layout MobileNetV2 param tree, the port's module): the
+    zoo's module at width 0.35 and its tree through the bridge."""
+    from nnstreamer_tpu_torch.models.zoo import build_model
+
+    model = build_model(MBV2_ZOO).params
+    return bridge.mobilenet_v2_tree(model), model
+
+
+def _jax_path_of(port: str) -> str:
+    """A port state-dict name → its JAX tree path."""
+    parts = port.split(".")
+    leaf = parts[-1]
+    if parts[0] == "classifier":
+        return f"classifier/{'w' if leaf == 'weight' else 'b'}"
+    unit = "/".join(parts[:-1])
+    return f"{unit}/conv/w" if leaf == "weight" else f"{unit}/bn/{leaf}"
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_param_specs_of_mobilenet_equal_jax(eight_cpu_devices, mbv2_pair,
+                                           n):
+    from jax.sharding import Mesh as JMesh
+
+    from nnstreamer_tpu.parallel import mesh as jmesh
+    from nnstreamer_tpu_torch.parallel import mesh as tmesh
+
+    tree, model = mbv2_pair
+    jspecs = jmesh.param_specs(
+        tree, JMesh(np.array(jax.devices()[:n]), ("tp",)))
+    jflat = {jmesh._path_str(p): tuple(v) for p, v in
+             jax.tree_util.tree_flatten_with_path(
+                 jspecs, is_leaf=lambda x: isinstance(
+                     x, jax.sharding.PartitionSpec))[0]}
+    tspecs = tmesh.param_specs(
+        model, tmesh.make_mesh(tmesh.MeshSpec(dp=1, tp=n),
+                               placement.visible_devices()[:n]))
+    assert len(tspecs) == len(jflat)
+    split = 0
+    for path, spec in tspecs.items():
+        jspec = jflat[_jax_path_of(path)]
+        jspec = jspec + (None,) * (len(spec) - len(jspec))
+        if path.endswith("weight") and len(spec) == 4:
+            jspec = tuple(jspec[i] for i in (3, 2, 0, 1))   # HWIO → OIHW
+        elif path == "classifier.weight":
+            jspec = jspec[::-1]                             # (in, out)
+        assert spec == jspec, path
+        split += any(a is not None for a in spec)
+    assert split > 0
+
+
+def test_dense_shards_bit_equal_to_one_device(eight_cpu_devices):
+    """MobileNetV2 stored split at shards 1/2/4/8 gives the one-device
+    model's logits bit for bit; each device holds 1/N of each split
+    weight."""
+    from nnstreamer_tpu_torch.backends.torch_backend import TorchBackend
+
+    x = np.random.default_rng(0).uniform(-1, 1, (1, 32, 32, 3)).astype(
+        np.float32)
+    be = TorchBackend()
+    be.open({"model": "zoo://" + MBV2_ZOO})
+    ref = be.invoke((x,))[0].numpy()
+    be.close()
+    sizes = {}
+    for n in (1, 2, 4, 8):
+        b = tsh.ShardedBackend("zoo://" + MBV2_ZOO, list(range(n)),
+                               name=f"d{n}")
+        try:
+            (out,) = b.invoke((x,))
+            np.testing.assert_array_equal(out.numpy(), ref)
+            sizes[n] = b.shard_bytes()
+        finally:
+            b.close()
+    assert sum(sizes[1]) == sum(sizes[2]) == sum(sizes[8])
+    assert sizes[2][1] < sizes[2][0] and max(sizes[8][1:]) < sizes[1][0] / 4
+
+
+def test_dense_mlp_parity_with_jax_across_widths(eight_cpu_devices):
+    jb, tb = _dense_bundles()
+    x = np.linspace(-1, 1, 4 * DENSE_DIM, dtype=np.float32).reshape(
+        4, DENSE_DIM)
+    jrs = jsh.ShardedReplicaSet.open_sharded(jb, shards=2, groups=1,
+                                             name="jd2")
+    try:
+        jref = np.asarray(jrs.invoke((x,))[0])
+    finally:
+        jrs.close()
+    ref = None
+    for n in (1, 2, 4, 8):
+        rs = tsh.ShardedReplicaSet.open_sharded(tb, shards=n, groups=1,
+                                                name=f"dp{n}")
+        try:
+            outs = [rs.invoke((x,)) for _ in range(3)]
+        finally:
+            rs.close()
+        ref = np.asarray(outs[0][0]) if ref is None else ref
+        for o in outs:
+            np.testing.assert_array_equal(np.asarray(o[0]), ref)
+    np.testing.assert_allclose(ref, jref, rtol=0, atol=1e-6)
+
+
+def test_groups_compose_and_route_as_jax(eight_cpu_devices):
+    jb, tb = _dense_bundles()
+    x = np.ones((2, DENSE_DIM), np.float32)
+    rows = []
+    for mod, b in ((jsh, jb), (tsh, tb)):
+        rs = mod.ShardedReplicaSet.open_sharded(b, shards=4, groups=2,
+                                                name="gg")
+        try:
+            for _ in range(6):
+                rs.invoke((x,))
+            st = rs.stats()
+        finally:
+            rs.close()
+        rows.append(([(r["group"], r["devices"], r["invokes"])
+                      for r in st["replicas"]], st["group_size"],
+                     st["leases"]))
+    assert rows[0] == rows[1]
+    assert rows[1][0][0][1] == [0, 1, 2, 3]
+
+
+def test_oversubscription_is_typed():
+    _, tb = _dense_bundles()
+    with pytest.raises(BackendError, match="virtual_devices"):
+        tsh.ShardedReplicaSet.open_sharded(tb, shards=8, groups=2,
+                                           name="over")
+
+
+def test_member_fence_fences_group_conserves():
+    _, tb = _dense_bundles()
+    x = np.ones((2, DENSE_DIM), np.float32)
+    rs = tsh.ShardedReplicaSet.open_sharded(tb, shards=2, groups=4,
+                                            name="fg")
+    try:
+        for _ in range(8):
+            rs.invoke((x,))
+        assert rs.group_of(5) == 2
+        assert rs.group_of(9) is None and rs.fence_device(9) is False
+        assert rs.fence_device(5, "drill")
+        for _ in range(8):
+            rs.invoke((x,))
+        st = rs.stats()
+    finally:
+        rs.close()
+    assert sum(r["invokes"] for r in st["replicas"]) == 16
+    assert [r["group"] for r in st["replicas"]
+            if r["state"] == "fenced"] == [2]
+    assert st["leases"]["fenced"] == 2 and st["fences"] == 1
+
+
+def test_group_swap_one_epoch_nothing_new_after_the_flip():
+    store = get_store()
+    store.register("shsw", lambda x: (x * 2.0,))
+    store.register("shsw", lambda x: (x + 100.0,))
+    x = np.linspace(-1, 1, 32, dtype=np.float32).reshape(2, 16)
+    rs = tsh.ShardedReplicaSet.open_sharded("store://shsw", shards=2,
+                                            groups=2, name="sw")
+    try:
+        for _ in range(4):
+            (out,) = rs.invoke((x,))
+        np.testing.assert_array_equal(out, x * 2.0)
+        rep = rs.swap(2)
+        assert rep["handles"] == 2
+        counts = rs.compile_counts()
+        for _ in range(4):
+            (out,) = rs.invoke((x,))
+        np.testing.assert_array_equal(out, x + 100.0)
+        assert rs.compile_counts() == counts
+        assert len(set(rs.adopted_epochs())) == 1
+    finally:
+        rs.close()
+    pin = tsh.ShardedReplicaSet.open_sharded("store://shsw@1", shards=2,
+                                             groups=1, name="pin")
+    try:
+        np.testing.assert_array_equal(pin.invoke((x,))[0], x * 2.0)
+    finally:
+        pin.close()
+
+
+def _run_filter(pkg, Buffer, store, extra, frames=6):
+    store.register("shf", lambda x: (x * 2.0 + 1.0,))
+    pipe = pkg.parse_launch(
+        f"appsrc name=src dims=16 types=float32 ! tensor_filter name=f "
+        f"model=store://shf {extra} ! tensor_sink name=out")
+    runner = pkg.PipelineRunner(pipe).start()
+    for i in range(frames):
+        pipe.get("src").push(Buffer.of(
+            np.full((16,), float(i), np.float32), pts=i))
+    pipe.get("src").end()
+    runner.wait(60)
+    runner.stop()
+    return ({int(b.pts): np.asarray(b.tensors[0])
+             for b in pipe.get("out").results}, pipe.get("f"))
+
+
+def test_filter_shards_prop_parity_and_stats_as_jax(eight_cpu_devices):
+    from nnstreamer_tpu.tensor.buffer import TensorBuffer as JBuffer
+
+    base, _ = _run_filter(tnns, TensorBuffer, reset_store(), "")
+    got, f = _run_filter(tnns, TensorBuffer, reset_store(),
+                         "shards=2 devices=4")
+    jgot, jf = _run_filter(jnns, JBuffer, j_reset_store(),
+                           "shards=2 devices=4")
+    for pts, ref in base.items():
+        np.testing.assert_array_equal(got[pts], ref)
+        np.testing.assert_array_equal(got[pts], jgot[pts])
+    st, jst = f.extra_stats(), jf.extra_stats()
+    for k in ("shards", "shard_groups", "replica_invokes", "leases"):
+        assert st[k] == jst[k], k
+
+
+def test_filter_shards_refusals_and_declines():
+    with pytest.raises(NegotiationError):
+        _run_filter(tnns, TensorBuffer, reset_store(), "shards=3")
+    base, _ = _run_filter(tnns, TensorBuffer, reset_store(), "")
+    got, f = _run_filter(tnns, TensorBuffer, reset_store(),
+                         "shards=2 output=16 outputtype=float32")
+    for pts, ref in base.items():
+        np.testing.assert_array_equal(got[pts], ref)
+    assert "shards" not in f.extra_stats()
+    assert "override" in f.extra_stats()["replica_decline"]
+
+
+def test_apply_plan_sets_shards_prop():
+    store = reset_store()
+    store.register("shf", lambda x: (x * 2.0,))
+    pipe = tnns.parse_launch(
+        "appsrc name=src dims=16 types=float32 ! tensor_filter name=f "
+        "model=store://shf ! tensor_sink name=out")
+    plan = placement.segment_plan_tp([("f", 8.0)], 8)
+    assert plan.tp == [8]
+    assert placement.apply_plan(pipe, plan) == 1
+    assert pipe.get("f").props["shards"] == 8
+
+
+def test_shard_series_round_trip_as_jax(eight_cpu_devices):
+    from nnstreamer_tpu.serving.metrics import (
+        metrics_snapshot as j_snapshot, render_prometheus as j_render)
+    from nnstreamer_tpu_torch.serving.metrics import (
+        metrics_snapshot, parse_prometheus, render_prometheus)
+
+    _, tb = _dense_bundles()
+    rs = tsh.ShardedReplicaSet.open_sharded(tb, shards=2, groups=2,
+                                            name="ms")
+    try:
+        for _ in range(10):
+            rs.invoke((np.ones((2, DENSE_DIM), np.float32),))
+        st = rs.stats()
+    finally:
+        rs.close()
+    text = render_prometheus(metrics_snapshot(replicas={"f": st}))
+    assert text == j_render(j_snapshot(replicas={"f": st}))
+    parsed = parse_prometheus(text)
+    assert sum(parsed["nns_shard_group_invokes_total"]["samples"]
+               .values()) == 10.0
