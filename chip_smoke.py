@@ -12,6 +12,7 @@
     python3 chip_smoke.py --serving   # phases 1, 2, 43 and 44 only
     python3 chip_smoke.py --pool      # phases 1, 2, 45 and 46 only
     python3 chip_smoke.py --placement # phases 1, 2 and 47-49 only
+    python3 chip_smoke.py --mesh      # phases 1, 2, 50 and 51 only
 
 Needs one CUDA card, nvcc, g++ (phase 42) and the repository checkout
 around this file;
@@ -225,7 +226,7 @@ phases there). Phases:
    exactly those the rule predicts;
 29. compiled windows (one CUDA-graph replay a window) on A, B, P
    (PoseNet 257², the clamp fused) and D (SSD, device=true) at full
-   width in bf16: 200 frames pushed at once, compiled_loop off and on:
+   width in bf16: 96 frames pushed at once, compiled_loop off and on:
    outputs bit for bit, frame by frame (and B in f32, TF32 off), the
    windows, frames in windows, bails by cause (no "error" on A, B, P),
    windows by K (within {2, 4, 8}), graphs captured, seconds per
@@ -261,7 +262,7 @@ phases there). Phases:
    max-batch=8: one invoke a frame (the file's baked batch), labels equal
    to unbatched F's;
 32. B (zoo), F, Q int8-native and Q under bf16 live at once: closed-loop
-   latency p50/p99 frame by frame in turns, then bursts of 100 frames in
+   latency p50/p99 frame by frame in turns, then bursts of 64 frames in
    turns a b b a with compiled windows off and on (frames/s, latency under
    the burst, CUDA kernels and kernel time a frame from a profiled burst,
    the card's busy share); F's and Q's windows bit for bit their per-frame
@@ -402,7 +403,12 @@ phases there). Phases:
    windows; Q3 hot swap (a second entry, 1 → 2 once 40 of 160 frames are
    back with frames up to 80 in flight, the rest pushed after the flip,
    so frames flow under the barrier): no torn frame, versions never go back, barrier_ok, a
-   prewarmed adoption, at least one "swap" bail; overload
+   prewarmed adoption, every window on the version adopted before it,
+   the adoption at an invoke boundary (a "swap" bail, a window's own
+   version pick or a leftover frame's per-frame invoke, from the
+   tracer's event order); then on the same server 2 → 3 with the filter
+   idle (16 of 32 frames run, the rest pushed after the flip): versions
+   16 x 2 then 16 x 3, barrier_ok, the adoption after a "swap" bail; overload
    (max_pending=2, 64 frames at once from a raw client): answered + typed
    BUSY = 64, results in pts order; hybrid (a broker and a topic), bit for
    bit; Q2 BatchedQueryServer (bucket 8, pre = the normalize_u8 kernel on
@@ -480,7 +486,28 @@ phases there). Phases:
    bundle per cooldown window, `flight --json` and `flight --inspect`
    read back; the profiler's cost, B closed loop off on on off;
    normalize_u8 on R2, SH2 and SEG counted by its wrapper and by name in
-   one profile (profiled_agreement).
+   one profile (profiled_agreement);
+50. Queue 1 item 4g: pipeline B from a two-host serving mesh — a port
+   MeshRouter over two 1-worker pools of B's two filters (phase 45's
+   pool_start: store://mobilenet_v2 @0, @2 preloaded), each joined by
+   pool_join, h0 through a seeded ChaosProxy; each pool's capacity from
+   a burst to it alone; 96 frames open loop
+   (run_open_loop, Poisson at 1.5x the measured sum), h0 blackholed at
+   the median arrival and healed 2.5 s later: lost 0, every frame
+   completed once, both admission invariants, Σ per-host replies = the
+   router's, a lease fence of h0, a frame redelivered across hosts under
+   one trace_id naming both, h0 rejoined, every reply within POOL_REL of
+   B direct's (bit for bit counted); then a two-phase swap to @2 across
+   both hosts (epoch +1, both commit) and 16 frames all @2; normalize_u8
+   launches in the children (their shipped trace deltas) = their pools'
+   replies, which cover the router's; p50/p99, fence detection, frames/s;
+51. the `llm` subcommand in this process on the card (`--requests 4`,
+   NNS_PAGED_KERNEL=pallas): exit 0, every request done, both paged
+   wrappers launched; again on the torch reference (xla): every request
+   done, the tokens equal the pallas run's but for near-ties (LLM_TIE);
+   both paged kernels at the subcommand's shapes (4 heads of 16 on 4 kv
+   heads, block 16, q f32) within PAGED_REL/PAGED_ABS of their plain
+   versions.
 
 Each kernel's timing phase (6, 10, 15, 16, 23) also prints its time per
 call from Python, back to back — the host's time (the launch path's own
@@ -499,7 +526,8 @@ chip_smoke_slice6.json with --slice6, chip_smoke_batching.json with
 chip_smoke_modelio.json with --modelio, chip_smoke_elements.json with
 --elements, chip_smoke_streaming.json with --streaming,
 chip_smoke_serving.json with --serving, chip_smoke_pool.json with
---pool, chip_smoke_placement.json with --placement).
+--pool, chip_smoke_placement.json with --placement,
+chip_smoke_mesh.json with --mesh).
 """
 
 from __future__ import annotations
@@ -877,29 +905,38 @@ def paged_cases(torch, dev):
     return cases
 
 
+def check_paged_case(torch, phase, name, kern, plain, args,
+                     record) -> float:
+    """One paged kernel case against its plain version, within
+    PAGED_REL/PAGED_ABS (decode also bitwise equal to a second launch)
+    → its largest abs error."""
+    got = kern(*args)
+    ref = plain(*args)
+    # decode folds its splits' partials in split order, whichever CTA
+    # ends last: a second launch gives the same bits
+    again = kern(*args) if name.startswith("decode") else got
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    lim = PAGED_REL * ref.abs().max().item() + PAGED_ABS
+    same = bits_equal(torch, got, again)
+    print(f"phase {phase}: {name}: max_abs_err {err:.3e} (limit {lim:.3e})"
+          + (f"; second launch bitwise {'equal' if same else 'DIFFERENT'}"
+             if name.startswith("decode") else ""))
+    check(torch.isfinite(got).all().item(), f"{name}: non-finite output")
+    check(err <= lim, f"{name}: kernel differs from its plain version "
+                      f"by {err:.3e} > {lim:.3e}")
+    check(same, f"{name}: two launches on the same input differ")
+    record.setdefault("paged_kernel_errs", {})[name] = err
+    return err
+
+
 def check_paged_kernels(torch, dev, record) -> dict:
     """Each paged kernel against its plain version on every case → the
     largest abs error per kernel at the main-path shape (kv8, bf16)."""
     errs = {}
-    for name, kern, plain, args in paged_cases(torch, dev):
-        got = kern(*args)
-        ref = plain(*args)
-        # decode folds its splits' partials in split order, whichever CTA
-        # ends last: a second launch gives the same bits
-        again = kern(*args) if name.startswith("decode") else got
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        lim = PAGED_REL * ref.abs().max().item() + PAGED_ABS
-        same = bits_equal(torch, got, again)
-        print(f"phase 7: {name}: max_abs_err {err:.3e} (limit {lim:.3e})"
-              + (f"; second launch bitwise "
-                 f"{'equal' if same else 'DIFFERENT'}"
-                 if name.startswith("decode") else ""))
-        check(torch.isfinite(got).all().item(), f"{name}: non-finite output")
-        check(err <= lim, f"{name}: kernel differs from its plain version "
-                          f"by {err:.3e} > {lim:.3e}")
-        check(same, f"{name}: two launches on the same input differ")
-        record.setdefault("paged_kernel_errs", {})[name] = err
+    for case in paged_cases(torch, dev):
+        err = check_paged_case(torch, "7", *case, record)
+        name = case[0]
         if "kv8 bfloat16" in name:
             key = name.split()[0]
             errs[key] = max(errs.get(key, 0.0), err)
@@ -3808,6 +3845,10 @@ BATCH = (f"tensor_batch name=batch max-batch={BATCH_MAX} "
          f"max-latency-ms={BATCH_LATENCY_MS}")
 #: frames a burst in phase 27's timing arms, and bursts an arm
 BURST, BURSTS = 200, 1
+#: frames of burst_arms' profiled burst an arm (48 until phases 50-51
+#: came): its kernels and kernel time a frame are means over identical
+#: frames, and reading the profiler's trace takes seconds an arm
+PROF_FRAMES = 16
 APPSRC = "appsrc name=src dims=3:224:224:1 types=uint8"
 
 
@@ -3841,7 +3882,7 @@ def label_flips(nt, head, labels_b, labels_u):
     return out
 
 
-def burst_arms(nt, torch, descs, frame, n, bursts, prof_frames=48,
+def burst_arms(nt, torch, descs, frame, n, bursts, prof_frames=PROF_FRAMES,
                runner_kw=None):
     """Each arm's pipeline (descs: arm -> string, an appsrc named src to a
     tensor_sink named out; runner_kw: arm -> PipelineRunner keywords)
@@ -4226,11 +4267,11 @@ def batching_phases(nt, torch, card, record, phases) -> None:
 
 # -- Queue 1 item 1e: compiled windows (CUDA-graph replays) -----------------
 
-#: phase 29: frames pushed at once per run (f32 B: fewer; P's profiled
-#: run: fewer, as phase 27's profiled bursts); its timing bursts: 64
+#: phase 29: frames pushed at once a pipeline and arm (200 until phases
+#: 50-51 came), f32 B's, and P's profiled run; its timing bursts: 64
 #: frames (200, phase 27's BURST, until phases 43-44 took the whole run
 #: past 760 s; 120 until phases 45-46 took it past 820 s)
-WINDOW_FRAMES, WINDOW_F32_FRAMES, WINDOW_PROF_FRAMES = 200, 64, 48
+WINDOW_FRAMES, WINDOW_F32_FRAMES, WINDOW_PROF_FRAMES = 96, 64, 48
 WINDOW_BURST = 64
 #: phase 30: the engine's decode window
 DECODE_WINDOW = 8
@@ -4739,9 +4780,9 @@ def window_phases(nt, torch, card, record, phases, ctx) -> None:
 #: micro-batched run; phase 32: closed-loop frames an arm (after warm-up)
 MODELIO_F32_FRAMES, MODELIO_Q_FRAMES, MODELIO_BATCH_FRAMES = 8, 16, 24
 MODELIO_LAT, MODELIO_WARMUP, MODELIO_WINDOW_FRAMES = 40, 5, 64
-#: phase 32's bursts: 100 frames (200, phase 27's BURST, until phases 47-49
-#: came)
-MODELIO_BURST = 100
+#: phase 32's bursts: 64 frames (200, phase 27's BURST, until phases 47-49
+#: came; 100 until phases 50-51 came)
+MODELIO_BURST = 64
 #: phase 33: frames pushed at once through the WHILE model
 WHILE_FRAMES = 32
 
@@ -6356,7 +6397,7 @@ def elements_correctness(nt, torch, card, record) -> None:
 
 def elements_timings(nt, torch, card, record) -> None:
     """Phase 40 (no claim): E1, E3 and B live at once: closed-loop
-    p50/p99 frame by frame in turns; bursts of 100 in turns a b b a,
+    p50/p99 frame by frame in turns; bursts of 64 in turns a b b a,
     compiled windows off, then on (frames/s, latency under the burst,
     kernels and kernel ms a frame, busy share); host and device ms a
     call of E1's resize on the card and host ms a frame of its preview
@@ -7083,6 +7124,8 @@ def streaming_phases(nt, torch, card, record, phases) -> dict:
 #: frames, warm-up frames, and Q2's frames a client in its timing arms
 Q1_FRAMES, Q_TWO_FRAMES, Q3_FRAMES = 32, 16, 48
 SWAP_FRAMES, OVERLOAD_FRAMES = 160, 64
+#: the idle-filter swap's burst (half before the flip, half after)
+SWAP_IDLE_FRAMES = 32
 Q2_CLIENTS, Q2_FRAMES = 4, 16
 Q_BURST, Q_LAT, Q_WARMUP, Q2_TIMED = 160, 64, 8, 32
 Q_TIMEOUT = 120
@@ -7293,42 +7336,95 @@ def q3_canary(nt, torch, card, res) -> None:
           and counts[2] == seq.count(2), f"Q3 canary: {res['Q3_canary']}")
 
 
+def adoption_site(tracer, name: str, nth: int) -> str:
+    """Where `name`'s nth store adoption was taken up, read from the
+    order of its events on the tracer: "bail" (the compiled loop's swap
+    bail just before it, then a per-frame invoke), "window" (a window's
+    own version pick: its invoke_window span next), "frame" (a per-frame
+    invoke with no bail: a frame left over from a window, or the loop
+    not armed)."""
+    keep = ("model_swap", "loop_bail_swap", "invoke_window", "process")
+    own = [e[3] for e in tracer.events() if e[2] == name and e[3] in keep]
+    at = [i for i, k in enumerate(own) if k == "model_swap"][nth]
+    if at and own[at - 1] == "loop_bail_swap":
+        return "bail"
+    nxt = own[at + 1] if at + 1 < len(own) else None
+    return {"invoke_window": "window", "process": "frame"}.get(nxt, str(nxt))
+
+
+def window_versions(tracer, name: str) -> list:
+    """The version of each of `name`'s invoke_window spans, with None for
+    each of its adoptions, in the tracer's order."""
+    return [None if e[3] == "model_swap" else (e[6] or {}).get("version")
+            for e in tracer.events()
+            if e[2] == name and e[3] in ("model_swap", "invoke_window")]
+
+
+def swap_burst(cpipe, entry, frames) -> threading.Thread:
+    """A started thread pushing `frames` from a running client pipeline;
+    the second half only once `entry`'s epoch has moved on."""
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    epoch0 = entry.epoch
+    half = len(frames) // 2
+
+    def push():
+        for i, f in enumerate(frames):
+            if i == half:
+                t_end = time.monotonic() + 120
+                while entry.epoch == epoch0 and time.monotonic() < t_end:
+                    time.sleep(0.001)
+            cpipe.get("src").push(TensorBuffer.of(f, pts=i))
+        cpipe.get("src").end()
+
+    pusher = threading.Thread(target=push)
+    pusher.start()
+    return pusher
+
+
+def version_seq(logits, direct, versions) -> list:
+    """Each reply's version: the one whose direct logits it equals bit for
+    bit (None: torn, or none of them)."""
+    seq = []
+    for i, row in enumerate(logits):
+        hit = [v for v in versions if row.tobytes() == direct[v][i].tobytes()]
+        seq.append(hit[0] if len(hit) == 1 else None)
+    return seq
+
+
 def q3_swap(nt, torch, card, res) -> None:
-    """Q3 hot swap: store://mbv2s updated 1 → 2 in the middle of a burst,
-    windows on: no torn frame, versions never go back, the barrier, a
-    "swap" bail, a prewarmed flip. The swap starts once a quarter of the
-    burst is back, with the frames up to its half in flight; the second
-    half is pushed once the epoch has flipped, so frames flow under the
-    barrier (the card otherwise drains the whole burst before the
-    prewarm ends)."""
+    """Q3 hot swap, windows on, twice on one server. In flight: store://
+    mbv2s updated 1 → 2 once a quarter of a burst is back, with the
+    frames up to its half in flight; the second half is pushed once the
+    epoch has flipped, so frames flow under the barrier (the card
+    otherwise drains the whole burst before the prewarm ends): no torn
+    frame, versions never go back, every window before the adoption on 1
+    and after it on 2, the barrier, a prewarmed flip, and the adoption
+    taken up at an invoke boundary — after a "swap" bail, at a window's
+    own version pick, or by a per-frame invoke (a frame left over from a
+    window), as the tracer's order shows. Idle: 2 → 3 (v1's weights)
+    once the filter has run the first half of a short burst and nothing
+    is in flight; the armed loop's next frame meets the pending swap, so
+    this adoption must follow a "swap" bail."""
     from nnstreamer_tpu_torch.serving.store import get_store
 
     store = get_store()
     e = store.entry("mbv2")
-    for v in (1, 2):
+    for v in (1, 2, 1):
         store.register("mbv2s", e.bundle(v))
     frames = u8_frames((1, 224, 224, 3), SWAP_FRAMES, 434)
+    idle = frames[:SWAP_IDLE_FRAMES]
     direct = {v: b_logits(nt, f"store://mbv2s@{v}", frames)[0]
               for v in (1, 2)}
+    direct[3] = b_logits(nt, "store://mbv2s@3", idle)[0]
     entry = store.entry("mbv2s")
     pipe, runner, port = q_server(nt, 4303, "store://mbv2s", trace=True)
-    rep = {}
+    rep = rep3 = {}
     try:
+        # -- in flight: 1 → 2 -------------------------------------------
         cpipe = nt.parse_launch(q_client_desc(port, "max_in_flight=16"))
         crun = nt.PipelineRunner(cpipe).start()
-        from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
-
-        def push():
-            for i, f in enumerate(frames):
-                if i == SWAP_FRAMES // 2:
-                    t_end = time.monotonic() + 120
-                    while entry.epoch == 0 and time.monotonic() < t_end:
-                        time.sleep(0.001)
-                cpipe.get("src").push(TensorBuffer.of(f, pts=i))
-            cpipe.get("src").end()
-
-        pusher = threading.Thread(target=push)
-        pusher.start()
+        pusher = swap_burst(cpipe, entry, frames)
         sink = cpipe.get("logits")
         deadline = time.monotonic() + 120
         while len(sink.results) < SWAP_FRAMES // 4:
@@ -7339,38 +7435,81 @@ def q3_swap(nt, torch, card, res) -> None:
         crun.wait(300)
         crun.stop()
         st = runner.stats()["f"]
+        site = adoption_site(runner.tracer, "f", 0)
+        # -- idle: 2 → 3 ------------------------------------------------
+        base = st["buffers"]
+        cpipe3 = nt.parse_launch(q_client_desc(port, "max_in_flight=16"))
+        crun3 = nt.PipelineRunner(cpipe3).start()
+        pusher = swap_burst(cpipe3, entry, idle)
+        deadline = time.monotonic() + 120
+        while runner.stats()["f"]["buffers"] < base + SWAP_IDLE_FRAMES // 2:
+            check(time.monotonic() < deadline, "idle swap: no flow in 120 s")
+            time.sleep(0.002)
+        rep3 = store.update("mbv2s", 3, wait_s=60)
+        pusher.join(120)
+        crun3.wait(300)
+        crun3.stop()
+        st3 = runner.stats()["f"]
+        site3 = adoption_site(runner.tracer, "f", 1)
+        wins = window_versions(runner.tracer, "f")
         swaps = runner.tracer.swap_events()
     finally:
         runner.stop()
-    logits = logits_of(sink.results)
-    seq = []
-    for i, row in enumerate(logits):
-        hit = [v for v in (1, 2) if row.tobytes() == direct[v][i].tobytes()]
-        seq.append(hit[0] if len(hit) == 1 else None)
+    seq = version_seq(logits_of(sink.results), direct, (1, 2))
     flip = seq.index(2) if 2 in seq else len(seq)
     monotone = all(v == 1 for v in seq[:flip]) and all(
         v == 2 for v in seq[flip:])
+    # windows: 1 until the first adoption, 2 until the second, then 3
+    cuts = [i for i, v in enumerate(wins) if v is None]
+    win_ok = len(cuts) == 2 and all(
+        v == want for part, want in zip(
+            (wins[:cuts[0]], wins[cuts[0] + 1:cuts[1]], wins[cuts[1] + 1:]),
+            (1, 2, 3)) for v in part)
     bails = st.get("loop_bails", {})
     res["Q3_swap"] = {
         "frames": len(seq), "torn": seq.count(None), "monotone": monotone,
         "flip_at": flip, "barrier_ok": rep.get("barrier_ok"),
         "prewarmed_buckets": rep.get("prewarmed_buckets"),
         "prewarmed_flip": [bool(a.get("prewarmed")) for _, _, a in swaps],
-        "loop_bails": bails, "windows": st.get("loop_entries", 0)}
-    print(f"phase 43: Q3 hot swap store://mbv2s 1 → 2 after "
+        "loop_bails": bails, "windows": st.get("loop_entries", 0),
+        "adopted_at": site, "window_versions_ok": win_ok}
+    print(f"phase 43: Q3 hot swap in flight store://mbv2s 1 → 2 after "
           f"{SWAP_FRAMES // 4} of {SWAP_FRAMES} frames back (client in "
           f"flight 16, frames {SWAP_FRAMES // 2}+ pushed after the flip, "
           f"windows on): torn frames {seq.count(None)}, versions never "
           f"go back {monotone} (flip at frame {flip}), barrier_ok "
           f"{rep.get('barrier_ok')}, {rep.get('prewarmed_buckets')} buckets "
           f"prewarmed, adoptions prewarmed {res['Q3_swap']['prewarmed_flip']}"
-          f", {res['Q3_swap']['windows']} windows, bails {bails} [{card}]")
+          f", {res['Q3_swap']['windows']} windows, bails {bails}, adopted "
+          f"at {site!r} (the tracer's order), every window on its "
+          f"version {win_ok} [{card}]")
     check(len(seq) == SWAP_FRAMES and None not in seq and monotone
           and SWAP_FRAMES // 4 <= flip <= SWAP_FRAMES // 2
           and rep.get("barrier_ok") is True
           and rep.get("prewarmed_buckets", 0) >= 1
-          and res["Q3_swap"]["prewarmed_flip"] == [True]
-          and bails.get("swap", 0) >= 1, f"Q3 swap: {res['Q3_swap']}")
+          and res["Q3_swap"]["prewarmed_flip"] == [True, True]
+          and win_ok and site in ("bail", "window", "frame")
+          and (site != "bail" or bails.get("swap", 0) >= 1),
+          f"Q3 swap: {res['Q3_swap']}")
+    seq3 = version_seq(logits_of(cpipe3.get("logits").results), direct,
+                       (2, 3))
+    half = SWAP_IDLE_FRAMES // 2
+    bails3 = {k: n - bails.get(k, 0)
+              for k, n in st3.get("loop_bails", {}).items()}
+    res["Q3_swap_idle"] = {
+        "frames": len(seq3), "versions": seq3,
+        "barrier_ok": rep3.get("barrier_ok"), "loop_bails": bails3,
+        "adopted_at": site3}
+    print(f"phase 43: Q3 hot swap idle store://mbv2s 2 → 3 (v1's weights) "
+          f"once the server ran {half} of {SWAP_IDLE_FRAMES} frames, the "
+          f"rest pushed after the flip: versions {seq3[:half].count(2)} x 2 "
+          f"then {seq3[half:].count(3)} x 3 of {half} each, barrier_ok "
+          f"{rep3.get('barrier_ok')}, bails {bails3}, adopted at "
+          f"{site3!r} [{card}]")
+    check(seq3 == [2] * half + [3] * half
+          and rep3.get("barrier_ok") is True
+          and bails3.get("swap", 0) >= 1 and site3 == "bail",
+          f"Q3 idle swap: {res['Q3_swap_idle']}")
 
 
 def q_overload(nt, torch, card, res) -> None:
@@ -9129,6 +9268,423 @@ def placement_phases(nt, torch, card, record, phases) -> dict:
     return {"placement": launched}
 
 
+# -- phases 50-51: the serving mesh, the llm subcommand -----------------------
+
+#: phase 50: frames of the partition flood (open loop) and after the swap
+MESH_FRAMES, MESH_SWAP_FRAMES = 96, 16
+#: frames a pool takes alone before the flood: one at a time, then at once
+#: (its capacity, which sets the offered rate)
+MESH_WARM, MESH_CAP_FRAMES = 4, 16
+MESH_LOAD_X, MESH_LEASE_S, MESH_HEAL_AFTER_S = 1.5, 1.0, 2.5
+#: phase 51: requests of the llm subcommand
+LLM_CLI_REQUESTS = 4
+
+
+def mesh_flood(router_port, frames, arrivals, trace):
+    """run_open_loop against the router: frame i is frames[i % len]; every
+    RESULT's logits by pts, and how many times each pts came back."""
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+    from nnstreamer_tpu_torch.traffic.loadgen import run_open_loop
+
+    got, seen = {}, Counter()
+
+    def on_result(pts, buf):
+        got[pts] = np.asarray(buf.tensors[0]).astype(np.float32)
+        seen[pts] += 1
+
+    report = run_open_loop(
+        "127.0.0.1", router_port, dims=POOL_DIMS, types="uint8",
+        arrivals=arrivals, trace=trace, drain_timeout_s=120.0,
+        make_frame=lambda i: TensorBuffer.of(frames[i % len(frames)],
+                                             pts=i),
+        on_result=on_result)
+    return report, got, seen
+
+
+def mesh_versions(got, refs, n_frames) -> dict:
+    """Each reply's version: the one whose B-direct logits it is within
+    POOL_REL of (0 = neither), with its bit-for-bit count."""
+    out = {"version": {}, "bit_for_bit": 0}
+    for pts, v in got.items():
+        k = pts % n_frames
+        errs = {ver: rel_to(v, ref[k]) for ver, ref in refs.items()}
+        ver = min(errs, key=errs.get)
+        out["version"][pts] = ver if errs[ver] <= POOL_REL else 0
+        out["bit_for_bit"] += v.tobytes() == refs[ver][k].tobytes()
+    return out
+
+
+def mesh_phase(nt, torch, card, record) -> int:
+    """Phase 50: pipeline B from a two-host serving mesh through a
+    partition and a swap. → normalize_u8's launches in the hosts'
+    children."""
+    from nnstreamer_tpu_torch.runtime.tracing import Tracer
+    from nnstreamer_tpu_torch.serving.mesh import MeshRouter, pool_join
+    from nnstreamer_tpu_torch.serving.pool import proc_alive
+    from nnstreamer_tpu_torch.serving.worker import _register_preloads
+    from nnstreamer_tpu_torch.traffic.loadgen import (
+        conservation_ok, poisson_arrivals)
+    from nnstreamer_tpu_torch.traffic.netchaos import ChaosProxy
+
+    res = {}
+    record["mesh"] = res
+    frames = u8_frames(POOL_SHAPE, POOL_FRAMES, 501)
+    tracers = [Tracer(), Tracer()]
+    # two one-worker pools of B's two filters, starting at once
+    pools = [pool_start(nt, 1, 5001 + k, tracer=tracers[k])
+             for k in range(2)]
+    router = proxy = None
+    agents = []
+    try:
+        _register_preloads(pool_preload())
+        refs = {}
+        for v in (POOL_V1, 2):
+            out = run_sinks(nt, f"{APPSRC} ! {NORM_B} ! tensor_filter "
+                                f"model=store://{POOL_STORE}@{v} ! "
+                                f"tensor_sink name=out", frames)[0]["out"]
+            refs[v] = logits_of(out).astype(np.float32)
+        check(all(p.pool.wait_ready(240) for p in pools),
+              f"mesh: pools not ready: {[p.stats()['workers'] for p in pools]}")
+        # each pool alone: warm, then its capacity from a burst
+        caps = []
+        for pqs in pools:
+            cli = PoolClient(pqs.port)
+            try:
+                for i in range(MESH_WARM):
+                    cli.send(i, frames[i])
+                    cli.wait([i])
+                t0 = time.perf_counter()
+                for i in range(MESH_CAP_FRAMES):
+                    cli.send(100 + i, frames[i % POOL_FRAMES])
+                cli.wait([100 + i for i in range(MESH_CAP_FRAMES)])
+                caps.append(MESH_CAP_FRAMES / (time.perf_counter() - t0))
+            finally:
+                cli.close()
+            check(not cli.busy, f"mesh: a pool refused {cli.busy}")
+        router = MeshRouter(sid=5003, dims=POOL_DIMS, types="uint8",
+                            max_pending=4 * MESH_FRAMES,
+                            lease_s=MESH_LEASE_S, max_redeliver=2)
+        proxy = ChaosProxy("127.0.0.1", router.port, seed=50)
+        for k, pqs in enumerate(pools):
+            host, port = ((proxy.host, proxy.port) if k == 0
+                          else ("127.0.0.1", router.port))
+            agents.append(pool_join(pqs, host, port, name=f"h{k}",
+                                    connect_timeout_s=10.0))
+        check(router.wait_hosts(2, 30), "mesh: hosts did not register")
+
+        # -- the partition: h0 blackholed mid-flood, healed, rejoined --
+        rate = MESH_LOAD_X * sum(caps)
+        arrivals = poisson_arrivals(rate, MESH_FRAMES,
+                                    np.random.default_rng(50))
+        t_bh = float(arrivals[MESH_FRAMES // 2])
+        proxy.program([(t_bh, "blackhole"),
+                       (t_bh + MESH_HEAL_AFTER_S, "heal")])
+        report, got, seen = mesh_flood(router.port, frames, arrivals, True)
+        check(proxy.wait_program(60), "mesh: the heal never applied")
+        rejoined = _wait_for(lambda: router.ready_hosts() == 2, 60)
+        c = router.admission_counters()
+        st = router.stats()
+        applied = proxy.applied("blackhole")
+        fences = [(round(t - applied, 4), h, cause)
+                  for t, h, k, cause in router.events
+                  if k == "fence" and t >= applied]
+        per_host = {h["host"]: h["replied"] for h in st["hosts"]}
+        ver = mesh_versions(got, {POOL_V1: refs[POOL_V1]}, POOL_FRAMES)
+        ex = report.get("redelivered_examples") or []
+        lat = report.get("latency_ms", {})
+        res["partition"] = {
+            "capacity_rps": caps, "offered_rps": rate,
+            "blackhole_at_s": t_bh, "report": {
+                k: report.get(k) for k in (
+                    "offered", "completed", "rejected", "lost",
+                    "busy_causes", "duration_s", "offered_rate_rps",
+                    "throughput_rps", "latency_ms", "redelivered",
+                    "redelivered_examples", "traced_replies")},
+            "fences": fences, "reoffered": st["mesh"]["reoffered"],
+            "per_host_replied": per_host, "admission": c,
+            "conserved": conservation_ok(c), "rejoined": rejoined,
+            "duplicates": [p for p, n in seen.items() if n != 1],
+            "off_B": [p for p, v in ver["version"].items() if v != POOL_V1],
+            "bit_for_bit": ver["bit_for_bit"]}
+        r = res["partition"]
+        print(f"phase 50: a port MeshRouter (lease {MESH_LEASE_S} s, "
+              f"max_redeliver 2) over two 1-worker pools of B's two "
+              f"filters (bf16, {POOL_SHAPE} uint8), h0 through a "
+              f"ChaosProxy (seed 50); capacities measured "
+              + " / ".join(f"{x:.1f}" for x in caps) + " frames/s (a "
+              f"burst of {MESH_CAP_FRAMES} to each pool alone) [{card}]")
+        print(f"phase 50: {MESH_FRAMES} frames open loop (Poisson at "
+              f"{rate:.1f} frames/s = {MESH_LOAD_X} x the measured sum), "
+              f"h0 blackholed at {t_bh:.3f} s and healed "
+              f"{MESH_HEAL_AFTER_S} s later: completed {report['completed']}"
+              f", rejected {report['rejected']} {report['busy_causes']}, "
+              f"lost {report['lost']}; fences after the blackhole (s after "
+              f"it, host, cause) {fences}; re-offered {r['reoffered']}; "
+              f"redelivered {report.get('redelivered')}, e.g. "
+              f"{ex[:1]}; rejoined {rejoined}; replied per host {per_host},"
+              f" router {c['replied']}; offered == admitted + rejected and "
+              f"admitted == replied + shed + depth + inflight: "
+              f"{r['conserved']}; replies within {POOL_REL} of B direct's "
+              f"v{POOL_V1} {len(got) - len(r['off_B'])}/{len(got)}, bit for "
+              f"bit {ver['bit_for_bit']}/{len(got)}, duplicated "
+              f"{r['duplicates']} [{card}]")
+        print(f"phase 50: the flood: latency p50 {lat.get('p50')} ms p99 "
+              f"{lat.get('p99')} ms, fence detection "
+              f"{fences[0][0] if fences else None} s after the blackhole "
+              f"(lease {MESH_LEASE_S} s), {report['throughput_rps']} "
+              f"frames/s completed over {report['duration_s']} s "
+              f"(offered {report['offered_rate_rps']} frames/s) [{card}]")
+        check(report["lost"] == 0 and report["completed"] == MESH_FRAMES
+              and r["conserved"] and sum(per_host.values()) == c["replied"]
+              and c["replied"] == MESH_FRAMES and not r["duplicates"]
+              and not r["off_B"] and rejoined and bool(fences)
+              and fences[0][1:] == ("h0", "lease_expired")
+              and any(e["hosts"] == ["h0", "h1"] for e in ex),
+              f"mesh partition: {r}")
+
+        # -- a two-phase swap to version 2 across both hosts ------------
+        epoch0 = router.epoch
+        rep = router.swap(POOL_STORE, 2, timeout_s=180.0)
+        before = dict(per_host)
+        report2, got2, seen2 = mesh_flood(
+            router.port, frames, poisson_arrivals(
+                rate, MESH_SWAP_FRAMES, np.random.default_rng(51)), False)
+        ver2 = mesh_versions(got2, refs, POOL_FRAMES)
+        st = router.stats()
+        after = {h["host"]: h["replied"] - before.get(h["host"], 0)
+                 for h in st["hosts"]}
+        res["swap"] = {"ok": rep["ok"], "epoch": [epoch0, router.epoch],
+                       "hosts": rep["hosts"],
+                       "versions": dict(Counter(ver2["version"].values())),
+                       "bit_for_bit": ver2["bit_for_bit"],
+                       "completed": report2["completed"],
+                       "lost": report2["lost"], "per_host": after,
+                       "conserved": conservation_ok(
+                           router.admission_counters())}
+        w = res["swap"]
+        print(f"phase 50: mesh swap store://{POOL_STORE} @{POOL_V1} -> @2 "
+              f"on both hosts: ok {rep['ok']}, epoch {epoch0} -> "
+              f"{router.epoch}, hosts {rep['hosts']}; then "
+              f"{MESH_SWAP_FRAMES} frames: replies by version "
+              f"{w['versions']} (bit for bit {ver2['bit_for_bit']}/"
+              f"{len(got2)}), per host {after}, lost {report2['lost']}, "
+              f"conserved {w['conserved']} [{card}]")
+        check(rep["ok"] and router.epoch == epoch0 + 1
+              and all(h.get("commit_ok") for h in rep["hosts"].values())
+              and len(rep["hosts"]) == 2
+              and report2["completed"] == MESH_SWAP_FRAMES
+              and w["versions"] == {2: MESH_SWAP_FRAMES} and w["conserved"],
+              f"mesh swap: {w}")
+
+        # -- normalize_u8 in the children: every frame they processed ---
+        def tally():
+            return [(pool_launches(t), p.admission_counters()["replied"])
+                    for t, p in zip(tracers, pools)]
+
+        _wait_for(lambda: all(n == m for n, m in tally()), 30)
+        counts = tally()
+        res["launches"] = counts
+        processed = sum(m for _, m in counts)
+        warm = 2 * (MESH_WARM + MESH_CAP_FRAMES)
+        print(f"phase 50: normalize_u8 in the hosts' children, launches as "
+              f"their wrappers counted them / their pools' replies: "
+              + ", ".join(f"h{k} {n} / {m}" for k, (n, m) in
+                          enumerate(counts))
+              + f"; {processed - warm} frames processed for the router's "
+              f"{router.admission_counters()['replied']} replies (the rest "
+              f"of {processed}: {warm} frames sent to the pools alone)")
+        check(all(n == m for n, m in counts) and processed - warm
+              >= router.admission_counters()["replied"],
+              f"mesh launches: {counts}")
+    finally:
+        for a in agents:
+            a.stop()
+        if proxy is not None:
+            proxy.close()
+        if router is not None:
+            router.close()
+        pids = [p for pqs in pools for p in pqs.pool.all_pids_ever()]
+        for pqs in pools:
+            pqs.close()
+    alive = [p for p in pids if proc_alive(p)]
+    segments = [s for pqs in pools for s in pqs.pool.shm_segments()]
+    res["drain"] = {"pids": pids, "alive": alive, "segments": segments}
+    print(f"phase 50: drain: {len(pids)} pids ever, alive {alive}, shm "
+          f"segments {segments}")
+    check(not alive and not segments, f"mesh drain: {res['drain']}")
+    return sum(n for n, _ in counts)
+
+
+def _wait_for(cond, timeout_s) -> bool:
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.05)
+    return True
+
+
+def llm_cli_cases(torch, dev):
+    """(name, kernel fn, plain fn, args) at the `llm` subcommand's
+    attention shape: the zoo transformer's 4 heads of 16 on 4 kv heads,
+    block 16, 64 blocks, 8 a row (max_len 128), q f32; decode rows at
+    staggered depths (the table's last slot among them), prefill chunks
+    at the prompts' two buckets (8 and 16)."""
+    from nnstreamer_tpu_torch.backends import paged_attn as pa
+
+    rng = np.random.default_rng(3)
+    nb, bs, n_kv, hd, mb, heads = 64, 16, 4, 16, 8, 4
+    pools = [torch.from_numpy(rng.standard_normal(
+        (nb, bs, n_kv, hd)).astype(np.float32)).to(dev) for _ in range(2)]
+    perm = rng.permutation(np.arange(1, nb))
+    tab, ps = decode_rows(rng, perm, (40, 16, 5, mb * bs - 1), bs, mb)
+    q = torch.from_numpy(rng.standard_normal(
+        (len(ps), heads, hd)).astype(np.float32)).to(dev)
+    cases = [("decode llm-cli kv4 hd16 B4", pa.paged_decode_attn,
+              pa.paged_decode_attn_plain,
+              (q, *pools, torch.from_numpy(tab).to(dev),
+               torch.from_numpy(ps).to(dev)))]
+    seq = torch.from_numpy(tab[0]).to(dev)
+    for s_c in (8, 16):
+        qp = torch.from_numpy(rng.standard_normal(
+            (heads, s_c, hd)).astype(np.float32)).to(dev)
+        cases.append((f"prefill llm-cli kv4 hd16 S{s_c} pos0=0",
+                      pa.paged_prefill_attn, pa.paged_prefill_attn_plain,
+                      (qp, *pools, seq, 0)))
+    return cases
+
+
+def llm_cli_run(kernel: str) -> dict:
+    """main(["llm", "--requests", N]) in this process with
+    NNS_PAGED_KERNEL=`kernel` → its exit code, its lines, the tokens and
+    the done line of each request, and its seconds."""
+    import contextlib
+    import io
+    import os
+
+    from nnstreamer_tpu_torch.__main__ import main as cli
+
+    out = io.StringIO()
+    old = os.environ.get("NNS_PAGED_KERNEL")
+    os.environ["NNS_PAGED_KERNEL"] = kernel
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli(["llm", "--requests", str(LLM_CLI_REQUESTS)])
+    finally:
+        if old is None:
+            os.environ.pop("NNS_PAGED_KERNEL")
+        else:
+            os.environ["NNS_PAGED_KERNEL"] = old
+    wall = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    tokens, done = {}, {}
+    for line in lines:
+        rid, _, rest = line.strip().partition("  ")
+        toks, _, tail = rest.partition("   [")
+        tokens.setdefault(rid, []).extend(int(t) for t in toks.split())
+        if tail.startswith("done"):
+            done[rid] = line.strip()
+    return {"rc": rc, "lines": lines, "tokens": tokens, "done": done,
+            "seconds": wall}
+
+
+def llm_cli_prompts() -> list:
+    """The prompts `llm --requests N` makes at its default seed (0)."""
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(LLM_CLI_REQUESTS):
+        plen = int(rng.integers(1, 17))
+        out.append(rng.integers(0, 256, size=plen).astype(np.int32))
+    return out
+
+
+def llm_cli_phase(nt, torch, card, record) -> dict:
+    """Phase 51: the `llm` subcommand in this process, on the card, with
+    the paged kernels (NNS_PAGED_KERNEL=pallas), then again on the torch
+    reference (xla): every request done in both, the paged wrappers
+    launched in the first, the tokens equal but for near-ties, and each
+    kernel within PAGED_REL/PAGED_ABS of its plain version at the
+    subcommand's shapes. → each paged wrapper's launches in the first
+    run."""
+    from nnstreamer_tpu_torch.backends import paged_attn as pa
+    from nnstreamer_tpu_torch.models import transformer
+    from nnstreamer_tpu_torch.serving.store import get_store
+
+    wrappers = {"paged_decode_attn": pa.paged_decode_attn,
+                "paged_prefill_attn": pa.paged_prefill_attn}
+    for w in wrappers.values():
+        w.launches = 0
+    run = llm_cli_run("pallas")
+    launches = {k: w.launches for k, w in wrappers.items()}
+    ref = llm_cli_run("xla")
+    want = [f"req{i}" for i in range(LLM_CLI_REQUESTS)]
+    print(f"phase 51: main(['llm', '--requests', '{LLM_CLI_REQUESTS}']) "
+          f"with NNS_PAGED_KERNEL=pallas on the card: exit {run['rc']}, "
+          f"{len(run['lines'])} lines, done {sorted(run['done'])} (e.g. "
+          f"{run['done'].get('req0')!r}); the paged wrappers' launches "
+          f"{launches}; {run['seconds']:.2f} s; again with xla (the torch "
+          f"reference): exit {ref['rc']}, done {sorted(ref['done'])}, "
+          f"{ref['seconds']:.2f} s [{card}]")
+    check(run["rc"] == 0 and sorted(run["done"]) == want
+          and ref["rc"] == 0 and sorted(ref["done"]) == want
+          and all(n > 0 for n in launches.values()),
+          f"llm subcommand: {run['rc']} {sorted(run['done'])}, "
+          f"{ref['rc']} {sorted(ref['done'])}, {launches}")
+    # the tokens: the kernel arm against the reference arm (f32 both)
+    dev = torch.device("cuda")
+    entry = get_store().entry("transformer")
+    params = on_device(entry.bundle(entry.state[0]).params, dev)
+
+    def last_logits(seq):
+        return transformer.apply_seq(params, seq.to(dev), n_heads=4,
+                                     attn="xla")[0, -1]
+
+    prompts = llm_cli_prompts()
+    got = {f"r{i}": run["tokens"][f"req{i}"] for i in range(len(prompts))}
+    exp = {f"r{i}": ref["tokens"][f"req{i}"] for i in range(len(prompts))}
+    flips = check_f32_parity(torch, last_logits, prompts, got, exp, "51")
+    same = sum(got[k] == exp[k] for k in got)
+    # each kernel at the subcommand's shapes, against its plain version
+    # in f32 (TF32 off: phase 14 leaves it on, and the plain prefill's
+    # products would then carry TF32's 1e-3)
+    errs = {}
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for case in llm_cli_cases(torch, dev):
+            key = case[0].split()[0]
+            errs[key] = max(errs.get(key, 0.0),
+                            check_paged_case(torch, "51", *case, record))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    record["llm_cli"] = {
+        "rc": [run["rc"], ref["rc"]], "done": sorted(run["done"]),
+        "launches": launches, "lines": len(run["lines"]),
+        "seconds": [run["seconds"], ref["seconds"]],
+        "token_identical": same, "near_tie_flips": flips,
+        "kernel_errs": errs}
+    print(f"phase 51: the pallas run's tokens against the xla run's: "
+          f"{same}/{len(got)} requests token-identical, {flips} near-tie "
+          f"flips (limit {LLM_TIE} of max|logit|); the paged kernels at "
+          f"the subcommand's shapes (4 heads of 16, block 16, q f32) "
+          f"against their plain versions (TF32 off): max_abs_err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" [{card}]")
+    return launches
+
+
+def mesh_phases(nt, torch, card, record, phases) -> tuple:
+    """Phases 50-51. → (normalize_u8's launches in the mesh's children,
+    the paged wrappers' launches in the llm subcommand)."""
+    launched = mesh_phase(nt, torch, card, record)
+    phases.done("50 (pipeline B from a two-host mesh through a partition "
+                "and a swap)")
+    paged = llm_cli_phase(nt, torch, card, record)
+    phases.done("51 (the llm subcommand)")
+    return {"mesh": launched}, paged
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -9182,6 +9738,11 @@ def main(argv=None) -> int:
              "and dense shards on logical devices, B's model as a two-filter "
              "device segment and its plan, the device profiler and the "
              "flight recorder)")
+    ap.add_argument(
+        "--mesh", action="store_true",
+        help="run phases 1, 2, 50 and 51 only (pipeline B from a two-host "
+             "serving mesh through a partition and a swap; the llm "
+             "subcommand)")
     ap.add_argument(
         "--slice4", action="store_true",
         help="run phases 1, 2 and 20-23 only (the ring step, ring "
@@ -9270,6 +9831,9 @@ def main(argv=None) -> int:
     elif args.placement:
         placement_phases(nt, torch, card, record, phases)
         entries = []
+    elif args.mesh:
+        mesh_phases(nt, torch, card, record, phases)
+        entries = []
     else:
         # -- 3-6. normalize_u8, pipelines A and B ------------------------
         entries = slice1_phases(nt, torch, card, record, phases)
@@ -9301,9 +9865,17 @@ def main(argv=None) -> int:
         extra.update(pool_phases(nt, torch, card, record, phases))
         # -- 47-49. items 4e-4f: #1 once a frame on R2, SH2, SEG -------
         extra.update(placement_phases(nt, torch, card, record, phases))
+        # -- 50-51. item 4g: #1 in the mesh's hosts; #7-#8 in `llm` -----
+        mesh, paged = mesh_phases(nt, torch, card, record, phases)
+        extra.update(mesh)
         norm = next(e for e in entries if e["name"] == "normalize_u8")
         norm["launches_by_path"] = {"B": norm["launches"], **extra}
         norm["launches"] += sum(extra.values())
+        for e in entries:
+            if e["name"] in paged:
+                e["launches_by_path"] = {"LLM": e["launches"],
+                                         "llm_cli": paged[e["name"]]}
+                e["launches"] += paged[e["name"]]
     record["phase_seconds"] = phases.seconds
 
     out_dir = ROOT / "chiprun_out"
@@ -9318,6 +9890,7 @@ def main(argv=None) -> int:
             "chip_smoke_serving.json" if args.serving else
             "chip_smoke_pool.json" if args.pool else
             "chip_smoke_placement.json" if args.placement else
+            "chip_smoke_mesh.json" if args.mesh else
             "chip_smoke.json")
     (out_dir / name).write_text(json.dumps(record, indent=1))
     print(card)

@@ -19,9 +19,24 @@
     python -m nnstreamer_tpu_torch top http://127.0.0.1:PORT/metrics
     python -m nnstreamer_tpu_torch flight DIR [--inspect NAME] [--json]
                                             # flight-recorder bundles
+    python -m nnstreamer_tpu_torch llm --requests 8
+                                            # continuous-batching LLM
+                                            #  serving demo (tensor_llm;
+                                            #  NNS_PAGED_KERNEL=pallas for
+                                            #  the paged CUDA kernels)
+    python -m nnstreamer_tpu_torch mesh --listen
+                                            # multi-host router (pools
+                                            #  join with serve --join)
+    python -m nnstreamer_tpu_torch mesh --hosts 2
+                                            # partition-chaos demo + SLO
+                                            #  report
+    python -m nnstreamer_tpu_torch serve --join HOST:PORT [--zone Z]
+                                            # a pool joins a mesh router
 
 Runs the pipeline string to EOS on the CUDA device (set
 NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR=cpu to run on the CPU).
+The JAX package's `traffic`, `scenario` and `lint` subcommands are not
+ported yet: each exits 2 naming the item that brings it.
 """
 
 from __future__ import annotations
@@ -139,6 +154,90 @@ def _models_main(argv) -> int:
     return 0
 
 
+def _llm_main(argv) -> int:
+    """`llm` subcommand: push N synthetic prompts through an
+    appsrc → tensor_llm → tensor_sink pipeline and stream tokens as
+    they arrive — the smallest end-to-end serving loop. Runs on the CUDA
+    device (NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR=cpu for the CPU);
+    NNS_PAGED_KERNEL=pallas serves through the hand-written paged
+    attention kernels, as it does for any tensor_llm."""
+    ap = argparse.ArgumentParser(
+        prog="nnstreamer_tpu_torch llm",
+        description="continuous-batching LLM serving demo (tensor_llm)")
+    ap.add_argument("--model", default="store://transformer",
+                    help="store:// ref or zoo name")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="synthetic prompts to serve")
+    ap.add_argument("--max-new-tokens", type=int, default=24)
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--num-blocks", type=int, default=64)
+    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--scheduling", default="continuous",
+                    choices=("continuous", "static"))
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--stats", action="store_true",
+                    help="print engine stats JSON at the end")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+
+    from nnstreamer_tpu_torch.elements import AppSrc, TensorLLM, TensorSink
+    from nnstreamer_tpu_torch.graph.pipeline import Pipeline
+    from nnstreamer_tpu_torch.runtime.scheduler import PipelineRunner
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+    from nnstreamer_tpu_torch.tensor.info import TensorFormat, TensorsSpec
+
+    src = AppSrc(name="src", spec=TensorsSpec(
+        tensors=(), format=TensorFormat.FLEXIBLE))
+    llm = TensorLLM(
+        name="llm", model=args.model, max_batch=args.max_batch,
+        num_blocks=args.num_blocks, block_size=args.block_size,
+        max_len=args.max_len, max_new_tokens=args.max_new_tokens,
+        temperature=args.temperature, scheduling=args.scheduling)
+
+    def on_chunk(buf):
+        m = buf.meta["llm"]
+        toks = " ".join(str(int(t)) for t in np.asarray(buf.tensors[0]))
+        tail = ""
+        if m["done"]:
+            ft = m.get("first_token_ms")
+            tail = (f"   [done: {m['n_tokens']} tokens, "
+                    f"first token {ft:.1f} ms]" if ft is not None
+                    else "   [done]")
+        print(f"{m['request_id']:>8s}  {toks}{tail}")
+
+    sink = TensorSink(name="sink", new_data=on_chunk)
+    pipe = Pipeline()
+    for e in (src, llm, sink):
+        pipe.add(e)
+    pipe.link(src, llm)
+    pipe.link(llm, sink)
+    runner = PipelineRunner(pipe)
+    runner.start()
+    rng = np.random.default_rng(args.seed)
+    vocab = 256
+    try:
+        for i in range(args.requests):
+            plen = int(rng.integers(1, 17))
+            prompt = rng.integers(0, vocab, size=plen).astype(np.int32)
+            src.push(TensorBuffer(
+                tensors=(prompt,), pts=i,
+                meta={"llm": {"request_id": f"req{i}",
+                              "seed": int(args.seed) + i}}))
+        src.end()
+        runner.wait(None)
+    except KeyboardInterrupt:
+        print("interrupted", file=sys.stderr)
+        return 130
+    finally:
+        runner.stop()
+    if args.stats:
+        print(json.dumps(llm.extra_stats(), indent=2, default=float))
+    return 0
+
+
 #: seconds `serve` allows a worker to reach its ready handshake
 SERVE_START_S = 60.0
 
@@ -151,8 +250,8 @@ def _serve_main(argv) -> int:
     model=normalize_u8 ! tensor_filter model=store://mobilenet_v2');
     without --pipeline the workers echo after --service-ms, which gives
     a known-capacity pool for drills and demos. The JAX package's flags,
-    with their behaviour; the mesh (--join, --join-name, --zone) is
-    refused until its module is ported."""
+    with their behaviour: --join registers the pool as a host of a mesh
+    router (serving/mesh.py) and the agent stops at the drain."""
     ap = argparse.ArgumentParser(
         prog="nnstreamer_tpu_torch serve",
         description="supervised multi-process serving pool")
@@ -211,19 +310,16 @@ def _serve_main(argv) -> int:
                          "watchdog (also turns on the pool tracer and "
                          "the device profiler)")
     ap.add_argument("--join", default=None, metavar="HOST:PORT",
-                    help="not ported yet (Queue 1 item 4g)")
+                    help="register this pool as a host of a mesh "
+                         "router (python -m nnstreamer_tpu_torch mesh "
+                         "--listen); the pool keeps serving its own "
+                         "port too")
     ap.add_argument("--join-name", default=None,
-                    help="not ported yet (Queue 1 item 4g)")
-    ap.add_argument("--zone", default=None,
-                    help="not ported yet (Queue 1 item 4g)")
+                    help="host name advertised to the router "
+                         "(default host:port of this pool)")
+    ap.add_argument("--zone", default="",
+                    help="locality zone advertised to the router")
     args = ap.parse_args(argv)
-
-    for flag, v in (("--join", args.join), ("--join-name", args.join_name),
-                    ("--zone", args.zone)):
-        if v is not None:
-            print(f"serve {flag}: the serving mesh (serving/mesh.py) is "
-                  f"not ported yet (Queue 1 item 4g)", file=sys.stderr)
-            return 2
 
     from nnstreamer_tpu_torch.serving.pool import PooledQueryServer
     from nnstreamer_tpu_torch.serving.worker import WorkerSpec
@@ -320,6 +416,17 @@ def _serve_main(argv) -> int:
             lambda: {"admission": pqs.stats().get("admission")})
         print(f"flight recorder armed -> {args.flight_dir}",
               file=sys.stderr)
+    agent = None
+    if args.join:
+        from nnstreamer_tpu_torch.serving.mesh import pool_join
+
+        rhost, _, rport = args.join.rpartition(":")
+        agent = pool_join(
+            pqs, rhost or "127.0.0.1", int(rport),
+            name=args.join_name or f"{args.host}:{pqs.port}",
+            zone=args.zone)
+        print(f"joined mesh router {args.join} as "
+              f"{agent.name!r}", file=sys.stderr, flush=True)
     print(f"pool serving on {args.host}:{pqs.port} "
           f"({args.workers} worker(s); SIGTERM/^C drains)",
           file=sys.stderr, flush=True)
@@ -339,6 +446,8 @@ def _serve_main(argv) -> int:
             tuner.stop()
         if flight is not None:
             flight.close()
+        if agent is not None:
+            agent.stop()
         pqs.close()
         if msrv is not None:
             msrv.close()
@@ -348,6 +457,152 @@ def _serve_main(argv) -> int:
             print(f"chrome trace written to {args.trace_out}",
                   file=sys.stderr)
     return 0
+
+
+def _mesh_main(argv) -> int:
+    """`mesh` subcommand. Two modes:
+
+    --listen: run a MeshRouter until ^C or SIGTERM — clients dial it
+    like any query server; pools join with `serve --join HOST:PORT`.
+
+    default (demo): the chaos drill — spin up N local pool hosts (echo
+    workers) behind one router, flood it open-loop above aggregate
+    capacity while one host is blackholed mid-flood, and print the SLO
+    + conservation report. Exit 0 iff nothing was lost and the per-host
+    counters conserve."""
+    ap = argparse.ArgumentParser(
+        prog="nnstreamer_tpu_torch mesh",
+        description="multi-host serving mesh: router (--listen) or "
+                    "partition-chaos demo")
+    ap.add_argument("--listen", action="store_true",
+                    help="run a router until ^C instead of the demo")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=0,
+                    help="router port (0 picks a free one, printed)")
+    ap.add_argument("--id", type=int, default=0, help="server pair id")
+    ap.add_argument("--dims", default="8:1",
+                    help="accepted input dims (HELLO contract)")
+    ap.add_argument("--types", default="float32")
+    ap.add_argument("--max-pending", type=int, default=64)
+    ap.add_argument("--shed-policy", default="reject-newest",
+                    choices=("reject-newest", "reject-oldest",
+                             "deadline-drop"))
+    ap.add_argument("--lease-s", type=float, default=2.0,
+                    help="host lease: silent for this long => fenced")
+    ap.add_argument("--max-redeliver", type=int, default=1,
+                    help="cross-host re-offers per frame after a fence")
+    ap.add_argument("--zone", default="",
+                    help="router zone (locality-aware routing)")
+    ap.add_argument("--stats-every", type=float, default=0.0,
+                    help="--listen: print router stats JSON every N s")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    metavar="PORT",
+                    help="--listen: Prometheus exposition with per-host "
+                         "series on http://HOST:PORT/metrics")
+    # demo mode
+    ap.add_argument("--hosts", type=int, default=2,
+                    help="demo: local pool hosts to spin up")
+    ap.add_argument("--workers-per-host", type=int, default=1)
+    ap.add_argument("--pattern", default="poisson",
+                    choices=("poisson", "bursty"))
+    ap.add_argument("--load-x", type=float, default=1.5,
+                    help="demo: offered load vs aggregate capacity")
+    ap.add_argument("--requests", type=int, default=300)
+    ap.add_argument("--service-ms", type=float, default=20.0)
+    ap.add_argument("--blackhole-at", type=float, default=None,
+                    help="demo: partition one host at t seconds "
+                         "(default: the median arrival)")
+    ap.add_argument("--heal-after", type=float, default=None,
+                    help="demo: heal the partition after N more "
+                         "seconds and wait for the host to rejoin")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--budget-ms", type=float, default=250.0)
+    ap.add_argument("--json", action="store_true",
+                    help="print the raw report JSON only")
+    args = ap.parse_args(argv)
+
+    if args.listen:
+        import signal
+
+        from nnstreamer_tpu_torch.serving.mesh import MeshRouter
+
+        router = MeshRouter(
+            host=args.host, port=args.port, sid=args.id,
+            dims=args.dims, types=args.types,
+            max_pending=args.max_pending, shed_policy=args.shed_policy,
+            lease_s=args.lease_s, max_redeliver=args.max_redeliver,
+            zone=args.zone)
+        msrv = None
+        if args.metrics_port is not None:
+            from nnstreamer_tpu_torch.serving.metrics import (
+                MetricsServer, metrics_snapshot)
+
+            def collect():
+                s = router.stats()
+                return metrics_snapshot(admission=s.get("admission"),
+                                        mesh=s)
+
+            msrv = MetricsServer(collect, host=args.host,
+                                 port=args.metrics_port,
+                                 health=lambda: router.stats()["mesh"])
+            print(f"metrics on http://{args.host}:{msrv.port}/metrics",
+                  file=sys.stderr)
+        stop = []
+        prev = signal.signal(signal.SIGTERM,
+                             lambda signum, frame: stop.append(signum))
+        print(f"mesh router on {args.host}:{router.port} "
+              f"(lease {args.lease_s}s; join pools with: python -m "
+              f"nnstreamer_tpu_torch serve --join {args.host}:"
+              f"{router.port}; ^C or SIGTERM stops)", file=sys.stderr,
+              flush=True)
+        last = time.monotonic()
+        try:
+            while not stop:
+                time.sleep(0.2)
+                if args.stats_every and \
+                        time.monotonic() - last >= args.stats_every:
+                    last = time.monotonic()
+                    print(json.dumps(router.stats(), default=float),
+                          file=sys.stderr)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            signal.signal(signal.SIGTERM, prev)
+            router.close()
+            if msrv is not None:
+                msrv.close()
+        return 0
+
+    from nnstreamer_tpu_torch.traffic import run_against_mesh
+
+    report = run_against_mesh(
+        hosts=args.hosts, workers_per_host=args.workers_per_host,
+        pattern=args.pattern, load_x=args.load_x, n=args.requests,
+        service_ms=args.service_ms, max_pending=args.max_pending,
+        p99_budget_ms=args.budget_ms, seed=args.seed,
+        lease_s=args.lease_s, max_redeliver=args.max_redeliver,
+        blackhole_at_s=args.blackhole_at, heal_after_s=args.heal_after)
+    if args.json:
+        print(json.dumps(report, default=float))
+    else:
+        report.pop("queue_depth_timeline", None)
+        print(json.dumps(report, indent=2, default=float))
+        ex = (report.get("redelivered_examples") or [None])[0]
+        if ex:
+            print(f"cross-host redelivery: pts={ex['pts']} "
+                  f"trace={ex['trace_id']} hosts={ex['hosts']}",
+                  file=sys.stderr)
+    ok = report.get("lost", 1) == 0 and report.get("conserved", False)
+    return 0 if ok else 1
+
+
+#: subcommands of the JAX package the port does not have yet, and the
+#: ROADMAP Queue 1 item that brings each
+_NOT_PORTED = {
+    "traffic": "item 4h: the rest of traffic/loadgen.py",
+    "scenario": "item 4h: scenario/",
+    "lint": "item 5d: analysis/",
+}
 
 
 def _top_main(argv) -> int:
@@ -438,6 +693,14 @@ def main(argv=None) -> int:
         return _top_main(argv[1:])
     if argv and argv[0] == "flight":
         return _flight_main(argv[1:])
+    if argv and argv[0] == "llm":
+        return _llm_main(argv[1:])
+    if argv and argv[0] == "mesh":
+        return _mesh_main(argv[1:])
+    if argv and argv[0] in _NOT_PORTED:
+        print(f"{argv[0]}: not ported yet (ROADMAP Queue 1 "
+              f"{_NOT_PORTED[argv[0]]})", file=sys.stderr)
+        return 2
     ap = argparse.ArgumentParser(
         prog="nnstreamer_tpu_torch",
         description="streaming AI pipelines on PyTorch/CUDA (gst-launch parity)")

@@ -21,7 +21,7 @@ from __future__ import annotations
 import json
 import math
 import struct
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -161,6 +161,18 @@ def encode_buffer(buf: TensorBuffer, client_id: int = 0,
         parts.append(hdr.pack())
         parts.append(a.tobytes())
     return b"".join(parts)
+
+
+def peek_pts(data: bytes) -> Optional[int]:
+    """pts of an encoded frame without decoding tensors/meta — the mesh
+    host agent needs only the correlation id to synthesize a BUSY when
+    a local forward fails. None for frames too short or with pts=-1."""
+    if len(data) < _HEAD.size:
+        return None
+    magic, _num, pts, _cid, _mlen = _HEAD.unpack_from(data, 0)
+    if magic != FRAME_MAGIC or pts < 0:
+        return None
+    return pts
 
 
 def decode_buffer(data: bytes) -> Tuple[TensorBuffer, int]:

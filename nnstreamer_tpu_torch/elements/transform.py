@@ -212,10 +212,15 @@ class TransformProgram:
         def fn_torch(a):
             f = a.to(torch.float32)
             dims = tuple(range(f.dim() - 1)) if per_channel else None
-            mean = f.mean(dim=dims, keepdim=per_channel)
+            # rank 1 per channel: every element is its own channel. torch
+            # reads dim=() as "every dim", numpy's axis=() reduces none:
+            # the mean is the input and the std 0, as on the host
+            none = dims == ()
+            mean = f if none else f.mean(dim=dims, keepdim=per_channel)
             if kind == "dc-average":
                 return f - mean
-            std = f.std(dim=dims, correction=0, keepdim=per_channel)
+            std = torch.zeros_like(f) if none else \
+                f.std(dim=dims, correction=0, keepdim=per_channel)
             return (f - mean) / (std + 1e-10)
 
         def fn(a):

@@ -62,6 +62,7 @@ replacement comes up with a fresh one.
 
 from __future__ import annotations
 
+import itertools
 import multiprocessing as mp
 import os
 import pickle
@@ -80,6 +81,10 @@ from nnstreamer_tpu_torch.serving.worker import RID_META, WorkerSpec, worker_mai
 from nnstreamer_tpu_torch.tensor.info import TensorsSpec
 
 log = get_logger("serving.pool")
+
+#: a process-wide pool number in each pool's ring names: two pools of one
+#: name in one process (a mesh's hosts) never meet on a segment name
+_POOL_SEQ = itertools.count()
 
 #: worker lifecycle states (the supervision tree)
 STARTING, READY, DEAD, DISABLED, STOPPING = (
@@ -239,6 +244,7 @@ class WorkerPool:
             spec = dataclasses.replace(spec, workers=workers)
         self.spec = spec
         self.name = name
+        self._ring_tag = f"{name}-{next(_POOL_SEQ)}"
         self.n_workers = workers
         self.per_worker_queue = per_worker_queue
         self.max_redeliver = max(0, max_redeliver)
@@ -358,10 +364,10 @@ class WorkerPool:
 
             try:
                 slot.shm_req = ShmRing.create(
-                    ring_name("rq", self.name, slot.wid, slot.spawns),
+                    ring_name("rq", self._ring_tag, slot.wid, slot.spawns),
                     self.shm_ring_bytes)
                 slot.shm_res = ShmRing.create(
-                    ring_name("rs", self.name, slot.wid, slot.spawns),
+                    ring_name("rs", self._ring_tag, slot.wid, slot.spawns),
                     self.shm_ring_bytes)
                 spec = dataclasses.replace(
                     spec, shm_req=slot.shm_req.name,
@@ -1067,7 +1073,7 @@ class WorkerPool:
         `all_pids_ever` must be all-dead."""
         from nnstreamer_tpu_torch.serving.shm import RING_PREFIX, shm_safe
 
-        marker = f"_{shm_safe(self.name)}_"
+        marker = f"_{shm_safe(self._ring_tag)}_"
         try:
             return sorted(n for n in os.listdir("/dev/shm")
                           if n.startswith(RING_PREFIX) and marker in n

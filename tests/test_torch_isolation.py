@@ -252,3 +252,16 @@ def test_pool_worker_child_imports_no_jax(tmp_path, monkeypatch):
         pids = pqs.pool.all_pids_ever()
         pqs.close()
     assert not any(proc_alive(p) for p in pids)
+
+
+#: the serving mesh's modules (the router and host agent, the chaos proxy,
+#: the mesh half of the load generator): the scan above must reach each
+MESH_MODULES = ("serving/mesh.py", "traffic/netchaos.py",
+                "traffic/loadgen.py", "traffic/__init__.py", "edge/wire.py")
+
+
+@pytest.mark.parametrize("rel", MESH_MODULES)
+def test_scan_covers_the_mesh_modules(rel):
+    path = PORT / rel
+    assert path in sorted(PORT.rglob("*.py"))
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]

@@ -5,9 +5,10 @@ both packages, and the port's `render_prometheus` text equal to JAX's
 for the same snapshot inputs (admission, pool, mesh, replicas, segments,
 autotune, llm, tracer fed the same records, extra gauges).
 
-The mesh and shard cases feed their stats dicts: the port has no mesh or
-sharded replica set yet (Queue 1 items 4e, 4g), and the exposition is
-the same function of those dicts.
+The mesh and shard cases feed stats dicts built here, so both packages
+render the same input; the exposition is the same function of those
+dicts. A live port router's `stats()` rendered by both packages is held
+equal in tests/test_torch_mesh.py.
 """
 
 import json

@@ -178,6 +178,52 @@ def test_transform_arithmetic_matches_jax(dtype, option):
             JInfo(x.shape, dtype)).dtype.type_name == str(ref.dtype)
 
 
+_STAND = [f"{k}{pc}" for k in ("default", "dc-average")
+          for pc in ("", ":per-channel")]
+
+
+@pytest.mark.parametrize("option", _STAND)
+@pytest.mark.parametrize("rank", [1, 2, 3, 4])
+def test_transform_stand_matches_jax_at_every_rank(rank, option):
+    """F7: per channel on a rank-1 tensor reduces over no axis (numpy's
+    axis=()), so the mean is the input and the std 0 on both paths."""
+    rng = np.random.default_rng(rank)
+    x = rng.uniform(-50, 50, (2, 3, 4, 5)[-rank:]).astype(np.float32)
+    ref = np.asarray(JaxProgram("stand", option).apply(np, x.copy()))
+    prog = TransformProgram("stand", option)
+    host = prog.apply(x.copy())
+    dev = prog.apply(torch.from_numpy(x.copy())).numpy()
+    np.testing.assert_array_equal(host, ref)
+    # f32 reductions in two orders (the module docstring's bound)
+    np.testing.assert_allclose(dev, ref, atol=1e-5, rtol=0)
+    assert dev.dtype == host.dtype == ref.dtype == np.float32
+
+
+def test_stand_per_channel_after_kernel_filter_matches_jax():
+    """F7's pipeline: the normalize filter's output is a tensor, so the
+    transform's torch path runs on a rank-1 frame."""
+    from nnstreamer_tpu.tensor.buffer import TensorBuffer as JBuf
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer as TBuf
+
+    desc = ("appsrc name=src dims=4 types=uint8 ! tensor_filter "
+            "framework=pallas model=normalize_u8 ! tensor_transform "
+            "mode=stand option=dc-average:per-channel ! tensor_sink "
+            "name=out")
+    frame = np.array([10, 20, 30, 200], np.uint8)
+    outs = []
+    for pkg, buf_cls in ((jnns, JBuf), (tnns, TBuf)):
+        pipe = pkg.parse_launch(desc)
+        runner = pkg.PipelineRunner(pipe).start()
+        pipe.get("src").push(buf_cls.of(frame, pts=0))
+        pipe.get("src").end()
+        runner.wait(120)
+        runner.stop()
+        (buf,) = pipe.get("out").results
+        outs.append(np.asarray(buf.tensors[0], np.float32))
+    np.testing.assert_array_equal(outs[0], np.zeros(4, np.float32))
+    np.testing.assert_array_equal(outs[1], outs[0])
+
+
 def test_label_file_matches_jax(bundles, tmp_path):
     """option1 labels file with classes-1 entries (class 0 = background):
     both packages print the same label text per frame."""

@@ -1,12 +1,15 @@
-"""`python -m nnstreamer_tpu_torch serve` and `top` (JAX
+"""`python -m nnstreamer_tpu_torch serve`, `top`, `mesh` and `llm` (JAX
 `nnstreamer_tpu/__main__.py`'s subcommands on the port), on the CPU.
 
 `serve --workers 2` (echo) with `--metrics-port 0`, `--slo` and
 `--flight-dir`, driven by a port `tensor_query_client`; `top` against its
 endpoint for one frame; SIGTERM drains it with rc 0 and no orphan worker.
-The flags whose module is not ported yet — `--join`, `--join-name` and
-`--zone` (Queue 1 item 4g) — are refused with a message naming the item,
-before anything starts.
+`serve --join` registers a pool with a `mesh --listen` router (both
+subprocesses), which answers a frame through the pool and shows the host
+on its /metrics; the `mesh` demo exits 0 at a small `--requests`; `llm`
+prints one `done` line a request, its tokens those of the same
+`tensor_llm` driven directly. The subcommands whose modules are not
+ported yet (`traffic`, `scenario`, `lint`) exit 2 naming their item.
 """
 
 import json
@@ -117,18 +120,128 @@ def test_serve_metrics_slo_top_and_sigterm_drain(tmp_path):
     assert not any(proc_alive(p) for p in pids)
 
 
-@pytest.mark.parametrize("flag,value,item", [
-    ("--join", "127.0.0.1:1", "4g"),
-    ("--join-name", "h0", "4g"),
-    ("--zone", "z", "4g"),
-])
-def test_serve_refuses_flags_of_later_items(flag, value, item, capsys):
+def _stop(proc):
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait(30)
+
+
+def test_serve_join_registers_with_mesh_listen_and_answers():
+    router = pool = None
+    try:
+        router = subprocess.Popen(
+            [sys.executable, "-m", "nnstreamer_tpu_torch", "mesh",
+             "--listen", "--lease-s", "2", "--metrics-port", "0"],
+            cwd=ROOT, env=_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        m, _ = _read_until(router, r"metrics on (http://\S+/metrics)")
+        url = m.group(1)
+        m, _ = _read_until(router, r"mesh router on [\d.]+:(\d+)")
+        rport = int(m.group(1))
+        pool = subprocess.Popen(
+            [sys.executable, "-m", "nnstreamer_tpu_torch", "serve",
+             "--workers", "1", "--service-ms", "1", "--join",
+             f"127.0.0.1:{rport}", "--join-name", "h0", "--zone", "z1"],
+            cwd=ROOT, env=_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        _read_until(pool, r"joined mesh router .* as 'h0'")
+        _read_until(pool, r"pool serving on")
+        pipe = tnns.parse_launch(
+            f"appsrc name=src dims=8:1 types=float32 ! tensor_query_client "
+            f"port={rport} timeout=30 ! tensor_sink name=out")
+        runner = tnns.PipelineRunner(pipe).start()
+        x = np.arange(8, dtype=np.float32).reshape(1, 8)
+        pipe.get("src").push(TensorBuffer.of(x, pts=0))
+        pipe.get("src").end()
+        runner.wait(60)
+        runner.stop()
+        (res,) = pipe.get("out").results
+        np.testing.assert_array_equal(np.asarray(res.tensors[0]), x)
+        fams = parse_prometheus(scrape(url))
+        assert fams["nns_mesh_ready"]["samples"]["nns_mesh_ready"] == 1.0
+        replied = fams["nns_host_replied_total"]["samples"]
+        assert list(replied.values()) == [1.0]
+        assert 'host="h0"' in next(iter(replied))
+        pool.send_signal(signal.SIGTERM)
+        assert pool.wait(60) == 0
+        router.send_signal(signal.SIGTERM)
+        assert router.wait(60) == 0
+    finally:
+        _stop(pool)
+        _stop(router)
+
+
+def test_mesh_demo_exits_zero():
+    proc = subprocess.run(
+        [sys.executable, "-m", "nnstreamer_tpu_torch", "mesh",
+         "--requests", "24", "--service-ms", "10", "--load-x", "1.2",
+         "--lease-s", "0.8", "--max-redeliver", "2", "--json"],
+        cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["offered"] == 24 and report["lost"] == 0
+    assert report["conserved"]
+    assert report["perhost_replied_sum"] == report["admission"]["replied"]
+    assert report["orphans"] == []
+
+
+def test_llm_prints_the_tokens_of_tensor_llm(monkeypatch, capsys):
+    from nnstreamer_tpu_torch.__main__ import main
+    from nnstreamer_tpu_torch.elements import AppSrc, TensorLLM, TensorSink
+    from nnstreamer_tpu_torch.graph.pipeline import Pipeline
+    from nnstreamer_tpu_torch.tensor.info import TensorFormat, TensorsSpec
+
+    monkeypatch.setenv("NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR", "cpu")
+    monkeypatch.setenv("NNS_PAGED_KERNEL", "pallas")
+    n, new, seed = 3, 4, 5
+    assert main(["llm", "--requests", str(n), "--max-new-tokens",
+                 str(new), "--seed", str(seed)]) == 0
+    cli: dict = {}
+    done = []
+    for line in capsys.readouterr().out.splitlines():
+        rid, _, rest = line.strip().partition("  ")
+        toks, _, tail = rest.partition("   [")
+        cli.setdefault(rid, []).extend(int(t) for t in toks.split())
+        if tail.startswith("done"):
+            done.append(rid)
+    assert sorted(done) == [f"req{i}" for i in range(n)]
+
+    # the same prompts through the same element, driven directly
+    src = AppSrc(name="src", spec=TensorsSpec(
+        tensors=(), format=TensorFormat.FLEXIBLE))
+    llm = TensorLLM(name="llm", max_new_tokens=new)
+    sink = TensorSink(name="sink")
+    pipe = Pipeline()
+    for e in (src, llm, sink):
+        pipe.add(e)
+    pipe.link(src, llm)
+    pipe.link(llm, sink)
+    runner = tnns.PipelineRunner(pipe).start()
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        prompt = rng.integers(0, 256, size=int(rng.integers(1, 17)))
+        src.push(TensorBuffer(
+            tensors=(prompt.astype(np.int32),), pts=i,
+            meta={"llm": {"request_id": f"req{i}", "seed": seed + i}}))
+    src.end()
+    runner.wait(120)
+    runner.stop()
+    direct: dict = {}
+    for buf in sink.results:
+        direct.setdefault(buf.meta["llm"]["request_id"], []).extend(
+            int(t) for t in np.asarray(buf.tensors[0]))
+    assert cli == direct
+    assert all(len(v) == new for v in cli.values())
+
+
+@pytest.mark.parametrize("cmd,item", [
+    ("traffic", "4h"), ("scenario", "4h"), ("lint", "5d")])
+def test_unported_subcommands_exit_2_naming_their_item(cmd, item, capsys):
     from nnstreamer_tpu_torch.__main__ import main
 
-    assert main(["serve", flag, value]) == 2
+    assert main([cmd]) == 2
     err = capsys.readouterr().err
-    assert f"Queue 1 item {item}" in err
-    assert "pool serving" not in err
+    assert f"Queue 1 item {item}" in err and "not ported yet" in err
 
 
 def test_top_needs_a_url():
