@@ -13,6 +13,7 @@
     python3 chip_smoke.py --pool      # phases 1, 2, 45 and 46 only
     python3 chip_smoke.py --placement # phases 1, 2 and 47-49 only
     python3 chip_smoke.py --mesh      # phases 1, 2, 50 and 51 only
+    python3 chip_smoke.py --traffic   # phases 1, 2, 52 and 53 only
 
 Needs one CUDA card, nvcc, g++ (phase 42) and the repository checkout
 around this file;
@@ -507,7 +508,30 @@ phases there). Phases:
    done, the tokens equal the pallas run's but for near-ties (LLM_TIE);
    both paged kernels at the subcommand's shapes (4 heads of 16 on 4 kv
    heads, block 16, q f32) within PAGED_REL/PAGED_ABS of their plain
-   versions.
+   versions;
+52. Queue 1 item 4h: pipeline B's two filters in a 1-worker pool (phase
+   45's pool_start, traced), its capacity from a burst of 16 after 4
+   warm-up frames, then flooded open loop by the port's own `traffic`
+   subcommand in this process (`--host --port --dims 3:224:224:1 --types
+   uint8 --rate` 1.5x the capacity `--requests 96 --seed 0 --json`):
+   exit 0, lost 0, completed + rejected = 96 with one completed at
+   least, the pool's admission invariants; then 16 of phase 4's test
+   images (videotestsrc) through run_open_loop(on_result=...) at 0.5x
+   the capacity, every reply within POOL_REL of B direct's (bit for bit
+   counted); normalize_u8's launches in the child (its shipped trace
+   deltas) = the pool's replies = warm-up + burst + flood + check;
+   p50/p99, goodput and frames/s of the flood;
+53. Queue 1 item 5a: B's logits across one EdgeBroker (its MQTT listener
+   on): `appsrc ! normalize_u8 ! zoo://mobilenet_v2 ! mqttsink
+   protocol=mqtt qos=1` into `mqttsrc protocol=mqtt queue_size=128 !
+   tensor_sink` in this process, 64 frames: all arrive once, in order,
+   with their pts, logits bit for bit B direct's, normalize_u8 +64; a raw
+   port MqttClient on the same topic counts 64 PUBLISH packets whose
+   payloads decode (decode_buffer) to the same frames; the same 64 over
+   the edge protocol with `sync=broker` (pts rebased to 0, never
+   decreasing) and through `edgesink port=0` → `edgesrc`, each bit for
+   bit with +64 launches; frames/s from the first push to the last
+   arrival beside B direct's (no claim).
 
 Each kernel's timing phase (6, 10, 15, 16, 23) also prints its time per
 call from Python, back to back — the host's time (the launch path's own
@@ -527,7 +551,8 @@ chip_smoke_modelio.json with --modelio, chip_smoke_elements.json with
 --elements, chip_smoke_streaming.json with --streaming,
 chip_smoke_serving.json with --serving, chip_smoke_pool.json with
 --pool, chip_smoke_placement.json with --placement,
-chip_smoke_mesh.json with --mesh).
+chip_smoke_mesh.json with --mesh, chip_smoke_traffic.json with
+--traffic).
 """
 
 from __future__ import annotations
@@ -9685,6 +9710,373 @@ def mesh_phases(nt, torch, card, record, phases) -> tuple:
     return {"mesh": launched}, paged
 
 
+# -- phases 52-53: load generation, MQTT (Queue 1 items 4h, 5a) ---------------
+
+#: phase 52: the open-loop flood's size and offered load (× the pool's
+#: capacity, measured by a burst of TRAFFIC_CAP_FRAMES), then the frames
+#: whose logits are held to B direct's at TRAFFIC_CHECK_X × capacity
+TRAFFIC_FRAMES, TRAFFIC_CAP_FRAMES, TRAFFIC_CHECK_FRAMES = 96, 16, 16
+TRAFFIC_LOAD_X, TRAFFIC_CHECK_X = 1.5, 0.5
+#: phase 53: frames of B carried across the broker on each transport
+MQTT_FRAMES = 64
+MQTT_TOPIC = "b/logits"
+
+
+def test_images(nt, n: int) -> list:
+    """Phase 4's test images: `n` videotestsrc frames of POOL_SHAPE
+    (224², uint8)."""
+    _, h, w, _ = POOL_SHAPE
+    out = run_sinks(nt, f"videotestsrc num-buffers={n} width={w} "
+                        f"height={h} ! tensor_converter ! tensor_sink "
+                        f"name=out")[0]["out"]
+    return [np.asarray(b.tensors[0]) for b in out]
+
+
+def traffic_cli(argv) -> tuple:
+    """main(["traffic", *argv]) in this process → (exit code, the report
+    its --json line printed)."""
+    import contextlib
+    import io
+
+    from nnstreamer_tpu_torch.__main__ import main as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(["traffic", *argv])
+    lines = out.getvalue().strip().splitlines()
+    return rc, (json.loads(lines[-1]) if lines else {})
+
+
+def traffic_phase(nt, torch, card, record) -> int:
+    """Phase 52: pipeline B in a 1-worker pool, flooded open loop by the
+    port's own `traffic` subcommand at 1.5x its measured capacity, then
+    held to B direct at 0.5x. → normalize_u8's launches in the child."""
+    from nnstreamer_tpu_torch.runtime.tracing import Tracer
+    from nnstreamer_tpu_torch.serving.pool import proc_alive
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+    from nnstreamer_tpu_torch.traffic.loadgen import (
+        conservation_ok, poisson_arrivals, run_open_loop)
+
+    res = {}
+    record["traffic"] = res
+    frames = test_images(nt, TRAFFIC_CHECK_FRAMES)
+    tracer = Tracer()
+    pqs = pool_start(nt, 1, 5201, tracer=tracer)
+    try:
+        ref = logits_of(run_sinks(
+            nt, f"{APPSRC} ! {NORM_B} ! tensor_filter model=store://"
+                f"{POOL_STORE}@{POOL_V1} ! tensor_sink name=out",
+            frames)[0]["out"]).astype(np.float32)
+        check(pqs.pool.wait_ready(240),
+              f"traffic: pool not ready: {pqs.stats()['workers']}")
+        cli = PoolClient(pqs.port)
+        try:
+            for i in range(MESH_WARM):
+                cli.send(i, frames[i])
+                cli.wait([i])
+            t0 = time.perf_counter()
+            for i in range(TRAFFIC_CAP_FRAMES):
+                cli.send(100 + i, frames[i % len(frames)])
+            cli.wait([100 + i for i in range(TRAFFIC_CAP_FRAMES)])
+            cap = TRAFFIC_CAP_FRAMES / (time.perf_counter() - t0)
+        finally:
+            cli.close()
+        check(not cli.busy, f"traffic: the pool refused {cli.busy}")
+        rate = TRAFFIC_LOAD_X * cap
+        argv = ["--host", "127.0.0.1", "--port", str(pqs.port), "--dims",
+                POOL_DIMS, "--types", "uint8", "--rate", f"{rate:.3f}",
+                "--requests", str(TRAFFIC_FRAMES), "--seed", "0", "--json"]
+        t0 = time.perf_counter()
+        rc, rep = traffic_cli(argv)
+        wall = time.perf_counter() - t0
+        c = pqs.admission_counters()
+        lat = rep.get("latency_ms", {})
+        res["flood"] = {"capacity_rps": cap, "rate": rate, "argv": argv,
+                        "rc": rc, "seconds": wall, "admission": c,
+                        "conserved": conservation_ok(c), "report": {
+                            k: rep.get(k) for k in (
+                                "offered", "completed", "rejected", "lost",
+                                "busy_causes", "duration_s",
+                                "offered_rate_rps", "throughput_rps",
+                                "goodput_rps", "within_budget",
+                                "p99_budget_ms", "latency_ms",
+                                "queue_depth_peak", "seed")}}
+        print(f"phase 52: pipeline B (normalize_u8 ! store://{POOL_STORE}"
+              f"@{POOL_V1}, bf16, {POOL_SHAPE} uint8) in a 1-worker pool, "
+              f"capacity {cap:.1f} frames/s (a burst of "
+              f"{TRAFFIC_CAP_FRAMES} after {MESH_WARM} warm-up frames); "
+              f"main(['traffic', {', '.join(repr(a) for a in argv)}]): exit "
+              f"{rc}, offered {rep.get('offered')}, completed "
+              f"{rep.get('completed')}, rejected {rep.get('rejected')} "
+              f"{rep.get('busy_causes')}, lost {rep.get('lost')}, the pool's "
+              f"queue depth peak {c.get('depth_peak')}; its "
+              f"counters {c} conserved {conservation_ok(c)} [{card}]")
+        print(f"phase 52: the flood: latency p50 {lat.get('p50')} ms p99 "
+              f"{lat.get('p99')} ms, goodput {rep.get('goodput_rps')} "
+              f"frames/s (budget {rep.get('p99_budget_ms')} ms), "
+              f"{rep.get('throughput_rps')} frames/s completed over "
+              f"{rep.get('duration_s')} s (offered "
+              f"{rep.get('offered_rate_rps')} frames/s); {wall:.2f} s in "
+              f"the subcommand [{card}]")
+        check(rc == 0 and rep.get("lost") == 0
+              and rep.get("offered") == TRAFFIC_FRAMES
+              and rep["completed"] + rep["rejected"] == TRAFFIC_FRAMES
+              and rep["completed"] >= 1 and conservation_ok(c),
+              f"traffic flood: {res['flood']}")
+
+        # -- B's logits through run_open_loop at half the capacity -------
+        got = {}
+
+        def on_result(pts, buf):
+            got[pts] = np.asarray(buf.tensors[0]).astype(np.float32)
+
+        rep2 = run_open_loop(
+            "127.0.0.1", pqs.port, dims=POOL_DIMS, types="uint8",
+            arrivals=poisson_arrivals(TRAFFIC_CHECK_X * cap,
+                                      TRAFFIC_CHECK_FRAMES,
+                                      np.random.default_rng(52)),
+            make_frame=lambda i: TensorBuffer.of(frames[i], pts=i),
+            drain_timeout_s=120.0, on_result=on_result)
+        errs = {p: rel_to(v, ref[p]) for p, v in got.items()}
+        same = sum(v.tobytes() == ref[p].tobytes() for p, v in got.items())
+        res["check"] = {"completed": rep2["completed"],
+                        "lost": rep2["lost"], "max_rel": max(
+                            errs.values(), default=None),
+                        "bit_for_bit": same}
+        print(f"phase 52: {TRAFFIC_CHECK_FRAMES} test images open loop at "
+              f"{TRAFFIC_CHECK_X} x capacity through run_open_loop("
+              f"on_result=...): completed {rep2['completed']}, lost "
+              f"{rep2['lost']}; logits against B direct's: max "
+              f"|diff|/max|logit| {res['check']['max_rel']}, bit for bit "
+              f"{same}/{len(got)} [{card}]")
+        check(rep2["completed"] == TRAFFIC_CHECK_FRAMES and len(got) ==
+              TRAFFIC_CHECK_FRAMES and all(e <= POOL_REL
+                                           for e in errs.values()),
+              f"traffic check: {res['check']}")
+
+        # -- normalize_u8 in the child: every frame the pool answered ----
+        def tally():
+            return (pool_launches(tracer),
+                    pqs.admission_counters()["replied"])
+
+        _wait_for(lambda: tally()[0] == tally()[1], 30)
+        launched, replied = tally()
+        res["launches"] = [launched, replied]
+        print(f"phase 52: normalize_u8 in the child, launches as its "
+              f"wrapper counted them / the pool's replies: {launched} / "
+              f"{replied} ({MESH_WARM} warm-up + {TRAFFIC_CAP_FRAMES} burst"
+              f" + {rep['completed']} flood + {rep2['completed']} check)")
+        check(launched == replied == MESH_WARM + TRAFFIC_CAP_FRAMES
+              + rep["completed"] + rep2["completed"],
+              f"traffic launches: {launched} / {replied}")
+    finally:
+        pids = pqs.pool.all_pids_ever()
+        pqs.close()
+    alive = [p for p in pids if proc_alive(p)]
+    res["drain"] = {"pids": pids, "alive": alive,
+                    "segments": pqs.pool.shm_segments()}
+    check(not alive and not res["drain"]["segments"],
+          f"traffic drain: {res['drain']}")
+    return launched
+
+
+def subscribed(broker, topic, n: int = 1) -> bool:
+    """The broker holds `n` subscribers of `topic` at least: edge-protocol
+    SUBSCRIBEs and MQTT connections with a topic filter that matches."""
+    from nnstreamer_tpu_torch.edge import mqtt_wire
+
+    with broker._lock:
+        subs = len(broker._subs.get(topic, ()))
+    mq = broker._mqtt
+    with mq._lock:
+        subs += sum(any(mqtt_wire.topic_matches(f, topic) for f in c.filters)
+                    for c in mq._conns.values())
+    return subs >= n
+
+
+def carried(nt, kernels, frames, recv_desc, send_desc, ready) -> dict:
+    """Start the receiving pipeline, wait for `ready(recv_pipe)`, push
+    `frames` through the sending one to EOS, and wait for every frame at
+    the receiver. → its results, the sender's normalize_u8 launches and
+    the seconds from the first push to the last arrival."""
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    recv = nt.parse_launch(recv_desc)
+    rr = nt.PipelineRunner(recv).start()
+    sink = recv.get("out")
+    try:
+        check(_wait_for(lambda: ready(recv), 30),
+              f"carried: the receiver never subscribed ({recv_desc})")
+        send = nt.parse_launch(send_desc)
+        sr = nt.PipelineRunner(send).start()
+        try:
+            n0 = kernels.normalize_u8.launches
+            t0 = time.perf_counter()
+            for i, f in enumerate(frames):
+                send.get("src").push(TensorBuffer.of(f, pts=i))
+            send.get("src").end()
+            sr.wait(600)
+            launched = kernels.normalize_u8.launches - n0
+            ok = _wait_for(lambda: len(sink.results) >= len(frames), 60)
+            wall = time.perf_counter() - t0
+        finally:
+            sr.stop()
+        check(ok, f"carried: {len(sink.results)}/{len(frames)} frames "
+                  f"arrived ({send_desc})")
+    finally:
+        src = recv.get("src")
+        if hasattr(src, "interrupt"):
+            src.interrupt()
+        rr.stop()
+    return {"results": list(sink.results), "launches": launched,
+            "seconds": wall}
+
+
+def mqtt_phase(nt, torch, card, record) -> int:
+    """Phase 53: B's logits across the EdgeBroker over real MQTT, over
+    its edge protocol with broker-time pts, and edgesink → edgesrc; a raw
+    MqttClient counts the MQTT run's PUBLISH packets. → normalize_u8's
+    launches in the three sending pipelines."""
+    from nnstreamer_tpu_torch.backends import kernels
+    from nnstreamer_tpu_torch.edge.broker import EdgeBroker
+    from nnstreamer_tpu_torch.edge.mqtt_wire import MqttClient
+    from nnstreamer_tpu_torch.edge.wire import decode_buffer
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    res = {}
+    record["mqtt"] = res
+    frames = u8_frames(POOL_SHAPE, MQTT_FRAMES, 530)
+    head = f"{APPSRC} ! {NORM_B} ! {MODEL}"
+    # B direct, twice: the first warms the model, the second is the
+    # reference, timed as the transports are (first push to last result)
+    run_desc(nt, f"{head} ! tensor_sink name=out", frames[:8])
+    pipe = nt.parse_launch(f"{head} ! tensor_sink name=out")
+    runner = nt.PipelineRunner(pipe).start()
+    try:
+        t0 = time.perf_counter()
+        for i, f in enumerate(frames):
+            pipe.get("src").push(TensorBuffer.of(f, pts=i))
+        pipe.get("src").end()
+        runner.wait(600)
+        b_fps = MQTT_FRAMES / (time.perf_counter() - t0)
+    finally:
+        runner.stop()
+    direct = pipe.get("out").results
+    check(len(direct) == MQTT_FRAMES, f"B direct: {len(direct)} frames")
+    ref = logits_of(direct)
+    dims, types, _ = direct[0].spec().to_strings()
+    broker = EdgeBroker("127.0.0.1", 0)
+    raw = None
+    runs = {}
+    try:
+        check(broker.mqtt_port is not None, "mqtt: no MQTT listener")
+        raw_got = []
+        raw = MqttClient("127.0.0.1", broker.mqtt_port,
+                         client_id="chip-smoke-raw")
+        raw.subscribe(MQTT_TOPIC, lambda t, p: raw_got.append(p))
+        tail = f"dims={dims} types={types} queue_size=128 ! tensor_sink name=out"
+        runs["mqtt"] = carried(
+            nt, kernels, frames,
+            f"mqttsrc name=src protocol=mqtt port={broker.mqtt_port} "
+            f"topic={MQTT_TOPIC} {tail}",
+            f"{head} ! mqttsink protocol=mqtt qos=1 topic={MQTT_TOPIC} "
+            f"port={broker.mqtt_port}",
+            lambda p: subscribed(broker, MQTT_TOPIC, 2))
+        check(_wait_for(lambda: len(raw_got) >= MQTT_FRAMES, 30),
+              f"mqtt: the raw client saw {len(raw_got)} PUBLISH packets")
+        runs["edge"] = carried(
+            nt, kernels, frames,
+            f"mqttsrc name=src protocol=edge sync=broker port={broker.port}"
+            f" topic=b/edge {tail}",
+            f"{head} ! mqttsink protocol=edge topic=b/edge "
+            f"port={broker.port}",
+            lambda p: subscribed(broker, "b/edge"))
+        # edgesink port=0: the publisher starts first (its port, its caps)
+        pub = nt.parse_launch(f"{head} ! edgesink name=pub port=0")
+        pr = nt.PipelineRunner(pub).start()
+        try:
+            port = pub.get("pub").port
+            recv = nt.parse_launch(f"edgesrc name=src port={port} timeout=30"
+                                   f" ! tensor_sink name=out")
+            rr = nt.PipelineRunner(recv).start()
+            try:
+                check(_wait_for(lambda: len(
+                    pub.get("pub")._server.connections()) == 1, 30),
+                    "edgesink: no subscriber")
+                n0 = kernels.normalize_u8.launches
+                t0 = time.perf_counter()
+                for i, f in enumerate(frames):
+                    pub.get("src").push(TensorBuffer.of(f, pts=i))
+                pub.get("src").end()
+                pr.wait(600)
+                launched = kernels.normalize_u8.launches - n0
+                sink = recv.get("out")
+                ok = _wait_for(lambda: len(sink.results) >= MQTT_FRAMES, 60)
+                wall = time.perf_counter() - t0
+                pr.stop()              # the publisher's close is EOS
+                rr.wait(60)
+            finally:
+                rr.stop()
+        finally:
+            pr.stop()
+        check(ok, f"edgesink: {len(sink.results)}/{MQTT_FRAMES} arrived")
+        runs["edgesink"] = {"results": list(sink.results),
+                            "launches": launched, "seconds": wall}
+    finally:
+        if raw is not None:
+            raw.close()
+        broker.close()
+
+    out = {}
+    for name, run in runs.items():
+        got = run["results"]
+        pts = [b.pts for b in got]
+        logits = logits_of(got)
+        same = [bool(logits[i].tobytes() == ref[i].tobytes())
+                for i in range(min(len(got), MQTT_FRAMES))]
+        out[name] = {"arrived": len(got), "launches": run["launches"],
+                     "bit_for_bit": sum(same), "seconds": run["seconds"],
+                     "fps": MQTT_FRAMES / run["seconds"],
+                     "pts_head": pts[:3], "pts_tail": pts[-2:]}
+        if name == "edge":
+            out[name]["pts_ok"] = bool(pts and pts[0] == 0 and all(
+                b >= a for a, b in zip(pts, pts[1:])))
+        else:
+            out[name]["pts_ok"] = pts == list(range(MQTT_FRAMES))
+    raw_frames = [decode_buffer(p)[0] for p in raw_got]
+    raw_same = sum(
+        b.pts == i and np.asarray(b.tensors[0]).tobytes() == ref[i].tobytes()
+        for i, b in enumerate(raw_frames))
+    res.update({"runs": out, "raw_publish": len(raw_got),
+                "raw_bit_for_bit": raw_same, "B_fps": b_fps})
+    for name, o in out.items():
+        print(f"phase 53: {name}: {o['arrived']}/{MQTT_FRAMES} frames, pts "
+              f"{o['pts_head']}...{o['pts_tail']} ok {o['pts_ok']}, logits "
+              f"bit for bit B direct's {o['bit_for_bit']}/{MQTT_FRAMES}, "
+              f"normalize_u8 launches {o['launches']}, {o['fps']:.1f} "
+              f"frames/s from the first push to the last arrival (B "
+              f"direct {b_fps:.1f}) [{card}]")
+    print(f"phase 53: a raw MqttClient on {MQTT_TOPIC!r}: {len(raw_got)} "
+          f"PUBLISH packets, {raw_same} decode to B's frames (pts and "
+          f"logits bit for bit)")
+    check(all(o["arrived"] == MQTT_FRAMES and o["pts_ok"]
+              and o["bit_for_bit"] == MQTT_FRAMES
+              and o["launches"] == MQTT_FRAMES for o in out.values())
+          and len(raw_got) == MQTT_FRAMES and raw_same == MQTT_FRAMES,
+          f"mqtt phase: {res}")
+    return sum(o["launches"] for o in out.values())
+
+
+def traffic_phases(nt, torch, card, record, phases) -> dict:
+    """Phases 52-53. → normalize_u8's launches on each path."""
+    flooded = traffic_phase(nt, torch, card, record)
+    phases.done("52 (pipeline B flooded open loop by the traffic "
+                "subcommand)")
+    carried_over = mqtt_phase(nt, torch, card, record)
+    phases.done("53 (B's logits over the broker: MQTT, edge, edgesink)")
+    return {"traffic": flooded, "mqtt": carried_over}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -9743,6 +10135,11 @@ def main(argv=None) -> int:
         help="run phases 1, 2, 50 and 51 only (pipeline B from a two-host "
              "serving mesh through a partition and a swap; the llm "
              "subcommand)")
+    ap.add_argument(
+        "--traffic", action="store_true",
+        help="run phases 1, 2, 52 and 53 only (pipeline B flooded open "
+             "loop by the traffic subcommand; B's logits over the broker: "
+             "MQTT, the edge protocol, edgesink/edgesrc)")
     ap.add_argument(
         "--slice4", action="store_true",
         help="run phases 1, 2 and 20-23 only (the ring step, ring "
@@ -9834,6 +10231,9 @@ def main(argv=None) -> int:
     elif args.mesh:
         mesh_phases(nt, torch, card, record, phases)
         entries = []
+    elif args.traffic:
+        traffic_phases(nt, torch, card, record, phases)
+        entries = []
     else:
         # -- 3-6. normalize_u8, pipelines A and B ------------------------
         entries = slice1_phases(nt, torch, card, record, phases)
@@ -9868,6 +10268,9 @@ def main(argv=None) -> int:
         # -- 50-51. item 4g: #1 in the mesh's hosts; #7-#8 in `llm` -----
         mesh, paged = mesh_phases(nt, torch, card, record, phases)
         extra.update(mesh)
+        # -- 52-53. items 4h, 5a: #1 in the flooded pool's child; B's
+        # senders across the broker --------------------------------------
+        extra.update(traffic_phases(nt, torch, card, record, phases))
         norm = next(e for e in entries if e["name"] == "normalize_u8")
         norm["launches_by_path"] = {"B": norm["launches"], **extra}
         norm["launches"] += sum(extra.values())
@@ -9891,6 +10294,7 @@ def main(argv=None) -> int:
             "chip_smoke_pool.json" if args.pool else
             "chip_smoke_placement.json" if args.placement else
             "chip_smoke_mesh.json" if args.mesh else
+            "chip_smoke_traffic.json" if args.traffic else
             "chip_smoke.json")
     (out_dir / name).write_text(json.dumps(record, indent=1))
     print(card)

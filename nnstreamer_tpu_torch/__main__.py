@@ -32,11 +32,16 @@
                                             #  report
     python -m nnstreamer_tpu_torch serve --join HOST:PORT [--zone Z]
                                             # a pool joins a mesh router
+    python -m nnstreamer_tpu_torch traffic [--workers N] [--tenants N] \
+        [--autotune] [--host H --port P --dims D --types T --rate R]
+                                            # open-loop SLO harness
+    python -m nnstreamer_tpu_torch scenario run|replay|shrink|list
+                                            # seeded adversarial drills
 
 Runs the pipeline string to EOS on the CUDA device (set
 NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR=cpu to run on the CPU).
-The JAX package's `traffic`, `scenario` and `lint` subcommands are not
-ported yet: each exits 2 naming the item that brings it.
+The JAX package's `lint` subcommand is not ported yet: it exits 2
+naming the item that brings it.
 """
 
 from __future__ import annotations
@@ -599,8 +604,6 @@ def _mesh_main(argv) -> int:
 #: subcommands of the JAX package the port does not have yet, and the
 #: ROADMAP Queue 1 item that brings each
 _NOT_PORTED = {
-    "traffic": "item 4h: the rest of traffic/loadgen.py",
-    "scenario": "item 4h: scenario/",
     "lint": "item 5d: analysis/",
 }
 
@@ -639,6 +642,253 @@ def _top_main(argv) -> int:
     return 0
 
 
+def _traffic_main(argv) -> int:
+    """`traffic` subcommand: open-loop load against a bounded query
+    server (a self-contained echo server by default, or --host/--port
+    for a live one) and print the latency-SLO report."""
+    ap = argparse.ArgumentParser(
+        prog="nnstreamer_tpu_torch traffic",
+        description="open-loop traffic harness: Poisson/bursty load, "
+                    "admission-control SLO report")
+    ap.add_argument("--pattern", default="poisson",
+                    choices=("poisson", "bursty"))
+    ap.add_argument("--load-x", type=float, default=2.0,
+                    help="offered load as a multiple of server capacity "
+                         "(self-contained mode; default 2.0)")
+    ap.add_argument("--requests", type=int, default=400)
+    ap.add_argument("--service-ms", type=float, default=5.0,
+                    help="echo server's per-frame service time")
+    ap.add_argument("--max-pending", type=int, default=16,
+                    help="server admission queue bound")
+    ap.add_argument("--max-inflight", type=int, default=0)
+    ap.add_argument("--shed-policy", default="reject-newest",
+                    choices=("reject-newest", "reject-oldest",
+                             "deadline-drop"))
+    ap.add_argument("--budget-ms", type=float, default=None,
+                    help="p99 latency budget for goodput (default: a "
+                         "full queue's wait + one service time)")
+    ap.add_argument("--host", default=None,
+                    help="attack a LIVE server instead (with --port, "
+                         "--dims; --rate becomes absolute rps)")
+    ap.add_argument("--port", type=int, default=None)
+    ap.add_argument("--dims", default="8:1")
+    ap.add_argument("--types", default="float32")
+    ap.add_argument("--rate", type=float, default=100.0,
+                    help="absolute offered rps in --host mode")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="rng seed for the arrival process AND the "
+                         "chaos-kill schedule (reproducible runs; the "
+                         "report records it)")
+    ap.add_argument("--workers", type=int, default=0,
+                    help="serve from a supervised worker POOL of N "
+                         "processes instead of the in-process echo "
+                         "server (enables --kill-at chaos mode)")
+    ap.add_argument("--kill-at", type=float, default=None,
+                    help="SIGKILL one rng-chosen pool worker at t "
+                         "seconds into the send window (default: the "
+                         "median arrival; needs --workers)")
+    ap.add_argument("--kills", type=int, default=1,
+                    help="number of staggered worker kills (--workers)")
+    ap.add_argument("--tenants", type=int, default=0, metavar="N",
+                    help="multi-tenant mode: N equal-weight tenant "
+                         "classes behind a weighted-fair admission "
+                         "front over a worker pool; tenant t0 floods "
+                         "at --flood x its fair share, the others "
+                         "offer 0.5x theirs; report gains per-tenant "
+                         "groups + per-class conservation")
+    ap.add_argument("--flood", type=float, default=3.0, metavar="K",
+                    help="flooding tenant's offered load as a "
+                         "multiple of its fair share (--tenants)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="SLO-autotuner drill: open-loop ramp "
+                         "0.5→2.5x capacity against a deliberately "
+                         "mis-set bounded server, closed-loop tuned "
+                         "vs the same static config on the same trace")
+    ap.add_argument("--autotune-dry-run", action="store_true",
+                    help="with --autotune: the controller records "
+                         "every decision without actuating any knob")
+    ap.add_argument("--json", action="store_true",
+                    help="print the raw report JSON only")
+    ap.add_argument("--trace", action="store_true",
+                    help="give every request a trace context and print "
+                         "the per-hop latency decomposition of the "
+                         "worst-p99 request")
+    ap.add_argument("--trace-out", default=None, metavar="FILE",
+                    help="with --workers: run the pool traced and "
+                         "write the merged multi-process Chrome trace "
+                         "here (implies --trace)")
+    ap.add_argument("--flight-dir", default=None, metavar="DIR",
+                    help="post-run forensic scan: if the drill "
+                         "breached its p99 budget or broke admission "
+                         "conservation, dump a flight bundle into DIR")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+
+    from nnstreamer_tpu_torch.traffic import (
+        bursty_arrivals, poisson_arrivals, run_against_echo,
+        run_against_pool, run_open_loop)
+
+    if args.trace_out:
+        args.trace = True
+    if args.autotune:
+        from nnstreamer_tpu_torch.traffic import run_autotune_ramp
+
+        kw = dict(n_per_step=max(20, args.requests // 5),
+                  service_ms=args.service_ms,
+                  p99_budget_ms=args.budget_ms, seed=args.seed)
+        static = run_autotune_ramp(tuned=False, **kw)
+        tuned = run_autotune_ramp(
+            tuned=True, dry_run=args.autotune_dry_run, **kw)
+        report = {"static": static, "tuned": tuned,
+                  "goodput_gain_rps": round(
+                      tuned["goodput_rps"] - static["goodput_rps"], 2)}
+        if args.json:
+            print(json.dumps(report, default=float))
+        else:
+            for r in (static, tuned):
+                r.pop("queue_depth_timeline", None)
+            print(json.dumps(report, indent=2, default=float))
+        ok = (static["lost"] == 0 and tuned["lost"] == 0
+              and tuned["conservation_final"]
+              and all(tuned.get("conservation_after_apply") or [True]))
+        return 0 if ok else 1
+    if args.tenants > 0:
+        from nnstreamer_tpu_torch.traffic import run_multitenant
+
+        if args.tenants < 2:
+            print("--tenants needs N >= 2", file=sys.stderr)
+            return 2
+        workers = args.workers or 2
+        capacity = workers * 1e3 / args.service_ms
+        fair = capacity / args.tenants
+        names = [f"t{k}" for k in range(args.tenants)]
+        budget = args.budget_ms or \
+            (args.max_pending + 2) * args.service_ms
+        rate_hz = {nm: (args.flood if k == 0 else 0.5) * fair
+                   for k, nm in enumerate(names)}
+        per = max(1, args.requests // args.tenants)
+        n_per = {nm: max(1, int(round(per * rate_hz[nm] / fair)))
+                 for nm in names}
+        report = run_multitenant(
+            tenants={nm: {"weight": 1.0, "deadline_ms": budget}
+                     for nm in names},
+            n_per_tenant=n_per, rate_hz=rate_hz,
+            workers=workers, service_ms=args.service_ms,
+            max_pending=args.max_pending,
+            shed_policy=args.shed_policy
+            if args.shed_policy != "reject-newest" else "reject-oldest",
+            p99_budget_ms=budget, seed=args.seed)
+        if args.json:
+            print(json.dumps(report, default=float))
+        else:
+            report.pop("queue_depth_timeline", None)
+            print(json.dumps(report, indent=2, default=float))
+        ok = report["lost"] == 0 and report["conserved"]
+        return 0 if ok else 1
+    if args.workers > 0:
+        tracer = None
+        pool_kw = {}
+        if args.trace_out:
+            from nnstreamer_tpu_torch.runtime.tracing import Tracer
+
+            tracer = Tracer()
+            pool_kw["tracer"] = tracer
+        report = run_against_pool(
+            pattern=args.pattern, load_x=args.load_x, n=args.requests,
+            service_ms=args.service_ms, workers=args.workers,
+            max_pending=args.max_pending, max_inflight=args.max_inflight,
+            shed_policy=args.shed_policy,
+            p99_budget_ms=args.budget_ms or 90.0, seed=args.seed,
+            kill_at_s=args.kill_at, kills=args.kills,
+            trace=args.trace, **pool_kw)
+        if tracer is not None:
+            with open(args.trace_out, "w") as f:
+                json.dump(tracer.to_chrome_trace("traffic"), f)
+            print(f"chrome trace written to {args.trace_out} "
+                  f"(load in Perfetto or chrome://tracing)",
+                  file=sys.stderr)
+    elif args.host is not None:
+        if args.port is None:
+            print("--host needs --port", file=sys.stderr)
+            return 2
+        from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+        from nnstreamer_tpu_torch.tensor.info import TensorsSpec
+
+        rng = np.random.default_rng(args.seed)
+        if args.pattern == "poisson":
+            arrivals = poisson_arrivals(args.rate, args.requests, rng)
+        else:
+            arrivals = bursty_arrivals(
+                args.requests, rate_high_hz=2 * args.rate,
+                rate_low_hz=max(args.rate / 4, 0.5), rng=rng)
+        spec = TensorsSpec.from_strings(args.dims, args.types)
+        x = np.zeros(spec.tensors[0].shape, spec.tensors[0].dtype.np_dtype)
+        report = run_open_loop(
+            args.host, args.port, dims=args.dims, types=args.types,
+            arrivals=arrivals,
+            make_frame=lambda i: TensorBuffer.of(x, pts=i),
+            p99_budget_ms=args.budget_ms or 250.0, trace=args.trace)
+        report["seed"] = args.seed
+    else:
+        report = run_against_echo(
+            pattern=args.pattern, load_x=args.load_x, n=args.requests,
+            service_ms=args.service_ms, max_pending=args.max_pending,
+            max_inflight=args.max_inflight, shed_policy=args.shed_policy,
+            p99_budget_ms=args.budget_ms, seed=args.seed,
+            trace=args.trace)
+    if args.flight_dir:
+        from nnstreamer_tpu_torch.runtime.flightrec import FlightRecorder
+
+        rec = FlightRecorder(args.flight_dir)
+        rec.attach(env=lambda: {"cmd": "traffic", "report": report})
+        rec.tick({"report_summary": {
+            k: report.get(k) for k in ("goodput_rps", "lost",
+                                       "conserved", "p99_budget_ms")}})
+        lat = report.get("latency_ms") or {}
+        sig = {"p99_ms": lat.get("p99"),
+               "p99_budget_ms": report.get("p99_budget_ms"),
+               "admission": report.get("admission")}
+        # two scans: the conservation predicate needs two consecutive
+        # mismatched reads before it trusts a final, settled ledger
+        fired = rec.scan(**sig)
+        fired += [k for k in rec.scan(**sig) if k not in fired]
+        for kind in fired:
+            print(f"flight bundle dumped ({kind}) -> {args.flight_dir}",
+                  file=sys.stderr)
+    if args.json:
+        print(json.dumps(report, default=float))
+        return 0
+    tl = report.pop("queue_depth_timeline", None)
+    print(json.dumps(report, indent=2, default=float))
+    hb = report.get("hop_breakdown")
+    if hb:
+        spans = hb.get("spans", {})
+        stages = [(k.replace("_ms", "").replace("_", " "), spans[k])
+                  for k in ("admission_wait_ms", "route_ms",
+                            "worker_queue_ms", "service_ms", "reply_ms")
+                  if spans.get(k) is not None]
+        parts = " + ".join(f"{name} {v:.2f}ms" for name, v in stages)
+        print(f"worst-p99 request (pts={hb['pts']}, "
+              f"trace={hb.get('trace_id')}): {hb['latency_ms']:.2f}ms"
+              + (f" = {parts}" if parts else "")
+              + (f" (+{spans['retries']} retry)"
+                 if spans.get("retries") else "")
+              + (f" (+{spans['redeliveries']} redelivery)"
+                 if spans.get("redeliveries") else ""),
+              file=sys.stderr)
+    if tl:
+        # crude depth-over-time sparkline so overload is visible at a
+        # glance without loading the JSON anywhere
+        peak = max(d for _, d in tl) or 1
+        blocks = " ▁▂▃▄▅▆▇█"
+        line = "".join(blocks[min(8, round(8 * d / peak))] for _, d in tl)
+        print(f"queue depth (peak {peak}): |{line}|", file=sys.stderr)
+    lost = report.get("lost", 0)
+    return 0 if lost == 0 else 1
+
+
+
 def _flight_main(argv) -> int:
     """`flight` subcommand: list / inspect the forensic bundles a flight
     recorder (runtime/flightrec.py) dumped into a directory."""
@@ -658,6 +908,17 @@ def _flight_main(argv) -> int:
 
     if args.inspect:
         bundle = load_bundle(os.path.join(args.dir, args.inspect))
+        # scenario_violation bundles carry the failing spec in the
+        # cause — surface the repro recipe before the raw dump
+        cause = (bundle.get("cause") or {}).get("cause") or {}
+        spec = cause.get("scenario_spec")
+        if spec and not args.json:
+            print(f"scenario {cause.get('scenario')!r} "
+                  f"seed={cause.get('seed')} — "
+                  f"{len(cause.get('violations') or [])} violation(s); "
+                  f"replay: python -m nnstreamer_tpu_torch scenario run "
+                  f"SPEC.json (spec below in cause.scenario_spec)",
+                  file=sys.stderr)
         print(json.dumps(bundle, indent=None if args.json else 2,
                          default=str))
         return 0
@@ -681,6 +942,156 @@ def _flight_main(argv) -> int:
     return 0
 
 
+def _scenario_load(ref: str, seed=None):
+    """Resolve `ref` to a ScenarioSpec: a builtin catalog name, a spec
+    JSON file, or a saved `scenario run` result JSON (spec embedded)."""
+    from nnstreamer_tpu_torch.scenario import ScenarioSpec, builtin_specs
+
+    specs = builtin_specs()
+    if ref in specs:
+        spec = specs[ref]
+    else:
+        with open(ref, "r", encoding="utf-8") as f:
+            d = json.load(f)
+        if isinstance(d.get("spec"), dict):   # a saved result
+            d = d["spec"]
+        spec = ScenarioSpec.from_dict(d)
+    if seed is not None:
+        import dataclasses
+
+        spec = dataclasses.replace(spec, seed=int(seed))
+    return spec
+
+
+def _scenario_emit(result: dict, out, full: bool) -> None:
+    """Print a result (stdout or --out FILE); per-reply trace contexts
+    are dropped unless --full — they dwarf the ledger."""
+    slim = dict(result)
+    if not full and isinstance(slim.get("report"), dict):
+        slim["report"] = {k: v for k, v in slim["report"].items()
+                          if k != "traces"}
+    text = json.dumps(slim, indent=2, default=str)
+    if out:
+        with open(out, "w", encoding="utf-8") as f:
+            f.write(text + "\n")
+    else:
+        print(text)
+
+
+def _scenario_main(argv) -> int:
+    """`scenario` subcommand: run / replay / shrink / list seeded
+    adversarial world drills."""
+    ap = argparse.ArgumentParser(
+        prog="nnstreamer_tpu_torch scenario",
+        description="composable seeded scenario drills: declarative "
+                    "arrival+fault programs against a real worker pool "
+                    "or mesh, one property checker, deterministic "
+                    "replay and shrinking")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    runp = sub.add_parser("run", help="run a scenario; exit 0 iff all "
+                                      "invariants hold")
+    runp.add_argument("spec", help="builtin name (see `scenario list`) "
+                                   "or spec/result JSON file")
+    runp.add_argument("--seed", type=int, default=None,
+                      help="override the root seed")
+    runp.add_argument("--flight-dir", default=None, metavar="DIR",
+                      help="dump a flight bundle here on violation")
+    runp.add_argument("--out", default=None, metavar="FILE",
+                      help="write the result JSON here (else stdout)")
+    runp.add_argument("--full", action="store_true",
+                      help="keep per-reply trace contexts in the JSON")
+    rep = sub.add_parser("replay", help="re-run a saved result's spec "
+                                        "under the same seed and demand "
+                                        "bit-equal ledger totals")
+    rep.add_argument("result", help="result JSON from `scenario run`")
+    rep.add_argument("--out", default=None, metavar="FILE")
+    rep.add_argument("--full", action="store_true")
+    shr = sub.add_parser("shrink", help="ddmin a failing scenario to a "
+                                        "minimal still-failing repro")
+    shr.add_argument("spec", help="builtin name or spec/result JSON")
+    shr.add_argument("--max-runs", type=int, default=40,
+                     help="live-run budget for the search (default 40)")
+    shr.add_argument("--out", default=None, metavar="FILE",
+                     help="write the minimal spec JSON here")
+    sub.add_parser("list", help="list the builtin drill catalog")
+    args = ap.parse_args(argv)
+
+    from nnstreamer_tpu_torch.scenario import builtin_specs
+
+    if args.cmd == "list":
+        print(f"{'name':<16} {'topology':<22} {'arrivals':<9} "
+              f"{'faults':<7} size")
+        print("-" * 62)
+        for name, s in builtin_specs().items():
+            topo = (f"{s.topology.kind}"
+                    f"({s.topology.hosts}x{s.topology.workers}w)")
+            print(f"{name:<16} {topo:<22} {len(s.arrivals):<9} "
+                  f"{len(s.faults):<7} {s.size()}")
+        return 0
+
+    from nnstreamer_tpu_torch.scenario import run_scenario
+
+    if args.cmd == "run":
+        spec = _scenario_load(args.spec, args.seed)
+        result = run_scenario(spec, flight_dir=args.flight_dir)
+        check = result.get("check") or {}
+        _scenario_emit(result, args.out, args.full)
+        for v in check.get("violations") or []:
+            print(f"VIOLATION [{v['invariant']}] {v['detail']}",
+                  file=sys.stderr)
+        print(f"scenario {spec.name!r} seed={spec.seed}: "
+              f"{result['totals']} "
+              f"{'OK' if check.get('ok') else 'FAIL'}",
+              file=sys.stderr)
+        return 0 if check.get("ok") else 1
+
+    if args.cmd == "replay":
+        from nnstreamer_tpu_torch.scenario import replay_scenario
+
+        with open(args.result, "r", encoding="utf-8") as f:
+            prev = json.load(f)
+        result = replay_scenario(prev)
+        _scenario_emit(result, args.out, args.full)
+        match = result.get("replay_match")
+        ok = bool((result.get("check") or {}).get("ok"))
+        if match is False:
+            print(f"replay DIVERGED: {result.get('replay_diff')}",
+                  file=sys.stderr)
+        else:
+            print(f"replay totals match: {result['totals']}",
+                  file=sys.stderr)
+        return 0 if (match is not False and ok) else 1
+
+    # shrink
+    from nnstreamer_tpu_torch.scenario import ShrinkBudgetExceeded, shrink
+
+    spec = _scenario_load(args.spec)
+
+    def fails(candidate) -> bool:
+        r = run_scenario(candidate)
+        return not (r.get("check") or {}).get("ok", False)
+
+    try:
+        minimal, stats = shrink(spec, fails, max_runs=args.max_runs)
+    except ValueError as e:
+        print(f"shrink: {e}", file=sys.stderr)
+        return 1
+    except ShrinkBudgetExceeded as e:
+        print(f"shrink: {e}", file=sys.stderr)
+        return 1
+    text = minimal.to_json()
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as f:
+            f.write(text + "\n")
+    else:
+        print(text)
+    print(f"shrunk {spec.name!r}: size {stats['initial_size']} -> "
+          f"{stats['final_size']} in {stats['runs']} run(s)",
+          file=sys.stderr)
+    return 0
+
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "trace":
@@ -697,6 +1108,10 @@ def main(argv=None) -> int:
         return _llm_main(argv[1:])
     if argv and argv[0] == "mesh":
         return _mesh_main(argv[1:])
+    if argv and argv[0] == "traffic":
+        return _traffic_main(argv[1:])
+    if argv and argv[0] == "scenario":
+        return _scenario_main(argv[1:])
     if argv and argv[0] in _NOT_PORTED:
         print(f"{argv[0]}: not ported yet (ROADMAP Queue 1 "
               f"{_NOT_PORTED[argv[0]]})", file=sys.stderr)

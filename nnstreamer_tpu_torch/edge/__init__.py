@@ -5,14 +5,16 @@
 - protocol.py — length-prefixed TCP messages (HELLO/DATA/RESULT/BUSY).
 - query.py    — tensor_query_client / serversrc / serversink and the
   batching `BatchedQueryServer`.
+- pubsub.py   — edgesink (publisher) / edgesrc (subscriber) elements.
 - broker.py   — `EdgeBroker`: discovery (connect_type=hybrid), topic
-  pub/sub, the clock exchange.
-
-The JAX package's MQTT wire codec and the pub/sub elements (edgesrc,
-edgesink, mqtt*) are not ported yet.
+  pub/sub, the clock exchange, and an MQTT 3.1.1 listener bridged into
+  the same topics; mqttsink/mqttsrc (elements/mqtt.py) ride it.
+- mqtt_wire.py — the MQTT 3.1.1 codec and `MqttClient` (no external
+  MQTT library).
 """
 
 from nnstreamer_tpu_torch.edge.broker import BrokerClient, EdgeBroker
+from nnstreamer_tpu_torch.edge.pubsub import EdgeSink, EdgeSrc
 from nnstreamer_tpu_torch.edge.query import (
     BatchedQueryServer, QueryServer, TensorQueryClient,
     TensorQueryServerSink, TensorQueryServerSrc)
@@ -22,6 +24,8 @@ __all__ = [
     "BatchedQueryServer",
     "BrokerClient",
     "EdgeBroker",
+    "EdgeSink",
+    "EdgeSrc",
     "QueryServer",
     "TensorQueryClient",
     "TensorQueryServerSink",

@@ -20,12 +20,8 @@ Reference parity, three subsystems collapsed into one small service:
   timeline without running an NTP daemon.
 
 Wire framing rides edge/protocol.py (length-prefixed TCP messages).
-
-Not ported yet: the real-MQTT listener (the JAX package's
-`_MqttListener`, which needs edge/mqtt_wire.py). The port's
-`EdgeBroker` defaults to ``mqtt_port=None`` and refuses any other value
-with a StreamError, where the JAX package's default ``mqtt_port=0``
-starts the listener.
+A second listener speaks real MQTT 3.1.1 (edge/mqtt_wire.py) and bridges
+its topics both ways into the same topic space.
 """
 
 from __future__ import annotations
@@ -34,10 +30,13 @@ import json
 import struct
 import threading
 import time
-from typing import Callable, Dict, Optional, Set, Tuple
+import queue as _queue
+import socket
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from nnstreamer_tpu_torch.core.errors import StreamError
 from nnstreamer_tpu_torch.core.log import get_logger
+from nnstreamer_tpu_torch.edge import mqtt_wire as M
 from nnstreamer_tpu_torch.edge import protocol as P
 
 log = get_logger("edge.broker")
@@ -83,27 +82,32 @@ class EdgeBroker:
     """The broker service. Threading: MsgServer owns the sockets; all
     state mutations run on reader threads under one lock.
 
-    `mqtt_port` must stay None: the real-MQTT listener (a second port
-    speaking MQTT 3.1.1, bridged into the topic space) waits for the
-    port of edge/mqtt_wire.py, and asking for it raises."""
+    With `mqtt_port` set (0 = auto-pick), a second listener speaks real
+    MQTT 3.1.1 (edge/mqtt_wire.py): stock clients (paho, mosquitto_sub)
+    CONNECT/SUBSCRIBE/PUBLISH against it, and topics bridge both ways
+    between the MQTT domain and the edge-protocol pub/sub domain —
+    reference parity with gst/mqtt's any-broker interop
+    (`mqttcommon.h:43-63`) without requiring an external daemon.
+    ``mqtt_port=None`` opens no second port."""
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
-                 mqtt_port: Optional[int] = None):
-        if mqtt_port is not None:
-            raise StreamError(
-                f"EdgeBroker(mqtt_port={mqtt_port!r}): the MQTT listener "
-                f"is not ported yet (it needs edge/mqtt_wire.py, ROADMAP "
-                f"Queue 1 item 5); leave mqtt_port=None — discovery, "
-                f"edge-protocol pub/sub and the clock exchange work "
-                f"without it")
+                 mqtt_port: Optional[int] = 0):
         self._lock = threading.Lock()
         self._registry: Dict[str, dict] = {}          # name → {host,port,owner}
         self._subs: Dict[str, Set[P.Connection]] = {}  # topic → conns
+        self._mqtt: Optional[_MqttListener] = None
         self._server = P.MsgServer(
             host, port, on_message=self._on_message,
             on_disconnect=self._on_disconnect)
-        log.info("edge broker on %s:%d (mqtt: off)", host,
-                 self._server.port)
+        if mqtt_port is not None:
+            try:
+                self._mqtt = _MqttListener(self, host, mqtt_port)
+            except Exception:
+                self._server.close()
+                raise
+        log.info("edge broker on %s:%d (mqtt: %s)", host,
+                 self._server.port,
+                 self._mqtt.port if self._mqtt else "off")
 
     @property
     def port(self) -> int:
@@ -111,7 +115,7 @@ class EdgeBroker:
 
     @property
     def mqtt_port(self) -> Optional[int]:
-        return None
+        return self._mqtt.port if self._mqtt else None
 
     # -- dispatch ----------------------------------------------------------
     def _on_message(self, conn: P.Connection, mtype: int,
@@ -158,7 +162,7 @@ class EdgeBroker:
             with self._lock:
                 self._subs.setdefault(topic, set()).add(conn)
         elif mtype == T_PUBLISH:
-            topic, _, _ = unpack_publish(payload)
+            topic, _, frame = unpack_publish(payload)
             with self._lock:
                 targets = list(self._subs.get(topic, ()))
             for sub in targets:
@@ -168,6 +172,9 @@ class EdgeBroker:
                     sub.send(T_PUBLISH, payload)
                 except OSError:
                     pass   # reader thread will reap it
+            # bridge into the MQTT domain (payload = the bare frame)
+            if self._mqtt is not None:
+                self._mqtt.fanout(topic, frame)
         else:
             log.warning("broker: unknown message type %d", mtype)
 
@@ -207,8 +214,236 @@ class EdgeBroker:
             return {n: (e["host"], e["port"])
                     for n, e in self._registry.items()}
 
+    def _publish_from_mqtt(self, topic: str, frame: bytes) -> None:
+        """Bridge an MQTT-side PUBLISH into edge-protocol subscribers."""
+        payload = pack_publish(topic, time.time_ns(), frame)
+        with self._lock:
+            targets = list(self._subs.get(topic, ()))
+        for sub in targets:
+            try:
+                sub.send(T_PUBLISH, payload)
+            except OSError:
+                pass
+
     def close(self) -> None:
+        if self._mqtt is not None:
+            self._mqtt.close()
         self._server.close()
+
+
+class _MqttConn:
+    """One MQTT connection of the listener: its socket, topic filters,
+    bounded send queue and the reader/writer threads serving it."""
+
+    def __init__(self, cid: int, sock: socket.socket):
+        self.cid = cid
+        self.sock = sock
+        self.filters: List[str] = []
+        self.client_id = ""
+        # outbound frames go through a bounded queue + writer thread so a
+        # stalled subscriber can NEVER block the publishing thread (which
+        # may be an edge-protocol reader via the topic bridge); overflow
+        # drops frames — QoS 0 delivery semantics
+        self.outq: _queue.Queue = _queue.Queue(maxsize=256)
+        self.reader: Optional[threading.Thread] = None
+        self.writer: Optional[threading.Thread] = None
+
+    def put(self, data: Optional[bytes]) -> bool:
+        try:
+            self.outq.put_nowait(data)
+            return True
+        except _queue.Full:
+            return False
+
+    def shut(self) -> None:
+        """Stop the writer and wake the reader (shutdown() before close():
+        close() alone does not wake a thread blocked in recv() on Linux)."""
+        if not self.put(None):
+            # a full queue: make room for the writer's stop sentinel
+            try:
+                self.outq.get_nowait()
+            except _queue.Empty:
+                pass
+            self.put(None)
+        for op in (lambda: self.sock.shutdown(socket.SHUT_RDWR),
+                   self.sock.close):
+            try:
+                op()
+            except OSError:
+                pass
+
+    def threads(self) -> List[threading.Thread]:
+        return [t for t in (self.reader, self.writer) if t is not None]
+
+
+class _MqttListener:
+    """Minimal MQTT 3.1.1 broker listener bridged to the EdgeBroker's
+    topic space. QoS 0/1 (QoS 1 acks immediately: at-most-once delivery
+    to subscribers, like the reference's default sink QoS), wildcard
+    filters (+/#), keepalive via PINGREQ/PINGRESP.
+
+    Lifecycle: a connection's reader and writer start before it is
+    published in ``_conns`` (what `close()` joins), under the lock that
+    `close()` takes to set ``_closing``, so no connection is accepted
+    once closing; `close()` joins the accept loop before the
+    connections, and joins every thread it started."""
+
+    def __init__(self, broker: "EdgeBroker", host: str, port: int):
+        self._broker = broker
+        self._lock = threading.Lock()
+        self._conns: Dict[int, _MqttConn] = {}
+        #: connections whose reader ended: their threads are joined by
+        #: close() (and pruned here once both have exited)
+        self._ended: List[_MqttConn] = []
+        self._next_id = 0
+        self._closing = False
+        self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        try:
+            self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            self._srv.bind((host, port))
+            self._srv.listen(32)
+        except OSError:
+            self._srv.close()
+            raise
+        self.port = self._srv.getsockname()[1]
+        self._accept_thread = threading.Thread(
+            target=self._accept_loop, name="mqtt-accept", daemon=True)
+        self._accept_thread.start()
+
+    def _accept_loop(self) -> None:
+        while True:
+            try:
+                sock, _addr = self._srv.accept()
+            except OSError:
+                return
+            with self._lock:
+                if self._closing:
+                    _MqttConn(-1, sock).shut()
+                    return
+                cid = self._next_id
+                self._next_id += 1
+                conn = _MqttConn(cid, sock)
+                conn.reader = threading.Thread(
+                    target=self._reader, args=(conn,),
+                    name=f"mqtt-conn-{cid}", daemon=True)
+                conn.writer = threading.Thread(
+                    target=self._writer, args=(conn,),
+                    name=f"mqtt-send-{cid}", daemon=True)
+                conn.reader.start()
+                conn.writer.start()
+                # published only once started: close() joins what it sees
+                self._conns[cid] = conn
+                self._ended = [c for c in self._ended
+                               if any(t.is_alive() for t in c.threads())]
+
+    def _writer(self, conn: _MqttConn) -> None:
+        try:
+            while True:
+                data = conn.outq.get()
+                if data is None:
+                    return
+                conn.sock.sendall(data)
+        except OSError:
+            pass
+
+    def _send(self, conn: _MqttConn, data: bytes) -> None:
+        if not conn.put(data):
+            log.warning("mqtt conn %d: send queue full, dropping frame",
+                        conn.cid)
+
+    def _reader(self, conn: _MqttConn) -> None:
+        split = M.PacketSplitter()
+        connected = False
+        try:
+            while True:
+                data = conn.sock.recv(1 << 16)
+                if not data:
+                    return
+                for p in split.feed(data):
+                    if p.ptype == M.CONNECT:
+                        conn.client_id, _ka, _clean = M.parse_connect(p)
+                        self._send(conn, M.encode_connack(
+                            False, M.CONNACK_ACCEPTED))
+                        connected = True
+                    elif not connected:
+                        log.warning("mqtt: packet %d before CONNECT",
+                                    p.ptype)
+                        return
+                    elif p.ptype == M.SUBSCRIBE:
+                        pid, topics = M.parse_subscribe(p)
+                        with self._lock:
+                            conn.filters.extend(t for t, _q in topics)
+                        self._send(conn, M.encode_suback(
+                            pid, [min(q, 1) for _t, q in topics]))
+                    elif p.ptype == M.UNSUBSCRIBE:
+                        pid, topics = M.parse_unsubscribe(p)
+                        with self._lock:
+                            conn.filters = [f for f in conn.filters
+                                            if f not in topics]
+                        self._send(conn, M.encode_unsuback(pid))
+                    elif p.ptype == M.PUBLISH:
+                        M.parse_publish(p)
+                        if p.qos == 1:
+                            self._send(conn, M.encode_puback(p.packet_id))
+                        # MQTT 3.1.1 has no no-local option: a client
+                        # subscribed to its own publish topic gets the
+                        # echo, exactly like a stock broker
+                        self.fanout(p.topic, p.payload)
+                        self._broker._publish_from_mqtt(p.topic, p.payload)
+                    elif p.ptype == M.PINGREQ:
+                        self._send(conn, M.encode_pingresp())
+                    elif p.ptype == M.PUBACK:
+                        pass                      # QoS1 publisher ack
+                    elif p.ptype == M.DISCONNECT:
+                        return
+                    else:
+                        log.warning("mqtt: unsupported packet type %d",
+                                    p.ptype)
+        except (StreamError, OSError, UnicodeDecodeError, struct.error,
+                IndexError, ValueError) as e:
+            # truncated/garbage packets from an open network port must
+            # log one line, never kill the thread with a traceback
+            if not self._closing:
+                log.warning("mqtt conn %d: %s: %s", conn.cid,
+                            type(e).__name__, e)
+        finally:
+            with self._lock:
+                if self._conns.pop(conn.cid, None) is not None:
+                    self._ended.append(conn)
+            conn.shut()
+
+    def fanout(self, topic: str, payload: bytes) -> None:
+        with self._lock:
+            targets = [c for c in self._conns.values()
+                       if any(M.topic_matches(f, topic)
+                              for f in c.filters)]
+        if not targets:
+            return
+        pkt = M.encode_publish(topic, payload, qos=0)
+        for conn in targets:
+            self._send(conn, pkt)
+
+    def close(self) -> None:
+        with self._lock:
+            self._closing = True
+        for op in (lambda: self._srv.shutdown(socket.SHUT_RDWR),
+                   self._srv.close):
+            try:
+                op()
+            except OSError:
+                pass
+        # once the accept loop has returned, no connection can appear
+        # behind the snapshot below
+        self._accept_thread.join(timeout=5)
+        with self._lock:
+            conns = list(self._conns.values()) + self._ended
+            self._conns.clear()
+            self._ended = []
+        for c in conns:
+            c.shut()
+        for c in conns:
+            for t in c.threads():
+                t.join(timeout=5)
 
 
 class BrokerClient:

@@ -19,8 +19,11 @@ from nnstreamer_tpu_torch.elements.routing import (
     Join, Queue, Tee, TensorDemux, TensorMerge, TensorMux, TensorSplit)
 # the python3 decoder, and the wire decoder and converter
 from nnstreamer_tpu_torch.elements import script_codec, wire_codec  # noqa: F401
-# tensor_query_client, tensor_query_serversrc, tensor_query_serversink
+# tensor_query_client, tensor_query_serversrc, tensor_query_serversink;
+# edgesink, edgesrc
+from nnstreamer_tpu_torch.edge import pubsub as _pubsub  # noqa: F401
 from nnstreamer_tpu_torch.edge import query as _query  # noqa: F401
+from nnstreamer_tpu_torch.elements import mqtt  # noqa: F401  (mqttsink, mqttsrc)
 from nnstreamer_tpu_torch.elements.sinks import FakeSink, FileSink, TensorSink
 from nnstreamer_tpu_torch.elements.sources import (
     AppSrc, AudioTestSrc, FileSrc, TensorSrc, VideoTestSrc)

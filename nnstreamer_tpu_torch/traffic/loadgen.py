@@ -1,5 +1,5 @@
 """Open-loop load harness — Poisson/bursty arrivals + latency-SLO report
-(the JAX package's traffic/loadgen.py on the port, its mesh half).
+(the JAX package's traffic/loadgen.py on the port).
 
 Closed-loop load (send, wait, send) lets a slow server throttle its own
 offered load and flatter its tail — the coordinated-omission trap. This
@@ -17,7 +17,15 @@ Arrival processes:
   exponentially-distributed dwell times. Same mean rate as a Poisson
   source can carry; the bursts are what break naive admission.
 
-Both draw from the numpy generator in the reference's order, so one seed
+- ``diurnal_arrivals(n, ...)``   — inhomogeneous Poisson whose rate
+  swings sinusoidally between a trough and a peak (a day/night load
+  curve compressed to seconds).
+- ``flash_crowd_arrivals(n, ...)`` — base-rate Poisson until
+  ``ramp_at_s``, then a linear ramp to the peak rate over ``ramp_s``
+  that stays there: the thundering-herd shape scenario drills
+  (scenario/) compose with faults.
+
+Each draws from the numpy generator in the reference's order, so one seed
 gives the reference's arrival times.
 
 Per-request outcome accounting is exhaustive: every sent request ends
@@ -26,16 +34,16 @@ as *completed* (RESULT received), *rejected* (typed BUSY received), or
 under overload reports nonzero ``rejected`` and ZERO ``lost``; the seed
 behavior (silent queue drop) shows up as ``lost`` > 0.
 
-`EchoServer` is a live bounded query server with a known service time;
-`MeshWorld` / `run_against_mesh` build a `MeshRouter` over pool hosts
-and flood it while one host is partitioned (serving/mesh.py,
-traffic/netchaos.py).
-
-Not ported yet (Queue 1 item 4h): the diurnal and flash-crowd arrival
-shapes, `run_against_echo`, `run_autotune_ramp`, the multitenant and
-noisy-neighbour drills (`merge_tenant_arrivals`, `run_multitenant`,
-`noisy_neighbor_drill`, `tenant_conservation_ok`),
-`schedule_worker_kills`, `run_against_pool` and `replay_report`.
+The drills: `run_against_echo` floods the in-process `EchoServer` (a
+live bounded query server with a known service time);
+`run_autotune_ramp` ramps one through overload with the SLO autotuner
+bound to its live queue; `run_multitenant` / `noisy_neighbor_drill`
+flood a weighted-fair multi-tenant worker pool; `run_against_pool`
+SIGKILLs pool workers mid-flood (`schedule_worker_kills`, shared with
+the scenario executor); `MeshWorld` / `run_against_mesh` build a
+`MeshRouter` over pool hosts and flood it while one host is partitioned
+(serving/mesh.py, traffic/netchaos.py). Every report carries a
+``{"seed", "schedule"}`` block that `replay_report` re-runs.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ import numpy as np
 
 from nnstreamer_tpu_torch.core.errors import StreamError
 from nnstreamer_tpu_torch.core.log import get_logger
+from nnstreamer_tpu_torch.traffic.admission import DEADLINE_META
 from nnstreamer_tpu_torch.edge import protocol as P
 from nnstreamer_tpu_torch.edge.wire import decode_buffer, encode_buffer
 from nnstreamer_tpu_torch.runtime.tracing import (
@@ -96,6 +105,66 @@ def bursty_arrivals(n: int, *, rate_high_hz: float, rate_low_hz: float,
         out.append(t)
     return np.asarray(out)
 
+
+def _inhomogeneous_arrivals(n: int, rate_of: Callable[[float], float],
+                            rng: np.random.Generator) -> np.ndarray:
+    """`n` cumulative arrival times of an inhomogeneous Poisson process
+    whose instantaneous rate is `rate_of(t)`: each inter-arrival gap is
+    drawn exponential at the rate in force when it starts. For rates
+    that vary slowly relative to the gap (every program here) this is
+    indistinguishable from thinning and stays strictly sequential in
+    the rng — one draw per arrival, so seeds replay bit-exact."""
+    out: List[float] = []
+    t = 0.0
+    for _ in range(n):
+        t += float(rng.exponential(1.0 / max(rate_of(t), 1e-9)))
+        out.append(t)
+    return np.asarray(out)
+
+
+def diurnal_arrivals(n: int, *, peak_hz: float, trough_hz: float,
+                     period_s: float = 4.0,
+                     rng: Optional[np.random.Generator] = None
+                     ) -> np.ndarray:
+    """`n` cumulative arrival times whose rate swings sinusoidally
+    between `trough_hz` and `peak_hz` with period `period_s`, starting
+    at the midpoint on the rising edge."""
+    if trough_hz <= 0 or peak_hz < trough_hz:
+        raise ValueError(
+            f"need 0 < trough_hz <= peak_hz, got {trough_hz}/{peak_hz}")
+    if period_s <= 0:
+        raise ValueError(f"period_s must be > 0, got {period_s}")
+    rng = rng if rng is not None else np.random.default_rng(0)
+    mid = (peak_hz + trough_hz) / 2.0
+    amp = (peak_hz - trough_hz) / 2.0
+    return _inhomogeneous_arrivals(
+        n, lambda t: mid + amp * float(np.sin(2 * np.pi * t / period_s)),
+        rng)
+
+
+def flash_crowd_arrivals(n: int, *, base_hz: float, peak_hz: float,
+                         ramp_at_s: float, ramp_s: float = 0.5,
+                         rng: Optional[np.random.Generator] = None
+                         ) -> np.ndarray:
+    """`n` cumulative arrival times of a flash crowd: Poisson at
+    `base_hz` until `ramp_at_s`, then a linear rate ramp to `peak_hz`
+    over `ramp_s` that never comes back down."""
+    if base_hz <= 0 or peak_hz < base_hz:
+        raise ValueError(
+            f"need 0 < base_hz <= peak_hz, got {base_hz}/{peak_hz}")
+    if ramp_at_s < 0 or ramp_s <= 0:
+        raise ValueError(
+            f"need ramp_at_s >= 0 and ramp_s > 0, got "
+            f"{ramp_at_s}/{ramp_s}")
+    rng = rng if rng is not None else np.random.default_rng(0)
+
+    def rate_of(t: float) -> float:
+        if t < ramp_at_s:
+            return base_hz
+        frac = min(1.0, (t - ramp_at_s) / ramp_s)
+        return base_hz + (peak_hz - base_hz) * frac
+
+    return _inhomogeneous_arrivals(n, rate_of, rng)
 
 
 # -- open-loop runner --------------------------------------------------------
@@ -392,9 +461,6 @@ def run_open_loop(host: str, port: int, *, dims: str,
     return report
 
 
-# -- self-contained server (CLI / bench / tests share it) --------------------
-
-
 # -- self-contained server (CLI / tests share it) ----------------------------
 
 class EchoServer:
@@ -463,6 +529,66 @@ class EchoServer:
             unregister_custom_easy(f"traffic_echo_{self.sid}")
 
 
+def run_against_echo(*, pattern: str = "poisson", load_x: float = 2.0,
+                     n: int = 200, service_ms: float = 5.0,
+                     max_pending: int = 16, max_inflight: int = 0,
+                     shed_policy: str = "reject-newest",
+                     p99_budget_ms: Optional[float] = None,
+                     seed: int = 0, trace: bool = False) -> dict:
+    """One self-contained harness run: bounded echo server + open-loop
+    load at `load_x` × its capacity. The shape the CLI and tests share."""
+    rng = np.random.default_rng(seed)
+    srv = EchoServer(service_ms=service_ms, max_pending=max_pending,
+                     max_inflight=max_inflight, shed_policy=shed_policy)
+    try:
+        rate = load_x * srv.capacity_rps
+        if pattern == "poisson":
+            arrivals = poisson_arrivals(rate, n, rng)
+        elif pattern == "bursty":
+            arrivals = bursty_arrivals(
+                n, rate_high_hz=2 * rate, rate_low_hz=max(rate / 4, 0.5),
+                rng=rng)
+        else:
+            raise ValueError(
+                f"pattern must be poisson|bursty, got {pattern!r}")
+        if p99_budget_ms is None:
+            # budget: full queue's worth of waiting + one service time
+            p99_budget_ms = (max_pending + 2) * service_ms
+        x = np.ones((8, 1), np.float32)
+
+        def make_frame(i):
+            buf = TensorBuffer.of(x, pts=i)
+            if shed_policy == "deadline-drop":
+                # deadline-drop only purges frames that carry a budget;
+                # without this stamp the policy silently degrades to
+                # reject-newest in the harness
+                buf = buf.with_meta(**{DEADLINE_META: p99_budget_ms})
+            return buf
+
+        report = run_open_loop(
+            "127.0.0.1", srv.port, dims=srv.dims, types=srv.types,
+            arrivals=arrivals,
+            make_frame=make_frame,
+            p99_budget_ms=p99_budget_ms,
+            depth_probe=srv.depth_probe, trace=trace)
+        report["pattern"] = pattern
+        report["load_x"] = load_x
+        report["service_ms"] = service_ms
+        report["capacity_rps"] = round(srv.capacity_rps, 1)
+        report["server_crashed"] = srv.crashed()
+        report["admission"] = srv.admission_counters()
+        report["seed"] = int(seed)
+        report["schedule"] = {
+            "kind": "echo", "pattern": pattern, "load_x": load_x,
+            "n": n, "service_ms": service_ms,
+            "max_pending": max_pending, "max_inflight": max_inflight,
+            "shed_policy": shed_policy,
+            "p99_budget_ms": p99_budget_ms, "trace": bool(trace)}
+        return report
+    finally:
+        srv.stop()
+
+
 def _arrivals_for(pattern: str, rate: float, n: int,
                   rng: np.random.Generator) -> np.ndarray:
     if pattern == "poisson":
@@ -480,6 +606,452 @@ def conservation_ok(c: dict) -> bool:
             and c["admitted"] == c["replied"] + sum(c["shed"].values())
             + c["depth"] + c["inflight"])
 
+
+def tenant_conservation_ok(c: dict) -> bool:
+    """Per-class form of the invariants: each class's counters must
+    close exactly on their own, AND the classes must sum back to the
+    global counters — shed load can move between classes only through
+    the books."""
+    if not conservation_ok(c):
+        return False
+    classes = c.get("classes")
+    if not classes:
+        return True
+    sums = {k: 0 for k in ("offered", "admitted", "replied",
+                           "rejected", "shed", "depth", "inflight")}
+    for st in classes.values():
+        rej = sum(st["rejected"].values())
+        shed = sum(st["shed"].values())
+        if st["offered"] != st["admitted"] + rej:
+            return False
+        if st["admitted"] != (st["replied"] + shed
+                              + st["depth"] + st["inflight"]):
+            return False
+        sums["offered"] += st["offered"]
+        sums["admitted"] += st["admitted"]
+        sums["replied"] += st["replied"]
+        sums["rejected"] += rej
+        sums["shed"] += shed
+        sums["depth"] += st["depth"]
+        sums["inflight"] += st["inflight"]
+    return (sums["offered"] == c["offered"]
+            and sums["admitted"] == c["admitted"]
+            and sums["replied"] == c["replied"]
+            and sums["rejected"] == sum(c["rejected"].values())
+            and sums["shed"] == sum(c["shed"].values())
+            and sums["depth"] == c["depth"]
+            and sums["inflight"] == c["inflight"])
+
+
+# -- autotune ramp drill -----------------------------------------------------
+
+def run_autotune_ramp(*, ramp=(0.5, 1.0, 1.5, 2.0, 2.5),
+                      n_per_step: int = 120, service_ms: float = 5.0,
+                      static_max_pending: int = 64,
+                      p99_budget_ms: Optional[float] = None,
+                      tuned: bool = True, dry_run: bool = False,
+                      tick_interval_s: float = 0.25,
+                      cooldown_s: float = 0.5,
+                      seed: int = 0) -> dict:
+    """Open-loop ramp (default 0.5→2.5× capacity, one Poisson segment
+    per step) against a bounded echo server, with or without the SLO
+    autotuner (serving/autotune.py) closing the loop live.
+
+    Both arms start from the same deliberately mis-set hand config — a
+    ``max_pending`` deep enough that queue wait alone blows the p99
+    budget under overload. ``tuned=False`` is the static baseline;
+    ``tuned=True`` binds an AutoTuner to the server's live admission
+    queue, which derives the Little's-law bound from the measured
+    reply rate and shrinks the queue until the budget holds. Same
+    arrival trace (same seed) either way, so the reports compare
+    directly: the tuned arm's win is goodput (completions *within
+    budget* per second), not raw throughput.
+
+    The report carries the full audit: ``autotune`` (AutoTuner.stats()
+    — every decision), ``conservation_after_apply`` (the admission
+    conservation invariants re-checked immediately after every applied
+    knob change, mid-flood), and ``conservation_final``."""
+    rng = np.random.default_rng(seed)
+    # reject-oldest: overload displaces the stalest queued request
+    # (which gets a BUSY), and a live max_pending shrink sheds excess
+    # entries as victims — every sent request still resolves, so the
+    # zero-lost accounting holds through every knob change
+    srv = EchoServer(service_ms=service_ms,
+                     max_pending=static_max_pending,
+                     shed_policy="reject-oldest")
+    tuner = None
+    try:
+        segs = []
+        t_off = 0.0
+        for x in ramp:
+            a = poisson_arrivals(x * srv.capacity_rps, n_per_step, rng) \
+                + t_off
+            t_off = float(a[-1])
+            segs.append(a)
+        arrivals = np.concatenate(segs)
+        if p99_budget_ms is None:
+            # ~18 service times: far less than the static queue's
+            # worth of waiting (so the hand config visibly fails it)
+            # but wide enough to absorb the drill's own service
+            # jitter — the sleep-based echo service overshoots on a
+            # loaded host, putting the latency tail at ~2x the median
+            # independent of queue depth, and a budget under that
+            # floor is unmeetable at any bound
+            p99_budget_ms = 18.0 * service_ms
+        conservation_after_apply: List[bool] = []
+        applied: List[dict] = []
+        if tuned:
+            from nnstreamer_tpu_torch.edge.query import QueryServer
+            from nnstreamer_tpu_torch.serving.autotune import AutoTuner, SLOSpec
+
+            qsrv = QueryServer.get(srv.sid)
+            adm = qsrv.frames
+
+            def on_apply(rec):
+                conservation_after_apply.append(
+                    conservation_ok(adm.counters()))
+                applied.append({"knob": rec["knob"], "old": rec["old"],
+                                "new": rec["new"]})
+
+            def on_victims(victims):
+                for v in victims:
+                    try:
+                        qsrv.send_busy(v.meta.get("client_id"), v.pts,
+                                       "bound_shrink")
+                    except Exception:
+                        log.warning("autotune victim BUSY failed",
+                                    exc_info=True)
+
+            tuner = AutoTuner(
+                SLOSpec(p99_budget_ms=p99_budget_ms),
+                admission=adm, interval_s=tick_interval_s,
+                cooldown_s=cooldown_s, dry_run=dry_run,
+                on_apply=on_apply, on_victims=on_victims).start()
+        x0 = np.ones((8, 1), np.float32)
+        report = run_open_loop(
+            "127.0.0.1", srv.port, dims=srv.dims, types=srv.types,
+            arrivals=arrivals,
+            make_frame=lambda i: TensorBuffer.of(x0, pts=i),
+            p99_budget_ms=p99_budget_ms,
+            depth_probe=srv.depth_probe)
+        if tuner is not None:
+            tuner.stop()
+            report["autotune"] = tuner.stats()
+            report["audit"] = tuner.audit()
+            report["conservation_after_apply"] = conservation_after_apply
+            report["applied"] = applied
+        report["conservation_final"] = conservation_ok(
+            srv.admission_counters())
+        report["admission"] = srv.admission_counters()
+        report["ramp"] = [float(x) for x in ramp]
+        report["capacity_rps"] = round(srv.capacity_rps, 1)
+        report["service_ms"] = service_ms
+        report["static_max_pending"] = static_max_pending
+        report["tuned"] = bool(tuned)
+        report["dry_run"] = bool(dry_run)
+        report["server_crashed"] = srv.crashed()
+        report["seed"] = int(seed)
+        report["schedule"] = {
+            "kind": "autotune_ramp", "ramp": [float(x) for x in ramp],
+            "n_per_step": n_per_step, "service_ms": service_ms,
+            "static_max_pending": static_max_pending,
+            "p99_budget_ms": p99_budget_ms, "tuned": bool(tuned),
+            "dry_run": bool(dry_run),
+            "tick_interval_s": tick_interval_s,
+            "cooldown_s": cooldown_s}
+        return report
+    finally:
+        if tuner is not None:
+            tuner.stop()
+        srv.stop()
+
+
+# -- multi-tenant harness ----------------------------------------------------
+
+def merge_tenant_arrivals(schedules: Dict[str, np.ndarray]
+                          ) -> "tuple[np.ndarray, List[str]]":
+    """Merge per-tenant arrival schedules into one global timeline.
+    Returns (arrivals, owner) where owner[i] is the tenant whose
+    schedule produced arrival i — the pts→tenant map that lets one
+    open-loop run stamp and account per tenant."""
+    pairs: List[tuple] = []
+    for name, times in schedules.items():
+        pairs.extend((float(t), name) for t in times)
+    pairs.sort()
+    arrivals = np.asarray([t for t, _ in pairs])
+    owner = [name for _, name in pairs]
+    return arrivals, owner
+
+
+def run_multitenant(*, tenants: Dict[str, dict],
+                    n_per_tenant: Dict[str, int],
+                    rate_hz: Dict[str, float],
+                    workers: int = 2, service_ms: float = 10.0,
+                    max_pending: int = 32,
+                    shed_policy: str = "reject-oldest",
+                    p99_budget_ms: float = 250.0, seed: int = 0,
+                    drain_timeout_s: float = 15.0,
+                    **pool_kwargs) -> dict:
+    """One multi-tenant harness run: a worker POOL fronted by the WFQ
+    admission queue (a TenantTable built from `tenants`), flooded by
+    the merged per-tenant Poisson schedules in `rate_hz`/`n_per_tenant`.
+    Every frame is stamped with its tenant meta; the report's
+    ``groups`` partition the outcome per tenant, and ``conserved``
+    checks the invariants per class AND summed.
+
+    `tenants` maps name -> TenantClass kwargs (weight, deadline_ms,
+    max_pending, model) — the same dict shape TenantTable.from_dict
+    accepts as its "tenants" entry.
+    """
+    from nnstreamer_tpu_torch.serving.pool import PooledQueryServer
+    from nnstreamer_tpu_torch.serving.tenancy import TENANT_META, TenantTable
+
+    rng = np.random.default_rng(seed)
+    table = TenantTable.from_dict({"tenants": dict(tenants)})
+    schedules = {
+        name: poisson_arrivals(rate_hz[name], n_per_tenant[name], rng)
+        for name in tenants if n_per_tenant.get(name, 0) > 0}
+    if not schedules:
+        raise ValueError("no tenant has a nonzero request count")
+    arrivals, owner = merge_tenant_arrivals(schedules)
+
+    pqs = PooledQueryServer.echo(
+        workers=workers, service_ms=service_ms,
+        max_pending=max_pending, shed_policy=shed_policy,
+        tenants=table, **pool_kwargs)
+    try:
+        x = np.ones((8, 1), np.float32)
+
+        def make_frame(i):
+            return TensorBuffer.of(x, pts=i).with_meta(
+                **{TENANT_META: owner[i]})
+
+        report = run_open_loop(
+            "127.0.0.1", pqs.port, dims=pqs.pool.spec.dims,
+            types=pqs.pool.spec.types, arrivals=arrivals,
+            make_frame=make_frame, p99_budget_ms=p99_budget_ms,
+            drain_timeout_s=drain_timeout_s,
+            depth_probe=pqs.depth_probe,
+            group_of=lambda i: owner[i])
+        c = pqs.admission_counters()
+        report.update({
+            "service_ms": service_ms, "workers": workers,
+            "capacity_rps": round(pqs.capacity_rps, 1),
+            "seed": int(seed),
+            "tenants": {name: {"rate_hz": rate_hz.get(name),
+                               "n": n_per_tenant.get(name, 0)}
+                        for name in tenants},
+            "conserved": tenant_conservation_ok(c),
+            "admission": c,
+            "schedule": {
+                "kind": "multitenant",
+                "tenants": {k: dict(v) for k, v in tenants.items()},
+                "n_per_tenant": dict(n_per_tenant),
+                "rate_hz": {k: float(v) for k, v in rate_hz.items()},
+                "workers": workers, "service_ms": service_ms,
+                "max_pending": max_pending,
+                "shed_policy": shed_policy,
+                "p99_budget_ms": p99_budget_ms},
+        })
+        return report
+    finally:
+        pqs.close()
+
+
+def noisy_neighbor_drill(*, victim_weight: float = 1.0,
+                         flood_weight: float = 1.0,
+                         victim_x: float = 0.5, flood_x: float = 3.0,
+                         n_victim: int = 120,
+                         workers: int = 2, service_ms: float = 10.0,
+                         max_pending: int = 32,
+                         deadline_ms: Optional[float] = None,
+                         seed: int = 0, **kw) -> dict:
+    """The noisy-neighbor acceptance drill: tenant ``flood`` offers
+    `flood_x` × its fair share while ``victim`` stays at `victim_x` ×
+    its own. Two runs — the victim alone (baseline), then contested —
+    and the verdict is the contested/solo goodput ratio: weighted-fair
+    admission must keep the victim's goodput and p99 where they were,
+    with the overage shed FROM THE FLOODER (cause tenant_over_share).
+
+    Returns {solo, contested, victim_goodput_ratio, victim_p99_ms,
+    victim_p99_budget_ms, conserved, zero_lost}.
+    """
+    capacity = workers * 1e3 / service_ms
+    total_w = victim_weight + flood_weight
+    victim_share = capacity * victim_weight / total_w
+    flood_share = capacity * flood_weight / total_w
+    victim_rate = victim_x * victim_share
+    flood_rate = flood_x * flood_share
+    # matched send windows: the flooder floods for as long as the
+    # victim is offering, so contention covers the whole run
+    n_flood = max(1, int(round(
+        n_victim / victim_rate * flood_rate)))
+    if deadline_ms is None:
+        # a full fair-share queue's worth of waiting + one service time
+        deadline_ms = (max_pending + 2) * service_ms
+    tenants = {
+        "victim": {"weight": victim_weight, "deadline_ms": deadline_ms},
+        "flood": {"weight": flood_weight, "deadline_ms": deadline_ms},
+    }
+
+    solo = run_multitenant(
+        tenants=tenants,
+        n_per_tenant={"victim": n_victim, "flood": 0},
+        rate_hz={"victim": victim_rate, "flood": flood_rate},
+        workers=workers, service_ms=service_ms,
+        max_pending=max_pending, p99_budget_ms=deadline_ms,
+        seed=seed, **kw)
+    contested = run_multitenant(
+        tenants=tenants,
+        n_per_tenant={"victim": n_victim, "flood": n_flood},
+        rate_hz={"victim": victim_rate, "flood": flood_rate},
+        workers=workers, service_ms=service_ms,
+        max_pending=max_pending, p99_budget_ms=deadline_ms,
+        seed=seed, **kw)
+
+    v_solo = solo["groups"]["victim"]
+    v_cont = contested["groups"]["victim"]
+    ratio = (v_cont["goodput_rps"] / v_solo["goodput_rps"]
+             if v_solo["goodput_rps"] else 0.0)
+    return {
+        "solo": solo,
+        "contested": contested,
+        "victim_goodput_ratio": round(ratio, 3),
+        "victim_p99_ms": v_cont.get("latency_ms", {}).get("p99"),
+        "victim_p99_budget_ms": deadline_ms,
+        "conserved": bool(solo["conserved"] and contested["conserved"]),
+        "zero_lost": solo["lost"] == 0 and contested["lost"] == 0,
+    }
+
+
+def schedule_worker_kills(pool, *, workers: int,
+                          rng: np.random.Generator,
+                          kill_at_s: float, kills: int,
+                          stagger_s: float = 0.25
+                          ) -> "tuple[List[dict], List[threading.Timer]]":
+    """Fault-injector primitive: plan `kills` SIGKILLs of rng-chosen
+    workers starting at `kill_at_s` (staggered by `stagger_s`). Returns
+    (schedule, timers); the caller starts the timers when its clock
+    starts and cancels them when the run ends. Each schedule entry's
+    ``pid`` is filled in when its kill actually lands, so the executed
+    schedule is the replay record. Shared by `run_against_pool` and the
+    scenario executor (scenario/executor.py)."""
+    schedule: List[dict] = []
+    timers: List[threading.Timer] = []
+    for k in range(max(0, kills)):
+        t_k = kill_at_s + k * stagger_s
+        wid = int(rng.integers(0, workers))
+        entry = {"t_s": round(t_k, 3), "wid": wid, "pid": None}
+        schedule.append(entry)
+
+        def do_kill(entry=entry):
+            # the chosen slot may be dead/restarting already: fall
+            # back to any live worker so the kill still happens
+            pid = pool.kill_worker(entry["wid"])
+            if pid is None:
+                pid = pool.kill_worker(None)
+            entry["pid"] = pid
+
+        t = threading.Timer(t_k, do_kill)
+        # cancelled by the caller; daemon besides, so an exception
+        # between here and start() can't hang exit
+        t.daemon = True
+        timers.append(t)
+    return schedule, timers
+
+
+def run_against_pool(*, pattern: str = "poisson", load_x: float = 1.5,
+                     n: int = 300, service_ms: float = 20.0,
+                     workers: int = 2, max_pending: int = 32,
+                     max_inflight: int = 0,
+                     shed_policy: str = "reject-newest",
+                     p99_budget_ms: float = 90.0, seed: int = 0,
+                     kill_at_s: Optional[float] = None, kills: int = 1,
+                     recovery_timeout_s: Optional[float] = None,
+                     trace: bool = False,
+                     **pool_kwargs) -> dict:
+    """Chaos-kill harness run: open-loop load at `load_x` × a worker
+    POOL's aggregate capacity, with `kills` SIGKILLs of rng-chosen
+    workers at `kill_at_s` (default: the median arrival — mid-flood,
+    where a lost worker hurts most). The run is reproducible from
+    (seed, kill schedule), both recorded in the report.
+
+    The report adds to run_open_loop's fields: `kill_schedule` (planned
+    t / wid / pid actually signalled), `recovered` (pool back to full
+    non-disabled capacity within `recovery_timeout_s` — default sized
+    to the restart budget), `conserved` (admission invariants exact),
+    and `orphans` (live pids left after close() — must be empty).
+    """
+    from nnstreamer_tpu_torch.serving.pool import PooledQueryServer, proc_alive
+
+    rng = np.random.default_rng(seed)
+    pqs = PooledQueryServer.echo(
+        workers=workers, service_ms=service_ms, max_pending=max_pending,
+        max_inflight=max_inflight, shed_policy=shed_policy,
+        **pool_kwargs)
+    pool = pqs.pool
+    closed = False
+    try:
+        rate = load_x * pqs.capacity_rps
+        arrivals = _arrivals_for(pattern, rate, n, rng)
+        if kill_at_s is None:
+            kill_at_s = float(arrivals[len(arrivals) // 2])
+        schedule, timers = schedule_worker_kills(
+            pool, workers=workers, rng=rng, kill_at_s=kill_at_s,
+            kills=kills)
+
+        x = np.ones((8, 1), np.float32)
+        for t in timers:
+            t.start()
+        try:
+            report = run_open_loop(
+                "127.0.0.1", pqs.port, dims=pool.spec.dims,
+                types=pool.spec.types, arrivals=arrivals,
+                make_frame=lambda i: TensorBuffer.of(x, pts=i),
+                p99_budget_ms=p99_budget_ms,
+                depth_probe=pqs.depth_probe, trace=trace)
+        finally:
+            for t in timers:
+                t.cancel()
+        # recovery: back to full non-disabled capacity within the
+        # restart budget's worth of backoff (+ margin for respawn)
+        if recovery_timeout_s is None:
+            recovery_timeout_s = max(
+                5.0, 2 * pool.restart_backoff_max_s + 5.0)
+        t_rec = time.perf_counter()
+        recovered = pool.wait_ready(recovery_timeout_s)
+        c = pqs.admission_counters()
+        report.update({
+            "pattern": pattern, "load_x": load_x,
+            "service_ms": service_ms, "workers": workers,
+            "capacity_rps": round(pqs.capacity_rps, 1),
+            "seed": int(seed),
+            "schedule": {
+                "kind": "pool", "pattern": pattern, "load_x": load_x,
+                "n": n, "service_ms": service_ms, "workers": workers,
+                "max_pending": max_pending,
+                "max_inflight": max_inflight,
+                "shed_policy": shed_policy,
+                "p99_budget_ms": p99_budget_ms,
+                "kill_at_s": round(float(kill_at_s), 3),
+                "kills": kills, "trace": bool(trace)},
+            "kill_schedule": schedule,
+            "recovered": recovered,
+            "recovery_s": round(time.perf_counter() - t_rec, 3),
+            "conserved": conservation_ok(c),
+            "admission": c,
+            "pool": pool.stats(),
+        })
+        # orphan audit must run AFTER close(): a drained pool may leave
+        # no live child — a pid still alive here is a leaked orphan
+        all_pids = pool.all_pids_ever()
+        pqs.close()
+        closed = True
+        report["orphans"] = [p for p in all_pids if proc_alive(p)]
+        return report
+    finally:
+        if not closed:
+            pqs.close()
 
 
 # -- the mesh harness --------------------------------------------------------
@@ -729,3 +1301,38 @@ def _mesh_teardown(agents, proxies, pools, router) -> None:
 
 
 # -- replay ------------------------------------------------------------------
+
+def replay_report(report: dict) -> dict:
+    """Re-run the exact drill a ``run_*`` report records. Every runner
+    stamps a top-level ``{"seed", "schedule"}`` block sufficient to
+    reconstruct its run; this dispatches back into the runner with the
+    recorded arguments. Same seed → same arrival trace and same
+    planned fault schedule; a quiescent run (zero lost, fully drained)
+    replays to the same offered/admitted/replied totals."""
+    sched = report.get("schedule")
+    seed = report.get("seed")
+    if not isinstance(sched, dict) or "kind" not in sched \
+            or seed is None:
+        raise ValueError(
+            "report carries no replayable {'seed', 'schedule'} block")
+    kw = dict(sched)
+    kind = kw.pop("kind")
+    fn = _REPLAY_RUNNERS.get(kind)
+    if fn is None:
+        raise ValueError(
+            f"unknown schedule kind {kind!r}; expected one of "
+            f"{sorted(_REPLAY_RUNNERS)}")
+    return fn(seed=int(seed), **kw)
+
+
+_REPLAY_RUNNERS: Dict[str, Callable[..., dict]] = {
+    "echo": run_against_echo,
+    "autotune_ramp": run_autotune_ramp,
+    "multitenant": run_multitenant,
+    "pool": run_against_pool,
+    "mesh": run_against_mesh,
+}
+
+#: the older private names, kept for the callers that grew up with them
+_conservation_ok = conservation_ok
+_tenant_conservation_ok = tenant_conservation_ok

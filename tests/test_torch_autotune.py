@@ -5,9 +5,9 @@ run on both packages under the same fake clock and sensors, with the
 port's audit sequence and stats equal to JAX's; then `stage_bucket` on a
 real port backend (the actuator the bucket stage calls).
 
-JAX's `TestClosedLoopRamp` drives `traffic/loadgen.run_autotune_ramp`,
-which the port gains with the rest of loadgen (Queue 1 item 4h; item
-4g ported only the mesh half); until then the live loop is `serve --slo`
+JAX's `TestClosedLoopRamp` drives `traffic/loadgen.run_autotune_ramp`
+on a live echo server: tests/test_torch_loadgen.py runs it on the port;
+the live loop also runs under `serve --slo`
 (tests/test_torch_serve_cli.py) and chip_smoke phase 45.
 Every controller test drives tick() with an injected clock: no sleeps.
 """

@@ -265,3 +265,20 @@ def test_scan_covers_the_mesh_modules(rel):
     path = PORT / rel
     assert path in sorted(PORT.rglob("*.py"))
     assert not [m for m in _imported_modules(path) if _forbidden(m)]
+
+
+#: the load generator's drills, the scenario engine and MQTT (the codec,
+#: the broker's listener, the pub/sub and MQTT elements): the scan above
+#: must reach each
+TRAFFIC_MQTT_MODULES = (
+    "scenario/__init__.py", "scenario/spec.py", "scenario/checker.py",
+    "scenario/shrink.py", "scenario/executor.py", "edge/mqtt_wire.py",
+    "edge/broker.py", "edge/pubsub.py", "elements/mqtt.py",
+    "__main__.py")
+
+
+@pytest.mark.parametrize("rel", TRAFFIC_MQTT_MODULES)
+def test_scan_covers_the_traffic_and_mqtt_modules(rel):
+    path = PORT / rel
+    assert path in sorted(PORT.rglob("*.py"))
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]

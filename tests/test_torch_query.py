@@ -3,15 +3,14 @@ edge/broker.py, edge/query.py, parallel/dispatch.py) against the JAX
 package's, on the CPU.
 
 - protocol and broker: framing, discovery, a registration that dies
-  with its owner, the clock offset, pub/sub fan-out, malformed payloads,
-  and the port's refusal of the MQTT listener (a difference made on
-  purpose: ROADMAP Queue 3); a JAX BrokerClient against the port's
-  broker.
+  with its owner, the clock offset, pub/sub fan-out, malformed payloads;
+  a JAX BrokerClient against the port's broker (its MQTT listener is
+  tested in test_torch_mqtt.py).
 - tensor_query_*: a round trip, caps rejection, two clients routed
   apart, pipelined in-flight order, typed BUSY with every frame
   accounted for (answered + BUSY = sent, in pts order), hybrid
-  discovery, and the registry probe (the three element names
-  registered, seven JAX-only names left).
+  discovery, and the registry probe (the query, pub/sub and MQTT
+  element names registered, three JAX-only names left).
 - Across the packages: a port client against a JAX server and a JAX
   client against a port server, both serving MobileNetV2 (width 0.35,
   input 32, f32, JAX's parameters through models/bridge.py): logits
@@ -113,16 +112,6 @@ def test_publish_frame_codec():
         ("cam/0", 12345, b"xyz")
     with pytest.raises(StreamError, match="truncated"):
         unpack_publish(b"\xff\xff hi")
-
-
-def test_mqtt_listener_refused_until_ported():
-    with pytest.raises(StreamError, match="Queue 1 item 5"):
-        EdgeBroker("127.0.0.1", 0, mqtt_port=0)
-    b = EdgeBroker("127.0.0.1", 0)
-    try:
-        assert b.mqtt_port is None
-    finally:
-        b.close()
 
 
 def test_register_lookup_roundtrip(broker):
@@ -488,9 +477,9 @@ def test_serversrc_refuses_wildcard_advertise(broker):
 
 
 def test_registry_probe():
-    """The three query elements are the port's now; seven element names
-    stay JAX-only, and the filter has every property of JAX's (canary_seed,
-    devices and shards among them)."""
+    """The query, pub/sub and MQTT elements are the port's now; three
+    element names stay JAX-only, and the filter has every property of
+    JAX's (canary_seed, devices and shards among them)."""
     import nnstreamer_tpu.elements  # noqa: F401  (registers built-ins)
     import nnstreamer_tpu_torch.elements  # noqa: F401
     from nnstreamer_tpu.core.registry import PluginKind as JKind
@@ -505,9 +494,9 @@ def test_registry_probe():
     ours = builtins(registry, PluginKind.ELEMENT, "nnstreamer_tpu_torch")
     theirs = builtins(jreg, JKind.ELEMENT, "nnstreamer_tpu")
     assert {"tensor_query_client", "tensor_query_serversrc",
-            "tensor_query_serversink"} <= ours
-    assert theirs - ours == {"edgesink", "edgesrc", "mqttsink", "mqttsrc",
-                             "tensor_sink_grpc", "tensor_src_grpc",
+            "tensor_query_serversink", "edgesink", "edgesrc", "mqttsink",
+            "mqttsrc"} <= ours
+    assert theirs - ours == {"tensor_sink_grpc", "tensor_src_grpc",
                              "tensor_trainer"}
     assert ours - theirs == set()
     from nnstreamer_tpu.elements import TensorFilter as JFilter

@@ -8,8 +8,12 @@ endpoint for one frame; SIGTERM drains it with rc 0 and no orphan worker.
 subprocesses), which answers a frame through the pool and shows the host
 on its /metrics; the `mesh` demo exits 0 at a small `--requests`; `llm`
 prints one `done` line a request, its tokens those of the same
-`tensor_llm` driven directly. The subcommands whose modules are not
-ported yet (`traffic`, `scenario`, `lint`) exit 2 naming their item.
+`tensor_llm` driven directly. `traffic` in its in-process modes (echo,
+`--host`, `--trace`, `--flight-dir`, `--autotune`) exits as JAX's does
+(`test_torch_loadgen.py` runs its pool modes); `scenario list` names
+JAX's catalog, `scenario run` then `scenario replay` match
+(`test_torch_scenario.py` runs `shrink`). `lint`, not ported yet, exits
+2 naming its item.
 """
 
 import json
@@ -234,14 +238,111 @@ def test_llm_prints_the_tokens_of_tensor_llm(monkeypatch, capsys):
     assert all(len(v) == new for v in cli.values())
 
 
-@pytest.mark.parametrize("cmd,item", [
-    ("traffic", "4h"), ("scenario", "4h"), ("lint", "5d")])
+@pytest.mark.parametrize("cmd,item", [("lint", "5d")])
 def test_unported_subcommands_exit_2_naming_their_item(cmd, item, capsys):
     from nnstreamer_tpu_torch.__main__ import main
 
     assert main([cmd]) == 2
     err = capsys.readouterr().err
     assert f"Queue 1 item {item}" in err and "not ported yet" in err
+
+
+def _cli_json(capsys, argv):
+    """main(argv) in this process → (exit code, the report it printed,
+    stderr)."""
+    from nnstreamer_tpu_torch.__main__ import main
+
+    rc = main(argv)
+    cap = capsys.readouterr()
+    return rc, (json.loads(cap.out) if cap.out.strip() else None), cap.err
+
+
+def test_traffic_echo_json_and_replay(monkeypatch, capsys):
+    from nnstreamer_tpu_torch.traffic import replay_report
+
+    monkeypatch.setenv("NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR", "cpu")
+    rc, rep, _ = _cli_json(capsys, [
+        "traffic", "--requests", "40", "--load-x", "0.4",
+        "--service-ms", "2", "--seed", "4", "--json"])
+    assert rc == 0 and rep["lost"] == 0 and rep["offered"] == 40
+    assert rep["completed"] == 40 and rep["seed"] == 4
+    assert rep["schedule"]["kind"] == "echo"
+    again = replay_report(rep)
+    assert again["completed"] == 40 and again["admission"]["replied"] == \
+        rep["admission"]["replied"]
+    # overload: typed BUSY, nothing lost, the depth sparkline on stderr
+    rc, rep, err = _cli_json(capsys, [
+        "traffic", "--requests", "80", "--load-x", "4", "--service-ms",
+        "4", "--max-pending", "4", "--pattern", "bursty"])
+    assert rc == 0 and rep["lost"] == 0 and rep["rejected"] > 0
+    assert rep["completed"] + rep["rejected"] == 80
+    assert "queue_depth_timeline" not in rep    # drawn on stderr instead
+    assert "queue depth (peak" in err
+
+
+def test_traffic_host_mode_trace_and_flight_dir(monkeypatch, capsys,
+                                                tmp_path):
+    from nnstreamer_tpu_torch.traffic import EchoServer
+
+    monkeypatch.setenv("NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR", "cpu")
+    assert _cli_json(capsys, ["traffic", "--host", "127.0.0.1"])[0] == 2
+    srv = EchoServer(service_ms=1.0, dims="4:2", types="int16")
+    try:
+        rc, rep, err = _cli_json(capsys, [
+            "traffic", "--host", "127.0.0.1", "--port", str(srv.port),
+            "--dims", "4:2", "--types", "int16", "--rate", "200",
+            "--requests", "30", "--trace", "--json"])
+        assert rc == 0 and rep["lost"] == 0 and rep["completed"] == 30
+        assert rep["traced_replies"] == 30 and rep["seed"] == 0
+        assert srv.admission_counters()["replied"] == 30
+    finally:
+        srv.stop()
+    # a budget nothing meets: the post-run scan dumps a flight bundle
+    rc, rep, err = _cli_json(capsys, [
+        "traffic", "--requests", "30", "--load-x", "0.5", "--service-ms",
+        "2", "--budget-ms", "0.001", "--flight-dir", str(tmp_path),
+        "--trace", "--json"])
+    assert rc == 0 and "flight bundle dumped" in err
+    assert list(tmp_path.iterdir())
+
+
+def test_traffic_autotune_both_arms(monkeypatch, capsys):
+    monkeypatch.setenv("NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR", "cpu")
+    rc, rep, _ = _cli_json(capsys, [
+        "traffic", "--autotune", "--autotune-dry-run", "--requests", "100",
+        "--service-ms", "3", "--seed", "3", "--json"])
+    assert rc == 0
+    assert rep["static"]["lost"] == 0 and rep["tuned"]["lost"] == 0
+    assert rep["tuned"]["dry_run"] and not rep["static"]["tuned"]
+    assert rep["tuned"]["autotune"]["applied_total"] == 0
+    assert rep["tuned"]["conservation_final"]
+
+
+def test_scenario_list_names_jax(capsys):
+    from nnstreamer_tpu.scenario import builtin_specs as jspecs
+    from nnstreamer_tpu_torch.__main__ import main
+
+    assert main(["scenario", "list"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert [ln.split()[0] for ln in out[2:]] == list(jspecs())
+    assert out[2].split()[1] == "pool(1x2w)"
+
+
+def test_scenario_run_then_replay(monkeypatch, capsys, tmp_path):
+    from nnstreamer_tpu_torch.__main__ import main
+
+    monkeypatch.setenv("NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR", "cpu")
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    out = tmp_path / "r.json"
+    assert main(["scenario", "run", "smoke_pool", "--out", str(out)]) == 0
+    err = capsys.readouterr().err
+    assert "scenario 'smoke_pool' seed=7" in err and "OK" in err
+    saved = json.loads(out.read_text())
+    assert saved["check"]["ok"] and "traces" not in saved["report"]
+    assert main(["scenario", "replay", str(out), "--out",
+                 str(tmp_path / "r2.json")]) == 0
+    assert "replay totals match" in capsys.readouterr().err
+    assert json.loads((tmp_path / "r2.json").read_text())["replay_match"]
 
 
 def test_top_needs_a_url():
