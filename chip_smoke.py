@@ -14,6 +14,8 @@
     python3 chip_smoke.py --placement # phases 1, 2 and 47-49 only
     python3 chip_smoke.py --mesh      # phases 1, 2, 50 and 51 only
     python3 chip_smoke.py --traffic   # phases 1, 2, 52 and 53 only
+    python3 chip_smoke.py --interop   # phases 1, 2 and 54 only
+    python3 chip_smoke.py --train     # phases 1, 2 and 55 only
 
 Needs one CUDA card, nvcc, g++ (phase 42) and the repository checkout
 around this file;
@@ -22,7 +24,8 @@ put their four logical devices one per card (--slice4 runs just those
 phases there). Phases:
 
 1. environment: torch/CUDA/nvcc versions and the card's name and power
-   limit (nvidia-smi);
+   limit (nvidia-smi); which of grpc, google.protobuf, flatbuffers and
+   optax are found (by import spec, none imported);
 2. build the hand-written kernels from the checkout's sources (nvcc);
 3. normalize_u8 against its plain torch version on the card, bit for
    bit: every dtype a stream carries in (u8, i8, u16, i16, i32, u32, i64,
@@ -197,8 +200,8 @@ phases there). Phases:
    30 s budget; then timings of two arms held in this one process at
    once, in turns: A and B with the tracer off and on, D compact-1,
    P host-1 and P host-1 with its transforms unfused with chain fusion
-   off and on (closed-loop latency p50/p99 over 100 frames interleaved
-   frame by frame, frames/s over bursts of 100 frames in turns a b b a),
+   off and on (closed-loop latency p50/p99 over 64 frames interleaved
+   frame by frame, frames/s over bursts of 64 frames in turns a b b a),
    and the tracer hooks' host cost per recorded event;
 27. B micro-batched at full width (bf16): `videotestsrc ! tensor_converter
    ! tensor_batch max-batch=8 max-latency-ms=20 ! tensor_filter
@@ -212,7 +215,7 @@ phases there). Phases:
    logit difference), f32 logits (TF32 off) within 1e-3 of max |logit| of
    unbatched B's; a traced run's process span per batch; then batched and
    unbatched B live at once (compiled windows off: the per-frame path),
-   every bucket warmed, bursts of 200 frames in turns a b b a: frames/s to the last frame, latency p50/p99 under the
+   every bucket warmed, bursts of 64 frames in turns a b b a: frames/s to the last frame, latency p50/p99 under the
    burst, kernel time a frame (a profiled burst) and the card's busy
    share;
 28. tensor_filter's properties and FLEXIBLE invokes on the card:
@@ -420,7 +423,7 @@ phases there). Phases:
    manifest: a spawned process replays it at start and its first frame
    equals this process's;
 44. (no claim) Q1 beside B direct: closed-loop p50/p99 frame by frame in
-   turns, bursts of 160 in turns a b b a with windows on (frames/s,
+   turns, bursts of 64 in turns a b b a with windows on (frames/s,
    latency under the burst, kernel time a frame, busy share); Q2 (bf16)
    with 1, 4 and 8 clients in turns 1 4 8 8 4 1 (aggregate frames/s,
    mean batch occupancy, p50/p99); B on store:// beside zoo://, closed
@@ -531,7 +534,46 @@ phases there). Phases:
    the edge protocol with `sync=broker` (pts rebased to 0, never
    decreasing) and through `edgesink port=0` → `edgesrc`, each bit for
    bit with +64 launches; frames/s from the first push to the last
-   arrival beside B direct's (no claim).
+   arrival beside B direct's (no claim);
+54. Queue 1 item 5b: B (`appsrc ! normalize_u8 ! zoo://mobilenet_v2`)
+   into `tensor_decoder mode=<codec> ! tensor_converter
+   mode=custom:<codec> ! tensor_sink` for protobuf, flatbuf and flexbuf,
+   64 frames each: logits and pts bit for bit B direct's, normalize_u8
+   +64 a codec, the decoder's read-back the only forced sync (64, traced
+   under it); phase 28's crop → invoke-dynamic MobileNetV2 (a FLEXIBLE
+   frame of one (1, 1001) tensor a region) through each codec's
+   GstTensorMetaInfo header: the exact shapes back, bit for bit; then B's
+   logits from `tensor_sink_grpc server=true` to `tensor_src_grpc
+   server=false` in a second pipeline, 64 in order, bit for bit, +64 —
+   or, where grpc is not installed, "grpc: not installed on this
+   machine" and the PipelineError naming the package when the element
+   starts; frames/s of 64 frames, first push to last result, for each
+   beside B direct's before and after them (no claim), and each codec's
+   host µs a frame to encode and decode B's logits; 16 frames of the
+   protobuf leg profiled: normalize_u8's launches by the wrapper = by
+   name (profiled_agreement);
+55. Queue 1 item 5c: `appsrc x ! normalize_u8 ! mux.sink_0 appsrc y !
+   mux.sink_1 tensor_mux ! tensor_trainer model=zoo://mobilenet_v2?
+   width=1.0&num_classes=1001 optimizer=adam:0.001 checkpoint_dir=<tmp>
+   checkpoint_every=4 ! tensor_sink`, f32, 8 steps on one seeded batch
+   of (8, 224, 224, 3) uint8: finite losses that fall, normalize_u8 once
+   a step, one forced sync a step traced under the trainer (the loss),
+   checkpoints step_4 and step_8; `resume_from` step_4 then steps 5-8:
+   losses and every parameter bit for bit the uninterrupted run's (both
+   runs under cudnn.deterministic); batch 2, `sgd:0.01`, TF32 off, 2
+   steps on the card and on the CPU from the same params and step 2 on
+   the card again from the CPU's step-1 checkpoint: the losses at the
+   same params within 1e-5 relative, the free-running step 2's within
+   1e-3; each step's parameters from the same start (sgd's update is
+   lr·grad, so they hold the backward), |card − CPU| over each leaf's
+   movement: median within 5e-2, largest within 3e-1; 8 closed-loop
+   steps (push →
+   loss on the host) after 2: step ms p50 and images/s; 3 steps profiled:
+   kernels, kernel ms and the busy share a step, the top kernels by
+   time, normalize_u8's launches by the wrapper and by name; then
+   `zoo://audio_classifier?num_classes=12 optimizer=sgd:0.05` on (8,
+   1024, 1) int16 windows behind normalize_u8, profiled: the loss falls,
+   8 launches by the wrapper = by name (profiled_agreement).
 
 Each kernel's timing phase (6, 10, 15, 16, 23) also prints its time per
 call from Python, back to back — the host's time (the launch path's own
@@ -552,7 +594,8 @@ chip_smoke_modelio.json with --modelio, chip_smoke_elements.json with
 chip_smoke_serving.json with --serving, chip_smoke_pool.json with
 --pool, chip_smoke_placement.json with --placement,
 chip_smoke_mesh.json with --mesh, chip_smoke_traffic.json with
---traffic).
+--traffic, chip_smoke_interop.json with --interop, chip_smoke_train.json
+with --train).
 """
 
 from __future__ import annotations
@@ -697,8 +740,10 @@ def kernel_events(prof):
             and OPEN_KERNEL not in e.name]
 
 
-#: profiled runs a wrapper-against-profiler launch count may take
-PROFILE_ATTEMPTS = 3
+#: profiled runs a wrapper-against-profiler launch count may take (late
+#: in a whole run the profiler lost all 8 and then 3 of the 8 records of
+#: phase 55's audio capture before it kept them all)
+PROFILE_ATTEMPTS = 6
 
 
 def profiled_agreement(label: str, attempt):
@@ -728,7 +773,8 @@ def profiled_agreement(label: str, attempt):
               f"wrapper: {named} against {wrapper}")
         # on stderr too: a refused run shows only that stream's end
         for stream in (sys.stdout, sys.stderr):
-            print(f"{label}: profiled run {i} of {PROFILE_ATTEMPTS}: wrapper "
+            print(f"{label}: profiled run {i} of {PROFILE_ATTEMPTS}: "
+                  f"wrapper "
                   f"{wrapper}, profiler {named} (records missing); run "
                   f"again", file=stream, flush=True)
     raise RuntimeError(f"chip_smoke check failed: {label}: wrapper and "
@@ -3784,12 +3830,17 @@ def tracer_hook_us(n: int = 20000) -> float:
     return (time.perf_counter() - t0) / (5 * n) * 1e6
 
 
+#: phase 26: closed-loop frames a arm (after RT_WARMUP) and the frames of
+#: each of its two bursts an arm
+RT_LAT, RT_WARMUP, RT_BURST = 64, 10, 64
+
+
 def runtime_timings(nt, torch, card, record) -> None:
     """Phase 26, timings, arms alternating in this one process: A and B
     with the tracer off and on, D compact-1, P host-1 and P host-1 with
     its transforms unfused with chain fusion off and on. Latency p50/p99
-    over 100 closed-loop frames a arm, interleaved frame by frame, and
-    frames/s over bursts of 100 frames, two a arm in turns
+    over RT_LAT closed-loop frames a arm, interleaved frame by frame, and
+    frames/s over bursts of RT_BURST frames, two a arm in turns
     (interleaved_arms); the tracer's own host cost per event
     (tracer_hook_us)."""
     res = {}
@@ -3814,8 +3865,8 @@ def runtime_timings(nt, torch, card, record) -> None:
     for name, (desc, frame, arms) in cells.items():
         def build(desc=desc):
             return nt.parse_launch(desc)
-        lat, fps, runners = interleaved_arms(nt, build, frame, 100, 10,
-                                             100, arms)
+        lat, fps, runners = interleaved_arms(nt, build, frame, RT_LAT,
+                                             RT_WARMUP, RT_BURST, arms)
         res[name] = {}
         for arm in arms:
             r = res[name][arm] = {
@@ -3825,12 +3876,13 @@ def runtime_timings(nt, torch, card, record) -> None:
                 "fused_chains": runners[arm].fused_chains()}
             tr = runners[arm].tracer
             if tr.active:
-                r["events_per_frame"] = tr.total_events / 310
+                r["events_per_frame"] = tr.total_events / (
+                    RT_LAT + RT_WARMUP + 2 * RT_BURST)
             print(f"phase 26: {name}, {arm}: latency p50 {r['p50_ms']:.3f} "
                   f"ms, p99 {r['p99_ms']:.3f} ms, mean {r['mean_ms']:.3f} "
-                  f"ms (100 frames, interleaved with the other arm); "
+                  f"ms ({RT_LAT} frames, interleaved with the other arm); "
                   + " / ".join(f"{f:.1f}" for f in fps[arm])
-                  + f" frames/s (bursts of 100, in turns); fused chains "
+                  + f" frames/s (bursts of {RT_BURST}, in turns); fused chains "
                   f"{r['fused_chains']}"
                   + (f"; {r['events_per_frame']:.1f} events a frame"
                      if "events_per_frame" in r else "") + f" [{card}]")
@@ -3870,6 +3922,8 @@ BATCH = (f"tensor_batch name=batch max-batch={BATCH_MAX} "
          f"max-latency-ms={BATCH_LATENCY_MS}")
 #: frames a burst in phase 27's timing arms, and bursts an arm
 BURST, BURSTS = 200, 1
+#: phase 27's bursts (phases 35 and 37 keep BURST)
+BATCH_BURST = 64
 #: frames of burst_arms' profiled burst an arm (48 until phases 50-51
 #: came): its kernels and kernel time a frame are means over identical
 #: frames, and reading the profiler's trace takes seconds an arm
@@ -4093,7 +4147,7 @@ def batched_b_phase(nt, torch, card, record) -> None:
     frame = u8_frames((1, 224, 224, 3), 1, 0)[0]
     # compiled windows off: the unbatched arm measures the per-frame path
     # (phase 29 measures windows against it)
-    arms = burst_arms(nt, torch, descs, frame, BURST, BURSTS,
+    arms = burst_arms(nt, torch, descs, frame, BATCH_BURST, BURSTS,
                       runner_kw={a: {"compiled_loop": False} for a in descs})
     res = {}
     for arm, r in arms.items():
@@ -4103,7 +4157,7 @@ def batched_b_phase(nt, torch, card, record) -> None:
                     "p99_ms": float(np.percentile(r["lat"], 99)),
                     "device_ms_per_frame": r["device_ms_per_frame"],
                     "busy_share": r["device_ms_per_frame"] * fps / 1e3}
-        print(f"phase 27: {arm} B, bursts of {BURST} frames in turns: "
+        print(f"phase 27: {arm} B, bursts of {BATCH_BURST} frames in turns: "
               + " / ".join(f"{f:.1f}" for f in r["fps"])
               + f" frames/s to the last frame; latency under the burst p50 "
               f"{res[arm]['p50_ms']:.3f} ms p99 {res[arm]['p99_ms']:.3f} ms; "
@@ -7152,7 +7206,7 @@ SWAP_FRAMES, OVERLOAD_FRAMES = 160, 64
 #: the idle-filter swap's burst (half before the flip, half after)
 SWAP_IDLE_FRAMES = 32
 Q2_CLIENTS, Q2_FRAMES = 4, 16
-Q_BURST, Q_LAT, Q_WARMUP, Q2_TIMED = 160, 64, 8, 32
+Q_BURST, Q_LAT, Q_WARMUP, Q2_TIMED = 64, 64, 8, 32
 Q_TIMEOUT = 120
 #: served logits of Q2 (f32, TF32 off, cuDNN free to pick another
 #: algorithm at batch 8) against B's per frame, relative to max |logit|
@@ -10077,6 +10131,675 @@ def traffic_phases(nt, torch, card, record, phases) -> dict:
     return {"traffic": flooded, "mqtt": carried_over}
 
 
+#: phase 54: frames of B through each interop codec and over gRPC
+INTEROP_FRAMES = 64
+#: phase 54: frames of the protobuf leg run under the profiler
+INTEROP_PROFILED = 16
+INTEROP_CODECS = ("protobuf", "flatbuf", "flexbuf")
+#: phase 55: MobileNetV2 1.0's training batch and steps; the steps held
+#: to the CPU (batch TRAIN_CPU_BATCH, TF32 off); the closed-loop timing
+#: steps after TRAIN_WARM warm-up steps
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 8, 4
+TRAIN_CPU_BATCH, TRAIN_CPU_STEPS = 2, 2
+TRAIN_TIMED, TRAIN_WARM = 10, 2
+TRAIN_LR = 1e-3
+#: the card-vs-CPU arm trains with sgd: its update is lr·grad, so the
+#: parameters after a step hold the backward (Adam's lr-sized update of
+#: an element whose gradient is rounding noise takes either sign)
+TRAIN_CPU_OPT = "sgd:0.01"
+#: the two arms of the card-vs-CPU comparison
+TRAIN_ARMS = ("cuda", "cpu")
+TRAIN_WIDTH, TRAIN_CLASSES = 1.0, 1001
+TRAIN_MODEL = (f"zoo://mobilenet_v2?width={TRAIN_WIDTH}&"
+               f"num_classes={TRAIN_CLASSES}")
+#: card vs CPU, relative: a loss taken at the same params (the forward:
+#: step 1, and step 2 teacher-forced) and the free-running step 2's
+#: (after each arm's own step 1). Float32 against float64 on one CPU at
+#: width 0.35 (nnstreamer_tpu_torch/tools/train_spread.py --width 0.35):
+#: 1.3e-7 and 3.9e-7 at the same params, 6.5e-5 free-running
+TRAIN_SAME_LOSS_REL, TRAIN_FREE_LOSS_REL = 1e-5, 1e-3
+#: card vs CPU, one sgd step from the same params: per leaf, |card − CPU|
+#: over the leaf's largest movement in the CPU's step (the floor of the
+#: movement 1e-2 of the largest leaf's; two f32 ulps of the leaf's start
+#: value allowed besides), the median over the leaves that moved more and
+#: the largest over all. The same tool read, for float32 against float64,
+#: a median of 2.6e-3 and 4.7e-5 and a largest of 3.2e-2 and 3.8e-2
+#: (steps 1 and 2), and for BN with its batch statistics detached from
+#: the graph a median of 1.4 both. Two free-running steps are not held
+#: so: there float32's rounding in step 1 moves step 2's parameters by a
+#: median of 0.29 of their movement
+TRAIN_CPU_MEDIAN, TRAIN_CPU_MAX = 5e-2, 3e-1
+#: codec host cost: encode + decode of B's (1, 1001) f32 logits, calls
+CODEC_HOST_CALLS = 2000
+
+
+def interop_tools() -> dict:
+    """Which of the packages JAX's interop and trainer import are found
+    on this machine (found by import spec; none is imported here — optax
+    would import JAX)."""
+    import importlib.util
+
+    out = {}
+    for name in ("grpc", "google.protobuf", "flatbuffers", "optax"):
+        try:
+            out[name] = importlib.util.find_spec(name) is not None
+        except (ImportError, ValueError):
+            out[name] = False
+    return out
+
+
+def timed_run(nt, desc, frames):
+    """`desc` started, `frames` pushed into "src" at once, run to EOS →
+    (results, seconds from the first push to the last result)."""
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    pipe = nt.parse_launch(desc)
+    runner = nt.PipelineRunner(pipe).start()
+    try:
+        t0 = time.perf_counter()
+        for i, f in enumerate(frames):
+            pipe.get("src").push(TensorBuffer.of(f, pts=i))
+        pipe.get("src").end()
+        runner.wait(600)
+        wall = time.perf_counter() - t0
+    finally:
+        runner.stop()
+    return pipe.get("out").results, wall
+
+
+def flexible_leg(nt, torch, codec_tail: str):
+    """Phase 28's crop → invoke-dynamic MobileNetV2 (a FLEXIBLE frame of
+    one (1, 1001) logits tensor a region) into `codec_tail` → the
+    frames."""
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    regions = [np.array([[0, 0, 100, 80], [10, 10, 57, 57]], np.uint32),
+               np.array([[0, 0, 224, 224]], np.uint32),
+               np.array([[5, 5, 33, 120], [50, 50, 100, 80],
+                         [60, 60, 100, 80]], np.uint32)]
+    img = u8_frames((1, 224, 224, 3), len(regions), 540)
+    pipe = nt.parse_launch(
+        f"appsrc name=raw dims=3:224:224:1 types=uint8 ! {NORM_B} ! "
+        f"crop.sink_0 appsrc name=info dims=4:1 types=uint32 ! crop.sink_1 "
+        f"tensor_crop name=crop ! tensor_filter model=zoo://mobilenet_v2 "
+        f"invoke_dynamic=true custom=dynamic_spatial=true ! {codec_tail}")
+    runner = nt.PipelineRunner(pipe).start()
+    try:
+        for i, (f, reg) in enumerate(zip(img, regions)):
+            pipe.get("raw").push(TensorBuffer.of(f, pts=i))
+            pipe.get("info").push(TensorBuffer.of(reg, pts=i))
+        pipe.get("raw").end()
+        pipe.get("info").end()
+        runner.wait(600)
+    finally:
+        runner.stop()
+    return pipe.get("out").results
+
+
+def grpc_leg(nt, kernels, frames, res) -> int:
+    """B's logits from `tensor_sink_grpc server=true` to `tensor_src_grpc
+    server=false` in a second pipeline, or, where grpc is not installed,
+    the refusal that names the package. → normalize_u8's launches."""
+    from nnstreamer_tpu_torch.core.errors import PipelineError
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    try:
+        import grpc  # noqa: F401
+    except ImportError:
+        print("phase 54: grpc: not installed on this machine; the gRPC "
+              "leg is held to JAX on the CPU only")
+        el = nt.parse_launch("appsrc name=src dims=1001:1 types=float32 ! "
+                             "tensor_sink_grpc name=g port=0").get("g")
+        try:
+            el.start()
+            raised = ""
+        except PipelineError as e:
+            raised = str(e)
+        print(f"phase 54: starting tensor_sink_grpc raises: {raised}")
+        res["grpc"] = {"installed": False, "refusal": raised}
+        check("grpcio" in raised and "tensor_sink_grpc" in raised,
+              f"grpc refusal: {raised!r}")
+        return 0
+    send = nt.parse_launch(
+        f"{APPSRC} ! {NORM_B} ! {MODEL} ! tensor_sink_grpc name=g port=0 "
+        f"server=true queue_size={2 * INTEROP_FRAMES}")
+    sr = nt.PipelineRunner(send).start()
+    rr = None
+    try:
+        port = send.get("g").bound_port
+        recv = nt.parse_launch(
+            f"tensor_src_grpc name=in port={port} server=false dims=1001:1 "
+            f"types=float32 queue_size={2 * INTEROP_FRAMES} ! tensor_sink "
+            f"name=out")
+        rr = nt.PipelineRunner(recv).start()
+        check(_wait_for(lambda: send.get("g").client_count == 1, 30),
+              "grpc: the client never subscribed")
+        n0 = kernels.normalize_u8.launches
+        t0 = time.perf_counter()
+        for i, f in enumerate(frames):
+            send.get("src").push(TensorBuffer.of(f, pts=i))
+        send.get("src").end()
+        sr.wait(600)
+        launched = kernels.normalize_u8.launches - n0
+        sink = recv.get("out")
+        ok = _wait_for(lambda: len(sink.results) >= len(frames), 60)
+        wall = time.perf_counter() - t0
+        sr.stop()                   # ends the client's stream: its EOS
+        rr.wait(60)
+    finally:
+        sr.stop()
+        if rr is not None:
+            rr.stop()
+    check(ok, f"grpc: {len(sink.results)}/{len(frames)} frames arrived")
+    res["grpc"] = {"installed": True, "results": list(sink.results),
+                   "launches": launched, "seconds": wall}
+    return launched
+
+
+def interop_phase(nt, torch, card, record) -> int:
+    """Phase 54: B's logits through each interop codec (decoder, then
+    converter, in one pipeline), a FLEXIBLE frame through each, and over
+    gRPC between two pipelines. → normalize_u8's launches on the path."""
+    from nnstreamer_tpu_torch.backends import kernels
+    from nnstreamer_tpu_torch.runtime import sync
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    res = {"packages": interop_tools()}
+    record["interop"] = res
+    frames = u8_frames(POOL_SHAPE, INTEROP_FRAMES, 540)
+    head = f"{APPSRC} ! {NORM_B} ! {MODEL}"
+    run_desc(nt, f"{head} ! tensor_sink name=out", frames[:8])   # warm
+    direct, b_wall = timed_run(nt, f"{head} ! tensor_sink name=out", frames)
+    check(len(direct) == INTEROP_FRAMES, f"B direct: {len(direct)} frames")
+    ref = logits_of(direct)
+    b_fps = INTEROP_FRAMES / b_wall
+    flex_direct = flexible_leg(nt, torch, "tensor_sink name=out")
+    launched = 0
+    codecs = {}
+    for codec in INTEROP_CODECS:
+        desc = (f"{head} ! tensor_decoder name=dec mode={codec} ! "
+                f"tensor_converter mode=custom:{codec} ! tensor_sink name=out")
+        # traced: the decoder's read-back is the only forced sync a frame
+        pipe = nt.parse_launch(desc)
+        runner = nt.PipelineRunner(pipe, trace=True)
+        n0, f0 = kernels.normalize_u8.launches, sync.forced_sync_count()
+        runner.start()
+        try:
+            t0 = time.perf_counter()
+            for i, f in enumerate(frames):
+                pipe.get("src").push(TensorBuffer.of(f, pts=i))
+            pipe.get("src").end()
+            runner.wait(600)
+            wall = time.perf_counter() - t0
+        finally:
+            runner.stop()
+        n = kernels.normalize_u8.launches - n0
+        forced = sync.forced_sync_count() - f0
+        traced = runner.tracer.forced_syncs()
+        got = pipe.get("out").results
+        # a static stream's rank is not on the wire: (1, 1001) comes back
+        # as (1001,), the reference's canonical form (FLEXIBLE keeps it)
+        same = sum(
+            i < len(got) and got[i].pts == i
+            and np.asarray(got[i].tensors[0]).tobytes() == ref[i].tobytes()
+            and np.asarray(got[i].tensors[0]).shape == ref[i].shape[1:]
+            for i in range(INTEROP_FRAMES))
+        flex = flexible_leg(
+            nt, torch, f"tensor_decoder mode={codec} ! tensor_converter "
+                       f"mode=custom:{codec} ! tensor_sink name=out")
+        flex_ok = len(flex) == len(flex_direct) == 3 and all(
+            int(a.format) == int(b.format) == 1
+            and len(a.tensors) == len(b.tensors)
+            and all(np.asarray(p).shape == np.asarray(q).shape == (1, 1001)
+                    and np.asarray(p).tobytes() == np.asarray(q).tobytes()
+                    for p, q in zip(a.tensors, b.tensors))
+            for a, b in zip(flex, flex_direct))
+        enc_us, dec_us, frame_bytes = codec_host_us(codec)
+        codecs[codec] = {
+            "encode_us": enc_us, "decode_us": dec_us,
+            "frame_bytes": frame_bytes,
+            "arrived": len(got), "bit_for_bit": same, "launches": n,
+            "forced_syncs": forced, "traced_syncs": traced,
+            "seconds": wall,
+            "fps": INTEROP_FRAMES / wall, "flexible_ok": flex_ok,
+            "flexible_regions": [len(b.tensors) for b in flex]}
+        launched += n
+        print(f"phase 54: {codec}: {len(got)}/{INTEROP_FRAMES} frames, "
+              f"logits and pts bit for bit B direct's {same}/"
+              f"{INTEROP_FRAMES}; normalize_u8 "
+              f"+{n}; forced syncs {forced} (traced {traced}); "
+              f"{INTEROP_FRAMES / wall:.1f} frames/s first push to last "
+              f"result, traced (B direct {b_fps:.1f}); FLEXIBLE crop → "
+              f"invoke-dynamic frames through the GstTensorMetaInfo header: "
+              f"{[len(b.tensors) for b in flex]} (1, 1001) tensors, bit for "
+              f"bit {flex_ok}; host µs a frame: encode {enc_us:.1f}, decode "
+              f"{dec_us:.1f} ({frame_bytes} bytes) [{card}]")
+        check(len(got) == INTEROP_FRAMES and same == INTEROP_FRAMES
+              and n == INTEROP_FRAMES
+              and forced == INTEROP_FRAMES
+              and traced == {"dec": INTEROP_FRAMES} and flex_ok,
+              f"interop {codec}: {codecs[codec]}")
+    def attempt():
+        from torch.profiler import ProfilerActivity, profile
+
+        n0 = kernels.normalize_u8.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            open_capture(torch)
+            got = run_desc(nt, f"{head} ! tensor_decoder mode=protobuf ! "
+                               f"tensor_converter mode=custom:protobuf ! "
+                               f"tensor_sink name=out",
+                           frames[:INTEROP_PROFILED])
+            torch.cuda.synchronize()
+            close_capture(torch)
+        named = sum("nns_normalize_kernel" in e.name
+                    for e in kernel_events(prof))
+        n = kernels.normalize_u8.launches - n0
+        return {"normalize_u8": n}, {"normalize_u8": named}, (got, n)
+
+    (prof_got, prof_n), tries = profiled_agreement("phase 54", attempt)
+    launched += prof_n
+    res["profiled"] = {"frames": len(prof_got), "launches": prof_n,
+                       "profiled_run": tries}
+    print(f"phase 54: protobuf, {INTEROP_PROFILED} frames profiled: "
+          f"normalize_u8 {prof_n} launches by the wrapper and by name in "
+          f"the profiler (profiled run {tries}) [{card}]")
+    check(len(prof_got) == prof_n == INTEROP_PROFILED,
+          f"phase 54 profiled: {res['profiled']}")
+    # B direct again: the spread of a 64-frame run beside the codecs'
+    _, wall = timed_run(nt, f"{head} ! tensor_sink name=out", frames)
+    res["codecs"] = codecs
+    res["B_fps"] = [b_fps, INTEROP_FRAMES / wall]
+    print(f"phase 54: B direct before and after the codecs: "
+          f"{b_fps:.1f} / {INTEROP_FRAMES / wall:.1f} frames/s [{card}]")
+    n = grpc_leg(nt, kernels, frames, res)
+    g = res["grpc"]
+    if g["installed"]:
+        got = g.pop("results")
+        same = sum(np.asarray(b.tensors[0]).tobytes() == ref[i].tobytes()
+                   for i, b in enumerate(got[:INTEROP_FRAMES]))
+        g.update({"arrived": len(got), "in_order_bit_for_bit": same,
+                  "fps": INTEROP_FRAMES / g["seconds"]})
+        print(f"phase 54: gRPC tensor_sink_grpc server=true → "
+              f"tensor_src_grpc server=false: {len(got)}/{INTEROP_FRAMES} "
+              f"frames, in order and bit for bit {same}/{INTEROP_FRAMES}, "
+              f"normalize_u8 +{n}, {g['fps']:.1f} frames/s first push to "
+              f"last arrival (B direct {b_fps:.1f}) [{card}]")
+        check(len(got) == INTEROP_FRAMES and same == INTEROP_FRAMES
+              and n == INTEROP_FRAMES, f"grpc leg: {g}")
+    print(f"phase 54: packages found: {res['packages']}")
+    return launched + n
+
+
+def train_pipe(nt, model, opt, x_desc, y_dims, accel="", extra=""):
+    """x (through the normalize_u8 filter) and labels paired by tensor_mux
+    into tensor_trainer → the pipeline (appsrc "x", "y"; sink "out")."""
+    acc = f" accelerator={accel}" if accel else ""
+    return nt.parse_launch(
+        f"appsrc name=x {x_desc} ! {NORM_B}{acc} ! mux.sink_0 "
+        f"appsrc name=y dims={y_dims} types=int32 ! mux.sink_1 "
+        f"tensor_mux name=mux ! tensor_trainer name=tr model={model} "
+        f"optimizer={opt}{acc} {extra} ! tensor_sink name=out")
+
+
+def train_run(nt, pipe, xs, ys, closed=False, trace=False):
+    """Push (x, y) step by step (closed: each step's loss awaited before
+    the next push) → (losses, per-step seconds, runner)."""
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    runner = nt.PipelineRunner(pipe, trace=trace).start()
+    out = pipe.get("out")
+    steps = []
+    try:
+        for i, (x, y) in enumerate(zip(xs, ys)):
+            t0 = time.perf_counter()
+            pipe.get("x").push(TensorBuffer.of(x, pts=i))
+            pipe.get("y").push(TensorBuffer.of(y, pts=i))
+            if closed:
+                check(_wait_for(lambda: len(out.results) > i, 120),
+                      f"train step {i} never finished")
+                steps.append(time.perf_counter() - t0)
+        pipe.get("x").end()
+        pipe.get("y").end()
+        runner.wait(900)
+    finally:
+        runner.stop()
+    return [float(np.asarray(b.tensors[0])[0]) for b in out.results], \
+        steps, runner
+
+
+#: closed-loop steps under torch.profiler
+TRAIN_PROFILED = 3
+
+
+def train_profile(nt, torch, xdesc, x, y) -> dict:
+    """TRAIN_PROFILED closed-loop steps of phase 55's pipeline after a
+    warm-up step, under torch.profiler → kernels and kernel ms a step,
+    wall ms a step, the busy share, the top kernel names, and
+    normalize_u8's launches by its wrapper and by name (a capture of
+    ~7,000 kernels loses a record now and then, so these two are
+    reported, and the audio leg's smaller captures are held to agree)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    from nnstreamer_tpu_torch.backends import kernels
+
+    pipe = train_pipe(nt, TRAIN_MODEL, f"adam:{TRAIN_LR}", xdesc, len(y))
+    runner = nt.PipelineRunner(pipe).start()
+    out = pipe.get("out")
+
+    def step(i):
+        pipe.get("x").push(TensorBuffer.of(x, pts=i))
+        pipe.get("y").push(TensorBuffer.of(y, pts=i))
+        check(_wait_for(lambda: len(out.results) > i, 120),
+              f"profiled train step {i} never finished")
+
+    try:
+        step(0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            open_capture(torch)
+            n0 = kernels.normalize_u8.launches
+            t0 = time.perf_counter()
+            for i in range(1, 1 + TRAIN_PROFILED):
+                step(i)
+            wall = time.perf_counter() - t0
+            launched = kernels.normalize_u8.launches - n0
+            torch.cuda.synchronize()
+            close_capture(torch)
+        pipe.get("x").end()
+        pipe.get("y").end()
+        runner.wait(120)
+    finally:
+        runner.stop()
+    evs = kernel_events(prof)
+    by = Counter()
+    for e in evs:
+        by[e.name.split("<")[0].split("(")[0][:48]] += \
+            e.time_range.elapsed_us() / 1e3
+    kern = sum(by.values())
+    named = sum("nns_normalize_kernel" in e.name for e in evs)
+    return {"launches": launched, "named": named,
+            "kernels_per_step": len(evs) / TRAIN_PROFILED,
+            "kernel_ms_per_step": kern / TRAIN_PROFILED,
+            "wall_ms_per_step": 1e3 * wall / TRAIN_PROFILED,
+            "busy": kern / (1e3 * wall),
+            "top": [(k, round(v / TRAIN_PROFILED, 3))
+                    for k, v in by.most_common(5)]}
+
+
+def codec_host_us(codec) -> tuple:
+    """Host µs a call of one codec's encode and decode on B's (1, 1001)
+    f32 logits (the decoder's and the converter's own work)."""
+    import importlib
+
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+
+    mod = importlib.import_module(
+        f"nnstreamer_tpu_torch.interop.{codec}_codec")
+    enc, dec = getattr(mod, f"encode_{codec}"), getattr(mod, f"decode_{codec}")
+    buf = TensorBuffer.of(np.random.default_rng(541).standard_normal(
+        (1, 1001)).astype(np.float32))
+    frame = enc(buf)
+    t0 = time.perf_counter()
+    for _ in range(CODEC_HOST_CALLS):
+        enc(buf)
+    t1 = time.perf_counter()
+    for _ in range(CODEC_HOST_CALLS):
+        dec(frame)
+    t2 = time.perf_counter()
+    return (1e6 * (t1 - t0) / CODEC_HOST_CALLS,
+            1e6 * (t2 - t1) / CODEC_HOST_CALLS, len(frame))
+
+
+def param_list(trainer):
+    from nnstreamer_tpu_torch.parallel.train import leaves
+
+    return [t.detach().float().cpu() for t in leaves(trainer.params)]
+
+
+def step_agreement(got, want, prev) -> tuple:
+    """One sgd step's parameters on the card (`got`) against the CPU's
+    (`want`), both from `prev` (state dicts) → (the median over the leaves
+    that moved over 1e-2 of the largest movement, and the largest over
+    all, of |card − CPU| over the leaf's movement; the worst leaf)."""
+    moved = {k: float((want[k] - prev[k]).abs().max()) for k in want}
+    floor = 1e-2 * max(moved.values())
+    ratio = {k: max(0.0, float((got[k] - want[k]).abs().max())
+                    - 2 * float(prev[k].abs().max()) * 2.0 ** -23)
+             / max(moved[k], floor) for k in want}
+    worst = max(ratio, key=ratio.get)
+    return (float(np.median([ratio[k] for k in want if moved[k] > floor])),
+            ratio[worst], worst)
+
+
+def train_card_vs_cpu(nt, torch, card, x8, y8) -> tuple:
+    """Phase 55's batch-2 `sgd` arm, TF32 off: TRAIN_CPU_STEPS steps on
+    the card and on the CPU from the zoo's params, each writing a
+    checkpoint a step; then step 2 on the card from the CPU's step-1
+    checkpoint (teacher-forced). Holds the losses at the same params,
+    the free-running step 2's loss, and each step's parameters
+    (step_agreement) → (#1's launches on the card, the record)."""
+    import tempfile
+
+    from nnstreamer_tpu_torch.backends import kernels
+    from nnstreamer_tpu_torch.models import mobilenet_v2 as tm
+    from nnstreamer_tpu_torch.trainer.element import CHECKPOINT_FILE
+
+    x2, y2 = x8[:TRAIN_CPU_BATCH], y8[:TRAIN_CPU_BATCH]
+    xdesc2 = f"dims=3:224:224:{TRAIN_CPU_BATCH} types=uint8"
+    launched = 0
+
+    def arm(accel, ck, steps, resume=""):
+        nonlocal launched
+        extra = f"checkpoint_dir={ck} checkpoint_every=1"
+        if resume:
+            extra += f" resume_from={resume}"
+        pipe = train_pipe(nt, TRAIN_MODEL, TRAIN_CPU_OPT, xdesc2,
+                          TRAIN_CPU_BATCH, accel=accel, extra=extra)
+        n0 = kernels.normalize_u8.launches
+        ls, _, _ = train_run(nt, pipe, [x2] * steps, [y2] * steps)
+        if accel != "cpu":
+            launched += kernels.normalize_u8.launches - n0
+        return ls
+
+    def saved(ck, n):
+        blob = torch.load(Path(ck) / f"step_{n}" / CHECKPOINT_FILE,
+                          map_location="cpu", weights_only=True)
+        return {k: v.float() for k, v in blob["params"].items()}
+
+    card_arm, cpu_arm = TRAIN_ARMS
+    with NoTf32(torch), tempfile.TemporaryDirectory() as ck:
+        lh = arm(cpu_arm, f"{ck}/cpu", TRAIN_CPU_STEPS)
+        lc = arm(card_arm, f"{ck}/card", TRAIN_CPU_STEPS)
+        lt = arm(card_arm, f"{ck}/forced", 1, resume=f"{ck}/cpu/step_1")
+        start = {k: v.float() for k, v in tm.init_params(
+            width=TRAIN_WIDTH, num_classes=TRAIN_CLASSES).state_dict().items()}
+        steps = [step_agreement(saved(f"{ck}/card", 1), saved(f"{ck}/cpu", 1),
+                                start),
+                 step_agreement(saved(f"{ck}/forced", 2),
+                                saved(f"{ck}/cpu", 2), saved(f"{ck}/cpu", 1))]
+    same = [abs(lc[0] - lh[0]) / abs(lh[0]), abs(lt[0] - lh[1]) / abs(lh[1])]
+    free = abs(lc[1] - lh[1]) / abs(lh[1])
+    rec = {"optimizer": TRAIN_CPU_OPT, "card_losses": lc, "cpu_losses": lh,
+           "forced_step_2_loss": lt, "same_params_loss_rel": same,
+           "free_step_2_loss_rel": free,
+           "params": [{"median": m, "max": x, "worst_leaf": w}
+                      for m, x, w in steps]}
+    print(f"phase 55: batch {TRAIN_CPU_BATCH}, {TRAIN_CPU_OPT}, card vs CPU "
+          f"from the same params (TF32 off): losses {lc} vs {lh}, step 2 "
+          f"from the CPU's step 1 {lt}; rel at the same params "
+          f"{[f'{r:.3e}' for r in same]} (limit {TRAIN_SAME_LOSS_REL}), "
+          f"free-running step 2 {free:.3e} (limit {TRAIN_FREE_LOSS_REL}); "
+          f"parameters, |card − CPU| over each leaf's movement, step 1 and "
+          f"step 2 (teacher-forced): median "
+          f"{[f'{m:.3e}' for m, _, _ in steps]} (limit {TRAIN_CPU_MEDIAN}), "
+          f"largest {[f'{x:.3e}' for _, x, _ in steps]} at "
+          f"{[w for _, _, w in steps]} (limit {TRAIN_CPU_MAX}) [{card}]")
+    check(len(lc) == len(lh) == TRAIN_CPU_STEPS and len(lt) == 1
+          and max(same) <= TRAIN_SAME_LOSS_REL
+          and free <= TRAIN_FREE_LOSS_REL
+          and all(m <= TRAIN_CPU_MEDIAN and x <= TRAIN_CPU_MAX
+                  for m, x, _ in steps),
+          f"card vs CPU training: {rec}")
+    return launched, rec
+
+
+def train_phase(nt, torch, card, record) -> int:
+    """Phase 55: MobileNetV2 1.0 trained on the card behind normalize_u8
+    (x and labels paired by tensor_mux): 8 steps on one seeded batch, the
+    loss falls, #1 once a step, one forced sync a step at the trainer,
+    checkpoints at 4 and 8; steps 5-8 again from the step-4 checkpoint,
+    bit for bit (cuDNN deterministic); batch 2 on the card and on the CPU
+    from the same params, TF32 off; the closed-loop step time; then the
+    audio classifier with sgd on int16 windows. → #1's launches."""
+    import tempfile
+
+    from nnstreamer_tpu_torch.backends import kernels
+
+    res = {}
+    record["train"] = res
+    rng = np.random.default_rng(550)
+    x8 = rng.integers(0, 256, (TRAIN_BATCH, 224, 224, 3), np.uint8)
+    y8 = rng.integers(0, 1001, (TRAIN_BATCH,)).astype(np.int32)
+    xdesc = f"dims=3:224:224:{TRAIN_BATCH} types=uint8"
+    launched = 0
+    cudnn = torch.backends.cudnn
+    prev = (cudnn.deterministic, cudnn.benchmark)
+    with tempfile.TemporaryDirectory() as ck:
+        cudnn.deterministic, cudnn.benchmark = True, False
+        try:
+            pipe = train_pipe(nt, TRAIN_MODEL, f"adam:{TRAIN_LR}", xdesc,
+                              TRAIN_BATCH, extra=f"checkpoint_dir={ck} "
+                              f"checkpoint_every={TRAIN_CKPT_EVERY}")
+            n0 = kernels.normalize_u8.launches
+            losses, _, runner = train_run(nt, pipe, [x8] * TRAIN_STEPS,
+                                          [y8] * TRAIN_STEPS, trace=True)
+            n = kernels.normalize_u8.launches - n0
+            launched += n
+            tr = pipe.get("tr")
+            syncs = runner.tracer.forced_syncs()
+            full_params = param_list(tr)
+            saved = sorted(p.name for p in Path(ck).iterdir())
+            resumed = train_pipe(
+                nt, TRAIN_MODEL, f"adam:{TRAIN_LR}", xdesc, TRAIN_BATCH,
+                extra=f"resume_from={ck}/step_{TRAIN_CKPT_EVERY}")
+            n0 = kernels.normalize_u8.launches
+            tail, _, _ = train_run(nt, resumed,
+                                   [x8] * (TRAIN_STEPS - TRAIN_CKPT_EVERY),
+                                   [y8] * (TRAIN_STEPS - TRAIN_CKPT_EVERY))
+            launched += kernels.normalize_u8.launches - n0
+            rtr = resumed.get("tr")
+            res_params = param_list(rtr)
+            resume_same = (tail == losses[TRAIN_CKPT_EVERY:] and all(
+                torch.equal(a, b) for a, b in zip(full_params, res_params)))
+            resume_err = max(float((a - b).abs().max())
+                             for a, b in zip(full_params, res_params))
+        finally:
+            cudnn.deterministic, cudnn.benchmark = prev
+    res.update({"losses": losses, "launches": n, "forced_syncs": syncs,
+                "checkpoints": saved, "resumed_losses": tail,
+                "resumed_steps": rtr.steps, "resume_bitwise": resume_same,
+                "resume_max_abs_param_diff": resume_err})
+    print(f"phase 55: {TRAIN_MODEL} adam:{TRAIN_LR}, f32, batch "
+          f"{TRAIN_BATCH} × 224² uint8 behind normalize_u8, {TRAIN_STEPS} "
+          f"steps on one seeded batch: losses "
+          f"{[round(l, 4) for l in losses]}; normalize_u8 launches {n}; "
+          f"forced syncs {syncs}; checkpoints {saved} [{card}]")
+    print(f"phase 55: resume_from step_{TRAIN_CKPT_EVERY}: steps "
+          f"{TRAIN_CKPT_EVERY + 1}-{TRAIN_STEPS} losses "
+          f"{[round(l, 4) for l in tail]}, = the uninterrupted run's and "
+          f"every parameter bit for bit: {resume_same} (max |diff| "
+          f"{resume_err}; cudnn.deterministic) [{card}]")
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
+          and losses[-1] < losses[0] and n == TRAIN_STEPS
+          and syncs == {"tr": TRAIN_STEPS} and tr.steps == TRAIN_STEPS
+          and saved == [f"step_{TRAIN_CKPT_EVERY}", f"step_{TRAIN_STEPS}"],
+          f"training: {res}")
+    check(resume_same and rtr.steps == TRAIN_STEPS, f"resume: {res}")
+
+    # batch 2 on the card and on the CPU, from the same params, with sgd
+    n, res["cpu"] = train_card_vs_cpu(nt, torch, card, x8, y8)
+    launched += n
+
+    # closed loop: step ms and images/s
+    pipe = train_pipe(nt, TRAIN_MODEL, f"adam:{TRAIN_LR}", xdesc, TRAIN_BATCH)
+    n0 = kernels.normalize_u8.launches
+    _, steps, _ = train_run(nt, pipe, [x8] * TRAIN_TIMED,
+                            [y8] * TRAIN_TIMED, closed=True)
+    launched += kernels.normalize_u8.launches - n0
+    ms = sorted(1e3 * s for s in steps[TRAIN_WARM:])
+    p50 = float(np.percentile(ms, 50))
+    ips = TRAIN_BATCH * len(ms) / (sum(ms) / 1e3)
+    res["timing"] = {"step_ms": ms, "step_ms_p50": p50, "images_per_s": ips,
+                     "tf32_matmul": bool(torch.backends.cuda.matmul.allow_tf32),
+                     "tf32_cudnn": bool(cudnn.allow_tf32)}
+    print(f"phase 55: closed loop, {len(ms)} steps after {TRAIN_WARM} "
+          f"warm-up (push x and labels → loss on the host): step ms p50 "
+          f"{p50:.3f}, {ips:.1f} images/s (TF32 matmul "
+          f"{res['timing']['tf32_matmul']}, cuDNN "
+          f"{res['timing']['tf32_cudnn']}) [{card}]")
+    pr = res["profile"] = train_profile(nt, torch, xdesc, x8, y8)
+    launched += pr["launches"]
+    print(f"phase 55: {TRAIN_PROFILED} steps profiled (closed loop): "
+          f"{pr['kernels_per_step']:.0f} kernels a step, kernel ms a step "
+          f"{pr['kernel_ms_per_step']:.3f} of {pr['wall_ms_per_step']:.3f} "
+          f"wall (busy {pr['busy']:.3f}); by name: {pr['top']}; "
+          f"normalize_u8 launches by the wrapper {pr['launches']}, by name "
+          f"{pr['named']} [{card}]")
+    check(pr["launches"] == TRAIN_PROFILED, f"profiled steps: {pr}")
+
+    # the audio leg: int16 windows behind normalize_u8, sgd
+    xa = rng.normal(0, 3000, (TRAIN_BATCH, AUDIO_WINDOW, 1)).clip(
+        -32768, 32767).astype(np.int16)
+    ya = rng.integers(0, 12, (TRAIN_BATCH,)).astype(np.int32)
+    def attempt():
+        from torch.profiler import ProfilerActivity, profile
+
+        pipe = train_pipe(nt, "zoo://audio_classifier?num_classes=12",
+                          "sgd:0.05", f"dims=1:{AUDIO_WINDOW}:"
+                          f"{TRAIN_BATCH} types=int16", TRAIN_BATCH)
+        n0 = kernels.normalize_u8.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            open_capture(torch)
+            losses, _, _ = train_run(nt, pipe, [xa] * TRAIN_STEPS,
+                                     [ya] * TRAIN_STEPS)
+            torch.cuda.synchronize()
+            close_capture(torch)
+        n = kernels.normalize_u8.launches - n0
+        named = sum("nns_normalize_kernel" in e.name
+                    for e in kernel_events(prof))
+        return {"normalize_u8": n}, {"normalize_u8": named}, (losses, n)
+
+    (al, an), tries = profiled_agreement("phase 55: audio", attempt)
+    launched += an
+    res["audio"] = {"losses": al, "launches": an, "profiled_run": tries}
+    print(f"phase 55: zoo://audio_classifier?num_classes=12 sgd:0.05 on "
+          f"({TRAIN_BATCH}, {AUDIO_WINDOW}, 1) int16 windows behind "
+          f"normalize_u8: losses {[round(l, 4) for l in al]}, normalize_u8 "
+          f"launches {an} by the wrapper and by name in the profiler "
+          f"(profiled run {tries}) [{card}]")
+    check(len(al) == TRAIN_STEPS and all(np.isfinite(al)) and al[-1] < al[0]
+          and an == TRAIN_STEPS, f"audio training: {res['audio']}")
+    return launched
+
+
+def interop_train_phases(nt, torch, card, record, phases,
+                         which=("interop", "train")) -> dict:
+    """Phases 54-55. → normalize_u8's launches on each path."""
+    out = {}
+    if "interop" in which:
+        out["interop"] = interop_phase(nt, torch, card, record)
+        phases.done("54 (B's logits through protobuf, flatbuf, flexbuf and "
+                    "gRPC)")
+    if "train" in which:
+        out["train"] = train_phase(nt, torch, card, record)
+        phases.done("55 (MobileNetV2 1.0 and the audio classifier trained "
+                    "behind normalize_u8)")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -10141,6 +10864,14 @@ def main(argv=None) -> int:
              "loop by the traffic subcommand; B's logits over the broker: "
              "MQTT, the edge protocol, edgesink/edgesrc)")
     ap.add_argument(
+        "--interop", action="store_true",
+        help="run phases 1, 2 and 54 only (B's logits through the "
+             "protobuf, flatbuf and flexbuf codecs and over gRPC)")
+    ap.add_argument(
+        "--train", action="store_true",
+        help="run phases 1, 2 and 55 only (MobileNetV2 1.0 and the audio "
+             "classifier trained behind normalize_u8)")
+    ap.add_argument(
         "--slice4", action="store_true",
         help="run phases 1, 2 and 20-23 only (the ring step, ring "
              "attention and sharded serving), e.g. on a four-card machine, "
@@ -10173,6 +10904,8 @@ def main(argv=None) -> int:
           f"{sh(nvcc, '--version').splitlines()[-1]}, device "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     print(f"phase 1: card: {card}")
+    print(f"phase 1: packages JAX's interop and trainer import, found "
+          f"here: {interop_tools()}")
     record["card"] = card
     phases.done("1 (environment)")
 
@@ -10234,6 +10967,11 @@ def main(argv=None) -> int:
     elif args.traffic:
         traffic_phases(nt, torch, card, record, phases)
         entries = []
+    elif args.interop or args.train:
+        interop_train_phases(
+            nt, torch, card, record, phases,
+            which=("interop",) * args.interop + ("train",) * args.train)
+        entries = []
     else:
         # -- 3-6. normalize_u8, pipelines A and B ------------------------
         entries = slice1_phases(nt, torch, card, record, phases)
@@ -10271,6 +11009,9 @@ def main(argv=None) -> int:
         # -- 52-53. items 4h, 5a: #1 in the flooded pool's child; B's
         # senders across the broker --------------------------------------
         extra.update(traffic_phases(nt, torch, card, record, phases))
+        # -- 54-55. items 5b-5c: B into each codec and over gRPC; x into
+        # the trainer -----------------------------------------------------
+        extra.update(interop_train_phases(nt, torch, card, record, phases))
         norm = next(e for e in entries if e["name"] == "normalize_u8")
         norm["launches_by_path"] = {"B": norm["launches"], **extra}
         norm["launches"] += sum(extra.values())
@@ -10295,6 +11036,9 @@ def main(argv=None) -> int:
             "chip_smoke_placement.json" if args.placement else
             "chip_smoke_mesh.json" if args.mesh else
             "chip_smoke_traffic.json" if args.traffic else
+            "chip_smoke_interop.json" if args.interop and not args.train else
+            "chip_smoke_train.json" if args.train and not args.interop else
+            "chip_smoke_interop_train.json" if args.interop else
             "chip_smoke.json")
     (out_dir / name).write_text(json.dumps(record, indent=1))
     print(card)

@@ -34,6 +34,7 @@ class PluginKind(enum.Enum):
     FILTER = "filter"        # model-execution backends
     DECODER = "decoder"      # tensor→media decoders
     CONVERTER = "converter"  # media→tensor converters
+    TRAINER = "trainer"      # the reference's reserved trainer slot
 
 
 class Registry:

@@ -24,6 +24,12 @@ from nnstreamer_tpu_torch.elements import script_codec, wire_codec  # noqa: F401
 from nnstreamer_tpu_torch.edge import pubsub as _pubsub  # noqa: F401
 from nnstreamer_tpu_torch.edge import query as _query  # noqa: F401
 from nnstreamer_tpu_torch.elements import mqtt  # noqa: F401  (mqttsink, mqttsrc)
+# the schema'd interop codecs (decoders and converters "protobuf",
+# "flatbuf", "flexbuf") and tensor_src_grpc / tensor_sink_grpc; none
+# imports a package the port does not need, so they always register
+from nnstreamer_tpu_torch.interop import (  # noqa: F401
+    flatbuf_codec, flexbuf_codec, grpc_elements, protobuf_codec)
+from nnstreamer_tpu_torch.trainer import element as _trainer  # noqa: F401
 from nnstreamer_tpu_torch.elements.sinks import FakeSink, FileSink, TensorSink
 from nnstreamer_tpu_torch.elements.sources import (
     AppSrc, AudioTestSrc, FileSrc, TensorSrc, VideoTestSrc)

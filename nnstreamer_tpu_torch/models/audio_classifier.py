@@ -18,7 +18,8 @@ Pipeline shape (tests/test_streaming_models.py):
     tensor_filter model=zoo://audio_classifier?window=<window> !
     tensor_sink
 
-`loss_fn` (training through tensor_trainer) is not ported.
+`loss_fn` trains it through tensor_trainer: the mean cross-entropy of
+one-hot labels against the log-softmax, as JAX's.
 """
 
 from __future__ import annotations
@@ -37,9 +38,11 @@ STRIDE = 4
 
 
 def init_params(*, channels: int = 32, n_blocks: int = 3,
-                num_classes: int = 12, seed: int = 0) -> Dict[str, Any]:
+                num_classes: int = 12, seed: int = 0,
+                **_) -> Dict[str, Any]:
     """Random f32 params from a seeded torch.Generator (xavier uniform on
-    the JAX shapes' fans, zero biases)."""
+    the JAX shapes' fans, zero biases). `**_` absorbs pass-through kwargs
+    (tensor_trainer's width): the conv stack is window-agnostic."""
     gen = torch.Generator().manual_seed(seed)
     blocks = []
     cin = 1
@@ -70,6 +73,14 @@ def apply(params, x: torch.Tensor, *, dtype: torch.dtype = torch.float32):
     pooled = h.mean(dim=2)                               # (B, C)
     return (pooled @ params["head_w"].to(dtype)
             + params["head_b"].to(dtype)).float()
+
+
+def loss_fn(params, x: torch.Tensor, y: torch.Tensor, *,
+            dtype: torch.dtype = torch.float32, **_):
+    """Mean cross-entropy: one-hot labels times the log-softmax."""
+    logits = apply(params, x, dtype=dtype)
+    onehot = F.one_hot(y.long(), logits.shape[-1]).to(logits.dtype)
+    return -(onehot * F.log_softmax(logits, dim=-1)).sum(dim=-1).mean()
 
 
 @register_model("audio_classifier")

@@ -10,6 +10,10 @@ from them. Each keeps the JAX package's arithmetic (models/layers.py):
 - batch_norm (inference) is ``(x - mean) * (rsqrt(var + eps) * scale) +
   bias`` with eps 1e-3; the factor is computed in f32 and every operand is
   cast to the activation's dtype, as the JAX layer does.
+- batch_norm_train (training) takes mean and biased var of the batch
+  over N, H and W in f32 in their place, and writes no running
+  statistics back: JAX's `conv_bn` drops the batch statistics, so the
+  stored mean and var never change under training.
 - relu6 is a clip to [0, 6].
 - Params stay f32; the forward casts weights and input to the compute
   dtype at each op.
@@ -58,6 +62,17 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             + bias.to(dt).view(shape))
 
 
+def batch_norm_train(x: torch.Tensor, scale: torch.Tensor,
+                     bias: torch.Tensor, eps: float = BN_EPS) -> torch.Tensor:
+    """Train-mode BN over the channel dim (1) of an NCHW tensor: the
+    batch's f32 mean and biased variance over N, H and W (``jnp.mean``,
+    ``jnp.var``) stand in for the stored statistics."""
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    var = (xf - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
+    return batch_norm(x, scale, bias, mean, var, eps)
+
+
 def relu6(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, 0.0, 6.0)
 
@@ -84,8 +99,10 @@ def xavier_uniform(shape: Tuple[int, int],
 
 
 class ConvBN(nn.Module):
-    """Conv (SAME) + inference BN (+ relu6) — the MobileNet building unit.
-    ``groups == cin == cout`` is depthwise (weights (C, 1, kh, kw))."""
+    """Conv (SAME) + BN (+ relu6) — the MobileNet building unit.
+    ``groups == cin == cout`` is depthwise (weights (C, 1, kh, kw)).
+    ``forward(x, train=True)`` normalizes by the batch's statistics
+    (batch_norm_train) and leaves `mean` and `var` as they are."""
 
     def __init__(self, cin: int, cout: int, k: int, *, stride: int = 1,
                  groups: int = 1, act: bool = True,
@@ -99,10 +116,13 @@ class ConvBN(nn.Module):
         self.register_buffer("mean", torch.zeros(cout))
         self.register_buffer("var", torch.ones(cout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         y = conv2d(x, self.weight, stride=self.stride, groups=self.groups,
                    dtype=x.dtype)
-        y = batch_norm(y, self.scale, self.bias, self.mean, self.var)
+        if train:
+            y = batch_norm_train(y, self.scale, self.bias)
+        else:
+            y = batch_norm(y, self.scale, self.bias, self.mean, self.var)
         return relu6(y) if self.act else y
 
 

@@ -5,6 +5,11 @@ params with bf16 compute by default, 1001 classes (background +
 ImageNet) — the JAX package's models/mobilenet_v2.py in PyTorch. The
 public layout stays the JAX one: input NHWC, logits (N, classes) f32.
 Inside, the module runs NCHW.
+
+Training (tensor_trainer): `init_params` builds the module in f32 as
+the trainer's zoo:// resolution needs it, and `loss_fn` is the mean
+softmax cross-entropy of the train-mode forward (BN on batch statistics,
+models/layers.batch_norm_train), as the JAX module's.
 """
 
 from __future__ import annotations
@@ -12,6 +17,7 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from nnstreamer_tpu_torch.models import layers as L
@@ -52,16 +58,19 @@ class InvertedResidual(nn.Module):
         self.project = L.ConvBN(hidden, cout, 1, act=False,
                                 generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.expand(x) if self.expand is not None else x
-        h = self.project(self.depthwise(h))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        h = self.expand(x, train) if self.expand is not None else x
+        h = self.project(self.depthwise(h, train), train)
         return h + x if self.residual else h
 
 
 class MobileNetV2(nn.Module):
     """``forward(x)``: x NHWC float, normalized to roughly [-1, 1] →
     logits (N, num_classes) in f32, computed in `dtype`;
-    ``forward(x, features_only=True)`` → the `features` maps, NHWC."""
+    ``forward(x, features_only=True)`` → the `features` maps, NHWC;
+    ``forward(x, train=True)`` → logits with BN on the batch's statistics
+    (the stored mean and var untouched), computed in ``dtype=`` when
+    given."""
 
     def __init__(self, width: float = 1.0, num_classes: int = 1001,
                  dtype: torch.dtype = torch.bfloat16,
@@ -102,15 +111,32 @@ class MobileNetV2(nn.Module):
         feats.append(self.head(h))
         return feats
 
-    def forward(self, x: torch.Tensor, features_only: bool = False):
-        h = x.to(self.dtype).permute(0, 3, 1, 2)   # NHWC → NCHW
+    def forward(self, x: torch.Tensor, features_only: bool = False,
+                train: bool = False, dtype: Optional[torch.dtype] = None):
+        h = x.to(dtype or self.dtype).permute(0, 3, 1, 2)   # NHWC → NCHW
         if features_only:
             return [f.permute(0, 2, 3, 1) for f in self.features(h)]
-        h = self.stem(h)
+        h = self.stem(h, train)
         for block in self.blocks:
-            h = block(h)
-        h = L.global_avg_pool(self.head(h))
+            h = block(h, train)
+        h = L.global_avg_pool(self.head(h, train))
         return self.classifier(h).to(torch.float32)
+
+
+def init_params(*, width: float = 1.0, num_classes: int = 1001,
+                seed: int = 0) -> MobileNetV2:
+    """A trainable f32 MobileNetV2 from a seeded torch.Generator (the
+    port's counterpart of the JAX param tree)."""
+    gen = torch.Generator().manual_seed(seed)
+    return MobileNetV2(width, num_classes, torch.float32, generator=gen)
+
+
+def loss_fn(params: MobileNetV2, x: torch.Tensor, labels: torch.Tensor, *,
+            width: float = 1.0, dtype: torch.dtype = torch.bfloat16):
+    """Softmax cross-entropy of the train-mode forward, the batch's mean
+    (`width` is the module's own; kept for the JAX signature)."""
+    logp = F.log_softmax(params(x, train=True, dtype=dtype), dim=-1)
+    return -logp.gather(1, labels.long()[:, None])[:, 0].mean()
 
 
 @register_model("mobilenet_v2")

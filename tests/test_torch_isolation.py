@@ -91,6 +91,10 @@ import nnstreamer_tpu_torch.serving.sharding
 import nnstreamer_tpu_torch.runtime.devprof
 import nnstreamer_tpu_torch.runtime.flightrec
 import nnstreamer_tpu_torch.parallel.mesh
+import nnstreamer_tpu_torch.elements
+import nnstreamer_tpu_torch.interop.grpc_elements
+import nnstreamer_tpu_torch.trainer.element
+import nnstreamer_tpu_torch.parallel.train
 bad = [m for m in sys.modules if m in ("jax", "nnstreamer_tpu")
        or m.startswith(("jax.", "nnstreamer_tpu."))]
 assert not bad, bad
@@ -279,6 +283,24 @@ TRAFFIC_MQTT_MODULES = (
 
 @pytest.mark.parametrize("rel", TRAFFIC_MQTT_MODULES)
 def test_scan_covers_the_traffic_and_mqtt_modules(rel):
+    path = PORT / rel
+    assert path in sorted(PORT.rglob("*.py"))
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+
+
+#: the interop codecs and gRPC elements, the trainer and the one-device
+#: train step: the scan above must reach each
+INTEROP_TRAINER_MODULES = (
+    "interop/__init__.py", "interop/gst_meta.py", "interop/_codec_base.py",
+    "interop/tensors_proto.py", "interop/protobuf_codec.py",
+    "interop/flatbuf_build.py", "interop/flatbuf_codec.py",
+    "interop/flexbuf_write.py", "interop/flexbuf_codec.py",
+    "interop/grpc_elements.py", "trainer/__init__.py",
+    "trainer/element.py", "parallel/train.py")
+
+
+@pytest.mark.parametrize("rel", INTEROP_TRAINER_MODULES)
+def test_scan_covers_the_interop_and_trainer_modules(rel):
     path = PORT / rel
     assert path in sorted(PORT.rglob("*.py"))
     assert not [m for m in _imported_modules(path) if _forbidden(m)]

@@ -477,10 +477,14 @@ def test_serversrc_refuses_wildcard_advertise(broker):
 
 
 def test_registry_probe():
-    """The query, pub/sub and MQTT elements are the port's now; three
-    element names stay JAX-only, and the filter has every property of
-    JAX's (canary_seed, devices and shards among them)."""
+    """Every element, decoder and converter of the JAX package is the
+    port's now (the gRPC elements, the interop codecs and tensor_trainer
+    came last), both have the trainer plugin kind, and the filter has
+    every property of JAX's (canary_seed, devices and shards among
+    them)."""
+    import nnstreamer_tpu.decoders  # noqa: F401
     import nnstreamer_tpu.elements  # noqa: F401  (registers built-ins)
+    import nnstreamer_tpu_torch.decoders  # noqa: F401
     import nnstreamer_tpu_torch.elements  # noqa: F401
     from nnstreamer_tpu.core.registry import PluginKind as JKind
     from nnstreamer_tpu.core.registry import registry as jreg
@@ -495,10 +499,17 @@ def test_registry_probe():
     theirs = builtins(jreg, JKind.ELEMENT, "nnstreamer_tpu")
     assert {"tensor_query_client", "tensor_query_serversrc",
             "tensor_query_serversink", "edgesink", "edgesrc", "mqttsink",
-            "mqttsrc"} <= ours
-    assert theirs - ours == {"tensor_sink_grpc", "tensor_src_grpc",
-                             "tensor_trainer"}
+            "mqttsrc", "tensor_sink_grpc", "tensor_src_grpc",
+            "tensor_trainer"} <= ours
+    assert theirs - ours == set()
     assert ours - theirs == set()
+    for kind in ("DECODER", "CONVERTER"):
+        ours_k = builtins(registry, PluginKind[kind], "nnstreamer_tpu_torch")
+        theirs_k = builtins(jreg, JKind[kind], "nnstreamer_tpu")
+        assert {"protobuf", "flatbuf", "flexbuf"} <= ours_k
+        assert theirs_k - ours_k == set(), kind
+    assert PluginKind.TRAINER.value == JKind.TRAINER.value == "trainer"
+    assert {k.value for k in JKind} == {k.value for k in PluginKind}
     from nnstreamer_tpu.elements import TensorFilter as JFilter
     from nnstreamer_tpu_torch.elements import TensorFilter as TFilter
 

@@ -9,7 +9,8 @@ batch=N bundle against N batch-1 calls; then the reference's LSTM repo
 loop (tests/test_streaming_models.py:36-73) and the keyword-spotting
 audio pipeline (:286-301) run in both packages on the same weights and
 inputs, the port's outputs held to JAX's. `audio_classifier.loss_fn`
-(training, tensor_trainer) is not ported.
+(training through tensor_trainer) is held to JAX's in
+tests/test_torch_trainer.py.
 """
 
 import jax
