@@ -16,6 +16,7 @@
     python3 chip_smoke.py --traffic   # phases 1, 2, 52 and 53 only
     python3 chip_smoke.py --interop   # phases 1, 2 and 54 only
     python3 chip_smoke.py --train     # phases 1, 2 and 55 only
+    python3 chip_smoke.py --parallel  # phases 1, 2, 56 and 57 only
 
 Needs one CUDA card, nvcc, g++ (phase 42) and the repository checkout
 around this file;
@@ -230,7 +231,7 @@ phases there). Phases:
    exactly those the rule predicts;
 29. compiled windows (one CUDA-graph replay a window) on A, B, P
    (PoseNet 257², the clamp fused) and D (SSD, device=true) at full
-   width in bf16: 96 frames pushed at once, compiled_loop off and on:
+   width in bf16: 64 frames pushed at once, compiled_loop off and on:
    outputs bit for bit, frame by frame (and B in f32, TF32 off), the
    windows, frames in windows, bails by cause (no "error" on A, B, P),
    windows by K (within {2, 4, 8}), graphs captured, seconds per
@@ -294,7 +295,7 @@ phases there). Phases:
    at once) bit for bit their per-frame outputs, S's host stage run before
    each window's copy, once a frame;
 35. every cell of phase 34 closed-loop, all live at once, frame by frame in
-   turns (latency p50/p99); G, M and S in bursts of 200 frames in turns a b
+   turns (latency p50/p99); G, M and S in bursts of 64 frames in turns a b
    b a, compiled windows off, then on (frames/s, latency under the burst,
    CUDA kernels and kernel time a frame from a profiled burst, the card's
    busy share);
@@ -321,7 +322,7 @@ phases there). Phases:
    bytes;
 37. T, G and F (one network from a .pt, a .pb and a .tflite) with TX and LT
    closed-loop, all live at once, frame by frame in turns (latency p50/p99);
-   T, G and F in bursts of 200 frames in turns a b b a, compiled windows
+   T, G and F in bursts of 64 frames in turns a b b a, compiled windows
    off, then on (frames/s, latency under the burst, CUDA kernels and kernel
    time a frame, the card's busy share); host ms a call of T's code walk,
    of its recorded call list and of G's bound steps.
@@ -573,7 +574,42 @@ phases there). Phases:
    time, normalize_u8's launches by the wrapper and by name; then
    `zoo://audio_classifier?num_classes=12 optimizer=sgd:0.05` on (8,
    1024, 1) int16 windows behind normalize_u8, profiled: the loss falls,
-   8 launches by the wrapper = by name (profiled_agreement).
+   8 launches by the wrapper = by name (profiled_agreement);
+56. Queue 1 item 6, on 4 logical devices of the card ([parallel]
+   virtual_devices=4, restored after): MD2, `BatchedQueryServer(
+   "zoo://mobilenet_v2", bucket=8, pre=normalize_u8, mesh=dp 2)`, 4
+   clients x 16 uint8 224² frames, f32 with TF32 off, against the
+   one-card server of bucket 4 (the per-shard batch): replies bit for bit
+   where the batches match, else within 1e-5 of max |logit| (the count
+   of bit-equal replies printed), in pts order; batches per device equal,
+   normalize_u8 once a shard batch, wrapper = profiler; then MD2 and the
+   one-card Q2 (bucket 8) in bf16, in turns a b b a: frames/s and p50.
+   TRS, `appsrc x ! normalize_u8` and labels through tensor_mux into
+   `tensor_trainer model=zoo://mobilenet_v2 mesh=dp=2,tp=2` (1001
+   classes, f32, TF32 off, batch 8, sgd:0.01) against the one-device
+   trainer on the card: step 1 from the zoo's params, step 2 from the
+   mesh's step-1 checkpoint (teacher-forced): losses at the same params
+   within 1e-5 relative, parameters over each leaf's movement median
+   within 5e-2 and largest within 3e-1; a control with per-shard BN
+   statistics must miss the median; placed bytes by logical device, the
+   card's peak memory_allocated, closed-loop step ms p50 of both arms in
+   turns a b b a;
+57. PP, 4 residual stages (the transformer's rmsnorm and _mlp at d_model
+   1024, d_ff 4096) on 4 logical devices, 8 microbatches of (2, 2048,
+   1024) f32 (TF32 off): bit for bit reference_pipeline (else within
+   1e-5 of max |.|), ms a forward pipelined and serial; MOE, E 8 over ep
+   4, 16,384 tokens of d 1024 (hidden 4096), f32: ample capacity within
+   1e-5 of max |reference_moe|; at capacity factor 1.25 the dropped
+   tokens are `_route`'s per shard, their rows exactly zero, every kept
+   row within 1e-5; bf16 ms a layer; DRY, `dryrun_multichip(4)` with
+   the ring's block at 128 (flash_block_update runs every ring step):
+   the ring within 1e-5 of max |ref| + 1e-6, the composed dp x tp x sp
+   forward within 5e-4, flash_block_update's launches by the wrapper =
+   by name; MH2, two processes of
+   `nnstreamer_tpu_torch/tools/multihost_check.py` (gloo: NCCL refuses
+   two ranks on one card), 2 logical devices each, a dp 4 global mesh:
+   the cross-process sum exact, one train step within 1e-5 of the
+   serial numpy step, one loss in both.
 
 Each kernel's timing phase (6, 10, 15, 16, 23) also prints its time per
 call from Python, back to back — the host's time (the launch path's own
@@ -595,7 +631,7 @@ chip_smoke_serving.json with --serving, chip_smoke_pool.json with
 --pool, chip_smoke_placement.json with --placement,
 chip_smoke_mesh.json with --mesh, chip_smoke_traffic.json with
 --traffic, chip_smoke_interop.json with --interop, chip_smoke_train.json
-with --train).
+with --train, chip_smoke_parallel.json with --parallel).
 """
 
 from __future__ import annotations
@@ -3830,9 +3866,9 @@ def tracer_hook_us(n: int = 20000) -> float:
     return (time.perf_counter() - t0) / (5 * n) * 1e6
 
 
-#: phase 26: closed-loop frames a arm (after RT_WARMUP) and the frames of
-#: each of its two bursts an arm
-RT_LAT, RT_WARMUP, RT_BURST = 64, 10, 64
+#: phase 26: closed-loop frames a arm (after RT_WARMUP; 64 until phases
+#: 56-57 came) and the frames of each of its two bursts an arm
+RT_LAT, RT_WARMUP, RT_BURST = 32, 10, 64
 
 
 def runtime_timings(nt, torch, card, record) -> None:
@@ -3920,9 +3956,9 @@ BATCH_MAX = 8
 BATCH_LATENCY_MS = 20
 BATCH = (f"tensor_batch name=batch max-batch={BATCH_MAX} "
          f"max-latency-ms={BATCH_LATENCY_MS}")
-#: frames a burst in phase 27's timing arms, and bursts an arm
-BURST, BURSTS = 200, 1
-#: phase 27's bursts (phases 35 and 37 keep BURST)
+#: bursts an arm in the timing arms of burst_arms
+BURSTS = 1
+#: phase 27's bursts
 BATCH_BURST = 64
 #: frames of burst_arms' profiled burst an arm (48 until phases 50-51
 #: came): its kernels and kernel time a frame are means over identical
@@ -4347,10 +4383,10 @@ def batching_phases(nt, torch, card, record, phases) -> None:
 # -- Queue 1 item 1e: compiled windows (CUDA-graph replays) -----------------
 
 #: phase 29: frames pushed at once a pipeline and arm (200 until phases
-#: 50-51 came), f32 B's, and P's profiled run; its timing bursts: 64
-#: frames (200, phase 27's BURST, until phases 43-44 took the whole run
-#: past 760 s; 120 until phases 45-46 took it past 820 s)
-WINDOW_FRAMES, WINDOW_F32_FRAMES, WINDOW_PROF_FRAMES = 96, 64, 48
+#: 50-51 came, 96 until phases 56-57 came), f32 B's, and P's profiled
+#: run; its timing bursts: 64 frames (200 until phases 43-44 took the
+#: whole run past 760 s; 120 until phases 45-46 took it past 820 s)
+WINDOW_FRAMES, WINDOW_F32_FRAMES, WINDOW_PROF_FRAMES = 64, 64, 48
 WINDOW_BURST = 64
 #: phase 30: the engine's decode window
 DECODE_WINDOW = 8
@@ -4859,8 +4895,9 @@ def window_phases(nt, torch, card, record, phases, ctx) -> None:
 #: micro-batched run; phase 32: closed-loop frames an arm (after warm-up)
 MODELIO_F32_FRAMES, MODELIO_Q_FRAMES, MODELIO_BATCH_FRAMES = 8, 16, 24
 MODELIO_LAT, MODELIO_WARMUP, MODELIO_WINDOW_FRAMES = 40, 5, 64
-#: phase 32's bursts: 64 frames (200, phase 27's BURST, until phases 47-49
-#: came; 100 until phases 50-51 came)
+#: phases 32, 35 and 37's bursts: 64 frames (32: 200 until phases 47-49
+#: came, 100 until phases 50-51 came; 35 and 37: 200 until phases 56-57
+#: came)
 MODELIO_BURST = 64
 #: phase 33: frames pushed at once through the WHILE model
 WHILE_FRAMES = 32
@@ -5490,7 +5527,7 @@ def modelio2_correctness(nt, torch, card, record, files) -> None:
 
 def modelio2_timings(nt, torch, card, record, files) -> None:
     """Phase 35: every cell closed-loop (p50/p99, all live at once, frame
-    by frame in turns); G, M and S also in bursts of 200 in turns a b b
+    by frame in turns); G, M and S also in bursts of 64 in turns a b b
     a, compiled windows off, then on (frames/s, latency under the burst,
     CUDA kernels and kernel ms a frame from a profiled burst, the card's
     busy share)."""
@@ -5509,7 +5546,7 @@ def modelio2_timings(nt, torch, card, record, files) -> None:
     timed = {k: descs[k] for k in ("G", "M", "S")}
     for loop in ("off", "on"):
         kw = {} if loop == "on" else {"compiled_loop": False}
-        arms = burst_arms(nt, torch, timed, first, BURST, BURSTS,
+        arms = burst_arms(nt, torch, timed, first, MODELIO_BURST, BURSTS,
                           runner_kw={k: kw for k in timed})
         for k, a in arms.items():
             fps = float(np.median(a["fps"]))
@@ -5520,7 +5557,8 @@ def modelio2_timings(nt, torch, card, record, files) -> None:
                  "kernels_per_frame": a["kernels_per_frame"],
                  "busy_share": a["device_ms_per_frame"] * fps / 1e3}
             res[k][f"loop_{loop}"] = r
-            print(f"phase 35: {k} loop {loop}, bursts of {BURST} frames in "
+            print(f"phase 35: {k} loop {loop}, bursts of {MODELIO_BURST} "
+                  f"frames in "
                   f"turns: " + " / ".join(f"{f:.1f}" for f in a["fps"])
                   + f" frames/s; latency under the burst p50 "
                   f"{r['p50_ms']:.3f} ms p99 {r['p99_ms']:.3f} ms; "
@@ -5843,7 +5881,7 @@ def torchscript_timings(nt, torch, card, record, files, files1,
                         files2) -> None:
     """Phase 37: T, G and F (the same network from a .pt, a .pb and a
     .tflite) with TX and LT closed-loop (p50/p99, all live at once, frame
-    by frame in turns); T, G and F in bursts of 200 in turns a b b a,
+    by frame in turns); T, G and F in bursts of 64 in turns a b b a,
     compiled windows off, then on (frames/s, latency under the burst,
     CUDA kernels and kernel ms a frame, the card's busy share); the
     interpreter's host ms per invoke, walk and replay, beside G's."""
@@ -5867,7 +5905,7 @@ def torchscript_timings(nt, torch, card, record, files, files1,
     timed = {k: descs[k] for k in ("T", "G", "F")}
     for loop in ("off", "on"):
         kw = {} if loop == "on" else {"compiled_loop": False}
-        arms = burst_arms(nt, torch, timed, first, BURST, BURSTS,
+        arms = burst_arms(nt, torch, timed, first, MODELIO_BURST, BURSTS,
                           runner_kw={k: kw for k in timed})
         for k, a in arms.items():
             fps = float(np.median(a["fps"]))
@@ -5878,7 +5916,8 @@ def torchscript_timings(nt, torch, card, record, files, files1,
                  "kernels_per_frame": a["kernels_per_frame"],
                  "busy_share": a["device_ms_per_frame"] * fps / 1e3}
             res[k][f"loop_{loop}"] = r
-            print(f"phase 37: {k} loop {loop}, bursts of {BURST} frames in "
+            print(f"phase 37: {k} loop {loop}, bursts of {MODELIO_BURST} "
+                  f"frames in "
                   f"turns: " + " / ".join(f"{f:.1f}" for f in a["fps"])
                   + f" frames/s; latency under the burst p50 "
                   f"{r['p50_ms']:.3f} ms p99 {r['p99_ms']:.3f} ms; "
@@ -10800,6 +10839,545 @@ def interop_train_phases(nt, torch, card, record, phases,
     return out
 
 
+# -- phases 56-57: the rest of parallel/ (Queue 1 item 6) ---------------------
+
+#: phases 56-57 run on this many logical devices of the card
+PAR_DEVICES = 4
+#: MD2 (BASELINE row 5's form): the batched server's bucket and dp, its
+#: clients and frames a client; its one-card reference serves batches of
+#: the per-shard size. Where the two are not bit for bit (cuDNN may take
+#: another algorithm at another batch: a shard of a 2-row flush runs 1
+#: row where the one-card server pads to 4), each reply is held within
+#: MD2_REL of max |logit|; MD2_TIMED frames a client in each timing arm
+MD2_BUCKET, MD2_DP, MD2_CLIENTS, MD2_FRAMES = 8, 2, 4, 16
+MD2_REL, MD2_TIMED = 1e-5, 16
+#: frames a client of MD2's profiled run (#1's launches by the wrapper
+#: against the profiler's records; reading a trace takes seconds)
+MD2_PROF_FRAMES = 4
+#: TRS: tensor_trainer's mesh, batch and optimizer (TF32 off), and the
+#: closed-loop steps timed after one warm-up step, in each arm
+TRS_MESH, TRS_BATCH, TRS_OPT, TRS_TIMED = "dp=2,tp=2", 8, "sgd:0.01", 3
+#: PP: stages (one a logical device), microbatches and their shape, the
+#: MLP's width (bench.py:1154: d_model 1024, d_ff 4096); the pipeline
+#: against the serial fold where not bit for bit
+PP_STAGES, PP_MICRO, PP_SHAPE, PP_FF, PP_REL = 4, 8, (2, 2048, 1024), 4096, \
+    1e-5
+#: MOE: d_model, hidden, experts over ep devices, tokens; against
+#: reference_moe
+MOE_D, MOE_H, MOE_E, MOE_EP, MOE_T, MOE_REL = 1024, 4096, 8, 4, 16384, 1e-5
+#: DRY: the ring's local block in dryrun_multichip (a multiple of 128,
+#: so each ring step runs flash_block_update's kernel)
+DRY_BLOCK = 128
+#: MH2: logical devices of each of the two processes
+MH2_DEVICES = 2
+#: the names of both flash_block_update kernels (bf16 and f32)
+FLASH_BLOCK_SYMBOL = "nns_flash_block_"
+
+
+def md2_servers(nt, torch, model, sid):
+    """(MD2's server: dp MD2_DP over the first logical devices, bucket
+    MD2_BUCKET; the one-card server of the per-shard bucket), each with
+    normalize_u8 as `pre` on uint8 224² frames."""
+    from nnstreamer_tpu_torch.backends import kernels
+    from nnstreamer_tpu_torch.edge import BatchedQueryServer
+    from nnstreamer_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from nnstreamer_tpu_torch.serving.placement import accelerator_for
+    from nnstreamer_tpu_torch.tensor.dtypes import DType
+    from nnstreamer_tpu_torch.tensor.info import TensorInfo, TensorsSpec
+
+    u8 = TensorsSpec.of(TensorInfo((1, 224, 224, 3), DType.UINT8))
+    md2 = BatchedQueryServer(model, sid=sid, bucket=MD2_BUCKET,
+                             max_delay_ms=2.0, pre=kernels.normalize_u8,
+                             in_spec=u8, mesh=make_mesh(MeshSpec(dp=MD2_DP)))
+    one = BatchedQueryServer(model, sid=sid + 1,
+                             bucket=MD2_BUCKET // MD2_DP, max_delay_ms=2.0,
+                             pre=kernels.normalize_u8, in_spec=u8,
+                             accelerator=accelerator_for(0))
+    return md2, one
+
+
+def md2_phase(nt, torch, card, res) -> int:
+    """MD2: BatchedQueryServer over dp 2 of the card's logical devices
+    against the one-card server of bucket 4, f32 with TF32 off, 4 clients
+    x 16 frames; then both in bf16 in turns a b b a. → #1's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.backends import kernels
+
+    def frames_of(c):
+        return u8_frames((1, 224, 224, 3), MD2_FRAMES, 560 + c)
+
+    t0 = time.perf_counter()
+    with NoTf32(torch):
+        md2, one = md2_servers(nt, torch, "zoo://mobilenet_v2?dtype=float32",
+                               4560)
+        try:
+            ref = q2_clients(nt, one.port, frames_of, MD2_CLIENTS)
+            n0, s0 = kernels.normalize_u8.launches, md2.stats()
+            got = q2_clients(nt, md2.port, frames_of, MD2_CLIENTS)
+            launched = kernels.normalize_u8.launches - n0
+            s1 = md2.stats()
+            shard = [b - a for a, b in zip(s0["shard_batches"],
+                                           s1["shard_batches"])]
+            batches = s1["batches"] - s0["batches"]
+            moved = s1["transfers"] - s0["transfers"]
+
+            def attempt():
+                n0 = kernels.normalize_u8.launches
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    open_capture(torch)
+                    q2_clients(nt, md2.port,
+                               lambda c: frames_of(c)[:MD2_PROF_FRAMES],
+                               MD2_CLIENTS)
+                    torch.cuda.synchronize()
+                    close_capture(torch)
+                named = sum("nns_normalize_kernel" in e.name
+                            for e in kernel_events(prof))
+                n = kernels.normalize_u8.launches - n0
+                return {"normalize_u8": n}, {"normalize_u8": named}, n
+
+            profiled, tries = profiled_agreement("phase 56: MD2", attempt)
+            st = md2.stats()
+        finally:
+            md2.close()
+            one.close()
+    same = sum(int(np.array_equal(a, b)) for c in got
+               for a, b in zip(got[c][0], ref[c][0]))
+    err = max(float(np.abs(got[c][0] - ref[c][0]).max()
+                    / np.abs(ref[c][0]).max()) for c in got)
+    routed = all(got[c][1] == list(range(MD2_FRAMES)) for c in got)
+    frames = MD2_CLIENTS * MD2_FRAMES
+    res["MD2"] = {"clients": MD2_CLIENTS, "frames": frames,
+                  "batches": batches, "shard_batches": shard,
+                  "normalize_launches": launched, "profiled_run": tries,
+                  "profiled_launches": profiled,
+                  "transfers": moved, "bit_for_bit_frames": same,
+                  "max_rel_err": err, "routed_in_order": routed,
+                  "admitted": st["admitted"], "replied": st["replied"]}
+    print(f"phase 56: MD2 BatchedQueryServer(bucket {MD2_BUCKET}, mesh dp "
+          f"{MD2_DP} of {PAR_DEVICES} logical devices, pre = normalize_u8 "
+          f"on each shard's rows), f32, TF32 off, {MD2_CLIENTS} clients x "
+          f"{MD2_FRAMES} frames: {batches} batches, per device {shard}, "
+          f"normalize_u8 launched {launched} times, {moved} copies between "
+          f"logical devices; {MD2_CLIENTS} x {MD2_PROF_FRAMES} frames "
+          f"profiled: {profiled} launches by the wrapper and by name "
+          f"(profiled run {tries}); against the one-card server of bucket "
+          f"{MD2_BUCKET // MD2_DP}: {same}/{frames} replies bit for bit, the "
+          f"largest difference {err:.3e} of max |logit| (limit {MD2_REL}); "
+          f"routed in pts order {routed} [{card}]")
+    check(launched == sum(shard) == batches * MD2_DP
+          and shard == [batches] * MD2_DP and 0 < batches < frames
+          and err <= MD2_REL and routed
+          and st["admitted"] == st["replied"], f"MD2: {res['MD2']}")
+
+    # bf16: MD2 and the one-card Q2 (bucket 8) in turns a b b a
+    from nnstreamer_tpu_torch.edge import BatchedQueryServer
+    from nnstreamer_tpu_torch.serving.placement import accelerator_for
+    from nnstreamer_tpu_torch.tensor.dtypes import DType
+    from nnstreamer_tpu_torch.tensor.info import TensorInfo, TensorsSpec
+
+    t1 = time.perf_counter()
+    frame = u8_frames((1, 224, 224, 3), 1, 561)[0]
+    md2, spare = md2_servers(nt, torch, "zoo://mobilenet_v2", 4562)
+    spare.close()
+    q2 = BatchedQueryServer(
+        "zoo://mobilenet_v2", sid=4564, bucket=MD2_BUCKET, max_delay_ms=2.0,
+        pre=kernels.normalize_u8, accelerator=accelerator_for(0),
+        in_spec=TensorsSpec.of(TensorInfo((1, 224, 224, 3), DType.UINT8)))
+    arms = {"MD2": md2, "Q2": q2}
+    out = {k: [] for k in arms}
+    n0 = kernels.normalize_u8.launches
+    try:
+        for srv in arms.values():
+            q2_clients(nt, srv.port, lambda c: [frame] * 8, MD2_CLIENTS,
+                       in_flight=8)
+        for name in ("MD2", "Q2", "Q2", "MD2"):
+            start = time.perf_counter()
+            g = q2_clients(nt, arms[name].port,
+                           lambda c: [frame] * MD2_TIMED, MD2_CLIENTS,
+                           in_flight=8)
+            wall = time.perf_counter() - start
+            lat = [ms for v in g.values() for ms in v[2]]
+            out[name].append({"fps": MD2_CLIENTS * MD2_TIMED / wall,
+                              "p50_ms": float(np.percentile(lat, 50))})
+        shard = md2.stats()["shard_batches"]
+    finally:
+        md2.close()
+        q2.close()
+    timed = kernels.normalize_u8.launches - n0
+    res["MD2_timing"] = out
+    for name, runs in out.items():
+        print(f"phase 56: {name} bf16, {MD2_CLIENTS} clients x {MD2_TIMED} "
+              f"frames (in flight 8 each): " + " / ".join(
+                  f"{r['fps']:.1f} frames/s, p50 {r['p50_ms']:.3f} ms"
+                  for r in runs) + f" [{card}]")
+    print(f"phase 56: MD2 bf16 batches per device {shard}; "
+          f"{t1 - t0:.2f} s for the f32 arms, "
+          f"{time.perf_counter() - t1:.2f} s for the bf16 ones")
+    return launched + profiled + timed
+
+
+def placed_bytes(torch, state) -> dict:
+    """Bytes of a sharded train state's master leaves and their optimizer
+    state on each logical device (by the tp devices' ordinals)."""
+    sp = state.params
+    out = {o: 0 for o in sp.ordinals}
+    for leaf in sp.placed.values():
+        for i, p in enumerate(leaf["parts"]):
+            o = sp.ordinals[i if leaf["dim"] is not None else 0]
+            out[o] += sum(t.numel() * t.element_size() for t in
+                          [p, *state.opt_state.state.get(p, {}).values()]
+                          if isinstance(t, torch.Tensor))
+    return out
+
+
+def trs_phase(nt, torch, card, res) -> int:
+    """TRS: x behind normalize_u8 and the labels, paired by tensor_mux,
+    into tensor_trainer over a dp 2 x tp 2 mesh (MobileNetV2 1.0, f32,
+    TF32 off, batch 8, sgd 0.01), against the one-device trainer on the
+    card: step 1 from the zoo's params, step 2 from the mesh's step-1
+    checkpoint (teacher-forced); a control with per-shard BN statistics;
+    step ms of both arms; placed bytes per logical device. → #1's
+    launches."""
+    import contextlib
+    import tempfile
+
+    from nnstreamer_tpu_torch.backends import kernels
+    from nnstreamer_tpu_torch.models import layers
+    from nnstreamer_tpu_torch.models import mobilenet_v2 as tm
+    from nnstreamer_tpu_torch.trainer.element import CHECKPOINT_FILE
+
+    rng = np.random.default_rng(565)
+    x8 = rng.integers(0, 256, (TRS_BATCH, 224, 224, 3), np.uint8)
+    y8 = rng.integers(0, 1001, (TRS_BATCH,)).astype(np.int32)
+    xdesc = f"dims=3:224:224:{TRS_BATCH} types=uint8"
+    n0 = kernels.normalize_u8.launches
+
+    def arm(ck, steps, mesh="", resume="", closed=False):
+        extra = f"checkpoint_dir={ck} checkpoint_every=1" if ck else ""
+        if mesh:
+            extra += f" mesh={mesh}"
+        if resume:
+            extra += f" resume_from={resume}"
+        pipe = train_pipe(nt, TRAIN_MODEL, TRS_OPT, xdesc, TRS_BATCH,
+                          extra=extra)
+        losses, secs, _ = train_run(nt, pipe, [x8] * steps, [y8] * steps,
+                                    closed=closed)
+        return losses, secs, pipe.get("tr")
+
+    def saved(ck, n):
+        blob = torch.load(Path(ck) / f"step_{n}" / CHECKPOINT_FILE,
+                          map_location="cpu", weights_only=True)
+        return {k: v.float() for k, v in blob["params"].items()}
+
+    t0 = time.perf_counter()
+    with NoTf32(torch), tempfile.TemporaryDirectory() as ck:
+        torch.cuda.reset_peak_memory_stats()
+        lm, _, tr = arm(f"{ck}/mesh", 2, mesh=TRS_MESH)
+        peak = torch.cuda.max_memory_allocated()
+        placed = placed_bytes(torch, tr._state)
+        lo, _, _ = arm(f"{ck}/one", 2)
+        lf, _, _ = arm(f"{ck}/forced", 1, resume=f"{ck}/mesh/step_1")
+        saved_bn = layers.batch_stats
+        layers.batch_stats = lambda reduce: contextlib.nullcontext()
+        try:
+            lc, _, _ = arm(f"{ck}/ctrl", 1, mesh=TRS_MESH)
+        finally:
+            layers.batch_stats = saved_bn
+        start = {k: v.float() for k, v in tm.init_params(
+            width=TRAIN_WIDTH, num_classes=TRAIN_CLASSES).state_dict().items()}
+        steps = [step_agreement(saved(f"{ck}/mesh", 1), saved(f"{ck}/one", 1),
+                                start),
+                 step_agreement(saved(f"{ck}/mesh", 2),
+                                saved(f"{ck}/forced", 2),
+                                saved(f"{ck}/mesh", 1))]
+        ctrl = step_agreement(saved(f"{ck}/ctrl", 1), saved(f"{ck}/one", 1),
+                              start)
+        t1 = time.perf_counter()
+        timing = {}
+        for name, mesh in (("mesh", TRS_MESH), ("one", ""), ("one", ""),
+                           ("mesh", TRS_MESH)):
+            _, secs, _ = arm("", TRS_TIMED + 1, mesh=mesh, closed=True)
+            timing.setdefault(name, []).extend(1e3 * s for s in secs[1:])
+    t2 = time.perf_counter()
+    launched = kernels.normalize_u8.launches - n0
+    same = [abs(lm[0] - lo[0]) / abs(lo[0]), abs(lm[1] - lf[0]) / abs(lf[0])]
+    p50 = {k: float(np.percentile(v, 50)) for k, v in timing.items()}
+    res["TRS"] = {"mesh": TRS_MESH, "optimizer": TRS_OPT, "mesh_losses": lm,
+                  "one_device_losses": lo, "forced_step_2_loss": lf,
+                  "same_params_loss_rel": same, "control_loss": lc,
+                  "params": [{"median": m, "max": x, "worst_leaf": w}
+                             for m, x, w in steps],
+                  "control": {"median": ctrl[0], "max": ctrl[1]},
+                  "placed_bytes_by_logical_device": placed,
+                  "peak_memory_allocated": peak, "step_ms": timing,
+                  "step_ms_p50": p50, "normalize_launches": launched,
+                  "seconds": {"arms": t1 - t0, "timing": t2 - t1}}
+    print(f"phase 56: TRS tensor_trainer mesh={TRS_MESH} ({TRAIN_MODEL}, "
+          f"f32, TF32 off, batch {TRS_BATCH}, {TRS_OPT}) against the "
+          f"one-device trainer on the card: losses {lm} vs {lo}, step 2 from "
+          f"the mesh's step 1 {lf}; rel at the same params "
+          f"{[f'{r:.3e}' for r in same]} (limit {TRAIN_SAME_LOSS_REL}); "
+          f"parameters over each leaf's movement, step 1 and step 2: median "
+          f"{[f'{m:.3e}' for m, _, _ in steps]} (limit {TRAIN_CPU_MEDIAN}), "
+          f"largest {[f'{x:.3e}' for _, x, _ in steps]} at "
+          f"{[w for _, _, w in steps]} (limit {TRAIN_CPU_MAX}); control "
+          f"(per-shard BN statistics): loss {lc}, median {ctrl[0]:.3e}, "
+          f"largest {ctrl[1]:.3e} [{card}]")
+    print(f"phase 56: TRS placed bytes (params and moments) by logical "
+          f"device {placed}; the card's peak memory_allocated in the mesh "
+          f"arm {peak / 2**20:.1f} MiB; closed-loop step ms p50: mesh "
+          f"{p50['mesh']:.3f}, one device {p50['one']:.3f} (turns a b b a, "
+          f"{TRS_TIMED} timed steps a turn); normalize_u8 launches "
+          f"{launched}; {t1 - t0:.2f} s for the five arms, {t2 - t1:.2f} s "
+          f"for the timing [{card}]")
+    check(len(lm) == len(lo) == 2 and len(lf) == 1
+          and max(same) <= TRAIN_SAME_LOSS_REL
+          and all(m <= TRAIN_CPU_MEDIAN and x <= TRAIN_CPU_MAX
+                  for m, x, _ in steps)
+          and ctrl[0] > TRAIN_CPU_MEDIAN
+          and launched == 2 + 2 + 1 + 1 + 4 * (TRS_TIMED + 1),
+          f"TRS: {res['TRS']}")
+    return launched
+
+
+def pp_phase(torch, dev, card, res) -> None:
+    """PP: PP_STAGES residual MLP stages (the transformer's rmsnorm and
+    _mlp at d_model 1024, d_ff 4096) on as many logical devices, f32 with
+    TF32 off, PP_MICRO microbatches: against reference_pipeline; ms per
+    forward, pipelined and serial."""
+    from nnstreamer_tpu_torch.models.transformer import _mlp, rmsnorm
+    from nnstreamer_tpu_torch.parallel import (
+        pipeline_apply, stack_stage_params)
+    from nnstreamer_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from nnstreamer_tpu_torch.parallel.pipeline import (
+        PIPELINE_MOVES, reference_pipeline)
+
+    gen = torch.Generator().manual_seed(570)
+    d = PP_SHAPE[-1]
+    stages = [{"ln": (1 + 0.1 * torch.randn(d, generator=gen)).to(dev),
+               "wi": (torch.randn(d, 2 * PP_FF, generator=gen)
+                      * d ** -0.5).to(dev),
+               "wd": (torch.randn(PP_FF, d, generator=gen)
+                      * PP_FF ** -0.5).to(dev)}
+              for _ in range(PP_STAGES)]
+
+    def stage(p, a):
+        return a + _mlp(p, rmsnorm(a, p["ln"]), a.dtype)
+
+    x = torch.randn((PP_MICRO,) + PP_SHAPE, generator=gen).to(dev)
+    mesh = make_mesh(MeshSpec(dp=1, pp=PP_STAGES))
+    stacked = stack_stage_params(stages)
+    with NoTf32(torch):
+        m0 = PIPELINE_MOVES.count
+        out = pipeline_apply(stage, stacked, x, mesh=mesh)
+        moved = PIPELINE_MOVES.count - m0
+        ref = reference_pipeline(stage, stages, x)
+        same = torch.equal(out, ref)
+        err = float((out - ref).abs().max() / ref.abs().max())
+        ms = event_ms_per_call(
+            torch, lambda: pipeline_apply(stage, stacked, x, mesh=mesh), 3)
+        ms_serial = event_ms_per_call(
+            torch, lambda: reference_pipeline(stage, stages, x), 3)
+    res["PP"] = {"stages": PP_STAGES, "micro": PP_MICRO,
+                 "shape": list(PP_SHAPE), "bit_for_bit": same,
+                 "max_rel_err": err, "copies": moved, "ms": ms,
+                 "serial_ms": ms_serial}
+    print(f"phase 57: PP {PP_STAGES} stages on {PP_STAGES} logical devices, "
+          f"{PP_MICRO} microbatches of {PP_SHAPE} f32 (TF32 off), residual "
+          f"rmsnorm + MLP (d_ff {PP_FF}): bit for bit reference_pipeline "
+          f"{same} (max rel {err:.3e}), {moved} copies between stages; "
+          f"{ms:.3f} ms a forward pipelined, {ms_serial:.3f} ms serial "
+          f"[{card}]")
+    check(same or err <= PP_REL, f"PP: {res['PP']}")
+
+
+def moe_phase(torch, dev, card, res) -> None:
+    """MOE: E 8 over ep 4, T 16,384 tokens of d 1024 (hidden 4096): f32
+    with ample capacity against reference_moe; at capacity factor 1.25
+    the dropped tokens are `_route`'s per shard, their rows exactly zero,
+    the kept rows against reference_moe; bf16 ms a layer."""
+    from nnstreamer_tpu_torch.parallel import init_moe_params, moe_apply
+    from nnstreamer_tpu_torch.parallel import moe as pm
+    from nnstreamer_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    mesh = make_mesh(MeshSpec(dp=1, ep=MOE_EP))
+    params = init_moe_params(torch.Generator().manual_seed(571), MOE_D,
+                             MOE_H, MOE_E, device=dev)
+    # tokens share a direction (as a layer's inputs do), so the router
+    # favours some experts and capacity 1.25 drops tokens
+    gen = torch.Generator().manual_seed(572)
+    x = (torch.randn(MOE_T, MOE_D, generator=gen)
+         + torch.randn(MOE_D, generator=gen)).to(dev)
+    t_local = MOE_T // MOE_EP
+    cap = max(1, int(np.ceil(1.25 * t_local / MOE_E)))
+    with NoTf32(torch):
+        ref = pm.reference_moe(params, x)
+        scale = float(ref.abs().max())
+        ample = moe_apply(params, x, mesh=mesh, capacity_factor=float(MOE_E))
+        err_ample = float((ample - ref).abs().max()) / scale
+        tight = moe_apply(params, x, mesh=mesh, capacity_factor=1.25)
+        keep = torch.cat([pm._route(x[i * t_local:(i + 1) * t_local],
+                                    params["gate"], MOE_E, cap)[2]
+                          for i in range(MOE_EP)])
+        dropped = int((~keep).sum())
+        zero = bool((tight[~keep] == 0).all())
+        live = bool((tight[keep] != 0).any(dim=1).all())
+        err_tight = float((tight[keep] - ref[keep]).abs().max()) / scale
+        del ref, ample, tight
+    pb = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    xb = x.to(torch.bfloat16)
+    ms = event_ms_per_call(
+        torch, lambda: moe_apply(pb, xb, mesh=mesh, capacity_factor=1.25), 5)
+    res["MOE"] = {"tokens": MOE_T, "experts": MOE_E, "ep": MOE_EP,
+                  "capacity": cap, "ample_max_rel_err": err_ample,
+                  "dropped": dropped, "dropped_rows_zero": zero,
+                  "kept_rows_nonzero": live, "kept_max_rel_err": err_tight,
+                  "bf16_ms": ms}
+    print(f"phase 57: MOE E {MOE_E} on ep {MOE_EP}, T {MOE_T} x d {MOE_D} "
+          f"(hidden {MOE_H}), f32, TF32 off: ample capacity within "
+          f"{err_ample:.3e} of max |reference_moe| (limit {MOE_REL}); "
+          f"capacity factor 1.25 (C {cap}): {dropped} tokens dropped, the "
+          f"ones _route drops per shard, their rows exactly zero {zero}, "
+          f"every kept row live {live} and within {err_tight:.3e}; bf16 "
+          f"{ms:.3f} ms a layer [{card}]")
+    check(err_ample <= MOE_REL and err_tight <= MOE_REL and zero and live
+          and 0 < dropped < MOE_T, f"MOE: {res['MOE']}")
+
+
+def dry_phase(nt, torch, card, res) -> int:
+    """DRY: dryrun_multichip(PAR_DEVICES) on the card, the ring's block
+    DRY_BLOCK, so every ring step (the sp ring and the composed forward's)
+    launches flash_block_update: wrapper = profiler. → #6's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.backends import kernels
+    from nnstreamer_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    fb = kernels.flash_block_update
+
+    def attempt():
+        n0 = fb.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            open_capture(torch)
+            out = dryrun_multichip(PAR_DEVICES, block=DRY_BLOCK)
+            torch.cuda.synchronize()
+            close_capture(torch)
+        named = sum(FLASH_BLOCK_SYMBOL in e.name for e in kernel_events(prof))
+        n = fb.launches - n0
+        return ({"flash_block_update": n}, {"flash_block_update": named},
+                (out, n))
+
+    (out, n), tries = profiled_agreement("phase 57: DRY", attempt)
+    c = out["composed"]
+    res["DRY"] = {"train": out["train"], "ring": out["ring"],
+                  "pipeline": out["pipeline"], "moe": out["moe"],
+                  "composed": {"shape": c["shape"],
+                               "max_abs_err": c["max_abs_err"]},
+                  "flash_block_launches": n, "profiled_run": tries}
+    ring = out["ring"]
+    print(f"phase 57: DRY dryrun_multichip({PAR_DEVICES}) on the card (ring "
+          f"block {DRY_BLOCK}): train dp {out['train']['dp']} x tp "
+          f"{out['train']['tp']} loss {out['train']['loss']:.5f}; sp ring "
+          f"{ring['shape']} max_abs_err {ring['max_abs_err']:.3e} (limit "
+          f"{ring['limit']:.3e}); pipeline bit for bit "
+          f"{out['pipeline']['bit_for_bit']}; composed {c['shape']} "
+          f"max_abs_err {c['max_abs_err']:.3e} (limit 5e-4); "
+          f"flash_block_update launched {n} times by the wrapper and by name "
+          f"(profiled run {tries}) [{card}]")
+    check(n > 0 and ring["max_abs_err"] <= ring["limit"]
+          and c["max_abs_err"] < 5e-4, f"DRY: {res['DRY']}")
+    return n
+
+
+def mh2_start():
+    """MH2's two processes (multihost_check.py, gloo, MH2_DEVICES logical
+    devices each on the card), started → the processes."""
+    import os
+
+    port = free_tcp_port()
+    env = dict(os.environ)
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    script = ROOT / "nnstreamer_tpu_torch" / "tools" / "multihost_check.py"
+    return [subprocess.Popen(
+        [sys.executable, str(script), str(pid),
+         f"127.0.0.1:{port}", "--backend", "gloo", "--devices",
+         str(MH2_DEVICES)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for pid in range(2)]
+
+
+def free_tcp_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def mh2_finish(procs, card, res) -> None:
+    """MH2: both processes' results: the cross-process sum exact, the
+    train step within 1e-5 of the serial numpy step, one loss."""
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            check(p.returncode == 0, f"MH2 process failed:\n{err[-3000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res["MH2"] = outs
+    print(f"phase 57: MH2 two processes, gloo, {MH2_DEVICES} logical devices "
+          f"each on the card, a dp {2 * MH2_DEVICES} global mesh: sums "
+          f"{[o['sum'] for o in outs]} (exact: {3.0 * MH2_DEVICES}), one "
+          f"train step against the serial numpy step: max |err| "
+          f"{[o['err'] for o in outs]} (limit 1e-5), losses "
+          f"{[o['loss'] for o in outs]}, copies between logical devices "
+          f"{[o['transfers'] for o in outs]}, devices {outs[0]['devices']}, "
+          f"jax-free {[o['jax_free'] for o in outs]} [{card}]")
+    check(len(outs) == 2 and all(o["sum"] == 3.0 * MH2_DEVICES
+                                 and o["err"] < 1e-5 and o["jax_free"]
+                                 for o in outs)
+          and outs[0]["loss"] == outs[1]["loss"], f"MH2: {outs}")
+
+
+def parallel_phases(nt, torch, card, record, phases) -> tuple:
+    """Phases 56-57 on PAR_DEVICES logical devices of the card ([parallel]
+    virtual_devices, restored after). → (#1's launches by cell, #6's)."""
+    import os
+
+    res = {}
+    record["parallel"] = res
+    dev = torch.device("cuda", 0)
+    old = os.environ.get(VIRTUAL_ENV)
+    os.environ[VIRTUAL_ENV] = str(PAR_DEVICES)
+    try:
+        md2 = md2_phase(nt, torch, card, res)
+        trs = trs_phase(nt, torch, card, res)
+        phases.done("56 (mesh dispatch MD2 and sharded training TRS)")
+        # MH2's processes start first: their start-up overlaps the rest
+        procs = mh2_start()
+        try:
+            dry = dry_phase(nt, torch, card, res)
+            pp_phase(torch, dev, card, res)
+            moe_phase(torch, dev, card, res)
+        finally:
+            mh2_finish(procs, card, res)
+        phases.done("57 (pipeline, MoE, dryrun, multi-host)")
+    finally:
+        if old is None:
+            os.environ.pop(VIRTUAL_ENV)
+        else:
+            os.environ[VIRTUAL_ENV] = old
+    return {"MD2": md2, "TRS": trs}, dry
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -10871,6 +11449,11 @@ def main(argv=None) -> int:
         "--train", action="store_true",
         help="run phases 1, 2 and 55 only (MobileNetV2 1.0 and the audio "
              "classifier trained behind normalize_u8)")
+    ap.add_argument(
+        "--parallel", action="store_true",
+        help="run phases 1, 2, 56 and 57 only (the rest of parallel/ on "
+             "logical devices of the card: the mesh dispatcher, sharded "
+             "training, the pipeline, MoE, the dryrun, two processes)")
     ap.add_argument(
         "--slice4", action="store_true",
         help="run phases 1, 2 and 20-23 only (the ring step, ring "
@@ -10967,6 +11550,9 @@ def main(argv=None) -> int:
     elif args.traffic:
         traffic_phases(nt, torch, card, record, phases)
         entries = []
+    elif args.parallel:
+        parallel_phases(nt, torch, card, record, phases)
+        entries = []
     elif args.interop or args.train:
         interop_train_phases(
             nt, torch, card, record, phases,
@@ -11012,6 +11598,13 @@ def main(argv=None) -> int:
         # -- 54-55. items 5b-5c: B into each codec and over gRPC; x into
         # the trainer -----------------------------------------------------
         extra.update(interop_train_phases(nt, torch, card, record, phases))
+        # -- 56-57. item 6: #1 in MD2's shards and TRS's batches; #6 in
+        # the dryrun's rings --------------------------------------------
+        par, dry = parallel_phases(nt, torch, card, record, phases)
+        extra.update(par)
+        ring = next(e for e in entries if e["name"] == "flash_block_update")
+        ring["launches_by_path"] = {"SHARD": ring["launches"], "DRY": dry}
+        ring["launches"] += dry
         norm = next(e for e in entries if e["name"] == "normalize_u8")
         norm["launches_by_path"] = {"B": norm["launches"], **extra}
         norm["launches"] += sum(extra.values())
@@ -11038,6 +11631,7 @@ def main(argv=None) -> int:
             "chip_smoke_traffic.json" if args.traffic else
             "chip_smoke_interop.json" if args.interop and not args.train else
             "chip_smoke_train.json" if args.train and not args.interop else
+            "chip_smoke_parallel.json" if args.parallel else
             "chip_smoke_interop_train.json" if args.interop else
             "chip_smoke.json")
     (out_dir / name).write_text(json.dumps(record, indent=1))

@@ -93,6 +93,10 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
         # = N logical devices round-robin over those, so a 4-way ring
         # runs on one card with the launches four cards would make
         "virtual_devices": "0",
+        # the torch.distributed backend parallel/multihost.initialize
+        # joins with: nccl, or gloo where asked for (the CPU; two
+        # processes on one card)
+        "backend": "nccl",
     },
 }
 

@@ -707,27 +707,29 @@ class TensorQueryClient(Element):
 
 
 class BatchedQueryServer:
-    """Offload serving with batch coalescing — the one-card `Dispatcher`
+    """Offload serving with batch coalescing — `MeshDispatcher`
     (parallel/dispatch.py) wired into the query transport.
 
     The element pipeline form (serversrc ! filter ! serversink) processes
     one frame per pass; this server instead feeds every arriving client
     frame straight into the dispatcher, which packs frames from ALL
-    connected clients into batches (padded to a bucket of ``{1,
-    bucket}``) and resolves each client's reply from its row of the
-    batch. Wire format, HELLO caps handshake and per-client result
+    connected clients into dp-sharded batches (padded to a bucket of
+    ``{dp, bucket}``) and resolves each client's reply from its row of
+    the batch. Wire format, HELLO caps handshake and per-client result
     routing are those of the pipeline form, so unmodified
     tensor_query_client pipelines work against it.
 
     model: a ModelBundle, "zoo://name" or a model file path, resolved
     through the torch backend. pre: an optional per-batch step on the
-    batch on the card before the model — e.g. the normalize_u8 kernel
-    (backends/kernels.normalize_u8) on uint8 frames, launched once a
-    batch. It runs as its own launch: there is no XLA program to trace
-    it into. The device is `backends.base.pick_device(accelerator)`: the
-    card unless the CPU is asked for. ``mesh=`` (the JAX package's
-    dp-sharded batches over several chips) raises until the mesh
-    dispatcher is ported (ROADMAP Queue 1 item 6).
+    batch before the model — e.g. the normalize_u8 kernel
+    (backends/kernels.normalize_u8) on uint8 frames: it runs on each
+    shard's rows on that shard's device, one launch a shard batch (JAX
+    traces it into the sharded program; there is no XLA program here).
+    mesh: a parallel.mesh.Mesh whose ``dp`` axis shards the batch; by
+    default, as JAX's, dp is the number of logical devices
+    (`serving/placement.visible_devices`, or the one device an explicit
+    `accelerator` names) if it divides `bucket`, else 1 — on one card
+    with no logical devices, one shard on the card.
 
     One drain thread feeds the dispatcher so each client's frames enter
     batches in arrival order — the client contract is ordered replies
@@ -747,17 +749,17 @@ class BatchedQueryServer:
                  accelerator: str = ""):
         from nnstreamer_tpu_torch.backends.base import pick_device
         from nnstreamer_tpu_torch.backends.torch_backend import (
-            TorchBackend, params_copy_to, to_tuple)
-        from nnstreamer_tpu_torch.parallel.dispatch import Dispatcher
+            TorchBackend, to_tuple)
+        from nnstreamer_tpu_torch.parallel.dispatch import MeshDispatcher
+        from nnstreamer_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+        from nnstreamer_tpu_torch.serving.placement import visible_devices
 
-        if mesh is not None:
-            raise StreamError(
-                "BatchedQueryServer(mesh=...): batches sharded over several "
-                "cards need the mesh dispatcher, not ported yet (ROADMAP "
-                "Queue 1 item 6); leave mesh=None to batch on one card")
-        device = pick_device(accelerator)
         bundle = TorchBackend()._resolve(model)
-        params = params_copy_to(bundle.params, device)
+        if mesh is None:
+            devs = [pick_device(accelerator)] if accelerator \
+                else visible_devices()
+            dp = len(devs) if bucket % len(devs) == 0 else 1
+            mesh = make_mesh(MeshSpec(dp=dp), devs[:dp])
         model_fn = bundle.fn
 
         def fn(p, x):
@@ -765,9 +767,9 @@ class BatchedQueryServer:
                 x = pre(x)
             return to_tuple(model_fn(p, x))
 
-        self.dispatcher = Dispatcher(fn, params, device=device,
-                                     bucket=bucket,
-                                     max_delay_ms=max_delay_ms)
+        self.dispatcher = MeshDispatcher(fn, bundle.params, mesh,
+                                         bucket=bucket,
+                                         max_delay_ms=max_delay_ms)
         # the dispatcher hands back per-frame rows (batch dim stripped);
         # the wire contract is the model's out_spec — restore a leading
         # batch=1 dim where the spec declares one

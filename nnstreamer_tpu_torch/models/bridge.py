@@ -21,6 +21,12 @@ tree (models/quant.quantize_transformer) keeps its int8 weights and f32
 ``*_scale`` columns. `lstm_params` copies the LSTM's the same way;
 `audio_classifier_params` turns its conv weights WIO → (Cout, Cin, K).
 
+The parallel paths: `moe_params` carries the JAX MoE layer's params
+(plain arrays, the same layout: gate (d, E), w1 (E, d, h), w2 (E, h, d)),
+`tensor_tree` any tree of arrays as it is (stacked stage params of the
+pipeline, the leading stage dim kept), and `train_state_params` a JAX
+`TrainState`'s params, so a sharded step starts from JAX's.
+
 The vision and transformer bridges each have an inverse
 (`mobilenet_v2_tree`, `ssd_mobilenet_tree`, `posenet_tree`,
 `transformer_tree`: the port's module or params → the
@@ -155,6 +161,36 @@ def audio_classifier_params(params: Dict[str, Any]) -> Dict[str, Any]:
     return {"blocks": [{"w": _t(b["w"]).permute(2, 1, 0).contiguous(),
                         "b": _t(b["b"])} for b in params["blocks"]],
             "head_w": _t(params["head_w"]), "head_b": _t(params["head_b"])}
+
+
+def tensor_tree(tree) -> Any:
+    """A (nested) dict/list/tuple of arrays → the same tree of tensors
+    (`_leaf`: int8 stays int8, the rest f32)."""
+    if isinstance(tree, dict):
+        return {k: tensor_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tensor_tree(v) for v in tree)
+    return _leaf(tree)
+
+
+def moe_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX MoE params ({"gate", "w1", "w2"}, parallel/moe.init_moe_params)
+    → the port's, the same keys and layout, f32."""
+    return {k: _t(params[k]) for k in ("gate", "w1", "w2")}
+
+
+def train_state_params(state, to_port=tensor_tree):
+    """A JAX `TrainState`'s params (its ``params`` tree, leaves read as
+    numpy) → the port's params by `to_port` (e.g.
+    `mobilenet_v2_state_dict`; by default the tree as tensors)."""
+    def host(node):
+        if isinstance(node, dict):
+            return {k: host(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(host(v) for v in node)
+        return np.asarray(node)
+
+    return to_port(host(state.params))
 
 
 # -- the inverses: port → JAX-layout numpy trees ------------------------------

@@ -22,7 +22,9 @@ from them. Each keeps the JAX package's arithmetic (models/layers.py):
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+import threading
+from contextlib import contextmanager
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -62,14 +64,42 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             + bias.to(dt).view(shape))
 
 
+#: per thread: the reduction `batch_stats` installs (None: this shard's
+#: rows are the whole batch)
+_STATS = threading.local()
+
+
+@contextmanager
+def batch_stats(reduce: Callable[[torch.Tensor, int], torch.Tensor]):
+    """Within, batch_norm_train on this thread takes each statistic
+    through ``reduce(sums, count)``: `sums` the (C,) f32 per-channel sum
+    over this shard's elements, `count` their number a channel → the
+    mean over every shard's elements, on this shard's device."""
+    prev = getattr(_STATS, "reduce", None)
+    _STATS.reduce = reduce
+    try:
+        yield
+    finally:
+        _STATS.reduce = prev
+
+
 def batch_norm_train(x: torch.Tensor, scale: torch.Tensor,
                      bias: torch.Tensor, eps: float = BN_EPS) -> torch.Tensor:
     """Train-mode BN over the channel dim (1) of an NCHW tensor: the
     batch's f32 mean and biased variance over N, H and W (``jnp.mean``,
-    ``jnp.var``) stand in for the stored statistics."""
+    ``jnp.var``) stand in for the stored statistics. Under `batch_stats`
+    both are the global batch's: the sums, then the sums of squares
+    about the global mean, reduced over the shards."""
     xf = x.float()
-    mean = xf.mean(dim=(0, 2, 3))
-    var = (xf - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
+    reduce = getattr(_STATS, "reduce", None)
+    if reduce is None:
+        mean = xf.mean(dim=(0, 2, 3))
+        var = (xf - mean.view(1, -1, 1, 1)).square().mean(dim=(0, 2, 3))
+    else:
+        n = xf.numel() // xf.shape[1]
+        mean = reduce(xf.sum(dim=(0, 2, 3)), n)
+        var = reduce((xf - mean.view(1, -1, 1, 1)).square().sum(
+            dim=(0, 2, 3)), n)
     return batch_norm(x, scale, bias, mean, var, eps)
 
 

@@ -23,15 +23,20 @@ an error or a shutdown failure — is unchanged. What changes on the card:
   So the batcher launches batch N+1 while batch N's copy is in flight,
   the JAX package's ``copy_to_host_async`` overlap.
 
-`Dispatcher` runs ``fn(params, x)`` on one device with buckets
-``{1, bucket}``, as the JAX package's MeshDispatcher does with dp 1: a
-lone closed-loop frame runs at batch 1 instead of paying the full
-bucket. The mesh dispatcher over several cards waits for the port of the
-rest of parallel/ (ROADMAP Queue 1 item 6).
+`MeshDispatcher` runs ``fn(params, x)`` over the ``dp`` devices of a
+mesh with buckets ``{dp, bucket}`` (a lone closed-loop frame pays dp
+rows, not the bucket). JAX traces one program whose batch is split over
+dp; the port drives the shards from one process: batch rows i·k to
+(i+1)·k go to shard i's device (a counted copy, `mesh.Moves`), run there
+against the params copied to that device, and the outputs come back to
+the first shard's device in shard order, where BatchCore reads them
+into pinned host memory. `Dispatcher` is the one-device case (buckets
+``{1, bucket}``).
 """
 
 from __future__ import annotations
 
+import copy
 import queue as _q
 import threading
 import time
@@ -346,35 +351,87 @@ class BatchCore:
                 self._fail(take, e)
 
 
-class Dispatcher:
-    """Batches single-frame requests onto ``fn(params, x)`` on one
-    device (the JAX package's MeshDispatcher with dp 1).
+class MeshDispatcher:
+    """Batches single-frame requests onto ``fn(params, x)`` sharded over
+    the `batch_axis` devices of `mesh`.
 
-    `fn` must accept a leading batch dim and return a tensor or a tuple;
-    `device` comes from `backends.base.pick_device` (the card unless the
-    CPU is asked for). A partial flush pads up to the SMALLEST bucket of
-    ``{1, bucket}`` that fits it."""
+    fn(params, x) must accept a leading batch dim and return a tensor or
+    a tuple; `bucket` is the largest batch (it must divide over the
+    axis). The params are copied to every shard's device once (the first
+    shard's without a copy where they already lie there); `set_params`
+    copies a new tree the same way and swaps it in with one assignment,
+    so a batch already collected runs on the params it started with."""
 
-    def __init__(self, fn: Callable, params, *, device=None,
-                 bucket: int = 8, max_delay_ms: float = 2.0):
-        self.device = device if isinstance(device, torch.device) \
-            else pick_device(device or "")
+    def __init__(self, fn: Callable, params, mesh, *,
+                 bucket: int = 8, max_delay_ms: float = 2.0,
+                 batch_axis: str = "dp"):
+        from nnstreamer_tpu_torch.parallel.mesh import Moves
+
+        n = mesh.shape[batch_axis]
+        if bucket % n != 0:
+            raise StreamError(
+                f"bucket {bucket} must be divisible by mesh axis "
+                f"{batch_axis!r} size {n}"
+            )
+        self.mesh = mesh
         self.bucket = int(bucket)
         self.max_delay = max_delay_ms / 1e3
+        self.devices = mesh.along(batch_axis)
+        self.ordinals = mesh.ordinals_along(batch_axis)
+        self.device = self.devices[0]
+        self.moves = Moves()
         self._fn = fn
-        self._params = params
-        self._core = BatchCore(self._exec, sorted({1, self.bucket}),
+        self._shard_batches = [0] * n
+        self._placed = self._place(params)
+        self._core = BatchCore(self._exec, sorted({n, self.bucket}),
                                self.max_delay, device=self.device,
-                               name="dispatch")
+                               name="mesh-dispatch" if n > 1 else "dispatch")
+
+    def _place(self, params) -> list:
+        """The params on every shard's device: shard 0's as
+        `params_copy_to` gives them (no copy where they lie there), every
+        other shard's a copy of its own, counted."""
+        from nnstreamer_tpu_torch.backends.torch_backend import (
+            params_copy_to)
+
+        if params is None:
+            return [None] * len(self.devices)
+        home = params_copy_to(params, self.device)
+        self.moves.count += len(self.devices) - 1
+        return [home] + [_copied(home, dev) for dev in self.devices[1:]]
 
     def _exec(self, batch: torch.Tensor, n: int):
+        placed = self._placed         # read once: the batch keeps these
+        devs, ords = self.devices, self.ordinals
+        k = batch.shape[0] // len(devs)
+        outs = []
         with torch.inference_mode():
-            return self._fn(self._params, batch)
+            for i, (dev, o) in enumerate(zip(devs, ords)):
+                x = self.moves.to(batch[i * k:(i + 1) * k], dev, ords[0], o)
+                out = self._fn(placed[i], x)
+                outs.append(out if isinstance(out, (tuple, list)) else (out,))
+                self._shard_batches[i] += 1
+            if len(outs) == 1:
+                return outs[0]
+            return tuple(
+                torch.cat([self.moves.to(o[j], self.device, ords[i], ords[0])
+                           for i, o in enumerate(outs)])
+                for j in range(len(outs[0])))
 
     # -- client API --------------------------------------------------------
     def submit(self, frame) -> Future:
         """frame: single-sample array (no batch dim or batch=1)."""
         return self._core.submit(frame)
+
+    def infer(self, frame, timeout: Optional[float] = 30.0):
+        return self.submit(frame).result(timeout)
+
+    def set_params(self, params) -> None:
+        """Swap the model parameters (hot swap): copied to every shard's
+        device, then one reference assignment. Batches already collected
+        keep the params they were dispatched with; shapes must match the
+        old tree."""
+        self._placed = self._place(params)
 
     @property
     def buckets(self) -> List[int]:
@@ -389,7 +446,46 @@ class Dispatcher:
         return self._core.batches
 
     def stats(self) -> dict:
-        return self._core.stats()
+        """BatchCore's counters, the batches each shard ran (in shard
+        order) and the copies between logical devices so far."""
+        out = self._core.stats()
+        out["shard_batches"] = list(self._shard_batches)
+        out["transfers"] = self.moves.count
+        return out
 
     def shutdown(self) -> None:
         self._core.shutdown()
+
+
+def _copied(params, device: torch.device):
+    """A copy of a model's params on `device` (a module deep-copied, a
+    tree's every tensor), even where they already lie there."""
+    if isinstance(params, torch.nn.Module):
+        return copy.deepcopy(params).to(device).eval()
+    if isinstance(params, torch.Tensor):
+        return params.detach().to(device, copy=True)
+    if isinstance(params, dict):
+        return {k: _copied(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(_copied(v, device) for v in params)
+    return params
+
+
+class Dispatcher(MeshDispatcher):
+    """Batches single-frame requests onto ``fn(params, x)`` on one
+    device (the JAX package's MeshDispatcher with dp 1).
+
+    `fn` must accept a leading batch dim and return a tensor or a tuple;
+    `device` comes from `backends.base.pick_device` (the card unless the
+    CPU is asked for). A partial flush pads up to the SMALLEST bucket of
+    ``{1, bucket}`` that fits it."""
+
+    def __init__(self, fn: Callable, params, *, device=None,
+                 bucket: int = 8, max_delay_ms: float = 2.0):
+        from nnstreamer_tpu_torch.parallel.mesh import Mesh
+
+        device = device if isinstance(device, torch.device) \
+            else pick_device(device or "")
+        super().__init__(fn, params, Mesh(np.array([device], dtype=object),
+                                          ("dp",)),
+                         bucket=bucket, max_delay_ms=max_delay_ms)

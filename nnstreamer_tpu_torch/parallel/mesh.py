@@ -30,11 +30,19 @@ a spec written for more dims than the leaf has does not apply at all
 (JAX truncates it, which under HWIO drops the O split of a lower-rank
 leaf). A placed leaf is its per-device slices along the split dim, in
 device order (`shard_params`).
+
+A mesh that spans processes (parallel/multihost.global_mesh) holds
+every process's logical devices; `processes` says which process drives
+each, and a process runs only its own. A copy between two logical
+devices is counted by `Moves` (the handoff a second card would make,
+as `staging_transfers` counts a backend's, ROADMAP N27), whether or not
+the two share a card.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -77,9 +85,13 @@ class MeshSpec:
 
 
 class Mesh:
-    """An object array of logical devices with named axes."""
+    """An object array of logical devices with named axes.
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    `ordinals` numbers the devices in mesh order (a copy between two
+    positions is a handoff even on one card); `processes` names the
+    process that drives each (all 0 in one process)."""
+
+    def __init__(self, devices, axis_names: Sequence[str], processes=None):
         arr = np.asarray(devices, dtype=object)
         if arr.ndim != len(axis_names):
             raise PipelineError(
@@ -87,6 +99,10 @@ class Mesh:
                 f"{tuple(axis_names)}")
         self.devices = arr
         self.axis_names = tuple(axis_names)
+        self.ordinals = np.arange(arr.size).reshape(arr.shape)
+        self.processes = (np.zeros(arr.shape, dtype=int) if processes is None
+                          else np.asarray(processes, dtype=int)
+                          .reshape(arr.shape))
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -99,13 +115,43 @@ class Mesh:
     def along(self, axis: str, at: Optional[Dict[str, int]] = None) -> list:
         """The devices along `axis`, every other axis at its index in `at`
         (0 where `at` does not name it)."""
+        return list(self.devices[self._line(axis, at)])
+
+    def ordinals_along(self, axis: str,
+                       at: Optional[Dict[str, int]] = None) -> List[int]:
+        """The ordinals of `along`'s devices."""
+        return [int(o) for o in self.ordinals[self._line(axis, at)]]
+
+    def processes_along(self, axis: str,
+                        at: Optional[Dict[str, int]] = None) -> List[int]:
+        """The process that drives each of `along`'s devices."""
+        return [int(p) for p in self.processes[self._line(axis, at)]]
+
+    def _line(self, axis: str, at: Optional[Dict[str, int]]) -> tuple:
         if axis not in self.axis_names:
             raise PipelineError(
                 f"mesh has no axis {axis!r}; axes {self.axis_names}")
         at = at or {}
-        idx = tuple(slice(None) if name == axis else int(at.get(name, 0))
-                    for name in self.axis_names)
-        return list(self.devices[idx])
+        return tuple(slice(None) if name == axis else int(at.get(name, 0))
+                     for name in self.axis_names)
+
+
+class Moves:
+    """Copies between logical devices, counted: `to(t, dev, src, dst)` is
+    ``t.to(dev, non_blocking=True)`` (no copy where the two share a card:
+    the tensor is read where it lies, as ring_attention's rotations are),
+    counted when ordinals `src` and `dst` differ. Thread-safe: the
+    sharded train step's shard threads share one."""
+
+    def __init__(self):
+        self.count = 0
+        self._lock = threading.Lock()
+
+    def to(self, t, dev, src: int, dst: int):
+        if src != dst:
+            with self._lock:
+                self.count += 1
+        return t.to(dev, non_blocking=True)
 
 
 def make_mesh(spec: MeshSpec = MeshSpec(), devices=None) -> Mesh:
@@ -211,6 +257,19 @@ def param_specs(params, mesh: Mesh,
             for path, leaf in param_leaves(params)}
 
 
+@dataclass(frozen=True)
+class Sharding:
+    """A spec on a mesh (JAX's NamedSharding): `spec` names per dim the
+    axis of `mesh` the dim is split over."""
+
+    mesh: Mesh
+    spec: Spec
+
+
+def sharding_for(mesh: Mesh, spec: Spec) -> Sharding:
+    return Sharding(mesh, tuple(spec))
+
+
 def split_dim(spec: Spec) -> Optional[int]:
     """The one dim a spec splits, or None for a replicated leaf."""
     dims = [i for i, ax in enumerate(spec) if ax is not None]
@@ -218,14 +277,15 @@ def split_dim(spec: Spec) -> Optional[int]:
 
 
 def shard_params(params, mesh: Mesh, axis: str = "tp",
-                 rules: Optional[Sequence[Tuple[str, Spec]]] = None
-                 ) -> Dict[str, dict]:
-    """Place every leaf by its rule over the devices along `axis`:
-    {path: {"spec", "dim", "parts"}} where a split leaf's parts are its
-    contiguous slices along `dim`, slice i on device i, and a replicated
-    leaf is one whole copy on the axis's first device (one controller
-    needs one). Leaves are copied (`torch.Tensor.to`), never aliased."""
-    devs = mesh.along(axis)
+                 rules: Optional[Sequence[Tuple[str, Spec]]] = None,
+                 at: Optional[Dict[str, int]] = None) -> Dict[str, dict]:
+    """Place every leaf by its rule over the devices along `axis` (the
+    other axes at `at`, as `Mesh.along`): {path: {"spec", "dim",
+    "parts"}} where a split leaf's parts are its contiguous slices along
+    `dim`, slice i on device i, and a replicated leaf is one whole copy
+    on the axis's first device (one controller needs one). Leaves are
+    copied (`torch.Tensor.to`), never aliased."""
+    devs = mesh.along(axis, at)
     specs = param_specs(params, mesh, rules)
     placed: Dict[str, dict] = {}
     for path, leaf in param_leaves(params):
@@ -240,3 +300,30 @@ def shard_params(params, mesh: Mesh, axis: str = "tp",
                      zip(torch.chunk(t, len(devs), dim=dim), devs)]
         placed[path] = {"spec": spec, "dim": dim, "parts": parts}
     return placed
+
+
+def rebuild_tree(tree, full: Dict[str, torch.Tensor], path=()):
+    """`tree` (dict/list/tuple of leaves) with every leaf replaced by
+    ``full[<its /-joined path>]`` (`param_leaves`' paths)."""
+    if isinstance(tree, dict):
+        return {k: rebuild_tree(v, full, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(rebuild_tree(v, full, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return full.get("/".join(path), tree)
+
+
+class FnCall(torch.nn.Module):
+    """``fn(module, *xs)`` as a module of its own: `torch.func.
+    functional_call` swaps whole leaves in under the ``m.`` prefix (a
+    module's params held elsewhere, serving/sharding.py and
+    parallel/train.py)."""
+
+    def __init__(self, fn, module: torch.nn.Module):
+        super().__init__()
+        self.fn = fn
+        self.m = module
+
+    def forward(self, *xs):
+        return self.fn(self.m, *xs)

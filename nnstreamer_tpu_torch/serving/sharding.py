@@ -70,6 +70,7 @@ from nnstreamer_tpu_torch.core.log import get_logger
 from nnstreamer_tpu_torch.llm.paged_model import _rope_rows
 from nnstreamer_tpu_torch.models.transformer import (
     _expand_kv, _mlp, _qkv, attend, rmsnorm, rope)
+from nnstreamer_tpu_torch.parallel.mesh import FnCall, rebuild_tree
 from nnstreamer_tpu_torch.serving.placement import (
     VIRTUAL_DEVICES_HINT, ChipLeaseTable, ReplicaSet, device_of,
     visible_devices)
@@ -119,32 +120,6 @@ def dense_shard_rules():
         ("wo", ("tp", None)),
         ("wd", ("tp", None)),
     ) + tuple(default_param_rules())
-
-
-class _Call(torch.nn.Module):
-    """The unmodified model fn over a module: `functional_call` swaps in
-    the gathered params and buffers under the ``m.`` prefix."""
-
-    def __init__(self, fn, module: torch.nn.Module):
-        super().__init__()
-        self.fn = fn
-        self.m = module
-
-    def forward(self, *xs):
-        return self.fn(self.m, *xs)
-
-
-def _rebuild(tree, full: Dict[str, torch.Tensor], path=()):
-    """`tree` (dict/list/tuple of leaves) with every leaf replaced by
-    ``full[<its /-joined path>]``."""
-    if isinstance(tree, dict):
-        return {k: _rebuild(v, full, path + (str(k),))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, full, path + (str(i),))
-                          for i, v in enumerate(tree))
-    key = "/".join(path)
-    return full.get(key, tree)
 
 
 class ShardedBackend:
@@ -234,7 +209,7 @@ class ShardedBackend:
         ver["placed"] = shard_params(params, self.mesh, "tp",
                                      dense_shard_rules())
         if isinstance(params, torch.nn.Module):
-            ver["skeleton"] = _Call(bundle.fn, params_on_meta(params).eval())
+            ver["skeleton"] = FnCall(bundle.fn, params_on_meta(params).eval())
         return ver
 
     def _gather(self, ver: dict) -> Dict[str, torch.Tensor]:
@@ -314,7 +289,7 @@ class ShardedBackend:
                 full = {"m." + k: v for k, v in self._gather(ver).items()}
                 out = torch.func.functional_call(ver["skeleton"], full, xs)
             elif ver["placed"]:
-                out = ver["fn"](_rebuild(ver["tree"], self._gather(ver)),
+                out = ver["fn"](rebuild_tree(ver["tree"], self._gather(ver)),
                                 *xs)
             else:
                 out = ver["fn"](ver["tree"], *xs)

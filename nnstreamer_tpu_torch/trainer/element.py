@@ -11,12 +11,16 @@ Properties:
               module exposes loss_fn(params, x, y) and init_params
 - optimizer:  "sgd:<lr>" | "adam:<lr>" | "adamw:<lr>" (torch.optim with
               optax's algebra and defaults, parallel/train.py)
-- mesh:       sharding over a device mesh waits for ROADMAP Queue 1
-              item 6; a non-empty value is refused at negotiation
+- mesh:       "dp=4,tp=2" — shard the step over a mesh of the logical
+              devices (parallel/train.py: global-batch BN, each tp-split
+              leaf kept as its slices); the state lives on the mesh and
+              x and the labels are staged on its first device
 - checkpoint_dir + checkpoint_every: the full train state (params,
               optimizer moments, step) every N steps, one `torch.save`
-              file `step_<n>/state.pt`; resume_from restores it (a
-              params-only file restores the params with fresh moments)
+              file `step_<n>/state.pt`, whole leaves also under a mesh
+              (it resumes with a mesh or without); resume_from restores
+              it (a params-only file restores the params with fresh
+              moments) and places it on the mesh again
 - accelerator: the device the state lives on, as a filter's ("cuda",
               "cuda:<i>", "cpu"; empty = [filter] accelerator). x and the
               labels are staged there; the loss crosses back in one
@@ -61,6 +65,18 @@ def _parse_optimizer(s: str) -> T.Optimizer:
         f"unknown optimizer {s!r}; use sgd:<lr> | adam:<lr> | adamw:<lr>")
 
 
+def _parse_mesh(s: str):
+    if not s:
+        return None
+    from nnstreamer_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    kw = {}
+    for part in s.split(","):
+        k, _, v = part.partition("=")
+        kw[k.strip()] = int(v)
+    return make_mesh(MeshSpec(**kw))
+
+
 def _to_device(params, device: torch.device):
     """A module or tensor tree on `device` (a module moves in place)."""
     if isinstance(params, torch.nn.Module):
@@ -101,6 +117,7 @@ class TensorTrainer(Element):
         self._state = None
         self._loss_fn = None
         self._device = None
+        self._mesh = None
         self.steps = 0
 
     def _resolve_loss(self):
@@ -142,22 +159,22 @@ class TensorTrainer(Element):
             self.fail_negotiation(
                 f"tensor_trainer takes (x, label) 2-tensor frames (pair "
                 f"them with tensor_mux); got {spec.num_tensors} tensors")
-        if self.props["mesh"]:
-            raise PipelineError(
-                f"tensor_trainer {self.name}: mesh={self.props['mesh']!r}: "
-                f"training sharded over a device mesh is not ported yet "
-                f"(ROADMAP Queue 1 item 6); leave mesh empty to train on "
-                f"one device")
         self._loss_fn, params = self._resolve_loss()
         if params is None:
             self.fail_negotiation(
                 "callable loss models must be passed with explicit params "
                 "— use the zoo:// form instead")
         opt = _parse_optimizer(self.props["optimizer"])
-        self._device = pick_device(self.props["accelerator"])
+        mesh = self._mesh = _parse_mesh(self.props["mesh"])
+        self._device = pick_device(self.props["accelerator"]) \
+            if mesh is None else mesh.devices.flat[0]
         params = _to_device(params, self._device)
         self._state = T.init_state(params, opt)
-        self._step_fn = T.make_train_step(self._loss_fn, opt)
+        if mesh is not None:
+            self._state = T.shard_state(self._state, mesh)
+        # batch_spec defaults to dp-split leading dims inside
+        # make_train_step: spec construction stays in parallel/
+        self._step_fn = T.make_train_step(self._loss_fn, opt, mesh=mesh)
         if self.props["resume_from"]:
             self.restore_checkpoint(self.props["resume_from"])
         return [TensorsSpec.of(TensorInfo((1,), DType.FLOAT32),
@@ -192,18 +209,21 @@ class TensorTrainer(Element):
         path = Path(self.props["checkpoint_dir"]) / f"step_{self.steps}"
         path.mkdir(parents=True, exist_ok=True)
         tmp = path / (CHECKPOINT_FILE + ".tmp")
-        torch.save({"params": _params_state(self._state.params),
-                    "opt_state": self._state.opt_state.state_dict(),
-                    "step": self._state.step}, tmp)
+        # under a mesh: whole leaves, the moments of each concatenated
+        state = T.unshard_state(self._state, torch.device("cpu"))
+        torch.save({"params": _params_state(state.params),
+                    "opt_state": state.opt_state.state_dict(),
+                    "step": state.step}, tmp)
         os.replace(tmp, path / CHECKPOINT_FILE)
         log.info("trainer %s: checkpoint at step %d → %s",
                  self.name, self.steps, path)
 
     def restore_checkpoint(self, path: str) -> None:
-        """Restore a checkpoint directory into the live state, in place.
-        A file that holds only params (a module's state dict or the
-        tensor tree) restores them with fresh moments and the current
-        step."""
+        """Restore a checkpoint directory into the live state, in place
+        (under a mesh: into the whole leaves, then placed on the mesh
+        again, as JAX re-places a restored state). A file that holds only
+        params (a module's state dict or the tensor tree) restores them
+        with fresh moments and the current step."""
         if not os.path.isdir(path):
             raise PipelineError(
                 f"trainer {self.name}: resume checkpoint {path!r} does "
@@ -214,6 +234,7 @@ class TensorTrainer(Element):
                           weights_only=True)
         full = isinstance(blob, dict) and set(blob) == _FULL_KEYS
         params = blob["params"] if full else blob
+        self._state = T.unshard_state(self._state, self._device)
         live = self._state.params
         with torch.no_grad():
             if isinstance(live, torch.nn.Module):
@@ -234,6 +255,8 @@ class TensorTrainer(Element):
             log.warning(
                 "trainer %s: %s is a legacy params-only checkpoint; "
                 "optimizer state restarts fresh", self.name, path)
+        if self._mesh is not None:
+            self._state = T.shard_state(self._state, self._mesh)
         self.steps = self._state.step
         log.info("trainer %s: resumed from %s at step %d",
                  self.name, path, self.steps)

@@ -95,6 +95,12 @@ import nnstreamer_tpu_torch.elements
 import nnstreamer_tpu_torch.interop.grpc_elements
 import nnstreamer_tpu_torch.trainer.element
 import nnstreamer_tpu_torch.parallel.train
+import nnstreamer_tpu_torch.parallel
+import nnstreamer_tpu_torch.parallel.pipeline
+import nnstreamer_tpu_torch.parallel.moe
+import nnstreamer_tpu_torch.parallel.multihost
+import nnstreamer_tpu_torch.parallel.dryrun
+import nnstreamer_tpu_torch.tools.multihost_check
 bad = [m for m in sys.modules if m in ("jax", "nnstreamer_tpu")
        or m.startswith(("jax.", "nnstreamer_tpu."))]
 assert not bad, bad
@@ -145,7 +151,16 @@ SLICE_MODULES = ("serving/placement.py", "serving/sharding.py",
                  "__main__.py")
 
 
-@pytest.mark.parametrize("rel", SLICE_MODULES)
+#: the modules of the rest of parallel/ and the multi-host check's
+#: worker script: the scan above must reach each of them
+PARALLEL_MODULES = ("parallel/__init__.py", "parallel/dispatch.py",
+                    "parallel/train.py", "parallel/pipeline.py",
+                    "parallel/moe.py", "parallel/multihost.py",
+                    "parallel/dryrun.py", "tools/multihost_check.py",
+                    "trainer/element.py", "edge/query.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES + PARALLEL_MODULES)
 def test_scan_covers_the_placement_and_profiler_modules(rel):
     path = PORT / rel
     assert path in sorted(PORT.rglob("*.py"))

@@ -665,10 +665,45 @@ def test_dispatcher_matches_the_unbatched_fn():
         d.shutdown()
 
 
-def test_batched_server_refuses_a_mesh():
-    with pytest.raises(StreamError, match="Queue 1 item 6"):
-        BatchedQueryServer("zoo://probe_scale", mesh=object(),
-                           accelerator="cpu")
+def test_batched_server_shards_over_a_mesh(monkeypatch):
+    """``mesh=`` (dp 4 of 4 logical CPU devices, bucket 8): 12 frames from
+    one client answered in order with the known answer (`pre` doubles,
+    probe_scale doubles again); every batch ran on the 4 shards, `pre`
+    once a shard batch."""
+    from nnstreamer_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+
+    monkeypatch.setenv("NNSTREAMER_TPU_TORCH_PARALLEL_VIRTUAL_DEVICES", "4")
+    pre_rows = []
+
+    def pre(x):
+        pre_rows.append(x.shape[0])
+        return x * 2.0
+
+    srv = BatchedQueryServer("zoo://probe_scale", sid=56, port=0, bucket=8,
+                             max_delay_ms=5.0, pre=pre,
+                             mesh=make_mesh(MeshSpec(dp=4)))
+    xs = [np.full((8, 1), i, np.float32) for i in range(12)]
+    try:
+        pipe = tnns.parse_launch(
+            f"appsrc name=src dims=1:8 types=float32 ! tensor_query_client "
+            f"port={srv.port} timeout=60 max_in_flight=4 ! "
+            f"tensor_sink name=out")
+        rn = tnns.PipelineRunner(pipe).start()
+        for i, x in enumerate(xs):
+            pipe.get("src").push(TensorBuffer.of(x, pts=i))
+        pipe.get("src").end()
+        rn.wait(60)
+        rn.stop()
+        res = pipe.get("out").results
+        assert [r.pts for r in res] == list(range(12))
+        for r, x in zip(res, xs):
+            np.testing.assert_array_equal(np.asarray(r.tensors[0]), 4 * x)
+        st = srv.stats()
+        assert st["frames"] == 12 and srv.dispatcher.buckets == [4, 8]
+        assert st["shard_batches"] == [st["batches"]] * 4
+        assert len(pre_rows) >= 4 * st["batches"]
+    finally:
+        srv.close()
 
 
 def _batched_clients(port, frames_of, n_clients=4, nns=tnns,
