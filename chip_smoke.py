@@ -491,7 +491,11 @@ phases there). Phases:
    bundle per cooldown window, `flight --json` and `flight --inspect`
    read back; the profiler's cost, B closed loop off on on off;
    normalize_u8 on R2, SH2 and SEG counted by its wrapper and by name in
-   one profile (profiled_agreement);
+   one profile (profiled_agreement); the plain run's `--profile DIR` on B
+   over PROF_CLI_FRAMES frames (main in this process): exit 0, the
+   Chrome trace it names parses and holds the card's kernels (at least
+   one; the profiler drops records, so no exact count), normalize_u8
+   launched once a frame;
 50. Queue 1 item 4g: pipeline B from a two-host serving mesh — a port
    MeshRouter over two 1-worker pools of B's two filters (phase 45's
    pool_start: store://mobilenet_v2 @0, @2 preloaded), each joined by
@@ -512,7 +516,12 @@ phases there). Phases:
    done, the tokens equal the pallas run's but for near-ties (LLM_TIE);
    both paged kernels at the subcommand's shapes (4 heads of 16 on 4 kv
    heads, block 16, q f32) within PAGED_REL/PAGED_ABS of their plain
-   versions;
+   versions; then tensor_llm on the same model, 2 requests, with the
+   device profiler on (LLM_PROF_*): its model:<element> row equal to the
+   placed params plus the KV pool's k and v (all on the card), an invoke
+   row for every bucket the executor ran with one sample a dispatch,
+   a first-run row for each, and the paged wrappers' launches equal to
+   the profiler's records by name (profiled_agreement);
 52. Queue 1 item 4h: pipeline B's two filters in a 1-worker pool (phase
    45's pool_start, traced), its capacity from a burst of 16 after 4
    warm-up frames, then flooded open loop by the port's own `traffic`
@@ -9362,6 +9371,53 @@ def new_paths_agreement(nt, torch, card, record) -> None:
     check(launched == 3 * len(frames), f"new paths: {launched} launches")
 
 
+#: phase 49: frames of the plain run's --profile check
+PROF_CLI_FRAMES = 4
+
+
+def profile_cli_check(torch, card, record) -> int:
+    """Phase 49: `main(['--profile', DIR, B over PROF_CLI_FRAMES frames])`
+    in this process: exit 0, the Chrome trace it names on stderr parses
+    and holds at least one of the card's kernels (the profiler drops
+    records now and then, so no exact count). → normalize_u8's launches
+    in the run."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from nnstreamer_tpu_torch.__main__ import main as cli
+    from nnstreamer_tpu_torch.backends import kernels
+
+    out_dir = tempfile.mkdtemp(prefix="chip_profile_")
+    err = io.StringIO()
+    kernels.normalize_u8.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli(["--profile", out_dir, b_desc(PROF_CLI_FRAMES)])
+    wall = time.perf_counter() - t0
+    launched = kernels.normalize_u8.launches
+    path = os.path.join(out_dir, "trace.json")
+    events = json.loads(Path(path).read_text())["traceEvents"] \
+        if os.path.exists(path) else []
+    kern = Counter(e["name"] for e in events if e.get("cat") == "kernel")
+    norm = sum(n for k, n in kern.items() if "nns_normalize_kernel" in k)
+    record["profile_cli"] = {
+        "rc": rc, "seconds": wall, "events": len(events),
+        "kernel_events": sum(kern.values()), "kernel_names": len(kern),
+        "normalize_records": norm, "launches": launched}
+    print(f"phase 49: main(['--profile', DIR, B over {PROF_CLI_FRAMES} "
+          f"frames]): exit {rc} in {wall:.2f} s; {path}: {len(events)} "
+          f"events, {sum(kern.values())} kernel records of {len(kern)} "
+          f"kernels ({norm} nns_normalize_kernel), normalize_u8 launched "
+          f"{launched} times by its wrapper [{card}]")
+    check(rc == 0 and path in err.getvalue() and sum(kern.values()) > 0
+          and launched == PROF_CLI_FRAMES,
+          f"--profile: {record['profile_cli']}, stderr "
+          f"{err.getvalue()[-500:]!r}")
+    return launched
+
+
 def placement_phases(nt, torch, card, record, phases) -> dict:
     """Phases 47-49 on PLC_DEVICES logical devices. → normalize_u8's
     launches on the new paths."""
@@ -9376,6 +9432,7 @@ def placement_phases(nt, torch, card, record, phases) -> dict:
         phases.done("48 (device segments: SEG, its windows, the plan)")
         launched += profiler_phase(nt, torch, card, record)
         new_paths_agreement(nt, torch, card, record)
+        launched += profile_cli_check(torch, card, record)
         phases.done("49 (the device profiler, /metrics, the flight "
                     "recorder)")
     finally:
@@ -9396,6 +9453,13 @@ MESH_WARM, MESH_CAP_FRAMES = 4, 16
 MESH_LOAD_X, MESH_LEASE_S, MESH_HEAL_AFTER_S = 1.5, 1.0, 2.5
 #: phase 51: requests of the llm subcommand
 LLM_CLI_REQUESTS = 4
+#: phase 51: tensor_llm under the device profiler: the llm subcommand's
+#: model and pool, 2 of its prompts, prewarmed to their buckets
+LLM_PROF_PROPS = dict(model="store://transformer", n_heads=4,
+                      paged_kernel="pallas", prefill_chunk=0,
+                      block_size=16, max_len=128,
+                      num_blocks=64, max_batch=2, prewarm=16)
+LLM_PROF_REQUESTS, LLM_PROF_TOKENS = 2, 8
 
 
 def mesh_flood(router_port, frames, arrivals, trace):
@@ -9792,6 +9856,87 @@ def llm_cli_phase(nt, torch, card, record) -> dict:
     return launches
 
 
+def llm_profiler_check(nt, torch, card, record) -> dict:
+    """Phase 51: tensor_llm with the device profiler on, in profiled runs
+    until the paged wrappers' launches equal the profiler's records by
+    name (profiled_agreement): the model:<element> row against the placed
+    params plus the pool's k and v, counted here from the tensors on the
+    card; an invoke row for every (kind, bucket) the executor ran, one
+    sample a dispatch (warm runs included); a first-run row for each but
+    the decode windows'. → the paged wrappers' launches in the agreeing
+    run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.runtime import devprof
+
+    prompts = llm_cli_prompts()[:LLM_PROF_REQUESTS]
+    dp = devprof.get()
+
+    def attempt():
+        dp.reset()
+        dp.enable(True)
+        try:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            _, llm, wall, launches = serve(
+                nt, torch, prompts, prof=prof, new_tokens=LLM_PROF_TOKENS,
+                **LLM_PROF_PROPS)
+            st = dp.stats()
+        finally:
+            dp.enable(False)
+        paged = {k: launches[k] for k in ("paged_decode_attn",
+                                          "paged_prefill_attn")}
+        return paged, named_launches(prof, paged), (llm, wall, st, paged)
+
+    (llm, wall, st, paged), tries = profiled_agreement("phase 51: profiled "
+                                                       "tensor_llm", attempt)
+    ex = llm.engine.executor
+    tensors = [t for t in _leaves(ex.params) + [ex.cache.k, ex.cache.v]]
+    want = sum(t.numel() * t.element_size() for t in tensors)
+    on_card = all(t.is_cuda for t in tensors)
+    rows = {r["kind"]: r["bytes"] for r in st["hbm"] if r["device"] == "-"}
+    ran = {f"{k[0]}:{k[1]}x{k[2]}" if k[0] == "decmulti"
+           else f"{k[0]}:{k[1]}" for k in ex._seen}
+    inv = {r["bucket"]: r["samples_total"] for r in st["invoke"]
+           if r["filter"] == llm.name}
+    jit = {r["bucket"] for r in st["jit"] if r["filter"] == llm.name}
+    dispatches = (ex.prefills + ex.chunk_prefills + ex.decode_steps
+                  - ex.window_steps + ex.decode_windows + llm.warm_compiles)
+    res = {"model_row": rows.get(f"model:{llm.name}"), "want_bytes": want,
+           "on_card": on_card, "buckets": sorted(inv), "ran": sorted(ran),
+           "samples": sum(inv.values()), "dispatches": dispatches,
+           "jit": sorted(jit), "launches": paged, "tries": tries,
+           "seconds": wall,
+           "p50_ms": {r["bucket"]: r["p50_ms"] for r in st["invoke"]
+                      if r["filter"] == llm.name}}
+    record["llm_profiler"] = res
+    print(f"phase 51: tensor_llm ({LLM_PROF_REQUESTS} requests, "
+          f"{LLM_PROF_TOKENS} tokens each, paged kernels) with the device "
+          f"profiler on: model:{llm.name} {res['model_row']} bytes against "
+          f"the placed params + k + v {want} (on the card: {on_card}); "
+          f"invoke rows {res['buckets']} against the buckets run "
+          f"{res['ran']}, {res['samples']} samples for {dispatches} "
+          f"dispatches; first-run rows {res['jit']}; device ms an invoke "
+          f"(p50) {res['p50_ms']}; the paged wrappers' launches {paged} = "
+          f"the profiler's by name (profiled run {tries}); {wall:.2f} s "
+          f"[{card}]")
+    check(res["model_row"] == float(want) and on_card
+          and set(inv) == ran and res["samples"] == dispatches
+          and jit == {b for b in ran if not b.startswith("decmulti")}
+          and all(n > 0 for n in paged.values()),
+          f"tensor_llm under the profiler: {res}")
+    return paged
+
+
+def _leaves(tree) -> list:
+    """The tensors of a params tree (dicts and lists)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
 def mesh_phases(nt, torch, card, record, phases) -> tuple:
     """Phases 50-51. → (normalize_u8's launches in the mesh's children,
     the paged wrappers' launches in the llm subcommand)."""
@@ -9799,7 +9944,9 @@ def mesh_phases(nt, torch, card, record, phases) -> tuple:
     phases.done("50 (pipeline B from a two-host mesh through a partition "
                 "and a swap)")
     paged = llm_cli_phase(nt, torch, card, record)
-    phases.done("51 (the llm subcommand)")
+    for k, n in llm_profiler_check(nt, torch, card, record).items():
+        paged[k] += n
+    phases.done("51 (the llm subcommand, tensor_llm under the profiler)")
     return {"mesh": launched}, paged
 
 

@@ -38,19 +38,106 @@
     python -m nnstreamer_tpu_torch scenario run|replay|shrink|list
                                             # seeded adversarial drills
 
+    python -m nnstreamer_tpu_torch lint [--json]  # project static
+                                            #  analysis (nnlint)
+    python -m nnstreamer_tpu_torch --inspect [ELEMENT]  # elements /
+                                            #  element detail
+    python -m nnstreamer_tpu_torch --models  # list zoo models
+    python -m nnstreamer_tpu_torch --profile DIR '...pipeline...'
+                                            # torch.profiler Chrome trace
+    python -m nnstreamer_tpu_torch --broker [PORT] [--bind ADDR]
+                                            # standalone EdgeBroker
+
 Runs the pipeline string to EOS on the CUDA device (set
 NNSTREAMER_TPU_TORCH_FILTER_ACCELERATOR=cpu to run on the CPU).
-The JAX package's `lint` subcommand is not ported yet: it exits 2
-naming the item that brings it.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
 import time
+
+
+def _inspect(name: str | None) -> int:
+    """`--inspect [ELEMENT]`: the registry's elements and decoder modes,
+    or one element's doc and properties (gst-inspect-1.0 parity)."""
+    import nnstreamer_tpu_torch.elements  # noqa: F401 (register built-ins)
+    from nnstreamer_tpu_torch.core.registry import PluginKind, registry
+
+    if not name:
+        print("elements:")
+        for n in sorted(registry.names(PluginKind.ELEMENT)):
+            cls = registry.get(PluginKind.ELEMENT, n)
+            doc = (cls.__doc__ or "").strip().splitlines()
+            print(f"  {n:24s} {doc[0] if doc else ''}")
+        print("\ndecoder modes:")
+        import nnstreamer_tpu_torch.decoders  # noqa: F401
+
+        for n in sorted(registry.names(PluginKind.DECODER)):
+            print(f"  {n}")
+        return 0
+    cls = registry.get(PluginKind.ELEMENT, name)
+    print(f"element {name} ({cls.__name__})")
+    if cls.__doc__:
+        print(cls.__doc__)
+    print("properties:")
+    for prop, pd in cls.PROPS.items():
+        print(f"  {prop.replace('_', '-'):24s} default={pd.default!r}  {pd.doc}")
+    return 0
+
+
+def _models() -> int:
+    """`--models`: the zoo's builtin model names."""
+    from nnstreamer_tpu_torch.models.zoo import list_models
+
+    for m in list_models():
+        print(f"zoo://{m}")
+    return 0
+
+
+def _broker(bind: str, port: int) -> int:
+    """`--broker [PORT]`: a standalone EdgeBroker (discovery, pub/sub,
+    the clock service, MQTT 3.1.1 on a second port) until SIGINT."""
+    from nnstreamer_tpu_torch.edge.broker import EdgeBroker
+
+    broker = EdgeBroker(bind, port)
+    print(f"edge broker listening on {bind}:{broker.port} "
+          f"(mqtt 3.1.1 on :{broker.mqtt_port}; ^C to stop)",
+          file=sys.stderr, flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        broker.close()
+        return 0
+
+
+@contextlib.contextmanager
+def _profile(out_dir):
+    """`--profile DIR` around a run: a torch.profiler capture (CPU ops,
+    plus CUDA kernels when CUDA is available) written as a Chrome trace
+    JSON into DIR, which stderr names. The JAX package writes an xprof
+    trace there instead (ROADMAP N43). No DIR, no capture."""
+    if not out_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"device trace written to {path} (Chrome trace: open in "
+          f"Perfetto or chrome://tracing)", file=sys.stderr)
 
 
 def _trace_main(argv) -> int:
@@ -601,13 +688,6 @@ def _mesh_main(argv) -> int:
     return 0 if ok else 1
 
 
-#: subcommands of the JAX package the port does not have yet, and the
-#: ROADMAP Queue 1 item that brings each
-_NOT_PORTED = {
-    "lint": "item 5d: analysis/",
-}
-
-
 def _top_main(argv) -> int:
     """`top` subcommand: live terminal view over any /metrics
     exposition endpoint (serving/metrics.py) — counters as rates,
@@ -1112,21 +1192,44 @@ def main(argv=None) -> int:
         return _traffic_main(argv[1:])
     if argv and argv[0] == "scenario":
         return _scenario_main(argv[1:])
-    if argv and argv[0] in _NOT_PORTED:
-        print(f"{argv[0]}: not ported yet (ROADMAP Queue 1 "
-              f"{_NOT_PORTED[argv[0]]})", file=sys.stderr)
-        return 2
+    if argv and argv[0] == "lint":
+        from nnstreamer_tpu_torch.analysis.cli import main as lint_main
+
+        return lint_main(argv[1:])
     ap = argparse.ArgumentParser(
         prog="nnstreamer_tpu_torch",
         description="streaming AI pipelines on PyTorch/CUDA (gst-launch parity)")
-    ap.add_argument("pipeline", help="pipeline description string")
+    ap.add_argument("pipeline", nargs="?", help="pipeline description string")
+    ap.add_argument("--inspect", nargs="?", const="", default=None,
+                    metavar="ELEMENT", help="list elements / element detail")
+    ap.add_argument("--models", action="store_true", help="list zoo models")
     ap.add_argument("--timeout", type=float, default=None,
                     help="max run seconds")
     ap.add_argument("--stats", action="store_true",
                     help="print per-element stats JSON after EOS")
     ap.add_argument("--no-optimize", action="store_true",
                     help="disable transform-into-filter fusion")
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="write a torch.profiler Chrome trace of the run "
+                         "(host ops, plus the card's kernels when CUDA is "
+                         "available) into DIR")
+    ap.add_argument("--broker", nargs="?", const=1883, default=None,
+                    type=int, metavar="PORT",
+                    help="run a standalone EdgeBroker (discovery + pub/sub "
+                         "+ clock service) on PORT (default 1883)")
+    ap.add_argument("--bind", default="0.0.0.0",
+                    help="bind address for --broker (default 0.0.0.0)")
     args = ap.parse_args(argv)
+
+    if args.broker is not None:
+        return _broker(args.bind, args.broker)
+    if args.inspect is not None:
+        return _inspect(args.inspect or None)
+    if args.models:
+        return _models()
+    if not args.pipeline:
+        ap.print_help()
+        return 2
 
     from nnstreamer_tpu_torch.graph.parse import parse_launch
     from nnstreamer_tpu_torch.runtime.scheduler import PipelineRunner
@@ -1134,7 +1237,8 @@ def main(argv=None) -> int:
     runner = PipelineRunner(parse_launch(args.pipeline),
                             optimize=not args.no_optimize)
     try:
-        runner.run(args.timeout)
+        with _profile(args.profile):
+            runner.run(args.timeout)
     except KeyboardInterrupt:
         print("interrupted", file=sys.stderr)
         return 130

@@ -90,6 +90,20 @@ class FilterBackend:
     #: the backend was never touched)
     invoke_failures: int = 0
 
+    def version_stats(self) -> Dict[int, dict]:
+        """Per-version serving counters of a store-bound backend
+        ({version: {invokes, errors, p95_us}}); empty otherwise.
+        tensor_filter's extra_stats surfaces them for canary
+        comparisons."""
+        return {}
+
+    def warm_start(self) -> int:
+        """Off-hot-path warm-up, called by the owning element's start():
+        a store-bound backend replays its persistent bucket manifest here
+        (serving/compile_cache.py). → buckets run; the default runs
+        none."""
+        return 0
+
     def open(self, props: Dict[str, Any]) -> None:
         """Load the model described by element properties (fw->open)."""
         raise NotImplementedError

@@ -264,7 +264,7 @@ class _ClampArgs:
             self.ilo, self.ihi = inward(lo, math.ceil), inward(hi, math.floor)
         elif dtype != torch.float64:
             lo, hi, scale, offset = (
-                torch.tensor(v, dtype=torch.float32).to(dtype).item()
+                torch.tensor(v, dtype=torch.float32).to(dtype).item()  # nnlint: disable=NNL002 a CPU scalar: rounds a constant to the stream dtype on the host
                 for v in (lo, hi, scale, offset))
         self.lo, self.hi, self.scale, self.offset = lo, hi, scale, offset
         self.fold_add = offset == 0.0 and math.copysign(1.0, offset) > 0

@@ -50,6 +50,15 @@ is float-only and refuses chunked prefill and ``paged_kernel=pallas``
 ``warm_start`` replays the persistent bucket manifest
 (serving/compile_cache.py) at element start, when it is on.
 
+The device profiler (runtime/devprof.py), when on, sees every dispatch
+under the JAX package's bucket names (``prefill:N``, ``ring:N``,
+``chunk:N``, ``decode:N``, ``decmulti:BxK``; a warm run under the bucket
+it warms): a CUDA-event pair around the launches, read at the next
+``device_sync`` on the engine's thread, as the filter path does it. A
+bucket's first run (served or warm; not a window, as in JAX) is also
+counted under FlopCounterMode (`capture_cost`), and the executor shows
+as the ``model:<name>`` row of the memory ledger (`resident_bytes`).
+
 The compiled decode window (``decode_multi``, the engine's
 ``decode_window``) runs K greedy decode steps with the sampled token
 fed back on the device (``torch.argmax``, the first maximum, as the
@@ -78,6 +87,7 @@ from nnstreamer_tpu_torch.backends.base import pick_device
 from nnstreamer_tpu_torch.core.errors import BackendError
 from nnstreamer_tpu_torch.core.log import get_logger
 from nnstreamer_tpu_torch.llm.paged_cache import SCRATCH_BLOCK, PagedKVCache
+from nnstreamer_tpu_torch.runtime import devprof
 from nnstreamer_tpu_torch.runtime.sync import to_host
 from nnstreamer_tpu_torch.runtime.tracing import NULL_TRACER
 
@@ -382,6 +392,42 @@ class PagedLLMExecutor:
         if self.tracer.active:
             self.tracer.backend_span(self.name, kind, t0, t1, **args)
 
+    # -- device performance plane (runtime/devprof.py) ---------------------
+    def resident_bytes(self) -> int:
+        """Device bytes this executor pins: the placed params of every
+        version held (sharded: the blocked tree and the raw tree the ring
+        runs on; staged versions too) plus the paged KV pool's k and v —
+        the executor's row of the memory ledger."""
+        trees = [self.params, self._sparams]
+        for staged in self._staged.values():
+            trees.extend(staged)
+        return devprof.tensor_bytes(*trees, self.cache.k, self.cache.v)
+
+    def _run(self, fn, params, args: tuple, kind: str, bucket,
+             fresh: bool):
+        """``fn(params, *args)`` under the profiler's hooks, as the bucket
+        ``kind:bucket``: a dispatch stamp before its launches and the
+        launched mark after them (the next ``device_sync`` on this thread
+        reads the pair); a bucket's first run is counted under
+        FlopCounterMode too (`capture_cost`, the JAX package's
+        compile-event capture). With the profiler off, one ``enabled``
+        test."""
+        prof = devprof.get()
+        if not prof.enabled:
+            return fn(params, *args, n_heads=self.n_heads, dtype=self.dtype)
+        label = f"{kind}:{bucket}"
+        prof.note_dispatch(self.name, label, self.device)
+        if fresh:
+            prof.attach_model(self.name, self)
+            out = prof.capture_cost(
+                self.name, label,
+                lambda: fn(params, *args, n_heads=self.n_heads,
+                           dtype=self.dtype), params=params, inputs=args)
+        else:
+            out = fn(params, *args, n_heads=self.n_heads, dtype=self.dtype)
+        prof.note_launched()
+        return out
+
     def _logits(self, logits, sync: bool, what: str):
         """Host (vocab,)-rows of `logits` after one traced forced sync
         when `sync`, else the device tensor."""
@@ -416,10 +462,11 @@ class PagedLLMExecutor:
         blk_off = (np.arange(s_b) % bs).astype(np.int32)
         fn, fresh = self._get_fn(kind, s_b)
         t0 = time.perf_counter()
-        logits, self.cache.k, self.cache.v = fn(
-            self._exec_params(kind), self._tensor(ids), self._tensor(blk_idx),
-            self._tensor(blk_off), self.cache.k, self.cache.v, plen - 1,
-            n_heads=self.n_heads, dtype=self.dtype)
+        params = self._exec_params(kind)
+        args = (self._tensor(ids), self._tensor(blk_idx),
+                self._tensor(blk_off), self.cache.k, self.cache.v, plen - 1)
+        logits, self.cache.k, self.cache.v = self._run(
+            fn, params, args, kind, s_b, fresh)
         out = self._logits(logits, sync, "prefill")
         kernel = "ring" if kind == "ring" else "xla"
         if fresh:
@@ -460,11 +507,11 @@ class PagedLLMExecutor:
         tab[:len(block_table)] = block_table
         fn, fresh = self._get_fn("chunk", c_b)
         t0 = time.perf_counter()
-        logits, self.cache.k, self.cache.v = fn(
-            self.params, self._tensor(ids), int(pos0),
-            self._tensor(blk_idx), self._tensor(blk_off), self._tensor(tab),
-            self.cache.k, self.cache.v, clen - 1, n_heads=self.n_heads,
-            dtype=self.dtype)
+        args = (self._tensor(ids), int(pos0), self._tensor(blk_idx),
+                self._tensor(blk_off), self._tensor(tab), self.cache.k,
+                self.cache.v, clen - 1)
+        logits, self.cache.k, self.cache.v = self._run(
+            fn, self.params, args, "chunk", c_b, fresh)
         out = self._logits(logits, sync, "prefill_chunk")
         kernel = self._kind_kernel("chunk")
         if fresh:
@@ -504,10 +551,11 @@ class PagedLLMExecutor:
         b_b = _next_pow2(n, 1)
         fn, fresh = self._get_fn("decode", b_b)
         t0 = time.perf_counter()
-        logits, self.cache.k, self.cache.v = fn(
-            self._exec_params("decode"),
-            *self._decode_inputs(cur, tables, pos, b_b), self.cache.k,
-            self.cache.v, n_heads=self.n_heads, dtype=self.dtype)
+        params = self._exec_params("decode")
+        args = (*self._decode_inputs(cur, tables, pos, b_b), self.cache.k,
+                self.cache.v)
+        logits, self.cache.k, self.cache.v = self._run(
+            fn, params, args, "decode", b_b, fresh)
         out = self._logits(logits, sync, "decode")
         kernel = self._kind_kernel("decode")
         if fresh:
@@ -556,6 +604,12 @@ class PagedLLMExecutor:
         fresh = ("decmulti",) + key not in self._seen
         inputs = self._decode_inputs(cur, tables, pos, b_b)
         t0 = time.perf_counter()
+        prof = devprof.get()
+        if prof.enabled:
+            # a window is one sample, replayed or eager (no cost capture:
+            # the JAX package captures none for its window either)
+            prof.note_dispatch(self.name, f"decmulti:{b_b}x{steps}",
+                               self.device)
         g = self._graphs.get(key)
         if g is not None:
             toks = g.run(inputs)
@@ -568,6 +622,8 @@ class PagedLLMExecutor:
                     key, body, inputs, keep=(params,),
                     what=f"llm {self.name} decode window (bucket, steps, "
                          f"kernel) {key}")
+        if prof.enabled:
+            prof.note_launched()
         self._seen.add(("decmulti",) + key)
         out = to_host((toks,), self.tracer, f"{self.name}:decmulti")[0][:n]
         t1 = time.perf_counter()
@@ -606,22 +662,19 @@ class PagedLLMExecutor:
         blk = self._tensor(np.full((bucket,), SCRATCH_BLOCK, np.int32))
         off = self._tensor(
             (np.arange(bucket) % self.cache.block_size).astype(np.int32))
+        kv = (self.cache.k, self.cache.v)
         if kind in ("prefill", "ring"):
-            logits, self.cache.k, self.cache.v = fn(
-                params, zeros[None], blk, off, self.cache.k,
-                self.cache.v, 0, n_heads=self.n_heads, dtype=self.dtype)
+            args = (zeros[None], blk, off, *kv, 0)
         elif kind == "chunk":
             tab = self._tensor(np.full((self.max_blocks,), SCRATCH_BLOCK,
                                        np.int32))
-            logits, self.cache.k, self.cache.v = fn(
-                params, zeros[None], 0, blk, off, tab, self.cache.k,
-                self.cache.v, 0, n_heads=self.n_heads, dtype=self.dtype)
+            args = (zeros[None], 0, blk, off, tab, *kv, 0)
         else:
             tab = self._tensor(np.full((bucket, self.max_blocks),
                                        SCRATCH_BLOCK, np.int32))
-            logits, self.cache.k, self.cache.v = fn(
-                params, zeros, tab, zeros, self.cache.k,
-                self.cache.v, n_heads=self.n_heads, dtype=self.dtype)
+            args = (zeros, tab, zeros, *kv)
+        logits, self.cache.k, self.cache.v = self._run(
+            fn, params, args, kind, bucket, True)
         to_host((logits,), self.tracer, f"{self.name}:warm_{kind}")
         self.compile_count += 1
         self._span("compile", t0, time.perf_counter(),

@@ -1295,11 +1295,9 @@ class TorchBackend(FilterBackend):
             if prof.enabled:
                 prof.note_launched()
             return outs
-        from torch.utils.flop_counter import FlopCounterMode
-
         self._ran.add(first)
         prof.attach_model(self._prof_label(), self)
-        counter = FlopCounterMode(display=False)
+        counter = prof.flop_counter()
         t0 = time.perf_counter()
         if on_card:
             outs = self._window_on_card(model, key, g, staged, graphs,

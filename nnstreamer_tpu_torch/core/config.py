@@ -104,6 +104,7 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
 class Config:
     def __init__(self, path: Optional[str] = None):
         self._ini: Dict[str, Dict[str, str]] = {}
+        self._path: Optional[str] = None
         candidates = [path] if path else [
             os.environ.get(CONF_ENV),
             os.path.expanduser("~/.config/nnstreamer_tpu_torch.ini"),
@@ -111,6 +112,7 @@ class Config:
         for cand in candidates:
             if cand and Path(cand).is_file():
                 self._load_ini(cand)
+                self._path = cand
                 break
 
     def _load_ini(self, path: str) -> None:
@@ -175,6 +177,19 @@ class Config:
                 f"config [{group}] {key}={v!r} is not a number") from None
 
 
+    def dump(self) -> str:
+        """The effective config, group by group (nnsconf_dump analog):
+        each key's value as `get` resolves it."""
+        lines = [f"# config file: {self._path or '(none)'}"]
+        for g in sorted(set(_DEFAULTS) | set(self._ini)):
+            lines.append(f"[{g}]")
+            keys = sorted(set(_DEFAULTS.get(g, {}))
+                          | set(self._ini.get(g, {})))
+            for k in keys:
+                lines.append(f"{k} = {self.get(g, k)}")
+        return "\n".join(lines)
+
+
 _global: Optional[Config] = None
 _global_lock = threading.Lock()
 
@@ -184,4 +199,12 @@ def get_config() -> Config:
     with _global_lock:
         if _global is None:
             _global = Config()
+        return _global
+
+
+def reset_config(path: Optional[str] = None) -> Config:
+    """Replace the global config (tests, an explicit re-load)."""
+    global _global
+    with _global_lock:
+        _global = Config(path)
         return _global

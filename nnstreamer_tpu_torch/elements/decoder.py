@@ -136,7 +136,7 @@ class TensorDecoder(Element):
         if self.props["device"]:
             # device decode emits tensors whose work may still be queued
             self.WANTS_HOST = False
-            self.DEVICE_RESIDENT = True
+            self.DEVICE_RESIDENT = True  # nnlint: disable=NNL001 residency is the device= property's choice, set before the scheduler ever reads it
 
     def negotiate(self, in_specs: Sequence[StreamSpec]) -> List[StreamSpec]:
         spec = self.expect_tensors(in_specs[0])

@@ -856,3 +856,10 @@ class TensorFilter(Element):
                 f"tensor_filter {self.name} is not reloadable; construct it "
                 f"with is-updatable=true to allow hot model swaps")
         self.backend.reload(model)
+
+
+def np_shape(x):
+    """The shape of an array, a tensor or anything numpy can read."""
+    import numpy as np
+
+    return x.shape if hasattr(x, "shape") else np.asarray(x).shape

@@ -347,6 +347,16 @@ class TensorTransform(Element):
         return [(0, buf.with_tensors(
             tuple(self.program.apply(t) for t in buf.tensors)))]
 
+    def as_elementwise(self):
+        """The program as one function over a frame's tensors (the
+        fusion hook's form: tensors in, tensors out, where they are)."""
+        program = self.program
+
+        def apply_all(tensors):
+            return tuple(program.apply(t) for t in tensors)
+
+        return apply_all
+
 
 def bilinear_weights(in_size: int, out_size: int) -> np.ndarray:
     """jax.image.resize's bilinear weights, (in_size, out_size) float32:

@@ -415,6 +415,12 @@ class Pipeline:
         self._link_specs = link_spec
         self._negotiated = True
 
+    def spec_of_link(self, link: Link) -> StreamSpec:
+        """The negotiated stream spec a link carries."""
+        if not self._negotiated:
+            raise PipelineError("pipeline not negotiated yet")
+        return self._link_specs[(link.src.name, link.src_pad)]
+
     def _validate_topology(self) -> None:
         if not self.elements:
             raise PipelineError("empty pipeline")
@@ -470,3 +476,12 @@ class Pipeline:
             raise PipelineError(
                 f"pipeline graph has a cycle involving {cyclic}")
         return order
+
+    def describe(self) -> str:
+        """Every element with its negotiated specs, then every link."""
+        lines = [f"pipeline {self.name!r}:"]
+        for e in self.elements.values():
+            lines.append(f"  {e!r} in={e.in_specs} out={e.out_specs}")
+        for l in self.links:
+            lines.append(f"  {l}")
+        return "\n".join(lines)

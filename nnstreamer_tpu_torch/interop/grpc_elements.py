@@ -365,7 +365,7 @@ class TensorSrcGrpc(SourceElement):
                 f"{self.props['host']}:{self.props['port']}")
             recv = chan.unary_stream(_RECV, request_serializer=_raw,
                                      response_deserializer=_raw)
-            call = recv(pb.EMPTY, wait_for_ready=True)
+            call = recv(pb.EMPTY, wait_for_ready=True)  # nnlint: disable=NNL003 a unary-stream stub call returns its response iterator at once; the pull thread blocks on it, outside the lock
             puller = threading.Thread(target=self._pull_loop, args=(call,),
                                       name=f"{self.name}-pull", daemon=True)
             puller.start()

@@ -56,6 +56,9 @@ class BlockAllocator:
     def used(self) -> int:
         return self.total - len(self._free)
 
+    def can_alloc(self, n: int) -> bool:
+        return n <= len(self._free)
+
     def alloc(self, n: int, owner: object = None) -> Optional[List[int]]:
         """Grant `n` blocks or None (the caller queues)."""
         self.alloc_calls += 1

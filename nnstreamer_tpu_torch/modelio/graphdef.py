@@ -474,9 +474,9 @@ def lower_graphdef(nodes: Sequence[NodeDef],
             want_c = 1
 
         def host_pre(tensors):
-            raw = tensors[0]
-            if isinstance(raw, torch.Tensor):
-                raw = raw.cpu().numpy()
+            from nnstreamer_tpu_torch.runtime.sync import to_host
+
+            raw = to_host((tensors[0],))[0]
             audio, rate = decode_wav_bytes(np.asarray(raw).tobytes(),
                                            want_s, want_c)
             if rate != sample_rate:

@@ -1117,7 +1117,7 @@ def _eval_op(graph: TFLiteGraph, sg: "Subgraph", op: OpDef, get,
             raise BackendError(
                 f"WHILE in {graph.path!r} reads its condition on the host "
                 f"each step; it cannot run inside a CUDA graph capture")
-        while bool(run(cond_idx, carry)[0].reshape(()).item()):
+        while bool(run(cond_idx, carry)[0].reshape(()).item()):  # nnlint: disable=NNL002 WHILE's condition is the model's own host control flow, read each step (refused inside a capture above)
             carry = tuple(run(body_idx, carry))
         return carry
 

@@ -186,3 +186,19 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
         return F.linear(x, self.weight.to(dt)) + self.bias.to(dt)
+
+
+def count_params(params) -> int:
+    """Number of scalars in `params`: a module's parameters and buffers
+    (its BN statistics, which the JAX package keeps in its params tree),
+    or a tree of tensors or arrays in dicts, lists and tuples."""
+    if isinstance(params, nn.Module):
+        return sum(t.numel() for t in params.parameters()) + sum(
+            t.numel() for t in params.buffers())
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    if params is None:
+        return 0
+    return int(torch.as_tensor(params).numel())

@@ -67,7 +67,7 @@ def _start_d2h(o):
 def _host(o) -> np.ndarray:
     """A started copy → numpy, waiting on its event only."""
     if isinstance(o, HostCopy):
-        o.event.synchronize()
+        o.event.synchronize()  # nnlint: disable=NNL002 waits on this started D2H copy's own event, not the stream: the dispatcher's read-back
         o = o.host
     return to_numpy(o) if isinstance(o, torch.Tensor) else np.asarray(o)
 
@@ -151,6 +151,10 @@ class BatchCore:
             self._pending.append((frame, fut))
         self._wake.set()
         return fut
+
+    def infer(self, frame, timeout: Optional[float] = 30.0):
+        """`submit` and wait for the frame's result."""
+        return self.submit(frame).result(timeout)
 
     @property
     def outstanding(self) -> int:

@@ -182,7 +182,7 @@ def all_reduce_(t: torch.Tensor) -> torch.Tensor:
         return t
     dist = _dist()
     if t.is_cuda and dist.get_backend() == "gloo":
-        host = t.cpu()
+        host = t.cpu()  # nnlint: disable=NNL002 gloo reduces host tensors: a staging copy for the collective
         dist.all_reduce(host)
         return t.copy_(host)
     dist.all_reduce(t)
@@ -202,7 +202,7 @@ def fetch_replicated(x) -> np.ndarray:
     if process_count() == 1:
         return to_numpy(local)
     dist = _dist()
-    send = local.cpu() if dist.get_backend() == "gloo" else local
+    send = local.cpu() if dist.get_backend() == "gloo" else local  # nnlint: disable=NNL002 gloo gathers host tensors: a staging copy for the collective
     parts = [torch.empty_like(send) for _ in range(process_count())]
     dist.all_gather(parts, send.contiguous())
-    return to_numpy(torch.cat(parts).cpu())
+    return to_numpy(torch.cat(parts))

@@ -41,6 +41,8 @@ class Channel:
       drained; ``(TIMED_OUT, 0)`` when the ``time.perf_counter()``
       deadline passes first.
     - ``get_nowait()`` never blocks (the compiled loop's sweep).
+    - ``try_put(item)`` never blocks: the depth, or ``None`` when full or
+      closed (leaky and best-effort producers).
     """
 
     __slots__ = ("_buf", "_cap", "_closed", "_lock", "_not_empty",
@@ -61,6 +63,16 @@ class Channel:
             while len(self._buf) >= self._cap and not self._closed:
                 self._not_full.wait()
             if self._closed:
+                return None
+            self._buf.append(item)
+            self._not_empty.notify()
+            return len(self._buf)
+
+    def try_put(self, item: Any) -> Optional[int]:
+        """Non-blocking put: the post-append depth, or ``None`` when the
+        channel is full or closed (item not delivered)."""
+        with self._not_full:
+            if self._closed or len(self._buf) >= self._cap:
                 return None
             self._buf.append(item)
             self._not_empty.notify()
@@ -107,3 +119,15 @@ class Channel:
             self._closed = True
             self._not_empty.notify_all()
             self._not_full.notify_all()
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    @property
+    def capacity(self) -> int:
+        return self._cap
+
+    def qsize(self) -> int:
+        """Items buffered right now (``len`` of a deque is atomic)."""
+        return len(self._buf)

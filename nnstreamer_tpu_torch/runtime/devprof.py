@@ -210,6 +210,15 @@ class DeviceProfiler:
                           bytes_accessed=tensor_bytes(params, inputs, out))
         return out
 
+    @staticmethod
+    def flop_counter():
+        """A FlopCounterMode for a first run a backend counts itself (a
+        window's eager run before its capture): enter it around the run,
+        then report ``get_total_flops()`` through `note_compile`."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        return FlopCounterMode(display=False)
+
     # -- invoke sampling ---------------------------------------------------
     def _pending(self) -> list:
         p = getattr(self._tl, "pending", None)

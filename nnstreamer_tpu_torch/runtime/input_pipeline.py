@@ -71,7 +71,7 @@ class CopyStager:
                        if self.device.type == "cuda" else None)
 
     def __call__(self, x, device: Any = None) -> Any:
-        src = x if isinstance(x, torch.Tensor) else host_tensor(np.asarray(x))
+        src = x if isinstance(x, torch.Tensor) else host_tensor(np.asarray(x))  # nnlint: disable=NNL002 x is the host batch being staged to the device, not a read-back
         if self.stream is None:
             return src.clone()
         if src.is_cuda:
@@ -202,8 +202,7 @@ class DeviceFeeder:
             with self._lock:
                 if self._closed:
                     raise RuntimeError("DeviceFeeder is closed")
-                # non-blocking: _slots caps data at depth, maxsize depth+1
-                self._q.put(staged)
+                self._q.put(staged)  # nnlint: disable=NNL003 non-blocking by invariant: _slots caps data at depth, maxsize=depth+1
         except BaseException:
             self._slots.release()
             raise
@@ -213,7 +212,7 @@ class DeviceFeeder:
         with self._lock:
             if not self._closed:
                 self._closed = True
-                self._q.put(_STOP)  # the +1 slot is reserved for this
+                self._q.put(_STOP)  # nnlint: disable=NNL003 non-blocking by invariant: the +1 queue slot is reserved for this sentinel
 
     def get(self, timeout: Optional[float] = None) -> Optional[Any]:
         item = self._q.get(timeout=timeout)

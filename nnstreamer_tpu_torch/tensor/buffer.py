@@ -11,6 +11,7 @@ D2H transfer per frame.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field, replace
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -127,6 +128,10 @@ class TensorBuffer:
                       for t in self.tensors)
         return TensorsSpec(tensors=infos, format=self.format)
 
+    def matches(self, spec: TensorsSpec) -> bool:
+        """This buffer's runtime type is compatible with `spec`."""
+        return self.spec().is_compatible(spec)
+
     @property
     def on_device(self) -> bool:
         return any(is_device_tensor(t) for t in self.tensors)
@@ -171,3 +176,7 @@ class TensorBuffer:
         where = "dev" if self.on_device else "host"
         return f"TensorBuffer({shapes} @{self.pts} {where})"
 
+
+def now_ns() -> int:
+    """Monotonic nanoseconds (the buffers' timestamp clock)."""
+    return time.monotonic_ns()

@@ -185,6 +185,11 @@ class TensorsSpec:
     def num_tensors(self) -> int:
         return len(self.tensors)
 
+    @property
+    def nbytes(self) -> int:
+        """Byte size of one frame of every tensor."""
+        return sum(t.nbytes for t in self.tensors)
+
     def is_compatible(self, other: "TensorsSpec") -> bool:
         """Flexible streams match anything tensor-typed; static streams
         need per-tensor dtype+shape compatibility."""

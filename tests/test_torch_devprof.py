@@ -477,3 +477,151 @@ def test_flight_cli_empty_dir_exits_nonzero(tmp_path):
     from nnstreamer_tpu_torch.__main__ import main
 
     assert main(["flight", str(tmp_path)]) == 1
+
+
+# -- the LLM executor under the profiler (fault F8) ---------------------------------
+
+_LLM_PROMPTS = [np.random.default_rng(5).integers(0, 61, n).astype(np.int32)
+                for n in (3, 9, 5)]
+
+
+@pytest.fixture(scope="module")
+def llm_params():
+    """(JAX transformer params, the port's bridged copy): tests/test_llm.py's
+    geometry (vocab 61, d 32, 2 layers, 4 heads, 2 kv heads)."""
+    import jax
+
+    from nnstreamer_tpu.models import transformer as jt
+    from nnstreamer_tpu_torch.models import bridge
+
+    jp = jt.init_params(vocab=61, d_model=32, n_layers=2, n_heads=4,
+                        n_kv_heads=2, seed=0)
+    return jp, bridge.transformer_params(
+        jax.tree_util.tree_map(np.asarray, jp))
+
+
+def _profiled_engine(engine_cls, prof, params, **kw):
+    """Serve _LLM_PROMPTS through `engine_cls` (prewarmed) under `prof`,
+    counting each note_dispatch by (filter, bucket) → (dispatch counts,
+    stats(), tokens, engine)."""
+    from collections import Counter
+
+    calls = Counter()
+    note = prof.note_dispatch
+
+    def spy(filt, bucket, *a, **k):
+        calls[(filt, bucket)] += 1
+        return note(filt, bucket, *a, **k)
+
+    prof.reset()
+    prof.enable(True)
+    prof.note_dispatch = spy
+    try:
+        eng = engine_cls(params, n_heads=4, block_size=4, num_blocks=32,
+                         max_batch=4, max_len=64, **kw)
+        eng.prewarm(16)
+        reqs = [eng.submit(p, max_new_tokens=6) for p in _LLM_PROMPTS]
+        eng.drain()
+        st = prof.stats()
+    finally:
+        del prof.note_dispatch
+        prof.enable(False)
+    return calls, st, [list(r.tokens) for r in reqs], eng
+
+
+@pytest.mark.parametrize("kw", [
+    {"paged_kernel": "xla"},
+    {"paged_kernel": "pallas", "prefill_chunk": 4, "decode_window": 4},
+    {"paged_kernel": "xla", "decode_window": 4},
+], ids=["xla", "pallas-chunked-window", "xla-window"])
+def test_llm_executor_profiler_rows_equal_jax(llm_params, kw):
+    """The port's PagedLLMExecutor reports to the profiler as JAX's does:
+    on the same prompts and params (prewarmed, the same engine schedule),
+    the same dispatch counts under the same bucket names (prefill:N,
+    chunk:N, decode:N, decmulti:BxK, the warm runs under the bucket they
+    warm), one first-run (jit) row per bucket JAX compiles, and a
+    model:llm row of params + KV pool bytes equal to JAX's. The port
+    samples every dispatch (its stamps queue per thread until the next
+    device_sync); JAX keeps one stamp a thread, so a step's batched
+    prefills leave it one sample — its counts are at most the port's."""
+    from nnstreamer_tpu.llm import LLMEngine as JaxEngine
+    from nnstreamer_tpu.runtime import devprof as jdevprof
+    from nnstreamer_tpu_torch.llm import LLMEngine
+
+    jp, tp = llm_params
+    jcalls, jst, jtok, _ = _profiled_engine(JaxEngine, jdevprof.get(),
+                                            dict(jp), **kw)
+    calls, st, tok, eng = _profiled_engine(LLMEngine, devprof.get(), tp,
+                                           **kw)
+    assert tok == jtok
+    assert calls == jcalls and set(calls) == {
+        ("llm", r["bucket"]) for r in st["invoke"]}
+    samples = {r["bucket"]: r["samples_total"] for r in st["invoke"]}
+    assert samples == {b: n for (_, b), n in calls.items()}
+    for r in jst["invoke"]:
+        assert 0 < r["samples_total"] <= samples[r["bucket"]]
+    assert [(r["filter"], r["bucket"], r["compiles"]) for r in st["jit"]] \
+        == [(r["filter"], r["bucket"], r["compiles"]) for r in jst["jit"]]
+    ex = eng.executor
+    want = devprof.tensor_bytes(ex.params, ex.cache.k, ex.cache.v)
+    assert st["hbm"] == jst["hbm"] == [
+        {"device": "-", "kind": "model:llm", "bytes": float(want)}]
+
+
+def test_tensor_llm_reports_every_dispatch(llm_params):
+    """appsrc ! tensor_llm ! tensor_sink with the profiler on: a
+    model:<element> row of the placed params plus the pool's k and v, an
+    invoke row for every bucket the executor ran (warm runs included)
+    with one sample per dispatch, and a first-run row for every bucket but
+    the decode windows'."""
+    from nnstreamer_tpu_torch import Pipeline, PipelineRunner
+    from nnstreamer_tpu_torch.backends.torch_backend import ModelBundle
+    from nnstreamer_tpu_torch.elements import AppSrc, TensorLLM, TensorSink
+    from nnstreamer_tpu_torch.serving.store import get_store, reset_store
+    from nnstreamer_tpu_torch.tensor.buffer import TensorBuffer
+    from nnstreamer_tpu_torch.tensor.info import TensorFormat, TensorsSpec
+
+    reset_store()
+    get_store().register("llm_prof_t", ModelBundle(fn=None,
+                                                   params=llm_params[1]))
+    src = AppSrc(name="src", spec=TensorsSpec(tensors=(),
+                                              format=TensorFormat.FLEXIBLE))
+    llm = TensorLLM(name="gen", model="store://llm_prof_t", block_size=4,
+                    num_blocks=32, max_batch=4, max_len=64, n_heads=4,
+                    paged_kernel="pallas", prefill_chunk=4, prewarm=16)
+    sink = TensorSink(name="sink")
+    pipe = Pipeline()
+    for e in (src, llm, sink):
+        pipe.add(e)
+    pipe.link(src, llm)
+    pipe.link(llm, sink)
+    prof = devprof.get()
+    prof.reset()
+    prof.enable(True)
+    runner = PipelineRunner(pipe).start()
+    try:
+        for i, p in enumerate(_LLM_PROMPTS):
+            src.push(TensorBuffer(tensors=(p,), pts=i, meta={"llm": {
+                "request_id": f"r{i}", "max_new_tokens": 4}}))
+        src.end()
+        runner.wait(60)
+        st = prof.stats()
+        ex = llm.engine.executor
+        want = devprof.tensor_bytes(ex.params, ex.cache.k, ex.cache.v)
+        ran = {f"{k[0]}:{k[1]}x{k[2]}" if k[0] == "decmulti"
+               else f"{k[0]}:{k[1]}" for k in ex._seen}
+        dispatches = (ex.prefills + ex.chunk_prefills + ex.decode_steps
+                      - ex.window_steps + ex.decode_windows
+                      + llm.warm_compiles)
+    finally:
+        runner.stop()
+        prof.enable(False)
+        reset_store()
+    assert len([b for b in sink.results]) > 0
+    assert st["hbm"] == [{"device": "-", "kind": "model:gen",
+                          "bytes": float(want)}]
+    assert {r["bucket"] for r in st["invoke"]} == ran
+    assert all(r["filter"] == "gen" for r in st["invoke"] + st["jit"])
+    assert sum(r["samples_total"] for r in st["invoke"]) == dispatches
+    assert {r["bucket"] for r in st["jit"]} == {
+        b for b in ran if not b.startswith("decmulti")}

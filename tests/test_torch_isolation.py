@@ -101,6 +101,10 @@ import nnstreamer_tpu_torch.parallel.moe
 import nnstreamer_tpu_torch.parallel.multihost
 import nnstreamer_tpu_torch.parallel.dryrun
 import nnstreamer_tpu_torch.tools.multihost_check
+import nnstreamer_tpu_torch.analysis
+import nnstreamer_tpu_torch.analysis.cli
+import nnstreamer_tpu_torch.analysis.rules
+import nnstreamer_tpu_torch.analysis.contract
 bad = [m for m in sys.modules if m in ("jax", "nnstreamer_tpu")
        or m.startswith(("jax.", "nnstreamer_tpu."))]
 assert not bad, bad
@@ -160,7 +164,14 @@ PARALLEL_MODULES = ("parallel/__init__.py", "parallel/dispatch.py",
                     "trainer/element.py", "edge/query.py")
 
 
-@pytest.mark.parametrize("rel", SLICE_MODULES + PARALLEL_MODULES)
+#: the lint package (analysis/): the scan above must reach each module
+ANALYSIS_MODULES = ("analysis/__init__.py", "analysis/core.py",
+                    "analysis/rules.py", "analysis/cli.py",
+                    "analysis/contract.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES + PARALLEL_MODULES
+                         + ANALYSIS_MODULES)
 def test_scan_covers_the_placement_and_profiler_modules(rel):
     path = PORT / rel
     assert path in sorted(PORT.rglob("*.py"))

@@ -12,8 +12,9 @@ prints one `done` line a request, its tokens those of the same
 `--host`, `--trace`, `--flight-dir`, `--autotune`) exits as JAX's does
 (`test_torch_loadgen.py` runs its pool modes); `scenario list` names
 JAX's catalog, `scenario run` then `scenario replay` match
-(`test_torch_scenario.py` runs `shrink`). `lint`, not ported yet, exits
-2 naming its item.
+(`test_torch_scenario.py` runs `shrink`). `lint`, the last subcommand
+that was refused (exit 2 naming its Queue 1 item), now runs
+(`test_torch_lint.py` holds it to JAX's).
 """
 
 import json
@@ -240,11 +241,14 @@ def test_llm_prints_the_tokens_of_tensor_llm(monkeypatch, capsys):
 
 @pytest.mark.parametrize("cmd,item", [("lint", "5d")])
 def test_unported_subcommands_exit_2_naming_their_item(cmd, item, capsys):
+    """The refusal is gone with the last item that had one: `lint`
+    (Queue 1 item 5d) runs instead of exiting 2 naming its item."""
     from nnstreamer_tpu_torch.__main__ import main
 
-    assert main([cmd]) == 2
-    err = capsys.readouterr().err
-    assert f"Queue 1 item {item}" in err and "not ported yet" in err
+    assert main([cmd, "--list-rules"]) == 0
+    cap = capsys.readouterr()
+    assert f"Queue 1 item {item}" not in cap.err
+    assert "not ported yet" not in cap.err and "NNL001" in cap.out
 
 
 def _cli_json(capsys, argv):
